@@ -1,0 +1,316 @@
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` (nvcc,
+sm_90a), holds each against its plain PyTorch version on the card at the
+main path's shapes, reproduces the committed golden selections on the card,
+and drives the main path — the synchronous ACSP-FL round (DLD layer
+sharing, int8 uplink with error feedback, masked-partial aggregation) on
+the UCI-HAR stand-in at the paper's full har-mlp width — through
+``repro_torch.fl.run_federated``. Every phase prints one line; the kernel
+table is one JSON line; the last line is ``{"ok": true, "device": ...}``.
+Any failed check exits non-zero before that line. Needs a CUDA card and the
+repository's ``src/`` beside this file; imports neither jax nor the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch import random as prng  # noqa: E402
+from repro_torch.data import make_federated_classification, make_har_dataset  # noqa: E402
+from repro_torch.device import full_precision_matmuls  # noqa: E402
+from repro_torch.fl import FLConfig, run_federated  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_plain  # noqa: E402
+from repro_torch.kernels.quantize import (  # noqa: E402
+    dequantize,
+    dequantize_plain,
+    quant_blocks,
+    quantize,
+    quantize_plain,
+)
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate and fp32
+# (non-tensor-core) rate — the kernels' arithmetic is plain fp32
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+K = 30                        # UCI-HAR clients: every lane of the dense cohort
+HAR_MLP = (561, 256, 256, 256, 6)
+# leaves of one har-mlp round in tree order (each layer's 'b' then 'w')
+LEAVES = [s for i, o in zip(HAR_MLP[:-1], HAR_MLP[1:]) for s in ((o,), (i, o))]
+
+# tests/test_fl_api.py: the small_ds fixture and the committed goldens
+# (drawn from jax's legacy threefry stream)
+SMALL_DS = dict(n_clients=8, n_classes=4, n_features=20, samples_per_client_range=(60, 90),
+                dirichlet_alpha=50.0, client_shift=0.05, class_sep=5.0, seed=1)
+GOLDEN = {
+    "acsp-fl+dld+float32": (dict(), "9022033f6842293f97df533f117e613f428a6e3f",
+                            ["11111111", "11110100", "10001100", "01000101", "00111100"]),
+    "fedavg+none+float32": (dict(strategy="fedavg", personalization="none", fraction=1.0),
+                            "9022033ff082713f38cb733f38cb733f38cb733f", ["11111111"] * 5),
+    "oort+ft+float32": (dict(strategy="oort", personalization="ft", fraction=0.5),
+                        "dab4073f08bf6c3f38cb6d3f38cb753fd264773f",
+                        ["11111111", "10010110", "10010101", "01010101", "10010101"]),
+    "acsp-fl+dld+int8": (dict(codec="int8"), "9022033f6842293f97df533f117e613f428a6e3f",
+                         ["11111111", "11110100", "10001100", "01000101", "00111100"]),
+}
+
+# masked_aggregate contract against its plain version: 1 ulp of the result
+# (same ascending client order, one rounding per product and per sum)
+AGG_ULP_BOUND = 1
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time in ms of ``fn`` run eagerly from the host
+    (what a caller pays, launch overhead included), after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time in ms of one replay of ``fn``'s launches
+    captured in a CUDA graph: the device's time for the work, without the
+    host's launch overhead between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps)
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in ulps of ``a``'s dtype (monotone integer map)."""
+    int_dtype = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    ia, ib = (t.contiguous().view(int_dtype).to(torch.int64) for t in (a, b))
+    sign = 0x7FFFFFFF if a.dtype == torch.float32 else 0x7FFF
+    ia = torch.where(ia < 0, -(ia & sign), ia)
+    ib = torch.where(ib < 0, -(ib & sign), ib)
+    return int((ia - ib).abs().max())
+
+
+def phase_environment() -> None:
+    full_precision_matmuls()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
+          f"tf32 {torch.backends.cuda.matmul.allow_tf32} "
+          f"matmul_precision {torch.get_float32_matmul_precision()}")
+    print(smi.splitlines()[0])
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    per_kernel = build.build()
+    print(f"[build] {time.perf_counter() - t0:.2f} s wall for {sorted(per_kernel) or 'nothing (cached)'}"
+          f" {json.dumps({k: round(v, 2) for k, v in per_kernel.items()})}")
+
+
+def phase_kernels(dev: torch.device) -> dict:
+    """Each kernel against its plain version at the main path's shapes; one
+    entry per kernel with its times and bound for one round's 8 leaves."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn((K, int(np.prod(s))), generator=gen, device=dev) * 0.01 for s in LEAVES]
+    us = [torch.rand(x.shape, generator=gen, device=dev) for x in xs]
+    elems = sum(x.numel() for x in xs)
+    blocks = sum(K * quant_blocks(x.shape[1])[1] for x in xs)
+
+    # quantize / dequantize: bitwise, int8 and int4
+    q_err = d_err = 0.0
+    for bits in (8, 4):
+        for x, u in zip(xs, us):
+            for noise in (u, None):
+                q, s = quantize(x, noise, bits=bits)
+                qp, sp = quantize_plain(x, noise, bits=bits)
+                check(torch.equal(q, qp) and torch.equal(s, sp),
+                      f"quantize bits={bits} shape={tuple(x.shape)} differs from its plain version")
+                q_err = max(q_err, float((q.float() - qp.float()).abs().max()),
+                            float((s - sp).abs().max()))
+                d, dp = dequantize(q, s), dequantize_plain(qp, sp)
+                check(torch.equal(d, dp), f"dequantize bits={bits} shape={tuple(x.shape)} differs")
+                d_err = max(d_err, float((d - dp).abs().max()))
+    codes = [quantize(x, u) for x, u in zip(xs, us)]
+
+    # masked_aggregate: f32 (the main path) and bf16, client weights are
+    # 0/1 selections times sample counts; then all-zero weights -> fallback
+    leaves = [x.reshape((K,) + s) for x, s in zip(xs, LEAVES)]
+    fallbacks = [torch.randn(s, generator=gen, device=dev) for s in LEAVES]
+    sel = torch.rand(K, generator=gen, device=dev) < 0.5
+    counts = torch.randint(224, 328, (K,), generator=gen, device=dev).float()
+    w = sel.float() * counts
+    agg_err, agg_ulp = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0
+        for x, fb in zip(leaves, fallbacks):
+            xd, fd = x.to(dtype), fb.to(dtype)
+            got, want = masked_aggregate(xd, w, fd), masked_aggregate_plain(xd, w, fd)
+            check(got.dtype == dtype and got.shape == fb.shape, "masked_aggregate dtype/shape")
+            worst = max(worst, ulp_gap(got, want))
+            if dtype == torch.float32:
+                agg_err = max(agg_err, float((got - want).abs().max()))
+            zero = masked_aggregate(xd, torch.zeros_like(w), fd)
+            check(torch.equal(zero, fd), f"masked_aggregate {dtype} zero weights: fallback not exact")
+        check(worst <= AGG_ULP_BOUND, f"masked_aggregate {dtype}: {worst} ulp > {AGG_ULP_BOUND}")
+        agg_ulp[str(dtype).replace("torch.", "")] = worst
+    print(f"[kernels] quantize/dequantize bitwise (int8, int4, stochastic and nearest); "
+          f"masked_aggregate ulp gap vs plain {json.dumps(agg_ulp)} (bound {AGG_ULP_BOUND}), "
+          f"zero-weight fallback exact")
+
+    # times over one round's 8 leaves (K = 30 client rows each); the JSON
+    # line's ms / plain_ms / library_ms are device times (CUDA-graph replays)
+    def run_quantize(): return [quantize(x, u) for x, u in zip(xs, us)]
+    def run_quantize_plain(): return [quantize_plain(x, u) for x, u in zip(xs, us)]
+    def run_dequantize(): return [dequantize(q, s) for q, s in codes]
+    def run_dequantize_plain(): return [dequantize_plain(q, s) for q, s in codes]
+    def run_agg(): return [masked_aggregate(x, w, fb) for x, fb in zip(leaves, fallbacks)]
+    def run_agg_plain(): return [masked_aggregate_plain(x, w, fb) for x, fb in zip(leaves, fallbacks)]
+    def run_mv(): return [torch.mv(x.reshape(K, -1).T, w) for x in leaves]
+
+    p_total = sum(fb.numel() for fb in fallbacks)
+    q_bound, q_by = bound_ms(elems * (4 + 4 + 1) + blocks * 4, elems * 6)
+    d_bound, d_by = bound_ms(elems * (1 + 4) + blocks * 4, elems)
+    # x and w read, the mean written; the fallback is read only where the
+    # weights sum to 0
+    fallback_read = p_total * 4 if float(w.sum()) == 0 else 0
+    a_bound, a_by = bound_ms(elems * 4 + K * 4 * len(leaves) + p_total * 4 + fallback_read,
+                             2 * elems + p_total)
+    eager = {name: cuda_ms(fn) for name, fn in (
+        ("quantize", run_quantize), ("dequantize", run_dequantize), ("masked_aggregate", run_agg))}
+    print(f"[kernels] one round's 8 leaves launched eagerly from the host (launch overhead "
+          f"included), ms: {json.dumps(eager)}")
+    src = "src/repro_torch/csrc/"
+    return {
+        "quantize": dict(route="cuda", source=src + "quantize.cu",
+                         replaces="src/repro/kernels/quantize/kernel.py:48",
+                         max_abs_err=q_err, ms=device_ms(run_quantize),
+                         plain_ms=device_ms(run_quantize_plain), bound_ms=q_bound, bound_by=q_by,
+                         library_ms=None),
+        "dequantize": dict(route="cuda", source=src + "quantize.cu",
+                           replaces="src/repro/kernels/quantize/kernel.py:79",
+                           max_abs_err=d_err, ms=device_ms(run_dequantize),
+                           plain_ms=device_ms(run_dequantize_plain), bound_ms=d_bound,
+                           bound_by=d_by, library_ms=None),
+        "masked_aggregate": dict(route="cuda", source=src + "masked_aggregate.cu",
+                                 replaces="src/repro/kernels/masked_aggregate/kernel.py:37",
+                                 max_abs_err=agg_err, ms=device_ms(run_agg),
+                                 plain_ms=device_ms(run_agg_plain), bound_ms=a_bound,
+                                 bound_by=a_by, library_ms=device_ms(run_mv)),
+    }
+
+
+def phase_goldens(dev: torch.device) -> None:
+    """The committed golden configurations on the card: the selections must
+    be the committed bitstrings; accuracy is printed beside the golden."""
+    ds = make_federated_classification(**SMALL_DS)
+    gaps = {}
+    with prng.threefry_partitionable(False):
+        for name, (cfg, acc_hex, want_bits) in sorted(GOLDEN.items()):
+            h = run_federated(ds, FLConfig(rounds=5, epochs=1, **cfg), device=dev)
+            got_bits = ["".join("1" if b else "0" for b in row) for row in h.selected]
+            check(got_bits == want_bits, f"golden {name}: selected {got_bits} != {want_bits}")
+            want_acc = np.frombuffer(bytes.fromhex(acc_hex), np.dtype("<f4"))
+            gaps[name] = float(np.abs(h.accuracy_mean.astype(np.float32) - want_acc).max())
+            print(f"[golden] {name} selected ok; accuracy_mean "
+                  f"{np.round(h.accuracy_mean, 6).tolist()} golden {np.round(want_acc, 6).tolist()}")
+    print(f"[golden] largest accuracy_mean gap to the committed goldens: {max(gaps.values()):.3g} "
+          f"{json.dumps(gaps)}")
+
+
+def phase_main_path(dev: torch.device) -> dict[str, int]:
+    """UCI-HAR at full width: ACSP-FL + DLD + int8 (5 rounds), then
+    FedAvg float32 (3 rounds), each with the kernel counts zeroed just
+    before and read just after."""
+    data = make_har_dataset("uci-har", seed=0)
+    runs = [("acsp-fl+dld+int8", FLConfig(codec="int8", rounds=5, epochs=2)),
+            ("fedavg+none+float32", FLConfig(strategy="fedavg", personalization="none",
+                                             fraction=1.0, rounds=3, epochs=2))]
+    main_counts = None
+    for name, cfg in runs:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        h = run_federated(data, cfg, device=dev)
+        counts = kernels.launch_counts()
+        check(np.isfinite(h.accuracy_mean).all(), f"{name}: non-finite accuracy")
+        check(h.accuracy_per_client.shape == (cfg.rounds, data.n_clients), f"{name}: history shape")
+        check(h.accuracy_mean[-1] > h.accuracy_mean[0], f"{name}: accuracy did not rise")
+        if main_counts is None:
+            check(all(v > 0 for v in counts.values()), f"{name}: a kernel never launched {counts}")
+            main_counts = counts
+        else:
+            check(counts["masked_aggregate"] > 0 and counts["quantize"] == 0,
+                  f"{name}: float32 rounds must aggregate through the kernel only {counts}")
+        print(f"[main] {name} uci-har C={data.n_clients} har-mlp {'-'.join(map(str, HAR_MLP))}: "
+              f"accuracy_mean {np.round(h.accuracy_mean, 4).tolist()} "
+              f"selected/round {h.selected.sum(axis=1).tolist()} "
+              f"round wall median {1e3 * statistics.median(h.wall_time[1:]):.1f} ms "
+              f"(first {1e3 * h.wall_time[0]:.1f} ms) "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"launches {json.dumps(counts)}")
+    return main_counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    phase_environment()
+    phase_build()
+    table = phase_kernels(dev)
+    phase_goldens(dev)
+    launches = phase_main_path(dev)
+    print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
+                                  for name, row in table.items()]}))
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

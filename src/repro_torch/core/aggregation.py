@@ -1,0 +1,86 @@
+"""Federated aggregation (paper Eq. 1) with selection and layer masks — the
+port of the JAX package's ``core/aggregation.py``.
+
+Every weighted mean goes through the ``masked_aggregate`` op
+(``repro_torch.kernels.masked_aggregate``): its CUDA kernel on the card,
+its plain version on the CPU. (The JAX package reduces in jnp here and
+only tests its Pallas kernel.)
+
+Client parameters are *stacked*: leaves carry a leading client axis (C, ...);
+a layered model is a list of such trees. The JAX package's sharded
+(``axis_name``) and edge-server (``edge_ids``) reductions come with
+ROADMAP.md queue 1 items 12 and 10; passing them raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.masked_aggregate import masked_aggregate
+from repro_torch.tree import tree_map
+
+
+def _no_sharding(axis_name, edge_ids) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name (sharded cohort aggregation) is not ported yet: "
+            "ROADMAP.md queue 1 item 12"
+        )
+    if edge_ids is not None:
+        raise NotImplementedError(
+            "edge_ids (two-level edge aggregation) is not ported yet: "
+            "ROADMAP.md queue 1 item 10"
+        )
+
+
+def fedavg_aggregate(client_params, select_mask, n_samples, axis_name=None, edge_ids=None,
+                     n_edges: int = 0):
+    """Eq. (1): w <- sum_i (|d_i|/|D|) w_i over *selected* clients; a leaf
+    nobody contributed to becomes zeros."""
+    _no_sharding(axis_name, edge_ids)
+    weights = select_mask.to(torch.float32) * n_samples.to(torch.float32)
+    return tree_map(lambda x: masked_aggregate(x, weights), client_params)
+
+
+def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples, share_mask,
+                             axis_name=None, edge_ids=None, n_edges: int = 0):
+    """ACSP-FL aggregation: layer j averages the clients with
+    ``select_mask[i] & share_mask[i, j]``; a layer nobody shared keeps the
+    previous global value. ``share_mask`` is (C, L) or (L,)."""
+    _no_sharding(axis_name, edge_ids)
+    n_layers = len(client_params)
+    share_mask = torch.as_tensor(share_mask)
+    if share_mask.ndim == 1:
+        share_mask = share_mask[None, :].expand(select_mask.shape[0], n_layers)
+    base = select_mask.to(torch.float32) * n_samples.to(torch.float32)
+    out = []
+    for j in range(n_layers):
+        w_j = base * share_mask[:, j].to(torch.float32)
+        out.append(
+            tree_map(lambda x, g, w_j=w_j: masked_aggregate(x, w_j, g),
+                     client_params[j], prev_global[j])
+        )
+    return out
+
+
+def finite_update_guard(select_mask, update_norm, max_norm: float = 0.0):
+    """``(ok, n_rejected)``: lanes whose transmitted update norm is finite
+    (and, with ``max_norm > 0``, at most ``max_norm``), and the int32 count
+    of selected lanes that failed."""
+    ok = torch.isfinite(update_norm)
+    if max_norm > 0.0:
+        ok = ok & (update_norm <= max_norm)
+    n_rejected = torch.sum(select_mask & ~ok).to(torch.int32)
+    return ok, n_rejected
+
+
+def transmitted_parameters(select_mask, share_mask, layer_sizes) -> torch.Tensor:
+    """Analytic one-way transmitted parameter count for a round: over
+    selected clients, the sizes of the layers each shares (float32, as the
+    JAX package computes it)."""
+    share = torch.as_tensor(share_mask)
+    if share.ndim == 1:
+        share = share[None, :].expand(select_mask.shape[0], share.shape[0])
+    sizes = torch.as_tensor(layer_sizes, dtype=torch.float32, device=share.device)
+    per_client = share.to(torch.float32) @ sizes
+    return torch.sum(per_client * select_mask.to(torch.float32))

@@ -1,0 +1,171 @@
+// Masked weighted client average (the paper's Eq. 1 server reduction) for
+// sm_90a — the port's aggregation kernel.
+//
+// Replaces the Pallas TPU kernel of the JAX package:
+//   src/repro/kernels/masked_aggregate/kernel.py:masked_aggregate_kernel
+//   (_agg_kernel)
+//
+// What it computes, for x (C, P) of float32 or bfloat16, weights w (C,)
+// float32 and an optional fallback (P,) of x's type:
+//   total  = sum_c w[c]
+//   out[p] = total > 0 ? (sum_c w[c] * x[c, p]) / max(total, 1e-12)
+//                      : fallback[p]   (0 without a fallback)
+// accumulated in float32 and written in x's type. The aggregators pass
+// w = selected * |d_i| (fedavg) or that times the layer's share mask
+// (masked-partial, with the previous global layer as fallback).
+//
+// Bound on an H100 (3.35 TB/s): bytes. The kernel reads x once (4 or 2 B an
+// element) and writes P outputs, against 2 flops per x element; it reads the
+// fallback only where the weights sum to 0. At K = 30 clients the 8 har-mlp
+// leaves are 8.31 M client elements: 33.2 MB of x plus 1.1 MB of output,
+// 34.3 MB or 10.3 us a round when some client carries weight.
+//
+// Design: the TPU kernel holds a (C, 512) tile in VMEM and sums over C in
+// one step; here blocks run in parallel with no carried state, so the C
+// loop runs inside each thread instead. A thread owns 4 neighbouring
+// columns, so a warp reads 128 consecutive elements of a client row per
+// step (one 16-byte load a thread where aligned), and walks the rows c in
+// ascending order, accumulating in float32 registers. It issues the loads
+// of 4 rows before it adds them, so each thread keeps 4 loads in flight,
+// and blocks are 64 threads (256 columns), so even a 65,536-element leaf
+// spreads over all 132 SMs. The weights are
+// staged in shared memory 1024 at a time, and each thread sums them itself
+// in the same ascending order, so every thread sees the same total with no
+// second pass. Products and sums are rounded one at a time (__fmul_rn,
+// __fadd_rn: no fused multiply-add) and the division is IEEE (__fdiv_rn),
+// so the result equals the plain version's ascending loop exactly; the
+// order differs from jnp's reduction, hence a stated ulp bound against the
+// JAX package.
+//
+// Built by nvcc into a shared library with a C interface
+// (repro_torch/kernels/build.py); the Python wrapper in
+// repro_torch/kernels/masked_aggregate/ops.py launches it on torch's
+// current stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 64;
+constexpr int kCols = 4;
+constexpr int kWeightChunk = 1024;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Loads kCols neighbouring elements starting at p (all in range) as float.
+__device__ __forceinline__ void load_cols(const float* p, float v[kCols]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    for (int k = 0; k < kCols; ++k) v[k] = p[k];
+  }
+}
+
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float v[kCols]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 7u) == 0) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
+    for (int k = 0; k < kCols; ++k) v[k] = __bfloat162float(h[k]);
+  } else {
+    for (int k = 0; k < kCols; ++k) v[k] = __bfloat162float(p[k]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+masked_aggregate_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ fallback, T* __restrict__ out,
+                        int c_rows, int64_t p_cols) {
+  __shared__ float w_s[kWeightChunk];
+  const int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
+  const bool full = p0 + kCols <= p_cols;
+  float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float total = 0.0f;
+  for (int c0 = 0; c0 < c_rows; c0 += kWeightChunk) {
+    const int m = c_rows - c0 < kWeightChunk ? c_rows - c0 : kWeightChunk;
+    __syncthreads();  // the previous chunk's weights are no longer read
+    for (int i = threadIdx.x; i < m; i += kThreads) w_s[i] = w[c0 + i];
+    __syncthreads();
+    int c = 0;
+    if (full) {
+      // 4 rows' loads in flight, then the adds in ascending row order
+      for (; c + 4 <= m; c += 4) {
+        const T* row = x + static_cast<int64_t>(c0 + c) * p_cols + p0;
+        float v[4][kCols];
+        for (int r = 0; r < 4; ++r) load_cols(row + r * p_cols, v[r]);
+        for (int r = 0; r < 4; ++r) {
+          const float wc = w_s[c + r];
+          total = __fadd_rn(total, wc);
+          for (int k = 0; k < kCols; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wc, v[r][k]));
+        }
+      }
+    }
+    for (; c < m; ++c) {
+      const float wc = w_s[c];
+      total = __fadd_rn(total, wc);
+      if (p0 >= p_cols) continue;
+      const T* row = x + static_cast<int64_t>(c0 + c) * p_cols + p0;
+      float v[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (full) {
+        load_cols(row, v);
+      } else {
+        for (int k = 0; p0 + k < p_cols; ++k) v[k] = to_f32(row[k]);
+      }
+      for (int k = 0; k < kCols; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wc, v[k]));
+    }
+  }
+  if (p0 >= p_cols) return;
+  const float denom = fmaxf(total, 1e-12f);
+  for (int k = 0; k < kCols && p0 + k < p_cols; ++k) {
+    float r;
+    if (total > 0.0f) {
+      r = __fdiv_rn(acc[k], denom);
+    } else {
+      r = fallback ? to_f32(fallback[p0 + k]) : 0.0f;
+    }
+    out[p0 + k] = from_f32<T>(r);
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* fallback, void* out,
+           int c_rows, int64_t p_cols, void* stream) {
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kCols;
+  const int64_t blocks = (p_cols + per_block - 1) / per_block;
+  if (blocks > 0) {
+    masked_aggregate_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w),
+        static_cast<const T*>(fallback), static_cast<T*>(out), c_rows, p_cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. fallback may be null (zeros).
+// Returns cudaGetLastError() after the launch (0 = launched).
+int repro_masked_aggregate(const void* x, const void* w, const void* fallback,
+                           void* out, int c_rows, int64_t p_cols, int dtype,
+                           void* stream) {
+  if (dtype == 0) return launch<float>(x, w, fallback, out, c_rows, p_cols, stream);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, fallback, out, c_rows, p_cols, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

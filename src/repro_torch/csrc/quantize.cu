@@ -1,0 +1,203 @@
+// Per-block absmax int8/int4 quantization with stochastic rounding, and its
+// inverse, for sm_90a — the port's wire-codec kernels.
+//
+// Replaces the Pallas TPU kernels of the JAX package:
+//   src/repro/kernels/quantize/kernel.py:quantize_kernel   (_quant_kernel)
+//   src/repro/kernels/quantize/kernel.py:dequantize_kernel (_dequant_kernel)
+//
+// What it computes, per row r of a (R, n) batch and per block b of bp
+// elements of that row (bp = min(block, max(n, 8)), nb = ceil(n / bp), as
+// the JAX wrapper's quant_blocks):
+//   scale[r, b] = max(max|x[r, block b]|, 1e-12) * float32(1 / qmax)
+//                                                  (qmax 127 or 7)
+//   q[r, p]     = clip(floor(x[r, p] / scale + u[r, p]), -qmax, qmax)  int8
+//   xhat[r, p]  = q[r, p] * scale[r, p / bp]                  (dequantize)
+// u is uniform noise in [0, 1) drawn outside (the port's threefry, the JAX
+// package's bits), or 0.5 everywhere (round to nearest) when u is null.
+//
+// Bound on an H100 (3.35 TB/s, ~67 TFLOP/s fp32): bytes. quantize reads x
+// and u (8 B) and writes q and the scales (~1 B): ~9 B/element against ~5
+// flops/element, far below the card's ~20 flop/B ridge. The 8 har-mlp
+// leaves at K = 30 client rows are 8.31 M elements, ~75 MB, ~22 us a round;
+// dequantize moves ~5 B/element, ~42 MB, ~12 us.
+//
+// Design: one thread block per (row, bp-block); each row is cut into blocks
+// on its own, like JAX's per-client vmap, so every client's scales match.
+// The ragged tail of a row is masked in the kernel instead of padded in
+// memory (a padded zero never raises max|x|). Threads read 4 neighbouring
+// elements with one 16-byte load where the address allows; max|x| is
+// reduced with warp shuffles and shared memory, thread 0 writes the scale,
+// and the block then reads its 2 KB again from L1/L2 to write the codes (x
+// and u as 16-byte loads, 4 codes as one 4-byte store), so device memory
+// sees each byte once. Arithmetic is IEEE (__fdiv_rn, __fadd_rn, no fast
+// math): an approximate division can move x/scale + u across an integer and
+// flip floor(), and the codes must equal the plain version's bitwise. The
+// scale is a product with float32(1 / qmax), not a division by qmax: XLA
+// rewrites the JAX oracle's division by the constant qmax into that
+// product, and the reference trajectories were made with it. A NaN in a
+// block makes its scale NaN (fmaxf alone would drop it) and its codes 0, so
+// the decoded update stays non-finite and the round's finite-update guard
+// still rejects it. dequantize gives each thread 4 neighbouring elements
+// (a 4-byte load of codes, a 16-byte store where aligned) and finds each
+// element's scale with 32-bit index arithmetic (the wrapper checks n fits).
+//
+// Built by nvcc into a shared library with a C interface
+// (repro_torch/kernels/build.py); the Python wrappers in
+// repro_torch/kernels/quantize/ops.py launch it on torch's current stream.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kVec = 4;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// One code: clip(floor(x / scale + u), +-qmax), IEEE-rounded; NaN -> 0.
+__device__ __forceinline__ int8_t code(float x, float u, float scale, float qmax) {
+  const float t = floorf(__fadd_rn(__fdiv_rn(x, scale), u));
+  return (t != t) ? int8_t(0) : static_cast<int8_t>(fminf(fmaxf(t, -qmax), qmax));
+}
+
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                int8_t* __restrict__ q, float* __restrict__ scales,
+                int64_t n, int bp, int nb, float qmax, float inv_qmax) {
+  const int64_t row = blockIdx.x / nb;
+  const int blk = blockIdx.x % nb;
+  const int64_t start = static_cast<int64_t>(blk) * bp;
+  const int64_t rest = n - start;
+  const int len = rest < bp ? static_cast<int>(rest) : bp;
+  const float* xb = x + row * n + start;
+  const float* ub = u ? u + row * n + start : nullptr;
+  int8_t* qb = q + row * n + start;
+  const bool vec_x = aligned16(xb);
+
+  // pass 1: max |x| over the block (and whether it holds a NaN)
+  float amax = 0.0f;
+  bool nan_seen = false;
+  for (int i = threadIdx.x * kVec; i < len; i += kThreads * kVec) {
+    if (vec_x && i + kVec <= len) {
+      const float4 v = *reinterpret_cast<const float4*>(xb + i);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+      nan_seen |= (v.x != v.x) | (v.y != v.y) | (v.z != v.z) | (v.w != v.w);
+    } else {
+      for (int k = i; k < min(i + kVec, len); ++k) {
+        const float v = xb[k];
+        amax = fmaxf(amax, fabsf(v));
+        nan_seen |= (v != v);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
+  nan_seen = __any_sync(0xffffffffu, nan_seen);
+  __shared__ float warp_max[kWarps];
+  __shared__ int warp_nan[kWarps];
+  __shared__ float block_scale;
+  const int warp = threadIdx.x / 32;
+  if ((threadIdx.x & 31) == 0) {
+    warp_max[warp] = amax;
+    warp_nan[warp] = nan_seen ? 1 : 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = warp_max[0];
+    int bad = warp_nan[0];
+    for (int w = 1; w < kWarps; ++w) {
+      m = fmaxf(m, warp_max[w]);
+      bad |= warp_nan[w];
+    }
+    const float s = bad ? __int_as_float(0x7fc00000) : __fmul_rn(fmaxf(m, 1e-12f), inv_qmax);
+    block_scale = s;
+    scales[row * nb + blk] = s;
+  }
+  __syncthreads();
+  const float scale = block_scale;
+
+  // pass 2: codes (the block's x is in L1/L2 by now)
+  const bool vec_all = vec_x && (!ub || aligned16(ub)) &&
+                       (reinterpret_cast<uintptr_t>(qb) & 3u) == 0;
+  for (int i = threadIdx.x * kVec; i < len; i += kThreads * kVec) {
+    if (vec_all && i + kVec <= len) {
+      const float4 xv = *reinterpret_cast<const float4*>(xb + i);
+      const float4 uv = ub ? *reinterpret_cast<const float4*>(ub + i)
+                           : make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+      char4 c;
+      c.x = code(xv.x, uv.x, scale, qmax);
+      c.y = code(xv.y, uv.y, scale, qmax);
+      c.z = code(xv.z, uv.z, scale, qmax);
+      c.w = code(xv.w, uv.w, scale, qmax);
+      *reinterpret_cast<char4*>(qb + i) = c;
+    } else {
+      for (int k = i; k < min(i + kVec, len); ++k) {
+        qb[k] = code(xb[k], ub ? ub[k] : 0.5f, scale, qmax);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
+                  float* __restrict__ out, int n, int bp, int nb, int chunks) {
+  // one block covers 256 * 4 elements of one row; each thread 4 neighbours
+  const int64_t row = blockIdx.x / chunks;
+  const int col0 = (blockIdx.x % chunks) * (256 * kVec) + threadIdx.x * kVec;
+  if (col0 >= n) return;
+  const int8_t* qr = q + row * n;
+  const float* sr = scales + row * nb;
+  float* orow = out + row * n;
+  if (col0 + kVec <= n && (reinterpret_cast<uintptr_t>(qr + col0) & 3u) == 0 &&
+      aligned16(orow + col0)) {
+    const char4 c = *reinterpret_cast<const char4*>(qr + col0);
+    float4 o;
+    o.x = static_cast<float>(c.x) * sr[col0 / bp];
+    o.y = static_cast<float>(c.y) * sr[(col0 + 1) / bp];
+    o.z = static_cast<float>(c.z) * sr[(col0 + 2) / bp];
+    o.w = static_cast<float>(c.w) * sr[(col0 + 3) / bp];
+    *reinterpret_cast<float4*>(orow + col0) = o;
+  } else {
+    for (int c = col0; c < min(col0 + kVec, n); ++c) {
+      orow[c] = static_cast<float>(qr[c]) * sr[c / bp];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns cudaGetLastError() after the launch (0 = launched).
+int repro_quantize(const void* x, const void* u, void* q, void* scales,
+                   int64_t rows, int64_t n, int bp, int nb, float qmax,
+                   float inv_qmax, void* stream) {
+  const int64_t blocks = rows * nb;
+  if (blocks > 0) {
+    quantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(u),
+        static_cast<int8_t*>(q), static_cast<float*>(scales), n, bp, nb, qmax, inv_qmax);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_dequantize(const void* q, const void* scales, void* out,
+                     int64_t rows, int n, int bp, int nb, void* stream) {
+  const int chunks = (n + 256 * kVec - 1) / (256 * kVec);
+  const int64_t blocks = rows * chunks;
+  if (blocks > 0) {
+    dequantize_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+        static_cast<float*>(out), n, bp, nb, chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

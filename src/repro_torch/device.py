@@ -1,0 +1,40 @@
+"""Where the port computes: the entry points' ``device=`` argument.
+
+Entry points default to the CUDA card. With ``device=None`` and no card
+they raise instead of carrying on quietly on the CPU; the CPU is used only
+when the caller asks for it (the parity tests pass ``device="cpu"``).
+
+On the card every float32 matrix product runs in full float32: this module
+turns TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
+``torch.set_float32_matmul_precision("highest")``, and cuDNN's TF32 too),
+because the JAX reference computes its MLP in float32 and TF32's 10-bit
+mantissa would move the trajectory by far more than the parity contract.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def full_precision_matmuls() -> None:
+    """Keep float32 matmuls (and convolutions) in float32 on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The torch device an entry point runs on: ``device`` if given, else
+    the CUDA card. Raises ``RuntimeError`` when no card is there and the
+    caller did not ask for another device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA card by default and none is "
+                "available; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        full_precision_matmuls()
+    return dev

@@ -1,0 +1,99 @@
+"""Federated simulation entry point of the port — the port of the JAX
+package's ``fl/engine.py``: ``FLHistory``, ``make_round_step`` and
+``run_federated``.
+
+A round is the phase pipeline of ``repro_torch.fl.api``:
+
+  Personalizer -> LocalTrainer -> TransmitPhase (wire codec + EF)
+               -> Aggregator -> Evaluator -> SelectorPhase -> LayerPolicy
+
+driven by ``repro_torch.fl.sched.SyncScheduler``. Every entry point takes
+``device=``: the CUDA card by default, the CPU only when asked for; with no
+card and ``device=None`` they raise rather than run on the CPU quietly.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+
+from repro_torch.core.metrics import CommModel
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.device import resolve_device
+from repro_torch.fl.api import (
+    FLConfig,
+    RoundPipeline,
+    build_env,
+    build_round_step,
+    pipeline_from_config,
+)
+from repro_torch.models.mlp import mlp_accuracy, mlp_loss
+
+__all__ = ["FLConfig", "FLHistory", "make_round_step", "run_federated"]
+
+
+class FLHistory(NamedTuple):
+    """Per-round records (numpy, host-side): the JAX package's
+    ``FLHistory`` fields, plus the measured ``wall_time``."""
+
+    accuracy_mean: np.ndarray        # (T,)
+    accuracy_per_client: np.ndarray  # (T, C)
+    selected: np.ndarray             # (T, C) bool
+    tx_params: np.ndarray            # (T,) uplink parameter count
+    tx_bytes_cum: np.ndarray         # (T,) cumulative uplink wire bytes
+    round_time: np.ndarray           # (T,) simulated seconds per round
+    pms: np.ndarray                  # (T, C) layers shared per client
+    tx_wire_bytes: np.ndarray        # (T,) per-round uplink wire bytes
+    sim_clock: np.ndarray            # (T,) simulated clock at each round
+    staleness_mean: np.ndarray       # (T,) 0 under the sync barrier
+    in_flight: np.ndarray            # (T,) executing client lanes (K = C)
+    tx_edge_bytes: np.ndarray | None = None   # edge aggregation: not ported
+    rejected_updates: np.ndarray | None = None  # (T,) finite-guard rejections
+    wall_time: np.ndarray | None = None  # (T,) host seconds per round, up to
+                                         # the fetch of its records (a device
+                                         # sync); the port's own field
+
+
+def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,
+                    loss_fn: Callable = mlp_loss, acc_fn: Callable = mlp_accuracy,
+                    pipeline: RoundPipeline | None = None):
+    """The synchronous round step ``(RoundState, t) -> (RoundState, out)``
+    for ``cfg``'s default pipeline (or ``pipeline``) over ``data`` on
+    ``device``."""
+    from repro_torch.fl.sched import check_slice
+
+    dev = resolve_device(device)
+    check_slice(cfg, data)
+    pipeline = pipeline or pipeline_from_config(cfg)
+    env = build_env(data, cfg.seed, dev, loss_fn=loss_fn, acc_fn=acc_fn)
+    return build_round_step(env, pipeline, cfg.execution)
+
+
+def run_federated(data: FederatedDataset, cfg: FLConfig, device=None,
+                  init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
+                  acc_fn: Callable = mlp_accuracy, comm: CommModel | None = None,
+                  progress: bool = False, pipeline: RoundPipeline | None = None,
+                  client_delay: np.ndarray | None = None, recorder=None,
+                  checkpoint_every: int = 0, resume_from: str | None = None,
+                  checkpoint_dir: str | None = None) -> FLHistory:
+    """Run ``cfg.rounds`` synchronous federated rounds on ``device`` (the
+    CUDA card by default) and return the host-side history.
+
+    ``init_fn`` maps a threefry key on the run's device to the initial
+    layered model (default: ``init_mlp`` for the data's widths).
+    ``client_delay`` is an optional (C,) heterogeneity lane for the
+    simulated clock. The recorder and checkpointing come with ROADMAP.md
+    queue 1 item 9 and raise here.
+    """
+    from repro_torch.fl.sched import _not_ported, make_scheduler
+
+    if recorder is not None:
+        raise _not_ported("recorder", 9, "repro obs/record")
+    if checkpoint_every or resume_from is not None or checkpoint_dir is not None:
+        raise _not_ported("checkpoint/resume", 9, "checkpoint/")
+    dev = resolve_device(device)
+    return make_scheduler(cfg).run(
+        data, cfg, dev, init_fn=init_fn, loss_fn=loss_fn, acc_fn=acc_fn, comm=comm,
+        progress=progress, pipeline=pipeline, client_delay=client_delay,
+    )

@@ -1,0 +1,522 @@
+"""Swappable round phases — the port of the JAX package's ``fl/phases.py``.
+
+A federated round is a sequence of small frozen-dataclass phases, each
+transforming a shared ``RoundContext``:
+
+  Personalizer -> LocalTrainer -> TransmitPhase (wire codec + EF)
+               -> Aggregator -> Evaluator -> SelectorPhase -> LayerPolicy
+
+``RoundEnv`` is the static per-experiment environment (data shards on the
+device, sample counts, loss/accuracy functions). Lanes: the compute phases
+(personalizer's train model, trainer, transmit, aggregator) see a cohort
+``env.take(idx)`` of K lanes; evaluation, selection and the layer policy
+see the population's C lanes. Where the JAX package vmaps over lanes, the
+port computes with the lane axis written out (batched matmuls, one codec
+and kernel call per leaf for all lanes). Per-client keys are split over the
+population and gathered by ``ctx.cohort_idx`` (``client_keys``), so a
+client's random stream does not depend on its lane.
+
+The JAX package's async-only pieces (per-slot dispatch snapshots,
+``StalenessAggregator``) come with ROADMAP.md queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch import random as prng
+from repro_torch.comm import Codec, ef_step, tree_wire_bytes
+from repro_torch.core import (
+    compose_model,
+    dynamic_layer_definition,
+    fedavg_aggregate,
+    masked_partial_aggregate,
+    personalize_ft,
+)
+from repro_torch.core.selection import ClientObservations, SelectionStrategy
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def _lane_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundEnv:
+    """Static per-experiment environment every phase can read. ``n_clients``
+    is the number of lanes (C, or K after ``take``); ``population`` always
+    names the true population so per-client keys stay lane-independent."""
+
+    x_tr: torch.Tensor
+    y_tr: torch.Tensor      # int64 labels
+    m_tr: torch.Tensor
+    x_te: torch.Tensor
+    y_te: torch.Tensor
+    m_te: torch.Tensor
+    n_samples: torch.Tensor  # (lanes,) float32 — |d_i|
+    delay: torch.Tensor      # (lanes,) float32 — analytic delay (Oort)
+    n_clients: int
+    loss_fn: Callable
+    acc_fn: Callable
+    population: int = 0
+
+    @property
+    def pop(self) -> int:
+        return self.population or self.n_clients
+
+    @property
+    def device(self) -> torch.device:
+        return self.x_tr.device
+
+    def take(self, idx: torch.Tensor) -> "RoundEnv":
+        """Cohort view: the ``idx`` client lanes of every data slab."""
+        sel = lambda t: t.index_select(0, idx)  # noqa: E731
+        return dataclasses.replace(
+            self,
+            x_tr=sel(self.x_tr), y_tr=sel(self.y_tr), m_tr=sel(self.m_tr),
+            x_te=sel(self.x_te), y_te=sel(self.y_te), m_te=sel(self.m_te),
+            n_samples=sel(self.n_samples), delay=sel(self.delay),
+            n_clients=int(idx.shape[0]), population=self.pop,
+        )
+
+
+class RoundContext(NamedTuple):
+    """Dynamic state threaded through the phase pipeline; phases return
+    updated copies (``_replace``) and never mutate it."""
+
+    t: Any = None                 # round index (Python int)
+    global_params: Any = None     # layered list, leaves (...)
+    local_params: Any = None      # layered list, leaves (lanes, ...)
+    select: Any = None            # (lanes,) bool
+    pms: Any = None               # (lanes,) int32
+    share: Any = None             # (lanes, L) bool
+    residual: Any = None          # EF residuals, leaves (lanes, ...)
+    participation: Any = None     # (lanes,) int32
+    cohort_idx: Any = None        # (lanes,) client id behind each lane
+    cohort_mask: Any = None       # (lanes,) bool
+    rng_fit: Any = None
+    rng_codec: Any = None
+    rng_sel: Any = None
+    prev_accuracy: Any = None
+    prev_loss: Any = None
+    train_model: Any = None       # Personalizer
+    trained: Any = None           # LocalTrainer
+    new_local: Any = None         # engine
+    agg_src: Any = None           # TransmitPhase
+    wire_bytes: Any = None        # (lanes,) prospective uplink bytes
+    wire_paid: Any = None         # (lanes,) uplink bytes paid this round
+    update_norm: Any = None       # (lanes,) l2 norm of the compressed delta
+    new_global: Any = None        # Aggregator
+    eval_model: Any = None        # Personalizer.eval_model
+    accuracy: Any = None          # Evaluator
+    loss: Any = None              # Evaluator
+    next_select: Any = None       # SelectorPhase
+    next_pms: Any = None          # LayerPolicy
+
+
+def client_keys(rng: torch.Tensor, ctx: RoundContext, env: RoundEnv) -> torch.Tensor:
+    """(lanes, 2) per-client keys: split over the population, gathered by
+    ``ctx.cohort_idx``."""
+    keys = prng.split(rng, env.pop)
+    if ctx.cohort_idx is not None:
+        keys = keys.index_select(0, ctx.cohort_idx)
+    return keys
+
+
+def _stack_clients(params, n_clients: int):
+    """The unstacked model seen from every lane (an expanded view, no copy)."""
+    return tree_map(lambda gl: gl.expand((n_clients,) + tuple(gl.shape)), params)
+
+
+# ---------------------------------------------------------------------------
+# Personalizer
+# ---------------------------------------------------------------------------
+
+
+class Personalizer:
+    """Decides what model each client trains and is evaluated on;
+    ``stateful`` says whether it carries per-client local parameters."""
+
+    stateful: bool = True
+
+    def train_model(self, ctx: RoundContext, env: RoundEnv):
+        raise NotImplementedError
+
+    def eval_model(self, ctx: RoundContext, env: RoundEnv):
+        raise NotImplementedError
+
+    def local_fallback(self, ctx: RoundContext, env: RoundEnv):
+        """What unselected cohort lanes keep as their local model."""
+        return ctx.local_params
+
+
+@dataclasses.dataclass(frozen=True)
+class NoPersonalizer(Personalizer):
+    """Everyone trains and evaluates the broadcast global model."""
+
+    stateful: bool = False
+
+    def train_model(self, ctx, env):
+        return _stack_clients(ctx.global_params, env.n_clients)
+
+    def eval_model(self, ctx, env):
+        return _stack_clients(ctx.new_global, env.n_clients)
+
+    def local_fallback(self, ctx, env):
+        return ctx.train_model
+
+
+@dataclasses.dataclass(frozen=True)
+class FTPersonalizer(Personalizer):
+    """Fine-tuning choice (Eq. 8): each client keeps whichever whole model
+    (local vs global) has the lower loss on its test shard."""
+
+    def _pick(self, local, global_, env):
+        loss_loc = env.loss_fn(local, env.x_te, env.y_te, env.m_te)
+        loss_glob = env.loss_fn(global_, env.x_te, env.y_te, env.m_te)
+        return personalize_ft(local, global_, loss_loc, loss_glob)
+
+    def train_model(self, ctx, env):
+        return self._pick(ctx.local_params, ctx.global_params, env)
+
+    def eval_model(self, ctx, env):
+        return self._pick(ctx.new_local, ctx.new_global, env)
+
+
+@dataclasses.dataclass(frozen=True)
+class ComposePersonalizer(Personalizer):
+    """PMS/DLD: shared global layers composed with personalized local ones
+    along the (C, L) share mask."""
+
+    def train_model(self, ctx, env):
+        return compose_model(ctx.global_params, ctx.local_params, ctx.share)
+
+    def eval_model(self, ctx, env):
+        return compose_model(ctx.new_global, ctx.new_local, ctx.share)
+
+
+# ---------------------------------------------------------------------------
+# LocalTrainer — Algorithm 2
+# ---------------------------------------------------------------------------
+
+
+def _batched(x, y, m, batch_size: int, remainder: str = "drop"):
+    """Lane slabs (K, N, ...) -> (K, nb, B, ...) minibatches: ``'drop'``
+    trims to whole batches (a slab shorter than one batch is one ragged
+    batch), ``'pad'`` adds a masked tail batch."""
+    n = x.shape[1]
+    if remainder == "pad":
+        nb = -(-n // batch_size)
+        pad = nb * batch_size - n
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            y = torch.nn.functional.pad(y, (0, pad))
+            m = torch.nn.functional.pad(m, (0, pad))
+    else:
+        nb = max(1, n // batch_size)
+        take = nb * batch_size
+        if take > n:
+            nb, take, batch_size = 1, n, n
+        x, y, m = x[:, :take], y[:, :take], m[:, :take]
+    k = x.shape[0]
+    return (
+        x.reshape(k, nb, batch_size, *x.shape[2:]),
+        y.reshape(k, nb, batch_size),
+        m.reshape(k, nb, batch_size),
+    )
+
+
+class LocalTrainer:
+    """Produces ``ctx.trained`` from ``ctx.train_model`` (Algorithm 2)."""
+
+    def fit(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDTrainer(LocalTrainer):
+    """Algorithm 2 LocalTrain: ``epochs`` of minibatch SGD on every lane at
+    once. The lanes' losses are summed before the backward pass; each
+    lane's parameters feed only its own loss, so the gradient of the sum is
+    every lane's own gradient (the JAX package's ``vmap(grad)``)."""
+
+    epochs: int = 1
+    batch_size: int = 32
+    lr: float = 0.1
+    remainder: str = "drop"
+
+    def fit(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        xb, yb, mb = _batched(env.x_tr, env.y_tr, env.m_tr, self.batch_size, self.remainder)
+        model = ctx.train_model
+        leaves = [leaf.detach() for leaf in tree_leaves(model)]
+        with torch.enable_grad():
+            for _ in range(self.epochs):
+                for b in range(xb.shape[1]):
+                    ps = [p.requires_grad_(True) for p in leaves]
+                    loss = env.loss_fn(tree_unflatten(model, ps), xb[:, b], yb[:, b], mb[:, b])
+                    grads = torch.autograd.grad(loss.sum(), ps)
+                    leaves = [p.detach() - self.lr * g for p, g in zip(ps, grads)]
+        return ctx._replace(trained=tree_unflatten(model, leaves))
+
+
+# ---------------------------------------------------------------------------
+# TransmitPhase — the wire codec with error feedback
+# ---------------------------------------------------------------------------
+
+
+def _client_sq_norms(stacked, reference):
+    """(lanes,) sum of squared differences between stacked leaves and the
+    (unstacked) reference, over every non-lane axis."""
+    total = None
+    for lc, lg in zip(tree_leaves(stacked), tree_leaves(reference)):
+        d = lc - lg
+        s = torch.sum(d * d, dim=tuple(range(1, d.ndim)))
+        total = s if total is None else total + s
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class TransmitPhase:
+    """Wire-codec phase: the uplink every selected client's shared delta
+    takes. Lossy codecs run one error-feedback step per layer for all lanes
+    at once (residuals touched only for layers a lane actually sent);
+    lossless ones pass the update through. Also deposits the cost signals:
+    prospective and paid wire bytes, and the compressed delta's l2 norm."""
+
+    codec: Codec
+
+    @property
+    def lossy(self) -> bool:
+        return self.codec.lossy
+
+    def transmit(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        g, trained = ctx.global_params, ctx.trained
+        if self.codec.lossy and ctx.residual is None:
+            raise ValueError("lossy codec requires RoundState.residual (run_federated sets it)")
+        if self.codec.lossy:
+            agg_src, new_residual = [], []
+            for j, (tr_j, g_j, res_j) in enumerate(zip(trained, g, ctx.residual)):
+                sent_j = ctx.select & ctx.share[:, j]
+                keys = client_keys(prng.fold_in(ctx.rng_codec, j), ctx, env)
+                delta = tree_map(lambda t, gl: t - gl, tr_j, g_j)
+                dec, new_r = ef_step(self.codec, delta, res_j, keys)
+                agg_src.append(tree_map(lambda gl, d: gl + d, g_j, dec))
+                new_residual.append(tree_map(
+                    lambda n, o: torch.where(_lane_mask(sent_j, n), n, o), new_r, res_j))
+        else:
+            agg_src, new_residual = trained, ctx.residual
+
+        wire_prospective, wire_paid = self.wire_costs(g, ctx.share, ctx.select)
+        share_f = ctx.share.to(torch.float32)
+        norm_sq = torch.zeros(share_f.shape[0], dtype=torch.float32, device=share_f.device)
+        for j in range(len(g)):
+            norm_sq = norm_sq + share_f[:, j] * _client_sq_norms(agg_src[j], g[j])
+        return ctx._replace(
+            agg_src=agg_src,
+            residual=new_residual,
+            wire_bytes=wire_prospective,
+            wire_paid=wire_paid,
+            update_norm=torch.sqrt(norm_sq),
+        )
+
+    def layer_wire(self, global_params) -> list[float]:
+        """Static wire bytes one client pays per layer through the codec."""
+        return [tree_wire_bytes(self.codec, layer) for layer in global_params]
+
+    def wire_costs(self, global_params, share: torch.Tensor, select: torch.Tensor):
+        """(prospective, paid) per-client bytes from the (C, L) share mask and
+        the (C,) selection."""
+        lw = torch.tensor(self.layer_wire(global_params), dtype=torch.float32, device=share.device)
+        share_f = share.to(torch.float32)
+        return share_f @ lw, (share_f * select.to(torch.float32)[:, None]) @ lw
+
+
+# ---------------------------------------------------------------------------
+# Aggregator — Eq. 1
+# ---------------------------------------------------------------------------
+
+
+class Aggregator:
+    """Reduces the lane axis into the new global model."""
+
+    def aggregate(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        raise NotImplementedError
+
+
+def _flat_only(edge_groups: int) -> None:
+    if edge_groups > 1:
+        raise NotImplementedError(
+            "edge_groups (two-level edge aggregation) is not ported yet: "
+            "ROADMAP.md queue 1 item 10"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FedAvgAggregator(Aggregator):
+    """Plain Eq. 1 over selected clients, full model."""
+
+    edge_groups: int = 0
+
+    def __post_init__(self):
+        _flat_only(self.edge_groups)
+
+    def aggregate(self, ctx, env):
+        return ctx._replace(new_global=fedavg_aggregate(ctx.agg_src, ctx.select, env.n_samples))
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedPartialAggregator(Aggregator):
+    """ACSP-FL masked aggregation: only layers a client shares contribute;
+    layers nobody shared keep the previous global value."""
+
+    edge_groups: int = 0
+
+    def __post_init__(self):
+        _flat_only(self.edge_groups)
+
+    def aggregate(self, ctx, env):
+        return ctx._replace(new_global=masked_partial_aggregate(
+            ctx.agg_src, ctx.global_params, ctx.select, env.n_samples, ctx.share))
+
+
+def _staleness_aggregator(**kwargs):
+    raise NotImplementedError(
+        "the staleness-weighted (async) aggregator is not ported yet: "
+        "ROADMAP.md queue 1 item 8"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Evaluator
+# ---------------------------------------------------------------------------
+
+
+class Evaluator:
+    def evaluate(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedEvaluator(Evaluator):
+    """Distributed eval (paper §4.3): each client scores its composed model
+    on its own test shard, every round."""
+
+    eval_every: int = 1
+
+    def __post_init__(self):
+        if self.eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got {self.eval_every!r}")
+        if self.eval_every != 1:
+            raise NotImplementedError(
+                "eval_every > 1 is not ported yet: ROADMAP.md queue 1 item 7"
+            )
+
+    def evaluate(self, ctx, env):
+        model = ctx.eval_model
+        acc = env.acc_fn(model, env.x_te, env.y_te, env.m_te)
+        loss = env.loss_fn(model, env.x_te, env.y_te, env.m_te)
+        return ctx._replace(accuracy=acc, loss=loss)
+
+
+# ---------------------------------------------------------------------------
+# SelectorPhase — Algorithm 1 l.12
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectorPhase:
+    """Wraps a SelectionStrategy with the full observations (including the
+    codec phase's cost signals) and picks next round's clients."""
+
+    strategy: SelectionStrategy
+
+    def select(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
+        obs = ClientObservations(
+            accuracy=ctx.accuracy,
+            loss=ctx.loss,
+            n_samples=env.n_samples,
+            delay=env.delay,
+            wire_bytes=ctx.wire_bytes,
+            update_norm=ctx.update_norm,
+            participation_count=ctx.participation,
+        )
+        return ctx._replace(next_select=self.strategy.select(obs, ctx.t, ctx.rng_sel))
+
+
+# ---------------------------------------------------------------------------
+# LayerPolicy — how many layers each client shares next round
+# ---------------------------------------------------------------------------
+
+
+class LayerPolicy:
+    def next_pms(self, ctx: RoundContext, env: RoundEnv, n_layers: int):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class FullShare(LayerPolicy):
+    """Everyone always shares the whole model."""
+
+    def next_pms(self, ctx, env, n_layers):
+        return torch.full((env.n_clients,), n_layers, dtype=torch.int32, device=env.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticPMS(LayerPolicy):
+    """Fixed shared-prefix length (the paper's PMS k variants)."""
+
+    layers: int = 2
+
+    def next_pms(self, ctx, env, n_layers):
+        return torch.full((env.n_clients,), self.layers, dtype=torch.int32, device=env.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DLDPolicy(LayerPolicy):
+    """Dynamic layer definition (Eq. 9): per-client PMS from accuracy."""
+
+    def next_pms(self, ctx, env, n_layers):
+        return dynamic_layer_definition(ctx.accuracy, n_layers)
+
+
+# ---------------------------------------------------------------------------
+# registries
+# ---------------------------------------------------------------------------
+
+_PHASE_REGISTRY: dict[str, dict[str, Callable]] = {
+    "personalizer": {
+        "none": NoPersonalizer,
+        "ft": FTPersonalizer,
+        "compose": ComposePersonalizer,
+    },
+    "trainer": {"sgd": SGDTrainer},
+    "aggregator": {
+        "fedavg": FedAvgAggregator,
+        "masked-partial": MaskedPartialAggregator,
+        "staleness": _staleness_aggregator,
+    },
+    "evaluator": {"distributed": DistributedEvaluator},
+    "layer-policy": {"full": FullShare, "static": StaticPMS, "dld": DLDPolicy},
+}
+
+
+def get_phase(kind: str, name: str, **kwargs):
+    """Build a phase component by (kind, name); unknown names raise
+    ``KeyError`` listing what is available."""
+    if kind not in _PHASE_REGISTRY:
+        raise KeyError(f"unknown phase kind {kind!r}; have {sorted(_PHASE_REGISTRY)}")
+    reg = _PHASE_REGISTRY[kind]
+    key = name.lower()
+    if key not in reg:
+        raise KeyError(f"unknown {kind} {name!r}; have {sorted(reg)}")
+    return reg[key](**kwargs)
+
+
+def register_phase(kind: str, name: str, factory: Callable) -> None:
+    """Register a custom phase factory under (kind, name)."""
+    if kind not in _PHASE_REGISTRY:
+        raise KeyError(f"unknown phase kind {kind!r}; have {sorted(_PHASE_REGISTRY)}")
+    _PHASE_REGISTRY[kind][name.lower()] = factory

@@ -1,0 +1,175 @@
+"""Per-block absmax int8/int4 quantize/dequantize — the codec's kernel pair.
+
+Replaces the JAX package's Pallas pair in
+``src/repro/kernels/quantize/kernel.py`` (``quantize_kernel``/``_quant_kernel``
+and ``dequantize_kernel``/``_dequant_kernel``) with the hand-written CUDA
+kernels in ``repro_torch/csrc/quantize.cu``; that file's header states their
+bound on the H100 (bytes: ~9 B/element for quantize, ~5 for dequantize) and
+what the design does about it.
+
+Each op has three parts here:
+
+- a plain PyTorch version (``quantize_plain``/``dequantize_plain``) with the
+  arithmetic of the JAX ``ref.py`` oracle: the CPU path, and what the card's
+  kernel is held to bitwise;
+- a wrapper (``quantize``/``dequantize``) that dispatches on the tensor's
+  device: CPU tensors take the plain version, CUDA tensors launch the kernel
+  (or raise), nothing falls back;
+- a launch counter, ``quantize.launches``/``dequantize.launches``, a plain
+  integer the wrapper bumps where it launches the kernel and nowhere else.
+
+The ops take a batch: ``x`` of shape ``(..., n)`` is ``R`` rows of ``n``
+elements and every row is cut into blocks on its own (``quant_blocks``), as
+the JAX package's per-client vmap cuts each client's leaf — so all K client
+lanes of a leaf go through one launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["quant_blocks", "quantize", "dequantize", "quantize_plain", "dequantize_plain"]
+
+
+def quant_blocks(n: int, block_p: int = 512) -> tuple[int, int]:
+    """(block, n_blocks) for an n-element row — shared with the codec's wire
+    accounting (the JAX wrapper's ``quant_blocks``)."""
+    bp = min(block_p, max(n, 8))
+    return bp, -(-n // bp)
+
+
+def _qmax(bits: int) -> tuple[float, float]:
+    """``(qmax, float32(1 / qmax))``. The scale is ``amax * (1 / qmax)``:
+    XLA rewrites the JAX oracle's division by the constant ``qmax`` into
+    that product, and the goldens were made with it (a true division
+    differs in the last bit of many scales: 4.5% of int8 and 62% of int4
+    scales of random 512-blocks)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    qmax = float(2 ** (bits - 1) - 1)
+    return qmax, float(torch.tensor(1.0) / qmax)
+
+
+def quantize_plain(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int = 8,
+                   block_p: int = 512):
+    """``(q, scales)`` for ``x`` of shape (..., n): int8 codes (..., n) and
+    float32 scales (..., nb). ``noise`` None rounds to nearest (u = 0.5).
+    Codes of a block whose scale is NaN are 0 (the kernel's convention)."""
+    qmax, inv_qmax = _qmax(bits)
+    lead, n = x.shape[:-1], x.shape[-1]
+    bp, nb = quant_blocks(n, block_p)
+    xf = x.to(torch.float32).reshape(-1, n)
+    u = (torch.full_like(xf, 0.5) if noise is None
+         else noise.to(torch.float32).reshape(-1, n))
+    pad = nb * bp - n
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+        u = torch.nn.functional.pad(u, (0, pad))
+    xb = xf.reshape(-1, nb, bp)
+    ub = u.reshape(-1, nb, bp)
+    scales = torch.clamp_min(torch.amax(torch.abs(xb), dim=-1), 1e-12) * inv_qmax
+    q = torch.clamp(torch.floor(xb / scales[..., None] + ub), -qmax, qmax)
+    q = torch.nan_to_num(q, nan=0.0).to(torch.int8).reshape(-1, nb * bp)[:, :n]
+    return q.reshape(*lead, n), scales.reshape(*lead, nb)
+
+
+def dequantize_plain(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> torch.Tensor:
+    """float32 ``q * scale[block]`` for codes (..., n) and scales (..., nb)."""
+    n = q.shape[-1]
+    bp, nb = quant_blocks(n, block_p)
+    qf = q.to(torch.float32).reshape(-1, n)
+    pad = nb * bp - n
+    if pad:
+        qf = torch.nn.functional.pad(qf, (0, pad))
+    out = qf.reshape(-1, nb, bp) * scales.reshape(-1, nb, 1)
+    return out.reshape(-1, nb * bp)[:, :n].reshape(q.shape)
+
+
+def _lib():
+    lib = build.load("quantize")
+    if not getattr(lib, "_repro_typed", False):
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.repro_quantize.argtypes = [p, p, p, p, i64, i64, i32, i32, ctypes.c_float,
+                                       ctypes.c_float, p]
+        lib.repro_quantize.restype = i32
+        lib.repro_dequantize.argtypes = [p, p, p, i64, i32, i32, i32, p]
+        lib.repro_dequantize.restype = i32
+        lib._repro_typed = True
+    return lib
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {t.device} have no kernel here")
+
+
+def quantize(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int = 8,
+             block_p: int = 512):
+    """Quantize ``x`` (..., n) float32 row by row: ``(q (..., n) int8,
+    scales (..., nb) float32)``. CPU tensors run ``quantize_plain``; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return quantize_plain(x, noise, bits=bits, block_p=block_p)
+    _require_cuda(x, "quantize")
+    qmax, inv_qmax = _qmax(bits)
+    if x.dtype != torch.float32:
+        raise TypeError(f"quantize takes float32, got {x.dtype}")
+    lead, n = x.shape[:-1], x.shape[-1]
+    bp, nb = quant_blocks(n, block_p)
+    xc = x.contiguous()
+    rows = xc.numel() // n if n else 0
+    uc = None
+    if noise is not None:
+        if noise.shape != x.shape or noise.dtype != torch.float32 or noise.device != x.device:
+            raise ValueError("noise must be float32 of x's shape on x's device")
+        uc = noise.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((*lead, nb), dtype=torch.float32, device=x.device)
+    err = _lib().repro_quantize(
+        xc.data_ptr(), uc.data_ptr() if uc is not None else None, q.data_ptr(),
+        scales.data_ptr(), rows, n, bp, nb, qmax, inv_qmax, _stream(x))
+    _check_launch(err, "quantize")
+    quantize.launches += 1
+    return q, scales
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> torch.Tensor:
+    """float32 ``q * scale[block]`` for codes (..., n) int8 and scales
+    (..., nb). CPU tensors run ``dequantize_plain``; CUDA tensors launch the
+    kernel."""
+    if q.device.type == "cpu":
+        return dequantize_plain(q, scales, block_p=block_p)
+    _require_cuda(q, "dequantize")
+    n = q.shape[-1]
+    if n >= 2**31:
+        raise ValueError(f"dequantize: rows of {n} elements exceed the kernel's 32-bit index")
+    bp, nb = quant_blocks(n, block_p)
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequantize takes int8 codes and float32 scales, got {q.dtype}, {scales.dtype}")
+    if scales.shape != (*q.shape[:-1], nb) or scales.device != q.device:
+        raise ValueError(f"scales must be {(*q.shape[:-1], nb)} on {q.device}")
+    qc, sc = q.contiguous(), scales.contiguous()
+    rows = qc.numel() // n if n else 0
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _lib().repro_dequantize(qc.data_ptr(), sc.data_ptr(), out.data_ptr(),
+                                  rows, n, bp, nb, _stream(q))
+    _check_launch(err, "dequantize")
+    dequantize.launches += 1
+    return out
+
+
+quantize.launches = 0
+dequantize.launches = 0

@@ -1,0 +1,47 @@
+"""Carry weights and round state over from numpy into the port.
+
+``params_from_numpy`` takes a layered model (``[{'w','b'}, ...]``) whose
+leaves are numpy arrays — e.g. the JAX package's parameters after
+``jax.device_get`` — and returns the port's layered model on ``device``.
+``state_from_numpy`` does the same for a whole round state (any NamedTuple
+with ``RoundState``'s fields), so both packages can compute from the same
+weights, keys and per-client lanes. Like every entry point they default to
+the CUDA card and raise without one; pass ``device="cpu"`` for the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.fl.api import RoundState
+from repro_torch.tree import tree_map
+
+__all__ = ["params_from_numpy", "state_from_numpy"]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:  # threefry key words: the port holds them in int64
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)  # a copy: jax.device_get arrays are read-only
+
+
+def params_from_numpy(layers, device=None):
+    """Layered numpy parameters -> the same tree of tensors on ``device``
+    (dtypes kept)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), layers)
+
+
+def state_from_numpy(state, device=None) -> RoundState:
+    """A round state of numpy leaves (fields named as ``RoundState``'s;
+    ``None`` fields stay ``None``) -> the port's ``RoundState`` on
+    ``device``."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in RoundState._fields:
+        value = getattr(state, name)
+        fields[name] = None if value is None else tree_map(lambda a: _tensor(a, dev), value)
+    return RoundState(**fields)

@@ -1,0 +1,122 @@
+"""The port stands alone: it imports neither jax nor the JAX package, its
+entry points refuse to run quietly on the CPU, and every option outside the
+ported slice raises NotImplementedError naming its ROADMAP.md item."""
+
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.data import make_federated_classification
+from repro_torch.fl import FLConfig, make_round_step, run_federated
+from repro_torch.fl.api import RoundState
+from repro_torch.weights import params_from_numpy, state_from_numpy
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+sys.path.insert(0, {root!r})
+import chip_smoke
+bad = sorted(n for n in sys.modules if n == "repro" or n.startswith(("repro.", "jax.", "jaxlib")))
+print("BAD", bad)
+"""
+
+
+def test_import_with_jax_blocked_loads_no_reference_module():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_in_source(path):
+    src = path.read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path
+    assert not re.search(r"^\s*(from repro[. ]|import repro\b(?!_torch))", src, re.M), path
+
+
+@pytest.fixture(scope="module")
+def tiny_ds():
+    return make_federated_classification(
+        n_clients=4, n_classes=3, n_features=6, samples_per_client_range=(20, 30), seed=0
+    )
+
+
+_LAYERS = [{"w": np.ones((3, 2), np.float32), "b": np.zeros((2,), np.float32)}]
+_ENTRY_POINTS = {
+    "run_federated": lambda ds: run_federated(ds, FLConfig(rounds=1)),
+    "make_round_step": lambda ds: make_round_step(ds, FLConfig(rounds=1)),
+    "params_from_numpy": lambda ds: params_from_numpy(_LAYERS),
+    "state_from_numpy": lambda ds: state_from_numpy(
+        RoundState(*([_LAYERS] + [None] * (len(RoundState._fields) - 1)))),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_points_without_cuda_raise(tiny_ds, entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ENTRY_POINTS[entry](tiny_ds)
+
+
+@pytest.mark.parametrize("entry", ["params_from_numpy", "state_from_numpy"])
+def test_weights_on_the_cpu_when_asked(entry):
+    if entry == "params_from_numpy":
+        got = params_from_numpy(_LAYERS, "cpu")
+    else:
+        state = RoundState(*([_LAYERS] + [None] * (len(RoundState._fields) - 1)))
+        got = state_from_numpy(state, "cpu").global_params
+    assert got[0]["w"].device.type == "cpu" and torch.equal(got[0]["w"], torch.ones(3, 2))
+
+
+_OUT_OF_SLICE = {
+    "cohort_size": (dict(cohort_size=2), "item 7"),
+    "eval_every": (dict(eval_every=2), "item 7"),
+    "scan_chunk": (dict(scan_chunk=2), "item 7"),
+    "scan_chunk_whole_run": (dict(scan_chunk=0), "item 7"),
+    "async": (dict(scheduler="async"), "item 8"),
+    "faults": (dict(dropout_rate=0.1), "item 9"),
+    "host_population": (dict(host_population=1), "item 10"),
+    "eval_chunk": (dict(eval_chunk=2), "item 10"),
+    "edge_groups": (dict(edge_groups=2), "item 10"),
+    "cohort_devices": (dict(cohort_devices=1), "item 12"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_OUT_OF_SLICE))
+def test_options_outside_the_slice_raise(tiny_ds, name):
+    flat, item = _OUT_OF_SLICE[name]
+    with pytest.raises(NotImplementedError, match=item):
+        run_federated(tiny_ds, FLConfig(rounds=2, **flat), device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(recorder=object()), "item 9"),
+    (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "item 9"),
+])
+def test_recorder_and_checkpoint_raise(tiny_ds, kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run_federated(tiny_ds, FLConfig(rounds=1), device="cpu", **kwargs)
+
+
+def test_dataset_without_eager_slabs_raises(tiny_ds):
+    """A lazily generated population (no eager ``x_train``) belongs to the
+    host-population plane, which this slice does not port."""
+    lazy = dataclasses.replace(tiny_ds, x_train=None)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run_federated(lazy, FLConfig(rounds=1), device="cpu")
