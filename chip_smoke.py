@@ -3,20 +3,30 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` (nvcc,
-sm_90a), holds each against its plain PyTorch version on the card at the
-main path's shapes, reproduces the committed golden selections on the card,
-and drives the main path — the synchronous ACSP-FL round (DLD layer
-sharing, int8 uplink with error feedback, masked-partial aggregation) on
-the UCI-HAR stand-in at the paper's full har-mlp width — through
-``repro_torch.fl.run_federated``. Every phase prints one line; the kernel
-table is one JSON line; the last line is ``{"ok": true, "device": ...}``.
-Any failed check exits non-zero before that line. Needs a CUDA card and the
-repository's ``src/`` beside this file; imports neither jax nor the JAX
-package.
+sm_90a), holds each against its plain PyTorch version on the card at its
+path's shapes, reproduces the committed golden selections on the card, and
+drives the port's two paths:
+
+- the synchronous ACSP-FL round (DLD layer sharing, int8 uplink with error
+  feedback, masked-partial aggregation) on the UCI-HAR stand-in at the
+  paper's full har-mlp width, through ``repro_torch.fl.run_federated``;
+- LM serving at full width and full depth, falcon-mamba-7b and then
+  granite-3-8b (8 requests, batch 4, prompts of 2048 tokens, up to 32 new
+  tokens, random weights from seed 0), through
+  ``repro_torch.launch.serve.serve``, after the port's reduced models on
+  the card are held to the same models on the CPU.
+
+Every phase prints its lines; the kernel table is one JSON line; the last
+line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
+before that line. Needs a CUDA card and the repository's ``src/`` beside
+this file; imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -31,10 +41,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch import random as prng  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import make_federated_classification, make_har_dataset  # noqa: E402
 from repro_torch.device import full_precision_matmuls  # noqa: E402
 from repro_torch.fl import FLConfig, run_federated  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_plain  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize,
@@ -43,11 +55,16 @@ from repro_torch.kernels.quantize import (  # noqa: E402
     quantize,
     quantize_plain,
 )
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.api import make_concrete_batch  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate and fp32
-# (non-tensor-core) rate — the kernels' arithmetic is plain fp32
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate, fp32
+# (non-tensor-core) rate, and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 K = 30                        # UCI-HAR clients: every lane of the dense cohort
 HAR_MLP = (561, 256, 256, 256, 6)
@@ -73,6 +90,21 @@ GOLDEN = {
 # masked_aggregate contract against its plain version: 1 ulp of the result
 # (same ascending client order, one rounding per product and per sum)
 AGG_ULP_BOUND = 1
+FL_KERNELS = ("quantize", "dequantize", "masked_aggregate")
+
+# LM serving at full width and depth (the arch, the kernel its prefill runs)
+SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
+SERVE_RUN = dict(requests=8, batch=4, prompt_len=2048, max_new=32, window=0, temperature=0.0,
+                 seed=0)
+# ssm_scan and flash_attention against their plain versions: float32
+# results within 1e-5 of the reference's max magnitude; a bfloat16 result
+# within 1 bf16 ulp of each element plus that (both round a float32 value;
+# near zero an element's ulp is below the float32 gap)
+LM_REL = 1e-5
+# the reduced models on the card against the same models on the CPU:
+# logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
+# rounding flip of a scan input; tests/test_torch_lm.py)
+REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8}
 
 
 class SmokeFailure(RuntimeError):
@@ -117,9 +149,25 @@ def device_ms(fn, reps: int = 20) -> float:
     return cuda_ms(graph.replay, reps=reps)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| over max|want| (float32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def bf16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest excess of |got - want| over (1 bf16 ulp of want + LM_REL of
+    max|want|), in units of max|want|; <= 0 meets the bfloat16 contract."""
+    got, want = got.float(), want.float()
+    tiny = torch.finfo(torch.float32).tiny
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(tiny))) - 7)
+    scale = max(float(want.abs().max()), 1e-30)
+    return float(((got - want).abs() - ulp - LM_REL * scale).max()) / scale
 
 
 def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -242,6 +290,166 @@ def phase_kernels(dev: torch.device) -> dict:
     }
 
 
+def visible_pairs(s_len: int, t_len: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that flash_attention's mask leaves visible."""
+    total = 0
+    for q in range(s_len):
+        hi = min(t_len - 1, q) if causal else t_len - 1
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_lm_kernels(dev: torch.device) -> dict:
+    """ssm_scan and flash_attention against their plain versions at the
+    full-width prefill shapes of the serving run (bf16 streams), plus a
+    window, a ragged length and float32; times and bounds of one launch."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    src = "src/repro_torch/csrc/"
+    rows = {}
+
+    # ssm_scan: falcon-mamba-7b's layer, B=4, S=2048, di=8192, ds=16
+    fm = get_config("falcon-mamba-7b")
+    di, ds = fm.d_inner, fm.d_state
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(di, ds).contiguous()
+    d = torch.ones((di,), device=dev)
+
+    def ssm_inputs(seq):
+        dt = torch.nn.functional.softplus(randn(b, seq, di) * 0.5 - 4.6)
+        return [t.to(torch.bfloat16) for t in (dt, randn(b, seq, ds), randn(b, seq, ds),
+                                                randn(b, seq, di))]
+
+    gaps = {}
+    for seq in (s, s - 49):  # the serving length, and a ragged one
+        dt, bm, cm, x = ssm_inputs(seq)
+        y, h = ssm_scan(dt, a, bm, cm, x, d, y_dtype=torch.float32)
+        yp, hp = ssm_scan_plain(dt, a, bm, cm, x, d, y_dtype=torch.float32)
+        gaps[f"S={seq} y"], gaps[f"S={seq} h"] = rel_gap(y, yp), rel_gap(h, hp)
+        check(gaps[f"S={seq} y"] <= LM_REL and gaps[f"S={seq} h"] <= LM_REL,
+              f"ssm_scan S={seq} differs from its plain version {gaps}")
+        if seq == s:
+            ssm_err = float((y - yp).abs().max())
+            yb = ssm_scan(dt, a, bm, cm, x, d)[0]
+            gaps[f"S={seq} y bf16 excess"] = bf16_excess(yb, yp.to(torch.bfloat16))
+            check(yb.dtype == torch.bfloat16 and gaps[f"S={seq} y bf16 excess"] <= 0,
+                  f"ssm_scan bf16 y differs from its plain version {gaps}")
+            ssm_args = (dt, a, bm, cm, x, d)
+    print(f"[kernels] ssm_scan B={b} di={di} ds={ds} bf16 streams vs plain (contract: y and h "
+          f"within {LM_REL} of max; bf16 y within 1 ulp + that): {json.dumps(gaps)}")
+    n_bytes = (2 * b * s * di * 2 + 2 * b * s * ds * 2 + di * ds * 4 + di * 4 + b * s * di * 2
+               + b * di * ds * 4)
+    ssm_bound, ssm_by = bound_ms(n_bytes, b * s * di * (8 * ds + 2))
+    rows["ssm_scan"] = dict(route="cuda", source=src + "ssm_scan.cu",
+                            replaces="src/repro/kernels/ssm_scan/kernel.py:62",
+                            max_abs_err=ssm_err, ms=device_ms(lambda: ssm_scan(*ssm_args)),
+                            plain_ms=device_ms(lambda: ssm_scan_plain(*ssm_args), reps=3),
+                            bound_ms=ssm_bound, bound_by=ssm_by, library_ms=None)
+
+    # flash_attention: granite-3-8b's layer, B=4, S=2048, H=32, Hkv=8, D=128
+    gr = get_config("granite-3-8b")
+    h, hkv, dh = gr.n_heads, gr.n_kv_heads, gr.head_dim_
+    q, k, v = (randn(b, s, n, dh).to(torch.bfloat16) for n in (h, hkv, hkv))
+    gaps = {}
+    for name, (qq, kk, vv), window in (("bf16 w0", (q, k, v), 0), ("bf16 w512", (q, k, v), 512),
+                                       ("bf16 S=2000", (q[:, :2000], k[:, :2000], v[:, :2000]), 0),
+                                       ("f32 w0", (q.float(), k.float(), v.float()), 0)):
+        qq, kk, vv = (t.contiguous() for t in (qq, kk, vv))
+        got = flash_attention(qq, kk, vv, causal=True, window=window)
+        want = flash_attention_plain(qq, kk, vv, causal=True, window=window)
+        if qq.dtype == torch.float32:
+            gaps[name] = rel_gap(got, want)
+            ok = gaps[name] <= LM_REL
+        else:
+            gaps[name] = bf16_excess(got, want)
+            ok = got.dtype == torch.bfloat16 and gaps[name] <= 0
+        check(ok, f"flash_attention {name} differs from its plain version {gaps}")
+        if name == "bf16 w0":
+            fa_err = float((got.float() - want.float()).abs().max())
+    print(f"[kernels] flash_attention B={b} S={s} H={h} Hkv={hkv} D={dh} causal vs plain "
+          f"(contract: f32 within {LM_REL} of max, value shown; bf16 within 1 ulp + that, "
+          f"excess over it shown, <= 0): {json.dumps(gaps)}")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    n_bytes = 2 * (b * s * h * dh * 2) + 2 * (b * s * hkv * dh * 2)
+    fa_bound, fa_by = bound_ms(n_bytes, 4 * b * h * dh * visible_pairs(s, s, True, 0), BF16_FLOPS)
+    rows["flash_attention"] = dict(
+        route="cuda", source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:73", max_abs_err=fa_err,
+        ms=device_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=device_ms(lambda: flash_attention_plain(q, k, v), reps=3),
+        bound_ms=fa_bound, bound_by=fa_by,
+        library_ms=device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)))
+    return rows
+
+
+def phase_lm_reference(dev: torch.device) -> None:
+    """The reduced float32 models on the card (through the kernels) against
+    the same models on the CPU (plain versions): prefill and 4 greedy
+    decode steps."""
+    for arch, kernel in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        toks = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))["tokens"]
+        prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+        kernels.reset_launch_counts()
+        (want, cpu_cache), (got, dev_cache) = (prefill(m, {"tokens": toks})
+                                               for m in (cpu_model, dev_model))
+        check(kernels.launch_counts()[kernel] == cfg.n_layers, f"{arch} reduced: kernel not launched")
+        gaps = [rel_gap(got.cpu(), want)]
+        for _ in range(4):
+            tok = torch.argmax(want, dim=-1)[:, None]
+            want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+            got, dev_cache = decode(dev_model, dev_cache, tok)
+            gaps.append(rel_gap(got.cpu(), want))
+        check(max(gaps) <= REDUCED_REL[arch],
+              f"{arch} reduced: card vs CPU logits {gaps} > {REDUCED_REL[arch]} of max")
+        print(f"[lm] {arch} reduced float32 on the card vs the CPU: logits gap / max, prefill "
+              f"then 4 decode steps {gaps} (contract {REDUCED_REL[arch]})")
+
+
+def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
+    """One full-width, full-depth serving run of ``arch`` through
+    ``repro_torch.launch.serve.serve``, kernel counts zeroed just before and
+    read just after; the model is freed before the next arch."""
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = serve(cfg, device=dev, **SERVE_RUN)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_req, max_new = SERVE_RUN["requests"], SERVE_RUN["max_new"]
+    check(stats["n_requests"] == n_req and stats["logits_finite"], f"{arch}: serve stats {stats}")
+    check(stats["tokens"] == sum(stats["lens"]) and all(1 <= n <= max_new for n in stats["lens"]),
+          f"{arch}: token accounting {stats['lens']} {stats['tokens']}")
+    check(all(0 <= t < cfg.vocab_padded for out in stats["outputs"] for t in out),
+          f"{arch}: token ids outside the vocabulary")
+    check(counts[kernel] == cfg.n_layers * stats["prefill_calls"] > 0,
+          f"{arch}: {kernel} launched {counts[kernel]} times for {stats['prefill_calls']} prefills")
+    check(all(v == 0 for k, v in counts.items() if k != kernel), f"{arch}: other kernels {counts}")
+    print(f"[serve] {arch} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): {n_req} requests, batch "
+          f"{SERVE_RUN['batch']}, prompt {SERVE_RUN['prompt_len']}, max_new {max_new}; "
+          f"lens {stats['lens']}, {stats['prefill_calls']} prefills")
+    print(f"[serve] {arch} prefill ms (CUDA events) median {statistics.median(stats['prefill_ms']):.3f} "
+          f"all {[round(t, 3) for t in stats['prefill_ms']]}; decode step ms median "
+          f"{statistics.median(stats['decode_ms']):.3f} over {len(stats['decode_ms'])} steps "
+          f"(min {min(stats['decode_ms']):.3f}, max {max(stats['decode_ms']):.3f})")
+    print(f"[serve] {arch} {stats['tok_per_s']:.2f} tok/s, latency p50 {stats['latency_p50_ms']:.1f} "
+          f"ms p99 {stats['latency_p99_ms']:.1f} ms, serving span {stats['wall_s']:.2f} s "
+          f"(with init {wall:.2f} s), peak memory {peak / 2**30:.2f} GiB, launches {json.dumps(counts)}")
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_goldens(dev: torch.device) -> None:
     """The committed golden configurations on the card: the selections must
     be the committed bitstrings; accuracy is printed beside the golden."""
@@ -278,7 +486,7 @@ def phase_main_path(dev: torch.device) -> dict[str, int]:
         check(h.accuracy_per_client.shape == (cfg.rounds, data.n_clients), f"{name}: history shape")
         check(h.accuracy_mean[-1] > h.accuracy_mean[0], f"{name}: accuracy did not rise")
         if main_counts is None:
-            check(all(v > 0 for v in counts.values()), f"{name}: a kernel never launched {counts}")
+            check(all(counts[k] > 0 for k in FL_KERNELS), f"{name}: a kernel never launched {counts}")
             main_counts = counts
         else:
             check(counts["masked_aggregate"] > 0 and counts["quantize"] == 0,
@@ -302,8 +510,12 @@ def main() -> int:
     phase_environment()
     phase_build()
     table = phase_kernels(dev)
+    table.update(phase_lm_kernels(dev))
     phase_goldens(dev)
-    launches = phase_main_path(dev)
+    launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
+    phase_lm_reference(dev)
+    for arch, kernel in SERVE_ARCHS:
+        launches[kernel] = phase_serve(dev, arch, kernel)[kernel]
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
                                   for name, row in table.items()]}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

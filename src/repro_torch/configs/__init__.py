@@ -1,13 +1,17 @@
 """Config registry of the port: ``get_config(arch_id)``.
 
-The port holds the paper's own model so far (``har-mlp``); the model-zoo
-architectures of the JAX package come with ROADMAP.md queue 1 item 14.
+The port holds the paper's own model (``har-mlp``) and the two model-zoo
+architectures of its serving slice (``falcon-mamba-7b``, ``granite-3-8b``);
+the other architectures of the JAX package come with ROADMAP.md queue 1
+item 14.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig, get_shape
 
 _ARCH_MODULES = {
     "har-mlp": "repro_torch.configs.har_mlp",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
 }
 
 

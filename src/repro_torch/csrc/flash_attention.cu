@@ -1,0 +1,268 @@
+// Causal GQA flash attention for sm_90a — the port's flash_attention kernel.
+//
+// Replaces the Pallas TPU kernel of the JAX package:
+//   src/repro/kernels/flash_attention/kernel.py:flash_attention_kernel
+//   (_fa_kernel; wrapper ops.flash_attention)
+//
+// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in the
+// model's layout (float32 or bfloat16, D = 64 or 128), with G = H / Hkv:
+//   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
+// where key t is visible to query s iff t < T (the real kv length; the
+// Pallas kernel's t_real), t <= s when causal, and t > s - window when
+// window > 0. Positions are the indices (query s and key t both count from
+// 0), as in the Pallas kernel. The softmax is online over key tiles, as the
+// Pallas kernel does it: float32 scores, running max m and sum l, float32 P
+// and a float32 P.V accumulator; out = acc / max(l, 1e-30), written in q's
+// type. A masked key contributes p = 0 exactly.
+//
+// Bound on an H100 at granite-3-8b's prefill (B=4, S=T=2048, H=32, Hkv=8,
+// D=128, bf16): operations — the visible half of the score matrix,
+// 4 * B * H * D * S(S+1)/2 = 0.1375 TFLOP, 0.139 ms at the 989 TFLOP/s
+// bf16 tensor-core rate; bytes — q, k, v read once and out written once,
+// 168 MB, 0.050 ms at 3.35 TB/s. Operations bind. This kernel does its
+// arithmetic in float32 on the CUDA cores (67 TFLOP/s, a 2.05 ms floor for
+// the same work), so it cannot come near that bound; moving QK^T and P.V
+// to wgmma is later work.
+//
+// Design: the TPU kernel's grid walks kv blocks in order with m, l and acc
+// in VMEM scratch; here one thread block owns one (b, q-head, 64-row
+// q-tile) and walks the key tiles of kv head h / G itself, so nothing
+// carries between blocks. The q tile and each 64-key K and V tile are
+// staged in shared memory as float32 (K rows padded by 4 floats so that a
+// warp's 16-byte row reads hit distinct banks). Each of the 8 warps owns 8
+// query rows; lane l scores keys l and l+32 of the tile for all 8 rows
+// (16 independent dot products), the row max and sum are warp shuffles,
+// and for P.V lane l owns output columns l, l+32, ... of its 8 rows, taking
+// each p from the lane that scored it by shuffle. Key tiles that the mask
+// hides from every row of the q tile (above the diagonal, or wholly before
+// the window) are skipped: for a row with a visible key that leaves m, l and
+// acc as processing them would.
+//
+// Built by nvcc into a shared library with a C interface
+// (repro_torch/kernels/build.py); the Python wrapper in
+// repro_torch/kernels/flash_attention/ops.py launches it on torch's current
+// stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlockQ = 64;    // query rows per block
+constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
+constexpr int kBlockK = 64;    // keys per tile: lane l scores keys l and l + 32
+constexpr int kKPad = 4;       // floats of padding per staged K row
+constexpr float kNeg = -1e30f;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&t);
+  return make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]), __bfloat162float(e[2]),
+                     __bfloat162float(e[3]));
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Stages `rows` rows of D elements starting at `src` (row stride `stride`
+// elements) into `dst` (row stride `ld` floats); rows at or past `valid`
+// are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src, int64_t stride,
+                                      int rows, int valid) {
+  constexpr int kVecs = D / 4;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < valid) v = load4(src + r * stride + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = v;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (kBlockQ * D + kBlockK * (D + kKPad) + kBlockK * D) * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int n_heads,
+                       int n_kv_heads, int s_len, int t_len, int causal, int window,
+                       float scale) {
+  constexpr int kCols = D / 32;  // output columns per lane
+  extern __shared__ float smem[];
+  float* q_s = smem;                                  // [kBlockQ][D]
+  float* k_s = q_s + kBlockQ * D;                     // [kBlockK][D + kKPad]
+  float* v_s = k_s + kBlockK * (D + kKPad);           // [kBlockK][D]
+
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (n_heads / n_kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const int64_t q_stride = static_cast<int64_t>(n_heads) * D;     // between sequence rows
+  const int64_t kv_stride = static_cast<int64_t>(n_kv_heads) * D;
+  const T* q_base = q + (static_cast<int64_t>(b) * s_len + q0) * q_stride + h * D;
+  const T* k_base = k + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
+  const T* v_base = v + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
+
+  stage<T, D>(q_s, D, q_base, q_stride, kBlockQ, s_len - q0);
+
+  // keys visible to some row of this tile: [lo, hi]
+  const int q_last = min(q0 + kBlockQ, s_len) - 1;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
+
+  float m[kRows], l[kRows], acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
+    __syncthreads();  // the previous tile (and, first time, nothing) is no longer read
+    stage<T, D>(k_s, D + kKPad, k_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
+    stage<T, D>(v_s, D, v_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
+    __syncthreads();
+
+    // scores of keys k0 + lane and k0 + lane + 32 for the warp's rows
+    float p[kRows][2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) p[i][0] = p[i][1] = 0.0f;
+    const float* ka = k_s + lane * (D + kKPad);
+    const float* kb = k_s + (lane + 32) * (D + kKPad);
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 x0 = load4(ka + d), x1 = load4(kb + d);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 qv = load4(q_s + (warp * kRows + i) * D + d);
+        p[i][0] += qv.x * x0.x + qv.y * x0.y + qv.z * x0.z + qv.w * x0.w;
+        p[i][1] += qv.x * x1.x + qv.y * x1.y + qv.z * x1.z + qv.w * x1.w;
+      }
+    }
+
+    // online softmax: mask, row max, p = exp(s - m_new), rescale l and acc
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + warp * kRows + i;
+      bool vis[2];
+      float s[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + lane + 32 * c;
+        vis[c] = key < t_len && (!causal || key <= row) && (window <= 0 || key > row - window);
+        s[c] = vis[c] ? p[i][c] * scale : kNeg;
+      }
+      const float m_new = fmaxf(m[i], warp_max(fmaxf(s[0], s[1])));
+      p[i][0] = vis[0] ? expf(s[0] - m_new) : 0.0f;
+      p[i][1] = vis[1] ? expf(s[1] - m_new) : 0.0f;
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + warp_sum(p[i][0] + p[i][1]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
+      m[i] = m_new;
+    }
+
+    // acc += P . V: lane owns columns lane + 32c; p of key j from lane j % 32
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j) {
+        const float* vr = v_s + (half * 32 + j) * D + lane;
+        float vv[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) vv[c] = vr[32 * c];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float pj = __shfl_sync(0xffffffffu, p[i][half], j);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[i][c] += pj * vv[c];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + warp * kRows + i;
+    if (row < s_len) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      T* o = out + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * D + lane;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) store(o + 32 * c, acc[i][c] / denom);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
+           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
+           void* stream) {
+  static bool configured = false;  // raise the dynamic shared memory limit once
+  constexpr int smem = smem_bytes<D>();
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, n_heads, batch);
+  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
+    flash_attention_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128. Contiguous
+// q/out (B, S, H, D) and k/v (B, T, Hkv, D); H a multiple of Hkv.
+// Returns cudaGetLastError() after the launch (0 = launched).
+int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int batch,
+                          int n_heads, int n_kv_heads, int s_len, int t_len, int head_dim,
+                          int causal, int window, float scale, int dtype, void* stream) {
+  if (dtype == 0 && head_dim == 64)
+    return launch<float, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                             window, scale, stream);
+  if (dtype == 0 && head_dim == 128)
+    return launch<float, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                              window, scale, stream);
+  if (dtype == 1 && head_dim == 64)
+    return launch<__nv_bfloat16, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                                     causal, window, scale, stream);
+  if (dtype == 1 && head_dim == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                                      causal, window, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

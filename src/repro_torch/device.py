@@ -9,6 +9,9 @@ turns TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.set_float32_matmul_precision("highest")``, and cuDNN's TF32 too),
 because the JAX reference computes its MLP in float32 and TF32's 10-bit
 mantissa would move the trajectory by far more than the parity contract.
+It also keeps the sums of bfloat16 matrix products in float32
+(``allow_bf16_reduced_precision_reduction = False``), as XLA accumulates
+the model zoo's bfloat16 products.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ import torch
 
 
 def full_precision_matmuls() -> None:
-    """Keep float32 matmuls (and convolutions) in float32 on the card."""
+    """Keep float32 matmuls (and convolutions) in float32, and the sums of
+    bfloat16 matmuls in float32, on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

@@ -1,26 +1,32 @@
 """Hand-written CUDA kernels (sm_90a) of the port, one per TPU kernel of
-the JAX package on the ported path:
+the JAX package:
 
   quantize, dequantize — per-block absmax int8/int4 (de)quantization
                          (the uplink codec; csrc/quantize.cu)
   masked_aggregate     — the paper's Eq. 1 masked weighted client average
                          (the aggregators; csrc/masked_aggregate.cu)
+  ssm_scan             — the Mamba-1 selective scan of a prefill
+                         (falcon-mamba; csrc/ssm_scan.cu)
+  flash_attention      — causal GQA attention of a prefill
+                         (granite; csrc/flash_attention.cu)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first
 use). ``launch_counts``/``reset_launch_counts`` read and zero the wrappers'
 launch counters, so a run can show that its path went through the kernels.
-The model zoo's flash_attention and ssm_scan come with ROADMAP.md queue 2
-items 3 and 4.
 """
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.masked_aggregate import masked_aggregate
 from repro_torch.kernels.quantize import dequantize, quantize
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {
     "quantize": quantize,
     "dequantize": dequantize,
     "masked_aggregate": masked_aggregate,
+    "ssm_scan": ssm_scan,
+    "flash_attention": flash_attention,
 }
 
 
@@ -34,5 +40,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize", "dequantize", "masked_aggregate", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["quantize", "dequantize", "masked_aggregate", "ssm_scan", "flash_attention",
+           "KERNELS", "launch_counts", "reset_launch_counts"]

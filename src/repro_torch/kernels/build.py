@@ -25,6 +25,8 @@ from pathlib import Path
 SOURCES = {
     "quantize": "quantize.cu",
     "masked_aggregate": "masked_aggregate.cu",
+    "ssm_scan": "ssm_scan.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

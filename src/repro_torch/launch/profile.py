@@ -1,0 +1,96 @@
+"""Where a serving step's time goes on the card: one prefill and a few
+decode steps of a decoder LM under ``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b
+
+Builds the arch at full width with random weights, runs a warm-up prefill
+and decode step, then traces one prefill of 4 prompts of 2048 tokens (the
+serving run of ``chip_smoke.py``) and ``--steps`` decode steps. For each
+window it prints one JSON line: the device span (first kernel start to
+last kernel end), the device's busy time (the sum of its kernels'
+durations; one stream, so they do not overlap), the idle share of the
+span, the number of kernels, and the kernels that took the most device
+time. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import random as prng
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.api import get_model, make_concrete_batch
+
+
+def device_breakdown(prof, top: int = 8) -> dict:
+    """Span, busy time, idle share and the top kernels of a profiled window."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_trace": "not measured (the profiler recorded no device kernels)"}
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "span_ms": (end - start) / 1e3,
+        "busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / max(end - start, 1e-9),
+        "kernels": len(kernels),
+        "top": [{"name": name[:120], "count": n, "ms": us / 1e3} for name, (n, us) in ranked],
+    }
+
+
+def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int = 8,
+                    seed: int = 0) -> dict:
+    """The prefill and decode windows' ``device_breakdown``s, on the card."""
+    dev = resolve_device(None)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    batch_toks = make_concrete_batch(cfg, "prefill", batch, prompt_len, prng.PRNGKey(seed + 1))
+
+    logits, cache = prefill(model, batch_toks)  # warm-up: allocator, cuBLAS plans
+    logits, cache = decode(model, cache, torch.argmax(logits, -1)[:, None])
+    del cache
+    torch.cuda.synchronize()
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, cache = prefill(model, batch_toks)
+        torch.cuda.synchronize()
+    out["prefill"] = device_breakdown(prof)
+    tok = torch.argmax(logits, -1)[:, None]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            logits, cache = decode(model, cache, tok)
+            tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+    out["decode"] = device_breakdown(prof)
+    out["decode"]["steps"] = steps
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    res = profile_serving(cfg, steps=args.steps)
+    for window, row in res.items():
+        print(json.dumps({"arch": cfg.name, "window": window,
+                          "device": torch.cuda.get_device_name(0), **row}))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,11 @@ module reproduces them: the same Threefry-2x32 hash (20 rounds, Salmon et al.
 
 - ``PRNGKey``, ``split``, ``fold_in``, ``bits`` and ``uniform`` are bitwise
   equal to ``jax.random`` (``tests/test_torch_random.py``);
+- ``randint`` is bitwise equal to ``jax.random.randint`` (int32);
 - ``gumbel`` and ``normal`` go through ``log``/``erfinv``, whose float32
-  implementations differ between XLA and torch by a few ulp.
+  implementations differ between XLA and torch by a few ulp, and so does
+  ``categorical`` (``argmax(gumbel + logits)``) where two logits are that
+  close.
 
 The two settings give different streams from the same key. The port follows
 the installed jax's default (partitionable, ``True``); the repository's
@@ -31,8 +34,8 @@ import contextvars
 
 import torch
 
-__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "gumbel", "normal",
-           "threefry_partitionable"]
+__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "randint", "gumbel",
+           "categorical", "normal", "threefry_partitionable"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -152,11 +155,43 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` with jax's default int32 dtype: values in
+    ``[minval, maxval)`` from two 32-bit draws of the key's two halves,
+    reduced modulo the span in wrapping uint32 arithmetic, as jax computes
+    them (its multiplier ``(2**16 % span)**2 % span`` wraps to 0 once the
+    span exceeds 2**16)."""
+    minval, maxval = int(minval), int(maxval)
+    if not -(2**31) <= minval < 2**31 or not -(2**31) <= maxval < 2**31:
+        raise ValueError(f"randint bounds must fit in int32, got [{minval}, {maxval})")
+    shape = tuple(shape)
+    keys = split(key)
+    higher, lower = bits(keys[..., 0, :], shape), bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & _M32) % span
+    offset = (((higher % span) * multiplier) & _M32) + lower % span
+    offset = (offset & _M32) % span
+    out = (offset + minval + 2**31) % 2**32 - 2**31  # int32 wrap-around add
+    return out.to(torch.int32)
+
+
 def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.gumbel`` (default ``mode='low'``): ``-log(-log(u))`` with
     ``u`` uniform on ``[tiny, 1)``."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(uniform(key, shape, minval=tiny, maxval=1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis of float32 ``logits``
+    (one key for the whole array): ``argmax(gumbel + logits)``, the first
+    index on ties as in jax. Returns int64 indices of shape
+    ``logits.shape[:-1]``."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got {logits.dtype}")
+    g = gumbel(key.to(logits.device), tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)
 
 
 # Giles' single-precision erfinv polynomials ("Approximating the erfinv

@@ -5,8 +5,10 @@ leaves are numpy arrays — e.g. the JAX package's parameters after
 ``jax.device_get`` — and returns the port's layered model on ``device``.
 ``state_from_numpy`` does the same for a whole round state (any NamedTuple
 with ``RoundState``'s fields), so both packages can compute from the same
-weights, keys and per-client lanes. Like every entry point they default to
-the CUDA card and raise without one; pass ``device="cpu"`` for the CPU.
+weights, keys and per-client lanes. ``lm_params_from_numpy`` turns the JAX
+package's decoder-LM parameter tree (``models/transformer.init_params``)
+into the port's ``DecoderLM``. Like every entry point they default to the
+CUDA card and raise without one; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -14,17 +16,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
+from repro_torch.models.transformer import DecoderLM, check_supported
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "state_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:  # threefry key words: the port holds them in int64
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
     return torch.tensor(a, device=device)  # a copy: jax.device_get arrays are read-only
 
 
@@ -45,3 +51,22 @@ def state_from_numpy(state, device=None) -> RoundState:
         value = getattr(state, name)
         fields[name] = None if value is None else tree_map(lambda a: _tensor(a, dev), value)
     return RoundState(**fields)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
+    ``head``, and one ``stack`` entry whose leaves carry a leading
+    ``n_layers`` axis), as numpy arrays, -> the port's ``DecoderLM`` on
+    ``device``, one block per layer (dtypes and bits kept)."""
+    dev = resolve_device(device)
+    check_supported(cfg)
+    if tree["prologue"] or len(tree["stack"]) != 1:
+        raise ValueError(f"{cfg.name}: expected one uniform stack of layers")
+    blocks = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), tree["stack"][0])
+              for i in range(cfg.n_layers)]
+    return DecoderLM(cfg, {
+        "embed": _tensor(tree["embed"], dev),
+        "final_norm": _tensor(tree["final_norm"], dev),
+        "head": _tensor(tree["head"], dev),
+        "blocks": blocks,
+    })

@@ -7,7 +7,9 @@ runs on the GPU machine, where jax is not installed:
 Contracts: quantize/dequantize bitwise equal to their plain versions;
 masked_aggregate bitwise equal to its plain version (same ascending client
 order, one rounding per product and per sum, IEEE division) and exact on
-the zero-weight fallback.
+the zero-weight fallback; ssm_scan within 1e-5 of max|y| and of max|h|;
+flash_attention within 1e-5 of max|out| in float32, and in bfloat16 within
+1 bf16 ulp of each element plus that (both round a float32 result).
 """
 
 import numpy as np
@@ -15,10 +17,14 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import get_config
 from repro_torch.data import make_federated_classification
 from repro_torch.fl import FLConfig, run_federated
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_plain
 from repro_torch.kernels.quantize import dequantize, dequantize_plain, quantize, quantize_plain
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.launch.serve import serve
 
 pytestmark = pytest.mark.gpu
 
@@ -66,5 +72,70 @@ def test_int8_round_runs_through_the_kernels(cuda):
     kernels.reset_launch_counts()
     h = run_federated(ds, FLConfig(codec="int8", rounds=2, epochs=1), device=cuda)
     counts = kernels.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("quantize", "dequantize", "masked_aggregate")), counts
     assert np.isfinite(h.accuracy_mean).all()
+
+
+def _close_to_max(got, want, rel=1e-5):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+
+
+def _bf16_close(got, want, rel=1e-5):
+    got, want = got.float().cpu(), want.float().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    assert float(((got - want).abs() - ulp - rel * float(want.abs().max())).max()) <= 0
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 64, 128, 16), (1, 37, 200, 8), (2, 300, 64, 16)], ids=str)
+def test_ssm_scan_vs_plain(cuda, shape, stream):
+    b, s, di, ds = shape
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, di), generator=gen, device=cuda) - 2)
+    a = -torch.exp(torch.randn((di, ds), generator=gen, device=cuda))
+    bm, cm = (torch.randn((b, s, ds), generator=gen, device=cuda) for _ in range(2))
+    x = torch.randn((b, s, di), generator=gen, device=cuda)
+    d = torch.randn((di,), generator=gen, device=cuda)
+    ins = [t.to(stream) for t in (dt, bm, cm, x)]
+    y, h = ssm_scan(ins[0], a, ins[1], ins[2], ins[3], d, y_dtype=torch.float32)
+    yp, hp = ssm_scan_plain(ins[0], a, ins[1], ins[2], ins[3], d, y_dtype=torch.float32)
+    _close_to_max(y, yp)
+    _close_to_max(h, hp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", [
+    # (b, s, h, hkv, d, causal, window)
+    (2, 128, 4, 4, 64, True, 0),
+    (1, 200, 8, 2, 128, True, 0),
+    (1, 200, 8, 2, 128, True, 48),
+    (2, 70, 4, 1, 64, False, 0),
+    (1, 130, 4, 2, 64, False, 32),
+], ids=str)
+def test_flash_attention_vs_plain(cuda, case, dtype):
+    b, s, h, hkv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype
+    (_close_to_max if dtype == torch.float32 else _bf16_close)(got, want)
+
+
+def test_flash_attention_rejects_other_head_dims(cuda):
+    q = torch.zeros((1, 8, 2, 160), device=cuda)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch,kernel", [("falcon-mamba-7b", "ssm_scan"),
+                                         ("granite-3-8b", "flash_attention")])
+def test_reduced_serving_runs_through_its_kernel(cuda, arch, kernel):
+    cfg = get_config(arch).reduced()
+    kernels.reset_launch_counts()
+    stats = serve(cfg, requests=3, batch=2, prompt_len=32, max_new=4, device=cuda)
+    assert kernels.launch_counts()[kernel] == cfg.n_layers * stats["prefill_calls"]
+    assert stats["n_requests"] == 3 and stats["timer"] == "cuda-events"

@@ -12,10 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.data import make_federated_classification
 from repro_torch.fl import FLConfig, make_round_step, run_federated
 from repro_torch.fl.api import RoundState
-from repro_torch.weights import params_from_numpy, state_from_numpy
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve import serve
+from repro_torch.models import transformer
+from repro_torch.models.api import get_model
+from repro_torch.weights import lm_params_from_numpy, params_from_numpy, state_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -63,6 +68,9 @@ _ENTRY_POINTS = {
     "params_from_numpy": lambda ds: params_from_numpy(_LAYERS),
     "state_from_numpy": lambda ds: state_from_numpy(
         RoundState(*([_LAYERS] + [None] * (len(RoundState._fields) - 1)))),
+    "serve": lambda ds: serve(get_config("granite-3-8b").reduced(), requests=1, batch=1,
+                              prompt_len=4, max_new=1),
+    "lm_params_from_numpy": lambda ds: lm_params_from_numpy(get_config("granite-3-8b"), {}),
 }
 
 
@@ -120,3 +128,44 @@ def test_dataset_without_eager_slabs_raises(tiny_ds):
     lazy = dataclasses.replace(tiny_ds, x_train=None)
     with pytest.raises(NotImplementedError, match="item 10"):
         run_federated(lazy, FLConfig(rounds=1), device="cpu")
+
+
+_UNPORTED_ARCHS = ["deepseek-v2-lite-16b", "stablelm-12b", "whisper-tiny", "moonshot-v1-16b-a3b",
+                   "qwen2-vl-2b", "jamba-v0.1-52b", "deepseek-moe-16b", "chatglm3-6b"]
+
+
+@pytest.mark.parametrize("arch", _UNPORTED_ARCHS)
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-3-8b"])
+def test_ported_archs_are_registered(arch):
+    assert get_config(arch).name == arch
+
+
+@pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla"),
+                                    dict(rope_variant="half"), dict(frontend="vision_stub"),
+                                    dict(encoder_decoder=True), dict(ssm=True, attn_period=8)],
+                         ids=str)
+def test_model_features_outside_the_slice_raise(change):
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        get_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-3-8b"])
+def test_training_mode_raises(arch):
+    cfg = get_config(arch).reduced()
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        transformer.forward(model, cfg, torch.zeros((1, 4), dtype=torch.int32), mode="train")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        bundle.make_train_step(None)
+
+
+def test_serve_record_raises():
+    with pytest.raises(NotImplementedError, match="items 9 and 11"):
+        serve_main(["--arch", "granite-3-8b", "--record", "rec", "--device", "cpu"])

@@ -179,7 +179,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q, s = quantize(torch.from_numpy(x), torch.from_numpy(u))
     dequantize(q, s)
     masked_aggregate(torch.from_numpy(x), torch.ones(3))
-    assert kernels.launch_counts() == {"quantize": 0, "dequantize": 0, "masked_aggregate": 0}
+    assert kernels.launch_counts() == {"quantize": 0, "dequantize": 0, "masked_aggregate": 0,
+                                       "ssm_scan": 0, "flash_attention": 0}
 
 
 def test_tensors_on_other_devices_raise():
