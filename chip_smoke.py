@@ -47,7 +47,16 @@ from repro_torch.device import full_precision_matmuls  # noqa: E402
 from repro_torch.fl import FLConfig, run_federated  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
-from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_plain  # noqa: E402
+from repro_torch.kernels.flash_attention.contract import (  # noqa: E402
+    MAX_OVER_SHARE,
+    bf16_contract,
+)
+from repro_torch.kernels.masked_aggregate import (  # noqa: E402
+    masked_aggregate,
+    masked_aggregate_leaves,
+    masked_aggregate_leaves_plain,
+    masked_aggregate_plain,
+)
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize,
     dequantize_plain,
@@ -87,9 +96,6 @@ GOLDEN = {
                          ["11111111", "11110100", "10001100", "01000101", "00111100"]),
 }
 
-# masked_aggregate contract against its plain version: 1 ulp of the result
-# (same ascending client order, one rounding per product and per sum)
-AGG_ULP_BOUND = 1
 FL_KERNELS = ("quantize", "dequantize", "masked_aggregate")
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
@@ -99,7 +105,10 @@ SERVE_RUN = dict(requests=8, batch=4, prompt_len=2048, max_new=32, window=0, tem
 # ssm_scan and flash_attention against their plain versions: float32
 # results within 1e-5 of the reference's max magnitude; a bfloat16 result
 # within 1 bf16 ulp of each element plus that (both round a float32 value;
-# near zero an element's ulp is below the float32 gap)
+# near zero an element's ulp is below the float32 gap). A bf16
+# flash_attention result is held to kernels/flash_attention/contract.py
+# instead: P is rounded to bf16, and the kernel's scores, summed in another
+# order than the plain version's matmul, round a few P elements the other way.
 LM_REL = 1e-5
 # the reduced models on the card against the same models on the CPU:
 # logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
@@ -170,16 +179,6 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() - ulp - LM_REL * scale).max()) / scale
 
 
-def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest distance in ulps of ``a``'s dtype (monotone integer map)."""
-    int_dtype = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
-    ia, ib = (t.contiguous().view(int_dtype).to(torch.int64) for t in (a, b))
-    sign = 0x7FFFFFFF if a.dtype == torch.float32 else 0x7FFF
-    ia = torch.where(ia < 0, -(ia & sign), ia)
-    ib = torch.where(ib < 0, -(ib & sign), ib)
-    return int((ia - ib).abs().max())
-
-
 def phase_environment() -> None:
     full_precision_matmuls()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -223,30 +222,43 @@ def phase_kernels(dev: torch.device) -> dict:
                 d_err = max(d_err, float((d - dp).abs().max()))
     codes = [quantize(x, u) for x, u in zip(xs, us)]
 
-    # masked_aggregate: f32 (the main path) and bf16, client weights are
-    # 0/1 selections times sample counts; then all-zero weights -> fallback
+    # masked_aggregate: one call for the round's 8 leaves, f32 (the main path)
+    # and bf16, bitwise against the per-leaf plain version: fedavg (R = 1,
+    # 0/1 selections times sample counts) and masked-partial (R = 4 layer
+    # rows, layer 2 shared by nobody: its leaves get the fallback exactly);
+    # then the one-leaf entry, and all-zero weights -> the fallback
     leaves = [x.reshape((K,) + s) for x, s in zip(xs, LEAVES)]
     fallbacks = [torch.randn(s, generator=gen, device=dev) for s in LEAVES]
     sel = torch.rand(K, generator=gen, device=dev) < 0.5
     counts = torch.randint(224, 328, (K,), generator=gen, device=dev).float()
     w = sel.float() * counts
-    agg_err, agg_ulp = 0.0, {}
+    share = torch.rand((K, len(HAR_MLP) - 1), generator=gen, device=dev) < 0.6
+    share[:, 2] = False
+    layer_rows = [j for j in range(len(HAR_MLP) - 1) for _ in ("b", "w")]
+    agg_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        worst = 0
-        for x, fb in zip(leaves, fallbacks):
-            xd, fd = x.to(dtype), fb.to(dtype)
-            got, want = masked_aggregate(xd, w, fd), masked_aggregate_plain(xd, w, fd)
-            check(got.dtype == dtype and got.shape == fb.shape, "masked_aggregate dtype/shape")
-            worst = max(worst, ulp_gap(got, want))
-            if dtype == torch.float32:
-                agg_err = max(agg_err, float((got - want).abs().max()))
-            zero = masked_aggregate(xd, torch.zeros_like(w), fd)
-            check(torch.equal(zero, fd), f"masked_aggregate {dtype} zero weights: fallback not exact")
-        check(worst <= AGG_ULP_BOUND, f"masked_aggregate {dtype}: {worst} ulp > {AGG_ULP_BOUND}")
-        agg_ulp[str(dtype).replace("torch.", "")] = worst
+        xd, fd = [x.to(dtype) for x in leaves], [fb.to(dtype) for fb in fallbacks]
+        for name, wm, rows, fbs in (("fedavg", w[None], [0] * len(LEAVES), None),
+                                    ("masked-partial", w[None] * share.T.float(), layer_rows, fd)):
+            got = masked_aggregate_leaves(xd, wm, rows, fbs)
+            want = masked_aggregate_leaves_plain(xd, wm, rows, fbs)
+            for i, (g, p) in enumerate(zip(got, want)):
+                check(g.dtype == dtype and g.shape == p.shape and torch.equal(g, p),
+                      f"masked_aggregate {name} {dtype} leaf {i} differs from its plain version")
+                if rows[i] == 2 and fbs is not None:
+                    check(torch.equal(g, fd[i]), f"masked_aggregate {name} {dtype} leaf {i}: "
+                          f"zero-weight row, fallback not exact")
+                if dtype == torch.float32:
+                    agg_err = max(agg_err, float((g - p).abs().max()))
+        one = masked_aggregate(xd[1], w, fd[1])
+        check(torch.equal(one, masked_aggregate_plain(xd[1], w, fd[1])),
+              f"masked_aggregate one leaf {dtype} differs from its plain version")
+        check(torch.equal(masked_aggregate(xd[1], torch.zeros_like(w), fd[1]), fd[1]),
+              f"masked_aggregate {dtype} zero weights: fallback not exact")
     print(f"[kernels] quantize/dequantize bitwise (int8, int4, stochastic and nearest); "
-          f"masked_aggregate ulp gap vs plain {json.dumps(agg_ulp)} (bound {AGG_ULP_BOUND}), "
-          f"zero-weight fallback exact")
+          f"masked_aggregate, one call for the 8 leaves: bitwise equal to the per-leaf plain "
+          f"versions in float32 and bfloat16 (fedavg R=1; masked-partial R=4 with an all-zero "
+          f"row, fallback exact); one-leaf entry bitwise, zero-weight fallback exact")
 
     # times over one round's 8 leaves (K = 30 client rows each); the JSON
     # line's ms / plain_ms / library_ms are device times (CUDA-graph replays)
@@ -254,8 +266,9 @@ def phase_kernels(dev: torch.device) -> dict:
     def run_quantize_plain(): return [quantize_plain(x, u) for x, u in zip(xs, us)]
     def run_dequantize(): return [dequantize(q, s) for q, s in codes]
     def run_dequantize_plain(): return [dequantize_plain(q, s) for q, s in codes]
-    def run_agg(): return [masked_aggregate(x, w, fb) for x, fb in zip(leaves, fallbacks)]
-    def run_agg_plain(): return [masked_aggregate_plain(x, w, fb) for x, fb in zip(leaves, fallbacks)]
+    rows0 = [0] * len(LEAVES)
+    def run_agg(): return masked_aggregate_leaves(leaves, w[None], rows0, fallbacks)
+    def run_agg_plain(): return masked_aggregate_leaves_plain(leaves, w[None], rows0, fallbacks)
     def run_mv(): return [torch.mv(x.reshape(K, -1).T, w) for x in leaves]
 
     p_total = sum(fb.numel() for fb in fallbacks)
@@ -269,7 +282,7 @@ def phase_kernels(dev: torch.device) -> dict:
     eager = {name: cuda_ms(fn) for name, fn in (
         ("quantize", run_quantize), ("dequantize", run_dequantize), ("masked_aggregate", run_agg))}
     print(f"[kernels] one round's 8 leaves launched eagerly from the host (launch overhead "
-          f"included), ms: {json.dumps(eager)}")
+          f"included; masked_aggregate one call), ms: {json.dumps(eager)}")
     src = "src/repro_torch/csrc/"
     return {
         "quantize": dict(route="cuda", source=src + "quantize.cu",
@@ -348,12 +361,15 @@ def phase_lm_kernels(dev: torch.device) -> dict:
                             bound_ms=ssm_bound, bound_by=ssm_by, library_ms=None)
 
     # flash_attention: granite-3-8b's layer, B=4, S=2048, H=32, Hkv=8, D=128
+    # (bf16: the wgmma kernel; f32: the CUDA-core kernel), and D=64 in bf16
     gr = get_config("granite-3-8b")
     h, hkv, dh = gr.n_heads, gr.n_kv_heads, gr.head_dim_
     q, k, v = (randn(b, s, n, dh).to(torch.bfloat16) for n in (h, hkv, hkv))
-    gaps = {}
+    q64, k64, v64 = (randn(b, s, n, 64).to(torch.bfloat16) for n in (h, hkv, hkv))
+    gaps, bf16 = {}, {}
     for name, (qq, kk, vv), window in (("bf16 w0", (q, k, v), 0), ("bf16 w512", (q, k, v), 512),
                                        ("bf16 S=2000", (q[:, :2000], k[:, :2000], v[:, :2000]), 0),
+                                       ("bf16 D=64", (q64, k64, v64), 0),
                                        ("f32 w0", (q.float(), k.float(), v.float()), 0)):
         qq, kk, vv = (t.contiguous() for t in (qq, kk, vv))
         got = flash_attention(qq, kk, vv, causal=True, window=window)
@@ -362,19 +378,34 @@ def phase_lm_kernels(dev: torch.device) -> dict:
             gaps[name] = rel_gap(got, want)
             ok = gaps[name] <= LM_REL
         else:
-            gaps[name] = bf16_excess(got, want)
-            ok = got.dtype == torch.bfloat16 and gaps[name] <= 0
-        check(ok, f"flash_attention {name} differs from its plain version {gaps}")
+            bf16[name] = bf16_contract(got, want, qq, kk, vv, causal=True, window=window)
+            ok = bf16[name]["ok"]
+        check(ok, f"flash_attention {name} differs from its plain version {gaps} {bf16}")
         if name == "bf16 w0":
             fa_err = float((got.float() - want.float()).abs().max())
-    print(f"[kernels] flash_attention B={b} S={s} H={h} Hkv={hkv} D={dh} causal vs plain "
-          f"(contract: f32 within {LM_REL} of max, value shown; bf16 within 1 ulp + that, "
-          f"excess over it shown, <= 0): {json.dumps(gaps)}")
+        if name == "bf16 w512":
+            # controls: the same check must reject two systematic errors at
+            # this shape, P kept in float32 and a window one key short
+            controls = {
+                "float32 P": flash_attention_plain(qq.float(), kk.float(), vv.float(), causal=True,
+                                                   window=window).to(torch.bfloat16),
+                "window 511": flash_attention_plain(qq, kk, vv, causal=True, window=window - 1)}
+            for fault, bad in controls.items():
+                bf16[f"control {fault}"] = r = bf16_contract(bad, want, qq, kk, vv, causal=True,
+                                                             window=window)
+                check(not r["ok"], f"flash_attention's bf16 check accepts {fault}: {r}")
+            del controls, bad
+        del got, want
+    print(f"[kernels] flash_attention B={b} S={s} H={h} Hkv={hkv} D={dh} causal vs plain; f32 "
+          f"(contract: within {LM_REL} of max): {json.dumps(gaps)}; bf16 (contract, "
+          f"kernels/flash_attention/contract.py: excess over 1 ulp + {LM_REL} of max + "
+          f"p_rounding_slack <= 0, and n_over, the elements over 1 ulp + {LM_REL} of max alone, "
+          f"<= {MAX_OVER_SHARE} of n; the controls must fail it): {json.dumps(bf16)}")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     n_bytes = 2 * (b * s * h * dh * 2) + 2 * (b * s * hkv * dh * 2)
     fa_bound, fa_by = bound_ms(n_bytes, 4 * b * h * dh * visible_pairs(s, s, True, 0), BF16_FLOPS)
     rows["flash_attention"] = dict(
-        route="cuda", source=src + "flash_attention.cu",
+        route="cuda", source=src + "flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:73", max_abs_err=fa_err,
         ms=device_ms(lambda: flash_attention(q, k, v)),
         plain_ms=device_ms(lambda: flash_attention_plain(q, k, v), reps=3),
@@ -491,6 +522,8 @@ def phase_main_path(dev: torch.device) -> dict[str, int]:
         else:
             check(counts["masked_aggregate"] > 0 and counts["quantize"] == 0,
                   f"{name}: float32 rounds must aggregate through the kernel only {counts}")
+        check(counts["masked_aggregate"] == cfg.rounds,
+              f"{name}: masked_aggregate must launch once a round {counts}")
         print(f"[main] {name} uci-har C={data.n_clients} har-mlp {'-'.join(map(str, HAR_MLP))}: "
               f"accuracy_mean {np.round(h.accuracy_mean, 4).tolist()} "
               f"selected/round {h.selected.sum(axis=1).tolist()} "

@@ -2,9 +2,10 @@
 port of the JAX package's ``core/aggregation.py``.
 
 Every weighted mean goes through the ``masked_aggregate`` op
-(``repro_torch.kernels.masked_aggregate``): its CUDA kernel on the card,
-its plain version on the CPU. (The JAX package reduces in jnp here and
-only tests its Pallas kernel.)
+(``repro_torch.kernels.masked_aggregate``), all the leaves of a round in
+one call (``masked_aggregate_leaves``): one launch of its CUDA kernel on the
+card, its plain version on the CPU. (The JAX package reduces in jnp here,
+leaf by leaf, and only tests its Pallas kernel.)
 
 Client parameters are *stacked*: leaves carry a leading client axis (C, ...);
 a layered model is a list of such trees. The JAX package's sharded
@@ -16,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.masked_aggregate import masked_aggregate
-from repro_torch.tree import tree_map
+from repro_torch.kernels.masked_aggregate import masked_aggregate_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def _no_sharding(axis_name, edge_ids) -> None:
@@ -39,7 +40,8 @@ def fedavg_aggregate(client_params, select_mask, n_samples, axis_name=None, edge
     nobody contributed to becomes zeros."""
     _no_sharding(axis_name, edge_ids)
     weights = select_mask.to(torch.float32) * n_samples.to(torch.float32)
-    return tree_map(lambda x: masked_aggregate(x, weights), client_params)
+    return tree_unflatten(client_params,
+                          masked_aggregate_leaves(tree_leaves(client_params), weights[None]))
 
 
 def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples, share_mask,
@@ -53,14 +55,16 @@ def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples,
     if share_mask.ndim == 1:
         share_mask = share_mask[None, :].expand(select_mask.shape[0], n_layers)
     base = select_mask.to(torch.float32) * n_samples.to(torch.float32)
-    out = []
-    for j in range(n_layers):
-        w_j = base * share_mask[:, j].to(torch.float32)
-        out.append(
-            tree_map(lambda x, g, w_j=w_j: masked_aggregate(x, w_j, g),
-                     client_params[j], prev_global[j])
-        )
-    return out
+    weights = base[None, :] * share_mask.T.to(torch.float32)  # row j: layer j's weights
+    xs, rows, fallbacks, spans = [], [], [], []
+    for j in range(n_layers):  # every layer's leaves in one call
+        layer = tree_leaves(client_params[j])
+        spans.append((len(xs), len(xs) + len(layer)))
+        xs += layer
+        rows += [j] * len(layer)
+        fallbacks += tree_leaves(prev_global[j])
+    means = masked_aggregate_leaves(xs, weights, rows, fallbacks)
+    return [tree_unflatten(client_params[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 
 def finite_update_guard(select_mask, update_norm, max_norm: float = 0.0):

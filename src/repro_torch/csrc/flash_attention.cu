@@ -1,34 +1,33 @@
-// Causal GQA flash attention for sm_90a — the port's flash_attention kernel.
+// Causal GQA flash attention in float32 for sm_90a, on the CUDA cores —
+// the port's flash_attention kernel for float32 inputs (the reduced parity
+// configs). bfloat16 inputs go to the tensor-core kernel in
+// flash_attention_wgmma.cu; this library has no bfloat16 entry.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/flash_attention/kernel.py:flash_attention_kernel
 //   (_fa_kernel; wrapper ops.flash_attention)
 //
-// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in the
-// model's layout (float32 or bfloat16, D = 64 or 128), with G = H / Hkv:
+// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in float32
+// in the model's layout (D = 64 or 128), with G = H / Hkv:
 //   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
 // where key t is visible to query s iff t < T (the real kv length; the
 // Pallas kernel's t_real), t <= s when causal, and t > s - window when
 // window > 0. Positions are the indices (query s and key t both count from
-// 0), as in the Pallas kernel. The softmax is online over key tiles, as the
-// Pallas kernel does it: float32 scores, running max m and sum l, float32 P
-// and a float32 P.V accumulator; out = acc / max(l, 1e-30), written in q's
-// type. A masked key contributes p = 0 exactly.
+// 0), as in the Pallas kernel. The softmax is online over 64-key tiles, as
+// the Pallas kernel does it: float32 scores, running max m and sum l,
+// float32 P and a float32 P.V accumulator; out = acc / max(l, 1e-30). A
+// masked key contributes p = 0 exactly.
 //
-// Bound on an H100 at granite-3-8b's prefill (B=4, S=T=2048, H=32, Hkv=8,
-// D=128, bf16): operations — the visible half of the score matrix,
-// 4 * B * H * D * S(S+1)/2 = 0.1375 TFLOP, 0.139 ms at the 989 TFLOP/s
-// bf16 tensor-core rate; bytes — q, k, v read once and out written once,
-// 168 MB, 0.050 ms at 3.35 TB/s. Operations bind. This kernel does its
-// arithmetic in float32 on the CUDA cores (67 TFLOP/s, a 2.05 ms floor for
-// the same work), so it cannot come near that bound; moving QK^T and P.V
-// to wgmma is later work.
+// Bound: operations. In float32 the work runs on the CUDA cores (67
+// TFLOP/s on an H100); at granite-3-8b's prefill shape (B=4, S=T=2048,
+// H=32, Hkv=8, D=128) the visible half of the scores is 0.1375 TFLOP, a
+// 2.05 ms floor.
 //
 // Design: the TPU kernel's grid walks kv blocks in order with m, l and acc
 // in VMEM scratch; here one thread block owns one (b, q-head, 64-row
 // q-tile) and walks the key tiles of kv head h / G itself, so nothing
 // carries between blocks. The q tile and each 64-key K and V tile are
-// staged in shared memory as float32 (K rows padded by 4 floats so that a
+// staged in shared memory (K rows padded by 4 floats so that a
 // warp's 16-byte row reads hit distinct banks). Each of the 8 warps owns 8
 // query rows; lane l scores keys l and l+32 of the tile for all 8 rows
 // (16 independent dot products), the row max and sum are warp shuffles,
@@ -43,7 +42,6 @@
 // repro_torch/kernels/flash_attention/ops.py launches it on torch's current
 // stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,21 +59,12 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&t);
-  return make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]), __bfloat162float(e[2]),
-                     __bfloat162float(e[3]));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // Stages `rows` rows of D elements starting at `src` (row stride `stride`
 // elements) into `dst` (row stride `ld` floats); rows at or past `valid`
 // are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src, int64_t stride,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src, int64_t stride,
                                       int rows, int valid) {
   constexpr int kVecs = D / 4;
   for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
@@ -103,10 +92,10 @@ constexpr int smem_bytes() {
   return (kBlockQ * D + kBlockK * (D + kKPad) + kBlockK * D) * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int n_heads,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
                        int n_kv_heads, int s_len, int t_len, int causal, int window,
                        float scale) {
   constexpr int kCols = D / 32;  // output columns per lane
@@ -123,11 +112,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_stride = static_cast<int64_t>(n_heads) * D;     // between sequence rows
   const int64_t kv_stride = static_cast<int64_t>(n_kv_heads) * D;
-  const T* q_base = q + (static_cast<int64_t>(b) * s_len + q0) * q_stride + h * D;
-  const T* k_base = k + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
-  const T* v_base = v + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
+  const float* q_base = q + (static_cast<int64_t>(b) * s_len + q0) * q_stride + h * D;
+  const float* k_base = k + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
+  const float* v_base = v + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
 
-  stage<T, D>(q_s, D, q_base, q_stride, kBlockQ, s_len - q0);
+  stage<D>(q_s, D, q_base, q_stride, kBlockQ, s_len - q0);
 
   // keys visible to some row of this tile: [lo, hi]
   const int q_last = min(q0 + kBlockQ, s_len) - 1;
@@ -145,8 +134,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
     __syncthreads();  // the previous tile (and, first time, nothing) is no longer read
-    stage<T, D>(k_s, D + kKPad, k_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
-    stage<T, D>(v_s, D, v_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
+    stage<D>(k_s, D + kKPad, k_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
+    stage<D>(v_s, D, v_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
     __syncthreads();
 
     // scores of keys k0 + lane and k0 + lane + 32 for the warp's rows
@@ -212,14 +201,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + warp * kRows + i;
     if (row < s_len) {
       const float denom = fmaxf(l[i], 1e-30f);
-      T* o = out + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * D + lane;
+      float* o = out + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * D + lane;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) store(o + 32 * c, acc[i][c] / denom);
+      for (int c = 0; c < kCols; ++c) o[32 * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
            int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
            void* stream) {
@@ -227,15 +216,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   constexpr int smem = smem_bytes<D>();
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, n_heads, batch);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    flash_attention_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
+    flash_attention_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,24 +233,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128. Contiguous
-// q/out (B, S, H, D) and k/v (B, T, Hkv, D); H a multiple of Hkv.
-// Returns cudaGetLastError() after the launch (0 = launched).
-int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int batch,
-                          int n_heads, int n_kv_heads, int s_len, int t_len, int head_dim,
-                          int causal, int window, float scale, int dtype, void* stream) {
-  if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                             window, scale, stream);
-  if (dtype == 0 && head_dim == 128)
-    return launch<float, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                              window, scale, stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
-                                     causal, window, scale, stream);
-  if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
-                                      causal, window, scale, stream);
+// float32 q/out (B, S, H, D) and k/v (B, T, Hkv, D), contiguous; head_dim
+// 64 or 128; H a multiple of Hkv. Returns cudaGetLastError() after the
+// launch (0 = launched).
+int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out, int batch,
+                              int n_heads, int n_kv_heads, int s_len, int t_len, int head_dim,
+                              int causal, int window, float scale, void* stream) {
+  if (head_dim == 64)
+    return launch<64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                      scale, stream);
+  if (head_dim == 128)
+    return launch<128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                       scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

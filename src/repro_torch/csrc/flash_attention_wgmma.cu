@@ -1,0 +1,614 @@
+// Causal GQA flash attention in bfloat16 for sm_90a, on Hopper's tensor
+// cores — the port's flash_attention kernel for bf16 inputs.
+//
+// Replaces the Pallas TPU kernel of the JAX package:
+//   src/repro/kernels/flash_attention/kernel.py:flash_attention_kernel
+//   (_fa_kernel; wrapper ops.flash_attention)
+// (float32 inputs keep the CUDA-core kernel in flash_attention.cu).
+//
+// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in bfloat16
+// in the model's layout (D = 64 or 128), with G = H / Hkv:
+//   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
+// where key t is visible to query s iff t < T, t <= s when causal, and
+// t > s - window when window > 0 (positions are the indices). The softmax
+// is online over 128-key tiles: float32 scores, running max m and sum l,
+// p = exp(s - m_new) in float32 (a masked key gives p = 0 exactly), l sums
+// the float32 p, and P is rounded to bf16 before P.V, which accumulates in
+// float32; out = acc / max(l, 1e-30), written in bf16. exp is taken as
+// 2^((s - m_new) log2 e) on the special-function unit (ex2.approx, within
+// ~2^-21 of expf), which flash_attention_plain's contract allows for
+// (p_rounding_slack). That is the
+// arithmetic of JAX's chunked_attention (models/layers.py: p.astype(v.dtype)
+// into the P.V einsum), which the JAX model's prefill runs; the Pallas
+// kernel keeps P in float32. flash_attention_plain repeats it with the
+// same 128-key tiles.
+//
+// Bound on an H100 at granite-3-8b's prefill (B=4, S=T=2048, H=32, Hkv=8,
+// D=128): operations — the visible half of the score matrix,
+// 4 * B * H * D * S(S+1)/2 = 0.1375 TFLOP, 0.139 ms at the 989 TFLOP/s
+// bf16 tensor-core rate; bytes — q, k, v read once and out written once,
+// 168 MB, 0.050 ms at 3.35 TB/s. Operations bind, so both products run on
+// wgmma.
+//
+// Design. One CTA per (b, q head, 128-row q tile), 384 threads in three
+// warpgroups; heavy (late, causal) q tiles are launched first.
+// - Warpgroup 2 is the producer: one thread loads the q tile once and then
+//   keeps the K and V tiles of kv head h / G in flight in a 2-stage ring in
+//   shared memory, with TMA (cp.async.bulk.tensor over 4-D tensor maps of
+//   the model layout, (D, heads, rows, B)) completing on mbarriers: a "full"
+//   barrier per stage for K and one for V, and an "empty" barrier per stage
+//   on which the 256 consumer threads arrive when they are done with it.
+//   A bf16 row of D = 128 is 256 B, wider than the 128-byte swizzle span,
+//   so every tile is loaded as D/64 boxes of 64 columns, each a (rows x 128
+//   B) block in TMA's 128-byte swizzle; rows past S or T are zero-filled by
+//   TMA. The producer gives its registers back (setmaxnreg 24).
+// - Warpgroups 0 and 1 are consumers (setmaxnreg 240), 64 query rows each.
+//   S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
+//   memory (D/16 instructions a tile). Its float32 accumulator fragment
+//   holds rows r and r + 8 (r = 16 * warp + lane / 4) and columns
+//   8j + 2(lane % 4) + {0, 1}: the mask is applied in those coordinates
+//   (only on tiles that touch the diagonal, the window edge or T), row max
+//   and row sum are two quad shuffles, and the accumulator is rescaled by
+//   exp(m_old - m_new) in registers. P is packed to bf16 pairs in place:
+//   the m64n128 accumulator layout matches wgmma's register A fragment
+//   (m64k16: a0..a3 = columns 2c,2c+1 of rows r, r+8 and columns 8+2c,
+//   9+2c), so O += P.V is wgmma m64n{D}k16 with A from registers and V as
+//   stored (keys x D, MN-major: the transpose bit), 8 instructions a tile.
+//   l is kept per thread and summed over the quad at the end.
+// - The two consumer warpgroups take turns on the tensor cores (named
+//   barriers 1 and 2): one issues its P.V of tile j and its S of tile j+1
+//   only after the other has issued its own, so each warpgroup's softmax
+//   runs while the other's products do. Without the turns both tended to
+//   multiply at once and then both do softmax, leaving the tensor cores
+//   idle; the turns made the kernel clearly faster on the H100.
+//   Overlapping a warpgroup's own S of tile j+1 with its softmax of tile j
+//   instead needs S, O and P live at once; ptxas then serializes the
+//   wgmmas ("insufficient register resources") and it ran slower.
+// - Key tiles that the mask hides from every row of the q tile (above the
+//   diagonal, or wholly before the window) are neither loaded nor computed.
+//
+// Tiles: 128 q rows x 128 keys, 2 stages: shared memory 160 KB + barriers
+// at D = 128 (80 KB at D = 64), one CTA per SM (a third stage, 224 KB,
+// ran slower). ptxas (CUDA 12.8) reports
+// 168 registers for both head dims (setmaxnreg moves registers at run time
+// but ptxas still allocates within 168), no spills at D = 128, 80 bytes of
+// spill stores at D = 64; printed by
+// `python -c "from repro_torch.kernels import build; build.build(verbose=True)"`.
+//
+// TMA's tensor maps need the CUDA driver API's cuTensorMapEncodeTiled; it is taken
+// through cudaGetDriverEntryPoint(ByVersion), so the library links no
+// libcuda. The maps are encoded on the host at each call and passed as
+// __grid_constant__ parameters, so a call can be captured in a CUDA graph.
+//
+// Built by nvcc into a shared library with a C interface
+// (repro_torch/kernels/build.py); the Python wrapper in
+// repro_torch/kernels/flash_attention/ops.py launches it on torch's current
+// stream.
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: the entry point comes from the runtime)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 128;               // query rows per CTA
+constexpr int kBlockN = 128;               // keys per K/V tile
+constexpr int kStages = 2;                 // K/V ring depth
+constexpr int kConsumers = 2;              // consumer warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kSpan = 64;                  // bf16 columns of one 128-byte swizzle span
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  alignas(1024) __nv_bfloat16 q[D / kSpan][kBlockM][kSpan];
+  alignas(1024) __nv_bfloat16 k[kStages][D / kSpan][kBlockN][kSpan];
+  alignas(1024) __nv_bfloat16 v[kStages][D / kSpan][kBlockN][kSpan];
+  uint64_t q_full;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t kv_empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed. A
+// wait that never ends (a pipeline fault) traps after ~2^26 polls, seconds,
+// so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B). The tiles are 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma accumulator
+// register across the asynchronous instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128, float32) {=, +=} A (64 x 16, smem) . B (16 x 128, smem), both
+// K-major; accumulates into d when scale_d != 0, overwrites it otherwise.
+// The operands start OffA and OffB 16-byte units past the descriptors'
+// addresses (added inside, so no descriptor per step stays live).
+template <int OffA, int OffB>
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\n"
+      "add.s64 db, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(OffA), "n"(OffB));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16 x 128, smem,
+// MN-major: the transpose bit), B starting OffB 16-byte units past desc_b.
+template <int OffB>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "add.s64 db, %68, %70;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, db, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(OffB));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
+// MN-major: the transpose bit), B starting OffB 16-byte units past desc_b.
+template <int OffB>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "add.s64 db, %36, %38;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(OffB));
+}
+
+// S = Q . K^T of a tile: D/16 wgmma steps, each 32 bytes further into the
+// 128-byte rows of a span (two 16-byte units), spans of the q and k tiles
+// kBlockM * 128 and kBlockN * 128 bytes apart.
+template <int D, int KK = 0>
+__device__ __forceinline__ void qk_steps(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
+  if constexpr (KK < D / 16) {
+    constexpr int span = KK / 4, off = (KK % 4) * 2;
+    wgmma_ss_m64n128k16<span * kBlockM * 8 + off, span * kBlockN * 8 + off>(s, q_desc, k_desc,
+                                                                          KK > 0);
+    qk_steps<D, KK + 1>(s, q_desc, k_desc);
+  }
+}
+
+// O += P . V of a tile: 16 keys (2048 bytes, 128 units) a step.
+template <int D, int KK = 0>
+__device__ __forceinline__ void pv_steps(float (&o)[D / 2], const uint32_t (&pa)[kBlockN / 16][4],
+                                         uint64_t v_desc) {
+  if constexpr (KK < kBlockN / 16) {
+    if constexpr (D == 128) {
+      wgmma_rs_m64n128k16<KK * 128>(o, pa[KK], v_desc);
+    } else {
+      wgmma_rs_m64n64k16<KK * 128>(o, pa[KK], v_desc);
+    }
+    pv_steps<D, KK + 1>(o, pa, v_desc);
+  }
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads) over the two consumer
+// warpgroups: one syncs, the other arrives.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             __nv_bfloat16* __restrict__ out, int n_heads, int n_kv_heads,
+                             int s_len, int t_len, int causal, int window, float scale) {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  constexpr uint32_t kTileBytes = kBlockN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;  // swizzle atoms
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // late (heavy) q tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (n_heads / n_kv_heads);
+
+  // key tiles visible to some row of this q tile: first .. first + n_tiles - 1
+  const int q_last = min(q0 + kBlockM, s_len) - 1;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
+  const int first = lo / kBlockN;
+  const int n_tiles = hi >= first * kBlockN ? (hi - first * kBlockN) / kBlockN + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.kv_empty[st], kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every TMA load of the CTA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(&sm.q_full, kBlockM * D * 2);
+      for (int c = 0; c < D / kSpan; ++c)
+        tma_load(&sm.q[c][0][0], &q_map, &sm.q_full, c * kSpan, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&sm.kv_empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
+        const int k0 = (first + j) * kBlockN;
+        mbar_expect_tx(&sm.k_full[st], kTileBytes);
+        for (int c = 0; c < D / kSpan; ++c)
+          tma_load(&sm.k[st][c][0][0], &k_map, &sm.k_full[st], c * kSpan, hk, k0, b);
+        mbar_expect_tx(&sm.v_full[st], kTileBytes);
+        for (int c = 0; c < D / kSpan; ++c)
+          tma_load(&sm.v[st][c][0][0], &v_map, &sm.v_full[st], c * kSpan, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int lane = threadIdx.x % 32;
+    const int r0 = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
+    const int c0 = 2 * (lane % 4);  // first column of the thread in each 8-column block
+    constexpr int kO = D / 2;       // accumulator registers of O (64 x D)
+    float o[kO];
+#pragma unroll
+    for (int i = 0; i < kO; ++i) o[i] = 0.0f;
+    float m[2] = {kNeg, kNeg};
+    float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+
+    // keys visible to the thread's rows r0 and r0 + 8: key_lo[r] .. key_hi[r]
+    int key_lo[2], key_hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      key_hi[r] = causal ? min(t_len - 1, row) : t_len - 1;
+      key_lo[r] = window > 0 ? row - window + 1 : 0;
+    }
+    // visibility of S register i (row r0 + 8 * ((i >> 1) & 1), key k0 + c0 + 8 * (i >> 2) + (i & 1))
+    auto visible = [&](int k0, int i) {
+      const int key = k0 + c0 + 8 * (i >> 2) + (i & 1);
+      return key >= key_lo[(i >> 1) & 1] && key <= key_hi[(i >> 1) & 1];
+    };
+    // wgmma descriptors of the tiles' starts; steps add 16-byte units to them
+    const uint64_t q_desc = sw128_desc(&sm.q[0][wg * 64][0], 16, 1024);
+    const uint64_t k_desc = sw128_desc(&sm.k[0][0][0][0], 16, 1024);
+    const uint64_t v_desc = sw128_desc(&sm.v[0][0][0][0], kBlockN * 128, 1024);
+    constexpr uint32_t kStage16 = sizeof(sm.k[0]) / 16;  // one K or V stage
+
+    // The two warpgroups take turns on the tensor cores: each issues its
+    // P.V of one tile and S of the next (a turn) only after the other has
+    // issued its own, so one's softmax runs while the other's products do.
+    // Warpgroup 0 goes first.
+    mbar_wait(&sm.q_full, 0);
+    if (wg == 1 && n_tiles > 0) bar_arrive(1);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int k0 = (first + j) * kBlockN;
+
+      // S = Q . K^T: D/16 wgmma steps, 32 bytes into each 128-byte span row
+      float s[64];
+      mbar_wait(&sm.k_full[st], parity);
+      if (j == 0) bar_sync(1 + wg);
+      wgmma_fence();
+      qk_steps<D>(s, q_desc, k_desc + st * kStage16);
+      wgmma_commit();
+      bar_arrive(2 - wg);  // the other warpgroup's turn
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // online softmax on the fragment: mask, row max, p = exp(s - m_new)
+      const bool edge = (causal && k0 + kBlockN - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + kBlockM - 1 - window) || k0 + kBlockN > t_len;
+      float mx[2] = {m[0], m[1]};
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          s[i] = visible(k0, i) ? s[i] * scale : kNeg;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          s[i] *= scale;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      }
+      float corr[2], ml[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        ml[r] = mx[r] * kLog2e;
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          s[i] = visible(k0, i) ? ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1])) : 0.0f;
+          sum[(i >> 1) & 1] += s[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1]));
+          sum[(i >> 1) & 1] += s[i];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+      for (int i = 0; i < kO; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // P in bf16 as wgmma's A fragment: k16 step kk takes S columns 16kk .. 16kk + 15
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);  // row r, columns 2c, 2c + 1
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);  // row r + 8
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);  // row r, columns 8 + 2c, 9 + 2c
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row r + 8
+      }
+
+      // O += P . V: V as stored (keys x D) is B in MN-major; its two
+      // 64-column spans lie kBlockN * 128 bytes apart, 8-key groups 1024
+      mbar_wait(&sm.v_full[st], parity);
+      bar_sync(1 + wg);  // this warpgroup's turn
+      fence_regs(o);
+      wgmma_fence();
+      pv_steps<D>(o, pa, v_desc + st * kStage16);
+      wgmma_commit();
+      if (j + 1 == n_tiles && wg == 0) bar_arrive(2);  // warpgroup 1's last turn
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(&sm.kv_empty[st]);  // this thread is done with the stage
+    }
+
+    // out = acc / max(l, 1e-30): l summed over the quad that shares the rows
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      den[r] = fmaxf(l[r], 1e-30f);
+    }
+    const int64_t row_stride = static_cast<int64_t>(n_heads) * D;
+#pragma unroll
+    for (int i = 0; i < kO; i += 2) {
+      const int rh = (i >> 1) & 1;
+      const int row = r0 + 8 * rh;
+      if (row < s_len) {
+        __nv_bfloat16* dst = out + (static_cast<int64_t>(b) * s_len + row) * row_stride +
+                             static_cast<int64_t>(h) * D + 8 * (i >> 2) + c0;
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(__fdiv_rn(o[i], den[rh]), __fdiv_rn(o[i + 1], den[rh]));
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the CUDA driver API through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous (batch, rows, heads, D) bf16 tensor, innermost
+// first; a box is 64 columns of one head over box_rows rows of one batch
+// entry, 128-byte swizzled, rows past the end zero-filled.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, int heads,
+                int rows, int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kSpan), 1, static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kErrNoEncoder = -1;  // the CUDA driver has no cuTensorMapEncodeTiled
+constexpr int kErrBadMap = -2;     // a tensor map was refused (alignment, strides)
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
+           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
+           void* stream) {
+  constexpr int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + alignment slack
+  static bool configured = false;  // raise the dynamic shared memory limit once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((s_len + kBlockM - 1) / kBlockM, n_heads, batch);
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0) return static_cast<int>(cudaGetLastError());
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(encode, &q_map, q, D, n_heads, s_len, batch, kBlockM)) return kErrBadMap;
+  if (t_len > 0) {
+    if (!encode_map(encode, &k_map, k, D, n_kv_heads, t_len, batch, kBlockN) ||
+        !encode_map(encode, &v_map, v, D, n_kv_heads, t_len, batch, kBlockN)) {
+      return kErrBadMap;
+    }
+  } else {
+    k_map = v_map = q_map;  // no key tile is loaded
+  }
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), n_heads, n_kv_heads, s_len, t_len,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// bfloat16 q/out (B, S, H, D) and k/v (B, T, Hkv, D), contiguous with
+// 16-byte aligned starts; head_dim 64 or 128; H a multiple of Hkv.
+// Returns cudaGetLastError() after the launch (0 = launched), or a negative
+// code when a TMA tensor map could not be built.
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                               int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+                               int head_dim, int causal, int window, float scale, void* stream) {
+  if (head_dim == 64)
+    return launch<64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                      scale, stream);
+  if (head_dim == 128)
+    return launch<128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                       scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -1,18 +1,21 @@
 // Masked weighted client average (the paper's Eq. 1 server reduction) for
-// sm_90a — the port's aggregation kernel.
+// sm_90a — the port's aggregation kernel, one launch for all the leaves of
+// a round.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/masked_aggregate/kernel.py:masked_aggregate_kernel
 //   (_agg_kernel)
 //
-// What it computes, for x (C, P) of float32 or bfloat16, weights w (C,)
-// float32 and an optional fallback (P,) of x's type:
-//   total  = sum_c w[c]
-//   out[p] = total > 0 ? (sum_c w[c] * x[c, p]) / max(total, 1e-12)
-//                      : fallback[p]   (0 without a fallback)
-// accumulated in float32 and written in x's type. The aggregators pass
-// w = selected * |d_i| (fedavg) or that times the layer's share mask
-// (masked-partial, with the previous global layer as fallback).
+// What it computes, for each leaf i of a table: x_i (C, P_i) of float32 or
+// bfloat16 (one dtype a launch), its row r_i of a weight matrix w (R, C)
+// float32, and an optional fallback_i (P_i,) of x's type:
+//   total  = sum_c w[r_i, c]
+//   out_i[p] = total > 0 ? (sum_c w[r_i, c] * x_i[c, p]) / max(total, 1e-12)
+//                        : fallback_i[p]   (0 without a fallback)
+// accumulated in float32 and written in x's type. The aggregators pass one
+// row w = selected * |d_i| for every leaf (fedavg, R = 1), or a row per
+// layer, that times the layer's share mask, with the previous global layer
+// as the fallbacks (masked-partial, R = L).
 //
 // Bound on an H100 (3.35 TB/s): bytes. The kernel reads x once (4 or 2 B an
 // element) and writes P outputs, against 2 flops per x element; it reads the
@@ -22,20 +25,24 @@
 //
 // Design: the TPU kernel holds a (C, 512) tile in VMEM and sums over C in
 // one step; here blocks run in parallel with no carried state, so the C
-// loop runs inside each thread instead. A thread owns 4 neighbouring
-// columns, so a warp reads 128 consecutive elements of a client row per
-// step (one 16-byte load a thread where aligned), and walks the rows c in
-// ascending order, accumulating in float32 registers. It issues the loads
-// of 4 rows before it adds them, so each thread keeps 4 loads in flight,
-// and blocks are 64 threads (256 columns), so even a 65,536-element leaf
-// spreads over all 132 SMs. The weights are
-// staged in shared memory 1024 at a time, and each thread sums them itself
-// in the same ascending order, so every thread sees the same total with no
-// second pass. Products and sums are rounded one at a time (__fmul_rn,
-// __fadd_rn: no fused multiply-add) and the division is IEEE (__fdiv_rn),
-// so the result equals the plain version's ascending loop exactly; the
-// order differs from jnp's reduction, hence a stated ulp bound against the
-// JAX package.
+// loop runs inside each thread instead. One launch covers every leaf: the
+// leaves' pointers, sizes, weight rows and first blocks travel in a table
+// passed as a __grid_constant__ parameter, each block finds its leaf in it
+// (no block straddles two leaves), so a round costs one launch and one
+// tail instead of one per leaf (4 of har-mlp's 8 leaves are biases of 6-256
+// elements). Inside a leaf a thread owns 4 neighbouring columns, so a warp
+// reads 128 consecutive elements of a client row per step (one 16-byte
+// load a thread where aligned), and walks the rows c in ascending order,
+// accumulating in float32 registers. It issues the loads of 4 rows before
+// it adds them, so each thread keeps 4 loads in flight, and blocks are 64
+// threads (256 columns), so even a 65,536-element leaf spreads over all 132
+// SMs. The leaf's weight row is staged in shared memory 1024 at a time, and
+// each thread sums it itself in the same ascending order, so every thread
+// sees the same total with no second pass. Products and sums are rounded
+// one at a time (__fmul_rn, __fadd_rn: no fused multiply-add) and the
+// division is IEEE (__fdiv_rn), so every leaf equals the plain version's
+// ascending loop on that leaf exactly; the order differs from jnp's
+// reduction, hence a stated ulp bound against the JAX package.
 //
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper in
@@ -51,6 +58,24 @@ namespace {
 constexpr int kThreads = 64;
 constexpr int kCols = 4;
 constexpr int kWeightChunk = 1024;
+constexpr int kMaxLeaves = 64;  // leaves a launch (the table stays under 4 KB)
+
+// One leaf of a launch; the Python wrapper fills the same layout (ctypes).
+struct Leaf {
+  const void* x;         // (C, cols), x's dtype
+  const void* fallback;  // (cols,) or null: zeros
+  void* out;             // (cols,)
+  int64_t cols;
+  int64_t block0;        // the leaf's first block; its blocks are ceil(cols / 256)
+  int64_t row;           // its row of the weight matrix
+};
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  const float* w;        // (R, C) float32, row-major
+  int n_leaves;
+  int c_rows;            // C
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -86,11 +111,19 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float v[kCols]
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-masked_aggregate_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                        const T* __restrict__ fallback, T* __restrict__ out,
-                        int c_rows, int64_t p_cols) {
+masked_aggregate_kernel(const __grid_constant__ Table table) {
   __shared__ float w_s[kWeightChunk];
-  const int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
+  int li = 0;  // this block's leaf
+  while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
+  const Leaf& leaf = table.leaf[li];
+  const T* __restrict__ x = static_cast<const T*>(leaf.x);
+  const T* __restrict__ fallback = static_cast<const T*>(leaf.fallback);
+  T* __restrict__ out = static_cast<T*>(leaf.out);
+  const float* __restrict__ w = table.w + leaf.row * table.c_rows;
+  const int c_rows = table.c_rows;
+  const int64_t p_cols = leaf.cols;
+
+  const int64_t p0 = ((blockIdx.x - leaf.block0) * kThreads + threadIdx.x) * kCols;
   const bool full = p0 + kCols <= p_cols;
   float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
   float total = 0.0f;
@@ -140,32 +173,28 @@ masked_aggregate_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* fallback, void* out,
-           int c_rows, int64_t p_cols, void* stream) {
-  const int64_t per_block = static_cast<int64_t>(kThreads) * kCols;
-  const int64_t blocks = (p_cols + per_block - 1) / per_block;
-  if (blocks > 0) {
-    masked_aggregate_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const float*>(w),
-        static_cast<const T*>(fallback), static_cast<T*>(out), c_rows, p_cols);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. fallback may be null (zeros).
+// Aggregates every leaf of the Table at table_ptr in one launch of `blocks`
+// blocks (the sum of the leaves' ceil(cols / 256)). dtype: 0 = float32,
+// 1 = bfloat16.
 // Returns cudaGetLastError() after the launch (0 = launched).
-int repro_masked_aggregate(const void* x, const void* w, const void* fallback,
-                           void* out, int c_rows, int64_t p_cols, int dtype,
-                           void* stream) {
-  if (dtype == 0) return launch<float>(x, w, fallback, out, c_rows, p_cols, stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, fallback, out, c_rows, p_cols, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+int repro_masked_aggregate(const void* table_ptr, int64_t blocks, int dtype, void* stream) {
+  const Table* table = static_cast<const Table*>(table_ptr);
+  if (table->n_leaves < 1 || table->n_leaves > kMaxLeaves || blocks < 1 || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (dtype == 0) {
+    masked_aggregate_kernel<float><<<grid, kThreads, 0, s>>>(*table);
+  } else if (dtype == 1) {
+    masked_aggregate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*table);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

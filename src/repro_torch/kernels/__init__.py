@@ -3,12 +3,14 @@ the JAX package:
 
   quantize, dequantize — per-block absmax int8/int4 (de)quantization
                          (the uplink codec; csrc/quantize.cu)
-  masked_aggregate     — the paper's Eq. 1 masked weighted client average
+  masked_aggregate     — the paper's Eq. 1 masked weighted client average,
+                         every leaf of a round in one launch
                          (the aggregators; csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
                          (falcon-mamba; csrc/ssm_scan.cu)
-  flash_attention      — causal GQA attention of a prefill
-                         (granite; csrc/flash_attention.cu)
+  flash_attention      — causal GQA attention of a prefill (granite;
+                         bf16 on wgmma: csrc/flash_attention_wgmma.cu,
+                         float32: csrc/flash_attention.cu)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first
@@ -17,14 +19,14 @@ launch counters, so a run can show that its path went through the kernels.
 """
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.masked_aggregate import masked_aggregate
+from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_leaves
 from repro_torch.kernels.quantize import dequantize, quantize
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {
     "quantize": quantize,
     "dequantize": dequantize,
-    "masked_aggregate": masked_aggregate,
+    "masked_aggregate": masked_aggregate_leaves,
     "ssm_scan": ssm_scan,
     "flash_attention": flash_attention,
 }
@@ -40,5 +42,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize", "dequantize", "masked_aggregate", "ssm_scan", "flash_attention",
-           "KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["quantize", "dequantize", "masked_aggregate", "masked_aggregate_leaves", "ssm_scan",
+           "flash_attention", "KERNELS", "launch_counts", "reset_launch_counts"]

@@ -27,6 +27,7 @@ SOURCES = {
     "masked_aggregate": "masked_aggregate.cu",
     "ssm_scan": "ssm_scan.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention_wgmma.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

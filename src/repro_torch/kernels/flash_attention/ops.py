@@ -2,24 +2,38 @@
 
 Replaces the JAX package's Pallas kernel
 ``src/repro/kernels/flash_attention/kernel.py`` (``flash_attention_kernel``/
-``_fa_kernel``, wrapper ``ops.flash_attention``) with the hand-written CUDA
-kernel in ``repro_torch/csrc/flash_attention.cu``; that file's header states
-its bound on the H100 (operations: the visible half of the scores at the
-bf16 tensor-core rate) and its design. In the JAX package the model's
-prefill runs ``models/layers.py:chunked_attention`` and the Pallas kernel is
-its TPU version; in the port the kernel is the prefill's path.
+``_fa_kernel``, wrapper ``ops.flash_attention``) with two hand-written CUDA
+kernels, one per dtype, whose headers state their bounds on the H100 and
+their designs:
+
+- bfloat16: ``repro_torch/csrc/flash_attention_wgmma.cu`` — QK^T and P.V on
+  Hopper's tensor cores (wgmma), K/V tiles fed by TMA through a 2-stage
+  shared-memory ring, two consumer warpgroups taking turns; 128-key tiles;
+- float32 (the reduced parity configs): ``repro_torch/csrc/flash_attention.cu``
+  — the CUDA cores; 64-key tiles.
+
+In the JAX package the model's prefill runs ``models/layers.py:
+chunked_attention`` and the Pallas kernel is its TPU version; in the port
+the kernels are the prefill's path.
 
 Both take the model's layout, q (B, S, H, D) and k, v (B, T, Hkv, D), with
 kv head ``h // (H / Hkv)`` for q head h; key t is visible to query s when
-t <= s (causal) and t > s - window (window > 0). As in the Pallas kernel,
-scores, P and the P.V accumulator are float32 (JAX's ``chunked_attention``
-rounds P to v's dtype before P.V instead).
+t <= s (causal) and t > s - window (window > 0). Scores, the running max
+and sum, and the P.V accumulator are float32. In float32, P stays float32,
+as in the Pallas kernel. In bfloat16, P is rounded to bfloat16 before P.V
+(wgmma takes bf16 operands) while l sums the float32 P: the arithmetic of
+JAX's ``chunked_attention`` (``p.astype(v.dtype)``), not the Pallas
+kernel's.
 
-- ``flash_attention_plain``: the plain PyTorch version — the kernel's online
-  softmax over 64-key tiles, step for step;
+- ``flash_attention_plain``: the plain PyTorch version — the kernels'
+  online softmax over their key tiles (``softmax_tiles``: ``BLOCK_K`` keys
+  in bf16, ``BLOCK_K_F32`` in float32), step for step;
 - ``flash_attention``: the wrapper, dispatching on the tensor's device (CPU
-  -> plain, CUDA -> kernel or raise);
-- ``flash_attention.launches``: the kernel's launch counter.
+  -> plain, CUDA -> the kernel of its dtype, or raise);
+- ``flash_attention.launches``: the kernels' launch counter.
+
+``contract.py`` states how closely a bf16 result must match the plain
+version, and checks it.
 """
 
 from __future__ import annotations
@@ -33,15 +47,24 @@ from repro_torch.kernels import build
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-BLOCK_K = 64  # keys per tile, as in the kernel
+BLOCK_K = 128     # keys per tile of the bf16 (wgmma) kernel
+BLOCK_K_F32 = 64  # keys per tile of the float32 kernel
 _NEG = -1e30
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """Attention of q (B, S, H, D) over k, v (B, T, Hkv, D), scores scaled
-    by 1/sqrt(D), in q's dtype."""
+def _layout(x, q):
+    """(b, hkv, g, s, d) -> q's (b, s, h, d)."""
+    b, s, h, d = q.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def softmax_tiles(q, k, v, causal: bool, window: int):
+    """The kernels' online softmax over key tiles (``BLOCK_K`` keys in
+    bf16, ``BLOCK_K_F32`` in float32), in float32: for each tile, its P
+    (b, hkv, g, s, keys) against the running max so far, the factor that
+    rescales what came before (b, hkv, g, s), and its V (b, hkv, 1, keys,
+    d). What the kernels accumulate from them is ``flash_attention_plain``."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -49,12 +72,11 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
     qg = q.to(torch.float32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)  # (b,hkv,g,s,d)
     kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]                  # (b,hkv,1,t,d)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    block = BLOCK_K if q.dtype == torch.bfloat16 else BLOCK_K_F32
     rows = torch.arange(s, device=q.device)[:, None]
     m = torch.full((b, hkv, g, s), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, t, BLOCK_K):
-        kt, vt = kf[..., k0:k0 + BLOCK_K, :], vf[..., k0:k0 + BLOCK_K, :]
+    for k0 in range(0, t, block):
+        kt, vt = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
         keys = torch.arange(k0, k0 + kt.shape[-2], device=q.device)[None, :]
         vis = torch.ones((s, keys.shape[1]), dtype=torch.bool, device=q.device)
         if causal:
@@ -63,28 +85,37 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
             vis = vis & (keys > rows - window)
         sc = torch.where(vis, torch.matmul(qg, kt.transpose(-1, -2)) * scale, _NEG)
         m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.where(vis, torch.exp(sc - m_new[..., None]), 0.0)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(p, vt)
+        yield torch.where(vis, torch.exp(sc - m_new[..., None]), 0.0), torch.exp(m - m_new), vt
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if not getattr(lib, "_repro_typed", False):
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
+    """Attention of q (B, S, H, D) over k, v (B, T, Hkv, D), scores scaled
+    by 1/sqrt(D), in q's dtype."""
+    bf16 = q.dtype == torch.bfloat16
+    l = acc = 0.0
+    for p, corr, vt in softmax_tiles(q, k, v, causal, window):
+        l = l * corr + p.sum(dim=-1)
+        pv = p.to(torch.bfloat16).to(torch.float32) if bf16 else p  # wgmma's bf16 P
+        acc = acc * corr[..., None] + torch.matmul(pv, vt)
+    return _layout(acc / torch.clamp_min(l, 1e-30)[..., None], q).to(q.dtype)
+
+
+def _entry(dtype):
+    """The C entry of the kernel library for ``dtype``, typed once."""
+    name, entry = (("flash_attention_wgmma", "repro_flash_attention_bf16")
+                   if dtype == torch.bfloat16 else ("flash_attention", "repro_flash_attention_f32"))
+    fn = getattr(build.load(name), entry)
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                              ctypes.c_float, i, p]
-        lib.repro_flash_attention.restype = ctypes.c_int
-        lib._repro_typed = True
-    return lib
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernel's vector loads)."""
+    """Contiguous, with a 16-byte aligned start (the f32 kernel's vector
+    loads; TMA's global addresses)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -93,12 +124,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """Attention of q (B, S, H, D) over k, v (B, T, Hkv, D), scores scaled
     by 1/sqrt(D), in q's dtype.
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
-    kernel, which takes float32 or bfloat16 and head dims 64 and 128."""
+    kernel of their dtype (bfloat16: wgmma; float32: CUDA cores), which
+    takes head dims 64 and 128."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device} have no kernel here")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
@@ -114,12 +146,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention: q, k and v must be on one device")
     qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(qc)
-    err = _lib().repro_flash_attention(
+    err = _entry(q.dtype)(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
-        int(bool(causal)), int(window), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+        int(bool(causal)), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
+        raise RuntimeError(f"flash_attention {q.dtype} kernel launch failed: {what}")
     flash_attention.launches += 1
     return out
 

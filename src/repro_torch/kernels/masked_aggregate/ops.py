@@ -1,21 +1,26 @@
-"""masked_aggregate — the paper's Eq. 1 server reduction on one stacked leaf.
+"""masked_aggregate — the paper's Eq. 1 server reduction over stacked leaves.
 
 Replaces the JAX package's Pallas kernel
 ``src/repro/kernels/masked_aggregate/kernel.py`` (``masked_aggregate_kernel``/
 ``_agg_kernel``) with the hand-written CUDA kernel in
 ``repro_torch/csrc/masked_aggregate.cu``; that file's header states its bound
 on the H100 (bytes: x read once, ~4 B per client element) and its design.
-In the JAX package this function is computed in jnp by
+One launch aggregates a whole list of leaves, each with its own row of a
+weight matrix and its own fallback, so a round costs one launch. In the JAX
+package this function is computed in jnp by
 ``core/aggregation._weighted_mean`` and the Pallas kernel is only tested;
 in the port it is the aggregators' path.
 
-- ``masked_aggregate_plain``: the plain PyTorch version — clients summed
-  in ascending order in float32, one rounding per product and per sum, as
-  the kernel does, so the kernel is held to it within 1 ulp (bitwise in
-  practice);
-- ``masked_aggregate``: the wrapper, dispatching on the tensor's device (CPU
-  -> plain, CUDA -> kernel or raise);
-- ``masked_aggregate.launches``: the kernel's launch counter.
+- ``masked_aggregate_plain``: the plain PyTorch version of one leaf —
+  clients summed in ascending order in float32, one rounding per product
+  and per sum, as the kernel does, so the kernel is bitwise equal to it on
+  every leaf;
+- ``masked_aggregate_leaves_plain``: that, leaf by leaf;
+- ``masked_aggregate_leaves``: the wrapper over a list of leaves,
+  dispatching on the tensors' device (CPU -> plain, CUDA -> one kernel
+  launch, or raise); at most 64 leaves, the kernel's parameter table;
+- ``masked_aggregate``: one leaf, the one-leaf case of the above;
+- ``masked_aggregate_leaves.launches``: the kernel's launch counter.
 """
 
 from __future__ import annotations
@@ -26,9 +31,22 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["masked_aggregate", "masked_aggregate_plain"]
+__all__ = ["masked_aggregate", "masked_aggregate_leaves", "masked_aggregate_leaves_plain",
+           "masked_aggregate_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_LEAVES = 64    # leaves a launch (the kernel's parameter table)
+_BLOCK_COLS = 256   # columns a block (64 threads x 4)
+
+
+class _Leaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("fallback", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("cols", ctypes.c_int64), ("block0", ctypes.c_int64), ("row", ctypes.c_int64)]
+
+
+class _Table(ctypes.Structure):
+    _fields_ = [("leaf", _Leaf * _MAX_LEAVES), ("w", ctypes.c_void_p), ("n_leaves", ctypes.c_int),
+                ("c_rows", ctypes.c_int)]
 
 
 def masked_aggregate_plain(x: torch.Tensor, weights: torch.Tensor,
@@ -47,49 +65,111 @@ def masked_aggregate_plain(x: torch.Tensor, weights: torch.Tensor,
     return torch.where(total > 0, mean, fb).to(x.dtype)
 
 
+def masked_aggregate_leaves_plain(xs, weights: torch.Tensor, rows=None, fallbacks=None) -> list:
+    """``masked_aggregate_plain(xs[i], weights[rows[i]], fallbacks[i])`` for
+    every leaf (rows default to 0, fallbacks to None)."""
+    rows = [0] * len(xs) if rows is None else rows
+    fallbacks = [None] * len(xs) if fallbacks is None else fallbacks
+    return [masked_aggregate_plain(x, weights[r], fb) for x, r, fb in zip(xs, rows, fallbacks)]
+
+
 def _lib():
     lib = build.load("masked_aggregate")
     if not getattr(lib, "_repro_typed", False):
-        p = ctypes.c_void_p
-        lib.repro_masked_aggregate.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int64,
-                                               ctypes.c_int, p]
+        lib.repro_masked_aggregate.argtypes = [ctypes.POINTER(_Table), ctypes.c_int64,
+                                               ctypes.c_int, ctypes.c_void_p]
         lib.repro_masked_aggregate.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
+def _check(xs, weights, rows, fallbacks) -> None:
+    dev = xs[0].device
+    if weights.ndim != 2 or weights.dtype != torch.float32 or weights.device != dev:
+        raise ValueError(f"weights must be a float32 (R, C) matrix on {dev}, got "
+                         f"{weights.dtype} {tuple(weights.shape)} on {weights.device}")
+    n_rows, c = weights.shape
+    if not len(rows) == len(fallbacks) == len(xs):
+        raise ValueError("masked_aggregate_leaves: one row and one fallback per leaf")
+    if xs[0].dtype not in _DTYPES or any(x.dtype != xs[0].dtype for x in xs):
+        raise TypeError(f"masked_aggregate takes float32 or bfloat16 leaves of one dtype, got "
+                        f"{sorted({str(x.dtype) for x in xs})}")
+    for x, r, fb in zip(xs, rows, fallbacks):
+        if x.device != dev or x.ndim < 1 or x.shape[0] != c:
+            raise ValueError(f"every leaf must be ({c}, ...) on {dev}, got {tuple(x.shape)} "
+                             f"on {x.device}")
+        if not 0 <= r < n_rows:
+            raise ValueError(f"weight row {r} outside the {n_rows} rows")
+        if fb is not None and (fb.shape != x.shape[1:] or fb.dtype != x.dtype or fb.device != dev):
+            raise ValueError(f"fallback must be {x.dtype} of shape {tuple(x.shape[1:])} on {dev}")
+
+
+def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None) -> list:
+    """Weighted means of stacked leaves ``xs[i]`` (C, ...) over their client
+    axis, leaf i weighted by row ``rows[i]`` (default 0) of ``weights``
+    (R, C) float32, with ``fallbacks[i]`` (shape ``xs[i].shape[1:]``, its
+    dtype; None = zeros) where that row sums to 0. At most 64 float32 or
+    bfloat16 leaves of one dtype, which the results have. CPU tensors run
+    the plain version; on CUDA one kernel launch covers every leaf, and the
+    outputs are views of one buffer."""
+    xs = list(xs)
+    rows = [0] * len(xs) if rows is None else [int(r) for r in rows]
+    fallbacks = [None] * len(xs) if fallbacks is None else list(fallbacks)
+    if len(xs) > _MAX_LEAVES:
+        raise ValueError(f"masked_aggregate_leaves takes at most {_MAX_LEAVES} leaves (the "
+                         f"kernel's parameter table), got {len(xs)}")
+    if not xs:
+        return []
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return masked_aggregate_leaves_plain(xs, weights, rows, fallbacks)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_aggregate: tensors on {dev} have no kernel here")
+    _check(xs, weights, rows, fallbacks)
+    wc = weights.contiguous()
+    dtype = xs[0].dtype
+    align = 16 // dtype.itemsize  # each leaf's output view starts on a 16-byte boundary
+    sizes = [x.shape[1:].numel() for x in xs]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // align) * align)
+    buf = torch.empty(offsets[-1], dtype=dtype, device=dev)
+    table, keep, outs, block = _Table(), [], [], 0  # keep: contiguous copies live until the launch
+    for i, (x, fb, n, off) in enumerate(zip(xs, fallbacks, sizes, offsets)):
+        x = x.contiguous()
+        fb = None if fb is None else fb.contiguous()
+        out = buf[off:off + n]
+        keep += [x, fb]
+        outs.append(out.view(xs[i].shape[1:]))
+        table.leaf[i] = _Leaf(x.data_ptr(), None if fb is None else fb.data_ptr(),
+                              out.data_ptr(), n, block, rows[i])
+        block += -(-n // _BLOCK_COLS)
+    table.w, table.n_leaves, table.c_rows = wc.data_ptr(), len(xs), wc.shape[1]
+    if block == 0:  # only empty leaves: nothing to launch
+        return outs
+    err = _lib().repro_masked_aggregate(ctypes.byref(table), block, _DTYPES[dtype],
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked_aggregate kernel launch failed: cudaError {err}")
+    masked_aggregate_leaves.launches += 1
+    return outs
+
+
+masked_aggregate_leaves.launches = 0
+
+
 def masked_aggregate(x: torch.Tensor, weights: torch.Tensor,
                      fallback: torch.Tensor | None = None) -> torch.Tensor:
-    """Weighted mean of a stacked leaf ``x`` (C, ...) over its client axis,
+    """Weighted mean of one stacked leaf ``x`` (C, ...) over its client axis,
     with ``fallback`` (shape ``x.shape[1:]``, x's dtype; None = zeros) where
-    the weights sum to 0. float32 or bfloat16 ``x``; the result has x's
-    dtype. CPU tensors run ``masked_aggregate_plain``; CUDA tensors launch
-    the kernel."""
+    the weights (C,) sum to 0: the one-leaf case of
+    ``masked_aggregate_leaves``. CPU tensors run ``masked_aggregate_plain``;
+    CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return masked_aggregate_plain(x, weights, fallback)
     if x.device.type != "cuda":
         raise ValueError(f"masked_aggregate: tensors on {x.device} have no kernel here")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"masked_aggregate takes float32 or bfloat16, got {x.dtype}")
     c = x.shape[0]
     if weights.shape != (c,) or weights.dtype != torch.float32 or weights.device != x.device:
         raise ValueError(f"weights must be float32 of shape ({c},) on {x.device}")
-    if fallback is not None and (fallback.shape != x.shape[1:] or fallback.dtype != x.dtype
-                                 or fallback.device != x.device):
-        raise ValueError(f"fallback must be {x.dtype} of shape {tuple(x.shape[1:])} on {x.device}")
-    xc = x.contiguous()
-    wc = weights.contiguous()
-    fc = fallback.contiguous() if fallback is not None else None
-    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    p_cols = out.numel()
-    err = _lib().repro_masked_aggregate(
-        xc.data_ptr(), wc.data_ptr(), fc.data_ptr() if fc is not None else None,
-        out.data_ptr(), c, p_cols, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked_aggregate kernel launch failed: cudaError {err}")
-    masked_aggregate.launches += 1
-    return out
-
-
-masked_aggregate.launches = 0
+    return masked_aggregate_leaves([x], weights[None], [0], [fallback])[0]

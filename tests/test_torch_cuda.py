@@ -5,11 +5,17 @@ runs on the GPU machine, where jax is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Contracts: quantize/dequantize bitwise equal to their plain versions;
-masked_aggregate bitwise equal to its plain version (same ascending client
-order, one rounding per product and per sum, IEEE division) and exact on
-the zero-weight fallback; ssm_scan within 1e-5 of max|y| and of max|h|;
-flash_attention within 1e-5 of max|out| in float32, and in bfloat16 within
-1 bf16 ulp of each element plus that (both round a float32 result).
+masked_aggregate bitwise equal to its plain version on every leaf (same
+ascending client order, one rounding per product and per sum, IEEE
+division), one launch for a list of leaves, and exact on the zero-weight
+fallback; ssm_scan within 1e-5 of max|y| and of max|h|; flash_attention
+within 1e-5 of max|out| in float32 (the CUDA-core kernel), and in bfloat16
+(the wgmma kernel, P rounded to bf16 as the plain version does) the bf16
+contract of ``kernels/flash_attention/contract.py``: within 1 bf16 ulp of
+each element plus that plus ``p_rounding_slack`` (the kernel sums the
+scores in another order than the plain version's matmul, so a few P
+elements round to the neighbouring bf16 value), with at most 1e-3 of the
+elements beyond 1 ulp plus 1e-5 of max.
 """
 
 import numpy as np
@@ -21,7 +27,14 @@ from repro_torch.configs import get_config
 from repro_torch.data import make_federated_classification
 from repro_torch.fl import FLConfig, run_federated
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_plain
+from repro_torch.kernels.flash_attention.contract import bf16_contract
+from repro_torch.kernels import build
+from repro_torch.kernels.masked_aggregate import (
+    masked_aggregate,
+    masked_aggregate_leaves,
+    masked_aggregate_leaves_plain,
+    masked_aggregate_plain,
+)
 from repro_torch.kernels.quantize import dequantize, dequantize_plain, quantize, quantize_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 from repro_torch.launch.serve import serve
@@ -64,6 +77,42 @@ def test_masked_aggregate_vs_plain(cuda, dtype):
     assert torch.equal(got, masked_aggregate_plain(x, w, fb))
     zero = masked_aggregate(x.to(cuda), torch.zeros_like(w).to(cuda), fb.to(cuda)).cpu()
     assert torch.equal(zero, fb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_masked_aggregate_leaves_bitwise_in_one_launch(cuda, dtype):
+    """har-mlp's leaves (a 6-element bias to a 561 x 256 matrix) under a
+    masked-partial weight matrix, R = 4 with an all-zero row."""
+    rng = np.random.default_rng(3)
+    shapes = [(256,), (561, 256), (256,), (256, 256), (6,), (256, 6)]
+    xs = [torch.from_numpy(rng.standard_normal((30,) + s).astype(np.float32)).to(dtype)
+          for s in shapes]
+    fbs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype) for s in shapes]
+    w = ((rng.random((4, 30)) < 0.5) * rng.integers(20, 400, (4, 30))).astype(np.float32)
+    w[2] = 0.0
+    w = torch.from_numpy(w)
+    rows = [0, 1, 2, 2, 3, 1]
+    kernels.reset_launch_counts()
+    got = masked_aggregate_leaves([x.to(cuda) for x in xs], w.to(cuda), rows,
+                                  [fb.to(cuda) for fb in fbs])
+    assert kernels.launch_counts()["masked_aggregate"] == 1
+    want = masked_aggregate_leaves_plain(xs, w, rows, fbs)
+    for i, (g, p) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == p.shape
+        assert torch.equal(g.cpu(), p), i
+        if rows[i] == 2:
+            assert torch.equal(g.cpu(), fbs[i])
+
+
+@pytest.mark.parametrize("cfg", [dict(codec="int8"),
+                                 dict(strategy="fedavg", personalization="none", fraction=1.0)],
+                         ids=["acsp-fl+dld+int8", "fedavg"])
+def test_aggregation_launches_once_a_round(cuda, cfg):
+    ds = make_federated_classification(n_clients=8, n_classes=4, n_features=20,
+                                       samples_per_client_range=(60, 90), seed=1)
+    kernels.reset_launch_counts()
+    run_federated(ds, FLConfig(rounds=3, epochs=1, **cfg), device=cuda)
+    assert kernels.launch_counts()["masked_aggregate"] == 3
 
 
 def test_int8_round_runs_through_the_kernels(cuda):
@@ -122,7 +171,44 @@ def test_flash_attention_vs_plain(cuda, case, dtype):
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype
-    (_close_to_max if dtype == torch.float32 else _bf16_close)(got, want)
+    if dtype == torch.float32:
+        _close_to_max(got, want)
+    else:
+        result = bf16_contract(got, want, q, k, v, causal, window)
+        assert result["ok"], result
+
+
+@pytest.mark.parametrize("case", [
+    # (b, s, h, hkv, d, causal, window): G = 4 and a ragged S, D = 64, a window
+    (1, 2000, 8, 2, 128, True, 0),
+    (2, 384, 8, 2, 64, True, 0),
+    (1, 640, 8, 2, 128, True, 200),
+    (1, 300, 4, 1, 64, False, 0),
+    (2, 130, 4, 4, 128, False, 64),
+], ids=str)
+def test_flash_attention_wgmma_vs_plain(cuda, case):
+    b, s, h, hkv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d + window)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert kernels.launch_counts()["flash_attention"] == 1 and got.dtype == torch.bfloat16
+    result = bf16_contract(got, flash_attention_plain(q, k, v, causal=causal, window=window),
+                           q, k, v, causal, window)
+    assert result["ok"], result
+
+
+def test_flash_attention_bf16_reaches_only_the_wgmma_kernel(cuda):
+    """The CUDA-core library has no bf16 entry and the wgmma one no float32
+    entry; a bf16 call at D = 128 runs, float16 raises."""
+    assert not hasattr(build.load("flash_attention"), "repro_flash_attention_bf16")
+    assert not hasattr(build.load("flash_attention_wgmma"), "repro_flash_attention_f32")
+    q = torch.randn((1, 64, 2, 128), device=cuda).to(torch.bfloat16)
+    assert flash_attention(q, q[:, :, :1], q[:, :, :1]).dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q[:, :, :1].half(), q[:, :, :1].half())
 
 
 def test_flash_attention_rejects_other_head_dims(cuda):

@@ -10,7 +10,10 @@ here to the JAX ops on the same numpy inputs:
 - masked_aggregate: within 2 ulp of the mean's magnitude scale of the
   interpret-mode Pallas kernel and of ``masked_aggregate_ref`` (the client
   sum runs in another order), 1 bf16 ulp for bfloat16 leaves, and the
-  zero-weight fallback exactly.
+  zero-weight fallback exactly; the multi-leaf entry that the aggregators
+  call once a round (``masked_aggregate_leaves``) bitwise equal to the
+  one-leaf plain version on every leaf, and within the same 2 ulp of the
+  JAX package's fedavg and masked-partial aggregators.
 
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -23,12 +26,17 @@ import torch
 jax = pytest.importorskip("jax")  # the JAX reference these tests compare with
 
 import jax.numpy as jnp  # noqa: E402
+from repro.core import aggregation as jagg  # noqa: E402
 from repro.kernels.masked_aggregate import masked_aggregate as jax_masked_aggregate  # noqa: E402
 from repro.kernels.masked_aggregate.ref import masked_aggregate_ref  # noqa: E402
 from repro.kernels.quantize import dequantize as jax_dequantize  # noqa: E402
 from repro.kernels.quantize import quantize as jax_quantize  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels.masked_aggregate import masked_aggregate  # noqa: E402
+from repro_torch.kernels.masked_aggregate import (  # noqa: E402
+    masked_aggregate,
+    masked_aggregate_leaves,
+    masked_aggregate_plain,
+)
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize,
     dequantize_plain,
@@ -173,12 +181,62 @@ def test_masked_aggregate_nd_leaf():
     _assert_mean_close(got.reshape(-1), kern.reshape(-1), x.reshape(6, -1), w)
 
 
+# har-mlp's layer shapes at a narrow width: (fan_in, fan_out) per layer
+_LAYERS = [(21, 16), (16, 16), (16, 6)]
+
+
+def _layers(rng, c=None):
+    lead = () if c is None else (c,)
+    return [{"b": rng.standard_normal(lead + (o,)).astype(np.float32),
+             "w": rng.standard_normal(lead + (i, o)).astype(np.float32)} for i, o in _LAYERS]
+
+
+@pytest.mark.parametrize("c", [8, 30])
+@pytest.mark.parametrize("strategy", ["fedavg", "masked-partial"])
+def test_masked_aggregate_leaves_vs_jax_aggregators(strategy, c):
+    """One call over every leaf of every layer: weight matrix R = 1 (fedavg)
+    or R = L (masked-partial, the last layer shared by nobody: its row is
+    all zero and the previous global layer comes back exactly)."""
+    rng = np.random.default_rng(c)
+    stacked, prev = _layers(rng, c), _layers(rng)
+    sel = rng.random(c) < 0.7
+    n = rng.integers(60, 90, c).astype(np.float32)
+    base = (sel * n).astype(np.float32)
+    if strategy == "fedavg":
+        w = base[None]
+        want = jagg.fedavg_aggregate([{k: jnp.asarray(v) for k, v in t.items()} for t in stacked],
+                                     jnp.asarray(sel), jnp.asarray(n))
+    else:
+        share = rng.random((c, len(_LAYERS))) < 0.6
+        share[:, -1] = False
+        w = (base[None] * share.T).astype(np.float32)
+        assert not w[-1].any()
+        want = jagg.masked_partial_aggregate(
+            [{k: jnp.asarray(v) for k, v in t.items()} for t in stacked],
+            [{k: jnp.asarray(v) for k, v in t.items()} for t in prev], jnp.asarray(sel),
+            jnp.asarray(n), jnp.asarray(share))
+    names = ("b", "w")
+    xs = [torch.from_numpy(t[k]) for t in stacked for k in names]
+    rows = [0 if strategy == "fedavg" else j for j in range(len(_LAYERS)) for _ in names]
+    fbs = (None if strategy == "fedavg" else [torch.from_numpy(t[k]) for t in prev for k in names])
+    got = masked_aggregate_leaves(xs, torch.from_numpy(w), rows, fbs)
+    for i, (x, r, g) in enumerate(zip(xs, rows, got)):
+        j, name = divmod(i, 2)
+        fb = None if fbs is None else fbs[i]
+        assert torch.equal(g, masked_aggregate_plain(x, torch.from_numpy(w[r]), fb))
+        _assert_mean_close(g.numpy().reshape(-1), np.asarray(want[j][names[name]]).reshape(-1),
+                           x.numpy().reshape(c, -1), w[r])
+        if strategy != "fedavg" and j == len(_LAYERS) - 1:
+            np.testing.assert_array_equal(g.numpy(), prev[j][names[name]])
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.reset_launch_counts()
     x, u = _x(300, seed=1, rows=3)
     q, s = quantize(torch.from_numpy(x), torch.from_numpy(u))
     dequantize(q, s)
     masked_aggregate(torch.from_numpy(x), torch.ones(3))
+    masked_aggregate_leaves([torch.from_numpy(x)], torch.ones(1, 3))
     assert kernels.launch_counts() == {"quantize": 0, "dequantize": 0, "masked_aggregate": 0,
                                        "ssm_scan": 0, "flash_attention": 0}
 
@@ -194,3 +252,14 @@ def test_tensors_on_other_devices_raise():
                    torch.empty((2, 1), device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         masked_aggregate(x, torch.ones(2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_aggregate_leaves([x], torch.ones(1, 2, device="meta"))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_masked_aggregate_leaves_rejects_more_leaves_than_one_launch_takes(device):
+    """Up to 64 leaves travel in one launch's parameter table; more raise on
+    every device, so a round is always one launch."""
+    xs = [torch.ones((2, 3), device=device) for _ in range(65)]
+    with pytest.raises(ValueError, match="at most 64 leaves"):
+        masked_aggregate_leaves(xs, torch.ones(1, 2, device=device))

@@ -2,8 +2,9 @@
 package's kernels.
 
 On the CPU the wrappers run their plain versions, held here to the JAX
-oracles (``ssm_scan_ref``, ``flash_attention_ref``) and to the Pallas
-kernels in interpret mode, on the same numpy inputs:
+oracles (``ssm_scan_ref``, ``flash_attention_ref``), to the Pallas kernels
+in interpret mode, and to the JAX model's ``chunked_attention``, on the same
+numpy inputs:
 
 - ssm_scan: y within 1e-5 of max|y| and h within 1e-5 of max|h|, float32
   and bfloat16 streams, ragged S and S below the Pallas chunk. The plain
@@ -11,12 +12,21 @@ kernels in interpret mode, on the same numpy inputs:
   computes ``(dt*x)*B``, which rounds each product in another order (at
   most 1 ulp apart) and leaves y and h about 1e-7 of their max apart over
   these sequences. A bfloat16 y is within 1 bf16 ulp of the Pallas
-  kernel's plus 1e-5 of max|y| (the flash_attention contract below).
-- flash_attention: float32 within 1e-5 of max|out|; bfloat16 within 1 bf16
-  ulp of each element plus that float32 contract (both round a float32
-  result; near zero, an element's ulp is smaller than the float32 gap, and
-  2 ulps were seen on an element of 5e-6 where max|out| is 2); G in
-  {1, 2, 4}, causal and not, window 0 and 32, ragged S.
+  kernel's plus 1e-5 of max|y| (both round a float32 result; near zero,
+  an element's ulp is smaller than the float32 gap).
+- flash_attention, float32: within 1e-5 of max|out| of the oracle and the
+  Pallas kernel (both keep P in float32, as the plain version does).
+- flash_attention, bfloat16: the plain version rounds P to bf16 before
+  P.V (the wgmma kernel's arithmetic, and ``chunked_attention``'s). Against
+  ``chunked_attention`` with the same 128-key chunks: the bf16 contract of
+  ``kernels/flash_attention/contract.py`` (the two packages' ``exp`` and
+  score sums differ in the last float32 bit, which rounds a few P elements
+  to the neighbouring bf16 value), which keeping P in float32 or a window
+  one key short fails. Against the oracle and the Pallas kernel, which
+  keep P in float32: within 1 bf16 ulp plus 1e-5 of max|out| plus 2^-8 of
+  the attention of |v| (rounding p to bf16 moves it by at most 2^-8 p, so
+  an output by at most 2^-8 sum_t p_t |v_t| / l). G in {1, 2, 4}, causal
+  and not, window 0 and 32, ragged S, D 64 and 128.
 
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -33,8 +43,14 @@ from repro.kernels import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels import ssm_scan as jax_ssm_scan  # noqa: E402
 from repro.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
+from repro.models.layers import chunked_attention  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention.contract import (  # noqa: E402
+    MAX_OVER_SHARE,
+    bf16_contract,
+)
+from repro_torch.kernels.flash_attention.ops import BLOCK_K  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 
 BF16 = jnp.bfloat16
@@ -56,14 +72,15 @@ def _np(t) -> np.ndarray:
     return np.asarray(jnp.asarray(t, jnp.float32))
 
 
-def _bf16_close(got, want, rel=1e-5):
+def _bf16_close(got, want, rel=1e-5, extra=0.0):
     """Each element within 1 bf16 ulp of ``want``'s plus ``rel`` of
-    max|want|: two roundings to bfloat16 of float32 results that are within
-    the float32 contract."""
+    max|want| (two roundings to bfloat16 of float32 results that are within
+    the float32 contract) plus ``extra`` (an elementwise bound of what else
+    the two computations may differ by)."""
     got, want = _np(got), _np(want)
     assert got.shape == want.shape
     ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), np.finfo(np.float32).tiny))) - 7)
-    excess = np.abs(got - want) - (ulp + rel * np.abs(want).max())
+    excess = np.abs(got - want) - (ulp + rel * np.abs(want).max() + extra)
     assert excess.max() <= 0, excess.max()
 
 
@@ -144,10 +161,15 @@ def _fa_inputs(b, s, h, hkv, d, seed):
             rng.standard_normal((b, s, hkv, d)).astype(np.float32))
 
 
-def _check_fa(got: torch.Tensor, want, dtype):
+def _check_fa(got: torch.Tensor, want, dtype, qkv=None, causal=True, window=0):
+    """``got`` (the plain version) against a JAX result that keeps P in
+    float32; a bf16 ``got`` rounds P, which moves an output by at most 2^-8
+    times the attention of |v| (computed from the numpy ``qkv``)."""
     if dtype == "bfloat16":
         assert got.dtype == torch.bfloat16
-        _bf16_close(got, want)
+        q, k, v = (_to_torch(t, dtype).to(torch.float32) for t in qkv)
+        _bf16_close(got, want, extra=2.0 ** -8 * _np(flash_attention_plain(q, k, v.abs(), causal,
+                                                                             window)))
     else:
         _close_to_max(got, want)
 
@@ -163,7 +185,8 @@ def test_flash_attention_plain_matches_ref(hkv, causal, window, dtype):
                                 window=window)
     want = flash_attention_ref(*(_to_jax(t.transpose(0, 2, 1, 3), dtype) for t in (q, k, v)),
                                causal=causal, window=window)
-    _check_fa(got, np.asarray(jnp.asarray(want, jnp.float32)).transpose(0, 2, 1, 3), dtype)
+    _check_fa(got, np.asarray(jnp.asarray(want, jnp.float32)).transpose(0, 2, 1, 3), dtype,
+              (q, k, v), causal, window)
 
 
 @pytest.mark.parametrize("case", [
@@ -182,7 +205,45 @@ def test_flash_attention_matches_pallas_interpret(case):
                           window=window)
     want = jax_flash_attention(*(_to_jax(t, dtype) for t in (q, k, v)), causal=causal,
                                window=window, block_q=64, block_k=64, interpret=True)
-    _check_fa(got, want, dtype)
+    _check_fa(got, want, dtype, (q, k, v), causal, window)
+
+
+@pytest.mark.parametrize("sd", [(100, 64), (130, 128)], ids=["S100-D64", "S130-D128"])
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hkv", [4, 2, 1], ids=["G1", "G2", "G4"])
+def test_flash_attention_plain_bf16_matches_chunked_attention(hkv, causal, window, sd):
+    """bf16 P: the JAX model's prefill attention with the kernel's key tile
+    as its chunk, so both rescale at the same tile boundaries."""
+    s, d = sd
+    q, k, v = _fa_inputs(2, s, 4, hkv, d, seed=hkv + 10 * window + causal + d)
+    qkv = [_to_torch(t, "bfloat16") for t in (q, k, v)]
+    got = flash_attention_plain(*qkv, causal=causal, window=window)
+    pos = jnp.arange(s)
+    want = chunked_attention(*(_to_jax(t, "bfloat16") for t in (q, k, v)), pos, pos,
+                             causal=causal, window=window, chunk=BLOCK_K)
+    assert got.dtype == torch.bfloat16
+    result = bf16_contract(torch.from_numpy(_np(want)).to(torch.bfloat16), got, *qkv, causal,
+                           window)
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("fault", ["float32 P", "one key dropped"])
+@pytest.mark.parametrize("shape", [(1, 512, 4, 2, 128), (2, 130, 4, 4, 128), (1, 256, 4, 1, 64)],
+                         ids=str)
+def test_bf16_contract_rejects_systematic_errors(shape, fault):
+    """The bf16 contract's slack and share of elements over 1 ulp leave no
+    room for keeping P in float32 or for a window one key short."""
+    qkv = [_to_torch(t, "bfloat16") for t in _fa_inputs(*shape, seed=7)]
+    window = 64
+    want = flash_attention_plain(*qkv, window=window)
+    if fault == "float32 P":
+        got = flash_attention_plain(*(t.float() for t in qkv), window=window).to(torch.bfloat16)
+    else:
+        got = flash_attention_plain(*qkv, window=window - 1)
+    assert bf16_contract(want, want, *qkv, True, window)["ok"]
+    result = bf16_contract(got, want, *qkv, True, window)
+    assert not result["ok"] and result["n_over"] > 20 * result["n"] * MAX_OVER_SHARE, result
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
