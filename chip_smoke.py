@@ -62,8 +62,10 @@ from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize_plain,
     quant_blocks,
     quantize,
-    quantize_plain,
+    quantize_leaves,
+    quantize_leaves_plain,
 )
+from repro_torch.kernels.ssm_scan import contract as ssm_contract  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -74,6 +76,13 @@ from repro_torch.models.api import make_concrete_batch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# its 132 SMs reach the fp32 rate with 128 FMA lanes each at this clock
+# (1.98 GHz); the special-function unit (MUFU: ex2) gives 16 results a clock
+# an SM, the FP32 pipe 128 instructions
+SM_COUNT = 132
+SM_CLOCK_HZ = FP32_FLOPS / (2 * 128 * SM_COUNT)
+SFU_PER_S = 16 * SM_COUNT * SM_CLOCK_HZ
+FP32_INSTR_PER_S = 128 * SM_COUNT * SM_CLOCK_HZ
 
 K = 30                        # UCI-HAR clients: every lane of the dense cohort
 HAR_MLP = (561, 256, 256, 256, 6)
@@ -102,13 +111,12 @@ FL_KERNELS = ("quantize", "dequantize", "masked_aggregate")
 SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
 SERVE_RUN = dict(requests=8, batch=4, prompt_len=2048, max_new=32, window=0, temperature=0.0,
                  seed=0)
-# ssm_scan and flash_attention against their plain versions: float32
-# results within 1e-5 of the reference's max magnitude; a bfloat16 result
-# within 1 bf16 ulp of each element plus that (both round a float32 value;
-# near zero an element's ulp is below the float32 gap). A bf16
-# flash_attention result is held to kernels/flash_attention/contract.py
-# instead: P is rounded to bf16, and the kernel's scores, summed in another
-# order than the plain version's matmul, round a few P elements the other way.
+# flash_attention against its plain version: float32 results within 1e-5 of
+# the reference's max magnitude; a bf16 result is held to
+# kernels/flash_attention/contract.py (P is rounded to bf16, and the
+# kernel's scores, summed in another order than the plain version's matmul,
+# round a few P elements the other way). ssm_scan is held to
+# kernels/ssm_scan/contract.py: against the plain version in float64.
 LM_REL = 1e-5
 # the reduced models on the card against the same models on the CPU:
 # logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
@@ -169,16 +177,6 @@ def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def bf16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest excess of |got - want| over (1 bf16 ulp of want + LM_REL of
-    max|want|), in units of max|want|; <= 0 meets the bfloat16 contract."""
-    got, want = got.float(), want.float()
-    tiny = torch.finfo(torch.float32).tiny
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(tiny))) - 7)
-    scale = max(float(want.abs().max()), 1e-30)
-    return float(((got - want).abs() - ulp - LM_REL * scale).max()) / scale
-
-
 def phase_environment() -> None:
     full_precision_matmuls()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -206,21 +204,35 @@ def phase_kernels(dev: torch.device) -> dict:
     elems = sum(x.numel() for x in xs)
     blocks = sum(K * quant_blocks(x.shape[1])[1] for x in xs)
 
-    # quantize / dequantize: bitwise, int8 and int4
+    # quantize: the round's 8 leaves in one launch of the table kernel,
+    # bitwise equal to the per-leaf plain versions (int8 and int4, stochastic
+    # and nearest; a NaN leaf keeps its NaN scale and zero codes); the
+    # one-leaf entry; dequantize bitwise, leaf by leaf
+    nan_xs = [x.clone() for x in xs]
+    nan_xs[3][1, 7] = float("nan")
     q_err = d_err = 0.0
     for bits in (8, 4):
-        for x, u in zip(xs, us):
-            for noise in (u, None):
-                q, s = quantize(x, noise, bits=bits)
-                qp, sp = quantize_plain(x, noise, bits=bits)
-                check(torch.equal(q, qp) and torch.equal(s, sp),
-                      f"quantize bits={bits} shape={tuple(x.shape)} differs from its plain version")
+        for leaves_in, noises in ((xs, us), (xs, None), (nan_xs, us)):
+            kernels.reset_launch_counts()
+            got = quantize_leaves(leaves_in, noises, bits=bits)
+            check(kernels.launch_counts()["quantize"] == 1,
+                  f"quantize_leaves: {kernels.launch_counts()['quantize']} launches for 8 leaves")
+            want = quantize_leaves_plain(leaves_in, noises, bits=bits)
+            for i, ((q, s), (qp, sp)) in enumerate(zip(got, want)):
+                same_s = (torch.equal(torch.isnan(s), torch.isnan(sp))
+                          and torch.equal(s.nan_to_num(), sp.nan_to_num()))
+                check(torch.equal(q, qp) and same_s,
+                      f"quantize_leaves bits={bits} leaf {i} differs from its plain version")
                 q_err = max(q_err, float((q.float() - qp.float()).abs().max()),
-                            float((s - sp).abs().max()))
+                            float((s - sp).nan_to_num().abs().max()))
                 d, dp = dequantize(q, s), dequantize_plain(qp, sp)
-                check(torch.equal(d, dp), f"dequantize bits={bits} shape={tuple(x.shape)} differs")
-                d_err = max(d_err, float((d - dp).abs().max()))
-    codes = [quantize(x, u) for x, u in zip(xs, us)]
+                check(torch.equal(d.nan_to_num(), dp.nan_to_num()),
+                      f"dequantize bits={bits} leaf {i} differs from its plain version")
+                d_err = max(d_err, float((d - dp).nan_to_num().abs().max()))
+            q1, s1 = quantize(leaves_in[1], None if noises is None else noises[1], bits=bits)
+            check(torch.equal(q1, want[1][0]) and torch.equal(s1, want[1][1]),
+                  f"quantize one-leaf bits={bits} differs from its plain version")
+    codes = quantize_leaves(xs, us)
 
     # masked_aggregate: one call for the round's 8 leaves, f32 (the main path)
     # and bf16, bitwise against the per-leaf plain version: fedavg (R = 1,
@@ -255,15 +267,18 @@ def phase_kernels(dev: torch.device) -> dict:
               f"masked_aggregate one leaf {dtype} differs from its plain version")
         check(torch.equal(masked_aggregate(xd[1], torch.zeros_like(w), fd[1]), fd[1]),
               f"masked_aggregate {dtype} zero weights: fallback not exact")
-    print(f"[kernels] quantize/dequantize bitwise (int8, int4, stochastic and nearest); "
-          f"masked_aggregate, one call for the 8 leaves: bitwise equal to the per-leaf plain "
-          f"versions in float32 and bfloat16 (fedavg R=1; masked-partial R=4 with an all-zero "
-          f"row, fallback exact); one-leaf entry bitwise, zero-weight fallback exact")
+    print(f"[kernels] quantize: one launch for the 8 leaves, bitwise equal to the per-leaf plain "
+          f"versions (int8, int4, stochastic and nearest, a NaN leaf); one-leaf entry bitwise; "
+          f"dequantize bitwise; masked_aggregate, one call for the 8 leaves: bitwise equal to "
+          f"the per-leaf plain versions in float32 and bfloat16 (fedavg R=1; masked-partial R=4 "
+          f"with an all-zero row, fallback exact); one-leaf entry bitwise, zero-weight fallback "
+          f"exact")
 
     # times over one round's 8 leaves (K = 30 client rows each); the JSON
     # line's ms / plain_ms / library_ms are device times (CUDA-graph replays)
-    def run_quantize(): return [quantize(x, u) for x, u in zip(xs, us)]
-    def run_quantize_plain(): return [quantize_plain(x, u) for x, u in zip(xs, us)]
+    def run_quantize(): return quantize_leaves(xs, us)
+    def run_quantize_per_leaf(): return [quantize(x, u) for x, u in zip(xs, us)]
+    def run_quantize_plain(): return quantize_leaves_plain(xs, us)
     def run_dequantize(): return [dequantize(q, s) for q, s in codes]
     def run_dequantize_plain(): return [dequantize_plain(q, s) for q, s in codes]
     rows0 = [0] * len(LEAVES)
@@ -282,7 +297,10 @@ def phase_kernels(dev: torch.device) -> dict:
     eager = {name: cuda_ms(fn) for name, fn in (
         ("quantize", run_quantize), ("dequantize", run_dequantize), ("masked_aggregate", run_agg))}
     print(f"[kernels] one round's 8 leaves launched eagerly from the host (launch overhead "
-          f"included; masked_aggregate one call), ms: {json.dumps(eager)}")
+          f"included; quantize and masked_aggregate one call), ms: {json.dumps(eager)}")
+    print(f"[kernels] quantize device ms, the 8 leaves as 8 one-leaf launches (the launch pattern "
+          f"before the table) {device_ms(run_quantize_per_leaf)}, as one launch "
+          f"{device_ms(run_quantize)}")
     src = "src/repro_torch/csrc/"
     return {
         "quantize": dict(route="cuda", source=src + "quantize.cu",
@@ -323,10 +341,16 @@ def phase_lm_kernels(dev: torch.device) -> dict:
     src = "src/repro_torch/csrc/"
     rows = {}
 
-    # ssm_scan: falcon-mamba-7b's layer, B=4, S=2048, di=8192, ds=16
+    # ssm_scan: falcon-mamba-7b's layer, B=4, S=2048, di=8192, ds=16, bf16
+    # streams, held to kernels/ssm_scan/contract.py (against the plain
+    # version run in float64) with y in float32 and in bf16, at the serving
+    # length and a ragged one, with the model's S4D-real A and with a random
+    # A (no structure across states or channels); at S=2048 the contract's
+    # two controls must fail the same check
     fm = get_config("falcon-mamba-7b")
     di, ds = fm.d_inner, fm.d_state
-    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(di, ds).contiguous()
+    a_kinds = {"s4d": -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(di, ds),
+               "random": -torch.exp(randn(di, ds))}
     d = torch.ones((di,), device=dev)
 
     def ssm_inputs(seq):
@@ -334,31 +358,52 @@ def phase_lm_kernels(dev: torch.device) -> dict:
         return [t.to(torch.bfloat16) for t in (dt, randn(b, seq, ds), randn(b, seq, ds),
                                                 randn(b, seq, di))]
 
-    gaps = {}
+    def brief(r):
+        return {k: float(f"{v:.4g}") if isinstance(v, float) else v for k, v in r.items()}
+
+    results = {}
     for seq in (s, s - 49):  # the serving length, and a ragged one
         dt, bm, cm, x = ssm_inputs(seq)
-        y, h = ssm_scan(dt, a, bm, cm, x, d, y_dtype=torch.float32)
-        yp, hp = ssm_scan_plain(dt, a, bm, cm, x, d, y_dtype=torch.float32)
-        gaps[f"S={seq} y"], gaps[f"S={seq} h"] = rel_gap(y, yp), rel_gap(h, hp)
-        check(gaps[f"S={seq} y"] <= LM_REL and gaps[f"S={seq} h"] <= LM_REL,
-              f"ssm_scan S={seq} differs from its plain version {gaps}")
-        if seq == s:
-            ssm_err = float((y - yp).abs().max())
-            yb = ssm_scan(dt, a, bm, cm, x, d)[0]
-            gaps[f"S={seq} y bf16 excess"] = bf16_excess(yb, yp.to(torch.bfloat16))
-            check(yb.dtype == torch.bfloat16 and gaps[f"S={seq} y bf16 excess"] <= 0,
-                  f"ssm_scan bf16 y differs from its plain version {gaps}")
-            ssm_args = (dt, a, bm, cm, x, d)
-    print(f"[kernels] ssm_scan B={b} di={di} ds={ds} bf16 streams vs plain (contract: y and h "
-          f"within {LM_REL} of max; bf16 y within 1 ulp + that): {json.dumps(gaps)}")
+        for a_name, a in a_kinds.items():
+            a = a.contiguous()
+            plain32, ref64 = ssm_contract.references(dt, a, bm, cm, x, d)
+            for y_dtype in (torch.float32, torch.bfloat16):
+                y, h = ssm_scan(dt, a, bm, cm, x, d, y_dtype=y_dtype)
+                name = f"S={seq} A={a_name} y={str(y_dtype)[6:]}"
+                results[name] = r = brief(ssm_contract.check(y, h, plain32, ref64))
+                check(r["ok"], f"ssm_scan {name} fails its contract: {r}")
+                if seq == s and a_name == "s4d" and y_dtype == torch.float32:
+                    ssm_err = float((y.double() - ref64[0]).abs().max())
+                    ssm_args = (dt, a, bm, cm, x, d)
+            if seq == s:
+                for fault, (yc, hc) in ssm_contract.controls(dt, a, bm, cm, x, d).items():
+                    for y_c in (yc, yc.to(torch.bfloat16)):
+                        name = f"control {fault} A={a_name} y={str(y_c.dtype)[6:]}"
+                        results[name] = r = brief(ssm_contract.check(y_c, hc, plain32, ref64))
+                        check(not r["ok"], f"ssm_scan's contract accepts {name}: {r}")
+            del plain32, ref64
+    print(f"[kernels] ssm_scan B={b} di={di} ds={ds} bf16 streams against the plain version in "
+          f"float64 (contract, kernels/ssm_scan/contract.py: float32 y and h within "
+          f"{ssm_contract.F32_FACTOR:g} x the float32 plain version's gap + "
+          f"{ssm_contract.F32_REL:g} of max; bf16 y within 1 ulp + {ssm_contract.BF16_REL:g} of "
+          f"max; gaps over max|ref|; the controls must fail it): {json.dumps(results)}")
+    # bound: the larger of the bytes, the exps on the SFU (one per state
+    # update) and the FP32 pipe's 4 instructions per state update
+    updates = b * s * di * ds
     n_bytes = (2 * b * s * di * 2 + 2 * b * s * ds * 2 + di * ds * 4 + di * 4 + b * s * di * 2
                + b * di * ds * 4)
-    ssm_bound, ssm_by = bound_ms(n_bytes, b * s * di * (8 * ds + 2))
+    limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
+              "fp32 instructions": 4 * updates / FP32_INSTR_PER_S}
+    ssm_op = max(limits, key=limits.get)
+    print(f"[kernels] ssm_scan bound terms, ms: "
+          f"{json.dumps({k: 1e3 * v for k, v in limits.items()})}")
     rows["ssm_scan"] = dict(route="cuda", source=src + "ssm_scan.cu",
                             replaces="src/repro/kernels/ssm_scan/kernel.py:62",
                             max_abs_err=ssm_err, ms=device_ms(lambda: ssm_scan(*ssm_args)),
                             plain_ms=device_ms(lambda: ssm_scan_plain(*ssm_args), reps=3),
-                            bound_ms=ssm_bound, bound_by=ssm_by, library_ms=None)
+                            bound_ms=1e3 * limits[ssm_op],
+                            bound_by="bytes" if ssm_op == "bytes" else "operations",
+                            bound_op=ssm_op, library_ms=None)
 
     # flash_attention: granite-3-8b's layer, B=4, S=2048, H=32, Hkv=8, D=128
     # (bf16: the wgmma kernel; f32: the CUDA-core kernel), and D=64 in bf16
@@ -518,6 +563,8 @@ def phase_main_path(dev: torch.device) -> dict[str, int]:
         check(h.accuracy_mean[-1] > h.accuracy_mean[0], f"{name}: accuracy did not rise")
         if main_counts is None:
             check(all(counts[k] > 0 for k in FL_KERNELS), f"{name}: a kernel never launched {counts}")
+            check(counts["quantize"] == cfg.rounds,
+                  f"{name}: quantize must launch once a round {counts}")
             main_counts = counts
         else:
             check(counts["masked_aggregate"] > 0 and counts["quantize"] == 0,

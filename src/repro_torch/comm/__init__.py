@@ -8,6 +8,7 @@ from repro_torch.comm.codec import (
     QuantizeCodec,
     TopKCodec,
     ef_step,
+    ef_steps,
     make_codec,
     roundtrip_tree,
     tree_wire_bytes,
@@ -23,4 +24,5 @@ __all__ = [
     "tree_wire_bytes",
     "roundtrip_tree",
     "ef_step",
+    "ef_steps",
 ]

@@ -6,8 +6,10 @@ wire accounting (``wire_bytes(n)`` is a Python function of the element
 count). Codecs work on a *batch of rows*: ``encode(flat, rng)`` takes
 ``flat`` of shape (..., n) and one key per row (``rng`` of shape (..., 2)),
 and treats every row as the JAX package treats one client's vector — so the
-round encodes all K client lanes of a leaf in one call, and the quantize
-kernel in one launch.
+round encodes all K client lanes of a leaf in one call. ``encode_leaves``
+takes a list of such leaves; ``QuantizeCodec`` encodes the list in one
+quantize launch, so ``ef_steps`` compresses a round's leaves, of every
+layer, in one launch.
 
 Codecs:
   Float32Identity — raw float32 (lossless)
@@ -32,7 +34,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.kernels.quantize import dequantize, quant_blocks, quantize
+from repro_torch.kernels.quantize import dequantize, quant_blocks, quantize_leaves
 
 
 class Codec:
@@ -49,6 +51,10 @@ class Codec:
     def decode(self, payload: Any, carrier: torch.Tensor) -> torch.Tensor:
         """Inverse of encode: the (..., n) float32 rows."""
         raise NotImplementedError
+
+    def encode_leaves(self, flats: list, rngs: list) -> list:
+        """``encode(flats[i], rngs[i])`` for every leaf."""
+        return [self.encode(flat, rng) for flat, rng in zip(flats, rngs)]
 
     def meta_bytes(self, n: int) -> float:
         return 0.0
@@ -69,10 +75,16 @@ class Codec:
         """decode(encode(x)) with x's shape and dtype restored. The key's
         leading dims are row dims of ``x``: a (2,) key encodes all of x as
         one vector, a (K, 2) key encodes each x[k] as its own."""
-        lead = x.shape[: rng.ndim - 1]
-        flat = x.reshape(*lead, -1).to(torch.float32)
-        payload, carrier = self.encode(flat, rng)
-        return self.decode(payload, carrier).reshape(x.shape).to(x.dtype)
+        return self._roundtrip_leaves([x], [rng])[0]
+
+    def _roundtrip_leaves(self, xs: list, rngs: list) -> list:
+        """``roundtrip(xs[i], rngs[i])`` for every leaf, the leaves encoded
+        in one ``encode_leaves`` call."""
+        flats = [x.reshape(*x.shape[: rng.ndim - 1], -1).to(torch.float32)
+                 for x, rng in zip(xs, rngs)]
+        wires = self.encode_leaves(flats, rngs)
+        return [self.decode(payload, carrier).reshape(x.shape).to(x.dtype)
+                for (payload, carrier), x in zip(wires, xs)]
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}({self.name})"
@@ -128,11 +140,18 @@ class QuantizeCodec(Codec):
         object.__setattr__(self, "name", f"int{self.bits}")
 
     def encode(self, flat, rng):
-        noise = prng.uniform(rng, (flat.shape[-1],)) if self.stochastic else None
-        q, scales = quantize(flat, noise, bits=self.bits, block_p=self.block)
+        return self.encode_leaves([flat], [rng])[0]
+
+    def encode_leaves(self, flats, rngs):
+        """Every leaf's noise first, then one ``quantize_leaves`` call (one
+        launch; at most 64 leaves); int4 packs each leaf's nibbles after
+        it."""
+        noises = [prng.uniform(rng, (flat.shape[-1],)) if self.stochastic else None
+                  for flat, rng in zip(flats, rngs)]
+        codes = quantize_leaves(flats, noises, bits=self.bits, block_p=self.block)
         if self.bits == 4:
-            return (scales, flat.shape[-1]), _pack_nibbles(q)
-        return scales, q
+            return [((scales, q.shape[-1]), _pack_nibbles(q)) for q, scales in codes]
+        return [(scales, q) for q, scales in codes]
 
     def decode(self, payload, carrier):
         if self.bits == 4:
@@ -277,18 +296,33 @@ def tree_wire_bytes(codec: Codec, tree) -> float:
     return float(sum(codec.wire_bytes(int(leaf.numel())) for leaf in tree_leaves(tree)))
 
 
+def _roundtrip_trees(codec: Codec, trees: list, rngs: list) -> list:
+    """decode(encode(leaf)) for every leaf of every tree, leaf i of tree j
+    with key ``fold_in(rngs[j], i)`` in ``jax.tree.leaves`` order (dict keys
+    sorted); the leaves of all the trees go through one
+    ``codec._roundtrip_leaves`` call."""
+    leaves = [tree_leaves(tree) for tree in trees]
+    keys = [prng.fold_in(rng, i) for ls, rng in zip(leaves, rngs) for i in range(len(ls))]
+    out = iter(codec._roundtrip_leaves([leaf for ls in leaves for leaf in ls], keys))
+    return [tree_unflatten(tree, [next(out) for _ in ls]) for tree, ls in zip(trees, leaves)]
+
+
 def roundtrip_tree(codec: Codec, tree, rng: torch.Tensor):
-    """decode(encode(leaf)) for every leaf, leaf i with key ``fold_in(rng, i)``
-    in ``jax.tree.leaves`` order (dict keys sorted)."""
-    leaves = tree_leaves(tree)
-    out = [codec.roundtrip(leaf, prng.fold_in(rng, i)) for i, leaf in enumerate(leaves)]
-    return tree_unflatten(tree, out)
+    """``_roundtrip_trees`` of one tree."""
+    return _roundtrip_trees(codec, [tree], [rng])[0]
+
+
+def ef_steps(codec: Codec, deltas: list, residuals: list, rngs: list) -> list:
+    """``ef_step(codec, deltas[j], residuals[j], rngs[j])`` for every j, the
+    compressions in one ``_roundtrip_trees`` call."""
+    compensated = [tree_map(lambda d, e: d + e, delta, residual)
+                   for delta, residual in zip(deltas, residuals)]
+    decoded = _roundtrip_trees(codec, compensated, rngs)
+    return [(dec, tree_map(lambda c, d: c - d, comp, dec))
+            for comp, dec in zip(compensated, decoded)]
 
 
 def ef_step(codec: Codec, delta, residual, rng: torch.Tensor):
     """One error-feedback compression step on a tree: returns the decoded
     update and the new residual ``(delta + residual) - decoded``."""
-    compensated = tree_map(lambda d, e: d + e, delta, residual)
-    decoded = roundtrip_tree(codec, compensated, rng)
-    new_residual = tree_map(lambda c, d: c - d, compensated, decoded)
-    return decoded, new_residual
+    return ef_steps(codec, [delta], [residual], [rng])[0]

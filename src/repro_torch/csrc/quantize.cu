@@ -18,13 +18,20 @@
 // Bound on an H100 (3.35 TB/s, ~67 TFLOP/s fp32): bytes. quantize reads x
 // and u (8 B) and writes q and the scales (~1 B): ~9 B/element against ~5
 // flops/element, far below the card's ~20 flop/B ridge. The 8 har-mlp
-// leaves at K = 30 client rows are 8.31 M elements, ~75 MB, ~22 us a round;
-// dequantize moves ~5 B/element, ~42 MB, ~12 us.
+// leaves at K = 30 client rows are 8.31 M elements, ~75 MB, ~22 us a round
+// (one launch); dequantize moves ~5 B/element, ~42 MB, ~12 us (one launch
+// a leaf).
 //
 // Design: one thread block per (row, bp-block); each row is cut into blocks
 // on its own, like JAX's per-client vmap, so every client's scales match.
-// The ragged tail of a row is masked in the kernel instead of padded in
-// memory (a padded zero never raises max|x|). Threads read 4 neighbouring
+// One quantize launch covers a whole list of leaves (a round's 8 har-mlp
+// leaves, each with K client rows): the leaves' pointers, row lengths,
+// block sizes and first blocks travel in a table passed as a
+// __grid_constant__ parameter, and each block finds its leaf in it, so a
+// round pays one launch ramp and one tail instead of one per leaf (two of
+// har-mlp's leaves are rows of 256 and 6 elements). The ragged tail of a
+// row is masked in the kernel instead of padded in memory (a padded zero
+// never raises max|x|). Threads read 4 neighbouring
 // elements with one 16-byte load where the address allows; max|x| is
 // reduced with warp shuffles and shared memory, thread 0 writes the scale,
 // and the block then reads its 2 KB again from L1/L2 to write the codes (x
@@ -53,6 +60,26 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kVec = 4;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLeaves = 64;  // leaves a quantize launch (the table stays under 4 KB)
+
+// One leaf of a quantize launch; the Python wrapper fills the same layout (ctypes).
+struct Leaf {
+  const float* x;  // (rows, n)
+  const float* u;  // (rows, n), or null: round to nearest
+  int8_t* q;       // (rows, n)
+  float* scales;   // (rows, nb)
+  int64_t n;
+  int64_t block0;  // the leaf's first block; its blocks are rows * nb
+  int bp;
+  int nb;
+};
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  int n_leaves;
+  float qmax;
+  float inv_qmax;  // float32(1 / qmax)
+};
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -65,11 +92,20 @@ __device__ __forceinline__ int8_t code(float x, float u, float scale, float qmax
 }
 
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                int8_t* __restrict__ q, float* __restrict__ scales,
-                int64_t n, int bp, int nb, float qmax, float inv_qmax) {
-  const int64_t row = blockIdx.x / nb;
-  const int blk = blockIdx.x % nb;
+quantize_kernel(const __grid_constant__ Table table) {
+  int li = 0;  // this block's leaf
+  while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
+  const Leaf& leaf = table.leaf[li];
+  const float* __restrict__ x = leaf.x;
+  const float* __restrict__ u = leaf.u;
+  int8_t* __restrict__ q = leaf.q;
+  float* __restrict__ scales = leaf.scales;
+  const int64_t n = leaf.n;
+  const int bp = leaf.bp, nb = leaf.nb;
+  const float qmax = table.qmax, inv_qmax = table.inv_qmax;
+  const int64_t local = blockIdx.x - leaf.block0;
+  const int64_t row = local / nb;
+  const int blk = static_cast<int>(local % nb);
   const int64_t start = static_cast<int64_t>(blk) * bp;
   const int64_t rest = n - start;
   const int len = rest < bp ? static_cast<int>(rest) : bp;
@@ -173,17 +209,15 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales
 
 extern "C" {
 
+// Quantizes every leaf of the Table at table_ptr in one launch of `blocks`
+// blocks (the sum of the leaves' rows * nb; no leaf without blocks).
 // Returns cudaGetLastError() after the launch (0 = launched).
-int repro_quantize(const void* x, const void* u, void* q, void* scales,
-                   int64_t rows, int64_t n, int bp, int nb, float qmax,
-                   float inv_qmax, void* stream) {
-  const int64_t blocks = rows * nb;
-  if (blocks > 0) {
-    quantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(u),
-        static_cast<int8_t*>(q), static_cast<float*>(scales), n, bp, nb, qmax, inv_qmax);
-  }
+int repro_quantize_leaves(const void* table_ptr, int64_t blocks, void* stream) {
+  const Table* table = static_cast<const Table*>(table_ptr);
+  if (table->n_leaves < 1 || table->n_leaves > kMaxLeaves || blocks < 1 || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  quantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(*table);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import random as prng
-from repro_torch.comm import Codec, ef_step, tree_wire_bytes
+from repro_torch.comm import Codec, ef_steps, tree_wire_bytes
 from repro_torch.core import (
     compose_model,
     dynamic_layer_definition,
@@ -297,12 +297,14 @@ class TransmitPhase:
         if self.codec.lossy and ctx.residual is None:
             raise ValueError("lossy codec requires RoundState.residual (run_federated sets it)")
         if self.codec.lossy:
+            # every layer's error-feedback step in one call: one quantize
+            # launch a round for the int codecs
+            keys = [client_keys(prng.fold_in(ctx.rng_codec, j), ctx, env) for j in range(len(g))]
+            deltas = [tree_map(lambda t, gl: t - gl, tr_j, g_j) for tr_j, g_j in zip(trained, g)]
+            steps = ef_steps(self.codec, deltas, ctx.residual, keys)
             agg_src, new_residual = [], []
-            for j, (tr_j, g_j, res_j) in enumerate(zip(trained, g, ctx.residual)):
+            for j, (g_j, res_j, (dec, new_r)) in enumerate(zip(g, ctx.residual, steps)):
                 sent_j = ctx.select & ctx.share[:, j]
-                keys = client_keys(prng.fold_in(ctx.rng_codec, j), ctx, env)
-                delta = tree_map(lambda t, gl: t - gl, tr_j, g_j)
-                dec, new_r = ef_step(self.codec, delta, res_j, keys)
                 agg_src.append(tree_map(lambda gl, d: gl + d, g_j, dec))
                 new_residual.append(tree_map(
                     lambda n, o: torch.where(_lane_mask(sent_j, n), n, o), new_r, res_j))

@@ -2,7 +2,8 @@
 the JAX package:
 
   quantize, dequantize — per-block absmax int8/int4 (de)quantization
-                         (the uplink codec; csrc/quantize.cu)
+                         (the uplink codec, a round's leaves in one quantize
+                         launch; csrc/quantize.cu)
   masked_aggregate     — the paper's Eq. 1 masked weighted client average,
                          every leaf of a round in one launch
                          (the aggregators; csrc/masked_aggregate.cu)
@@ -20,11 +21,11 @@ launch counters, so a run can show that its path went through the kernels.
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_leaves
-from repro_torch.kernels.quantize import dequantize, quantize
+from repro_torch.kernels.quantize import dequantize, quantize, quantize_leaves
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {
-    "quantize": quantize,
+    "quantize": quantize_leaves,
     "dequantize": dequantize,
     "masked_aggregate": masked_aggregate_leaves,
     "ssm_scan": ssm_scan,
@@ -42,5 +43,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize", "dequantize", "masked_aggregate", "masked_aggregate_leaves", "ssm_scan",
-           "flash_attention", "KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["quantize", "quantize_leaves", "dequantize", "masked_aggregate",
+           "masked_aggregate_leaves", "ssm_scan", "flash_attention", "KERNELS", "launch_counts",
+           "reset_launch_counts"]

@@ -9,19 +9,23 @@ what the design does about it.
 
 Each op has three parts here:
 
-- a plain PyTorch version (``quantize_plain``/``dequantize_plain``) with the
-  arithmetic of the JAX ``ref.py`` oracle: the CPU path, and what the card's
-  kernel is held to bitwise;
-- a wrapper (``quantize``/``dequantize``) that dispatches on the tensor's
-  device: CPU tensors take the plain version, CUDA tensors launch the kernel
-  (or raise), nothing falls back;
-- a launch counter, ``quantize.launches``/``dequantize.launches``, a plain
-  integer the wrapper bumps where it launches the kernel and nowhere else.
+- a plain PyTorch version (``quantize_plain``/``dequantize_plain``, and
+  ``quantize_leaves_plain`` over a list of leaves) with the arithmetic of
+  the JAX ``ref.py`` oracle: the CPU path, and what the card's kernel is
+  held to bitwise;
+- a wrapper (``quantize_leaves``, ``quantize`` its one-leaf case, and
+  ``dequantize``) that dispatches on the tensor's device: CPU tensors take
+  the plain version, CUDA tensors launch the kernel (or raise), nothing
+  falls back;
+- a launch counter, ``quantize_leaves.launches``/``dequantize.launches``, a
+  plain integer the wrapper bumps where it launches the kernel and nowhere
+  else.
 
 The ops take a batch: ``x`` of shape ``(..., n)`` is ``R`` rows of ``n``
 elements and every row is cut into blocks on its own (``quant_blocks``), as
 the JAX package's per-client vmap cuts each client's leaf — so all K client
-lanes of a leaf go through one launch.
+lanes of a leaf go through one launch, and ``quantize_leaves`` takes a
+round's leaves in one launch.
 """
 
 from __future__ import annotations
@@ -32,7 +36,21 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["quant_blocks", "quantize", "dequantize", "quantize_plain", "dequantize_plain"]
+__all__ = ["quant_blocks", "quantize", "quantize_leaves", "dequantize", "quantize_plain",
+           "quantize_leaves_plain", "dequantize_plain"]
+
+_MAX_LEAVES = 64  # leaves a quantize launch (the kernel's parameter table)
+
+
+class _Leaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("u", ctypes.c_void_p), ("q", ctypes.c_void_p),
+                ("scales", ctypes.c_void_p), ("n", ctypes.c_int64), ("block0", ctypes.c_int64),
+                ("bp", ctypes.c_int), ("nb", ctypes.c_int)]
+
+
+class _Table(ctypes.Structure):
+    _fields_ = [("leaf", _Leaf * _MAX_LEAVES), ("n_leaves", ctypes.c_int),
+                ("qmax", ctypes.c_float), ("inv_qmax", ctypes.c_float)]
 
 
 def quant_blocks(n: int, block_p: int = 512) -> tuple[int, int]:
@@ -77,6 +95,13 @@ def quantize_plain(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int
     return q.reshape(*lead, n), scales.reshape(*lead, nb)
 
 
+def quantize_leaves_plain(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
+    """``quantize_plain(xs[i], noises[i])`` for every leaf (noises default to
+    None: round to nearest)."""
+    noises = [None] * len(xs) if noises is None else noises
+    return [quantize_plain(x, u, bits=bits, block_p=block_p) for x, u in zip(xs, noises)]
+
+
 def dequantize_plain(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> torch.Tensor:
     """float32 ``q * scale[block]`` for codes (..., n) and scales (..., nb)."""
     n = q.shape[-1]
@@ -93,9 +118,8 @@ def _lib():
     lib = build.load("quantize")
     if not getattr(lib, "_repro_typed", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_quantize.argtypes = [p, p, p, p, i64, i64, i32, i32, ctypes.c_float,
-                                       ctypes.c_float, p]
-        lib.repro_quantize.restype = i32
+        lib.repro_quantize_leaves.argtypes = [ctypes.POINTER(_Table), i64, p]
+        lib.repro_quantize_leaves.restype = i32
         lib.repro_dequantize.argtypes = [p, p, p, i64, i32, i32, i32, p]
         lib.repro_dequantize.restype = i32
         lib._repro_typed = True
@@ -116,34 +140,61 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: tensors on {t.device} have no kernel here")
 
 
+def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
+    """Quantize every leaf ``xs[i]`` (..., n_i) float32 row by row, with its
+    noise ``noises[i]`` (x's shape, float32; None rounds to nearest):
+    ``[(q (..., n_i) int8, scales (..., nb_i) float32), ...]``, at most 64
+    leaves (the kernel's parameter table). CPU tensors run
+    ``quantize_leaves_plain``; on CUDA one kernel launch covers every leaf."""
+    xs = list(xs)
+    noises = [None] * len(xs) if noises is None else list(noises)
+    if len(noises) != len(xs):
+        raise ValueError("quantize_leaves: one noise (or None) per leaf")
+    if len(xs) > _MAX_LEAVES:
+        raise ValueError(f"quantize_leaves takes at most {_MAX_LEAVES} leaves (the kernel's "
+                         f"parameter table), got {len(xs)}")
+    if not xs:
+        return []
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return quantize_leaves_plain(xs, noises, bits=bits, block_p=block_p)
+    _require_cuda(xs[0], "quantize")
+    qmax, inv_qmax = _qmax(bits)
+    table, keep, outs, block = _Table(), [], [], 0  # keep: contiguous copies live until the launch
+    for x, u in zip(xs, noises):
+        if x.dtype != torch.float32 or x.device != dev:
+            raise TypeError(f"quantize takes float32 leaves on {dev}, got {x.dtype} on {x.device}")
+        if u is not None and (u.shape != x.shape or u.dtype != torch.float32 or u.device != dev):
+            raise ValueError("noise must be float32 of x's shape on x's device")
+        lead, n = x.shape[:-1], x.shape[-1]
+        bp, nb = quant_blocks(n, block_p)
+        xc = x.contiguous()
+        uc = None if u is None else u.contiguous()
+        keep += [xc, uc]
+        q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        scales = torch.empty((*lead, nb), dtype=torch.float32, device=dev)
+        outs.append((q, scales))
+        blocks = (xc.numel() // n if n else 0) * nb
+        if blocks:
+            table.leaf[table.n_leaves] = _Leaf(xc.data_ptr(), None if uc is None else uc.data_ptr(),
+                                               q.data_ptr(), scales.data_ptr(), n, block, bp, nb)
+            table.n_leaves += 1
+            block += blocks
+    if block == 0:  # only empty leaves: nothing to launch
+        return outs
+    table.qmax, table.inv_qmax = qmax, inv_qmax
+    err = _lib().repro_quantize_leaves(ctypes.byref(table), block, _stream(xs[0]))
+    _check_launch(err, "quantize")
+    quantize_leaves.launches += 1
+    return outs
+
+
 def quantize(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int = 8,
              block_p: int = 512):
     """Quantize ``x`` (..., n) float32 row by row: ``(q (..., n) int8,
-    scales (..., nb) float32)``. CPU tensors run ``quantize_plain``; CUDA
-    tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return quantize_plain(x, noise, bits=bits, block_p=block_p)
-    _require_cuda(x, "quantize")
-    qmax, inv_qmax = _qmax(bits)
-    if x.dtype != torch.float32:
-        raise TypeError(f"quantize takes float32, got {x.dtype}")
-    lead, n = x.shape[:-1], x.shape[-1]
-    bp, nb = quant_blocks(n, block_p)
-    xc = x.contiguous()
-    rows = xc.numel() // n if n else 0
-    uc = None
-    if noise is not None:
-        if noise.shape != x.shape or noise.dtype != torch.float32 or noise.device != x.device:
-            raise ValueError("noise must be float32 of x's shape on x's device")
-        uc = noise.contiguous()
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scales = torch.empty((*lead, nb), dtype=torch.float32, device=x.device)
-    err = _lib().repro_quantize(
-        xc.data_ptr(), uc.data_ptr() if uc is not None else None, q.data_ptr(),
-        scales.data_ptr(), rows, n, bp, nb, qmax, inv_qmax, _stream(x))
-    _check_launch(err, "quantize")
-    quantize.launches += 1
-    return q, scales
+    scales (..., nb) float32)``, the one-leaf case of ``quantize_leaves``.
+    CPU tensors run ``quantize_plain``; CUDA tensors launch the kernel."""
+    return quantize_leaves([x], [noise], bits=bits, block_p=block_p)[0]
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> torch.Tensor:
@@ -171,5 +222,5 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> tor
     return out
 
 
-quantize.launches = 0
+quantize_leaves.launches = 0
 dequantize.launches = 0

@@ -1,0 +1,104 @@
+"""The contract of the ssm_scan kernel: how closely its y and h must match
+the selective scan computed in float64, and its check.
+
+The kernel takes exp as 2^(dt * A log2 e) on the special-function unit
+(``ex2.approx``) and fuses multiply-adds, in the Pallas kernel's
+``(dt*x)*B`` order, so it does not follow ``ssm_scan_plain`` (accurate exp,
+one rounding per product and per sum, the layer's ``(dt*B)*x`` order) step
+for step. Both are held instead to ``ref64``, the plain version run in
+float64 on the same inputs:
+
+- float32 y and h: ``max|got - ref64| <= F32_FACTOR * max|plain32 - ref64|
+  + F32_REL * max|ref64|``, where ``plain32`` is the plain version in
+  float32: no less accurate than the plain version, to a small factor;
+- bfloat16 y: every element within 1 bf16 ulp of ``ref64`` at that element,
+  plus ``BF16_REL * max|ref64|``.
+
+A check that passes everything proves nothing, so ``controls`` builds two
+faults from the plain version that it must reject: h reset to 0 every
+``CONTROL_CHUNK`` steps (a chunked scan that drops its carry) and the last
+state left out of y's sum.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssm_scan.ops import ssm_scan_plain
+
+__all__ = ["BF16_REL", "CONTROL_CHUNK", "F32_FACTOR", "F32_REL", "check", "controls",
+           "references"]
+
+F32_FACTOR = 4.0
+F32_REL = 1e-6
+BF16_REL = 1e-5
+CONTROL_CHUNK = 64
+
+
+def references(dt, a, bmat, cmat, x, d):
+    """``(plain32, ref64)``: the ``(y, h)`` of ``ssm_scan_plain`` in float32
+    (y in float32) and in float64."""
+    plain32 = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float32)
+    ref64 = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float64,
+                           acc_dtype=torch.float64)
+    return plain32, ref64
+
+
+def _gap(got, want) -> float:
+    return float((got.to(torch.float64) - want).abs().max()) if want.numel() else 0.0
+
+
+def _max(t) -> float:
+    return max(float(t.abs().max()), 1e-300) if t.numel() else 1e-300
+
+
+def _f32_rule(got, plain, ref) -> tuple[float, float]:
+    """(gap, allowed), both over max|ref|."""
+    scale = _max(ref)
+    return _gap(got, ref) / scale, (F32_FACTOR * _gap(plain, ref) + F32_REL * scale) / scale
+
+
+def check(y, h, plain32, ref64) -> dict:
+    """``y`` (float32 or bfloat16) and ``h`` (float32) of a scan against
+    ``ref64`` and ``plain32`` from ``references`` on the same inputs.
+    ``h_gap`` and ``h_allowed``, and for a float32 y ``y_gap`` and
+    ``y_allowed``, are the largest distances to ``ref64`` and what the
+    contract allows, over the max magnitude of ``ref64``; for a bfloat16 y,
+    ``y_excess`` is the largest excess of an element over 1 bf16 ulp of its
+    ``ref64`` value + ``BF16_REL`` of max|ref64|, over that max (<= 0
+    passes). ``ok``: y is float32 or bfloat16, h float32, and all rules
+    hold."""
+    (y32, h32), (y64, h64) = plain32, ref64
+    dev = y64.device
+    y, h = y.to(dev), h.to(dev)
+    out = {}
+    out["h_gap"], out["h_allowed"] = _f32_rule(h, h32.to(dev), h64)
+    ok = h.dtype == torch.float32 and out["h_gap"] <= out["h_allowed"]
+    if y.dtype == torch.bfloat16:
+        tiny = torch.finfo(torch.float32).tiny
+        ulp = torch.exp2(torch.floor(torch.log2(y64.abs().clamp_min(tiny))) - 7)
+        scale = _max(y64)
+        over = (y.to(torch.float64) - y64).abs() - ulp - BF16_REL * scale
+        out["y_excess"] = float(over.max()) / scale if over.numel() else -BF16_REL
+        ok = ok and out["y_excess"] <= 0
+    else:
+        out["y_gap"], out["y_allowed"] = _f32_rule(y, y32.to(dev), y64)
+        ok = ok and y.dtype == torch.float32 and out["y_gap"] <= out["y_allowed"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def controls(dt, a, bmat, cmat, x, d) -> dict:
+    """Two faulty scans, ``(y float32, h float32)`` each, that ``check``
+    must reject: the plain version with h reset to 0 every
+    ``CONTROL_CHUNK`` steps, and with the last state left out of y."""
+    s = x.shape[1]
+    parts = [ssm_scan_plain(dt[:, t:t + CONTROL_CHUNK], a, bmat[:, t:t + CONTROL_CHUNK],
+                            cmat[:, t:t + CONTROL_CHUNK], x[:, t:t + CONTROL_CHUNK], d,
+                            y_dtype=torch.float32)
+             for t in range(0, s, CONTROL_CHUNK)]
+    reset = (torch.cat([p[0] for p in parts], dim=1), parts[-1][1])
+    c_drop = cmat.clone()
+    c_drop[..., -1] = 0
+    drop = ssm_scan_plain(dt, a, bmat, c_drop, x, d, y_dtype=torch.float32)
+    return {f"h reset every {CONTROL_CHUNK} steps": reset, "last state left out of y": drop}
