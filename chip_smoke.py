@@ -9,7 +9,10 @@ drives the port's two paths:
 
 - the synchronous ACSP-FL round (DLD layer sharing, int8 uplink with error
   feedback, masked-partial aggregation) on the UCI-HAR stand-in at the
-  paper's full har-mlp width, through ``repro_torch.fl.run_federated``;
+  paper's full har-mlp width, through ``repro_torch.fl.run_federated``,
+  round by round and then in fused chunks of rounds (CUDA-graph replays,
+  which must give the same history bit for bit), with a cohort of 10 of the
+  30 clients and with evaluation every second round;
 - LM serving at full width and full depth, falcon-mamba-7b and then
   granite-3-8b (8 requests, batch 4, prompts of 2048 tokens, up to 32 new
   tokens, random weights from seed 0), through
@@ -59,7 +62,8 @@ from repro_torch.kernels.masked_aggregate import (  # noqa: E402
 )
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize,
-    dequantize_plain,
+    dequantize_leaves,
+    dequantize_leaves_plain,
     quant_blocks,
     quantize,
     quantize_leaves,
@@ -106,6 +110,10 @@ GOLDEN = {
 }
 
 FL_KERNELS = ("quantize", "dequantize", "masked_aggregate")
+# [loop]: the chunk sizes held to scan_chunk=1 over 5 rounds (3: a chunk of
+# 3 and a 2-round tail), and the longer runs that time the rounds
+LOOP_CHUNKS = (1, 2, 5, 3)
+LOOP_TIMED = dict(rounds=20, chunks=(1, 2, 5))
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
 SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
@@ -131,6 +139,12 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, a NaN matching a NaN (a NaN scale and what it decodes to)."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -177,7 +191,9 @@ def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def phase_environment() -> None:
+def phase_environment() -> str:
+    """Prints the versions and the card; returns nvidia-smi's name and power
+    limit line."""
     full_precision_matmuls()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -186,6 +202,7 @@ def phase_environment() -> None:
           f"tf32 {torch.backends.cuda.matmul.allow_tf32} "
           f"matmul_precision {torch.get_float32_matmul_precision()}")
     print(smi.splitlines()[0])
+    return smi.splitlines()[0]
 
 
 def phase_build() -> None:
@@ -207,7 +224,8 @@ def phase_kernels(dev: torch.device) -> dict:
     # quantize: the round's 8 leaves in one launch of the table kernel,
     # bitwise equal to the per-leaf plain versions (int8 and int4, stochastic
     # and nearest; a NaN leaf keeps its NaN scale and zero codes); the
-    # one-leaf entry; dequantize bitwise, leaf by leaf
+    # one-leaf entry; dequantize: the 8 leaves' codes in one launch, bitwise
+    # equal to the per-leaf plain versions (the NaN scale decodes to NaNs)
     nan_xs = [x.clone() for x in xs]
     nan_xs[3][1, 7] = float("nan")
     q_err = d_err = 0.0
@@ -219,16 +237,20 @@ def phase_kernels(dev: torch.device) -> dict:
                   f"quantize_leaves: {kernels.launch_counts()['quantize']} launches for 8 leaves")
             want = quantize_leaves_plain(leaves_in, noises, bits=bits)
             for i, ((q, s), (qp, sp)) in enumerate(zip(got, want)):
-                same_s = (torch.equal(torch.isnan(s), torch.isnan(sp))
-                          and torch.equal(s.nan_to_num(), sp.nan_to_num()))
-                check(torch.equal(q, qp) and same_s,
+                check(torch.equal(q, qp) and same(s, sp),
                       f"quantize_leaves bits={bits} leaf {i} differs from its plain version")
                 q_err = max(q_err, float((q.float() - qp.float()).abs().max()),
                             float((s - sp).nan_to_num().abs().max()))
-                d, dp = dequantize(q, s), dequantize_plain(qp, sp)
-                check(torch.equal(d.nan_to_num(), dp.nan_to_num()),
-                      f"dequantize bits={bits} leaf {i} differs from its plain version")
+            kernels.reset_launch_counts()
+            decoded = dequantize_leaves(got)
+            check(kernels.launch_counts()["dequantize"] == 1,
+                  f"dequantize_leaves: {kernels.launch_counts()['dequantize']} launches for 8 leaves")
+            for i, (d, dp) in enumerate(zip(decoded, dequantize_leaves_plain(want))):
+                check(same(d, dp), f"dequantize_leaves bits={bits} leaf {i} differs from its "
+                      f"plain version")
                 d_err = max(d_err, float((d - dp).nan_to_num().abs().max()))
+            check(same(dequantize(*got[1]), decoded[1]),
+                  f"dequantize one-leaf bits={bits} differs from its plain version")
             q1, s1 = quantize(leaves_in[1], None if noises is None else noises[1], bits=bits)
             check(torch.equal(q1, want[1][0]) and torch.equal(s1, want[1][1]),
                   f"quantize one-leaf bits={bits} differs from its plain version")
@@ -269,7 +291,9 @@ def phase_kernels(dev: torch.device) -> dict:
               f"masked_aggregate {dtype} zero weights: fallback not exact")
     print(f"[kernels] quantize: one launch for the 8 leaves, bitwise equal to the per-leaf plain "
           f"versions (int8, int4, stochastic and nearest, a NaN leaf); one-leaf entry bitwise; "
-          f"dequantize bitwise; masked_aggregate, one call for the 8 leaves: bitwise equal to "
+          f"dequantize: one launch for the 8 leaves, bitwise equal to the per-leaf plain "
+          f"versions (int8, int4, the NaN leaf), one-leaf entry bitwise; masked_aggregate, one "
+          f"call for the 8 leaves: bitwise equal to "
           f"the per-leaf plain versions in float32 and bfloat16 (fedavg R=1; masked-partial R=4 "
           f"with an all-zero row, fallback exact); one-leaf entry bitwise, zero-weight fallback "
           f"exact")
@@ -279,8 +303,9 @@ def phase_kernels(dev: torch.device) -> dict:
     def run_quantize(): return quantize_leaves(xs, us)
     def run_quantize_per_leaf(): return [quantize(x, u) for x, u in zip(xs, us)]
     def run_quantize_plain(): return quantize_leaves_plain(xs, us)
-    def run_dequantize(): return [dequantize(q, s) for q, s in codes]
-    def run_dequantize_plain(): return [dequantize_plain(q, s) for q, s in codes]
+    def run_dequantize(): return dequantize_leaves(codes)
+    def run_dequantize_per_leaf(): return [dequantize(q, s) for q, s in codes]
+    def run_dequantize_plain(): return dequantize_leaves_plain(codes)
     rows0 = [0] * len(LEAVES)
     def run_agg(): return masked_aggregate_leaves(leaves, w[None], rows0, fallbacks)
     def run_agg_plain(): return masked_aggregate_leaves_plain(leaves, w[None], rows0, fallbacks)
@@ -301,6 +326,8 @@ def phase_kernels(dev: torch.device) -> dict:
     print(f"[kernels] quantize device ms, the 8 leaves as 8 one-leaf launches (the launch pattern "
           f"before the table) {device_ms(run_quantize_per_leaf)}, as one launch "
           f"{device_ms(run_quantize)}")
+    print(f"[kernels] dequantize device ms, the 8 leaves as 8 one-leaf launches "
+          f"{device_ms(run_dequantize_per_leaf)}, as one launch {device_ms(run_dequantize)}")
     src = "src/repro_torch/csrc/"
     return {
         "quantize": dict(route="cuda", source=src + "quantize.cu",
@@ -563,8 +590,8 @@ def phase_main_path(dev: torch.device) -> dict[str, int]:
         check(h.accuracy_mean[-1] > h.accuracy_mean[0], f"{name}: accuracy did not rise")
         if main_counts is None:
             check(all(counts[k] > 0 for k in FL_KERNELS), f"{name}: a kernel never launched {counts}")
-            check(counts["quantize"] == cfg.rounds,
-                  f"{name}: quantize must launch once a round {counts}")
+            check(counts["quantize"] == counts["dequantize"] == cfg.rounds,
+                  f"{name}: quantize and dequantize must launch once a round {counts}")
             main_counts = counts
         else:
             check(counts["masked_aggregate"] > 0 and counts["quantize"] == 0,
@@ -581,18 +608,86 @@ def phase_main_path(dev: torch.device) -> dict[str, int]:
     return main_counts
 
 
+def history_diff(h, ref) -> list[str]:
+    """The FLHistory fields where ``h`` differs from ``ref`` (bitwise; the
+    measured wall_time aside)."""
+    return [f for f in ref._fields if f != "wall_time"
+            and not np.array_equal(np.asarray(getattr(h, f)), np.asarray(getattr(ref, f)))]
+
+
+def phase_loop(dev: torch.device, card: str) -> None:
+    """The UCI-HAR main path (ACSP-FL + DLD + int8) in fused chunks of
+    rounds: scan_chunk 1, 2, 5 and 3 over 5 rounds must give one history bit
+    for bit (every chunk after the first is a CUDA-graph replay), with one
+    launch of each FL kernel a round; a cohort of 10 of the 30 clients and
+    evaluation every second round must run, stay finite and give the same
+    history at scan_chunk 1 and 5; 20-round runs give the round wall time by
+    chunk size. Kernel counts are zeroed just before each run and read just
+    after."""
+    data = make_har_dataset("uci-har", seed=0)
+
+    def run(rounds, chunk, **kw):
+        kernels.reset_launch_counts()
+        h = run_federated(data, FLConfig(codec="int8", rounds=rounds, epochs=2, scan_chunk=chunk,
+                                         **kw), device=dev)
+        counts = kernels.launch_counts()
+        check(np.isfinite(h.accuracy_mean).all(), f"[loop] scan_chunk={chunk} {kw}: non-finite")
+        check(all(counts[k] == rounds for k in FL_KERNELS),
+              f"[loop] scan_chunk={chunk} {kw}: each FL kernel must launch once a round {counts}")
+        return h, {k: counts[k] / rounds for k in FL_KERNELS}
+
+    ref = None
+    for chunk in LOOP_CHUNKS:
+        h, per_round = run(5, chunk)
+        ref = ref or h
+        diff = history_diff(h, ref)
+        check(not diff, f"[loop] scan_chunk={chunk}: history differs from scan_chunk=1 in {diff}")
+        print(f"[loop] acsp-fl+dld+int8 uci-har 5 rounds scan_chunk={chunk}: history bitwise "
+              f"equal to scan_chunk=1 (selected, pms, tx, wire, accuracy: every field); "
+              f"accuracy_mean {np.round(h.accuracy_mean, 4).tolist()} launches per round "
+              f"{json.dumps(per_round)}")
+    for name, kw in (("cohort_size=10", dict(cohort_size=10)), ("eval_every=2", dict(eval_every=2))):
+        (h1, _), (h5, per_round) = run(5, 1, **kw), run(5, 5, **kw)
+        diff = history_diff(h5, h1)
+        check(not diff, f"[loop] {name}: scan_chunk=5 differs from scan_chunk=1 in {diff}")
+        acc = h1.accuracy_per_client
+        if "cohort_size" in kw:
+            check((h1.in_flight == 10).all() and (h1.selected.sum(axis=1) <= 10).all(),
+                  f"[loop] {name}: cohort of {h1.in_flight} lanes, {h1.selected.sum(axis=1)} selected")
+        else:
+            check(np.array_equal(acc[1], acc[0]) and np.array_equal(acc[3], acc[2])
+                  and not np.array_equal(acc[2], acc[1]),
+                  f"[loop] {name}: the odd rounds must carry the even rounds' accuracy")
+        print(f"[loop] {name}: runs, finite, scan_chunk=5 bitwise equal to scan_chunk=1; "
+              f"accuracy_mean {np.round(h1.accuracy_mean, 4).tolist()} selected/round "
+              f"{h1.selected.sum(axis=1).tolist()} launches per round {json.dumps(per_round)}")
+    walls, ref = {}, None
+    for chunk in LOOP_TIMED["chunks"]:
+        h, per_round = run(LOOP_TIMED["rounds"], chunk)
+        ref = ref or h
+        diff = history_diff(h, ref)
+        check(not diff, f"[loop] 20 rounds scan_chunk={chunk}: differs from scan_chunk=1 in {diff}")
+        # the first chunk carries the warm-up and the capture of the graph
+        walls[chunk] = dict(median_ms=1e3 * statistics.median(h.wall_time[max(chunk, 1):]),
+                            first_chunk_ms=1e3 * float(h.wall_time[:chunk].sum()))
+    print(f"[loop] {card}: acsp-fl+dld+int8 uci-har C={data.n_clients} "
+          f"{LOOP_TIMED['rounds']} rounds, host wall ms a round past the first chunk (median) "
+          f"and of the first chunk, by scan_chunk (histories bitwise equal): {json.dumps(walls)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    phase_environment()
+    card = phase_environment()
     phase_build()
     table = phase_kernels(dev)
     table.update(phase_lm_kernels(dev))
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
+    phase_loop(dev, card)
     phase_lm_reference(dev)
     for arch, kernel in SERVE_ARCHS:
         launches[kernel] = phase_serve(dev, arch, kernel)[kernel]

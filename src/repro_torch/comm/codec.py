@@ -7,9 +7,10 @@ count). Codecs work on a *batch of rows*: ``encode(flat, rng)`` takes
 ``flat`` of shape (..., n) and one key per row (``rng`` of shape (..., 2)),
 and treats every row as the JAX package treats one client's vector — so the
 round encodes all K client lanes of a leaf in one call. ``encode_leaves``
-takes a list of such leaves; ``QuantizeCodec`` encodes the list in one
-quantize launch, so ``ef_steps`` compresses a round's leaves, of every
-layer, in one launch.
+and ``decode_leaves`` take a list of such leaves; ``QuantizeCodec`` encodes
+the list in one quantize launch and decodes it in one dequantize launch, so
+``ef_steps`` compresses a round's leaves, of every layer, in one launch of
+each.
 
 Codecs:
   Float32Identity — raw float32 (lossless)
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.kernels.quantize import dequantize, quant_blocks, quantize_leaves
+from repro_torch.kernels.quantize import dequantize_leaves, quant_blocks, quantize_leaves
 
 
 class Codec:
@@ -55,6 +56,10 @@ class Codec:
     def encode_leaves(self, flats: list, rngs: list) -> list:
         """``encode(flats[i], rngs[i])`` for every leaf."""
         return [self.encode(flat, rng) for flat, rng in zip(flats, rngs)]
+
+    def decode_leaves(self, wires: list) -> list:
+        """``decode(payload, carrier)`` for every ``(payload, carrier)`` leaf."""
+        return [self.decode(payload, carrier) for payload, carrier in wires]
 
     def meta_bytes(self, n: int) -> float:
         return 0.0
@@ -79,12 +84,12 @@ class Codec:
 
     def _roundtrip_leaves(self, xs: list, rngs: list) -> list:
         """``roundtrip(xs[i], rngs[i])`` for every leaf, the leaves encoded
-        in one ``encode_leaves`` call."""
+        in one ``encode_leaves`` call and decoded in one ``decode_leaves``
+        call."""
         flats = [x.reshape(*x.shape[: rng.ndim - 1], -1).to(torch.float32)
                  for x, rng in zip(xs, rngs)]
-        wires = self.encode_leaves(flats, rngs)
-        return [self.decode(payload, carrier).reshape(x.shape).to(x.dtype)
-                for (payload, carrier), x in zip(wires, xs)]
+        decoded = self.decode_leaves(self.encode_leaves(flats, rngs))
+        return [d.reshape(x.shape).to(x.dtype) for d, x in zip(decoded, xs)]
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}({self.name})"
@@ -154,12 +159,19 @@ class QuantizeCodec(Codec):
         return [(scales, q) for q, scales in codes]
 
     def decode(self, payload, carrier):
-        if self.bits == 4:
-            scales, n = payload
-            carrier = _unpack_nibbles(carrier, n)
-        else:
-            scales = payload
-        return dequantize(carrier, scales, block_p=self.block)
+        return self.decode_leaves([(payload, carrier)])[0]
+
+    def decode_leaves(self, wires):
+        """Every leaf's codes (int4 unpacks each leaf's nibbles first) in
+        one ``dequantize_leaves`` call (one launch; at most 64 leaves)."""
+        codes = []
+        for payload, carrier in wires:
+            if self.bits == 4:
+                scales, n = payload
+                codes.append((_unpack_nibbles(carrier, n), scales))
+            else:
+                codes.append((carrier, payload))
+        return dequantize_leaves(codes, block_p=self.block)
 
     def meta_bytes(self, n):
         _, nb = quant_blocks(n, self.block)

@@ -313,9 +313,10 @@ class ExecutionConfig:
     the device, ``cohort_devices`` shards the cohort over devices,
     ``host_population`` keeps the (C, ...) slabs on the host,
     ``eval_chunk`` streams evaluation, ``edge_groups`` adds edge-server
-    aggregation. The port runs the defaults (dense cohort, per-round eval,
-    per-round dispatch, one device, device-resident, flat aggregation) and
-    raises ``NotImplementedError`` for the others, naming the ROADMAP.md
+    aggregation. The port runs ``cohort_size``, ``eval_every`` and
+    ``scan_chunk`` (chunks are CUDA-graph replays on the card) on one
+    device, device-resident, with flat aggregation, and raises
+    ``NotImplementedError`` for the other options, naming the ROADMAP.md
     item that ports them (``repro_torch.fl.sched.check_slice``).
     """
 

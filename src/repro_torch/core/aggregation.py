@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import fill_vector
 from repro_torch.kernels.masked_aggregate import masked_aggregate_leaves
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -85,6 +86,6 @@ def transmitted_parameters(select_mask, share_mask, layer_sizes) -> torch.Tensor
     share = torch.as_tensor(share_mask)
     if share.ndim == 1:
         share = share[None, :].expand(select_mask.shape[0], share.shape[0])
-    sizes = torch.as_tensor(layer_sizes, dtype=torch.float32, device=share.device)
+    sizes = fill_vector(layer_sizes, torch.float32, share.device)
     per_client = share.to(torch.float32) @ sizes
     return torch.sum(per_client * select_mask.to(torch.float32))

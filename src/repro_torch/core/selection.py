@@ -61,7 +61,7 @@ def _keep_lowest(values: torch.Tensor, within: torch.Tensor, k) -> torch.Tensor:
     order = torch.argsort(keyed, stable=True)
     ranks = torch.empty_like(order)
     ranks[order] = torch.arange(order.shape[0], device=order.device)
-    return within & (ranks < torch.as_tensor(k, device=order.device))
+    return within & (ranks < k)
 
 
 def _keep_highest(values: torch.Tensor, within: torch.Tensor, k) -> torch.Tensor:
@@ -226,7 +226,7 @@ class OortFair(Oort):
     def _utility(self, metrics, t):
         _require(metrics, "oort-fair", "participation_count")
         part = metrics.participation_count.to(torch.float32)
-        tt = torch.as_tensor(t, device=part.device).to(torch.float32)
+        tt = (t if torch.is_tensor(t) else torch.full((), t, device=part.device)).to(torch.float32)
         bonus = 1.0 + self.fairness * torch.sqrt(torch.log(tt + 2.0) / (1.0 + part))
         return super()._utility(metrics, t) * bonus
 

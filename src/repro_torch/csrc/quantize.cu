@@ -18,35 +18,46 @@
 // Bound on an H100 (3.35 TB/s, ~67 TFLOP/s fp32): bytes. quantize reads x
 // and u (8 B) and writes q and the scales (~1 B): ~9 B/element against ~5
 // flops/element, far below the card's ~20 flop/B ridge. The 8 har-mlp
-// leaves at K = 30 client rows are 8.31 M elements, ~75 MB, ~22 us a round
-// (one launch); dequantize moves ~5 B/element, ~42 MB, ~12 us (one launch
-// a leaf).
+// leaves at K = 30 client rows are 8.31 M elements, ~75 MB, ~22 us a round.
+// dequantize reads a code and writes a float (5 B/element, one multiply):
+// ~42 MB, ~12 us a round. Each op is one launch a round.
 //
-// Design: one thread block per (row, bp-block); each row is cut into blocks
-// on its own, like JAX's per-client vmap, so every client's scales match.
-// One quantize launch covers a whole list of leaves (a round's 8 har-mlp
-// leaves, each with K client rows): the leaves' pointers, row lengths,
-// block sizes and first blocks travel in a table passed as a
-// __grid_constant__ parameter, and each block finds its leaf in it, so a
-// round pays one launch ramp and one tail instead of one per leaf (two of
-// har-mlp's leaves are rows of 256 and 6 elements). The ragged tail of a
-// row is masked in the kernel instead of padded in memory (a padded zero
-// never raises max|x|). Threads read 4 neighbouring
-// elements with one 16-byte load where the address allows; max|x| is
-// reduced with warp shuffles and shared memory, thread 0 writes the scale,
-// and the block then reads its 2 KB again from L1/L2 to write the codes (x
-// and u as 16-byte loads, 4 codes as one 4-byte store), so device memory
-// sees each byte once. Arithmetic is IEEE (__fdiv_rn, __fadd_rn, no fast
-// math): an approximate division can move x/scale + u across an integer and
-// flip floor(), and the codes must equal the plain version's bitwise. The
-// scale is a product with float32(1 / qmax), not a division by qmax: XLA
-// rewrites the JAX oracle's division by the constant qmax into that
-// product, and the reference trajectories were made with it. A NaN in a
-// block makes its scale NaN (fmaxf alone would drop it) and its codes 0, so
-// the decoded update stays non-finite and the round's finite-update guard
-// still rejects it. dequantize gives each thread 4 neighbouring elements
-// (a 4-byte load of codes, a 16-byte store where aligned) and finds each
-// element's scale with 32-bit index arithmetic (the wrapper checks n fits).
+// Design, both kernels: one launch covers a whole list of leaves (a round's
+// 8 har-mlp leaves, each with K client rows): the leaves' pointers, row
+// lengths, block sizes and first thread blocks travel in a table passed as
+// a __grid_constant__ parameter, and each thread block finds its leaf in
+// it, so a round pays one launch ramp and one tail instead of one per leaf
+// (two of har-mlp's leaves are rows of 256 and 6 elements). Each row is cut
+// into quant blocks on its own, like JAX's per-client vmap, so every
+// client's scales match, and the ragged tail of a row is masked in the
+// kernel instead of padded in memory.
+//
+// quantize: one thread block per (row, bp-block). Threads read 4
+// neighbouring elements with one 16-byte load where the address allows;
+// max|x| is reduced with warp shuffles and shared memory, thread 0 writes
+// the scale, and the block then reads its 2 KB again from L1/L2 to write
+// the codes (x and u as 16-byte loads, 4 codes as one 4-byte store), so
+// device memory sees each byte once. Arithmetic is IEEE (__fdiv_rn,
+// __fadd_rn, no fast math): an approximate division can move x/scale + u
+// across an integer and flip floor(), and the codes must equal the plain
+// version's bitwise. The scale is a product with float32(1 / qmax), not a
+// division by qmax: XLA rewrites the JAX oracle's division by the constant
+// qmax into that product, and the reference trajectories were made with it.
+// A NaN in a block makes its scale NaN (fmaxf alone would drop it) and its
+// codes 0, so the decoded update stays non-finite and the round's
+// finite-update guard still rejects it.
+//
+// dequantize: each thread block covers whole quant blocks of one row, up to
+// kDqBlocks of them when a quant block fits the block's 512-element stride
+// (bp <= 512, every har-mlp leaf), else one. The quant blocks line up with
+// the threads, so a thread's 4 elements of a quant block share one scale,
+// loaded once into a register: no per-element division by bp and one scale
+// load per quant block, where a flat 1024-element tiling needed four of
+// each. A thread reads its 4 codes as one char4 and writes one float4; the
+// unrolled loop over the quant blocks puts all of a thread's code loads in
+// flight before its stores. A ragged row end or an unaligned row start
+// (rows of 6 elements) takes a scalar path. Each element is one IEEE
+// float32 product, so the result is bitwise the plain version's.
 //
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrappers in
@@ -60,7 +71,9 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kVec = 4;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLeaves = 64;  // leaves a quantize launch (the table stays under 4 KB)
+constexpr int kMaxLeaves = 64;  // leaves a launch (each table stays under 4 KB)
+constexpr int kDqBlocks = 4;    // quant blocks a dequantize thread block covers at most
+constexpr int kDqStride = kThreads * kVec;  // elements a dequantize block's threads take at once
 
 // One leaf of a quantize launch; the Python wrapper fills the same layout (ctypes).
 struct Leaf {
@@ -79,6 +92,24 @@ struct Table {
   int n_leaves;
   float qmax;
   float inv_qmax;  // float32(1 / qmax)
+};
+
+// One leaf of a dequantize launch; the Python wrapper fills the same layout (ctypes).
+struct DqLeaf {
+  const int8_t* q;       // (rows, n)
+  const float* scales;   // (rows, nb)
+  float* out;            // (rows, n)
+  int64_t n;
+  int64_t block0;        // the leaf's first thread block; its blocks are rows * per_row
+  int bp;
+  int nb;
+  int bpc;               // quant blocks a thread block covers (kDqBlocks or 1)
+  int per_row;           // thread blocks a row: ceil(nb / bpc)
+};
+
+struct DqTable {
+  DqLeaf leaf[kMaxLeaves];
+  int n_leaves;
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -179,29 +210,57 @@ quantize_kernel(const __grid_constant__ Table table) {
   }
 }
 
-__global__ void __launch_bounds__(256)
-dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
-                  float* __restrict__ out, int n, int bp, int nb, int chunks) {
-  // one block covers 256 * 4 elements of one row; each thread 4 neighbours
-  const int64_t row = blockIdx.x / chunks;
-  const int col0 = (blockIdx.x % chunks) * (256 * kVec) + threadIdx.x * kVec;
-  if (col0 >= n) return;
-  const int8_t* qr = q + row * n;
-  const float* sr = scales + row * nb;
-  float* orow = out + row * n;
-  if (col0 + kVec <= n && (reinterpret_cast<uintptr_t>(qr + col0) & 3u) == 0 &&
-      aligned16(orow + col0)) {
-    const char4 c = *reinterpret_cast<const char4*>(qr + col0);
-    float4 o;
-    o.x = static_cast<float>(c.x) * sr[col0 / bp];
-    o.y = static_cast<float>(c.y) * sr[(col0 + 1) / bp];
-    o.z = static_cast<float>(c.z) * sr[(col0 + 2) / bp];
-    o.w = static_cast<float>(c.w) * sr[(col0 + 3) / bp];
-    *reinterpret_cast<float4*>(orow + col0) = o;
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// 4 codes from q[i..] scaled by s into out[i..] (i < len): one char4 load and
+// one float4 store where all 4 are in the row and both addresses allow it.
+__device__ __forceinline__ void dequant4(const int8_t* __restrict__ q, float* __restrict__ out,
+                                         int64_t i, int64_t len, float s) {
+  if (i + kVec <= len && (reinterpret_cast<uintptr_t>(q + i) & 3u) == 0 && aligned16(out + i)) {
+    const char4 c = *reinterpret_cast<const char4*>(q + i);
+    *reinterpret_cast<float4*>(out + i) =
+        make_float4(__fmul_rn(static_cast<float>(c.x), s), __fmul_rn(static_cast<float>(c.y), s),
+                    __fmul_rn(static_cast<float>(c.z), s), __fmul_rn(static_cast<float>(c.w), s));
   } else {
-    for (int c = col0; c < min(col0 + kVec, n); ++c) {
-      orow[c] = static_cast<float>(qr[c]) * sr[c / bp];
+    for (int64_t k = i; k < min64(i + kVec, len); ++k) {
+      out[k] = __fmul_rn(static_cast<float>(q[k]), s);
     }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+dequantize_kernel(const __grid_constant__ DqTable table) {
+  int li = 0;  // this block's leaf
+  while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
+  const DqLeaf& leaf = table.leaf[li];
+  const int64_t n = leaf.n;
+  const int bp = leaf.bp;
+  const int64_t local = blockIdx.x - leaf.block0;
+  const int64_t row = local / leaf.per_row;
+  const int blk0 = static_cast<int>(local % leaf.per_row) * leaf.bpc;
+  const int blocks = min(leaf.bpc, leaf.nb - blk0);
+  const int8_t* __restrict__ q = leaf.q + row * n;
+  const float* __restrict__ sr = leaf.scales + row * leaf.nb + blk0;
+  float* __restrict__ out = leaf.out + row * n;
+  const int64_t i0 = threadIdx.x * kVec;
+  if (bp <= kDqStride) {
+    // a quant block per step of the threads: thread t takes elements
+    // [4t, 4t + 4) of each of the block's quant blocks
+#pragma unroll
+    for (int b = 0; b < kDqBlocks; ++b) {
+      if (b < blocks) {
+        const int64_t start = static_cast<int64_t>(blk0 + b) * bp;
+        const int64_t len = min64(bp, n - start);
+        const float s = sr[b];
+        if (i0 < len) dequant4(q + start, out + start, i0, len, s);
+      }
+    }
+  } else {
+    // one quant block longer than the threads' stride (bpc == 1)
+    const int64_t start = static_cast<int64_t>(blk0) * bp;
+    const int64_t len = min64(bp, n - start);
+    const float s = sr[0];
+    for (int64_t i = i0; i < len; i += kDqStride) dequant4(q + start, out + start, i, len, s);
   }
 }
 
@@ -221,16 +280,15 @@ int repro_quantize_leaves(const void* table_ptr, int64_t blocks, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int repro_dequantize(const void* q, const void* scales, void* out,
-                     int64_t rows, int n, int bp, int nb, void* stream) {
-  const int chunks = (n + 256 * kVec - 1) / (256 * kVec);
-  const int64_t blocks = rows * chunks;
-  if (blocks > 0) {
-    dequantize_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<float*>(out), n, bp, nb, chunks);
-  }
+// Dequantizes every leaf of the DqTable at table_ptr in one launch of
+// `blocks` blocks (the sum of the leaves' rows * per_row; no leaf without
+// blocks). Returns cudaGetLastError() after the launch (0 = launched).
+int repro_dequantize_leaves(const void* table_ptr, int64_t blocks, void* stream) {
+  const DqTable* table = static_cast<const DqTable*>(table_ptr);
+  if (table->n_leaves < 1 || table->n_leaves > kMaxLeaves || blocks < 1 || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dequantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(*table);
   return static_cast<int>(cudaGetLastError());
 }
 

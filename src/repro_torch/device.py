@@ -12,6 +12,11 @@ mantissa would move the trajectory by far more than the parity contract.
 It also keeps the sums of bfloat16 matrix products in float32
 (``allow_bf16_reduced_precision_reduction = False``), as XLA accumulates
 the model zoo's bfloat16 products.
+
+``fill_vector`` builds a small constant tensor with device fills: code that
+a CUDA graph captures (the FL round, ``repro_torch.fl.api.build_chunk_step``)
+cannot copy from host memory, which ``torch.tensor(..., device="cuda")``
+does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,16 @@ def full_precision_matmuls() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def fill_vector(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """The 1-D tensor of the Python numbers ``values``, made on ``device``
+    by one fill each (the same values as ``torch.tensor(values, dtype=dtype)``,
+    with no host-to-device copy, so a CUDA-graph capture can make it)."""
+    out = torch.empty((len(values),), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def resolve_device(device=None) -> torch.device:

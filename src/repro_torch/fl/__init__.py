@@ -14,6 +14,7 @@ from repro_torch.fl.api import (
     SchedulerConfig,
     SelectionConfig,
     TrainConfig,
+    build_chunk_step,
     build_env,
     build_round_step,
     pipeline_from_config,
@@ -36,6 +37,7 @@ __all__ = [
     "pipeline_from_config",
     "build_env",
     "build_round_step",
+    "build_chunk_step",
     "run_federated",
     "make_round_step",
     "SyncScheduler",

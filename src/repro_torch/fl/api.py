@@ -10,20 +10,22 @@ A federated round is a ``RoundPipeline`` of phases (``repro_torch.fl.phases``):
 or the seed's flat kwargs), the same class as the JAX package's.
 ``pipeline_from_config`` maps a config onto phases through the registries;
 ``build_round_step`` composes a pipeline into the round step
-``(RoundState, t) -> (RoundState, out)`` that the synchronous scheduler
-runs once per round. The JAX package jit-compiles that step and can fuse
-chunks of rounds (``build_chunk_step``); the port runs it eagerly, one
-round per call (fusion comes with ROADMAP.md queue 1 item 7).
+``(RoundState, t) -> (RoundState, out)``, which runs eagerly, one round a
+call; ``build_chunk_step`` fuses ``length`` rounds into one call, on CUDA
+one replay of a CUDA graph (the counterpart of the JAX package's donated
+``lax.scan`` of rounds).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch import random as prng
 from repro_torch.configs.base import (
     CodecConfig,
@@ -40,7 +42,7 @@ from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl import phases
 from repro_torch.fl.cohort import cohort_indices, tree_scatter, tree_take
 from repro_torch.models.mlp import mlp_accuracy, mlp_loss
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "FLConfig",
@@ -56,6 +58,8 @@ __all__ = [
     "pipeline_from_config",
     "build_env",
     "build_round_step",
+    "build_chunk_step",
+    "StackedOuts",
 ]
 
 
@@ -403,39 +407,45 @@ def build_round_step(
     faults: FaultConfig | None = None,
 ):
     """Compose a RoundPipeline into the round step ``(RoundState, t) ->
-    (RoundState, out)``; ``out`` holds the round's history records.
+    (RoundState, out)``; ``out`` holds the round's history records. ``t``
+    is a Python int or an int32 0-d tensor on the state's device.
 
     Gather -> compute -> scatter, as in the JAX package: the (C,) selection
-    resolves to the cohort ``idx`` (K = C: every client, selected first in
-    ascending id order), the cohort's slabs are gathered, the compute phases
-    run on K lanes, and results scatter back into the (C, ...) state; then
+    resolves to the cohort ``idx`` of K = ``execution.resolved_cohort(C)``
+    lanes (selected clients first in ascending id order, then unselected
+    ones to fill; past K selected clients the rest neither train nor pay
+    wire), the cohort's slabs are gathered, the compute phases run on K
+    lanes, and results scatter back into the (C, ...) state; then
     evaluation, selection and the layer policy run on the population. The
     finite-delta guard masks lanes with a non-finite update norm out of
     aggregation and reverts their local/residual state. Random draws follow
     the JAX step's key splits exactly (3 keys a round, 4 with a lossy codec).
+
+    The step reads nothing back to the host and copies nothing from it: the
+    round index stays on the device (selection's decay and the evaluator's
+    thinning read it there), so ``build_chunk_step`` can capture rounds in a
+    CUDA graph.
     """
     execution = execution or ExecutionConfig()
     if execution.cohort_devices != 0:
         raise NotImplementedError(
             "cohort_devices (sharded round step) is not ported yet: ROADMAP.md queue 1 item 12"
         )
-    if execution.cohort_size != 0:
-        raise NotImplementedError(
-            "cohort_size > 0 (K < C cohort rounds) is not ported yet: ROADMAP.md queue 1 item 7"
-        )
     if faults is not None and faults.enabled:
         raise NotImplementedError(
             "fault injection is not ported yet: ROADMAP.md queue 1 item 9"
         )
-    cohort_k = env.n_clients
+    cohort_k = execution.resolved_cohort(env.n_clients)
     stateful = pipeline.personalizer.stateful
     lossy = pipeline.transmit.lossy
 
-    def round_step(state: RoundState, t: int):
+    def round_step(state: RoundState, t):
+        if not torch.is_tensor(t):
+            t = torch.full((), int(t), dtype=torch.int32, device=state.select.device)
         with torch.no_grad():
-            return _round_body(state, int(t))
+            return _round_body(state, t)
 
-    def _round_body(state: RoundState, t: int):
+    def _round_body(state: RoundState, t: torch.Tensor):
         g = state.global_params
         n_layers = len(g)
         dev = state.select.device
@@ -552,3 +562,174 @@ def build_round_step(
         return new_state, out
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# chunks of rounds: one call (on CUDA one CUDA-graph replay) for many rounds
+# ---------------------------------------------------------------------------
+
+
+class StackedOuts(dict):
+    """The ``out`` records of a chunk's rounds stacked to ``(length, ...)``:
+    views into one byte buffer, so ``numpy()`` fetches them all with one
+    device-to-host copy."""
+
+    def __init__(self, outs: list):
+        layout, offset = [], 0
+        for key, leaf in outs[0].items():
+            shape = (len(outs), *leaf.shape)
+            n_bytes = leaf.element_size() * math.prod(shape)
+            layout.append((key, leaf.dtype, shape, offset, n_bytes))
+            offset += -(-n_bytes // 8) * 8  # every view starts on an 8-byte boundary
+        device = next(iter(outs[0].values())).device
+        packed = torch.empty((offset,), dtype=torch.uint8, device=device)
+        for key, dtype, shape, a, n_bytes in layout:
+            view = packed[a:a + n_bytes].view(dtype).view(shape)
+            torch.stack([out[key] for out in outs], out=view)
+            self[key] = view
+        self.packed = packed
+
+    def numpy(self) -> dict:
+        """The records as numpy arrays, through one copy of the buffer."""
+        host = self.packed.cpu()
+        return {key: host[view.storage_offset() * view.element_size():][:view.nbytes]
+                .view(view.dtype).view(view.shape).numpy() for key, view in self.items()}
+
+
+def _state_leaves(state: RoundState) -> list:
+    return tree_leaves(list(state))
+
+
+def _state_like(state: RoundState, leaves) -> RoundState:
+    """``state``'s structure (None fields kept) filled with ``leaves``."""
+    it = iter(leaves)
+    return RoundState(*[None if f is None else tree_unflatten(f, [next(it) for _ in tree_leaves(f)])
+                        for f in state])
+
+
+class _ChunkStep:
+    """``build_chunk_step``'s callable; its buffers hold the carried state."""
+
+    def __init__(self, round_step, length: int):
+        self.round_step = round_step
+        self.length = length
+        self._state = None  # RoundState whose leaves are the step's buffers
+        self._bufs: list = []
+        self._ts = None
+        self._graph = None
+        self._outs = None
+        self._counts: dict[str, int] = {}  # kernel launches one replay makes
+
+    def _bind(self, state: RoundState, ts: torch.Tensor) -> None:
+        """Load ``state`` and ``ts`` into the buffers (the first call adopts
+        the state's own tensors as the buffers, cloning only a leaf that is
+        not contiguous or shares its storage with another)."""
+        leaves = _state_leaves(state)
+        if self._state is None:
+            seen = set()
+            for leaf in leaves:
+                if not leaf.is_contiguous() or leaf.untyped_storage().data_ptr() in seen:
+                    leaf = leaf.clone(memory_format=torch.contiguous_format)
+                seen.add(leaf.untyped_storage().data_ptr())
+                self._bufs.append(leaf)
+            self._state = _state_like(state, self._bufs)
+            self._ts = torch.empty((self.length,), dtype=torch.int32, device=self._bufs[0].device)
+        else:
+            if len(leaves) != len(self._bufs):
+                raise ValueError("the state's structure differs from the one this chunk step "
+                                 "was first called with")
+            for buf, leaf in zip(self._bufs, leaves):
+                if leaf.shape != buf.shape or leaf.dtype != buf.dtype:
+                    raise ValueError(f"state leaf {tuple(leaf.shape)} {leaf.dtype} differs from "
+                                     f"its buffer {tuple(buf.shape)} {buf.dtype}")
+                if leaf.data_ptr() != buf.data_ptr():
+                    buf.copy_(leaf)
+        if tuple(ts.shape) != (self.length,):
+            raise ValueError(f"ts must hold {self.length} round indices, got {tuple(ts.shape)}")
+        self._ts.copy_(ts)
+
+    def _rounds(self) -> StackedOuts:
+        """``length`` round steps from the buffers, the final state written
+        back into them; returns the stacked records."""
+        state, outs = self._state, []
+        for r in range(self.length):
+            state, out = self.round_step(state, self._ts[r])
+            outs.append(out)
+        stacked = StackedOuts(outs)
+        new = _state_leaves(state)
+        if len(new) != len(self._bufs):
+            raise ValueError("the round step changed the state's structure (a None field became "
+                             "a tensor or back); give the chunk step a full state")
+        # a new leaf that shares storage with a buffer is cloned before any
+        # buffer is overwritten
+        held = {buf.untyped_storage().data_ptr() for buf in self._bufs}
+        new = [leaf if leaf is buf or leaf.untyped_storage().data_ptr() not in held
+               else leaf.clone() for leaf, buf in zip(new, self._bufs)]
+        for buf, leaf in zip(self._bufs, new):
+            if leaf is not buf:
+                buf.copy_(leaf)
+        return stacked
+
+    def _capture(self) -> None:
+        """Warm the round up once on a side stream (its results and kernel
+        launches are dropped: it is no round of the run), then capture the
+        chunk in a CUDA graph on that stream."""
+        dev = self._bufs[0].device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        before = kernels.launch_counts()
+        with torch.cuda.stream(stream):
+            self.round_step(self._state, self._ts[0])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        counted = kernels.launch_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            self._outs = self._rounds()
+        after = kernels.launch_counts()
+        # a capture records launches without running them: replays count them
+        self._counts = {k: after[k] - counted[k] for k in after}
+        kernels.add_launch_counts({k: before[k] - after[k] for k in after})
+        self._graph = graph
+
+    def __call__(self, state: RoundState, ts: torch.Tensor):
+        self._bind(state, ts)
+        if self._bufs[0].device.type != "cuda":
+            return self._state, self._rounds()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        kernels.add_launch_counts(self._counts)
+        return self._state, self._outs
+
+
+def build_chunk_step(round_step, length: int):
+    """Fuse ``length`` consecutive rounds of a ``build_round_step`` round
+    step into one call ``(RoundState, ts) -> (RoundState, outs)``: ``ts``
+    is the ``(length,)`` int32 tensor of the round indices, ``outs`` the
+    rounds' ``out`` records stacked to ``(length, ...)``
+    (``StackedOuts``: ``outs.numpy()`` fetches them with one device-to-host
+    copy). The counterpart of the JAX package's ``build_chunk_step``.
+
+    The carried state lives in the step's own buffers, updated in place: the
+    first call adopts the given state's tensors as those buffers, later
+    calls copy a state in only where it is not already the buffers. So the
+    state a call returns is the buffers themselves, and a state passed in is
+    invalid after the call (it holds the new state, or is stale) — the
+    counterpart of ``donate_argnums=0``; the scheduler reassigns its state
+    every chunk and never reads an old one.
+
+    On CUDA the first call runs one warm-up round on a side stream (dropped:
+    its results and kernel launches count for nothing), then captures the
+    ``length`` rounds in a ``torch.cuda.CUDAGraph`` reading the buffers and
+    the round indices from device memory; every call replays the graph (one
+    launch from the host for the whole chunk). A capture that fails raises.
+    The kernels' launch counters count a replay as the launches its capture
+    recorded (``repro_torch.kernels.add_launch_counts``). The returned
+    ``outs`` are the graph's own output buffers: read them (``numpy()``)
+    before the next call. Replay runs the eager round's kernels on the same
+    inputs, so every chunk length, tails included, gives the history of the
+    per-round loop bit for bit. On the CPU a call runs the rounds in a loop.
+    """
+    if length < 1:
+        raise ValueError(f"chunk length must be >= 1, got {length!r}")
+    return _ChunkStep(round_step, length)

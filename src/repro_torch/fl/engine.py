@@ -47,12 +47,14 @@ class FLHistory(NamedTuple):
     tx_wire_bytes: np.ndarray        # (T,) per-round uplink wire bytes
     sim_clock: np.ndarray            # (T,) simulated clock at each round
     staleness_mean: np.ndarray       # (T,) 0 under the sync barrier
-    in_flight: np.ndarray            # (T,) executing client lanes (K = C)
+    in_flight: np.ndarray            # (T,) executing client lanes (K)
     tx_edge_bytes: np.ndarray | None = None   # edge aggregation: not ported
     rejected_updates: np.ndarray | None = None  # (T,) finite-guard rejections
-    wall_time: np.ndarray | None = None  # (T,) host seconds per round, up to
-                                         # the fetch of its records (a device
-                                         # sync); the port's own field
+    wall_time: np.ndarray | None = None  # (T,) host seconds per round: its
+                                         # chunk's time, up to the fetch of the
+                                         # records and their accounting, split
+                                         # evenly over the chunk's rounds; the
+                                         # port's own field
 
 
 def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,

@@ -11,8 +11,9 @@ device, sample counts, loss/accuracy functions). Lanes: the compute phases
 (personalizer's train model, trainer, transmit, aggregator) see a cohort
 ``env.take(idx)`` of K lanes; evaluation, selection and the layer policy
 see the population's C lanes. Where the JAX package vmaps over lanes, the
-port computes with the lane axis written out (batched matmuls, one codec
-and kernel call per leaf for all lanes). Per-client keys are split over the
+port computes with the lane axis written out (batched matmuls; a round's
+leaves of all lanes in one codec call and one launch of each kernel).
+Per-client keys are split over the
 population and gathered by ``ctx.cohort_idx`` (``client_keys``), so a
 client's random stream does not depend on its lane.
 
@@ -37,6 +38,7 @@ from repro_torch.core import (
     personalize_ft,
 )
 from repro_torch.core.selection import ClientObservations, SelectionStrategy
+from repro_torch.device import fill_vector
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -87,7 +89,7 @@ class RoundContext(NamedTuple):
     """Dynamic state threaded through the phase pipeline; phases return
     updated copies (``_replace``) and never mutate it."""
 
-    t: Any = None                 # round index (Python int)
+    t: Any = None                 # round index: int32 0-d tensor on the device
     global_params: Any = None     # layered list, leaves (...)
     local_params: Any = None      # layered list, leaves (lanes, ...)
     select: Any = None            # (lanes,) bool
@@ -331,7 +333,7 @@ class TransmitPhase:
     def wire_costs(self, global_params, share: torch.Tensor, select: torch.Tensor):
         """(prospective, paid) per-client bytes from the (C, L) share mask and
         the (C,) selection."""
-        lw = torch.tensor(self.layer_wire(global_params), dtype=torch.float32, device=share.device)
+        lw = fill_vector(self.layer_wire(global_params), torch.float32, share.device)
         share_f = share.to(torch.float32)
         return share_f @ lw, (share_f * select.to(torch.float32)[:, None]) @ lw
 
@@ -404,22 +406,32 @@ class Evaluator:
 @dataclasses.dataclass(frozen=True)
 class DistributedEvaluator(Evaluator):
     """Distributed eval (paper §4.3): each client scores its composed model
-    on its own test shard, every round."""
+    on its own test shard; accuracy and loss feed the selector.
+
+    ``eval_every=n`` reports fresh values on rounds with ``t % n == 0`` and
+    carries the last-known ones (``ctx.prev_accuracy``/``prev_loss``) in
+    between, as the JAX package does. The JAX package branches with
+    ``lax.cond`` and skips the evaluation on carried rounds; here ``t`` is a
+    device tensor (a CUDA graph replays each round with its own index), so
+    the round evaluates and ``torch.where`` picks the fresh or the carried
+    values on the device: the same values as the taken branch, but no
+    evaluation saved."""
 
     eval_every: int = 1
 
     def __post_init__(self):
         if self.eval_every < 1:
             raise ValueError(f"eval_every must be >= 1, got {self.eval_every!r}")
-        if self.eval_every != 1:
-            raise NotImplementedError(
-                "eval_every > 1 is not ported yet: ROADMAP.md queue 1 item 7"
-            )
 
     def evaluate(self, ctx, env):
         model = ctx.eval_model
         acc = env.acc_fn(model, env.x_te, env.y_te, env.m_te)
         loss = env.loss_fn(model, env.x_te, env.y_te, env.m_te)
+        if self.eval_every > 1:
+            fresh = (ctx.t % self.eval_every) == 0
+            zeros = torch.zeros_like(acc)
+            acc = torch.where(fresh, acc, zeros if ctx.prev_accuracy is None else ctx.prev_accuracy)
+            loss = torch.where(fresh, loss, zeros if ctx.prev_loss is None else ctx.prev_loss)
         return ctx._replace(accuracy=acc, loss=loss)
 
 

@@ -4,14 +4,17 @@
 ``SyncScheduler`` is the paper's Algorithm 1 barrier: every selected client
 finishes before the server aggregates, so a round costs the slowest
 selected client on the simulated clock (``ClientClock``, host-side numpy in
-float64). The round itself runs on the device through
-``repro_torch.fl.api.build_round_step``, one call per round; the host
-fetches each round's records and does the clock accounting.
+float64). The rounds run on the device, in chunks of
+``ExecutionConfig.scan_chunk`` rounds (``repro_torch.fl.api.build_chunk_step``:
+one CUDA-graph replay a chunk on the card) or one eager round step a call
+at ``scan_chunk=1``; the host fetches each chunk's records with one copy
+and does the clock accounting for the chunk in one numpy pass.
 
-The port covers the main path only: dense cohort (K = C), per-round
-evaluation and dispatch, faults off, no recorder and no checkpoint.
-``check_slice`` raises ``NotImplementedError`` for every other option,
-naming the ROADMAP.md item that ports it, so no option is silently ignored.
+The port covers the synchronous loop with cohorts of K <= C clients,
+thinned evaluation and fused chunks of rounds; faults, the recorder and
+checkpoints are not ported. ``check_slice`` raises ``NotImplementedError``
+for every option outside that, naming the ROADMAP.md item that ports it, so
+no option is silently ignored.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from repro_torch.fl.api import (
     FLConfig,
     RoundPipeline,
     RoundState,
+    StackedOuts,
+    build_chunk_step,
     build_env,
     build_round_step,
     pipeline_from_config,
@@ -59,12 +64,6 @@ def check_slice(cfg: FLConfig, data) -> None:
     ex = cfg.execution
     if cfg.scheduler.mode != "sync":
         raise _not_ported("scheduler mode 'async'", 8, "AsyncScheduler")
-    if ex.cohort_size != 0:
-        raise _not_ported("cohort_size > 0", 7, "K < C cohort rounds")
-    if ex.eval_every != 1:
-        raise _not_ported("eval_every > 1", 7, "thinned evaluation")
-    if ex.resolved_chunk(cfg.rounds) > 1:
-        raise _not_ported("scan_chunk != 1", 7, "fused chunks of rounds")
     if cfg.faults.enabled:
         raise _not_ported("fault injection", 9, "fl/faults.py")
     if ex.host_population == 1 or ex.resolved_host_population(n_clients):
@@ -225,12 +224,30 @@ def initial_state(su: _RunSetup, n_clients: int) -> RoundState:
 # ---------------------------------------------------------------------------
 
 
+def _progress_rows(t0: int, n: int, chunk: int, rounds: int) -> list[int]:
+    """Which rows of a fetched ``[t0, t0 + n)`` chunk ``progress=True``
+    prints: at ``scan_chunk=1`` every 10th round and the last one; with
+    chunks, round 0 and each chunk's last round (the JAX package's
+    cadence)."""
+    if chunk <= 1:
+        return [i for i in range(n) if (t0 + i) % 10 == 0 or t0 + i == rounds - 1]
+    rows = [0] if t0 == 0 else []
+    if n - 1 not in rows:
+        rows.append(n - 1)
+    return rows
+
+
 @dataclasses.dataclass
 class SyncScheduler:
-    """The synchronous barrier loop: one round step per round on the
-    device, then the host fetches the round's records and accounts the
-    simulated round time (slowest selected client: codec-compressed uplink,
-    uncompressed float32 downlink, local training)."""
+    """The synchronous barrier loop: chunks of ``scan_chunk`` rounds on the
+    device (``build_chunk_step``, one chunk step per distinct chunk length:
+    the body's and the tail's), or the eager round step once a round at
+    ``scan_chunk=1``. The host fetches a chunk's records with one copy and
+    accounts the simulated round times (slowest selected client:
+    codec-compressed uplink, uncompressed float32 downlink, local training)
+    in one float64 numpy pass over the chunk. Every chunk length gives the
+    same history bit for bit. ``FLHistory.wall_time`` splits each chunk's
+    host time evenly over its rounds."""
 
     def run(self, data: FederatedDataset, cfg: FLConfig, device: torch.device,
             init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
@@ -245,32 +262,43 @@ class SyncScheduler:
         comm, clock = su.comm, su.clock
         state = initial_state(su, data.n_clients)
         round_step = build_round_step(su.env, su.pipeline, cfg.execution)
+        chunk = cfg.execution.resolved_chunk(cfg.rounds)
+        chunk_steps: dict[int, Callable] = {}  # length -> chunk step (body and tail)
+        lanes = cfg.execution.resolved_cohort(data.n_clients)
         delay = None if clock.uniform else clock.delay
         accs, sel_hist, tx_hist, pms_hist, times, wire_hist, rejected = [], [], [], [], [], [], []
         wall = []
-        for t in range(cfg.rounds):
+        for t0 in range(0, cfg.rounds, chunk):
+            n = min(chunk, cfg.rounds - t0)
             t_start = time.perf_counter()
-            state, out = round_step(state, t)
-            acc = out["acc"].cpu().numpy()[None]                       # (1, C)
-            sel = out["selected"].cpu().numpy()[None]
-            pms = out["pms"].cpu().numpy()[None]
-            wire = out["wire_per_client"].cpu().numpy().astype(np.float64)[None]
-            rt = comm.round_times(
+            if chunk == 1:
+                state, out = round_step(state, t0)
+                outs = StackedOuts([out])
+            else:
+                step = chunk_steps.get(n)
+                if step is None:
+                    step = chunk_steps[n] = build_chunk_step(round_step, n)
+                state, outs = step(state, torch.arange(t0, t0 + n, dtype=torch.int32,
+                                                       device=device))
+            host = outs.numpy()  # the one device-to-host copy of the chunk
+            acc, sel, pms = host["acc"], host["selected"], host["pms"]          # (n, C)
+            wire = host["wire_per_client"].astype(np.float64)                   # (n, C)
+            times.append(comm.round_times(
                 wire, clock.round_flops(pms), sel,
                 rx_bytes=clock.shared_params(pms) * float(BYTES_PER_PARAM),
                 delay=delay,
-            )
+            ))
             accs.append(acc)
             sel_hist.append(sel)
             pms_hist.append(pms)
-            times.append(rt)
             wire_hist.append(wire.sum(axis=1))
-            tx_hist.append(np.asarray([float(out["tx_params"])], np.float64))
-            rejected.append(np.asarray([int(out["rejected"])], np.int64))
-            wall.append(time.perf_counter() - t_start)
-            if progress and (t % 10 == 0 or t == cfg.rounds - 1):
-                print(f"round {t:4d}  acc={float(acc.mean()):.4f}  "
-                      f"selected={int(sel.sum())}")
+            tx_hist.append(host["tx_params"].astype(np.float64))
+            rejected.append(host["rejected"].astype(np.int64))
+            wall += [(time.perf_counter() - t_start) / n] * n
+            if progress:
+                for i in _progress_rows(t0, n, chunk, cfg.rounds):
+                    print(f"  round {t0 + i:3d}  acc={float(acc[i].mean()):.4f}  "
+                          f"|S|={int(sel[i].sum())}")
 
         acc_pc = np.concatenate(accs)
         wire = np.concatenate(wire_hist)
@@ -286,7 +314,7 @@ class SyncScheduler:
             tx_wire_bytes=wire,
             sim_clock=np.cumsum(times),
             staleness_mean=np.zeros_like(times),
-            in_flight=np.full(times.shape, data.n_clients, np.int64),
+            in_flight=np.full(times.shape, lanes, np.int64),
             tx_edge_bytes=None,
             rejected_updates=np.concatenate(rejected),
             wall_time=np.asarray(wall, np.float64),

@@ -2,8 +2,8 @@
 the JAX package:
 
   quantize, dequantize — per-block absmax int8/int4 (de)quantization
-                         (the uplink codec, a round's leaves in one quantize
-                         launch; csrc/quantize.cu)
+                         (the uplink codec, a round's leaves in one launch
+                         of each; csrc/quantize.cu)
   masked_aggregate     — the paper's Eq. 1 masked weighted client average,
                          every leaf of a round in one launch
                          (the aggregators; csrc/masked_aggregate.cu)
@@ -16,17 +16,20 @@ the JAX package:
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first
 use). ``launch_counts``/``reset_launch_counts`` read and zero the wrappers'
-launch counters, so a run can show that its path went through the kernels.
+launch counters, so a run can show that its path went through the kernels;
+``add_launch_counts`` adds to them where kernels launch without a wrapper
+call: a CUDA-graph replay launches what its capture recorded
+(``repro_torch.fl.api.build_chunk_step``).
 """
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_leaves
-from repro_torch.kernels.quantize import dequantize, quantize, quantize_leaves
+from repro_torch.kernels.quantize import dequantize, dequantize_leaves, quantize, quantize_leaves
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {
     "quantize": quantize_leaves,
-    "dequantize": dequantize,
+    "dequantize": dequantize_leaves,
     "masked_aggregate": masked_aggregate_leaves,
     "ssm_scan": ssm_scan,
     "flash_attention": flash_attention,
@@ -43,6 +46,12 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["quantize", "quantize_leaves", "dequantize", "masked_aggregate",
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (launches per wrapper name) to the counters."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
+__all__ = ["quantize", "quantize_leaves", "dequantize", "dequantize_leaves", "masked_aggregate",
            "masked_aggregate_leaves", "ssm_scan", "flash_attention", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "add_launch_counts"]

@@ -1,5 +1,7 @@
 from repro_torch.kernels.quantize.ops import (
     dequantize,
+    dequantize_leaves,
+    dequantize_leaves_plain,
     dequantize_plain,
     quant_blocks,
     quantize,
@@ -8,5 +10,6 @@ from repro_torch.kernels.quantize.ops import (
     quantize_plain,
 )
 
-__all__ = ["quantize", "quantize_leaves", "dequantize", "quant_blocks", "quantize_plain",
-           "quantize_leaves_plain", "dequantize_plain"]
+__all__ = ["quantize", "quantize_leaves", "dequantize", "dequantize_leaves", "quant_blocks",
+           "quantize_plain", "quantize_leaves_plain", "dequantize_plain",
+           "dequantize_leaves_plain"]

@@ -10,22 +10,22 @@ what the design does about it.
 Each op has three parts here:
 
 - a plain PyTorch version (``quantize_plain``/``dequantize_plain``, and
-  ``quantize_leaves_plain`` over a list of leaves) with the arithmetic of
-  the JAX ``ref.py`` oracle: the CPU path, and what the card's kernel is
-  held to bitwise;
-- a wrapper (``quantize_leaves``, ``quantize`` its one-leaf case, and
-  ``dequantize``) that dispatches on the tensor's device: CPU tensors take
-  the plain version, CUDA tensors launch the kernel (or raise), nothing
-  falls back;
-- a launch counter, ``quantize_leaves.launches``/``dequantize.launches``, a
-  plain integer the wrapper bumps where it launches the kernel and nowhere
-  else.
+  ``quantize_leaves_plain``/``dequantize_leaves_plain`` over a list of
+  leaves) with the arithmetic of the JAX ``ref.py`` oracle: the CPU path,
+  and what the card's kernel is held to bitwise;
+- a wrapper (``quantize_leaves`` and ``dequantize_leaves``, with
+  ``quantize`` and ``dequantize`` their one-leaf cases) that dispatches on
+  the tensor's device: CPU tensors take the plain version, CUDA tensors
+  launch the kernel (or raise), nothing falls back;
+- a launch counter, ``quantize_leaves.launches``/
+  ``dequantize_leaves.launches``, a plain integer the wrapper bumps where it
+  launches the kernel and nowhere else.
 
 The ops take a batch: ``x`` of shape ``(..., n)`` is ``R`` rows of ``n``
 elements and every row is cut into blocks on its own (``quant_blocks``), as
 the JAX package's per-client vmap cuts each client's leaf — so all K client
-lanes of a leaf go through one launch, and ``quantize_leaves`` takes a
-round's leaves in one launch.
+lanes of a leaf go through one launch, and each op takes a round's leaves
+in one launch.
 """
 
 from __future__ import annotations
@@ -36,10 +36,13 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["quant_blocks", "quantize", "quantize_leaves", "dequantize", "quantize_plain",
-           "quantize_leaves_plain", "dequantize_plain"]
+__all__ = ["quant_blocks", "quantize", "quantize_leaves", "dequantize", "dequantize_leaves",
+           "quantize_plain", "quantize_leaves_plain", "dequantize_plain",
+           "dequantize_leaves_plain"]
 
-_MAX_LEAVES = 64  # leaves a quantize launch (the kernel's parameter table)
+_MAX_LEAVES = 64  # leaves a launch (the kernels' parameter tables)
+_DQ_BLOCKS = 4    # quant blocks a dequantize thread block covers (when bp <= _DQ_STRIDE)
+_DQ_STRIDE = 512  # elements a dequantize thread block's threads take at once
 
 
 class _Leaf(ctypes.Structure):
@@ -51,6 +54,16 @@ class _Leaf(ctypes.Structure):
 class _Table(ctypes.Structure):
     _fields_ = [("leaf", _Leaf * _MAX_LEAVES), ("n_leaves", ctypes.c_int),
                 ("qmax", ctypes.c_float), ("inv_qmax", ctypes.c_float)]
+
+
+class _DqLeaf(ctypes.Structure):
+    _fields_ = [("q", ctypes.c_void_p), ("scales", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_int64), ("block0", ctypes.c_int64), ("bp", ctypes.c_int),
+                ("nb", ctypes.c_int), ("bpc", ctypes.c_int), ("per_row", ctypes.c_int)]
+
+
+class _DqTable(ctypes.Structure):
+    _fields_ = [("leaf", _DqLeaf * _MAX_LEAVES), ("n_leaves", ctypes.c_int)]
 
 
 def quant_blocks(n: int, block_p: int = 512) -> tuple[int, int]:
@@ -69,7 +82,7 @@ def _qmax(bits: int) -> tuple[float, float]:
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     qmax = float(2 ** (bits - 1) - 1)
-    return qmax, float(torch.tensor(1.0) / qmax)
+    return qmax, ctypes.c_float(1.0 / qmax).value  # the double quotient rounded once to float32
 
 
 def quantize_plain(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int = 8,
@@ -114,14 +127,19 @@ def dequantize_plain(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) 
     return out.reshape(-1, nb * bp)[:, :n].reshape(q.shape)
 
 
+def dequantize_leaves_plain(codes, block_p: int = 512) -> list:
+    """``dequantize_plain(q, scales)`` for every ``(q, scales)`` leaf."""
+    return [dequantize_plain(q, scales, block_p=block_p) for q, scales in codes]
+
+
 def _lib():
     lib = build.load("quantize")
     if not getattr(lib, "_repro_typed", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.repro_quantize_leaves.argtypes = [ctypes.POINTER(_Table), i64, p]
         lib.repro_quantize_leaves.restype = i32
-        lib.repro_dequantize.argtypes = [p, p, p, i64, i32, i32, i32, p]
-        lib.repro_dequantize.restype = i32
+        lib.repro_dequantize_leaves.argtypes = [ctypes.POINTER(_DqTable), i64, p]
+        lib.repro_dequantize_leaves.restype = i32
         lib._repro_typed = True
     return lib
 
@@ -140,6 +158,11 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: tensors on {t.device} have no kernel here")
 
 
+def _too_many_leaves(what: str, n: int) -> ValueError:
+    return ValueError(f"{what} takes at most {_MAX_LEAVES} leaves (the kernel's parameter "
+                      f"table), got {n}")
+
+
 def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
     """Quantize every leaf ``xs[i]`` (..., n_i) float32 row by row, with its
     noise ``noises[i]`` (x's shape, float32; None rounds to nearest):
@@ -151,8 +174,7 @@ def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
     if len(noises) != len(xs):
         raise ValueError("quantize_leaves: one noise (or None) per leaf")
     if len(xs) > _MAX_LEAVES:
-        raise ValueError(f"quantize_leaves takes at most {_MAX_LEAVES} leaves (the kernel's "
-                         f"parameter table), got {len(xs)}")
+        raise _too_many_leaves("quantize_leaves", len(xs))
     if not xs:
         return []
     dev = xs[0].device
@@ -197,30 +219,56 @@ def quantize(x: torch.Tensor, noise: torch.Tensor | None = None, bits: int = 8,
     return quantize_leaves([x], [noise], bits=bits, block_p=block_p)[0]
 
 
+def dequantize_leaves(codes, block_p: int = 512) -> list:
+    """float32 ``q * scale[block]`` for every leaf ``(q (..., n_i) int8,
+    scales (..., nb_i) float32)``, at most 64 leaves (the kernel's parameter
+    table). CPU tensors run ``dequantize_leaves_plain``; on CUDA one kernel
+    launch covers every leaf."""
+    codes = list(codes)
+    if len(codes) > _MAX_LEAVES:
+        raise _too_many_leaves("dequantize_leaves", len(codes))
+    if not codes:
+        return []
+    dev = codes[0][0].device
+    if dev.type == "cpu":
+        return dequantize_leaves_plain(codes, block_p=block_p)
+    _require_cuda(codes[0][0], "dequantize")
+    table, keep, outs, block = _DqTable(), [], [], 0  # keep: contiguous copies live until the launch
+    for q, scales in codes:
+        if q.dtype != torch.int8 or scales.dtype != torch.float32:
+            raise TypeError(f"dequantize takes int8 codes and float32 scales, got {q.dtype}, "
+                            f"{scales.dtype}")
+        n = q.shape[-1]
+        bp, nb = quant_blocks(n, block_p)
+        if scales.shape != (*q.shape[:-1], nb) or q.device != dev or scales.device != dev:
+            raise ValueError(f"scales must be {(*q.shape[:-1], nb)} float32 on {dev} beside "
+                             f"codes {tuple(q.shape)} on {q.device}")
+        qc, sc = q.contiguous(), scales.contiguous()
+        keep += [qc, sc]
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        outs.append(out)
+        rows = qc.numel() // n if n else 0
+        bpc = _DQ_BLOCKS if bp <= _DQ_STRIDE else 1
+        per_row = -(-nb // bpc)
+        if rows:
+            table.leaf[table.n_leaves] = _DqLeaf(qc.data_ptr(), sc.data_ptr(), out.data_ptr(), n,
+                                                 block, bp, nb, bpc, per_row)
+            table.n_leaves += 1
+            block += rows * per_row
+    if block == 0:  # only empty leaves: nothing to launch
+        return outs
+    err = _lib().repro_dequantize_leaves(ctypes.byref(table), block, _stream(codes[0][0]))
+    _check_launch(err, "dequantize")
+    dequantize_leaves.launches += 1
+    return outs
+
+
 def dequantize(q: torch.Tensor, scales: torch.Tensor, block_p: int = 512) -> torch.Tensor:
     """float32 ``q * scale[block]`` for codes (..., n) int8 and scales
-    (..., nb). CPU tensors run ``dequantize_plain``; CUDA tensors launch the
-    kernel."""
-    if q.device.type == "cpu":
-        return dequantize_plain(q, scales, block_p=block_p)
-    _require_cuda(q, "dequantize")
-    n = q.shape[-1]
-    if n >= 2**31:
-        raise ValueError(f"dequantize: rows of {n} elements exceed the kernel's 32-bit index")
-    bp, nb = quant_blocks(n, block_p)
-    if q.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError(f"dequantize takes int8 codes and float32 scales, got {q.dtype}, {scales.dtype}")
-    if scales.shape != (*q.shape[:-1], nb) or scales.device != q.device:
-        raise ValueError(f"scales must be {(*q.shape[:-1], nb)} on {q.device}")
-    qc, sc = q.contiguous(), scales.contiguous()
-    rows = qc.numel() // n if n else 0
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    err = _lib().repro_dequantize(qc.data_ptr(), sc.data_ptr(), out.data_ptr(),
-                                  rows, n, bp, nb, _stream(q))
-    _check_launch(err, "dequantize")
-    dequantize.launches += 1
-    return out
+    (..., nb), the one-leaf case of ``dequantize_leaves``. CPU tensors run
+    ``dequantize_plain``; CUDA tensors launch the kernel."""
+    return dequantize_leaves([(q, scales)], block_p=block_p)[0]
 
 
 quantize_leaves.launches = 0
-dequantize.launches = 0
+dequantize_leaves.launches = 0

@@ -1,7 +1,9 @@
 """Where a serving step's time goes on the card: one prefill and a few
-decode steps of a decoder LM under ``torch.profiler``.
+decode steps of a decoder LM under ``torch.profiler``; with ``--fl``, an
+FL round instead.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b
+    PYTHONPATH=src python -m repro_torch.launch.profile --fl
 
 Builds the arch at full width with random weights, runs a warm-up prefill
 and decode step, then traces one prefill of 4 prompts of 2048 tokens (the
@@ -10,6 +12,10 @@ window it prints one JSON line: the device span (first kernel start to
 last kernel end), the device's busy time (the sum of its kernels'
 durations; one stream, so they do not overlap), the idle share of the
 span, the number of kernels, and the kernels that took the most device
+time. ``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
+stand-in at har-mlp's full width (``chip_smoke.py``'s main path): one eager
+round, then one replay of a CUDA graph of ``--chunk`` rounds
+(``repro_torch.fl.api.build_chunk_step``), each window with its host wall
 time. Needs a CUDA card.
 """
 
@@ -18,6 +24,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -79,11 +86,55 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
     return out
 
 
+def profile_fl_round(chunk: int = 5, seed: int = 0) -> dict:
+    """``device_breakdown``s of one eager FL round and of one replay of a
+    chunk of ``chunk`` rounds, with their host wall ms, on the card."""
+    from repro_torch.data import make_har_dataset
+    from repro_torch.fl import FLConfig, api
+    from repro_torch.fl.sched import _setup_run, initial_state
+
+    dev = resolve_device(None)
+    data = make_har_dataset("uci-har", seed=seed)
+    cfg = FLConfig(codec="int8", epochs=2, rounds=2 + 2 * chunk)
+    su = _setup_run(data, cfg, dev, None, api.mlp_loss, api.mlp_accuracy, None, None, None)
+    state = initial_state(su, data.n_clients)
+    round_step = api.build_round_step(su.env, su.pipeline, cfg.execution)
+    state, _ = round_step(state, 0)  # warm-up: allocator, cuBLAS plans
+    torch.cuda.synchronize()
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = round_step(state, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["fl round, eager"] = {"rounds": 1, "wall_ms": 1e3 * wall, **device_breakdown(prof)}
+    step = api.build_chunk_step(round_step, chunk)
+    ts = torch.arange(2, 2 + 2 * chunk, dtype=torch.int32, device=dev)
+    state, _ = step(state, ts[:chunk])  # warm-up round, capture, first replay
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, ts[chunk:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out[f"fl chunk of {chunk} rounds, CUDA-graph replay"] = {
+        "rounds": chunk, "wall_ms": 1e3 * wall, **device_breakdown(prof, top=12)}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="falcon-mamba-7b")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--fl", action="store_true",
+                    help="trace the ACSP-FL round (UCI-HAR, har-mlp, int8) instead of serving")
+    ap.add_argument("--chunk", type=int, default=5, help="rounds of the replayed chunk (--fl)")
     args = ap.parse_args(argv)
+    if args.fl:
+        res = profile_fl_round(chunk=args.chunk)
+        for window, row in res.items():
+            print(json.dumps({"window": window, "device": torch.cuda.get_device_name(0), **row}))
+        return res
     cfg = get_config(args.arch)
     res = profile_serving(cfg, steps=args.steps)
     for window, row in res.items():

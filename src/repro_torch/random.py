@@ -15,6 +15,9 @@ module reproduces them: the same Threefry-2x32 hash (20 rounds, Salmon et al.
   ``categorical`` (``argmax(gumbel + logits)``) where two logits are that
   close.
 
+Draws make their constants with device fills, never copies from host
+memory, so the FL round that draws them can be captured in a CUDA graph.
+
 The two settings give different streams from the same key. The port follows
 the installed jax's default (partitionable, ``True``); the repository's
 committed golden trajectories were drawn under the legacy stream, so code
@@ -103,7 +106,7 @@ def _legacy_words(key: torch.Tensor, n: int) -> torch.Tensor:
         raise NotImplementedError("2**31 or more draws from one key")
     half = (n + 1) // 2
     counts = torch.arange(2 * half, dtype=torch.int64, device=key.device)
-    counts[n:] = 0
+    counts[n:].fill_(0)
     b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], counts[:half], counts[half:])
     return torch.cat([b1, b2], dim=-1)[..., :n]
 
@@ -118,7 +121,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: hash ``data`` (as uint32) into the key (the
     same in both streams)."""
-    d = torch.tensor(int(data) & _M32, dtype=torch.int64, device=key.device)
+    d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([b1, b2], dim=-1)
 
@@ -150,8 +153,8 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor
     b = bits(key, shape)
     fbits = ((b >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -213,8 +216,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     p = None
     for lo_c, hi_c in zip(_ERFINV_W_LT5, _ERFINV_W_GE5):
-        c = torch.where(lt, torch.tensor(lo_c, dtype=torch.float32, device=x.device),
-                        torch.tensor(hi_c, dtype=torch.float32, device=x.device))
+        c = torch.where(lt, torch.full((), lo_c, dtype=torch.float32, device=x.device),
+                        torch.full((), hi_c, dtype=torch.float32, device=x.device))
         p = c if p is None else c + p * w
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 

@@ -5,7 +5,9 @@ runs on the GPU machine, where jax is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Contracts: quantize/dequantize bitwise equal to their plain versions, and
-quantize one launch for a list of leaves; masked_aggregate bitwise equal to
+each one launch for a list of leaves; a chunk of FL rounds replayed as a
+CUDA graph bitwise equal to the eager rounds, one launch of each FL kernel
+a round; masked_aggregate bitwise equal to
 its plain version on every leaf (same ascending client order, one rounding
 per product and per sum, IEEE division), one launch for a list of leaves,
 and exact on the zero-weight fallback; ssm_scan to
@@ -41,6 +43,8 @@ from repro_torch.kernels.masked_aggregate import (
 )
 from repro_torch.kernels.quantize import (
     dequantize,
+    dequantize_leaves,
+    dequantize_leaves_plain,
     dequantize_plain,
     quantize,
     quantize_leaves,
@@ -170,8 +174,92 @@ def test_int8_round_runs_through_the_kernels(cuda):
     h = run_federated(ds, FLConfig(codec="int8", rounds=2, epochs=1), device=cuda)
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("quantize", "dequantize", "masked_aggregate")), counts
-    assert counts["quantize"] == 2, counts  # one launch a round
+    assert counts["quantize"] == counts["dequantize"] == 2, counts  # one launch a round
     assert np.isfinite(h.accuracy_mean).all()
+
+
+def _same(a, b) -> bool:
+    """Bitwise equal, a NaN matching a NaN (a NaN scale decodes to NaNs)."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequantize_leaves_bitwise_in_one_launch(cuda, bits):
+    """har-mlp's 8 leaves at K = 30, codes of a quantize run (int4's in
+    [-7, 7]), a NaN scale in one leaf: one launch, bitwise the per-leaf
+    plain version."""
+    rng = np.random.default_rng(10 + bits)
+    shapes = [(256,), (561, 256), (256,), (256, 256), (256,), (256, 256), (6,), (256, 6)]
+    xs = [torch.from_numpy(rng.standard_normal((30, int(np.prod(s)))).astype(np.float32) * 0.01)
+          for s in shapes]
+    xs[3][1, 7] = float("nan")
+    codes = quantize_leaves_plain(xs, bits=bits)
+    kernels.reset_launch_counts()
+    got = dequantize_leaves([(q.to(cuda), s.to(cuda)) for q, s in codes])
+    assert kernels.launch_counts()["dequantize"] == 1
+    for g, p in zip(got, dequantize_leaves_plain(codes)):
+        assert g.dtype == torch.float32 and _same(g.cpu(), p)
+    assert torch.isnan(got[3][1, :512]).all()
+
+
+@pytest.mark.parametrize("n", [1, 6, 513, 2049])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_dequantize_odd_rows_and_unaligned_codes(cuda, n, offset):
+    """Rows of 1, 6, 513 and 2049 elements (ragged quant blocks, rows that
+    start unaligned), codes read from an address 0, 1 or 3 bytes past an
+    aligned one, block sizes 512 and 1024 (a quant block longer than the
+    threads' stride)."""
+    rng = np.random.default_rng(n + offset)
+    x = torch.from_numpy(rng.standard_normal((7, n)).astype(np.float32))
+    for block_p in (512, 1024):
+        q, s = quantize_plain(x, block_p=block_p)
+        raw = torch.zeros(offset + q.numel(), dtype=torch.int8, device=cuda)
+        qd = raw[offset:].view(q.shape)
+        qd.copy_(q.to(cuda))
+        assert qd.data_ptr() % 4 == offset % 4 and qd.is_contiguous()
+        got = dequantize(qd, s.to(cuda), block_p=block_p)
+        assert torch.equal(got.cpu(), dequantize_plain(q, s, block_p=block_p))
+
+
+def test_dequantize_leaves_past_one_table(cuda):
+    codes = [quantize(torch.randn((3, 9 + i), device=cuda)) for i in range(65)]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="at most 64 leaves"):
+        dequantize_leaves(codes)
+    assert kernels.launch_counts()["dequantize"] == 0
+    got = dequantize_leaves(codes[:64])
+    assert kernels.launch_counts()["dequantize"] == 1
+    for g, (q, s) in zip(got, codes):
+        assert torch.equal(g.cpu(), dequantize_plain(q.cpu(), s.cpu()))
+
+
+@pytest.mark.parametrize("cfg", [dict(codec="int8"),
+                                 dict(codec="int4", cohort_size=5, eval_every=2),
+                                 dict(strategy="oort", personalization="ft", fraction=0.5)],
+                         ids=["acsp-fl+dld+int8", "int4+cohort5+eval2", "oort+ft"])
+def test_captured_chunks_equal_eager_rounds(cuda, cfg):
+    """scan_chunk 2, 3 (a 2-round tail) and 5: CUDA-graph replays give the
+    eager per-round history bit for bit, with one launch of each FL kernel
+    a round."""
+    ds = make_federated_classification(n_clients=8, n_classes=4, n_features=20,
+                                       samples_per_client_range=(60, 90), seed=1)
+    runs = {}
+    for chunk in (1, 2, 3, 5):
+        kernels.reset_launch_counts()
+        runs[chunk] = run_federated(ds, FLConfig(rounds=5, epochs=1, scan_chunk=chunk, **cfg),
+                                    device=cuda)
+        counts = kernels.launch_counts()
+        assert counts["masked_aggregate"] == 5, (chunk, counts)
+        if "codec" in cfg:
+            assert counts["quantize"] == counts["dequantize"] == 5, (chunk, counts)
+    for chunk, h in runs.items():
+        for field in h._fields:
+            if field != "wall_time":
+                np.testing.assert_array_equal(np.asarray(getattr(h, field)),
+                                              np.asarray(getattr(runs[1], field)),
+                                              err_msg=f"chunk={chunk} field={field}")
+    assert np.isfinite(runs[1].accuracy_mean).all()
 
 
 def _close_to_max(got, want, rel=1e-5):

@@ -93,10 +93,6 @@ def test_weights_on_the_cpu_when_asked(entry):
 
 
 _OUT_OF_SLICE = {
-    "cohort_size": (dict(cohort_size=2), "item 7"),
-    "eval_every": (dict(eval_every=2), "item 7"),
-    "scan_chunk": (dict(scan_chunk=2), "item 7"),
-    "scan_chunk_whole_run": (dict(scan_chunk=0), "item 7"),
     "async": (dict(scheduler="async"), "item 8"),
     "faults": (dict(dropout_rate=0.1), "item 9"),
     "host_population": (dict(host_population=1), "item 10"),
@@ -111,6 +107,23 @@ def test_options_outside_the_slice_raise(tiny_ds, name):
     flat, item = _OUT_OF_SLICE[name]
     with pytest.raises(NotImplementedError, match=item):
         run_federated(tiny_ds, FLConfig(rounds=2, **flat), device="cpu")
+
+
+# ROADMAP.md queue 1 item 7, ported: each option runs on the CPU when asked
+_ITEM_7 = {
+    "cohort_size": dict(cohort_size=2),
+    "eval_every": dict(eval_every=2),
+    "scan_chunk": dict(scan_chunk=2),
+    "scan_chunk_whole_run": dict(scan_chunk=0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ITEM_7))
+def test_cohort_thinning_and_chunk_options_run(tiny_ds, name):
+    h = run_federated(tiny_ds, FLConfig(rounds=3, epochs=1, **_ITEM_7[name]), device="cpu")
+    assert h.accuracy_per_client.shape == (3, tiny_ds.n_clients)
+    assert np.isfinite(h.accuracy_mean).all() and h.wall_time.shape == (3,)
+    np.testing.assert_array_equal(h.in_flight, 2 if name == "cohort_size" else tiny_ds.n_clients)
 
 
 @pytest.mark.parametrize("kwargs,item", [
