@@ -31,9 +31,11 @@ import copy
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,7 +49,9 @@ from repro_torch import random as prng  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import make_federated_classification, make_har_dataset  # noqa: E402
 from repro_torch.device import full_precision_matmuls  # noqa: E402
-from repro_torch.fl import FLConfig, run_federated  # noqa: E402
+from repro_torch.fl import FLConfig, pipeline_from_config, run_federated  # noqa: E402
+from repro_torch.fl.faults import compile_fault_plan  # noqa: E402
+from repro_torch.fl.phases import Aggregator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.contract import (  # noqa: E402
@@ -71,9 +75,11 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 )
 from repro_torch.kernels.ssm_scan import contract as ssm_contract  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.api import make_concrete_batch  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate, fp32
 # (non-tensor-core) rate, and the dense bf16 tensor-core rate
@@ -114,6 +120,35 @@ FL_KERNELS = ("quantize", "dequantize", "masked_aggregate")
 # 3 and a 2-round tail), and the longer runs that time the rounds
 LOOP_CHUNKS = (1, 2, 5, 3)
 LOOP_TIMED = dict(rounds=20, chunks=(1, 2, 5))
+
+# [async]: the FedBuff scheduler at the paper's width (M = C = 30 slots)
+ASYNC_CFG = dict(codec="int8", epochs=2, scheduler="async", buffer_k=15, max_concurrency=0,
+                 heterogeneity=0.5, staleness_fn="polynomial")
+ASYNC_EVENTS = 20
+# tests/test_sched.py's async fixture: 8 clients, buffer_k 2, 4 slots
+SMALL_ASYNC = dict(codec="int8", scheduler="async", buffer_k=2, max_concurrency=4)
+# [faults]: every fault kind at once (the deadline cuts the slowed clients
+# and the slowest of the 0.03-0.7 s UCI-HAR dispatches)
+FAULTS = dict(dropout_rate=0.2, deadline_s=0.4, corrupt_rate=0.2, heterogeneity=0.5)
+FAULTS_SLOW = 0.2  # slow_rate (a FaultConfig field with no flat FLConfig kwarg)
+# the small fixture's faults without corruption, sized to its dispatch times
+# (tests/test_torch_faults.py's deadline cases): the card against the CPU
+SMALL_FAULT_MODES = {"sync": dict(strategy="fedavg", personalization="none", fraction=1.0,
+                                  codec="int8", heterogeneity=1.0),
+                     "async": dict(SMALL_ASYNC, heterogeneity=1.0)}
+SMALL_FAULTS = {"sync": dict(dropout_rate=0.2, deadline_s=0.05),
+                "async": dict(dropout_rate=0.4, deadline_s=5.0, max_retries=2)}
+SMALL_FAULTS_SLOW = 0.3
+# ... and with corruption too, under an update-norm ceiling that rejects the
+# scaled kind cleanly; a NaN/Inf kind still poisons the merge (NaN * 0, as
+# in the reference; ROADMAP queue 3). Async lands 2 of 4 slots an event, so
+# it takes a higher rate to corrupt a landing before the poisoning one.
+SMALL_CORRUPT = {"sync": FAULTS, "async": dict(FAULTS, corrupt_rate=0.5)}
+SMALL_MAX_NORM = 10.0
+# the card against the port on the CPU: these records exactly, accuracy
+# within 1e-6 (PERF.md section 2)
+EXACT_FIELDS = ("selected", "pms", "tx_params", "tx_wire_bytes", "round_time", "sim_clock",
+                "staleness_mean", "in_flight", "rejected_updates")
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
 SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
@@ -675,6 +710,232 @@ def phase_loop(dev: torch.device, card: str) -> None:
           f"and of the first chunk, by scan_chunk (histories bitwise equal): {json.dumps(walls)}")
 
 
+def phase_merge(dev: torch.device) -> dict:
+    """The async staleness merge at full width: har-mlp's 8 leaves at M = 30
+    slots in one launch of masked_aggregate's kernel (snapshot subtracted in
+    the load loop, the global layer as the base), bitwise its plain
+    version, with landing lanes, with none, and with a layer nobody shared;
+    its device ms beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    snaps = [torch.randn((K,) + s, generator=gen, device=dev) for s in LEAVES]
+    xs = [sn + 0.01 * torch.randn(sn.shape, generator=gen, device=dev) for sn in snaps]
+    bases = [torch.randn(s, generator=gen, device=dev) for s in LEAVES]
+    land = torch.rand(K, generator=gen, device=dev) < 0.5
+    counts = torch.randint(224, 328, (K,), generator=gen, device=dev).float()
+    stale = torch.randint(0, 6, (K,), generator=gen, device=dev).float()
+    w = land.float() * counts * torch.pow(1.0 + stale, -0.5)
+    share = torch.rand((K, len(HAR_MLP) - 1), generator=gen, device=dev) < 0.6
+    share[:, 2] = False
+    table = (w[None] * share.T.float()).contiguous()
+    rows = [j for j in range(len(HAR_MLP) - 1) for _ in ("b", "w")]
+    err = 0.0
+    for name, wt in (("landing", table), ("no landing", torch.zeros_like(table))):
+        kernels.reset_launch_counts()
+        got = masked_aggregate_leaves(xs, wt, rows, snapshots=snaps, bases=bases)
+        check(kernels.launch_counts()["masked_aggregate"] == 1,
+              f"[merge] {name}: {kernels.launch_counts()['masked_aggregate']} launches")
+        want = masked_aggregate_leaves_plain(xs, wt, rows, snapshots=snaps, bases=bases)
+        unfused = masked_aggregate_leaves([x - sn for x, sn in zip(xs, snaps)], wt, rows,
+                                          bases=bases)
+        for i, (g, p, u) in enumerate(zip(got, want, unfused)):
+            check(torch.equal(g, p), f"[merge] {name} leaf {i} differs from its plain version")
+            check(torch.equal(g, u), f"[merge] {name} leaf {i}: the fused snapshot differs from "
+                  f"the deltas passed")
+            if rows[i] == 2 or name == "no landing":
+                check(torch.equal(g, bases[i]), f"[merge] {name} leaf {i}: base not returned "
+                      f"exactly")
+            err = max(err, float((g - p).abs().max()))
+
+    def run(): return masked_aggregate_leaves(xs, table, rows, snapshots=snaps, bases=bases)
+    def run_plain(): return masked_aggregate_leaves_plain(xs, table, rows, snapshots=snaps,
+                                                          bases=bases)
+    elems = sum(x.numel() for x in xs)
+    p_total = sum(b.numel() for b in bases)
+    # x and the snapshots read, the weight table read, the base read and the
+    # merged leaves written; a subtraction, a product and an add an element
+    m_bound, m_by = bound_ms(2 * elems * 4 + table.numel() * 4 + 2 * p_total * 4,
+                             3 * elems + 2 * p_total)
+    row = dict(merge_ms=device_ms(run), merge_plain_ms=device_ms(run_plain, reps=5),
+               merge_bound_ms=m_bound, merge_bound_by=m_by, merge_max_abs_err=err)
+    print(f"[merge] staleness merge, har-mlp's 8 leaves at M={K} slots: one launch, bitwise "
+          f"equal to the plain version with landing lanes and with none, the fused snapshot "
+          f"bitwise the deltas passed, layer 2 (shared by nobody) returns the base exactly; "
+          f"device ms {row['merge_ms']:.5f} (bound {m_bound:.5f}, {m_by}; plain "
+          f"{row['merge_plain_ms']:.4f})")
+    return row
+
+
+def check_same_as_cpu(h, ref, what: str) -> float:
+    """The card's run against the port on the CPU: the EXACT_FIELDS equal,
+    accuracy within 1e-6; returns the accuracy gap."""
+    diff = [f for f in EXACT_FIELDS
+            if not np.array_equal(np.asarray(getattr(h, f)), np.asarray(getattr(ref, f)))]
+    check(not diff, f"{what}: the card differs from the CPU in {diff}")
+    gap = float(np.abs(h.accuracy_per_client - ref.accuracy_per_client).max())
+    check(gap <= 1e-6, f"{what}: accuracy {gap} from the CPU's")
+    return gap
+
+
+def phase_async(dev: torch.device, card: str) -> int:
+    """The async scheduler's main path: UCI-HAR, har-mlp, ACSP-FL + DLD +
+    int8, 30 slots, buffer_k 15, 20 events, the kernel counts zeroed just
+    before and read just after; a second run must give the same history
+    bit for bit; the small fixture on the card against the CPU. Returns the
+    merge launches of the main run."""
+    data = make_har_dataset("uci-har", seed=0)
+    cfg = FLConfig(rounds=ASYNC_EVENTS, **ASYNC_CFG)
+    kernels.reset_launch_counts()
+    h = run_federated(data, cfg, device=dev)
+    counts = kernels.launch_counts()
+    check(len(h.accuracy_mean) == ASYNC_EVENTS and np.isfinite(h.accuracy_per_client).all(),
+          f"[async] history of {len(h.accuracy_mean)} events, finite "
+          f"{np.isfinite(h.accuracy_per_client).all()}")
+    check((h.staleness_mean > 0).any(), f"[async] no stale landing {h.staleness_mean}")
+    check((np.diff(h.sim_clock) >= 0).all(), "[async] the simulated clock went back")
+    check(all(counts[k] == ASYNC_EVENTS for k in FL_KERNELS),
+          f"[async] each FL kernel must launch once an event {counts}")
+    h2 = run_federated(data, cfg, device=dev)
+    diff = history_diff(h2, h)
+    check(not diff, f"[async] a second run differs in {diff}")
+    small = make_federated_classification(**SMALL_DS)
+    scfg = FLConfig(rounds=5, epochs=1, **SMALL_ASYNC)
+    gap = check_same_as_cpu(run_federated(small, scfg, device=dev),
+                            run_federated(small, scfg, device="cpu"), "[async] small fixture")
+    prof = profile_async_events(data, FLConfig(rounds=6, **ASYNC_CFG), dev)
+    print(f"[async] {card}: acsp-fl+dld+int8 uci-har C={data.n_clients} M={data.n_clients} "
+          f"buffer_k={ASYNC_CFG['buffer_k']} {ASYNC_EVENTS} events: accuracy_mean "
+          f"{np.round(h.accuracy_mean, 4).tolist()} staleness_mean "
+          f"{np.round(h.staleness_mean, 3).tolist()} sim_clock end {h.sim_clock[-1]:.3f} s; "
+          f"launches {json.dumps(counts)}; a second run bitwise equal; event wall median "
+          f"{1e3 * statistics.median(h.wall_time[1:]):.1f} ms (first {1e3 * h.wall_time[0]:.1f} "
+          f"ms, second run median {1e3 * statistics.median(h2.wall_time[1:]):.1f} ms); small "
+          f"fixture (8 clients, 5 events, buffer_k 2, 4 slots) card vs CPU: exact fields equal, "
+          f"accuracy gap {gap:.3g}")
+    print(f"[async] device per event (torch.profiler over {prof['events']} events, the first "
+          f"included): {json.dumps(prof)}")
+    return counts["masked_aggregate"]
+
+
+class FiniteProbe(Aggregator):
+    """Wraps a pipeline's aggregator and keeps, a round or event, whether
+    the new global model is finite (a device bool, read after the run; the
+    fault paths run their steps eagerly, with no graph capture)."""
+
+    def __init__(self, inner: Aggregator):
+        self.inner, self.finite = inner, []
+
+    def aggregate(self, ctx, env):
+        ctx = self.inner.aggregate(ctx, env)
+        self.finite.append(torch.stack([torch.isfinite(leaf).all()
+                                        for leaf in tree_leaves(ctx.new_global)]).all())
+        return ctx
+
+    def first_nonfinite(self) -> int | None:
+        """The first round whose global model is not finite (None: none)."""
+        bad = [i for i, ok in enumerate(torch.stack(self.finite).cpu().tolist()) if not ok]
+        return bad[0] if bad else None
+
+
+def probed_run(data, cfg: FLConfig, device) -> tuple:
+    """``run_federated`` with a FiniteProbe around cfg's aggregator."""
+    pipe = pipeline_from_config(cfg)
+    probe = FiniteProbe(pipe.aggregator)
+    h = run_federated(data, cfg, device=device, pipeline=dataclasses.replace(pipe,
+                                                                              aggregator=probe))
+    return h, probe.first_nonfinite()
+
+
+def phase_faults(dev: torch.device) -> None:
+    """Fault injection under both schedulers on the UCI-HAR main path (5
+    rounds or events): finite, corrupted updates rejected, each FL kernel
+    once a round. The small fixture on the card against the CPU, twice:
+    with crashes, deadlines and slowdowns but no corruption, where the
+    global model stays finite and every round compares the fault path's
+    aggregation; and with corruption too, where the reference's guard lets
+    a NaN/Inf update poison the merge (NaN * 0; ROADMAP queue 3), so both
+    must poison the same round and only the rounds before it compare the
+    aggregation."""
+    data = make_har_dataset("uci-har", seed=0)
+    small = make_federated_classification(**SMALL_DS)
+
+    def cfg(mode_kw, faults=FAULTS, slow=FAULTS_SLOW, max_norm=0.0, **kw):
+        f = FLConfig(**mode_kw, **kw, **faults)
+        return dataclasses.replace(f, faults=dataclasses.replace(
+            f.faults, slow_rate=slow, max_update_norm=max_norm))
+
+    for mode, mode_kw in (("sync", {}), ("async", dict(scheduler="async", buffer_k=15))):
+        kernels.reset_launch_counts()
+        h, bad = probed_run(data, cfg(mode_kw, codec="int8", rounds=5, epochs=2), dev)
+        counts = kernels.launch_counts()
+        n = len(h.accuracy_mean)
+        check(n == 5 and np.isfinite(h.accuracy_per_client).all(), f"[faults] {mode}: {n} rounds")
+        check(h.rejected_updates.sum() > 0, f"[faults] {mode}: no update rejected")
+        check(counts["masked_aggregate"] == 5, f"[faults] {mode}: launches {counts}")
+        plan = compile_fault_plan(cfg(mode_kw).faults, 0, 0, data.n_clients)
+        # no corruption: the global model stays finite, every round compares
+        ccfg = cfg(SMALL_FAULT_MODES[mode], faults=SMALL_FAULTS[mode], slow=SMALL_FAULTS_SLOW,
+                   rounds=5, epochs=1, seed=1)
+        (hc, bad_c), (hr, bad_r) = probed_run(small, ccfg, dev), probed_run(small, ccfg, "cpu")
+        check(bad_c is None and bad_r is None,
+              f"[faults] {mode} small fixture without corruption: non-finite global model at "
+              f"round {bad_c} (card) / {bad_r} (CPU)")
+        gap_clean = check_same_as_cpu(hc, hr, f"[faults] {mode} small fixture, no corruption")
+        if mode == "sync":
+            check((hc.selected.sum(axis=1) < small.n_clients).any(),
+                  f"[faults] sync small fixture: no client cut {hc.selected.sum(axis=1)}")
+        # with corruption: both poison the same round, and a rejection
+        # before it compares the guard's path on a finite model
+        scfg = cfg(dict(SMALL_ASYNC) if mode == "async" else dict(codec="int8"),
+                   faults=SMALL_CORRUPT[mode], max_norm=SMALL_MAX_NORM, rounds=5, epochs=1)
+        (hs, bad_s), (hr, bad_r) = probed_run(small, scfg, dev), probed_run(small, scfg, "cpu")
+        check(bad_s == bad_r, f"[faults] {mode} small fixture with corruption: the global model "
+                              f"turns non-finite at round {bad_s} on the card, {bad_r} on the CPU")
+        gap = check_same_as_cpu(hs, hr, f"[faults] {mode} small fixture")
+        clean_rounds = 5 if bad_s is None else bad_s
+        check(hs.rejected_updates[:clean_rounds].sum() > 0,
+              f"[faults] {mode} small fixture: no rejection before round {clean_rounds} "
+              f"{hs.rejected_updates}")
+        print(f"[faults] {mode} uci-har {json.dumps(FAULTS)} slow_rate {FAULTS_SLOW}: landed or "
+              f"selected/round {h.selected.sum(axis=1).tolist()} rejected "
+              f"{h.rejected_updates.tolist()} round_time {np.round(h.round_time, 4).tolist()} "
+              f"(round 0's plan: {int(plan.crash.sum())} crash, {int((plan.slow > 1).sum())} "
+              f"slow, {int((plan.corrupt > 0).sum())} corrupt of {data.n_clients}); global model "
+              f"non-finite from round {bad}; launches {json.dumps(counts)}")
+        print(f"[faults] {mode} small fixture card vs CPU without corruption "
+              f"({json.dumps(SMALL_FAULTS[mode])} slow_rate {SMALL_FAULTS_SLOW}): exact fields "
+              f"equal, global model finite every round, selected/round "
+              f"{hc.selected.sum(axis=1).tolist()}, accuracy gap {gap_clean:.3g}; with corruption "
+              f"({json.dumps(SMALL_CORRUPT[mode])} max_update_norm {SMALL_MAX_NORM}): exact fields "
+              f"equal, accuracy gap {gap:.3g}, rejected {hs.rejected_updates.tolist()}, global "
+              f"model non-finite from round {bad_s} on both")
+
+
+def phase_resume(dev: torch.device) -> None:
+    """Checkpoint/resume on the card at full width: stopped at round 2,
+    resumed to 5, bitwise the uninterrupted run (sync int8 at scan_chunk 1
+    and 3, async int8)."""
+    data = make_har_dataset("uci-har", seed=0)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    cases = (("sync scan_chunk=1", dict(codec="int8", epochs=2, scan_chunk=1)),
+             ("sync scan_chunk=3", dict(codec="int8", epochs=2, scan_chunk=3)),
+             ("async int8", ASYNC_CFG))
+    for name, kw in cases:
+        d = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=root)
+        try:
+            full = run_federated(data, FLConfig(rounds=5, **kw), device=dev)
+            run_federated(data, FLConfig(rounds=2, **kw), device=dev, checkpoint_every=2,
+                          checkpoint_dir=d)
+            res = run_federated(data, FLConfig(rounds=5, **kw), device=dev, resume_from=d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        diff = history_diff(res, full)
+        check(not diff, f"[resume] {name}: the resumed run differs in {diff}")
+        print(f"[resume] {name} uci-har: stopped at 2, resumed to 5, bitwise the uninterrupted "
+              f"run (every field but wall_time); accuracy_mean "
+              f"{np.round(res.accuracy_mean, 4).tolist()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -688,6 +949,10 @@ def main() -> int:
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
     phase_loop(dev, card)
+    table["masked_aggregate"].update(phase_merge(dev))
+    table["masked_aggregate"]["merge_launches"] = phase_async(dev, card)
+    phase_faults(dev)
+    phase_resume(dev)
     phase_lm_reference(dev)
     for arch, kernel in SERVE_ARCHS:
         launches[kernel] = phase_serve(dev, arch, kernel)[kernel]

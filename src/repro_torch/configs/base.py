@@ -383,8 +383,8 @@ class ExecutionConfig:
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     """How the server loop executes rounds: ``sync`` is the paper's
-    barrier loop, ``async`` FedBuff-style buffered execution (not ported
-    yet: ROADMAP.md queue 1 item 8).
+    barrier loop, ``async`` FedBuff-style buffered execution over
+    ``max_concurrency`` dispatch slots (``repro_torch.fl.sched``).
     """
 
     mode: str = "sync"            # sync | async
@@ -431,12 +431,16 @@ CORRUPTION_KINDS = ("nan", "inf", "scale")
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
-    """Failure semantics (the JAX package's ``repro.fl.faults``).
+    """Failure semantics (``repro_torch.fl.faults``, the port of the JAX
+    package's ``fl/faults.py``).
 
-    All knobs default OFF. The port runs only fault-free rounds so far: an
-    enabled config raises ``NotImplementedError`` (ROADMAP.md queue 1 item
-    9). The always-on finite-delta guard lives in the round step and is
-    ported.
+    All knobs default OFF. An enabled config runs under both schedulers:
+    crashes, deadlines and slowdowns are resolved on the host from the
+    seeded per-round plan, corrupted updates are rewritten on the device
+    and rejected by the always-on finite-delta guard (capped by
+    ``max_update_norm``), and the async scheduler retries failed dispatches
+    with exponential backoff. Faults do not compose with ``edge_groups`` or
+    ``cohort_devices`` (``ValueError``, as in the JAX package).
     """
 
     dropout_rate: float = 0.0   # P(crash before upload) per dispatch-round

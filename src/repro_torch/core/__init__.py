@@ -2,7 +2,11 @@
 selection (Eq. 4-7), layer sharing and DLD (Eq. 9), personalization
 (Eq. 8), masked aggregation (Eq. 1) and the communication metrics."""
 
-from repro_torch.core.aggregation import fedavg_aggregate, masked_partial_aggregate
+from repro_torch.core.aggregation import (
+    fedavg_aggregate,
+    masked_partial_aggregate,
+    staleness_weighted_merge,
+)
 from repro_torch.core.decay import phi_decay
 from repro_torch.core.layersharing import (
     cut_model,
@@ -50,4 +54,5 @@ __all__ = [
     "compose_model",
     "fedavg_aggregate",
     "masked_partial_aggregate",
+    "staleness_weighted_merge",
 ]

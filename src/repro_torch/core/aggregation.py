@@ -2,10 +2,11 @@
 port of the JAX package's ``core/aggregation.py``.
 
 Every weighted mean goes through the ``masked_aggregate`` op
-(``repro_torch.kernels.masked_aggregate``), all the leaves of a round in
-one call (``masked_aggregate_leaves``): one launch of its CUDA kernel on the
-card, its plain version on the CPU. (The JAX package reduces in jnp here,
-leaf by leaf, and only tests its Pallas kernel.)
+(``repro_torch.kernels.masked_aggregate``), all the leaves of a round (or
+of an async merge event) in one call (``masked_aggregate_leaves``): one
+launch of its CUDA kernel on the card, its plain version on the CPU. (The
+JAX package reduces in jnp here, leaf by leaf, and only tests its Pallas
+kernel.)
 
 Client parameters are *stacked*: leaves carry a leading client axis (C, ...);
 a layered model is a list of such trees. The JAX package's sharded
@@ -66,6 +67,41 @@ def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples,
         fallbacks += tree_leaves(prev_global[j])
     means = masked_aggregate_leaves(xs, weights, rows, fallbacks)
     return [tree_unflatten(client_params[j], means[a:b]) for j, (a, b) in enumerate(spans)]
+
+
+def staleness_weighted_merge(client_deltas, prev_global, weights, share_mask=None,
+                             axis_name=None, edge_ids=None, n_edges: int = 0, snapshots=None):
+    """FedBuff's buffered merge, ``g + sum_i v_i d_i / sum_i v_i`` per
+    layer with ``v_i = weights_i * share_mask[i, j]`` (the caller folds the
+    landing mask, sample counts and staleness discount into ``weights``,
+    (C,) float32); a layer with zero total weight keeps ``g`` (``g + 0``, one
+    float32 add, as the JAX package computes it).
+
+    ``client_deltas`` are the (C, ...) deltas; with ``snapshots`` (the
+    layered (C, ...) dispatch snapshots) they are the clients' parameters
+    instead and each delta is ``client - snapshot``, formed in the kernel's
+    load loop with one float32 rounding, so for float32 leaves the result
+    is bitwise the one from passing the deltas (bf16 deltas passed in are
+    rounded to bf16 first; the fused ones are not). Every layer's leaves go through one
+    ``masked_aggregate_leaves`` call (on CUDA one kernel launch), the weight
+    rows one per layer, the global leaves as the bases."""
+    _no_sharding(axis_name, edge_ids)
+    n_layers = len(client_deltas)
+    w = weights.to(torch.float32)
+    if share_mask is None:
+        table = w[None, :].expand(n_layers, w.shape[0])
+    else:
+        table = w[None, :] * torch.as_tensor(share_mask).T.to(torch.float32)
+    xs, rows, snaps, bases, spans = [], [], [], [], []
+    for j in range(n_layers):  # every layer's leaves in one call
+        layer = tree_leaves(client_deltas[j])
+        spans.append((len(xs), len(xs) + len(layer)))
+        xs += layer
+        rows += [j] * len(layer)
+        bases += tree_leaves(prev_global[j])
+        snaps += [None] * len(layer) if snapshots is None else tree_leaves(snapshots[j])
+    means = masked_aggregate_leaves(xs, table.contiguous(), rows, snapshots=snaps, bases=bases)
+    return [tree_unflatten(client_deltas[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 
 def finite_update_guard(select_mask, update_norm, max_norm: float = 0.0):

@@ -8,20 +8,35 @@
 //
 // What it computes, for each leaf i of a table: x_i (C, P_i) of float32 or
 // bfloat16 (one dtype a launch), its row r_i of a weight matrix w (R, C)
-// float32, and an optional fallback_i (P_i,) of x's type:
-//   total  = sum_c w[r_i, c]
-//   out_i[p] = total > 0 ? (sum_c w[r_i, c] * x_i[c, p]) / max(total, 1e-12)
-//                        : fallback_i[p]   (0 without a fallback)
+// float32, an optional snapshot s_i (C, P_i) of x's type, and an optional
+// fallback_i or base_i (P_i,) of x's type:
+//   d[c, p] = s_i ? x_i[c, p] - s_i[c, p] : x_i[c, p]
+//   total   = sum_c w[r_i, c]
+//   mean[p] = (sum_c w[r_i, c] * d[c, p]) / max(total, 1e-12)
+//   out_i[p] = total > 0 ? mean[p] : fallback_i[p]      (0 without one)
+//   out_i[p] = base_i[p] + (total > 0 ? mean[p] : 0)    (a base leaf)
 // accumulated in float32 and written in x's type. The aggregators pass one
 // row w = selected * |d_i| for every leaf (fedavg, R = 1), or a row per
 // layer, that times the layer's share mask, with the previous global layer
-// as the fallbacks (masked-partial, R = L).
+// as the fallbacks (masked-partial, R = L). The staleness merge of the
+// async scheduler (the JAX package's core/aggregation.staleness_weighted_merge,
+// computed there in jnp) passes each landing slot's transmitted parameters
+// as x, its dispatch snapshot as s, the row per layer
+// w = landed * |d_i| * s(staleness) * share, and the current global layer as
+// the base: g + sum_c w_c (x_c - s_c) / sum_c w_c, one launch an event.
+// The subtraction is one IEEE rounding in float32, as the JAX package's
+// a - r before its product, so for float32 leaves the fused form is bitwise
+// the unfused one (the deltas formed first, then aggregated with no
+// snapshot). Not for bf16 leaves: there the unfused deltas are rounded to
+// bf16 before the kernel reads them, the fused ones are not.
 //
 // Bound on an H100 (3.35 TB/s): bytes. The kernel reads x once (4 or 2 B an
 // element) and writes P outputs, against 2 flops per x element; it reads the
 // fallback only where the weights sum to 0. At K = 30 clients the 8 har-mlp
 // leaves are 8.31 M client elements: 33.2 MB of x plus 1.1 MB of output,
-// 34.3 MB or 10.3 us a round when some client carries weight.
+// 34.3 MB or 10.3 us a round when some client carries weight. The staleness
+// merge reads the snapshots too (another 33.2 MB) and the base (1.1 MB):
+// 68.7 MB or 20.5 us an event at M = 30 slots.
 //
 // Design: the TPU kernel holds a (C, 512) tile in VMEM and sums over C in
 // one step; here blocks run in parallel with no carried state, so the C
@@ -58,16 +73,23 @@ namespace {
 constexpr int kThreads = 64;
 constexpr int kCols = 4;
 constexpr int kWeightChunk = 1024;
-constexpr int kMaxLeaves = 64;  // leaves a launch (the table stays under 4 KB)
+// leaves a launch: the table is 64 x 56 + 16 = 3,600 bytes, inside the
+// classic 4 KB kernel-parameter limit (no CUDA 12.1 large-parameter path
+// needed): the fallback and the base share one pointer, told apart by mode
+constexpr int kMaxLeaves = 64;
+constexpr int kModeFallback = 0;  // total > 0 ? mean : fallback (0 if null)
+constexpr int kModeBase = 1;      // base + (total > 0 ? mean : 0)
 
 // One leaf of a launch; the Python wrapper fills the same layout (ctypes).
 struct Leaf {
   const void* x;         // (C, cols), x's dtype
-  const void* fallback;  // (cols,) or null: zeros
+  const void* snap;      // (C, cols) subtracted from x, or null
+  const void* other;     // (cols,): the fallback (null: zeros) or the base
   void* out;             // (cols,)
   int64_t cols;
   int64_t block0;        // the leaf's first block; its blocks are ceil(cols / 256)
-  int64_t row;           // its row of the weight matrix
+  int32_t row;           // its row of the weight matrix
+  int32_t mode;          // kModeFallback or kModeBase
 };
 
 struct Table {
@@ -76,6 +98,8 @@ struct Table {
   int n_leaves;
   int c_rows;            // C
 };
+static_assert(sizeof(Leaf) == 56 && sizeof(Table) <= 4096,
+              "the table must stay inside the classic 4 KB kernel-parameter limit");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -117,7 +141,8 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
   while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
   const Leaf& leaf = table.leaf[li];
   const T* __restrict__ x = static_cast<const T*>(leaf.x);
-  const T* __restrict__ fallback = static_cast<const T*>(leaf.fallback);
+  const T* __restrict__ snap = static_cast<const T*>(leaf.snap);
+  const T* __restrict__ other = static_cast<const T*>(leaf.other);
   T* __restrict__ out = static_cast<T*>(leaf.out);
   const float* __restrict__ w = table.w + leaf.row * table.c_rows;
   const int c_rows = table.c_rows;
@@ -134,11 +159,18 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
     __syncthreads();
     int c = 0;
     if (full) {
-      // 4 rows' loads in flight, then the adds in ascending row order
+      // 4 rows' loads in flight (8 with a snapshot), then the adds in
+      // ascending row order
       for (; c + 4 <= m; c += 4) {
-        const T* row = x + static_cast<int64_t>(c0 + c) * p_cols + p0;
+        const int64_t off = static_cast<int64_t>(c0 + c) * p_cols + p0;
         float v[4][kCols];
-        for (int r = 0; r < 4; ++r) load_cols(row + r * p_cols, v[r]);
+        for (int r = 0; r < 4; ++r) load_cols(x + off + r * p_cols, v[r]);
+        if (snap) {
+          float sv[4][kCols];
+          for (int r = 0; r < 4; ++r) load_cols(snap + off + r * p_cols, sv[r]);
+          for (int r = 0; r < 4; ++r)
+            for (int k = 0; k < kCols; ++k) v[r][k] = __fsub_rn(v[r][k], sv[r][k]);
+        }
         for (int r = 0; r < 4; ++r) {
           const float wc = w_s[c + r];
           total = __fadd_rn(total, wc);
@@ -150,12 +182,21 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
       const float wc = w_s[c];
       total = __fadd_rn(total, wc);
       if (p0 >= p_cols) continue;
-      const T* row = x + static_cast<int64_t>(c0 + c) * p_cols + p0;
+      const int64_t off = static_cast<int64_t>(c0 + c) * p_cols + p0;
       float v[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (full) {
-        load_cols(row, v);
+        load_cols(x + off, v);
       } else {
-        for (int k = 0; p0 + k < p_cols; ++k) v[k] = to_f32(row[k]);
+        for (int k = 0; p0 + k < p_cols; ++k) v[k] = to_f32(x[off + k]);
+      }
+      if (snap) {
+        float sv[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (full) {
+          load_cols(snap + off, sv);
+        } else {
+          for (int k = 0; p0 + k < p_cols; ++k) sv[k] = to_f32(snap[off + k]);
+        }
+        for (int k = 0; k < kCols; ++k) v[k] = __fsub_rn(v[k], sv[k]);
       }
       for (int k = 0; k < kCols; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wc, v[k]));
     }
@@ -164,10 +205,12 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
   const float denom = fmaxf(total, 1e-12f);
   for (int k = 0; k < kCols && p0 + k < p_cols; ++k) {
     float r;
-    if (total > 0.0f) {
+    if (leaf.mode == kModeBase) {
+      r = __fadd_rn(to_f32(other[p0 + k]), total > 0.0f ? __fdiv_rn(acc[k], denom) : 0.0f);
+    } else if (total > 0.0f) {
       r = __fdiv_rn(acc[k], denom);
     } else {
-      r = fallback ? to_f32(fallback[p0 + k]) : 0.0f;
+      r = other ? to_f32(other[p0 + k]) : 0.0f;
     }
     out[p0 + k] = from_f32<T>(r);
   }
@@ -185,6 +228,12 @@ int repro_masked_aggregate(const void* table_ptr, int64_t blocks, int dtype, voi
   const Table* table = static_cast<const Table*>(table_ptr);
   if (table->n_leaves < 1 || table->n_leaves > kMaxLeaves || blocks < 1 || blocks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < table->n_leaves; ++i) {
+    const Leaf& leaf = table->leaf[i];
+    if ((leaf.mode != kModeFallback && leaf.mode != kModeBase) ||
+        (leaf.mode == kModeBase && leaf.other == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
   if (dtype == 0) {

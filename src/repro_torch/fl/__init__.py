@@ -1,7 +1,8 @@
 """FL runtime of the port: the composable round pipeline
-(``repro_torch.fl.api`` + ``repro_torch.fl.phases``), the synchronous
-scheduler driving it (``repro_torch.fl.sched``) and the simulation entry
-point (``repro_torch.fl.engine``)."""
+(``repro_torch.fl.api`` + ``repro_torch.fl.phases``), the sync and async
+schedulers driving it (``repro_torch.fl.sched``), fault injection
+(``repro_torch.fl.faults``) and the simulation entry point
+(``repro_torch.fl.engine``)."""
 
 from repro_torch.fl.api import (
     CodecConfig,
@@ -20,7 +21,7 @@ from repro_torch.fl.api import (
     pipeline_from_config,
 )
 from repro_torch.fl.engine import FLHistory, make_round_step, run_federated
-from repro_torch.fl.sched import SyncScheduler, make_scheduler
+from repro_torch.fl.sched import AsyncScheduler, SyncScheduler, make_scheduler
 
 __all__ = [
     "FLConfig",
@@ -41,5 +42,6 @@ __all__ = [
     "run_federated",
     "make_round_step",
     "SyncScheduler",
+    "AsyncScheduler",
     "make_scheduler",
 ]

@@ -41,6 +41,7 @@ from repro_torch.core.layersharing import layer_param_sizes, layer_share_mask
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl import phases
 from repro_torch.fl.cohort import cohort_indices, tree_scatter, tree_take
+from repro_torch.fl.faults import apply_corruption
 from repro_torch.models.mlp import mlp_accuracy, mlp_loss
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -317,8 +318,17 @@ def pipeline_from_config(cfg: FLConfig) -> RoundPipeline:
         layer_policy = phases.get_phase("layer-policy", "static", layers=cfg.personalization.pms_layers)
     else:
         layer_policy = phases.get_phase("layer-policy", "full")
-    if cfg.scheduler.mode == "async":
-        aggregator = phases.get_phase("aggregator", "staleness")
+    sched = cfg.scheduler
+    if sched.mode == "async":
+        # async always merges through the staleness-weighted buffered
+        # aggregator (it honours the share mask, so PMS/DLD compose)
+        aggregator = phases.get_phase(
+            "aggregator", "staleness",
+            staleness_fn=sched.staleness_fn,
+            exponent=sched.staleness_exponent,
+            threshold=sched.staleness_threshold,
+            edge_groups=cfg.execution.edge_groups,
+        )
     else:
         aggregator = phases.get_phase(
             "aggregator", "masked-partial" if mode in ("pms", "dld") else "fedavg",
@@ -425,27 +435,48 @@ def build_round_step(
     round index stays on the device (selection's decay and the evaluator's
     thinning read it there), so ``build_chunk_step`` can capture rounds in a
     CUDA graph.
+
+    With an enabled ``faults`` config the step maps ``(state, t, alive (C,)
+    bool, corrupt (C,) int) -> (state, out)``, as the JAX package's: the
+    crash/deadline survivors ``alive`` (resolved on the host from the
+    round's ``repro_torch.fl.faults.compile_fault_plan``) are intersected
+    into the selection before the cohort is drawn, the ``corrupt`` kinds
+    rewrite the trained parameters after the trainer and before transmit
+    (so the finite guard is what rejects them), and
+    ``faults.max_update_norm`` caps the guard. A fault-free step holds no
+    fault operation.
     """
     execution = execution or ExecutionConfig()
+    faulty = faults is not None and faults.enabled
     if execution.cohort_devices != 0:
+        if faulty:
+            raise ValueError(
+                "fault injection composes with the cohort runtime but not with "
+                "cohort_devices sharding; set cohort_devices=0 or disable FaultConfig"
+            )
         raise NotImplementedError(
             "cohort_devices (sharded round step) is not ported yet: ROADMAP.md queue 1 item 12"
-        )
-    if faults is not None and faults.enabled:
-        raise NotImplementedError(
-            "fault injection is not ported yet: ROADMAP.md queue 1 item 9"
         )
     cohort_k = execution.resolved_cohort(env.n_clients)
     stateful = pipeline.personalizer.stateful
     lossy = pipeline.transmit.lossy
+    max_norm = float(faults.max_update_norm) if faulty else 0.0
+    corrupt_scale = float(faults.corrupt_scale) if faulty else 0.0
 
-    def round_step(state: RoundState, t):
+    def _as_t(state: RoundState, t):
         if not torch.is_tensor(t):
             t = torch.full((), int(t), dtype=torch.int32, device=state.select.device)
-        with torch.no_grad():
-            return _round_body(state, t)
+        return t
 
-    def _round_body(state: RoundState, t: torch.Tensor):
+    def round_step(state: RoundState, t):
+        with torch.no_grad():
+            return _round_body(state, _as_t(state, t), None, None)
+
+    def fault_round_step(state: RoundState, t, alive: torch.Tensor, corrupt: torch.Tensor):
+        with torch.no_grad():
+            return _round_body(state, _as_t(state, t), alive, corrupt)
+
+    def _round_body(state: RoundState, t: torch.Tensor, alive, corrupt):
         g = state.global_params
         n_layers = len(g)
         dev = state.select.device
@@ -454,8 +485,9 @@ def build_round_step(
         rng, r_fit, r_sel = keys[0], keys[1], keys[2]
         r_codec = keys[3] if lossy else None
 
-        # --- gather: selection mask -> cohort (K,) ---
-        select_in = state.select
+        # --- gather: selection mask -> cohort (K,); crashed or late clients
+        # (fault mode) never enter it ---
+        select_in = state.select if alive is None else state.select & alive
         idx = cohort_indices(select_in, cohort_k)
         cmask = select_in.index_select(0, idx)
         executed = torch.zeros_like(select_in).index_copy(0, idx, cmask)
@@ -485,6 +517,10 @@ def build_round_step(
         # --- personalization, then local training on K lanes ---
         cctx = cctx._replace(train_model=pipeline.personalizer.train_model(cctx, cenv))
         cctx = pipeline.trainer.fit(cctx, cenv)
+        if corrupt is not None:
+            # corrupted clients still land and pay wire; the guard rejects them
+            kinds_k = torch.where(cmask, corrupt.index_select(0, idx), torch.zeros_like(idx))
+            cctx = cctx._replace(trained=apply_corruption(cctx.trained, kinds_k, corrupt_scale))
         if stateful:
             cctx = cctx._replace(new_local=_tree_where(
                 cmask, cctx.trained, pipeline.personalizer.local_fallback(cctx, cenv)))
@@ -498,7 +534,7 @@ def build_round_step(
             if state.update_norm is not None
             else torch.zeros(select_in.shape, dtype=torch.float32, device=dev)
         )
-        ok, n_rejected = finite_update_guard(cmask, cctx.update_norm)
+        ok, n_rejected = finite_update_guard(cmask, cctx.update_norm, max_norm)
         cctx = cctx._replace(
             select=cmask & ok,
             residual=_tree_where(ok, cctx.residual, res_before),
@@ -561,7 +597,7 @@ def build_round_step(
         }
         return new_state, out
 
-    return round_step
+    return fault_round_step if faulty else round_step
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ A round is the phase pipeline of ``repro_torch.fl.api``:
   Personalizer -> LocalTrainer -> TransmitPhase (wire codec + EF)
                -> Aggregator -> Evaluator -> SelectorPhase -> LayerPolicy
 
-driven by ``repro_torch.fl.sched.SyncScheduler``. Every entry point takes
+driven by ``repro_torch.fl.sched.SyncScheduler`` (the paper's barrier) or
+``AsyncScheduler`` (FedBuff-style buffered aggregation over dispatch
+slots), with optional fault injection and checkpoint/resume under both.
+Every entry point takes
 ``device=``: the CUDA card by default, the CPU only when asked for; with no
 card and ``device=None`` they raise rather than run on the CPU quietly.
 """
@@ -47,7 +50,8 @@ class FLHistory(NamedTuple):
     tx_wire_bytes: np.ndarray        # (T,) per-round uplink wire bytes
     sim_clock: np.ndarray            # (T,) simulated clock at each round
     staleness_mean: np.ndarray       # (T,) 0 under the sync barrier
-    in_flight: np.ndarray            # (T,) executing client lanes (K)
+    in_flight: np.ndarray            # (T,) executing client lanes (sync: K;
+                                     # async: clients in flight after the event)
     tx_edge_bytes: np.ndarray | None = None   # edge aggregation: not ported
     rejected_updates: np.ndarray | None = None  # (T,) finite-guard rejections
     wall_time: np.ndarray | None = None  # (T,) host seconds per round: its
@@ -62,14 +66,16 @@ def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,
                     pipeline: RoundPipeline | None = None):
     """The synchronous round step ``(RoundState, t) -> (RoundState, out)``
     for ``cfg``'s default pipeline (or ``pipeline``) over ``data`` on
-    ``device``."""
+    ``device``; with enabled faults, the fault step ``(state, t, alive,
+    corrupt)``."""
     from repro_torch.fl.sched import check_slice
 
     dev = resolve_device(device)
     check_slice(cfg, data)
     pipeline = pipeline or pipeline_from_config(cfg)
     env = build_env(data, cfg.seed, dev, loss_fn=loss_fn, acc_fn=acc_fn)
-    return build_round_step(env, pipeline, cfg.execution)
+    return build_round_step(env, pipeline, cfg.execution,
+                            faults=cfg.faults if cfg.faults.enabled else None)
 
 
 def run_federated(data: FederatedDataset, cfg: FLConfig, device=None,
@@ -79,23 +85,27 @@ def run_federated(data: FederatedDataset, cfg: FLConfig, device=None,
                   client_delay: np.ndarray | None = None, recorder=None,
                   checkpoint_every: int = 0, resume_from: str | None = None,
                   checkpoint_dir: str | None = None) -> FLHistory:
-    """Run ``cfg.rounds`` synchronous federated rounds on ``device`` (the
-    CUDA card by default) and return the host-side history.
+    """Run ``cfg.rounds`` federated rounds (sync) or aggregation events
+    (``scheduler="async"``) on ``device`` (the CUDA card by default) and
+    return the host-side history.
 
     ``init_fn`` maps a threefry key on the run's device to the initial
     layered model (default: ``init_mlp`` for the data's widths).
     ``client_delay`` is an optional (C,) heterogeneity lane for the
-    simulated clock. The recorder and checkpointing come with ROADMAP.md
-    queue 1 item 9 and raise here.
+    simulated clock. ``checkpoint_every`` snapshots the run into
+    ``checkpoint_dir`` (or ``resume_from``, which doubles as the write
+    directory); ``resume_from`` continues from its latest snapshot, bit for
+    bit the uninterrupted run. The recorder comes with ROADMAP.md queue 1
+    item 9 (``obs/``) and raises here.
     """
     from repro_torch.fl.sched import _not_ported, make_scheduler
 
     if recorder is not None:
         raise _not_ported("recorder", 9, "repro obs/record")
-    if checkpoint_every or resume_from is not None or checkpoint_dir is not None:
-        raise _not_ported("checkpoint/resume", 9, "checkpoint/")
     dev = resolve_device(device)
     return make_scheduler(cfg).run(
         data, cfg, dev, init_fn=init_fn, loss_fn=loss_fn, acc_fn=acc_fn, comm=comm,
         progress=progress, pipeline=pipeline, client_delay=client_delay,
+        checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+        resume_from=resume_from,
     )

@@ -17,8 +17,13 @@ Per-client keys are split over the
 population and gathered by ``ctx.cohort_idx`` (``client_keys``), so a
 client's random stream does not depend on its lane.
 
-The JAX package's async-only pieces (per-slot dispatch snapshots,
-``StalenessAggregator``) come with ROADMAP.md queue 1 item 8.
+Phases are scheduler-agnostic: ``SyncScheduler`` drives them with the
+broadcast global model (``ctx.dispatch_params is None``), while
+``AsyncScheduler`` supplies per-slot dispatch snapshots and the
+``staleness`` lane (its cohort lanes are the (M,) in-flight dispatch
+slots) and swaps the aggregator for ``StalenessAggregator`` (registry name
+``'staleness'``), FedBuff's buffered delta merge discounted by
+``staleness_weight``: one launch of masked_aggregate's kernel an event.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.core import (
     fedavg_aggregate,
     masked_partial_aggregate,
     personalize_ft,
+    staleness_weighted_merge,
 )
 from repro_torch.core.selection import ClientObservations, SelectionStrategy
 from repro_torch.device import fill_vector
@@ -99,6 +105,10 @@ class RoundContext(NamedTuple):
     participation: Any = None     # (lanes,) int32
     cohort_idx: Any = None        # (lanes,) client id behind each lane
     cohort_mask: Any = None       # (lanes,) bool
+    dispatch_params: Any = None   # async: per-slot snapshot each client trained
+                                  # from, leaves (lanes, ...); deltas and EF
+                                  # are taken against it; None under sync
+    staleness: Any = None         # async: (lanes,) int32 events since dispatch
     rng_fit: Any = None
     rng_codec: Any = None
     rng_sel: Any = None
@@ -117,6 +127,8 @@ class RoundContext(NamedTuple):
     loss: Any = None              # Evaluator
     next_select: Any = None       # SelectorPhase
     next_pms: Any = None          # LayerPolicy
+    merge_weight: Any = None      # Aggregator: (lanes,) staleness discount each
+                                  # landing update was merged with
 
 
 def client_keys(rng: torch.Tensor, ctx: RoundContext, env: RoundEnv) -> torch.Tensor:
@@ -131,6 +143,14 @@ def client_keys(rng: torch.Tensor, ctx: RoundContext, env: RoundEnv) -> torch.Te
 def _stack_clients(params, n_clients: int):
     """The unstacked model seen from every lane (an expanded view, no copy)."""
     return tree_map(lambda gl: gl.expand((n_clients,) + tuple(gl.shape)), params)
+
+
+def _client_global(ctx: RoundContext, env: RoundEnv):
+    """Each lane's view of the global model at training time: the broadcast
+    server model under sync, the slot's dispatch snapshot under async."""
+    if ctx.dispatch_params is not None:
+        return ctx.dispatch_params
+    return _stack_clients(ctx.global_params, env.n_clients)
 
 
 # ---------------------------------------------------------------------------
@@ -157,12 +177,13 @@ class Personalizer:
 
 @dataclasses.dataclass(frozen=True)
 class NoPersonalizer(Personalizer):
-    """Everyone trains and evaluates the broadcast global model."""
+    """Everyone trains and evaluates the broadcast global model (under the
+    async scheduler: trains from the dispatch snapshot)."""
 
     stateful: bool = False
 
     def train_model(self, ctx, env):
-        return _stack_clients(ctx.global_params, env.n_clients)
+        return _client_global(ctx, env)
 
     def eval_model(self, ctx, env):
         return _stack_clients(ctx.new_global, env.n_clients)
@@ -174,7 +195,8 @@ class NoPersonalizer(Personalizer):
 @dataclasses.dataclass(frozen=True)
 class FTPersonalizer(Personalizer):
     """Fine-tuning choice (Eq. 8): each client keeps whichever whole model
-    (local vs global) has the lower loss on its test shard."""
+    (local vs global) has the lower loss on its test shard; under the async
+    scheduler the global side of training is each slot's snapshot."""
 
     def _pick(self, local, global_, env):
         loss_loc = env.loss_fn(local, env.x_te, env.y_te, env.m_te)
@@ -182,6 +204,8 @@ class FTPersonalizer(Personalizer):
         return personalize_ft(local, global_, loss_loc, loss_glob)
 
     def train_model(self, ctx, env):
+        if ctx.dispatch_params is not None:
+            return self._pick(ctx.local_params, ctx.dispatch_params, env)
         return self._pick(ctx.local_params, ctx.global_params, env)
 
     def eval_model(self, ctx, env):
@@ -191,9 +215,12 @@ class FTPersonalizer(Personalizer):
 @dataclasses.dataclass(frozen=True)
 class ComposePersonalizer(Personalizer):
     """PMS/DLD: shared global layers composed with personalized local ones
-    along the (C, L) share mask."""
+    along the (C, L) share mask (the async scheduler's stacked snapshots
+    compose like the broadcast model)."""
 
     def train_model(self, ctx, env):
+        if ctx.dispatch_params is not None:
+            return compose_model(ctx.dispatch_params, ctx.local_params, ctx.share)
         return compose_model(ctx.global_params, ctx.local_params, ctx.share)
 
     def eval_model(self, ctx, env):
@@ -286,7 +313,9 @@ class TransmitPhase:
     takes. Lossy codecs run one error-feedback step per layer for all lanes
     at once (residuals touched only for layers a lane actually sent);
     lossless ones pass the update through. Also deposits the cost signals:
-    prospective and paid wire bytes, and the compressed delta's l2 norm."""
+    prospective and paid wire bytes, and the compressed delta's l2 norm.
+    The delta is taken against each lane's view of the global model: the
+    broadcast model under sync, the dispatch snapshot under async."""
 
     codec: Codec
 
@@ -296,16 +325,17 @@ class TransmitPhase:
 
     def transmit(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
         g, trained = ctx.global_params, ctx.trained
+        ref = g if ctx.dispatch_params is None else ctx.dispatch_params
         if self.codec.lossy and ctx.residual is None:
             raise ValueError("lossy codec requires RoundState.residual (run_federated sets it)")
         if self.codec.lossy:
             # every layer's error-feedback step in one call: one quantize
             # launch a round for the int codecs
             keys = [client_keys(prng.fold_in(ctx.rng_codec, j), ctx, env) for j in range(len(g))]
-            deltas = [tree_map(lambda t, gl: t - gl, tr_j, g_j) for tr_j, g_j in zip(trained, g)]
+            deltas = [tree_map(lambda t, gl: t - gl, tr_j, r_j) for tr_j, r_j in zip(trained, ref)]
             steps = ef_steps(self.codec, deltas, ctx.residual, keys)
             agg_src, new_residual = [], []
-            for j, (g_j, res_j, (dec, new_r)) in enumerate(zip(g, ctx.residual, steps)):
+            for j, (g_j, res_j, (dec, new_r)) in enumerate(zip(ref, ctx.residual, steps)):
                 sent_j = ctx.select & ctx.share[:, j]
                 agg_src.append(tree_map(lambda gl, d: gl + d, g_j, dec))
                 new_residual.append(tree_map(
@@ -317,7 +347,7 @@ class TransmitPhase:
         share_f = ctx.share.to(torch.float32)
         norm_sq = torch.zeros(share_f.shape[0], dtype=torch.float32, device=share_f.device)
         for j in range(len(g)):
-            norm_sq = norm_sq + share_f[:, j] * _client_sq_norms(agg_src[j], g[j])
+            norm_sq = norm_sq + share_f[:, j] * _client_sq_norms(agg_src[j], ref[j])
         return ctx._replace(
             agg_src=agg_src,
             residual=new_residual,
@@ -386,11 +416,80 @@ class MaskedPartialAggregator(Aggregator):
             ctx.agg_src, ctx.global_params, ctx.select, env.n_samples, ctx.share))
 
 
-def _staleness_aggregator(**kwargs):
-    raise NotImplementedError(
-        "the staleness-weighted (async) aggregator is not ported yet: "
-        "ROADMAP.md queue 1 item 8"
-    )
+# --- staleness weighting (FedBuff, Nguyen et al. 2022) ----------------------
+
+def _stale_constant(s, exponent, threshold):
+    return torch.ones_like(s)
+
+
+def _stale_polynomial(s, exponent, threshold):
+    x = 1.0 + s
+    if exponent == 0.5:
+        # XLA rewrites pow(x, -0.5) to rsqrt, which gives the float32
+        # rounding of the exact value on the staleness range (tested on
+        # s = 0..64); torch's float32 pow is 1 ulp off on 12 of those, 1 /
+        # sqrt in float64 rounded once is not
+        return (1.0 / torch.sqrt(x.to(torch.float64))).to(torch.float32)
+    return torch.pow(x, -exponent)
+
+
+def _stale_hinge(s, exponent, threshold):
+    ones = torch.ones_like(s)
+    return torch.where(s <= threshold, ones, 1.0 / (exponent * (s - threshold) + 1.0))
+
+
+STALENESS_FNS = {
+    "constant": _stale_constant,
+    "polynomial": _stale_polynomial,
+    "hinge": _stale_hinge,
+}
+
+
+def staleness_weight(fn: str, staleness: torch.Tensor, exponent: float = 0.5,
+                     threshold: float = 4.0) -> torch.Tensor:
+    """(lanes,) float32 merge discount for updates ``staleness`` aggregation
+    events old: ``constant`` 1, ``polynomial`` FedBuff's ``(1+s)^-a``,
+    ``hinge`` 1 up to ``threshold`` then ``1/(a(s-b)+1)``. All give 1.0 at
+    s = 0."""
+    if fn not in STALENESS_FNS:
+        raise KeyError(f"unknown staleness_fn {fn!r}; have {sorted(STALENESS_FNS)}")
+    return STALENESS_FNS[fn](torch.as_tensor(staleness).to(torch.float32), exponent, threshold)
+
+
+@dataclasses.dataclass(frozen=True)
+class StalenessAggregator(Aggregator):
+    """Buffered staleness-weighted merge (FedBuff): each landing update's
+    delta against its dispatch snapshot folds into the current global
+    model, ``g + sum_i v_i d_i / sum_i v_i`` per shared layer with ``v_i =
+    select_i * |d_i| * s(staleness_i)``; a layer nobody shared keeps g.
+    With ``constant`` weights, zero staleness and full participation it is
+    FedAvg. Under the sync barrier (no snapshots) the deltas are against
+    the broadcast model and the staleness is 0."""
+
+    staleness_fn: str = "polynomial"
+    exponent: float = 0.5
+    threshold: float = 4.0
+    edge_groups: int = 0
+
+    def __post_init__(self):
+        _flat_only(self.edge_groups)
+        if self.staleness_fn not in STALENESS_FNS:
+            raise KeyError(f"unknown staleness_fn {self.staleness_fn!r}; "
+                           f"have {sorted(STALENESS_FNS)}")
+
+    def aggregate(self, ctx, env):
+        stale = (ctx.staleness if ctx.staleness is not None
+                 else torch.zeros(ctx.select.shape, dtype=torch.int32, device=ctx.select.device))
+        discount = staleness_weight(self.staleness_fn, stale, self.exponent, self.threshold)
+        w = ctx.select.to(torch.float32) * env.n_samples.to(torch.float32) * discount
+        snaps = ctx.dispatch_params
+        if snaps is None:  # the sync barrier: every lane trained from the global
+            snaps = [tree_map(lambda g, a: g.expand_as(a), g_j, a_j)
+                     for g_j, a_j in zip(ctx.global_params, ctx.agg_src)]
+        # the deltas agg_src - snapshot are formed in the kernel's loads
+        new_global = staleness_weighted_merge(ctx.agg_src, ctx.global_params, w, ctx.share,
+                                              snapshots=snaps)
+        return ctx._replace(new_global=new_global, merge_weight=discount)
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +609,7 @@ _PHASE_REGISTRY: dict[str, dict[str, Callable]] = {
     "aggregator": {
         "fedavg": FedAvgAggregator,
         "masked-partial": MaskedPartialAggregator,
-        "staleness": _staleness_aggregator,
+        "staleness": StalenessAggregator,
     },
     "evaluator": {"distributed": DistributedEvaluator},
     "layer-policy": {"full": FullShare, "static": StaticPMS, "dld": DLDPolicy},

@@ -1,34 +1,46 @@
-"""The synchronous server loop — the port of the JAX package's
-``fl/sched.py`` (``ClientClock``, ``_setup_run``, ``SyncScheduler``).
+"""The server loops — the port of the JAX package's ``fl/sched.py``
+(``ClientClock``, ``EventQueue``, ``SyncScheduler``, ``AsyncState``,
+``build_async_step``, ``AsyncScheduler``).
 
-``SyncScheduler`` is the paper's Algorithm 1 barrier: every selected client
-finishes before the server aggregates, so a round costs the slowest
-selected client on the simulated clock (``ClientClock``, host-side numpy in
-float64). The rounds run on the device, in chunks of
-``ExecutionConfig.scan_chunk`` rounds (``repro_torch.fl.api.build_chunk_step``:
-one CUDA-graph replay a chunk on the card) or one eager round step a call
-at ``scan_chunk=1``; the host fetches each chunk's records with one copy
-and does the clock accounting for the chunk in one numpy pass.
+- ``SyncScheduler`` is the paper's Algorithm 1 barrier: every selected
+  client finishes before the server aggregates, so a round costs the
+  slowest selected client on the simulated clock (``ClientClock``,
+  host-side numpy in float64). The rounds run on the device, in chunks of
+  ``ExecutionConfig.scan_chunk`` rounds (``repro_torch.fl.api.build_chunk_step``:
+  one CUDA-graph replay a chunk on the card) or one eager round step a
+  call at ``scan_chunk=1``; the host fetches each chunk's records with one
+  copy and does the clock accounting for the chunk in one numpy pass.
+  Fault injection resolves each round's plan on the host, so it runs
+  round by round.
+- ``AsyncScheduler`` is FedBuff-style buffered execution over M dispatch
+  slots: a host event queue pops the ``buffer_k`` earliest arrivals, the
+  async step (``build_async_step``, eager, one call an event) merges their
+  deltas with a staleness discount (one launch of masked_aggregate's
+  kernel), evaluates, selects and refills the freed slots; with faults the
+  host arms crashes, deadlines, retries with backoff and drops.
 
-The port covers the synchronous loop with cohorts of K <= C clients,
-thinned evaluation and fused chunks of rounds; faults, the recorder and
-checkpoints are not ported. ``check_slice`` raises ``NotImplementedError``
-for every option outside that, naming the ROADMAP.md item that ports it, so
-no option is silently ignored.
+Both snapshot and resume their whole state (``repro_torch.checkpoint``):
+a resumed run gives the uninterrupted run's history bit for bit.
+``check_slice`` raises ``NotImplementedError`` for every option outside
+the ported slices, naming the ROADMAP.md item that ports it, so no option
+is silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import random as prng
+from repro_torch.checkpoint import load_fl_state, load_host_arrays, save_fl_state, save_host_arrays
 from repro_torch.comm import Codec, tree_wire_bytes
-from repro_torch.core.layersharing import layer_param_sizes
+from repro_torch.core.aggregation import finite_update_guard, transmitted_parameters
+from repro_torch.core.layersharing import layer_param_sizes, layer_share_mask
 from repro_torch.core.metrics import BYTES_PER_PARAM, CommModel
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl import phases
@@ -42,10 +54,13 @@ from repro_torch.fl.api import (
     build_round_step,
     pipeline_from_config,
 )
+from repro_torch.fl.cohort import scatter_rows, tree_scatter, tree_take
+from repro_torch.fl.faults import apply_corruption, compile_fault_plan
 from repro_torch.models.mlp import init_mlp, mlp_accuracy, mlp_loss
 from repro_torch.tree import tree_map
 
-__all__ = ["ClientClock", "SyncScheduler", "check_slice", "make_scheduler"]
+__all__ = ["AsyncScheduler", "AsyncState", "ClientClock", "EventQueue", "SyncScheduler",
+           "build_async_step", "check_slice", "make_scheduler", "resolve_checkpoint_dir"]
 
 
 def _not_ported(option: str, item: int, what: str) -> NotImplementedError:
@@ -62,10 +77,12 @@ def check_slice(cfg: FLConfig, data) -> None:
                           "host-resident population plane")
     n_clients = data.n_clients
     ex = cfg.execution
-    if cfg.scheduler.mode != "sync":
-        raise _not_ported("scheduler mode 'async'", 8, "AsyncScheduler")
-    if cfg.faults.enabled:
-        raise _not_ported("fault injection", 9, "fl/faults.py")
+    if cfg.faults.enabled and ex.edge_groups >= 1:
+        raise ValueError("fault injection with an edge_groups topology is not supported yet; "
+                         "set edge_groups=0 or disable FaultConfig")
+    if cfg.faults.enabled and ex.cohort_devices != 0:
+        raise ValueError("fault injection composes with the cohort runtime but not with "
+                         "cohort_devices sharding; set cohort_devices=0 or disable FaultConfig")
     if ex.host_population == 1 or ex.resolved_host_population(n_clients):
         raise _not_ported("host_population", 10, "host-resident population plane")
     if ex.eval_chunk != 0:
@@ -138,10 +155,72 @@ class ClientClock:
         """Parameter count each client shares at depth ``pms`` (broadcasts)."""
         return self.params_prefix[np.asarray(pms)]
 
-    def round_flops(self, pms: np.ndarray) -> np.ndarray:
+    def round_flops(self, pms: np.ndarray, cids: np.ndarray | None = None) -> np.ndarray:
         """Local-training FLOPs per client (fwd+bwd ~ 6 * params * samples *
-        epochs) at share depth ``pms``."""
-        return 6.0 * self.shared_params(pms) * self.n_samples * self.epochs
+        epochs) at share depth ``pms`` (broadcasts: a chunk's (T, C) depths
+        batch); ``cids`` restricts to a client subset whose depths ``pms``
+        carries."""
+        n_samples = self.n_samples if cids is None else self.n_samples[np.asarray(cids)]
+        return 6.0 * self.shared_params(pms) * n_samples * self.epochs
+
+    def durations(self, pms: np.ndarray, cids: np.ndarray | None = None) -> np.ndarray:
+        """Simulated seconds of one dispatch at share depth ``pms``:
+        float32 downlink + local epochs + codec uplink, times the delay
+        lane. ``cids`` computes only those clients' rows; every term is
+        elementwise, so subset rows are bitwise the full rows."""
+        params = self.shared_params(pms)
+        delay = None
+        if not self.uniform:
+            delay = self.delay if cids is None else self.delay[np.asarray(cids)]
+        return np.asarray(self.comm.client_times(
+            self.wire_prefix[np.asarray(pms)], self.round_flops(pms, cids=cids),
+            rx_bytes_per_client=params * float(BYTES_PER_PARAM), delay=delay), np.float64)
+
+    def component_times(self, pms: np.ndarray, cids: np.ndarray | None = None):
+        """``durations`` split into ``(rx, train, total)`` per client; the
+        upload is ``total - rx - train``, so the three end at the exact
+        ``durations`` value."""
+        total = self.durations(pms, cids=cids)
+        rx = self.shared_params(pms) * float(BYTES_PER_PARAM) / self.comm.bandwidth_bytes_per_s
+        train = self.round_flops(pms, cids=cids) / self.comm.client_flops_per_s
+        if not self.uniform:
+            delay = self.delay if cids is None else self.delay[np.asarray(cids)]
+            rx = rx * delay
+            train = train * delay
+        return rx, train, total
+
+
+class EventQueue:
+    """Heap-backed simulated event clock over M dispatch slots: ``push`` on
+    dispatch, ``pop_k`` the k earliest arrivals in O(k log M). Entries order
+    by ``(finish, client id)``, a total order over live entries (in-flight
+    slots hold distinct clients); re-pushing a slot bumps its generation,
+    so a superseded entry is skipped on pop. ``finish`` keeps each slot's
+    current finish time. The JAX package's queue, line for line."""
+
+    def __init__(self, n_slots: int):
+        self.finish = np.full((n_slots,), np.inf, np.float64)
+        self._gen = np.zeros((n_slots,), np.int64)
+        self._live = np.zeros((n_slots,), bool)
+        self._heap: list[tuple[float, int, int, int]] = []
+
+    def push(self, slot: int, finish: float, client: int) -> None:
+        """(Re-)arm ``slot``: ``client`` finishes at simulated ``finish``."""
+        self._gen[slot] += 1
+        self.finish[slot] = finish
+        self._live[slot] = True
+        heapq.heappush(self._heap, (float(finish), int(client), int(slot), int(self._gen[slot])))
+
+    def pop_k(self, k: int) -> np.ndarray:
+        """Slots of the k earliest live entries, in (finish, client id)
+        order; the popped slots leave the queue."""
+        out = []
+        while len(out) < k:
+            _, _, slot, gen = heapq.heappop(self._heap)
+            if gen == self._gen[slot] and self._live[slot]:
+                self._live[slot] = False
+                out.append(slot)
+        return np.asarray(out, np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +299,40 @@ def initial_state(su: _RunSetup, n_clients: int) -> RoundState:
 
 
 # ---------------------------------------------------------------------------
+# checkpoint/resume and fault plumbing shared by the schedulers
+# ---------------------------------------------------------------------------
+
+
+def resolve_checkpoint_dir(checkpoint_every: int, checkpoint_dir: str | None,
+                           resume_from: str | None) -> str | None:
+    """Where snapshots go: ``checkpoint_dir``, else ``resume_from`` (a
+    resumed run keeps writing into its run directory). ``checkpoint_every >
+    0`` with nowhere to write raises ``ValueError``."""
+    directory = checkpoint_dir or resume_from
+    if checkpoint_every and not directory:
+        raise ValueError("checkpoint_every > 0 needs checkpoint_dir= (or resume_from=, which "
+                         "doubles as the save directory)")
+    return directory
+
+
+def _sync_fault_inputs(faults, seed: int, t: int, clock: ClientClock, pms_host: np.ndarray):
+    """One sync round's host-side fault resolution: the compiled plan, the
+    (C,) survivors (not crashed, and inside the deadline at the slowed
+    duration) and the slowed durations."""
+    plan = compile_fault_plan(faults, seed, t, pms_host.shape[0])
+    dur = clock.durations(pms_host) * plan.slow
+    alive = ~plan.crash
+    if faults.deadline_s > 0.0:
+        alive = alive & (dur <= faults.deadline_s)
+    return plan, alive, dur
+
+
+def _host_to(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host lane on ``device`` (one copy)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+# ---------------------------------------------------------------------------
 # SyncScheduler — Algorithm 1's barrier loop
 # ---------------------------------------------------------------------------
 
@@ -237,6 +350,9 @@ def _progress_rows(t0: int, n: int, chunk: int, rounds: int) -> list[int]:
     return rows
 
 
+_SYNC_HIST = ("acc", "selected", "tx_params", "pms", "round_time", "wire", "rejected", "wall")
+
+
 @dataclasses.dataclass
 class SyncScheduler:
     """The synchronous barrier loop: chunks of ``scan_chunk`` rounds on the
@@ -247,31 +363,65 @@ class SyncScheduler:
     codec-compressed uplink, uncompressed float32 downlink, local training)
     in one float64 numpy pass over the chunk. Every chunk length gives the
     same history bit for bit. ``FLHistory.wall_time`` splits each chunk's
-    host time evenly over its rounds."""
+    host time evenly over its rounds.
+
+    With an enabled ``FaultConfig`` the host resolves each round's plan
+    (so the chunk is 1): crashed and late clients leave the selection, the
+    corruption kinds ride into the fault step, a round whose every selected
+    client died runs fault-free, and the round time is the slowest
+    dispatched client's slowed duration capped at the deadline.
+    ``checkpoint_every`` snapshots the state and the history so far at the
+    first chunk boundary past each multiple; ``resume_from`` continues from
+    the latest snapshot bit for bit."""
 
     def run(self, data: FederatedDataset, cfg: FLConfig, device: torch.device,
             init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
             acc_fn: Callable = mlp_accuracy, comm: CommModel | None = None,
             progress: bool = False, pipeline: RoundPipeline | None = None,
-            client_delay: np.ndarray | None = None):
+            client_delay: np.ndarray | None = None, checkpoint_every: int = 0,
+            checkpoint_dir: str | None = None, resume_from: str | None = None):
         from repro_torch.fl.engine import FLHistory
 
         check_slice(cfg, data)
+        faults = cfg.faults
+        faulty = faults.enabled
+        ckpt_dir = resolve_checkpoint_dir(checkpoint_every, checkpoint_dir, resume_from)
         su = _setup_run(data, cfg, device, init_fn, loss_fn, acc_fn, comm, pipeline,
                         client_delay)
         comm, clock = su.comm, su.clock
         state = initial_state(su, data.n_clients)
-        round_step = build_round_step(su.env, su.pipeline, cfg.execution)
-        chunk = cfg.execution.resolved_chunk(cfg.rounds)
+        round_step = build_round_step(su.env, su.pipeline, cfg.execution,
+                                      faults=faults if faulty else None)
+        # fault mode needs the host every round (the plan feeds the step)
+        chunk = 1 if faulty else cfg.execution.resolved_chunk(cfg.rounds)
         chunk_steps: dict[int, Callable] = {}  # length -> chunk step (body and tail)
         lanes = cfg.execution.resolved_cohort(data.n_clients)
         delay = None if clock.uniform else clock.delay
-        accs, sel_hist, tx_hist, pms_hist, times, wire_hist, rejected = [], [], [], [], [], [], []
-        wall = []
-        for t0 in range(0, cfg.rounds, chunk):
+        hist: dict[str, list] = {k: [] for k in _SYNC_HIST}
+        start = 0
+        if resume_from is not None:
+            # the latest snapshot: the state (rng chain included) and the
+            # history lanes so far, verbatim
+            trees, meta = load_fl_state({"state": state}, resume_from)
+            state = trees["state"]
+            start = int(meta["round"])
+            saved = load_host_arrays(resume_from, f"hist_{start:05d}")
+            hist = {k: [saved[k]] for k in _SYNC_HIST}
+        for t0 in range(start, cfg.rounds, chunk):
             n = min(chunk, cfg.rounds - t0)
             t_start = time.perf_counter()
-            if chunk == 1:
+            if faulty:
+                pms_host = state.pms.cpu().numpy()
+                sel_pre = state.select.cpu().numpy()
+                plan, alive_np, dur_t = _sync_fault_inputs(faults, cfg.seed, t0, clock, pms_host)
+                if not (sel_pre & alive_np).any():
+                    # every selected client died: the server re-dispatches
+                    # until someone answers, so the round runs fault-free
+                    alive_np = np.ones_like(alive_np)
+                state, out = round_step(state, t0, _host_to(alive_np, device),
+                                        _host_to(plan.corrupt.astype(np.int32), device))
+                outs = StackedOuts([out])
+            elif chunk == 1:
                 state, out = round_step(state, t0)
                 outs = StackedOuts([out])
             else:
@@ -283,46 +433,553 @@ class SyncScheduler:
             host = outs.numpy()  # the one device-to-host copy of the chunk
             acc, sel, pms = host["acc"], host["selected"], host["pms"]          # (n, C)
             wire = host["wire_per_client"].astype(np.float64)                   # (n, C)
-            times.append(comm.round_times(
-                wire, clock.round_flops(pms), sel,
-                rx_bytes=clock.shared_params(pms) * float(BYTES_PER_PARAM),
-                delay=delay,
-            ))
-            accs.append(acc)
-            sel_hist.append(sel)
-            pms_hist.append(pms)
-            wire_hist.append(wire.sum(axis=1))
-            tx_hist.append(host["tx_params"].astype(np.float64))
-            rejected.append(host["rejected"].astype(np.int64))
-            wall += [(time.perf_counter() - t_start) / n] * n
+            if faulty:
+                # the server waits on everyone it dispatched, up to the deadline
+                wait = dur_t[sel_pre]
+                rt = float(wait.max()) if wait.size else 0.0
+                if faults.deadline_s > 0.0:
+                    rt = min(rt, faults.deadline_s)
+                rt = np.asarray([rt + comm.server_latency_s], np.float64)
+            else:
+                rt = comm.round_times(
+                    wire, clock.round_flops(pms), sel,
+                    rx_bytes=clock.shared_params(pms) * float(BYTES_PER_PARAM), delay=delay)
+            hist["round_time"].append(rt)
+            hist["acc"].append(acc)
+            hist["selected"].append(sel)
+            hist["pms"].append(pms)
+            hist["wire"].append(wire.sum(axis=1))
+            hist["tx_params"].append(host["tx_params"].astype(np.float64))
+            hist["rejected"].append(host["rejected"].astype(np.int64))
+            hist["wall"].append(np.full((n,), (time.perf_counter() - t_start) / n))
             if progress:
                 for i in _progress_rows(t0, n, chunk, cfg.rounds):
                     print(f"  round {t0 + i:3d}  acc={float(acc[i].mean()):.4f}  "
                           f"|S|={int(sel[i].sum())}")
+            r = t0 + n
+            if ckpt_dir and checkpoint_every and r // checkpoint_every > t0 // checkpoint_every:
+                save_fl_state({"state": state}, ckpt_dir, r)
+                save_host_arrays({k: np.concatenate(v) for k, v in hist.items()}, ckpt_dir,
+                                 f"hist_{r:05d}")
 
-        acc_pc = np.concatenate(accs)
-        wire = np.concatenate(wire_hist)
-        times = np.concatenate(times)
+        h = {k: np.concatenate(v) for k, v in hist.items()}
+        times = h["round_time"]
         return FLHistory(
-            accuracy_mean=acc_pc.mean(axis=1),
-            accuracy_per_client=acc_pc,
-            selected=np.concatenate(sel_hist),
-            tx_params=np.concatenate(tx_hist),
-            tx_bytes_cum=np.cumsum(wire),
+            accuracy_mean=h["acc"].mean(axis=1),
+            accuracy_per_client=h["acc"],
+            selected=h["selected"],
+            tx_params=h["tx_params"],
+            tx_bytes_cum=np.cumsum(h["wire"]),
             round_time=times,
-            pms=np.concatenate(pms_hist),
-            tx_wire_bytes=wire,
+            pms=h["pms"],
+            tx_wire_bytes=h["wire"],
             sim_clock=np.cumsum(times),
             staleness_mean=np.zeros_like(times),
             in_flight=np.full(times.shape, lanes, np.int64),
             tx_edge_bytes=None,
-            rejected_updates=np.concatenate(rejected),
-            wall_time=np.asarray(wall, np.float64),
+            rejected_updates=h["rejected"],
+            wall_time=np.asarray(h["wall"], np.float64),
         )
 
 
+# ---------------------------------------------------------------------------
+# AsyncScheduler — buffered staleness-weighted execution over dispatch slots
+# ---------------------------------------------------------------------------
+
+
+class AsyncState(NamedTuple):
+    """Carried async server state: tensors on the run's device. In-flight
+    work lives in M dispatch slots keyed by client id; each carries the
+    snapshot and share depth its client was dispatched with."""
+
+    global_params: Any        # layered list, leaves (...): the server model
+    slot_params: Any          # layered list, leaves (M, ...): each slot's snapshot
+    slot_client: torch.Tensor  # (M,) int64: the client in each slot
+    slot_pms: torch.Tensor    # (M,) int32: share depth frozen at dispatch
+    client_pms: torch.Tensor  # (C,) int32: depth each client was last dispatched with
+    local_params: Any         # layered list, leaves (C, ...); None when stateless
+    accuracy: torch.Tensor    # (C,) last-known accuracy
+    loss: torch.Tensor        # (C,) last-known eval loss
+    update_norm: torch.Tensor  # (C,) last-known compressed-delta norm
+    rng: torch.Tensor         # (2,) threefry key
+    residual: Any = None      # EF residuals (lossy codec), (C, ...)
+    participation: Any = None  # (C,) int32 cumulative landings
+
+
+def _lane(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (leaf.ndim - 1))
+
+
+def _tree_where(mask: torch.Tensor, new, old):
+    return tree_map(lambda n, o: torch.where(_lane(mask, n), n, o), new, old)
+
+
+def build_async_step(env: phases.RoundEnv, pipeline: RoundPipeline, faults=None):
+    """The buffered-aggregation step ``(AsyncState, t, land (M,) bool,
+    staleness (M,) int32, active (M,) bool, idle_now (C,) bool, force ()
+    bool) -> (AsyncState, out)`` — the JAX package's, phase for phase and
+    key split for key split.
+
+    Its cohort lanes are the M dispatch slots: every slot trains its
+    client's shard from its snapshot (only ``land`` lanes commit), the
+    landing deltas ride the wire codec with EF and merge into the global
+    model with staleness weights (``StalenessAggregator``: one launch of
+    masked_aggregate's kernel), the population is evaluated and selects,
+    and the selector's wanted idle clients fill the freed slots in
+    ascending id order. ``force`` keeps the queue from draining: with no
+    one else in flight and no wanted idle client, the landing slots
+    re-dispatch their own clients. The finite guard is always on; with an
+    enabled ``faults`` the step takes one more argument, the slots'
+    corruption kinds ``corrupt (M,) int``, applied to the trained params
+    before transmit."""
+    c = env.n_clients
+    stateful = pipeline.personalizer.stateful
+    lossy = pipeline.transmit.lossy
+    faulty = faults is not None and faults.enabled
+    max_norm = float(faults.max_update_norm) if faulty else 0.0
+    corrupt_scale = float(faults.corrupt_scale) if faulty else 0.0
+
+    def _async_body(state: AsyncState, t, land, staleness, active, idle_now, force, corrupt):
+        g = state.global_params
+        n_layers = len(g)
+        dev = land.device
+        cids = state.slot_client
+        land = land & active
+        share_m = layer_share_mask(n_layers, state.slot_pms)  # (M, L)
+        keys = prng.split(state.rng, 4 if lossy else 3)
+        rng, r_fit, r_sel = keys[0], keys[1], keys[2]
+        r_codec = keys[3] if lossy else None
+
+        prev_part = (state.participation if state.participation is not None
+                     else torch.zeros((c,), dtype=torch.int32, device=dev))
+        # non-landing (and inactive, possibly duplicate-id) slots point at
+        # the sentinel C and write nothing
+        sentinel = torch.full_like(cids, c)
+        land_cid = torch.where(land, cids, sentinel)
+        land_c = scatter_rows(torch.zeros((c,), dtype=torch.bool, device=dev), land_cid, land,
+                              mode="drop")
+        participation = prev_part + land_c.to(torch.int32)
+
+        menv = env.take(cids)
+        cctx = phases.RoundContext(
+            t=t,
+            global_params=g,
+            local_params=tree_take(state.local_params, cids) if stateful else None,
+            select=land,
+            pms=state.slot_pms,
+            share=share_m,
+            residual=tree_take(state.residual, cids),
+            participation=participation.index_select(0, cids),
+            cohort_idx=cids,
+            cohort_mask=land,
+            dispatch_params=state.slot_params,
+            staleness=staleness,
+            rng_fit=r_fit,
+            rng_codec=r_codec,
+            rng_sel=r_sel,
+        )
+
+        # --- each slot lane trains from its own dispatch snapshot ---
+        cctx = cctx._replace(train_model=pipeline.personalizer.train_model(cctx, menv))
+        cctx = pipeline.trainer.fit(cctx, menv)
+        if corrupt is not None:
+            kinds_m = torch.where(land, corrupt, torch.zeros_like(corrupt))
+            cctx = cctx._replace(trained=apply_corruption(cctx.trained, kinds_m, corrupt_scale))
+        if stateful:
+            cctx = cctx._replace(new_local=_tree_where(
+                land, cctx.trained, pipeline.personalizer.local_fallback(cctx, menv)))
+        # --- wire codec: landing slots' deltas against their snapshots ---
+        local_before = cctx.local_params if stateful else None
+        res_before = cctx.residual
+        cctx = pipeline.transmit.transmit(cctx, menv)
+        # --- finite-delta guard (always on) ---
+        ok, n_rejected = finite_update_guard(land, cctx.update_norm, max_norm)
+        cctx = cctx._replace(
+            select=land & ok,
+            update_norm=torch.where(ok, cctx.update_norm, state.update_norm.index_select(0, cids)),
+        )
+        if res_before is not None:
+            cctx = cctx._replace(residual=_tree_where(ok, cctx.residual, res_before))
+        if stateful:
+            cctx = cctx._replace(new_local=_tree_where(ok, cctx.new_local, local_before))
+        # --- staleness-weighted buffered merge into the current model ---
+        cctx = pipeline.aggregator.aggregate(cctx, menv)
+
+        # --- scatter landing lanes into the (C, ...) client state ---
+        new_local = (tree_scatter(state.local_params, land_cid, cctx.new_local, mode="drop")
+                     if stateful else None)
+        new_residual = tree_scatter(state.residual, land_cid, cctx.residual, mode="drop")
+        update_norm = scatter_rows(state.update_norm, land_cid, cctx.update_norm, mode="drop")
+        wire_paid_c = scatter_rows(torch.zeros((c,), dtype=torch.float32, device=dev), land_cid,
+                                   cctx.wire_paid, mode="drop")
+        share_c = layer_share_mask(n_layers, state.client_pms)  # (C, L)
+        wire_prospective, _ = pipeline.transmit.wire_costs(g, share_c, land_c)
+
+        # --- population phases: evaluation (thinned by eval_every), selection ---
+        pctx = cctx._replace(
+            local_params=state.local_params,
+            select=land_c,
+            pms=state.client_pms,
+            share=share_c,
+            residual=new_residual,
+            participation=participation,
+            cohort_idx=None,
+            cohort_mask=None,
+            dispatch_params=None,
+            staleness=None,
+            new_local=new_local,
+            wire_bytes=wire_prospective,
+            wire_paid=wire_paid_c,
+            update_norm=update_norm,
+            prev_accuracy=state.accuracy,
+            prev_loss=state.loss,
+        )
+        pctx = pctx._replace(eval_model=pipeline.personalizer.eval_model(pctx, env))
+        pctx = pipeline.evaluator.evaluate(pctx, env)
+        pctx = pipeline.selector.select(pctx, env)
+        pctx = pctx._replace(next_pms=pipeline.layer_policy.next_pms(pctx, env, n_layers))
+
+        # --- slot assignment: wanted idle clients -> freed slots, ascending
+        # ids on both sides; never let the queue drain ---
+        want = pctx.next_select & idle_now                  # (C,)
+        free = land | ~active                               # (M,)
+        n_assign = torch.minimum(want.sum(), free.sum())
+        slot_rank = torch.cumsum(free.to(torch.int32), 0) - 1
+        # wanted ids first, each group ascending (a stable sort of 0/1 keys)
+        cand_order = torch.argsort((~want).to(torch.int8), stable=True)
+        assigned = free & (slot_rank < n_assign)
+        new_cid = cand_order.index_select(0, torch.clamp(slot_rank, 0, c - 1).to(torch.int64))
+        need_force = force & (n_assign == 0)
+        dispatched = torch.where(need_force, land, assigned)
+        new_slot_client = torch.where(assigned, new_cid, cids)
+        # pms is frozen at dispatch, like the snapshot
+        disp_pms = pctx.next_pms.index_select(0, new_slot_client)
+        new_slot_pms = torch.where(dispatched, disp_pms, state.slot_pms)
+        disp_cid = torch.where(dispatched, new_slot_client, sentinel)
+        new_client_pms = scatter_rows(state.client_pms, disp_cid, disp_pms, mode="drop")
+        new_slot_params = tree_map(
+            lambda s_, gl: torch.where(_lane(dispatched, s_), gl.expand_as(s_), s_),
+            state.slot_params, pctx.new_global)
+
+        land_f = land.to(torch.float32)
+        new_state = AsyncState(
+            global_params=pctx.new_global,
+            slot_params=new_slot_params,
+            slot_client=new_slot_client,
+            slot_pms=new_slot_pms,
+            client_pms=new_client_pms,
+            local_params=new_local,
+            accuracy=pctx.accuracy,
+            loss=pctx.loss,
+            update_norm=update_norm,
+            rng=rng,
+            residual=new_residual,
+            participation=participation,
+        )
+        n_land = torch.clamp_min(torch.sum(land_f), 1.0)
+        merge_w = cctx.merge_weight if cctx.merge_weight is not None else torch.ones_like(land_f)
+        out = {
+            "acc": pctx.accuracy,
+            "selected": land_c,
+            "tx_params": transmitted_parameters(land, share_m, layer_param_sizes(g)),
+            "pms": state.client_pms,
+            "wire_per_client": wire_paid_c,
+            "update_norm": update_norm,
+            "dispatched": dispatched,
+            "slot_client": new_slot_client,
+            "client_pms": new_client_pms,
+            "staleness_mean": torch.sum(land_f * staleness.to(torch.float32)) / n_land,
+            "merge_discount_mean": torch.sum(land_f * merge_w) / n_land,
+            "rejected": n_rejected,
+        }
+        return new_state, out
+
+    def _t(t, dev):
+        return t if torch.is_tensor(t) else torch.full((), int(t), dtype=torch.int32, device=dev)
+
+    def async_step(state, t, land, staleness, active, idle_now, force):
+        with torch.no_grad():
+            return _async_body(state, _t(t, land.device), land, staleness, active, idle_now,
+                               force, None)
+
+    def fault_async_step(state, t, land, staleness, active, idle_now, force, corrupt):
+        with torch.no_grad():
+            return _async_body(state, _t(t, land.device), land, staleness, active, idle_now,
+                               force, corrupt)
+
+    return fault_async_step if faulty else async_step
+
+
+# host lanes an async snapshot carries besides the AsyncState
+_ASYNC_PLANE = ("slot_client", "client_pms", "active", "in_flight_clients", "dispatch_version",
+                "slot_fail", "slot_kind", "retries", "queue_finish")
+_ASYNC_HIST = ("acc", "selected", "tx_params", "pms", "round_time", "wire", "sim_clock_hist",
+               "staleness", "in_flight_hist", "rejected", "wall")
+
+
+@dataclasses.dataclass
+class AsyncScheduler:
+    """FedBuff-style event-driven server loop over M dispatch slots.
+
+    A host event queue (``EventQueue``) holds each slot's simulated finish
+    time (``ClientClock``). Each of ``cfg.rounds`` aggregation events pops
+    the ``buffer_k`` earliest arrivals (fewer only if fewer are in flight),
+    advances the clock to the last of them plus the server latency, and
+    runs the async step once. ``buffer_k=0`` resolves to ``C // 2``;
+    M = ``max_concurrency or cohort_size or C``. The trajectory is a pure
+    function of (data, cfg, pipeline, delays): ties on the clock break by
+    client id.
+
+    With an enabled ``FaultConfig`` each dispatch is armed from the plan
+    of the model version it trains from: crashes and deadline timeouts are
+    noticed at ``min(duration, deadline)``, retried on the same slot with
+    exponential backoff up to ``max_retries``, then dropped (the slot
+    frees); an event whose landers all failed and retried aggregates
+    nothing. ``checkpoint_every`` snapshots the AsyncState, every host
+    lane and the queue's finish times after each multiple of events;
+    ``resume_from`` continues from the latest snapshot bit for bit."""
+
+    def run(self, data: FederatedDataset, cfg: FLConfig, device: torch.device,
+            init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
+            acc_fn: Callable = mlp_accuracy, comm: CommModel | None = None,
+            progress: bool = False, pipeline: RoundPipeline | None = None,
+            client_delay: np.ndarray | None = None, checkpoint_every: int = 0,
+            checkpoint_dir: str | None = None, resume_from: str | None = None):
+        from repro_torch.fl.engine import FLHistory
+
+        check_slice(cfg, data)
+        faults = cfg.faults
+        faulty = faults.enabled
+        ckpt_dir = resolve_checkpoint_dir(checkpoint_every, checkpoint_dir, resume_from)
+        su = _setup_run(data, cfg, device, init_fn, loss_fn, acc_fn, comm, pipeline,
+                        client_delay)
+        comm, clock = su.comm, su.clock
+        # a barrier aggregator averages absolute parameters and would
+        # mis-merge stale snapshots: fail fast
+        if isinstance(su.pipeline.aggregator,
+                      (phases.FedAvgAggregator, phases.MaskedPartialAggregator)):
+            raise ValueError(
+                "AsyncScheduler needs an aggregator that merges deltas against dispatch "
+                f"snapshots, got {type(su.pipeline.aggregator).__name__}; build the pipeline "
+                "from an async-mode config (scheduler.mode='async') or swap in "
+                "phases.StalenessAggregator")
+        c = data.n_clients
+        m = min(cfg.scheduler.max_concurrency or cfg.execution.cohort_size or c, c)
+        slot_client0 = np.arange(m, dtype=np.int32)
+        dev = su.r_loop.device
+        state = AsyncState(
+            global_params=su.g0,
+            # the warm start dispatches w(0) to the first M clients
+            slot_params=tree_map(lambda gl: gl.expand((m,) + tuple(gl.shape)).clone(), su.g0),
+            slot_client=torch.arange(m, dtype=torch.int64, device=dev),
+            slot_pms=torch.full((m,), su.pms0, dtype=torch.int32, device=dev),
+            client_pms=torch.full((c,), su.pms0, dtype=torch.int32, device=dev),
+            local_params=su.loc0,
+            accuracy=torch.zeros((c,), dtype=torch.float32, device=dev),
+            loss=torch.zeros((c,), dtype=torch.float32, device=dev),
+            update_norm=torch.zeros((c,), dtype=torch.float32, device=dev),
+            rng=su.r_loop,
+            residual=su.residual0,
+            participation=torch.zeros((c,), dtype=torch.int32, device=dev),
+        )
+        step = build_async_step(su.env, su.pipeline, faults=faults if faulty else None)
+        buffer_k = cfg.scheduler.buffer_k or max(1, c // 2)
+        deadline = float(faults.deadline_s)
+
+        def arm_faults(cids_arr, durations, at_version):
+            """Fault-arm a dispatch batch from the plan of the dispatching
+            model version: slowed notice times, failure codes (0 ok, 1
+            crash, 2 deadline timeout) and corruption kinds. A failure is
+            noticed at ``min(duration, deadline)``."""
+            plan = compile_fault_plan(faults, cfg.seed, at_version, c)
+            cids_arr = np.asarray(cids_arr)
+            dur = durations * plan.slow[cids_arr]
+            code = np.where(plan.crash[cids_arr], 1, 0).astype(np.int8)
+            if deadline > 0.0:
+                code = np.where((code == 0) & (dur > deadline), 2, code)
+                dur = np.where(code != 0, np.minimum(dur, deadline), dur)
+            kind = np.where(code == 0, plan.corrupt[cids_arr], 0).astype(np.int32)
+            return dur, code, kind
+
+        # --- host event queue over the M slots ---
+        slot_client = slot_client0.copy()
+        client_pms = np.full((c,), su.pms0, np.int32)
+        queue = EventQueue(m)
+        slot_fail = np.zeros((m,), np.int8)
+        slot_kind = np.zeros((m,), np.int32)
+        retries = np.zeros((m,), np.int64)
+        d0 = clock.durations(client_pms[slot_client0], cids=slot_client0)
+        if faulty:  # the warm-start dispatches draw from the version-0 plan
+            d0, slot_fail, slot_kind = arm_faults(slot_client0, d0, 0)
+        for s in range(m):
+            queue.push(s, d0[s], int(slot_client0[s]))
+        active = np.ones((m,), bool)
+        in_flight_clients = np.zeros((c,), bool)
+        in_flight_clients[slot_client0] = True
+        dispatch_version = np.zeros((m,), np.int64)
+        sim_clock = 0.0
+        version = 0
+        hist: dict[str, list] = {k: [] for k in _ASYNC_HIST}
+        t = 0
+        if resume_from is not None:
+            # the latest snapshot: the AsyncState, every host lane verbatim,
+            # and the queue rebuilt by re-pushing the in-flight slots at
+            # their saved finish times (a total order: replay is exact)
+            trees, meta = load_fl_state({"state": state}, resume_from)
+            state = trees["state"]
+            t = int(meta["round"])
+            sim_clock = float(meta["sim_clock"])
+            version = int(meta["version"])
+            host = load_host_arrays(resume_from, f"hist_{t:05d}")
+            slot_client = host["slot_client"].astype(np.int32)
+            client_pms = host["client_pms"].astype(np.int32)
+            active = host["active"].astype(bool)
+            in_flight_clients = host["in_flight_clients"].astype(bool)
+            dispatch_version = host["dispatch_version"].astype(np.int64)
+            slot_fail = host["slot_fail"].astype(np.int8)
+            slot_kind = host["slot_kind"].astype(np.int32)
+            retries = host["retries"].astype(np.int64)
+            queue = EventQueue(m)
+            for s in range(m):
+                if active[s]:
+                    queue.push(s, float(host["queue_finish"][s]), int(slot_client[s]))
+            hist = {k: list(host[k]) for k in _ASYNC_HIST}
+        while t < cfg.rounds:
+            n_active = int(active.sum())
+            if n_active == 0:
+                # every slot's retries ran out: end with the history so far
+                break
+            t_start = time.perf_counter()
+            k = max(1, min(buffer_k, n_active))
+            landers = queue.pop_k(k)  # earliest finishers; ties by client id
+            if faulty:
+                codes = slot_fail[landers]
+                ok_l = landers[codes == 0]
+                bad = landers[codes != 0]
+                notice_max = float(queue.finish[landers].max())  # before retries re-push
+                can_retry = retries[bad] < faults.max_retries
+                retry_slots = bad[can_retry]
+                drop_slots = bad[~can_retry]
+                for s in retry_slots:
+                    # back off, then re-dispatch the same client on the same
+                    # slot and snapshot with fresh draws at the current version
+                    retries[s] += 1
+                    cid = int(slot_client[s])
+                    backoff = faults.backoff_s * (2.0 ** float(retries[s] - 1))
+                    d_r, code_r, kind_r = arm_faults(
+                        [cid], clock.durations(client_pms[[cid]], cids=[cid]), version)
+                    slot_fail[s] = code_r[0]
+                    slot_kind[s] = kind_r[0]
+                    queue.push(s, float(queue.finish[s]) + backoff + float(d_r[0]), cid)
+                if drop_slots.size:
+                    # retries exhausted: free the slot and the client
+                    active[drop_slots] = False
+                    in_flight_clients[slot_client[drop_slots]] = False
+                if ok_l.size == 0 and drop_slots.size == 0:
+                    continue  # a pure-retry event: no aggregation
+                landers = ok_l
+                land = np.zeros((m,), bool)
+                land[landers] = True
+                new_clock = notice_max + comm.server_latency_s
+                force = bool(int((active & ~land).sum()) == 0)
+            else:
+                land = np.zeros((m,), bool)
+                land[landers] = True
+                new_clock = float(queue.finish[landers].max()) + comm.server_latency_s
+                force = bool(n_active - k == 0)
+            staleness = np.where(land, version - dispatch_version, 0).astype(np.int32)
+            landed_clients = slot_client[landers]
+            idle_now = ~in_flight_clients
+            idle_now[landed_clients] = True
+
+            args = [state, t, _host_to(land, dev), _host_to(staleness, dev),
+                    _host_to(active, dev), _host_to(idle_now, dev),
+                    _host_to(np.asarray(force), dev)]
+            if faulty:
+                args.append(_host_to(slot_kind, dev))
+            state, out = step(*args)
+            out = StackedOuts([out]).numpy()  # the one device-to-host copy of the event
+            out = {key: v[0] for key, v in out.items()}
+
+            dispatched = out["dispatched"]
+            slot_client = out["slot_client"].astype(np.int32)
+            client_pms = out["client_pms"].astype(np.int32)
+            active = (active & ~land) | dispatched
+            in_flight_clients[landed_clients] = False
+            in_flight_clients[slot_client[dispatched]] = True
+            # re-arm only the dispatched slots (subset rows are bitwise the
+            # full rows)
+            disp_slots = np.nonzero(dispatched)[0]
+            if disp_slots.size:
+                disp_cids = slot_client[disp_slots]
+                d_disp = clock.durations(client_pms[disp_cids], cids=disp_cids)
+                if faulty:
+                    # fresh draws at the version these slots train from
+                    d_disp, code_d, kind_d = arm_faults(disp_cids, d_disp, version + 1)
+                    slot_fail[disp_slots] = code_d
+                    slot_kind[disp_slots] = kind_d
+                    retries[disp_slots] = 0
+                for s, f, cid in zip(disp_slots, new_clock + d_disp, disp_cids):
+                    queue.push(int(s), float(f), int(cid))
+            dispatch_version = np.where(dispatched, version + 1, dispatch_version)
+
+            hist["acc"].append(out["acc"])
+            hist["selected"].append(out["selected"])
+            hist["tx_params"].append(float(out["tx_params"]))
+            hist["pms"].append(out["pms"])
+            hist["wire"].append(np.asarray(out["wire_per_client"], np.float64).sum())
+            hist["round_time"].append(new_clock - sim_clock)
+            hist["sim_clock_hist"].append(new_clock)
+            hist["staleness"].append(float(out["staleness_mean"]))
+            hist["in_flight_hist"].append(int(in_flight_clients.sum()))
+            hist["rejected"].append(int(out["rejected"]))
+            hist["wall"].append(time.perf_counter() - t_start)
+            sim_clock = new_clock
+            version += 1
+            if progress and (t % 10 == 0 or t == cfg.rounds - 1):
+                print(f"  event {t:3d}  acc={float(np.mean(out['acc'])):.4f}  "
+                      f"|K|={int(land.sum())}  clock={new_clock:.2f}s  "
+                      f"staleness={hist['staleness'][-1]:.2f}")
+            t += 1
+            if ckpt_dir and checkpoint_every and t % checkpoint_every == 0:
+                save_fl_state({"state": state, "sim_clock": float(sim_clock),
+                               "version": int(version)}, ckpt_dir, t)
+                plane = dict(slot_client=slot_client, client_pms=client_pms, active=active,
+                             in_flight_clients=in_flight_clients,
+                             dispatch_version=dispatch_version, slot_fail=slot_fail,
+                             slot_kind=slot_kind, retries=retries,
+                             queue_finish=np.asarray(queue.finish, np.float64))
+                save_host_arrays({**plane, **{k: _stacked(k, v) for k, v in hist.items()}},
+                                 ckpt_dir, f"hist_{t:05d}")
+
+        h = {k: _stacked(k, v) for k, v in hist.items()}
+        return FLHistory(
+            accuracy_mean=h["acc"].mean(axis=1),
+            accuracy_per_client=h["acc"],
+            selected=h["selected"],
+            tx_params=h["tx_params"],
+            tx_bytes_cum=np.cumsum(h["wire"]),
+            round_time=h["round_time"],
+            pms=h["pms"],
+            tx_wire_bytes=h["wire"],
+            sim_clock=h["sim_clock_hist"],
+            staleness_mean=h["staleness"],
+            in_flight=h["in_flight_hist"],
+            tx_edge_bytes=None,
+            rejected_updates=h["rejected"],
+            wall_time=h["wall"],
+        )
+
+
+def _stacked(key: str, rows: list) -> np.ndarray:
+    """An async history lane as one array (the JAX package's dtypes)."""
+    if key in ("acc", "selected", "pms"):
+        return np.stack(rows)
+    if key in ("in_flight_hist", "rejected"):
+        return np.asarray(rows, np.int64)
+    return np.asarray(rows, np.float64)
+
+
 def make_scheduler(cfg: FLConfig):
-    """Scheduler for ``cfg.scheduler.mode`` (only ``sync`` is ported)."""
-    if cfg.scheduler.mode != "sync":
-        raise _not_ported("scheduler mode 'async'", 8, "AsyncScheduler")
-    return SyncScheduler()
+    """Scheduler for ``cfg.scheduler.mode``."""
+    return AsyncScheduler() if cfg.scheduler.mode == "async" else SyncScheduler()

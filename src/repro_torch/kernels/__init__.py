@@ -5,8 +5,10 @@ the JAX package:
                          (the uplink codec, a round's leaves in one launch
                          of each; csrc/quantize.cu)
   masked_aggregate     — the paper's Eq. 1 masked weighted client average,
-                         every leaf of a round in one launch
-                         (the aggregators; csrc/masked_aggregate.cu)
+                         every leaf of a round in one launch (the
+                         aggregators), and the async staleness merge
+                         g + mean(x - snapshot), one launch an event
+                         (csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
                          (falcon-mamba; csrc/ssm_scan.cu)
   flash_attention      — causal GQA attention of a prefill (granite;

@@ -14,7 +14,10 @@ in the port it is the aggregators' path.
 - ``masked_aggregate_plain``: the plain PyTorch version of one leaf —
   clients summed in ascending order in float32, one rounding per product
   and per sum, as the kernel does, so the kernel is bitwise equal to it on
-  every leaf;
+  every leaf; with a ``snapshot`` each client's row is ``x - snapshot``
+  (one rounding) before its product, and with a ``base`` the result is
+  ``base + (mean where the weights sum to > 0, else 0)`` — the staleness
+  merge of ``core/aggregation.staleness_weighted_merge``;
 - ``masked_aggregate_leaves_plain``: that, leaf by leaf;
 - ``masked_aggregate_leaves``: the wrapper over a list of leaves,
   dispatching on the tensors' device (CPU -> plain, CUDA -> one kernel
@@ -39,9 +42,13 @@ _MAX_LEAVES = 64    # leaves a launch (the kernel's parameter table)
 _BLOCK_COLS = 256   # columns a block (64 threads x 4)
 
 
+_MODE_FALLBACK, _MODE_BASE = 0, 1  # the kernel's epilogues
+
+
 class _Leaf(ctypes.Structure):
-    _fields_ = [("x", ctypes.c_void_p), ("fallback", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("cols", ctypes.c_int64), ("block0", ctypes.c_int64), ("row", ctypes.c_int64)]
+    _fields_ = [("x", ctypes.c_void_p), ("snap", ctypes.c_void_p), ("other", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("cols", ctypes.c_int64), ("block0", ctypes.c_int64),
+                ("row", ctypes.c_int32), ("mode", ctypes.c_int32)]
 
 
 class _Table(ctypes.Structure):
@@ -50,27 +57,46 @@ class _Table(ctypes.Structure):
 
 
 def masked_aggregate_plain(x: torch.Tensor, weights: torch.Tensor,
-                           fallback: torch.Tensor | None = None) -> torch.Tensor:
-    """``sum_c w_c x[c] / max(sum w, 1e-12)``, or ``fallback`` (zeros when
-    None) where ``sum w == 0``, for a stacked leaf ``x`` (C, ...); float32
-    accumulation, result in x's dtype."""
+                           fallback: torch.Tensor | None = None,
+                           snapshot: torch.Tensor | None = None,
+                           base: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum_c w_c d[c] / max(sum w, 1e-12)`` with ``d = x`` (or ``x -
+    snapshot`` with a snapshot of x's shape), for a stacked leaf ``x`` (C,
+    ...); float32 accumulation, result in x's dtype. Where ``sum w == 0``
+    the result is ``fallback`` (zeros when None); with a ``base`` (shape
+    ``x.shape[1:]``; no fallback then) it is ``base + mean``, or ``base + 0``
+    where ``sum w == 0``, one float32 add."""
+    if base is not None and fallback is not None:
+        raise ValueError("masked_aggregate: a leaf takes a fallback or a base, not both")
     w = weights.to(torch.float32)
     num = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(x.shape[0]):
         total = total + w[c]
-        num = num + w[c] * x[c].to(torch.float32)
+        d = x[c].to(torch.float32)
+        if snapshot is not None:
+            d = d - snapshot[c].to(torch.float32)
+        num = num + w[c] * d
     mean = num / torch.clamp_min(total, 1e-12)
+    if base is not None:
+        return (base.to(torch.float32) + torch.where(total > 0, mean, torch.zeros_like(mean))
+                ).to(x.dtype)
     fb = torch.zeros_like(mean) if fallback is None else fallback.to(torch.float32)
     return torch.where(total > 0, mean, fb).to(x.dtype)
 
 
-def masked_aggregate_leaves_plain(xs, weights: torch.Tensor, rows=None, fallbacks=None) -> list:
-    """``masked_aggregate_plain(xs[i], weights[rows[i]], fallbacks[i])`` for
-    every leaf (rows default to 0, fallbacks to None)."""
-    rows = [0] * len(xs) if rows is None else rows
-    fallbacks = [None] * len(xs) if fallbacks is None else fallbacks
-    return [masked_aggregate_plain(x, weights[r], fb) for x, r, fb in zip(xs, rows, fallbacks)]
+def masked_aggregate_leaves_plain(xs, weights: torch.Tensor, rows=None, fallbacks=None,
+                                  snapshots=None, bases=None) -> list:
+    """``masked_aggregate_plain(xs[i], weights[rows[i]], fallbacks[i],
+    snapshots[i], bases[i])`` for every leaf (rows default to 0, the
+    others to None)."""
+    n = len(xs)
+    rows = [0] * n if rows is None else rows
+    fallbacks = [None] * n if fallbacks is None else fallbacks
+    snapshots = [None] * n if snapshots is None else snapshots
+    bases = [None] * n if bases is None else bases
+    return [masked_aggregate_plain(x, weights[r], fb, s, b)
+            for x, r, fb, s, b in zip(xs, rows, fallbacks, snapshots, bases)]
 
 
 def _lib():
@@ -83,38 +109,50 @@ def _lib():
     return lib
 
 
-def _check(xs, weights, rows, fallbacks) -> None:
+def _check(xs, weights, rows, fallbacks, snapshots, bases) -> None:
     dev = xs[0].device
     if weights.ndim != 2 or weights.dtype != torch.float32 or weights.device != dev:
         raise ValueError(f"weights must be a float32 (R, C) matrix on {dev}, got "
                          f"{weights.dtype} {tuple(weights.shape)} on {weights.device}")
     n_rows, c = weights.shape
-    if not len(rows) == len(fallbacks) == len(xs):
-        raise ValueError("masked_aggregate_leaves: one row and one fallback per leaf")
+    if not len(rows) == len(fallbacks) == len(snapshots) == len(bases) == len(xs):
+        raise ValueError("masked_aggregate_leaves: one row, fallback, snapshot and base per leaf")
     if xs[0].dtype not in _DTYPES or any(x.dtype != xs[0].dtype for x in xs):
         raise TypeError(f"masked_aggregate takes float32 or bfloat16 leaves of one dtype, got "
                         f"{sorted({str(x.dtype) for x in xs})}")
-    for x, r, fb in zip(xs, rows, fallbacks):
+    for x, r, fb, sn, b in zip(xs, rows, fallbacks, snapshots, bases):
         if x.device != dev or x.ndim < 1 or x.shape[0] != c:
             raise ValueError(f"every leaf must be ({c}, ...) on {dev}, got {tuple(x.shape)} "
                              f"on {x.device}")
         if not 0 <= r < n_rows:
             raise ValueError(f"weight row {r} outside the {n_rows} rows")
-        if fb is not None and (fb.shape != x.shape[1:] or fb.dtype != x.dtype or fb.device != dev):
-            raise ValueError(f"fallback must be {x.dtype} of shape {tuple(x.shape[1:])} on {dev}")
+        if fb is not None and b is not None:
+            raise ValueError("masked_aggregate: a leaf takes a fallback or a base, not both")
+        for name, t, shape in (("fallback", fb, x.shape[1:]), ("base", b, x.shape[1:]),
+                               ("snapshot", sn, x.shape)):
+            if t is not None and (t.shape != shape or t.dtype != x.dtype or t.device != dev):
+                raise ValueError(f"{name} must be {x.dtype} of shape {tuple(shape)} on {dev}, "
+                                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None) -> list:
+def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None,
+                            snapshots=None, bases=None) -> list:
     """Weighted means of stacked leaves ``xs[i]`` (C, ...) over their client
     axis, leaf i weighted by row ``rows[i]`` (default 0) of ``weights``
     (R, C) float32, with ``fallbacks[i]`` (shape ``xs[i].shape[1:]``, its
-    dtype; None = zeros) where that row sums to 0. At most 64 float32 or
-    bfloat16 leaves of one dtype, which the results have. CPU tensors run
-    the plain version; on CUDA one kernel launch covers every leaf, and the
-    outputs are views of one buffer."""
+    dtype; None = zeros) where that row sums to 0. ``snapshots[i]`` (xs[i]'s
+    shape; None = none) is subtracted from each client row before it is
+    weighted; a leaf with ``bases[i]`` (no fallback then) gets ``base +
+    mean``, ``base`` where its row sums to 0 (the staleness merge). At most
+    64 float32 or bfloat16 leaves of one dtype, which the results have. CPU
+    tensors run the plain version; on CUDA one kernel launch covers every
+    leaf, and the outputs are views of one buffer."""
     xs = list(xs)
-    rows = [0] * len(xs) if rows is None else [int(r) for r in rows]
-    fallbacks = [None] * len(xs) if fallbacks is None else list(fallbacks)
+    n = len(xs)
+    rows = [0] * n if rows is None else [int(r) for r in rows]
+    fallbacks = [None] * n if fallbacks is None else list(fallbacks)
+    snapshots = [None] * n if snapshots is None else list(snapshots)
+    bases = [None] * n if bases is None else list(bases)
     if len(xs) > _MAX_LEAVES:
         raise ValueError(f"masked_aggregate_leaves takes at most {_MAX_LEAVES} leaves (the "
                          f"kernel's parameter table), got {len(xs)}")
@@ -122,10 +160,10 @@ def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None
         return []
     dev = xs[0].device
     if dev.type == "cpu":
-        return masked_aggregate_leaves_plain(xs, weights, rows, fallbacks)
+        return masked_aggregate_leaves_plain(xs, weights, rows, fallbacks, snapshots, bases)
     if dev.type != "cuda":
         raise ValueError(f"masked_aggregate: tensors on {dev} have no kernel here")
-    _check(xs, weights, rows, fallbacks)
+    _check(xs, weights, rows, fallbacks, snapshots, bases)
     wc = weights.contiguous()
     dtype = xs[0].dtype
     align = 16 // dtype.itemsize  # each leaf's output view starts on a 16-byte boundary
@@ -135,15 +173,17 @@ def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None
         offsets.append(offsets[-1] + -(-n // align) * align)
     buf = torch.empty(offsets[-1], dtype=dtype, device=dev)
     table, keep, outs, block = _Table(), [], [], 0  # keep: contiguous copies live until the launch
-    for i, (x, fb, n, off) in enumerate(zip(xs, fallbacks, sizes, offsets)):
-        x = x.contiguous()
-        fb = None if fb is None else fb.contiguous()
-        out = buf[off:off + n]
-        keep += [x, fb]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    for i, (x, fb, sn, b, size, off) in enumerate(zip(xs, fallbacks, snapshots, bases, sizes,
+                                                      offsets)):
+        x, fb, sn, b = (None if t is None else t.contiguous() for t in (x, fb, sn, b))
+        other = fb if b is None else b
+        out = buf[off:off + size]
+        keep += [x, sn, other]
         outs.append(out.view(xs[i].shape[1:]))
-        table.leaf[i] = _Leaf(x.data_ptr(), None if fb is None else fb.data_ptr(),
-                              out.data_ptr(), n, block, rows[i])
-        block += -(-n // _BLOCK_COLS)
+        table.leaf[i] = _Leaf(x.data_ptr(), ptr(sn), ptr(other), out.data_ptr(), size, block,
+                              rows[i], _MODE_FALLBACK if b is None else _MODE_BASE)
+        block += -(-size // _BLOCK_COLS)
     table.w, table.n_leaves, table.c_rows = wc.data_ptr(), len(xs), wc.shape[1]
     if block == 0:  # only empty leaves: nothing to launch
         return outs

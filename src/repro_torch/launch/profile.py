@@ -16,7 +16,9 @@ time. ``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
 stand-in at har-mlp's full width (``chip_smoke.py``'s main path): one eager
 round, then one replay of a CUDA graph of ``--chunk`` rounds
 (``repro_torch.fl.api.build_chunk_step``), each window with its host wall
-time. Needs a CUDA card.
+time. ``profile_async_events`` traces a run of the async scheduler
+(``chip_smoke.py``'s ``[async]`` calls it) and reports the device's busy
+time and kernels an event. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -120,6 +122,27 @@ def profile_fl_round(chunk: int = 5, seed: int = 0) -> dict:
     out[f"fl chunk of {chunk} rounds, CUDA-graph replay"] = {
         "rounds": chunk, "wall_ms": 1e3 * wall, **device_breakdown(prof, top=12)}
     return out
+
+
+def profile_async_events(data, cfg, device) -> dict:
+    """``device_breakdown`` of one async ``run_federated`` of ``cfg.rounds``
+    events on ``device`` (set-up and the first event included), with the
+    busy ms, kernels and host wall ms an event."""
+    from repro_torch.fl import run_federated
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h = run_federated(data, cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    row = device_breakdown(prof, top=10)
+    n = len(h.accuracy_mean)
+    row = {"events": n, "wall_ms_per_event": 1e3 * wall / n, **row}
+    if "busy_ms" in row:
+        row["busy_ms_per_event"] = row["busy_ms"] / n
+        row["kernels_per_event"] = row["kernels"] / n
+    return row
 
 
 def main(argv=None):

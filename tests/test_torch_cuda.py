@@ -21,7 +21,13 @@ contract of ``kernels/flash_attention/contract.py``: within 1 bf16 ulp of
 each element plus that plus ``p_rounding_slack`` (the kernel sums the
 scores in another order than the plain version's matmul, so a few P
 elements round to the neighbouring bf16 value), with at most 1e-3 of the
-elements beyond 1 ulp plus 1e-5 of max.
+elements beyond 1 ulp plus 1e-5 of max. The staleness merge (snapshot
+subtracted in the load loop, the global layer as the base) is
+masked_aggregate's kernel bitwise equal to its plain version, one launch an
+event; the async and fault steps run on the card with each FL kernel once
+an event, give the CPU's integer records and simulated clock exactly and
+its accuracy within 1e-6, and resume bit for bit, CUDA-graph chunks
+included.
 """
 
 import numpy as np
@@ -35,6 +41,7 @@ from repro_torch.fl import FLConfig, run_federated
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.contract import bf16_contract
 from repro_torch.kernels import build
+from repro_torch.core.aggregation import staleness_weighted_merge
 from repro_torch.kernels.masked_aggregate import (
     masked_aggregate,
     masked_aggregate_leaves,
@@ -381,3 +388,107 @@ def test_reduced_serving_runs_through_its_kernel(cuda, arch, kernel):
     stats = serve(cfg, requests=3, batch=2, prompt_len=32, max_new=4, device=cuda)
     assert kernels.launch_counts()[kernel] == cfg.n_layers * stats["prefill_calls"]
     assert stats["n_requests"] == 3 and stats["timer"] == "cuda-events"
+
+
+_HAR = [(256,), (561, 256), (256,), (256, 256), (256,), (256, 256), (6,), (256, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("landing", ["some", "none"])
+def test_staleness_merge_bitwise_in_one_launch(cuda, dtype, landing):
+    """har-mlp's 8 leaves at M = 30 slots, layer 2 shared by nobody (its
+    leaves come back as the base): one launch, bitwise the plain version,
+    and the fused snapshot bitwise the deltas passed."""
+    rng = np.random.default_rng(20)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)  # noqa: E731
+    snaps = [f(30, *sh) for sh in _HAR]
+    xs = [s_ + 0.01 * f(30, *sh) for s_, sh in zip(snaps, _HAR)]
+    bases = [f(*sh) for sh in _HAR]
+    w = ((rng.random((4, 30)) < 0.5) * rng.integers(20, 400, (4, 30)) * rng.random(30))
+    w[2] = 0.0
+    if landing == "none":
+        w[:] = 0.0
+    w = torch.from_numpy(w.astype(np.float32))
+    rows = [j for j in range(4) for _ in range(2)]
+    dev = lambda ts: [t.to(cuda) for t in ts]  # noqa: E731
+    kernels.reset_launch_counts()
+    got = masked_aggregate_leaves(dev(xs), w.to(cuda), rows, snapshots=dev(snaps),
+                                  bases=dev(bases))
+    assert kernels.launch_counts()["masked_aggregate"] == 1
+    want = masked_aggregate_leaves_plain(xs, w, rows, snapshots=snaps, bases=bases)
+    deltas = masked_aggregate_leaves(dev([x - s_ for x, s_ in zip(xs, snaps)]), w.to(cuda), rows,
+                                     bases=dev(bases))
+    for i, (g, p, d) in enumerate(zip(got, want, deltas)):
+        assert g.dtype == dtype and torch.equal(g.cpu(), p), i
+        if dtype == torch.float32:
+            assert torch.equal(g, d), i
+        if rows[i] == 2 or landing == "none":
+            assert torch.equal(g.cpu(), bases[i]), i
+
+
+def test_staleness_weighted_merge_on_cuda_is_one_launch(cuda):
+    rng = np.random.default_rng(21)
+    layers = [{"w": torch.from_numpy(rng.standard_normal((5, 7, 3)).astype(np.float32)),
+               "b": torch.from_numpy(rng.standard_normal((5, 3)).astype(np.float32))}
+              for _ in range(3)]
+    g = [{"w": torch.zeros(7, 3), "b": torch.ones(3)} for _ in range(3)]
+    w = torch.from_numpy(rng.random(5).astype(np.float32))
+    share = torch.from_numpy(rng.random((5, 3)) < 0.7)
+    to = lambda tree: [{k: v.to(cuda) for k, v in layer.items()} for layer in tree]  # noqa: E731
+    kernels.reset_launch_counts()
+    got = staleness_weighted_merge(to(layers), to(g), w.to(cuda), share.to(cuda),
+                                   snapshots=to(layers))
+    assert kernels.launch_counts()["masked_aggregate"] == 1
+    want = staleness_weighted_merge(layers, g, w, share, snapshots=layers)
+    for a, b in zip(got, want):
+        for k in a:
+            assert torch.equal(a[k].cpu(), b[k])
+
+
+_SMALL = dict(n_clients=8, n_classes=4, n_features=20, samples_per_client_range=(60, 90),
+              dirichlet_alpha=50.0, client_shift=0.05, class_sep=5.0, seed=1)
+_EXACT = ("selected", "pms", "tx_params", "tx_wire_bytes", "round_time", "sim_clock",
+          "staleness_mean", "in_flight", "rejected_updates")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(codec="int8", scheduler="async", buffer_k=2, max_concurrency=4),
+    dict(strategy="oort", personalization="ft", fraction=0.5, scheduler="async", buffer_k=4,
+         heterogeneity=0.5),
+    dict(dropout_rate=0.3, deadline_s=10.0, corrupt_rate=0.3, codec="int8"),
+    dict(scheduler="async", buffer_k=2, max_concurrency=4, dropout_rate=0.4, deadline_s=5.0,
+         corrupt_rate=0.3),
+], ids=["async-int8-M4", "async-oort-ft", "sync-faults-int8", "async-faults"])
+def test_async_and_fault_runs_on_cuda_match_cpu(cuda, cfg):
+    ds = make_federated_classification(**_SMALL)
+    kernels.reset_launch_counts()
+    h = run_federated(ds, FLConfig(rounds=5, epochs=1, **cfg), device=cuda)
+    counts = kernels.launch_counts()
+    n = len(h.accuracy_mean)
+    assert counts["masked_aggregate"] == n, counts
+    if "codec" in cfg:
+        assert counts["quantize"] == counts["dequantize"] == n, counts
+    ref = run_federated(ds, FLConfig(rounds=5, epochs=1, **cfg), device="cpu")
+    for field in _EXACT:
+        np.testing.assert_array_equal(getattr(h, field), getattr(ref, field), err_msg=field)
+    assert np.abs(h.accuracy_per_client - ref.accuracy_per_client).max() <= 1e-6
+
+
+@pytest.mark.parametrize("cfg", [dict(scan_chunk=1), dict(scan_chunk=2), dict(scan_chunk=3),
+                                 dict(codec="int8", scheduler="async", buffer_k=2,
+                                      max_concurrency=4)],
+                         ids=["chunk1", "chunk2", "chunk3", "async-int8"])
+def test_resume_on_cuda_bitwise(cuda, tmp_path, cfg):
+    """Stopped at 2, resumed to 5: the uninterrupted history bit for bit
+    (at chunk 2 and 3 the resumed run captures its graphs after loading)."""
+    ds = make_federated_classification(**_SMALL)
+    kw = dict(codec="int8", **cfg) if "codec" not in cfg else cfg
+    full = run_federated(ds, FLConfig(rounds=5, epochs=1, **kw), device=cuda)
+    d = str(tmp_path / "ckpt")
+    run_federated(ds, FLConfig(rounds=2, epochs=1, **kw), device=cuda, checkpoint_every=2,
+                  checkpoint_dir=d)
+    res = run_federated(ds, FLConfig(rounds=5, epochs=1, **kw), device=cuda, resume_from=d)
+    for field in full._fields:
+        if field != "wall_time" and getattr(full, field) is not None:
+            np.testing.assert_array_equal(getattr(res, field), getattr(full, field),
+                                          err_msg=field)
