@@ -13,11 +13,21 @@ drives the port's two paths:
   round by round and then in fused chunks of rounds (CUDA-graph replays,
   which must give the same history bit for bit), with a cohort of 10 of the
   30 clients and with evaluation every second round;
+- run records (``[obs]``): the int8 main path recorded through
+  ``run_federated(recorder=RunRecorder(...))`` at scan_chunk 1 and 5 and
+  the async scheduler, trace and profile on, each bitwise its unrecorded
+  run with the same kernel launches;
+- personalized serving (``[classify]``): ``fit_servable`` (none, ft, and
+  dld with int8) on the UCI-HAR stand-in, a save/load round trip, the
+  engine's per-lane bit identity on the card, the card against the CPU,
+  and every test row of the 30 clients served as one request each through
+  ``ClassifyProgram`` and ``ContinuousBatcher`` with a ``ServeRecorder``;
 - LM serving at full width and full depth, falcon-mamba-7b and then
   granite-3-8b (8 requests, batch 4, prompts of 2048 tokens, up to 32 new
   tokens, random weights from seed 0), through
   ``repro_torch.launch.serve.serve``, after the port's reduced models on
-  the card are held to the same models on the CPU.
+  the card are held to the same models on the CPU, and a recorded serving
+  session of the reduced granite-3-8b (``serve(..., record=dir)``).
 
 Every phase prints its lines; the kernel table is one JSON line; the last
 line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
@@ -31,6 +41,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -78,8 +89,23 @@ from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.mlp import mlp_apply  # noqa: E402
 from repro_torch.models.api import make_concrete_batch  # noqa: E402
+from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    ClassifyProgram,
+    ContinuousBatcher,
+    PersonalizedEngine,
+    ServeRecorder,
+    ServeRequest,
+    fit_servable,
+    latency_stats,
+    load_servable,
+    save_servable,
+)
+from repro_torch.serve.engine import LANES  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.weights import servable_from_numpy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate, fp32
 # (non-tensor-core) rate, and the dense bf16 tensor-core rate
@@ -149,6 +175,21 @@ SMALL_MAX_NORM = 10.0
 # within 1e-6 (PERF.md section 2)
 EXACT_FIELDS = ("selected", "pms", "tx_params", "tx_wire_bytes", "round_time", "sim_clock",
                 "staleness_mean", "in_flight", "rejected_updates")
+
+# [obs]: the int8 main path recorded at these chunk sizes, and async
+OBS_ROUNDS = 20
+OBS_CHUNKS = (1, 5)
+OBS_EVENTS = 20
+# [classify]: fit_servable per mode (the codec: dld rides the int8 kernels),
+# the batch sizes held to forward_unbatched lane for lane, the batcher's
+# batch sizes, and the card against the CPU on the same artifact: logits
+# within 1e-5 of max|logit| (the GEMMs sum in another order), predictions
+# equal
+CLASSIFY_MODES = (("none", "float32"), ("ft", "float32"), ("dld", "int8"))
+CLASSIFY_ROUNDS = 5
+LANE_BATCHES = (1, 5, 30)
+SERVE_BATCHES = (1, 8, 32)
+CLASSIFY_REL = 1e-5
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
 SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
@@ -936,6 +977,270 @@ def phase_resume(dev: torch.device) -> None:
               f"{np.round(res.accuracy_mean, 4).tolist()}")
 
 
+def scratch_dir(prefix: str) -> str:
+    """A fresh temporary directory under the checkout's ``build/``."""
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=root)
+
+
+def recorded_run(data, cfg: FLConfig, dev, out: str, **rec_kw) -> tuple:
+    """``run_federated`` with a RunRecorder into ``out``; returns the
+    history, the kernel launches of the run and the profile."""
+    kernels.reset_launch_counts()
+    h = run_federated(data, cfg, device=dev,
+                      recorder=RunRecorder(out, trace=True, profile=True, echo=False, **rec_kw))
+    counts = kernels.launch_counts()
+    with open(os.path.join(out, "profile.json")) as f:
+        prof = json.load(f)
+    return h, counts, prof
+
+
+def phase_obs(dev: torch.device, card: str) -> None:
+    """Run records at full width: the int8 main path (UCI-HAR, har-mlp,
+    ACSP-FL + DLD) for 20 rounds at scan_chunk 1 and 5 and the async
+    scheduler for 20 events, recorded with trace and profile. Each history
+    is bitwise the unrecorded run's with the same kernel launches (counts
+    zeroed just before each run and read just after), metrics.jsonl is
+    byte-identical across the chunk sizes, the traces validate against the
+    30-client population, and the profiles hold their phases (capture at
+    chunk 5) and the card's memory watermark. A short run with a
+    torch.profiler capture must see the card's kernels."""
+    data = make_har_dataset("uci-har", seed=0)
+    d = scratch_dir("smoke_obs_")
+    try:
+        metrics, walls = {}, {}
+        runs = [(f"sync scan_chunk={c}", FLConfig(codec="int8", rounds=OBS_ROUNDS, epochs=2,
+                                                  scan_chunk=c)) for c in OBS_CHUNKS]
+        runs.append(("async", FLConfig(rounds=OBS_EVENTS, **ASYNC_CFG)))
+        for name, cfg in runs:
+            kernels.reset_launch_counts()
+            bare = run_federated(data, cfg, device=dev)
+            bare_counts = kernels.launch_counts()
+            out = os.path.join(d, name.replace(" ", "_"))
+            h, counts, prof = recorded_run(data, cfg, dev, out)
+            diff = history_diff(h, bare)
+            check(not diff, f"[obs] {name}: the recorded history differs in {diff}")
+            check(counts == bare_counts, f"[obs] {name}: launches {counts} recorded, "
+                                         f"{bare_counts} without the recorder")
+            errs = validate_trace_file(os.path.join(out, "trace.json"), population=data.n_clients)
+            check(not errs, f"[obs] {name}: trace invalid {errs[:3]}")
+            chunked = name != "async" and cfg.execution.scan_chunk > 1
+            phases = ("dispatch", "device_get", "record") + (("capture",) if chunked else ())
+            check(all(prof["totals_s"].get(p, 0) > 0 for p in phases),
+                  f"[obs] {name}: profile phases {prof['totals_s']}")
+            check((prof["peak_live_bytes"] or 0) > 0, f"[obs] {name}: no memory watermark")
+            with open(os.path.join(out, "metrics.jsonl"), "rb") as f:
+                metrics[name] = f.read()
+            check(len(metrics[name].splitlines()) == cfg.rounds, f"[obs] {name}: rows")
+            first = cfg.execution.scan_chunk if name.startswith("sync") else 1
+            walls[name] = dict(
+                bare_ms=1e3 * statistics.median(bare.wall_time[first:]),
+                recorded_ms=1e3 * statistics.median(h.wall_time[first:]),
+                record_ms_a_round=1e3 * prof["totals_s"]["record"] / cfg.rounds,
+                profile_s={k: round(v, 4) for k, v in prof["totals_s"].items()},
+                graph_captures=prof["graph_captures"],
+                peak_live_mib=round((prof["peak_live_bytes"] or 0) / 2**20, 1))
+        sync_names = [n for n, _ in runs if n.startswith("sync")]
+        check(len({metrics[n] for n in sync_names}) == 1,
+              "[obs] metrics.jsonl differs across scan_chunk sizes")
+        # the recorder's cost at the last chunk size, the pair again in the
+        # other order (unrecorded, recorded, recorded, unrecorded)
+        name, cfg = runs[len(OBS_CHUNKS) - 1]
+        h, _, _ = recorded_run(data, cfg, dev, os.path.join(d, "again"))
+        bare = run_federated(data, cfg, device=dev)
+        first = cfg.execution.scan_chunk
+        walls[name].update(recorded_again_ms=1e3 * statistics.median(h.wall_time[first:]),
+                           bare_again_ms=1e3 * statistics.median(bare.wall_time[first:]))
+        # torch.profiler through torch_trace_dir: the card's kernels in its trace
+        tdir = os.path.join(d, "torch")
+        h, _, prof = recorded_run(data, FLConfig(codec="int8", rounds=5, epochs=2, scan_chunk=5),
+                                  dev, os.path.join(d, "traced"), torch_trace_dir=tdir)
+        with open(prof["torch_trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernel = sum(1 for e in events if e.get("cat") == "kernel")
+        check(n_kernel > 0, "[obs] the torch.profiler trace holds no device kernel")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[obs] {card}: acsp-fl+dld+int8 uci-har {OBS_ROUNDS} rounds at scan_chunk "
+          f"{OBS_CHUNKS} and async {OBS_EVENTS} events recorded (trace + profile): histories "
+          f"bitwise the unrecorded runs, launches equal, metrics.jsonl byte-identical across "
+          f"chunk sizes, traces valid for population {data.n_clients}; torch.profiler trace "
+          f"of 5 rounds at chunk 5: {n_kernel} device kernel events")
+    print(f"[obs] {card}: host wall ms a round (event), median past the first chunk, "
+          f"unrecorded vs recorded (at scan_chunk={OBS_CHUNKS[-1]} in the order unrecorded, "
+          f"recorded, recorded again, unrecorded again), with the recorded run's profile: "
+          f"{json.dumps(walls)}")
+
+
+def unpadded_lanes(engine: PersonalizedEngine, ids, x) -> tuple[int, float]:
+    """The lane form without the engine's padding to blocks of LANES: lane
+    k of one (B, 1, F) x (B, F, H) call for the whole batch against a
+    (1, 1, F) x (1, F, H) call for its client alone. Returns the lanes that
+    differ and the largest gap over max|logit|."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=engine.device)
+    with torch.no_grad():
+        batch = engine.apply_fn(engine.lane_models(ids), x[:, None])[:, 0]
+        alone = torch.cat([engine.apply_fn(engine.lane_models([int(c)]), x[k:k + 1, None])[:, 0]
+                           for k, c in enumerate(ids)])
+    return int((batch != alone).any(1).sum()), rel_gap(batch, alone)
+
+
+def phase_classify(dev: torch.device, card: str) -> dict[str, int]:
+    """Personalized serving at full width (UCI-HAR stand-in, har-mlp):
+    fit_servable per mode (dld with int8: its kernel launches counted,
+    zeroed just before and read just after), a save/load round trip
+    bitwise, per-lane bit identity on the card (B = 1, 5, 30 and a batch
+    that mixes the modes), the card against the CPU on the same artifact,
+    and every test row of the 30 clients served as one request each at
+    batch 1, 8 and 32 with a ServeRecorder. Returns the FL kernels'
+    launches of the dld fit."""
+    data = make_har_dataset("uci-har", seed=0)
+    rng = np.random.default_rng(0)
+    d = scratch_dir("smoke_classify_")
+    arts, fit_counts, lines = {}, {}, []
+    try:
+        for mode, codec in CLASSIFY_MODES:
+            kernels.reset_launch_counts()
+            art, _ = fit_servable(data, FLConfig(personalization=mode, codec=codec,
+                                                 rounds=CLASSIFY_ROUNDS, epochs=2), device=dev)
+            counts = kernels.launch_counts()
+            check(counts["masked_aggregate"] == CLASSIFY_ROUNDS, f"[classify] {mode}: {counts}")
+            if codec == "int8":
+                check(counts["quantize"] == counts["dequantize"] == CLASSIFY_ROUNDS,
+                      f"[classify] {mode} int8: {counts}")
+                fit_counts = {k: counts[k] for k in FL_KERNELS}
+            # save / load, bitwise
+            path = os.path.join(d, mode)
+            save_servable(art, path)
+            back = load_servable(path, device=dev)
+            pairs = list(zip(tree_leaves(art.global_params), tree_leaves(back.global_params)))
+            pairs += list(zip(tree_leaves(art.local_params), tree_leaves(back.local_params)))
+            check(torch.equal(back.share_mask, art.share_mask) and back.meta == art.meta
+                  and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+                  and (art.local_params is None) == (back.local_params is None),
+                  f"[classify] {mode}: the save/load round trip is not bitwise")
+            arts[mode] = back
+            # per-lane bit identity on the card
+            engine = PersonalizedEngine(back)
+            rows = back.share_mask.cpu().numpy()
+            kinds = {}
+            for i, r in enumerate(rows):
+                kinds.setdefault(tuple(r), []).append(i)
+            mixed = [g[0] for g in kinds.values()] + [next(iter(kinds.values()))[0]]
+            batches = [rng.integers(0, data.n_clients, size=b) for b in LANE_BATCHES] + [
+                np.asarray(mixed)]
+            plain_gap, unpadded = 0.0, {}
+            on_cpu = PersonalizedEngine(servable_from_numpy(back, "cpu"))
+            for ids in batches:
+                x = data.x_test[ids, rng.integers(0, int(data.m_test.sum(1).min()), len(ids))]
+                out = engine.forward(ids, x)
+                xd = torch.as_tensor(x, device=dev)
+                for k in range(len(ids)):
+                    check(torch.equal(out[k], engine.forward_unbatched(int(ids[k]), x[k])),
+                          f"[classify] {mode}: lane {k} of a batch of {len(ids)} differs "
+                          f"from forward_unbatched")
+                    # the plain (1, F) x (F, H) forward of the composed model
+                    plain = mlp_apply(engine.client_model(int(ids[k])), xd[k:k + 1])[0]
+                    plain_gap = max(plain_gap, rel_gap(out[k], plain))
+                    check(int(out[k].argmax()) == int(plain.argmax()),
+                          f"[classify] {mode}: lane {k} predicts another class than the plain "
+                          f"forward")
+                # measured, not checked: what the padding guards against
+                unpadded[len(ids)] = dict(card=unpadded_lanes(engine, ids, x),
+                                          cpu=unpadded_lanes(on_cpu, ids, x))
+            check(plain_gap <= CLASSIFY_REL,
+                  f"[classify] {mode}: lanes vs the plain forward gap {plain_gap} of max")
+            # the same artifact on the card and on the CPU
+            ids = np.repeat(np.arange(data.n_clients), 8)
+            x = data.x_test[ids, np.tile(np.arange(8), data.n_clients)]
+            got = engine.forward(ids, x).cpu()
+            want = on_cpu.forward(ids, x)
+            gap = rel_gap(got, want)
+            check(gap <= CLASSIFY_REL and torch.equal(got.argmax(1), want.argmax(1)),
+                  f"[classify] {mode}: card vs CPU logits gap {gap} of max, predictions equal "
+                  f"{torch.equal(got.argmax(1), want.argmax(1))}")
+            lines.append(f"{mode}/{codec}: {len(kinds)} compositions over "
+                         f"{back.meta['personalized_clients']} personalized clients, lanes bitwise "
+                         f"at B={LANE_BATCHES} and mixed {len(mixed)}, lanes vs the plain "
+                         f"(1,F)x(F,H) forward gap {plain_gap:.3g} of max, card vs CPU logits gap "
+                         f"{gap:.3g} of max, fit launches {json.dumps(counts)}; without padding "
+                         f"(lanes differing from a batch of one, gap of max) by B: {unpadded}")
+        # serve every test row of the 30 clients, one request each
+        art = arts["dld"]
+        engine = PersonalizedEngine(art)
+        cid, row = np.nonzero(data.m_test)
+        reqs = [ServeRequest(rid=i, client_id=int(c), inputs=data.x_test[c, r])
+                for i, (c, r) in enumerate(zip(cid, row))]
+        want = engine.forward(cid, data.x_test[cid, row]).cpu().numpy()
+        served = {}
+        for b in SERVE_BATCHES:
+            out = os.path.join(d, f"serve_b{b}")
+            rec = ServeRecorder(out, trace=True)
+            rec.open_session(artifact_meta=art.meta, engine="classify", batch_size=b,
+                             device=dev)
+            results = ContinuousBatcher(ClassifyProgram(engine, b), b, recorder=rec).run(reqs)
+            stats = latency_stats(results)
+            rec.close(stats)
+            with open(os.path.join(out, "requests.jsonl")) as f:
+                n_rows = sum(1 for _ in f)
+            check(n_rows == len(reqs) == stats["n_requests"],
+                  f"[classify] batch {b}: {n_rows} request rows for {len(reqs)} requests")
+            check(not validate_trace_file(os.path.join(out, "trace.json")),
+                  f"[classify] batch {b}: serve trace invalid")
+            got = np.stack([r.output for r in sorted(results, key=lambda r: r.rid)])
+            check(np.array_equal(got, want), f"[classify] batch {b}: served logits differ "
+                                             f"from the batched forward")
+            served[b] = dict(qps=round(stats["qps"], 1), p50_ms=round(stats["latency_p50_ms"], 3),
+                             p99_ms=round(stats["latency_p99_ms"], 3), wall_s=round(stats["wall_s"], 4))
+        acc = float((want.argmax(1) == data.y_test[cid, row]).mean())
+        ids = torch.as_tensor(rng.integers(0, data.n_clients, size=32), device=dev)
+        xb = torch.as_tensor(data.x_test[ids.cpu().numpy(), 0], device=dev)
+        fwd_eager = cuda_ms(lambda: engine.forward(ids, xb))
+        fwd_device = device_ms(lambda: engine.forward(ids, xb))
+        # one request: the padded block against the unpadded lane form
+        with torch.no_grad():
+            one_padded = device_ms(lambda: engine.forward(ids[:1], xb[:1]))
+            one_unpadded = device_ms(
+                lambda: engine.apply_fn(engine.lane_models(ids[:1]), xb[:1, None]))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for line in lines:
+        print(f"[classify] uci-har C={data.n_clients} har-mlp {'-'.join(map(str, HAR_MLP))} "
+              f"{CLASSIFY_ROUNDS} rounds, {line}")
+    print(f"[classify] {card}: served all {len(reqs)} test rows (dld/int8 artifact, prediction "
+          f"accuracy {acc:.4f}) one request each through ClassifyProgram + ContinuousBatcher "
+          f"with a ServeRecorder (requests.jsonl one row a request, trace valid, outputs bitwise "
+          f"the batched forward), by batch: {json.dumps(served)}")
+    print(f"[classify] {card}: forward of B=32 lanes (dld), ms: eager from the host "
+          f"(CUDA events) {fwd_eager:.4f}, device (one CUDA-graph replay) {fwd_device:.4f}; "
+          f"B=1 device: padded to {LANES} lanes {one_padded:.4f}, unpadded {one_unpadded:.4f}")
+    return fit_counts
+
+
+def phase_serve_record(dev: torch.device) -> None:
+    """A recorded serving session of the reduced granite-3-8b on the card:
+    ``serve(..., record=dir)``; its record validates."""
+    d = scratch_dir("smoke_serve_record_")
+    try:
+        stats = serve(get_config("granite-3-8b").reduced(), requests=4, batch=2, prompt_len=16,
+                      max_new=4, device=dev, record=d)
+        with open(os.path.join(d, "manifest.json")) as f:
+            man = json.load(f)
+        with open(os.path.join(d, "requests.jsonl")) as f:
+            n_rows = sum(1 for _ in f)
+        errs = validate_trace_file(os.path.join(d, "trace.json"))
+        check(not errs and n_rows == 4 == man["requests_recorded"]
+              and man["environment"]["backend"] == "cuda" and man["environment"]["gpu"],
+              f"[serve-record] record invalid: {errs[:3]} rows {n_rows} manifest "
+              f"{man.get('requests_recorded')} env {man['environment'].get('gpu')}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[serve-record] granite-3-8b reduced on the card, serve(record=dir): 4 requests, "
+          f"{stats['tokens']} tokens, manifest + requests.jsonl (4 rows) + trace valid; "
+          f"environment {man['environment']['gpu']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -953,7 +1258,11 @@ def main() -> int:
     table["masked_aggregate"]["merge_launches"] = phase_async(dev, card)
     phase_faults(dev)
     phase_resume(dev)
+    phase_obs(dev, card)
+    for name, n in phase_classify(dev, card).items():
+        table[name]["classify_launches"] = n
     phase_lm_reference(dev)
+    phase_serve_record(dev)
     for arch, kernel in SERVE_ARCHS:
         launches[kernel] = phase_serve(dev, arch, kernel)[kernel]
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}

@@ -5,6 +5,7 @@ from repro_torch.checkpoint.checkpoint import (
     load_fl_state,
     load_host_arrays,
     load_pytree,
+    load_pytree_auto,
     save_fl_state,
     save_host_arrays,
     save_pytree,
@@ -13,6 +14,7 @@ from repro_torch.checkpoint.checkpoint import (
 __all__ = [
     "save_pytree",
     "load_pytree",
+    "load_pytree_auto",
     "save_host_arrays",
     "load_host_arrays",
     "save_fl_state",

@@ -9,7 +9,11 @@ structure and puts every leaf on its template leaf's device and dtype
 (bfloat16 round-trips through the float32 the ``.npz`` stores). Host
 arrays (the schedulers' float64 accounting lanes) are saved verbatim. The
 file names are the JAX package's (``round_{r:05d}``, ``hist_{r:05d}``);
-the files are not meant to be read by the other package.
+the FL-state files are not meant to be read by the other package.
+``load_pytree_auto`` needs no template: it rebuilds nested dicts and
+lists from the key paths, and reads a directory written by either
+package's ``save_pytree`` (the key paths are the same; the manifest's
+dtypes are numpy's names in the JAX package's, torch's in the port's).
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["save_pytree", "load_pytree", "save_host_arrays", "load_host_arrays",
-           "save_fl_state", "load_fl_state"]
+__all__ = ["save_pytree", "load_pytree", "load_pytree_auto", "save_host_arrays",
+           "load_host_arrays", "save_fl_state", "load_fl_state"]
 
 
 def _leaves_with_paths(tree, prefix: str = ""):
@@ -98,6 +102,49 @@ def load_pytree(template, directory: str, name: str = "ckpt"):
             else:
                 leaves.append(arr.copy())
     return _rebuild(template, iter(leaves))
+
+
+def _torch_dtype(name: str | None) -> torch.dtype | None:
+    """A manifest dtype name (``float32``, ``torch.bfloat16``) as a torch dtype."""
+    if name is None:
+        return None
+    dtype = getattr(torch, name.removeprefix("torch."), None)
+    return dtype if isinstance(dtype, torch.dtype) else None
+
+
+def _listify(node):
+    """Nested dicts from key paths -> the tree: a dict whose keys are all
+    digits (``0``..``n-1``) becomes a list."""
+    if not isinstance(node, dict):
+        return node
+    items = {k: _listify(v) for k, v in node.items()}
+    if items and all(k.isdigit() for k in items):
+        return [items[str(i)] for i in range(len(items))]
+    return items
+
+
+def load_pytree_auto(directory: str, name: str = "ckpt"):
+    """Load a checkpoint WITHOUT a template, rebuilding nested dicts and
+    lists from the manifest's key paths: an all-digit path segment becomes
+    a list index, anything else a dict key. Leaves come back as CPU
+    tensors in their saved dtypes (bfloat16 through the float32 the
+    ``.npz`` holds, exactly). Trees with NamedTuples need ``load_pytree``'s
+    template."""
+    with open(os.path.join(directory, f"{name}.json")) as f:
+        manifest = json.load(f)
+    root: dict = {}
+    with np.load(os.path.join(directory, f"{name}.npz")) as data:
+        for key in manifest["keys"]:
+            t = torch.from_numpy(data[key].copy())
+            want = _torch_dtype(manifest.get("dtypes", {}).get(key))
+            if want is not None and t.dtype != want:
+                t = t.to(want)
+            *parents, last = key.split("/")
+            node = root
+            for seg in parents:
+                node = node.setdefault(seg, {})
+            node[last] = t
+    return _listify(root)
 
 
 def save_host_arrays(arrays: dict, directory: str, name: str) -> str:

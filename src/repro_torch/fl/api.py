@@ -18,6 +18,7 @@ one replay of a CUDA graph (the counterpart of the JAX package's donated
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, NamedTuple
@@ -727,12 +728,13 @@ class _ChunkStep:
         kernels.add_launch_counts({k: before[k] - after[k] for k in after})
         self._graph = graph
 
-    def __call__(self, state: RoundState, ts: torch.Tensor):
+    def __call__(self, state: RoundState, ts: torch.Tensor, on_capture=contextlib.nullcontext):
         self._bind(state, ts)
         if self._bufs[0].device.type != "cuda":
             return self._state, self._rounds()
         if self._graph is None:
-            self._capture()
+            with on_capture():
+                self._capture()
         self._graph.replay()
         kernels.add_launch_counts(self._counts)
         return self._state, self._outs
@@ -759,6 +761,8 @@ def build_chunk_step(round_step, length: int):
     ``length`` rounds in a ``torch.cuda.CUDAGraph`` reading the buffers and
     the round indices from device memory; every call replays the graph (one
     launch from the host for the whole chunk). A capture that fails raises.
+    A call may pass ``on_capture``, a context-manager factory the warm-up
+    and capture run inside (the profiler's ``capture`` phase).
     The kernels' launch counters count a replay as the launches its capture
     recorded (``repro_torch.kernels.add_launch_counts``). The returned
     ``outs`` are the graph's own output buffers: read them (``numpy()``)

@@ -9,7 +9,8 @@ A round is the phase pipeline of ``repro_torch.fl.api``:
 
 driven by ``repro_torch.fl.sched.SyncScheduler`` (the paper's barrier) or
 ``AsyncScheduler`` (FedBuff-style buffered aggregation over dispatch
-slots), with optional fault injection and checkpoint/resume under both.
+slots), with optional fault injection, checkpoint/resume and a run recorder
+(``repro_torch.obs``) under both.
 Every entry point takes
 ``device=``: the CUDA card by default, the CPU only when asked for; with no
 card and ``device=None`` they raise rather than run on the CPU quietly.
@@ -56,9 +57,10 @@ class FLHistory(NamedTuple):
     rejected_updates: np.ndarray | None = None  # (T,) finite-guard rejections
     wall_time: np.ndarray | None = None  # (T,) host seconds per round: its
                                          # chunk's time, up to the fetch of the
-                                         # records and their accounting, split
-                                         # evenly over the chunk's rounds; the
-                                         # port's own field
+                                         # records, their accounting and the
+                                         # recorder's pass, split evenly over
+                                         # the chunk's rounds; the port's own
+                                         # field
 
 
 def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,
@@ -95,17 +97,18 @@ def run_federated(data: FederatedDataset, cfg: FLConfig, device=None,
     simulated clock. ``checkpoint_every`` snapshots the run into
     ``checkpoint_dir`` (or ``resume_from``, which doubles as the write
     directory); ``resume_from`` continues from its latest snapshot, bit for
-    bit the uninterrupted run. The recorder comes with ROADMAP.md queue 1
-    item 9 (``obs/``) and raises here.
+    bit the uninterrupted run. ``recorder`` (a
+    ``repro_torch.obs.RunRecorder``) writes the run's record — manifest,
+    per-round metrics, progress log, optional trace and profile — from
+    the numpy records of each chunk's or event's one fetch; the history is
+    bitwise the unrecorded run's.
     """
-    from repro_torch.fl.sched import _not_ported, make_scheduler
+    from repro_torch.fl.sched import make_scheduler
 
-    if recorder is not None:
-        raise _not_ported("recorder", 9, "repro obs/record")
     dev = resolve_device(device)
     return make_scheduler(cfg).run(
         data, cfg, dev, init_fn=init_fn, loss_fn=loss_fn, acc_fn=acc_fn, comm=comm,
-        progress=progress, pipeline=pipeline, client_delay=client_delay,
+        progress=progress, pipeline=pipeline, client_delay=client_delay, recorder=recorder,
         checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
         resume_from=resume_from,
     )

@@ -20,7 +20,10 @@
   host arms crashes, deadlines, retries with backoff and drops.
 
 Both snapshot and resume their whole state (``repro_torch.checkpoint``):
-a resumed run gives the uninterrupted run's history bit for bit.
+a resumed run gives the uninterrupted run's history bit for bit. Both
+feed an optional ``repro_torch.obs.RunRecorder`` (``recorder=``) from the
+numpy records of each chunk's or event's one fetch, and time their
+phases on its profiler; the device work is the unrecorded run's.
 ``check_slice`` raises ``NotImplementedError`` for every option outside
 the ported slices, naming the ROADMAP.md item that ports it, so no option
 is silently ignored.
@@ -29,6 +32,7 @@ is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 import time
 from typing import Any, Callable, NamedTuple
@@ -57,6 +61,8 @@ from repro_torch.fl.api import (
 from repro_torch.fl.cohort import scatter_rows, tree_scatter, tree_take
 from repro_torch.fl.faults import apply_corruption, compile_fault_plan
 from repro_torch.models.mlp import init_mlp, mlp_accuracy, mlp_loss
+from repro_torch.obs.profile import phase_timer
+from repro_torch.obs.record import format_async_progress, format_sync_progress
 from repro_torch.tree import tree_map
 
 __all__ = ["AsyncScheduler", "AsyncState", "ClientClock", "EventQueue", "SyncScheduler",
@@ -378,7 +384,7 @@ class SyncScheduler:
             init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
             acc_fn: Callable = mlp_accuracy, comm: CommModel | None = None,
             progress: bool = False, pipeline: RoundPipeline | None = None,
-            client_delay: np.ndarray | None = None, checkpoint_every: int = 0,
+            client_delay: np.ndarray | None = None, recorder=None, checkpoint_every: int = 0,
             checkpoint_dir: str | None = None, resume_from: str | None = None):
         from repro_torch.fl.engine import FLHistory
 
@@ -397,6 +403,11 @@ class SyncScheduler:
         chunk_steps: dict[int, Callable] = {}  # length -> chunk step (body and tail)
         lanes = cfg.execution.resolved_cohort(data.n_clients)
         delay = None if clock.uniform else clock.delay
+        if recorder is not None:
+            recorder.open_run(mode="sync", cfg=cfg, data=data, comm=comm, clock=clock,
+                              lanes=lanes, device=device)
+        prof = recorder.profiler if recorder is not None else None
+        emit = recorder.log if recorder is not None else print
         hist: dict[str, list] = {k: [] for k in _SYNC_HIST}
         start = 0
         if resume_from is not None:
@@ -410,6 +421,8 @@ class SyncScheduler:
         for t0 in range(start, cfg.rounds, chunk):
             n = min(chunk, cfg.rounds - t0)
             t_start = time.perf_counter()
+            if prof is not None:
+                prof.begin_chunk(t0, n)
             if faulty:
                 pms_host = state.pms.cpu().numpy()
                 sel_pre = state.select.cpu().numpy()
@@ -418,21 +431,30 @@ class SyncScheduler:
                     # every selected client died: the server re-dispatches
                     # until someone answers, so the round runs fault-free
                     alive_np = np.ones_like(alive_np)
-                state, out = round_step(state, t0, _host_to(alive_np, device),
-                                        _host_to(plan.corrupt.astype(np.int32), device))
-                outs = StackedOuts([out])
+                with phase_timer(prof, "dispatch"):
+                    state, out = round_step(state, t0, _host_to(alive_np, device),
+                                            _host_to(plan.corrupt.astype(np.int32), device))
+                    outs = StackedOuts([out])
             elif chunk == 1:
-                state, out = round_step(state, t0)
-                outs = StackedOuts([out])
+                with phase_timer(prof, "dispatch"):
+                    state, out = round_step(state, t0)
+                    outs = StackedOuts([out])
             else:
+                ts = torch.arange(t0, t0 + n, dtype=torch.int32, device=device)
                 step = chunk_steps.get(n)
                 if step is None:
                     step = chunk_steps[n] = build_chunk_step(round_step, n)
-                state, outs = step(state, torch.arange(t0, t0 + n, dtype=torch.int32,
-                                                       device=device))
-            host = outs.numpy()  # the one device-to-host copy of the chunk
+                with phase_timer(prof, "dispatch"):
+                    # a first call captures the graph: timed as its own phase
+                    state, outs = step(state, ts,
+                                       on_capture=functools.partial(phase_timer, prof, "capture"))
+            with phase_timer(prof, "device_get"):
+                host = outs.numpy()  # the one device-to-host copy of the chunk
+            if prof is not None:
+                prof.end_chunk()
             acc, sel, pms = host["acc"], host["selected"], host["pms"]          # (n, C)
             wire = host["wire_per_client"].astype(np.float64)                   # (n, C)
+            n_dropped = None
             if faulty:
                 # the server waits on everyone it dispatched, up to the deadline
                 wait = dur_t[sel_pre]
@@ -440,6 +462,7 @@ class SyncScheduler:
                 if faults.deadline_s > 0.0:
                     rt = min(rt, faults.deadline_s)
                 rt = np.asarray([rt + comm.server_latency_s], np.float64)
+                n_dropped = int((sel_pre & ~alive_np).sum())
             else:
                 rt = comm.round_times(
                     wire, clock.round_flops(pms), sel,
@@ -451,11 +474,18 @@ class SyncScheduler:
             hist["wire"].append(wire.sum(axis=1))
             hist["tx_params"].append(host["tx_params"].astype(np.float64))
             hist["rejected"].append(host["rejected"].astype(np.int64))
+            if recorder is not None:
+                # straight off the chunk's one fetch above: no device read
+                with phase_timer(prof, "record"):
+                    recorder.on_sync_chunk(
+                        t0=t0, acc=acc, sel=sel, pms=pms, wire=wire, tx=hist["tx_params"][-1],
+                        times=rt, update_norm=host["update_norm"], lanes=lanes,
+                        rejected=hist["rejected"][-1],
+                        dropped=None if n_dropped is None else np.asarray([n_dropped], np.int64))
             hist["wall"].append(np.full((n,), (time.perf_counter() - t_start) / n))
             if progress:
                 for i in _progress_rows(t0, n, chunk, cfg.rounds):
-                    print(f"  round {t0 + i:3d}  acc={float(acc[i].mean()):.4f}  "
-                          f"|S|={int(sel[i].sum())}")
+                    emit(format_sync_progress(t0 + i, float(acc[i].mean()), int(sel[i].sum())))
             r = t0 + n
             if ckpt_dir and checkpoint_every and r // checkpoint_every > t0 // checkpoint_every:
                 save_fl_state({"state": state}, ckpt_dir, r)
@@ -464,7 +494,7 @@ class SyncScheduler:
 
         h = {k: np.concatenate(v) for k, v in hist.items()}
         times = h["round_time"]
-        return FLHistory(
+        history = FLHistory(
             accuracy_mean=h["acc"].mean(axis=1),
             accuracy_per_client=h["acc"],
             selected=h["selected"],
@@ -480,6 +510,9 @@ class SyncScheduler:
             rejected_updates=h["rejected"],
             wall_time=np.asarray(h["wall"], np.float64),
         )
+        if recorder is not None:
+            recorder.close(history)
+        return history
 
 
 # ---------------------------------------------------------------------------
@@ -743,7 +776,7 @@ class AsyncScheduler:
             init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
             acc_fn: Callable = mlp_accuracy, comm: CommModel | None = None,
             progress: bool = False, pipeline: RoundPipeline | None = None,
-            client_delay: np.ndarray | None = None, checkpoint_every: int = 0,
+            client_delay: np.ndarray | None = None, recorder=None, checkpoint_every: int = 0,
             checkpoint_dir: str | None = None, resume_from: str | None = None):
         from repro_torch.fl.engine import FLHistory
 
@@ -801,6 +834,12 @@ class AsyncScheduler:
             kind = np.where(code == 0, plan.corrupt[cids_arr], 0).astype(np.int32)
             return dur, code, kind
 
+        if recorder is not None:
+            recorder.open_run(mode="async", cfg=cfg, data=data, comm=comm, clock=clock,
+                              lanes=m, buffer_k=buffer_k, device=device)
+        prof = recorder.profiler if recorder is not None else None
+        emit = recorder.log if recorder is not None else print
+
         # --- host event queue over the M slots ---
         slot_client = slot_client0.copy()
         client_pms = np.full((c,), su.pms0, np.int32)
@@ -813,6 +852,8 @@ class AsyncScheduler:
             d0, slot_fail, slot_kind = arm_faults(slot_client0, d0, 0)
         for s in range(m):
             queue.push(s, d0[s], int(slot_client0[s]))
+        if recorder is not None:  # warm start: w(0) cut at simulated t=0
+            recorder.on_async_dispatch(slot_client0, 0.0, client_pms)
         active = np.ones((m,), bool)
         in_flight_clients = np.zeros((c,), bool)
         in_flight_clients[slot_client0] = True
@@ -820,6 +861,8 @@ class AsyncScheduler:
         sim_clock = 0.0
         version = 0
         hist: dict[str, list] = {k: [] for k in _ASYNC_HIST}
+        # slot failures noticed since the last recorded event (fault mode)
+        pend_retried = pend_timeout = pend_dropped = 0
         t = 0
         if resume_from is not None:
             # the latest snapshot: the AsyncState, every host lane verbatim,
@@ -856,6 +899,7 @@ class AsyncScheduler:
                 codes = slot_fail[landers]
                 ok_l = landers[codes == 0]
                 bad = landers[codes != 0]
+                pend_timeout += int((codes == 2).sum())
                 notice_max = float(queue.finish[landers].max())  # before retries re-push
                 can_retry = retries[bad] < faults.max_retries
                 retry_slots = bad[can_retry]
@@ -871,8 +915,10 @@ class AsyncScheduler:
                     slot_fail[s] = code_r[0]
                     slot_kind[s] = kind_r[0]
                     queue.push(s, float(queue.finish[s]) + backoff + float(d_r[0]), cid)
+                pend_retried += int(retry_slots.size)
                 if drop_slots.size:
                     # retries exhausted: free the slot and the client
+                    pend_dropped += int(drop_slots.size)
                     active[drop_slots] = False
                     in_flight_clients[slot_client[drop_slots]] = False
                 if ok_l.size == 0 and drop_slots.size == 0:
@@ -880,25 +926,34 @@ class AsyncScheduler:
                 landers = ok_l
                 land = np.zeros((m,), bool)
                 land[landers] = True
+                land_finish = queue.finish[landers].copy()
                 new_clock = notice_max + comm.server_latency_s
                 force = bool(int((active & ~land).sum()) == 0)
             else:
                 land = np.zeros((m,), bool)
                 land[landers] = True
-                new_clock = float(queue.finish[landers].max()) + comm.server_latency_s
+                land_finish = queue.finish[landers].copy()
+                new_clock = float(land_finish.max()) + comm.server_latency_s
                 force = bool(n_active - k == 0)
             staleness = np.where(land, version - dispatch_version, 0).astype(np.int32)
             landed_clients = slot_client[landers]
             idle_now = ~in_flight_clients
             idle_now[landed_clients] = True
 
-            args = [state, t, _host_to(land, dev), _host_to(staleness, dev),
-                    _host_to(active, dev), _host_to(idle_now, dev),
-                    _host_to(np.asarray(force), dev)]
-            if faulty:
-                args.append(_host_to(slot_kind, dev))
-            state, out = step(*args)
-            out = StackedOuts([out]).numpy()  # the one device-to-host copy of the event
+            if prof is not None:
+                prof.begin_chunk(t, 1)
+            with phase_timer(prof, "dispatch"):
+                args = [state, t, _host_to(land, dev), _host_to(staleness, dev),
+                        _host_to(active, dev), _host_to(idle_now, dev),
+                        _host_to(np.asarray(force), dev)]
+                if faulty:
+                    args.append(_host_to(slot_kind, dev))
+                state, out = step(*args)
+                outs = StackedOuts([out])
+            with phase_timer(prof, "device_get"):
+                out = outs.numpy()  # the one device-to-host copy of the event
+            if prof is not None:
+                prof.end_chunk()
             out = {key: v[0] for key, v in out.items()}
 
             dispatched = out["dispatched"]
@@ -933,13 +988,30 @@ class AsyncScheduler:
             hist["staleness"].append(float(out["staleness_mean"]))
             hist["in_flight_hist"].append(int(in_flight_clients.sum()))
             hist["rejected"].append(int(out["rejected"]))
+            if recorder is not None:
+                fault_kw = (dict(retried=pend_retried, timed_out=pend_timeout,
+                                 dropped=pend_dropped) if faulty else {})
+                with phase_timer(prof, "record"):
+                    recorder.on_async_event(
+                        t=t, acc=out["acc"], sel=out["selected"], tx=hist["tx_params"][-1],
+                        pms=out["pms"], wire=hist["wire"][-1], dt=hist["round_time"][-1],
+                        new_clock=new_clock, staleness_mean=hist["staleness"][-1],
+                        in_flight=hist["in_flight_hist"][-1], buffer_k=k,
+                        update_norm=out["update_norm"],
+                        merge_discount=float(out["merge_discount_mean"]),
+                        landed_clients=landed_clients, landed_finish=land_finish,
+                        landed_staleness=staleness[landers], rejected=hist["rejected"][-1],
+                        **fault_kw)
+                    if dispatched.any():  # re-dispatches cut at the new clock
+                        recorder.on_async_dispatch(slot_client[dispatched], new_clock,
+                                                   client_pms)
+            pend_retried = pend_timeout = pend_dropped = 0
             hist["wall"].append(time.perf_counter() - t_start)
             sim_clock = new_clock
             version += 1
             if progress and (t % 10 == 0 or t == cfg.rounds - 1):
-                print(f"  event {t:3d}  acc={float(np.mean(out['acc'])):.4f}  "
-                      f"|K|={int(land.sum())}  clock={new_clock:.2f}s  "
-                      f"staleness={hist['staleness'][-1]:.2f}")
+                emit(format_async_progress(t, float(np.mean(out["acc"])), int(land.sum()),
+                                           new_clock, hist["staleness"][-1]))
             t += 1
             if ckpt_dir and checkpoint_every and t % checkpoint_every == 0:
                 save_fl_state({"state": state, "sim_clock": float(sim_clock),
@@ -953,7 +1025,7 @@ class AsyncScheduler:
                                  ckpt_dir, f"hist_{t:05d}")
 
         h = {k: _stacked(k, v) for k, v in hist.items()}
-        return FLHistory(
+        history = FLHistory(
             accuracy_mean=h["acc"].mean(axis=1),
             accuracy_per_client=h["acc"],
             selected=h["selected"],
@@ -969,6 +1041,9 @@ class AsyncScheduler:
             rejected_updates=h["rejected"],
             wall_time=h["wall"],
         )
+        if recorder is not None:
+            recorder.close(history)
+        return history
 
 
 def _stacked(key: str, rows: list) -> np.ndarray:

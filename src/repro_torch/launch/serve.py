@@ -2,7 +2,8 @@
 decoder LM (falcon-mamba-7b, granite-3-8b), with continuous batching.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
-        --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu]
+        --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu] \\
+        [--record DIR]
 
 The JAX package's CLI (``repro.launch.serve``) with the same flags and
 defaults: it serves the arch's reduced config with random weights and
@@ -11,7 +12,10 @@ CLI draws them; the weights come from a ``torch.Generator``, so they differ
 from the JAX CLI's. It runs on the CUDA card unless ``--device`` names
 another. ``serve`` is the body, for any config (``chip_smoke.py`` calls it
 at full width): it returns the latency stats, tokens, prefill count and the
-per-call times of the prefill and decode steps.
+per-call times of the prefill and decode steps. ``--record DIR`` (``record=``)
+writes a serve record — manifest, ``requests.jsonl`` and a Perfetto trace
+of the request spans — through ``repro_torch.serve.ServeRecorder``, as the
+JAX CLI's ``--record`` does.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model, make_concrete_batch
-from repro_torch.serve import ContinuousBatcher, DecodeProgram, ServeRequest, latency_stats
+from repro_torch.serve import (
+    ContinuousBatcher,
+    DecodeProgram,
+    ServeRecorder,
+    ServeRequest,
+    latency_stats,
+)
 
 
 class _Timed:
@@ -64,7 +74,7 @@ class _Timed:
 
 def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: int = 64,
           max_new: int = 32, window: int = 0, temperature: float = 0.0, seed: int = 0,
-          device=None) -> dict:
+          device=None, record: str | None = None) -> dict:
     """Serve ``requests`` random prompts of ``prompt_len`` tokens on a
     randomly initialised ``cfg`` model with ``batch`` lanes, up to
     ``max_new`` tokens each. Returns ``latency_stats`` plus ``tokens``,
@@ -72,12 +82,21 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
     ``outputs`` (the generated ids per request), ``prefill_ms`` /
     ``decode_ms`` (each call's time: CUDA events on the card, the host
     clock elsewhere; ``timer`` says which) and ``logits_finite`` (every
-    step's logits were finite)."""
+    step's logits were finite). ``record`` is a directory for a serve
+    record of the session (``stats["record"]`` names it)."""
     dev = resolve_device(device)
     bundle = get_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
     prefill = _Timed(bundle.make_prefill_step(window=window), dev)
     decode = _Timed(bundle.make_decode_step(window=window), dev)
+
+    recorder = None
+    if record:
+        recorder = ServeRecorder(record, trace=True)
+        recorder.open_session(
+            artifact_meta={"arch": cfg.name, "kind": "lm-decode", "eos_token_id": cfg.eos_token_id},
+            engine="decode", batch_size=batch,
+            extra={"prompt_len": prompt_len, "max_new": max_new}, device=dev)
 
     t0 = time.time()
     proto = make_concrete_batch(cfg, "prefill", requests, prompt_len, prng.PRNGKey(seed + 1))
@@ -87,10 +106,14 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
                             rng=prng.PRNGKey(seed + 2))
     reqs = [ServeRequest(rid=i, client_id=i, inputs=prompts[i], steps=max_new)
             for i in range(requests)]
-    results = sorted(ContinuousBatcher(program, batch).run(reqs), key=lambda r: r.rid)
+    results = sorted(ContinuousBatcher(program, batch, recorder=recorder).run(reqs),
+                     key=lambda r: r.rid)
     dt = time.time() - t0
 
     stats = latency_stats(results)
+    if recorder is not None:
+        stats["record"] = recorder.close(dict(stats, tokens=int(program.tokens_out),
+                                              tok_per_s=program.tokens_out / max(dt, 1e-9)))
     stats.update(
         tokens=int(program.tokens_out),
         tok_per_s=program.tokens_out / max(dt, 1e-9),
@@ -117,16 +140,14 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--record", default=None, metavar="DIR",
-                    help="write a serve record (not ported: ROADMAP.md queue 1 items 9 and 11)")
+                    help="write a serve record (manifest/requests/trace) here")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.record:
-        raise NotImplementedError("--record (serve records): ROADMAP.md queue 1 items 9 and 11")
 
     cfg = get_config(args.arch).reduced()
     stats = serve(cfg, requests=args.requests, batch=args.batch, prompt_len=args.prompt_len,
                   max_new=args.max_new, window=args.window, temperature=args.temperature,
-                  seed=args.seed, device=args.device)
+                  seed=args.seed, device=args.device, record=args.record)
     print(f"continuous: {stats['n_requests']} requests, lens {stats['lens']}, "
           f"{stats['prefill_calls']} prefills")
     print(f"prefill {statistics.median(stats['prefill_ms']):.3f} ms, decode step "
@@ -135,6 +156,8 @@ def main(argv=None):
     print(f"\nserved {stats['n_requests']} requests, {stats['tokens']} tokens in "
           f"{stats['wall_s']:.1f}s ({stats['tok_per_s']:.1f} tok/s, {stats['device']}); "
           f"latency p50 {stats['latency_p50_ms']:.1f} ms, p99 {stats['latency_p99_ms']:.1f} ms")
+    if args.record:
+        print("serve record:", stats["record"])
     return stats
 
 

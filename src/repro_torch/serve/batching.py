@@ -6,11 +6,14 @@ iteration, finished lanes retire and are back-filled from the queue in the
 same iteration. Per-request latency is measured enqueue -> finish on the
 host wall clock, so queueing delay under load is part of p99.
 
-The loop is engine-agnostic via ``LaneProgram``; the port's program is the
-decode path (``repro_torch.serve.decode.DecodeProgram``). A copy of the JAX
-package's ``serve/batching.py`` (pure Python and numpy); its
-``ClassifyProgram`` and the serve recorder come with ROADMAP.md queue 1
-items 11 and 9.
+The loop is engine-agnostic via ``LaneProgram``: the classify path
+(``ClassifyProgram`` — one batched personalized forward, every lane
+finishes each step) and the decode path
+(``repro_torch.serve.decode.DecodeProgram`` — lanes retire on EOS or
+max-new) both run under the same batcher and the same accounting, with a
+``ServeRecorder`` (``repro_torch.serve.record``) receiving one span per
+request. A copy of the JAX package's ``serve/batching.py`` (pure Python and
+numpy; ``ClassifyProgram`` hands its lanes to the torch engine).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ __all__ = [
     "ServeRequest",
     "ServeResult",
     "LaneProgram",
+    "ClassifyProgram",
     "ContinuousBatcher",
     "latency_stats",
 ]
@@ -68,14 +72,40 @@ class LaneProgram:
         raise NotImplementedError
 
 
+class ClassifyProgram(LaneProgram):
+    """Personalized classification: each step is ONE batched composed
+    forward over the program's lanes (``PersonalizedEngine.forward``);
+    every occupied lane finishes per step. Empty lanes compute client 0 on
+    zero-filled (or stale) inputs and are masked out, so the batch shape
+    stays static."""
+
+    def __init__(self, engine, batch_size: int):
+        self.engine = engine
+        self.b = batch_size
+        feat = int(engine.artifact.global_params[0]["w"].shape[0])
+        self._ids = np.zeros((batch_size,), np.int64)
+        self._x = np.zeros((batch_size, feat), np.float32)
+
+    def start(self, lane: int, req: ServeRequest) -> None:
+        self._ids[lane] = req.client_id
+        self._x[lane] = np.asarray(req.inputs, np.float32)
+
+    def step(self, occupied: np.ndarray):
+        out = self.engine.forward(self._ids, self._x).cpu().numpy()
+        done = occupied.copy()
+        return done, [out[i] if occupied[i] else None for i in range(self.b)]
+
+
 class ContinuousBatcher:
     """Drives a ``LaneProgram`` over a request stream with lane
-    retirement/backfill and per-request latency spans."""
+    retirement/backfill and per-request latency spans; ``recorder`` (a
+    ``ServeRecorder``) gets each finished request's ``ServeResult``."""
 
-    def __init__(self, program: LaneProgram, batch_size: int,
+    def __init__(self, program: LaneProgram, batch_size: int, recorder=None,
                  clock: Callable[[], float] = time.perf_counter):
         self.program = program
         self.b = batch_size
+        self.recorder = recorder
         self.clock = clock
 
     def run(self, requests: Sequence[ServeRequest]) -> list[ServeResult]:
@@ -102,13 +132,16 @@ class ContinuousBatcher:
             for i in range(self.b):
                 if occupied[i] and done[i]:
                     req, enq, start = lanes[i]
-                    results.append(ServeResult(
+                    res = ServeResult(
                         rid=req.rid, client_id=req.client_id, output=outputs[i],
                         enqueue_s=enq, start_s=start, finish_s=t_fin,
                         # decode reports the tokens it generated (EOS can
                         # undershoot the budget)
                         steps=finish_steps(i, outputs[i]) if finish_steps else req.steps,
-                    ))
+                    )
+                    results.append(res)
+                    if self.recorder is not None:
+                        self.recorder.on_request(res)
                     lanes[i] = None
                     occupied[i] = False
             backfill()  # retired lanes refill before the next step

@@ -7,8 +7,11 @@ leaves are numpy arrays — e.g. the JAX package's parameters after
 with ``RoundState``'s fields), so both packages can compute from the same
 weights, keys and per-client lanes. ``lm_params_from_numpy`` turns the JAX
 package's decoder-LM parameter tree (``models/transformer.init_params``)
-into the port's ``DecoderLM``. Like every entry point they default to the
-CUDA card and raise without one; pass ``device="cpu"`` for the CPU.
+into the port's ``DecoderLM``. ``servable_from_numpy`` turns the JAX
+package's ``ServableArtifact`` (``serve/artifact.py``), as numpy arrays,
+into the port's, so both serving engines can score the same personalized
+models. Like every entry point they default to the CUDA card and raise
+without one; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ from repro_torch.fl.api import RoundState
 from repro_torch.models.transformer import DecoderLM, check_supported
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
+           "servable_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype == np.uint32:  # threefry key words: the port holds them in int64
         a = a.astype(np.int64)
@@ -70,3 +76,22 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
         "head": _tensor(tree["head"], dev),
         "blocks": blocks,
     })
+
+
+def servable_from_numpy(artifact, device=None):
+    """A servable artifact whose leaves are numpy arrays (or tensors) —
+    e.g. the JAX package's ``ServableArtifact`` after ``jax.device_get``,
+    or the tree ``serve.load_servable`` read — -> the port's
+    ``ServableArtifact`` on ``device``: the layered global model, the
+    (C, ...) local slabs (or None), the (C, L) bool share mask, and a copy
+    of ``meta`` (dtypes and bits kept)."""
+    from repro_torch.serve.artifact import ServableArtifact
+
+    dev = resolve_device(device)
+    local = artifact.local_params
+    return ServableArtifact(
+        global_params=tree_map(lambda a: _tensor(a, dev), list(artifact.global_params)),
+        local_params=None if local is None else tree_map(lambda a: _tensor(a, dev), list(local)),
+        share_mask=_tensor(artifact.share_mask, dev).to(torch.bool),
+        meta=dict(artifact.meta),
+    )

@@ -492,3 +492,79 @@ def test_resume_on_cuda_bitwise(cuda, tmp_path, cfg):
         if field != "wall_time" and getattr(full, field) is not None:
             np.testing.assert_array_equal(getattr(res, field), getattr(full, field),
                                           err_msg=field)
+
+
+@pytest.mark.parametrize("cfg", [dict(scan_chunk=1), dict(scan_chunk=2), dict(scan_chunk=3),
+                                 dict(scheduler="async", buffer_k=2, max_concurrency=4)],
+                         ids=["chunk1", "chunk2", "chunk3", "async"])
+def test_recorded_run_on_cuda_equals_unrecorded(cuda, tmp_path, cfg):
+    """A recorded int8 run on the card (CUDA-graph chunks at scan_chunk > 1,
+    trace and profile on) gives the unrecorded history bit for bit, the
+    same kernel launches, one metrics row a round, a valid trace, and a
+    profile with the card's memory watermark (and a capture a chunk
+    length)."""
+    import json
+
+    from repro_torch.obs import RunRecorder, validate_trace_file
+
+    ds = make_federated_classification(**_SMALL)
+    fl = FLConfig(rounds=5, epochs=1, codec="int8", **cfg)
+    kernels.reset_launch_counts()
+    bare = run_federated(ds, fl, device=cuda)
+    bare_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    rec = RunRecorder(str(tmp_path), trace=True, profile=True, echo=False)
+    h = run_federated(ds, fl, device=cuda, recorder=rec)
+    assert kernels.launch_counts() == bare_counts
+    for field in h._fields:
+        if field != "wall_time" and getattr(h, field) is not None:
+            np.testing.assert_array_equal(getattr(h, field), getattr(bare, field), err_msg=field)
+    rows = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(rows) == 5
+    assert validate_trace_file(str(tmp_path / "trace.json"), ds.n_clients) == []
+    prof = json.loads((tmp_path / "profile.json").read_text())
+    assert prof["peak_live_bytes"] > 0 and prof["device"].startswith("cuda")
+    chunk = cfg.get("scan_chunk", 1)
+    assert prof["graph_captures"] == (len({min(chunk, 5 - t0) for t0 in range(0, 5, chunk)})
+                                      if chunk > 1 else 0)
+    env = json.loads((tmp_path / "manifest.json").read_text())["environment"]
+    assert env["backend"] == "cuda" and env["gpu"]
+
+
+@pytest.mark.parametrize("mode", ["none", "ft", "dld"])
+def test_classify_lanes_bitwise_on_cuda(cuda, mode):
+    """Per-lane bit identity on the card: lane i of a batch of B clients is
+    bitwise ``forward_unbatched(client_i, x_i)`` for B = 1, 5, 30 and a batch
+    that mixes the modes; each lane within 1e-5 of max|logit| of the plain
+    (1, F) x (F, H) forward of the client's composed model on the card, with
+    the same prediction; the card's logits within 1e-5 of max|logit| of
+    the same artifact on the CPU, with equal predictions."""
+    from repro_torch.models.mlp import mlp_apply
+    from repro_torch.serve import PersonalizedEngine, fit_servable, servable_from_state
+    from repro_torch.weights import servable_from_numpy
+
+    ds = make_federated_classification(**_SMALL)
+    codec = "int8" if mode == "dld" else "float32"
+    art, state = fit_servable(ds, FLConfig(personalization=mode, rounds=2, epochs=1,
+                                           codec=codec), device=cuda)
+    engine = PersonalizedEngine(art)
+    rng = np.random.default_rng(0)
+    for batch in (1, 5, 30):
+        ids = rng.integers(0, ds.n_clients, size=batch)
+        x = ds.x_test[ids, rng.integers(0, ds.x_test.shape[1], size=batch)].astype(np.float32)
+        out = engine.forward(ids, x)
+        for k in range(batch):
+            assert torch.equal(out[k], engine.forward_unbatched(int(ids[k]), x[k]))
+            # the plain product sums in another order: 5.9e-7 to 1.04e-6
+            # of max at full width on an H100 (chip_smoke.py [classify])
+            plain = mlp_apply(engine.client_model(int(ids[k])),
+                              torch.as_tensor(x[k:k + 1], device=cuda))[0]
+            assert float((out[k] - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+            assert int(out[k].argmax()) == int(plain.argmax())
+    ids = np.arange(ds.n_clients)
+    x = ds.x_test[ids, 0].astype(np.float32)
+    on_cpu = PersonalizedEngine(servable_from_numpy(art, "cpu")).forward(ids, x)
+    got = engine.forward(ids, x).cpu()
+    assert float((got - on_cpu).abs().max()) <= 1e-5 * float(on_cpu.abs().max())
+    assert torch.equal(got.argmax(1), on_cpu.argmax(1))
+    assert servable_from_state(state, mode, data=ds).share_mask.device.type == "cuda"

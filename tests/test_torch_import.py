@@ -3,6 +3,7 @@ entry points refuse to run quietly on the CPU, and every option outside the
 ported slice raises NotImplementedError naming its ROADMAP.md item."""
 
 import dataclasses
+import json
 import pathlib
 import re
 import subprocess
@@ -36,7 +37,8 @@ import chip_smoke
 bad = sorted(n for n in sys.modules if n == "repro" or n.startswith(("repro.", "jax.", "jaxlib")))
 print("BAD", bad)
 print("LOADED", sorted(n for n in ("repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
-                                   "repro_torch.fl.faults", "repro_torch.fl.sched")
+                                   "repro_torch.fl.faults", "repro_torch.fl.sched",
+                                   "repro_torch.obs.record", "repro_torch.serve.engine")
                        if n in sys.modules))
 """
 
@@ -49,7 +51,8 @@ def test_import_with_jax_blocked_loads_no_reference_module():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert ("LOADED ['repro_torch.checkpoint', 'repro_torch.checkpoint.checkpoint', "
-            "'repro_torch.fl.faults', 'repro_torch.fl.sched']") in out.stdout, out.stdout
+            "'repro_torch.fl.faults', 'repro_torch.fl.sched', 'repro_torch.obs.record', "
+            "'repro_torch.serve.engine']") in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -139,14 +142,33 @@ def test_cohort_thinning_and_chunk_options_run(tiny_ds, name):
     np.testing.assert_array_equal(h.in_flight, 2 if name == "cohort_size" else tiny_ds.n_clients)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(recorder=object()), "item 9"),
-])
-def test_recorder_and_checkpoint_raise(tiny_ds, kwargs, item):
-    """The recorder (item 9's ``obs/``) still raises; checkpoints run since
-    they were ported (``test_async_faults_and_checkpoint_run[checkpoint]``)."""
-    with pytest.raises(NotImplementedError, match=item):
-        run_federated(tiny_ds, FLConfig(rounds=1), device="cpu", **kwargs)
+# ROADMAP.md queue 1 item 9's recorder, ported: each scheduler records on the CPU
+_RECORDED = {
+    "sync": dict(scan_chunk=2),
+    "async": dict(scheduler="async", buffer_k=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_RECORDED))
+def test_recorder_runs_and_writes_its_record(tiny_ds, tmp_path, name):
+    """``run_federated(recorder=RunRecorder(...))`` runs, leaves the history
+    bitwise the unrecorded run's and writes its record: a manifest, one
+    metrics row a round, the run log, a valid trace and a profile."""
+    from repro_torch.obs import RunRecorder, validate_trace_file
+
+    cfg = FLConfig(rounds=3, epochs=1, **_RECORDED[name])
+    rec = RunRecorder(str(tmp_path), trace=True, profile=True, echo=False)
+    h = run_federated(tiny_ds, cfg, device="cpu", recorder=rec, progress=True)
+    np.testing.assert_array_equal(h.accuracy_per_client,
+                                  run_federated(tiny_ds, cfg, device="cpu").accuracy_per_client)
+    manifest = json.loads((tmp_path / "manifest.json").read_text())
+    assert manifest["mode"] == name and manifest["rounds_recorded"] == 3
+    assert sorted(manifest["files"]) == ["log", "metrics", "profile", "trace"]
+    rows = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["t"] for r in rows] == [0, 1, 2]
+    assert [r["sim_clock_s"] for r in rows] == h.sim_clock.tolist()
+    assert (tmp_path / "run.log").read_text().strip()
+    assert validate_trace_file(str(tmp_path / "trace.json"), tiny_ds.n_clients) == []
 
 
 # ROADMAP.md queue 1 item 8 and the faults/checkpoint part of item 9,
@@ -219,6 +241,22 @@ def test_training_mode_raises(arch):
         bundle.make_train_step(None)
 
 
-def test_serve_record_raises():
-    with pytest.raises(NotImplementedError, match="items 9 and 11"):
-        serve_main(["--arch", "granite-3-8b", "--record", "rec", "--device", "cpu"])
+def test_serve_record_writes_a_record(tmp_path):
+    """``launch/serve.py --record DIR`` on the CPU writes the JAX CLI's serve
+    record: a manifest with the session's summary, one ``requests.jsonl``
+    row a request, and a valid trace of the request spans."""
+    from repro_torch.obs import validate_trace_file
+
+    rec = tmp_path / "rec"
+    stats = serve_main(["--arch", "granite-3-8b", "--requests", "3", "--batch", "2",
+                        "--prompt-len", "8", "--max-new", "3", "--record", str(rec),
+                        "--device", "cpu"])
+    assert stats["record"] == str(rec)
+    manifest = json.loads((rec / "manifest.json").read_text())
+    assert manifest["kind"] == "serve" and manifest["engine"] == "decode"
+    assert manifest["artifact"]["arch"] == "granite-3-8b" and manifest["requests_recorded"] == 3
+    assert manifest["summary"]["tokens"] == stats["tokens"]
+    rows = [json.loads(line) for line in (rec / "requests.jsonl").read_text().splitlines()]
+    assert sorted(r["rid"] for r in rows) == [0, 1, 2]
+    assert [r["steps"] for r in sorted(rows, key=lambda r: r["rid"])] == stats["lens"]
+    assert validate_trace_file(str(rec / "trace.json")) == []
