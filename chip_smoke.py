@@ -13,6 +13,12 @@ drives the port's two paths:
   round by round and then in fused chunks of rounds (CUDA-graph replays,
   which must give the same history bit for bit), with a cohort of 10 of the
   30 clients and with evaluation every second round;
+- the host-resident population plane and two-level edge aggregation
+  (``[population]``): the UCI-HAR int8 path with ``host_population=1``
+  bitwise the device-resident run (sync and async), ``edge_groups`` 1 and
+  3 through masked_aggregate's edge mode, streamed evaluation; the lazy
+  million-client tier's configuration at C = 5,000 and 50,000 (peak device
+  memory held to 1.25x); memmap-backed trees bitwise the RAM-backed ones;
 - run records (``[obs]``): the int8 main path recorded through
   ``run_federated(recorder=RunRecorder(...))`` at scan_chunk 1 and 5 and
   the async scheduler, trace and profile on, each bitwise its unrecorded
@@ -58,10 +64,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch import random as prng  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data import make_federated_classification, make_har_dataset  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    make_federated_classification,
+    make_har_dataset,
+    make_sharded_population,
+)
 from repro_torch.device import full_precision_matmuls  # noqa: E402
 from repro_torch.fl import FLConfig, pipeline_from_config, run_federated  # noqa: E402
 from repro_torch.fl.faults import compile_fault_plan  # noqa: E402
+from repro_torch.fl.population import run_host_sync  # noqa: E402
 from repro_torch.fl.phases import Aggregator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
@@ -175,6 +186,26 @@ SMALL_MAX_NORM = 10.0
 # within 1e-6 (PERF.md section 2)
 EXACT_FIELDS = ("selected", "pms", "tx_params", "tx_wire_bytes", "round_time", "sim_clock",
                 "staleness_mean", "in_flight", "rejected_updates")
+
+# [kernels]/[merge] edge mode: cohorts of K clients drawn unsorted from a
+# population of EDGE_POP_PER_LANE * K, cut into E contiguous edge groups
+EDGE_KS = (30, 64)
+EDGE_ES = (1, 3, 8)
+EDGE_POP_PER_LANE = 3
+# [population]: (a) the UCI-HAR main path on the host plane; (b) the
+# million-client tier's configuration (the JAX package's
+# benchmarks/pop_bench.py: lazy population, 5 classes, 20 features, 24-32
+# samples a client), har-mlp at width 256, FedAvg, K = 64, 8 edge groups,
+# 1,024-client evaluation windows, evaluated at round 0 only; (c) its
+# memmap-backed trees at C = 2,000 under acsp-fl + dld + int8
+POP_SIZES = (5_000, 50_000)
+POP_DATA = dict(n_classes=5, n_features=20, samples_per_client_range=(24, 32),
+                dirichlet_alpha=50.0, seed=0)
+POP_RUN = dict(strategy="fedavg", personalization="none", epochs=1, rounds=3, eval_every=3,
+               cohort_size=64, edge_groups=8, eval_chunk=1024, seed=0)
+POP_PEAK_RATIO = 1.25  # peak device memory at the larger C over the smaller's
+MEMMAP_C = 2_000
+MEMMAP_RUN = dict(codec="int8", epochs=1, rounds=3, cohort_size=64, host_population=1, seed=0)
 
 # [obs]: the int8 main path recorded at these chunk sizes, and async
 OBS_ROUNDS = 20
@@ -422,6 +453,78 @@ def phase_kernels(dev: torch.device) -> dict:
                                  plain_ms=device_ms(run_agg_plain), bound_ms=a_bound,
                                  bound_by=a_by, library_ms=device_ms(run_mv)),
     }
+
+
+def edge_cohort(gen: torch.Generator, k: int, n_edges: int, dev: torch.device) -> torch.Tensor:
+    """Edge ids (K,) int32 of a cohort of K clients drawn unsorted from a
+    population of EDGE_POP_PER_LANE * K cut into E contiguous groups (the
+    aggregators' partition, by true client id)."""
+    pop = EDGE_POP_PER_LANE * k
+    cids = torch.randperm(pop, generator=gen, device=dev)[:k]
+    return torch.clamp(cids // -(-pop // n_edges), 0, n_edges - 1).to(torch.int32)
+
+
+def phase_edge_kernels(dev: torch.device) -> dict:
+    """masked_aggregate's edge mode (Eq. 1) at har-mlp's 8 leaves, K = 30
+    and 64 lanes, E = 1, 3 and 8 edge groups: unsorted cohort ids, one edge
+    with zero weight, and masked-partial rows with an all-zero row (the
+    fallback); one launch, bitwise the plain version (E = 1 is the flat
+    path, bitwise the call without edges). Device ms beside the bound."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = [j for j in range(len(HAR_MLP) - 1) for _ in ("b", "w")]
+    fallbacks = [torch.randn(s, generator=gen, device=dev) for s in LEAVES]
+    row = {}
+    for k in EDGE_KS:
+        leaves = [torch.randn((k,) + s, generator=gen, device=dev) * 0.01 for s in LEAVES]
+        counts = torch.randint(224, 328, (k,), generator=gen, device=dev).float()
+        sel = torch.rand(k, generator=gen, device=dev) < 0.7
+        share = torch.rand((k, len(HAR_MLP) - 1), generator=gen, device=dev) < 0.6
+        share[:, 2] = False  # layer 2 shared by nobody: its row sums to 0
+        for n_edges in EDGE_ES:
+            ids = edge_cohort(gen, k, n_edges, dev)
+            w = sel.float() * counts
+            if n_edges > 1:
+                w = w * (ids != 1).float()  # edge 1 carries no weight
+            table = (w[None] * share.T.float()).contiguous()
+            for name, wt, rs, fbs in (("fedavg", w[None], [0] * len(LEAVES), None),
+                                      ("masked-partial", table, rows, fallbacks)):
+                kernels.reset_launch_counts()
+                got = masked_aggregate_leaves(leaves, wt, rs, fbs, edge_ids=ids, n_edges=n_edges)
+                check(kernels.launch_counts()["masked_aggregate"] == 1,
+                      f"[kernels] edge mode K={k} E={n_edges} {name}: "
+                      f"{kernels.launch_counts()['masked_aggregate']} launches")
+                want = masked_aggregate_leaves_plain(leaves, wt, rs, fbs, edge_ids=ids,
+                                                     n_edges=n_edges)
+                flat = masked_aggregate_leaves(leaves, wt, rs, fbs) if n_edges == 1 else want
+                for i, (g, p, f) in enumerate(zip(got, want, flat)):
+                    check(torch.equal(g, p), f"[kernels] edge mode K={k} E={n_edges} {name} "
+                          f"leaf {i} differs from its plain version")
+                    check(torch.equal(g, f), f"[kernels] edge mode K={k} E=1 {name} leaf {i} "
+                          f"differs from the flat call")
+                    if fbs is not None and rs[i] == 2:
+                        check(torch.equal(g, fbs[i]), f"[kernels] edge mode K={k} "
+                              f"E={n_edges} leaf {i}: zero-weight row, fallback not exact")
+        ids = edge_cohort(gen, k, EDGE_ES[-1], dev)
+        w = sel.float() * counts
+
+        def run(): return masked_aggregate_leaves(leaves, w[None], [0] * len(LEAVES),
+                                                  fallbacks, edge_ids=ids, n_edges=EDGE_ES[-1])
+
+        def run_flat(): return masked_aggregate_leaves(leaves, w[None], [0] * len(LEAVES),
+                                                       fallbacks)
+        elems = sum(x.numel() for x in leaves)
+        p_total = sum(fb.numel() for fb in fallbacks)
+        # x, the weights and the order/edge ids read once, the means written
+        bound, by = bound_ms(elems * 4 + k * 4 * 3 + p_total * 4, 2 * elems + p_total)
+        key = "edge" if k == K else f"edge_k{k}"
+        row.update({f"{key}_ms": device_ms(run), f"{key}_flat_ms": device_ms(run_flat),
+                    f"{key}_bound_ms": bound, f"{key}_bound_by": by})
+    print(f"[kernels] masked_aggregate edge mode, har-mlp's 8 leaves at K={EDGE_KS} lanes, "
+          f"E={EDGE_ES} edge groups (unsorted cohort ids, edge 1 weightless, an all-zero "
+          f"masked-partial row): one launch, bitwise the plain version, E=1 bitwise the flat "
+          f"call, the fallback exact; device ms at E={EDGE_ES[-1]} beside the flat mode and the "
+          f"bound: {json.dumps(row)}")
+    return row
 
 
 def visible_pairs(s_len: int, t_len: int, causal: bool, window: int) -> int:
@@ -787,9 +890,32 @@ def phase_merge(dev: torch.device) -> dict:
                       f"exactly")
             err = max(err, float((g - p).abs().max()))
 
+    # the edge mode: E = 3 and 8 groups of unsorted slot clients, edge 1
+    # weightless, with and without landings
+    for n_edges in EDGE_ES[1:]:
+        ids = edge_cohort(gen, K, n_edges, dev)
+        for name, wt in (("landing", table * (ids != 1).float()[None]),
+                         ("no landing", torch.zeros_like(table))):
+            kernels.reset_launch_counts()
+            got = masked_aggregate_leaves(xs, wt, rows, snapshots=snaps, bases=bases,
+                                          edge_ids=ids, n_edges=n_edges)
+            check(kernels.launch_counts()["masked_aggregate"] == 1,
+                  f"[merge] edge mode E={n_edges} {name}: "
+                  f"{kernels.launch_counts()['masked_aggregate']} launches")
+            want = masked_aggregate_leaves_plain(xs, wt, rows, snapshots=snaps, bases=bases,
+                                                 edge_ids=ids, n_edges=n_edges)
+            for i, (g, p) in enumerate(zip(got, want)):
+                check(torch.equal(g, p), f"[merge] edge mode E={n_edges} {name} leaf {i} "
+                      f"differs from its plain version")
+                if rows[i] == 2 or name == "no landing":
+                    check(torch.equal(g, bases[i]), f"[merge] edge mode E={n_edges} {name} leaf "
+                          f"{i}: base not returned exactly")
+
     def run(): return masked_aggregate_leaves(xs, table, rows, snapshots=snaps, bases=bases)
     def run_plain(): return masked_aggregate_leaves_plain(xs, table, rows, snapshots=snaps,
                                                           bases=bases)
+    def run_edges(): return masked_aggregate_leaves(xs, table, rows, snapshots=snaps, bases=bases,
+                                                    edge_ids=ids, n_edges=EDGE_ES[-1])
     elems = sum(x.numel() for x in xs)
     p_total = sum(b.numel() for b in bases)
     # x and the snapshots read, the weight table read, the base read and the
@@ -797,12 +923,15 @@ def phase_merge(dev: torch.device) -> dict:
     m_bound, m_by = bound_ms(2 * elems * 4 + table.numel() * 4 + 2 * p_total * 4,
                              3 * elems + 2 * p_total)
     row = dict(merge_ms=device_ms(run), merge_plain_ms=device_ms(run_plain, reps=5),
-               merge_bound_ms=m_bound, merge_bound_by=m_by, merge_max_abs_err=err)
+               merge_bound_ms=m_bound, merge_bound_by=m_by, merge_max_abs_err=err,
+               edge_merge_ms=device_ms(run_edges))
     print(f"[merge] staleness merge, har-mlp's 8 leaves at M={K} slots: one launch, bitwise "
           f"equal to the plain version with landing lanes and with none, the fused snapshot "
           f"bitwise the deltas passed, layer 2 (shared by nobody) returns the base exactly; "
           f"device ms {row['merge_ms']:.5f} (bound {m_bound:.5f}, {m_by}; plain "
-          f"{row['merge_plain_ms']:.4f})")
+          f"{row['merge_plain_ms']:.4f}); edge mode E={EDGE_ES[1:]} (unsorted slot clients, "
+          f"edge 1 weightless): one launch, bitwise its plain version, the base exact without "
+          f"landings; device ms at E={EDGE_ES[-1]} {row['edge_merge_ms']:.5f} (the same bound)")
     return row
 
 
@@ -975,6 +1104,151 @@ def phase_resume(dev: torch.device) -> None:
         print(f"[resume] {name} uci-har: stopped at 2, resumed to 5, bitwise the uninterrupted "
               f"run (every field but wall_time); accuracy_mean "
               f"{np.round(res.accuracy_mean, 4).tolist()}")
+
+
+def phase_population(dev: torch.device, card: str) -> int:
+    """The host-resident population plane and edge aggregation. (a) The
+    UCI-HAR int8 main path (5 rounds): host_population=1 bitwise the
+    device-resident run; edge_groups=1 the same trajectory with its hop
+    accounted; edge_groups=3 bitwise between the two planes, one launch of
+    each FL kernel a round; a cohort of 10 with eval_chunk=8 against
+    eval_chunk=0 (its gap printed); async (30 slots, buffer_k 15, 20
+    events) bitwise the device-resident run. (b) The million-client tier's
+    configuration at C = 5,000 and 50,000 (the larger routes to the host
+    plane at the threshold): round wall, staging and peak device memory,
+    the larger C's peak within POP_PEAK_RATIO of the smaller's. (c) Its
+    trees memmap-backed at C = 2,000 (acsp-fl + dld + int8): bitwise the
+    RAM-backed run. Kernel counts are zeroed just before each run and read
+    just after. Returns the masked_aggregate launches of the E = 3 run."""
+    data = make_har_dataset("uci-har", seed=0)
+
+    def run(**kw):
+        kernels.reset_launch_counts()
+        h = run_federated(data, FLConfig(**{**dict(codec="int8", rounds=5, epochs=2), **kw}),
+                          device=dev)
+        counts = kernels.launch_counts()
+        check(np.isfinite(h.accuracy_per_client).all(), f"[population] {kw}: non-finite")
+        n = len(h.accuracy_mean)
+        check(all(counts[k] == n for k in FL_KERNELS),
+              f"[population] {kw}: each FL kernel must launch once a round {counts}")
+        return h, counts
+
+    h_dev, _ = run(host_population=-1)
+    h_host, _ = run(host_population=1)
+    diff = history_diff(h_host, h_dev)
+    check(not diff, f"[population] host_population=1 differs from the device-resident run in "
+                    f"{diff}")
+    h_e1, _ = run(host_population=1, edge_groups=1)
+    diff = [f for f in history_diff(h_e1, h_dev)
+            if f not in ("round_time", "sim_clock", "tx_edge_bytes")]
+    check(not diff and h_e1.tx_edge_bytes.shape == (5, 1) and (h_e1.tx_edge_bytes > 0).all()
+          and (h_e1.round_time >= h_dev.round_time).all(),
+          f"[population] edge_groups=1: trajectory differs in {diff} or no hop accounted")
+    h_e3, counts_e3 = run(host_population=1, edge_groups=3)
+    h_e3_dev, _ = run(host_population=-1, edge_groups=3)
+    diff = history_diff(h_e3, h_e3_dev)
+    check(not diff and h_e3.tx_edge_bytes.shape == (5, 3),
+          f"[population] edge_groups=3: the host plane differs from the device-resident run in "
+          f"{diff}")
+    (h_c0, _), (h_c8, _) = run(host_population=1, cohort_size=10), run(
+        host_population=1, cohort_size=10, eval_chunk=8)
+    eval_gap = float(np.abs(h_c8.accuracy_per_client - h_c0.accuracy_per_client).max())
+    eval_same = [f for f in ("selected", "pms") if np.array_equal(getattr(h_c8, f),
+                                                                  getattr(h_c0, f))]
+    acfg = dict(ASYNC_CFG, rounds=ASYNC_EVENTS)
+    (a_dev, _), (a_host, a_counts) = run(host_population=-1, **acfg), run(host_population=1,
+                                                                          **acfg)
+    diff = history_diff(a_host, a_dev)
+    check(not diff, f"[population] async host plane differs from the device-resident run in "
+                    f"{diff}")
+    print(f"[population] {card}: (a) acsp-fl+dld+int8 uci-har C={data.n_clients}: "
+          f"host_population=1 bitwise the device-resident run (5 rounds; round wall median "
+          f"{1e3 * statistics.median(h_host.wall_time[1:]):.1f} ms, device-resident "
+          f"{1e3 * statistics.median(h_dev.wall_time[1:]):.1f} ms); edge_groups=1 the "
+          f"same trajectory, hop bytes {h_e1.tx_edge_bytes[:, 0].tolist()}, round_time "
+          f"{np.round(h_e1.round_time, 4).tolist()} vs {np.round(h_dev.round_time, 4).tolist()} "
+          f"flat; edge_groups=3 host bitwise device-resident, accuracy_mean "
+          f"{np.round(h_e3.accuracy_mean, 4).tolist()} (flat "
+          f"{np.round(h_dev.accuracy_mean, 4).tolist()}), "
+          f"launches {json.dumps(counts_e3)}; cohort 10 eval_chunk=8 vs 0: accuracy gap "
+          f"{eval_gap:.3g}, equal {eval_same}; async M={data.n_clients} buffer_k="
+          f"{ASYNC_CFG['buffer_k']} {ASYNC_EVENTS} events bitwise the device-resident run, "
+          f"launches {json.dumps(a_counts)}, event wall median "
+          f"{1e3 * statistics.median(a_host.wall_time[1:]):.1f} ms (device-resident "
+          f"{1e3 * statistics.median(a_dev.wall_time[1:]):.1f})")
+
+    # (b) the million-client tier's configuration
+    peaks = {}
+    for c in POP_SIZES:
+        pop = make_sharded_population(c, **POP_DATA)
+        auto = c >= 50_000
+        cfg = FLConfig(fraction=POP_RUN["cohort_size"] / c, host_population=0 if auto else 1,
+                       **POP_RUN)
+        check(cfg.execution.resolved_host_population(c),
+              f"[population] C={c}: not routed to the host plane")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        stats: dict = {}
+        rec_dir = scratch_dir("smoke_pop_")
+        try:
+            t0 = time.perf_counter()
+            # the profiler splits each round's host time into dispatch
+            # (launches) and device_get (waiting on the fetches)
+            h = run_host_sync(pop, cfg, dev, stats=stats,
+                              recorder=RunRecorder(rec_dir, profile=True, echo=False))
+            wall = time.perf_counter() - t0
+            with open(os.path.join(rec_dir, "profile.json")) as f:
+                prof = json.load(f)
+        finally:
+            shutil.rmtree(rec_dir, ignore_errors=True)
+        peaks[c] = torch.cuda.max_memory_allocated()
+        counts = kernels.launch_counts()
+        phases = {k: [round(1e3 * ch.get(f"{k}_s", 0.0), 3) for ch in prof["chunks"]]
+                  for k in ("dispatch", "device_get", "record")}
+        check(np.isfinite(h.accuracy_per_client).all() and h.tx_edge_bytes.shape == (3, 8),
+              f"[population] C={c}: non-finite or no edge accounting")
+        check(counts["masked_aggregate"] == cfg.rounds,
+              f"[population] C={c}: masked_aggregate must launch once a round {counts}")
+        print(f"[population] {card}: (b) lazy C={c} ({'auto' if auto else 'host_population=1'}) "
+              f"har-mlp {POP_DATA['n_features']}-256-256-256-{POP_DATA['n_classes']} fedavg "
+              f"K={POP_RUN['cohort_size']} edge_groups={POP_RUN['edge_groups']} eval_chunk="
+              f"{POP_RUN['eval_chunk']} {cfg.rounds} rounds: round wall median past round 0 "
+              f"{statistics.median(stats['round_ms'][1:]):.2f} ms (round 0, with the streamed "
+              f"evaluation, {stats['round_ms'][0]:.1f} ms), host gather ms "
+              f"{np.round(stats['host_gather_ms'], 3).tolist()}, staged bytes a round "
+              f"{stats['staged_bytes'][-1]:.0f}, store host bytes {stats['store_bytes']}, peak "
+              f"device memory {peaks[c] / 2**20:.2f} MiB, accuracy_mean "
+              f"{np.round(h.accuracy_mean, 4).tolist()}, launches {json.dumps(counts)}, run "
+              f"{wall:.1f} s; profiler ms a round {json.dumps(phases)}")
+    lo, hi = POP_SIZES
+    ratio = peaks[hi] / peaks[lo]
+    check(ratio <= POP_PEAK_RATIO, f"[population] peak device memory at C={hi} is {ratio:.3f}x "
+                                   f"that at C={lo} (limit {POP_PEAK_RATIO})")
+    print(f"[population] peak device memory C={hi} / C={lo}: {ratio:.4f} (limit {POP_PEAK_RATIO})")
+
+    # (c) memmap-backed trees against RAM
+    pop = make_sharded_population(MEMMAP_C, **POP_DATA)
+    cfg = FLConfig(**MEMMAP_RUN)
+    ram_stats: dict = {}
+    h_ram = run_host_sync(pop, cfg, dev, stats=ram_stats)
+    d = scratch_dir("smoke_memmap_")
+    try:
+        h_mm = run_host_sync(pop, cfg, dev, backing_dir=d)
+        files = sorted(os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    diff = history_diff(h_mm, h_ram)
+    check(not diff and any(f.startswith("local_") for f in files)
+          and any(f.startswith("residual_") for f in files),
+          f"[population] memmap run differs from the RAM run in {diff} (files {files})")
+    print(f"[population] (c) lazy C={MEMMAP_C} acsp-fl+dld+int8 K={MEMMAP_RUN['cohort_size']} "
+          f"{cfg.rounds} rounds: memmap-backed ({len(files)} files) bitwise the RAM-backed run; "
+          f"store host bytes {ram_stats['store_bytes']}, round wall ms "
+          f"{np.round(ram_stats['round_ms'], 1).tolist()}, accuracy_mean "
+          f"{np.round(h_ram.accuracy_mean, 4).tolist()}")
+    return counts_e3["masked_aggregate"]
 
 
 def scratch_dir(prefix: str) -> str:
@@ -1250,6 +1524,7 @@ def main() -> int:
     card = phase_environment()
     phase_build()
     table = phase_kernels(dev)
+    table["masked_aggregate"].update(phase_edge_kernels(dev))
     table.update(phase_lm_kernels(dev))
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
@@ -1258,6 +1533,7 @@ def main() -> int:
     table["masked_aggregate"]["merge_launches"] = phase_async(dev, card)
     phase_faults(dev)
     phase_resume(dev)
+    table["masked_aggregate"]["edge_launches"] = phase_population(dev, card)
     phase_obs(dev, card)
     for name, n in phase_classify(dev, card).items():
         table[name]["classify_launches"] = n

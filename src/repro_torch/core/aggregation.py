@@ -9,9 +9,12 @@ JAX package reduces in jnp here, leaf by leaf, and only tests its Pallas
 kernel.)
 
 Client parameters are *stacked*: leaves carry a leading client axis (C, ...);
-a layered model is a list of such trees. The JAX package's sharded
-(``axis_name``) and edge-server (``edge_ids``) reductions come with
-ROADMAP.md queue 1 items 12 and 10; passing them raises.
+a layered model is a list of such trees. ``edge_ids``/``n_edges`` route a
+reduction through two-level (edge-server) aggregation, the kernel's edge
+mode: each edge group partial-sums its lanes, the server sums the E
+partials in ascending edge order; ``n_edges <= 1`` keeps the flat
+expression exactly. The JAX package's sharded (``axis_name``) reduction
+comes with ROADMAP.md queue 1 item 12; passing it raises.
 """
 
 from __future__ import annotations
@@ -23,16 +26,11 @@ from repro_torch.kernels.masked_aggregate import masked_aggregate_leaves
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def _no_sharding(axis_name, edge_ids) -> None:
+def _no_sharding(axis_name) -> None:
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (sharded cohort aggregation) is not ported yet: "
             "ROADMAP.md queue 1 item 12"
-        )
-    if edge_ids is not None:
-        raise NotImplementedError(
-            "edge_ids (two-level edge aggregation) is not ported yet: "
-            "ROADMAP.md queue 1 item 10"
         )
 
 
@@ -40,10 +38,10 @@ def fedavg_aggregate(client_params, select_mask, n_samples, axis_name=None, edge
                      n_edges: int = 0):
     """Eq. (1): w <- sum_i (|d_i|/|D|) w_i over *selected* clients; a leaf
     nobody contributed to becomes zeros."""
-    _no_sharding(axis_name, edge_ids)
+    _no_sharding(axis_name)
     weights = select_mask.to(torch.float32) * n_samples.to(torch.float32)
-    return tree_unflatten(client_params,
-                          masked_aggregate_leaves(tree_leaves(client_params), weights[None]))
+    return tree_unflatten(client_params, masked_aggregate_leaves(
+        tree_leaves(client_params), weights[None], edge_ids=edge_ids, n_edges=n_edges))
 
 
 def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples, share_mask,
@@ -51,7 +49,7 @@ def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples,
     """ACSP-FL aggregation: layer j averages the clients with
     ``select_mask[i] & share_mask[i, j]``; a layer nobody shared keeps the
     previous global value. ``share_mask`` is (C, L) or (L,)."""
-    _no_sharding(axis_name, edge_ids)
+    _no_sharding(axis_name)
     n_layers = len(client_params)
     share_mask = torch.as_tensor(share_mask)
     if share_mask.ndim == 1:
@@ -65,7 +63,8 @@ def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples,
         xs += layer
         rows += [j] * len(layer)
         fallbacks += tree_leaves(prev_global[j])
-    means = masked_aggregate_leaves(xs, weights, rows, fallbacks)
+    means = masked_aggregate_leaves(xs, weights, rows, fallbacks, edge_ids=edge_ids,
+                                    n_edges=n_edges)
     return [tree_unflatten(client_params[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 
@@ -85,7 +84,7 @@ def staleness_weighted_merge(client_deltas, prev_global, weights, share_mask=Non
     rounded to bf16 first; the fused ones are not). Every layer's leaves go through one
     ``masked_aggregate_leaves`` call (on CUDA one kernel launch), the weight
     rows one per layer, the global leaves as the bases."""
-    _no_sharding(axis_name, edge_ids)
+    _no_sharding(axis_name)
     n_layers = len(client_deltas)
     w = weights.to(torch.float32)
     if share_mask is None:
@@ -100,7 +99,8 @@ def staleness_weighted_merge(client_deltas, prev_global, weights, share_mask=Non
         rows += [j] * len(layer)
         bases += tree_leaves(prev_global[j])
         snaps += [None] * len(layer) if snapshots is None else tree_leaves(snapshots[j])
-    means = masked_aggregate_leaves(xs, table.contiguous(), rows, snapshots=snaps, bases=bases)
+    means = masked_aggregate_leaves(xs, table.contiguous(), rows, snapshots=snaps, bases=bases,
+                                    edge_ids=edge_ids, n_edges=n_edges)
     return [tree_unflatten(client_deltas[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 

@@ -1,6 +1,7 @@
 """The simulated communication/compute clock of the schedulers (paper
 §4.3's overhead metric) — the part of the JAX package's ``core/metrics.py``
-the ported slices need. Host-side numpy in float64, as there.
+the ported slices need, the two-level (edge-server) topology's partition,
+hop bytes and round times included. Host-side numpy in float64, as there.
 """
 
 from __future__ import annotations
@@ -60,3 +61,82 @@ class CommModel:
             per_client = per_client * np.asarray(delay, np.float64)
         per_client = np.where(np.asarray(select_mask, bool), per_client, 0.0)
         return per_client.max(axis=-1) + self.server_latency_s
+
+    def edge_round_times(
+        self,
+        tx_bytes: np.ndarray,
+        train_flops: np.ndarray,
+        select_mask: np.ndarray,
+        edge_ids: np.ndarray,
+        edge_bytes: np.ndarray,
+        rx_bytes: np.ndarray | None = None,
+        delay: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """Two-level (edge-server) round time for ``(T, C)`` chunk inputs.
+
+        Each edge e waits for its slowest selected member (client->edge
+        leg, same per-client time as the flat model), then forwards its
+        partial aggregate — ``edge_bytes (T, E)`` on the edge->server
+        hop — so the round completes at
+        ``max_e(member_max_e + edge_bytes_e / bandwidth) + server_latency``.
+        ``edge_ids (C,)`` is the static client->edge partition. With one
+        edge and zero edge bytes this reduces to ``round_times`` exactly.
+        """
+        tx = np.asarray(tx_bytes, np.float64)
+        rx = tx if rx_bytes is None else np.asarray(rx_bytes, np.float64)
+        per_client = (
+            (tx + rx) / self.bandwidth_bytes_per_s
+            + np.asarray(train_flops, np.float64) / self.client_flops_per_s
+        )
+        if delay is not None:
+            per_client = per_client * np.asarray(delay, np.float64)
+        per_client = np.where(np.asarray(select_mask, bool), per_client, 0.0)
+        ids = np.asarray(edge_ids)
+        e_bytes = np.asarray(edge_bytes, np.float64)
+        n_edges = e_bytes.shape[-1]
+        # per-edge member max: (T, E) via masked max over each id block
+        t_edges = np.zeros(per_client.shape[:-1] + (n_edges,), np.float64)
+        for e in range(n_edges):
+            members = per_client[..., ids == e]
+            if members.shape[-1]:
+                t_edges[..., e] = members.max(axis=-1)
+        t_edges = t_edges + e_bytes / self.bandwidth_bytes_per_s
+        return t_edges.max(axis=-1) + self.server_latency_s
+
+
+def edge_partition(n_clients: int, n_edges: int) -> np.ndarray:
+    """(C,) static client->edge assignment: E contiguous client-id blocks
+    of ``ceil(C/E)`` (the last block absorbs the remainder). Matches the
+    aggregator-side partition (``repro_torch.fl.phases.Aggregator._edges``)."""
+    group = -(-n_clients // n_edges)
+    return np.minimum(np.arange(n_clients) // group, n_edges - 1)
+
+
+def edge_hop_bytes(
+    selected: np.ndarray,
+    pms: np.ndarray,
+    layer_sizes: np.ndarray,
+    edge_ids: np.ndarray,
+    n_edges: int,
+) -> np.ndarray:
+    """(T, E) edge->server hop bytes for a chunk of rounds.
+
+    Each edge forwards one float32 partial aggregate per layer that at
+    least one of its selected members shared this round (layer params x 4
+    bytes, + 4 bytes for the layer's weight denominator); layers nobody in
+    the group shared cost the edge nothing. ``selected``/``pms`` are the
+    ``(T, C)`` history lanes; share masks are the prefix masks
+    ``layer j < pms`` (``repro_torch.core.layersharing``'s convention).
+    """
+    sel = np.asarray(selected, bool)
+    p = np.asarray(pms)
+    sizes = np.asarray(layer_sizes, np.float64)
+    n_layers = sizes.shape[0]
+    per_layer_bytes = sizes * BYTES_PER_PARAM + BYTES_PER_PARAM
+    share = sel[..., None] & (np.arange(n_layers)[None, None, :] < p[..., None])
+    out = np.zeros(sel.shape[:-1] + (n_edges,), np.float64)
+    ids = np.asarray(edge_ids)
+    for e in range(n_edges):
+        forwarded = share[:, ids == e, :].any(axis=1)  # (T, L)
+        out[..., e] = forwarded @ per_layer_bytes
+    return out

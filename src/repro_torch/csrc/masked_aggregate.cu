@@ -59,6 +59,24 @@
 // ascending loop on that leaf exactly; the order differs from jnp's
 // reduction, hence a stated ulp bound against the JAX package.
 //
+// Edge mode (two-level client -> edge -> server aggregation, the JAX
+// package's core/aggregation._weighted_mean with edge_ids, computed there
+// in jnp with segment_sum): with E > 1 edge groups the table carries one
+// launch-level pair for every leaf, `order` (C,) int32, the lanes sorted
+// stably by edge id (built on the device by the wrapper), and `edge` (C,),
+// the edge id of each lane in that order. Each thread walks the lanes in
+// that order, accumulating an edge's partial numerator and weight total
+// (products and sums rounded one at a time, as above) and adding the
+// partials into the running sums when the edge id changes, so the server
+// sums the E partials in ascending edge order:
+//   num = sum_e (sum_{c in e, ascending} w_c d_c),  total likewise,
+// and the epilogues are the flat mode's. The weight row is staged in
+// shared memory in the permuted order, with the lane ids and edge ids
+// beside it. Edge mode is its own kernel, so the flat kernel (E <= 1)
+// keeps its code, its registers and its 4 KB of shared memory; it reads x
+// once as well, so its bound is the flat mode's: 10.3 us a round at K = 30
+// (21.5 us at K = 64), 20.5 us a merge at M = 30.
+//
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper in
 // repro_torch/kernels/masked_aggregate/ops.py launches it on torch's
@@ -73,7 +91,7 @@ namespace {
 constexpr int kThreads = 64;
 constexpr int kCols = 4;
 constexpr int kWeightChunk = 1024;
-// leaves a launch: the table is 64 x 56 + 16 = 3,600 bytes, inside the
+// leaves a launch: the table is 64 x 56 + 40 = 3,624 bytes, inside the
 // classic 4 KB kernel-parameter limit (no CUDA 12.1 large-parameter path
 // needed): the fallback and the base share one pointer, told apart by mode
 constexpr int kMaxLeaves = 64;
@@ -97,8 +115,12 @@ struct Table {
   const float* w;        // (R, C) float32, row-major
   int n_leaves;
   int c_rows;            // C
+  const int32_t* order;  // edge mode: (C,) lanes sorted stably by edge id; null: flat
+  const int32_t* edge;   // edge mode: (C,) the edge id of each lane of `order`
+  int n_edges;           // E (> 1 in edge mode)
+  int pad;
 };
-static_assert(sizeof(Leaf) == 56 && sizeof(Table) <= 4096,
+static_assert(sizeof(Leaf) == 56 && sizeof(Table) == 3624 && sizeof(Table) <= 4096,
               "the table must stay inside the classic 4 KB kernel-parameter limit");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -133,6 +155,27 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float v[kCols]
   }
 }
 
+// The epilogues: the weighted mean, the fallback where the weights sum to
+// 0, or the base plus the mean (merge); written in x's type.
+template <typename T>
+__device__ __forceinline__ void write_out(const Leaf& leaf, const float acc[kCols], float total,
+                                          int64_t p0) {
+  const T* __restrict__ other = static_cast<const T*>(leaf.other);
+  T* __restrict__ out = static_cast<T*>(leaf.out);
+  const float denom = fmaxf(total, 1e-12f);
+  for (int k = 0; k < kCols && p0 + k < leaf.cols; ++k) {
+    float r;
+    if (leaf.mode == kModeBase) {
+      r = __fadd_rn(to_f32(other[p0 + k]), total > 0.0f ? __fdiv_rn(acc[k], denom) : 0.0f);
+    } else if (total > 0.0f) {
+      r = __fdiv_rn(acc[k], denom);
+    } else {
+      r = other ? to_f32(other[p0 + k]) : 0.0f;
+    }
+    out[p0 + k] = from_f32<T>(r);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 masked_aggregate_kernel(const __grid_constant__ Table table) {
@@ -142,8 +185,6 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
   const Leaf& leaf = table.leaf[li];
   const T* __restrict__ x = static_cast<const T*>(leaf.x);
   const T* __restrict__ snap = static_cast<const T*>(leaf.snap);
-  const T* __restrict__ other = static_cast<const T*>(leaf.other);
-  T* __restrict__ out = static_cast<T*>(leaf.out);
   const float* __restrict__ w = table.w + leaf.row * table.c_rows;
   const int c_rows = table.c_rows;
   const int64_t p_cols = leaf.cols;
@@ -202,18 +243,102 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
     }
   }
   if (p0 >= p_cols) return;
-  const float denom = fmaxf(total, 1e-12f);
-  for (int k = 0; k < kCols && p0 + k < p_cols; ++k) {
-    float r;
-    if (leaf.mode == kModeBase) {
-      r = __fadd_rn(to_f32(other[p0 + k]), total > 0.0f ? __fdiv_rn(acc[k], denom) : 0.0f);
-    } else if (total > 0.0f) {
-      r = __fdiv_rn(acc[k], denom);
-    } else {
-      r = other ? to_f32(other[p0 + k]) : 0.0f;
+  write_out<T>(leaf, acc, total, p0);
+}
+
+// Edge mode: the lanes walked in `order`, each edge's partial sums added
+// into the running sums in ascending edge order (see the header).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+masked_aggregate_edges_kernel(const __grid_constant__ Table table) {
+  __shared__ float w_s[kWeightChunk];
+  __shared__ int32_t lane_s[kWeightChunk];
+  __shared__ int32_t edge_s[kWeightChunk];
+  int li = 0;  // this block's leaf
+  while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
+  const Leaf& leaf = table.leaf[li];
+  const T* __restrict__ x = static_cast<const T*>(leaf.x);
+  const T* __restrict__ snap = static_cast<const T*>(leaf.snap);
+  const float* __restrict__ w = table.w + leaf.row * table.c_rows;
+  const int c_rows = table.c_rows;
+  const int64_t p_cols = leaf.cols;
+
+  const int64_t p0 = ((blockIdx.x - leaf.block0) * kThreads + threadIdx.x) * kCols;
+  const bool full = p0 + kCols <= p_cols;
+  float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float part[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float total = 0.0f;
+  float part_total = 0.0f;
+  int cur = -1;  // the edge whose partials are open
+  // closes the open edge: its partials join the running sums
+  auto next_edge = [&](int e) {
+    if (cur >= 0) {
+      total = __fadd_rn(total, part_total);
+      for (int k = 0; k < kCols; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
     }
-    out[p0 + k] = from_f32<T>(r);
+    part_total = 0.0f;
+    for (int k = 0; k < kCols; ++k) part[k] = 0.0f;
+    cur = e;
+  };
+  for (int c0 = 0; c0 < c_rows; c0 += kWeightChunk) {
+    const int m = c_rows - c0 < kWeightChunk ? c_rows - c0 : kWeightChunk;
+    __syncthreads();  // the previous chunk's staging is no longer read
+    for (int i = threadIdx.x; i < m; i += kThreads) {
+      const int32_t lane = table.order[c0 + i];
+      lane_s[i] = lane;
+      edge_s[i] = table.edge[c0 + i];
+      w_s[i] = w[lane];
+    }
+    __syncthreads();
+    int c = 0;
+    if (full) {
+      // 4 rows' loads in flight (8 with a snapshot), then the adds in order
+      for (; c + 4 <= m; c += 4) {
+        float v[4][kCols];
+        for (int r = 0; r < 4; ++r)
+          load_cols(x + static_cast<int64_t>(lane_s[c + r]) * p_cols + p0, v[r]);
+        if (snap) {
+          float sv[4][kCols];
+          for (int r = 0; r < 4; ++r)
+            load_cols(snap + static_cast<int64_t>(lane_s[c + r]) * p_cols + p0, sv[r]);
+          for (int r = 0; r < 4; ++r)
+            for (int k = 0; k < kCols; ++k) v[r][k] = __fsub_rn(v[r][k], sv[r][k]);
+        }
+        for (int r = 0; r < 4; ++r) {
+          if (edge_s[c + r] != cur) next_edge(edge_s[c + r]);
+          const float wc = w_s[c + r];
+          part_total = __fadd_rn(part_total, wc);
+          for (int k = 0; k < kCols; ++k) part[k] = __fadd_rn(part[k], __fmul_rn(wc, v[r][k]));
+        }
+      }
+    }
+    for (; c < m; ++c) {
+      if (edge_s[c] != cur) next_edge(edge_s[c]);
+      const float wc = w_s[c];
+      part_total = __fadd_rn(part_total, wc);
+      if (p0 >= p_cols) continue;
+      const int64_t off = static_cast<int64_t>(lane_s[c]) * p_cols + p0;
+      float v[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (full) {
+        load_cols(x + off, v);
+      } else {
+        for (int k = 0; p0 + k < p_cols; ++k) v[k] = to_f32(x[off + k]);
+      }
+      if (snap) {
+        float sv[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (full) {
+          load_cols(snap + off, sv);
+        } else {
+          for (int k = 0; p0 + k < p_cols; ++k) sv[k] = to_f32(snap[off + k]);
+        }
+        for (int k = 0; k < kCols; ++k) v[k] = __fsub_rn(v[k], sv[k]);
+      }
+      for (int k = 0; k < kCols; ++k) part[k] = __fadd_rn(part[k], __fmul_rn(wc, v[k]));
+    }
   }
+  next_edge(-1);
+  if (p0 >= p_cols) return;
+  write_out<T>(leaf, acc, total, p0);
 }
 
 }  // namespace
@@ -221,8 +346,8 @@ masked_aggregate_kernel(const __grid_constant__ Table table) {
 extern "C" {
 
 // Aggregates every leaf of the Table at table_ptr in one launch of `blocks`
-// blocks (the sum of the leaves' ceil(cols / 256)). dtype: 0 = float32,
-// 1 = bfloat16.
+// blocks (the sum of the leaves' ceil(cols / 256)); a table with `order`
+// set launches the edge-mode kernel. dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int repro_masked_aggregate(const void* table_ptr, int64_t blocks, int dtype, void* stream) {
   const Table* table = static_cast<const Table*>(table_ptr);
@@ -234,12 +359,23 @@ int repro_masked_aggregate(const void* table_ptr, int64_t blocks, int dtype, voi
         (leaf.mode == kModeBase && leaf.other == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool edges = table->order != nullptr;
+  if (edges && (table->edge == nullptr || table->n_edges < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
   if (dtype == 0) {
-    masked_aggregate_kernel<float><<<grid, kThreads, 0, s>>>(*table);
+    if (edges) {
+      masked_aggregate_edges_kernel<float><<<grid, kThreads, 0, s>>>(*table);
+    } else {
+      masked_aggregate_kernel<float><<<grid, kThreads, 0, s>>>(*table);
+    }
   } else if (dtype == 1) {
-    masked_aggregate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*table);
+    if (edges) {
+      masked_aggregate_edges_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*table);
+    } else {
+      masked_aggregate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*table);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,6 +17,11 @@ Two generator paths share the same distribution family: a per-client loop
 vectorized whole-population path that kicks in at
 ``n_clients >= POPULATION_THRESHOLD`` so C=5000+ populations for the
 cohort-execution scale benches build in well under a second.
+
+``ShardedFederatedData`` (``make_sharded_population``) is the lazy
+population: O(C) metadata lanes, every client's rows regenerated on demand
+from a counter-keyed substream, for the host-resident population plane
+(``repro_torch.fl.population``).
 """
 
 from __future__ import annotations
@@ -52,8 +57,24 @@ class FederatedDataset:
         """(C,) true (unpadded) train sample counts |d_i|."""
         return self.m_train.sum(axis=1).astype(np.int32)
 
+    def shard(self, idx: np.ndarray):
+        """(K, ...) data rows for client ids ``idx`` — one cohort's slabs.
+
+        The common staging interface with ``ShardedFederatedData``: the
+        host-population runtime (repro_torch.fl.population) only ever asks for
+        cohort-sized row sets, never the whole (C, ...) slab.
+        """
+        idx = np.asarray(idx)
+        return (self.x_train[idx], self.y_train[idx], self.m_train[idx],
+                self.x_test[idx], self.y_test[idx], self.m_test[idx])
+
 
 POPULATION_THRESHOLD = 2000  # vectorized generator path kicks in at this C
+
+# SeedSequence sub-stream tags: the meta pass and the per-client row streams
+# draw from disjoint counter-keyed streams of the same master seed
+_META_STREAM = 0x6D657461   # "meta"
+_CLIENT_STREAM = 0x636C69   # "cli"
 
 
 def make_federated_classification(
@@ -197,4 +218,141 @@ def _make_population(
         x_train=x_tr, y_train=y_tr, m_train=m_tr_full[:, :n_tr],
         x_test=x_te, y_test=y_te, m_test=m_te,
         n_classes=n_classes, name=name,
+    )
+
+
+@dataclasses.dataclass
+class ShardedFederatedData:
+    """Lazy counter-keyed federated population: O(C) cheap metadata lanes,
+    data slabs regenerated per cohort shard.
+
+    The eager generators materialize the full (C, N, F) feature slab —
+    ~C * N * F * 4 bytes of host RAM, which at C=10^6 clients x 100 samples
+    x 20 features is already ~8 GB and scales linearly from there. This
+    variant keeps only the per-client *metadata* (sample counts, Dirichlet
+    class proportions — a few hundred bytes per client) and regenerates any
+    client's rows on demand from a counter-keyed substream
+    ``default_rng(SeedSequence([seed, _CLIENT_STREAM, i]))``, so a cohort's
+    ``(K, ...)`` slab costs O(K) memory and the same client always
+    regenerates bit-identical rows regardless of which cohorts it appears
+    in. ``materialize()`` produces the equivalent eager
+    ``FederatedDataset`` (shard-vs-materialize parity is regression-tested).
+
+    Padding widths are derived from the *sample-count range*, not the drawn
+    counts, so shapes are static in C and a shard never needs a global max.
+    """
+
+    n_classes: int
+    seed: int
+    client_shift: float
+    means: np.ndarray      # (n_classes, F) shared class prototypes
+    counts: np.ndarray     # (C,) total samples per client
+    props: np.ndarray      # (C, n_classes) Dirichlet class proportions
+    tr_counts: np.ndarray  # (C,) train samples per client
+    te_counts: np.ndarray  # (C,) test samples per client
+    n_tr: int              # train padding width (static given the range)
+    n_te: int              # test padding width
+    name: str = "synthetic-sharded"
+
+    @property
+    def n_clients(self) -> int:
+        return int(self.counts.shape[0])
+
+    @property
+    def n_features(self) -> int:
+        return int(self.means.shape[1])
+
+    @property
+    def n_samples(self) -> np.ndarray:
+        return self.tr_counts.astype(np.int32)
+
+    def _client_rows(self, i: int):
+        """Regenerate client i's (features, labels) from its substream."""
+        n_features = self.n_features
+        rs = np.random.default_rng(
+            np.random.SeedSequence([self.seed, _CLIENT_STREAM, int(i)])
+        )
+        n_i = int(self.counts[i])
+        labels = rs.choice(self.n_classes, size=n_i, p=self.props[i])
+        feats = self.means[labels] + rs.normal(0.0, 1.0, (n_i, n_features))
+        scale = 1.0 + self.client_shift * rs.normal(0.0, 1.0, (n_features,))
+        bias = self.client_shift * rs.normal(0.0, 1.0, (n_features,))
+        mix = np.eye(n_features) + self.client_shift * 0.2 * rs.normal(
+            0.0, 1.0 / np.sqrt(n_features), (n_features, n_features)
+        )
+        feats = ((feats * scale) @ mix + bias).astype(np.float32)
+        return feats, labels.astype(np.int32)
+
+    def shard(self, idx: np.ndarray):
+        """Regenerate the (K, ...) padded data slabs for client ids ``idx``.
+
+        Same 6-tuple layout as ``FederatedDataset.shard``; duplicated ids
+        are allowed (each row is generated independently).
+        """
+        idx = np.asarray(idx)
+        k = idx.shape[0]
+        n_features = self.n_features
+        x_tr = np.zeros((k, self.n_tr, n_features), np.float32)
+        y_tr = np.zeros((k, self.n_tr), np.int32)
+        m_tr = np.zeros((k, self.n_tr), bool)
+        x_te = np.zeros((k, self.n_te, n_features), np.float32)
+        y_te = np.zeros((k, self.n_te), np.int32)
+        m_te = np.zeros((k, self.n_te), bool)
+        for row, i in enumerate(idx):
+            feats, labels = self._client_rows(i)
+            t_i, e_i = int(self.tr_counts[i]), int(self.te_counts[i])
+            n_i = t_i + e_i
+            x_tr[row, :t_i], y_tr[row, :t_i], m_tr[row, :t_i] = (
+                feats[:t_i], labels[:t_i], True)
+            x_te[row, :e_i], y_te[row, :e_i], m_te[row, :e_i] = (
+                feats[t_i:n_i], labels[t_i:n_i], True)
+        return x_tr, y_tr, m_tr, x_te, y_te, m_te
+
+    def materialize(self) -> FederatedDataset:
+        """Eager equivalent: generate every client (parity reference; only
+        sensible at small C)."""
+        x_tr, y_tr, m_tr, x_te, y_te, m_te = self.shard(np.arange(self.n_clients))
+        return FederatedDataset(
+            x_train=x_tr, y_train=y_tr, m_train=m_tr,
+            x_test=x_te, y_test=y_te, m_test=m_te,
+            n_classes=self.n_classes, name=self.name,
+        )
+
+
+def make_sharded_population(
+    n_clients: int,
+    n_classes: int,
+    n_features: int,
+    samples_per_client_range: tuple[int, int],
+    dirichlet_alpha: float = 100.0,
+    client_shift: float = 0.05,
+    class_sep: float = 6.0,
+    test_fraction: float = 0.25,
+    seed: int = 0,
+    name: str = "synthetic-sharded",
+) -> ShardedFederatedData:
+    """Build a lazy sharded population (same distribution family as
+    ``make_federated_classification``; its own rng stream layout, so
+    trajectories are not comparable to the eager generators).
+
+    The meta pass draws only the O(C)-cheap per-client lanes (counts,
+    class proportions) plus the shared class prototypes — a C=10^6
+    population constructs in a few hundred MB and well under a second.
+    """
+    lo, hi = samples_per_client_range
+    meta = np.random.default_rng(np.random.SeedSequence([seed, _META_STREAM]))
+    means = meta.normal(0.0, class_sep / np.sqrt(n_features), (n_classes, n_features))
+    counts = meta.integers(lo, hi + 1, size=n_clients)
+    props = meta.dirichlet(np.full(n_classes, dirichlet_alpha), size=n_clients)
+    te_counts = np.maximum(1, (counts * test_fraction).astype(int))
+    tr_counts = counts - te_counts
+    # static padding: exact max over every count the range can produce
+    cand = np.arange(lo, hi + 1)
+    te_cand = np.maximum(1, (cand * test_fraction).astype(int))
+    return ShardedFederatedData(
+        n_classes=n_classes, seed=seed, client_shift=client_shift,
+        means=means, counts=counts, props=props,
+        tr_counts=tr_counts, te_counts=te_counts,
+        n_tr=int((cand - te_cand).max()), n_te=int(te_cand.max()),
+        name=name,
     )

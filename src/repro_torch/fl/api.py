@@ -411,6 +411,42 @@ def _tree_where(mask: torch.Tensor, new, old):
     )
 
 
+def compute_lanes(pipeline: RoundPipeline, cctx: phases.RoundContext, cenv: phases.RoundEnv,
+                  prev_norm: torch.Tensor, kinds: torch.Tensor | None = None,
+                  max_norm: float = 0.0, corrupt_scale: float = 0.0):
+    """The compute phases on a round's lanes (a sync cohort or the async
+    dispatch slots; ``cctx.select`` marks the lanes that commit): the
+    personalizer's train model, local training, the corruption ``kinds``
+    (fault mode; rewritten after the trainer and before transmit, so
+    corrupted lanes still pay wire and the guard is what rejects them), the
+    new local models (the fallback off the committing lanes), the wire
+    codec, the finite-delta guard (always on: a rejected lane leaves the
+    aggregation, keeps its local model and residual, and its update norm
+    reverts to ``prev_norm``), and the aggregator. Returns ``(cctx,
+    n_rejected)``."""
+    stateful = pipeline.personalizer.stateful
+    lanes = cctx.select
+    cctx = cctx._replace(train_model=pipeline.personalizer.train_model(cctx, cenv))
+    cctx = pipeline.trainer.fit(cctx, cenv)
+    if kinds is not None:
+        cctx = cctx._replace(trained=apply_corruption(cctx.trained, kinds, corrupt_scale))
+    if stateful:
+        cctx = cctx._replace(new_local=_tree_where(
+            lanes, cctx.trained, pipeline.personalizer.local_fallback(cctx, cenv)))
+    local_before = cctx.local_params if stateful else None
+    res_before = cctx.residual
+    cctx = pipeline.transmit.transmit(cctx, cenv)
+    ok, n_rejected = finite_update_guard(lanes, cctx.update_norm, max_norm)
+    cctx = cctx._replace(
+        select=lanes & ok,
+        residual=_tree_where(ok, cctx.residual, res_before),
+        update_norm=torch.where(ok, cctx.update_norm, prev_norm),
+    )
+    if stateful:
+        cctx = cctx._replace(new_local=_tree_where(ok, cctx.new_local, local_before))
+    return pipeline.aggregator.aggregate(cctx, cenv), n_rejected
+
+
 def build_round_step(
     env: phases.RoundEnv,
     pipeline: RoundPipeline,
@@ -515,36 +551,16 @@ def build_round_step(
             rng_sel=r_sel,
         )
 
-        # --- personalization, then local training on K lanes ---
-        cctx = cctx._replace(train_model=pipeline.personalizer.train_model(cctx, cenv))
-        cctx = pipeline.trainer.fit(cctx, cenv)
-        if corrupt is not None:
-            # corrupted clients still land and pay wire; the guard rejects them
-            kinds_k = torch.where(cmask, corrupt.index_select(0, idx), torch.zeros_like(idx))
-            cctx = cctx._replace(trained=apply_corruption(cctx.trained, kinds_k, corrupt_scale))
-        if stateful:
-            cctx = cctx._replace(new_local=_tree_where(
-                cmask, cctx.trained, pipeline.personalizer.local_fallback(cctx, cenv)))
-        # --- wire codec: each cohort lane's shared delta (uplink) ---
-        local_before = cctx.local_params if stateful else None
-        res_before = cctx.residual
-        cctx = pipeline.transmit.transmit(cctx, cenv)
-        # --- finite-delta guard (always on) ---
+        # --- personalize, train, transmit, guard and aggregate on K lanes ---
         prev_norm = (
             state.update_norm
             if state.update_norm is not None
             else torch.zeros(select_in.shape, dtype=torch.float32, device=dev)
         )
-        ok, n_rejected = finite_update_guard(cmask, cctx.update_norm, max_norm)
-        cctx = cctx._replace(
-            select=cmask & ok,
-            residual=_tree_where(ok, cctx.residual, res_before),
-            update_norm=torch.where(ok, cctx.update_norm, prev_norm.index_select(0, idx)),
-        )
-        if stateful:
-            cctx = cctx._replace(new_local=_tree_where(ok, cctx.new_local, local_before))
-        # --- aggregation of the shared pieces (Eq. 1, masked/partial) ---
-        cctx = pipeline.aggregator.aggregate(cctx, cenv)
+        kinds_k = (None if corrupt is None
+                   else torch.where(cmask, corrupt.index_select(0, idx), torch.zeros_like(idx)))
+        cctx, n_rejected = compute_lanes(pipeline, cctx, cenv, prev_norm.index_select(0, idx),
+                                         kinds_k, max_norm, corrupt_scale)
 
         # --- scatter: cohort results back into the (C, ...) state ---
         new_local = tree_scatter(state.local_params, idx, cctx.new_local) if stateful else None

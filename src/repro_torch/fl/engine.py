@@ -10,7 +10,9 @@ A round is the phase pipeline of ``repro_torch.fl.api``:
 driven by ``repro_torch.fl.sched.SyncScheduler`` (the paper's barrier) or
 ``AsyncScheduler`` (FedBuff-style buffered aggregation over dispatch
 slots), with optional fault injection, checkpoint/resume and a run recorder
-(``repro_torch.obs``) under both.
+(``repro_torch.obs``) under both; large or lazily generated populations run
+on the host-resident population plane (``repro_torch.fl.population``), and
+``edge_groups`` adds the two-level edge topology.
 Every entry point takes
 ``device=``: the CUDA card by default, the CPU only when asked for; with no
 card and ``device=None`` they raise rather than run on the CPU quietly.
@@ -53,7 +55,8 @@ class FLHistory(NamedTuple):
     staleness_mean: np.ndarray       # (T,) 0 under the sync barrier
     in_flight: np.ndarray            # (T,) executing client lanes (sync: K;
                                      # async: clients in flight after the event)
-    tx_edge_bytes: np.ndarray | None = None   # edge aggregation: not ported
+    tx_edge_bytes: np.ndarray | None = None   # (T, E) edge-to-server hop bytes
+                                              # (edge_groups E >= 1; None when flat)
     rejected_updates: np.ndarray | None = None  # (T,) finite-guard rejections
     wall_time: np.ndarray | None = None  # (T,) host seconds per round: its
                                          # chunk's time, up to the fetch of the
@@ -73,7 +76,7 @@ def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,
     from repro_torch.fl.sched import check_slice
 
     dev = resolve_device(device)
-    check_slice(cfg, data)
+    check_slice(cfg)
     pipeline = pipeline or pipeline_from_config(cfg)
     env = build_env(data, cfg.seed, dev, loss_fn=loss_fn, acc_fn=acc_fn)
     return build_round_step(env, pipeline, cfg.execution,

@@ -77,7 +77,9 @@ class RoundEnv:
 
     @property
     def device(self) -> torch.device:
-        return self.x_tr.device
+        """The device of the slabs (an environment without data slabs, the
+        host plane's population step, names it by its sample counts)."""
+        return next(t for t in (self.x_tr, self.x_te, self.n_samples) if t is not None).device
 
     def take(self, idx: torch.Tensor) -> "RoundEnv":
         """Cohort view: the ``idx`` client lanes of every data slab."""
@@ -374,18 +376,32 @@ class TransmitPhase:
 
 
 class Aggregator:
-    """Reduces the lane axis into the new global model."""
+    """Reduces the lane axis into the new global model.
+
+    ``edge_groups`` routes the reduction through two-level (edge-server)
+    aggregation: the population is cut into E contiguous client-id blocks,
+    each edge partial-sums its members and the server sums the E partials
+    (masked_aggregate's edge mode). ``edge_groups <= 1`` keeps the flat sum
+    exactly; E > 1 reassociates the sum (within a few ulp of the flat
+    one)."""
+
+    edge_groups = 0  # subclasses declare the dataclass field
+
+    def _edges(self, ctx: RoundContext, env: RoundEnv):
+        """``(edge_ids, n_edges)`` of the current lanes, or ``(None, 0)``
+        when aggregation is flat. Membership is by true client id
+        (``ctx.cohort_idx``), so a client reduces through its own edge in
+        whichever lane or slot it lands; computed on the device."""
+        if self.edge_groups <= 1:
+            return None, 0
+        group = -(-env.pop // self.edge_groups)
+        cid = (ctx.cohort_idx if ctx.cohort_idx is not None
+               else torch.arange(env.n_clients, device=ctx.select.device))
+        ids = torch.clamp(torch.div(cid, group, rounding_mode="floor"), 0, self.edge_groups - 1)
+        return ids.to(torch.int32), self.edge_groups
 
     def aggregate(self, ctx: RoundContext, env: RoundEnv) -> RoundContext:
         raise NotImplementedError
-
-
-def _flat_only(edge_groups: int) -> None:
-    if edge_groups > 1:
-        raise NotImplementedError(
-            "edge_groups (two-level edge aggregation) is not ported yet: "
-            "ROADMAP.md queue 1 item 10"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,11 +410,10 @@ class FedAvgAggregator(Aggregator):
 
     edge_groups: int = 0
 
-    def __post_init__(self):
-        _flat_only(self.edge_groups)
-
     def aggregate(self, ctx, env):
-        return ctx._replace(new_global=fedavg_aggregate(ctx.agg_src, ctx.select, env.n_samples))
+        edge_ids, n_edges = self._edges(ctx, env)
+        return ctx._replace(new_global=fedavg_aggregate(
+            ctx.agg_src, ctx.select, env.n_samples, edge_ids=edge_ids, n_edges=n_edges))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,12 +423,11 @@ class MaskedPartialAggregator(Aggregator):
 
     edge_groups: int = 0
 
-    def __post_init__(self):
-        _flat_only(self.edge_groups)
-
     def aggregate(self, ctx, env):
+        edge_ids, n_edges = self._edges(ctx, env)
         return ctx._replace(new_global=masked_partial_aggregate(
-            ctx.agg_src, ctx.global_params, ctx.select, env.n_samples, ctx.share))
+            ctx.agg_src, ctx.global_params, ctx.select, env.n_samples, ctx.share,
+            edge_ids=edge_ids, n_edges=n_edges))
 
 
 # --- staleness weighting (FedBuff, Nguyen et al. 2022) ----------------------
@@ -472,7 +486,6 @@ class StalenessAggregator(Aggregator):
     edge_groups: int = 0
 
     def __post_init__(self):
-        _flat_only(self.edge_groups)
         if self.staleness_fn not in STALENESS_FNS:
             raise KeyError(f"unknown staleness_fn {self.staleness_fn!r}; "
                            f"have {sorted(STALENESS_FNS)}")
@@ -487,8 +500,9 @@ class StalenessAggregator(Aggregator):
             snaps = [tree_map(lambda g, a: g.expand_as(a), g_j, a_j)
                      for g_j, a_j in zip(ctx.global_params, ctx.agg_src)]
         # the deltas agg_src - snapshot are formed in the kernel's loads
+        edge_ids, n_edges = self._edges(ctx, env)
         new_global = staleness_weighted_merge(ctx.agg_src, ctx.global_params, w, ctx.share,
-                                              snapshots=snaps)
+                                              edge_ids=edge_ids, n_edges=n_edges, snapshots=snaps)
         return ctx._replace(new_global=new_global, merge_weight=discount)
 
 

@@ -23,10 +23,16 @@ Both snapshot and resume their whole state (``repro_torch.checkpoint``):
 a resumed run gives the uninterrupted run's history bit for bit. Both
 feed an optional ``repro_torch.obs.RunRecorder`` (``recorder=``) from the
 numpy records of each chunk's or event's one fetch, and time their
-phases on its profiler; the device work is the unrecorded run's.
-``check_slice`` raises ``NotImplementedError`` for every option outside
-the ported slices, naming the ROADMAP.md item that ports it, so no option
-is silently ignored.
+phases on its profiler; the device work is the unrecorded run's. With
+``edge_groups`` E >= 1 both account the two-level topology: the
+edge-to-server hop bytes a round (``FLHistory.tx_edge_bytes``, (T, E)) and,
+under the barrier, edge round times. A population at or above the host
+threshold (``ExecutionConfig.resolved_host_population``), or a dataset
+with no eager ``x_train`` (``ShardedFederatedData``), runs on the
+host-resident population plane (``repro_torch.fl.population``) instead.
+``check_slice`` raises ``NotImplementedError`` for the option outside the
+ported slices (``cohort_devices``, naming the ROADMAP.md item that ports
+it), so no option is silently ignored.
 """
 
 from __future__ import annotations
@@ -43,9 +49,9 @@ import torch
 from repro_torch import random as prng
 from repro_torch.checkpoint import load_fl_state, load_host_arrays, save_fl_state, save_host_arrays
 from repro_torch.comm import Codec, tree_wire_bytes
-from repro_torch.core.aggregation import finite_update_guard, transmitted_parameters
+from repro_torch.core.aggregation import transmitted_parameters
 from repro_torch.core.layersharing import layer_param_sizes, layer_share_mask
-from repro_torch.core.metrics import BYTES_PER_PARAM, CommModel
+from repro_torch.core.metrics import BYTES_PER_PARAM, CommModel, edge_hop_bytes, edge_partition
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl import phases
 from repro_torch.fl.api import (
@@ -56,10 +62,11 @@ from repro_torch.fl.api import (
     build_chunk_step,
     build_env,
     build_round_step,
+    compute_lanes,
     pipeline_from_config,
 )
 from repro_torch.fl.cohort import scatter_rows, tree_scatter, tree_take
-from repro_torch.fl.faults import apply_corruption, compile_fault_plan
+from repro_torch.fl.faults import compile_fault_plan
 from repro_torch.models.mlp import init_mlp, mlp_accuracy, mlp_loss
 from repro_torch.obs.profile import phase_timer
 from repro_torch.obs.record import format_async_progress, format_sync_progress
@@ -75,13 +82,11 @@ def _not_ported(option: str, item: int, what: str) -> NotImplementedError:
     )
 
 
-def check_slice(cfg: FLConfig, data) -> None:
-    """Raise ``NotImplementedError`` for every option or dataset outside
-    the ported slice (ROADMAP.md names the item that lifts each)."""
-    if getattr(data, "x_train", None) is None:
-        raise _not_ported("a dataset with no eager x_train", 10,
-                          "host-resident population plane")
-    n_clients = data.n_clients
+def check_slice(cfg: FLConfig) -> None:
+    """Raise the JAX package's ``ValueError`` for fault injection with an
+    edge topology or with cohort sharding, and ``NotImplementedError`` for
+    ``cohort_devices``, the option outside the ported slices (ROADMAP.md
+    names the item that lifts it)."""
     ex = cfg.execution
     if cfg.faults.enabled and ex.edge_groups >= 1:
         raise ValueError("fault injection with an edge_groups topology is not supported yet; "
@@ -89,14 +94,16 @@ def check_slice(cfg: FLConfig, data) -> None:
     if cfg.faults.enabled and ex.cohort_devices != 0:
         raise ValueError("fault injection composes with the cohort runtime but not with "
                          "cohort_devices sharding; set cohort_devices=0 or disable FaultConfig")
-    if ex.host_population == 1 or ex.resolved_host_population(n_clients):
-        raise _not_ported("host_population", 10, "host-resident population plane")
-    if ex.eval_chunk != 0:
-        raise _not_ported("eval_chunk", 10, "host-population eval streaming")
-    if ex.edge_groups != 0:
-        raise _not_ported("edge_groups", 10, "two-level edge aggregation")
     if ex.cohort_devices != 0:
         raise _not_ported("cohort_devices", 12, "sharded cohort rounds")
+
+
+def on_host_plane(cfg: FLConfig, data) -> bool:
+    """Whether a run belongs to the host-resident population plane: the
+    population is at or above the threshold (or ``host_population=1``), or
+    the dataset has no eager ``x_train`` slab to put on the device (the
+    JAX package's routing)."""
+    return cfg.execution.resolved_host_population(data.n_clients) or not hasattr(data, "x_train")
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +367,38 @@ _SYNC_HIST = ("acc", "selected", "tx_params", "pms", "round_time", "wire", "reje
 
 
 @dataclasses.dataclass
+class _EdgeTopology:
+    """The two-level (client -> edge -> server) topology's accounting, on
+    the host in float64: the static client-to-edge partition, the
+    edge-to-server hop bytes of a chunk's rounds, and the barrier's round
+    times, each edge waiting for its slowest member and then forwarding
+    its partials (the JAX package's ``core/metrics`` functions)."""
+
+    edge_ids: np.ndarray     # (C,) edge of each client
+    n_edges: int
+    layer_sizes: np.ndarray  # (L,) parameters a layer
+
+    @classmethod
+    def build(cls, cfg: FLConfig, n_clients: int, clock: ClientClock) -> "_EdgeTopology | None":
+        """The topology of ``cfg.execution.edge_groups`` E >= 1; None when flat."""
+        n_edges = cfg.execution.edge_groups
+        if n_edges < 1:
+            return None
+        return cls(edge_partition(n_clients, n_edges), n_edges, np.diff(clock.params_prefix))
+
+    def hop_bytes(self, sel: np.ndarray, pms: np.ndarray) -> np.ndarray:
+        """(T, E) edge-to-server bytes of the (T, C) selections and depths."""
+        return edge_hop_bytes(sel, pms, self.layer_sizes, self.edge_ids, self.n_edges)
+
+    def round_times(self, comm: CommModel, clock: ClientClock, wire, sel, pms, e_bytes,
+                    delay) -> np.ndarray:
+        """(T,) simulated seconds of barrier rounds over the two hops."""
+        return comm.edge_round_times(
+            wire, clock.round_flops(pms), sel, self.edge_ids, e_bytes,
+            rx_bytes=clock.shared_params(pms) * float(BYTES_PER_PARAM), delay=delay)
+
+
+@dataclasses.dataclass
 class SyncScheduler:
     """The synchronous barrier loop: chunks of ``scan_chunk`` rounds on the
     device (``build_chunk_step``, one chunk step per distinct chunk length:
@@ -386,9 +425,15 @@ class SyncScheduler:
             progress: bool = False, pipeline: RoundPipeline | None = None,
             client_delay: np.ndarray | None = None, recorder=None, checkpoint_every: int = 0,
             checkpoint_dir: str | None = None, resume_from: str | None = None):
-        from repro_torch.fl.engine import FLHistory
+        check_slice(cfg)
+        if on_host_plane(cfg, data):
+            from repro_torch.fl.population import run_host_sync
 
-        check_slice(cfg, data)
+            return run_host_sync(data, cfg, device, init_fn=init_fn, loss_fn=loss_fn,
+                                 acc_fn=acc_fn, comm=comm, progress=progress, pipeline=pipeline,
+                                 client_delay=client_delay, recorder=recorder,
+                                 checkpoint_every=checkpoint_every,
+                                 checkpoint_dir=checkpoint_dir, resume_from=resume_from)
         faults = cfg.faults
         faulty = faults.enabled
         ckpt_dir = resolve_checkpoint_dir(checkpoint_every, checkpoint_dir, resume_from)
@@ -408,7 +453,9 @@ class SyncScheduler:
                               lanes=lanes, device=device)
         prof = recorder.profiler if recorder is not None else None
         emit = recorder.log if recorder is not None else print
-        hist: dict[str, list] = {k: [] for k in _SYNC_HIST}
+        edges = _EdgeTopology.build(cfg, data.n_clients, clock)
+        keys = _SYNC_HIST + (("tx_edge_bytes",) if edges else ())
+        hist: dict[str, list] = {k: [] for k in keys}
         start = 0
         if resume_from is not None:
             # the latest snapshot: the state (rng chain included) and the
@@ -417,7 +464,7 @@ class SyncScheduler:
             state = trees["state"]
             start = int(meta["round"])
             saved = load_host_arrays(resume_from, f"hist_{start:05d}")
-            hist = {k: [saved[k]] for k in _SYNC_HIST}
+            hist = {k: [saved[k]] for k in keys}
         for t0 in range(start, cfg.rounds, chunk):
             n = min(chunk, cfg.rounds - t0)
             t_start = time.perf_counter()
@@ -463,6 +510,10 @@ class SyncScheduler:
                     rt = min(rt, faults.deadline_s)
                 rt = np.asarray([rt + comm.server_latency_s], np.float64)
                 n_dropped = int((sel_pre & ~alive_np).sum())
+            elif edges:
+                e_bytes = edges.hop_bytes(sel, pms)
+                hist["tx_edge_bytes"].append(e_bytes)
+                rt = edges.round_times(comm, clock, wire, sel, pms, e_bytes, delay)
             else:
                 rt = comm.round_times(
                     wire, clock.round_flops(pms), sel,
@@ -492,27 +543,35 @@ class SyncScheduler:
                 save_host_arrays({k: np.concatenate(v) for k, v in hist.items()}, ckpt_dir,
                                  f"hist_{r:05d}")
 
-        h = {k: np.concatenate(v) for k, v in hist.items()}
-        times = h["round_time"]
-        history = FLHistory(
-            accuracy_mean=h["acc"].mean(axis=1),
-            accuracy_per_client=h["acc"],
-            selected=h["selected"],
-            tx_params=h["tx_params"],
-            tx_bytes_cum=np.cumsum(h["wire"]),
-            round_time=times,
-            pms=h["pms"],
-            tx_wire_bytes=h["wire"],
-            sim_clock=np.cumsum(times),
-            staleness_mean=np.zeros_like(times),
-            in_flight=np.full(times.shape, lanes, np.int64),
-            tx_edge_bytes=None,
-            rejected_updates=h["rejected"],
-            wall_time=np.asarray(h["wall"], np.float64),
-        )
+        history = sync_history(hist, lanes)
         if recorder is not None:
             recorder.close(history)
         return history
+
+
+def sync_history(hist: dict, lanes: int):
+    """The ``FLHistory`` of a barrier run's history chunks (``lanes``
+    clients in flight a round)."""
+    from repro_torch.fl.engine import FLHistory
+
+    h = {k: np.concatenate(v) for k, v in hist.items()}
+    times = h["round_time"]
+    return FLHistory(
+        accuracy_mean=h["acc"].mean(axis=1),
+        accuracy_per_client=h["acc"],
+        selected=h["selected"],
+        tx_params=h["tx_params"],
+        tx_bytes_cum=np.cumsum(h["wire"]),
+        round_time=times,
+        pms=h["pms"],
+        tx_wire_bytes=h["wire"],
+        sim_clock=np.cumsum(times),
+        staleness_mean=np.zeros_like(times),
+        in_flight=np.full(times.shape, lanes, np.int64),
+        tx_edge_bytes=h.get("tx_edge_bytes"),
+        rejected_updates=h["rejected"],
+        wall_time=np.asarray(h["wall"], np.float64),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +602,26 @@ def _lane(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (leaf.ndim - 1))
 
 
-def _tree_where(mask: torch.Tensor, new, old):
-    return tree_map(lambda n, o: torch.where(_lane(mask, n), n, o), new, old)
+def assign_slots(next_select, next_pms, idle_now, land, active, force, cids, slot_pms):
+    """Refill the freed slots: the selector's wanted idle clients go to the
+    freed slots (landed or inactive), ascending ids on both sides; with no
+    one else in flight and no wanted idle client (``force``), the landing
+    slots re-dispatch their own clients, so the queue never drains. Returns
+    ``(dispatched (M,), new_slot_client (M,), new_slot_pms (M,), disp_pms
+    (M,))``; a client's depth is frozen at dispatch, like its snapshot."""
+    c = next_select.shape[0]
+    want = next_select & idle_now                       # (C,)
+    free = land | ~active                               # (M,)
+    n_assign = torch.minimum(want.sum(), free.sum())
+    slot_rank = torch.cumsum(free.to(torch.int32), 0) - 1
+    # wanted ids first, each group ascending (a stable sort of 0/1 keys)
+    cand_order = torch.argsort((~want).to(torch.int8), stable=True)
+    assigned = free & (slot_rank < n_assign)
+    new_cid = cand_order.index_select(0, torch.clamp(slot_rank, 0, c - 1).to(torch.int64))
+    dispatched = torch.where(force & (n_assign == 0), land, assigned)
+    new_slot_client = torch.where(assigned, new_cid, cids)
+    disp_pms = next_pms.index_select(0, new_slot_client)
+    return dispatched, new_slot_client, torch.where(dispatched, disp_pms, slot_pms), disp_pms
 
 
 def build_async_step(env: phases.RoundEnv, pipeline: RoundPipeline, faults=None):
@@ -612,31 +689,13 @@ def build_async_step(env: phases.RoundEnv, pipeline: RoundPipeline, faults=None)
             rng_sel=r_sel,
         )
 
-        # --- each slot lane trains from its own dispatch snapshot ---
-        cctx = cctx._replace(train_model=pipeline.personalizer.train_model(cctx, menv))
-        cctx = pipeline.trainer.fit(cctx, menv)
-        if corrupt is not None:
-            kinds_m = torch.where(land, corrupt, torch.zeros_like(corrupt))
-            cctx = cctx._replace(trained=apply_corruption(cctx.trained, kinds_m, corrupt_scale))
-        if stateful:
-            cctx = cctx._replace(new_local=_tree_where(
-                land, cctx.trained, pipeline.personalizer.local_fallback(cctx, menv)))
-        # --- wire codec: landing slots' deltas against their snapshots ---
-        local_before = cctx.local_params if stateful else None
-        res_before = cctx.residual
-        cctx = pipeline.transmit.transmit(cctx, menv)
-        # --- finite-delta guard (always on) ---
-        ok, n_rejected = finite_update_guard(land, cctx.update_norm, max_norm)
-        cctx = cctx._replace(
-            select=land & ok,
-            update_norm=torch.where(ok, cctx.update_norm, state.update_norm.index_select(0, cids)),
-        )
-        if res_before is not None:
-            cctx = cctx._replace(residual=_tree_where(ok, cctx.residual, res_before))
-        if stateful:
-            cctx = cctx._replace(new_local=_tree_where(ok, cctx.new_local, local_before))
-        # --- staleness-weighted buffered merge into the current model ---
-        cctx = pipeline.aggregator.aggregate(cctx, menv)
+        # --- every slot lane trains from its own dispatch snapshot; the
+        # landing slots' deltas ride the codec and merge with staleness
+        # weights (the aggregator) ---
+        kinds_m = None if corrupt is None else torch.where(land, corrupt, torch.zeros_like(corrupt))
+        cctx, n_rejected = compute_lanes(pipeline, cctx, menv,
+                                         state.update_norm.index_select(0, cids), kinds_m,
+                                         max_norm, corrupt_scale)
 
         # --- scatter landing lanes into the (C, ...) client state ---
         new_local = (tree_scatter(state.local_params, land_cid, cctx.new_local, mode="drop")
@@ -672,22 +731,8 @@ def build_async_step(env: phases.RoundEnv, pipeline: RoundPipeline, faults=None)
         pctx = pipeline.selector.select(pctx, env)
         pctx = pctx._replace(next_pms=pipeline.layer_policy.next_pms(pctx, env, n_layers))
 
-        # --- slot assignment: wanted idle clients -> freed slots, ascending
-        # ids on both sides; never let the queue drain ---
-        want = pctx.next_select & idle_now                  # (C,)
-        free = land | ~active                               # (M,)
-        n_assign = torch.minimum(want.sum(), free.sum())
-        slot_rank = torch.cumsum(free.to(torch.int32), 0) - 1
-        # wanted ids first, each group ascending (a stable sort of 0/1 keys)
-        cand_order = torch.argsort((~want).to(torch.int8), stable=True)
-        assigned = free & (slot_rank < n_assign)
-        new_cid = cand_order.index_select(0, torch.clamp(slot_rank, 0, c - 1).to(torch.int64))
-        need_force = force & (n_assign == 0)
-        dispatched = torch.where(need_force, land, assigned)
-        new_slot_client = torch.where(assigned, new_cid, cids)
-        # pms is frozen at dispatch, like the snapshot
-        disp_pms = pctx.next_pms.index_select(0, new_slot_client)
-        new_slot_pms = torch.where(dispatched, disp_pms, state.slot_pms)
+        dispatched, new_slot_client, new_slot_pms, disp_pms = assign_slots(
+            pctx.next_select, pctx.next_pms, idle_now, land, active, force, cids, state.slot_pms)
         disp_cid = torch.where(dispatched, new_slot_client, sentinel)
         new_client_pms = scatter_rows(state.client_pms, disp_cid, disp_pms, mode="drop")
         new_slot_params = tree_map(
@@ -743,11 +788,263 @@ def build_async_step(env: phases.RoundEnv, pipeline: RoundPipeline, faults=None)
     return fault_async_step if faulty else async_step
 
 
-# host lanes an async snapshot carries besides the AsyncState
-_ASYNC_PLANE = ("slot_client", "client_pms", "active", "in_flight_clients", "dispatch_version",
-                "slot_fail", "slot_kind", "retries", "queue_finish")
 _ASYNC_HIST = ("acc", "selected", "tx_params", "pms", "round_time", "wire", "sim_clock_hist",
                "staleness", "in_flight_hist", "rejected", "wall")
+
+
+class _Landing(NamedTuple):
+    """One aggregation event's landings, resolved on the host."""
+
+    landers: np.ndarray         # slots landing, in (finish, client id) order
+    land: np.ndarray            # (M,) bool
+    land_finish: np.ndarray     # their finish times
+    landed_clients: np.ndarray  # their clients
+    staleness: np.ndarray       # (M,) int32 events since dispatch (0 off land)
+    idle_now: np.ndarray        # (C,) bool: clients free to be dispatched
+    new_clock: float            # the event's simulated time
+    force: bool                 # no one else in flight: landing slots must re-dispatch
+    buffer_k: int               # landings popped
+
+
+@dataclasses.dataclass
+class _SlotPlane:
+    """The host side of the async scheduler's M dispatch slots: the client
+    each slot holds, the event queue of their simulated finish times, the
+    model version each was dispatched at and, with faults, each dispatch's
+    failure code, corruption kind and retries. Both async runners (device-
+    resident and host-plane) drive their events through it."""
+
+    faults: Any
+    seed: int
+    clock: ClientClock
+    comm: CommModel
+    client_pms: np.ndarray         # (C,) int32: depth each client was last dispatched with
+    slot_client: np.ndarray        # (M,) int32
+    active: np.ndarray             # (M,) bool
+    in_flight_clients: np.ndarray  # (C,) bool
+    dispatch_version: np.ndarray   # (M,) int64
+    slot_fail: np.ndarray          # (M,) int8: 0 ok, 1 crash, 2 deadline timeout
+    slot_kind: np.ndarray          # (M,) int32 corruption kinds
+    retries: np.ndarray            # (M,) int64
+    queue: EventQueue
+    # slot failures noticed since the last aggregation event (fault mode)
+    pending: dict = dataclasses.field(
+        default_factory=lambda: dict(retried=0, timed_out=0, dropped=0))
+
+    # the arrays a checkpoint carries (with the queue's finish times)
+    SNAPSHOT = ("slot_client", "client_pms", "active", "in_flight_clients", "dispatch_version",
+                "slot_fail", "slot_kind", "retries")
+
+    @classmethod
+    def start(cls, cfg: FLConfig, clock: ClientClock, comm: CommModel, client_pms: np.ndarray,
+              m: int) -> "_SlotPlane":
+        """The warm start: w(0) dispatched to the first M clients at
+        simulated time 0 (armed from the version-0 plan with faults)."""
+        c = client_pms.shape[0]
+        slot_client = np.arange(m, dtype=np.int32)
+        plane = cls(faults=cfg.faults, seed=cfg.seed, clock=clock, comm=comm,
+                    client_pms=client_pms, slot_client=slot_client,
+                    active=np.ones((m,), bool), in_flight_clients=np.zeros((c,), bool),
+                    dispatch_version=np.zeros((m,), np.int64),
+                    slot_fail=np.zeros((m,), np.int8), slot_kind=np.zeros((m,), np.int32),
+                    retries=np.zeros((m,), np.int64), queue=EventQueue(m))
+        plane.in_flight_clients[slot_client] = True
+        d0 = clock.durations(client_pms[slot_client], cids=slot_client)
+        if cfg.faults.enabled:
+            d0, plane.slot_fail, plane.slot_kind = plane.arm(slot_client, d0, 0)
+        for s in range(m):
+            plane.queue.push(s, d0[s], int(slot_client[s]))
+        return plane
+
+    def arm(self, cids, durations, version: int):
+        """Fault-arm a dispatch batch from the plan of the dispatching model
+        version: slowed notice times, failure codes (0 ok, 1 crash, 2
+        deadline timeout) and corruption kinds. A failure is noticed at
+        ``min(duration, deadline)``."""
+        deadline = float(self.faults.deadline_s)
+        plan = compile_fault_plan(self.faults, self.seed, version, self.client_pms.shape[0])
+        cids = np.asarray(cids)
+        dur = durations * plan.slow[cids]
+        code = np.where(plan.crash[cids], 1, 0).astype(np.int8)
+        if deadline > 0.0:
+            code = np.where((code == 0) & (dur > deadline), 2, code)
+            dur = np.where(code != 0, np.minimum(dur, deadline), dur)
+        kind = np.where(code == 0, plan.corrupt[cids], 0).astype(np.int32)
+        return dur, code, kind
+
+    def snapshot(self) -> dict:
+        return {**{k: getattr(self, k) for k in self.SNAPSHOT},
+                "queue_finish": np.asarray(self.queue.finish, np.float64)}
+
+    def restore(self, host: dict) -> None:
+        """Load a snapshot's arrays, and rebuild the queue by re-pushing the
+        in-flight slots at their saved finish times (a total order: replay
+        is exact)."""
+        for k in self.SNAPSHOT:
+            getattr(self, k)[...] = host[k]
+        self.queue = EventQueue(self.slot_client.shape[0])
+        for s in np.nonzero(self.active)[0]:
+            self.queue.push(int(s), float(host["queue_finish"][s]), int(self.slot_client[s]))
+
+    def land(self, buffer_k: int, version: int) -> _Landing | None:
+        """Pop the ``buffer_k`` earliest arrivals (fewer if fewer are in
+        flight; at least one slot must be active). With faults, failed
+        landers retry with exponential backoff on their slot, or drop and
+        free it once their retries run out; None when every lander retried
+        (a pure-retry event: no aggregation)."""
+        faults = self.faults
+        k = max(1, min(buffer_k, int(self.active.sum())))
+        landers = self.queue.pop_k(k)  # earliest finishers; ties by client id
+        if faults.enabled:
+            codes = self.slot_fail[landers]
+            ok_l, bad = landers[codes == 0], landers[codes != 0]
+            self.pending["timed_out"] += int((codes == 2).sum())
+            notice_max = float(self.queue.finish[landers].max())  # before retries re-push
+            can_retry = self.retries[bad] < faults.max_retries
+            retry_slots, drop_slots = bad[can_retry], bad[~can_retry]
+            for s in retry_slots:
+                # back off, then re-dispatch the same client on the same
+                # slot and snapshot with fresh draws at the current version
+                self.retries[s] += 1
+                cid = int(self.slot_client[s])
+                backoff = faults.backoff_s * (2.0 ** float(self.retries[s] - 1))
+                d_r, code_r, kind_r = self.arm(
+                    [cid], self.clock.durations(self.client_pms[[cid]], cids=[cid]), version)
+                self.slot_fail[s] = code_r[0]
+                self.slot_kind[s] = kind_r[0]
+                self.queue.push(s, float(self.queue.finish[s]) + backoff + float(d_r[0]), cid)
+            self.pending["retried"] += int(retry_slots.size)
+            if drop_slots.size:
+                # retries exhausted: free the slot and the client
+                self.pending["dropped"] += int(drop_slots.size)
+                self.active[drop_slots] = False
+                self.in_flight_clients[self.slot_client[drop_slots]] = False
+            if ok_l.size == 0 and drop_slots.size == 0:
+                return None
+            landers = ok_l
+            new_clock = notice_max + self.comm.server_latency_s
+        else:
+            new_clock = float(self.queue.finish[landers].max()) + self.comm.server_latency_s
+        land = np.zeros(self.active.shape, bool)
+        land[landers] = True
+        # with faults a freed slot is no longer active; else the landers are
+        force = bool(int((self.active & ~land).sum()) == 0)
+        landed_clients = self.slot_client[landers]
+        idle_now = ~self.in_flight_clients
+        idle_now[landed_clients] = True
+        return _Landing(
+            landers=landers, land=land, land_finish=self.queue.finish[landers].copy(),
+            landed_clients=landed_clients,
+            staleness=np.where(land, version - self.dispatch_version, 0).astype(np.int32),
+            idle_now=idle_now, new_clock=new_clock, force=force, buffer_k=k)
+
+    def dispatch(self, ev: _Landing, dispatched: np.ndarray, new_slot_client: np.ndarray,
+                 version: int) -> None:
+        """After the event's step: free the landers, hand the ``dispatched``
+        slots their new clients (``client_pms`` already holds their depths)
+        and push their finish times, armed from the next version's plan."""
+        self.active = (self.active & ~ev.land) | dispatched
+        self.in_flight_clients[ev.landed_clients] = False
+        self.in_flight_clients[new_slot_client[dispatched]] = True
+        # re-arm only the dispatched slots (subset rows are bitwise the full rows)
+        disp_slots = np.nonzero(dispatched)[0]
+        if disp_slots.size:
+            disp_cids = new_slot_client[disp_slots]
+            d_disp = self.clock.durations(self.client_pms[disp_cids], cids=disp_cids)
+            if self.faults.enabled:
+                # fresh draws at the version these slots train from
+                d_disp, code_d, kind_d = self.arm(disp_cids, d_disp, version + 1)
+                self.slot_fail[disp_slots] = code_d
+                self.slot_kind[disp_slots] = kind_d
+                self.retries[disp_slots] = 0
+            for s, f, cid in zip(disp_slots, ev.new_clock + d_disp, disp_cids):
+                self.queue.push(int(s), float(f), int(cid))
+        self.dispatch_version = np.where(dispatched, version + 1, self.dispatch_version)
+        self.slot_client = new_slot_client
+
+    def take_pending(self) -> dict:
+        """The slot failures noticed since the last event, then zeroed."""
+        out, self.pending = self.pending, dict(retried=0, timed_out=0, dropped=0)
+        return out
+
+
+def check_async_aggregator(pipeline: RoundPipeline) -> None:
+    """A barrier aggregator averages absolute parameters and would
+    mis-merge stale snapshots: fail fast."""
+    if isinstance(pipeline.aggregator, (phases.FedAvgAggregator, phases.MaskedPartialAggregator)):
+        raise ValueError(
+            "AsyncScheduler needs an aggregator that merges deltas against dispatch "
+            f"snapshots, got {type(pipeline.aggregator).__name__}; build the pipeline "
+            "from an async-mode config (scheduler.mode='async') or swap in "
+            "phases.StalenessAggregator")
+
+
+def async_slots(cfg: FLConfig, n_clients: int) -> int:
+    """M dispatch slots: ``max_concurrency or cohort_size or C``."""
+    return min(cfg.scheduler.max_concurrency or cfg.execution.cohort_size or n_clients, n_clients)
+
+
+def record_async_event(recorder, prof, plane: _SlotPlane, ev: _Landing, t: int, hist: dict,
+                       out: dict, faulty: bool) -> None:
+    """Feed an event's records to the recorder (and the re-dispatches, cut at
+    the event's clock)."""
+    fault_kw = plane.take_pending() if faulty else {}
+    if recorder is None:
+        return
+    with phase_timer(prof, "record"):
+        recorder.on_async_event(
+            t=t, acc=out["acc"], sel=out["selected"], tx=hist["tx_params"][-1],
+            pms=out["pms"], wire=hist["wire"][-1], dt=hist["round_time"][-1],
+            new_clock=ev.new_clock, staleness_mean=hist["staleness"][-1],
+            in_flight=hist["in_flight_hist"][-1], buffer_k=ev.buffer_k,
+            update_norm=out["update_norm"], merge_discount=float(out["merge_discount_mean"]),
+            landed_clients=ev.landed_clients, landed_finish=ev.land_finish,
+            landed_staleness=ev.staleness[ev.landers], rejected=hist["rejected"][-1],
+            **fault_kw)
+        if out["dispatched"].any():  # re-dispatches cut at the new clock
+            recorder.on_async_dispatch(plane.slot_client[out["dispatched"]], ev.new_clock,
+                                       plane.client_pms)
+
+
+def append_async_event(hist: dict, out: dict, ev: _Landing, sim_clock: float, plane: _SlotPlane,
+                       edges: "_EdgeTopology | None") -> None:
+    """An event's history rows from its host records ``out``."""
+    hist["acc"].append(out["acc"])
+    hist["selected"].append(out["selected"])
+    hist["tx_params"].append(float(out["tx_params"]))
+    hist["pms"].append(out["pms"])
+    hist["wire"].append(np.asarray(out["wire_per_client"], np.float64).sum())
+    hist["round_time"].append(ev.new_clock - sim_clock)
+    hist["sim_clock_hist"].append(ev.new_clock)
+    hist["staleness"].append(float(out["staleness_mean"]))
+    hist["in_flight_hist"].append(int(plane.in_flight_clients.sum()))
+    hist["rejected"].append(int(out["rejected"]))
+    if edges:
+        # the landers' edge-to-server bytes; the event clock stays flat
+        hist["tx_edge_bytes"].append(edges.hop_bytes(out["selected"][None], out["pms"][None])[0])
+
+
+def async_history(hist: dict):
+    """The ``FLHistory`` of an async run's history rows."""
+    from repro_torch.fl.engine import FLHistory
+
+    h = {k: _stacked(k, v) for k, v in hist.items()}
+    return FLHistory(
+        accuracy_mean=h["acc"].mean(axis=1),
+        accuracy_per_client=h["acc"],
+        selected=h["selected"],
+        tx_params=h["tx_params"],
+        tx_bytes_cum=np.cumsum(h["wire"]),
+        round_time=h["round_time"],
+        pms=h["pms"],
+        tx_wire_bytes=h["wire"],
+        sim_clock=h["sim_clock_hist"],
+        staleness_mean=h["staleness"],
+        in_flight=h["in_flight_hist"],
+        tx_edge_bytes=h.get("tx_edge_bytes"),
+        rejected_updates=h["rejected"],
+        wall_time=h["wall"],
+    )
 
 
 @dataclasses.dataclass
@@ -778,27 +1075,24 @@ class AsyncScheduler:
             progress: bool = False, pipeline: RoundPipeline | None = None,
             client_delay: np.ndarray | None = None, recorder=None, checkpoint_every: int = 0,
             checkpoint_dir: str | None = None, resume_from: str | None = None):
-        from repro_torch.fl.engine import FLHistory
+        check_slice(cfg)
+        if on_host_plane(cfg, data):
+            from repro_torch.fl.population import run_host_async
 
-        check_slice(cfg, data)
+            return run_host_async(data, cfg, device, init_fn=init_fn, loss_fn=loss_fn,
+                                  acc_fn=acc_fn, comm=comm, progress=progress, pipeline=pipeline,
+                                  client_delay=client_delay, recorder=recorder,
+                                  checkpoint_every=checkpoint_every,
+                                  checkpoint_dir=checkpoint_dir, resume_from=resume_from)
         faults = cfg.faults
         faulty = faults.enabled
         ckpt_dir = resolve_checkpoint_dir(checkpoint_every, checkpoint_dir, resume_from)
         su = _setup_run(data, cfg, device, init_fn, loss_fn, acc_fn, comm, pipeline,
                         client_delay)
         comm, clock = su.comm, su.clock
-        # a barrier aggregator averages absolute parameters and would
-        # mis-merge stale snapshots: fail fast
-        if isinstance(su.pipeline.aggregator,
-                      (phases.FedAvgAggregator, phases.MaskedPartialAggregator)):
-            raise ValueError(
-                "AsyncScheduler needs an aggregator that merges deltas against dispatch "
-                f"snapshots, got {type(su.pipeline.aggregator).__name__}; build the pipeline "
-                "from an async-mode config (scheduler.mode='async') or swap in "
-                "phases.StalenessAggregator")
+        check_async_aggregator(su.pipeline)
         c = data.n_clients
-        m = min(cfg.scheduler.max_concurrency or cfg.execution.cohort_size or c, c)
-        slot_client0 = np.arange(m, dtype=np.int32)
+        m = async_slots(cfg, c)
         dev = su.r_loop.device
         state = AsyncState(
             global_params=su.g0,
@@ -817,23 +1111,6 @@ class AsyncScheduler:
         )
         step = build_async_step(su.env, su.pipeline, faults=faults if faulty else None)
         buffer_k = cfg.scheduler.buffer_k or max(1, c // 2)
-        deadline = float(faults.deadline_s)
-
-        def arm_faults(cids_arr, durations, at_version):
-            """Fault-arm a dispatch batch from the plan of the dispatching
-            model version: slowed notice times, failure codes (0 ok, 1
-            crash, 2 deadline timeout) and corruption kinds. A failure is
-            noticed at ``min(duration, deadline)``."""
-            plan = compile_fault_plan(faults, cfg.seed, at_version, c)
-            cids_arr = np.asarray(cids_arr)
-            dur = durations * plan.slow[cids_arr]
-            code = np.where(plan.crash[cids_arr], 1, 0).astype(np.int8)
-            if deadline > 0.0:
-                code = np.where((code == 0) & (dur > deadline), 2, code)
-                dur = np.where(code != 0, np.minimum(dur, deadline), dur)
-            kind = np.where(code == 0, plan.corrupt[cids_arr], 0).astype(np.int32)
-            return dur, code, kind
-
         if recorder is not None:
             recorder.open_run(mode="async", cfg=cfg, data=data, comm=comm, clock=clock,
                               lanes=m, buffer_k=buffer_k, device=device)
@@ -841,113 +1118,41 @@ class AsyncScheduler:
         emit = recorder.log if recorder is not None else print
 
         # --- host event queue over the M slots ---
-        slot_client = slot_client0.copy()
-        client_pms = np.full((c,), su.pms0, np.int32)
-        queue = EventQueue(m)
-        slot_fail = np.zeros((m,), np.int8)
-        slot_kind = np.zeros((m,), np.int32)
-        retries = np.zeros((m,), np.int64)
-        d0 = clock.durations(client_pms[slot_client0], cids=slot_client0)
-        if faulty:  # the warm-start dispatches draw from the version-0 plan
-            d0, slot_fail, slot_kind = arm_faults(slot_client0, d0, 0)
-        for s in range(m):
-            queue.push(s, d0[s], int(slot_client0[s]))
+        plane = _SlotPlane.start(cfg, clock, comm, np.full((c,), su.pms0, np.int32), m)
         if recorder is not None:  # warm start: w(0) cut at simulated t=0
-            recorder.on_async_dispatch(slot_client0, 0.0, client_pms)
-        active = np.ones((m,), bool)
-        in_flight_clients = np.zeros((c,), bool)
-        in_flight_clients[slot_client0] = True
-        dispatch_version = np.zeros((m,), np.int64)
+            recorder.on_async_dispatch(plane.slot_client, 0.0, plane.client_pms)
+        edges = _EdgeTopology.build(cfg, c, clock)
+        keys = _ASYNC_HIST + (("tx_edge_bytes",) if edges else ())
+        hist: dict[str, list] = {k: [] for k in keys}
         sim_clock = 0.0
         version = 0
-        hist: dict[str, list] = {k: [] for k in _ASYNC_HIST}
-        # slot failures noticed since the last recorded event (fault mode)
-        pend_retried = pend_timeout = pend_dropped = 0
         t = 0
         if resume_from is not None:
-            # the latest snapshot: the AsyncState, every host lane verbatim,
-            # and the queue rebuilt by re-pushing the in-flight slots at
-            # their saved finish times (a total order: replay is exact)
+            # the latest snapshot: the AsyncState, every host lane verbatim
             trees, meta = load_fl_state({"state": state}, resume_from)
             state = trees["state"]
             t = int(meta["round"])
             sim_clock = float(meta["sim_clock"])
             version = int(meta["version"])
             host = load_host_arrays(resume_from, f"hist_{t:05d}")
-            slot_client = host["slot_client"].astype(np.int32)
-            client_pms = host["client_pms"].astype(np.int32)
-            active = host["active"].astype(bool)
-            in_flight_clients = host["in_flight_clients"].astype(bool)
-            dispatch_version = host["dispatch_version"].astype(np.int64)
-            slot_fail = host["slot_fail"].astype(np.int8)
-            slot_kind = host["slot_kind"].astype(np.int32)
-            retries = host["retries"].astype(np.int64)
-            queue = EventQueue(m)
-            for s in range(m):
-                if active[s]:
-                    queue.push(s, float(host["queue_finish"][s]), int(slot_client[s]))
-            hist = {k: list(host[k]) for k in _ASYNC_HIST}
+            plane.restore(host)
+            hist = {k: list(host[k]) for k in keys}
         while t < cfg.rounds:
-            n_active = int(active.sum())
-            if n_active == 0:
+            if not plane.active.any():
                 # every slot's retries ran out: end with the history so far
                 break
             t_start = time.perf_counter()
-            k = max(1, min(buffer_k, n_active))
-            landers = queue.pop_k(k)  # earliest finishers; ties by client id
-            if faulty:
-                codes = slot_fail[landers]
-                ok_l = landers[codes == 0]
-                bad = landers[codes != 0]
-                pend_timeout += int((codes == 2).sum())
-                notice_max = float(queue.finish[landers].max())  # before retries re-push
-                can_retry = retries[bad] < faults.max_retries
-                retry_slots = bad[can_retry]
-                drop_slots = bad[~can_retry]
-                for s in retry_slots:
-                    # back off, then re-dispatch the same client on the same
-                    # slot and snapshot with fresh draws at the current version
-                    retries[s] += 1
-                    cid = int(slot_client[s])
-                    backoff = faults.backoff_s * (2.0 ** float(retries[s] - 1))
-                    d_r, code_r, kind_r = arm_faults(
-                        [cid], clock.durations(client_pms[[cid]], cids=[cid]), version)
-                    slot_fail[s] = code_r[0]
-                    slot_kind[s] = kind_r[0]
-                    queue.push(s, float(queue.finish[s]) + backoff + float(d_r[0]), cid)
-                pend_retried += int(retry_slots.size)
-                if drop_slots.size:
-                    # retries exhausted: free the slot and the client
-                    pend_dropped += int(drop_slots.size)
-                    active[drop_slots] = False
-                    in_flight_clients[slot_client[drop_slots]] = False
-                if ok_l.size == 0 and drop_slots.size == 0:
-                    continue  # a pure-retry event: no aggregation
-                landers = ok_l
-                land = np.zeros((m,), bool)
-                land[landers] = True
-                land_finish = queue.finish[landers].copy()
-                new_clock = notice_max + comm.server_latency_s
-                force = bool(int((active & ~land).sum()) == 0)
-            else:
-                land = np.zeros((m,), bool)
-                land[landers] = True
-                land_finish = queue.finish[landers].copy()
-                new_clock = float(land_finish.max()) + comm.server_latency_s
-                force = bool(n_active - k == 0)
-            staleness = np.where(land, version - dispatch_version, 0).astype(np.int32)
-            landed_clients = slot_client[landers]
-            idle_now = ~in_flight_clients
-            idle_now[landed_clients] = True
-
+            ev = plane.land(buffer_k, version)
+            if ev is None:
+                continue  # a pure-retry event: no aggregation
             if prof is not None:
                 prof.begin_chunk(t, 1)
             with phase_timer(prof, "dispatch"):
-                args = [state, t, _host_to(land, dev), _host_to(staleness, dev),
-                        _host_to(active, dev), _host_to(idle_now, dev),
-                        _host_to(np.asarray(force), dev)]
+                args = [state, t, _host_to(ev.land, dev), _host_to(ev.staleness, dev),
+                        _host_to(plane.active, dev), _host_to(ev.idle_now, dev),
+                        _host_to(np.asarray(ev.force), dev)]
                 if faulty:
-                    args.append(_host_to(slot_kind, dev))
+                    args.append(_host_to(plane.slot_kind, dev))
                 state, out = step(*args)
                 outs = StackedOuts([out])
             with phase_timer(prof, "device_get"):
@@ -956,91 +1161,25 @@ class AsyncScheduler:
                 prof.end_chunk()
             out = {key: v[0] for key, v in out.items()}
 
-            dispatched = out["dispatched"]
-            slot_client = out["slot_client"].astype(np.int32)
-            client_pms = out["client_pms"].astype(np.int32)
-            active = (active & ~land) | dispatched
-            in_flight_clients[landed_clients] = False
-            in_flight_clients[slot_client[dispatched]] = True
-            # re-arm only the dispatched slots (subset rows are bitwise the
-            # full rows)
-            disp_slots = np.nonzero(dispatched)[0]
-            if disp_slots.size:
-                disp_cids = slot_client[disp_slots]
-                d_disp = clock.durations(client_pms[disp_cids], cids=disp_cids)
-                if faulty:
-                    # fresh draws at the version these slots train from
-                    d_disp, code_d, kind_d = arm_faults(disp_cids, d_disp, version + 1)
-                    slot_fail[disp_slots] = code_d
-                    slot_kind[disp_slots] = kind_d
-                    retries[disp_slots] = 0
-                for s, f, cid in zip(disp_slots, new_clock + d_disp, disp_cids):
-                    queue.push(int(s), float(f), int(cid))
-            dispatch_version = np.where(dispatched, version + 1, dispatch_version)
-
-            hist["acc"].append(out["acc"])
-            hist["selected"].append(out["selected"])
-            hist["tx_params"].append(float(out["tx_params"]))
-            hist["pms"].append(out["pms"])
-            hist["wire"].append(np.asarray(out["wire_per_client"], np.float64).sum())
-            hist["round_time"].append(new_clock - sim_clock)
-            hist["sim_clock_hist"].append(new_clock)
-            hist["staleness"].append(float(out["staleness_mean"]))
-            hist["in_flight_hist"].append(int(in_flight_clients.sum()))
-            hist["rejected"].append(int(out["rejected"]))
-            if recorder is not None:
-                fault_kw = (dict(retried=pend_retried, timed_out=pend_timeout,
-                                 dropped=pend_dropped) if faulty else {})
-                with phase_timer(prof, "record"):
-                    recorder.on_async_event(
-                        t=t, acc=out["acc"], sel=out["selected"], tx=hist["tx_params"][-1],
-                        pms=out["pms"], wire=hist["wire"][-1], dt=hist["round_time"][-1],
-                        new_clock=new_clock, staleness_mean=hist["staleness"][-1],
-                        in_flight=hist["in_flight_hist"][-1], buffer_k=k,
-                        update_norm=out["update_norm"],
-                        merge_discount=float(out["merge_discount_mean"]),
-                        landed_clients=landed_clients, landed_finish=land_finish,
-                        landed_staleness=staleness[landers], rejected=hist["rejected"][-1],
-                        **fault_kw)
-                    if dispatched.any():  # re-dispatches cut at the new clock
-                        recorder.on_async_dispatch(slot_client[dispatched], new_clock,
-                                                   client_pms)
-            pend_retried = pend_timeout = pend_dropped = 0
+            plane.client_pms = out["client_pms"].astype(np.int32)
+            plane.dispatch(ev, out["dispatched"], out["slot_client"].astype(np.int32), version)
+            append_async_event(hist, out, ev, sim_clock, plane, edges)
+            record_async_event(recorder, prof, plane, ev, t, hist, out, faulty)
             hist["wall"].append(time.perf_counter() - t_start)
-            sim_clock = new_clock
+            sim_clock = ev.new_clock
             version += 1
             if progress and (t % 10 == 0 or t == cfg.rounds - 1):
-                emit(format_async_progress(t, float(np.mean(out["acc"])), int(land.sum()),
-                                           new_clock, hist["staleness"][-1]))
+                emit(format_async_progress(t, float(np.mean(out["acc"])), int(ev.land.sum()),
+                                           ev.new_clock, hist["staleness"][-1]))
             t += 1
             if ckpt_dir and checkpoint_every and t % checkpoint_every == 0:
                 save_fl_state({"state": state, "sim_clock": float(sim_clock),
                                "version": int(version)}, ckpt_dir, t)
-                plane = dict(slot_client=slot_client, client_pms=client_pms, active=active,
-                             in_flight_clients=in_flight_clients,
-                             dispatch_version=dispatch_version, slot_fail=slot_fail,
-                             slot_kind=slot_kind, retries=retries,
-                             queue_finish=np.asarray(queue.finish, np.float64))
-                save_host_arrays({**plane, **{k: _stacked(k, v) for k, v in hist.items()}},
+                save_host_arrays({**plane.snapshot(),
+                                  **{k: _stacked(k, v) for k, v in hist.items()}},
                                  ckpt_dir, f"hist_{t:05d}")
 
-        h = {k: _stacked(k, v) for k, v in hist.items()}
-        history = FLHistory(
-            accuracy_mean=h["acc"].mean(axis=1),
-            accuracy_per_client=h["acc"],
-            selected=h["selected"],
-            tx_params=h["tx_params"],
-            tx_bytes_cum=np.cumsum(h["wire"]),
-            round_time=h["round_time"],
-            pms=h["pms"],
-            tx_wire_bytes=h["wire"],
-            sim_clock=h["sim_clock_hist"],
-            staleness_mean=h["staleness"],
-            in_flight=h["in_flight_hist"],
-            tx_edge_bytes=None,
-            rejected_updates=h["rejected"],
-            wall_time=h["wall"],
-        )
+        history = async_history(hist)
         if recorder is not None:
             recorder.close(history)
         return history
@@ -1048,7 +1187,7 @@ class AsyncScheduler:
 
 def _stacked(key: str, rows: list) -> np.ndarray:
     """An async history lane as one array (the JAX package's dtypes)."""
-    if key in ("acc", "selected", "pms"):
+    if key in ("acc", "selected", "pms", "tx_edge_bytes"):
         return np.stack(rows)
     if key in ("in_flight_hist", "rejected"):
         return np.asarray(rows, np.int64)

@@ -7,8 +7,9 @@ the JAX package:
   masked_aggregate     — the paper's Eq. 1 masked weighted client average,
                          every leaf of a round in one launch (the
                          aggregators), and the async staleness merge
-                         g + mean(x - snapshot), one launch an event
-                         (csrc/masked_aggregate.cu)
+                         g + mean(x - snapshot), one launch an event;
+                         both also through E edge groups, the two-level
+                         edge-server sum (csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
                          (falcon-mamba; csrc/ssm_scan.cu)
   flash_attention      — causal GQA attention of a prefill (granite;

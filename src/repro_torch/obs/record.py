@@ -217,21 +217,29 @@ class RunRecorder:
     # -- lifecycle ---------------------------------------------------------
     def open_run(self, *, mode: str, cfg, data, comm, clock,
                  lanes: int | None = None, buffer_k: int | None = None,
-                 device=None):
+                 device=None, population_plane: dict | None = None):
         """Called by the scheduler before its first event. ``clock`` is the
         scheduler's ``ClientClock`` (span components come from it), ``comm``
         its ``CommModel``, ``lanes`` the cohort size K (sync) or slot count
         M (async), ``device`` the run's torch device (the environment
         snapshot and the profiler's watermark read it). The manifest's
-        ``mesh`` is None: the port's round step is not sharded; its
-        ``population_plane`` is the flat one: the port has no host-resident
-        population or edge tier yet (ROADMAP item 10)."""
+        ``mesh`` is None: the port's round step is not sharded.
+        ``population_plane`` is the population tier's manifest block (the
+        host-plane runners pass their store's backing); by default it is
+        derived from ``cfg.execution``, as the JAX package's."""
         if self._metrics is not None:
             raise ValueError(f"recorder already opened for a {self._mode!r} run")
         os.makedirs(self.out_dir, exist_ok=True)
         self._mode = mode
         self._clock = clock
         self._comm = comm
+        if population_plane is None:
+            ex = cfg.execution
+            population_plane = {
+                "host_population": bool(ex.resolved_host_population(data.n_clients)),
+                "edge_groups": int(ex.edge_groups),
+                "store_backing": None,
+            }
         snapshot = config_snapshot(cfg)
         chash = config_hash(snapshot)
         self._manifest = {
@@ -243,8 +251,7 @@ class RunRecorder:
             "buffer_k": None if buffer_k is None else int(buffer_k),
             "mesh": None,
             "seed": int(cfg.seed),
-            "population_plane": {"host_population": False, "edge_groups": 0,
-                                 "store_backing": None},
+            "population_plane": population_plane,
             "config": snapshot,
             "config_hash": chash,
             "environment": environment_snapshot(device),
@@ -310,12 +317,15 @@ class RunRecorder:
         self._t += 1
 
     def on_sync_chunk(self, *, t0: int, acc, sel, pms, wire, tx, times,
-                      update_norm, lanes: int, rejected=None, dropped=None):
+                      update_norm, lanes: int, host_gather_ms=None, staged_bytes=None,
+                      rejected=None, dropped=None):
         """Record one chunk from its stacked ``(n, C)`` numpy records — one
         vectorized pass over the chunk, no device read (the scheduler
-        already holds the arrays). ``rejected`` ((n,) finite-guard
+        already holds the arrays). ``host_gather_ms`` / ``staged_bytes``
+        ((n,) sequences) are the host-plane runner's staging costs, columns
+        of host-plane runs only; ``rejected`` ((n,) finite-guard
         rejections) and ``dropped`` ((n,) crash/deadline dropouts,
-        fault-mode only) are optional columns; nonzero rounds are also
+        fault-mode only) are optional columns too; nonzero rounds are also
         marked as fault instants on the trace."""
         n = acc.shape[0]
         acc_mean = acc.mean(axis=1)
@@ -353,6 +363,10 @@ class RunRecorder:
                            {"t": t, "clock_s": s1, "n_landed": int(n_sel[i]),
                             "staleness_mean": 0.0})
             extra = {}
+            if host_gather_ms is not None:
+                extra["host_gather_ms"] = float(host_gather_ms[i])
+            if staged_bytes is not None:
+                extra["staged_bytes"] = float(staged_bytes[i])
             if rejected is not None:
                 extra["rejected"] = int(np.asarray(rejected)[i])
             if dropped is not None:

@@ -167,7 +167,7 @@ def fit_servable(data, cfg: FLConfig, device=None, progress: bool = False,
     from repro_torch.fl.sched import _setup_run, check_slice, initial_state
 
     dev = resolve_device(device)
-    check_slice(cfg, data)
+    check_slice(cfg)
     su = _setup_run(data, cfg, dev, init_fn, mlp_loss, mlp_accuracy, None, None, None)
     state = initial_state(su, data.n_clients)
     step = build_round_step(su.env, su.pipeline, cfg.execution)

@@ -249,9 +249,17 @@ def test_guard_and_transmitted_parameters():
 
 
 def test_sharded_or_edge_aggregation_raises():
-    x = [{"w": torch.zeros(2, 3)}]
+    """The sharded reduction (``axis_name``) still raises, naming its item;
+    the edge reduction computes, and equals its plain version (tests/
+    test_torch_edge.py holds it to JAX's)."""
+    from repro_torch.kernels.masked_aggregate import masked_aggregate_plain
+
+    x = [{"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}]
+    sel, n = torch.ones(2, dtype=torch.bool), torch.tensor([3.0, 5.0])
     with pytest.raises(NotImplementedError, match="item 12"):
-        tagg.fedavg_aggregate(x, torch.ones(2, dtype=torch.bool), torch.ones(2), axis_name="cohort")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tagg.fedavg_aggregate(x, torch.ones(2, dtype=torch.bool), torch.ones(2),
-                              edge_ids=torch.zeros(2, dtype=torch.int32), n_edges=2)
+        tagg.fedavg_aggregate(x, sel, n, axis_name="cohort")
+    ids = torch.tensor([1, 0], dtype=torch.int32)
+    got = tagg.fedavg_aggregate(x, sel, n, edge_ids=ids, n_edges=2)
+    want = masked_aggregate_plain(x[0]["w"], n, edge_ids=ids, n_edges=2)
+    assert torch.equal(got[0]["w"], want)
+    torch.testing.assert_close(got[0]["w"], (3.0 * x[0]["w"][0] + 5.0 * x[0]["w"][1]) / 8.0)

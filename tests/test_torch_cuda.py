@@ -27,7 +27,11 @@ masked_aggregate's kernel bitwise equal to its plain version, one launch an
 event; the async and fault steps run on the card with each FL kernel once
 an event, give the CPU's integer records and simulated clock exactly and
 its accuracy within 1e-6, and resume bit for bit, CUDA-graph chunks
-included.
+included. masked_aggregate's edge mode (two-level aggregation, lanes
+walked in a stable sort by edge id) is bitwise its plain version in both
+modes, one launch; rounds with edge groups still capture in chunks; the
+host-resident population plane is bitwise the device-resident run on the
+card.
 """
 
 import numpy as np
@@ -568,3 +572,93 @@ def test_classify_lanes_bitwise_on_cuda(cuda, mode):
     assert float((got - on_cpu).abs().max()) <= 1e-5 * float(on_cpu.abs().max())
     assert torch.equal(got.argmax(1), on_cpu.argmax(1))
     assert servable_from_state(state, mode, data=ds).share_mask.device.type == "cuda"
+
+
+def _edge_ids(rng, k: int, n_edges: int) -> torch.Tensor:
+    """Edge ids of K clients drawn unsorted from 3K, cut in E contiguous
+    groups (the aggregators' partition)."""
+    pop = 3 * k
+    cids = rng.permutation(pop)[:k]
+    return torch.from_numpy(np.minimum(cids // -(-pop // n_edges), n_edges - 1).astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n_edges", [2, 3, 8])
+def test_masked_aggregate_edge_mode_bitwise_in_one_launch(cuda, dtype, n_edges):
+    """Eq. 1 (masked-partial rows, one all-zero) and the merge (snapshots,
+    bases) in edge mode: unsorted lanes, edge 1 weightless; one launch,
+    bitwise the plain version on every leaf."""
+    rng = np.random.default_rng(n_edges)
+    k, shapes = 37, [(5,), (7, 5), (300,), (3, 300), (1,)]
+    xs = [torch.from_numpy(rng.standard_normal((k,) + s).astype(np.float32)).to(dtype)
+          for s in shapes]
+    snaps = [x + 0.01 for x in xs]
+    others = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+              for s in shapes]
+    ids = _edge_ids(rng, k, n_edges)
+    w = torch.from_numpy(rng.integers(60, 90, k).astype(np.float32)) * (ids != 1).float()
+    table = torch.stack([w, w * (torch.rand(k) < 0.5).float(), torch.zeros(k)])
+    rows = [0, 1, 2, 1, 0]
+    for kw in (dict(fallbacks=others), dict(snapshots=snaps, bases=others)):
+        want = masked_aggregate_leaves_plain(xs, table, rows, edge_ids=ids, n_edges=n_edges, **kw)
+        dev_kw = {key: [t.to(cuda) for t in v] for key, v in kw.items()}
+        kernels.reset_launch_counts()
+        got = masked_aggregate_leaves([x.to(cuda) for x in xs], table.to(cuda), rows,
+                                      edge_ids=ids.to(cuda), n_edges=n_edges, **dev_kw)
+        assert kernels.launch_counts()["masked_aggregate"] == 1
+        for g, p in zip(got, want):
+            assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.parametrize("cfg", [dict(codec="int8", edge_groups=3),
+                                 dict(strategy="oort", personalization="ft", fraction=0.5,
+                                      cohort_size=5, edge_groups=2)],
+                         ids=["int8-E3", "oort-ft-cohort5-E2"])
+def test_edge_rounds_capture_in_chunks(cuda, cfg):
+    """Edge ids come from the cohort's ids on the device inside the round:
+    chunks of rounds still capture, bitwise the eager rounds, one launch of
+    masked_aggregate a round; the CPU's records exactly."""
+    ds = make_federated_classification(**_SMALL)
+    runs = {}
+    for chunk in (1, 2, 5):
+        kernels.reset_launch_counts()
+        runs[chunk] = run_federated(ds, FLConfig(rounds=5, epochs=1, scan_chunk=chunk, **cfg),
+                                    device=cuda)
+        assert kernels.launch_counts()["masked_aggregate"] == 5
+    ref = run_federated(ds, FLConfig(rounds=5, epochs=1, **cfg), device="cpu")
+    for chunk, h in runs.items():
+        for field in h._fields:
+            if field != "wall_time":
+                np.testing.assert_array_equal(np.asarray(getattr(h, field)),
+                                              np.asarray(getattr(runs[1], field)),
+                                              err_msg=f"chunk={chunk} field={field}")
+    for field in _EXACT + ("tx_edge_bytes",):
+        np.testing.assert_array_equal(getattr(runs[1], field), getattr(ref, field), err_msg=field)
+
+
+@pytest.mark.parametrize("cfg", [dict(codec="int8"),
+                                 dict(codec="int8", cohort_size=3, edge_groups=3),
+                                 dict(codec="int8", scheduler="async", buffer_k=2,
+                                      max_concurrency=4, edge_groups=2),
+                                 dict(scheduler="async", buffer_k=2, max_concurrency=4,
+                                      dropout_rate=0.4, deadline_s=5.0)],
+                         ids=["sync-int8", "sync-cohort3-E3", "async-int8-E2", "async-faults"])
+def test_host_plane_on_cuda_bitwise_device_resident(cuda, cfg):
+    """The host-resident population plane on the card (pinned staging,
+    non-blocking copies): bitwise the device-resident run, one launch of
+    each FL kernel a round or event, and the CPU's records exactly."""
+    ds = make_federated_classification(**_SMALL)
+    h_dev = run_federated(ds, FLConfig(rounds=4, epochs=1, host_population=-1, **cfg),
+                          device=cuda)
+    kernels.reset_launch_counts()
+    h = run_federated(ds, FLConfig(rounds=4, epochs=1, host_population=1, **cfg), device=cuda)
+    counts = kernels.launch_counts()
+    assert counts["masked_aggregate"] == len(h.accuracy_mean), counts
+    for field in h._fields:
+        if field != "wall_time":
+            np.testing.assert_array_equal(np.asarray(getattr(h, field)),
+                                          np.asarray(getattr(h_dev, field)), err_msg=field)
+    ref = run_federated(ds, FLConfig(rounds=4, epochs=1, host_population=1, **cfg), device="cpu")
+    for field in _EXACT:
+        np.testing.assert_array_equal(getattr(h, field), getattr(ref, field), err_msg=field)
+    assert np.abs(h.accuracy_per_client - ref.accuracy_per_client).max() <= 1e-6

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
-entry points refuse to run quietly on the CPU, and every option outside the
-ported slice raises NotImplementedError naming its ROADMAP.md item."""
+entry points refuse to run quietly on the CPU, every option outside the
+ported slices raises NotImplementedError naming its ROADMAP.md item, and
+the ported items' options run on the CPU when asked."""
 
 import dataclasses
 import json
@@ -111,9 +112,6 @@ def test_weights_on_the_cpu_when_asked(entry):
 
 
 _OUT_OF_SLICE = {
-    "host_population": (dict(host_population=1), "item 10"),
-    "eval_chunk": (dict(eval_chunk=2), "item 10"),
-    "edge_groups": (dict(edge_groups=2), "item 10"),
     "cohort_devices": (dict(cohort_devices=1), "item 12"),
 }
 
@@ -123,6 +121,27 @@ def test_options_outside_the_slice_raise(tiny_ds, name):
     flat, item = _OUT_OF_SLICE[name]
     with pytest.raises(NotImplementedError, match=item):
         run_federated(tiny_ds, FLConfig(rounds=2, **flat), device="cpu")
+
+
+# ROADMAP.md queue 1 item 10, ported: each option runs on the CPU when asked
+_ITEM_10 = {
+    "host_population": dict(host_population=1),
+    "eval_chunk": dict(host_population=1, eval_chunk=3),
+    "edge_groups": dict(edge_groups=2),
+}
+
+
+@pytest.mark.parametrize("scheduler", ["sync", "async"])
+@pytest.mark.parametrize("name", sorted(_ITEM_10))
+def test_population_options_run_on_the_cpu(tiny_ds, name, scheduler):
+    h = run_federated(tiny_ds, FLConfig(rounds=3, epochs=1, scheduler=scheduler, buffer_k=2,
+                                        **_ITEM_10[name]), device="cpu")
+    assert h.accuracy_per_client.shape == (3, tiny_ds.n_clients)
+    assert np.isfinite(h.accuracy_mean).all() and h.wall_time.shape == (3,)
+    if name == "edge_groups":
+        assert h.tx_edge_bytes.shape == (3, 2) and (h.tx_edge_bytes > 0).any()
+    else:
+        assert h.tx_edge_bytes is None
 
 
 # ROADMAP.md queue 1 item 7, ported: each option runs on the CPU when asked
@@ -197,12 +216,21 @@ def test_async_faults_and_checkpoint_run(tiny_ds, tmp_path, name):
             "round_00001.npz", "round_00002.npz", "round_00003.npz"]
 
 
-def test_dataset_without_eager_slabs_raises(tiny_ds):
-    """A lazily generated population (no eager ``x_train``) belongs to the
-    host-population plane, which this slice does not port."""
-    lazy = dataclasses.replace(tiny_ds, x_train=None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_federated(lazy, FLConfig(rounds=1), device="cpu")
+def test_lazy_population_routes_to_the_host_plane(monkeypatch):
+    """A lazily generated population (no eager ``x_train``) runs on the
+    host-resident population plane."""
+    from repro_torch.data import make_sharded_population
+    from repro_torch.fl import population
+
+    calls = []
+    real = population.run_host_sync
+    monkeypatch.setattr(population, "run_host_sync",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    lazy = make_sharded_population(n_clients=6, n_classes=3, n_features=6,
+                                   samples_per_client_range=(20, 30), seed=0)
+    assert not hasattr(lazy, "x_train")
+    h = run_federated(lazy, FLConfig(rounds=2, epochs=1), device="cpu")
+    assert calls == [1] and h.accuracy_per_client.shape == (2, 6)
 
 
 _UNPORTED_ARCHS = ["deepseek-v2-lite-16b", "stablelm-12b", "whisper-tiny", "moonshot-v1-16b-a3b",

@@ -211,7 +211,10 @@ class _NoHostTraffic(TorchDispatchMode):
     dict(strategy="oort", personalization="ft", fraction=0.5),
     dict(strategy="fedavg", personalization="none", fraction=0.5), dict(strategy="oort-fair"),
     dict(strategy="poc"), dict(personalization="pms"),
-], ids=["int8", "int4+k5+eval2", "topk+int8", "oort+ft", "fedavg-half", "oort-fair", "poc", "pms"])
+    dict(codec="int8", edge_groups=3),
+    dict(strategy="oort", personalization="ft", fraction=0.5, cohort_size=5, edge_groups=2),
+], ids=["int8", "int4+k5+eval2", "topk+int8", "oort+ft", "fedavg-half", "oort-fair", "poc", "pms",
+        "int8+E3", "oort+ft+k5+E2"])
 def test_round_step_makes_no_host_traffic(small_ds, kw, partitionable):
     """What a CUDA-graph capture refuses, caught on the CPU: the round step
     with the round index as a device tensor, as a captured chunk runs it."""

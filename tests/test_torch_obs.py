@@ -60,6 +60,9 @@ PARITY = {
     "async-straggler": dict(rounds=6, **ASYNC),
     "sync-dropout": dict(rounds=4, strategy="fedavg", personalization="none", fraction=1.0,
                          dropout_rate=0.4, seed=1),
+    # the host plane with the edge hop accounted (E = 1: the flat
+    # trajectory; E = 3 trajectories are held to JAX in test_torch_edge.py)
+    "sync-host-edge1": dict(rounds=4, host_population=1, edge_groups=1),
 }
 EXACT_COLS = ("t", "n_selected", "tx_params", "wire_bytes", "round_time_s", "sim_clock_s",
               "pms_mean", "staleness_mean", "in_flight", "buffer_k", "rejected", "dropped")
@@ -318,6 +321,31 @@ def test_manifest_fields_and_stable_run_id(ds, out_root):
     assert man_a["summary"]["sim_clock_s"] == float(h.sim_clock[-1])
     _, out_c = _record(ds, FLConfig(rounds=5, epochs=1), out_root / "man-c")
     assert json.load(open(os.path.join(out_c, "manifest.json")))["run_id"] != man_a["run_id"]
+
+
+@pytest.mark.parametrize("scheduler", ["sync", "async"])
+def test_host_plane_manifest_and_staging_columns(ds, tmp_path, scheduler):
+    """A host-plane run records the JAX package's population block (memmap
+    backing named), the staging columns under the barrier, and the
+    unrecorded run's history."""
+    from repro_torch.fl.population import run_host_async, run_host_sync
+
+    run = run_host_sync if scheduler == "sync" else run_host_async
+    cfg = FLConfig(rounds=3, epochs=1, host_population=1, edge_groups=2, codec="int8",
+                   **(ASYNC if scheduler == "async" else {}))
+    backing = str(tmp_path / "store")
+    h = run(ds, cfg, "cpu", backing_dir=backing,
+            recorder=RunRecorder(str(tmp_path / "rec"), echo=False))
+    ref = run(ds, cfg, "cpu")
+    np.testing.assert_array_equal(h.accuracy_per_client, ref.accuracy_per_client)
+    np.testing.assert_array_equal(h.tx_edge_bytes, ref.tx_edge_bytes)
+    man = json.load(open(tmp_path / "rec" / "manifest.json"))
+    assert man["population_plane"] == {"host_population": True, "edge_groups": 2,
+                                       "store_backing": f"memmap:{backing}"}
+    rows = _rows(str(tmp_path / "rec"))
+    assert len(rows) == 3
+    if scheduler == "sync":
+        assert all(r["host_gather_ms"] >= 0.0 and r["staged_bytes"] > 0 for r in rows)
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])
