@@ -19,6 +19,17 @@ drives the port's two paths:
   3 through masked_aggregate's edge mode, streamed evaluation; the lazy
   million-client tier's configuration at C = 5,000 and 50,000 (peak device
   memory held to 1.25x); memmap-backed trees bitwise the RAM-backed ones;
+- sharded cohort rounds over ``torch.distributed`` (``[shard]``):
+  masked_aggregate's partial and combine modes at har-mlp's 8 leaves and
+  K = 30 for D = 1, 2, 3 (bitwise their plain versions and the edge mode
+  with rank-block ids); the UCI-HAR int8 path with ``cohort_devices=1`` on
+  a world-1 NCCL group, bitwise the unsharded run at scan_chunk 1 and 5
+  (the all-reduces captured in the CUDA graph), with its collective bytes
+  read from a torch.profiler trace; worlds 2 and 3 as gloo processes
+  sharing the card, bitwise the unsharded run, the 8-client fixture equal
+  to the same worlds on the CPU, every rank's final model bitwise equal,
+  round 0's reduction bitwise the edge mode; and the committed goldens at
+  world 2;
 - run records (``[obs]``): the int8 main path recorded through
   ``run_federated(recorder=RunRecorder(...))`` at scan_chunk 1 and 5 and
   the async scheduler, trace and profile on, each bitwise its unrecorded
@@ -34,6 +45,11 @@ drives the port's two paths:
   ``repro_torch.launch.serve.serve``, after the port's reduced models on
   the card are held to the same models on the CPU, and a recorded serving
   session of the reduced granite-3-8b (``serve(..., record=dir)``).
+
+On a machine with several cards, ``torchrun --standalone --nproc-per-node
+D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
+ranks (``nccl_world_main``); ``--shard-worker`` is one rank of the gloo
+worlds the single-card run starts itself.
 
 Every phase prints its lines; the kernel table is one JSON line; the last
 line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
@@ -58,6 +74,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -73,7 +90,10 @@ from repro_torch.device import full_precision_matmuls  # noqa: E402
 from repro_torch.fl import FLConfig, pipeline_from_config, run_federated  # noqa: E402
 from repro_torch.fl.faults import compile_fault_plan  # noqa: E402
 from repro_torch.fl.population import run_host_sync  # noqa: E402
-from repro_torch.fl.phases import Aggregator  # noqa: E402
+from repro_torch.fl import api as fl_api  # noqa: E402
+from repro_torch.fl.phases import Aggregator, MaskedPartialAggregator  # noqa: E402
+from repro_torch.fl.sched import _setup_run, initial_state  # noqa: E402
+from repro_torch.fl.shard import shard_collective_bytes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.contract import (  # noqa: E402
@@ -82,9 +102,14 @@ from repro_torch.kernels.flash_attention.contract import (  # noqa: E402
 )
 from repro_torch.kernels.masked_aggregate import (  # noqa: E402
     masked_aggregate,
+    masked_aggregate_combine,
+    masked_aggregate_combine_plain,
     masked_aggregate_leaves,
     masked_aggregate_leaves_plain,
+    masked_aggregate_partial,
+    masked_aggregate_partial_plain,
     masked_aggregate_plain,
+    partial_layout,
 )
 from repro_torch.kernels.quantize import (  # noqa: E402
     dequantize,
@@ -97,10 +122,11 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 )
 from repro_torch.kernels.ssm_scan import contract as ssm_contract  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.launch.collectives import collective_bytes  # noqa: E402
 from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.mlp import mlp_apply  # noqa: E402
+from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
 from repro_torch.models.api import make_concrete_batch  # noqa: E402
 from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -206,6 +232,31 @@ POP_RUN = dict(strategy="fedavg", personalization="none", epochs=1, rounds=3, ev
 POP_PEAK_RATIO = 1.25  # peak device memory at the larger C over the smaller's
 MEMMAP_C = 2_000
 MEMMAP_RUN = dict(codec="int8", epochs=1, rounds=3, cohort_size=64, host_population=1, seed=0)
+
+# [shard]: the partial and combine modes at these rank counts (K = 30 lanes
+# in rank blocks); the [loop] configuration with cohort_devices=1 on a
+# world-1 NCCL group, 10 rounds at scan_chunk 1 and 5 (the second chunk of
+# 5 a replay); the same configuration, 5 rounds at scan_chunk 1, over gloo
+# worlds of 2 and 3 processes sharing the card and on the CPU; the goldens
+# at world 2
+SHARD_KERNEL_WORLDS = (1, 2, 3)
+SHARD_NCCL = dict(codec="int8", rounds=10, epochs=2)
+SHARD_NCCL_CHUNKS = (1, 5)
+SHARD_GLOO = dict(codec="int8", rounds=5, epochs=2)
+SHARD_GLOO_WORLDS = (2, 3)
+SHARD_GOLDEN_WORLD = 2
+# the card against the CPU where the port holds them equal (the 8-client
+# fixture; UCI-HAR's GEMMs already differ in their last bits unsharded):
+# K = 6 lanes, so that 2 and 3 ranks divide them
+SHARD_SMALL = dict(codec="int8", rounds=5, epochs=1, cohort_size=6)
+SHARD_TIMEOUT_S = 420
+
+# --nccl-world (under torchrun --nproc-per-node D, one card a rank): the
+# [loop] configuration with a cohort of 28 lanes (a multiple of 2 and 4),
+# sharded over the D ranks on NCCL at scan_chunk 1 and 5, against the same
+# cohort unsharded on each rank's own card; the goldens at world D
+NCCL_WORLD = dict(codec="int8", rounds=10, epochs=2, cohort_size=28)
+NCCL_WORLD_CHUNKS = (1, 5)
 
 # [obs]: the int8 main path recorded at these chunk sizes, and async
 OBS_ROUNDS = 20
@@ -1514,8 +1565,543 @@ def phase_serve_record(dev: torch.device) -> None:
           f"{stats['tokens']} tokens, manifest + requests.jsonl (4 rows) + trace valid; "
           f"environment {man['environment']['gpu']}")
 
+# ---------------------------------------------------------------------------
+# [shard]: cohort rounds sharded over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def phase_shard_kernels(dev: torch.device) -> dict:
+    """masked_aggregate's partial and combine modes at har-mlp's 8 leaves
+    and K = 30 lanes in rank blocks, D = 1, 2, 3 (masked-partial rows,
+    layer 2 shared by nobody): each rank's partial launch and the combine
+    launch bitwise their plain versions, one launch each, and the combined
+    means bitwise the edge mode with rank-block ids (D = 1: the flat mode);
+    device ms beside the bytes bound (rank 0's partial, the combine)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    leaves = [torch.randn((K,) + s, generator=gen, device=dev) * 0.01 for s in LEAVES]
+    fallbacks = [torch.randn(s, generator=gen, device=dev) for s in LEAVES]
+    counts = torch.randint(224, 328, (K,), generator=gen, device=dev).float()
+    sel = torch.rand(K, generator=gen, device=dev) < 0.7
+    share = torch.rand((K, len(HAR_MLP) - 1), generator=gen, device=dev) < 0.6
+    share[:, 2] = False
+    rows = [j for j in range(len(HAR_MLP) - 1) for _ in ("b", "w")]
+    table = ((sel.float() * counts)[None] * share.T.float()).contiguous()
+    sizes = [int(np.prod(s)) for s in LEAVES]
+    p_total = sum(sizes)
+    fallback_read = sum(n for n, r in zip(sizes, rows) if r == 2)  # where a row sums to 0
+    _, _, width = partial_layout(sizes, table.shape[0])
+    row, err = {}, 0.0
+    for world in SHARD_KERNEL_WORLDS:
+        blk = K // world
+        parts = []
+        for r in range(world):
+            xs_r, w_r = [x[r * blk:(r + 1) * blk] for x in leaves], table[:, r * blk:(r + 1) * blk]
+            kernels.reset_launch_counts()
+            buf = masked_aggregate_partial(xs_r, w_r.contiguous(), rows, slot=r, n_slots=world)
+            check(kernels.launch_counts()["masked_aggregate_partial"] == 1,
+                  f"[shard] partial D={world} rank {r}: {kernels.launch_counts()} launches")
+            check(torch.equal(buf, masked_aggregate_partial_plain(xs_r, w_r.contiguous(), rows,
+                                                                  slot=r, n_slots=world)),
+                  f"[shard] partial D={world} rank {r} differs from its plain version")
+            parts.append(buf)
+        total = parts[0]
+        for b in parts[1:]:  # the all-reduce of the rank-slotted rows
+            total = total + b
+        kernels.reset_launch_counts()
+        got = masked_aggregate_combine(total, LEAVES, rows, fallbacks)
+        check(kernels.launch_counts()["masked_aggregate_combine"] == 1,
+              f"[shard] combine D={world}: {kernels.launch_counts()} launches")
+        want = masked_aggregate_combine_plain(total, LEAVES, rows, fallbacks)
+        ids = (torch.arange(K, device=dev) // blk).to(torch.int32)
+        edge = masked_aggregate_leaves(leaves, table, rows, fallbacks, edge_ids=ids,
+                                       n_edges=world)
+        for i, (g, p, e) in enumerate(zip(got, want, edge)):
+            check(torch.equal(g, p), f"[shard] combine D={world} leaf {i} differs from its "
+                  f"plain version")
+            check(torch.equal(g, e), f"[shard] D={world} leaf {i} differs from the edge mode "
+                  f"with rank-block ids")
+            if rows[i] == 2:
+                check(torch.equal(g, fallbacks[i]), f"[shard] D={world} leaf {i}: the "
+                      f"zero-weight row's fallback is not exact")
+            err = max(err, float((g - p).abs().max()))
+        x0, w0 = [x[:blk] for x in leaves], table[:, :blk].contiguous()
+
+        def run_partial(): return masked_aggregate_partial(x0, w0, rows, slot=0, n_slots=world)
+
+        def run_partial_plain(): return masked_aggregate_partial_plain(x0, w0, rows, slot=0,
+                                                                        n_slots=world)
+
+        def run_combine(): return masked_aggregate_combine(total, LEAVES, rows, fallbacks)
+
+        def run_combine_plain(): return masked_aggregate_combine_plain(total, LEAVES, rows,
+                                                                        fallbacks)
+        # partial: the rank's x and weights read once, the (D, width) buffer
+        # written; combine: the D slots read, the fallback where a row sums
+        # to 0, the means written
+        pb, pby = bound_ms(blk * p_total * 4 + table.shape[0] * blk * 4 + world * width * 4,
+                           2 * blk * p_total)
+        cb, cby = bound_ms(world * width * 4 + (p_total + fallback_read) * 4,
+                           (world + 1) * p_total)
+        row.update({f"partial_d{world}_ms": device_ms(run_partial),
+                    f"partial_d{world}_plain_ms": device_ms(run_partial_plain),
+                    f"partial_d{world}_bound_ms": pb, f"partial_d{world}_bound_by": pby,
+                    f"combine_d{world}_ms": device_ms(run_combine),
+                    f"combine_d{world}_plain_ms": device_ms(run_combine_plain),
+                    f"combine_d{world}_bound_ms": cb, f"combine_d{world}_bound_by": cby})
+    row["shard_max_abs_err"] = err
+    print(f"[shard] masked_aggregate partial and combine modes, har-mlp's 8 leaves at K={K} "
+          f"lanes in rank blocks, D={SHARD_KERNEL_WORLDS} (masked-partial rows, layer 2 shared "
+          f"by nobody): one launch each, bitwise their plain versions and the edge mode with "
+          f"rank-block ids; device ms (rank 0's partial, the combine) beside the bound: "
+          f"{json.dumps(row)}")
+    return row
+
+
+def phase_shard_nccl(dev: torch.device, card: str) -> dict[str, int]:
+    """The [loop] configuration (UCI-HAR, har-mlp, ACSP-FL + DLD + int8) with
+    cohort_devices=1: a world-1 NCCL group the run opens and closes, bitwise
+    the unsharded run at scan_chunk 1 and 5 (the all-reduces captured in the
+    chunk's CUDA graph), one partial and one combine launch a round and no
+    flat one (counts zeroed just before each sharded run and read just
+    after); round walls against the unsharded ones; a profiled eager round's
+    collective bytes against ``shard_collective_bytes``. Returns the
+    launches of the scan_chunk=1 run."""
+    data = make_har_dataset("uci-har", seed=0)
+    rounds = SHARD_NCCL["rounds"]
+    walls, launches = {}, None
+    for chunk in SHARD_NCCL_CHUNKS:
+        ref = run_federated(data, FLConfig(scan_chunk=chunk, **SHARD_NCCL), device=dev)
+        kernels.reset_launch_counts()
+        h = run_federated(data, FLConfig(cohort_devices=1, scan_chunk=chunk, **SHARD_NCCL),
+                          device=dev)
+        counts = kernels.launch_counts()
+        check(counts["masked_aggregate_partial"] == counts["masked_aggregate_combine"] == rounds
+              and counts["masked_aggregate"] == 0
+              and counts["quantize"] == counts["dequantize"] == rounds,
+              f"[shard] NCCL world 1 scan_chunk={chunk}: a partial and a combine launch a "
+              f"round expected {counts}")
+        diff = history_diff(h, ref)
+        check(not diff, f"[shard] NCCL world 1 scan_chunk={chunk}: differs from the unsharded "
+              f"run in {diff}")
+        check(not dist.is_initialized(), "[shard] the run left its world-1 group open")
+        start = max(chunk, 1)
+        walls[chunk] = dict(sharded_ms=1e3 * statistics.median(h.wall_time[start:]),
+                            unsharded_ms=1e3 * statistics.median(ref.wall_time[start:]))
+        launches = launches or counts
+    cfg = FLConfig(cohort_devices=1, **SHARD_NCCL)
+    su = _setup_run(data, cfg, dev, None, mlp_loss, mlp_accuracy, None, None, None)
+    state = initial_state(su, data.n_clients)
+    step = fl_api.build_round_step(su.env, su.pipeline, cfg.execution)
+    d = scratch_dir("shard_trace_")
+    try:
+        state, _ = step(state, 0)  # the communicator's first use
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    record_shapes=True) as prof:
+            step(state, 1)
+            torch.cuda.synchronize()
+        trace = os.path.join(d, "round.json")
+        prof.export_chrome_trace(trace)
+        stats = collective_bytes(trace)
+        with open(trace) as f:
+            names = sorted({str(e.get("name")) for e in json.load(f).get("traceEvents", [])
+                            if "nccl" in str(e.get("name", "")).lower()
+                            or e.get("name") in ("record_param_comms", "c10d::allreduce_")})
+    finally:
+        step.mesh.close()
+        shutil.rmtree(d, ignore_errors=True)
+    want = shard_collective_bytes(su.g0, su.n_layers, 1, data.n_clients, True, True)
+    check(stats.get("count") == 2 and stats.get("total") == want,
+          f"[shard] NCCL round trace: {stats}, reckoned 2 all-reduces of {want} bytes "
+          f"(events {names})")
+    print(f"[shard] {card}: acsp-fl+dld+int8 uci-har C={data.n_clients} cohort_devices=1 on "
+          f"NCCL: bitwise the unsharded run at scan_chunk {SHARD_NCCL_CHUNKS} ({rounds} rounds; "
+          f"chunks captured with their all-reduces); launches {json.dumps(launches)}; host wall "
+          f"ms a round past the first chunk (median): {json.dumps(walls)}; one eager round's "
+          f"collectives (torch.profiler events {names}): {json.dumps(stats)}, reckoned {want}")
+    return launches
+
+
+@dataclasses.dataclass(frozen=True)
+class RankBlockAggregator(MaskedPartialAggregator):
+    """The masked-partial aggregator reducing through masked_aggregate's
+    edge mode with the lanes' rank blocks as edges (lane // (K/D), D
+    edges): the one-process reference of a D-rank sharded reduction."""
+
+    ranks: int = 1
+
+    def _edges(self, ctx, env):
+        k = ctx.select.shape[0]
+        ids = torch.arange(k, device=ctx.select.device) // (k // self.ranks)
+        return ids.to(torch.int32), self.ranks
+
+
+def acc_ulp(h, ref) -> int:
+    """The largest distance in float32 ulp between two runs' accuracy_mean."""
+    a = np.asarray(h.accuracy_mean, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - np.asarray(ref.accuracy_mean, np.float32).view(np.int32)).max())
+
+
+def rank_block_run(data, cfg: FLConfig, ranks: int, device):
+    """``cfg`` unsharded, its aggregation the edge mode with rank-block
+    ids: what a sharded run over ``ranks`` must give bit for bit."""
+    pipe = dataclasses.replace(pipeline_from_config(cfg), aggregator=RankBlockAggregator(
+        ranks=ranks))
+    return run_federated(data, dataclasses.replace(cfg, execution=dataclasses.replace(
+        cfg.execution, cohort_devices=0)), device=device, pipeline=pipe)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingAggregator(MaskedPartialAggregator):
+    """The masked-partial aggregator keeping its first call's inputs and
+    output (this rank's lanes) and its last call's new global model."""
+
+    log: list = dataclasses.field(default_factory=list, compare=False)
+
+    def aggregate(self, ctx, env):
+        out = super().aggregate(ctx, env)
+        rec = {"new_global": [t.clone() for t in tree_leaves(out.new_global)]}
+        if not self.log:
+            rec.update(agg_src=[t.clone() for t in tree_leaves(ctx.agg_src)],
+                       select=ctx.select.clone(), n=env.n_samples.clone(),
+                       share=ctx.share.clone())
+            self.log.append(rec)
+        else:
+            self.log[1:] = [rec]
+        return out
+
+
+def shard_worker(rank: str, world: str, store: str, out: str, device: str, goldens: str) -> int:
+    """One rank of a gloo world (``--shard-worker``): the [shard] gloo
+    configuration through ``run_federated`` on ``device``, round 0's
+    aggregation inputs and output, the final global model, a rank-slotted
+    all-reduce that says whether every rank holds the same final model, the
+    8-client fixture's K = 6 run, and (``goldens`` "1") the committed
+    goldens in the legacy stream."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(store, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device(device)
+        data = make_har_dataset("uci-har", seed=0)
+        cfg = FLConfig(cohort_devices=world, **SHARD_GLOO)
+        pipe = dataclasses.replace(pipeline_from_config(cfg), aggregator=RecordingAggregator())
+        h = run_federated(data, cfg, device=dev, pipeline=pipe)
+        res = {f"h/{f}": np.asarray(getattr(h, f)) for f in h._fields
+               if getattr(h, f) is not None}
+        first, last = pipe.aggregator.log[0], pipe.aggregator.log[-1]
+        for key in ("select", "n", "share"):
+            res[f"round0/{key}"] = first[key].cpu().numpy()
+        for name in ("agg_src", "new_global"):
+            for i, leaf in enumerate(first[name]):
+                res[f"round0/{name}/{i}"] = leaf.cpu().numpy()
+        final = torch.cat([t.reshape(-1) for t in last["new_global"]])
+        slots = torch.full((world, final.numel()), -0.0, dtype=torch.float32, device=dev)
+        slots[rank].copy_(final)
+        dist.all_reduce(slots)
+        res["ranks_agree"] = np.asarray(all(torch.equal(slots[r], slots[0])
+                                            for r in range(world)))
+        res["final"] = final.cpu().numpy()
+        small = make_federated_classification(**SMALL_DS)
+        hs = run_federated(small, FLConfig(cohort_devices=world, **SHARD_SMALL), device=dev)
+        res.update({f"small/{f}": np.asarray(getattr(hs, f)) for f in hs._fields
+                    if getattr(hs, f) is not None})
+        if goldens == "1":
+            with prng.threefry_partitionable(False):
+                for name, (gcfg, _, _) in GOLDEN.items():
+                    g = run_federated(small, FLConfig(rounds=5, epochs=1, cohort_devices=world,
+                                                      **gcfg), device=dev)
+                    res[f"golden/{name}/acc"] = g.accuracy_mean.astype(np.float32)
+                    res[f"golden/{name}/sel"] = g.selected
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_world(world: int, device: str, base: str, goldens: bool) -> tuple:
+    """Start ``world`` ``--shard-worker`` processes; returns them, their
+    log files and their output directory."""
+    tag = f"w{world}_{device.replace(':', '')}"
+    store, out = os.path.join(base, f"store_{tag}"), os.path.join(base, f"out_{tag}")
+    os.makedirs(store)
+    os.makedirs(out)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(base, f"{tag}_rank{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--shard-worker", str(r), str(world),
+             store, out, device, "1" if goldens else "0"], stdout=log, stderr=subprocess.STDOUT,
+            env=env))
+        logs.append(log)
+    return procs, logs, out
+
+
+def join_world(key, procs, logs, out: str, deadline: float) -> list:
+    """Wait for a world's ranks (killing every one at the deadline); returns
+    each rank's saved arrays."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log.name) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(f"[shard] gloo world {key} rank {r} exited {p.returncode}:\n{tail}")
+    return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(len(procs))]
+
+
+def as_history(arrays: dict):
+    """An FLHistory from a worker's ``h/`` arrays."""
+    from repro_torch.fl.engine import FLHistory
+
+    return FLHistory(**{f: arrays.get(f"h/{f}") for f in FLHistory._fields})
+
+
+def phase_shard_gloo(dev: torch.device, card: str) -> None:
+    """Worlds of 2 and 3 gloo processes sharing the card, and the same
+    worlds on the CPU, through ``run_federated(cohort_devices=D)``, all
+    started at once. Checked: every rank's history and final global model
+    bitwise equal (files and a rank-slotted all-reduce); round 0's new
+    global model bitwise the one-process edge mode with rank-block ids on
+    the gathered lanes; the 8-client fixture (K = 6) on the card against
+    the CPU (the exact fields equal, accuracy within 1e-6); at world 2 the
+    committed goldens (accuracy_mean within 1 ulp, the selections exact);
+    UCI-HAR's card worlds against the card's unsharded run whose
+    aggregation is the edge mode with rank-block ids (the exact fields and
+    accuracy equal). Printed beside them: UCI-HAR's card worlds against the
+    flat unsharded run and against the CPU's worlds (the card and the CPU
+    differ there unsharded too: GEMM last bits move a selection)."""
+    data = make_har_dataset("uci-har", seed=0)
+    unsharded = run_federated(data, FLConfig(**SHARD_GLOO), device=dev)
+    blocks = {world: rank_block_run(data, FLConfig(cohort_devices=world, **SHARD_GLOO), world,
+                                    dev) for world in SHARD_GLOO_WORLDS}
+    base = scratch_dir("shard_")
+    try:
+        started = {}
+        for world in SHARD_GLOO_WORLDS:
+            for device in ("cuda:0", "cpu"):
+                started[world, device] = spawn_world(world, device, base,
+                                                     goldens=world == SHARD_GOLDEN_WORLD)
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        t0 = time.perf_counter()
+        res = {key: join_world(key, *v, deadline) for key, v in started.items()}
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    def gap(a, b, prefix=""):
+        """Accuracy gap and the exact fields that differ, ``a`` against ``b``."""
+        diff = [f for f in EXACT_FIELDS
+                if not np.array_equal(a[f"{prefix}{f}"], b[f"{prefix}{f}"])]
+        acc = float(np.abs(a[f"{prefix}accuracy_per_client"]
+                           - b[f"{prefix}accuracy_per_client"]).max())
+        return acc, diff
+
+    def arrays(hist):
+        return {f"h/{f}": np.asarray(getattr(hist, f)) for f in hist._fields
+                if getattr(hist, f) is not None}
+
+    ref = arrays(unsharded)
+    report, failures = {}, []
+    for world in SHARD_GLOO_WORLDS:
+        card_ranks, cpu_ranks = res[world, "cuda:0"], res[world, "cpu"]
+        agree = {}
+        for where, ranks in (("card", card_ranks), ("CPU", cpu_ranks)):
+            bad = sorted({key for arrays in ranks for key, value in arrays.items()
+                          if not key.startswith("round0/") and not key.endswith("/wall_time")
+                          and not np.array_equal(value, ranks[0][key])})
+            agree[where] = (all(bool(a["ranks_agree"]) for a in ranks), bad)
+            if bad or not agree[where][0]:
+                failures.append(f"world {world} {where}: ranks differ (all-reduce "
+                                f"{agree[where][0]}, files {bad})")
+        # round 0: the ranks' lanes gathered, reduced in one process
+        n_leaves = sum(1 for k in card_ranks[0] if k.startswith("round0/agg_src/"))
+        cat = lambda key: torch.from_numpy(  # noqa: E731
+            np.concatenate([a[key] for a in card_ranks])).to(dev)
+        xs = [cat(f"round0/agg_src/{i}") for i in range(n_leaves)]
+        sel, n, share = cat("round0/select"), cat("round0/n"), cat("round0/share")
+        weights = ((sel.float() * n)[None, :] * share.T.float()).contiguous()
+        ids = (torch.arange(sel.shape[0], device=dev) // (sel.shape[0] // world)).to(torch.int32)
+        edge = masked_aggregate_leaves(xs, weights, [i // 2 for i in range(n_leaves)],
+                                       edge_ids=ids, n_edges=world)
+        round0 = all(np.array_equal(a[f"round0/new_global/{i}"], e.cpu().numpy())
+                     for a in card_ranks for i, e in enumerate(edge))
+        if not round0:
+            failures.append(f"world {world}: round 0 differs from the edge mode with rank-block "
+                            f"ids")
+        small_acc, small_diff = gap(card_ranks[0], cpu_ranks[0], "small/")
+        if small_diff or small_acc > 1e-6:
+            failures.append(f"world {world}: the 8-client fixture on the card differs from the "
+                            f"CPU in {small_diff}, accuracy {small_acc}")
+        h = card_ranks[0]
+        if not np.isfinite(h["h/accuracy_per_client"]).all():
+            failures.append(f"world {world}: non-finite accuracy")
+        vs_unsharded, vs_cpu = gap(h, ref, "h/"), gap(h, cpu_ranks[0], "h/")
+        ulp = acc_ulp(as_history(h), unsharded)
+        block_acc, block_diff = gap(h, arrays(blocks[world]), "h/")
+        if block_diff or block_acc:
+            failures.append(f"world {world}: UCI-HAR differs from the card's unsharded run with "
+                            f"rank-block edges in {block_diff}, accuracy {block_acc}")
+        report[world] = dict(
+            accuracy_mean=np.round(h["h/accuracy_mean"], 4).tolist(),
+            selected_per_round=h["h/selected"].sum(axis=1).tolist(),
+            ranks_bitwise_equal=agree, round0_bitwise_edge_mode=round0,
+            uci_har_vs_rank_block_edge_mode=dict(accuracy_gap=block_acc,
+                                                 exact_fields_differing=block_diff),
+            uci_har_vs_card_unsharded=dict(accuracy_gap=vs_unsharded[0], accuracy_mean_ulp=ulp,
+                                           exact_fields_differing=vs_unsharded[1]),
+            uci_har_vs_cpu_world=dict(accuracy_gap=vs_cpu[0], exact_fields_differing=vs_cpu[1]),
+            small_fixture_card_vs_cpu=dict(accuracy_gap=small_acc,
+                                           exact_fields_differing=small_diff),
+            round_wall_ms_median=1e3 * statistics.median(h["h/wall_time"][1:]),
+            cpu_round_wall_ms_median=1e3 * statistics.median(cpu_ranks[0]["h/wall_time"][1:]))
+    goldens = {}
+    for where in ("cuda:0", "cpu"):
+        got = res[SHARD_GOLDEN_WORLD, where][0]
+        for name, (_, acc_hex, want_bits) in sorted(GOLDEN.items()):
+            acc = got[f"golden/{name}/acc"]
+            want = np.frombuffer(bytes.fromhex(acc_hex), np.dtype("<f4"))
+            ulp = int(np.abs(acc.view(np.int32).astype(np.int64)
+                             - want.view(np.int32).astype(np.int64)).max())
+            bits = ["".join("1" if b else "0" for b in row) for row in got[f"golden/{name}/sel"]]
+            goldens[f"{where} {name}"] = dict(ulp=ulp, selections_exact=bits == want_bits)
+            if ulp > 1 or bits != want_bits:
+                failures.append(f"golden {name} at world {SHARD_GOLDEN_WORLD} on {where}: {ulp} "
+                                f"ulp, selected {bits} (want {want_bits})")
+    print(f"[shard] {card}: acsp-fl+dld+int8 uci-har, {SHARD_GLOO['rounds']} rounds, gloo worlds "
+          f"{SHARD_GLOO_WORLDS} sharing the card and on the CPU ({wall_s:.1f} s for all, started "
+          f"at once; unsharded on the card: accuracy_mean "
+          f"{np.round(unsharded.accuracy_mean, 4).tolist()}): {json.dumps(report)}; goldens at "
+          f"world {SHARD_GOLDEN_WORLD}: {json.dumps(goldens)}")
+    check(not failures, f"[shard] gloo worlds: {failures}")
+
+
+def nccl_world_main(where: str = "cuda") -> int:
+    """One rank of ``torchrun --nproc-per-node D chip_smoke.py --nccl-world``
+    (the group from torchrun's environment, NCCL, ``cuda:{rank}``; "cpu"
+    rehearses it over gloo on the CPU, 6 rounds): the NCCL_WORLD
+    configuration sharded over the D ranks, bitwise the same cohort
+    unsharded on this rank's card with its aggregation through the edge
+    mode with rank-block ids, at scan_chunk 1 and 5 (the all-reduces
+    captured in the chunk's graph), one partial and one combine launch a
+    round (beside it, the distance to the flat unsharded run); a profiled eager round's collective bytes against the reckoning;
+    every rank's final model equal (a rank-slotted all-reduce); the
+    committed goldens at world D. Rank 0 prints; every rank exits non-zero
+    when any rank found a fault."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cpu = where == "cpu"
+    run = dict(NCCL_WORLD, rounds=6) if cpu else NCCL_WORLD
+    dist.init_process_group("gloo" if cpu else "nccl")
+    failures, report = [], {}
+    try:
+        if cpu:
+            torch.set_num_threads(1)
+            dev = torch.device("cpu")
+        else:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        card = "CPU rehearsal" if cpu else phase_environment() if rank == 0 else ""
+        if not cpu and rank == 0:
+            phase_build()
+        dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
+        data = make_har_dataset("uci-har", seed=0)
+        for chunk in NCCL_WORLD_CHUNKS:
+            cfg = FLConfig(cohort_devices=world, scan_chunk=chunk, **run)
+            flat = run_federated(data, FLConfig(scan_chunk=chunk, **run), device=dev)
+            ref = rank_block_run(data, cfg, world, dev)
+            kernels.reset_launch_counts()
+            h = run_federated(data, cfg, device=dev)
+            counts = kernels.launch_counts()
+            diff = history_diff(h, ref)
+            if diff or not cpu and not (counts["masked_aggregate_partial"]
+                                        == counts["masked_aggregate_combine"] == run["rounds"]
+                                        and counts["masked_aggregate"] == 0):
+                failures.append(f"rank {rank} scan_chunk={chunk}: differs from the unsharded "
+                                f"run with rank-block edges in {diff}, launches {counts}")
+            report[f"scan_chunk={chunk}"] = dict(
+                rank_block_edge_mode_fields_differing=diff,
+                flat_unsharded=dict(accuracy_mean_ulp=acc_ulp(h, flat),
+                                    fields_differing=history_diff(h, flat)),
+                sharded_ms=1e3 * statistics.median(h.wall_time[chunk:]),
+                unsharded_ms=1e3 * statistics.median(flat.wall_time[chunk:]),
+                partial_launches=counts["masked_aggregate_partial"],
+                combine_launches=counts["masked_aggregate_combine"])
+        cfg = FLConfig(cohort_devices=world, **run)
+        su = _setup_run(data, cfg, dev, None, mlp_loss, mlp_accuracy, None, None, None)
+        state = initial_state(su, data.n_clients)
+        step = fl_api.build_round_step(su.env, su.pipeline, cfg.execution)
+        d = scratch_dir(f"nccl_world_r{rank}_")
+        try:
+            state, _ = step(state, 0)  # the communicator's first use
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if not cpu:
+                torch.cuda.synchronize()
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+                state, _ = step(state, 1)
+                if not cpu:
+                    torch.cuda.synchronize()
+            prof.export_chrome_trace(os.path.join(d, "round.json"))
+            stats = collective_bytes(os.path.join(d, "round.json"))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        want = shard_collective_bytes(su.g0, su.n_layers, world, run["cohort_size"] // world,
+                                      True, True)
+        if stats.get("count") != 2 or stats.get("total") != want:
+            failures.append(f"rank {rank}: collectives {stats}, reckoned 2 of {want} bytes")
+        report["collectives"] = dict(stats, reckoned=want)
+        final = torch.cat([t.reshape(-1) for t in tree_leaves(state.global_params)])
+        slots = torch.full((world, final.numel()), -0.0, dtype=torch.float32, device=dev)
+        slots[rank].copy_(final)
+        dist.all_reduce(slots)
+        if not all(torch.equal(slots[r], slots[0]) for r in range(world)):
+            failures.append(f"rank {rank}: the ranks' global models differ after 2 rounds")
+        small = make_federated_classification(**SMALL_DS)
+        ulps = {}
+        with prng.threefry_partitionable(False):
+            for name, (gcfg, acc_hex, want_bits) in sorted(GOLDEN.items()):
+                g = run_federated(small, FLConfig(rounds=5, epochs=1, cohort_devices=world,
+                                                  **gcfg), device=dev)
+                want_acc = np.frombuffer(bytes.fromhex(acc_hex), np.dtype("<f4"))
+                ulps[name] = int(np.abs(g.accuracy_mean.astype(np.float32).view(np.int32)
+                                        .astype(np.int64) - want_acc.view(np.int32)).max())
+                bits = ["".join("1" if b else "0" for b in row) for row in g.selected]
+                if ulps[name] > 1 or bits != want_bits:
+                    failures.append(f"rank {rank} golden {name}: {ulps[name]} ulp, {bits}")
+        report["golden_ulp"] = ulps
+        n_bad = torch.full((1,), float(len(failures)), device=dev)
+        dist.all_reduce(n_bad)
+        if rank == 0:
+            print(f"[nccl-world] {card}: acsp-fl+dld+int8 uci-har C={data.n_clients} cohort "
+                  f"{run['cohort_size']} over {world} ranks on "
+                  f"{'gloo' if cpu else 'NCCL'}, {run['rounds']} rounds: {json.dumps(report)}")
+        failures += [] if int(n_bad.item()) == len(failures) else ["another rank failed"]
+    finally:
+        dist.destroy_process_group()
+    if failures:
+        print(f"[nccl-world] rank {rank}: {failures}", file=sys.stderr)
+        return 1
+    return 0
+
 
 def main() -> int:
+    if sys.argv[1:2] == ["--shard-worker"]:  # one rank of [shard]'s gloo worlds
+        return shard_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--nccl-world"]:  # one rank under torchrun
+        return nccl_world_main(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -1529,6 +2115,11 @@ def main() -> int:
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
     phase_loop(dev, card)
+    table["masked_aggregate"].update(phase_shard_kernels(dev))
+    shard_counts = phase_shard_nccl(dev, card)
+    for mode in ("partial", "combine"):
+        table["masked_aggregate"][f"{mode}_launches"] = shard_counts[f"masked_aggregate_{mode}"]
+    phase_shard_gloo(dev, card)
     table["masked_aggregate"].update(phase_merge(dev))
     table["masked_aggregate"]["merge_launches"] = phase_async(dev, card)
     phase_faults(dev)

@@ -313,19 +313,19 @@ class ExecutionConfig:
     the device, ``cohort_devices`` shards the cohort over devices,
     ``host_population`` keeps the (C, ...) slabs on the host,
     ``eval_chunk`` streams evaluation, ``edge_groups`` adds edge-server
-    aggregation. The port runs ``cohort_size``, ``eval_every`` and
-    ``scan_chunk`` (chunks are CUDA-graph replays on the card) on one
-    device, device-resident, with flat aggregation, and raises
-    ``NotImplementedError`` for the other options, naming the ROADMAP.md
-    item that ports them (``repro_torch.fl.sched.check_slice``).
+    aggregation. The port runs every one of them: chunks are CUDA-graph
+    replays on the card, the host plane is ``repro_torch.fl.population``,
+    and ``cohort_devices`` shards a barrier round's lanes over the ranks of
+    a ``torch.distributed`` process group (``repro_torch.fl.shard``: -1
+    takes the whole group, N a group of N ranks).
     """
 
     cohort_size: int = 0        # 0 -> full population (dense-equivalent)
     eval_every: int = 1         # evaluate when t % eval_every == 0
     scan_chunk: int = 1         # rounds fused per on-device scan chunk;
                                 # 1 -> per-round host sync, 0 -> whole run
-    cohort_devices: int = 0     # 0 -> unsharded; -1 -> all visible devices;
-                                # N -> shard_map cohort lanes over N devices
+    cohort_devices: int = 0     # 0 -> unsharded; -1 -> every rank of the
+                                # process group; N -> a group of N ranks
     host_population: int = 0    # 0 -> auto (>= HOST_POPULATION_THRESHOLD);
                                 # 1 -> force host-resident; -1 -> never
     eval_chunk: int = 0         # host-population eval streaming: clients per

@@ -13,8 +13,17 @@ a layered model is a list of such trees. ``edge_ids``/``n_edges`` route a
 reduction through two-level (edge-server) aggregation, the kernel's edge
 mode: each edge group partial-sums its lanes, the server sums the E
 partials in ascending edge order; ``n_edges <= 1`` keeps the flat
-expression exactly. The JAX package's sharded (``axis_name``) reduction
-comes with ROADMAP.md queue 1 item 12; passing it raises.
+expression exactly.
+
+``axis_name`` (a ``repro_torch.launch.mesh.CohortMesh``) extends a reduction
+across the ranks of a sharded cohort (``repro_torch.fl.shard``), the JAX
+package's ``axis_name`` path: the rank's lanes reduce to partial numerators
+and totals (the kernel's partial mode, local edge partials first), one
+all-reduce of the rank-slotted buffer gathers every rank's partials, and
+the kernel's combine mode sums them in rank order, divides, and tests the
+fallback on the global total, so every rank holds the same new global
+model. With lanes in rank blocks this is bitwise the edge mode with
+``edge_ids = lane // (K // D)`` and ``n_edges = D``.
 """
 
 from __future__ import annotations
@@ -22,34 +31,50 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import fill_vector
-from repro_torch.kernels.masked_aggregate import masked_aggregate_leaves
+from repro_torch.kernels.masked_aggregate import (
+    masked_aggregate_combine,
+    masked_aggregate_leaves,
+    masked_aggregate_partial,
+)
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def _no_sharding(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (sharded cohort aggregation) is not ported yet: "
-            "ROADMAP.md queue 1 item 12"
-        )
+def _reduce_leaves(xs, weights, rows=None, fallbacks=None, snapshots=None, bases=None,
+                   edge_ids=None, n_edges: int = 0, axis_name=None) -> list:
+    """``masked_aggregate_leaves`` over this process's lanes, or with a mesh
+    (``axis_name``) the partial launch, one all-reduce and the combine
+    launch."""
+    if axis_name is None:
+        return masked_aggregate_leaves(xs, weights, rows, fallbacks, snapshots, bases,
+                                       edge_ids=edge_ids, n_edges=n_edges)
+    mesh = axis_name
+    if not hasattr(mesh, "all_reduce"):
+        raise TypeError(f"axis_name must be the cohort mesh whose ranks hold the other lanes "
+                        f"(repro_torch.launch.mesh.CohortMesh), got {mesh!r}")
+    buf = masked_aggregate_partial(xs, weights, rows, snapshots, edge_ids=edge_ids,
+                                   n_edges=n_edges, slot=mesh.rank, n_slots=mesh.world)
+    mesh.all_reduce(buf)
+    return masked_aggregate_combine(buf, [x.shape[1:] for x in xs], rows, fallbacks, bases,
+                                    xs[0].dtype)
 
 
 def fedavg_aggregate(client_params, select_mask, n_samples, axis_name=None, edge_ids=None,
                      n_edges: int = 0):
     """Eq. (1): w <- sum_i (|d_i|/|D|) w_i over *selected* clients; a leaf
-    nobody contributed to becomes zeros."""
-    _no_sharding(axis_name)
+    nobody contributed to becomes zeros. ``axis_name``: the mesh whose
+    ranks hold the other lanes (see the module docstring)."""
     weights = select_mask.to(torch.float32) * n_samples.to(torch.float32)
-    return tree_unflatten(client_params, masked_aggregate_leaves(
-        tree_leaves(client_params), weights[None], edge_ids=edge_ids, n_edges=n_edges))
+    return tree_unflatten(client_params, _reduce_leaves(
+        tree_leaves(client_params), weights[None], edge_ids=edge_ids, n_edges=n_edges,
+        axis_name=axis_name))
 
 
 def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples, share_mask,
                              axis_name=None, edge_ids=None, n_edges: int = 0):
     """ACSP-FL aggregation: layer j averages the clients with
     ``select_mask[i] & share_mask[i, j]``; a layer nobody shared keeps the
-    previous global value. ``share_mask`` is (C, L) or (L,)."""
-    _no_sharding(axis_name)
+    previous global value (tested on the total over every rank with
+    ``axis_name``). ``share_mask`` is (C, L) or (L,)."""
     n_layers = len(client_params)
     share_mask = torch.as_tensor(share_mask)
     if share_mask.ndim == 1:
@@ -63,8 +88,8 @@ def masked_partial_aggregate(client_params, prev_global, select_mask, n_samples,
         xs += layer
         rows += [j] * len(layer)
         fallbacks += tree_leaves(prev_global[j])
-    means = masked_aggregate_leaves(xs, weights, rows, fallbacks, edge_ids=edge_ids,
-                                    n_edges=n_edges)
+    means = _reduce_leaves(xs, weights, rows, fallbacks, edge_ids=edge_ids, n_edges=n_edges,
+                           axis_name=axis_name)
     return [tree_unflatten(client_params[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 
@@ -83,8 +108,8 @@ def staleness_weighted_merge(client_deltas, prev_global, weights, share_mask=Non
     is bitwise the one from passing the deltas (bf16 deltas passed in are
     rounded to bf16 first; the fused ones are not). Every layer's leaves go through one
     ``masked_aggregate_leaves`` call (on CUDA one kernel launch), the weight
-    rows one per layer, the global leaves as the bases."""
-    _no_sharding(axis_name)
+    rows one per layer, the global leaves as the bases (with ``axis_name``: a partial and a combine
+    launch around one all-reduce)."""
     n_layers = len(client_deltas)
     w = weights.to(torch.float32)
     if share_mask is None:
@@ -99,8 +124,8 @@ def staleness_weighted_merge(client_deltas, prev_global, weights, share_mask=Non
         rows += [j] * len(layer)
         bases += tree_leaves(prev_global[j])
         snaps += [None] * len(layer) if snapshots is None else tree_leaves(snapshots[j])
-    means = masked_aggregate_leaves(xs, table.contiguous(), rows, snapshots=snaps, bases=bases,
-                                    edge_ids=edge_ids, n_edges=n_edges)
+    means = _reduce_leaves(xs, table.contiguous(), rows, snapshots=snaps, bases=bases,
+                           edge_ids=edge_ids, n_edges=n_edges, axis_name=axis_name)
     return [tree_unflatten(client_deltas[j], means[a:b]) for j, (a, b) in enumerate(spans)]
 
 

@@ -77,6 +77,24 @@
 // once as well, so its bound is the flat mode's: 10.3 us a round at K = 30
 // (21.5 us at K = 64), 20.5 us a merge at M = 30.
 //
+// Partial and combine modes (cohort lanes sharded over the D ranks of a
+// process group, the JAX package's core/aggregation._weighted_mean with
+// axis_name, computed there as a local sum and a psum): a partial leaf
+// (mode kModePartial) runs the flat or the edge sums above over this rank's
+// lanes and stops before the divide: it writes its float32 numerator into
+// this rank's row of a flat (D, width) float32 buffer, and the leaf that
+// owns its weight row writes the row's total beside the numerators. After
+// an all-reduce has filled every rank's row, the combine kernel (a table
+// with slot_stride set) reads the D slots of each leaf and total in
+// ascending rank order, sums them from 0 (one rounding an add), divides and
+// applies the epilogue of the flat mode (fallback or base). A rank's
+// partial is what an edge group's partial is in the edge mode, and the
+// combine is its second level, so the two launches give bitwise the edge
+// mode with edge_ids = lane / (K / D) and E = D. Bound on an H100: bytes;
+// the partial reads this rank's x (K/D lanes) once and writes the leaves'
+// P numerators, 10.3 us / D + 1.1 MB a round for har-mlp at K = 30; the
+// combine reads D x 1.1 MB of slots and writes 1.1 MB, 0.66 us at D = 1.
+//
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper in
 // repro_torch/kernels/masked_aggregate/ops.py launches it on torch's
@@ -91,19 +109,23 @@ namespace {
 constexpr int kThreads = 64;
 constexpr int kCols = 4;
 constexpr int kWeightChunk = 1024;
-// leaves a launch: the table is 64 x 56 + 40 = 3,624 bytes, inside the
+// leaves a launch: the table is 64 x 56 + 48 = 3,632 bytes, inside the
 // classic 4 KB kernel-parameter limit (no CUDA 12.1 large-parameter path
-// needed): the fallback and the base share one pointer, told apart by mode
+// needed): the fallback, the base and a partial leaf's total slot share one
+// pointer, told apart by mode
 constexpr int kMaxLeaves = 64;
 constexpr int kModeFallback = 0;  // total > 0 ? mean : fallback (0 if null)
 constexpr int kModeBase = 1;      // base + (total > 0 ? mean : 0)
+constexpr int kModePartial = 2;   // the float32 numerator, and the row's total
 
 // One leaf of a launch; the Python wrapper fills the same layout (ctypes).
 struct Leaf {
-  const void* x;         // (C, cols), x's dtype
-  const void* snap;      // (C, cols) subtracted from x, or null
-  const void* other;     // (cols,): the fallback (null: zeros) or the base
-  void* out;             // (cols,)
+  const void* x;         // (C, cols), x's dtype; combine: slot 0 of the numerator
+  const void* snap;      // (C, cols) subtracted from x, or null; combine: slot 0
+                         // of the leaf's row total
+  const void* other;     // (cols,): the fallback (null: zeros) or the base;
+                         // partial: the row's total slot (null: another leaf's)
+  void* out;             // (cols,); partial: this rank's numerator slot (float32)
   int64_t cols;
   int64_t block0;        // the leaf's first block; its blocks are ceil(cols / 256)
   int32_t row;           // its row of the weight matrix
@@ -119,8 +141,10 @@ struct Table {
   const int32_t* edge;   // edge mode: (C,) the edge id of each lane of `order`
   int n_edges;           // E (> 1 in edge mode)
   int pad;
+  int64_t slot_stride;   // combine: float32 elements from one rank's slot to the
+                         // next (c_rows is then the number of slots D); 0: not combine
 };
-static_assert(sizeof(Leaf) == 56 && sizeof(Table) == 3624 && sizeof(Table) <= 4096,
+static_assert(sizeof(Leaf) == 56 && sizeof(Table) == 3632 && sizeof(Table) <= 4096,
               "the table must stay inside the classic 4 KB kernel-parameter limit");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -156,10 +180,17 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float v[kCols]
 }
 
 // The epilogues: the weighted mean, the fallback where the weights sum to
-// 0, or the base plus the mean (merge); written in x's type.
+// 0, or the base plus the mean (merge); written in x's type. A partial leaf
+// writes its float32 sums instead (the thread of column 0 the row's total).
 template <typename T>
 __device__ __forceinline__ void write_out(const Leaf& leaf, const float acc[kCols], float total,
                                           int64_t p0) {
+  if (leaf.mode == kModePartial) {
+    float* __restrict__ num = static_cast<float*>(leaf.out);
+    for (int k = 0; k < kCols && p0 + k < leaf.cols; ++k) num[p0 + k] = acc[k];
+    if (p0 == 0 && leaf.other) *static_cast<float*>(const_cast<void*>(leaf.other)) = total;
+    return;
+  }
   const T* __restrict__ other = static_cast<const T*>(leaf.other);
   T* __restrict__ out = static_cast<T*>(leaf.out);
   const float denom = fmaxf(total, 1e-12f);
@@ -341,30 +372,73 @@ masked_aggregate_edges_kernel(const __grid_constant__ Table table) {
   write_out<T>(leaf, acc, total, p0);
 }
 
+// Combine mode: each leaf's D numerator slots and its row's D total slots
+// summed in ascending rank order, then the flat mode's epilogues.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+masked_aggregate_combine_kernel(const __grid_constant__ Table table) {
+  int li = 0;  // this block's leaf
+  while (li + 1 < table.n_leaves && blockIdx.x >= table.leaf[li + 1].block0) ++li;
+  const Leaf& leaf = table.leaf[li];
+  const float* __restrict__ num = static_cast<const float*>(leaf.x);
+  const float* __restrict__ tot = static_cast<const float*>(leaf.snap);
+  const int64_t stride = table.slot_stride;
+  const int64_t p_cols = leaf.cols;
+  const int64_t p0 = ((blockIdx.x - leaf.block0) * kThreads + threadIdx.x) * kCols;
+  if (p0 >= p_cols) return;
+  const bool full = p0 + kCols <= p_cols;
+  float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float total = 0.0f;
+  for (int d = 0; d < table.c_rows; ++d) {
+    const float* slot = num + d * stride + p0;
+    float v[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (full) {
+      load_cols(slot, v);
+    } else {
+      for (int k = 0; p0 + k < p_cols; ++k) v[k] = slot[k];
+    }
+    total = __fadd_rn(total, tot[d * stride]);
+    for (int k = 0; k < kCols; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+  }
+  write_out<T>(leaf, acc, total, p0);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Aggregates every leaf of the Table at table_ptr in one launch of `blocks`
 // blocks (the sum of the leaves' ceil(cols / 256)); a table with `order`
-// set launches the edge-mode kernel. dtype: 0 = float32, 1 = bfloat16.
+// set launches the edge-mode kernel, one with slot_stride set the combine
+// kernel. dtype (x's, the combine's output's): 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int repro_masked_aggregate(const void* table_ptr, int64_t blocks, int dtype, void* stream) {
   const Table* table = static_cast<const Table*>(table_ptr);
   if (table->n_leaves < 1 || table->n_leaves > kMaxLeaves || blocks < 1 || blocks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool combine = table->slot_stride > 0;
+  const bool edges = table->order != nullptr;
   for (int i = 0; i < table->n_leaves; ++i) {
     const Leaf& leaf = table->leaf[i];
-    if ((leaf.mode != kModeFallback && leaf.mode != kModeBase) ||
-        (leaf.mode == kModeBase && leaf.other == nullptr))
+    if ((leaf.mode != kModeFallback && leaf.mode != kModeBase && leaf.mode != kModePartial) ||
+        (leaf.mode == kModeBase && leaf.other == nullptr) ||
+        (combine && (leaf.mode == kModePartial || leaf.x == nullptr || leaf.snap == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool edges = table->order != nullptr;
-  if (edges && (table->edge == nullptr || table->n_edges < 2))
+  if (edges && (combine || table->edge == nullptr || table->n_edges < 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (combine && table->c_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
-  if (dtype == 0) {
+  if (combine) {
+    if (dtype == 0) {
+      masked_aggregate_combine_kernel<float><<<grid, kThreads, 0, s>>>(*table);
+    } else if (dtype == 1) {
+      masked_aggregate_combine_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*table);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (dtype == 0) {
     if (edges) {
       masked_aggregate_edges_kernel<float><<<grid, kThreads, 0, s>>>(*table);
     } else {

@@ -60,7 +60,9 @@ __all__ = [
     "pipeline_from_config",
     "build_env",
     "build_round_step",
+    "compose_round_step",
     "build_chunk_step",
+    "CollectiveCaptureError",
     "StackedOuts",
 ]
 
@@ -473,6 +475,13 @@ def build_round_step(
     thinning read it there), so ``build_chunk_step`` can capture rounds in a
     CUDA graph.
 
+    ``execution.cohort_devices != 0`` delegates to
+    ``repro_torch.fl.shard.build_sharded_round_step``: the same step with the
+    compute phases on this rank's K/D lanes of a process group and the
+    aggregation as rank partial sums, one all-reduce and a rank-order
+    combine (the JAX package's delegation); fault injection does not
+    compose with it (``ValueError``).
+
     With an enabled ``faults`` config the step maps ``(state, t, alive (C,)
     bool, corrupt (C,) int) -> (state, out)``, as the JAX package's: the
     crash/deadline survivors ``alive`` (resolved on the host from the
@@ -491,9 +500,22 @@ def build_round_step(
                 "fault injection composes with the cohort runtime but not with "
                 "cohort_devices sharding; set cohort_devices=0 or disable FaultConfig"
             )
-        raise NotImplementedError(
-            "cohort_devices (sharded round step) is not ported yet: ROADMAP.md queue 1 item 12"
-        )
+        from repro_torch.fl.shard import build_sharded_round_step
+
+        return build_sharded_round_step(env, pipeline, execution)
+    return compose_round_step(env, pipeline, execution, faults)
+
+
+def compose_round_step(env: phases.RoundEnv, pipeline: RoundPipeline, execution: ExecutionConfig,
+                       faults: FaultConfig | None = None, lanes=None):
+    """``build_round_step``'s body, for one process or for one rank of a
+    sharded cohort. ``lanes`` (``repro_torch.fl.shard``) names the block of
+    the K cohort lanes this rank computes (``lanes.block``, a slice) and
+    gathers every rank's results back to K lanes (``lanes.gather(new_local,
+    residual, update_norm, n_rejected)``); the gather, the scatter and the
+    population phases then run the same on every rank. None computes all K
+    lanes here."""
+    faulty = faults is not None and faults.enabled
     cohort_k = execution.resolved_cohort(env.n_clients)
     stateful = pipeline.personalizer.stateful
     lossy = pipeline.transmit.lossy
@@ -534,24 +556,27 @@ def build_round_step(
             else torch.zeros(select_in.shape, dtype=torch.int32, device=dev)
         )
         participation = prev_part + executed.to(torch.int32)
-        cenv = env.take(idx)
+        # the lanes computed here: all K, or this rank's block of them
+        lane_idx, lane_mask = (idx, cmask) if lanes is None else (idx[lanes.block],
+                                                                  cmask[lanes.block])
+        cenv = env.take(lane_idx)
         cctx = phases.RoundContext(
             t=t,
             global_params=g,
-            local_params=tree_take(state.local_params, idx) if stateful else None,
-            select=cmask,
-            pms=state.pms.index_select(0, idx),
-            share=share.index_select(0, idx),
-            residual=tree_take(state.residual, idx),
-            participation=participation.index_select(0, idx),
-            cohort_idx=idx,
-            cohort_mask=cmask,
+            local_params=tree_take(state.local_params, lane_idx) if stateful else None,
+            select=lane_mask,
+            pms=state.pms.index_select(0, lane_idx),
+            share=share.index_select(0, lane_idx),
+            residual=tree_take(state.residual, lane_idx),
+            participation=participation.index_select(0, lane_idx),
+            cohort_idx=lane_idx,
+            cohort_mask=lane_mask,
             rng_fit=r_fit,
             rng_codec=r_codec,
             rng_sel=r_sel,
         )
 
-        # --- personalize, train, transmit, guard and aggregate on K lanes ---
+        # --- personalize, train, transmit, guard and aggregate on the lanes ---
         prev_norm = (
             state.update_norm
             if state.update_norm is not None
@@ -559,13 +584,18 @@ def build_round_step(
         )
         kinds_k = (None if corrupt is None
                    else torch.where(cmask, corrupt.index_select(0, idx), torch.zeros_like(idx)))
-        cctx, n_rejected = compute_lanes(pipeline, cctx, cenv, prev_norm.index_select(0, idx),
+        cctx, n_rejected = compute_lanes(pipeline, cctx, cenv,
+                                         prev_norm.index_select(0, lane_idx),
                                          kinds_k, max_norm, corrupt_scale)
+        new_local_k, res_k, norm_k = cctx.new_local, cctx.residual, cctx.update_norm
+        if lanes is not None:  # every rank's lanes, on every rank
+            new_local_k, res_k, norm_k, n_rejected = lanes.gather(
+                new_local_k if stateful else None, res_k, norm_k, n_rejected)
 
         # --- scatter: cohort results back into the (C, ...) state ---
-        new_local = tree_scatter(state.local_params, idx, cctx.new_local) if stateful else None
-        new_residual = tree_scatter(state.residual, idx, cctx.residual)
-        update_norm = prev_norm.index_copy(0, idx, cctx.update_norm)
+        new_local = tree_scatter(state.local_params, idx, new_local_k) if stateful else None
+        new_residual = tree_scatter(state.residual, idx, res_k)
+        update_norm = prev_norm.index_copy(0, idx, norm_k)
         wire_prospective, wire_paid = pipeline.transmit.wire_costs(g, share, executed)
 
         # --- population phases: eval, selection, layer policy on (C,) ---
@@ -736,7 +766,11 @@ class _ChunkStep:
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         counted = kernels.launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
+        # a sharded round's collectives run on the process group's own
+        # stream: capture in thread-local mode, so that stream's bookkeeping
+        # on other threads cannot void the capture
+        mode = "global" if getattr(self.round_step, "mesh", None) is None else "thread_local"
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode=mode):
             self._outs = self._rounds()
         after = kernels.launch_counts()
         # a capture records launches without running them: replays count them
@@ -785,7 +819,23 @@ def build_chunk_step(round_step, length: int):
     before the next call. Replay runs the eager round's kernels on the same
     inputs, so every chunk length, tails included, gives the history of the
     per-round loop bit for bit. On the CPU a call runs the rounds in a loop.
+
+    A sharded round step (``repro_torch.fl.shard``) is captured with its
+    all-reduces under NCCL (the warm-up round runs them once first); on
+    CUDA tensors under gloo, whose collectives pass through the host, it
+    raises ``CollectiveCaptureError`` rather than run eagerly.
     """
     if length < 1:
         raise ValueError(f"chunk length must be >= 1, got {length!r}")
+    mesh = getattr(round_step, "mesh", None)
+    if mesh is not None and mesh.device.type == "cuda" and not mesh.capturable:
+        raise CollectiveCaptureError(
+            f"a {mesh.backend} process group cannot run inside a CUDA graph (it copies CUDA "
+            f"tensors through the host): run the sharded rounds with scan_chunk=1, or start "
+            f"the group with the nccl backend")
     return _ChunkStep(round_step, length)
+
+
+class CollectiveCaptureError(RuntimeError):
+    """A sharded round step whose collectives a CUDA graph cannot capture
+    (gloo on CUDA tensors) was asked for chunks of rounds."""

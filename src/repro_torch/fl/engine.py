@@ -12,7 +12,9 @@ driven by ``repro_torch.fl.sched.SyncScheduler`` (the paper's barrier) or
 slots), with optional fault injection, checkpoint/resume and a run recorder
 (``repro_torch.obs``) under both; large or lazily generated populations run
 on the host-resident population plane (``repro_torch.fl.population``), and
-``edge_groups`` adds the two-level edge topology.
+``edge_groups`` adds the two-level edge topology, and ``cohort_devices``
+shards a barrier round's lanes over the ranks of a process group
+(``repro_torch.fl.shard``).
 Every entry point takes
 ``device=``: the CUDA card by default, the CPU only when asked for; with no
 card and ``device=None`` they raise rather than run on the CPU quietly.
@@ -34,6 +36,7 @@ from repro_torch.fl.api import (
     build_round_step,
     pipeline_from_config,
 )
+from repro_torch.launch.mesh import rank_device
 from repro_torch.models.mlp import mlp_accuracy, mlp_loss
 
 __all__ = ["FLConfig", "FLHistory", "make_round_step", "run_federated"]
@@ -66,16 +69,26 @@ class FLHistory(NamedTuple):
                                          # field
 
 
+def _run_device(cfg: FLConfig, device):
+    """The run's device: ``device`` if given; else the card, and with
+    ``cohort_devices`` rank r's ``cuda:{r % device_count}``."""
+    if cfg.execution.cohort_devices != 0:
+        return rank_device(device)
+    return resolve_device(device)
+
+
 def make_round_step(data: FederatedDataset, cfg: FLConfig, device=None,
                     loss_fn: Callable = mlp_loss, acc_fn: Callable = mlp_accuracy,
                     pipeline: RoundPipeline | None = None):
     """The synchronous round step ``(RoundState, t) -> (RoundState, out)``
     for ``cfg``'s default pipeline (or ``pipeline``) over ``data`` on
     ``device``; with enabled faults, the fault step ``(state, t, alive,
-    corrupt)``."""
+    corrupt)``; with ``cohort_devices`` the sharded step of this rank
+    (``repro_torch.fl.shard``; ``step.mesh.close()`` ends a world-1 group it
+    opened)."""
     from repro_torch.fl.sched import check_slice
 
-    dev = resolve_device(device)
+    dev = _run_device(cfg, device)
     check_slice(cfg)
     pipeline = pipeline or pipeline_from_config(cfg)
     env = build_env(data, cfg.seed, dev, loss_fn=loss_fn, acc_fn=acc_fn)
@@ -105,10 +118,18 @@ def run_federated(data: FederatedDataset, cfg: FLConfig, device=None,
     per-round metrics, progress log, optional trace and profile — from
     the numpy records of each chunk's or event's one fetch; the history is
     bitwise the unrecorded run's.
+
+    ``FLConfig(cohort_devices=D)`` shards the cohort's lanes over the D
+    ranks of a ``torch.distributed`` process group: call ``run_federated``
+    on every rank (``torchrun --nproc-per-node D`` or
+    ``torch.multiprocessing.spawn``, with the group initialized first;
+    ``cohort_devices=1`` with no group opens a world-1 group for the run).
+    Rank r runs on ``cuda:{r % device_count}`` unless ``device`` is given;
+    ``device="cpu"`` takes gloo. Every rank returns the same history.
     """
     from repro_torch.fl.sched import make_scheduler
 
-    dev = resolve_device(device)
+    dev = _run_device(cfg, device)
     return make_scheduler(cfg).run(
         data, cfg, dev, init_fn=init_fn, loss_fn=loss_fn, acc_fn=acc_fn, comm=comm,
         progress=progress, pipeline=pipeline, client_delay=client_delay, recorder=recorder,

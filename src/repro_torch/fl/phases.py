@@ -383,9 +383,16 @@ class Aggregator:
     each edge partial-sums its members and the server sums the E partials
     (masked_aggregate's edge mode). ``edge_groups <= 1`` keeps the flat sum
     exactly; E > 1 reassociates the sum (within a few ulp of the flat
-    one)."""
+    one).
 
-    edge_groups = 0  # subclasses declare the dataclass field
+    ``axis_name`` (a ``repro_torch.launch.mesh.CohortMesh``; None, the
+    default, is local) reduces across the ranks of a sharded cohort
+    (``repro_torch.fl.shard``): each rank sums its own lanes (through its
+    edges first) to partials, one all-reduce gathers them, and the combine
+    gives every rank the same new global model."""
+
+    edge_groups = 0   # subclasses declare the dataclass field
+    axis_name = None  # subclasses declare the dataclass field (kept last)
 
     def _edges(self, ctx: RoundContext, env: RoundEnv):
         """``(edge_ids, n_edges)`` of the current lanes, or ``(None, 0)``
@@ -409,11 +416,13 @@ class FedAvgAggregator(Aggregator):
     """Plain Eq. 1 over selected clients, full model."""
 
     edge_groups: int = 0
+    axis_name: Any = None
 
     def aggregate(self, ctx, env):
         edge_ids, n_edges = self._edges(ctx, env)
         return ctx._replace(new_global=fedavg_aggregate(
-            ctx.agg_src, ctx.select, env.n_samples, edge_ids=edge_ids, n_edges=n_edges))
+            ctx.agg_src, ctx.select, env.n_samples, axis_name=self.axis_name,
+            edge_ids=edge_ids, n_edges=n_edges))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,12 +431,13 @@ class MaskedPartialAggregator(Aggregator):
     layers nobody shared keep the previous global value."""
 
     edge_groups: int = 0
+    axis_name: Any = None
 
     def aggregate(self, ctx, env):
         edge_ids, n_edges = self._edges(ctx, env)
         return ctx._replace(new_global=masked_partial_aggregate(
             ctx.agg_src, ctx.global_params, ctx.select, env.n_samples, ctx.share,
-            edge_ids=edge_ids, n_edges=n_edges))
+            axis_name=self.axis_name, edge_ids=edge_ids, n_edges=n_edges))
 
 
 # --- staleness weighting (FedBuff, Nguyen et al. 2022) ----------------------
@@ -484,6 +494,7 @@ class StalenessAggregator(Aggregator):
     exponent: float = 0.5
     threshold: float = 4.0
     edge_groups: int = 0
+    axis_name: Any = None
 
     def __post_init__(self):
         if self.staleness_fn not in STALENESS_FNS:
@@ -502,7 +513,8 @@ class StalenessAggregator(Aggregator):
         # the deltas agg_src - snapshot are formed in the kernel's loads
         edge_ids, n_edges = self._edges(ctx, env)
         new_global = staleness_weighted_merge(ctx.agg_src, ctx.global_params, w, ctx.share,
-                                              edge_ids=edge_ids, n_edges=n_edges, snapshots=snaps)
+                                              axis_name=self.axis_name, edge_ids=edge_ids,
+                                              n_edges=n_edges, snapshots=snaps)
         return ctx._replace(new_global=new_global, merge_weight=discount)
 
 

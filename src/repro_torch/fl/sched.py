@@ -30,9 +30,12 @@ under the barrier, edge round times. A population at or above the host
 threshold (``ExecutionConfig.resolved_host_population``), or a dataset
 with no eager ``x_train`` (``ShardedFederatedData``), runs on the
 host-resident population plane (``repro_torch.fl.population``) instead.
-``check_slice`` raises ``NotImplementedError`` for the option outside the
-ported slices (``cohort_devices``, naming the ROADMAP.md item that ports
-it), so no option is silently ignored.
+With ``cohort_devices`` the barrier loop runs the sharded round step
+(``repro_torch.fl.shard``) on every rank of a process group: every rank
+returns the same history, and only rank 0 records, checkpoints and prints
+progress. The async scheduler does what the JAX package's does with
+``cohort_devices``: nothing (``build_async_step`` has no sharded form), so
+each rank runs the whole unsharded async run.
 """
 
 from __future__ import annotations
@@ -76,26 +79,17 @@ __all__ = ["AsyncScheduler", "AsyncState", "ClientClock", "EventQueue", "SyncSch
            "build_async_step", "check_slice", "make_scheduler", "resolve_checkpoint_dir"]
 
 
-def _not_ported(option: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet ({what}): ROADMAP.md queue 1 item {item}"
-    )
-
-
 def check_slice(cfg: FLConfig) -> None:
     """Raise the JAX package's ``ValueError`` for fault injection with an
-    edge topology or with cohort sharding, and ``NotImplementedError`` for
-    ``cohort_devices``, the option outside the ported slices (ROADMAP.md
-    names the item that lifts it)."""
+    edge topology, or with cohort sharding under the barrier (the async
+    scheduler runs unsharded whatever ``cohort_devices`` says)."""
     ex = cfg.execution
     if cfg.faults.enabled and ex.edge_groups >= 1:
         raise ValueError("fault injection with an edge_groups topology is not supported yet; "
                          "set edge_groups=0 or disable FaultConfig")
-    if cfg.faults.enabled and ex.cohort_devices != 0:
+    if cfg.faults.enabled and ex.cohort_devices != 0 and cfg.scheduler.mode != "async":
         raise ValueError("fault injection composes with the cohort runtime but not with "
                          "cohort_devices sharding; set cohort_devices=0 or disable FaultConfig")
-    if ex.cohort_devices != 0:
-        raise _not_ported("cohort_devices", 12, "sharded cohort rounds")
 
 
 def on_host_plane(cfg: FLConfig, data) -> bool:
@@ -417,7 +411,13 @@ class SyncScheduler:
     dispatched client's slowed duration capped at the deadline.
     ``checkpoint_every`` snapshots the state and the history so far at the
     first chunk boundary past each multiple; ``resume_from`` continues from
-    the latest snapshot bit for bit."""
+    the latest snapshot bit for bit.
+
+    A sharded round step (``cohort_devices``) runs on every rank of its
+    process group; every rank returns the same history (``wall_time``
+    aside), only rank 0 writes the run record, the snapshots and the
+    progress lines, and a world-1 group the step opened is closed at the
+    end of the run."""
 
     def run(self, data: FederatedDataset, cfg: FLConfig, device: torch.device,
             init_fn: Callable | None = None, loss_fn: Callable = mlp_loss,
@@ -439,10 +439,24 @@ class SyncScheduler:
         ckpt_dir = resolve_checkpoint_dir(checkpoint_every, checkpoint_dir, resume_from)
         su = _setup_run(data, cfg, device, init_fn, loss_fn, acc_fn, comm, pipeline,
                         client_delay)
-        comm, clock = su.comm, su.clock
         state = initial_state(su, data.n_clients)
         round_step = build_round_step(su.env, su.pipeline, cfg.execution,
                                       faults=faults if faulty else None)
+        mesh = getattr(round_step, "mesh", None)
+        try:
+            return self._loop(data, cfg, device, su, state, round_step, mesh, progress,
+                              recorder, checkpoint_every, ckpt_dir, resume_from)
+        finally:
+            if mesh is not None:
+                mesh.close()
+
+    def _loop(self, data, cfg, device, su, state, round_step, mesh, progress, recorder,
+              checkpoint_every, ckpt_dir, resume_from):
+        faults = cfg.faults
+        faulty = faults.enabled
+        comm, clock = su.comm, su.clock
+        if mesh is not None and mesh.rank != 0:  # rank 0 speaks for the group
+            recorder, progress, ckpt_dir = None, False, None
         # fault mode needs the host every round (the plan feeds the step)
         chunk = 1 if faulty else cfg.execution.resolved_chunk(cfg.rounds)
         chunk_steps: dict[int, Callable] = {}  # length -> chunk step (body and tail)
@@ -450,7 +464,7 @@ class SyncScheduler:
         delay = None if clock.uniform else clock.delay
         if recorder is not None:
             recorder.open_run(mode="sync", cfg=cfg, data=data, comm=comm, clock=clock,
-                              lanes=lanes, device=device)
+                              lanes=lanes, device=device, mesh=mesh)
         prof = recorder.profiler if recorder is not None else None
         emit = recorder.log if recorder is not None else print
         edges = _EdgeTopology.build(cfg, data.n_clients, clock)

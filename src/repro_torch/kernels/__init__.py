@@ -9,7 +9,9 @@ the JAX package:
                          aggregators), and the async staleness merge
                          g + mean(x - snapshot), one launch an event;
                          both also through E edge groups, the two-level
-                         edge-server sum (csrc/masked_aggregate.cu)
+                         edge-server sum, and in partial and combine
+                         launches when the cohort's lanes are sharded
+                         over ranks (csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
                          (falcon-mamba; csrc/ssm_scan.cu)
   flash_attention      — causal GQA attention of a prefill (granite;
@@ -26,7 +28,12 @@ call: a CUDA-graph replay launches what its capture recorded
 """
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.masked_aggregate import masked_aggregate, masked_aggregate_leaves
+from repro_torch.kernels.masked_aggregate import (
+    masked_aggregate,
+    masked_aggregate_combine,
+    masked_aggregate_leaves,
+    masked_aggregate_partial,
+)
 from repro_torch.kernels.quantize import dequantize, dequantize_leaves, quantize, quantize_leaves
 from repro_torch.kernels.ssm_scan import ssm_scan
 
@@ -34,6 +41,8 @@ KERNELS = {
     "quantize": quantize_leaves,
     "dequantize": dequantize_leaves,
     "masked_aggregate": masked_aggregate_leaves,
+    "masked_aggregate_partial": masked_aggregate_partial,
+    "masked_aggregate_combine": masked_aggregate_combine,
     "ssm_scan": ssm_scan,
     "flash_attention": flash_attention,
 }

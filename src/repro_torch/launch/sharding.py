@@ -1,0 +1,210 @@
+"""Sharding rules of the port — the port of the JAX package's
+``launch/sharding.py``.
+
+Path-based rules for parameters, optimizer states, batches and caches over
+the production mesh (``param_spec``, ``tree_pspecs``, ``batch_spec``,
+``cache_spec``, ``cache_pspecs``): for each leaf, a tuple with one entry a
+dim, an axis name, a tuple of axis names or None — the entries the JAX
+package's ``PartitionSpec`` holds. A mesh is any object whose ``shape``
+maps axis names to sizes. Baseline policy, as in the JAX package:
+
+  - params / optimizer moments: 2-D sharded — one dim over the data axes
+    (ZeRO/FSDP), one over `model` (TP/EP). Expert axes always go to `model`
+    (expert parallelism). A dim is sharded only if divisible.
+  - activations: batch over data axes.
+  - decode KV caches: batch over data (when divisible), seq over model.
+  - norms / biases / scalars: replicated.
+
+The rule is *path-aware* (expert weights, embeddings) and works unchanged
+for optimizer-state trees because their paths embed the parameter paths.
+
+Cohort lanes (``repro_torch.fl.shard``): ``lane_spec`` and
+``tree_lane_pspecs`` give the contiguous block of lanes ``[r*K/D,
+(r+1)*K/D)`` that rank r of a ``CohortMesh`` holds, as a ``slice``, for a
+leaf or a tree; they raise where D does not divide K (the JAX package
+replicates such a leaf; the sharded round refuses it earlier).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+__all__ = ["batch_spec", "cache_pspecs", "cache_spec", "lane_block", "lane_spec", "param_spec",
+           "tree_lane_pspecs", "tree_pspecs"]
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn("a/b/0", leaf)`` over the leaves of nested dicts, lists, tuples
+    and named tuples (a path part is a dict key, a list index or a field
+    name, as the JAX package's ``_path_str``); None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return mesh.shape[axes]
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def param_spec(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple:
+    """Spec for one parameter (or optimizer-moment) leaf."""
+    nd = len(shape)
+    if nd == 0:
+        return ()
+    dp = (dp_axes if len(dp_axes) > 1 else dp_axes[0]) if dp_axes else None
+    n_dp = _axis_size(mesh, dp_axes) if dp_axes else 0
+    n_mp = mesh.shape["model"]
+
+    stacked = "/stack/" in f"/{path}/"  # leading period axis — never sharded
+    lead = 1 if stacked else 0
+    spec: list[Any] = [None] * nd
+
+    leaf_name = path.rsplit("/", 1)[-1]
+    # mamba mixer params: the CONTRACTION/feature dim is d_inner, which must
+    # align with the activations' model sharding
+    mamba_rules = {
+        "x_proj": ("model", None),        # (di, dtr+2ds)
+        "out_proj": ("model", dp),        # (di, d)
+        "A_log": ("model", None),         # (di, ds)
+        "D": ("model",),                  # (di,)
+        "dt_bias": ("model",),            # (di,)
+        "conv_w": (None, "model"),        # (dc, di)
+        "conv_b": ("model",),             # (di,)
+    }
+    if leaf_name in mamba_rules and "mixer" in path:
+        rule = mamba_rules[leaf_name]
+        if nd - lead == len(rule):
+            full = [None] * lead + list(rule)
+            out = []
+            for dim, s in zip(shape, full):
+                if s == "model":
+                    out.append("model" if dim % n_mp == 0 and dim >= n_mp else None)
+                elif s is not None and dp:
+                    out.append(dp if dim % n_dp == 0 and dim >= n_dp else None)
+                else:
+                    out.append(None)
+            return tuple(out)
+
+    is_expert = any(f"/{k}/" in f"/{path}/" for k in ("moe",)) and leaf_name in ("wg", "wu", "wd")
+    if is_expert and nd - lead == 3:
+        # (E, d_in, d_out): experts -> model (EP), d_in -> data (ZeRO)
+        if shape[lead] % n_mp == 0:
+            spec[lead] = "model"
+        if dp and shape[lead + 1] % n_dp == 0:
+            spec[lead + 1] = dp
+        return tuple(spec)
+
+    # generic: last dim -> model, first non-layer dim -> data
+    if nd - lead >= 1 and shape[-1] % n_mp == 0 and shape[-1] >= n_mp:
+        spec[-1] = "model"
+    if (dp and nd - lead >= 2 and shape[lead] % n_dp == 0 and shape[lead] >= n_dp
+            and spec[lead] is None):
+        spec[lead] = dp
+    return tuple(spec)
+
+
+def tree_pspecs(tree, mesh, dp_axes) -> Any:
+    """Spec tree mirroring ``tree`` (only each leaf's ``.shape`` is read)."""
+    return _map_with_path(lambda p, l: param_spec(p, tuple(l.shape), mesh, dp_axes), tree)
+
+
+# ---------------------------------------------------------------------------
+# cohort lanes (repro_torch.fl.shard)
+# ---------------------------------------------------------------------------
+
+
+def lane_block(k: int, world: int, rank: int) -> slice:
+    """The lanes ``[rank*K/D, (rank+1)*K/D)`` of K lanes that ``rank`` of
+    ``world`` holds; raises where D does not divide K."""
+    if k % world != 0:
+        raise ValueError(f"cohort lanes must divide the mesh: K={k} over {world} 'cohort' "
+                         f"ranks leaves a remainder")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    n = k // world
+    return slice(rank * n, (rank + 1) * n)
+
+
+def lane_spec(shape: tuple[int, ...], mesh, axis: str = "cohort") -> slice:
+    """The block of the leading (lane) axis of a ``shape`` leaf that this
+    rank of ``mesh`` holds."""
+    if len(shape) == 0:
+        raise ValueError("a lane-stacked leaf has a leading lane axis; got a scalar")
+    return lane_block(int(shape[0]), mesh.shape[axis], mesh.rank)
+
+
+def tree_lane_pspecs(tree, mesh, axis: str = "cohort") -> Any:
+    """``lane_spec`` over every leaf of a lane-stacked tree."""
+    return _map_with_path(lambda p, l: lane_spec(tuple(l.shape), mesh, axis), tree)
+
+
+# ---------------------------------------------------------------------------
+# batches & caches
+# ---------------------------------------------------------------------------
+
+
+def batch_spec(name: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple:
+    n_dp = _axis_size(mesh, dp_axes)
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    if len(shape) == 0:
+        return ()
+    if shape[0] % n_dp == 0 and shape[0] >= n_dp:
+        return tuple([dp] + [None] * (len(shape) - 1))
+    return tuple([None] * len(shape))
+
+
+def cache_spec(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple:
+    """Decode caches: batch -> data, seq -> model (flash-decode layout);
+    SSM state: batch -> data, d_inner -> model."""
+    n_dp = _axis_size(mesh, dp_axes)
+    n_mp = mesh.shape["model"]
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    leaf = path.rsplit("/", 1)[-1]
+    stacked = "/stack/" in f"/{path}/"
+    lead = 1 if stacked else 0
+    spec: list[Any] = [None] * len(shape)
+    if len(shape) == 0:
+        return ()
+
+    if leaf in ("k", "v", "c_kv", "k_rope"):
+        # (B, T, ...) [+ leading period axis]
+        if shape[lead] % n_dp == 0 and shape[lead] >= n_dp:
+            spec[lead] = dp
+        if shape[lead + 1] % n_mp == 0 and shape[lead + 1] >= n_mp:
+            spec[lead + 1] = "model"
+        return tuple(spec)
+    if leaf == "kv_pos":
+        if shape[lead] % n_mp == 0 and shape[lead] >= n_mp:
+            spec[lead] = "model"
+        return tuple(spec)
+    if leaf in ("conv", "ssm"):
+        # (B, dc-1, di) / (B, di, ds)
+        if shape[lead] % n_dp == 0 and shape[lead] >= n_dp:
+            spec[lead] = dp
+        di_dim = lead + 2 if leaf == "conv" else lead + 1
+        if di_dim < len(shape) and shape[di_dim] % n_mp == 0:
+            spec[di_dim] = "model"
+        return tuple(spec)
+    if leaf == "enc_out":
+        if shape[0] % n_dp == 0 and shape[0] >= n_dp:
+            spec[0] = dp
+        if shape[-1] % n_mp == 0:
+            spec[-1] = "model"
+        return tuple(spec)
+    return tuple(spec)  # pos scalar etc: replicated
+
+
+def cache_pspecs(cache_tree, mesh, dp_axes):
+    return _map_with_path(lambda p, l: cache_spec(p, tuple(l.shape), mesh, dp_axes), cache_tree)

@@ -217,13 +217,14 @@ class RunRecorder:
     # -- lifecycle ---------------------------------------------------------
     def open_run(self, *, mode: str, cfg, data, comm, clock,
                  lanes: int | None = None, buffer_k: int | None = None,
-                 device=None, population_plane: dict | None = None):
+                 device=None, mesh=None, population_plane: dict | None = None):
         """Called by the scheduler before its first event. ``clock`` is the
         scheduler's ``ClientClock`` (span components come from it), ``comm``
         its ``CommModel``, ``lanes`` the cohort size K (sync) or slot count
         M (async), ``device`` the run's torch device (the environment
-        snapshot and the profiler's watermark read it). The manifest's
-        ``mesh`` is None: the port's round step is not sharded.
+        snapshot and the profiler's watermark read it). ``mesh`` is the
+        cohort mesh of a sharded round step (``repro_torch.fl.shard``;
+        None when unsharded), recorded as the JAX package records it.
         ``population_plane`` is the population tier's manifest block (the
         host-plane runners pass their store's backing); by default it is
         derived from ``cfg.execution``, as the JAX package's."""
@@ -249,7 +250,13 @@ class RunRecorder:
             "population": int(data.n_clients),
             "lanes": None if lanes is None else int(lanes),
             "buffer_k": None if buffer_k is None else int(buffer_k),
-            "mesh": None,
+            # cohort mesh of a sharded round step: axis names + sizes, so
+            # run records distinguish D=1 from D=8 (None = unsharded)
+            "mesh": None if mesh is None else {
+                "axis_names": [str(a) for a in mesh.axis_names],
+                "shape": [int(mesh.shape[a]) for a in mesh.axis_names],
+                "devices": int(mesh.size),
+            },
             "seed": int(cfg.seed),
             "population_plane": population_plane,
             "config": snapshot,

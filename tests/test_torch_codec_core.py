@@ -249,15 +249,24 @@ def test_guard_and_transmitted_parameters():
 
 
 def test_sharded_or_edge_aggregation_raises():
-    """The sharded reduction (``axis_name``) still raises, naming its item;
-    the edge reduction computes, and equals its plain version (tests/
+    """The sharded reduction (``axis_name``) takes the port's cohort mesh:
+    a JAX-style axis name string raises, a world-1 mesh computes the flat
+    mean bit for bit (tests/test_torch_shard.py holds larger worlds); the
+    edge reduction computes, and equals its plain version (tests/
     test_torch_edge.py holds it to JAX's)."""
     from repro_torch.kernels.masked_aggregate import masked_aggregate_plain
+    from repro_torch.launch.mesh import make_cohort_mesh
 
     x = [{"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}]
     sel, n = torch.ones(2, dtype=torch.bool), torch.tensor([3.0, 5.0])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="CohortMesh"):
         tagg.fedavg_aggregate(x, sel, n, axis_name="cohort")
+    mesh = make_cohort_mesh(1, device="cpu")
+    try:
+        got = tagg.fedavg_aggregate(x, sel, n, axis_name=mesh)
+    finally:
+        mesh.close()
+    assert torch.equal(got[0]["w"], tagg.fedavg_aggregate(x, sel, n)[0]["w"])
     ids = torch.tensor([1, 0], dtype=torch.int32)
     got = tagg.fedavg_aggregate(x, sel, n, edge_ids=ids, n_edges=2)
     want = masked_aggregate_plain(x[0]["w"], n, edge_ids=ids, n_edges=2)

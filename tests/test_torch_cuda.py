@@ -31,7 +31,13 @@ included. masked_aggregate's edge mode (two-level aggregation, lanes
 walked in a stable sort by edge id) is bitwise its plain version in both
 modes, one launch; rounds with edge groups still capture in chunks; the
 host-resident population plane is bitwise the device-resident run on the
-card.
+card. masked_aggregate's partial and combine modes (a cohort sharded over
+ranks) are bitwise their plain versions, one launch each, and together
+bitwise the edge mode with rank-block ids; a world-1 sharded run on NCCL
+is bitwise the unsharded run, CUDA-graph chunks included, and its trace
+holds the two all-reduces a round that ``fl/shard`` reckons; gloo on CUDA
+tensors refuses chunks (``CollectiveCaptureError``) and runs round by
+round.
 """
 
 import numpy as np
@@ -48,8 +54,12 @@ from repro_torch.kernels import build
 from repro_torch.core.aggregation import staleness_weighted_merge
 from repro_torch.kernels.masked_aggregate import (
     masked_aggregate,
+    masked_aggregate_combine,
+    masked_aggregate_combine_plain,
     masked_aggregate_leaves,
     masked_aggregate_leaves_plain,
+    masked_aggregate_partial,
+    masked_aggregate_partial_plain,
     masked_aggregate_plain,
 )
 from repro_torch.kernels.quantize import (
@@ -662,3 +672,138 @@ def test_host_plane_on_cuda_bitwise_device_resident(cuda, cfg):
     for field in _EXACT:
         np.testing.assert_array_equal(getattr(h, field), getattr(ref, field), err_msg=field)
     assert np.abs(h.accuracy_per_client - ref.accuracy_per_client).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("world", [1, 2, 3])
+def test_masked_aggregate_partial_and_combine_bitwise(cuda, dtype, world):
+    """Each rank's partial launch and the combine launch bitwise their plain
+    versions (Eq. 1 with a fallback row, the merge with snapshots and
+    bases, and edge partials inside a rank), one launch each; Eq. 1 and the
+    merge together bitwise the edge mode with rank-block ids."""
+    rng = np.random.default_rng(world)
+    k, shapes = 30, [(5,), (7, 5), (300,), (3, 300), (1,)]
+    xs = [torch.from_numpy(rng.standard_normal((k,) + s).astype(np.float32)).to(dtype)
+          for s in shapes]
+    snaps = [x + 0.01 for x in xs]
+    others = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+              for s in shapes]
+    w = torch.from_numpy(rng.integers(60, 90, k).astype(np.float32))
+    table = torch.stack([w, w * (torch.rand(k) < 0.5).float(), torch.zeros(k)])
+    rows = [0, 1, 2, 1, 0]
+    blk = k // world
+    rank_ids = (torch.arange(k) // blk).to(torch.int32)
+    inner = (torch.arange(k) % 3 == 0).to(torch.int32)  # two edges inside each rank
+    for kw, edges in ((dict(fallbacks=others), False), (dict(snapshots=snaps, bases=others), False),
+                      (dict(fallbacks=others), True)):
+        snap = kw.get("snapshots")
+        bufs_plain, bufs = [], []
+        for r in range(world):
+            lanes = slice(r * blk, (r + 1) * blk)
+            part = dict(rows=rows, edge_ids=inner[lanes] if edges else None,
+                        n_edges=2 if edges else 0, slot=r, n_slots=world,
+                        snapshots=None if snap is None else [s[lanes] for s in snap])
+            bufs_plain.append(masked_aggregate_partial_plain(
+                [x[lanes] for x in xs], table[:, lanes].contiguous(), **part))
+            part_dev = dict(part, edge_ids=None if part["edge_ids"] is None
+                            else part["edge_ids"].to(cuda),
+                            snapshots=None if snap is None
+                            else [s.to(cuda) for s in part["snapshots"]])
+            kernels.reset_launch_counts()
+            bufs.append(masked_aggregate_partial([x[lanes].to(cuda) for x in xs],
+                                                 table[:, lanes].contiguous().to(cuda), **part_dev))
+            assert kernels.launch_counts()["masked_aggregate_partial"] == 1
+            assert torch.equal(bufs[-1].cpu(), bufs_plain[-1])
+        total_plain, total = bufs_plain[0], bufs[0]
+        for a, b in zip(bufs_plain[1:], bufs[1:]):  # the all-reduce, as a rank-order sum
+            total_plain, total = total_plain + a, total + b
+        ends = {key: v for key, v in kw.items() if key != "snapshots"}
+        want = masked_aggregate_combine_plain(total_plain, shapes, rows, dtype=dtype, **ends)
+        kernels.reset_launch_counts()
+        got = masked_aggregate_combine(total, shapes, rows, dtype=dtype,
+                                       **{key: [t.to(cuda) for t in v] for key, v in ends.items()})
+        assert kernels.launch_counts()["masked_aggregate_combine"] == 1
+        for g, p in zip(got, want):
+            assert g.dtype == dtype and torch.equal(g.cpu(), p)
+        if not edges:
+            dev_kw = {key: [t.to(cuda) for t in v] for key, v in kw.items()}
+            edge = masked_aggregate_leaves([x.to(cuda) for x in xs], table.to(cuda), rows,
+                                           edge_ids=rank_ids.to(cuda), n_edges=world, **dev_kw)
+            for g, e in zip(got, edge):
+                assert torch.equal(g, e)
+
+
+def _history_fields_equal(h, ref, what):
+    for field in h._fields:
+        if field != "wall_time" and getattr(ref, field) is not None:
+            np.testing.assert_array_equal(np.asarray(getattr(h, field)),
+                                          np.asarray(getattr(ref, field)),
+                                          err_msg=f"{what}: {field}")
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5])
+def test_world1_nccl_sharded_bitwise_unsharded(cuda, chunk):
+    """cohort_devices=1 on the card opens a world-1 NCCL group: bitwise the
+    unsharded run, CUDA-graph chunks (the all-reduces captured) included;
+    one partial and one combine launch a round, no flat launch."""
+    import torch.distributed as dist
+
+    ds = make_federated_classification(**_SMALL)
+    cfg = dict(rounds=5, epochs=1, codec="int8", scan_chunk=chunk)
+    ref = run_federated(ds, FLConfig(**cfg), device=cuda)
+    kernels.reset_launch_counts()
+    h = run_federated(ds, FLConfig(cohort_devices=1, **cfg), device=cuda)
+    counts = kernels.launch_counts()
+    assert counts["masked_aggregate_partial"] == counts["masked_aggregate_combine"] == 5, counts
+    assert counts["masked_aggregate"] == 0 and counts["quantize"] == 5, counts
+    _history_fields_equal(h, ref, f"chunk {chunk}")
+    assert not dist.is_initialized()
+
+
+def test_nccl_round_trace_holds_the_reckoned_collectives(cuda, tmp_path):
+    """The NCCL events torch.profiler records for a sharded round: two
+    all-reduces of the bytes ``shard_collective_bytes`` reckons."""
+    from repro_torch.fl import api
+    from repro_torch.fl.sched import _setup_run, initial_state
+    from repro_torch.fl.shard import shard_collective_bytes
+    from repro_torch.launch.collectives import collective_bytes
+    from repro_torch.models.mlp import mlp_accuracy, mlp_loss
+
+    ds = make_federated_classification(**_SMALL)
+    cfg = FLConfig(rounds=2, epochs=1, codec="int8", cohort_devices=1)
+    su = _setup_run(ds, cfg, cuda, None, mlp_loss, mlp_accuracy, None, None, None)
+    state = initial_state(su, ds.n_clients)
+    step = api.build_round_step(su.env, su.pipeline, cfg.execution)
+    try:
+        state, _ = step(state, 0)  # the communicator's first use
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    record_shapes=True) as prof:
+            step(state, 1)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(tmp_path / "nccl.json"))
+    finally:
+        step.mesh.close()
+    assert step.mesh.backend == "nccl"
+    stats = collective_bytes(str(tmp_path / "nccl.json"))
+    want = shard_collective_bytes(su.g0, su.n_layers, 1, ds.n_clients, True, True)
+    assert stats["count"] == 2 and stats["all-reduce"] == stats["total"] == want, stats
+
+
+def test_gloo_on_cuda_refuses_chunks_and_runs_per_round(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.fl.api import CollectiveCaptureError
+
+    ds = make_federated_classification(**_SMALL)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(CollectiveCaptureError, match="scan_chunk=1"):
+            run_federated(ds, FLConfig(rounds=4, epochs=1, cohort_devices=1, scan_chunk=2),
+                          device=cuda)
+        h = run_federated(ds, FLConfig(rounds=4, epochs=1, cohort_devices=1), device=cuda)
+    finally:
+        dist.destroy_process_group()
+    _history_fields_equal(h, run_federated(ds, FLConfig(rounds=4, epochs=1), device=cuda), "gloo")

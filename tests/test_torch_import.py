@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
-entry points refuse to run quietly on the CPU, every option outside the
-ported slices raises NotImplementedError naming its ROADMAP.md item, and
-the ported items' options run on the CPU when asked."""
+entry points refuse to run quietly on the CPU, every model feature outside
+the ported slices raises NotImplementedError naming its ROADMAP.md item,
+and the ported items' options (every FL option, ``cohort_devices``
+included) run on the CPU when asked."""
 
 import dataclasses
 import json
@@ -41,6 +42,10 @@ print("LOADED", sorted(n for n in ("repro_torch.checkpoint", "repro_torch.checkp
                                    "repro_torch.fl.faults", "repro_torch.fl.sched",
                                    "repro_torch.obs.record", "repro_torch.serve.engine")
                        if n in sys.modules))
+print("LOADED2", sorted(n for n in ("repro_torch.core.privacy", "repro_torch.fl.shard",
+                                    "repro_torch.launch.collectives", "repro_torch.launch.mesh",
+                                    "repro_torch.launch.sharding", "repro_torch.optim.optim")
+                        if n in sys.modules))
 """
 
 
@@ -54,6 +59,9 @@ def test_import_with_jax_blocked_loads_no_reference_module():
     assert ("LOADED ['repro_torch.checkpoint', 'repro_torch.checkpoint.checkpoint', "
             "'repro_torch.fl.faults', 'repro_torch.fl.sched', 'repro_torch.obs.record', "
             "'repro_torch.serve.engine']") in out.stdout, out.stdout
+    assert ("LOADED2 ['repro_torch.core.privacy', 'repro_torch.fl.shard', "
+            "'repro_torch.launch.collectives', 'repro_torch.launch.mesh', "
+            "'repro_torch.launch.sharding', 'repro_torch.optim.optim']") in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -111,16 +119,27 @@ def test_weights_on_the_cpu_when_asked(entry):
     assert got[0]["w"].device.type == "cpu" and torch.equal(got[0]["w"], torch.ones(3, 2))
 
 
-_OUT_OF_SLICE = {
-    "cohort_devices": (dict(cohort_devices=1), "item 12"),
+# ROADMAP.md queue 1 item 12, ported: cohort sharding runs on the CPU when
+# asked (a world-1 gloo group opened and closed by the run)
+_ITEM_12 = {
+    "cohort_devices": dict(cohort_devices=1),
+    "cohort_devices_all": dict(cohort_devices=-1),
+    "cohort_devices_chunked": dict(cohort_devices=1, scan_chunk=2, codec="int8"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(_OUT_OF_SLICE))
-def test_options_outside_the_slice_raise(tiny_ds, name):
-    flat, item = _OUT_OF_SLICE[name]
-    with pytest.raises(NotImplementedError, match=item):
-        run_federated(tiny_ds, FLConfig(rounds=2, **flat), device="cpu")
+@pytest.mark.parametrize("name", sorted(_ITEM_12))
+def test_sharding_options_run_on_the_cpu(tiny_ds, name):
+    import torch.distributed as dist
+
+    kw = _ITEM_12[name]
+    h = run_federated(tiny_ds, FLConfig(rounds=3, epochs=1, **kw), device="cpu")
+    ref = run_federated(tiny_ds, FLConfig(rounds=3, epochs=1,
+                                          **{k: v for k, v in kw.items() if k != "cohort_devices"}),
+                        device="cpu")
+    np.testing.assert_array_equal(h.accuracy_per_client, ref.accuracy_per_client)
+    np.testing.assert_array_equal(h.selected, ref.selected)
+    assert not dist.is_initialized()
 
 
 # ROADMAP.md queue 1 item 10, ported: each option runs on the CPU when asked

@@ -34,7 +34,9 @@ from repro.kernels.quantize import quantize as jax_quantize  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.masked_aggregate import (  # noqa: E402
     masked_aggregate,
+    masked_aggregate_combine,
     masked_aggregate_leaves,
+    masked_aggregate_partial,
     masked_aggregate_plain,
 )
 from repro_torch.kernels.quantize import (  # noqa: E402
@@ -237,7 +239,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     dequantize(q, s)
     masked_aggregate(torch.from_numpy(x), torch.ones(3))
     masked_aggregate_leaves([torch.from_numpy(x)], torch.ones(1, 3))
+    buf = masked_aggregate_partial([torch.from_numpy(x)], torch.ones(1, 3))
+    masked_aggregate_combine(buf, [x.shape[1:]])
     assert kernels.launch_counts() == {"quantize": 0, "dequantize": 0, "masked_aggregate": 0,
+                                       "masked_aggregate_partial": 0,
+                                       "masked_aggregate_combine": 0,
                                        "ssm_scan": 0, "flash_attention": 0}
 
 
@@ -254,6 +260,10 @@ def test_tensors_on_other_devices_raise():
         masked_aggregate(x, torch.ones(2, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         masked_aggregate_leaves([x], torch.ones(1, 2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_aggregate_partial([x], torch.ones(1, 2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        masked_aggregate_combine(torch.empty((1, 12), device="meta"), [(8,)])
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
