@@ -39,12 +39,17 @@ drives the port's two paths:
   engine's per-lane bit identity on the card, the card against the CPU,
   and every test row of the 30 clients served as one request each through
   ``ClassifyProgram`` and ``ContinuousBatcher`` with a ``ServeRecorder``;
-- LM serving at full width and full depth, falcon-mamba-7b and then
-  granite-3-8b (8 requests, batch 4, prompts of 2048 tokens, up to 32 new
-  tokens, random weights from seed 0), through
-  ``repro_torch.launch.serve.serve``, after the port's reduced models on
-  the card are held to the same models on the CPU, and a recorded serving
-  session of the reduced granite-3-8b (``serve(..., record=dir)``).
+- LM serving at full width and full depth, falcon-mamba-7b, granite-3-8b,
+  and the MoE family: deepseek-moe-16b, deepseek-v2-lite-16b (MLA, whose
+  prefill runs flash_attention at q/k head dim 192 and v head dim 128) and
+  moonshot-v1-16b-a3b with its depth cut to 4 layers (8 requests, batch 4,
+  prompts of 2048 tokens, up to 32 new tokens, random weights from seed
+  0), through ``repro_torch.launch.serve.serve``, after the port's reduced
+  models on the card are held to the same models on the CPU, and a
+  recorded serving session of the reduced granite-3-8b (``serve(...,
+  record=dir)``); the MoE layer's time at the prefill shape, split into
+  routing, dispatch, experts and combine, and the share of routes dropped
+  at prefill and at decode.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -125,7 +130,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch.collectives import collective_bytes  # noqa: E402
 from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
 from repro_torch.models.api import make_concrete_batch  # noqa: E402
 from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
@@ -274,7 +279,13 @@ SERVE_BATCHES = (1, 8, 32)
 CLASSIFY_REL = 1e-5
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
-SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"))
+SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"),
+               ("deepseek-moe-16b", "flash_attention"), ("deepseek-v2-lite-16b", "flash_attention"),
+               ("moonshot-v1-16b-a3b", "flash_attention"))
+# depth cuts of the serving run: moonshot at full width with 4 of its 48
+# layers (1 dense + 3 MoE); at full depth it is 28.4 B parameters (~57 GB
+# in bf16) plus ~8 GB of prefill logits at its vocabulary of 163,840
+SERVE_LAYERS = {"moonshot-v1-16b-a3b": 4}
 SERVE_RUN = dict(requests=8, batch=4, prompt_len=2048, max_new=32, window=0, temperature=0.0,
                  seed=0)
 # flash_attention against its plain version: float32 results within 1e-5 of
@@ -287,7 +298,8 @@ LM_REL = 1e-5
 # the reduced models on the card against the same models on the CPU:
 # logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
 # rounding flip of a scan input; tests/test_torch_lm.py)
-REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8}
+REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe-16b": 1e-5,
+               "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5}
 
 
 class SmokeFailure(RuntimeError):
@@ -714,13 +726,153 @@ def phase_lm_kernels(dev: torch.device) -> dict:
         bound_ms=fa_bound, bound_by=fa_by,
         library_ms=device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True)))
+    del q, k, v, qh, kh, vh, q64, k64, v64
+    rows["flash_attention"].update(zoo_attention_kernels(dev, randn))
     return rows
+
+
+def sdpa_fused_ms(q, k, v) -> tuple:
+    """``scaled_dot_product_attention`` (causal, q (B, S, H, Dqk), k, v in
+    the model layout, one kv head per q head) through each fused backend
+    that takes the shape: (the fastest one's device ms or None, its name,
+    every backend's ms or the first line of its refusal)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tried = {}
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            tried[name] = "not in this torch"
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    qh, kh, vh, is_causal=True)
+                fn()
+                torch.cuda.synchronize()
+                tried[name] = device_ms(fn)
+        except RuntimeError as err:
+            tried[name] = "refused: " + str(err).strip().splitlines()[0][:160]
+    times = {n: t for n, t in tried.items() if isinstance(t, float)}
+    best = min(times, key=times.get) if times else None
+    return (times[best] if best else None), best, tried
+
+
+def zoo_attention_kernels(dev: torch.device, randn) -> dict:
+    """flash_attention at the MoE family's prefill shapes (B=4, S=2048,
+    bf16): deepseek-v2-lite's MLA (H = Hkv = 16, Dqk = 192, Dv = 128) and
+    deepseek-moe's MHA (H = Hkv = 16, D = 128, G = 1), each against its
+    plain version under the bf16 contract, with its device ms, bound and
+    the fused SDPA backends' ms; and the float32 kernel at the reduced MLA
+    dims (48, 32) against its plain version. Keys prefixed ``mla_`` and
+    ``moe_`` for the flash_attention row."""
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    ds, dm = get_config("deepseek-v2-lite-16b"), get_config("deepseek-moe-16b")
+    shapes = {"mla": (ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim),
+              "moe": (dm.n_heads, dm.head_dim_, dm.head_dim_)}
+    row, report = {}, {}
+    for key, (h, dq, dv) in shapes.items():
+        q, k = (randn(b, s, h, dq).to(torch.bfloat16) for _ in range(2))
+        v = randn(b, s, h, dv).to(torch.bfloat16)
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        report[key] = r = bf16_contract(got, want, q, k, v)
+        check(got.shape == (b, s, h, dv) and r["ok"],
+              f"flash_attention at {key}'s shape (Dqk {dq}, Dv {dv}) fails its contract: {r}")
+        n_bytes = 2 * b * s * h * (2 * dq + 2 * dv)
+        bound, by = bound_ms(n_bytes, 2 * b * h * (dq + dv) * visible_pairs(s, s, True, 0),
+                             BF16_FLOPS)
+        lib, backend, tried = sdpa_fused_ms(q, k, v)
+        row.update({f"{key}_shape": [b, s, h, h, dq, dv],
+                    f"{key}_max_abs_err": float((got.float() - want.float()).abs().max()),
+                    f"{key}_ms": device_ms(lambda: flash_attention(q, k, v)),
+                    f"{key}_plain_ms": device_ms(lambda: flash_attention_plain(q, k, v), reps=3),
+                    f"{key}_bound_ms": bound, f"{key}_bound_by": by,
+                    f"{key}_library_ms": lib, f"{key}_library_backend": backend})
+        report[f"{key} sdpa"] = tried
+        del q, k, v, got, want
+    # the float32 kernel at the reduced MLA dims (the reduced configs' path)
+    q, k = (randn(2, 512, 4, 48) for _ in range(2))
+    v = randn(2, 512, 4, 32)
+    row["mla_f32_gap"] = gap = rel_gap(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    check(gap <= LM_REL, f"flash_attention float32 at (48, 32): {gap} of max > {LM_REL}")
+    print(f"[kernels] flash_attention B={b} S={s} H=Hkv=16 bf16 causal vs plain (contract, "
+          f"kernels/flash_attention/contract.py), MLA Dqk=192 Dv=128 and MHA D=128 (G=1); "
+          f"SDPA's fused backends (each alone, or its refusal); float32 at "
+          f"(48, 32) within {LM_REL} of max: {json.dumps(report)} {json.dumps(row)}")
+    return row
+
+
+def phase_moe_layer(dev: torch.device) -> dict:
+    """deepseek-moe-16b's MoE layer at the serving prefill's shape (N = 4 x
+    2048 tokens, 64 experts top-6, capacity 960), bf16, random weights and
+    unit-normal inputs: eager CUDA-event ms of the routing (router,
+    softmax, top-k, queue positions), the dispatch into the (E, cap, D)
+    buffer, the experts' batched products, the combine and the shared
+    experts, and the share of routes dropped."""
+    cfg = get_config("deepseek-moe-16b")
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = layers.init_moe(gen, cfg)
+    x = torch.randn((b * s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    gate, idx, aux, pos, keep, cap = layers.moe_route(p, x, cfg)
+    buf = layers.moe_dispatch(x, idx, pos, keep, cap, cfg.n_experts)
+    out = layers.moe_experts(p, buf)
+    ms = {"route": cuda_ms(lambda: layers.moe_route(p, x, cfg)),
+          "dispatch": cuda_ms(lambda: layers.moe_dispatch(x, idx, pos, keep, cap, cfg.n_experts)),
+          "experts": cuda_ms(lambda: layers.moe_experts(p, buf)),
+          "combine": cuda_ms(lambda: layers.moe_combine(out, gate, idx, pos, keep, cap)),
+          "shared": cuda_ms(lambda: layers.swiglu(p["shared"], x)),
+          "layer": cuda_ms(lambda: layers.moe_apply_local(p, x[None], cfg))}
+    dff = cfg.d_ff_expert
+    expert_flops = 3 * 2 * cfg.n_experts * cap * cfg.d_model * dff
+    row = {"tokens": b * s, "cap": cap, "dropped_share": float((~keep).float().mean()),
+           "ms": ms, "experts_tflop_s": expert_flops / (ms["experts"] * 1e-3) / 1e12,
+           "experts_bound_ms": 1e3 * expert_flops / BF16_FLOPS}
+    print(f"[moe] deepseek-moe-16b MoE layer, N={b * s} tokens, E={cfg.n_experts} top-"
+          f"{cfg.top_k}, cap {cap}, bf16, eager CUDA-event ms (dispatch = route + dispatch + "
+          f"combine): {json.dumps(row)}")
+    return row
+
+
+class MoEDropCounter:
+    """Within its ``with``, counts every MoE call's routes and dropped routes,
+    prefill calls (more tokens than lanes) and decode steps apart, by
+    wrapping ``layers.moe_route``; the dropped counts stay on the device
+    until ``shares`` reads them."""
+
+    def __init__(self, dev: torch.device, lanes: int):
+        self.lanes = lanes
+        self.routes = {"prefill": 0, "decode": 0}
+        self.dropped = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in self.routes}
+
+    def __enter__(self):
+        self.route = layers.moe_route
+
+        def counted(p, xf, cfg):
+            out = self.route(p, xf, cfg)
+            kind = "prefill" if xf.shape[0] > self.lanes else "decode"
+            self.routes[kind] += out[4].numel()
+            self.dropped[kind] += (~out[4]).sum()
+            return out
+
+        layers.moe_route = counted
+        return self
+
+    def __exit__(self, *exc):
+        layers.moe_route = self.route
+
+    def shares(self) -> dict:
+        return {k: {"routes": n, "dropped": int(self.dropped[k]),
+                    "share": int(self.dropped[k]) / max(n, 1)} for k, n in self.routes.items()}
 
 
 def phase_lm_reference(dev: torch.device) -> None:
     """The reduced float32 models on the card (through the kernels) against
     the same models on the CPU (plain versions): prefill and 4 greedy
-    decode steps."""
+    decode steps. The MoE family's reduced MLA runs the float32 kernel at
+    (Dqk, Dv) = (48, 32)."""
     for arch, kernel in SERVE_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
@@ -744,16 +896,22 @@ def phase_lm_reference(dev: torch.device) -> None:
 
 
 def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
-    """One full-width, full-depth serving run of ``arch`` through
-    ``repro_torch.launch.serve.serve``, kernel counts zeroed just before and
-    read just after; the model is freed before the next arch."""
+    """One full-width serving run of ``arch`` (full depth but for
+    ``SERVE_LAYERS``) through ``repro_torch.launch.serve.serve``, kernel
+    counts zeroed just before and read just after; an MoE arch's dropped
+    routes counted at prefill and decode; the model is freed before the
+    next arch."""
     cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    drops = MoEDropCounter(dev, SERVE_RUN["batch"])
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    stats = serve(cfg, device=dev, **SERVE_RUN)
+    with drops:
+        stats = serve(cfg, device=dev, **SERVE_RUN)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -766,7 +924,14 @@ def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
     check(counts[kernel] == cfg.n_layers * stats["prefill_calls"] > 0,
           f"{arch}: {kernel} launched {counts[kernel]} times for {stats['prefill_calls']} prefills")
     check(all(v == 0 for k, v in counts.items() if k != kernel), f"{arch}: other kernels {counts}")
-    print(f"[serve] {arch} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    if cfg.moe:
+        shares = drops.shares()
+        check(shares["prefill"]["routes"] > 0 and shares["decode"]["routes"] > 0,
+              f"{arch}: no MoE routes counted {shares}")
+        print(f"[serve] {arch} MoE routes dropped (capacity over each call's tokens): "
+              f"{json.dumps(shares)}")
+    depth = f", depth cut to {cfg.n_layers}" if arch in SERVE_LAYERS else ""
+    print(f"[serve] {arch} full width{depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): {n_req} requests, batch "
           f"{SERVE_RUN['batch']}, prompt {SERVE_RUN['prompt_len']}, max_new {max_new}; "
           f"lens {stats['lens']}, {stats['prefill_calls']} prefills")
@@ -2130,8 +2295,14 @@ def main() -> int:
         table[name]["classify_launches"] = n
     phase_lm_reference(dev)
     phase_serve_record(dev)
+    table["flash_attention"]["moe_layer"] = phase_moe_layer(dev)
+    serve_launches = {}
     for arch, kernel in SERVE_ARCHS:
-        launches[kernel] = phase_serve(dev, arch, kernel)[kernel]
+        serve_launches[arch] = phase_serve(dev, arch, kernel)[kernel]
+        launches[kernel] = launches.get(kernel, 0) + serve_launches[arch]
+    for name in ("ssm_scan", "flash_attention"):
+        table[name]["launches_by_arch"] = {a: serve_launches[a] for a, k in SERVE_ARCHS
+                                           if k == name}
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
                                   for name, row in table.items()]}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,10 @@
 """Config registry of the port: ``get_config(arch_id)``.
 
-The port holds the paper's own model (``har-mlp``) and the two model-zoo
-architectures of its serving slice (``falcon-mamba-7b``, ``granite-3-8b``);
-the other architectures of the JAX package come with ROADMAP.md queue 1
-item 14.
+The port holds the paper's own model (``har-mlp``) and the model-zoo
+architectures it serves: ``falcon-mamba-7b`` (Mamba-1), ``granite-3-8b``
+(GQA) and the MoE family, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b`` and
+``deepseek-v2-lite-16b`` (MLA). The other architectures of the JAX package
+come with ROADMAP.md queue 1 item 14.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig, get_shape
@@ -12,6 +13,9 @@ _ARCH_MODULES = {
     "har-mlp": "repro_torch.configs.har_mlp",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 

@@ -7,8 +7,9 @@
 //   src/repro/kernels/flash_attention/kernel.py:flash_attention_kernel
 //   (_fa_kernel; wrapper ops.flash_attention)
 //
-// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in float32
-// in the model's layout (D = 64 or 128), with G = H / Hkv:
+// What it computes, for q (B, S, H, DQK), k (B, T, Hkv, DQK) and v (B, T,
+// Hkv, DV) in float32 in the model's layout ((DQK, DV) = (64, 64), (128,
+// 128), or the reduced MLA configs' (48, 32)), with G = H / Hkv:
 //   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
 // where key t is visible to query s iff t < T (the real kv length; the
 // Pallas kernel's t_real), t <= s when causal, and t > s - window when
@@ -31,11 +32,14 @@
 // warp's 16-byte row reads hit distinct banks). Each of the 8 warps owns 8
 // query rows; lane l scores keys l and l+32 of the tile for all 8 rows
 // (16 independent dot products), the row max and sum are warp shuffles,
-// and for P.V lane l owns output columns l, l+32, ... of its 8 rows, taking
+// and for P.V lane l owns output columns l, l+32, ... (DV/32 of them) of its 8 rows, taking
 // each p from the lane that scored it by shuffle. Key tiles that the mask
 // hides from every row of the q tile (above the diagonal, or wholly before
 // the window) are skipped: for a row with a visible key that leaves m, l and
 // acc as processing them would.
+//
+// ptxas (CUDA 12.8): 116, 128 and 120 registers at (64, 64), (128, 128)
+// and (48, 32), no spills.
 //
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper in
@@ -60,9 +64,9 @@ __device__ __forceinline__ float4 load4(const float* p) {
 }
 
 
-// Stages `rows` rows of D elements starting at `src` (row stride `stride`
-// elements) into `dst` (row stride `ld` floats); rows at or past `valid`
-// are zero.
+// Stages `rows` rows of D elements (a multiple of 4) starting at `src`
+// (row stride `stride` elements) into `dst` (row stride `ld` floats); rows
+// at or past `valid` are zero.
 template <int D>
 __device__ __forceinline__ void stage(float* dst, int ld, const float* src, int64_t stride,
                                       int rows, int valid) {
@@ -87,22 +91,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (kBlockQ * D + kBlockK * (D + kKPad) + kBlockK * D) * 4;
+  return (kBlockQ * DQK + kBlockK * (DQK + kKPad) + kBlockK * DV) * 4;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int n_heads,
                        int n_kv_heads, int s_len, int t_len, int causal, int window,
                        float scale) {
-  constexpr int kCols = D / 32;  // output columns per lane
+  static_assert(DQK % 4 == 0 && DV % 32 == 0, "float4 rows of q and k; 32-lane columns of v");
+  constexpr int kCols = DV / 32;  // output columns per lane
   extern __shared__ float smem[];
-  float* q_s = smem;                                  // [kBlockQ][D]
-  float* k_s = q_s + kBlockQ * D;                     // [kBlockK][D + kKPad]
-  float* v_s = k_s + kBlockK * (D + kKPad);           // [kBlockK][D]
+  float* q_s = smem;                                  // [kBlockQ][DQK]
+  float* k_s = q_s + kBlockQ * DQK;                   // [kBlockK][DQK + kKPad]
+  float* v_s = k_s + kBlockK * (DQK + kKPad);         // [kBlockK][DV]
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
@@ -110,13 +115,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (n_heads / n_kv_heads);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int64_t q_stride = static_cast<int64_t>(n_heads) * D;     // between sequence rows
-  const int64_t kv_stride = static_cast<int64_t>(n_kv_heads) * D;
-  const float* q_base = q + (static_cast<int64_t>(b) * s_len + q0) * q_stride + h * D;
-  const float* k_base = k + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
-  const float* v_base = v + static_cast<int64_t>(b) * t_len * kv_stride + hk * D;
+  const int64_t q_stride = static_cast<int64_t>(n_heads) * DQK;    // between sequence rows
+  const int64_t k_stride = static_cast<int64_t>(n_kv_heads) * DQK;
+  const int64_t v_stride = static_cast<int64_t>(n_kv_heads) * DV;
+  const int64_t o_stride = static_cast<int64_t>(n_heads) * DV;
+  const float* q_base = q + (static_cast<int64_t>(b) * s_len + q0) * q_stride + h * DQK;
+  const float* k_base = k + static_cast<int64_t>(b) * t_len * k_stride + hk * DQK;
+  const float* v_base = v + static_cast<int64_t>(b) * t_len * v_stride + hk * DV;
 
-  stage<D>(q_s, D, q_base, q_stride, kBlockQ, s_len - q0);
+  stage<DQK>(q_s, DQK, q_base, q_stride, kBlockQ, s_len - q0);
 
   // keys visible to some row of this tile: [lo, hi]
   const int q_last = min(q0 + kBlockQ, s_len) - 1;
@@ -134,22 +141,22 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
     __syncthreads();  // the previous tile (and, first time, nothing) is no longer read
-    stage<D>(k_s, D + kKPad, k_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
-    stage<D>(v_s, D, v_base + k0 * kv_stride, kv_stride, kBlockK, t_len - k0);
+    stage<DQK>(k_s, DQK + kKPad, k_base + k0 * k_stride, k_stride, kBlockK, t_len - k0);
+    stage<DV>(v_s, DV, v_base + k0 * v_stride, v_stride, kBlockK, t_len - k0);
     __syncthreads();
 
     // scores of keys k0 + lane and k0 + lane + 32 for the warp's rows
     float p[kRows][2];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) p[i][0] = p[i][1] = 0.0f;
-    const float* ka = k_s + lane * (D + kKPad);
-    const float* kb = k_s + (lane + 32) * (D + kKPad);
+    const float* ka = k_s + lane * (DQK + kKPad);
+    const float* kb = k_s + (lane + 32) * (DQK + kKPad);
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       const float4 x0 = load4(ka + d), x1 = load4(kb + d);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const float4 qv = load4(q_s + (warp * kRows + i) * D + d);
+        const float4 qv = load4(q_s + (warp * kRows + i) * DQK + d);
         p[i][0] += qv.x * x0.x + qv.y * x0.y + qv.z * x0.z + qv.w * x0.w;
         p[i][1] += qv.x * x1.x + qv.y * x1.y + qv.z * x1.z + qv.w * x1.w;
       }
@@ -182,7 +189,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int half = 0; half < 2; ++half) {
 #pragma unroll 4
       for (int j = 0; j < 32; ++j) {
-        const float* vr = v_s + (half * 32 + j) * D + lane;
+        const float* vr = v_s + (half * 32 + j) * DV + lane;
         float vv[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) vv[c] = vr[32 * c];
@@ -201,28 +208,28 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + warp * kRows + i;
     if (row < s_len) {
       const float denom = fmaxf(l[i], 1e-30f);
-      float* o = out + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * D + lane;
+      float* o = out + (static_cast<int64_t>(b) * s_len + row) * o_stride + h * DV + lane;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) o[32 * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
            int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
            void* stream) {
   static bool configured = false;  // raise the dynamic shared memory limit once
-  constexpr int smem = smem_bytes<D>();
+  constexpr int smem = smem_bytes<DQK, DV>();
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_attention_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, n_heads, batch);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    flash_attention_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    flash_attention_kernel<DQK, DV><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
   }
@@ -233,18 +240,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 
 extern "C" {
 
-// float32 q/out (B, S, H, D) and k/v (B, T, Hkv, D), contiguous; head_dim
-// 64 or 128; H a multiple of Hkv. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// float32 q (B, S, H, DQK), k (B, T, Hkv, DQK), v (B, T, Hkv, DV) and out
+// (B, S, H, DV), contiguous with 16-byte aligned starts; (head_dim,
+// head_dim_v) = (64, 64), (128, 128) or (48, 32); H a multiple of Hkv.
+// Returns cudaGetLastError() after the launch (0 = launched).
 int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out, int batch,
                               int n_heads, int n_kv_heads, int s_len, int t_len, int head_dim,
-                              int causal, int window, float scale, void* stream) {
-  if (head_dim == 64)
-    return launch<64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                      scale, stream);
-  if (head_dim == 128)
-    return launch<128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                       scale, stream);
+                              int head_dim_v, int causal, int window, float scale, void* stream) {
+  if (head_dim == 64 && head_dim_v == 64)
+    return launch<64, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                          scale, stream);
+  if (head_dim == 128 && head_dim_v == 128)
+    return launch<128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                            window, scale, stream);
+  if (head_dim == 48 && head_dim_v == 32)
+    return launch<48, 32>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                          scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,8 +6,10 @@
 //   (_fa_kernel; wrapper ops.flash_attention)
 // (float32 inputs keep the CUDA-core kernel in flash_attention.cu).
 //
-// What it computes, for q (B, S, H, D) and k, v (B, T, Hkv, D) in bfloat16
-// in the model's layout (D = 64 or 128), with G = H / Hkv:
+// What it computes, for q (B, S, H, DQK), k (B, T, Hkv, DQK) and v (B, T,
+// Hkv, DV) in bfloat16 in the model's layout ((DQK, DV) = (64, 64),
+// (128, 128), or MLA's (192, 128): deepseek-v2-lite's q and k carry 128
+// content and 64 decoupled-RoPE dims, its v 128), with G = H / Hkv:
 //   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
 // where key t is visible to query s iff t < T, t <= s when causal, and
 // t > s - window when window > 0 (positions are the indices). The softmax
@@ -28,23 +30,26 @@
 // 4 * B * H * D * S(S+1)/2 = 0.1375 TFLOP, 0.139 ms at the 989 TFLOP/s
 // bf16 tensor-core rate; bytes — q, k, v read once and out written once,
 // 168 MB, 0.050 ms at 3.35 TB/s. Operations bind, so both products run on
-// wgmma.
+// wgmma. At deepseek-v2-lite's (B=4, S=T=2048, H=Hkv=16, DQK=192, DV=128)
+// the visible half is 2 * B * H * (DQK + DV) * S(S+1)/2 = 0.0859 TFLOP,
+// 0.0869 ms; at deepseek-moe's (H=Hkv=16, D=128) 0.0687 TFLOP, 0.0695 ms.
 //
 // Design. One CTA per (b, q head, 128-row q tile), 384 threads in three
 // warpgroups; heavy (late, causal) q tiles are launched first.
 // - Warpgroup 2 is the producer: one thread loads the q tile once and then
 //   keeps the K and V tiles of kv head h / G in flight in a 2-stage ring in
 //   shared memory, with TMA (cp.async.bulk.tensor over 4-D tensor maps of
-//   the model layout, (D, heads, rows, B)) completing on mbarriers: a "full"
+//   the model layout, (DQK or DV, heads, rows, B)) completing on mbarriers: a "full"
 //   barrier per stage for K and one for V, and an "empty" barrier per stage
 //   on which the 256 consumer threads arrive when they are done with it.
-//   A bf16 row of D = 128 is 256 B, wider than the 128-byte swizzle span,
-//   so every tile is loaded as D/64 boxes of 64 columns, each a (rows x 128
-//   B) block in TMA's 128-byte swizzle; rows past S or T are zero-filled by
-//   TMA. The producer gives its registers back (setmaxnreg 24).
+//   A bf16 row of D = 128 is 256 B (DQK = 192: 384 B), wider than the
+//   128-byte swizzle span, so every tile is loaded as D/64 boxes of 64
+//   columns, each a (rows x 128 B) block in TMA's 128-byte swizzle; rows
+//   past S or T are zero-filled by TMA. The producer gives its registers
+//   back (setmaxnreg 24).
 // - Warpgroups 0 and 1 are consumers (setmaxnreg 240), 64 query rows each.
 //   S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
-//   memory (D/16 instructions a tile). Its float32 accumulator fragment
+//   memory (DQK/16 instructions a tile: 12 at DQK = 192). Its float32 accumulator fragment
 //   holds rows r and r + 8 (r = 16 * warp + lane / 4) and columns
 //   8j + 2(lane % 4) + {0, 1}: the mask is applied in those coordinates
 //   (only on tiles that touch the diagonal, the window edge or T), row max
@@ -52,8 +57,10 @@
 //   exp(m_old - m_new) in registers. P is packed to bf16 pairs in place:
 //   the m64n128 accumulator layout matches wgmma's register A fragment
 //   (m64k16: a0..a3 = columns 2c,2c+1 of rows r, r+8 and columns 8+2c,
-//   9+2c), so O += P.V is wgmma m64n{D}k16 with A from registers and V as
-//   stored (keys x D, MN-major: the transpose bit), 8 instructions a tile.
+//   9+2c), so O += P.V is wgmma m64n{DV}k16 with A from registers and V as
+//   stored (keys x DV, MN-major: the transpose bit), 8 instructions a tile.
+//   So at (192, 128) the registers are those of D = 128: a 64-register S
+//   fragment and a 64-register O fragment; only S's k-loop is longer.
 //   l is kept per thread and summed over the quad at the end.
 // - The two consumer warpgroups take turns on the tensor cores (named
 //   barriers 1 and 2): one issues its P.V of tile j and its S of tile j+1
@@ -69,10 +76,12 @@
 //
 // Tiles: 128 q rows x 128 keys, 2 stages: shared memory 160 KB + barriers
 // at D = 128 (80 KB at D = 64), one CTA per SM (a third stage, 224 KB,
-// ran slower). ptxas (CUDA 12.8) reports
-// 168 registers for both head dims (setmaxnreg moves registers at run time
-// but ptxas still allocates within 168), no spills at D = 128, 80 bytes of
-// spill stores at D = 64; printed by
+// ran slower). At (192, 128): a 48 KB q tile, a 96 KB K ring and a 64 KB V
+// ring (V is not padded to 192), 208 KB + barriers, under the 227 KB a
+// block may take. ptxas (CUDA 12.8) reports
+// 168 registers for every instantiation (setmaxnreg moves registers at run
+// time but ptxas still allocates within 168), no spills at D = 128 and at
+// (192, 128), 80 bytes of spill stores at D = 64; printed by
 // `python -c "from repro_torch.kernels import build; build.build(verbose=True)"`.
 //
 // TMA's tensor maps need the CUDA driver API's cuTensorMapEncodeTiled; it is taken
@@ -101,11 +110,11 @@ constexpr int kSpan = 64;                  // bf16 columns of one 128-byte swizz
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DQK, int DV>
 struct Smem {
-  alignas(1024) __nv_bfloat16 q[D / kSpan][kBlockM][kSpan];
-  alignas(1024) __nv_bfloat16 k[kStages][D / kSpan][kBlockN][kSpan];
-  alignas(1024) __nv_bfloat16 v[kStages][D / kSpan][kBlockN][kSpan];
+  alignas(1024) __nv_bfloat16 q[DQK / kSpan][kBlockM][kSpan];
+  alignas(1024) __nv_bfloat16 k[kStages][DQK / kSpan][kBlockN][kSpan];
+  alignas(1024) __nv_bfloat16 v[kStages][DV / kSpan][kBlockN][kSpan];
   uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -265,7 +274,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(OffB));
 }
 
-// S = Q . K^T of a tile: D/16 wgmma steps, each 32 bytes further into the
+// S = Q . K^T of a tile: DQK/16 wgmma steps, each 32 bytes further into the
 // 128-byte rows of a span (two 16-byte units), spans of the q and k tiles
 // kBlockM * 128 and kBlockN * 128 bytes apart.
 template <int D, int KK = 0>
@@ -312,18 +321,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              __nv_bfloat16* __restrict__ out, int n_heads, int n_kv_heads,
                              int s_len, int t_len, int causal, int window, float scale) {
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
-  constexpr uint32_t kTileBytes = kBlockN * D * 2;
+  static_assert((DQK == 64 && DV == 64) || (DQK == 128 && DV == 128) ||
+                    (DQK == 192 && DV == 128),
+                "(DQK, DV) = (64, 64), (128, 128) or (192, 128)");
+  constexpr uint32_t kKTileBytes = kBlockN * DQK * 2;
+  constexpr uint32_t kVTileBytes = kBlockN * DV * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;  // swizzle atoms
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+  Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw + pad);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // late (heavy) q tiles first
   const int h = blockIdx.y;
@@ -353,18 +365,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // ---- producer: one thread issues every TMA load of the CTA ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(&sm.q_full, kBlockM * D * 2);
-      for (int c = 0; c < D / kSpan; ++c)
+      mbar_expect_tx(&sm.q_full, kBlockM * DQK * 2);
+      for (int c = 0; c < DQK / kSpan; ++c)
         tma_load(&sm.q[c][0][0], &q_map, &sm.q_full, c * kSpan, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&sm.kv_empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
         const int k0 = (first + j) * kBlockN;
-        mbar_expect_tx(&sm.k_full[st], kTileBytes);
-        for (int c = 0; c < D / kSpan; ++c)
+        mbar_expect_tx(&sm.k_full[st], kKTileBytes);
+        for (int c = 0; c < DQK / kSpan; ++c)
           tma_load(&sm.k[st][c][0][0], &k_map, &sm.k_full[st], c * kSpan, hk, k0, b);
-        mbar_expect_tx(&sm.v_full[st], kTileBytes);
-        for (int c = 0; c < D / kSpan; ++c)
+        mbar_expect_tx(&sm.v_full[st], kVTileBytes);
+        for (int c = 0; c < DV / kSpan; ++c)
           tma_load(&sm.v[st][c][0][0], &v_map, &sm.v_full[st], c * kSpan, hk, k0, b);
       }
     }
@@ -374,7 +386,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int lane = threadIdx.x % 32;
     const int r0 = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
     const int c0 = 2 * (lane % 4);  // first column of the thread in each 8-column block
-    constexpr int kO = D / 2;       // accumulator registers of O (64 x D)
+    constexpr int kO = DV / 2;      // accumulator registers of O (64 x DV)
     float o[kO];
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.0f;
@@ -398,7 +410,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint64_t q_desc = sw128_desc(&sm.q[0][wg * 64][0], 16, 1024);
     const uint64_t k_desc = sw128_desc(&sm.k[0][0][0][0], 16, 1024);
     const uint64_t v_desc = sw128_desc(&sm.v[0][0][0][0], kBlockN * 128, 1024);
-    constexpr uint32_t kStage16 = sizeof(sm.k[0]) / 16;  // one K or V stage
+    constexpr uint32_t kKStage16 = sizeof(sm.k[0]) / 16;  // one K stage
+    constexpr uint32_t kVStage16 = sizeof(sm.v[0]) / 16;  // one V stage
 
     // The two warpgroups take turns on the tensor cores: each issues its
     // P.V of one tile and S of the next (a turn) only after the other has
@@ -411,12 +424,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t parity = (j / kStages) & 1;
       const int k0 = (first + j) * kBlockN;
 
-      // S = Q . K^T: D/16 wgmma steps, 32 bytes into each 128-byte span row
+      // S = Q . K^T: DQK/16 wgmma steps, 32 bytes into each 128-byte span row
       float s[64];
       mbar_wait(&sm.k_full[st], parity);
       if (j == 0) bar_sync(1 + wg);
       wgmma_fence();
-      qk_steps<D>(s, q_desc, k_desc + st * kStage16);
+      qk_steps<DQK>(s, q_desc, k_desc + st * kKStage16);
       wgmma_commit();
       bar_arrive(2 - wg);  // the other warpgroup's turn
       wgmma_wait_all();
@@ -476,13 +489,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row r + 8
       }
 
-      // O += P . V: V as stored (keys x D) is B in MN-major; its two
+      // O += P . V: V as stored (keys x DV) is B in MN-major; its DV/64
       // 64-column spans lie kBlockN * 128 bytes apart, 8-key groups 1024
       mbar_wait(&sm.v_full[st], parity);
       bar_sync(1 + wg);  // this warpgroup's turn
       fence_regs(o);
       wgmma_fence();
-      pv_steps<D>(o, pa, v_desc + st * kStage16);
+      pv_steps<DV>(o, pa, v_desc + st * kVStage16);
       wgmma_commit();
       if (j + 1 == n_tiles && wg == 0) bar_arrive(2);  // warpgroup 1's last turn
       wgmma_wait_all();
@@ -498,14 +511,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       den[r] = fmaxf(l[r], 1e-30f);
     }
-    const int64_t row_stride = static_cast<int64_t>(n_heads) * D;
+    const int64_t row_stride = static_cast<int64_t>(n_heads) * DV;
 #pragma unroll
     for (int i = 0; i < kO; i += 2) {
       const int rh = (i >> 1) & 1;
       const int row = r0 + 8 * rh;
       if (row < s_len) {
         __nv_bfloat16* dst = out + (static_cast<int64_t>(b) * s_len + row) * row_stride +
-                             static_cast<int64_t>(h) * D + 8 * (i >> 2) + c0;
+                             static_cast<int64_t>(h) * DV + 8 * (i >> 2) + c0;
         *reinterpret_cast<__nv_bfloat162*>(dst) =
             __floats2bfloat162_rn(__fdiv_rn(o[i], den[rh]), __fdiv_rn(o[i + 1], den[rh]));
       }
@@ -559,15 +572,17 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
 constexpr int kErrNoEncoder = -1;  // the CUDA driver has no cuTensorMapEncodeTiled
 constexpr int kErrBadMap = -2;     // a tensor map was refused (alignment, strides)
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
            int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
            void* stream) {
-  constexpr int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + alignment slack
+  constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV>)) + 1024;  // + alignment slack
+  static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQK, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -576,16 +591,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(encode, &q_map, q, D, n_heads, s_len, batch, kBlockM)) return kErrBadMap;
+  if (!encode_map(encode, &q_map, q, DQK, n_heads, s_len, batch, kBlockM)) return kErrBadMap;
   if (t_len > 0) {
-    if (!encode_map(encode, &k_map, k, D, n_kv_heads, t_len, batch, kBlockN) ||
-        !encode_map(encode, &v_map, v, D, n_kv_heads, t_len, batch, kBlockN)) {
+    if (!encode_map(encode, &k_map, k, DQK, n_kv_heads, t_len, batch, kBlockN) ||
+        !encode_map(encode, &v_map, v, DV, n_kv_heads, t_len, batch, kBlockN)) {
       return kErrBadMap;
     }
   } else {
     k_map = v_map = q_map;  // no key tile is loaded
   }
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_wgmma_kernel<DQK, DV><<<grid, kThreads, smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), n_heads, n_kv_heads, s_len, t_len,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -595,19 +611,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 
 extern "C" {
 
-// bfloat16 q/out (B, S, H, D) and k/v (B, T, Hkv, D), contiguous with
-// 16-byte aligned starts; head_dim 64 or 128; H a multiple of Hkv.
-// Returns cudaGetLastError() after the launch (0 = launched), or a negative
-// code when a TMA tensor map could not be built.
+// bfloat16 q (B, S, H, DQK), k (B, T, Hkv, DQK), v and out (B, T or S, Hkv
+// or H, DV), contiguous with 16-byte aligned starts; (head_dim, head_dim_v)
+// = (64, 64), (128, 128) or (192, 128); H a multiple of Hkv. Returns
+// cudaGetLastError() after the launch (0 = launched), or a negative code
+// when a TMA tensor map could not be built.
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
-                               int head_dim, int causal, int window, float scale, void* stream) {
-  if (head_dim == 64)
-    return launch<64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                      scale, stream);
-  if (head_dim == 128)
-    return launch<128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                       scale, stream);
+                               int head_dim, int head_dim_v, int causal, int window, float scale,
+                               void* stream) {
+  if (head_dim == 64 && head_dim_v == 64)
+    return launch<64, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                          scale, stream);
+  if (head_dim == 128 && head_dim_v == 128)
+    return launch<128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                            window, scale, stream);
+  if (head_dim == 192 && head_dim_v == 128)
+    return launch<192, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                            window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

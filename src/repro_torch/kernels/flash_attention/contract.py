@@ -36,10 +36,10 @@ MAX_OVER_SHARE = 1e-3
 
 
 def p_rounding_slack(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """float32 (B, S, H, D): for each P element of the plain version (bf16
-    inputs) whose bf16 rounding a relative change of ``SLACK_EPS`` can flip,
-    one bf16 ulp of p times |v|, summed over keys and divided by l as the
-    output is."""
+    """float32 (B, S, H, Dv): for each P element of the plain version (bf16
+    inputs; v's head dim Dv may differ from q's and k's, as in MLA) whose
+    bf16 rounding a relative change of ``SLACK_EPS`` can flip, one bf16 ulp
+    of p times |v|, summed over keys and divided by l as the output is."""
     tiny = torch.finfo(torch.float32).tiny
     l = slack = 0.0
     for p, corr, vt in softmax_tiles(q, k, v, causal, window):

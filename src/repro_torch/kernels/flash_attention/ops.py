@@ -16,8 +16,10 @@ In the JAX package the model's prefill runs ``models/layers.py:
 chunked_attention`` and the Pallas kernel is its TPU version; in the port
 the kernels are the prefill's path.
 
-Both take the model's layout, q (B, S, H, D) and k, v (B, T, Hkv, D), with
-kv head ``h // (H / Hkv)`` for q head h; key t is visible to query s when
+Both take the model's layout, q (B, S, H, Dqk), k (B, T, Hkv, Dqk) and v
+(B, T, Hkv, Dv), with kv head ``h // (H / Hkv)`` for q head h (Dqk = Dv
+but for MLA, whose q and k carry the decoupled RoPE dims:
+deepseek-v2-lite's (192, 128)); key t is visible to query s when
 t <= s (causal) and t > s - window (window > 0). Scores, the running max
 and sum, and the P.V accumulator are float32. In float32, P stays float32,
 as in the Pallas kernel. In bfloat16, P is rounded to bfloat16 before P.V
@@ -47,16 +49,19 @@ from repro_torch.kernels import build
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
-_HEAD_DIMS = (64, 128)
+# the (Dqk, Dv) pairs each kernel is instantiated for: the zoo's head dims in
+# bf16, and the reduced parity configs' in float32 (MLA's reduced (48, 32))
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+             torch.float32: ((64, 64), (128, 128), (48, 32))}
 BLOCK_K = 128     # keys per tile of the bf16 (wgmma) kernel
 BLOCK_K_F32 = 64  # keys per tile of the float32 kernel
 _NEG = -1e30
 
 
 def _layout(x, q):
-    """(b, hkv, g, s, d) -> q's (b, s, h, d)."""
-    b, s, h, d = q.shape
-    return x.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    """(b, hkv, g, s, d) -> q's (b, s, h) layout, (b, s, h, d)."""
+    b, s, h = q.shape[:3]
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, h, x.shape[-1])
 
 
 def softmax_tiles(q, k, v, causal: bool, window: int):
@@ -64,7 +69,8 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
     bf16, ``BLOCK_K_F32`` in float32), in float32: for each tile, its P
     (b, hkv, g, s, keys) against the running max so far, the factor that
     rescales what came before (b, hkv, g, s), and its V (b, hkv, 1, keys,
-    d). What the kernels accumulate from them is ``flash_attention_plain``."""
+    Dv). Scores are scaled by 1/sqrt(Dqk). What the kernels accumulate from
+    them is ``flash_attention_plain``."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -90,8 +96,8 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """Attention of q (B, S, H, D) over k, v (B, T, Hkv, D), scores scaled
-    by 1/sqrt(D), in q's dtype."""
+    """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
+    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype."""
     bf16 = q.dtype == torch.bfloat16
     l = acc = 0.0
     for p, corr, vt in softmax_tiles(q, k, v, causal, window):
@@ -108,7 +114,7 @@ def _entry(dtype):
     fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -121,11 +127,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Attention of q (B, S, H, D) over k, v (B, T, Hkv, D), scores scaled
-    by 1/sqrt(D), in q's dtype.
+    """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
+    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
     kernel of their dtype (bfloat16: wgmma; float32: CUDA cores), which
-    takes head dims 64 and 128."""
+    takes the (Dqk, Dv) pairs of ``HEAD_DIMS``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
@@ -133,22 +139,23 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, s, h, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
+    b, s, h, dq = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (dq, dv) not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
-            f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d} (160 and 192 come "
-            f"with stablelm-12b and deepseek-v2-lite, ROADMAP.md queue 1 item 14)")
-    if k.shape != (b, t, hkv, d) or v.shape != k.shape or h % hkv:
-        raise ValueError(f"flash_attention: k and v must be (B, T, Hkv, D) with H % Hkv == 0, "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+            f"flash_attention's {q.dtype} kernel takes (Dqk, Dv) in {HEAD_DIMS[q.dtype]}, got "
+            f"({dq}, {dv}) (stablelm-12b's 160 comes with ROADMAP.md queue 1 item 14.3)")
+    if k.shape != (b, t, hkv, dq) or v.shape != (b, t, hkv, dv) or h % hkv:
+        raise ValueError(f"flash_attention: k must be (B, T, Hkv, Dqk) and v (B, T, Hkv, Dv) "
+                         f"with H % Hkv == 0, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one device")
     qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(qc)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     err = _entry(q.dtype)(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
-        int(bool(causal)), int(window), 1.0 / math.sqrt(d),
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, hkv, s, t, dq, dv,
+        int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"

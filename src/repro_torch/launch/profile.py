@@ -3,9 +3,11 @@ decode steps of a decoder LM under ``torch.profiler``; with ``--fl``, an
 FL round instead.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.profile --fl
 
-Builds the arch at full width with random weights, runs a warm-up prefill
+Builds the arch at full width with random weights (``--layers N`` cuts its
+depth to N layers, the first ``first_dense`` of them dense), runs a warm-up prefill
 and decode step, then traces one prefill of 4 prompts of 2048 tokens (the
 serving run of ``chip_smoke.py``) and ``--steps`` decode steps. For each
 window it prints one JSON line: the device span (first kernel start to
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import time
 
@@ -149,6 +152,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="falcon-mamba-7b")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch's depth to this many layers (0: full depth)")
     ap.add_argument("--fl", action="store_true",
                     help="trace the ACSP-FL round (UCI-HAR, har-mlp, int8) instead of serving")
     ap.add_argument("--chunk", type=int, default=5, help="rounds of the replayed chunk (--fl)")
@@ -159,9 +164,11 @@ def main(argv=None):
             print(json.dumps({"window": window, "device": torch.cuda.get_device_name(0), **row}))
         return res
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     res = profile_serving(cfg, steps=args.steps)
     for window, row in res.items():
-        print(json.dumps({"arch": cfg.name, "window": window,
+        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "window": window,
                           "device": torch.cuda.get_device_name(0), **row}))
     return res
 

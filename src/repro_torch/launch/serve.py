@@ -1,5 +1,6 @@
 """Batched serving entry point of the port: prefill queue + decode loop for a
-decoder LM (falcon-mamba-7b, granite-3-8b), with continuous batching.
+decoder LM (falcon-mamba-7b, granite-3-8b, deepseek-moe-16b, moonshot-v1-16b-a3b,
+deepseek-v2-lite-16b), with continuous batching.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu] \\

@@ -1,10 +1,13 @@
 """Transformer / SSM building blocks of the port's serving slice.
 
-The subset of the JAX package's ``models/layers.py`` that falcon-mamba-7b
-and granite-3-8b run: RMSNorm, SiLU, full RoPE, GQA attention (prefill and
-cached decode), SwiGLU, and the Mamba-1 block (prefill and decode). Plain
-functions on tensors; ``p`` is any mapping of parameter tensors (a dict, or
-a ``ParameterDict`` of the model). Same conventions as the JAX module:
+The subset of the JAX package's ``models/layers.py`` that falcon-mamba-7b,
+granite-3-8b and the MoE family (deepseek-moe-16b, moonshot-v1-16b-a3b,
+deepseek-v2-lite-16b) run: RMSNorm, SiLU, full RoPE (optionally on the first
+``rope_dim`` dims), GQA and MLA attention (prefill and cached decode),
+SwiGLU, the token-choice top-k MoE, and the Mamba-1 block (prefill and
+decode). Plain functions on tensors; ``p`` is any mapping of parameter
+tensors (a dict, or a block's ``ParamTree``). Same conventions as
+the JAX module:
 
   x          : (B, S, D) activations in the config's dtype
   q, k, v    : (B, S, H, Dh)
@@ -12,16 +15,20 @@ a ``ParameterDict`` of the model). Same conventions as the JAX module:
                returns the same dict (the JAX package returns new arrays)
 
 The prefills go through the port's CUDA kernels where JAX runs jnp code:
-``gqa_attention`` calls ``kernels.flash_attention`` (JAX:
-``chunked_attention``) and ``mamba_block`` calls ``kernels.ssm_scan`` (JAX:
-a chunked ``lax.scan``). The decode steps stay plain torch, as they are
-plain jnp in JAX. The half and M-RoPE variants, MLA and MoE raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 14).
+``gqa_attention`` and ``mla_attention`` call ``kernels.flash_attention``
+(JAX: ``chunked_attention``; MLA with a q/k head dim of nd + rd and a v
+head dim of vd) and ``mamba_block`` calls ``kernels.ssm_scan`` (JAX: a
+chunked ``lax.scan``). The decode steps and the MoE stay plain torch, as
+they are plain jnp in JAX (the experts are batched matrix products, which
+XLA computes outside any Pallas kernel). The half and M-RoPE variants and
+the expert-parallel MoE raise ``NotImplementedError`` naming their
+ROADMAP.md item (queue 1 items 14.3 and 14.8).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -29,6 +36,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ssm_scan
 
 _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
+
+
+def _item(n: int) -> str:
+    return f"ROADMAP.md queue 1 item 14.{n} (model zoo)"
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -83,13 +94,18 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
     return out.reshape(x.shape)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full RoPE on x (B, S, H, Dh) at positions (B, S). The half and M-RoPE
-    variants are not ported."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+               rope_dim: int | None = None) -> torch.Tensor:
+    """Full RoPE on the first ``rope_dim`` dims (default: all) of x (B, S,
+    H, Dh) at positions (B, S); the other dims pass through (MLA's
+    decoupled RoPE). The half and M-RoPE variants are not ported."""
     if cfg.rope_variant != "full":
-        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_TODO}")
-    cos, sin = _rope_cos_sin(positions, x.shape[-1])
-    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :]).to(x.dtype)
+        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_item(3)}")
+    dh = x.shape[-1]
+    rope_dim = rope_dim or dh
+    cos, sin = _rope_cos_sin(positions, rope_dim)
+    rot = _rotate(x[..., :rope_dim], cos[:, :, None, :], sin[:, :, None, :]).to(x.dtype)
+    return rot if rope_dim == dh else torch.cat([rot, x[..., rope_dim:]], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +115,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> to
 
 def decode_attention(q, k_cache, v_cache, kv_positions, pos: int,
                      window: int = 0) -> torch.Tensor:
-    """Single-token cached attention. q (B, 1, H, Dq), caches (B, T, Hkv, D),
-    kv_positions (T,) with -1 for an empty slot. Returns (B, 1, H, Dv).
-    Scores and the P.V sum in float32, P rounded to v's dtype first, as in
-    the JAX function."""
+    """Single-token cached attention. q (B, 1, H, Dq), k cache (B, T, Hkv,
+    Dq), v cache (B, T, Hkv, Dv), kv_positions (T,) with -1 for an empty
+    slot; scores scaled by 1/sqrt(Dq). Returns (B, 1, H, Dv). Scores and the
+    P.V sum in float32, P rounded to v's dtype first, as in the JAX
+    function."""
     b, _, h, dq = q.shape
     hkv, dv = k_cache.shape[2], v_cache.shape[-1]
     g = h // hkv
@@ -199,12 +216,116 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, devi
 
 
 # ---------------------------------------------------------------------------
+# MLA attention block (DeepSeek-V2): compressed KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    dt = torch_dtype(cfg)
+    return {
+        "wq": _normal(gen, (d, h * (nd + rd)), 0.02, dt),
+        "wdkv": _normal(gen, (d, r), 0.02, dt),
+        "wkr": _normal(gen, (d, rd), 0.02, dt),
+        "wuk": _normal(gen, (r, h * nd), 0.02, dt),
+        "wuv": _normal(gen, (r, h * vd), 0.02, dt),
+        "wo": _normal(gen, (h * vd, d), 0.02 / math.sqrt(2 * cfg.n_layers), dt),
+    }
+
+
+def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
+                  mode: str = "prefill"):
+    """Multi-head Latent Attention with decoupled RoPE (arXiv:2405.04434).
+    mode: prefill (``positions`` = ``arange(S)``) | decode (the int position
+    of the one token). Returns (out, new_cache).
+
+    The cache holds the compressed ``c_kv`` (B, T, r) and the shared RoPE
+    key (B, T, rd). Prefill expands c_kv through ``wuk``/``wuv`` and runs
+    ``kernels.flash_attention`` with q and k of nd + rd dims (the RoPE key
+    broadcast over heads) and v of vd: scores scaled by 1/sqrt(nd + rd).
+    Decode writes slot ``pos`` in place (``pos % T`` with a window; clamped
+    to T - 1 without, as JAX's ``dynamic_update_slice`` clamps) and either
+    re-expands the cache (``naive``, the default) or folds ``wuk`` into the
+    query and ``wuv`` into the output (``absorbed``), as the environment
+    variable ``REPRO_MLA_DECODE`` picks, the JAX package's switch."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mla_attention mode {mode!r}: training is {_item(6)}")
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+
+    q = (x @ p["wq"]).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    c_kv = x @ p["wdkv"]                           # (B, S, r)
+    k_rope = (x @ p["wkr"]).reshape(b, s, 1, rd)
+    if mode == "decode":
+        pos = int(positions)
+        rope_pos = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    else:
+        rope_pos = positions[None].expand(b, -1)
+    lin_pos = rope_pos[0].to(torch.int32)
+    q_rope = apply_rope(q_rope, rope_pos, cfg, rope_dim=rd)
+    k_rope = apply_rope(k_rope, rope_pos, cfg, rope_dim=rd)
+
+    def expand(c):  # c (B, T, r) -> k_nope (B, T, H, nd), v (B, T, H, vd)
+        t = c.shape[1]
+        return (c @ p["wuk"]).reshape(b, t, h, nd), (c @ p["wuv"]).reshape(b, t, h, vd)
+
+    if mode == "prefill":
+        k_nope, v = expand(c_kv)
+        k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q_full, k_full, v, causal=True, window=window)
+        w = min(window, s) if window else s
+        new_cache = {"c_kv": c_kv[:, -w:], "k_rope": k_rope[:, -w:, 0], "kv_pos": lin_pos[-w:]}
+    else:  # decode: s == 1
+        t_buf = cache["c_kv"].shape[1]
+        slot = pos % t_buf if window else min(pos, t_buf - 1)
+        cache["c_kv"][:, slot] = c_kv[:, 0]
+        cache["k_rope"][:, slot] = k_rope[:, 0, 0]
+        cache["kv_pos"][slot] = pos
+        cc, kr, kv_pos = cache["c_kv"], cache["k_rope"], cache["kv_pos"]
+        if os.environ.get("REPRO_MLA_DECODE", "naive") == "absorbed":
+            # attention against the compressed cache: W_uk folded into the
+            # query, W_uv into the output (DeepSeek-V2 section 2.1.2)
+            scale = 1.0 / math.sqrt(nd + rd)
+            q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], p["wuk"].reshape(r, h, nd))
+            sc = (torch.einsum("bhr,btr->bht", q_eff.to(torch.float32), cc.to(torch.float32))
+                  + torch.einsum("bhd,btd->bht", q_rope[:, 0].to(torch.float32),
+                                 kr.to(torch.float32))) * scale
+            valid = (kv_pos >= 0) & (kv_pos <= pos)
+            if window:
+                valid = valid & (kv_pos > pos - window)
+            pr = torch.softmax(torch.where(valid[None, None], sc, -1e30), dim=-1)
+            out_lat = torch.einsum("bht,btr->bhr", pr.to(cc.dtype), cc)
+            out = torch.einsum("bhr,rhv->bhv", out_lat, p["wuv"].reshape(r, h, vd))[:, None]
+        else:
+            k_nope, v = expand(cc)
+            k_full = torch.cat([k_nope, kr[:, :, None, :].expand(-1, -1, h, -1)], dim=-1)
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            out = decode_attention(q_full, k_full, v, kv_pos, pos, window=window)
+        new_cache = cache
+    return out.reshape(b, s, h * vd) @ p["wo"], new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
+    t = min(window, seq) if window else seq
+    dt = torch_dtype(cfg)
+    return {
+        "c_kv": torch.zeros((batch, t, cfg.kv_lora_rank), dtype=dt, device=device),
+        "k_rope": torch.zeros((batch, t, cfg.qk_rope_dim), dtype=dt, device=device),
+        "kv_pos": torch.full((t,), -1, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
 # FFN: SwiGLU
 # ---------------------------------------------------------------------------
 
 
-def init_swiglu(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    d, dff = cfg.d_model, cfg.d_ff
+def init_swiglu(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, dff = cfg.d_model, d_ff or cfg.d_ff
     dt = torch_dtype(cfg)
     return {
         "wg": _normal(gen, (d, dff), 0.02, dt),
@@ -215,6 +336,119 @@ def init_swiglu(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def swiglu(p, x):
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# FFN: token-choice top-k MoE (capacity-bounded scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The router in float32 whatever the config's dtype; E experts' SwiGLU
+    weights stacked on a leading axis; the shared experts as one SwiGLU of
+    width ``d_ff_expert * n_shared_experts`` under ``shared``."""
+    d, e = cfg.d_model, cfg.n_experts
+    dff = cfg.d_ff_expert or cfg.d_ff
+    dt = torch_dtype(cfg)
+    p = {
+        "router": _normal(gen, (d, e), 0.02, torch.float32),
+        "wg": _normal(gen, (e, d, dff), 0.02, dt),
+        "wu": _normal(gen, (e, d, dff), 0.02, dt),
+        "wd": _normal(gen, (e, dff, d), 0.02 / math.sqrt(2 * cfg.n_layers), dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_swiglu(gen, cfg, d_ff=dff * cfg.n_shared_experts)
+    return p
+
+
+def moe_apply(p, x, cfg: ModelConfig, *, expert_parallel: bool = False):
+    """Token-choice top-k MoE: ``moe_apply_local``. Returns (y, aux_loss).
+
+    The JAX package switches to its expert-parallel ``moe_apply_ep`` when
+    it lowers under a production mesh (``launch/context.mesh_context``,
+    which only its dry run opens); that path comes with the production mesh
+    and raises here."""
+    if expert_parallel:
+        raise NotImplementedError(f"expert-parallel MoE (moe_apply_ep): {_item(8)}")
+    return moe_apply_local(p, x, cfg)
+
+
+def moe_route(p, xf: torch.Tensor, cfg: ModelConfig):
+    """Routing of the N tokens xf (N, D), as the JAX function routes them.
+    Returns (gate (N, k) float32, idx (N, k) int64, aux, pos (N*k,), keep
+    (N*k,) bool, cap):
+
+    - a float32 router softmax; top-k by a stable descending sort, so equal
+      probabilities keep the lower expert first (``jax.lax.top_k``'s
+      order); the gates renormalised by max(sum, 1e-9);
+    - the Switch load-balance loss E * sum_e f_e P_e;
+    - each expert's capacity max(1, ceil(N k capacity_factor / E)) over the
+      N tokens of the call;
+    - ``pos``: each route's place in its expert's queue, the routes taken in
+      token-major order (JAX: a cumsum over an (N*k, E) one-hot; here a
+      stable sort by expert, which gives the same integers); a route at
+      ``pos >= cap`` is dropped (``keep`` False)."""
+    e, k = cfg.n_experts, cfg.top_k
+    n = xf.shape[0]
+    probs = torch.softmax(xf.to(torch.float32) @ p["router"], dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :k], idx[:, :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    fidx = idx.reshape(-1)
+    counts = torch.zeros((e,), dtype=fidx.dtype, device=xf.device)
+    counts.scatter_add_(0, fidx, torch.ones_like(fidx))  # routes to each expert (no host sync)
+    fe = counts.to(torch.float32) / n / k                # JAX: mean of the (N, k, E) one-hot
+    aux = e * torch.sum(fe * probs.mean(dim=0))
+
+    cap = max(1, int(math.ceil(n * k * cfg.capacity_factor / e)))
+    order = torch.argsort(fidx, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(fidx)
+    pos[order] = torch.arange(n * k, device=xf.device) - starts[fidx[order]]
+    return gate, idx, aux, pos, pos < cap, cap
+
+
+def moe_dispatch(xf, idx, pos, keep, cap: int, n_experts: int) -> torch.Tensor:
+    """The (E, cap, D) expert buffer: route i's token at (idx_i, pos_i) when
+    kept. A dropped route writes to a spare row that is cut off (JAX adds a
+    zero at (idx_i, cap - 1)), so the buffer holds the same values."""
+    d = xf.shape[1]
+    k = idx.shape[1]
+    slot = torch.where(keep, idx.reshape(-1) * cap + pos, n_experts * cap)
+    buf = torch.zeros((n_experts * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf.index_copy_(0, slot, xf.repeat_interleave(k, dim=0))
+    return buf[:-1].view(n_experts, cap, d)
+
+
+def moe_experts(p, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its (cap, D) rows: batched products over
+    (E, cap, D)."""
+    return torch.bmm(silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"]), p["wd"])
+
+
+def moe_combine(expert_out, gate, idx, pos, keep, cap: int) -> torch.Tensor:
+    """Each token's k expert outputs gathered at (idx, min(pos, cap - 1)),
+    weighted by gate * keep in the outputs' dtype (a dropped route adds
+    zero) and summed over k: (N, D)."""
+    n, k = idx.shape
+    gathered = expert_out[idx.reshape(-1), torch.clamp_max(pos, cap - 1)]
+    w = (gate.reshape(-1) * keep.to(torch.float32))[:, None].to(expert_out.dtype)
+    return (gathered * w).reshape(n, k, -1).sum(dim=1)
+
+
+def moe_apply_local(p, x, cfg: ModelConfig):
+    """Token-choice top-k MoE with per-expert capacity: ``moe_route``,
+    ``moe_dispatch``, ``moe_experts``, ``moe_combine``, then the shared
+    experts added. Returns (y, aux_loss)."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gate, idx, aux, pos, keep, cap = moe_route(p, xf, cfg)
+    expert_out = moe_experts(p, moe_dispatch(xf, idx, pos, keep, cap, cfg.n_experts))
+    y = moe_combine(expert_out, gate, idx, pos, keep, cap)
+    if cfg.n_shared_experts:
+        y = y + swiglu(p["shared"], xf)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,28 @@
 """Decoder stack of the port's serving slice: falcon-mamba-7b (Mamba-1
-blocks) and granite-3-8b (GQA + SwiGLU blocks).
+blocks), granite-3-8b (GQA + SwiGLU blocks) and the MoE family
+(deepseek-moe-16b and moonshot-v1-16b-a3b: GQA with a dense first layer
+and MoE layers after it; deepseek-v2-lite-16b: the same with MLA).
 
-The model is an ``nn.Module``, ``DecoderLM``: the embedding, one ``Block``
-per layer in an ``nn.ModuleList``, the final norm and the head. Its
-parameters carry no gradients (serving only). The JAX package stacks the
-layers of each period and scans over them; here the blocks are kept per
-layer and the stack is a Python loop, so a cache is one dict per layer:
+The model is an ``nn.Module``, ``DecoderLM``: the embedding, one block per
+layer in an ``nn.ModuleList``, the final norm and the head. Its parameters
+carry no gradients (serving only). The JAX package stacks the layers of
+each period and scans over them (``layer_plan``: a prologue of unscanned
+layers, then periods); here the blocks are kept per layer and the stack is
+a Python loop, so a cache is one dict per layer:
 
     cache = {"layers": [block_cache, ...], "pos": int}
 
-``mode="train"``, MoE, MLA, hybrid stacks and the vision and audio
-frontends raise ``NotImplementedError`` naming their ROADMAP.md item.
+Each layer follows its ``LayerSpec``: the mixer (``attn``, which is GQA or
+MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE.
+``mode="train"``, hybrid stacks, the half and M-RoPE variants, tied
+embeddings and the vision and audio frontends raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -22,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
+_item = L._item
 
 
 # ---------------------------------------------------------------------------
@@ -29,28 +39,51 @@ _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
 # ---------------------------------------------------------------------------
 
 
-def layer_kinds(cfg: ModelConfig) -> list[str]:
-    """Each layer's mixer in order: 'mamba' or 'attn' (GQA)."""
-    return ["mamba" if cfg.ssm and not cfg.is_attn_layer(i) else "attn"
-            for i in range(cfg.n_layers)]
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str   # 'attn' (gqa/mla by cfg) | 'mamba'
+    moe: bool
+
+
+def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
+    """Each layer's spec in order (a dense first layer under
+    ``first_dense``, MoE layers by ``cfg.is_moe_layer``)."""
+    return [LayerSpec("mamba" if cfg.ssm and not cfg.is_attn_layer(i) else "attn",
+                      cfg.is_moe_layer(i)) for i in range(cfg.n_layers)]
+
+
+def period_len(cfg: ModelConfig) -> int:
+    """Repeating unit length after the prologue (the JAX package's)."""
+    p = 1
+    if cfg.ssm and cfg.attn_period:
+        p = cfg.attn_period
+    if cfg.moe and cfg.moe_every > 1:
+        p = p * cfg.moe_every // math.gcd(p, cfg.moe_every)
+    return p
+
+
+def layer_plan(cfg: ModelConfig) -> tuple[int, int, int]:
+    """How the JAX package lays the layers out in its parameter tree:
+    (prologue length, period length p, number of periods). The prologue
+    holds the ``first_dense`` layers and the ragged tail of the body that
+    is not a whole number of periods; layer ``len(prologue) + i * p + j`` is
+    period entry j at index i of the stack."""
+    body = cfg.n_layers - cfg.first_dense
+    p = period_len(cfg)
+    n_pro = cfg.first_dense + body % p
+    return n_pro, p, (cfg.n_layers - n_pro) // p
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port. What is left is a uniform
-    stack, one kind of layer repeated: the JAX package stores it as one
-    ``stack`` entry whose leaves carry a leading ``n_layers`` axis."""
+    """Raise for what this slice does not port."""
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models (whisper): {_TODO}")
+        raise NotImplementedError(f"encoder-decoder models (whisper): {_item(5)}")
     if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r}: {_TODO}")
-    if cfg.moe or cfg.first_dense:
-        raise NotImplementedError(f"MoE layers: {_TODO}")
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention: {_TODO}")
+        raise NotImplementedError(f"frontend {cfg.frontend!r}: {_item(4)}")
     if cfg.ssm and cfg.attn_period:
-        raise NotImplementedError(f"hybrid Mamba + attention stacks (jamba): {_TODO}")
+        raise NotImplementedError(f"hybrid Mamba + attention stacks (jamba): {_item(6)}")
     if cfg.rope_variant != "full" and not cfg.ssm:
-        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_TODO}")
+        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_item(3)}")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"tied embeddings: {_TODO}")
 
@@ -64,17 +97,18 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One pre-norm residual layer's parameters: ``norm1``, ``mixer`` (a
-    ``ParameterDict``) and, for attention layers, ``norm2`` and ``ffn``.
-    Indexed like the JAX package's block dict (``blk["mixer"]``,
-    ``"ffn" in blk``)."""
+class ParamTree(nn.Module):
+    """A nested dict of parameters as a module: tensors become parameters,
+    dicts nested ``ParamTree``s. Indexed like the JAX package's dicts
+    (``blk["mixer"]``, ``blk["moe"]["shared"]["wg"]``, ``"ffn" in blk``,
+    ``.items()``). One block is the pre-norm residual layer's ``norm1``,
+    ``mixer`` and, after attention, ``norm2`` with ``ffn`` or ``moe``."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, nn.ParameterDict({k: _param(v) for k, v in value.items()}))
+                self.add_module(name, ParamTree(value))
             else:
                 self.register_parameter(name, _param(value))
 
@@ -83,6 +117,12 @@ class Block(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def keys(self) -> list[str]:
+        return [*self._parameters, *self._modules]
+
+    def items(self) -> list:
+        return [(k, self[k]) for k in self.keys()]
 
 
 class DecoderLM(nn.Module):
@@ -93,13 +133,13 @@ class DecoderLM(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.kinds = layer_kinds(cfg)
-        if len(tree["blocks"]) != len(self.kinds):
-            raise ValueError(f"{cfg.name}: {len(tree['blocks'])} blocks for {len(self.kinds)} layers")
+        self.specs = layer_specs(cfg)
+        if len(tree["blocks"]) != len(self.specs):
+            raise ValueError(f"{cfg.name}: {len(tree['blocks'])} blocks for {len(self.specs)} layers")
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.head = _param(tree["head"])
-        self.blocks = nn.ModuleList(Block(b) for b in tree["blocks"])
+        self.blocks = nn.ModuleList(ParamTree(b) for b in tree["blocks"])
 
     @property
     def device(self) -> torch.device:
@@ -111,39 +151,53 @@ class DecoderLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
     dt = L.torch_dtype(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)  # noqa: E731
     p = {"norm1": ones()}
-    if kind == "mamba":
+    if spec.kind == "mamba":
         p["mixer"] = L.init_mamba(gen, cfg)
         return p
-    p["mixer"] = L.init_gqa(gen, cfg)
+    p["mixer"] = L.init_mla(gen, cfg) if cfg.attn_type == "mla" else L.init_gqa(gen, cfg)
     p["norm2"] = ones()
-    p["ffn"] = L.init_swiglu(gen, cfg)
+    if spec.moe:
+        p["moe"] = L.init_moe(gen, cfg)
+    else:
+        p["ffn"] = L.init_swiglu(gen, cfg)
     return p
 
 
-def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *, cache=None,
+def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=None,
                 window: int = 0, mode: str = "prefill"):
-    """Pre-norm residual block. Returns (x, new_cache)."""
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss), the aux
+    loss None without an MoE FFN."""
+    aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind == "mamba":
+    if spec.kind == "mamba":
         mixed, new_cache = L.mamba_block(p["mixer"], h, cfg, cache=cache, mode=mode)
+    elif cfg.attn_type == "mla":
+        mixed, new_cache = L.mla_attention(p["mixer"], h, positions, cfg, cache=cache,
+                                           window=window, mode=mode)
     else:
         mixed, new_cache = L.gqa_attention(p["mixer"], h, positions, cfg, cache=cache,
                                            window=window, mode=mode)
     x = x + mixed
-    if "ffn" in p:
+    if "moe" in p:
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        y, aux = L.moe_apply(p["moe"], h2, cfg)
+        x = x + y
+    elif "ffn" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + L.swiglu(p["ffn"], h2)
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int, window: int,
+def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, window: int,
                      device=None):
-    if kind == "mamba":
+    if spec.kind == "mamba":
         return L.init_mamba_cache(cfg, batch, device)
+    if cfg.attn_type == "mla":
+        return L.init_mla_cache(cfg, batch, seq, window, device)
     return L.init_gqa_cache(cfg, batch, seq, window, device)
 
 
@@ -155,7 +209,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int, window: 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
     """A model with random weights drawn from ``gen`` on its device: the
     JAX init's shapes, dtypes and scales (normal * 0.02, out-projections
-    / sqrt(2 L), A_log, dt_bias = -4.6, ...), not its bits."""
+    / sqrt(2 L), A_log, dt_bias = -4.6, a float32 router, ...), not its
+    bits."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     v, d = cfg.vocab_padded, cfg.d_model
@@ -163,14 +218,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
         "embed": L._normal(gen, (v, d), 0.02, dt),
         "final_norm": torch.ones((d,), dtype=dt, device=gen.device),
         "head": L._normal(gen, (d, v), 0.02, dt),
-        "blocks": [init_block(gen, cfg, kind) for kind in layer_kinds(cfg)],
+        "blocks": [init_block(gen, cfg, spec) for spec in layer_specs(cfg)],
     }
     return DecoderLM(cfg, tree)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
-    layers = [init_block_cache(cfg, kind, batch, seq, window, device)
-              for kind in layer_kinds(cfg)]
+    layers = [init_block_cache(cfg, spec, batch, seq, window, device)
+              for spec in layer_specs(cfg)]
     return {"layers": layers, "pos": 0}
 
 
@@ -188,8 +243,8 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, cache=
             window: int = 0, mode: str = "prefill"):
     """tokens (B, S) -> (logits (B, S, V_padded) float32, new_cache, aux).
     mode: prefill (S tokens at positions 0..S-1, no cache) | decode (one
-    token at ``cache["pos"]``). ``aux`` is the MoE auxiliary loss, always 0
-    here."""
+    token at ``cache["pos"]``). ``aux`` is the sum of the MoE layers'
+    auxiliary (load-balance) losses, 0 without MoE layers."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"forward mode {mode!r}: training is {_TODO}")
     x = _embed_inputs(params, cfg, tokens)
@@ -200,16 +255,18 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, cache=
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
 
     new_layers = []
-    for i, (blk, kind) in enumerate(zip(params.blocks, params.kinds)):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (blk, spec) in enumerate(zip(params.blocks, params.specs)):
         c = cache["layers"][i] if cache is not None else None
-        x, nc = apply_block(blk, x, positions, cfg, kind, cache=c, window=window, mode=mode)
+        x, nc, aux = apply_block(blk, x, positions, cfg, spec, cache=c, window=window, mode=mode)
         new_layers.append(nc)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x @ params.head).to(torch.float32)
     next_pos = cache["pos"] + 1 if (cache is not None and mode == "decode") else s
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, {"layers": new_layers, "pos": next_pos}, aux
+    return logits, {"layers": new_layers, "pos": next_pos}, aux_total
 
 
 def make_prefill_step(cfg: ModelConfig, window: int = 0):

@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
-from repro_torch.models.transformer import DecoderLM, check_supported
+from repro_torch.models.transformer import DecoderLM, check_supported, layer_plan
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
@@ -61,15 +61,22 @@ def state_from_numpy(state, device=None) -> RoundState:
 
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
-    ``head``, and one ``stack`` entry whose leaves carry a leading
-    ``n_layers`` axis), as numpy arrays, -> the port's ``DecoderLM`` on
-    ``device``, one block per layer (dtypes and bits kept)."""
+    ``head``, the ``prologue`` blocks, and one ``stack`` entry per position
+    of the period whose leaves carry a leading axis of periods), as numpy
+    arrays, -> the port's ``DecoderLM`` on ``device``, one block per layer
+    in ``transformer.layer_plan``'s order: the prologue, then period entry
+    j at index i for layer ``len(prologue) + i * p + j`` (dtypes and bits
+    kept; nested dicts such as an MoE's ``shared`` experts as they are)."""
     dev = resolve_device(device)
     check_supported(cfg)
-    if tree["prologue"] or len(tree["stack"]) != 1:
-        raise ValueError(f"{cfg.name}: expected one uniform stack of layers")
-    blocks = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), tree["stack"][0])
-              for i in range(cfg.n_layers)]
+    n_pro, p, n_periods = layer_plan(cfg)
+    if len(tree["prologue"]) != n_pro or len(tree["stack"]) != (p if n_periods else 0):
+        raise ValueError(f"{cfg.name}: expected {n_pro} prologue blocks and "
+                         f"{p if n_periods else 0} stack entries, got {len(tree['prologue'])} "
+                         f"and {len(tree['stack'])}")
+    blocks = [tree_map(lambda a: _tensor(a, dev), blk) for blk in tree["prologue"]]
+    blocks += [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), tree["stack"][j])
+               for i in range(n_periods) for j in range(p)]
     return DecoderLM(cfg, {
         "embed": _tensor(tree["embed"], dev),
         "final_norm": _tensor(tree["final_norm"], dev),

@@ -21,7 +21,12 @@ contract of ``kernels/flash_attention/contract.py``: within 1 bf16 ulp of
 each element plus that plus ``p_rounding_slack`` (the kernel sums the
 scores in another order than the plain version's matmul, so a few P
 elements round to the neighbouring bf16 value), with at most 1e-3 of the
-elements beyond 1 ulp plus 1e-5 of max. The staleness merge (snapshot
+elements beyond 1 ulp plus 1e-5 of max; the same at MLA's head dims,
+(Dqk, Dv) = (192, 128) in bf16 and the reduced (48, 32) in float32, and at
+G = 1 (the MoE family's MHA); any other pair raises. The reduced MoE
+family (deepseek-moe, moonshot, deepseek-v2-lite) in float32 serves on the
+card through flash_attention and matches the CPU within 1e-5 of max. The
+staleness merge (snapshot
 subtracted in the load loop, the global layer as the base) is
 masked_aggregate's kernel bitwise equal to its plain version, one launch an
 event; the async and fault steps run on the card with each FL kernel once
@@ -392,6 +397,78 @@ def test_flash_attention_rejects_other_head_dims(cuda):
     q = torch.zeros((1, 8, 2, 160), device=cuda)
     with pytest.raises(NotImplementedError, match="item 14"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, s, h, hkv, dq, dv, causal, window, dtype): MLA's (192, 128) in bf16
+    # (deepseek-v2-lite), the reduced (48, 32) in float32, and D = 128 at
+    # G = 1 (deepseek-moe's MHA) in bf16
+    (2, 300, 4, 4, 192, 128, True, 0, torch.bfloat16),
+    (1, 2000, 2, 2, 192, 128, True, 0, torch.bfloat16),
+    (1, 640, 4, 4, 192, 128, True, 200, torch.bfloat16),
+    (1, 130, 2, 2, 192, 128, False, 0, torch.bfloat16),
+    (2, 200, 4, 4, 48, 32, True, 0, torch.float32),
+    (1, 130, 4, 2, 48, 32, False, 32, torch.float32),
+    (2, 384, 4, 4, 128, 128, True, 0, torch.bfloat16),
+], ids=str)
+def test_flash_attention_mla_dims_and_g1_vs_plain(cuda, case):
+    b, s, h, hkv, dq, dv, causal, window, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(s + dq + window)
+    q = torch.randn((b, s, h, dq), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, dq), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, dv), generator=gen, device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, s, h, dv) and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        _close_to_max(got, want)
+    else:
+        result = bf16_contract(got, want, q, k, v, causal, window)
+        assert result["ok"], result
+
+
+@pytest.mark.parametrize("dims,dtype", [((160, 160), torch.bfloat16), ((48, 32), torch.bfloat16),
+                                        ((192, 128), torch.float32), ((128, 64), torch.bfloat16)],
+                         ids=str)
+def test_flash_attention_rejects_dims_without_a_kernel(cuda, dims, dtype):
+    q = torch.zeros((1, 8, 2, dims[0]), device=cuda, dtype=dtype)
+    v = torch.zeros((1, 8, 2, dims[1]), device=cuda, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="takes \\(Dqk, Dv\\)"):
+        flash_attention(q, q, v)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b"])
+def test_reduced_moe_family_on_cuda_matches_cpu(cuda, arch):
+    """The reduced float32 MoE family served on the card through
+    flash_attention's float32 kernel (MLA at (48, 32)), each prefill one
+    launch a layer; its prefill and decode logits within 1e-5 of max of
+    the same model on the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    stats = serve(cfg, requests=3, batch=2, prompt_len=32, max_new=4, device=cuda)
+    assert stats["n_requests"] == 3 and stats["logits_finite"]
+    cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    dev_model = copy.deepcopy(cpu_model).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    (want, cpu_cache), (got, dev_cache) = (prefill(m, {"tokens": toks})
+                                           for m in (cpu_model, dev_model))
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    _close_to_max(got.cpu(), want)
+    for _ in range(2):
+        tok = torch.argmax(want, dim=-1)[:, None]
+        want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+        got, dev_cache = decode(dev_model, dev_cache, tok)
+        _close_to_max(got.cpu(), want)
 
 
 @pytest.mark.parametrize("arch,kernel", [("falcon-mamba-7b", "ssm_scan"),

@@ -252,8 +252,9 @@ def test_lazy_population_routes_to_the_host_plane(monkeypatch):
     assert calls == [1] and h.accuracy_per_client.shape == (2, 6)
 
 
-_UNPORTED_ARCHS = ["deepseek-v2-lite-16b", "stablelm-12b", "whisper-tiny", "moonshot-v1-16b-a3b",
-                   "qwen2-vl-2b", "jamba-v0.1-52b", "deepseek-moe-16b", "chatglm3-6b"]
+_UNPORTED_ARCHS = ["stablelm-12b", "whisper-tiny", "qwen2-vl-2b", "jamba-v0.1-52b", "chatglm3-6b"]
+_ZOO_ARCHS = ["falcon-mamba-7b", "granite-3-8b", "deepseek-moe-16b", "moonshot-v1-16b-a3b",
+              "deepseek-v2-lite-16b"]
 
 
 @pytest.mark.parametrize("arch", _UNPORTED_ARCHS)
@@ -262,14 +263,14 @@ def test_unported_archs_raise(arch):
         get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", _ZOO_ARCHS)
 def test_ported_archs_are_registered(arch):
     assert get_config(arch).name == arch
 
 
-@pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla"),
-                                    dict(rope_variant="half"), dict(frontend="vision_stub"),
-                                    dict(encoder_decoder=True), dict(ssm=True, attn_period=8)],
+@pytest.mark.parametrize("change", [dict(rope_variant="half"), dict(frontend="vision_stub"),
+                                    dict(encoder_decoder=True), dict(ssm=True, attn_period=8),
+                                    dict(tie_embeddings=True)],
                          ids=str)
 def test_model_features_outside_the_slice_raise(change):
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
@@ -277,7 +278,43 @@ def test_model_features_outside_the_slice_raise(change):
         get_model(cfg)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-3-8b"])
+@pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla")],
+                         ids=str)
+def test_moe_and_mla_features_run(change):
+    """MoE layers and MLA attention (which raised before the MoE family was
+    ported) build and run a prefill and a decode step on the CPU, on
+    granite's reduced config."""
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    logits, cache = bundle.make_prefill_step()(model, {"tokens": toks})
+    logits, cache = bundle.make_decode_step()(model, cache, logits.argmax(-1)[:, None])
+    assert logits.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    if cfg.moe:
+        assert all("moe" in blk for blk in model.blocks)
+        _, _, aux = transformer.forward(model, cfg, toks)
+        assert float(aux) > 0
+    else:
+        assert set(cache["layers"][0]) == {"c_kv", "k_rope", "kv_pos"}
+
+
+def test_expert_parallel_moe_raises():
+    """The JAX package's expert-parallel MoE (``moe_apply_ep``, taken only
+    under its production mesh) comes with ROADMAP.md queue 1 item 14.8."""
+    from repro_torch.models import layers
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 14.8"):
+        layers.moe_apply(p, x, cfg, expert_parallel=True)
+    y, _ = layers.moe_apply(p, x, cfg)
+    assert y.shape == x.shape
+
+
+@pytest.mark.parametrize("arch", _ZOO_ARCHS)
 def test_training_mode_raises(arch):
     cfg = get_config(arch).reduced()
     bundle = get_model(cfg)

@@ -196,12 +196,25 @@ def test_mamba_prefill_and_decode():
 # ---------------------------------------------------------------------------
 
 
+def _jax_layers(cfg, tree):
+    """A JAX parameter or cache tree's per-layer dicts in execution order:
+    the prologue, then period entry j at index i of the stack
+    (``transformer.layer_plan``), leaves as numpy arrays."""
+    n_pro, p, n_periods = T.layer_plan(cfg)
+    assert len(tree["prologue"]) == n_pro and len(tree["stack"]) == (p if n_periods else 0)
+
+    def take(node, i=None):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node) if i is None else np.asarray(node)[i]
+
+    layers = [take(blk) for blk in tree["prologue"]]
+    return layers + [take(tree["stack"][j], i) for i in range(n_periods) for j in range(p)]
+
+
 def _jax_layer_caches(cfg, cache):
-    """The JAX cache's per-layer dicts in execution order (one uniform
-    stack whose leaves carry a leading n_layers axis)."""
-    assert not cache["prologue"] and len(cache["stack"]) == 1
-    return [{k: np.asarray(v)[i] for k, v in cache["stack"][0].items()}
-            for i in range(cfg.n_layers)]
+    """The JAX cache's per-layer dicts in execution order."""
+    return _jax_layers(cfg, cache)
 
 
 def _close_caches(cfg, tcache, jcache, rel, what):
@@ -226,15 +239,26 @@ def lm(request):
     return cfg, params, model, jax.jit(bundle.make_prefill_step()), jax.jit(bundle.make_decode_step())
 
 
+def _assert_same_weights(blk, jblk, what):
+    """Every leaf of the port's block (nested ``ParamTree``s) bitwise the
+    JAX block's, dtype included, and no leaf missing on either side."""
+    assert sorted(blk.keys()) == sorted(jblk), (what, blk.keys(), list(jblk))
+    for name, value in blk.items():
+        if isinstance(jblk[name], dict):
+            _assert_same_weights(value, jblk[name], f"{what}.{name}")
+            continue
+        want = np.asarray(jblk[name])
+        assert str(value.dtype).removeprefix("torch.") == want.dtype.name, (what, name)
+        np.testing.assert_array_equal(_np(value), _np(want), err_msg=f"{what}.{name}")
+
+
 def test_lm_params_from_numpy_carries_every_weight(lm):
     cfg, params, model, _, _ = lm
     assert len(model.blocks) == cfg.n_layers
     assert model.embed.dtype == getattr(torch, cfg.dtype)
     np.testing.assert_array_equal(_np(model.head), _np(params["head"]))
-    stack = params["stack"][0]
-    for i, blk in enumerate(model.blocks):
-        for name, value in blk["mixer"].items():
-            np.testing.assert_array_equal(_np(value), _np(np.asarray(stack["mixer"][name])[i]))
+    for i, (blk, jblk) in enumerate(zip(model.blocks, _jax_layers(cfg, params), strict=True)):
+        _assert_same_weights(blk, jblk, f"layer {i}")
 
 
 def test_prefill_and_decode_logits_and_caches(lm):

@@ -39,6 +39,7 @@ from repro_torch.serve import ContinuousBatcher, DecodeProgram, ServeRequest, gr
 from repro_torch.weights import lm_params_from_numpy  # noqa: E402
 
 ARCHS = ["falcon-mamba-7b", "granite-3-8b"]
+ZOO_ARCHS = ARCHS + ["deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"]
 MODES = pytest.mark.parametrize("partitionable", [True, False], ids=["partitionable", "legacy"])
 LOGITS_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8}  # test_torch_lm.py's contracts
 
@@ -80,7 +81,7 @@ def test_categorical_matches_jax(seed, partitionable):
 
 
 @MODES
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
 def test_make_concrete_batch_draws_the_jax_prompts(arch, partitionable):
     with both(partitionable):
         want = jax_make_concrete_batch(jax_get_config(arch), "prefill", 8, 64, jax.random.PRNGKey(1))
@@ -207,7 +208,7 @@ def test_greedy_decode_matches_jax(served):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
 def test_serve_on_the_cpu(arch):
     cfg = get_config(arch).reduced()
     stats = serve(cfg, requests=3, batch=2, prompt_len=8, max_new=4, seed=0, device="cpu")
@@ -221,4 +222,12 @@ def test_serve_cli_runs_the_reduced_config(capsys):
     stats = serve_main(["--arch", "granite-3-8b", "--requests", "2", "--batch", "2",
                         "--prompt-len", "8", "--max-new", "3", "--device", "cpu"])
     assert stats["n_requests"] == 2
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS[2:])
+def test_serve_cli_takes_the_moe_family(arch, capsys):
+    stats = serve_main(["--arch", arch, "--requests", "2", "--batch", "2", "--prompt-len", "8",
+                        "--max-new", "2", "--device", "cpu"])
+    assert stats["n_requests"] == 2 and stats["logits_finite"]
     assert "served 2 requests" in capsys.readouterr().out
