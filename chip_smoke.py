@@ -40,11 +40,14 @@ drives the port's two paths:
   and every test row of the 30 clients served as one request each through
   ``ClassifyProgram`` and ``ContinuousBatcher`` with a ``ServeRecorder``;
 - LM serving at full width and full depth, falcon-mamba-7b, granite-3-8b,
-  and the MoE family: deepseek-moe-16b, deepseek-v2-lite-16b (MLA, whose
-  prefill runs flash_attention at q/k head dim 192 and v head dim 128) and
-  moonshot-v1-16b-a3b with its depth cut to 4 layers (8 requests, batch 4,
-  prompts of 2048 tokens, up to 32 new tokens, random weights from seed
-  0), through ``repro_torch.launch.serve.serve``, after the port's reduced
+  the dense GQA models chatglm3-6b (half RoPE; flash_attention at G = 16),
+  stablelm-12b (flash_attention at head dim 160) and qwen2-vl-2b (M-RoPE and
+  the vision stub, 1,024 vision and 1,024 text tokens a prompt, served in
+  waves; G = 6), and the MoE family: deepseek-moe-16b, deepseek-v2-lite-16b
+  (MLA, whose prefill runs flash_attention at q/k head dim 192 and v head
+  dim 128) and moonshot-v1-16b-a3b with its depth cut to 4 layers (8
+  requests, batch 4, prompts of 2048 tokens, up to 32 new tokens, random
+  weights from seed 0), through ``repro_torch.launch.serve.serve``, after the port's reduced
   models on the card are held to the same models on the CPU, and a
   recorded serving session of the reduced granite-3-8b (``serve(...,
   record=dir)``); the MoE layer's time at the prefill shape, split into
@@ -280,6 +283,8 @@ CLASSIFY_REL = 1e-5
 
 # LM serving at full width and depth (the arch, the kernel its prefill runs)
 SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"),
+               ("chatglm3-6b", "flash_attention"), ("stablelm-12b", "flash_attention"),
+               ("qwen2-vl-2b", "flash_attention"),
                ("deepseek-moe-16b", "flash_attention"), ("deepseek-v2-lite-16b", "flash_attention"),
                ("moonshot-v1-16b-a3b", "flash_attention"))
 # depth cuts of the serving run: moonshot at full width with 4 of its 48
@@ -299,7 +304,8 @@ LM_REL = 1e-5
 # logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
 # rounding flip of a scan input; tests/test_torch_lm.py)
 REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe-16b": 1e-5,
-               "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5}
+               "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5, "chatglm3-6b": 1e-5,
+               "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5}
 
 
 class SmokeFailure(RuntimeError):
@@ -733,11 +739,13 @@ def phase_lm_kernels(dev: torch.device) -> dict:
 
 def sdpa_fused_ms(q, k, v) -> tuple:
     """``scaled_dot_product_attention`` (causal, q (B, S, H, Dqk), k, v in
-    the model layout, one kv head per q head) through each fused backend
-    that takes the shape: (the fastest one's device ms or None, its name,
-    every backend's ms or the first line of its refusal)."""
+    the model layout, ``enable_gqa`` where k and v have fewer heads) through
+    each fused backend that takes the shape: (the fastest one's device ms
+    or None, its name, every backend's ms or the first line of its
+    refusal)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    gqa = k.shape[2] != q.shape[2]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     tried = {}
     for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
@@ -748,7 +756,7 @@ def sdpa_fused_ms(q, k, v) -> tuple:
         try:
             with sdpa_kernel([backend]):
                 fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    qh, kh, vh, is_causal=True)
+                    qh, kh, vh, is_causal=True, **({"enable_gqa": True} if gqa else {}))
                 fn()
                 torch.cuda.synchronize()
                 tried[name] = device_ms(fn)
@@ -760,31 +768,50 @@ def sdpa_fused_ms(q, k, v) -> tuple:
 
 
 def zoo_attention_kernels(dev: torch.device, randn) -> dict:
-    """flash_attention at the MoE family's prefill shapes (B=4, S=2048,
-    bf16): deepseek-v2-lite's MLA (H = Hkv = 16, Dqk = 192, Dv = 128) and
-    deepseek-moe's MHA (H = Hkv = 16, D = 128, G = 1), each against its
-    plain version under the bf16 contract, with its device ms, bound and
-    the fused SDPA backends' ms; and the float32 kernel at the reduced MLA
-    dims (48, 32) against its plain version. Keys prefixed ``mla_`` and
-    ``moe_`` for the flash_attention row."""
+    """flash_attention at the other zoo archs' prefill shapes (B=4, S=2048,
+    bf16): deepseek-v2-lite's MLA (H = Hkv = 16, Dqk = 192, Dv = 128),
+    deepseek-moe's MHA (H = Hkv = 16, D = 128, G = 1), stablelm-12b's
+    (H 32, Hkv 8, D = 160: 64-key tiles; also with a window of 512 and at a
+    ragged S of 2000), chatglm3-6b's (H 32, Hkv 2, D 128, G = 16) and
+    qwen2-vl-2b's (H 12, Hkv 2, D 128, G = 6), each against its plain
+    version under the bf16 contract, with its device ms, bound and the
+    fused SDPA backends' ms; and the float32 kernel at the reduced MLA dims
+    (48, 32) against its plain version. Keys prefixed ``mla_``, ``moe_``,
+    ``stablelm_``, ``chatglm3_`` and ``qwen2vl_`` for the flash_attention
+    row."""
     b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
     ds, dm = get_config("deepseek-v2-lite-16b"), get_config("deepseek-moe-16b")
-    shapes = {"mla": (ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim),
-              "moe": (dm.n_heads, dm.head_dim_, dm.head_dim_)}
+    shapes = {"mla": (ds.n_heads, ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim),
+              "moe": (dm.n_heads, dm.n_heads, dm.head_dim_, dm.head_dim_)}
+    for key, arch in (("stablelm", "stablelm-12b"), ("chatglm3", "chatglm3-6b"),
+                      ("qwen2vl", "qwen2-vl-2b")):
+        c = get_config(arch)
+        shapes[key] = (c.n_heads, c.n_kv_heads, c.head_dim_, c.head_dim_)
     row, report = {}, {}
-    for key, (h, dq, dv) in shapes.items():
-        q, k = (randn(b, s, h, dq).to(torch.bfloat16) for _ in range(2))
-        v = randn(b, s, h, dv).to(torch.bfloat16)
+    for key, (h, hkv, dq, dv) in shapes.items():
+        q = randn(b, s, h, dq).to(torch.bfloat16)
+        k = randn(b, s, hkv, dq).to(torch.bfloat16)
+        v = randn(b, s, hkv, dv).to(torch.bfloat16)
         got = flash_attention(q, k, v)
         want = flash_attention_plain(q, k, v)
         report[key] = r = bf16_contract(got, want, q, k, v)
         check(got.shape == (b, s, h, dv) and r["ok"],
               f"flash_attention at {key}'s shape (Dqk {dq}, Dv {dv}) fails its contract: {r}")
-        n_bytes = 2 * b * s * h * (2 * dq + 2 * dv)
+        if key == "stablelm":  # the new head dim windowed and at a ragged length too
+            for name, (qq, kk, vv), window in (
+                    ("w512", (q, k, v), 512),
+                    ("S=2000", (q[:, :2000], k[:, :2000], v[:, :2000]), 0)):
+                qq, kk, vv = (t.contiguous() for t in (qq, kk, vv))
+                report[f"{key} {name}"] = r = bf16_contract(
+                    flash_attention(qq, kk, vv, window=window),
+                    flash_attention_plain(qq, kk, vv, window=window), qq, kk, vv, window=window)
+                check(r["ok"], f"flash_attention at {key}'s shape, {name}, fails its contract: {r}")
+            del qq, kk, vv
+        n_bytes = 2 * b * s * (h * dq + hkv * dq + hkv * dv + h * dv)
         bound, by = bound_ms(n_bytes, 2 * b * h * (dq + dv) * visible_pairs(s, s, True, 0),
                              BF16_FLOPS)
         lib, backend, tried = sdpa_fused_ms(q, k, v)
-        row.update({f"{key}_shape": [b, s, h, h, dq, dv],
+        row.update({f"{key}_shape": [b, s, h, hkv, dq, dv],
                     f"{key}_max_abs_err": float((got.float() - want.float()).abs().max()),
                     f"{key}_ms": device_ms(lambda: flash_attention(q, k, v)),
                     f"{key}_plain_ms": device_ms(lambda: flash_attention_plain(q, k, v), reps=3),
@@ -797,10 +824,11 @@ def zoo_attention_kernels(dev: torch.device, randn) -> dict:
     v = randn(2, 512, 4, 32)
     row["mla_f32_gap"] = gap = rel_gap(flash_attention(q, k, v), flash_attention_plain(q, k, v))
     check(gap <= LM_REL, f"flash_attention float32 at (48, 32): {gap} of max > {LM_REL}")
-    print(f"[kernels] flash_attention B={b} S={s} H=Hkv=16 bf16 causal vs plain (contract, "
-          f"kernels/flash_attention/contract.py), MLA Dqk=192 Dv=128 and MHA D=128 (G=1); "
-          f"SDPA's fused backends (each alone, or its refusal); float32 at "
-          f"(48, 32) within {LM_REL} of max: {json.dumps(report)} {json.dumps(row)}")
+    print(f"[kernels] flash_attention B={b} S={s} bf16 causal vs plain (contract, "
+          f"kernels/flash_attention/contract.py), [B, S, H, Hkv, Dqk, Dv] in the *_shape keys: "
+          f"MLA Dqk=192 Dv=128 and MHA D=128 (G=1), stablelm D=160 (also w512 and S=2000), "
+          f"chatglm3 G=16, qwen2-vl G=6; SDPA's fused backends (each alone, or its refusal); "
+          f"float32 at (48, 32) within {LM_REL} of max: {json.dumps(report)} {json.dumps(row)}")
     return row
 
 
@@ -871,17 +899,17 @@ class MoEDropCounter:
 def phase_lm_reference(dev: torch.device) -> None:
     """The reduced float32 models on the card (through the kernels) against
     the same models on the CPU (plain versions): prefill and 4 greedy
-    decode steps. The MoE family's reduced MLA runs the float32 kernel at
-    (Dqk, Dv) = (48, 32)."""
+    decode steps, on one batch from ``make_concrete_batch`` (qwen2-vl's
+    vision embeddings and M-RoPE positions included). The MoE family's
+    reduced MLA runs the float32 kernel at (Dqk, Dv) = (48, 32)."""
     for arch, kernel in SERVE_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
         dev_model = copy.deepcopy(cpu_model).to(dev)
-        toks = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))["tokens"]
+        batch = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))
         prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
         kernels.reset_launch_counts()
-        (want, cpu_cache), (got, dev_cache) = (prefill(m, {"tokens": toks})
-                                               for m in (cpu_model, dev_model))
+        (want, cpu_cache), (got, dev_cache) = (prefill(m, batch) for m in (cpu_model, dev_model))
         check(kernels.launch_counts()[kernel] == cfg.n_layers, f"{arch} reduced: kernel not launched")
         gaps = [rel_gap(got.cpu(), want)]
         for _ in range(4):
@@ -893,6 +921,24 @@ def phase_lm_reference(dev: torch.device) -> None:
               f"{arch} reduced: card vs CPU logits {gaps} > {REDUCED_REL[arch]} of max")
         print(f"[lm] {arch} reduced float32 on the card vs the CPU: logits gap / max, prefill "
               f"then 4 decode steps {gaps} (contract {REDUCED_REL[arch]})")
+    # the serving waves draw qwen2-vl's batch on the card: bitwise the host's
+    cfg = get_config("qwen2-vl-2b")
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    t0 = time.perf_counter()
+    host = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7))
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7, device=dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    bits = lambda t: t.cpu().view(torch.int16) if t.dtype == torch.bfloat16 else t.cpu()  # noqa: E731
+    check(list(card) == list(host) and card["positions"].device.type == "cpu"
+          and all(card[k].device.type == "cuda" for k in ("vision_embeds", "tokens"))
+          and all(torch.equal(bits(card[k]), bits(host[k])) for k in host),
+          "qwen2-vl-2b make_concrete_batch on the card differs from the host draw")
+    print(f"[lm] qwen2-vl-2b make_concrete_batch ({b}, {s}: vision embeddings "
+          f"{tuple(host['vision_embeds'].shape)} bf16, tokens, positions) drawn on the card "
+          f"bitwise the host draw; wall s host {host_s:.3f}, card {card_s:.3f}")
 
 
 def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:

@@ -3,8 +3,11 @@
 The port holds the paper's own model (``har-mlp``) and the model-zoo
 architectures it serves: ``falcon-mamba-7b`` (Mamba-1), ``granite-3-8b``
 (GQA) and the MoE family, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b`` and
-``deepseek-v2-lite-16b`` (MLA). The other architectures of the JAX package
-come with ROADMAP.md queue 1 item 14.
+``deepseek-v2-lite-16b`` (MLA), and the dense GQA models with other RoPE
+variants and head dims: ``chatglm3-6b`` (half RoPE), ``stablelm-12b``
+(head dim 160) and ``qwen2-vl-2b`` (M-RoPE and the vision stub). The other
+architectures of the JAX package (jamba, whisper) come with ROADMAP.md
+queue 1 item 14.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig, get_shape
@@ -16,6 +19,9 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
 
 

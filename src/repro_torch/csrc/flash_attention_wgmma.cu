@@ -8,12 +8,13 @@
 //
 // What it computes, for q (B, S, H, DQK), k (B, T, Hkv, DQK) and v (B, T,
 // Hkv, DV) in bfloat16 in the model's layout ((DQK, DV) = (64, 64),
-// (128, 128), or MLA's (192, 128): deepseek-v2-lite's q and k carry 128
-// content and 64 decoupled-RoPE dims, its v 128), with G = H / Hkv:
+// (128, 128), MLA's (192, 128): deepseek-v2-lite's q and k carry 128
+// content and 64 decoupled-RoPE dims, its v 128; or stablelm-12b's
+// (160, 160)), with G = H / Hkv (any integer: chatglm3's 16, qwen2-vl's 6):
 //   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
 // where key t is visible to query s iff t < T, t <= s when causal, and
 // t > s - window when window > 0 (positions are the indices). The softmax
-// is online over 128-key tiles: float32 scores, running max m and sum l,
+// is online over key tiles (128 keys; 64 at (160, 160)): float32 scores, running max m and sum l,
 // p = exp(s - m_new) in float32 (a masked key gives p = 0 exactly), l sums
 // the float32 p, and P is rounded to bf16 before P.V, which accumulates in
 // float32; out = acc / max(l, 1e-30), written in bf16. exp is taken as
@@ -23,7 +24,7 @@
 // arithmetic of JAX's chunked_attention (models/layers.py: p.astype(v.dtype)
 // into the P.V einsum), which the JAX model's prefill runs; the Pallas
 // kernel keeps P in float32. flash_attention_plain repeats it with the
-// same 128-key tiles.
+// same key tiles.
 //
 // Bound on an H100 at granite-3-8b's prefill (B=4, S=T=2048, H=32, Hkv=8,
 // D=128): operations — the visible half of the score matrix,
@@ -32,7 +33,10 @@
 // 168 MB, 0.050 ms at 3.35 TB/s. Operations bind, so both products run on
 // wgmma. At deepseek-v2-lite's (B=4, S=T=2048, H=Hkv=16, DQK=192, DV=128)
 // the visible half is 2 * B * H * (DQK + DV) * S(S+1)/2 = 0.0859 TFLOP,
-// 0.0869 ms; at deepseek-moe's (H=Hkv=16, D=128) 0.0687 TFLOP, 0.0695 ms.
+// 0.0869 ms; at deepseek-moe's (H=Hkv=16, D=128) 0.0687 TFLOP, 0.0695 ms;
+// at stablelm-12b's (H=32, Hkv=8, D=160) 0.1719 TFLOP, 0.174 ms; at
+// chatglm3-6b's (H=32, Hkv=2, D=128) granite's 0.139 ms; at qwen2-vl-2b's
+// (H=12, Hkv=2, D=128) 0.0516 TFLOP, 0.052 ms.
 //
 // Design. One CTA per (b, q head, 128-row q tile), 384 threads in three
 // warpgroups; heavy (late, causal) q tiles are launched first.
@@ -73,15 +77,30 @@
 //   wgmmas ("insufficient register resources") and it ran slower.
 // - Key tiles that the mask hides from every row of the q tile (above the
 //   diagonal, or wholly before the window) are neither loaded nor computed.
+// - (160, 160), stablelm-12b. 160 is not a multiple of the 64-column span,
+//   so every tile's third span is a full 64-column box at column 128 whose
+//   last 32 columns lie past D: TMA fills them with zeros (the tensors are
+//   read in place, 160 wide; no padded copy). S takes 10 k16 steps, none in
+//   the zero fill; O is m64n128 over the first two spans plus m64n64 over
+//   the third, 96 registers, whose zero-filled half is never written out.
+//   With 128-key tiles that would be S's 64 registers + O's 96 live through
+//   the softmax, over the 168 that ptxas allocates, and a 240 KB ring of
+//   padded tiles, over the 227 KB a block may take; so this instantiation
+//   takes 64-key tiles (BN = 64): S is m64n64 (32 registers), P 16, and
+//   S + O = 128 as at D = 128; Q 48 KB + two 24 KB K stages + two 24 KB V
+//   stages = 144 KB. The cost: twice the tiles, each with its barriers and
+//   softmax, and 20% more P.V products (192 columns for 160).
+//   flash_attention_plain takes the same 64-key tiles at this head dim.
 //
 // Tiles: 128 q rows x 128 keys, 2 stages: shared memory 160 KB + barriers
 // at D = 128 (80 KB at D = 64), one CTA per SM (a third stage, 224 KB,
 // ran slower). At (192, 128): a 48 KB q tile, a 96 KB K ring and a 64 KB V
 // ring (V is not padded to 192), 208 KB + barriers, under the 227 KB a
-// block may take. ptxas (CUDA 12.8) reports
-// 168 registers for every instantiation (setmaxnreg moves registers at run
-// time but ptxas still allocates within 168), no spills at D = 128 and at
-// (192, 128), 80 bytes of spill stores at D = 64; printed by
+// block may take. At (160, 160): 128 q rows x 64 keys, 144 KB.
+// ptxas (CUDA 12.8) reports 168 registers for every instantiation
+// (setmaxnreg moves registers at run time but ptxas still allocates within
+// 168), no spills at D = 128, at (192, 128) and at (160, 160) with its
+// 64-key tiles, 80 bytes of spill stores at D = 64; printed by
 // `python -c "from repro_torch.kernels import build; build.build(verbose=True)"`.
 //
 // TMA's tensor maps need the CUDA driver API's cuTensorMapEncodeTiled; it is taken
@@ -102,7 +121,6 @@
 namespace {
 
 constexpr int kBlockM = 128;               // query rows per CTA
-constexpr int kBlockN = 128;               // keys per K/V tile
 constexpr int kStages = 2;                 // K/V ring depth
 constexpr int kConsumers = 2;              // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
@@ -110,11 +128,15 @@ constexpr int kSpan = 64;                  // bf16 columns of one 128-byte swizz
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DQK, int DV>
+// 64-column spans of a row of d columns, the last one zero-filled past d
+__host__ __device__ constexpr int spans(int d) { return (d + kSpan - 1) / kSpan; }
+
+// BN keys per K/V tile: 128, or 64 at (160, 160)
+template <int DQK, int DV, int BN>
 struct Smem {
-  alignas(1024) __nv_bfloat16 q[DQK / kSpan][kBlockM][kSpan];
-  alignas(1024) __nv_bfloat16 k[kStages][DQK / kSpan][kBlockN][kSpan];
-  alignas(1024) __nv_bfloat16 v[kStages][DV / kSpan][kBlockN][kSpan];
+  alignas(1024) __nv_bfloat16 q[spans(DQK)][kBlockM][kSpan];
+  alignas(1024) __nv_bfloat16 k[kStages][spans(DQK)][BN][kSpan];
+  alignas(1024) __nv_bfloat16 v[kStages][spans(DV)][BN][kSpan];
   uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -226,11 +248,35 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(OffA), "n"(OffB));
 }
 
-// d (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16 x 128, smem,
-// MN-major: the transpose bit), B starting OffB 16-byte units past desc_b.
-template <int OffB>
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+// d (64 x 64, float32) {=, +=} A (64 x 16, smem) . B (16 x 64, smem), both
+// K-major, as wgmma_ss_m64n128k16 (the S of a 64-key tile).
+template <int OffA, int OffB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "add.s64 da, %32, %35;\n"
+      "add.s64 db, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(OffA), "n"(OffB));
+}
+
+// d[O .. O + 63] (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16
+// x 128, smem, MN-major: the transpose bit), B starting OffB 16-byte units
+// past desc_b.
+template <int OffB, int O = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[N], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
+  static_assert(O + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -242,22 +288,24 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, db, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]), "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]),
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]), "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]), "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]),
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]), "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]),
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]), "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(OffB));
 }
 
-// d (64 x 64, float32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
-// MN-major: the transpose bit), B starting OffB 16-byte units past desc_b.
-template <int OffB>
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+// d[O .. O + 31] (64 x 64, float32) += A (64 x 16, bf16 registers) . B (16
+// x 64, smem, MN-major: the transpose bit), B starting OffB 16-byte units
+// past desc_b.
+template <int OffB, int O = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[N], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
+  static_assert(O + 32 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -267,37 +315,48 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]), "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(OffB));
 }
 
-// S = Q . K^T of a tile: DQK/16 wgmma steps, each 32 bytes further into the
-// 128-byte rows of a span (two 16-byte units), spans of the q and k tiles
-// kBlockM * 128 and kBlockN * 128 bytes apart.
-template <int D, int KK = 0>
-__device__ __forceinline__ void qk_steps(float (&s)[64], uint64_t q_desc, uint64_t k_desc) {
+// S = Q . K^T of a tile of BN keys: DQK/16 wgmma steps (10 at DQK = 160:
+// the zero-filled half of the third span is not multiplied), each 32 bytes
+// further into the 128-byte rows of a span (two 16-byte units), spans of
+// the q and k tiles kBlockM * 128 and BN * 128 bytes apart.
+template <int D, int BN, int KK = 0>
+__device__ __forceinline__ void qk_steps(float (&s)[BN / 2], uint64_t q_desc, uint64_t k_desc) {
   if constexpr (KK < D / 16) {
     constexpr int span = KK / 4, off = (KK % 4) * 2;
-    wgmma_ss_m64n128k16<span * kBlockM * 8 + off, span * kBlockN * 8 + off>(s, q_desc, k_desc,
-                                                                          KK > 0);
-    qk_steps<D, KK + 1>(s, q_desc, k_desc);
+    constexpr int off_q = span * kBlockM * 8 + off, off_k = span * BN * 8 + off;
+    if constexpr (BN == 128) {
+      wgmma_ss_m64n128k16<off_q, off_k>(s, q_desc, k_desc, KK > 0);
+    } else {
+      wgmma_ss_m64n64k16<off_q, off_k>(s, q_desc, k_desc, KK > 0);
+    }
+    qk_steps<D, BN, KK + 1>(s, q_desc, k_desc);
   }
 }
 
-// O += P . V of a tile: 16 keys (2048 bytes, 128 units) a step.
-template <int D, int KK = 0>
-__device__ __forceinline__ void pv_steps(float (&o)[D / 2], const uint32_t (&pa)[kBlockN / 16][4],
-                                         uint64_t v_desc) {
-  if constexpr (KK < kBlockN / 16) {
-    if constexpr (D == 128) {
-      wgmma_rs_m64n128k16<KK * 128>(o, pa[KK], v_desc);
-    } else {
+// O += P . V of a tile: 16 keys (2048 bytes, 128 units) a step. O spans
+// spans(D) * 64 columns: m64n128 over the first two spans (m64n64 over the
+// one span at D = 64), and at D = 160 m64n64 over the third span, whose
+// last 32 columns are TMA's zero fill and are never written out.
+template <int D, int BN, int KK = 0>
+__device__ __forceinline__ void pv_steps(float (&o)[spans(D) * 32],
+                                         const uint32_t (&pa)[BN / 16][4], uint64_t v_desc) {
+  if constexpr (KK < BN / 16) {
+    if constexpr (D == 64) {
       wgmma_rs_m64n64k16<KK * 128>(o, pa[KK], v_desc);
+    } else {
+      wgmma_rs_m64n128k16<KK * 128>(o, pa[KK], v_desc);
+      if constexpr (spans(D) == 3) {
+        wgmma_rs_m64n64k16<2 * BN * 8 + KK * 128, 64>(o, pa[KK], v_desc);
+      }
     }
-    pv_steps<D, KK + 1>(o, pa, v_desc);
+    pv_steps<D, BN, KK + 1>(o, pa, v_desc);
   }
 }
 
@@ -321,21 +380,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              __nv_bfloat16* __restrict__ out, int n_heads, int n_kv_heads,
                              int s_len, int t_len, int causal, int window, float scale) {
-  static_assert((DQK == 64 && DV == 64) || (DQK == 128 && DV == 128) ||
-                    (DQK == 192 && DV == 128),
-                "(DQK, DV) = (64, 64), (128, 128) or (192, 128)");
-  constexpr uint32_t kKTileBytes = kBlockN * DQK * 2;
-  constexpr uint32_t kVTileBytes = kBlockN * DV * 2;
+  static_assert((DQK == 64 && DV == 64 && BN == 128) ||
+                    (DQK == 128 && DV == 128 && BN == 128) ||
+                    (DQK == 192 && DV == 128 && BN == 128) ||
+                    (DQK == 160 && DV == 160 && BN == 64),
+                "(DQK, DV, BN) = (64, 64, 128), (128, 128, 128), (192, 128, 128) or (160, 160, 64)");
+  // what a tile's boxes write to shared memory, the zero fill past D included
+  constexpr uint32_t kQTileBytes = spans(DQK) * kBlockM * kSpan * 2;
+  constexpr uint32_t kKTileBytes = spans(DQK) * BN * kSpan * 2;
+  constexpr uint32_t kVTileBytes = spans(DV) * BN * kSpan * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;  // swizzle atoms
-  Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw + pad);
+  Smem<DQK, DV, BN>& sm = *reinterpret_cast<Smem<DQK, DV, BN>*>(smem_raw + pad);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // late (heavy) q tiles first
   const int h = blockIdx.y;
@@ -346,8 +409,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q_last = min(q0 + kBlockM, s_len) - 1;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
-  const int first = lo / kBlockN;
-  const int n_tiles = hi >= first * kBlockN ? (hi - first * kBlockN) / kBlockN + 1 : 0;
+  const int first = lo / BN;
+  const int n_tiles = hi >= first * BN ? (hi - first * BN) / BN + 1 : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
@@ -365,18 +428,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // ---- producer: one thread issues every TMA load of the CTA ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(&sm.q_full, kBlockM * DQK * 2);
-      for (int c = 0; c < DQK / kSpan; ++c)
+      mbar_expect_tx(&sm.q_full, kQTileBytes);
+      for (int c = 0; c < spans(DQK); ++c)
         tma_load(&sm.q[c][0][0], &q_map, &sm.q_full, c * kSpan, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&sm.kv_empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
-        const int k0 = (first + j) * kBlockN;
+        const int k0 = (first + j) * BN;
         mbar_expect_tx(&sm.k_full[st], kKTileBytes);
-        for (int c = 0; c < DQK / kSpan; ++c)
+        for (int c = 0; c < spans(DQK); ++c)
           tma_load(&sm.k[st][c][0][0], &k_map, &sm.k_full[st], c * kSpan, hk, k0, b);
         mbar_expect_tx(&sm.v_full[st], kVTileBytes);
-        for (int c = 0; c < DV / kSpan; ++c)
+        for (int c = 0; c < spans(DV); ++c)
           tma_load(&sm.v[st][c][0][0], &v_map, &sm.v_full[st], c * kSpan, hk, k0, b);
       }
     }
@@ -386,7 +449,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int lane = threadIdx.x % 32;
     const int r0 = q0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
     const int c0 = 2 * (lane % 4);  // first column of the thread in each 8-column block
-    constexpr int kO = DV / 2;      // accumulator registers of O (64 x DV)
+    constexpr int kO = spans(DV) * 32;  // accumulator registers of O (64 x spans(DV) * 64)
     float o[kO];
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.0f;
@@ -409,7 +472,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // wgmma descriptors of the tiles' starts; steps add 16-byte units to them
     const uint64_t q_desc = sw128_desc(&sm.q[0][wg * 64][0], 16, 1024);
     const uint64_t k_desc = sw128_desc(&sm.k[0][0][0][0], 16, 1024);
-    const uint64_t v_desc = sw128_desc(&sm.v[0][0][0][0], kBlockN * 128, 1024);
+    const uint64_t v_desc = sw128_desc(&sm.v[0][0][0][0], BN * 128, 1024);
     constexpr uint32_t kKStage16 = sizeof(sm.k[0]) / 16;  // one K stage
     constexpr uint32_t kVStage16 = sizeof(sm.v[0]) / 16;  // one V stage
 
@@ -422,32 +485,32 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % kStages;
       const uint32_t parity = (j / kStages) & 1;
-      const int k0 = (first + j) * kBlockN;
+      const int k0 = (first + j) * BN;
 
       // S = Q . K^T: DQK/16 wgmma steps, 32 bytes into each 128-byte span row
-      float s[64];
+      float s[BN / 2];
       mbar_wait(&sm.k_full[st], parity);
       if (j == 0) bar_sync(1 + wg);
       wgmma_fence();
-      qk_steps<DQK>(s, q_desc, k_desc + st * kKStage16);
+      qk_steps<DQK, BN>(s, q_desc, k_desc + st * kKStage16);
       wgmma_commit();
       bar_arrive(2 - wg);  // the other warpgroup's turn
       wgmma_wait_all();
       fence_regs(s);
 
       // online softmax on the fragment: mask, row max, p = exp(s - m_new)
-      const bool edge = (causal && k0 + kBlockN - 1 > q0) ||
-                        (window > 0 && k0 <= q0 + kBlockM - 1 - window) || k0 + kBlockN > t_len;
+      const bool edge = (causal && k0 + BN - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + kBlockM - 1 - window) || k0 + BN > t_len;
       float mx[2] = {m[0], m[1]};
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BN / 2; ++i) {
           s[i] = visible(k0, i) ? s[i] * scale : kNeg;
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BN / 2; ++i) {
           s[i] *= scale;
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
         }
@@ -463,13 +526,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BN / 2; ++i) {
           s[i] = visible(k0, i) ? ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1])) : 0.0f;
           sum[(i >> 1) & 1] += s[i];
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BN / 2; ++i) {
           s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1]));
           sum[(i >> 1) & 1] += s[i];
         }
@@ -480,22 +543,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < kO; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // P in bf16 as wgmma's A fragment: k16 step kk takes S columns 16kk .. 16kk + 15
-      uint32_t pa[kBlockN / 16][4];
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);  // row r, columns 2c, 2c + 1
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);  // row r + 8
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);  // row r, columns 8 + 2c, 9 + 2c
         pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row r + 8
       }
 
-      // O += P . V: V as stored (keys x DV) is B in MN-major; its DV/64
-      // 64-column spans lie kBlockN * 128 bytes apart, 8-key groups 1024
+      // O += P . V: V as stored (keys x DV) is B in MN-major; its
+      // 64-column spans lie BN * 128 bytes apart, 8-key groups 1024
       mbar_wait(&sm.v_full[st], parity);
       bar_sync(1 + wg);  // this warpgroup's turn
       fence_regs(o);
       wgmma_fence();
-      pv_steps<DV>(o, pa, v_desc + st * kVStage16);
+      pv_steps<DV, BN>(o, pa, v_desc + st * kVStage16);
       wgmma_commit();
       if (j + 1 == n_tiles && wg == 0) bar_arrive(2);  // warpgroup 1's last turn
       wgmma_wait_all();
@@ -516,9 +579,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < kO; i += 2) {
       const int rh = (i >> 1) & 1;
       const int row = r0 + 8 * rh;
-      if (row < s_len) {
+      const int col = 8 * (i >> 2) + c0;  // past DV only in the zero-filled span
+      if (row < s_len && col < DV) {
         __nv_bfloat16* dst = out + (static_cast<int64_t>(b) * s_len + row) * row_stride +
-                             static_cast<int64_t>(h) * DV + 8 * (i >> 2) + c0;
+                             static_cast<int64_t>(h) * DV + col;
         *reinterpret_cast<__nv_bfloat162*>(dst) =
             __floats2bfloat162_rn(__fdiv_rn(o[i], den[rh]), __fdiv_rn(o[i + 1], den[rh]));
       }
@@ -572,16 +636,16 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
 constexpr int kErrNoEncoder = -1;  // the CUDA driver has no cuTensorMapEncodeTiled
 constexpr int kErrBadMap = -2;     // a tensor map was refused (alignment, strides)
 
-template <int DQK, int DV>
+template <int DQK, int DV, int BN>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
            int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
            void* stream) {
-  constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV>)) + 1024;  // + alignment slack
+  constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV, BN>)) + 1024;  // + alignment slack
   static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQK, DV>,
+        cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQK, DV, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -593,15 +657,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   CUtensorMap q_map, k_map, v_map;
   if (!encode_map(encode, &q_map, q, DQK, n_heads, s_len, batch, kBlockM)) return kErrBadMap;
   if (t_len > 0) {
-    if (!encode_map(encode, &k_map, k, DQK, n_kv_heads, t_len, batch, kBlockN) ||
-        !encode_map(encode, &v_map, v, DV, n_kv_heads, t_len, batch, kBlockN)) {
+    if (!encode_map(encode, &k_map, k, DQK, n_kv_heads, t_len, batch, BN) ||
+        !encode_map(encode, &v_map, v, DV, n_kv_heads, t_len, batch, BN)) {
       return kErrBadMap;
     }
   } else {
     k_map = v_map = q_map;  // no key tile is loaded
   }
-  flash_attention_wgmma_kernel<DQK, DV><<<grid, kThreads, smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_wgmma_kernel<DQK, DV, BN><<<grid, kThreads, smem,
+                                              static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), n_heads, n_kv_heads, s_len, t_len,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -613,7 +677,7 @@ extern "C" {
 
 // bfloat16 q (B, S, H, DQK), k (B, T, Hkv, DQK), v and out (B, T or S, Hkv
 // or H, DV), contiguous with 16-byte aligned starts; (head_dim, head_dim_v)
-// = (64, 64), (128, 128) or (192, 128); H a multiple of Hkv. Returns
+// = (64, 64), (128, 128), (192, 128) or (160, 160); H a multiple of Hkv. Returns
 // cudaGetLastError() after the launch (0 = launched), or a negative code
 // when a TMA tensor map could not be built.
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
@@ -621,14 +685,17 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void
                                int head_dim, int head_dim_v, int causal, int window, float scale,
                                void* stream) {
   if (head_dim == 64 && head_dim_v == 64)
-    return launch<64, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                          scale, stream);
+    return launch<64, 64, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                               causal, window, scale, stream);
   if (head_dim == 128 && head_dim_v == 128)
-    return launch<128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                            window, scale, stream);
+    return launch<128, 128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                                 causal, window, scale, stream);
   if (head_dim == 192 && head_dim_v == 128)
-    return launch<192, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                            window, scale, stream);
+    return launch<192, 128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                                 causal, window, scale, stream);
+  if (head_dim == 160 && head_dim_v == 160)
+    return launch<160, 160, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+                                causal, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

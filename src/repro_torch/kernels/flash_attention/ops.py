@@ -8,7 +8,8 @@ their designs:
 
 - bfloat16: ``repro_torch/csrc/flash_attention_wgmma.cu`` — QK^T and P.V on
   Hopper's tensor cores (wgmma), K/V tiles fed by TMA through a 2-stage
-  shared-memory ring, two consumer warpgroups taking turns; 128-key tiles;
+  shared-memory ring, two consumer warpgroups taking turns; 128-key tiles,
+  64-key tiles at stablelm-12b's head dim 160;
 - float32 (the reduced parity configs): ``repro_torch/csrc/flash_attention.cu``
   — the CUDA cores; 64-key tiles.
 
@@ -19,7 +20,8 @@ the kernels are the prefill's path.
 Both take the model's layout, q (B, S, H, Dqk), k (B, T, Hkv, Dqk) and v
 (B, T, Hkv, Dv), with kv head ``h // (H / Hkv)`` for q head h (Dqk = Dv
 but for MLA, whose q and k carry the decoupled RoPE dims:
-deepseek-v2-lite's (192, 128)); key t is visible to query s when
+deepseek-v2-lite's (192, 128); G = H / Hkv any integer, chatglm3-6b's 16
+and qwen2-vl-2b's 6 among them); key t is visible to query s when
 t <= s (causal) and t > s - window (window > 0). Scores, the running max
 and sum, and the P.V accumulator are float32. In float32, P stays float32,
 as in the Pallas kernel. In bfloat16, P is rounded to bfloat16 before P.V
@@ -28,8 +30,8 @@ JAX's ``chunked_attention`` (``p.astype(v.dtype)``), not the Pallas
 kernel's.
 
 - ``flash_attention_plain``: the plain PyTorch version — the kernels'
-  online softmax over their key tiles (``softmax_tiles``: ``BLOCK_K`` keys
-  in bf16, ``BLOCK_K_F32`` in float32), step for step;
+  online softmax over their key tiles (``softmax_tiles``: ``key_tile``'s
+  keys), step for step;
 - ``flash_attention``: the wrapper, dispatching on the tensor's device (CPU
   -> plain, CUDA -> the kernel of its dtype, or raise);
 - ``flash_attention.launches``: the kernels' launch counter.
@@ -51,11 +53,19 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 # the (Dqk, Dv) pairs each kernel is instantiated for: the zoo's head dims in
 # bf16, and the reduced parity configs' in float32 (MLA's reduced (48, 32))
-HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128), (160, 160)),
              torch.float32: ((64, 64), (128, 128), (48, 32))}
 BLOCK_K = 128     # keys per tile of the bf16 (wgmma) kernel
+BLOCK_K_160 = 64  # ... at (160, 160), where 128-key tiles do not fit
 BLOCK_K_F32 = 64  # keys per tile of the float32 kernel
 _NEG = -1e30
+
+
+def key_tile(dtype: torch.dtype, dqk: int, dv: int) -> int:
+    """Keys per tile of the kernel that takes ``dtype`` at (Dqk, Dv)."""
+    if dtype != torch.bfloat16:
+        return BLOCK_K_F32
+    return BLOCK_K_160 if (dqk, dv) == (160, 160) else BLOCK_K
 
 
 def _layout(x, q):
@@ -65,8 +75,8 @@ def _layout(x, q):
 
 
 def softmax_tiles(q, k, v, causal: bool, window: int):
-    """The kernels' online softmax over key tiles (``BLOCK_K`` keys in
-    bf16, ``BLOCK_K_F32`` in float32), in float32: for each tile, its P
+    """The kernels' online softmax over key tiles (``key_tile`` keys), in
+    float32: for each tile, its P
     (b, hkv, g, s, keys) against the running max so far, the factor that
     rescales what came before (b, hkv, g, s), and its V (b, hkv, 1, keys,
     Dv). Scores are scaled by 1/sqrt(Dqk). What the kernels accumulate from
@@ -78,7 +88,7 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
     qg = q.to(torch.float32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)  # (b,hkv,g,s,d)
     kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]                  # (b,hkv,1,t,d)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
-    block = BLOCK_K if q.dtype == torch.bfloat16 else BLOCK_K_F32
+    block = key_tile(q.dtype, d, v.shape[-1])
     rows = torch.arange(s, device=q.device)[:, None]
     m = torch.full((b, hkv, g, s), _NEG, dtype=torch.float32, device=q.device)
     for k0 in range(0, t, block):
@@ -144,7 +154,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     if (dq, dv) not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
             f"flash_attention's {q.dtype} kernel takes (Dqk, Dv) in {HEAD_DIMS[q.dtype]}, got "
-            f"({dq}, {dv}) (stablelm-12b's 160 comes with ROADMAP.md queue 1 item 14.3)")
+            f"({dq}, {dv})")
     if k.shape != (b, t, hkv, dq) or v.shape != (b, t, hkv, dv) or h % hkv:
         raise ValueError(f"flash_attention: k must be (B, T, Hkv, Dqk) and v (B, T, Hkv, Dv) "
                          f"with H % Hkv == 0, got q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -69,7 +69,8 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
     bundle = get_model(cfg)
     model = bundle.init(torch.Generator(device=dev).manual_seed(seed))
     prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
-    batch_toks = make_concrete_batch(cfg, "prefill", batch, prompt_len, prng.PRNGKey(seed + 1))
+    batch_toks = make_concrete_batch(cfg, "prefill", batch, prompt_len,
+                                     prng.PRNGKey(seed + 1, device=dev))  # drawn on the card
 
     logits, cache = prefill(model, batch_toks)  # warm-up: allocator, cuBLAS plans
     logits, cache = decode(model, cache, torch.argmax(logits, -1)[:, None])

@@ -1,6 +1,12 @@
 """Batched serving entry point of the port: prefill queue + decode loop for a
-decoder LM (falcon-mamba-7b, granite-3-8b, deepseek-moe-16b, moonshot-v1-16b-a3b,
-deepseek-v2-lite-16b), with continuous batching.
+decoder LM (falcon-mamba-7b, granite-3-8b, chatglm3-6b, stablelm-12b,
+qwen2-vl-2b, deepseek-moe-16b, moonshot-v1-16b-a3b, deepseek-v2-lite-16b).
+Token-only LMs run continuous batching (``DecodeProgram`` under
+``ContinuousBatcher``: finished lanes are back-filled by re-prefilling the
+joined batch); an LM whose prefill batch holds more than tokens (qwen2-vl's
+vision embeddings and M-RoPE positions) is served in static waves of
+``batch`` requests through ``greedy_decode``, each wave's batch drawn from
+its own key, retiring together: the JAX launcher's two paths.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu] \\
@@ -37,7 +43,10 @@ from repro_torch.serve import (
     DecodeProgram,
     ServeRecorder,
     ServeRequest,
+    ServeResult,
+    greedy_decode,
     latency_stats,
+    token_only_prefill,
 )
 
 
@@ -84,7 +93,9 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
     ``decode_ms`` (each call's time: CUDA events on the card, the host
     clock elsewhere; ``timer`` says which) and ``logits_finite`` (every
     step's logits were finite). ``record`` is a directory for a serve
-    record of the session (``stats["record"]`` names it)."""
+    record of the session (``stats["record"]`` names it). An arch whose
+    prefill takes more than tokens is served in waves (``serve_waves``):
+    ``prefill_calls`` then counts the waves."""
     dev = resolve_device(device)
     bundle = get_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
@@ -100,25 +111,32 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
             extra={"prompt_len": prompt_len, "max_new": max_new}, device=dev)
 
     t0 = time.time()
-    proto = make_concrete_batch(cfg, "prefill", requests, prompt_len, prng.PRNGKey(seed + 1))
-    prompts = proto["tokens"].numpy()
-    program = DecodeProgram(prefill, decode, params, batch, prompt_len,
-                            eos_id=cfg.eos_token_id, temperature=temperature,
-                            rng=prng.PRNGKey(seed + 2))
-    reqs = [ServeRequest(rid=i, client_id=i, inputs=prompts[i], steps=max_new)
-            for i in range(requests)]
-    results = sorted(ContinuousBatcher(program, batch, recorder=recorder).run(reqs),
-                     key=lambda r: r.rid)
+    if token_only_prefill(cfg):
+        proto = make_concrete_batch(cfg, "prefill", requests, prompt_len, prng.PRNGKey(seed + 1))
+        prompts = proto["tokens"].numpy()
+        program = DecodeProgram(prefill, decode, params, batch, prompt_len,
+                                eos_id=cfg.eos_token_id, temperature=temperature,
+                                rng=prng.PRNGKey(seed + 2))
+        reqs = [ServeRequest(rid=i, client_id=i, inputs=prompts[i], steps=max_new)
+                for i in range(requests)]
+        results = ContinuousBatcher(program, batch, recorder=recorder).run(reqs)
+        n_tok, prefill_calls = program.tokens_out, program.prefill_calls
+    else:
+        results, n_tok, prefill_calls = serve_waves(
+            cfg, prefill, decode, params, requests=requests, batch=batch, prompt_len=prompt_len,
+            max_new=max_new, temperature=temperature, seed=seed, device=dev, recorder=recorder,
+            t0=t0)
+    results = sorted(results, key=lambda r: r.rid)
     dt = time.time() - t0
 
     stats = latency_stats(results)
     if recorder is not None:
-        stats["record"] = recorder.close(dict(stats, tokens=int(program.tokens_out),
-                                              tok_per_s=program.tokens_out / max(dt, 1e-9)))
+        stats["record"] = recorder.close(dict(stats, tokens=int(n_tok),
+                                              tok_per_s=n_tok / max(dt, 1e-9)))
     stats.update(
-        tokens=int(program.tokens_out),
-        tok_per_s=program.tokens_out / max(dt, 1e-9),
-        prefill_calls=program.prefill_calls,
+        tokens=int(n_tok),
+        tok_per_s=n_tok / max(dt, 1e-9),
+        prefill_calls=prefill_calls,
         lens=[r.steps for r in results],
         outputs=[r.output for r in results],
         prefill_ms=prefill.ms(),
@@ -128,6 +146,40 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
         device=str(dev),
     )
     return stats
+
+
+def serve_waves(cfg: ModelConfig, prefill, decode, params, *, requests: int, batch: int,
+                prompt_len: int, max_new: int, temperature: float, seed: int,
+                device: torch.device, recorder, t0: float):
+    """The JAX launcher's wave path, for an arch whose prefill batch holds
+    more than tokens: the requests in order, ``batch`` at a time; each wave
+    splits ``PRNGKey(seed + 2)``'s chain into (next, batch key, decode
+    key), draws its batch with ``make_concrete_batch`` on ``device`` (the
+    JAX launcher's jitted draw runs on its device too; the same bits as a
+    host draw, ``prompt_len`` positions: under the vision stub its vision
+    tokens and then text) and runs ``greedy_decode`` on it; the wave's
+    requests start together and finish together. Returns
+    (``ServeResult``s, tokens generated, waves), times relative to
+    ``t0``."""
+    rng = prng.PRNGKey(seed + 2)
+    queue, results, n_tok, waves = list(range(requests)), [], 0, 0
+    while queue:
+        wave, queue = queue[:batch], queue[batch:]
+        rng, sub, s_dec = prng.split(rng, 3)
+        inputs = make_concrete_batch(cfg, "prefill", len(wave), prompt_len, sub.to(device))
+        t_wave = time.time() - t0
+        seqs, n_gen = greedy_decode(prefill, decode, params, inputs, max_new,
+                                    eos_id=cfg.eos_token_id, temperature=temperature, rng=s_dec)
+        t_fin = time.time() - t0
+        waves += 1
+        n_tok += int(n_gen.sum())
+        for rid, out in zip(wave, seqs):
+            res = ServeResult(rid=rid, client_id=rid, output=out, enqueue_s=0.0, start_s=t_wave,
+                              finish_s=t_fin, steps=len(out))
+            results.append(res)
+            if recorder is not None:
+                recorder.on_request(res)
+    return results, n_tok, waves
 
 
 def main(argv=None):
@@ -149,7 +201,8 @@ def main(argv=None):
     stats = serve(cfg, requests=args.requests, batch=args.batch, prompt_len=args.prompt_len,
                   max_new=args.max_new, window=args.window, temperature=args.temperature,
                   seed=args.seed, device=args.device, record=args.record)
-    print(f"continuous: {stats['n_requests']} requests, lens {stats['lens']}, "
+    mode = "continuous" if token_only_prefill(cfg) else "waves"
+    print(f"{mode}: {stats['n_requests']} requests, lens {stats['lens']}, "
           f"{stats['prefill_calls']} prefills")
     print(f"prefill {statistics.median(stats['prefill_ms']):.3f} ms, decode step "
           f"{statistics.median(stats['decode_ms']):.3f} ms (medians, {stats['timer']}, "

@@ -5,8 +5,8 @@
     prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
 
 The JAX package's facade over decoder-only and encoder-decoder families;
-the encoder-decoder family (whisper), the vision frontend and training come
-with ROADMAP.md queue 1 item 14 and raise ``NotImplementedError`` here.
+the encoder-decoder family (whisper) and training come with ROADMAP.md
+queue 1 item 14 and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -55,23 +55,45 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
 
 
 def make_batch_specs(cfg: ModelConfig, kind: str, batch: int, seq: int):
-    """Shapes and dtypes of each input of a token-only LM's batch: a
-    prefill takes ``tokens``, a decode step nothing beyond its token."""
-    if cfg.encoder_decoder or cfg.frontend != "none":
+    """Shapes and dtypes of each input of a decoder LM's batch, in the JAX
+    package's order: a prefill takes ``tokens`` (B, S); under the vision
+    stub, ``vision_embeds`` (B, nv, D) bf16, ``tokens`` (B, max(S - nv, 1))
+    and ``positions`` (B, nv + that, 3), the M-RoPE streams. A decode step
+    takes nothing beyond its token."""
+    if cfg.encoder_decoder or cfg.frontend not in ("none", "vision_stub"):
         raise NotImplementedError(f"inputs of the {cfg.frontend!r} frontend: {_TODO}")
     if kind == "train":
         _no_training()
-    return {"tokens": ((batch, seq), torch.int32)} if kind == "prefill" else {}
+    if kind != "prefill":
+        return {}
+    if cfg.frontend == "vision_stub":
+        nv = cfg.n_vision_tokens
+        txt = max(seq - nv, 1)
+        return {"vision_embeds": ((batch, nv, cfg.d_model), torch.bfloat16),
+                "tokens": ((batch, txt), torch.int32),
+                "positions": ((batch, nv + txt, 3), torch.int32)}
+    return {"tokens": ((batch, seq), torch.int32)}
 
 
 def make_concrete_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
                         key: torch.Tensor) -> dict:
-    """Random token batch matching ``make_batch_specs``, drawn from a
-    threefry ``key`` exactly as the JAX package draws it (one split per
-    input, ``randint`` over the vocabulary), so both packages make the same
-    prompts from the same seed."""
+    """Random batch matching ``make_batch_specs``, drawn from a threefry
+    ``key`` exactly as the JAX package draws it: one split per input in the
+    specs' order; ``randint`` over the vocabulary for tokens, a float32
+    ``normal`` rounded to bf16 for the vision embeddings, and ``arange`` in
+    all three streams for the positions (its split unused). Both packages
+    make the same batch from the same seed, bit for bit, and so does a key
+    on the card (the draws run on the key's device). The positions are
+    made on the host whatever the key's device: the prefill checks their t
+    stream there."""
     out = {}
-    for name, (shape, _) in make_batch_specs(cfg, kind, batch, seq).items():
+    for name, (shape, dtype) in make_batch_specs(cfg, kind, batch, seq).items():
         key, sub = prng.split(key)
-        out[name] = prng.randint(sub, shape, 0, max(cfg.vocab_size, 2))
+        if name == "positions":
+            out[name] = torch.arange(shape[1], dtype=torch.int32)[None, :, None].expand(
+                shape).contiguous()
+        elif dtype == torch.int32:
+            out[name] = prng.randint(sub, shape, 0, max(cfg.vocab_size, 2))
+        else:
+            out[name] = prng.normal(sub, shape).to(dtype)
     return out

@@ -1,13 +1,14 @@
 """Transformer / SSM building blocks of the port's serving slice.
 
 The subset of the JAX package's ``models/layers.py`` that falcon-mamba-7b,
-granite-3-8b and the MoE family (deepseek-moe-16b, moonshot-v1-16b-a3b,
-deepseek-v2-lite-16b) run: RMSNorm, SiLU, full RoPE (optionally on the first
-``rope_dim`` dims), GQA and MLA attention (prefill and cached decode),
-SwiGLU, the token-choice top-k MoE, and the Mamba-1 block (prefill and
-decode). Plain functions on tensors; ``p`` is any mapping of parameter
-tensors (a dict, or a block's ``ParamTree``). Same conventions as
-the JAX module:
+the dense GQA models (granite-3-8b, chatglm3-6b, stablelm-12b, qwen2-vl-2b)
+and the MoE family (deepseek-moe-16b, moonshot-v1-16b-a3b,
+deepseek-v2-lite-16b) run: RMSNorm, SiLU, RoPE in its three variants (full,
+optionally on the first ``rope_dim`` dims; half, chatglm3's; M-RoPE,
+qwen2-vl's), GQA and MLA attention (prefill and cached decode), SwiGLU, the
+token-choice top-k MoE, and the Mamba-1 block (prefill and decode). Plain
+functions on tensors; ``p`` is any mapping of parameter tensors (a dict, or
+a block's ``ParamTree``). Same conventions as the JAX module:
 
   x          : (B, S, D) activations in the config's dtype
   q, k, v    : (B, S, H, Dh)
@@ -20,9 +21,8 @@ The prefills go through the port's CUDA kernels where JAX runs jnp code:
 head dim of vd) and ``mamba_block`` calls ``kernels.ssm_scan`` (JAX: a
 chunked ``lax.scan``). The decode steps and the MoE stay plain torch, as
 they are plain jnp in JAX (the experts are batched matrix products, which
-XLA computes outside any Pallas kernel). The half and M-RoPE variants and
-the expert-parallel MoE raise ``NotImplementedError`` naming their
-ROADMAP.md item (queue 1 items 14.3 and 14.8).
+XLA computes outside any Pallas kernel). The expert-parallel MoE raises
+``NotImplementedError`` naming its ROADMAP.md item (queue 1 item 14.8).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (full)
+# RoPE (full / half / M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -87,6 +87,25 @@ def _rope_cos_sin(positions: torch.Tensor, dim: int, base: float = 10000.0):
     return torch.cos(ang), torch.sin(ang)
 
 
+def _mrope_cos_sin(positions: torch.Tensor, sections, rope_dim: int, base: float = 10000.0):
+    """M-RoPE (Qwen2-VL section 3.1): positions (B, S, 3), the (t, h, w)
+    streams; section i of the ``rope_dim // 2`` frequencies, ``(arange(off,
+    off + sec) * 2) / rope_dim``, turns with stream i. -> cos, sin (B, S,
+    rope_dim // 2), float32."""
+    if sum(sections) != rope_dim // 2:
+        raise ValueError(f"mrope_sections {tuple(sections)} must sum to rope_dim // 2 = "
+                         f"{rope_dim // 2}")
+    cos, sin, off = [], [], 0
+    for i, sec in enumerate(sections):
+        freq = torch.arange(off, off + sec, dtype=torch.float32, device=positions.device) * 2
+        inv = 1.0 / (base ** (freq / rope_dim))
+        ang = positions[..., i].to(torch.float32)[..., None] * inv
+        cos.append(torch.cos(ang))
+        sin.append(torch.sin(ang))
+        off += sec
+    return torch.cat(cos, dim=-1), torch.cat(sin, dim=-1)
+
+
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate pairs (even, odd) of the last dim. x (..., d), cos/sin (..., d//2)."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
@@ -96,14 +115,21 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                rope_dim: int | None = None) -> torch.Tensor:
-    """Full RoPE on the first ``rope_dim`` dims (default: all) of x (B, S,
-    H, Dh) at positions (B, S); the other dims pass through (MLA's
-    decoupled RoPE). The half and M-RoPE variants are not ported."""
-    if cfg.rope_variant != "full":
-        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_item(3)}")
+    """The config's RoPE variant on the first ``rope_dim`` dims of x (B, S,
+    H, Dh); the other dims pass through. positions (B, S), or (B, S, 3)
+    under M-RoPE. ``rope_dim`` defaults to Dh, and to Dh // 2 under half
+    RoPE (chatglm3's rotary on half the head dims); MLA passes its
+    decoupled RoPE dims."""
     dh = x.shape[-1]
+    if cfg.rope_variant == "half" and rope_dim is None:
+        rope_dim = dh // 2
     rope_dim = rope_dim or dh
-    cos, sin = _rope_cos_sin(positions, rope_dim)
+    if cfg.rope_variant == "mrope":
+        cos, sin = _mrope_cos_sin(positions, cfg.mrope_sections, rope_dim)
+    elif cfg.rope_variant in ("full", "half"):
+        cos, sin = _rope_cos_sin(positions, rope_dim)
+    else:
+        raise ValueError(f"unknown rope_variant {cfg.rope_variant!r}")
     rot = _rotate(x[..., :rope_dim], cos[:, :, None, :], sin[:, :, None, :]).to(x.dtype)
     return rot if rope_dim == dh else torch.cat([rot, x[..., rope_dim:]], dim=-1)
 
@@ -158,13 +184,18 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
                   mode: str = "prefill"):
-    """mode: prefill (``positions`` = ``arange(S)``) | decode (``positions``
-    = the int position of the one token). Returns (out, new_cache).
+    """mode: prefill (``positions`` = ``arange(S)``, or under M-RoPE the
+    (B, S, 3) position streams whose t stream is ``arange(S)``) | decode
+    (``positions`` = the int position of the one token). Returns (out,
+    new_cache).
 
     Prefill runs ``kernels.flash_attention`` over the sequence, whose masks
-    count positions from 0, as the JAX function's masks over ``arange(S)``
-    do. Decode writes the new K/V in place at slot ``pos`` (``pos % T`` with
-    a window)."""
+    count positions from 0, as the JAX function's masks over ``lin_pos``
+    (``arange(S)``; under M-RoPE ``positions[0, :, 0]``) do; the caller
+    checks that the t stream is ``arange(S)`` (``transformer.forward``).
+    Decode writes the new K/V in place at slot ``pos`` (``pos % T`` with a
+    window); under M-RoPE its three streams are all ``pos``, as the JAX
+    decode step builds them."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"gqa_attention mode {mode!r}: training is {_TODO}")
     b, s, _ = x.shape
@@ -172,12 +203,16 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     q = (x @ p["wq"]).reshape(b, s, h, dh)
     k = (x @ p["wk"]).reshape(b, s, hkv, dh)
     v = (x @ p["wv"]).reshape(b, s, hkv, dh)
+    mrope = cfg.rope_variant == "mrope"
     if mode == "decode":
         pos = int(positions)
-        rope_pos = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        rope_pos = torch.full((b, 1, 3) if mrope else (b, 1), pos, dtype=torch.int32,
+                              device=x.device)
     else:
-        rope_pos = positions[None].expand(b, -1)
-    lin_pos = rope_pos[0].to(torch.int32)
+        rope_pos = positions if mrope else positions[None].expand(b, -1)
+    # the cache's own copy: decode writes kv_pos in place, and under M-RoPE
+    # rope_pos is the caller's batch tensor
+    lin_pos = (rope_pos[0, :, 0] if mrope else rope_pos[0]).to(torch.int32).clone()
     q = apply_rope(q, rope_pos, cfg)
     k = apply_rope(k, rope_pos, cfg)
 

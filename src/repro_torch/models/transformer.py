@@ -1,10 +1,15 @@
 """Decoder stack of the port's serving slice: falcon-mamba-7b (Mamba-1
-blocks), granite-3-8b (GQA + SwiGLU blocks) and the MoE family
-(deepseek-moe-16b and moonshot-v1-16b-a3b: GQA with a dense first layer
-and MoE layers after it; deepseek-v2-lite-16b: the same with MLA).
+blocks), the dense GQA + SwiGLU models (granite-3-8b; chatglm3-6b with half
+RoPE; stablelm-12b; qwen2-vl-2b with M-RoPE and the vision stub) and the
+MoE family (deepseek-moe-16b and moonshot-v1-16b-a3b: GQA with a dense
+first layer and MoE layers after it; deepseek-v2-lite-16b: the same with
+MLA).
 
 The model is an ``nn.Module``, ``DecoderLM``: the embedding, one block per
-layer in an ``nn.ModuleList``, the final norm and the head. Its parameters
+layer in an ``nn.ModuleList``, the final norm, the head and, under the
+vision stub, ``vision_proj``: precomputed vision embeddings (B, nv, D) are
+projected by it and prepended to the token embeddings, and the positions
+are the (B, nv + S, 3) M-RoPE streams of the joined sequence. Its parameters
 carry no gradients (serving only). The JAX package stacks the layers of
 each period and scans over them (``layer_plan``: a prologue of unscanned
 layers, then periods); here the blocks are kept per layer and the stack is
@@ -14,9 +19,9 @@ a Python loop, so a cache is one dict per layer:
 
 Each layer follows its ``LayerSpec``: the mixer (``attn``, which is GQA or
 MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE.
-``mode="train"``, hybrid stacks, the half and M-RoPE variants, tied
-embeddings and the vision and audio frontends raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``mode="train"``, hybrid stacks, tied embeddings and the encoder-decoder
+(whisper, with its audio frontend) raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -78,12 +83,10 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port."""
     if cfg.encoder_decoder:
         raise NotImplementedError(f"encoder-decoder models (whisper): {_item(5)}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r}: {_item(4)}")
+    if cfg.frontend not in ("none", "vision_stub"):
+        raise NotImplementedError(f"frontend {cfg.frontend!r}: {_item(5)}")
     if cfg.ssm and cfg.attn_period:
         raise NotImplementedError(f"hybrid Mamba + attention stacks (jamba): {_item(6)}")
-    if cfg.rope_variant != "full" and not cfg.ssm:
-        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r}: {_item(3)}")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"tied embeddings: {_TODO}")
 
@@ -127,7 +130,8 @@ class ParamTree(nn.Module):
 
 class DecoderLM(nn.Module):
     """A decoder-only LM: ``embed`` (V_padded, D), ``blocks``,
-    ``final_norm`` (D,), ``head`` (D, V_padded)."""
+    ``final_norm`` (D,), ``head`` (D, V_padded), and ``vision_proj`` (D, D)
+    under the vision stub."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
@@ -139,6 +143,11 @@ class DecoderLM(nn.Module):
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.head = _param(tree["head"])
+        if (cfg.frontend == "vision_stub") != ("vision_proj" in tree):
+            raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} and "
+                             f"{'a' if 'vision_proj' in tree else 'no'} vision_proj")
+        if "vision_proj" in tree:
+            self.vision_proj = _param(tree["vision_proj"])
         self.blocks = nn.ModuleList(ParamTree(b) for b in tree["blocks"])
 
     @property
@@ -220,6 +229,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
         "head": L._normal(gen, (d, v), 0.02, dt),
         "blocks": [init_block(gen, cfg, spec) for spec in layer_specs(cfg)],
     }
+    if cfg.frontend == "vision_stub":
+        tree["vision_proj"] = L._normal(gen, (d, d), 0.02, dt)
     return DecoderLM(cfg, tree)
 
 
@@ -234,25 +245,62 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=N
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.to(device=params.device, dtype=torch.int64)]
+def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
+                  vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings (B, S, D); under the vision stub, with
+    ``vision_embeds`` (B, nv, D) cast to the model's dtype, projected by
+    ``vision_proj`` and prepended: (B, nv + S, D)."""
+    x = params.embed[tokens.to(device=params.device, dtype=torch.int64)]
+    if cfg.frontend == "vision_stub" and vision_embeds is not None:
+        ve = vision_embeds.to(device=params.device, dtype=x.dtype) @ params.vision_proj
+        x = torch.cat([ve, x], dim=1)
+    return x
+
+
+def _prefill_positions(cfg: ModelConfig, positions, s: int, device) -> torch.Tensor:
+    """The prefill's positions on ``device``: ``arange(S)``, or under M-RoPE
+    the batch's (B, S, 3) streams. flash_attention masks by index, as the
+    JAX kernel does, so the t stream (the JAX function's ``lin_pos =
+    positions[0, :, 0]``, which its masks use) must be ``arange(S)``; it is
+    checked on the host copy, and any other stream raises instead of giving
+    another mask than JAX's."""
+    if cfg.rope_variant != "mrope":
+        if positions is not None:
+            raise ValueError(f"{cfg.name}: a {cfg.rope_variant} RoPE prefill takes no positions "
+                             f"(it runs at arange(S))")
+        return torch.arange(s, dtype=torch.int32, device=device)
+    if positions is None or tuple(positions.shape[1:]) != (s, 3):
+        raise ValueError(f"{cfg.name}: M-RoPE takes positions (B, {s}, 3), got "
+                         f"{None if positions is None else tuple(positions.shape)}")
+    if positions.device.type != "cpu":
+        raise ValueError("M-RoPE positions must come in the batch as a host tensor: their t "
+                         "stream is checked there, without a read of the device")
+    if not torch.equal(positions[0, :, 0].to(torch.int64), torch.arange(s)):
+        raise NotImplementedError(
+            f"{cfg.name}: flash_attention masks by index, so the prefill takes only the t stream "
+            f"positions[0, :, 0] == arange({s}), as make_concrete_batch builds it")
+    return positions.to(device=device, dtype=torch.int32)
 
 
 @torch.no_grad()
-def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
-            window: int = 0, mode: str = "prefill"):
-    """tokens (B, S) -> (logits (B, S, V_padded) float32, new_cache, aux).
-    mode: prefill (S tokens at positions 0..S-1, no cache) | decode (one
-    token at ``cache["pos"]``). ``aux`` is the sum of the MoE layers'
-    auxiliary (load-balance) losses, 0 without MoE layers."""
+def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
+            vision_embeds: torch.Tensor | None = None, cache=None, window: int = 0,
+            mode: str = "prefill"):
+    """tokens (B, S) -> (logits (B, S', V_padded) float32, new_cache, aux),
+    S' = S plus the vision tokens prepended under the vision stub.
+    mode: prefill (S' tokens at positions 0..S'-1, no cache; under M-RoPE
+    ``positions`` (B, S', 3) from the batch, a host tensor) | decode (one
+    token at ``cache["pos"]``; under M-RoPE its three streams there).
+    ``aux`` is the sum of the MoE layers' auxiliary (load-balance) losses, 0
+    without MoE layers."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"forward mode {mode!r}: training is {_TODO}")
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds)
     s = x.shape[1]
     if mode == "decode":
         positions = cache["pos"]
     else:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        positions = _prefill_positions(cfg, positions, s, x.device)
 
     new_layers = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -271,8 +319,11 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, cache=
 
 def make_prefill_step(cfg: ModelConfig, window: int = 0):
     def prefill_step(params: DecoderLM, batch: dict):
-        """batch {"tokens" (B, S)} -> (last-position logits (B, V), cache)."""
-        logits, cache, _ = forward(params, cfg, batch["tokens"], window=window, mode="prefill")
+        """batch {"tokens" (B, S)}, plus ``vision_embeds`` and ``positions``
+        under the vision stub -> (last-position logits (B, V), cache)."""
+        logits, cache, _ = forward(params, cfg, batch["tokens"], positions=batch.get("positions"),
+                                   vision_embeds=batch.get("vision_embeds"), window=window,
+                                   mode="prefill")
         return logits[:, -1].clone(), cache  # the clone frees the (B, S, V) logits
 
     return prefill_step
@@ -281,7 +332,8 @@ def make_prefill_step(cfg: ModelConfig, window: int = 0):
 def make_decode_step(cfg: ModelConfig, window: int = 0):
     def decode_step(params: DecoderLM, cache: dict, token: torch.Tensor):
         """token (B, 1) -> (logits (B, V), new_cache); writes the cache in
-        place."""
+        place. The position is ``cache["pos"]`` (under M-RoPE all three
+        streams, the JAX decode step's (B, 1, 3) positions)."""
         logits, new_cache, _ = forward(params, cfg, token, cache=cache, window=window,
                                        mode="decode")
         return logits[:, 0], new_cache

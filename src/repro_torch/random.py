@@ -10,10 +10,11 @@ module reproduces them: the same Threefry-2x32 hash (20 rounds, Salmon et al.
 - ``PRNGKey``, ``split``, ``fold_in``, ``bits`` and ``uniform`` are bitwise
   equal to ``jax.random`` (``tests/test_torch_random.py``);
 - ``randint`` is bitwise equal to ``jax.random.randint`` (int32);
-- ``gumbel`` and ``normal`` go through ``log``/``erfinv``, whose float32
-  implementations differ between XLA and torch by a few ulp, and so does
-  ``categorical`` (``argmax(gumbel + logits)``) where two logits are that
-  close.
+- ``normal`` is bitwise ``jax.random.normal`` on the CPU: its ``erfinv``
+  repeats XLA's float32 arithmetic step for step;
+- ``gumbel`` goes through torch's float32 ``log``, which differs from
+  XLA's by a few ulp, and so does ``categorical`` (``argmax(gumbel +
+  logits)``) where two logits are that close.
 
 Draws make their constants with device fills, never copies from host
 memory, so the FL round that draws them can be captured in a CUDA graph.
@@ -197,29 +198,107 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
-# Giles' single-precision erfinv polynomials ("Approximating the erfinv
-# function", GPU Computing Gems 2011) — the float32 erf_inv XLA lowers to.
-# torch.special.erfinv uses another approximation (~90 ulp apart near +-1).
+# XLA's float32 erf_inv on the CPU, operation for operation as its optimized
+# LLVM IR computes it: Giles' polynomials ("Approximating the erfinv
+# function", GPU Computing Gems 2011) in w = -log1p(-x^2), log1p by XLA's
+# Cephes rational function below sqrt(2) - 1 and by Eigen's Cephes log of
+# 1 - x^2 above it. LLVM contracts each multiply that feeds one add into a
+# fused multiply-add (``_fma``); the square root is rounded correctly. The
+# result is bitwise ``jax.lax.erf_inv`` on the CPU
+# (tests/test_torch_random.py). torch.special.erfinv uses another
+# approximation (~90 ulp apart near +-1), and torch's float32 log1p and
+# sqrt are not XLA's to the last bit.
 _ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
                  -4.39150654e-06, 0.00021858087, -0.00125372503,
                  -0.00417768164, 0.246640727, 1.50140941)
 _ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                  -0.00367342844, 0.00573950773, -0.0076224613,
                  0.00943887047, 1.00167406, 2.83297682)
+# log1p(y) for |y| < sqrt(2) - 1: y - y^2/2 + y^3 P(y)/Q(y)
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# log(m) on [sqrt(1/2), sqrt(2)), p0 .. p8, and log(2) split as q2 - q1
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+
+
+def _f32(c: float, like: torch.Tensor) -> torch.Tensor:
+    """The float32 rounding of a constant, on ``like``'s device (a fill)."""
+    return torch.full((), c, dtype=torch.float64, device=like.device).to(torch.float32)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once: the product is exact in float64,
+    the sum is taken in float64 rounded to odd (its error, by TwoSum,
+    decides the last bit), so the rounding to float32 is correct."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=s.device)
+    to_odd = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(to_odd, torch.nextafter(s, torch.where(err > 0, inf, -inf)), s).to(
+        torch.float32)
+
+
+def _log(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log (Eigen's Cephes ``plog``): y = m 2^e with m in
+    [sqrt(1/2), sqrt(2)), then an Estrin-ordered polynomial in m - 1."""
+    f = lambda c: _f32(c, y)  # noqa: E731
+    bits = torch.maximum(y, f(torch.finfo(torch.float32).tiny)).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    small = m < f(_SQRT_HALF)
+    e = e - small.to(torch.float32)
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y1 = _fma(_fma(x, f(p[0]), f(p[1])), x, f(p[2]))
+    y2 = _fma(_fma(x, f(p[3]), f(p[4])), x, f(p[5]))
+    y3 = _fma(_fma(x, f(p[6]), f(p[7])), x, f(p[8]))
+    r = _fma(_fma(_fma(y1, x3, y2), x3, y3), x3, e * f(_LOG_Q1))
+    r = _fma(e, f(_LOG_Q2), (x - x2 * 0.5) + r)
+    r = torch.where(y > 0, r, torch.where(y == 0, -float("inf"), float("nan")))
+    return torch.where(y == float("inf"), y, r)
+
+
+def _log1p(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log1p: the rational function for |y| < sqrt(2) - 1,
+    ``log(1 + y)`` above."""
+    f = lambda c: _f32(c, y)  # noqa: E731
+    num = torch.zeros_like(y) + f(_LOG1P_P[0])
+    den = torch.zeros_like(y) + f(_LOG1P_Q[0])
+    for c in _LOG1P_P[1:]:
+        num = _fma(num, y, f(c))
+    for c in _LOG1P_Q[1:]:
+        den = _fma(den, y, f(c))
+    y2 = y * y
+    small = y + (y2 * -0.5 + (y * y2) * (num / den))
+    return torch.where(y.abs() < f(0.41421356237309504880), small, _log(y + 1.0))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``erfinv`` by Giles' polynomial, step for step as XLA
-    evaluates it (within 3 ulp of ``jax.lax.erf_inv`` on the CPU)."""
-    w = -torch.log1p(-x * x)
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    """float32 ``erfinv``, bitwise XLA's ``erf_inv`` on the CPU (see the
+    note above)."""
+    l1p = _log1p(x * -x)
+    lt = l1p > -5.0  # w = -log1p(-x^2) < 5
+    root = torch.sqrt(-l1p.to(torch.float64)).to(torch.float32)  # correctly rounded
+    w = torch.where(lt, -2.5 - l1p, root - 3.0)
     p = None
     for lo_c, hi_c in zip(_ERFINV_W_LT5, _ERFINV_W_GE5):
-        c = torch.where(lt, torch.full((), lo_c, dtype=torch.float32, device=x.device),
-                        torch.full((), hi_c, dtype=torch.float32, device=x.device))
-        p = c if p is None else c + p * w
-    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+        c = torch.where(lt, _f32(lo_c, x), _f32(hi_c, x))
+        p = c if p is None else _fma(w, p, c)
+    return x * torch.where(x.abs() == 1.0, float("inf"), p)
 
 
 def normal(key: torch.Tensor, shape=()) -> torch.Tensor:

@@ -61,7 +61,7 @@ def state_from_numpy(state, device=None) -> RoundState:
 
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
-    ``head``, the ``prologue`` blocks, and one ``stack`` entry per position
+    ``head``, ``vision_proj`` under the vision stub, the ``prologue`` blocks, and one ``stack`` entry per position
     of the period whose leaves carry a leading axis of periods), as numpy
     arrays, -> the port's ``DecoderLM`` on ``device``, one block per layer
     in ``transformer.layer_plan``'s order: the prologue, then period entry
@@ -77,12 +77,13 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     blocks = [tree_map(lambda a: _tensor(a, dev), blk) for blk in tree["prologue"]]
     blocks += [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), tree["stack"][j])
                for i in range(n_periods) for j in range(p)]
-    return DecoderLM(cfg, {
-        "embed": _tensor(tree["embed"], dev),
-        "final_norm": _tensor(tree["final_norm"], dev),
-        "head": _tensor(tree["head"], dev),
-        "blocks": blocks,
-    })
+    lm = {"embed": _tensor(tree["embed"], dev),
+          "final_norm": _tensor(tree["final_norm"], dev),
+          "head": _tensor(tree["head"], dev),
+          "blocks": blocks}
+    if "vision_proj" in tree:  # the vision stub's projection
+        lm["vision_proj"] = _tensor(tree["vision_proj"], dev)
+    return DecoderLM(cfg, lm)
 
 
 def servable_from_numpy(artifact, device=None):

@@ -23,9 +23,12 @@ scores in another order than the plain version's matmul, so a few P
 elements round to the neighbouring bf16 value), with at most 1e-3 of the
 elements beyond 1 ulp plus 1e-5 of max; the same at MLA's head dims,
 (Dqk, Dv) = (192, 128) in bf16 and the reduced (48, 32) in float32, and at
-G = 1 (the MoE family's MHA); any other pair raises. The reduced MoE
-family (deepseek-moe, moonshot, deepseek-v2-lite) in float32 serves on the
-card through flash_attention and matches the CPU within 1e-5 of max. The
+G = 1 (the MoE family's MHA), at stablelm-12b's (160, 160) in bf16 (64-key
+tiles) and at G = 16 and G = 6 (chatglm3-6b's and qwen2-vl-2b's); any other
+pair raises. The reduced MoE family (deepseek-moe, moonshot,
+deepseek-v2-lite) and the reduced chatglm3, stablelm and qwen2-vl (its
+vision batch included) in float32 serve on the card through
+flash_attention and match the CPU within 1e-5 of max. The
 staleness merge (snapshot
 subtracted in the load loop, the global layer as the base) is
 masked_aggregate's kernel bitwise equal to its plain version, one launch an
@@ -394,8 +397,10 @@ def test_flash_attention_bf16_reaches_only_the_wgmma_kernel(cuda):
 
 
 def test_flash_attention_rejects_other_head_dims(cuda):
+    """Head dim 160 has a kernel in bf16 only (stablelm-12b's; the reduced
+    float32 configs cap the head dim at 64)."""
     q = torch.zeros((1, 8, 2, 160), device=cuda)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="takes \\(Dqk, Dv\\)"):
         flash_attention(q, q, q)
 
 
@@ -429,7 +434,36 @@ def test_flash_attention_mla_dims_and_g1_vs_plain(cuda, case):
         assert result["ok"], result
 
 
-@pytest.mark.parametrize("dims,dtype", [((160, 160), torch.bfloat16), ((48, 32), torch.bfloat16),
+@pytest.mark.parametrize("case", [
+    # (b, s, h, hkv, d, causal, window): stablelm-12b's (160, 160) at G = 4,
+    # causal, windowed, a ragged S and non-causal (64-key tiles); D = 128 at
+    # chatglm3-6b's G = 16 and qwen2-vl-2b's G = 6, the first group sizes
+    # over 4 and the first that is not a power of two
+    (2, 384, 8, 2, 160, True, 0),
+    (1, 640, 4, 1, 160, True, 200),
+    (1, 2000, 4, 1, 160, True, 0),
+    (2, 130, 4, 1, 160, False, 0),
+    (1, 1000, 32, 2, 128, True, 0),
+    (2, 300, 16, 1, 128, True, 100),
+    (1, 1000, 12, 2, 128, True, 0),
+    (2, 333, 6, 1, 128, False, 0),
+], ids=str)
+def test_flash_attention_160_and_wide_groups_vs_plain(cuda, case):
+    b, s, h, hkv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d + h + window)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, s, h, d) and got.dtype == torch.bfloat16
+    result = bf16_contract(got, flash_attention_plain(q, k, v, causal=causal, window=window),
+                           q, k, v, causal, window)
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("dims,dtype", [((96, 96), torch.bfloat16), ((48, 32), torch.bfloat16),
                                         ((192, 128), torch.float32), ((128, 64), torch.bfloat16)],
                          ids=str)
 def test_flash_attention_rejects_dims_without_a_kernel(cuda, dims, dtype):
@@ -469,6 +503,59 @@ def test_reduced_moe_family_on_cuda_matches_cpu(cuda, arch):
         want, cpu_cache = decode(cpu_model, cpu_cache, tok)
         got, dev_cache = decode(dev_model, dev_cache, tok)
         _close_to_max(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-12b", "qwen2-vl-2b"])
+def test_reduced_dense_zoo_on_cuda_matches_cpu(cuda, arch):
+    """The reduced float32 chatglm3 (half RoPE), stablelm and qwen2-vl
+    (M-RoPE, the vision stub; served in waves) on the card through
+    flash_attention, each prefill one launch a layer; prefill and decode
+    logits within 1e-5 of max of the same model on the CPU, on the same
+    batch (qwen2-vl's vision embeddings and positions included)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.models import transformer
+    from repro_torch.models.api import make_concrete_batch
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    kernels.reset_launch_counts()
+    stats = serve(cfg, requests=3, batch=2, prompt_len=32, max_new=4, device=cuda)
+    assert stats["n_requests"] == 3 and stats["logits_finite"]
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers * stats["prefill_calls"]
+    cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    dev_model = copy.deepcopy(cpu_model).to(cuda)
+    batch = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))
+    prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    (want, cpu_cache), (got, dev_cache) = (prefill(m, batch) for m in (cpu_model, dev_model))
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    assert dev_cache["pos"] == cpu_cache["pos"] == 64
+    _close_to_max(got.cpu(), want)
+    for _ in range(2):
+        tok = torch.argmax(want, dim=-1)[:, None]
+        want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+        got, dev_cache = decode(dev_model, dev_cache, tok)
+        _close_to_max(got.cpu(), want)
+
+
+@pytest.mark.parametrize("size", ["reduced", "full"])
+def test_vision_batch_drawn_on_cuda_is_the_host_draw(cuda, size):
+    """qwen2-vl's serving waves draw their batch on the card: the threefry
+    words, the uniform and the erfinv arithmetic give the host's bits (the
+    vision embeddings' bf16 included); the positions stay on the host."""
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch
+
+    cfg = get_config("qwen2-vl-2b")
+    cfg, (b, s) = (cfg.reduced(), (4, 64)) if size == "reduced" else (cfg, (2, 2048))
+    host = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(9))
+    card = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(9, device=cuda))
+    assert list(card) == list(host) and card["positions"].device.type == "cpu"
+    bits = lambda t: t.cpu().view(torch.int16) if t.dtype == torch.bfloat16 else t.cpu()  # noqa: E731
+    for name, want in host.items():
+        assert card[name].dtype == want.dtype and torch.equal(bits(card[name]), bits(want)), name
 
 
 @pytest.mark.parametrize("arch,kernel", [("falcon-mamba-7b", "ssm_scan"),

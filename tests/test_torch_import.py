@@ -252,9 +252,9 @@ def test_lazy_population_routes_to_the_host_plane(monkeypatch):
     assert calls == [1] and h.accuracy_per_client.shape == (2, 6)
 
 
-_UNPORTED_ARCHS = ["stablelm-12b", "whisper-tiny", "qwen2-vl-2b", "jamba-v0.1-52b", "chatglm3-6b"]
+_UNPORTED_ARCHS = ["whisper-tiny", "jamba-v0.1-52b"]
 _ZOO_ARCHS = ["falcon-mamba-7b", "granite-3-8b", "deepseek-moe-16b", "moonshot-v1-16b-a3b",
-              "deepseek-v2-lite-16b"]
+              "deepseek-v2-lite-16b", "chatglm3-6b", "stablelm-12b", "qwen2-vl-2b"]
 
 
 @pytest.mark.parametrize("arch", _UNPORTED_ARCHS)
@@ -268,8 +268,7 @@ def test_ported_archs_are_registered(arch):
     assert get_config(arch).name == arch
 
 
-@pytest.mark.parametrize("change", [dict(rope_variant="half"), dict(frontend="vision_stub"),
-                                    dict(encoder_decoder=True), dict(ssm=True, attn_period=8),
+@pytest.mark.parametrize("change", [dict(encoder_decoder=True), dict(ssm=True, attn_period=8),
                                     dict(tie_embeddings=True)],
                          ids=str)
 def test_model_features_outside_the_slice_raise(change):
@@ -278,25 +277,35 @@ def test_model_features_outside_the_slice_raise(change):
         get_model(cfg)
 
 
-@pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla")],
+@pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla"),
+                                    dict(rope_variant="half"),
+                                    dict(frontend="vision_stub", n_vision_tokens=4,
+                                         rope_variant="mrope", mrope_sections=(8, 12, 12))],
                          ids=str)
 def test_moe_and_mla_features_run(change):
-    """MoE layers and MLA attention (which raised before the MoE family was
-    ported) build and run a prefill and a decode step on the CPU, on
-    granite's reduced config."""
+    """MoE layers, MLA attention, half RoPE and the vision stub with M-RoPE
+    (each raised before its slice was ported) build and run a prefill and a
+    decode step on the CPU, on granite's reduced config."""
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch
+
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
     bundle = get_model(cfg)
     model = bundle.init(torch.Generator().manual_seed(0))
-    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1),
-                         dtype=torch.int32)
-    logits, cache = bundle.make_prefill_step()(model, {"tokens": toks})
+    batch = make_concrete_batch(cfg, "prefill", 2, 8, prng.PRNGKey(1))
+    toks = batch["tokens"]
+    logits, cache = bundle.make_prefill_step()(model, batch)
+    assert cache["pos"] == 8
     logits, cache = bundle.make_decode_step()(model, cache, logits.argmax(-1)[:, None])
     assert logits.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    if cfg.frontend == "vision_stub":
+        assert set(batch) == {"vision_embeds", "tokens", "positions"} and toks.shape == (2, 4)
+        assert model.vision_proj.shape == (cfg.d_model, cfg.d_model)
     if cfg.moe:
         assert all("moe" in blk for blk in model.blocks)
         _, _, aux = transformer.forward(model, cfg, toks)
         assert float(aux) > 0
-    else:
+    elif cfg.attn_type == "mla":
         assert set(cache["layers"][0]) == {"c_kv", "k_rope", "kv_pos"}
 
 

@@ -121,8 +121,9 @@ def test_apply_rope():
     x = _randn((2, 7, 4, 64), 3)
     pos = (np.arange(7)[None] + np.array([[0], [11]])).astype(np.int32)
     _close(L.apply_rope(_t(x), _t(pos), cfg), JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), jcfg))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        L.apply_rope(_t(x), _t(pos), dataclasses.replace(cfg, rope_variant="half"))
+    half, jhalf = (dataclasses.replace(c, rope_variant="half") for c in (cfg, jcfg))
+    _close(L.apply_rope(_t(x), _t(pos), half),
+           JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), jhalf), what="half RoPE")
 
 
 @pytest.mark.parametrize("window", [0, 8])

@@ -11,6 +11,9 @@ the continuous-batching decode loop.
   top-2 logit margin at that step is below the logits tolerance of
   ``tests/test_torch_lm.py`` (1e-5 of max|logits|, 2^-8 after a Mamba
   scan); the comparison then stops at that step.
+- ``serve`` runs every served arch's reduced config on the CPU (qwen2-vl-2b
+  in waves: ``tests/test_torch_dense_zoo.py`` holds its waves to the JAX
+  launcher's).
 """
 
 import contextlib
@@ -39,7 +42,9 @@ from repro_torch.serve import ContinuousBatcher, DecodeProgram, ServeRequest, gr
 from repro_torch.weights import lm_params_from_numpy  # noqa: E402
 
 ARCHS = ["falcon-mamba-7b", "granite-3-8b"]
-ZOO_ARCHS = ARCHS + ["deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"]
+MOE_ARCHS = ["deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"]
+ZOO_ARCHS = ARCHS + MOE_ARCHS + ["chatglm3-6b", "stablelm-12b"]  # the token-only LMs
+WAVE_ARCHS = ["qwen2-vl-2b"]  # a prefill batch beyond tokens: served in waves
 MODES = pytest.mark.parametrize("partitionable", [True, False], ids=["partitionable", "legacy"])
 LOGITS_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8}  # test_torch_lm.py's contracts
 
@@ -208,7 +213,7 @@ def test_greedy_decode_matches_jax(served):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ZOO_ARCHS)
+@pytest.mark.parametrize("arch", ZOO_ARCHS + WAVE_ARCHS)
 def test_serve_on_the_cpu(arch):
     cfg = get_config(arch).reduced()
     stats = serve(cfg, requests=3, batch=2, prompt_len=8, max_new=4, seed=0, device="cpu")
@@ -225,9 +230,24 @@ def test_serve_cli_runs_the_reduced_config(capsys):
     assert "served 2 requests" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ZOO_ARCHS[2:])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_serve_cli_takes_the_moe_family(arch, capsys):
     stats = serve_main(["--arch", arch, "--requests", "2", "--batch", "2", "--prompt-len", "8",
                         "--max-new", "2", "--device", "cpu"])
     assert stats["n_requests"] == 2 and stats["logits_finite"]
     assert "served 2 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-12b"] + WAVE_ARCHS)
+def test_serve_cli_takes_the_dense_zoo(arch, capsys):
+    """chatglm3 and stablelm through continuous batching, qwen2-vl (vision
+    embeddings and M-RoPE positions in its prefill batch) in waves of
+    ``--batch`` requests, each wave one prefill."""
+    stats = serve_main(["--arch", arch, "--requests", "3", "--batch", "2", "--prompt-len", "24",
+                        "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert stats["n_requests"] == 3 and stats["logits_finite"] and "served 3 requests" in out
+    if arch in WAVE_ARCHS:
+        assert stats["prefill_calls"] == 2 and out.startswith("waves: 3 requests")
+    else:
+        assert out.startswith("continuous: 3 requests")
