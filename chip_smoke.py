@@ -45,9 +45,15 @@ drives the port's two paths:
   the vision stub, 1,024 vision and 1,024 text tokens a prompt, served in
   waves; G = 6), and the MoE family: deepseek-moe-16b, deepseek-v2-lite-16b
   (MLA, whose prefill runs flash_attention at q/k head dim 192 and v head
-  dim 128) and moonshot-v1-16b-a3b with its depth cut to 4 layers (8
-  requests, batch 4, prompts of 2048 tokens, up to 32 new tokens, random
-  weights from seed 0), through ``repro_torch.launch.serve.serve``, after the port's reduced
+  dim 128) and moonshot-v1-16b-a3b with its depth cut to 4 layers, the
+  hybrid jamba-v0.1-52b (Mamba-1 layers, one GQA layer and MoE or dense
+  FFNs) with its depth cut to one period of 8 layers, and the
+  encoder-decoder whisper-tiny (1,500 audio frames a request, 448 decoder
+  tokens; flash_attention non-causal in its encoder and from the decoder's
+  queries over the frames, T != S, at every decode step too), served in
+  waves (8 requests, batch 4, prompts of 2048 tokens, up to 32 new tokens,
+  random weights from seed 0), through ``repro_torch.launch.serve.serve``,
+  each run checked to launch exactly its arch's kernels, after the port's reduced
   models on the card are held to the same models on the CPU, and a
   recorded serving session of the reduced granite-3-8b (``serve(...,
   record=dir)``); the MoE layer's time at the prefill shape, split into
@@ -135,7 +141,7 @@ from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
-from repro_torch.models.api import make_concrete_batch  # noqa: E402
+from repro_torch.models.api import get_model, make_concrete_batch  # noqa: E402
 from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ClassifyProgram,
@@ -281,16 +287,18 @@ LANE_BATCHES = (1, 5, 30)
 SERVE_BATCHES = (1, 8, 32)
 CLASSIFY_REL = 1e-5
 
-# LM serving at full width and depth (the arch, the kernel its prefill runs)
-SERVE_ARCHS = (("falcon-mamba-7b", "ssm_scan"), ("granite-3-8b", "flash_attention"),
-               ("chatglm3-6b", "flash_attention"), ("stablelm-12b", "flash_attention"),
-               ("qwen2-vl-2b", "flash_attention"),
-               ("deepseek-moe-16b", "flash_attention"), ("deepseek-v2-lite-16b", "flash_attention"),
-               ("moonshot-v1-16b-a3b", "flash_attention"))
+# LM serving at full width and depth (expected_launches says which kernels
+# each arch's prefill and decode steps run)
+SERVE_ARCHS = ("falcon-mamba-7b", "granite-3-8b", "chatglm3-6b", "stablelm-12b", "qwen2-vl-2b",
+               "deepseek-moe-16b", "deepseek-v2-lite-16b", "moonshot-v1-16b-a3b",
+               "jamba-v0.1-52b", "whisper-tiny")
 # depth cuts of the serving run: moonshot at full width with 4 of its 48
 # layers (1 dense + 3 MoE); at full depth it is 28.4 B parameters (~57 GB
-# in bf16) plus ~8 GB of prefill logits at its vocabulary of 163,840
-SERVE_LAYERS = {"moonshot-v1-16b-a3b": 4}
+# in bf16) plus ~8 GB of prefill logits at its vocabulary of 163,840.
+# jamba at full width with one period of its 32 layers, 8 (7 Mamba + the
+# attention layer at index 4; MoE on the odd ones): 13.3 B parameters, 26.6
+# GB in bf16; at full depth it is 51.6 B (~103 GB), over one card's 80 GB
+SERVE_LAYERS = {"moonshot-v1-16b-a3b": 4, "jamba-v0.1-52b": 8}
 SERVE_RUN = dict(requests=8, batch=4, prompt_len=2048, max_new=32, window=0, temperature=0.0,
                  seed=0)
 # flash_attention against its plain version: float32 results within 1e-5 of
@@ -305,7 +313,8 @@ LM_REL = 1e-5
 # rounding flip of a scan input; tests/test_torch_lm.py)
 REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe-16b": 1e-5,
                "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5, "chatglm3-6b": 1e-5,
-               "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5}
+               "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5, "jamba-v0.1-52b": 2.0 ** -8,
+               "whisper-tiny": 1e-5}
 
 
 class SmokeFailure(RuntimeError):
@@ -737,9 +746,10 @@ def phase_lm_kernels(dev: torch.device) -> dict:
     return rows
 
 
-def sdpa_fused_ms(q, k, v) -> tuple:
-    """``scaled_dot_product_attention`` (causal, q (B, S, H, Dqk), k, v in
-    the model layout, ``enable_gqa`` where k and v have fewer heads) through
+def sdpa_fused_ms(q, k, v, causal: bool = True) -> tuple:
+    """``scaled_dot_product_attention`` (causal or not, q (B, S, H, Dqk), k
+    and v (B, T, Hkv, D) in the model layout, ``enable_gqa`` where k and v
+    have fewer heads) through
     each fused backend that takes the shape: (the fastest one's device ms
     or None, its name, every backend's ms or the first line of its
     refusal)."""
@@ -756,7 +766,7 @@ def sdpa_fused_ms(q, k, v) -> tuple:
         try:
             with sdpa_kernel([backend]):
                 fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    qh, kh, vh, is_causal=True, **({"enable_gqa": True} if gqa else {}))
+                    qh, kh, vh, is_causal=causal, **({"enable_gqa": True} if gqa else {}))
                 fn()
                 torch.cuda.synchronize()
                 tried[name] = device_ms(fn)
@@ -829,6 +839,59 @@ def zoo_attention_kernels(dev: torch.device, randn) -> dict:
           f"MLA Dqk=192 Dv=128 and MHA D=128 (G=1), stablelm D=160 (also w512 and S=2000), "
           f"chatglm3 G=16, qwen2-vl G=6; SDPA's fused backends (each alone, or its refusal); "
           f"float32 at (48, 32) within {LM_REL} of max: {json.dumps(report)} {json.dumps(row)}")
+    row.update(whisper_attention_kernels(randn))
+    return row
+
+
+def whisper_attention_kernels(randn) -> dict:
+    """flash_attention at whisper-tiny's serving shapes (B=4, H = Hkv = 6,
+    D = 64): the encoder's bidirectional self-attention (S = T = 1,500),
+    the prefill's cross-attention (448 decoder queries over T = 1,500
+    frames), a decode step's (one query over 1,500 frames) and the
+    decoder's causal self-attention (S = T = 448); 1,500 keys leave a
+    ragged last 128-key tile of 92. Each in bf16 against its plain version
+    under the bf16 contract, with its device ms, bound and the fused SDPA
+    backends' ms, and in float32 (the CUDA-core kernel) within LM_REL of
+    max. Keys prefixed ``whisper_enc_``, ``whisper_cross_``,
+    ``whisper_cross1_`` and ``whisper_self_``; shape [B, S, T, H, Hkv, D]."""
+    cfg = get_config("whisper-tiny")
+    b, t_enc, s_dec = SERVE_RUN["batch"], cfg.encoder_seq, cfg.max_decoder_seq
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    cases = {"enc": (t_enc, t_enc, False), "cross": (s_dec, t_enc, False),
+             "cross1": (1, t_enc, False), "self": (s_dec, s_dec, True)}
+    row, report = {}, {}
+    for name, (s, t, causal) in cases.items():
+        key = f"whisper_{name}"
+        q = randn(b, s, h, d).to(torch.bfloat16)
+        k, v = (randn(b, t, hkv, d).to(torch.bfloat16) for _ in range(2))
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        report[key] = r = bf16_contract(got, want, q, k, v, causal)
+        check(got.shape == (b, s, h, d) and r["ok"],
+              f"flash_attention at whisper's {name} shape (S {s}, T {t}, causal {causal}) fails "
+              f"its contract: {r}")
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        report[f"{key} f32"] = gap = rel_gap(flash_attention(qf, kf, vf, causal=causal),
+                                             flash_attention_plain(qf, kf, vf, causal=causal))
+        check(gap <= LM_REL, f"flash_attention float32 at whisper's {name} shape: {gap} of max "
+                             f"> {LM_REL}")
+        n_bytes = 2 * b * (2 * s * h * d + 2 * t * hkv * d)
+        bound, by = bound_ms(n_bytes, 4 * b * h * d * visible_pairs(s, t, causal, 0), BF16_FLOPS)
+        lib, backend, tried = sdpa_fused_ms(q, k, v, causal)
+        row.update({f"{key}_shape": [b, s, t, h, hkv, d], f"{key}_causal": causal,
+                    f"{key}_max_abs_err": float((got.float() - want.float()).abs().max()),
+                    f"{key}_ms": device_ms(lambda: flash_attention(q, k, v, causal=causal)),
+                    f"{key}_plain_ms": device_ms(
+                        lambda: flash_attention_plain(q, k, v, causal=causal), reps=3),
+                    f"{key}_bound_ms": bound, f"{key}_bound_by": by,
+                    f"{key}_library_ms": lib, f"{key}_library_backend": backend})
+        report[f"{key} sdpa"] = tried
+        del q, k, v, got, want, qf, kf, vf
+    print(f"[kernels] flash_attention at whisper-tiny's shapes, [B, S, T, H, Hkv, D] in the "
+          f"*_shape keys: encoder S=T=1500 and cross-attention S=448 and S=1 over T=1500 "
+          f"non-causal, decoder self-attention S=T=448 causal; bf16 vs plain (contract, "
+          f"kernels/flash_attention/contract.py) and float32 within {LM_REL} of max; SDPA's "
+          f"fused backends (each alone, or its refusal): {json.dumps(report)} {json.dumps(row)}")
     return row
 
 
@@ -896,57 +959,84 @@ class MoEDropCounter:
                     "share": int(self.dropped[k]) / max(n, 1)} for k, n in self.routes.items()}
 
 
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict[str, int]:
+    """What a run of ``prefills`` prefills and ``decode_steps`` decode steps
+    of ``cfg`` must launch of each kernel: a decoder-only prefill runs
+    ssm_scan once a Mamba layer and flash_attention once an attention layer
+    (jamba: both); whisper's runs flash_attention once an encoder layer and
+    twice a decoder layer (self- and cross-attention), and each of its
+    decode steps once a decoder layer (the cross-attention); nothing else."""
+    counts = dict.fromkeys(kernels.KERNELS, 0)
+    if cfg.encoder_decoder:
+        counts["flash_attention"] = ((cfg.n_encoder_layers + 2 * cfg.n_layers) * prefills
+                                     + cfg.n_layers * decode_steps)
+        return counts
+    specs = transformer.layer_specs(cfg)
+    counts["ssm_scan"] = sum(sp.kind == "mamba" for sp in specs) * prefills
+    counts["flash_attention"] = sum(sp.kind == "attn" for sp in specs) * prefills
+    return counts
+
+
 def phase_lm_reference(dev: torch.device) -> None:
     """The reduced float32 models on the card (through the kernels) against
     the same models on the CPU (plain versions): prefill and 4 greedy
     decode steps, on one batch from ``make_concrete_batch`` (qwen2-vl's
-    vision embeddings and M-RoPE positions included). The MoE family's
-    reduced MLA runs the float32 kernel at (Dqk, Dv) = (48, 32)."""
-    for arch, kernel in SERVE_ARCHS:
+    vision embeddings and M-RoPE positions, whisper's frames included),
+    with exactly ``expected_launches`` on the card. The MoE family's
+    reduced MLA runs the float32 kernel at (Dqk, Dv) = (48, 32); whisper's
+    the float32 kernel at (64, 64) non-causal, its decode steps at S = 1."""
+    for arch in SERVE_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-        cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+        bundle = get_model(cfg)
+        cpu_model = bundle.init(torch.Generator().manual_seed(0))
         dev_model = copy.deepcopy(cpu_model).to(dev)
         batch = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))
-        prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+        prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
         kernels.reset_launch_counts()
         (want, cpu_cache), (got, dev_cache) = (prefill(m, batch) for m in (cpu_model, dev_model))
-        check(kernels.launch_counts()[kernel] == cfg.n_layers, f"{arch} reduced: kernel not launched")
         gaps = [rel_gap(got.cpu(), want)]
         for _ in range(4):
             tok = torch.argmax(want, dim=-1)[:, None]
             want, cpu_cache = decode(cpu_model, cpu_cache, tok)
             got, dev_cache = decode(dev_model, dev_cache, tok)
             gaps.append(rel_gap(got.cpu(), want))
+        counts = kernels.launch_counts()
+        check(counts == expected_launches(cfg, 1, 4),
+              f"{arch} reduced: launches {counts}, expected {expected_launches(cfg, 1, 4)}")
         check(max(gaps) <= REDUCED_REL[arch],
               f"{arch} reduced: card vs CPU logits {gaps} > {REDUCED_REL[arch]} of max")
         print(f"[lm] {arch} reduced float32 on the card vs the CPU: logits gap / max, prefill "
               f"then 4 decode steps {gaps} (contract {REDUCED_REL[arch]})")
-    # the serving waves draw qwen2-vl's batch on the card: bitwise the host's
-    cfg = get_config("qwen2-vl-2b")
+    # the serving waves draw qwen2-vl's and whisper's batches on the card:
+    # bitwise the host's
     b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
-    t0 = time.perf_counter()
-    host = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7))
-    host_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    card = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7, device=dev))
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
     bits = lambda t: t.cpu().view(torch.int16) if t.dtype == torch.bfloat16 else t.cpu()  # noqa: E731
-    check(list(card) == list(host) and card["positions"].device.type == "cpu"
-          and all(card[k].device.type == "cuda" for k in ("vision_embeds", "tokens"))
-          and all(torch.equal(bits(card[k]), bits(host[k])) for k in host),
-          "qwen2-vl-2b make_concrete_batch on the card differs from the host draw")
-    print(f"[lm] qwen2-vl-2b make_concrete_batch ({b}, {s}: vision embeddings "
-          f"{tuple(host['vision_embeds'].shape)} bf16, tokens, positions) drawn on the card "
-          f"bitwise the host draw; wall s host {host_s:.3f}, card {card_s:.3f}")
+    for arch, embeds in (("qwen2-vl-2b", "vision_embeds"), ("whisper-tiny", "frames")):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        host = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7))
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(7, device=dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        check(list(card) == list(host)
+              and all(card[k].device.type == "cuda" for k in (embeds, "tokens"))
+              and ("positions" not in card or card["positions"].device.type == "cpu")
+              and all(torch.equal(bits(card[k]), bits(host[k])) for k in host),
+              f"{arch} make_concrete_batch on the card differs from the host draw")
+        print(f"[lm] {arch} make_concrete_batch ({b}, {s}: {embeds} "
+              f"{tuple(host[embeds].shape)} bf16, {', '.join(k for k in host if k != embeds)}) "
+              f"drawn on the card bitwise the host draw; wall s host {host_s:.3f}, "
+              f"card {card_s:.3f}")
 
 
-def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
+def phase_serve(dev: torch.device, arch: str) -> dict[str, int]:
     """One full-width serving run of ``arch`` (full depth but for
     ``SERVE_LAYERS``) through ``repro_torch.launch.serve.serve``, kernel
-    counts zeroed just before and read just after; an MoE arch's dropped
-    routes counted at prefill and decode; the model is freed before the
-    next arch."""
+    counts zeroed just before and read just after and held to
+    ``expected_launches``; an MoE arch's dropped routes counted at prefill
+    and decode; the model is freed before the next arch."""
     cfg = get_config(arch)
     if arch in SERVE_LAYERS:
         cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
@@ -967,9 +1057,10 @@ def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
           f"{arch}: token accounting {stats['lens']} {stats['tokens']}")
     check(all(0 <= t < cfg.vocab_padded for out in stats["outputs"] for t in out),
           f"{arch}: token ids outside the vocabulary")
-    check(counts[kernel] == cfg.n_layers * stats["prefill_calls"] > 0,
-          f"{arch}: {kernel} launched {counts[kernel]} times for {stats['prefill_calls']} prefills")
-    check(all(v == 0 for k, v in counts.items() if k != kernel), f"{arch}: other kernels {counts}")
+    want = expected_launches(cfg, stats["prefill_calls"], len(stats["decode_ms"]))
+    check(stats["prefill_calls"] > 0 and counts == want,
+          f"{arch}: launches {counts} for {stats['prefill_calls']} prefills and "
+          f"{len(stats['decode_ms'])} decode steps, expected {want}")
     if cfg.moe:
         shares = drops.shares()
         check(shares["prefill"]["routes"] > 0 and shares["decode"]["routes"] > 0,
@@ -977,10 +1068,15 @@ def phase_serve(dev: torch.device, arch: str, kernel: str) -> dict[str, int]:
         print(f"[serve] {arch} MoE routes dropped (capacity over each call's tokens): "
               f"{json.dumps(shares)}")
     depth = f", depth cut to {cfg.n_layers}" if arch in SERVE_LAYERS else ""
+    prompt = SERVE_RUN["prompt_len"]
+    if cfg.encoder_decoder:
+        prompt = (f"{min(prompt, cfg.max_decoder_seq)} decoder tokens over {cfg.encoder_seq} "
+                  f"frames, {cfg.n_encoder_layers} encoder layers")
     print(f"[serve] {arch} full width{depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): {n_req} requests, batch "
-          f"{SERVE_RUN['batch']}, prompt {SERVE_RUN['prompt_len']}, max_new {max_new}; "
-          f"lens {stats['lens']}, {stats['prefill_calls']} prefills")
+          f"{SERVE_RUN['batch']}, prompt {prompt}, max_new {max_new}; "
+          f"lens {stats['lens']}, {stats['prefill_calls']} prefills, "
+          f"{len(stats['decode_ms'])} decode steps")
     print(f"[serve] {arch} prefill ms (CUDA events) median {statistics.median(stats['prefill_ms']):.3f} "
           f"all {[round(t, 3) for t in stats['prefill_ms']]}; decode step ms median "
           f"{statistics.median(stats['decode_ms']):.3f} over {len(stats['decode_ms'])} steps "
@@ -2342,13 +2438,11 @@ def main() -> int:
     phase_lm_reference(dev)
     phase_serve_record(dev)
     table["flash_attention"]["moe_layer"] = phase_moe_layer(dev)
-    serve_launches = {}
-    for arch, kernel in SERVE_ARCHS:
-        serve_launches[arch] = phase_serve(dev, arch, kernel)[kernel]
-        launches[kernel] = launches.get(kernel, 0) + serve_launches[arch]
+    serve_launches = {arch: phase_serve(dev, arch) for arch in SERVE_ARCHS}
     for name in ("ssm_scan", "flash_attention"):
-        table[name]["launches_by_arch"] = {a: serve_launches[a] for a, k in SERVE_ARCHS
-                                           if k == name}
+        by_arch = {a: c[name] for a, c in serve_launches.items() if c[name]}
+        table[name]["launches_by_arch"] = by_arch
+        launches[name] = sum(by_arch.values())
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
                                   for name, row in table.items()]}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

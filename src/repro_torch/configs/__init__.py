@@ -5,9 +5,10 @@ architectures it serves: ``falcon-mamba-7b`` (Mamba-1), ``granite-3-8b``
 (GQA) and the MoE family, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b`` and
 ``deepseek-v2-lite-16b`` (MLA), and the dense GQA models with other RoPE
 variants and head dims: ``chatglm3-6b`` (half RoPE), ``stablelm-12b``
-(head dim 160) and ``qwen2-vl-2b`` (M-RoPE and the vision stub). The other
-architectures of the JAX package (jamba, whisper) come with ROADMAP.md
-queue 1 item 14.
+(head dim 160) and ``qwen2-vl-2b`` (M-RoPE and the vision stub), the
+hybrid ``jamba-v0.1-52b`` (Mamba-1 and GQA layers, each followed by a dense
+or an MoE FFN) and the encoder-decoder ``whisper-tiny`` (the audio stub):
+every architecture of the JAX package.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig, get_shape
@@ -22,6 +23,8 @@ _ARCH_MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 
@@ -29,10 +32,7 @@ def get_config(arch: str) -> ModelConfig:
     import importlib
 
     if arch not in _ARCH_MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md queue 1 item 14, "
-            f"model zoo); have {sorted(_ARCH_MODULES)}"
-        )
+        raise KeyError(f"unknown arch {arch!r}; have {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch]).config
 
 

@@ -13,10 +13,12 @@ the JAX package:
                          launches when the cohort's lanes are sharded
                          over ranks (csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
-                         (falcon-mamba; csrc/ssm_scan.cu)
-  flash_attention      — causal GQA attention of a prefill (granite;
-                         bf16 on wgmma: csrc/flash_attention_wgmma.cu,
-                         float32: csrc/flash_attention.cu)
+                         (falcon-mamba, jamba; csrc/ssm_scan.cu)
+  flash_attention      — GQA attention of a prefill, causal (the
+                         decoders) or not (whisper's encoder and its
+                         cross-attention, T != S, at decode too); bf16 on
+                         wgmma: csrc/flash_attention_wgmma.cu, float32:
+                         csrc/flash_attention.cu
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first

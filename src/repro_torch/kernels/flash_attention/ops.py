@@ -1,4 +1,6 @@
-"""flash_attention — causal GQA attention of a prefill, online softmax.
+"""flash_attention — GQA attention with an online softmax: a decoder's causal
+prefill, and whisper's non-causal encoder and cross-attention (S decoder
+queries, one at a decode step, over T != S encoder frames).
 
 Replaces the JAX package's Pallas kernel
 ``src/repro/kernels/flash_attention/kernel.py`` (``flash_attention_kernel``/
@@ -18,7 +20,8 @@ chunked_attention`` and the Pallas kernel is its TPU version; in the port
 the kernels are the prefill's path.
 
 Both take the model's layout, q (B, S, H, Dqk), k (B, T, Hkv, Dqk) and v
-(B, T, Hkv, Dv), with kv head ``h // (H / Hkv)`` for q head h (Dqk = Dv
+(B, T, Hkv, Dv) (T = S but for whisper's cross-attention), with kv head
+``h // (H / Hkv)`` for q head h (Dqk = Dv
 but for MLA, whose q and k carry the decoupled RoPE dims:
 deepseek-v2-lite's (192, 128); G = H / Hkv any integer, chatglm3-6b's 16
 and qwen2-vl-2b's 6 among them); key t is visible to query s when

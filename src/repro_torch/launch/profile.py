@@ -4,12 +4,16 @@ FL round instead.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --layers 4
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch jamba-v0.1-52b --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper-tiny
     PYTHONPATH=src python -m repro_torch.launch.profile --fl
 
 Builds the arch at full width with random weights (``--layers N`` cuts its
-depth to N layers, the first ``first_dense`` of them dense), runs a warm-up prefill
-and decode step, then traces one prefill of 4 prompts of 2048 tokens (the
-serving run of ``chip_smoke.py``) and ``--steps`` decode steps. For each
+depth to N layers, the first ``first_dense`` of them dense; jamba's 8 are one
+period), runs a warm-up prefill and decode step, then traces one prefill of
+4 prompts of 2048 tokens (the serving run of ``chip_smoke.py``; whisper's
+batch is 1,500 frames and 448 decoder tokens a prompt) and ``--steps``
+decode steps. For each
 window it prints one JSON line: the device span (first kernel start to
 last kernel end), the device's busy time (the sum of its kernels'
 durations; one stream, so they do not overlap), the idle share of the

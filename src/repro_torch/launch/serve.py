@@ -1,12 +1,14 @@
-"""Batched serving entry point of the port: prefill queue + decode loop for a
-decoder LM (falcon-mamba-7b, granite-3-8b, chatglm3-6b, stablelm-12b,
-qwen2-vl-2b, deepseek-moe-16b, moonshot-v1-16b-a3b, deepseek-v2-lite-16b).
+"""Batched serving entry point of the port: prefill queue + decode loop for
+every architecture of the model zoo (falcon-mamba-7b, granite-3-8b,
+chatglm3-6b, stablelm-12b, qwen2-vl-2b, deepseek-moe-16b,
+moonshot-v1-16b-a3b, deepseek-v2-lite-16b, jamba-v0.1-52b, whisper-tiny).
 Token-only LMs run continuous batching (``DecodeProgram`` under
 ``ContinuousBatcher``: finished lanes are back-filled by re-prefilling the
-joined batch); an LM whose prefill batch holds more than tokens (qwen2-vl's
-vision embeddings and M-RoPE positions) is served in static waves of
-``batch`` requests through ``greedy_decode``, each wave's batch drawn from
-its own key, retiring together: the JAX launcher's two paths.
+joined batch); a model whose prefill batch holds more than tokens (qwen2-vl's
+vision embeddings and M-RoPE positions, whisper's audio frames) is served in
+static waves of ``batch`` requests through ``greedy_decode``, each wave's
+batch drawn from its own key, retiring together: the JAX launcher's two
+paths.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu] \\
@@ -157,7 +159,9 @@ def serve_waves(cfg: ModelConfig, prefill, decode, params, *, requests: int, bat
     key), draws its batch with ``make_concrete_batch`` on ``device`` (the
     JAX launcher's jitted draw runs on its device too; the same bits as a
     host draw, ``prompt_len`` positions: under the vision stub its vision
-    tokens and then text) and runs ``greedy_decode`` on it; the wave's
+    tokens and then text; for an encoder-decoder ``encoder_seq`` frames and
+    ``min(prompt_len, max_decoder_seq)`` decoder tokens) and runs
+    ``greedy_decode`` on it; the wave's
     requests start together and finish together. Returns
     (``ServeResult``s, tokens generated, waves), times relative to
     ``t0``."""

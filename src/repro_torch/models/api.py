@@ -1,12 +1,13 @@
-"""Uniform model API of the port (decoder-only LMs of the serving slice).
+"""Uniform model API of the port over its decoder-only LMs
+(``models/transformer.py``) and the encoder-decoder (whisper,
+``models/whisper.py``).
 
     bundle = get_model(cfg)
     model  = bundle.init(torch.Generator(device="cuda").manual_seed(0))
     prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
 
-The JAX package's facade over decoder-only and encoder-decoder families;
-the encoder-decoder family (whisper) and training come with ROADMAP.md
-queue 1 item 14 and raise ``NotImplementedError`` here.
+The JAX package's facade. Training comes with ROADMAP.md queue 1 item 14.6
+and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ import torch
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 
-_TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
+_TODO = "ROADMAP.md queue 1 item 14.6 (model zoo)"
 
 
 def _no_training(*args, **kwargs):
-    raise NotImplementedError(f"training (lm_loss, train steps, ssm_vjp): {_TODO}")
+    raise NotImplementedError(f"training (lm_loss, whisper_loss, train steps, ssm_vjp): {_TODO}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +42,16 @@ class ModelBundle:
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models (whisper): {_TODO}")
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen: W.init_whisper(gen, cfg),
+            loss_fn=_no_training,
+            make_train_step=_no_training,
+            make_prefill_step=lambda window=0: W.make_prefill_step(cfg, window),
+            make_decode_step=lambda window=0: W.make_decode_step(cfg, window),
+            init_cache=lambda batch, seq, window=0, device=None: W.init_whisper_cache(
+                cfg, batch, seq, window, device),
+        )
     T.check_supported(cfg)
     return ModelBundle(
         cfg=cfg,
@@ -55,17 +66,21 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
 
 
 def make_batch_specs(cfg: ModelConfig, kind: str, batch: int, seq: int):
-    """Shapes and dtypes of each input of a decoder LM's batch, in the JAX
+    """Shapes and dtypes of each input of a model's batch, in the JAX
     package's order: a prefill takes ``tokens`` (B, S); under the vision
     stub, ``vision_embeds`` (B, nv, D) bf16, ``tokens`` (B, max(S - nv, 1))
-    and ``positions`` (B, nv + that, 3), the M-RoPE streams. A decode step
-    takes nothing beyond its token."""
-    if cfg.encoder_decoder or cfg.frontend not in ("none", "vision_stub"):
-        raise NotImplementedError(f"inputs of the {cfg.frontend!r} frontend: {_TODO}")
+    and ``positions`` (B, nv + that, 3), the M-RoPE streams; an
+    encoder-decoder takes ``frames`` (B, encoder_seq, D) bf16, the audio
+    stub's frame embeddings, and ``tokens`` (B, min(S, max_decoder_seq)). A
+    decode step takes nothing beyond its token."""
     if kind == "train":
         _no_training()
     if kind != "prefill":
         return {}
+    if cfg.encoder_decoder:
+        dec_seq = min(seq, cfg.max_decoder_seq or seq)
+        return {"frames": ((batch, cfg.encoder_seq, cfg.d_model), torch.bfloat16),
+                "tokens": ((batch, dec_seq), torch.int32)}
     if cfg.frontend == "vision_stub":
         nv = cfg.n_vision_tokens
         txt = max(seq - nv, 1)
@@ -80,7 +95,8 @@ def make_concrete_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
     """Random batch matching ``make_batch_specs``, drawn from a threefry
     ``key`` exactly as the JAX package draws it: one split per input in the
     specs' order; ``randint`` over the vocabulary for tokens, a float32
-    ``normal`` rounded to bf16 for the vision embeddings, and ``arange`` in
+    ``normal`` rounded to bf16 for the vision embeddings and the audio
+    frames, and ``arange`` in
     all three streams for the positions (its split unused). Both packages
     make the same batch from the same seed, bit for bit, and so does a key
     on the card (the draws run on the key's device). The positions are

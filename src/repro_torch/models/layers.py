@@ -1,9 +1,9 @@
 """Transformer / SSM building blocks of the port's serving slice.
 
 The subset of the JAX package's ``models/layers.py`` that falcon-mamba-7b,
-the dense GQA models (granite-3-8b, chatglm3-6b, stablelm-12b, qwen2-vl-2b)
-and the MoE family (deepseek-moe-16b, moonshot-v1-16b-a3b,
-deepseek-v2-lite-16b) run: RMSNorm, SiLU, RoPE in its three variants (full,
+the dense GQA models (granite-3-8b, chatglm3-6b, stablelm-12b, qwen2-vl-2b),
+the MoE family (deepseek-moe-16b, moonshot-v1-16b-a3b,
+deepseek-v2-lite-16b), jamba-v0.1-52b and whisper-tiny's decoder run: RMSNorm, SiLU, RoPE in its three variants (full,
 optionally on the first ``rope_dim`` dims; half, chatglm3's; M-RoPE,
 qwen2-vl's), GQA and MLA attention (prefill and cached decode), SwiGLU, the
 token-choice top-k MoE, and the Mamba-1 block (prefill and decode). Plain
@@ -487,7 +487,7 @@ def moe_apply_local(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Mamba-1 block (falcon-mamba)
+# Mamba-1 block (falcon-mamba, jamba)
 # ---------------------------------------------------------------------------
 
 

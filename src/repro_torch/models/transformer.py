@@ -1,9 +1,12 @@
 """Decoder stack of the port's serving slice: falcon-mamba-7b (Mamba-1
 blocks), the dense GQA + SwiGLU models (granite-3-8b; chatglm3-6b with half
-RoPE; stablelm-12b; qwen2-vl-2b with M-RoPE and the vision stub) and the
-MoE family (deepseek-moe-16b and moonshot-v1-16b-a3b: GQA with a dense
-first layer and MoE layers after it; deepseek-v2-lite-16b: the same with
-MLA).
+RoPE; stablelm-12b; qwen2-vl-2b with M-RoPE and the vision stub), the MoE
+family (deepseek-moe-16b and moonshot-v1-16b-a3b: GQA with a dense first
+layer and MoE layers after it; deepseek-v2-lite-16b: the same with MLA) and
+the hybrid jamba-v0.1-52b (Mamba-1 layers with one GQA layer in every
+period of 8, each mixer followed by a dense SwiGLU or, every other layer,
+an MoE with no shared experts). The encoder-decoder (whisper-tiny) is
+``models/whisper.py``.
 
 The model is an ``nn.Module``, ``DecoderLM``: the embedding, one block per
 layer in an ``nn.ModuleList``, the final norm, the head and, under the
@@ -13,15 +16,17 @@ are the (B, nv + S, 3) M-RoPE streams of the joined sequence. Its parameters
 carry no gradients (serving only). The JAX package stacks the layers of
 each period and scans over them (``layer_plan``: a prologue of unscanned
 layers, then periods); here the blocks are kept per layer and the stack is
-a Python loop, so a cache is one dict per layer:
+a Python loop, so a cache is one dict per layer, a Mamba layer's
+``{conv, ssm}`` beside an attention layer's ``{k, v, kv_pos}`` (MLA:
+``{c_kv, k_rope, kv_pos}``) in a hybrid stack:
 
     cache = {"layers": [block_cache, ...], "pos": int}
 
 Each layer follows its ``LayerSpec``: the mixer (``attn``, which is GQA or
-MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE.
-``mode="train"``, hybrid stacks, tied embeddings and the encoder-decoder
-(whisper, with its audio frontend) raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE; a
+Mamba block has no FFN where the config has no ``d_ff`` and is not an MoE
+layer (falcon-mamba). ``mode="train"`` and tied embeddings raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
-_item = L._item
 
 
 # ---------------------------------------------------------------------------
@@ -80,13 +84,11 @@ def layer_plan(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port."""
+    """Raise for what this slice does not port, and for an encoder-decoder
+    config, which is ``models/whisper.py``'s (``api.get_model`` routes it
+    there)."""
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder models (whisper): {_item(5)}")
-    if cfg.frontend not in ("none", "vision_stub"):
-        raise NotImplementedError(f"frontend {cfg.frontend!r}: {_item(5)}")
-    if cfg.ssm and cfg.attn_period:
-        raise NotImplementedError(f"hybrid Mamba + attention stacks (jamba): {_item(6)}")
+        raise ValueError(f"{cfg.name}: an encoder-decoder config is models/whisper.py's")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"tied embeddings: {_TODO}")
 
@@ -105,7 +107,8 @@ class ParamTree(nn.Module):
     dicts nested ``ParamTree``s. Indexed like the JAX package's dicts
     (``blk["mixer"]``, ``blk["moe"]["shared"]["wg"]``, ``"ffn" in blk``,
     ``.items()``). One block is the pre-norm residual layer's ``norm1``,
-    ``mixer`` and, after attention, ``norm2`` with ``ffn`` or ``moe``."""
+    ``mixer`` and, after attention (and after a Mamba mixer in jamba),
+    ``norm2`` with ``ffn`` or ``moe``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -166,6 +169,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
     p = {"norm1": ones()}
     if spec.kind == "mamba":
         p["mixer"] = L.init_mamba(gen, cfg)
+        if spec.moe:
+            p["norm2"] = ones()
+            p["moe"] = L.init_moe(gen, cfg)
+        elif cfg.d_ff:  # jamba: a dense FFN on its non-MoE layers
+            p["norm2"] = ones()
+            p["ffn"] = L.init_swiglu(gen, cfg)
         return p
     p["mixer"] = L.init_mla(gen, cfg) if cfg.attn_type == "mla" else L.init_gqa(gen, cfg)
     p["norm2"] = ones()

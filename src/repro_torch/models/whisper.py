@@ -1,0 +1,199 @@
+"""Whisper-style encoder-decoder backbone of the port (whisper-tiny).
+
+The counterpart of the JAX package's ``models/whisper.py``. The
+mel-spectrogram + conv frontend is a stub: ``frames`` (B, encoder_seq,
+d_model) arrive precomputed. The backbone: a bidirectional encoder over the
+frames with a learned positional embedding (``enc_pos``), and a causal
+decoder (GQA self-attention with RoPE, ``layers.gqa_attention``) that
+cross-attends the encoder's output after each self-attention; pre-norm
+RMSNorm and SwiGLU throughout.
+
+The model is an ``nn.Module``, ``WhisperModel``, over ``ParamTree``s named
+as the JAX tree: ``enc_pos``, ``encoder[i].{norm1, attn, norm2, ffn}``,
+``enc_norm``, ``embed``, ``decoder[i].{norm1, self_attn, norm_cross,
+cross_attn, norm2, ffn}``, ``final_norm``, ``head``. Its parameters carry no
+gradients (serving only).
+
+Every attention without a cache goes through ``kernels.flash_attention``
+where JAX runs ``chunked_attention``: non-causal in the encoder (T = S =
+encoder_seq) and in the cross-attention (S decoder queries over T =
+encoder_seq frames at prefill, one query at a decode step), causal in the
+decoder's self-attention at prefill. A decode step projects ``enc_out`` to
+K/V again in every layer, as the JAX step does (it keeps no cross-K/V
+cache), and its self-attention is ``layers.decode_attention`` on the cache
+the prefill wrote. The cache:
+
+    cache = {"layers": [gqa_cache, ...], "pos": int, "enc_out": (B, T, D)}
+
+``mode="train"`` (``whisper_loss``, the train step) raises
+``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import ParamTree, _param
+
+_TRAINING = "ROADMAP.md queue 1 item 14.6 (training: whisper_loss, the train step)"
+
+
+class WhisperModel(nn.Module):
+    """The encoder-decoder: ``enc_pos`` (encoder_seq, D), ``encoder``,
+    ``enc_norm`` (D,), ``embed`` (V_padded, D), ``decoder``, ``final_norm``
+    (D,), ``head`` (D, V_padded)."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        if not cfg.encoder_decoder:
+            raise ValueError(f"{cfg.name}: a decoder-only config is models/transformer.py's")
+        if len(tree["encoder"]) != cfg.n_encoder_layers or len(tree["decoder"]) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(tree['encoder'])} encoder and "
+                             f"{len(tree['decoder'])} decoder layers for {cfg.n_encoder_layers} "
+                             f"and {cfg.n_layers}")
+        self.cfg = cfg
+        for name in ("enc_pos", "enc_norm", "embed", "final_norm", "head"):
+            self.register_parameter(name, _param(tree[name]))
+        self.encoder = nn.ModuleList(ParamTree(lyr) for lyr in tree["encoder"])
+        self.decoder = nn.ModuleList(ParamTree(lyr) for lyr in tree["decoder"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The encoder's and the cross-attention's projections: normal * 0.02
+    for all four (``layers.init_gqa`` scales ``wo`` by 1/sqrt(2 L))."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dt = L.torch_dtype(cfg)
+    return {"wq": L._normal(gen, (d, h * dh), 0.02, dt),
+            "wk": L._normal(gen, (d, hkv * dh), 0.02, dt),
+            "wv": L._normal(gen, (d, hkv * dh), 0.02, dt),
+            "wo": L._normal(gen, (h * dh, d), 0.02, dt)}
+
+
+def init_whisper(gen: torch.Generator, cfg: ModelConfig) -> WhisperModel:
+    """A model with random weights drawn from ``gen`` on its device: the
+    JAX init's shapes, dtypes and scales (``enc_pos`` normal * 0.01, the
+    embedding and head * 0.02, norms 1), not its bits."""
+    dt = L.torch_dtype(cfg)
+    d = cfg.d_model
+    ones = lambda: torch.ones((d,), dtype=dt, device=gen.device)  # noqa: E731
+    encoder = [{"norm1": ones(), "attn": _init_attn(gen, cfg), "norm2": ones(),
+                "ffn": L.init_swiglu(gen, cfg)} for _ in range(cfg.n_encoder_layers)]
+    decoder = [{"norm1": ones(), "self_attn": L.init_gqa(gen, cfg), "norm_cross": ones(),
+                "cross_attn": _init_attn(gen, cfg), "norm2": ones(),
+                "ffn": L.init_swiglu(gen, cfg)} for _ in range(cfg.n_layers)]
+    return WhisperModel(cfg, {
+        "enc_pos": L._normal(gen, (cfg.encoder_seq, d), 0.01, dt),
+        "encoder": encoder,
+        "enc_norm": ones(),
+        "embed": L._normal(gen, (cfg.vocab_padded, d), 0.02, dt),
+        "decoder": decoder,
+        "final_norm": ones(),
+        "head": L._normal(gen, (d, cfg.vocab_padded), 0.02, dt),
+    })
+
+
+def init_whisper_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
+    layers = [L.init_gqa_cache(cfg, batch, seq, window, device) for _ in range(cfg.n_layers)]
+    return {"layers": layers, "pos": 0,
+            "enc_out": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                   dtype=L.torch_dtype(cfg), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _attn(p, q_in: torch.Tensor, kv_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Non-causal attention of q_in (B, S, D) over kv_in (B, T, D) through
+    ``kernels.flash_attention`` (T may differ from S): every query sees
+    every key, as JAX's ``chunked_attention(causal=False)`` over positions
+    that are all real."""
+    b, s, _ = q_in.shape
+    t = kv_in.shape[1]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (q_in @ p["wq"]).reshape(b, s, h, dh)
+    k = (kv_in @ p["wk"]).reshape(b, t, hkv, dh)
+    v = (kv_in @ p["wv"]).reshape(b, t, hkv, dh)
+    return flash_attention(q, k, v, causal=False).reshape(b, s, h * dh) @ p["wo"]
+
+
+@torch.no_grad()
+def encode(params: WhisperModel, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, T_enc, D), cast to the model's dtype, -> the encoder's
+    output (B, T_enc, D)."""
+    t = frames.shape[1]
+    x = frames.to(device=params.device, dtype=params.embed.dtype) + params.enc_pos[:t]
+    for lyr in params.encoder:
+        h = L.rms_norm(x, lyr["norm1"], cfg.norm_eps)
+        x = x + _attn(lyr["attn"], h, h, cfg)
+        h = L.rms_norm(x, lyr["norm2"], cfg.norm_eps)
+        x = x + L.swiglu(lyr["ffn"], h)
+    return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+@torch.no_grad()
+def decode_forward(params: WhisperModel, cfg: ModelConfig, tokens: torch.Tensor,
+                   enc_out: torch.Tensor, *, cache=None, window: int = 0, mode: str = "prefill"):
+    """The decoder over tokens (B, S), cross-attending ``enc_out`` (B, T,
+    D). mode: prefill (positions 0..S-1, no cache) | decode (one token at
+    ``cache["pos"]``, the cache written in place). Returns (logits (B, S,
+    V_padded) float32, new_cache), the cache carrying ``enc_out``."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"decode_forward mode {mode!r}: {_TRAINING}")
+    x = params.embed[tokens.to(device=params.device, dtype=torch.int64)]
+    s = x.shape[1]
+    positions = cache["pos"] if mode == "decode" else torch.arange(s, dtype=torch.int32,
+                                                                    device=x.device)
+    new_layers = []
+    for i, lyr in enumerate(params.decoder):
+        c = cache["layers"][i] if cache is not None else None
+        h = L.rms_norm(x, lyr["norm1"], cfg.norm_eps)
+        sa, nc = L.gqa_attention(lyr["self_attn"], h, positions, cfg, cache=c, window=window,
+                                 mode=mode)
+        x = x + sa
+        h = L.rms_norm(x, lyr["norm_cross"], cfg.norm_eps)
+        x = x + _attn(lyr["cross_attn"], h, enc_out, cfg)  # every query sees every frame
+        h = L.rms_norm(x, lyr["norm2"], cfg.norm_eps)
+        x = x + L.swiglu(lyr["ffn"], h)
+        new_layers.append(nc)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = (x @ params.head).to(torch.float32)
+    next_pos = cache["pos"] + 1 if mode == "decode" else s
+    return logits, {"layers": new_layers, "pos": next_pos, "enc_out": enc_out}
+
+
+def make_prefill_step(cfg: ModelConfig, window: int = 0):
+    def prefill_step(params: WhisperModel, batch: dict):
+        """batch {"frames" (B, T_enc, D), "tokens" (B, S)} -> (last-position
+        logits (B, V), cache)."""
+        enc_out = encode(params, cfg, batch["frames"])
+        logits, cache = decode_forward(params, cfg, batch["tokens"], enc_out, window=window,
+                                       mode="prefill")
+        return logits[:, -1].clone(), cache  # the clone frees the (B, S, V) logits
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, window: int = 0):
+    def decode_step(params: WhisperModel, cache: dict, token: torch.Tensor):
+        """token (B, 1) -> (logits (B, V), new_cache); writes the
+        self-attention caches in place."""
+        logits, new_cache = decode_forward(params, cfg, token, cache["enc_out"], cache=cache,
+                                           window=window, mode="decode")
+        return logits[:, 0], new_cache
+
+    return decode_step

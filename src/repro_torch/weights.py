@@ -7,7 +7,9 @@ leaves are numpy arrays — e.g. the JAX package's parameters after
 with ``RoundState``'s fields), so both packages can compute from the same
 weights, keys and per-client lanes. ``lm_params_from_numpy`` turns the JAX
 package's decoder-LM parameter tree (``models/transformer.init_params``)
-into the port's ``DecoderLM``. ``servable_from_numpy`` turns the JAX
+into the port's ``DecoderLM``, ``whisper_params_from_numpy`` its
+encoder-decoder's (``models/whisper.init_whisper``) into a
+``WhisperModel``. ``servable_from_numpy`` turns the JAX
 package's ``ServableArtifact`` (``serve/artifact.py``), as numpy arrays,
 into the port's, so both serving engines can score the same personalized
 models. Like every entry point they default to the CUDA card and raise
@@ -23,10 +25,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
 from repro_torch.models.transformer import DecoderLM, check_supported, layer_plan
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
-           "servable_from_numpy"]
+           "whisper_params_from_numpy", "servable_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -84,6 +87,15 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     if "vision_proj" in tree:  # the vision stub's projection
         lm["vision_proj"] = _tensor(tree["vision_proj"], dev)
     return DecoderLM(cfg, lm)
+
+
+def whisper_params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The JAX package's whisper parameters (``enc_pos``, the ``encoder``
+    layers, ``enc_norm``, ``embed``, the ``decoder`` layers,
+    ``final_norm``, ``head``), as numpy arrays, -> the port's
+    ``WhisperModel`` on ``device`` (dtypes and bits kept)."""
+    dev = resolve_device(device)
+    return WhisperModel(cfg, tree_map(lambda a: _tensor(a, dev), tree))
 
 
 def servable_from_numpy(artifact, device=None):

@@ -24,11 +24,17 @@ elements round to the neighbouring bf16 value), with at most 1e-3 of the
 elements beyond 1 ulp plus 1e-5 of max; the same at MLA's head dims,
 (Dqk, Dv) = (192, 128) in bf16 and the reduced (48, 32) in float32, and at
 G = 1 (the MoE family's MHA), at stablelm-12b's (160, 160) in bf16 (64-key
-tiles) and at G = 16 and G = 6 (chatglm3-6b's and qwen2-vl-2b's); any other
+tiles) and at G = 16 and G = 6 (chatglm3-6b's and qwen2-vl-2b's), and
+non-causal at T != S at whisper-tiny's D = 64 (S = T = 1,500, S = 448 and
+S = 1 over T = 1,500, and small ragged cases) in both dtypes; any other
 pair raises. The reduced MoE family (deepseek-moe, moonshot,
 deepseek-v2-lite) and the reduced chatglm3, stablelm and qwen2-vl (its
 vision batch included) in float32 serve on the card through
-flash_attention and match the CPU within 1e-5 of max. The
+flash_attention and match the CPU within 1e-5 of max; so do the reduced
+whisper-tiny (flash_attention non-causal in its encoder and
+cross-attention) and the reduced jamba (ssm_scan and flash_attention in
+one stack; 2^-8 of max after its Mamba scans), each launching exactly its
+kernels; whisper's frames drawn on the card are the host's bits. The
 staleness merge (snapshot
 subtracted in the load loop, the global layer as the base) is
 masked_aggregate's kernel bitwise equal to its plain version, one launch an
@@ -463,6 +469,37 @@ def test_flash_attention_160_and_wide_groups_vs_plain(cuda, case):
     assert result["ok"], result
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", [
+    # (b, s, t, h, hkv): whisper-tiny's encoder (S = T = 1,500: a ragged
+    # last 128-key tile of 92 keys), its prefill's cross-attention (448
+    # decoder queries over 1,500 frames) and a decode step's (one query: a
+    # 64-row TMA box over a rows dimension of 1), then small T != S cases
+    # with T ragged and below one tile, G = 2
+    (4, 1500, 1500, 6, 6),
+    (4, 448, 1500, 6, 6),
+    (4, 1, 1500, 6, 6),
+    (2, 30, 200, 4, 2),
+    (1, 100, 37, 4, 2),
+    (3, 1, 20, 2, 1),
+], ids=str)
+def test_flash_attention_non_causal_t_ne_s_vs_plain(cuda, case, dtype):
+    b, s, t, h, hkv = case
+    gen = torch.Generator(device=cuda).manual_seed(s + t + h)
+    q = torch.randn((b, s, h, 64), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, t, hkv, 64), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, s, h, 64) and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=False)
+    if dtype == torch.float32:
+        _close_to_max(got, want)
+    else:
+        result = bf16_contract(got, want, q, k, v, False)
+        assert result["ok"], result
+
+
 @pytest.mark.parametrize("dims,dtype", [((96, 96), torch.bfloat16), ((48, 32), torch.bfloat16),
                                         ((192, 128), torch.float32), ((128, 64), torch.bfloat16)],
                          ids=str)
@@ -538,6 +575,63 @@ def test_reduced_dense_zoo_on_cuda_matches_cpu(cuda, arch):
         want, cpu_cache = decode(cpu_model, cpu_cache, tok)
         got, dev_cache = decode(dev_model, dev_cache, tok)
         _close_to_max(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "jamba-v0.1-52b"])
+def test_reduced_whisper_and_jamba_on_cuda_match_cpu(cuda, arch):
+    """The reduced float32 whisper (served in waves; flash_attention
+    non-causal in its encoder and cross-attention, a decode step's at S =
+    1) and jamba (ssm_scan and flash_attention in one stack) on the card:
+    exactly the expected launches, and prefill and decode logits within
+    1e-5 of max (2^-8 after jamba's Mamba scans) of the same model on the
+    CPU, on the same batch."""
+    import copy
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.models.api import get_model, make_concrete_batch
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    rel = 2.0 ** -8 if cfg.ssm else 1e-5
+    kernels.reset_launch_counts()
+    stats = serve(cfg, requests=3, batch=2, prompt_len=32, max_new=4, device=cuda)
+    assert stats["n_requests"] == 3 and stats["logits_finite"]
+    counts = kernels.launch_counts()
+    n_pre, n_dec = stats["prefill_calls"], len(stats["decode_ms"])
+    if cfg.encoder_decoder:
+        assert counts["flash_attention"] == ((cfg.n_encoder_layers + 2 * cfg.n_layers) * n_pre
+                                             + cfg.n_layers * n_dec) and counts["ssm_scan"] == 0
+    else:
+        assert counts["ssm_scan"] == 7 * n_pre and counts["flash_attention"] == n_pre
+    bundle = get_model(cfg)
+    cpu_model = bundle.init(torch.Generator().manual_seed(0))
+    dev_model = copy.deepcopy(cpu_model).to(cuda)
+    batch = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    (want, cpu_cache), (got, dev_cache) = (prefill(m, batch) for m in (cpu_model, dev_model))
+    _close_to_max(got.cpu(), want, rel)
+    for _ in range(2):
+        tok = torch.argmax(want, dim=-1)[:, None]
+        want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+        got, dev_cache = decode(dev_model, dev_cache, tok)
+        _close_to_max(got.cpu(), want, rel)
+
+
+@pytest.mark.parametrize("size", ["reduced", "full"])
+def test_whisper_frames_drawn_on_cuda_are_the_host_draw(cuda, size):
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch
+
+    cfg = get_config("whisper-tiny")
+    cfg, (b, s) = (cfg.reduced(), (4, 64)) if size == "reduced" else (cfg, (2, 2048))
+    host = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(9))
+    card = make_concrete_batch(cfg, "prefill", b, s, prng.PRNGKey(9, device=cuda))
+    assert list(card) == list(host) == ["frames", "tokens"]
+    assert card["frames"].device.type == "cuda" and card["frames"].dtype == torch.bfloat16
+    for name, want in host.items():
+        got = card[name].cpu()
+        assert torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16 else got,
+                           want.view(torch.int16) if want.dtype == torch.bfloat16 else want), name
 
 
 @pytest.mark.parametrize("size", ["reduced", "full"])

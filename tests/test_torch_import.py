@@ -252,15 +252,9 @@ def test_lazy_population_routes_to_the_host_plane(monkeypatch):
     assert calls == [1] and h.accuracy_per_client.shape == (2, 6)
 
 
-_UNPORTED_ARCHS = ["whisper-tiny", "jamba-v0.1-52b"]
 _ZOO_ARCHS = ["falcon-mamba-7b", "granite-3-8b", "deepseek-moe-16b", "moonshot-v1-16b-a3b",
-              "deepseek-v2-lite-16b", "chatglm3-6b", "stablelm-12b", "qwen2-vl-2b"]
-
-
-@pytest.mark.parametrize("arch", _UNPORTED_ARCHS)
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_config(arch)
+              "deepseek-v2-lite-16b", "chatglm3-6b", "stablelm-12b", "qwen2-vl-2b",
+              "jamba-v0.1-52b", "whisper-tiny"]
 
 
 @pytest.mark.parametrize("arch", _ZOO_ARCHS)
@@ -268,13 +262,53 @@ def test_ported_archs_are_registered(arch):
     assert get_config(arch).name == arch
 
 
-@pytest.mark.parametrize("change", [dict(encoder_decoder=True), dict(ssm=True, attn_period=8),
-                                    dict(tie_embeddings=True)],
-                         ids=str)
+def test_every_jax_arch_is_registered_and_an_unknown_one_raises():
+    """The port registers a config module for every one of the JAX
+    package's (read from its directory, not imported); an unknown name
+    raises the JAX registry's KeyError."""
+    from repro_torch.configs import _ARCH_MODULES
+
+    jax_modules = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob("*.py")}
+    assert {m.rsplit(".", 1)[1] for m in _ARCH_MODULES.values()} == jax_modules - {"__init__",
+                                                                                  "base"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+
+
+@pytest.mark.parametrize("change", [dict(tie_embeddings=True)], ids=str)
 def test_model_features_outside_the_slice_raise(change):
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="item 14"):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-tiny"])
+def test_hybrid_and_encoder_decoder_archs_run(arch):
+    """The hybrid stack (Mamba and attention caches side by side, an MoE or
+    a dense FFN after every mixer) and the encoder-decoder (frames in the
+    prefill batch, ``enc_out`` in the cache), each raising before this
+    slice, build and run a prefill and a decode step on the CPU at their
+    reduced configs."""
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch
+
+    cfg = get_config(arch).reduced()
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    batch = make_concrete_batch(cfg, "prefill", 2, 8, prng.PRNGKey(1))
+    logits, cache = bundle.make_prefill_step()(model, batch)
+    assert cache["pos"] == 8
+    logits, cache = bundle.make_decode_step()(model, cache, logits.argmax(-1)[:, None])
+    assert logits.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    assert cache["pos"] == 9
+    if cfg.encoder_decoder:
+        assert list(batch) == ["frames", "tokens"] and batch["frames"].dtype == torch.bfloat16
+        assert cache["enc_out"].shape == (2, cfg.encoder_seq, cfg.d_model)
+        assert len(cache["layers"]) == cfg.n_layers
+    else:
+        kinds = [sorted(c) for c in cache["layers"]]
+        assert kinds.count(["k", "kv_pos", "v"]) == 1 and kinds.count(["conv", "ssm"]) == 7
+        assert all("ffn" in blk or "moe" in blk for blk in model.blocks)
 
 
 @pytest.mark.parametrize("change", [dict(moe=True, n_experts=4, top_k=2), dict(attn_type="mla"),
@@ -325,11 +359,18 @@ def test_expert_parallel_moe_raises():
 
 @pytest.mark.parametrize("arch", _ZOO_ARCHS)
 def test_training_mode_raises(arch):
+    from repro_torch.models import whisper
+
     cfg = get_config(arch).reduced()
     bundle = get_model(cfg)
     model = bundle.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="item 14"):
-        transformer.forward(model, cfg, torch.zeros((1, 4), dtype=torch.int32), mode="train")
+        if cfg.encoder_decoder:
+            enc = torch.zeros((1, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16)
+            whisper.decode_forward(model, cfg, toks, enc, mode="train")
+        else:
+            transformer.forward(model, cfg, toks, mode="train")
     with pytest.raises(NotImplementedError, match="item 14"):
         bundle.make_train_step(None)
 

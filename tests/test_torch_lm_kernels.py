@@ -27,6 +27,11 @@ numpy inputs:
   the attention of |v| (rounding p to bf16 moves it by at most 2^-8 p, so
   an output by at most 2^-8 sum_t p_t |v_t| / l). G in {1, 2, 4}, causal
   and not, window 0 and 32, ragged S, D 64 and 128.
+- flash_attention at T != S (whisper's cross-attention: S decoder queries,
+  one at a decode step, over T encoder frames), non-causal: S = 1, S < T
+  and S > T, T ragged against the 64- and 128-key tiles; the same holds
+  against the oracle, the Pallas kernel in interpret mode and
+  ``chunked_attention`` (over positions ``arange(S)`` and ``arange(T)``).
 
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -225,6 +230,49 @@ def test_flash_attention_plain_bf16_matches_chunked_attention(hkv, causal, windo
     assert got.dtype == torch.bfloat16
     result = bf16_contract(torch.from_numpy(_np(want)).to(torch.bfloat16), got, *qkv, causal,
                            window)
+    assert result["ok"], result
+
+
+def _fa_inputs_st(b, s, t, h, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, t, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, t, hkv, d)).astype(np.float32))
+
+
+# (S, T): one query (a decode step's cross-attention), S < T with T ragged
+# against the 64- and 128-key tiles, S > T, and a T below one tile
+T_NE_S = [(1, 150), (1, 300), (30, 150), (64, 200), (100, 37), (7, 20)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hkv", [2, 1], ids=["G1", "G2"])
+@pytest.mark.parametrize("st", T_NE_S, ids=str)
+def test_flash_attention_plain_at_t_ne_s_matches_ref_and_pallas(st, hkv, dtype):
+    s, t = st
+    q, k, v = _fa_inputs_st(2, s, t, 2, hkv, 64, seed=s + t + hkv)
+    got = flash_attention_plain(*(_to_torch(a, dtype) for a in (q, k, v)), causal=False)
+    assert got.shape == (2, s, 2, 64)
+    ref = flash_attention_ref(*(_to_jax(a.transpose(0, 2, 1, 3), dtype) for a in (q, k, v)),
+                              causal=False)
+    _check_fa(got, np.asarray(jnp.asarray(ref, jnp.float32)).transpose(0, 2, 1, 3), dtype,
+              (q, k, v), causal=False)
+    pallas = jax_flash_attention(*(_to_jax(a, dtype) for a in (q, k, v)), causal=False,
+                                 block_q=64, block_k=64, interpret=True)
+    _check_fa(got, pallas, dtype, (q, k, v), causal=False)
+
+
+@pytest.mark.parametrize("st", T_NE_S, ids=str)
+def test_flash_attention_plain_bf16_at_t_ne_s_matches_chunked_attention(st):
+    """bf16 P against the JAX model's cross-attention arithmetic, with the
+    kernel's 128-key tile as the chunk, under the bf16 contract."""
+    s, t = st
+    q, k, v = _fa_inputs_st(2, s, t, 4, 2, 64, seed=3 * s + t)
+    qkv = [_to_torch(a, "bfloat16") for a in (q, k, v)]
+    got = flash_attention_plain(*qkv, causal=False)
+    want = chunked_attention(*(_to_jax(a, "bfloat16") for a in (q, k, v)), jnp.arange(s),
+                             jnp.arange(t), causal=False, chunk=BLOCK_K)
+    result = bf16_contract(torch.from_numpy(_np(want).copy()).to(torch.bfloat16), got, *qkv, False)
     assert result["ok"], result
 
 

@@ -12,8 +12,8 @@ the continuous-batching decode loop.
   ``tests/test_torch_lm.py`` (1e-5 of max|logits|, 2^-8 after a Mamba
   scan); the comparison then stops at that step.
 - ``serve`` runs every served arch's reduced config on the CPU (qwen2-vl-2b
-  in waves: ``tests/test_torch_dense_zoo.py`` holds its waves to the JAX
-  launcher's).
+  and whisper-tiny in waves: ``tests/test_torch_dense_zoo.py`` and
+  ``tests/test_torch_whisper.py`` hold their waves to the JAX launcher's).
 """
 
 import contextlib
@@ -43,8 +43,8 @@ from repro_torch.weights import lm_params_from_numpy  # noqa: E402
 
 ARCHS = ["falcon-mamba-7b", "granite-3-8b"]
 MOE_ARCHS = ["deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"]
-ZOO_ARCHS = ARCHS + MOE_ARCHS + ["chatglm3-6b", "stablelm-12b"]  # the token-only LMs
-WAVE_ARCHS = ["qwen2-vl-2b"]  # a prefill batch beyond tokens: served in waves
+ZOO_ARCHS = ARCHS + MOE_ARCHS + ["chatglm3-6b", "stablelm-12b", "jamba-v0.1-52b"]  # token-only
+WAVE_ARCHS = ["qwen2-vl-2b", "whisper-tiny"]  # a prefill batch beyond tokens: served in waves
 MODES = pytest.mark.parametrize("partitionable", [True, False], ids=["partitionable", "legacy"])
 LOGITS_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8}  # test_torch_lm.py's contracts
 
@@ -251,3 +251,14 @@ def test_serve_cli_takes_the_dense_zoo(arch, capsys):
         assert stats["prefill_calls"] == 2 and out.startswith("waves: 3 requests")
     else:
         assert out.startswith("continuous: 3 requests")
+
+
+@pytest.mark.parametrize("arch,mode", [("jamba-v0.1-52b", "continuous"), ("whisper-tiny", "waves")])
+def test_serve_cli_takes_jamba_and_whisper(arch, mode, capsys):
+    """jamba (a token-only prefill) through continuous batching, whisper
+    (frames beside its tokens) in waves of ``--batch`` requests."""
+    stats = serve_main(["--arch", arch, "--requests", "3", "--batch", "2", "--prompt-len", "24",
+                        "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert stats["n_requests"] == 3 and stats["logits_finite"] and "served 3 requests" in out
+    assert out.startswith(f"{mode}: 3 requests")
