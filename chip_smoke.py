@@ -58,7 +58,21 @@ drives the port's two paths:
   recorded serving session of the reduced granite-3-8b (``serve(...,
   record=dir)``); the MoE layer's time at the prefill shape, split into
   routing, dispatch, experts and combine, and the share of routes dropped
-  at prefill and at decode.
+  at prefill and at decode;
+- LM training (``[train_kernels]``, ``[train]``): the two backward
+  kernels, flash_attention_bwd (granite-3-8b's layer, whisper-tiny's
+  encoder and cross-attention, one launch each at (192, 128) and (160,
+  160)) and ssm_scan_bwd (falcon-mamba-7b's layer, whole and ragged
+  chunks), each held to its contract against the backward in float64 on
+  the forward kernel's own lse or chunk states, with its controls, two
+  calls bitwise, timed beside its bound, its float32 plain version and
+  (attention) SDPA's fused backward; the ten reduced configs' loss and
+  gradients on the card against the CPU; then full-width training through
+  ``repro_torch.launch.train.train`` (the CLI's optimizer, a fresh batch a
+  step, bf16, batch 4 of 2048 tokens): granite-3-8b and falcon-mamba-7b
+  cut to 8 layers, whisper-tiny whole (448 tokens over 1,500 frames), with
+  exactly the forward, recompute and backward launches the code implies,
+  finite losses, step ms, tok/s and peak memory.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -77,6 +91,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -141,7 +156,7 @@ from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
-from repro_torch.models.api import get_model, make_concrete_batch  # noqa: E402
+from repro_torch.models.api import get_model, make_batch_specs, make_concrete_batch  # noqa: E402
 from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ClassifyProgram,
@@ -311,6 +326,10 @@ LM_REL = 1e-5
 # the reduced models on the card against the same models on the CPU:
 # logits within 1e-5 of max|logits|, 2^-8 after a Mamba scan (one bf16
 # rounding flip of a scan input; tests/test_torch_lm.py)
+# [train]: full-width training through launch.train (depth cut where
+# given; 0 keeps the whole model), the CLI's optimizer
+TRAIN_LAYERS = {"granite-3-8b": 8, "falcon-mamba-7b": 8, "whisper-tiny": 0}
+TRAIN_RUN = dict(batch=4, seq=2048, steps=4, lr=3e-4, seed=0)
 REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe-16b": 1e-5,
                "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5, "chatglm3-6b": 1e-5,
                "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5, "jamba-v0.1-52b": 2.0 ** -8,
@@ -2404,6 +2423,301 @@ def nccl_world_main(where: str = "cuda") -> int:
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and the train steps
+# ---------------------------------------------------------------------------
+
+
+def expected_train_launches(cfg, steps: int) -> dict[str, int]:
+    """What ``steps`` train steps of ``cfg`` must launch of each kernel: a
+    decoder LM checkpoints every block (remat), so an attention layer runs
+    flash_attention twice a step (the forward and its recompute in the
+    backward) and flash_attention_bwd once, a Mamba layer ssm_scan twice
+    and ssm_scan_bwd once; whisper checkpoints nothing (as in JAX), so each
+    of its attentions (encoder self-attention, decoder self- and
+    cross-attention) runs the forward and the backward once a step."""
+    counts = dict.fromkeys(kernels.KERNELS, 0)
+    if cfg.encoder_decoder:
+        n = cfg.n_encoder_layers + 2 * cfg.n_layers
+        counts.update(flash_attention=n * steps, flash_attention_bwd=n * steps)
+        return counts
+    specs = transformer.layer_specs(cfg)
+    n_attn = sum(sp.kind == "attn" for sp in specs)
+    n_mamba = len(specs) - n_attn
+    counts.update(flash_attention=2 * n_attn * steps, flash_attention_bwd=n_attn * steps,
+                  ssm_scan=2 * n_mamba * steps, ssm_scan_bwd=n_mamba * steps)
+    return counts
+
+
+def sdpa_backward_ms(q, k, v, dout, causal: bool) -> tuple:
+    """The backward of ``scaled_dot_product_attention`` (autograd, one call
+    of ``torch.autograd.grad`` on a retained graph) through each fused
+    backend that takes the shape: (the fastest one's ms or None, its name,
+    every backend's ms or the first line of its refusal). CUDA-event ms of
+    eager calls."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gqa = k.shape[2] != q.shape[2]
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    doh = dout.transpose(1, 2).contiguous()
+    tried = {}
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            tried[name] = "not in this torch"
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, **({"enable_gqa": True} if gqa else {}))
+                fn = lambda: torch.autograd.grad(out, leaves, doh, retain_graph=True)  # noqa: E731
+                fn()
+                torch.cuda.synchronize()
+                tried[name] = cuda_ms(fn, reps=10)
+            del out
+        except RuntimeError as err:
+            tried[name] = "refused: " + str(err).strip().splitlines()[0][:160]
+    times = {n: t for n, t in tried.items() if isinstance(t, float)}
+    best = min(times, key=times.get) if times else None
+    return (times[best] if best else None), best, tried
+
+
+def attention_bwd_bound(b, s, t, h, hkv, dq, dv, causal) -> tuple[float, str]:
+    """The least time of dQ, dK, dV in bf16: the five products the inputs
+    require over the visible pairs (S again, dP, dV, dK, dQ) at the bf16
+    tensor-core rate, or the bytes (q, k, v, o, dO, lse read once, dQ, dK,
+    dV written once)."""
+    n_bytes = 2 * (2 * b * s * h * dq + 2 * b * t * hkv * (dq + dv) + 2 * b * s * h * dv) \
+        + 4 * b * h * s
+    flops = 2 * (3 * dq + 2 * dv) * b * h * visible_pairs(s, t, causal, 0)
+    return bound_ms(n_bytes, flops, BF16_FLOPS)
+
+
+def phase_train_kernels(dev: torch.device) -> dict:
+    """The two backward kernels against their plain versions at full-width
+    shapes, bf16: flash_attention_bwd at granite-3-8b's layer (B 4, S 2048,
+    H 32, Hkv 8, D 128, causal), whisper-tiny's encoder (S = T = 1,500) and
+    cross-attention (448 queries over 1,500 frames), non-causal, and one
+    launch each at deepseek-v2-lite's (192, 128) and stablelm-12b's (160,
+    160) (B 1, S 2048); ssm_scan_bwd at falcon-mamba-7b's layer (B 4, S
+    2048 and a ragged 1,999, di 8,192, ds 16). Each held to its contract
+    (``contract.bwd_check``, against the backward in float64 on the forward
+    kernel's o and lse, or chunk states), its controls rejected at the
+    first shape, two calls bitwise equal; times (CUDA events, eager) beside
+    the bound, the float32 plain version and, for attention, SDPA's fused
+    backward. Returns the two kernels' rows."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward_plain, ssm_scan_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    src = "src/repro_torch/csrc/"
+    brief = lambda r: {k: float(f"{v:.4g}") if isinstance(v, float) else v  # noqa: E731
+                       for k, v in r.items()}
+    gr, wh = get_config("granite-3-8b"), get_config("whisper-tiny")
+    ds, sl = get_config("deepseek-v2-lite-16b"), get_config("stablelm-12b")
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    cases = {  # (b, s, t, h, hkv, dq, dv, causal)
+        "granite": (b, s, s, gr.n_heads, gr.n_kv_heads, gr.head_dim_, gr.head_dim_, True),
+        "whisper_enc": (b, wh.encoder_seq, wh.encoder_seq, wh.n_heads, wh.n_kv_heads,
+                        wh.head_dim_, wh.head_dim_, False),
+        "whisper_cross": (b, wh.max_decoder_seq, wh.encoder_seq, wh.n_heads, wh.n_kv_heads,
+                          wh.head_dim_, wh.head_dim_, False),
+        "mla": (1, s, s, ds.n_heads, ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim,
+                True),
+        "stablelm": (1, s, s, sl.n_heads, sl.n_kv_heads, sl.head_dim_, sl.head_dim_, True),
+    }
+    fa_row, report = {}, {}
+    for key, (bb, ss, tt, h, hkv, dq, dv, causal) in cases.items():
+        q = randn(bb, ss, h, dq).to(torch.bfloat16)
+        k = randn(bb, tt, hkv, dq).to(torch.bfloat16)
+        v = randn(bb, tt, hkv, dv).to(torch.bfloat16)
+        dout = randn(bb, ss, h, dv).to(torch.bfloat16)
+        out, lse = _attention(q, k, v, causal, 0, with_lse=True)
+        args = (q, k, v, out, lse, dout, causal)
+        got = flash_attention_bwd(*args)
+        again = flash_attention_bwd(*args)
+        check(all(same(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd at {key}: two calls differ")
+        plain32, ref64 = fa_contract.bwd_references(*args)
+        report[key] = r = brief(fa_contract.bwd_check(got, plain32, ref64))
+        check(r["ok"], f"flash_attention_bwd at {key} fails its contract: {r}")
+        if key == "granite":
+            for fault, bad in fa_contract.bwd_controls(*args).items():
+                report[f"control {fault}"] = r = brief(fa_contract.bwd_check(bad, plain32, ref64))
+                check(not r["ok"], f"flash_attention_bwd's contract accepts {fault}: {r}")
+            del bad
+        bound, by = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal)
+        prefix = "" if key == "granite" else f"{key}_"
+        fa_row.update({f"{prefix}shape": [bb, ss, tt, h, hkv, dq, dv, causal],
+                       f"{prefix}max_abs_err": max(float((g.double() - w).abs().max())
+                                                   for g, w in zip(got, ref64)),
+                       f"{prefix}ms": cuda_ms(lambda: flash_attention_bwd(*args), reps=10),
+                       f"{prefix}bound_ms": bound, f"{prefix}bound_by": by})
+        del plain32, ref64, got, again
+        if key in ("granite", "whisper_enc"):
+            fa_row[f"{prefix}plain_ms"] = cuda_ms(
+                lambda: flash_attention_backward_plain(*args), reps=2, warmup=1)
+            lib, backend, tried = sdpa_backward_ms(q, k, v, dout, causal)
+            fa_row.update({f"{prefix}library_ms": lib, f"{prefix}library_backend": backend})
+            report[f"{key} sdpa backward"] = tried
+        del q, k, v, dout, out, lse, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[train_kernels] flash_attention_bwd bf16 vs the backward in float64 on the forward "
+          f"kernel's o and lse (contract, kernels/flash_attention/contract.py: every element "
+          f"within {fa_contract.BWD_FACTOR:g} x the float32 plain backward's gap + "
+          f"{fa_contract.BWD_REL:g} of max + 1 bf16 ulp; gaps and excesses over max|ref|; the "
+          f"controls must fail it), two calls bitwise; [B, S, T, H, Hkv, Dqk, Dv, causal] in the "
+          f"*shape keys; ms of eager calls (CUDA events); SDPA's fused backward by backend: "
+          f"{json.dumps(report)} {json.dumps(fa_row)}")
+
+    # ssm_scan_bwd at falcon-mamba-7b's layer, bf16 streams, the forward
+    # kernel's chunk states; whole chunks and a ragged last one
+    fm = get_config("falcon-mamba-7b")
+    di, dst = fm.d_inner, fm.d_state
+    a = -torch.exp(randn(di, dst))
+    d = randn(di)
+    ssm_row, report = {}, {}
+    for seq in (s, s - 49):
+        streams = [t.to(torch.bfloat16) for t in (
+            torch.nn.functional.softplus(randn(b, seq, di) * 0.5 - 4.6), randn(b, seq, dst),
+            randn(b, seq, dst), randn(b, seq, di))]
+        args = (streams[0], a, streams[1], streams[2], streams[3], d)
+        _, _, hs = ssm_scan(*args, y_dtype=torch.bfloat16, chunk_states=True)
+        gy = randn(b, seq, di).to(torch.bfloat16).float()  # a bf16 y's cotangent
+        got = ssm_scan_bwd(*args, hs, gy)
+        again = ssm_scan_bwd(*args, hs, gy)
+        check(all(same(x, y) for x, y in zip(got, again)), f"ssm_scan_bwd at S={seq}: two "
+                                                           f"calls differ")
+        plain32, ref64 = ssm_contract.bwd_references(*args, hs, gy)
+        report[f"S={seq}"] = r = brief(ssm_contract.bwd_check(got, plain32, ref64))
+        check(r["ok"], f"ssm_scan_bwd at S={seq} fails its contract: {r}")
+        if seq == s:
+            for fault, bad in ssm_contract.bwd_controls(*args, hs, gy).items():
+                report[f"control {fault}"] = r = brief(ssm_contract.bwd_check(bad, plain32,
+                                                                              ref64))
+                check(not r["ok"], f"ssm_scan_bwd's contract accepts {fault}: {r}")
+            del bad
+            updates = b * seq * di * dst
+            n_bytes = (2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + b * seq * di * 4
+                       + hs.numel() * 4 + di * dst * 4 + di * 4
+                       + 2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + di * dst * 4 + di * 4)
+            limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
+                      "fp32 instructions": 10 * updates / FP32_INSTR_PER_S}
+            op = max(limits, key=limits.get)
+            ssm_row = dict(
+                shape=[b, seq, di, dst], bound_terms_ms={k: 1e3 * t for k, t in limits.items()},
+                max_abs_err=max(float((g.double() - w).abs().max()) for g, w in zip(got, ref64)),
+                ms=cuda_ms(lambda: ssm_scan_bwd(*args, hs, gy), reps=10),
+                plain_ms=cuda_ms(lambda: ssm_scan_backward_plain(*args, hs, gy), reps=1,
+                                 warmup=1),
+                bound_ms=1e3 * limits[op], bound_by="bytes" if op == "bytes" else "operations",
+                bound_op=op, library_ms=None)
+        del plain32, ref64, got, again, streams, args, hs, gy
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[train_kernels] ssm_scan_bwd B={b} di={di} ds={dst} bf16 streams vs the backward in "
+          f"float64 on the forward kernel's chunk states (contract, "
+          f"kernels/ssm_scan/contract.py: every element within {ssm_contract.BWD_FACTOR:g} x the "
+          f"float32 plain backward's gap + {ssm_contract.BWD_REL:g} of max, + 1 bf16 ulp for a "
+          f"bf16 gradient; the controls must fail it), two calls bitwise; ms of eager calls: "
+          f"{json.dumps(report)} {json.dumps(ssm_row)}")
+    return {
+        "flash_attention_bwd": dict(
+            route="cuda", source=src + "flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:126", **fa_row),
+        "ssm_scan_bwd": dict(route="cuda", source=src + "ssm_scan_bwd.cu",
+                             replaces="src/repro/models/ssm_vjp.py:105", **ssm_row),
+    }
+
+
+def phase_train_reference(dev: torch.device) -> None:
+    """Each reduced config in float32: the loss and every parameter's
+    gradient on the card (forward and backward kernels, exactly
+    ``expected_train_launches`` of one step) against the same model on the
+    CPU (plain versions): within LM_REL of each leaf's max, or
+    REDUCED_REL's 2^-8 where a Mamba scan is in the stack."""
+    from repro_torch.models.api import param_tree
+
+    worst = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        rel = REDUCED_REL[arch]
+        bundle = get_model(cfg)
+        cpu_model = bundle.init(torch.Generator().manual_seed(0))
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        batch = make_concrete_batch(cfg, "train", 2, 64, prng.PRNGKey(1))
+        out = []
+        for model in (cpu_model, dev_model):
+            tree = param_tree(model)
+            for p in tree.values():
+                p.requires_grad_(True)
+            kernels.reset_launch_counts()
+            loss = bundle.loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
+            out.append((float(loss), grads, kernels.launch_counts()))
+        (want_loss, want, _), (got_loss, got, counts) = out
+        check(counts == expected_train_launches(cfg, 1),
+              f"{arch} reduced train: launches {counts}, expected "
+              f"{expected_train_launches(cfg, 1)}")
+        gaps = [abs(got_loss - want_loss) / abs(want_loss)]
+        gaps += [rel_gap(g.cpu(), w) for g, w in zip(got, want) if w is not None]
+        check(max(gaps) <= rel and all((g is None) == (w is None) for g, w in zip(got, want)),
+              f"{arch} reduced train: card vs CPU loss and gradients {max(gaps)} > {rel} of max")
+        worst[arch] = max(gaps)
+    print(f"[train] the ten reduced configs in float32, loss and every gradient leaf on the card "
+          f"vs the CPU, worst gap / max by arch (contract: {LM_REL}, 2^-8 with a Mamba scan; "
+          f"launches as expected): {json.dumps(worst)}")
+
+
+def phase_train(dev: torch.device, card: str) -> dict[str, dict[str, int]]:
+    """Full-width training through ``repro_torch.launch.train.train`` (the
+    CLI's optimizer, a fresh batch a step), bf16: granite-3-8b and
+    falcon-mamba-7b cut to ``TRAIN_LAYERS`` layers and whisper-tiny whole,
+    batch 4, seq 2048 (whisper: 448 tokens over 1,500 frames), kernel counts
+    zeroed just before each run and read just after and held to
+    ``expected_train_launches``; losses finite; step ms (CUDA events, past
+    the first step), tok/s and peak memory. Returns the counts by arch."""
+    from repro_torch.launch.train import train
+
+    launches = {}
+    for arch, layers in TRAIN_LAYERS.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lines = []
+        kernels.reset_launch_counts()
+        stats = train(cfg, device=dev, log=lines.append, **TRAIN_RUN)
+        counts = kernels.launch_counts()
+        want = expected_train_launches(cfg, TRAIN_RUN["steps"])
+        check(counts == want, f"{arch} train: launches {counts}, expected {want}")
+        check(all(np.isfinite(stats["losses"])), f"{arch} train: losses {stats['losses']}")
+        timed = stats["step_ms"][1:]
+        tokens = math.prod(make_batch_specs(cfg, "train", TRAIN_RUN["batch"],
+                                            TRAIN_RUN["seq"])["tokens"][0])
+        depth = f" cut to {layers} layers" if layers else ""
+        print(f"[train] {arch} full width{depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{stats['n_params'] / 1e9:.3f} B params, {cfg.dtype}), batch {TRAIN_RUN['batch']}, "
+              f"{tokens // TRAIN_RUN['batch']} tokens a row, {TRAIN_RUN['steps']} steps: losses "
+              f"{[round(x, 4) for x in stats['losses']]}; step ms (CUDA events) median "
+              f"{statistics.median(timed):.2f} of {[round(t, 2) for t in timed]} (first step "
+              f"{stats['step_ms'][0]:.2f}); {1e3 * tokens / statistics.median(timed):.0f} tok/s; "
+              f"peak memory {stats['peak_bytes'] / 2**30:.2f} GiB; launches {json.dumps(counts)}; "
+              f"{card}")
+        launches[arch] = counts
+        del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--shard-worker"]:  # one rank of [shard]'s gloo worlds
         return shard_worker(*sys.argv[2:])
@@ -2419,6 +2733,7 @@ def main() -> int:
     table = phase_kernels(dev)
     table["masked_aggregate"].update(phase_edge_kernels(dev))
     table.update(phase_lm_kernels(dev))
+    table.update(phase_train_kernels(dev))
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
     phase_loop(dev, card)
@@ -2441,6 +2756,16 @@ def main() -> int:
     serve_launches = {arch: phase_serve(dev, arch) for arch in SERVE_ARCHS}
     for name in ("ssm_scan", "flash_attention"):
         by_arch = {a: c[name] for a, c in serve_launches.items() if c[name]}
+        table[name]["launches_by_arch"] = by_arch
+        launches[name] = sum(by_arch.values())
+    phase_train_reference(dev)
+    train_launches = phase_train(dev, card)
+    for name in ("ssm_scan", "flash_attention"):  # the forward kernels train too
+        by_arch = {a: c[name] for a, c in train_launches.items() if c[name]}
+        table[name]["train_launches_by_arch"] = by_arch
+        launches[name] += sum(by_arch.values())
+    for name in ("ssm_scan_bwd", "flash_attention_bwd"):
+        by_arch = {a: c[name] for a, c in train_launches.items() if c[name]}
         table[name]["launches_by_arch"] = by_arch
         launches[name] = sum(by_arch.values())
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}

@@ -17,7 +17,11 @@
 // 0), as in the Pallas kernel. The softmax is online over 64-key tiles, as
 // the Pallas kernel does it: float32 scores, running max m and sum l,
 // float32 P and a float32 P.V accumulator; out = acc / max(l, 1e-30). A
-// masked key contributes p = 0 exactly.
+// masked key contributes p = 0 exactly. Where the caller passes an `lse`
+// pointer (training: the backward in flash_attention_bwd.cu recomputes P
+// from it), the kernel also writes the row's float32 logsumexp of the
+// scaled scores, lse[b, h, s] = m + log(max(l, 1e-30)), (B, H, S); a null
+// pointer writes nothing else and leaves every other instruction as it was.
 //
 // Bound: operations. In float32 the work runs on the CUDA cores (67
 // TFLOP/s on an H100); at granite-3-8b's prefill shape (B=4, S=T=2048,
@@ -99,9 +103,9 @@ constexpr int smem_bytes() {
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int n_heads,
-                       int n_kv_heads, int s_len, int t_len, int causal, int window,
-                       float scale) {
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int n_heads, int n_kv_heads, int s_len,
+                       int t_len, int causal, int window, float scale) {
   static_assert(DQK % 4 == 0 && DV % 32 == 0, "float4 rows of q and k; 32-lane columns of v");
   constexpr int kCols = DV / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -211,14 +215,16 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* o = out + (static_cast<int64_t>(b) * s_len + row) * o_stride + h * DV + lane;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) o[32 * c] = acc[i][c] / denom;
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<int64_t>(b) * n_heads + h) * s_len + row] = m[i] + logf(denom);
     }
   }
 }
 
 template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
-           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+           int n_heads, int n_kv_heads, int s_len, int t_len, int causal, int window,
+           float scale, void* stream) {
   static bool configured = false;  // raise the dynamic shared memory limit once
   constexpr int smem = smem_bytes<DQK, DV>();
   if (!configured) {
@@ -231,7 +237,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
     flash_attention_kernel<DQK, DV><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
+        static_cast<float*>(out), static_cast<float*>(lse), n_heads, n_kv_heads, s_len, t_len,
+        causal, window, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -242,20 +249,22 @@ extern "C" {
 
 // float32 q (B, S, H, DQK), k (B, T, Hkv, DQK), v (B, T, Hkv, DV) and out
 // (B, S, H, DV), contiguous with 16-byte aligned starts; (head_dim,
-// head_dim_v) = (64, 64), (128, 128) or (48, 32); H a multiple of Hkv.
+// head_dim_v) = (64, 64), (128, 128) or (48, 32); H a multiple of Hkv;
+// lse null, or float32 (B, H, S) for the rows' logsumexp.
 // Returns cudaGetLastError() after the launch (0 = launched).
-int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out, int batch,
-                              int n_heads, int n_kv_heads, int s_len, int t_len, int head_dim,
-                              int head_dim_v, int causal, int window, float scale, void* stream) {
+int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+                              int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+                              int head_dim, int head_dim_v, int causal, int window, float scale,
+                              void* stream) {
   if (head_dim == 64 && head_dim_v == 64)
-    return launch<64, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                          scale, stream);
+    return launch<64, 64>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                          window, scale, stream);
   if (head_dim == 128 && head_dim_v == 128)
-    return launch<128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+    return launch<128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
                             window, scale, stream);
   if (head_dim == 48 && head_dim_v == 32)
-    return launch<48, 32>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len, causal, window,
-                          scale, stream);
+    return launch<48, 32>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
+                          window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,7 +17,12 @@
 // is online over key tiles (128 keys; 64 at (160, 160)): float32 scores, running max m and sum l,
 // p = exp(s - m_new) in float32 (a masked key gives p = 0 exactly), l sums
 // the float32 p, and P is rounded to bf16 before P.V, which accumulates in
-// float32; out = acc / max(l, 1e-30), written in bf16. exp is taken as
+// float32; out = acc / max(l, 1e-30), written in bf16. Where the caller
+// passes an `lse` pointer (training: flash_attention_bwd.cu recomputes P
+// from it), the kernel also writes each row's float32 logsumexp of the
+// scaled scores, lse[b, h, s] = m + log(max(l, 1e-30)), (B, H, S), from the
+// quad's first thread; a null pointer leaves every other instruction, and
+// so the output's bits, as they were. exp is taken as
 // 2^((s - m_new) log2 e) on the special-function unit (ex2.approx, within
 // ~2^-21 of expf), which flash_attention_plain's contract allows for
 // (p_rounding_slack). That is the
@@ -385,8 +390,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
-                             __nv_bfloat16* __restrict__ out, int n_heads, int n_kv_heads,
-                             int s_len, int t_len, int causal, int window, float scale) {
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                             int n_heads, int n_kv_heads, int s_len, int t_len, int causal,
+                             int window, float scale) {
   static_assert((DQK == 64 && DV == 64 && BN == 128) ||
                     (DQK == 128 && DV == 128 && BN == 128) ||
                     (DQK == 192 && DV == 128 && BN == 128) ||
@@ -573,6 +579,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       den[r] = fmaxf(l[r], 1e-30f);
+      const int row = r0 + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && row < s_len)
+        lse[(static_cast<int64_t>(b) * n_heads + h) * s_len + row] = m[r] + logf(den[r]);
     }
     const int64_t row_stride = static_cast<int64_t>(n_heads) * DV;
 #pragma unroll
@@ -637,9 +646,9 @@ constexpr int kErrNoEncoder = -1;  // the CUDA driver has no cuTensorMapEncodeTi
 constexpr int kErrBadMap = -2;     // a tensor map was refused (alignment, strides)
 
 template <int DQK, int DV, int BN>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int n_heads,
-           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+           int n_heads, int n_kv_heads, int s_len, int t_len, int causal, int window,
+           float scale, void* stream) {
   constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV, BN>)) + 1024;  // + alignment slack
   static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
   static bool configured = false;  // raise the dynamic shared memory limit once
@@ -666,8 +675,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   }
   flash_attention_wgmma_kernel<DQK, DV, BN><<<grid, kThreads, smem,
                                               static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), n_heads, n_kv_heads, s_len, t_len,
-      causal, window, scale);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n_heads,
+      n_kv_heads, s_len, t_len, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,24 +686,25 @@ extern "C" {
 
 // bfloat16 q (B, S, H, DQK), k (B, T, Hkv, DQK), v and out (B, T or S, Hkv
 // or H, DV), contiguous with 16-byte aligned starts; (head_dim, head_dim_v)
-// = (64, 64), (128, 128), (192, 128) or (160, 160); H a multiple of Hkv. Returns
+// = (64, 64), (128, 128), (192, 128) or (160, 160); H a multiple of Hkv;
+// lse null, or float32 (B, H, S) for the rows' logsumexp. Returns
 // cudaGetLastError() after the launch (0 = launched), or a negative code
 // when a TMA tensor map could not be built.
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
                                int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
                                int head_dim, int head_dim_v, int causal, int window, float scale,
                                void* stream) {
   if (head_dim == 64 && head_dim_v == 64)
-    return launch<64, 64, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+    return launch<64, 64, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
                                causal, window, scale, stream);
   if (head_dim == 128 && head_dim_v == 128)
-    return launch<128, 128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+    return launch<128, 128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
                                  causal, window, scale, stream);
   if (head_dim == 192 && head_dim_v == 128)
-    return launch<192, 128, 128>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+    return launch<192, 128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
                                  causal, window, scale, stream);
   if (head_dim == 160 && head_dim_v == 160)
-    return launch<160, 160, 64>(q, k, v, out, batch, n_heads, n_kv_heads, s_len, t_len,
+    return launch<160, 160, 64>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
                                 causal, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

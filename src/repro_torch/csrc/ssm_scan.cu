@@ -10,6 +10,12 @@
 //   y[b,t,c] = sum_n h[b,c,n] * C[b,t,n] + D[c] * x[b,t,c]
 // in float32 registers, for t = 0 .. S-1. It writes y (B, S, di) in the
 // requested output type and the final state h (B, di, ds) in float32.
+// Where the caller passes an `hs` pointer (training), it also writes the
+// state at the start of every 128-step chunk, hs[j] = h before step 128 j,
+// (ceil(S / 128), B, di, ds) float32: the residuals of the JAX package's
+// models/ssm_vjp._fwd, from which ssm_scan_bwd.cu recomputes each chunk.
+// The state goes out before every fourth 32-step stage; a null pointer
+// writes nothing else and leaves the arithmetic as it was.
 // The arithmetic is the Pallas kernel's order, (dt*x)*B, with
 //   exp(dt*A) = ex2.approx.ftz(dt * A')   A' = A * log2(e), kept in registers
 //   h = fma(exp(dt*A), h, (dt*x) * B)     y = fma(h, C, y) over n, then fma(D, x, y)
@@ -70,6 +76,7 @@ constexpr int kThreads = kChannels * kLanes;
 constexpr int kUnroll = 4;     // sequence steps of one unrolled scan-loop iteration
 constexpr int kChunk = 32;     // sequence steps per staged chunk
 constexpr int kMinBlocks = 4;  // falcon-mamba's 512 blocks in one wave on 132 SMs
+constexpr int kStatesEvery = 128 / kChunk;  // stages a training chunk state spans
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename Tin, int DS>
@@ -196,7 +203,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ssm_scan_kernel(const Tin* __restrict__ dt, const float* __restrict__ a,
                 const Tin* __restrict__ bm, const Tin* __restrict__ cm,
                 const Tin* __restrict__ x, const float* __restrict__ d, Tout* __restrict__ y,
-                float* __restrict__ h_out, int s_len, int di, int vec_in) {
+                float* __restrict__ h_out, float* __restrict__ hs, int s_len, int di,
+                int vec_in) {
   constexpr int L = kLanes, kS = DS / kLanes;  // kS: this thread's states, 8 or 4
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<Tin, DS>& sm = *reinterpret_cast<Smem<Tin, DS>*>(smem_raw);
@@ -223,6 +231,12 @@ ssm_scan_kernel(const Tin* __restrict__ dt, const float* __restrict__ a,
   cp_async_commit();
   for (int k = 0; k < n_chunks; ++k) {
     const int st = k & 1, t0 = k * kChunk;
+    if (hs != nullptr && k % kStatesEvery == 0 && active) {  // the chunk's start state
+      const int64_t chunk = k / kStatesEvery;
+      float* hp = hs + ((chunk * gridDim.y + b) * di + c) * DS + kS * q;
+#pragma unroll
+      for (int j = 0; j < kS; ++j) hp[j] = h[j];
+    }
     cp_async_wait_all();
     __syncthreads();  // chunk k is in; every thread is done with chunk k-1
     if (k + 1 < n_chunks) {
@@ -284,7 +298,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <typename Tin, typename Tout, int DS>
 int launch(const void* dt, const void* a, const void* bm, const void* cm, const void* x,
-           const void* d, void* y, void* h, int batch, int s_len, int di, void* stream) {
+           const void* d, void* y, void* h, void* hs, int batch, int s_len, int di,
+           void* stream) {
   constexpr int smem = static_cast<int>(sizeof(Smem<Tin, DS>));
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
@@ -306,17 +321,20 @@ int launch(const void* dt, const void* a, const void* bm, const void* cm, const 
                                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const Tin*>(dt), static_cast<const float*>(a), static_cast<const Tin*>(bm),
         static_cast<const Tin*>(cm), static_cast<const Tin*>(x), static_cast<const float*>(d),
-        static_cast<Tout*>(y), static_cast<float*>(h), s_len, di, vec_in);
+        static_cast<Tout*>(y), static_cast<float*>(h), static_cast<float*>(hs), s_len, di,
+        vec_in);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tin, typename Tout>
 int launch_ds(int ds, const void* dt, const void* a, const void* bm, const void* cm,
-              const void* x, const void* d, void* y, void* h, int batch, int s_len, int di,
-              void* stream) {
-  if (ds == 8) return launch<Tin, Tout, 8>(dt, a, bm, cm, x, d, y, h, batch, s_len, di, stream);
-  if (ds == 16) return launch<Tin, Tout, 16>(dt, a, bm, cm, x, d, y, h, batch, s_len, di, stream);
+              const void* x, const void* d, void* y, void* h, void* hs, int batch, int s_len,
+              int di, void* stream) {
+  if (ds == 8)
+    return launch<Tin, Tout, 8>(dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
+  if (ds == 16)
+    return launch<Tin, Tout, 16>(dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -326,20 +344,23 @@ extern "C" {
 
 // in_dtype / out_dtype: 0 = float32, 1 = bfloat16; ds: 8 or 16.
 // All pointers are contiguous: dt, x (B, S, di); bm, cm (B, S, ds);
-// a (di, ds); d (di); y (B, S, di); h (B, di, ds) float32 (0 when S = 0).
+// a (di, ds); d (di); y (B, S, di); h (B, di, ds) float32 (0 when S = 0);
+// hs null, or (ceil(S / 128), B, di, ds) float32 for the chunk start states.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int repro_ssm_scan(const void* dt, const void* a, const void* bm, const void* cm,
-                   const void* x, const void* d, void* y, void* h, int batch, int s_len,
-                   int di, int ds, int in_dtype, int out_dtype, void* stream) {
+                   const void* x, const void* d, void* y, void* h, void* hs, int batch,
+                   int s_len, int di, int ds, int in_dtype, int out_dtype, void* stream) {
   if (in_dtype == 0 && out_dtype == 0)
-    return launch_ds<float, float>(ds, dt, a, bm, cm, x, d, y, h, batch, s_len, di, stream);
+    return launch_ds<float, float>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch_ds<float, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, batch, s_len, di, stream);
+    return launch_ds<float, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di,
+                                           stream);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch_ds<__nv_bfloat16, float>(ds, dt, a, bm, cm, x, d, y, h, batch, s_len, di, stream);
+    return launch_ds<__nv_bfloat16, float>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di,
+                                           stream);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch_ds<__nv_bfloat16, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, batch, s_len,
-                                                   di, stream);
+    return launch_ds<__nv_bfloat16, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, batch,
+                                                   s_len, di, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,12 +13,24 @@ the JAX package:
                          launches when the cohort's lanes are sharded
                          over ranks (csrc/masked_aggregate.cu)
   ssm_scan             — the Mamba-1 selective scan of a prefill
-                         (falcon-mamba, jamba; csrc/ssm_scan.cu)
+                         (falcon-mamba, jamba; csrc/ssm_scan.cu), and of
+                         training's forward, which also keeps the state at
+                         every 128-step chunk's start
   flash_attention      — GQA attention of a prefill, causal (the
                          decoders) or not (whisper's encoder and its
                          cross-attention, T != S, at decode too); bf16 on
                          wgmma: csrc/flash_attention_wgmma.cu, float32:
-                         csrc/flash_attention.cu
+                         csrc/flash_attention.cu; in training also each
+                         row's logsumexp
+
+and two that no TPU kernel had, the backwards of training (the JAX package
+differentiates jnp code there):
+
+  ssm_scan_bwd         — the selective scan's gradients from the chunk
+                         start states (models/ssm_vjp.py's
+                         selective_scan; csrc/ssm_scan_bwd.cu)
+  flash_attention_bwd  — dQ, dK, dV of flash_attention (FlashAttentionFn;
+                         csrc/flash_attention_bwd.cu)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first
@@ -29,7 +41,7 @@ call: a CUDA-graph replay launches what its capture recorded
 (``repro_torch.fl.api.build_chunk_step``).
 """
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.masked_aggregate import (
     masked_aggregate,
     masked_aggregate_combine,
@@ -37,7 +49,7 @@ from repro_torch.kernels.masked_aggregate import (
     masked_aggregate_partial,
 )
 from repro_torch.kernels.quantize import dequantize, dequantize_leaves, quantize, quantize_leaves
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 
 KERNELS = {
     "quantize": quantize_leaves,
@@ -47,6 +59,8 @@ KERNELS = {
     "masked_aggregate_combine": masked_aggregate_combine,
     "ssm_scan": ssm_scan,
     "flash_attention": flash_attention,
+    "ssm_scan_bwd": ssm_scan_bwd,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 
 
@@ -67,5 +81,6 @@ def add_launch_counts(counts: dict[str, int]) -> None:
 
 
 __all__ = ["quantize", "quantize_leaves", "dequantize", "dequantize_leaves", "masked_aggregate",
-           "masked_aggregate_leaves", "ssm_scan", "flash_attention", "KERNELS", "launch_counts",
+           "masked_aggregate_leaves", "ssm_scan", "ssm_scan_bwd", "flash_attention",
+           "flash_attention_bwd", "KERNELS", "launch_counts",
            "reset_launch_counts", "add_launch_counts"]

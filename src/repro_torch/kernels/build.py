@@ -26,8 +26,10 @@ SOURCES = {
     "quantize": "quantize.cu",
     "masked_aggregate": "masked_aggregate.cu",
     "ssm_scan": "ssm_scan.cu",
+    "ssm_scan_bwd": "ssm_scan_bwd.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

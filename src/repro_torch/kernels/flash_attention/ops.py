@@ -36,11 +36,28 @@ kernel's.
   online softmax over their key tiles (``softmax_tiles``: ``key_tile``'s
   keys), step for step;
 - ``flash_attention``: the wrapper, dispatching on the tensor's device (CPU
-  -> plain, CUDA -> the kernel of its dtype, or raise);
+  -> plain, CUDA -> the kernel of its dtype, or raise); where autograd
+  needs a gradient of q, k or v it goes through ``FlashAttentionFn``;
 - ``flash_attention.launches``: the kernels' launch counter.
 
+Training (the JAX package differentiates ``chunked_attention``; its Pallas
+kernel has no backward):
+
+- ``FlashAttentionFn``: the autograd Function. Its forward launches the
+  kernel of the dtype with its ``lse`` output, the float32 row logsumexp of
+  the scaled scores (B, H, S); its backward is ``flash_attention_bwd``;
+- ``flash_attention_bwd``: dQ, dK, dV from (q, k, v, o, lse, dO) — CPU
+  tensors run ``flash_attention_backward_plain``, CUDA tensors launch the
+  CUDA-core kernel ``repro_torch/csrc/flash_attention_bwd.cu`` (float32
+  arithmetic; every (Dqk, Dv) of ``HEAD_DIMS`` in both dtypes), whose
+  header states its bound and design; ``flash_attention_bwd.launches``
+  counts its calls (one call enqueues its three grids);
+- ``flash_attention_backward_plain``: the same formulas in float32, or in
+  float64 for the contract.
+
 ``contract.py`` states how closely a bf16 result must match the plain
-version, and checks it.
+version, and how closely the backward must match the float64 plain
+backward, and checks both.
 """
 
 from __future__ import annotations
@@ -52,7 +69,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_backward_plain",
+           "flash_attention_bwd", "flash_attention_plain"]
 
 # the (Dqk, Dv) pairs each kernel is instantiated for: the zoo's head dims in
 # bf16, and the reduced parity configs' in float32 (MLA's reduced (48, 32))
@@ -81,9 +99,10 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
     """The kernels' online softmax over key tiles (``key_tile`` keys), in
     float32: for each tile, its P
     (b, hkv, g, s, keys) against the running max so far, the factor that
-    rescales what came before (b, hkv, g, s), and its V (b, hkv, 1, keys,
-    Dv). Scores are scaled by 1/sqrt(Dqk). What the kernels accumulate from
-    them is ``flash_attention_plain``."""
+    rescales what came before (b, hkv, g, s), its V (b, hkv, 1, keys,
+    Dv), and the running max after it (b, hkv, g, s). Scores are scaled by
+    1/sqrt(Dqk). What the kernels accumulate from them is
+    ``flash_attention_plain``."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -104,20 +123,71 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
             vis = vis & (keys > rows - window)
         sc = torch.where(vis, torch.matmul(qg, kt.transpose(-1, -2)) * scale, _NEG)
         m_new = torch.maximum(m, sc.amax(dim=-1))
-        yield torch.where(vis, torch.exp(sc - m_new[..., None]), 0.0), torch.exp(m - m_new), vt
+        yield (torch.where(vis, torch.exp(sc - m_new[..., None]), 0.0), torch.exp(m - m_new), vt,
+               m_new)
         m = m_new
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
     """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
-    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype."""
+    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
+    ``return_lse``: also the rows' float32 logsumexp, m + log(max(l,
+    1e-30)), (B, H, S), as the kernels write it for training."""
     bf16 = q.dtype == torch.bfloat16
     l = acc = 0.0
-    for p, corr, vt in softmax_tiles(q, k, v, causal, window):
+    for p, corr, vt, m in softmax_tiles(q, k, v, causal, window):
         l = l * corr + p.sum(dim=-1)
         pv = p.to(torch.bfloat16).to(torch.float32) if bf16 else p  # wgmma's bf16 P
         acc = acc * corr[..., None] + torch.matmul(pv, vt)
-    return _layout(acc / torch.clamp_min(l, 1e-30)[..., None], q).to(q.dtype)
+    den = torch.clamp_min(l, 1e-30)
+    out = _layout(acc / den[..., None], q).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(den)).reshape(q.shape[0], q.shape[2], q.shape[1])
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
+                                   window: int = 0, acc_dtype=torch.float32, dtype=None):
+    """dQ, dK, dV of attention (the forward's arguments) from its output
+    ``out`` (B, S, H, Dv), row logsumexp ``lse`` (B, H, S) and the output's
+    cotangent ``dout``, in ``acc_dtype`` (float32, or float64 for the
+    contract), returned in ``dtype`` (default q's): D = rowsum(dO * o); P =
+    exp(scale q.k - lse) on the visible keys; dV = P^T dO; dS = P (dO V^T -
+    D); dQ = scale dS K; dK = scale dS^T Q, dK and dV summed over each kv
+    head's G query heads. Batch entry by batch entry (a (Hkv, G, S, T) score
+    matrix at a time)."""
+    b, s, h, dqk = q.shape
+    t, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(dqk)
+    dtype = dtype or q.dtype
+    rows = torch.arange(s, device=q.device)[:, None]
+    keys = torch.arange(t, device=q.device)[None, :]
+    vis = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        vis = vis & (keys <= rows)
+    if window:
+        vis = vis & (keys > rows - window)
+    grads = ([], [], [])
+    for i in range(b):
+        def heads(x, d):  # (b, s, h, d) -> (hkv, g, s, d)
+            return x[i].to(acc_dtype).reshape(s, hkv, g, d).permute(1, 2, 0, 3)
+
+        def kv(x):  # (b, t, hkv, d) -> (hkv, 1, t, d)
+            return x[i].to(acc_dtype).permute(1, 0, 2)[:, None]
+
+        qi, oi, doi = heads(q, dqk), heads(out, dv_dim), heads(dout, dv_dim)
+        ki, vi = kv(k), kv(v)
+        li = lse[i].to(acc_dtype).reshape(hkv, g, s)[..., None]
+        sc = torch.matmul(qi, ki.transpose(-1, -2)) * scale
+        p = torch.exp(torch.where(vis, sc - li, -torch.inf))
+        ds = p * (torch.matmul(doi, vi.transpose(-1, -2)) - (doi * oi).sum(-1, keepdim=True))
+        grads[0].append((torch.matmul(ds, ki) * scale).permute(2, 0, 1, 3).reshape(s, h, dqk))
+        grads[1].append((torch.matmul(ds.transpose(-1, -2), qi).sum(1) * scale).transpose(0, 1))
+        grads[2].append(torch.matmul(p.transpose(-1, -2), doi).sum(1).transpose(0, 1))
+    return tuple(torch.stack(gr).to(dtype) if gr else torch.zeros_like(x, dtype=dtype)
+                 for gr, x in zip(grads, (q, k, v)))
 
 
 def _entry(dtype):
@@ -127,7 +197,7 @@ def _entry(dtype):
     fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -139,42 +209,119 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
-    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
-    CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
-    kernel of their dtype (bfloat16: wgmma; float32: CUDA cores), which
-    takes the (Dqk, Dv) pairs of ``HEAD_DIMS``."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+def _check(name: str, q, k, v) -> None:
+    """Raise for what the CUDA kernels do not take."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: tensors on {q.device} have no kernel here")
+        raise ValueError(f"{name}: tensors on {q.device} have no kernel here")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
+        raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, dq = q.shape
     t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     if (dq, dv) not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
-            f"flash_attention's {q.dtype} kernel takes (Dqk, Dv) in {HEAD_DIMS[q.dtype]}, got "
-            f"({dq}, {dv})")
+            f"{name}'s {q.dtype} kernel takes (Dqk, Dv) in {HEAD_DIMS[q.dtype]}, got ({dq}, {dv})")
     if k.shape != (b, t, hkv, dq) or v.shape != (b, t, hkv, dv) or h % hkv:
-        raise ValueError(f"flash_attention: k must be (B, T, Hkv, Dqk) and v (B, T, Hkv, Dv) "
+        raise ValueError(f"{name}: k must be (B, T, Hkv, Dqk) and v (B, T, Hkv, Dv) "
                          f"with H % Hkv == 0, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k and v must be on one device")
+        raise ValueError(f"{name}: q, k and v must be on one device")
+
+
+def _attention(q, k, v, causal: bool, window: int, with_lse: bool):
+    """The forward: the plain version on the CPU, else the kernel of the
+    dtype; with ``with_lse``, (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, return_lse=with_lse)
+    _check("flash_attention", q, k, v)
+    b, s, h, dq = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     err = _entry(q.dtype)(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, hkv, s, t, dq, dv,
-        int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, h, hkv, s, t, dq, dv, int(bool(causal)),
+        int(window), 1.0 / math.sqrt(dq), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
         raise RuntimeError(f"flash_attention {q.dtype} kernel launch failed: {what}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
+    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
+    CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
+    kernel of their dtype (bfloat16: wgmma; float32: CUDA cores), which
+    takes the (Dqk, Dv) pairs of ``HEAD_DIMS``. Where autograd records and
+    q, k or v needs a gradient, the call goes through ``FlashAttentionFn``
+    (the same kernel, writing lse too); otherwise (serving) nothing else
+    is launched or kept."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _attention(q, k, v, causal, window, with_lse=False)
 
 
 flash_attention.launches = 0
+
+
+def _bwd_entry():
+    fn = build.load("flash_attention_bwd").repro_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: int = 0):
+    """(dQ, dK, dV) of ``flash_attention(q, k, v, causal, window)`` from its
+    output ``out``, its row logsumexp ``lse`` (B, H, S) float32 and the
+    output's cotangent ``dout``, each in its input's dtype. CPU tensors run
+    ``flash_attention_backward_plain``; CUDA tensors launch the kernel
+    (``csrc/flash_attention_bwd.cu``), held to ``contract.bwd_contract``."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window)
+    _check("flash_attention_bwd", q, k, v)
+    b, s, h, dq = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (tuple(out.shape) != (b, s, h, dv) or tuple(dout.shape) != (b, s, h, dv)
+            or tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32
+            or out.dtype != q.dtype or any(x.device != q.device for x in (out, lse, dout))):
+        raise ValueError(f"flash_attention_bwd: out and dout must be {q.dtype} (B, S, H, Dv) "
+                         f"and lse float32 (B, H, S) on {q.device}")
+    args = [x.contiguous() for x in (q, k, v, out, lse, dout.to(q.dtype))]
+    grads = [torch.empty_like(x) for x in args[:3]]
+    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _bwd_entry()(
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), dd.data_ptr(), b, h, hkv,
+        s, t, dq, dv, int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd {q.dtype} kernel launch failed: cudaError {err}")
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward kernel with its lse
+    output, then ``flash_attention_bwd``. Saves q, k, v, the output and
+    lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _attention(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window), None, None)

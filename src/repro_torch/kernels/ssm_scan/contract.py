@@ -1,5 +1,7 @@
-"""The contract of the ssm_scan kernel: how closely its y and h must match
-the selective scan computed in float64, and its check.
+"""The contracts of the ssm_scan kernels: how closely the forward's y and h
+must match the selective scan computed in float64, and how closely the
+backward's six gradients must match the backward computed in float64, and
+their checks.
 
 The kernel takes exp as 2^(dt * A log2 e) on the special-function unit
 (``ex2.approx``) and fuses multiply-adds, in the Pallas kernel's
@@ -18,21 +20,36 @@ A check that passes everything proves nothing, so ``controls`` builds two
 faults from the plain version that it must reject: h reset to 0 every
 ``CONTROL_CHUNK`` steps (a chunked scan that drops its carry) and the last
 state left out of y's sum.
+
+The backward kernel (``csrc/ssm_scan_bwd.cu``) takes its exps on the
+special-function unit too, fuses multiply-adds, and sums d_b and d_c over
+the channels, and d_a and d_d over batch and time, in its own fixed order;
+it is held to ``ssm_scan_backward_plain`` run in float64 on the same inputs
+(the forward kernel's chunk start states included): for each of d_dt, d_a,
+d_b, d_c, d_x, d_d, every element within ``BWD_FACTOR`` x the float32
+plain backward's own gap + ``BWD_REL`` of max|ref64|, plus 1 bf16 ulp of
+ref64 at that element for a gradient written in bfloat16. ``bwd_controls``
+builds two faults it must reject: each chunk recomputed from h = 0 instead
+of its saved start state, and g not carried from one chunk to the one
+before it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssm_scan.ops import ssm_scan_plain
+from repro_torch.kernels.ssm_scan.ops import CHUNK, ssm_scan_backward_plain, ssm_scan_plain
 
-__all__ = ["BF16_REL", "CONTROL_CHUNK", "F32_FACTOR", "F32_REL", "check", "controls",
-           "references"]
+__all__ = ["BF16_REL", "BWD_FACTOR", "BWD_REL", "CONTROL_CHUNK", "F32_FACTOR", "F32_REL",
+           "bwd_check", "bwd_controls", "bwd_references", "check", "controls", "references"]
 
 F32_FACTOR = 4.0
 F32_REL = 1e-6
 BF16_REL = 1e-5
 CONTROL_CHUNK = 64
+BWD_FACTOR = 8.0
+BWD_REL = 1e-5
+BWD_NAMES = ("d_dt", "d_a", "d_b", "d_c", "d_x", "d_d")
 
 
 def references(dt, a, bmat, cmat, x, d):
@@ -102,3 +119,49 @@ def controls(dt, a, bmat, cmat, x, d) -> dict:
     c_drop[..., -1] = 0
     drop = ssm_scan_plain(dt, a, bmat, c_drop, x, d, y_dtype=torch.float32)
     return {f"h reset every {CONTROL_CHUNK} steps": reset, "last state left out of y": drop}
+
+
+def bwd_references(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):
+    """``(plain32, ref64)``: the six gradients of ``ssm_scan_backward_plain``
+    in float32 and in float64 on the same inputs."""
+    args = (dt, a, bmat, cmat, x, d, h_starts, gy, gh)
+    return ssm_scan_backward_plain(*args), ssm_scan_backward_plain(*args,
+                                                                   acc_dtype=torch.float64)
+
+
+def bwd_check(got, plain32, ref64) -> dict:
+    """The six gradients ``got`` against ``ref64`` and ``plain32`` from
+    ``bwd_references``: for each, ``{name}_gap`` = max|got - ref64| and
+    ``{name}_excess``, the largest excess of an element over what the
+    contract allows, both over max|ref64| (<= 0 passes); ``ok``: every
+    excess <= 0."""
+    out, ok = {}, True
+    tiny = torch.finfo(torch.float32).tiny
+    for name, g, p32, r in zip(BWD_NAMES, got, plain32, ref64):
+        dev = r.device
+        scale = _max(r)
+        allowed = BWD_FACTOR * _gap(p32.to(dev), r) + BWD_REL * scale
+        if g.dtype == torch.bfloat16:
+            allowed = allowed + torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(tiny))) - 7)
+        diff = (g.to(dev, torch.float64) - r).abs()
+        out[f"{name}_gap"] = float(diff.max()) / scale if r.numel() else 0.0
+        out[f"{name}_excess"] = float((diff - allowed).max()) / scale if r.numel() else -1.0
+        ok = ok and out[f"{name}_excess"] <= 0
+    out["ok"] = bool(ok)
+    return out
+
+
+def bwd_controls(dt, a, bmat, cmat, x, d, h_starts, gy) -> dict:
+    """Two faulty backwards (the six gradients in their inputs' dtypes) that
+    ``bwd_check`` must reject: every chunk recomputed from h = 0, and g
+    reset to 0 at every chunk's end (no carry to the chunk before)."""
+    dtypes = [t.dtype for t in (dt, a, bmat, cmat, x, d)]
+    cast = lambda grads: tuple(g.to(t) for g, t in zip(grads, dtypes))  # noqa: E731
+    zero = ssm_scan_backward_plain(dt, a, bmat, cmat, x, d, torch.zeros_like(h_starts), gy)
+    parts = [ssm_scan_backward_plain(dt[:, t:t + CHUNK], a, bmat[:, t:t + CHUNK],
+                                     cmat[:, t:t + CHUNK], x[:, t:t + CHUNK], d,
+                                     h_starts[t // CHUNK:t // CHUNK + 1], gy[:, t:t + CHUNK])
+             for t in range(0, x.shape[1], CHUNK)]
+    drop = tuple(torch.cat([p[i] for p in parts], dim=1) if i in (0, 2, 3, 4)
+                 else sum(p[i] for p in parts) for i in range(6))
+    return {"chunks from h = 0": cast(zero), "g not carried across chunks": cast(drop)}

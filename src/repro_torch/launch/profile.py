@@ -1,11 +1,12 @@
 """Where a serving step's time goes on the card: one prefill and a few
-decode steps of a decoder LM under ``torch.profiler``; with ``--fl``, an
-FL round instead.
+decode steps of a decoder LM under ``torch.profiler``; with ``--train``, a
+train step instead; with ``--fl``, an FL round.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.profile --arch jamba-v0.1-52b --layers 8
     PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper-tiny
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch granite-3-8b --layers 8 --train
     PYTHONPATH=src python -m repro_torch.launch.profile --fl
 
 Builds the arch at full width with random weights (``--layers N`` cuts its
@@ -18,7 +19,10 @@ window it prints one JSON line: the device span (first kernel start to
 last kernel end), the device's busy time (the sum of its kernels'
 durations; one stream, so they do not overlap), the idle share of the
 span, the number of kernels, and the kernels that took the most device
-time. ``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
+time. ``--train`` traces one train step of the CLI's optimizer
+(``launch/train.py``) on a batch of 4 rows of 2048 tokens (whisper: 448
+tokens over 1,500 frames) after a warm-up step, with its host wall time.
+``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
 stand-in at har-mlp's full width (``chip_smoke.py``'s main path): one eager
 round, then one replay of a CUDA graph of ``--chunk`` rounds
 (``repro_torch.fl.api.build_chunk_step``), each window with its host wall
@@ -96,6 +100,32 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
     return out
 
 
+def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0) -> dict:
+    """``device_breakdown`` of one train step (the forward with its
+    checkpointed blocks, the backward with their recompute, the optimizer)
+    after a warm-up step, with its host wall ms, on the card."""
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.api import param_tree
+
+    dev = resolve_device(None)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = make_optimizer(3e-4, 4)
+    opt_state = opt.init(param_tree(model))
+    step = bundle.make_train_step(opt)
+    key = prng.PRNGKey(seed + 1, device=dev)
+    data = [make_concrete_batch(cfg, "train", batch, seq, k) for k in prng.split(key)]
+    model, opt_state, _ = step(model, opt_state, data[0])  # warm-up: allocator, cuBLAS plans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt_state, loss = step(model, opt_state, data[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"train step": {"wall_ms": 1e3 * wall, "loss": float(loss),
+                           **device_breakdown(prof, top=12)}}
+
+
 def profile_fl_round(chunk: int = 5, seed: int = 0) -> dict:
     """``device_breakdown``s of one eager FL round and of one replay of a
     chunk of ``chunk`` rounds, with their host wall ms, on the card."""
@@ -162,6 +192,8 @@ def main(argv=None):
     ap.add_argument("--fl", action="store_true",
                     help="trace the ACSP-FL round (UCI-HAR, har-mlp, int8) instead of serving")
     ap.add_argument("--chunk", type=int, default=5, help="rounds of the replayed chunk (--fl)")
+    ap.add_argument("--train", action="store_true",
+                    help="trace one train step (batch 4, seq 2048) instead of serving")
     args = ap.parse_args(argv)
     if args.fl:
         res = profile_fl_round(chunk=args.chunk)
@@ -171,7 +203,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    res = profile_serving(cfg, steps=args.steps)
+    res = profile_train_step(cfg) if args.train else profile_serving(cfg, steps=args.steps)
     for window, row in res.items():
         print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "window": window,
                           "device": torch.cuda.get_device_name(0), **row}))

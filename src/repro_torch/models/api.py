@@ -5,9 +5,12 @@
     bundle = get_model(cfg)
     model  = bundle.init(torch.Generator(device="cuda").manual_seed(0))
     prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    opt_state = opt.init(param_tree(model))
+    step = bundle.make_train_step(opt)
+    model, opt_state, loss = step(model, opt_state, batch)
 
-The JAX package's facade. Training comes with ROADMAP.md queue 1 item 14.6
-and raises ``NotImplementedError`` here.
+The JAX package's facade. A train step updates the model's parameters in
+place and returns the loss as a device tensor.
 """
 
 from __future__ import annotations
@@ -21,12 +24,9 @@ from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
+from repro_torch.models.transformer import param_tree
 
-_TODO = "ROADMAP.md queue 1 item 14.6 (model zoo)"
-
-
-def _no_training(*args, **kwargs):
-    raise NotImplementedError(f"training (lm_loss, whisper_loss, train steps, ssm_vjp): {_TODO}")
+__all__ = ["ModelBundle", "get_model", "make_batch_specs", "make_concrete_batch", "param_tree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +45,8 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
         return ModelBundle(
             cfg=cfg,
             init=lambda gen: W.init_whisper(gen, cfg),
-            loss_fn=_no_training,
-            make_train_step=_no_training,
+            loss_fn=lambda p, batch, window=0: W.whisper_loss(p, cfg, batch, window),
+            make_train_step=lambda opt, window=0: W.make_train_step(cfg, opt, window),
             make_prefill_step=lambda window=0: W.make_prefill_step(cfg, window),
             make_decode_step=lambda window=0: W.make_decode_step(cfg, window),
             init_cache=lambda batch, seq, window=0, device=None: W.init_whisper_cache(
@@ -56,8 +56,8 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda gen: T.init_params(gen, cfg),
-        loss_fn=_no_training,
-        make_train_step=_no_training,
+        loss_fn=lambda p, batch, window=0: T.lm_loss(p, cfg, batch, window=window),
+        make_train_step=lambda opt, window=0: T.make_train_step(cfg, opt, window),
         make_prefill_step=lambda window=0: T.make_prefill_step(cfg, window),
         make_decode_step=lambda window=0: T.make_decode_step(cfg, window),
         init_cache=lambda batch, seq, window=0, device=None: T.init_cache(
@@ -72,29 +72,32 @@ def make_batch_specs(cfg: ModelConfig, kind: str, batch: int, seq: int):
     and ``positions`` (B, nv + that, 3), the M-RoPE streams; an
     encoder-decoder takes ``frames`` (B, encoder_seq, D) bf16, the audio
     stub's frame embeddings, and ``tokens`` (B, min(S, max_decoder_seq)). A
-    decode step takes nothing beyond its token."""
-    if kind == "train":
-        _no_training()
-    if kind != "prefill":
+    train batch adds ``labels`` of the tokens' shape, last. A decode step
+    takes nothing beyond its token."""
+    if kind not in ("train", "prefill"):
         return {}
     if cfg.encoder_decoder:
         dec_seq = min(seq, cfg.max_decoder_seq or seq)
-        return {"frames": ((batch, cfg.encoder_seq, cfg.d_model), torch.bfloat16),
-                "tokens": ((batch, dec_seq), torch.int32)}
-    if cfg.frontend == "vision_stub":
+        specs = {"frames": ((batch, cfg.encoder_seq, cfg.d_model), torch.bfloat16),
+                 "tokens": ((batch, dec_seq), torch.int32)}
+    elif cfg.frontend == "vision_stub":
         nv = cfg.n_vision_tokens
         txt = max(seq - nv, 1)
-        return {"vision_embeds": ((batch, nv, cfg.d_model), torch.bfloat16),
-                "tokens": ((batch, txt), torch.int32),
-                "positions": ((batch, nv + txt, 3), torch.int32)}
-    return {"tokens": ((batch, seq), torch.int32)}
+        specs = {"vision_embeds": ((batch, nv, cfg.d_model), torch.bfloat16),
+                 "tokens": ((batch, txt), torch.int32),
+                 "positions": ((batch, nv + txt, 3), torch.int32)}
+    else:
+        specs = {"tokens": ((batch, seq), torch.int32)}
+    if kind == "train":
+        specs["labels"] = specs["tokens"]
+    return specs
 
 
 def make_concrete_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
                         key: torch.Tensor) -> dict:
     """Random batch matching ``make_batch_specs``, drawn from a threefry
     ``key`` exactly as the JAX package draws it: one split per input in the
-    specs' order; ``randint`` over the vocabulary for tokens, a float32
+    specs' order; ``randint`` over the vocabulary for tokens and labels, a float32
     ``normal`` rounded to bf16 for the vision embeddings and the audio
     frames, and ``arange`` in
     all three streams for the positions (its split unused). Both packages

@@ -19,9 +19,16 @@ The prefills go through the port's CUDA kernels where JAX runs jnp code:
 ``gqa_attention`` and ``mla_attention`` call ``kernels.flash_attention``
 (JAX: ``chunked_attention``; MLA with a q/k head dim of nd + rd and a v
 head dim of vd) and ``mamba_block`` calls ``kernels.ssm_scan`` (JAX: a
-chunked ``lax.scan``). The decode steps and the MoE stay plain torch, as
-they are plain jnp in JAX (the experts are batched matrix products, which
-XLA computes outside any Pallas kernel). The expert-parallel MoE raises
+chunked ``lax.scan``). ``mode="train"`` is the prefill's path without a
+cache, differentiable: attention through ``kernels.flash_attention``'s
+autograd Function (its forward kernel with the row logsumexp, then
+``flash_attention_bwd``), the Mamba scan through
+``models.ssm_vjp.selective_scan`` (JAX: its custom VJP; here the scan
+kernel keeping its chunk start states, then ``ssm_scan_bwd``). The decode
+steps and the MoE stay plain torch, as they are plain jnp in JAX (the
+experts are batched matrix products, which XLA computes outside any Pallas
+kernel); the MoE trains through ``moe_apply_local`` under plain autograd,
+capacity counted over the whole call. The expert-parallel MoE raises
 ``NotImplementedError`` naming its ROADMAP.md item (queue 1 item 14.8).
 """
 
@@ -34,8 +41,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ssm_scan
+from repro_torch.models.ssm_vjp import selective_scan
 
-_TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
+_MODES = ("train", "prefill", "decode")
 
 
 def _item(n: int) -> str:
@@ -184,10 +192,10 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
                   mode: str = "prefill"):
-    """mode: prefill (``positions`` = ``arange(S)``, or under M-RoPE the
-    (B, S, 3) position streams whose t stream is ``arange(S)``) | decode
+    """mode: train | prefill (``positions`` = ``arange(S)``, or under M-RoPE
+    the (B, S, 3) position streams whose t stream is ``arange(S)``) | decode
     (``positions`` = the int position of the one token). Returns (out,
-    new_cache).
+    new_cache); train returns no cache.
 
     Prefill runs ``kernels.flash_attention`` over the sequence, whose masks
     count positions from 0, as the JAX function's masks over ``lin_pos``
@@ -196,8 +204,8 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     Decode writes the new K/V in place at slot ``pos`` (``pos % T`` with a
     window); under M-RoPE its three streams are all ``pos``, as the JAX
     decode step builds them."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"gqa_attention mode {mode!r}: training is {_TODO}")
+    if mode not in _MODES:
+        raise ValueError(f"gqa_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = (x @ p["wq"]).reshape(b, s, h, dh)
@@ -216,7 +224,9 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     q = apply_rope(q, rope_pos, cfg)
     k = apply_rope(k, rope_pos, cfg)
 
-    if mode == "prefill":
+    if mode == "train":
+        out, new_cache = flash_attention(q, k, v, causal=True, window=window), None
+    elif mode == "prefill":
         out = flash_attention(q, k, v, causal=True, window=window)
         if window:
             w = min(window, s)
@@ -272,8 +282,9 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
                   mode: str = "prefill"):
     """Multi-head Latent Attention with decoupled RoPE (arXiv:2405.04434).
-    mode: prefill (``positions`` = ``arange(S)``) | decode (the int position
-    of the one token). Returns (out, new_cache).
+    mode: train | prefill (``positions`` = ``arange(S)``) | decode (the int
+    position of the one token). Returns (out, new_cache); train returns no
+    cache.
 
     The cache holds the compressed ``c_kv`` (B, T, r) and the shared RoPE
     key (B, T, rd). Prefill expands c_kv through ``wuk``/``wuv`` and runs
@@ -284,8 +295,8 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     re-expands the cache (``naive``, the default) or folds ``wuk`` into the
     query and ``wuv`` into the output (``absorbed``), as the environment
     variable ``REPRO_MLA_DECODE`` picks, the JAX package's switch."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mla_attention mode {mode!r}: training is {_item(6)}")
+    if mode not in _MODES:
+        raise ValueError(f"mla_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
     h = cfg.n_heads
     r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
@@ -307,13 +318,14 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
         t = c.shape[1]
         return (c @ p["wuk"]).reshape(b, t, h, nd), (c @ p["wuv"]).reshape(b, t, h, vd)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         k_nope, v = expand(c_kv)
         k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rd)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         out = flash_attention(q_full, k_full, v, causal=True, window=window)
         w = min(window, s) if window else s
-        new_cache = {"c_kv": c_kv[:, -w:], "k_rope": k_rope[:, -w:, 0], "kv_pos": lin_pos[-w:]}
+        new_cache = (None if mode == "train" else
+                     {"c_kv": c_kv[:, -w:], "k_rope": k_rope[:, -w:, 0], "kv_pos": lin_pos[-w:]})
     else:  # decode: s == 1
         t_buf = cache["c_kv"].shape[1]
         slot = pos % t_buf if window else min(pos, t_buf - 1)
@@ -530,13 +542,15 @@ def _causal_conv(x, w, b, state=None):
 def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     """Selective-scan SSM (Mamba-1). Returns (out, new_cache).
 
-    prefill: ``kernels.ssm_scan`` over the sequence from h = 0; decode: the
-    O(1) state update. The scan inputs (dt, B, C, x) are rounded to
-    bfloat16 whatever the config's dtype, as the JAX block streams them
-    (its ``_scan_dt``); the recurrence itself runs in float32."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mamba_block mode {mode!r}: training with ssm_vjp is {_TODO}")
-    if mode == "prefill" and cache is not None:
+    prefill: ``kernels.ssm_scan`` over the sequence from h = 0; train: the
+    same through ``ssm_vjp.selective_scan`` (differentiable; no cache);
+    decode: the O(1) state update. The scan inputs (dt, B, C, x) are
+    rounded to bfloat16 whatever the config's dtype, as the JAX block
+    streams them (its ``_scan_dt``); the recurrence itself runs in
+    float32."""
+    if mode not in _MODES:
+        raise ValueError(f"mamba_block mode {mode!r}: one of {_MODES}")
+    if mode != "decode" and cache is not None:
         raise NotImplementedError("mamba_block prefill from a carried state: the scan starts at h = 0")
     di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank_
 
@@ -559,10 +573,12 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
         da = torch.exp(dt1[..., None] * a[None])
         h = da * cache["ssm"] + dt1[..., None] * b1[:, None, :] * x1[..., None]
         y = ((h * c1[:, None, :]).sum(-1) + p["D"] * x1)[:, None, :]
+    elif mode == "train":
+        y, h = selective_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
     else:
         y, h = ssm_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
     out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
-    return out, {"conv": new_conv, "ssm": h}
+    return out, None if mode == "train" else {"conv": new_conv, "ssm": h}
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device=None):

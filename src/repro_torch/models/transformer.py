@@ -11,12 +11,13 @@ an MoE with no shared experts). The encoder-decoder (whisper-tiny) is
 The model is an ``nn.Module``, ``DecoderLM``: the embedding, one block per
 layer in an ``nn.ModuleList``, the final norm, the head and, under the
 vision stub, ``vision_proj``: precomputed vision embeddings (B, nv, D) are
-projected by it and prepended to the token embeddings, and the positions
-are the (B, nv + S, 3) M-RoPE streams of the joined sequence. Its parameters
-carry no gradients (serving only). The JAX package stacks the layers of
-each period and scans over them (``layer_plan``: a prologue of unscanned
-layers, then periods); here the blocks are kept per layer and the stack is
-a Python loop, so a cache is one dict per layer, a Mamba layer's
+projected by it and prepended to the token embeddings, and the positions are
+the (B, nv + S, 3) M-RoPE streams of the joined sequence. Its parameters
+carry no gradients until a train step asks for them (``make_train_step``
+turns them on; serving runs under ``torch.no_grad``). The JAX package stacks
+the layers of each period and scans over them (``layer_plan``: a prologue of
+unscanned layers, then periods); here the blocks are kept per layer and the
+stack is a Python loop, so a cache is one dict per layer, a Mamba layer's
 ``{conv, ssm}`` beside an attention layer's ``{k, v, kv_pos}`` (MLA:
 ``{c_kv, k_rope, kv_pos}``) in a hybrid stack:
 
@@ -25,8 +26,18 @@ a Python loop, so a cache is one dict per layer, a Mamba layer's
 Each layer follows its ``LayerSpec``: the mixer (``attn``, which is GQA or
 MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE; a
 Mamba block has no FFN where the config has no ``d_ff`` and is not an MoE
-layer (falcon-mamba). ``mode="train"`` and tied embeddings raise
-``NotImplementedError`` naming their ROADMAP.md item.
+layer (falcon-mamba). Tied embeddings raise ``NotImplementedError``
+naming their ROADMAP.md item.
+
+Training: ``forward(mode="train")`` runs the prefill's path without a
+cache, under autograd, each block under ``torch.utils.checkpoint``
+(non-reentrant) where JAX wraps it in ``jax.checkpoint`` (``remat``): its
+activations are recomputed in the backward, so an attention layer's
+flash_attention forward kernel runs twice a step and its backward kernel
+once, and a Mamba layer's ssm_scan likewise. ``lm_loss`` is the JAX
+package's loss and ``make_train_step`` its step over the port's optimizers
+(``repro_torch.optim``) on ``param_tree(model)``, updating the model's
+parameters in place.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -291,19 +303,27 @@ def _prefill_positions(cfg: ModelConfig, positions, s: int, device) -> torch.Ten
     return positions.to(device=device, dtype=torch.int32)
 
 
-@torch.no_grad()
 def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
             vision_embeds: torch.Tensor | None = None, cache=None, window: int = 0,
-            mode: str = "prefill"):
+            mode: str = "prefill", remat: bool = True):
     """tokens (B, S) -> (logits (B, S', V_padded) float32, new_cache, aux),
     S' = S plus the vision tokens prepended under the vision stub.
     mode: prefill (S' tokens at positions 0..S'-1, no cache; under M-RoPE
     ``positions`` (B, S', 3) from the batch, a host tensor) | decode (one
-    token at ``cache["pos"]``; under M-RoPE its three streams there).
-    ``aux`` is the sum of the MoE layers' auxiliary (load-balance) losses, 0
-    without MoE layers."""
+    token at ``cache["pos"]``; under M-RoPE its three streams there) |
+    train (the prefill's positions, no cache, new_cache None; under
+    autograd, each block checkpointed when ``remat``). prefill and decode
+    run under ``torch.no_grad``. ``aux`` is the sum of the MoE layers'
+    auxiliary (load-balance) losses, 0 without MoE layers."""
+    if mode == "train":
+        return _forward(params, cfg, tokens, positions, vision_embeds, None, window, mode, remat)
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"forward mode {mode!r}: training is {_TODO}")
+        raise ValueError(f"forward mode {mode!r}: one of train, prefill, decode")
+    with torch.no_grad():
+        return _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode, False)
+
+
+def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode, remat):
     x = _embed_inputs(params, cfg, tokens, vision_embeds)
     s = x.shape[1]
     if mode == "decode":
@@ -315,15 +335,94 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positi
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (blk, spec) in enumerate(zip(params.blocks, params.specs)):
         c = cache["layers"][i] if cache is not None else None
-        x, nc, aux = apply_block(blk, x, positions, cfg, spec, cache=c, window=window, mode=mode)
+        if remat:  # jax.checkpoint around the block: recomputed in the backward
+            x, nc, aux = checkpoint(apply_block, blk, x, positions, cfg, spec, window=window,
+                                    mode=mode, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, nc, aux = apply_block(blk, x, positions, cfg, spec, cache=c, window=window,
+                                     mode=mode)
         new_layers.append(nc)
         if aux is not None:
             aux_total = aux_total + aux
 
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x @ params.head).to(torch.float32)
+    if mode == "train":
+        return logits, None, aux_total
     next_pos = cache["pos"] + 1 if (cache is not None and mode == "decode") else s
     return logits, {"layers": new_layers, "pos": next_pos}, aux_total
+
+
+# ---------------------------------------------------------------------------
+# losses & steps
+# ---------------------------------------------------------------------------
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` (B, S) under the float32
+    ``logits`` (B, S, V) over the whole (padded) vocabulary, labels -1
+    ignored (the mean is over the rest, at least 1)."""
+    labels = labels.to(device=logits.device, dtype=torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
+    m = (labels >= 0).to(torch.float32)
+    return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def lm_loss(params: DecoderLM, cfg: ModelConfig, batch: dict, *, window: int = 0,
+            remat: bool = True) -> torch.Tensor:
+    """Causal LM loss, the JAX package's: batch {"tokens" (B, S), "labels"
+    (B, S) with -1 = ignore, and under the vision stub ``vision_embeds`` and
+    ``positions``}; the vision prefix's logits are cut off before the NLL;
+    plus 0.01 times the MoE layers' aux loss. A float32 scalar on the
+    model's device, differentiable in its parameters."""
+    logits, _, aux = forward(params, cfg, batch["tokens"], positions=batch.get("positions"),
+                             vision_embeds=batch.get("vision_embeds"), window=window,
+                             mode="train", remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm: the vision prefix emits logits too
+        logits = logits[:, -labels.shape[1]:]
+    return token_nll(logits, labels) + 0.01 * aux
+
+
+def param_tree(model: nn.Module) -> dict[str, nn.Parameter]:
+    """The model's parameters by name: the tree an optimizer's state
+    mirrors (``opt.init(param_tree(model))``)."""
+    return dict(model.named_parameters())
+
+
+def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
+    """One optimizer step of ``model`` in place: the gradient of
+    ``loss_of()`` with respect to every parameter (a parameter the loss does
+    not reach gets zeros, as JAX's grad gives), ``optimizer.update`` on the
+    ``param_tree`` and ``p + update`` rounded to p's dtype (the JAX
+    ``apply_updates``). Returns (model, opt_state, loss as a device tensor);
+    nothing is read back to the host."""
+    tree = param_tree(model)
+    for p in tree.values():
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss = loss_of()
+        grads = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
+    grads = {name: torch.zeros_like(p) if g is None else g
+             for (name, p), g in zip(tree.items(), grads)}
+    updates, opt_state = optimizer.update(grads, opt_state,
+                                          {name: p.detach() for name, p in tree.items()})
+    del grads
+    with torch.no_grad():
+        for name, p in tree.items():
+            p.copy_((p + updates[name]).to(p.dtype))
+    return model, opt_state, loss.detach()
+
+
+def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = True):
+    def train_step(params: DecoderLM, opt_state, batch: dict):
+        """One step on ``batch`` (``lm_loss``'s): (params updated in place,
+        opt_state, loss)."""
+        return apply_train_step(params, opt_state, optimizer,
+                                lambda: lm_loss(params, cfg, batch, window=window, remat=remat))
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, window: int = 0):

@@ -12,7 +12,7 @@ The model is an ``nn.Module``, ``WhisperModel``, over ``ParamTree``s named
 as the JAX tree: ``enc_pos``, ``encoder[i].{norm1, attn, norm2, ffn}``,
 ``enc_norm``, ``embed``, ``decoder[i].{norm1, self_attn, norm_cross,
 cross_attn, norm2, ffn}``, ``final_norm``, ``head``. Its parameters carry no
-gradients (serving only).
+gradients until a train step asks for them (``make_train_step``).
 
 Every attention without a cache goes through ``kernels.flash_attention``
 where JAX runs ``chunked_attention``: non-causal in the encoder (T = S =
@@ -25,8 +25,14 @@ the prefill wrote. The cache:
 
     cache = {"layers": [gqa_cache, ...], "pos": int, "enc_out": (B, T, D)}
 
-``mode="train"`` (``whisper_loss``, the train step) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Training: ``decode_forward(mode="train")`` is the prefill's path without a
+cache under autograd, and ``encode`` differentiates as its caller records;
+the encoder and the cross-attention train through flash_attention's
+non-causal backward (T = S = encoder_seq, and S decoder queries over T
+frames), the decoder's self-attention through the causal one. As in the
+JAX package, nothing is checkpointed (its ``whisper_loss`` takes ``remat``
+and does not use it). ``whisper_loss`` and ``make_train_step`` are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -37,9 +43,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import ParamTree, _param
-
-_TRAINING = "ROADMAP.md queue 1 item 14.6 (training: whisper_loss, the train step)"
+from repro_torch.models.transformer import ParamTree, _param, apply_train_step, token_nll
 
 
 class WhisperModel(nn.Module):
@@ -131,10 +135,11 @@ def _attn(p, q_in: torch.Tensor, kv_in: torch.Tensor, cfg: ModelConfig) -> torch
     return flash_attention(q, k, v, causal=False).reshape(b, s, h * dh) @ p["wo"]
 
 
-@torch.no_grad()
 def encode(params: WhisperModel, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, T_enc, D), cast to the model's dtype, -> the encoder's
-    output (B, T_enc, D)."""
+    output (B, T_enc, D). Records a graph only where the caller's grad
+    mode does and the parameters need gradients (training); the prefill
+    step runs it under ``torch.no_grad``."""
     t = frames.shape[1]
     x = frames.to(device=params.device, dtype=params.embed.dtype) + params.enc_pos[:t]
     for lyr in params.encoder:
@@ -145,15 +150,23 @@ def encode(params: WhisperModel, cfg: ModelConfig, frames: torch.Tensor) -> torc
     return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
-@torch.no_grad()
 def decode_forward(params: WhisperModel, cfg: ModelConfig, tokens: torch.Tensor,
                    enc_out: torch.Tensor, *, cache=None, window: int = 0, mode: str = "prefill"):
     """The decoder over tokens (B, S), cross-attending ``enc_out`` (B, T,
     D). mode: prefill (positions 0..S-1, no cache) | decode (one token at
-    ``cache["pos"]``, the cache written in place). Returns (logits (B, S,
-    V_padded) float32, new_cache), the cache carrying ``enc_out``."""
+    ``cache["pos"]``, the cache written in place) | train (the prefill's
+    positions under autograd; new_cache None). Returns (logits (B, S,
+    V_padded) float32, new_cache), the cache carrying ``enc_out``. prefill
+    and decode run under ``torch.no_grad``."""
+    if mode == "train":
+        return _decode(params, cfg, tokens, enc_out, None, window, mode)
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"decode_forward mode {mode!r}: {_TRAINING}")
+        raise ValueError(f"decode_forward mode {mode!r}: one of train, prefill, decode")
+    with torch.no_grad():
+        return _decode(params, cfg, tokens, enc_out, cache, window, mode)
+
+
+def _decode(params, cfg, tokens, enc_out, cache, window, mode):
     x = params.embed[tokens.to(device=params.device, dtype=torch.int64)]
     s = x.shape[1]
     positions = cache["pos"] if mode == "decode" else torch.arange(s, dtype=torch.int32,
@@ -172,11 +185,36 @@ def decode_forward(params: WhisperModel, cfg: ModelConfig, tokens: torch.Tensor,
         new_layers.append(nc)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x @ params.head).to(torch.float32)
+    if mode == "train":
+        return logits, None
     next_pos = cache["pos"] + 1 if mode == "decode" else s
     return logits, {"layers": new_layers, "pos": next_pos, "enc_out": enc_out}
 
 
+def whisper_loss(params: WhisperModel, cfg: ModelConfig, batch: dict, window: int = 0,
+                 remat: bool = True) -> torch.Tensor:
+    """The JAX package's loss: batch {"frames" (B, T_enc, D), "tokens" (B,
+    S), "labels" (B, S) with -1 = ignore} -> the mean NLL of the labels
+    under the decoder's logits over the padded vocabulary, a float32 scalar
+    differentiable in the parameters. ``remat`` is taken and unused, as in
+    the JAX function."""
+    enc_out = encode(params, cfg, batch["frames"])
+    logits, _ = decode_forward(params, cfg, batch["tokens"], enc_out, window=window, mode="train")
+    return token_nll(logits, batch["labels"])
+
+
+def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = True):
+    def train_step(params: WhisperModel, opt_state, batch: dict):
+        """One step on ``batch`` (``whisper_loss``'s): (params updated in
+        place, opt_state, loss)."""
+        return apply_train_step(params, opt_state, optimizer,
+                                lambda: whisper_loss(params, cfg, batch, window))
+
+    return train_step
+
+
 def make_prefill_step(cfg: ModelConfig, window: int = 0):
+    @torch.no_grad()
     def prefill_step(params: WhisperModel, batch: dict):
         """batch {"frames" (B, T_enc, D), "tokens" (B, S)} -> (last-position
         logits (B, V), cache)."""

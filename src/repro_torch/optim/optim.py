@@ -6,8 +6,9 @@ schedule, as ``(init, update)`` transformations of the port's trees
 (nested lists/dicts of tensors, ``repro_torch.tree``). The arithmetic is the
 JAX package's, operation for operation and in its order (float32 moments,
 the bias corrections ``1 - b ** step`` before ``m / bc1`` and ``sqrt(v /
-bc2) + eps``), so the model zoo's train steps (ROADMAP.md queue 1 item
-14.6) can be held to the JAX package's; ``torch.optim``'s AdamW orders its
+bc2) + eps``), so the model zoo's train steps
+(``models/transformer.make_train_step``, ``launch/train.py``) are held to
+the JAX package's; ``torch.optim``'s AdamW orders its
 bias correction and eps otherwise. Steps and learning rates are float32
 tensors on the parameters' device.
 

@@ -51,7 +51,16 @@ bitwise the edge mode with rank-block ids; a world-1 sharded run on NCCL
 is bitwise the unsharded run, CUDA-graph chunks included, and its trace
 holds the two all-reduces a round that ``fl/shard`` reckons; gloo on CUDA
 tensors refuses chunks (``CollectiveCaptureError``) and runs round by
-round.
+round. Training: the forward kernels' optional outputs (flash_attention's
+row logsumexp, ssm_scan's chunk start states) against the plain versions';
+flash_attention_bwd at every (Dqk, Dv) of ``HEAD_DIMS`` in both dtypes,
+causal, windowed and non-causal at T != S, and ssm_scan_bwd at d_state 8
+and 16, whole and ragged chunks, S under 128, to their backward contracts
+(against the backward in float64), their controls rejected, one launch a
+call, two calls bitwise equal, what has no kernel refused; the autograd
+Functions launch exactly one forward and one backward; the ten reduced
+configs' loss and every gradient on the card within 1e-5 of max of the
+CPU's (2^-8 with a Mamba scan), through exactly the expected launches.
 """
 
 import numpy as np
@@ -1065,3 +1074,273 @@ def test_gloo_on_cuda_refuses_chunks_and_runs_per_round(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
     _history_fields_equal(h, run_federated(ds, FLConfig(rounds=4, epochs=1), device=cuda), "gloo")
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels (flash_attention_bwd, ssm_scan_bwd)
+# ---------------------------------------------------------------------------
+
+
+def _attention_inputs(cuda, case, dtype):
+    b, s, t, h, hkv, dq, dv = case[:7]
+    gen = torch.Generator(device=cuda).manual_seed(s + 7 * t + dq)
+    q = torch.randn((b, s, h, dq), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, t, hkv, dq), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, t, hkv, dv), generator=gen, device=cuda).to(dtype)
+    dout = torch.randn((b, s, h, dv), generator=gen, device=cuda).to(dtype)
+    return q, k, v, dout
+
+
+_BWD_CASES = [
+    # (b, s, t, h, hkv, dq, dv, causal, window, dtype): every (Dqk, Dv) of
+    # HEAD_DIMS in each dtype, causal with and without a window, non-causal
+    # at T != S (whisper's cross-attention) and T = S, G = 1, 4 and 6
+    (2, 130, 130, 4, 1, 64, 64, True, 0, torch.float32),
+    (1, 200, 200, 8, 2, 128, 128, True, 48, torch.float32),
+    (1, 70, 150, 4, 4, 48, 32, True, 0, torch.float32),
+    (2, 45, 150, 6, 6, 64, 64, False, 0, torch.float32),
+    (1, 256, 256, 8, 2, 64, 64, True, 0, torch.bfloat16),
+    (2, 300, 300, 8, 2, 128, 128, True, 0, torch.bfloat16),
+    (1, 640, 640, 4, 1, 128, 128, True, 200, torch.bfloat16),
+    (1, 300, 300, 4, 4, 192, 128, True, 0, torch.bfloat16),
+    (1, 200, 200, 6, 1, 160, 160, True, 64, torch.bfloat16),
+    (2, 100, 700, 6, 6, 64, 64, False, 0, torch.bfloat16),
+    (1, 1, 300, 6, 6, 64, 64, False, 0, torch.bfloat16),
+    (1, 129, 129, 4, 2, 160, 160, False, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", _BWD_CASES, ids=str)
+def test_flash_attention_bwd_vs_plain(cuda, case):
+    """The forward kernel's lse against the plain version's; dQ, dK, dV of
+    the backward kernel to ``contract.bwd_check`` (against the backward in
+    float64 on the same o and lse), the two controls rejected, one launch,
+    and two calls bitwise equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    causal, window, dtype = case[7:]
+    q, k, v, dout = _attention_inputs(cuda, case, dtype)
+    out, lse = _attention(q, k, v, causal, window, with_lse=True)
+    _, lse_plain = flash_attention_plain(q, k, v, causal, window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert float((lse - lse_plain).abs().max()) <= 1e-5 * max(1.0, float(lse_plain.abs().max()))
+    kernels.reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain32, ref64 = fa_contract.bwd_references(q, k, v, out, lse, dout, causal, window)
+    result = fa_contract.bwd_check(got, plain32, ref64)
+    assert result["ok"], result
+    for name, bad in fa_contract.bwd_controls(q, k, v, out, lse, dout, causal, window).items():
+        assert not fa_contract.bwd_check(bad, plain32, ref64)["ok"], name
+
+
+def test_flash_attention_autograd_launches_forward_and_backward(cuda):
+    """Where q, k, v need gradients, ``flash_attention`` goes through
+    ``FlashAttentionFn``: one forward launch with lse, one backward launch,
+    the gradients ``flash_attention_bwd``'s; without gradients, serving
+    launches the forward alone and keeps nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    q, k, v, dout = _attention_inputs(cuda, (1, 128, 128, 4, 2, 128, 128), torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want_out, lse = _attention(q, k, v, True, 0, with_lse=True)
+    assert torch.equal(out.detach(), want_out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, flash_attention_bwd(q, k, v, want_out,
+                                                                             lse, dout)))
+    with torch.no_grad():
+        assert torch.equal(flash_attention(*leaves), want_out)
+
+
+def test_flash_attention_bwd_refuses_what_it_has_no_kernel_for(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(NotImplementedError, match="takes \\(Dqk, Dv\\)"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    q = q.float()
+    with pytest.raises(ValueError, match="lse float32"):
+        flash_attention_bwd(q, q, q, q, lse[..., :4], q)
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 256, 128, 16), (1, 300, 200, 8), (2, 100, 64, 16),
+                                   (1, 129, 70, 8), (2, 520, 96, 16)], ids=str)
+def test_ssm_scan_bwd_vs_plain(cuda, shape, stream):
+    """The forward kernel's chunk start states against the plain version's
+    (the forward's float32 contract), then the backward kernel's six
+    gradients to ``contract.bwd_check`` (against ``ssm_scan_backward_plain``
+    in float64 on the kernel's chunk states), with a final-state cotangent,
+    whole and ragged chunks, S under 128, di off the block's 64 channels,
+    d_state 8 and 16; both controls rejected; one launch; two calls
+    bitwise equal (no atomics)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_plain
+
+    b, s, di, ds = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + di)
+    randn = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa: E731
+    dt = torch.nn.functional.softplus(randn(b, s, di) - 2)
+    a = -torch.exp(randn(di, ds))
+    ins = [t.to(stream) for t in (dt, randn(b, s, ds), randn(b, s, ds), randn(b, s, di))]
+    args = (ins[0], a, ins[1], ins[2], ins[3], randn(di))
+    y, h, hs = ssm_scan(*args, y_dtype=torch.float32, chunk_states=True)
+    _, h32, hs32 = ssm_scan_plain(*args, y_dtype=torch.float32, chunk_states=True)
+    _, h64, hs64 = ssm_scan_plain(*args, y_dtype=torch.float64, acc_dtype=torch.float64,
+                                  chunk_states=True)
+    assert hs.shape == (-(-s // 128), b, di, ds) and not hs[0].any()
+    gap, allowed = ssm_contract._f32_rule(hs, hs32, hs64)
+    assert gap <= allowed, (gap, allowed)
+    gy, gh = randn(b, s, di), randn(b, di, ds)
+    kernels.reset_launch_counts()
+    got = ssm_scan_bwd(*args, hs, gy, gh)
+    assert kernels.launch_counts()["ssm_scan_bwd"] == 1
+    assert [g.dtype for g in got] == [stream, torch.float32, stream, stream, stream, torch.float32]
+    again = ssm_scan_bwd(*args, hs, gy, gh)
+    assert all(torch.equal(x, z) for x, z in zip(got, again))
+    plain32, ref64 = ssm_contract.bwd_references(*args, hs, gy, gh)
+    result = ssm_contract.bwd_check(got, plain32, ref64)
+    assert result["ok"], result
+    if s > 128:
+        for name, bad in ssm_contract.bwd_controls(*args, hs, gy).items():
+            bad_ref = ssm_contract.bwd_references(*args, hs, gy)
+            assert not ssm_contract.bwd_check(bad, *bad_ref)["ok"], name
+
+
+def test_selective_scan_on_cuda_launches_both_kernels(cuda):
+    """``models.ssm_vjp.selective_scan`` on the card: one ssm_scan launch
+    (with the chunk states) and one ssm_scan_bwd launch; the gradients come
+    back in the bf16 streams' dtype, and equal ``ssm_scan_bwd``'s."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+    from repro_torch.models.ssm_vjp import selective_scan
+
+    b, s, di, ds = 2, 300, 128, 16
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    randn = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa: E731
+    streams = [t.to(torch.bfloat16) for t in (torch.nn.functional.softplus(randn(b, s, di) - 2),
+                                              randn(b, s, ds), randn(b, s, ds), randn(b, s, di))]
+    a, d = -torch.exp(randn(di, ds)), randn(di)
+    leaves = [t.clone().requires_grad_() for t in (streams[0], a, streams[1], streams[2],
+                                                   streams[3], d)]
+    gy = randn(b, s, di).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    y, _ = selective_scan(*leaves, y_dtype=torch.bfloat16)
+    grads = torch.autograd.grad(y, leaves, gy)
+    counts = kernels.launch_counts()
+    assert counts["ssm_scan"] == 1 and counts["ssm_scan_bwd"] == 1
+    assert [g.dtype for g in grads] == [t.dtype for t in leaves]
+    args = [t.detach() for t in leaves]
+    _, _, hs = ssm_scan(*args, y_dtype=torch.bfloat16, chunk_states=True)
+    want = ssm_scan_bwd(*args, hs, gy.float())
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_ssm_scan_bwd_refuses_other_state_sizes(cuda):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    x = torch.zeros((1, 4, 64), device=cuda)
+    a = -torch.ones((64, 4), device=cuda)
+    hs = torch.zeros((1, 1, 64, 4), device=cuda)
+    with pytest.raises(NotImplementedError, match="d_state"):
+        ssm_scan_bwd(x, a, x[..., :4], x[..., :4], x, x[0, 0], hs, x)
+
+
+def test_backward_launches_the_kernels_refuse_raise(cuda, monkeypatch):
+    """A launch that a kernel library refuses (a shape let through the
+    wrapper's checks that no instantiation takes: the C entry returns
+    cudaErrorInvalidValue) raises instead of returning unwritten
+    gradients."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    monkeypatch.setitem(fa_ops.HEAD_DIMS, torch.bfloat16,
+                        fa_ops.HEAD_DIMS[torch.bfloat16] + ((96, 96),))
+    q = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed: cudaError 1"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    monkeypatch.setattr(ssm_ops, "_STATE_SIZES", (4, 8, 16))
+    x = torch.zeros((1, 4, 64), device=cuda)
+    a = -torch.ones((64, 4), device=cuda)
+    hs = torch.zeros((1, 1, 64, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed: cudaError 1"):
+        ssm_ops.ssm_scan_bwd(x, a, x[..., :4], x[..., :4], x, x[0, 0], hs, x)
+
+
+_TRAIN_ARCHS = ["falcon-mamba-7b", "granite-3-8b", "chatglm3-6b", "stablelm-12b", "qwen2-vl-2b",
+                "deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b",
+                "jamba-v0.1-52b", "whisper-tiny"]
+
+
+def train_launches(cfg) -> dict:
+    """What one loss-and-gradient of ``cfg`` launches: with remat (the
+    decoder LMs) an attention layer's flash_attention forward twice (the
+    forward and its recompute) and its backward once, a Mamba layer's
+    ssm_scan likewise; whisper (no remat) flash_attention once an encoder
+    layer and twice a decoder layer, and as many backward launches."""
+    from repro_torch.models import transformer
+
+    counts = dict.fromkeys(kernels.KERNELS, 0)
+    if cfg.encoder_decoder:
+        n = cfg.n_encoder_layers + 2 * cfg.n_layers
+        counts.update(flash_attention=n, flash_attention_bwd=n)
+        return counts
+    specs = transformer.layer_specs(cfg)
+    n_attn = sum(sp.kind == "attn" for sp in specs)
+    n_mamba = len(specs) - n_attn
+    counts.update(flash_attention=2 * n_attn, flash_attention_bwd=n_attn,
+                  ssm_scan=2 * n_mamba, ssm_scan_bwd=n_mamba)
+    return counts
+
+
+@pytest.mark.parametrize("arch", _TRAIN_ARCHS)
+def test_reduced_loss_and_grads_on_cuda_match_cpu(cuda, arch):
+    """The reduced float32 model's loss and every parameter's gradient on
+    the card (through the forward and backward kernels, exactly
+    ``train_launches``) against the same on the CPU (plain versions): within
+    1e-5 of each leaf's max, 2^-8 where a Mamba scan is in the stack (a
+    scan input's bf16 rounding may flip)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.models.api import get_model, make_concrete_batch, param_tree
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    rel = 2.0 ** -8 if cfg.ssm else 1e-5
+    bundle = get_model(cfg)
+    cpu_model = bundle.init(torch.Generator().manual_seed(0))
+    dev_model = copy.deepcopy(cpu_model).to(cuda)
+    batch = make_concrete_batch(cfg, "train", 2, 64, prng.PRNGKey(1))
+    out = []
+    for model in (cpu_model, dev_model):
+        tree = param_tree(model)
+        for p in tree.values():
+            p.requires_grad_(True)
+        kernels.reset_launch_counts()
+        loss = bundle.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
+        out.append((loss, grads, kernels.launch_counts()))
+    (want_loss, want, _), (got_loss, got, counts) = out
+    assert counts == train_launches(cfg), counts
+    assert abs(float(got_loss) - float(want_loss)) <= rel * abs(float(want_loss))
+    for name, g, w in zip(param_tree(cpu_model), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        _close_to_max(g.cpu(), w, rel)

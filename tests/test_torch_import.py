@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
-entry points refuse to run quietly on the CPU, every model feature outside
+entry points (training's ``launch.train.train`` among them) refuse to run
+quietly on the CPU, every model feature outside
 the ported slices raises NotImplementedError naming its ROADMAP.md item,
 and the ported items' options (every FL option, ``cohort_devices``
 included) run on the CPU when asked."""
@@ -21,6 +22,7 @@ from repro_torch.fl import FLConfig, make_round_step, run_federated
 from repro_torch.fl.api import RoundState
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
+from repro_torch.launch.train import train
 from repro_torch.models import transformer
 from repro_torch.models.api import get_model
 from repro_torch.weights import lm_params_from_numpy, params_from_numpy, state_from_numpy
@@ -98,6 +100,7 @@ _ENTRY_POINTS = {
     "serve": lambda ds: serve(get_config("granite-3-8b").reduced(), requests=1, batch=1,
                               prompt_len=4, max_new=1),
     "lm_params_from_numpy": lambda ds: lm_params_from_numpy(get_config("granite-3-8b"), {}),
+    "train": lambda ds: train(get_config("granite-3-8b").reduced(), steps=1, batch=1, seq=4),
 }
 
 
@@ -357,22 +360,36 @@ def test_expert_parallel_moe_raises():
     assert y.shape == x.shape
 
 
-@pytest.mark.parametrize("arch", _ZOO_ARCHS)
-def test_training_mode_raises(arch):
-    from repro_torch.models import whisper
+def _train_expert_parallel_moe():
+    """An MoE layer's loss under autograd with ``expert_parallel=True``
+    (the JAX package's ``moe_apply_ep``, taken only under its production
+    mesh)."""
+    from repro_torch.models import layers
 
-    cfg = get_config(arch).reduced()
-    bundle = get_model(cfg)
-    model = bundle.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        if cfg.encoder_decoder:
-            enc = torch.zeros((1, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16)
-            whisper.decode_forward(model, cfg, toks, enc, mode="train")
-        else:
-            transformer.forward(model, cfg, toks, mode="train")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bundle.make_train_step(None)
+    cfg = get_config("deepseek-moe-16b").reduced()
+    p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
+    with torch.enable_grad():
+        layers.moe_apply(p, x, cfg, expert_parallel=True)
+
+
+def _train_tied_embeddings():
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), tie_embeddings=True)
+    get_model(cfg).make_train_step(None)
+
+
+_OUT_OF_TRAINING = {"expert-parallel MoE": (_train_expert_parallel_moe, "item 14.8"),
+                    "tied embeddings": (_train_tied_embeddings, "item 14")}
+
+
+@pytest.mark.parametrize("case", sorted(_OUT_OF_TRAINING))
+def test_training_outside_the_slice_raises(case):
+    """What training leaves out still raises, naming its ROADMAP.md item:
+    the expert-parallel MoE (queue 1 item 14.8) and tied embeddings (item
+    14); every zoo arch trains (``tests/test_torch_train_*.py``)."""
+    fn, item = _OUT_OF_TRAINING[case]
+    with pytest.raises(NotImplementedError, match=item):
+        fn()
 
 
 def test_serve_record_writes_a_record(tmp_path):

@@ -244,7 +244,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert kernels.launch_counts() == {"quantize": 0, "dequantize": 0, "masked_aggregate": 0,
                                        "masked_aggregate_partial": 0,
                                        "masked_aggregate_combine": 0,
-                                       "ssm_scan": 0, "flash_attention": 0}
+                                       "ssm_scan": 0, "flash_attention": 0,
+                                       "ssm_scan_bwd": 0, "flash_attention_bwd": 0}
 
 
 def test_tensors_on_other_devices_raise():

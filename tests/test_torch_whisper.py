@@ -249,16 +249,3 @@ def test_serving_waves_match_the_jax_launcher(monkeypatch):
             return
     assert stats["outputs"] == twaves.seqs == jwaves.seqs
     assert stats["tokens"] == sum(len(o) for o in jwaves.seqs) == sum(stats["lens"])
-
-
-def test_training_raises():
-    _, cfg = _cfgs()
-    bundle = get_model(cfg)
-    model = bundle.init(torch.Generator().manual_seed(0))
-    enc = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 14.6"):
-        W.decode_forward(model, cfg, torch.zeros((1, 4), dtype=torch.int32), enc, mode="train")
-    with pytest.raises(NotImplementedError, match="item 14.6"):
-        bundle.make_train_step(None)
-    with pytest.raises(NotImplementedError, match="item 14.6"):
-        get_model(cfg).loss_fn(model, {})
