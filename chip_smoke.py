@@ -60,9 +60,9 @@ drives the port's two paths:
   routing, dispatch, experts and combine, and the share of routes dropped
   at prefill and at decode;
 - LM training (``[train_kernels]``, ``[train]``): the two backward
-  kernels, flash_attention_bwd (granite-3-8b's layer, whisper-tiny's
-  encoder and cross-attention, one launch each at (192, 128) and (160,
-  160)) and ssm_scan_bwd (falcon-mamba-7b's layer, whole and ragged
+  kernels, flash_attention_bwd (bf16 on wgmma: granite-3-8b's layer,
+  whisper-tiny's encoder and cross-attention, one launch each at (192,
+  128) and (160, 160)) and ssm_scan_bwd (falcon-mamba-7b's layer, whole and ragged
   chunks), each held to its contract against the backward in float64 on
   the forward kernel's own lse or chunk states, with its controls, two
   calls bitwise, timed beside its bound, its float32 plain version and
@@ -2483,15 +2483,16 @@ def sdpa_backward_ms(q, k, v, dout, causal: bool) -> tuple:
     return (times[best] if best else None), best, tried
 
 
-def attention_bwd_bound(b, s, t, h, hkv, dq, dv, causal) -> tuple[float, str]:
-    """The least time of dQ, dK, dV in bf16: the five products the inputs
-    require over the visible pairs (S again, dP, dV, dK, dQ) at the bf16
-    tensor-core rate, or the bytes (q, k, v, o, dO, lse read once, dQ, dK,
-    dV written once)."""
+def attention_bwd_bound(b, s, t, h, hkv, dq, dv, causal, products: int = 5) -> tuple[float, str]:
+    """The least time of dQ, dK, dV in bf16: ``products`` products over the
+    visible pairs at the bf16 tensor-core rate (the five the inputs require:
+    S again, dP, dV, dK, dQ; or the seven of the wgmma kernel, which
+    computes S and dP in both of its passes), or the bytes (q, k, v, o, dO,
+    lse read once, dQ, dK, dV written once)."""
     n_bytes = 2 * (2 * b * s * h * dq + 2 * b * t * hkv * (dq + dv) + 2 * b * s * h * dv) \
         + 4 * b * h * s
-    flops = 2 * (3 * dq + 2 * dv) * b * h * visible_pairs(s, t, causal, 0)
-    return bound_ms(n_bytes, flops, BF16_FLOPS)
+    per_pair = {5: 3 * dq + 2 * dv, 7: 4 * dq + 3 * dv}[products]
+    return bound_ms(n_bytes, 2 * per_pair * b * h * visible_pairs(s, t, causal, 0), BF16_FLOPS)
 
 
 def phase_train_kernels(dev: torch.device) -> dict:
@@ -2503,10 +2504,11 @@ def phase_train_kernels(dev: torch.device) -> dict:
     160) (B 1, S 2048); ssm_scan_bwd at falcon-mamba-7b's layer (B 4, S
     2048 and a ragged 1,999, di 8,192, ds 16). Each held to its contract
     (``contract.bwd_check``, against the backward in float64 on the forward
-    kernel's o and lse, or chunk states), its controls rejected at the
-    first shape, two calls bitwise equal; times (CUDA events, eager) beside
-    the bound, the float32 plain version and, for attention, SDPA's fused
-    backward. Returns the two kernels' rows."""
+    kernel's o and lse, or chunk states), its controls rejected (attention:
+    at every shape; the scan: at the first), two calls bitwise equal; times
+    (CUDA events, eager) beside the bound, the float32 plain version and,
+    for attention at every shape, SDPA's fused backward. Returns the two
+    kernels' rows."""
     from repro_torch.kernels.flash_attention import contract as fa_contract
     from repro_torch.kernels.flash_attention import flash_attention_backward_plain
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -2543,38 +2545,41 @@ def phase_train_kernels(dev: torch.device) -> dict:
         again = flash_attention_bwd(*args)
         check(all(same(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd at {key}: two calls differ")
-        plain32, ref64 = fa_contract.bwd_references(*args)
-        report[key] = r = brief(fa_contract.bwd_check(got, plain32, ref64))
+        ref = fa_contract.bwd_references(*args)
+        report[key] = r = brief(fa_contract.bwd_check(got, ref))
         check(r["ok"], f"flash_attention_bwd at {key} fails its contract: {r}")
-        if key == "granite":
-            for fault, bad in fa_contract.bwd_controls(*args).items():
-                report[f"control {fault}"] = r = brief(fa_contract.bwd_check(bad, plain32, ref64))
-                check(not r["ok"], f"flash_attention_bwd's contract accepts {fault}: {r}")
-            del bad
+        for fault, bad in fa_contract.bwd_controls(*args).items():
+            report[f"{key} control {fault}"] = r = brief(fa_contract.bwd_check(bad, ref))
+            check(not r["ok"], f"flash_attention_bwd's contract accepts {fault} at {key}: {r}")
+        del bad
         bound, by = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal)
+        bound7, _ = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal, products=7)
         prefix = "" if key == "granite" else f"{key}_"
         fa_row.update({f"{prefix}shape": [bb, ss, tt, h, hkv, dq, dv, causal],
                        f"{prefix}max_abs_err": max(float((g.double() - w).abs().max())
-                                                   for g, w in zip(got, ref64)),
+                                                   for g, w in zip(got, ref.ref64)),
                        f"{prefix}ms": cuda_ms(lambda: flash_attention_bwd(*args), reps=10),
-                       f"{prefix}bound_ms": bound, f"{prefix}bound_by": by})
-        del plain32, ref64, got, again
-        if key in ("granite", "whisper_enc"):
-            fa_row[f"{prefix}plain_ms"] = cuda_ms(
-                lambda: flash_attention_backward_plain(*args), reps=2, warmup=1)
-            lib, backend, tried = sdpa_backward_ms(q, k, v, dout, causal)
-            fa_row.update({f"{prefix}library_ms": lib, f"{prefix}library_backend": backend})
-            report[f"{key} sdpa backward"] = tried
+                       f"{prefix}bound_ms": bound, f"{prefix}bound_by": by,
+                       f"{prefix}bound7_ms": bound7})
+        del ref, got, again
+        fa_row[f"{prefix}plain_ms"] = cuda_ms(
+            lambda: flash_attention_backward_plain(*args), reps=2, warmup=1)
+        lib, backend, tried = sdpa_backward_ms(q, k, v, dout, causal)
+        fa_row.update({f"{prefix}library_ms": lib, f"{prefix}library_backend": backend})
+        report[f"{key} sdpa backward"] = tried
         del q, k, v, dout, out, lse, args
         gc.collect()
         torch.cuda.empty_cache()
-    print(f"[train_kernels] flash_attention_bwd bf16 vs the backward in float64 on the forward "
-          f"kernel's o and lse (contract, kernels/flash_attention/contract.py: every element "
-          f"within {fa_contract.BWD_FACTOR:g} x the float32 plain backward's gap + "
-          f"{fa_contract.BWD_REL:g} of max + 1 bf16 ulp; gaps and excesses over max|ref|; the "
-          f"controls must fail it), two calls bitwise; [B, S, T, H, Hkv, Dqk, Dv, causal] in the "
-          f"*shape keys; ms of eager calls (CUDA events); SDPA's fused backward by backend: "
-          f"{json.dumps(report)} {json.dumps(fa_row)}")
+    print(f"[train_kernels] flash_attention_bwd bf16 (wgmma) vs the backward in float64 on the "
+          f"forward kernel's o and lse with the kernel's bf16 rounding points (contract, "
+          f"kernels/flash_attention/contract.py: every element within "
+          f"{fa_contract.BWD_FACTOR:g} x the float32 arithmetic's gap + {fa_contract.BWD_REL:g} "
+          f"of max + 1 bf16 ulp + the slack of P and dS rounding flips; gaps and excesses over "
+          f"max|ref|; the three controls must fail it at every shape), two calls bitwise; "
+          f"[B, S, T, H, Hkv, Dqk, Dv, causal] in the *shape keys; ms of eager calls (CUDA "
+          f"events) beside two bounds at 989 TFLOP/s: bound_ms for the five products the "
+          f"inputs require, bound7_ms for the seven the kernel runs; SDPA's fused backward by "
+          f"backend: {json.dumps(report)} {json.dumps(fa_row)}")
 
     # ssm_scan_bwd at falcon-mamba-7b's layer, bf16 streams, the forward
     # kernel's chunk states; whole chunks and a ragged last one
@@ -2629,7 +2634,7 @@ def phase_train_kernels(dev: torch.device) -> dict:
           f"{json.dumps(report)} {json.dumps(ssm_row)}")
     return {
         "flash_attention_bwd": dict(
-            route="cuda", source=src + "flash_attention_bwd.cu",
+            route="cuda", source=src + "flash_attention_bwd_wgmma.cu",
             replaces="src/repro/models/layers.py:126", **fa_row),
         "ssm_scan_bwd": dict(route="cuda", source=src + "ssm_scan_bwd.cu",
                              replaces="src/repro/models/ssm_vjp.py:105", **ssm_row),

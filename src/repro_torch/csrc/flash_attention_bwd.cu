@@ -1,6 +1,9 @@
-// Backward of the port's GQA flash attention for sm_90a, on the CUDA cores:
-// dQ, dK and dV from q, k, v, the forward's output o and row logsumexp lse,
-// and dO, in float32 arithmetic for bfloat16 or float32 tensors.
+// Backward of the port's GQA flash attention for sm_90a, on the CUDA cores,
+// for float32 tensors (the reduced parity configs): dQ, dK and dV from q, k,
+// v, the forward's output o and row logsumexp lse, and dO. bfloat16 tensors
+// (serving and training at full width) take the tensor-core kernel in
+// flash_attention_bwd_wgmma.cu, as the float32 forward (flash_attention.cu)
+// stays beside the bf16 one.
 //
 // Replaces no TPU kernel: the JAX package trains through autodiff of the
 // jnp chunked_attention (src/repro/models/layers.py), and its Pallas kernel
@@ -19,10 +22,9 @@
 //   dP      = dO V^T          dS = P * (dP - D)
 //   dV[t]   = sum_{g, s} P[s, t] dO[s]       dK[t] = scale sum_{g, s} dS[s, t] q[s]   (pass 2)
 //   dQ[s]   = scale sum_t dS[s, t] k[t]                                              (pass 3)
-// every product and sum in float32, P kept in float32 (the forward's bf16
-// kernel rounds P to bf16 before P.V; here it is not rounded), dQ, dK and
-// dV written in the inputs' dtype. kernels/flash_attention/contract.py
-// holds the result to the same formulas in float64 on the same inputs.
+// every product and sum in float32, P and dS kept in float32, as the
+// float32 forward keeps P. kernels/flash_attention/contract.py holds the
+// result to the same formulas in float64 on the same inputs.
 //
 // Determinism: no atomics. Pass 2 runs one CTA per (b, kv head, 64-key
 // tile), which sums its keys' dK and dV over the G query heads of the kv
@@ -30,16 +32,15 @@
 // runs one CTA per (b, q head, 64-row q tile) over its key tiles in order.
 // Two calls on the same inputs give the same bits.
 //
-// Bound on an H100 at granite-3-8b's shape (B=4, S=T=2048, H=32, Hkv=8,
-// D=128, causal): the five products over the visible half of the score
-// matrix that the inputs require (S recomputed, dP, dV, dK, dQ; this kernel
-// computes S and dP twice, in pass 2 and pass 3, seven in all),
-// 5 * 2 * B * H * D * S(S+1)/2 = 0.344 TFLOP, 0.348 ms at the 989 TFLOP/s
-// bf16 tensor-core rate; the bytes (q, k, v, o, dO and lse read once, dQ,
-// dK, dV written once) 0.34 GB, 0.10 ms. So the tensor cores bound it; on
-// the CUDA cores (67 TFLOP/s in float32) the five products alone take
-// 5.1 ms, so this kernel is far from the bound, and moving the products
-// onto wgmma is later work (ROADMAP.md queue 2).
+// Bound: the five products over the visible pairs that the inputs require
+// (S recomputed, dP, dV, dK, dQ; this kernel computes S and dP twice, in
+// pass 2 and pass 3, seven in all) at 67 TFLOP/s, the H100's float32 rate
+// on the CUDA cores. The reduced configs' shapes (a few hundred rows, 2-4
+// heads) are far below the size where that rate is reached; they are
+// parity checks, not a hot path. At granite-3-8b's full-width layer in bf16
+// (B=4, S=T=2048, H=32, Hkv=8, D=128, causal) this kernel took 21.96 ms
+// (PERF.md row 4b) against a bound of 0.348 ms on the tensor cores, which
+// is why bf16 moved to flash_attention_bwd_wgmma.cu.
 //
 // Design (a CUDA-core kernel that is right first). 256 threads a CTA; the
 // tiles it works on are staged in shared memory as float32 rows padded by 4
@@ -55,15 +56,14 @@
 //   thread, and reads dS and the K tile from shared memory.
 // Tiles that the mask hides from the whole tile (above the diagonal, or
 // wholly outside the window) are skipped, as in the forward.
-// Shared memory at (192, 128): K 49 KB, V 33 KB, q 49 KB, dO 33 KB, P and
-// dS 17 KB each, 203 KB, one CTA an SM.
+// Shared memory at (128, 128): K, V, q and dO 34 KB each, P and dS 17 KB
+// each, 170 KB, one CTA an SM.
 //
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper
 // repro_torch/kernels/flash_attention/ops.py:flash_attention_bwd launches it
 // on torch's current stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,18 +73,6 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;  // query rows of a q tile, keys of a key tile
 constexpr int kPad = 4;    // floats of padding per staged row
 constexpr int kLdS = kTile + kPad;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -99,12 +87,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 // `rows` rows of D elements from `src` (row stride `stride` elements) into
 // float32 shared memory at row stride D + kPad; rows at or past `valid` are 0.
-template <int D, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int64_t stride,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int64_t stride,
                                       int rows, int valid) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * (D + kPad) + c] = r < valid ? to_f32(src[r * stride + c]) : 0.0f;
+    dst[r * (D + kPad) + c] = r < valid ? src[r * stride + c] : 0.0f;
   }
 }
 
@@ -176,17 +164,17 @@ struct Smem {
 };
 
 // Pass 1: D[b, h, s] = sum_d dO[b, s, h, d] o[b, s, h, d]; a warp a row.
-template <int DV, typename T>
+template <int DV>
 __global__ void __launch_bounds__(kThreads)
-row_dots_kernel(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ dd,
-                int n_heads, int s_len) {
+row_dots_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+                float* __restrict__ dd, int n_heads, int s_len) {
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int h = blockIdx.y, b = blockIdx.z, lane = threadIdx.x % 32;
   if (row >= s_len) return;
   const int64_t base = ((static_cast<int64_t>(b) * s_len + row) * n_heads + h) * DV;
   float acc = 0.0f;
   for (int d = lane; d < DV; d += 32)
-    acc = fmaf(to_f32(dout[base + d]), to_f32(out[base + d]), acc);
+    acc = fmaf(dout[base + d], out[base + d], acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) dd[(static_cast<int64_t>(b) * n_heads + h) * s_len + row] = acc;
@@ -194,12 +182,13 @@ row_dots_kernel(const T* __restrict__ out, const T* __restrict__ dout, float* __
 
 // Pass 2: dK and dV of one (b, kv head, key tile), summed over the kv head's
 // G query heads and their visible query tiles, in that order.
-template <int DQK, int DV, typename T>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ dd, T* __restrict__ dk, T* __restrict__ dv, int n_heads,
-           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale) {
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ dd, float* __restrict__ dk,
+           float* __restrict__ dv, int n_heads, int n_kv_heads, int s_len, int t_len, int causal,
+           int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw);
   constexpr int kCk = DQK / 16, kCv = DV / 16;  // columns a thread holds
@@ -274,22 +263,23 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int key = k0 + 4 * kg + i;
     if (key < t_len) {
       const int64_t row = static_cast<int64_t>(b) * t_len + key;
-      T* dkr = dk + row * k_stride + hk * DQK;
-      T* dvr = dv + row * v_stride + hk * DV;
+      float* dkr = dk + row * k_stride + hk * DQK;
+      float* dvr = dv + row * v_stride + hk * DV;
 #pragma unroll
-      for (int c = 0; c < kCk; ++c) dkr[cg + 16 * c] = from_f32<T>(acc_k[i][c] * scale);
+      for (int c = 0; c < kCk; ++c) dkr[cg + 16 * c] = acc_k[i][c] * scale;
 #pragma unroll
-      for (int c = 0; c < kCv; ++c) dvr[cg + 16 * c] = from_f32<T>(acc_v[i][c]);
+      for (int c = 0; c < kCv; ++c) dvr[cg + 16 * c] = acc_v[i][c];
     }
   }
 }
 
 // Pass 3: dQ of one (b, q head, q tile) over its visible key tiles, in order.
-template <int DQK, int DV, typename T>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ dd, T* __restrict__ dq, int n_heads, int n_kv_heads,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ dd, float* __restrict__ dq,
+          int n_heads, int n_kv_heads,
           int s_len, int t_len, int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw);
@@ -350,14 +340,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * rg + i;
     if (row < s_len) {
-      T* dqr = dq + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * DQK;
+      float* dqr = dq + (static_cast<int64_t>(b) * s_len + row) * q_stride + h * DQK;
 #pragma unroll
-      for (int c = 0; c < kCk; ++c) dqr[cg + 16 * c] = from_f32<T>(acc[i][c] * scale);
+      for (int c = 0; c < kCk; ++c) dqr[cg + 16 * c] = acc[i][c] * scale;
     }
   }
 }
 
-template <int DQK, int DV, typename T>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* dd, int batch, int n_heads,
            int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
@@ -367,81 +357,59 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV, T>,
+    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel<DQK, DV, T>,
+      err = cudaFuncSetAttribute(dq_kernel<DQK, DV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   if (batch == 0 || n_heads == 0 || s_len == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
   const float* lse_f = static_cast<const float*>(lse);
   float* dd_f = static_cast<float*>(dd);
-  row_dots_kernel<DV, T><<<dim3((s_len + 7) / 8, n_heads, batch), kThreads, 0, st>>>(
-      static_cast<const T*>(out), dot, dd_f, n_heads, s_len);
+  row_dots_kernel<DV><<<dim3((s_len + 7) / 8, n_heads, batch), kThreads, 0, st>>>(
+      static_cast<const float*>(out), dot, dd_f, n_heads, s_len);
   if (t_len > 0) {
-    dkv_kernel<DQK, DV, T><<<dim3((t_len + kTile - 1) / kTile, n_kv_heads, batch), kThreads,
-                             smem, st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<T*>(dk),
-                                         static_cast<T*>(dv), n_heads, n_kv_heads, s_len, t_len,
+    dkv_kernel<DQK, DV><<<dim3((t_len + kTile - 1) / kTile, n_kv_heads, batch), kThreads,
+                             smem, st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<float*>(dk),
+                                         static_cast<float*>(dv), n_heads, n_kv_heads, s_len, t_len,
                                          causal, window, scale);
   }
-  dq_kernel<DQK, DV, T><<<dim3((s_len + kTile - 1) / kTile, n_heads, batch), kThreads, smem,
-                          st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<T*>(dq), n_heads,
+  dq_kernel<DQK, DV><<<dim3((s_len + kTile - 1) / kTile, n_heads, batch), kThreads, smem,
+                          st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<float*>(dq), n_heads,
                                 n_kv_heads, s_len, t_len, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dims(int dqk, int dv_dim, const void* q, const void* k, const void* v,
-                const void* out, const void* lse, const void* dout, void* dq, void* dk,
-                void* dv, void* dd, int batch, int n_heads, int n_kv_heads, int s_len,
-                int t_len, int causal, int window, float scale, void* stream) {
-#define REPRO_FA_BWD(DQK, DV)                                                                    \
-  if (dqk == DQK && dv_dim == DV)                                                              \
-    return launch<DQK, DV, T>(q, k, v, out, lse, dout, dq, dk, dv, dd, batch, n_heads,         \
-                              n_kv_heads, s_len, t_len, causal, window, scale, stream);
-  REPRO_FA_BWD(64, 64)
-  REPRO_FA_BWD(128, 128)
-  if constexpr (sizeof(T) == 2) {
-    REPRO_FA_BWD(192, 128)
-    REPRO_FA_BWD(160, 160)
-  } else {
-    REPRO_FA_BWD(48, 32)
-  }
-#undef REPRO_FA_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (B, S, H, head_dim), k (B, T, Hkv,
-// head_dim), v (B, T, Hkv, head_dim_v), out and dout (B, S, H, head_dim_v),
-// dq, dk, dv like q, k, v, all of `dtype` and contiguous; lse (B, H, S)
-// float32 from the forward; dd a float32 (B, H, S) scratch. (head_dim,
-// head_dim_v): (64, 64), (128, 128), and (192, 128) or (160, 160) in
-// bfloat16, (48, 32) in float32. Enqueues three grids on `stream`; returns
-// cudaGetLastError() after them (0 = launched).
-int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
-                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                              void* dd, int batch, int n_heads, int n_kv_heads, int s_len,
-                              int t_len, int head_dim, int head_dim_v, int causal, int window,
-                              float scale, int dtype, void* stream) {
-  if (dtype == 0)
-    return launch_dims<float>(head_dim, head_dim_v, q, k, v, out, lse, dout, dq, dk, dv, dd,
-                              batch, n_heads, n_kv_heads, s_len, t_len, causal, window, scale,
-                              stream);
-  if (dtype == 1)
-    return launch_dims<__nv_bfloat16>(head_dim, head_dim_v, q, k, v, out, lse, dout, dq, dk, dv,
-                                      dd, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                                      window, scale, stream);
+// float32 q (B, S, H, head_dim), k (B, T, Hkv, head_dim), v (B, T, Hkv,
+// head_dim_v), out and dout (B, S, H, head_dim_v), dq, dk, dv like q, k, v,
+// contiguous; lse (B, H, S) float32 from the forward; dd a float32 (B, H,
+// S) scratch. (head_dim, head_dim_v): (64, 64), (128, 128) or (48, 32).
+// Enqueues three grids on `stream`; returns cudaGetLastError() after them
+// (0 = launched).
+int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* out,
+                                  const void* lse, const void* dout, void* dq, void* dk,
+                                  void* dv, void* dd, int batch, int n_heads, int n_kv_heads,
+                                  int s_len, int t_len, int head_dim, int head_dim_v,
+                                  int causal, int window, float scale, void* stream) {
+#define REPRO_FA_BWD(DQK, DV)                                                                    \
+  if (head_dim == DQK && head_dim_v == DV)                                                     \
+    return launch<DQK, DV>(q, k, v, out, lse, dout, dq, dk, dv, dd, batch, n_heads,     \
+                                  n_kv_heads, s_len, t_len, causal, window, scale, stream);
+  REPRO_FA_BWD(64, 64)
+  REPRO_FA_BWD(128, 128)
+  REPRO_FA_BWD(48, 32)
+#undef REPRO_FA_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

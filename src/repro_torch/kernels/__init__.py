@@ -29,8 +29,10 @@ differentiates jnp code there):
   ssm_scan_bwd         — the selective scan's gradients from the chunk
                          start states (models/ssm_vjp.py's
                          selective_scan; csrc/ssm_scan_bwd.cu)
-  flash_attention_bwd  — dQ, dK, dV of flash_attention (FlashAttentionFn;
-                         csrc/flash_attention_bwd.cu)
+  flash_attention_bwd  — dQ, dK, dV of flash_attention (FlashAttentionFn);
+                         bf16 on wgmma + TMA:
+                         csrc/flash_attention_bwd_wgmma.cu, float32:
+                         csrc/flash_attention_bwd.cu
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (``build.py`` compiles the sources with nvcc at first

@@ -4,8 +4,9 @@ ctypes.
 Each source under ``repro_torch/csrc/`` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``build/repro_torch/`` at the repository root, named by a
-hash of the source and the flags: editing a source rebuilds it, and a
-checkout builds everything on its first kernel call. ``build()`` starts one
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags:
+editing a source or a header rebuilds it, and a checkout builds everything
+on its first kernel call. ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for all of them.
 
 Flags: ``sm_90a`` (Hopper), C++17, ``-O3``, and no ``--use_fast_math``:
@@ -30,6 +31,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_wgmma": "flash_attention_bwd_wgmma.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,8 +62,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / SOURCES[name]).read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

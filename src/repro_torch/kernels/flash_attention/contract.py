@@ -20,39 +20,68 @@ the contract when
   keeping P in float32 or a mask that drops one key, exceeds that bound on
   a far larger share and fails.
 
-The backward kernel (``csrc/flash_attention_bwd.cu``) computes the
-formulas of ``flash_attention_backward_plain`` in float32 but keeps P in
-float32 where the bf16 forward rounded it, sums over 64-row and 64-key
-tiles and the G query heads in its own order with fused multiply-adds, and
-takes exp on its own; so it does not follow the float32 plain backward bit
-for bit. Both are held instead to ``ref64``, the plain backward run in
-float64 on the same inputs (q, k, v, the forward's output o and lse, dO).
-The reference takes o and lse as the forward kernel wrote them: o carries
-the forward's rounding (its bf16 P in bfloat16), and D = rowsum(dO * o)
-must see the same o. For each of dQ, dK, dV:
+The backward kernels compute the formulas of
+``flash_attention_backward_plain`` in float32 (the bf16 kernel,
+``csrc/flash_attention_bwd_wgmma.cu``, rounds P to bf16 before dV and dS
+before dK and dQ, where wgmma takes them as operands; the float32 kernel
+rounds nothing), sum over their tiles and the G query heads in their own
+order and take exp on their own; so they do not follow the float32 plain
+backward bit for bit. Both are held instead to ``ref64``, the plain
+backward run in float64 on the same inputs (q, k, v, the forward's output o
+and lse, dO) with the same rounding points (P and dS rounded to bf16 from
+float64 for a bf16 result). The reference takes o and lse as the forward
+kernel wrote them: o carries the forward's rounding (its bf16 P in
+bfloat16), and D = rowsum(dO * o) must see the same o. For each of dQ, dK,
+dV, every element must lie within
 
-- every element within ``BWD_FACTOR`` x max|plain32 - ref64| (the float32
-  plain backward's own gap) + ``BWD_REL`` of max|ref64|, plus, for a
-  bfloat16 result, 1 bf16 ulp of ref64 at that element (its rounding).
+- ``BWD_FACTOR`` x ``noise``, the float32 arithmetic's own gap: max|plain32
+  - exact64| of the formulas without rounding points (so it measures the
+  float32 sums and exp, not rounding flips), + ``BWD_REL`` of max|ref64|;
+- for a bfloat16 result, + 1 bf16 ulp of ref64 at that element (its
+  rounding);
+- for bf16 inputs, + the ``slack`` of rounding flips (``bwd_references``):
+  an element of P or dS whose bf16 rounding the kernel's float32 error
+  could flip moves the products it enters by one bf16 ulp of it times the
+  other operand's |value|. P's float32 error is relative: ``BWD_P_EPS``
+  (the scores' float32 sums, ex2.approx and the rounding of lse log2 e,
+  about 2^-19 at D = 128, with a margin). dS = P (dP - D) also carries
+  the absolute float32 error of dP - D, which cancellation does not
+  shrink: ``BWD_DOT_EPS`` x (sum_d |dO_d V_d| + sum_d |dO_d o_d|), a
+  float32 sum's error bound in units of its terms' magnitudes (about 8 u;
+  a 128-term sum's typical error is under u of that, its worst case 127
+  u), plus dS's relative ``BWD_P_EPS``. An element is a candidate when the
+  bf16 roundings of the two ends of its interval differ, and its slack is
+  the ulp at the upper end.
 
-``bwd_controls`` builds two faults from the float32 plain backward that the
-check must reject: D left out of dS (dS = P dP), and P off by a relative
-2^-10 (lse shifted by 2^-10; 2^-6 for a bfloat16 result, whose 1-ulp
-allowance, 2^-8 relative, covers a smaller shift).
+No share of elements may exceed its bound (unlike the forward's
+``MAX_OVER_SHARE``). ``bwd_controls`` builds faults from the plain backward
+that the check must reject: D left out of dS (dS = P dP), P off by a
+relative 2^-10 (lse shifted by 2^-10; 2^-6 for a bfloat16 result, whose
+1-ulp allowance, 2^-8 relative, covers a smaller shift), and, for bf16
+inputs, dS rounded to bf16 before D is subtracted (dS = bf16(P dP) - P D,
+then rounded again as it enters dK and dQ: a plausible kernel bug whose
+errors are of a rounding's size but not at the kernel's rounding point).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import (
     _layout,
+    backward_grads,
+    backward_terms,
+    bf16_round,
     flash_attention_backward_plain,
     softmax_tiles,
+    stack_grads,
 )
 
-__all__ = ["BWD_FACTOR", "BWD_REL", "MAX_OVER_SHARE", "REL", "SLACK_EPS", "bf16_contract",
-           "bwd_check", "bwd_controls", "bwd_references", "p_rounding_slack"]
+__all__ = ["BWD_DOT_EPS", "BWD_FACTOR", "BWD_P_EPS", "BWD_REL", "MAX_OVER_SHARE", "REL",
+           "SLACK_EPS", "BwdReference", "bf16_contract", "bwd_check", "bwd_controls",
+           "bwd_references", "p_rounding_slack"]
 
 REL = 1e-5
 # the relative change of a float32 p the slack allows for: ~16x the score
@@ -62,6 +91,8 @@ SLACK_EPS = 2.0 ** -14
 MAX_OVER_SHARE = 1e-3
 BWD_FACTOR = 8.0
 BWD_REL = 1e-5
+BWD_P_EPS = 2.0 ** -16
+BWD_DOT_EPS = 2.0 ** -21
 
 
 def p_rounding_slack(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
@@ -99,27 +130,74 @@ def bf16_contract(got, want, q, k, v, causal: bool = True, window: int = 0) -> d
                 ok=is_bf16 and excess <= 0 and n_over <= MAX_OVER_SHARE * n)
 
 
-def bwd_references(q, k, v, out, lse, dout, causal: bool = True, window: int = 0):
-    """``(plain32, ref64)``: the (dQ, dK, dV) of
-    ``flash_attention_backward_plain`` in float32 and in float64 on the
-    same inputs."""
+class BwdReference(NamedTuple):
+    """What ``bwd_check`` holds a backward to, each a (dQ, dK, dV) triple:
+    ``ref64``, the float64 plain backward with the kernel's rounding points;
+    ``noise``, max|plain32 - exact64| of the formulas without rounding
+    points (floats); ``slack``, the rounding flips' allowance per element
+    (float64; zeros for float32 inputs)."""
+
+    ref64: tuple
+    noise: tuple
+    slack: tuple
+
+
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (float64; 0 at 0)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs())) - 7)
+
+
+def _flips(x: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at the upper end of [x - width, x + width] where the
+    bf16 roundings of its two ends differ, else 0."""
+    flip = bf16_round(x - width) != bf16_round(x + width)
+    return torch.where(flip, _ulp(x.abs() + width), 0.0)
+
+
+def bwd_references(q, k, v, out, lse, dout, causal: bool = True,
+                   window: int = 0) -> BwdReference:
+    """The ``BwdReference`` of ``flash_attention_bwd`` on these inputs: one
+    float32 plain backward without rounding points, and one float64 pass
+    giving the exact and (for bf16 inputs) the rounded backward and the
+    flips' slack."""
     args = (q, k, v, out, lse, dout, causal, window)
-    return (flash_attention_backward_plain(*args, dtype=torch.float32),
-            flash_attention_backward_plain(*args, acc_dtype=torch.float64, dtype=torch.float64))
+    rounding = q.dtype == torch.bfloat16
+    plain32 = flash_attention_backward_plain(*args, dtype=torch.float32, rounding=False)
+    exact, ref, slack = [], [], []
+    for qi, ki, vi, oi, doi, p, dp, dd in backward_terms(*args, acc_dtype=torch.float64):
+        ds = p * (dp - dd)
+        exact.append(backward_grads(qi, ki, doi, p, ds))
+        if not rounding:
+            continue
+        ref.append(backward_grads(qi, ki, doi, bf16_round(p), bf16_round(ds)))
+        dot_err = BWD_DOT_EPS * (torch.matmul(doi.abs(), vi.abs().transpose(-1, -2))
+                                 + (doi * oi).abs().sum(-1, keepdim=True))
+        p_flip = _flips(p, p * BWD_P_EPS)
+        ds_flip = _flips(ds, ds.abs() * BWD_P_EPS + p * dot_err)
+        slack.append(backward_grads(qi.abs(), ki.abs(), doi.abs(), p_flip, ds_flip))
+    like = (q, k, v)
+    exact = stack_grads(exact, like, torch.float64)
+    ref = stack_grads(ref, like, torch.float64) if rounding else exact
+    slack = (stack_grads(slack, like, torch.float64) if rounding
+             else tuple(torch.zeros_like(x) for x in exact))
+    noise = tuple(float((p32.to(torch.float64) - e).abs().max()) if e.numel() else 0.0
+                  for p32, e in zip(plain32, exact))
+    return BwdReference(ref, noise, slack)
 
 
-def bwd_check(got, plain32, ref64) -> dict:
-    """``got`` (dQ, dK, dV; float32 or bfloat16) against ``ref64`` and
-    ``plain32`` from ``bwd_references``: for each, ``gap`` = max|got -
-    ref64| and ``excess``, the largest excess of an element over what the
-    contract allows, both over max|ref64| (``excess`` <= 0 passes); ``ok``:
-    every excess <= 0 and every result float32 or bfloat16."""
+def bwd_check(got, ref: BwdReference) -> dict:
+    """``got`` (dQ, dK, dV; float32 or bfloat16) against ``ref`` from
+    ``bwd_references``: for each, ``gap`` = max|got - ref64| and
+    ``excess``, the largest excess of an element over what the contract
+    allows, both over max|ref64| (``excess`` <= 0 passes); ``ok``: every
+    excess <= 0 and every result float32 or bfloat16."""
     out, ok = {}, True
     tiny = torch.finfo(torch.float32).tiny
-    for name, g, p32, r in zip(("dq", "dk", "dv"), got, plain32, ref64):
-        g, p32 = g.to(r.device, torch.float64), p32.to(r.device, torch.float64)
+    for name, g, r, noise, slack in zip(("dq", "dk", "dv"), got, ref.ref64, ref.noise,
+                                        ref.slack):
+        g = g.to(r.device, torch.float64)
         scale = max(float(r.abs().max()), 1e-300) if r.numel() else 1e-300
-        allowed = BWD_FACTOR * float((p32 - r).abs().max()) + BWD_REL * scale
+        allowed = BWD_FACTOR * noise + BWD_REL * scale + slack
         if got[0].dtype == torch.bfloat16:
             allowed = allowed + torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(tiny))) - 7)
         diff = (g - r).abs()
@@ -130,13 +208,29 @@ def bwd_check(got, plain32, ref64) -> dict:
     return out
 
 
+def _ds_rounded_before_d(q, k, v, out, lse, dout, causal, window):
+    """The bf16 plain backward with dS = bf16(P dP) - P D (rounded before D
+    is subtracted), then rounded again as it enters dK and dQ; in q's
+    dtype."""
+    per_entry = []
+    for qi, ki, _, _, doi, p, dp, dd in backward_terms(q, k, v, out, lse, dout, causal, window):
+        ds = bf16_round(p * dp) - p * dd
+        per_entry.append(backward_grads(qi, ki, doi, bf16_round(p), bf16_round(ds)))
+    return stack_grads(per_entry, (q, k, v), q.dtype)
+
+
 def bwd_controls(q, k, v, out, lse, dout, causal: bool = True, window: int = 0) -> dict:
-    """Two faulty backwards, (dQ, dK, dV) in q's dtype each, that
-    ``bwd_check`` must reject: D left out of dS, and P off by a relative
-    2^-10 (2^-6 in bfloat16)."""
+    """Faulty backwards, (dQ, dK, dV) in q's dtype each, that ``bwd_check``
+    must reject: D left out of dS, P off by a relative 2^-10 (2^-6 in
+    bfloat16), and for bf16 inputs dS rounded to bf16 before D is
+    subtracted."""
     shift = -10 if q.dtype == torch.float32 else -6
 
     def plain(o, l):
         return flash_attention_backward_plain(q, k, v, o, l, dout, causal, window)
-    return {"D left out": plain(torch.zeros_like(out), lse),
-            f"P off by 2^{shift}": plain(out, lse - 2.0 ** shift)}
+    controls = {"D left out": plain(torch.zeros_like(out), lse),
+                f"P off by 2^{shift}": plain(out, lse - 2.0 ** shift)}
+    if q.dtype == torch.bfloat16:
+        controls["dS rounded before D"] = _ds_rounded_before_d(q, k, v, out, lse, dout, causal,
+                                                               window)
+    return controls

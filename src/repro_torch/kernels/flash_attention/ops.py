@@ -48,12 +48,18 @@ kernel has no backward):
   the scaled scores (B, H, S); its backward is ``flash_attention_bwd``;
 - ``flash_attention_bwd``: dQ, dK, dV from (q, k, v, o, lse, dO) — CPU
   tensors run ``flash_attention_backward_plain``, CUDA tensors launch the
-  CUDA-core kernel ``repro_torch/csrc/flash_attention_bwd.cu`` (float32
-  arithmetic; every (Dqk, Dv) of ``HEAD_DIMS`` in both dtypes), whose
-  header states its bound and design; ``flash_attention_bwd.launches``
-  counts its calls (one call enqueues its three grids);
-- ``flash_attention_backward_plain``: the same formulas in float32, or in
-  float64 for the contract.
+  kernel of their dtype, each for every (Dqk, Dv) of ``HEAD_DIMS``:
+  bfloat16 ``repro_torch/csrc/flash_attention_bwd_wgmma.cu`` (every
+  product on wgmma, q/dO and K/V tiles by TMA; P and dS rounded to bf16
+  as they enter their products), float32
+  ``repro_torch/csrc/flash_attention_bwd.cu`` (the CUDA cores); their
+  headers state their bounds and designs; neither uses atomics, so two
+  calls give equal bits. ``flash_attention_bwd.launches`` counts its calls
+  (one call enqueues three grids);
+- ``flash_attention_backward_plain``: the same formulas in float32 (with
+  the bf16 kernel's rounding points for bf16 inputs), or in float64 for the
+  contract; ``backward_terms``, ``backward_grads`` and ``stack_grads`` are
+  its parts, which the contract reuses.
 
 ``contract.py`` states how closely a bf16 result must match the plain
 version, and how closely the backward must match the float64 plain
@@ -69,8 +75,9 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_backward_plain",
-           "flash_attention_bwd", "flash_attention_plain"]
+__all__ = ["FlashAttentionFn", "backward_grads", "backward_terms", "bf16_round",
+           "flash_attention", "flash_attention_backward_plain", "flash_attention_bwd",
+           "flash_attention_plain", "stack_grads"]
 
 # the (Dqk, Dv) pairs each kernel is instantiated for: the zoo's head dims in
 # bf16, and the reduced parity configs' in float32 (MLA's reduced (48, 32))
@@ -79,6 +86,7 @@ HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (192, 128), (160, 160)),
 BLOCK_K = 128     # keys per tile of the bf16 (wgmma) kernel
 BLOCK_K_160 = 64  # ... at (160, 160), where 128-key tiles do not fit
 BLOCK_K_F32 = 64  # keys per tile of the float32 kernel
+BWD_PAD_ROWS = 128  # the bf16 backward's staged lse and D rows: S rounded up to this
 _NEG = -1e30
 
 
@@ -147,21 +155,22 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
     return out, (m + torch.log(den)).reshape(q.shape[0], q.shape[2], q.shape[1])
 
 
-def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
-                                   window: int = 0, acc_dtype=torch.float32, dtype=None):
-    """dQ, dK, dV of attention (the forward's arguments) from its output
-    ``out`` (B, S, H, Dv), row logsumexp ``lse`` (B, H, S) and the output's
-    cotangent ``dout``, in ``acc_dtype`` (float32, or float64 for the
-    contract), returned in ``dtype`` (default q's): D = rowsum(dO * o); P =
-    exp(scale q.k - lse) on the visible keys; dV = P^T dO; dS = P (dO V^T -
-    D); dQ = scale dS K; dK = scale dS^T Q, dK and dV summed over each kv
-    head's G query heads. Batch entry by batch entry (a (Hkv, G, S, T) score
-    matrix at a time)."""
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 and back to its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def backward_terms(q, k, v, out, lse, dout, causal: bool = True, window: int = 0,
+                   acc_dtype=torch.float32):
+    """What the backward is formed from, batch entry by batch entry (a
+    (Hkv, G, S, T) score matrix at a time), in ``acc_dtype``: (qi, ki, vi,
+    oi, doi, p, dp, dd) with q, o, dO as (Hkv, G, S, D), k and v as (Hkv, 1,
+    T, D), P = exp(scale q.k - lse) on the visible keys (0 elsewhere) and dP
+    = dO V^T as (Hkv, G, S, T), and D = rowsum(dO * o) as (Hkv, G, S, 1)."""
     b, s, h, dqk = q.shape
     t, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
     scale = 1.0 / math.sqrt(dqk)
-    dtype = dtype or q.dtype
     rows = torch.arange(s, device=q.device)[:, None]
     keys = torch.arange(t, device=q.device)[None, :]
     vis = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -169,7 +178,6 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
         vis = vis & (keys <= rows)
     if window:
         vis = vis & (keys > rows - window)
-    grads = ([], [], [])
     for i in range(b):
         def heads(x, d):  # (b, s, h, d) -> (hkv, g, s, d)
             return x[i].to(acc_dtype).reshape(s, hkv, g, d).permute(1, 2, 0, 3)
@@ -182,12 +190,52 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
         li = lse[i].to(acc_dtype).reshape(hkv, g, s)[..., None]
         sc = torch.matmul(qi, ki.transpose(-1, -2)) * scale
         p = torch.exp(torch.where(vis, sc - li, -torch.inf))
-        ds = p * (torch.matmul(doi, vi.transpose(-1, -2)) - (doi * oi).sum(-1, keepdim=True))
-        grads[0].append((torch.matmul(ds, ki) * scale).permute(2, 0, 1, 3).reshape(s, h, dqk))
-        grads[1].append((torch.matmul(ds.transpose(-1, -2), qi).sum(1) * scale).transpose(0, 1))
-        grads[2].append(torch.matmul(p.transpose(-1, -2), doi).sum(1).transpose(0, 1))
-    return tuple(torch.stack(gr).to(dtype) if gr else torch.zeros_like(x, dtype=dtype)
-                 for gr, x in zip(grads, (q, k, v)))
+        yield (qi, ki, vi, oi, doi, p, torch.matmul(doi, vi.transpose(-1, -2)),
+               (doi * oi).sum(-1, keepdim=True))
+
+
+def backward_grads(qi, ki, doi, p, ds):
+    """dQ (S, H, Dqk), dK (T, Hkv, Dqk) and dV (T, Hkv, Dv) of one batch
+    entry of ``backward_terms`` from P and dS as they enter the products:
+    dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, dK and dV summed
+    over each kv head's G query heads."""
+    hkv, g, s, dqk = qi.shape
+    scale = 1.0 / math.sqrt(dqk)
+    return ((torch.matmul(ds, ki) * scale).permute(2, 0, 1, 3).reshape(s, hkv * g, dqk),
+            (torch.matmul(ds.transpose(-1, -2), qi).sum(1) * scale).transpose(0, 1),
+            torch.matmul(p.transpose(-1, -2), doi).sum(1).transpose(0, 1))
+
+
+def stack_grads(per_entry, like, dtype):
+    """The batch entries' (dQ, dK, dV) stacked to the shapes of ``like`` =
+    (q, k, v) in ``dtype`` (zeros at B = 0)."""
+    if not per_entry:
+        return tuple(torch.zeros_like(x, dtype=dtype) for x in like)
+    return tuple(torch.stack(gr).to(dtype) for gr in zip(*per_entry))
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
+                                   window: int = 0, acc_dtype=torch.float32, dtype=None,
+                                   rounding: bool | None = None):
+    """dQ, dK, dV of attention (the forward's arguments) from its output
+    ``out`` (B, S, H, Dv), row logsumexp ``lse`` (B, H, S) and the output's
+    cotangent ``dout``, in ``acc_dtype`` (float32, or float64 for the
+    contract), returned in ``dtype`` (default q's): D = rowsum(dO * o); P =
+    exp(scale q.k - lse) on the visible keys; dV = P^T dO; dS = P (dO V^T -
+    D); dQ = scale dS K; dK = scale dS^T Q, dK and dV summed over each kv
+    head's G query heads. With ``rounding`` (default: q is bfloat16), P is
+    rounded to bfloat16 before dV and dS before dK and dQ, where the bf16
+    kernel's wgmma takes them as bf16 operands (dS is formed from the
+    unrounded P); float32 inputs keep every term unrounded."""
+    rounding = q.dtype == torch.bfloat16 if rounding is None else rounding
+    per_entry = []
+    for qi, ki, _, _, doi, p, dp, dd in backward_terms(q, k, v, out, lse, dout, causal, window,
+                                                       acc_dtype):
+        ds = p * (dp - dd)
+        if rounding:
+            p, ds = bf16_round(p), bf16_round(ds)
+        per_entry.append(backward_grads(qi, ki, doi, p, ds))
+    return stack_grads(per_entry, (q, k, v), dtype or q.dtype)
 
 
 def _entry(dtype):
@@ -268,11 +316,15 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 flash_attention.launches = 0
 
 
-def _bwd_entry():
-    fn = build.load("flash_attention_bwd").repro_flash_attention_bwd
+def _bwd_entry(dtype):
+    """The C entry of the backward library for ``dtype``, typed once."""
+    name, entry = (("flash_attention_bwd_wgmma", "repro_flash_attention_bwd_bf16")
+                   if dtype == torch.bfloat16
+                   else ("flash_attention_bwd", "repro_flash_attention_bwd_f32"))
+    fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -281,8 +333,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
     """(dQ, dK, dV) of ``flash_attention(q, k, v, causal, window)`` from its
     output ``out``, its row logsumexp ``lse`` (B, H, S) float32 and the
     output's cotangent ``dout``, each in its input's dtype. CPU tensors run
-    ``flash_attention_backward_plain``; CUDA tensors launch the kernel
-    (``csrc/flash_attention_bwd.cu``), held to ``contract.bwd_contract``."""
+    ``flash_attention_backward_plain``; CUDA tensors launch the kernel of
+    their dtype (bfloat16: ``csrc/flash_attention_bwd_wgmma.cu``, on the
+    tensor cores; float32: ``csrc/flash_attention_bwd.cu``), held to
+    ``contract.bwd_check``, or raise."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window)
     _check("flash_attention_bwd", q, k, v)
@@ -293,15 +347,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
             or out.dtype != q.dtype or any(x.device != q.device for x in (out, lse, dout))):
         raise ValueError(f"flash_attention_bwd: out and dout must be {q.dtype} (B, S, H, Dv) "
                          f"and lse float32 (B, H, S) on {q.device}")
-    args = [x.contiguous() for x in (q, k, v, out, lse, dout.to(q.dtype))]
+    args = [_aligned(x) for x in (q, k, v, out, lse, dout.to(q.dtype))]
     grads = [torch.empty_like(x) for x in args[:3]]
-    dd = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _bwd_entry()(
-        *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), dd.data_ptr(), b, h, hkv,
-        s, t, dq, dv, int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:  # D and lse log2 e, rows padded to BWD_PAD_ROWS
+        scratch = (2, b, h, -(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS)
+    else:  # D
+        scratch = (b, h, s)
+    aux = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    err = _bwd_entry(q.dtype)(
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), aux.data_ptr(), b, h,
+        hkv, s, t, dq, dv, int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd {q.dtype} kernel launch failed: cudaError {err}")
+        what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
+        raise RuntimeError(f"flash_attention_bwd {q.dtype} kernel launch failed: {what}")
     flash_attention_bwd.launches += 1
     return tuple(grads)
 

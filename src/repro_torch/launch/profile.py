@@ -103,7 +103,9 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
 def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0) -> dict:
     """``device_breakdown`` of one train step (the forward with its
     checkpointed blocks, the backward with their recompute, the optimizer)
-    after a warm-up step, with its host wall ms, on the card."""
+    after a warm-up step, with its host wall ms, on the card; its top 24
+    kernels, so that the backward kernels' grids show beside the GEMMs and
+    the optimizer's elementwise passes."""
     from repro_torch.launch.train import make_optimizer
     from repro_torch.models.api import param_tree
 
@@ -123,7 +125,7 @@ def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0) -
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return {"train step": {"wall_ms": 1e3 * wall, "loss": float(loss),
-                           **device_breakdown(prof, top=12)}}
+                           **device_breakdown(prof, top=24)}}
 
 
 def profile_fl_round(chunk: int = 5, seed: int = 0) -> dict:

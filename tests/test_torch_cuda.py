@@ -1094,7 +1094,8 @@ def _attention_inputs(cuda, case, dtype):
 _BWD_CASES = [
     # (b, s, t, h, hkv, dq, dv, causal, window, dtype): every (Dqk, Dv) of
     # HEAD_DIMS in each dtype, causal with and without a window, non-causal
-    # at T != S (whisper's cross-attention) and T = S, G = 1, 4 and 6
+    # at T != S (whisper's cross-attention) and T = S, G = 1, 4, 6 and 16;
+    # bf16 runs the wgmma kernel, float32 the CUDA-core one
     (2, 130, 130, 4, 1, 64, 64, True, 0, torch.float32),
     (1, 200, 200, 8, 2, 128, 128, True, 48, torch.float32),
     (1, 70, 150, 4, 4, 48, 32, True, 0, torch.float32),
@@ -1107,15 +1108,20 @@ _BWD_CASES = [
     (2, 100, 700, 6, 6, 64, 64, False, 0, torch.bfloat16),
     (1, 1, 300, 6, 6, 64, 64, False, 0, torch.bfloat16),
     (1, 129, 129, 4, 2, 160, 160, False, 0, torch.bfloat16),
+    (1, 200, 200, 16, 1, 128, 128, True, 0, torch.bfloat16),     # G = 16 (chatglm3)
+    (1, 256, 1500, 6, 6, 64, 64, False, 0, torch.bfloat16),      # a 92-key last key block
+    (1, 400, 400, 4, 4, 192, 128, True, 96, torch.bfloat16),     # a window at MLA's dims
+    (1, 333, 333, 8, 2, 160, 160, True, 0, torch.bfloat16),      # S not a multiple of the q tile
 ]
 
 
 @pytest.mark.parametrize("case", _BWD_CASES, ids=str)
 def test_flash_attention_bwd_vs_plain(cuda, case):
     """The forward kernel's lse against the plain version's; dQ, dK, dV of
-    the backward kernel to ``contract.bwd_check`` (against the backward in
-    float64 on the same o and lse), the two controls rejected, one launch,
-    and two calls bitwise equal (no atomics)."""
+    the backward kernel of the dtype to ``contract.bwd_check`` (against the
+    backward in float64 on the same o and lse, with the bf16 kernel's
+    rounding points in bf16), every control rejected (three in bf16, two in
+    float32), one launch, and two calls bitwise equal (no atomics)."""
     from repro_torch.kernels.flash_attention import contract as fa_contract
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ops import _attention
@@ -1133,11 +1139,13 @@ def test_flash_attention_bwd_vs_plain(cuda, case):
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
     again = flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    plain32, ref64 = fa_contract.bwd_references(q, k, v, out, lse, dout, causal, window)
-    result = fa_contract.bwd_check(got, plain32, ref64)
+    ref = fa_contract.bwd_references(q, k, v, out, lse, dout, causal, window)
+    result = fa_contract.bwd_check(got, ref)
     assert result["ok"], result
-    for name, bad in fa_contract.bwd_controls(q, k, v, out, lse, dout, causal, window).items():
-        assert not fa_contract.bwd_check(bad, plain32, ref64)["ok"], name
+    controls = fa_contract.bwd_controls(q, k, v, out, lse, dout, causal, window)
+    assert len(controls) == (3 if dtype == torch.bfloat16 else 2)
+    for name, bad in controls.items():
+        assert not fa_contract.bwd_check(bad, ref)["ok"], name
 
 
 def test_flash_attention_autograd_launches_forward_and_backward(cuda):

@@ -29,5 +29,7 @@ def test_three_train_steps_match_jax(arch):
 
 def test_granite_bf16_loss_and_grads_match_jax():
     """The config's own dtype: every gradient leaf within 2^-5 of its max
-    (measured 0.019, granite's ``norm1``)."""
+    (measured 0.0194, granite's ``norm1``, both before and after the bf16
+    backward rounded P and dS to bf16 at the wgmma kernel's points; the
+    next leaves moved by up to 1.6e-3)."""
     check_loss_and_grads("granite-3-8b", "bfloat16")

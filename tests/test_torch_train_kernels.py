@@ -17,8 +17,12 @@ JAX package's, on the same numpy inputs.
   within 1e-5 of their max; the chunk start states equal JAX's ``_fwd``
   residuals within 1e-5 of max. With bf16 streams the gradients come back
   in bf16, as JAX's ``astype`` VJPs round them.
-- the two backward contracts (``contract.bwd_check``) accept the float32
-  plain backward and reject their controls, in float32 and bf16.
+- the two backward contracts (``contract.bwd_check``) accept the plain
+  backward and reject their controls, in float32 and bf16 (flash_attention
+  at G = 2 and 16, with the bf16-only control of dS rounded before D is
+  subtracted); the bf16 plain backward rounds P and dS where the wgmma
+  kernel does, against those formulas written out in float64; the float32
+  plain backward is bitwise what it was before the rounding points.
 """
 
 import numpy as np
@@ -133,17 +137,116 @@ def test_flash_attention_fn_gives_the_plain_backward(dtype):
     assert all(g.dtype == dtype and torch.equal(g, w) for g, w in zip(grads, want))
 
 
+@pytest.mark.parametrize("case", [(2, 96, 96, 4, 2, 64, 64), (1, 96, 96, 16, 1, 64, 64)],
+                         ids=["G2", "G16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24), (False, 0)])
-def test_attention_bwd_contract_accepts_plain32_and_rejects_controls(dtype, causal, window):
-    q, k, v, dout = (torch.from_numpy(a).to(dtype)
-                     for a in _attention_case((2, 96, 96, 4, 2, 64, 64)))
+def test_attention_bwd_contract_accepts_plain32_and_rejects_controls(dtype, causal, window, case):
+    """The plain backward in q's dtype (bf16: P and dS rounded where the
+    wgmma kernel rounds them) meets ``bwd_check``; every control fails it:
+    D left out, P off by 2^-10 (2^-6 in bf16) and, in bf16, dS rounded
+    before D is subtracted."""
+    q, k, v, dout = (torch.from_numpy(a).to(dtype) for a in _attention_case(case))
     out, lse = flash_attention_plain(q, k, v, causal, window, return_lse=True)
-    plain32, ref64 = fa_contract.bwd_references(q, k, v, out, lse, dout, causal, window)
+    ref = fa_contract.bwd_references(q, k, v, out, lse, dout, causal, window)
     got = flash_attention_bwd(q, k, v, out, lse, dout, causal, window)  # plain, in q's dtype
-    assert fa_contract.bwd_check(got, plain32, ref64)["ok"]
-    for name, bad in fa_contract.bwd_controls(q, k, v, out, lse, dout, causal, window).items():
-        assert not fa_contract.bwd_check(bad, plain32, ref64)["ok"], name
+    assert fa_contract.bwd_check(got, ref)["ok"]
+    controls = fa_contract.bwd_controls(q, k, v, out, lse, dout, causal, window)
+    assert len(controls) == (3 if dtype == torch.bfloat16 else 2)
+    for name, bad in controls.items():
+        assert not fa_contract.bwd_check(bad, ref)["ok"], name
+
+
+def _rounded_backward64(q, k, v, out, lse, dout, causal, window):
+    """The bf16 kernel's formulas written out in float64 over einsums: P
+    rounded to bf16 before dV, dS (from the unrounded P) before dK and dQ."""
+    f = lambda x: torch.from_numpy(np.asarray(x.float().numpy(), np.float64))  # noqa: E731
+    q, k, v, out, dout, lse = f(q), f(k), f(v), f(out), f(dout), f(lse)
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    s, t = q.shape[1], k.shape[1]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    rows, keys = torch.arange(s)[:, None], torch.arange(t)[None]
+    vis = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        vis &= keys <= rows
+    if window:
+        vis &= keys > rows - window
+    sc = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    p = torch.where(vis, torch.exp(sc - lse[..., None]), 0.0)
+    dp = torch.einsum("bshd,bthd->bhst", dout, v)
+    dd = torch.einsum("bshd,bshd->bhs", dout, out)
+    ds = p * (dp - dd[..., None])
+    rnd = lambda x: x.float().to(torch.bfloat16).double()  # noqa: E731
+    dq = torch.einsum("bhst,bthd->bshd", rnd(ds), k) * scale
+    dk = torch.einsum("bhst,bshd->bthd", rnd(ds), q) * scale
+    dv = torch.einsum("bhst,bshd->bthd", rnd(p), dout)
+    b, hkv = q.shape[0], k.shape[2] // g
+    fold = lambda x: x.reshape(b, t, hkv, g, x.shape[-1]).sum(3)  # noqa: E731
+    return dq, fold(dk), fold(dv)
+
+
+def test_bf16_plain_backward_rounds_p_and_ds():
+    """For bf16 inputs the plain backward rounds P to bf16 before dV and dS
+    before dK and dQ, and nothing else: in float64 it equals those formulas
+    written out by hand (within float64 summation order), and it differs
+    from the unrounded backward by more than that."""
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _attention_case((2, 50, 50, 4, 2, 64, 64)))
+    out, lse = flash_attention_plain(q, k, v, True, 20, return_lse=True)
+    got = flash_attention_backward_plain(q, k, v, out, lse, dout, True, 20,
+                                         acc_dtype=torch.float64, dtype=torch.float64)
+    want = _rounded_backward64(q, k, v, out, lse, dout, True, 20)
+    unrounded = flash_attention_backward_plain(q, k, v, out, lse, dout, True, 20,
+                                               acc_dtype=torch.float64, dtype=torch.float64,
+                                               rounding=False)
+    for name, g, w, u in zip(("dq", "dk", "dv"), got, want, unrounded):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-12 * scale, name
+        assert float((u - w).abs().max()) > 1e-5 * scale, name
+
+
+def _plain_backward_before_rounding_points(q, k, v, out, lse, dout, causal, window):
+    """``flash_attention_backward_plain`` in float32 as it stood before the
+    bf16 rounding points were added: the float32 path must keep its bits."""
+    b, s, h, dqk = q.shape
+    t, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    scale = 1.0 / np.sqrt(dqk)
+    rows, keys = torch.arange(s)[:, None], torch.arange(t)[None, :]
+    vis = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        vis = vis & (keys <= rows)
+    if window:
+        vis = vis & (keys > rows - window)
+    grads = ([], [], [])
+    for i in range(b):
+        def heads(x, d):
+            return x[i].to(torch.float32).reshape(s, hkv, g, d).permute(1, 2, 0, 3)
+
+        def kv(x):
+            return x[i].to(torch.float32).permute(1, 0, 2)[:, None]
+
+        qi, oi, doi = heads(q, dqk), heads(out, dv_dim), heads(dout, dv_dim)
+        ki, vi = kv(k), kv(v)
+        li = lse[i].to(torch.float32).reshape(hkv, g, s)[..., None]
+        sc = torch.matmul(qi, ki.transpose(-1, -2)) * scale
+        p = torch.exp(torch.where(vis, sc - li, -torch.inf))
+        ds = p * (torch.matmul(doi, vi.transpose(-1, -2)) - (doi * oi).sum(-1, keepdim=True))
+        grads[0].append((torch.matmul(ds, ki) * scale).permute(2, 0, 1, 3).reshape(s, h, dqk))
+        grads[1].append((torch.matmul(ds.transpose(-1, -2), qi).sum(1) * scale).transpose(0, 1))
+        grads[2].append(torch.matmul(p.transpose(-1, -2), doi).sum(1).transpose(0, 1))
+    return tuple(torch.stack(gr) for gr in grads)
+
+
+@pytest.mark.parametrize("case", _ATTN_CASES[:3] + _ATTN_CASES[6:7], ids=str)
+def test_float32_plain_backward_is_unchanged(case):
+    causal, window = case[7:]
+    q, k, v, dout = (torch.from_numpy(a) for a in _attention_case(case[:7]))
+    out, lse = flash_attention_plain(q, k, v, causal, window, return_lse=True)
+    got = flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window)
+    want = _plain_backward_before_rounding_points(q, k, v, out, lse, dout, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _scan_case(b, s, di, ds, seed=0):
