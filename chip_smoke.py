@@ -154,6 +154,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch.collectives import collective_bytes  # noqa: E402
 from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.ssm_bwd_ab import shapes as ssm_bwd_shapes  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
 from repro_torch.models.api import get_model, make_batch_specs, make_concrete_batch  # noqa: E402
@@ -2514,6 +2515,7 @@ def phase_train_kernels(dev: torch.device) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ops import _attention
     from repro_torch.kernels.ssm_scan import ssm_scan_backward_plain, ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd_occupancy
 
     gen = torch.Generator(device=dev).manual_seed(23)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
@@ -2582,13 +2584,14 @@ def phase_train_kernels(dev: torch.device) -> dict:
           f"backend: {json.dumps(report)} {json.dumps(fa_row)}")
 
     # ssm_scan_bwd at falcon-mamba-7b's layer, bf16 streams, the forward
-    # kernel's chunk states; whole chunks and a ragged last one
-    fm = get_config("falcon-mamba-7b")
-    di, dst = fm.d_inner, fm.d_state
+    # kernel's chunk states; whole chunks and a ragged last one (the shapes
+    # of launch/ssm_bwd_ab.py, which A/Bs variants of the kernel)
+    sh = ssm_bwd_shapes()  # (B, S) of SERVE_RUN, which tests/test_torch_import.py checks
+    _, _, di, dst = sh["falcon"]
     a = -torch.exp(randn(di, dst))
     d = randn(di)
     ssm_row, report = {}, {}
-    for seq in (s, s - 49):
+    for seq in (s, sh["falcon_ragged"][1]):
         streams = [t.to(torch.bfloat16) for t in (
             torch.nn.functional.softplus(randn(b, seq, di) * 0.5 - 4.6), randn(b, seq, dst),
             randn(b, seq, dst), randn(b, seq, di))]
@@ -2613,7 +2616,9 @@ def phase_train_kernels(dev: torch.device) -> dict:
                        + hs.numel() * 4 + di * dst * 4 + di * 4
                        + 2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + di * dst * 4 + di * 4)
             limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
-                      "fp32 instructions": 10 * updates / FP32_INSTR_PER_S}
+                      # the reverse step's 7 FP32-pipe instructions an update and the
+                      # recompute's 4 that give it h_{t-1} (csrc/ssm_scan_bwd.cu's note)
+                      "fp32 instructions": 11 * updates / FP32_INSTR_PER_S}
             op = max(limits, key=limits.get)
             ssm_row = dict(
                 shape=[b, seq, di, dst], bound_terms_ms={k: 1e3 * t for k, t in limits.items()},
@@ -2622,7 +2627,10 @@ def phase_train_kernels(dev: torch.device) -> dict:
                 plain_ms=cuda_ms(lambda: ssm_scan_backward_plain(*args, hs, gy), reps=1,
                                  warmup=1),
                 bound_ms=1e3 * limits[op], bound_by="bytes" if op == "bytes" else "operations",
-                bound_op=op, library_ms=None)
+                bound_op=op, library_ms=None,
+                occupancy={f"{'bf16' if t is torch.bfloat16 else 'f32'} ds{n}":
+                           ssm_scan_bwd_occupancy(n, t)
+                           for t in (torch.float32, torch.bfloat16) for n in (8, 16)})
         del plain32, ref64, got, again, streams, args, hs, gy
         gc.collect()
         torch.cuda.empty_cache()
@@ -2630,7 +2638,8 @@ def phase_train_kernels(dev: torch.device) -> dict:
           f"float64 on the forward kernel's chunk states (contract, "
           f"kernels/ssm_scan/contract.py: every element within {ssm_contract.BWD_FACTOR:g} x the "
           f"float32 plain backward's gap + {ssm_contract.BWD_REL:g} of max, + 1 bf16 ulp for a "
-          f"bf16 gradient; the controls must fail it), two calls bitwise; ms of eager calls: "
+          f"bf16 gradient; the controls must fail it), two calls bitwise; ms of eager calls; "
+          f"the main grid's registers, spills, shared memory and resident blocks an SM: "
           f"{json.dumps(report)} {json.dumps(ssm_row)}")
     return {
         "flash_attention_bwd": dict(

@@ -32,7 +32,8 @@ the autograd Function over these):
 - ``ssm_scan_bwd``: the wrapper (CPU -> plain; CUDA -> the kernel in
   ``repro_torch/csrc/ssm_scan_bwd.cu``, held to ``contract.bwd_check``);
   ``ssm_scan_bwd.launches`` counts its calls (one call enqueues its two
-  grids).
+  grids); ``ssm_scan_bwd_occupancy`` reads its main grid's registers,
+  spills, shared memory and resident blocks an SM from the card.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["CHUNK", "ssm_scan", "ssm_scan_backward_plain", "ssm_scan_bwd", "ssm_scan_plain"]
+__all__ = ["CHUNK", "ssm_scan", "ssm_scan_backward_plain", "ssm_scan_bwd",
+           "ssm_scan_bwd_occupancy", "ssm_scan_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _STATE_SIZES = (8, 16)
@@ -190,8 +192,24 @@ def _bwd_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_ssm_scan_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
         lib.repro_ssm_scan_bwd.restype = ctypes.c_int
+        lib.repro_ssm_scan_bwd_block_channels.argtypes = []
+        lib.repro_ssm_scan_bwd_block_channels.restype = ctypes.c_int
+        lib.repro_ssm_scan_bwd_occupancy.argtypes = [i, i, p]
+        lib.repro_ssm_scan_bwd_occupancy.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
+
+
+def ssm_scan_bwd_occupancy(d_state: int, dtype: torch.dtype) -> dict:
+    """The backward kernel's main grid for streams of ``dtype`` (float32 or
+    bfloat16) and ``d_state`` (8 or 16), as the card reports it:
+    ``registers`` and ``spill_bytes`` a thread, ``smem_bytes`` a block,
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 4)()
+    err = _bwd_lib().repro_ssm_scan_bwd_occupancy(d_state, _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd occupancy query failed: cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
 
 
 def ssm_scan_bwd(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):
@@ -218,12 +236,13 @@ def ssm_scan_bwd(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):
     gy = gy.to(torch.float32).contiguous()
     gh = None if gh is None else gh.to(torch.float32).contiguous()
     grads = [torch.empty_like(t) for t in args[:6]]  # d_dt, d_a, d_b, d_c, d_x, d_d
-    n_blocks = -(-di // 64)
+    lib = _bwd_lib()
+    n_blocks = -(-di // lib.repro_ssm_scan_bwd_block_channels())
     scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
                for shape in ((n_blocks, bsz, s, ds), (n_blocks, bsz, s, ds), (bsz, di, ds),
                              (bsz, di))]
     d_dt, d_a, d_b, d_c, d_x, d_d = grads
-    err = _bwd_lib().repro_ssm_scan_bwd(
+    err = lib.repro_ssm_scan_bwd(
         *(t.data_ptr() for t in args), gy.data_ptr(), None if gh is None else gh.data_ptr(),
         *(t.data_ptr() for t in (d_dt, d_x, d_b, d_c, d_a, d_d)),
         *(t.data_ptr() for t in scratch), bsz, s, di, ds, _DTYPES[x.dtype],

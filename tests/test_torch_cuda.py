@@ -1186,20 +1186,37 @@ def test_flash_attention_bwd_refuses_what_it_has_no_kernel_for(cuda):
         flash_attention_bwd(q, q, q, q, lse[..., :4], q)
 
 
+def _misaligned(t):
+    """``t``'s values in a contiguous view whose data pointer is one element
+    past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", [(2, 256, 128, 16), (1, 300, 200, 8), (2, 100, 64, 16),
-                                   (1, 129, 70, 8), (2, 520, 96, 16)], ids=str)
+                                   (1, 129, 70, 8), (2, 520, 96, 16),
+                                   # S at the 8-step stages' and the chunks' edges
+                                   (1, 1, 64, 16), (2, 7, 64, 8), (1, 8, 64, 16),
+                                   (1, 9, 64, 16), (2, 121, 64, 16), (2, 129, 100, 16),
+                                   # di off the 16-byte vector (bf16), odd di, no gh,
+                                   # misaligned pointers (the scalar copies)
+                                   (1, 136, 36, 16), (1, 140, 33, 16, "no gh"),
+                                   (2, 200, 64, 16, "misaligned"),
+                                   (1, 130, 72, 8, "misaligned", "no gh")], ids=str)
 def test_ssm_scan_bwd_vs_plain(cuda, shape, stream):
     """The forward kernel's chunk start states against the plain version's
     (the forward's float32 contract), then the backward kernel's six
     gradients to ``contract.bwd_check`` (against ``ssm_scan_backward_plain``
-    in float64 on the kernel's chunk states), with a final-state cotangent,
-    whole and ragged chunks, S under 128, di off the block's 64 channels,
-    d_state 8 and 16; both controls rejected; one launch; two calls
-    bitwise equal (no atomics)."""
+    in float64 on the kernel's chunk states), with a final-state cotangent
+    (or none), whole and ragged chunks, S under 128 and at the 8-step
+    stages' edges, di off the block's 64 channels and off the 16-byte
+    vector, d_state 8 and 16, inputs at misaligned pointers; both controls
+    rejected; one launch; two calls bitwise equal (no atomics)."""
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_plain
 
-    b, s, di, ds = shape
+    b, s, di, ds, *opts = shape
     gen = torch.Generator(device=cuda).manual_seed(s + di)
     randn = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa: E731
     dt = torch.nn.functional.softplus(randn(b, s, di) - 2)
@@ -1213,7 +1230,10 @@ def test_ssm_scan_bwd_vs_plain(cuda, shape, stream):
     assert hs.shape == (-(-s // 128), b, di, ds) and not hs[0].any()
     gap, allowed = ssm_contract._f32_rule(hs, hs32, hs64)
     assert gap <= allowed, (gap, allowed)
-    gy, gh = randn(b, s, di), randn(b, di, ds)
+    gy, gh = randn(b, s, di), (None if "no gh" in opts else randn(b, di, ds))
+    if "misaligned" in opts:
+        args = tuple(_misaligned(t) if t.dtype == stream else t for t in args)
+        gy = _misaligned(gy)
     kernels.reset_launch_counts()
     got = ssm_scan_bwd(*args, hs, gy, gh)
     assert kernels.launch_counts()["ssm_scan_bwd"] == 1

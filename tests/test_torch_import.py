@@ -411,3 +411,31 @@ def test_serve_record_writes_a_record(tmp_path):
     assert sorted(r["rid"] for r in rows) == [0, 1, 2]
     assert [r["steps"] for r in sorted(rows, key=lambda r: r["rid"])] == stats["lens"]
     assert validate_trace_file(str(rec / "trace.json")) == []
+
+
+def test_ssm_bwd_ab_runs_chip_smokes_shapes_and_needs_a_card(monkeypatch):
+    """``launch/ssm_bwd_ab.py``, the A/B tool of the scan's backward kernel,
+    imports on the CPU and refuses to time without a card; its falcon
+    shapes are the ones ``chip_smoke.py``'s ``[train_kernels]`` holds to the
+    contract (chip_smoke takes them from the tool): B and S of the serving
+    run, falcon-mamba-7b's d_inner and d_state, a ragged S, and the reduced
+    configs' d_state 8."""
+    import importlib.util
+
+    from repro_torch.launch import ssm_bwd_ab
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)  # its dataclasses look it up
+    spec.loader.exec_module(cs)
+    fm = get_config("falcon-mamba-7b")
+    b, s = cs.SERVE_RUN["batch"], cs.SERVE_RUN["prompt_len"]
+    shapes = ssm_bwd_ab.shapes()
+    assert cs.ssm_bwd_shapes is ssm_bwd_ab.shapes
+    assert shapes["falcon"] == (b, s, fm.d_inner, fm.d_state) == (4, 2048, 8192, 16)
+    assert shapes["falcon_ragged"] == (b, 1999, fm.d_inner, fm.d_state)
+    assert shapes["falcon_ds8"] == (b, s, fm.d_inner, fm.reduced().d_state) == (4, 2048, 8192, 8)
+    monkeypatch.setattr(sys, "argv", ["ssm_bwd_ab", "variant.cu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ssm_bwd_ab.main()
