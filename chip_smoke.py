@@ -72,7 +72,20 @@ drives the port's two paths:
   step, bf16, batch 4 of 2048 tokens): granite-3-8b and falcon-mamba-7b
   cut to 8 layers, whisper-tiny whole (448 tokens over 1,500 frames), with
   exactly the forward, recompute and backward launches the code implies,
-  finite losses, step ms, tok/s and peak memory.
+  finite losses, step ms, tok/s and peak memory;
+- cross-silo FL of the LMs (``[cross_silo]``, ``repro_torch.fl.cross_silo``):
+  4 silos of one 2048-token row each (whisper: 448 tokens over 1,500
+  frames), weights [1, 2, 1, 1], 3 rounds of a local AdamW step a silo and
+  the weighted mean of the shared prefix (``embed`` and the first 2 layer
+  periods; whisper ``embed`` and its encoder) through masked_aggregate,
+  after quantize/dequantize on the int wires: granite-3-8b cut to 4 layers
+  on the fp32 wire and on int8 with error feedback, falcon-mamba-7b cut to
+  4 layers on int8, whisper-tiny whole on fp32, bf16 and int4; shared leaves
+  bitwise equal across silos after every round, personal ones apart,
+  exactly the launches the code implies, round 1's mean of granite's embed
+  rows bitwise masked_aggregate's plain version; round ms split into the
+  local steps and the aggregation, tok/s, wire bytes a silo a round by
+  format, peak memory; masked_aggregate timed at those embed rows.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -87,6 +100,7 @@ this file; imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -109,6 +123,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch import random as prng  # noqa: E402
+from repro_torch.comm import QuantizeCodec  # noqa: E402
+from repro_torch.comm import codec as comm_codec  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     make_federated_classification,
@@ -120,6 +136,7 @@ from repro_torch.fl import FLConfig, pipeline_from_config, run_federated  # noqa
 from repro_torch.fl.faults import compile_fault_plan  # noqa: E402
 from repro_torch.fl.population import run_host_sync  # noqa: E402
 from repro_torch.fl import api as fl_api  # noqa: E402
+from repro_torch.fl import cross_silo  # noqa: E402
 from repro_torch.fl.phases import Aggregator, MaskedPartialAggregator  # noqa: E402
 from repro_torch.fl.sched import _setup_run, initial_state  # noqa: E402
 from repro_torch.fl.shard import shard_collective_bytes  # noqa: E402
@@ -159,6 +176,7 @@ from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models.mlp import mlp_accuracy, mlp_apply, mlp_loss  # noqa: E402
 from repro_torch.models.api import get_model, make_batch_specs, make_concrete_batch  # noqa: E402
 from repro_torch.obs import RunRecorder, validate_trace_file  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ClassifyProgram,
     ContinuousBatcher,
@@ -335,6 +353,15 @@ REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe
                "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5, "chatglm3-6b": 1e-5,
                "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5, "jamba-v0.1-52b": 2.0 ** -8,
                "whisper-tiny": 1e-5}
+
+
+# [cross_silo]: cross-silo FL of the LMs at full width (fl/cross_silo.py):
+# (arch, layers (0: whole), wire formats), 4 silos of 1 x 2048 tokens
+CROSS_SILO = (("granite-3-8b", 4, ("fp32", "int8+ef")), ("falcon-mamba-7b", 4, ("int8",)),
+              ("whisper-tiny", 0, ("fp32", "bf16", "int4")))
+CROSS_SILO_RUN = dict(silos=4, batch=1, seq=2048, rounds=3, shared=2, lr=3e-4, seed=0)
+CROSS_SILO_WEIGHTS = (1.0, 2.0, 1.0, 1.0)
+WIRE_CHECK_COLS = 1 << 24  # columns of a wire row held against the plain pair at a time (512 | it)
 
 
 class SmokeFailure(RuntimeError):
@@ -2732,6 +2759,274 @@ def phase_train(dev: torch.device, card: str) -> dict[str, dict[str, int]]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# cross-silo FL of LMs
+# ---------------------------------------------------------------------------
+
+
+def expected_cross_silo_launches(cfg, silo, rounds: int, wire: str, shared: int) -> dict[str, int]:
+    """What ``rounds`` rounds of the cross-silo step launch: every silo's
+    train step (``expected_train_launches``), and a round's silo mean: fp32
+    one masked_aggregate launch for up to 64 shared leaves; bf16 none (plain
+    PyTorch); int8/int4 and EF one quantize, one dequantize and one
+    masked_aggregate launch a wire call (``cross_silo.wire_chunks``: up to 64
+    JAX leaves and 2^30 silo-row elements)."""
+    counts = expected_train_launches(cfg, silo.n_silos * rounds)
+    groups = cross_silo.shared_groups(cfg, silo.params, shared)
+    if wire == "fp32":
+        counts["masked_aggregate"] += rounds * -(-sum(map(len, groups)) // cross_silo.MAX_LEAVES)
+    elif wire != "bf16":
+        sizes = [sum(silo.params[n][0].numel() for n in g) for g in groups]
+        calls = len(cross_silo.wire_chunks(groups, sizes, silo.n_silos))
+        for name in ("quantize", "dequantize", "masked_aggregate"):
+            counts[name] += rounds * calls
+    return counts
+
+
+def wire_bytes(silo, groups) -> dict[str, float]:
+    """Bytes one silo puts on the wire a round for the shared JAX leaves
+    ``groups``, by format: fp32 4 B a parameter, bf16 2, int8 1 and int4
+    half a byte plus a 4-byte scale a 512-block of each leaf's row."""
+    sizes = [sum(silo.params[n][0].numel() for n in g) for g in groups]
+    return {"fp32": 4.0 * sum(sizes), "bf16": 2.0 * sum(sizes),
+            **{f"int{b}": sum(QuantizeCodec(bits=b).wire_bytes(n) for n in sizes) for b in (8, 4)}}
+
+
+def wire_call_matches_plain(xs, noises, codes, bits: int, block_p: int) -> int:
+    """Whether a quantize_leaves call's ``codes`` are bitwise
+    ``quantize_leaves_plain`` on the same ``xs``/``noises`` on the card:
+    each row compared WIRE_CHECK_COLS columns at a time (a multiple of 512,
+    so a slice's blocks are the row's). Returns the elements compared, or
+    -1 at a mismatch."""
+    noises = [None] * len(xs) if noises is None else noises
+    n_elems = 0
+    for x, u, (q, scales) in zip(xs, noises, codes):
+        n = x.shape[-1]
+        bp, _ = quant_blocks(n, block_p)
+        for a in range(0, n, WIRE_CHECK_COLS):
+            b = min(n, a + WIRE_CHECK_COLS)
+            pq, ps = quantize_leaves_plain([x[..., a:b]], None if u is None else [u[..., a:b]],
+                                           bits=bits, block_p=block_p)[0]
+            if not (same(pq, q[..., a:b]) and same(ps, scales[..., a // bp:-(-b // bp)])):
+                return -1
+        n_elems += x.numel()
+    return n_elems
+
+
+def dequant_call_matches_plain(codes, out, block_p: int) -> int:
+    """Whether a dequantize_leaves call's ``out`` is bitwise
+    ``dequantize_leaves_plain`` of its ``codes`` on the card, in slices as
+    ``wire_call_matches_plain``. Returns the elements compared, or -1."""
+    n_elems = 0
+    for (q, scales), got in zip(codes, out):
+        n = q.shape[-1]
+        bp, _ = quant_blocks(n, block_p)
+        for a in range(0, n, WIRE_CHECK_COLS):
+            b = min(n, a + WIRE_CHECK_COLS)
+            want = dequantize_leaves_plain([(q[..., a:b], scales[..., a // bp:-(-b // bp)])],
+                                           block_p=block_p)[0]
+            if not same(want, got[..., a:b]):
+                return -1
+        n_elems += q.numel()
+    return n_elems
+
+
+@contextlib.contextmanager
+def first_wire_call_checked(found: dict):
+    """Inside: the first quantize_leaves and the first dequantize_leaves
+    call of the cross-silo wire (the int wires call them from
+    ``fl.cross_silo``, error feedback from ``comm.codec``) held bitwise
+    against their plain versions on the card on the same inputs, while
+    those are alive; ``found[name]`` gets the elements compared (-1 at a
+    mismatch). The kernel wrappers run and count their launches as ever:
+    the plain versions launch no kernel of the port."""
+    real_q, real_dq = quantize_leaves, dequantize_leaves
+
+    def spy_quantize(xs, noises=None, bits: int = 8, block_p: int = 512):
+        codes = real_q(xs, noises, bits=bits, block_p=block_p)
+        if "quantize" not in found:
+            found["quantize"] = wire_call_matches_plain(xs, noises, codes, bits, block_p)
+        return codes
+
+    def spy_dequantize(codes, block_p: int = 512):
+        out = real_dq(codes, block_p=block_p)
+        if "dequantize" not in found:
+            found["dequantize"] = dequant_call_matches_plain(codes, out, block_p)
+        return out
+
+    modules = (cross_silo, comm_codec)
+    for mod in modules:
+        mod.quantize_leaves, mod.dequantize_leaves = spy_quantize, spy_dequantize
+    try:
+        yield found
+    finally:
+        for mod in modules:
+            mod.quantize_leaves, mod.dequantize_leaves = real_q, real_dq
+
+
+def cross_silo_run(dev: torch.device, cfg, wire: str, card: str, check_plain: bool) -> tuple:
+    """``CROSS_SILO_RUN["rounds"]`` rounds of the port's cross-silo step
+    (``make_fl_round_step`` / ``make_quantized_fl_round_step``) at ``cfg``'s
+    full width, bf16, from random weights: the kernel counts zeroed just
+    before the rounds and read just after, held to
+    ``expected_cross_silo_launches``; after every round the shared leaves
+    bitwise equal across silos, after round 1 the personal ``head`` of
+    silos 0 and 1 apart; with EF the residuals zero on every personal name
+    and not on ``embed``; losses finite. ``check_plain``: round 1's mean of
+    the (S, V x D) bf16 ``embed`` rows bitwise ``masked_aggregate_leaves_plain``
+    on the card, then masked_aggregate timed at those rows. The int and EF
+    wires: the first quantize and dequantize call bitwise their plain
+    versions on the card (``first_wire_call_checked``). Returns (the
+    counts, the embed timing row or {})."""
+    run = CROSS_SILO_RUN
+    n_silos, rounds, shared = run["silos"], run["rounds"], run["shared"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = get_model(cfg)
+    base = bundle.init(torch.Generator(device=dev).manual_seed(run["seed"]))
+    n_params = sum(p.numel() for p in base.parameters())
+    silo = cross_silo.silo_params_from_model(base, n_silos)
+    del base
+    opt = adamw(run["lr"])
+    state = cross_silo.init_silo_opt(opt, silo)
+    marks, snap = [], {}
+
+    def timed_train_step(optimizer, window=0):
+        """The bundle's train step, marking the end of each round's local
+        steps (the last silo's step) and, for ``check_plain``, keeping the
+        pre-aggregation embed rows of round 1."""
+        inner = bundle.make_train_step(optimizer, window=window)
+
+        def step(model, opt_state, batch):
+            out = inner(model, opt_state, batch)
+            if model is silo.models[-1]:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                if check_plain and len(marks) == 1:
+                    snap["embed"] = silo.params["embed"].reshape(n_silos, -1).clone()
+            return out
+
+        return step
+
+    tbundle = dataclasses.replace(bundle, make_train_step=timed_train_step)
+    ef = wire == "int8+ef"
+    if wire in ("int8", "int4", "int8+ef"):
+        step = cross_silo.make_quantized_fl_round_step(cfg, tbundle, opt, shared,
+                                                       bits=int(wire[3]), error_feedback=ef)
+    else:
+        step = cross_silo.make_fl_round_step(cfg, tbundle, opt, shared, agg=wire)
+    residual = cross_silo.init_ef_residual(silo) if ef else None
+    groups = cross_silo.shared_groups(cfg, silo.params, shared)
+    shared_names = [n for g in groups for n in g]
+    weights = torch.tensor(CROSS_SILO_WEIGHTS, device=dev)
+    key = prng.PRNGKey(run["seed"], device=dev)
+    spec = make_batch_specs(cfg, "train", n_silos * run["batch"], run["seq"])
+    tokens = math.prod(spec["tokens"][0])
+    losses, times, wire_checked = [], [], {}
+    int_wire = wire in ("int8", "int4", "int8+ef")
+    spy = first_wire_call_checked(wire_checked) if int_wire else contextlib.nullcontext()
+    kernels.reset_launch_counts()
+    with spy:
+        for r in range(rounds):
+            key, sub = prng.split(key)
+            flat = make_concrete_batch(cfg, "train", n_silos * run["batch"], run["seq"], sub)
+            batch = {k: v.to(dev).reshape(n_silos, run["batch"], *v.shape[1:]) for k, v in flat.items()}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if ef:
+                silo, state, residual, loss = step(silo, state, residual, batch, weights)
+            else:
+                silo, state, loss = step(silo, state, batch, weights)
+            end.record()
+            times.append((start, marks[-1], end))
+            losses.append(loss)
+            for n in shared_names:
+                p = silo.params[n]
+                check(all(torch.equal(p[s], p[0]) for s in range(1, n_silos)),
+                      f"[cross_silo] {cfg.name} {wire}: {n} differs across silos after round {r + 1}")
+            if r == 0:
+                check(not torch.equal(silo.params["head"][0], silo.params["head"][1]),
+                      f"[cross_silo] {cfg.name} {wire}: personal head equal across silos")
+            if r == 0 and check_plain:
+                plain = masked_aggregate_leaves_plain([snap.pop("embed")], weights[None])[0]
+                check(same(plain, silo.params["embed"][0].reshape(-1)), f"[cross_silo] {cfg.name}: "
+                      f"round 1's embed mean is not bitwise masked_aggregate_leaves_plain")
+                del plain
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    want = expected_cross_silo_launches(cfg, silo, rounds, wire, shared)
+    check(counts == want, f"[cross_silo] {cfg.name} {wire}: launches {counts}, expected {want}")
+    losses = torch.stack(losses).cpu().tolist()
+    check(all(np.isfinite(losses)), f"[cross_silo] {cfg.name} {wire}: losses {losses}")
+    if int_wire:
+        for name in ("quantize", "dequantize"):
+            check(wire_checked.get(name, 0) > 0, f"[cross_silo] {cfg.name} {wire}: the first "
+                  f"{name} call is not bitwise its plain version ({wire_checked.get(name)})")
+    if ef:
+        check(all(not residual[n].any() for n in silo.params if n not in set(shared_names)),
+              f"[cross_silo] {cfg.name}: an EF residual is non-zero on a personal name")
+        check(bool(residual["embed"].any()), f"[cross_silo] {cfg.name}: embed's EF residual is 0")
+    ms = [(a.elapsed_time(c), a.elapsed_time(b), b.elapsed_time(c)) for a, b, c in times]
+    med = [statistics.median(x[i] for x in ms[1:]) for i in range(3)]
+    n_shared = sum(silo.params[n][0].numel() for n in shared_names)
+    depth = f" cut to {cfg.n_layers} layers" if cfg.n_layers < get_config(cfg.name).n_layers else ""
+    print(f"[cross_silo] {cfg.name} full width{depth} ({n_params / 1e9:.3f} B params, "
+          f"{n_shared / 1e9:.3f} B shared: {len(groups)} JAX leaves), {cfg.dtype}, {n_silos} silos "
+          f"x ({run['batch']} x {tokens // (n_silos * run['batch'])} tokens), weights "
+          f"{list(CROSS_SILO_WEIGHTS)}, shared_periods {shared}, wire {wire}: losses "
+          f"{[round(x, 4) for x in losses]}; round ms (CUDA events) median {med[0]:.2f} of "
+          f"{[round(x[0], 2) for x in ms]} = local steps {med[1]:.2f} + aggregation {med[2]:.3f} "
+          f"(round 1: {ms[0][1]:.2f} + {ms[0][2]:.3f}); {1e3 * tokens / med[0]:.0f} tok/s; wire "
+          f"bytes a silo a round {json.dumps({k: int(v) for k, v in wire_bytes(silo, groups).items()})}"
+          f"; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          + (f"the first wire call bitwise quantize_leaves_plain / dequantize_leaves_plain "
+             f"({wire_checked['quantize']:,} / {wire_checked['dequantize']:,} elements); "
+             if int_wire else "") + f"launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}; {card}")
+    row = {}
+    if check_plain:
+        rows = silo.params["embed"].reshape(n_silos, -1)
+        w2 = weights[None]
+        t = device_ms(lambda: masked_aggregate_leaves([rows], w2))
+        t_plain = cuda_ms(lambda: masked_aggregate_leaves_plain([rows], w2), reps=3, warmup=1)
+        w_lib = (weights / weights.sum()).to(rows.dtype)
+        t_lib = cuda_ms(lambda: torch.mv(rows.t(), w_lib))
+        n = rows.shape[1]
+        bound, by = bound_ms((n_silos + 1) * n * rows.element_size(), 2 * n_silos * n)
+        row = {"cross_silo_embed_ms": t, "cross_silo_embed_plain_ms": t_plain,
+               "cross_silo_embed_bound_ms": bound, "cross_silo_embed_bound_by": by,
+               "cross_silo_embed_library_ms": t_lib}
+        print(f"[cross_silo] masked_aggregate at {cfg.name}'s embed rows ({n_silos}, {n:,}) bf16 "
+              f"(graph replay): {t:.4f} ms, bound {bound:.4f} ({by}), plain {t_plain:.3f}, "
+              f"torch.mv(x.T, w / sum w) {t_lib:.4f}; bitwise the plain version in round 1; {card}")
+    del silo, state, residual
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def phase_cross_silo(dev: torch.device, card: str) -> tuple[dict, dict, dict]:
+    """Cross-silo FL of the LMs at full width (``CROSS_SILO``), each run
+    through ``cross_silo_run``. Returns (the launches by kernel, the
+    launches by kernel and arch, masked_aggregate's embed row)."""
+    total, by_arch, embed = dict.fromkeys(kernels.KERNELS, 0), {}, {}
+    for arch, layers, wires in CROSS_SILO:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        for wire in wires:
+            counts, row = cross_silo_run(dev, cfg, wire, card,
+                                         check_plain=(arch, wire) == ("granite-3-8b", "fp32"))
+            embed.update(row)
+            for name, n in counts.items():
+                total[name] += n
+                if n:
+                    by_arch.setdefault(name, {}).setdefault(arch, 0)
+                    by_arch[name][arch] += n
+    return total, by_arch, embed
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--shard-worker"]:  # one rank of [shard]'s gloo worlds
         return shard_worker(*sys.argv[2:])
@@ -2782,6 +3077,14 @@ def main() -> int:
         by_arch = {a: c[name] for a, c in train_launches.items() if c[name]}
         table[name]["launches_by_arch"] = by_arch
         launches[name] = sum(by_arch.values())
+    silo_total, silo_by_arch, silo_embed = phase_cross_silo(dev, card)
+    table["masked_aggregate"].update(silo_embed)
+    for name in FL_KERNELS:
+        table[name]["cross_silo_launches"] = silo_total[name]
+        launches[name] += silo_total[name]
+    for name in ("ssm_scan", "flash_attention", "ssm_scan_bwd", "flash_attention_bwd"):
+        table[name]["cross_silo_launches_by_arch"] = silo_by_arch.get(name, {})
+        launches[name] += silo_total[name]
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
                                   for name, row in table.items()]}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -369,6 +369,19 @@ class TransmitPhase:
         share_f = share.to(torch.float32)
         return share_f @ lw, (share_f * select.to(torch.float32)[:, None]) @ lw
 
+    def silo_transmit(self, xs: list, residuals: list, rngs: list):
+        """Cross-silo lane (``fl/cross_silo.py``): EF-compress each silo's
+        contribution. ``xs``/``residuals`` are leaves with a leading silo
+        axis (S, ...), ``rngs`` one key a leaf. Silo s of leaf i goes
+        through ``ef_step`` on its own codec blocks and scales with key
+        ``split(rngs[i], S)[s]``, as the JAX package's vmap gives it; every
+        leaf goes through one ``ef_steps`` call (one quantize and one
+        dequantize launch for up to 64 leaves). Returns ``(decoded,
+        new_residuals)``, lists of (S, ...) leaves."""
+        steps = ef_steps(self.codec, xs, residuals,
+                         [prng.split(k, x.shape[0]) for k, x in zip(rngs, xs)])
+        return [d for d, _ in steps], [e for _, e in steps]
+
 
 # ---------------------------------------------------------------------------
 # Aggregator — Eq. 1

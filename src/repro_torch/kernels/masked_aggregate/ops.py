@@ -58,7 +58,7 @@ __all__ = ["masked_aggregate", "masked_aggregate_combine", "masked_aggregate_com
            "masked_aggregate_partial_plain", "masked_aggregate_plain", "partial_layout"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LEAVES = 64    # leaves a launch (the kernel's parameter table)
+MAX_LEAVES = 64    # leaves a launch (the kernel's parameter table)
 _BLOCK_COLS = 256   # columns a block (64 threads x 4)
 
 
@@ -73,7 +73,7 @@ class _Leaf(ctypes.Structure):
 
 
 class _Table(ctypes.Structure):
-    _fields_ = [("leaf", _Leaf * _MAX_LEAVES), ("w", ctypes.c_void_p), ("n_leaves", ctypes.c_int),
+    _fields_ = [("leaf", _Leaf * MAX_LEAVES), ("w", ctypes.c_void_p), ("n_leaves", ctypes.c_int),
                 ("c_rows", ctypes.c_int), ("order", ctypes.c_void_p), ("edge", ctypes.c_void_p),
                 ("n_edges", ctypes.c_int), ("pad", ctypes.c_int), ("slot_stride", ctypes.c_int64)]
 
@@ -235,8 +235,8 @@ def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None
     leaf, and the outputs are views of one buffer."""
     xs = list(xs)
     rows, fallbacks, snapshots, bases = _norm_args(xs, rows, fallbacks, snapshots, bases)
-    if len(xs) > _MAX_LEAVES:
-        raise ValueError(f"masked_aggregate_leaves takes at most {_MAX_LEAVES} leaves (the "
+    if len(xs) > MAX_LEAVES:
+        raise ValueError(f"masked_aggregate_leaves takes at most {MAX_LEAVES} leaves (the "
                          f"kernel's parameter table), got {len(xs)}")
     if not xs:
         return []
@@ -393,8 +393,8 @@ def masked_aggregate_partial(xs, weights: torch.Tensor, rows=None, snapshots=Non
     leaf."""
     xs = list(xs)
     rows, snapshots = _norm_args(xs, rows, snapshots)
-    if len(xs) > _MAX_LEAVES:
-        raise ValueError(f"masked_aggregate_partial takes at most {_MAX_LEAVES} leaves, "
+    if len(xs) > MAX_LEAVES:
+        raise ValueError(f"masked_aggregate_partial takes at most {MAX_LEAVES} leaves, "
                          f"got {len(xs)}")
     if not 0 <= slot < n_slots:
         raise ValueError(f"slot {slot} outside the {n_slots} slots")
@@ -448,8 +448,8 @@ def masked_aggregate_combine(buf: torch.Tensor, shapes, rows=None, fallbacks=Non
     covers every leaf, and the outputs are views of one buffer."""
     shapes = [tuple(s) for s in shapes]
     rows, fallbacks, bases = _norm_args(shapes, rows, fallbacks, bases)
-    if len(shapes) > _MAX_LEAVES:
-        raise ValueError(f"masked_aggregate_combine takes at most {_MAX_LEAVES} leaves, "
+    if len(shapes) > MAX_LEAVES:
+        raise ValueError(f"masked_aggregate_combine takes at most {MAX_LEAVES} leaves, "
                          f"got {len(shapes)}")
     dev = buf.device
     sizes = [int(torch.Size(s).numel()) for s in shapes]

@@ -40,7 +40,7 @@ __all__ = ["quant_blocks", "quantize", "quantize_leaves", "dequantize", "dequant
            "quantize_plain", "quantize_leaves_plain", "dequantize_plain",
            "dequantize_leaves_plain"]
 
-_MAX_LEAVES = 64  # leaves a launch (the kernels' parameter tables)
+MAX_LEAVES = 64  # leaves a launch (the kernels' parameter tables)
 _DQ_BLOCKS = 4    # quant blocks a dequantize thread block covers (when bp <= _DQ_STRIDE)
 _DQ_STRIDE = 512  # elements a dequantize thread block's threads take at once
 
@@ -52,7 +52,7 @@ class _Leaf(ctypes.Structure):
 
 
 class _Table(ctypes.Structure):
-    _fields_ = [("leaf", _Leaf * _MAX_LEAVES), ("n_leaves", ctypes.c_int),
+    _fields_ = [("leaf", _Leaf * MAX_LEAVES), ("n_leaves", ctypes.c_int),
                 ("qmax", ctypes.c_float), ("inv_qmax", ctypes.c_float)]
 
 
@@ -63,7 +63,7 @@ class _DqLeaf(ctypes.Structure):
 
 
 class _DqTable(ctypes.Structure):
-    _fields_ = [("leaf", _DqLeaf * _MAX_LEAVES), ("n_leaves", ctypes.c_int)]
+    _fields_ = [("leaf", _DqLeaf * MAX_LEAVES), ("n_leaves", ctypes.c_int)]
 
 
 def quant_blocks(n: int, block_p: int = 512) -> tuple[int, int]:
@@ -159,7 +159,7 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def _too_many_leaves(what: str, n: int) -> ValueError:
-    return ValueError(f"{what} takes at most {_MAX_LEAVES} leaves (the kernel's parameter "
+    return ValueError(f"{what} takes at most {MAX_LEAVES} leaves (the kernel's parameter "
                       f"table), got {n}")
 
 
@@ -173,7 +173,7 @@ def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
     noises = [None] * len(xs) if noises is None else list(noises)
     if len(noises) != len(xs):
         raise ValueError("quantize_leaves: one noise (or None) per leaf")
-    if len(xs) > _MAX_LEAVES:
+    if len(xs) > MAX_LEAVES:
         raise _too_many_leaves("quantize_leaves", len(xs))
     if not xs:
         return []
@@ -225,7 +225,7 @@ def dequantize_leaves(codes, block_p: int = 512) -> list:
     table). CPU tensors run ``dequantize_leaves_plain``; on CUDA one kernel
     launch covers every leaf."""
     codes = list(codes)
-    if len(codes) > _MAX_LEAVES:
+    if len(codes) > MAX_LEAVES:
         raise _too_many_leaves("dequantize_leaves", len(codes))
     if not codes:
         return []

@@ -9,7 +9,8 @@ module reproduces them: the same Threefry-2x32 hash (20 rounds, Salmon et al.
 
 - ``PRNGKey``, ``split``, ``fold_in``, ``bits`` and ``uniform`` are bitwise
   equal to ``jax.random`` (``tests/test_torch_random.py``);
-- ``randint`` is bitwise equal to ``jax.random.randint`` (int32);
+- ``randint`` is bitwise equal to ``jax.random.randint`` (int32), and
+  ``permutation`` of an integer to ``jax.random.permutation``;
 - ``normal`` is bitwise ``jax.random.normal`` on the CPU: its ``erfinv``
   repeats XLA's float32 arithmetic step for step;
 - ``gumbel`` goes through torch's float32 ``log``, which differs from
@@ -35,11 +36,12 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 
 __all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "randint", "gumbel",
-           "categorical", "normal", "threefry_partitionable"]
+           "categorical", "normal", "permutation", "threefry_partitionable"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -178,6 +180,24 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     offset = (offset & _M32) % span
     out = (offset + minval + 2**31) % 2**32 - 2**31  # int32 wrap-around add
     return out.to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an integer ``n``: jax's
+    ``_shuffle`` of ``arange(n)`` (int32). ``ceil(3 ln(max(1, n)) /
+    ln(2**32 - 1))`` rounds, each splitting the key in two, drawing 32-bit
+    ``bits`` of the second half for every element and reordering the
+    elements by a stable sort of those bits (ties keep their order, as
+    XLA's stable ``sort_key_val`` does)."""
+    n = int(n)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M32))
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    for _ in range(rounds):
+        keys = split(key)
+        key, sub = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = x[order]
+    return x
 
 
 def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:

@@ -9,8 +9,10 @@ weights, keys and per-client lanes. ``lm_params_from_numpy`` turns the JAX
 package's decoder-LM parameter tree (``models/transformer.init_params``)
 into the port's ``DecoderLM``, ``whisper_params_from_numpy`` its
 encoder-decoder's (``models/whisper.init_whisper``) into a
-``WhisperModel``. ``servable_from_numpy`` turns the JAX
-package's ``ServableArtifact`` (``serve/artifact.py``), as numpy arrays,
+``WhisperModel``, ``silo_params_from_numpy`` the cross-silo round's tree
+(every leaf with a leading silo axis) into a ``fl.cross_silo.SiloParams``.
+``servable_from_numpy`` turns the JAX package's ``ServableArtifact``
+(``serve/artifact.py``), as numpy arrays,
 into the port's, so both serving engines can score the same personalized
 models. Like every entry point they default to the CUDA card and raise
 without one; pass ``device="cpu"`` for the CPU.
@@ -29,7 +31,7 @@ from repro_torch.models.whisper import WhisperModel
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
-           "whisper_params_from_numpy", "servable_from_numpy"]
+           "whisper_params_from_numpy", "silo_params_from_numpy", "servable_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -96,6 +98,25 @@ def whisper_params_from_numpy(cfg: ModelConfig, tree, device=None):
     ``WhisperModel`` on ``device`` (dtypes and bits kept)."""
     dev = resolve_device(device)
     return WhisperModel(cfg, tree_map(lambda a: _tensor(a, dev), tree))
+
+
+def silo_params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The JAX package's stacked silo parameters (``fl/cross_silo.py``: the
+    model's tree with a leading silo axis on every leaf, so a stack leaf is
+    (S, n_periods, ...)), as numpy arrays, -> the port's ``SiloParams`` on
+    ``device``: silo s is ``lm_params_from_numpy`` (or
+    ``whisper_params_from_numpy``) of the tree's slice s, and each name
+    holds the S slices stacked (dtypes and bits kept)."""
+    from repro_torch.fl.cross_silo import SiloParams
+    from repro_torch.models.transformer import param_tree
+
+    dev = resolve_device(device)
+    one = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
+    n_silos = np.asarray(tree["embed"]).shape[0]
+    silos = [param_tree(one(cfg, tree_map(lambda a, s=s: np.asarray(a)[s], tree), dev))
+             for s in range(n_silos)]
+    return SiloParams(cfg, {name: torch.stack([m[name].detach() for m in silos])
+                            for name in silos[0]})
 
 
 def servable_from_numpy(artifact, device=None):

@@ -61,6 +61,13 @@ call, two calls bitwise equal, what has no kernel refused; the autograd
 Functions launch exactly one forward and one backward; the ten reduced
 configs' loss and every gradient on the card within 1e-5 of max of the
 CPU's (2^-8 with a Mamba scan), through exactly the expected launches.
+Cross-silo FL (``fl/cross_silo.py``): three fp32-wire rounds of the reduced
+granite, falcon-mamba and whisper on the card within 1e-5 of max of the CPU
+(2^-8 behind a scan), the train steps' launches plus one masked_aggregate
+a round, shared leaves bitwise equal across silos; one silo mean on
+jamba's reduced silos bitwise the CPU in every wire format, EF residuals
+included, with one launch of each kernel it uses; ``permutation`` with a
+key on the card is the host's draw.
 """
 
 import numpy as np
@@ -1372,3 +1379,137 @@ def test_reduced_loss_and_grads_on_cuda_match_cpu(cuda, arch):
             assert g is None, name
             continue
         _close_to_max(g.cpu(), w, rel)
+
+
+# ---------------------------------------------------------------------------
+# cross-silo FL of LMs (fl/cross_silo.py)
+# ---------------------------------------------------------------------------
+
+_SILO_WEIGHTS = [1.0, 2.0, 1.0]
+
+
+def _reduced_silos(arch, device, n_silos=3):
+    import dataclasses
+
+    from repro_torch.fl import cross_silo
+    from repro_torch.models.api import get_model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0)).to(device)
+    return cfg, bundle, cross_silo.silo_params_from_model(model, n_silos)
+
+
+def _silo_batches(cfg, rounds, device, n_silos=3):
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch
+
+    key, out = prng.PRNGKey(1), []
+    for _ in range(rounds):
+        key, sub = prng.split(key)
+        batch = make_concrete_batch(cfg, "train", 2 * n_silos, 32, sub)
+        out.append({k: v.reshape(n_silos, 2, *v.shape[1:]).to(device) for k, v in batch.items()})
+    return out
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "falcon-mamba-7b", "whisper-tiny"])
+def test_cross_silo_rounds_on_cuda_match_cpu(cuda, arch):
+    """Three fp32-wire rounds of the reduced float32 model, 3 silos, plain
+    AdamW at lr 3e-4, on the card (its train steps' kernels and
+    masked_aggregate) against the same rounds on the CPU: losses within
+    1e-5 (2^-8 behind a Mamba scan) relative; parameters as
+    ``tests/_torch_train.py`` holds three AdamW steps: at most 1e-4 of the
+    elements beyond 1e-6 (AdamW's first steps take ``lr * g / (|g| +
+    eps)``, so an element whose gradient cancels to near zero moves by a
+    fraction of lr on a rounding-level difference), each within one lr;
+    behind a scan, where a bf16 input flip moves whole gradients by 2^-8
+    of max and a step's sign with them, within two lr over the three
+    rounds (measured 1.11 lr, 218 of 3.3 M elements beyond 1e-6 on
+    falcon-mamba, where one lr did not hold); exactly the train steps'
+    launches plus one masked_aggregate launch a round; shared leaves
+    bitwise equal across silos on the card."""
+    from repro_torch.fl import cross_silo
+    from repro_torch.optim import adamw
+
+    rel = 2.0 ** -8 if get_config(arch).ssm else 1e-5
+    lr, runs = 3e-4, []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, bundle, silo = _reduced_silos(arch, dev)
+        opt = adamw(lr)
+        state = cross_silo.init_silo_opt(opt, silo)
+        step = cross_silo.make_fl_round_step(cfg, bundle, opt, shared_periods=1, agg="fp32")
+        w = torch.tensor(_SILO_WEIGHTS, device=dev)
+        kernels.reset_launch_counts()
+        losses = []
+        for batch in _silo_batches(cfg, 3, dev):
+            silo, state, loss = step(silo, state, batch, w)
+            losses.append(loss)
+        runs.append((silo, torch.stack(losses).cpu(), kernels.launch_counts()))
+    (want, want_loss, _), (got, got_loss, counts) = runs
+    expected = {k: 3 * 3 * n for k, n in train_launches(cfg).items()}
+    expected["masked_aggregate"] += 3
+    assert counts == expected, counts
+    assert float(((got_loss - want_loss) / want_loss).abs().max()) <= rel, (got_loss, want_loss)
+    n_over = n_total = 0
+    worst = 0.0
+    for name, p in got.params.items():
+        d = (p.cpu().double() - want.params[name].double()).abs()
+        worst = max(worst, float(d.max()))
+        n_over += int((d > 1e-6).sum())
+        n_total += d.numel()
+    print(f"{arch}: {n_over} of {n_total} beyond 1e-6, worst {worst:.3g} ({worst / lr:.3g} lr)")
+    limit = 2 * lr if cfg.ssm else lr
+    assert worst <= limit and n_over <= 1e-4 * n_total, (n_over, n_total, worst)
+    for group in cross_silo.shared_groups(cfg, got.params, 1):
+        for name in group:
+            assert all(torch.equal(got.params[name][s], got.params[name][0]) for s in (1, 2))
+
+
+@pytest.mark.parametrize("wire", ["fp32", "bf16", "int8", "int4", "int8+ef"])
+def test_cross_silo_mean_on_cuda_bitwise_cpu_and_launches(cuda, wire):
+    """One silo mean of the same reduced jamba silos (every silo its own
+    values; one period of 8 layers shared: 90 JAX leaves) on the card
+    bitwise the CPU's plain versions, parameters and EF residuals;
+    launches: fp32 one masked_aggregate launch for every 64 leaves, the int
+    wires and EF one quantize, one dequantize and one masked_aggregate
+    launch a wire call of up to 64 leaves, bf16 none."""
+    from repro_torch import random as prng
+    from repro_torch.fl import cross_silo
+
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, _, silo = _reduced_silos("jamba-v0.1-52b", dev)
+        gen = torch.Generator().manual_seed(4)
+        for p in silo.params.values():
+            p.add_(torch.randn(p.shape, generator=gen).to(dev) * 0.05)
+        w = torch.tensor(_SILO_WEIGHTS, device=dev)
+        kernels.reset_launch_counts()
+        res = None
+        if wire == "int8+ef":
+            silo, res = cross_silo.partial_aggregate_silo_params_ef(
+                silo, cross_silo.init_ef_residual(silo), w, 1, rng=prng.PRNGKey(2, device=dev),
+                stochastic=True)
+        else:
+            cross_silo.partial_aggregate_silo_params(silo, w, 1, wire)
+        outs.append((silo.params, res, kernels.launch_counts()))
+    (want, want_res, _), (got, got_res, counts) = outs
+    for name, p in got.items():
+        assert torch.equal(p.cpu(), want[name]), name
+        if got_res is not None:
+            assert torch.equal(got_res[name].cpu(), want_res[name]), name
+    groups = cross_silo.shared_groups(cfg, got, 1)
+    calls = len(cross_silo.wire_chunks(groups, [sum(got[n][0].numel() for n in g) for g in groups],
+                                       3))
+    assert len(groups) > 64 and calls == 2
+    n = {"fp32": (0, -(-sum(map(len, groups)) // 64)), "bf16": (0, 0)}.get(wire, (calls, calls))
+    assert (counts["quantize"], counts["dequantize"], counts["masked_aggregate"]) == (
+        n[0], n[0], n[1]), counts
+
+
+def test_permutation_with_a_card_key_is_the_host_draw(cuda):
+    from repro_torch import random as prng
+
+    for n in (1, 7, 256, 8192):
+        host = prng.permutation(prng.fold_in(prng.PRNGKey(777), 3), n)
+        card = prng.permutation(prng.fold_in(prng.PRNGKey(777, device=cuda), 3), n)
+        assert card.device.type == "cuda" and torch.equal(card.cpu(), host)

@@ -25,10 +25,16 @@ from repro_torch.launch.serve import serve
 from repro_torch.launch.train import train
 from repro_torch.models import transformer
 from repro_torch.models.api import get_model
-from repro_torch.weights import lm_params_from_numpy, params_from_numpy, state_from_numpy
+from repro_torch.weights import (
+    lm_params_from_numpy,
+    params_from_numpy,
+    silo_params_from_numpy,
+    state_from_numpy,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "cross_silo_llm_torch.py"]
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
@@ -73,6 +79,39 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not re.search(r"^\s*(from repro[. ]|import repro\b(?!_torch))", src, re.M), path
 
 
+_BLOCKED_CROSS_SILO = """
+import importlib.util, sys
+sys.modules["jax"] = None
+import repro_torch.fl.cross_silo
+spec = importlib.util.spec_from_file_location("ex", {example!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("BAD", sorted(n for n in sys.modules if n == "repro" or n.startswith(("repro.", "jax.", "jaxlib"))))
+"""
+
+
+def test_cross_silo_and_its_example_import_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CROSS_SILO.format(
+            example=str(ROOT / "examples" / "cross_silo_llm_torch.py"))],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_cross_silo_dryrun_and_bits_raise():
+    """``build_fl_dryrun`` waits for the port's dry run (ROADMAP.md queue 1
+    item 4); the quantized round takes bits 4 and 8 only, with the JAX
+    package's ValueError."""
+    from repro_torch.fl import cross_silo
+
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        cross_silo.build_fl_dryrun(None, None, None, None, ("data",), 1, {})
+    cfg = get_config("granite-3-8b").reduced()
+    with pytest.raises(ValueError, match=r"supports bits in \(4, 8\), got 2"):
+        cross_silo.make_quantized_fl_round_step(cfg, get_model(cfg), None, 1, bits=2)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One intra-op thread for these small tensors (the suite runs in
@@ -101,7 +140,21 @@ _ENTRY_POINTS = {
                               prompt_len=4, max_new=1),
     "lm_params_from_numpy": lambda ds: lm_params_from_numpy(get_config("granite-3-8b"), {}),
     "train": lambda ds: train(get_config("granite-3-8b").reduced(), steps=1, batch=1, seq=4),
+    # the cross-silo round runs where its SiloParams lie; both ways to make
+    # them from numpy or a fresh model default to the card
+    "silo_params_from_numpy": lambda ds: silo_params_from_numpy(get_config("granite-3-8b"), {}),
+    "cross_silo_llm_torch": lambda ds: _cross_silo_example().main(["--small", "--steps", "1"]),
 }
+
+
+def _cross_silo_example():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "cross_silo_llm_torch", ROOT / "examples" / "cross_silo_llm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

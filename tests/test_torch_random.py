@@ -2,8 +2,8 @@
 threefry streams (``jax_threefry_partitionable`` True, jax's default, and
 False, the legacy stream the committed golden trajectories were drawn from).
 
-Contract: keys, ``split``, ``fold_in``, ``bits`` and ``uniform`` are
-bitwise equal; ``normal`` is bitwise too (its erfinv repeats XLA's float32
+Contract: keys, ``split``, ``fold_in``, ``bits``, ``uniform`` and
+``permutation`` are bitwise equal; ``normal`` is bitwise too (its erfinv repeats XLA's float32
 arithmetic on the CPU, fused multiply-adds included; it was 3 ulp apart
 with torch's log1p, sqrt and unfused products), and is still held to the
 older 4-ulp check; ``gumbel`` is within 4 ulp of ``max(|g|, 1)`` (two
@@ -159,6 +159,21 @@ def _check_gumbel(seed):
         gt = prng.gumbel(prng.PRNGKey(seed), shape).numpy()
         unit = np.spacing(np.maximum(np.abs(gj), 1.0).astype(np.float32))
         assert (np.abs(gj - gt) <= 4 * unit).all()
+
+
+@MODES
+@pytest.mark.parametrize("n", [1, 7, 256, 8192])
+def test_permutation_bitwise(n, partitionable):
+    """``permutation(key, n)`` is ``jax.random.permutation(key, n)``: 0, 1,
+    1 and 2 rounds of a stable sort by 32-bit draws for these n."""
+    with both(partitionable):
+        for seed in (0, 777, -7):
+            kj = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+            kt = prng.fold_in(prng.PRNGKey(seed), 3)
+            want = np.asarray(jax.random.permutation(kj, n))
+            got = prng.permutation(kt, n)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_seed_out_of_int32_range_raises():
