@@ -87,10 +87,20 @@ drives the port's two paths:
   local steps and the aggregation, tok/s, wire bytes a silo a round by
   format, peak memory; masked_aggregate timed at those embed rows.
 
+- the expert-parallel MoE over a (data, model) mesh of ranks (``[ep]``,
+  ``launch/context.mesh_context``, ``layers.moe_apply_ep``): the reduced
+  MoE family and jamba under a (1, 1) mesh on the card against the CPU,
+  jamba-v0.1-52b at full width and 8 layers in float32 under (1, 1)
+  against the same model without a mesh, and on a (1, 2) mesh of two gloo
+  processes sharing the card against the (1, 1) run.
+
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
-ranks (``nccl_world_main``); ``--shard-worker`` is one rank of the gloo
-worlds the single-card run starts itself.
+ranks (``nccl_world_main``), and ``torchrun --standalone --nproc-per-node
+4 chip_smoke.py --ep-world`` serves jamba-v0.1-52b whole on a (1, 4) mesh
+and moonshot-v1-16b-a3b whole on (1, 4) and (2, 2) (``ep_world_main``);
+``--shard-worker`` and ``--ep-worker`` are one rank of the gloo worlds the
+single-card run starts itself.
 
 Every phase prints its lines; the kernel table is one JSON line; the last
 line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
@@ -168,7 +178,9 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 )
 from repro_torch.kernels.ssm_scan import contract as ssm_contract  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.launch import context as mesh_ctx  # noqa: E402
 from repro_torch.launch.collectives import collective_bytes  # noqa: E402
+from repro_torch.launch.mesh import make_rank_mesh  # noqa: E402
 from repro_torch.launch.profile import profile_async_events  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.ssm_bwd_ab import shapes as ssm_bwd_shapes  # noqa: E402
@@ -353,6 +365,38 @@ REDUCED_REL = {"granite-3-8b": 1e-5, "falcon-mamba-7b": 2.0 ** -8, "deepseek-moe
                "moonshot-v1-16b-a3b": 1e-5, "deepseek-v2-lite-16b": 1e-5, "chatglm3-6b": 1e-5,
                "stablelm-12b": 1e-5, "qwen2-vl-2b": 1e-5, "jamba-v0.1-52b": 2.0 ** -8,
                "whisper-tiny": 1e-5}
+
+
+# [ep] and --ep-world: the expert-parallel MoE over a (data, model) mesh of
+# ranks (launch/context.py, models/layers.moe_apply_ep). [ep] on the one
+# card: the reduced MoE family and jamba under a (1, 1) mesh, card against
+# CPU (REDUCED_REL); jamba at full width and SERVE_LAYERS' depth in float32
+# under (1, 1) against the same model without a mesh, and on (1, 2) as two
+# gloo processes sharing the card against the (1, 1) run, prefill and
+# EP_DECODE_STEPS decode steps, within EP_REL of max (behind its Mamba
+# scans). Float32, because in bf16 the two MoE paths differ by design:
+# moe_apply_local rounds the gated expert outputs and their sum to bf16
+# where moe_apply_ep sums in float32 (JAX's two paths do the same), and at
+# decode's capacity of 1 such a rounding flips a near-tie route (a bf16
+# run: logits 0.014, 0.186, 0.012 of max apart). --ep-world, one rank of
+# four under torchrun with NCCL: first moonshot at EP_CHECK_LAYERS layers in
+# float32 on (1, 4) and (2, 2), SERVE_RUN's batch, against the same model
+# without a mesh on each rank's data shard (each data shard routes its own
+# tokens): the rank's rows of the gathered logits within EP_REL of max,
+# every MoE call's routed ids and kept mask equal; then SERVE_RUN (bf16) at
+# full depth, jamba on (1, 4) and moonshot on (1, 4) and (2, 2)
+EP_REDUCED = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b")
+EP_DECODE_STEPS = 2
+EP_REL = 2.0 ** -8
+EP_GLOO_TIMEOUT_S = 240
+EP_WORLD = (("jamba-v0.1-52b", (1, 4)), ("moonshot-v1-16b-a3b", (1, 4)),
+            ("moonshot-v1-16b-a3b", (2, 2)))
+EP_CHECK_ARCH, EP_CHECK_LAYERS, EP_CHECK_MESHES = "moonshot-v1-16b-a3b", 4, ((1, 4), (2, 2))
+# moonshot's k = 6 outputs of a token are summed in another order under EP
+# (each rank its own, then the all-reduce) than without (in k order), so a
+# later layer's router may see a last-bit difference and flip a near tie:
+# at most this share of the routes may differ (predicted 0)
+EP_ROUTE_SHARE = 2.0 ** -10
 
 
 # [cross_silo]: cross-silo FL of the LMs at full width (fl/cross_silo.py):
@@ -2213,7 +2257,7 @@ def join_world(key, procs, logs, out: str, deadline: float) -> list:
         if p.returncode != 0:
             with open(log.name) as f:
                 tail = f.read()[-3000:]
-            raise SmokeFailure(f"[shard] gloo world {key} rank {r} exited {p.returncode}:\n{tail}")
+            raise SmokeFailure(f"{key} rank {r} exited {p.returncode}:\n{tail}")
     return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(len(procs))]
 
 
@@ -2251,7 +2295,8 @@ def phase_shard_gloo(dev: torch.device, card: str) -> None:
                                                      goldens=world == SHARD_GOLDEN_WORLD)
         deadline = time.monotonic() + SHARD_TIMEOUT_S
         t0 = time.perf_counter()
-        res = {key: join_world(key, *v, deadline) for key, v in started.items()}
+        res = {key: join_world(f"[shard] gloo world {key}", *v, deadline)
+               for key, v in started.items()}
         wall_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(base, ignore_errors=True)
@@ -2450,6 +2495,407 @@ def nccl_world_main(where: str = "cuda") -> int:
         return 1
     return 0
 
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE over a mesh of ranks ([ep], --ep-worker, --ep-world)
+# ---------------------------------------------------------------------------
+
+
+class EPCallCounter:
+    """Within its ``with``, counts the expert-parallel MoE calls (each one
+    all-reduce over ``model``) by wrapping ``layers.moe_ep_routes``."""
+
+    def __enter__(self):
+        self.calls, self.fn = 0, layers.moe_ep_routes
+
+        def counted(*args):
+            self.calls += 1
+            return self.fn(*args)
+
+        layers.moe_ep_routes = counted
+        return self
+
+    def __exit__(self, *exc):
+        layers.moe_ep_routes = self.fn
+
+
+class RouteRecorder:
+    """Within its ``with``, keeps every ``layers.moe_route`` call's routed
+    expert ids and kept mask on the host."""
+
+    def __enter__(self):
+        self.calls, self.fn = [], layers.moe_route
+
+        def recorded(p, xf, cfg):
+            out = self.fn(p, xf, cfg)
+            self.calls.append((out[1].cpu(), out[4].cpu()))
+            return out
+
+        layers.moe_route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        layers.moe_route = self.fn
+
+
+def ep_steps(cfg, model, tokens: torch.Tensor, dec: torch.Tensor | None) -> tuple:
+    """Prefill ``tokens`` then one decode step a column of ``dec`` (None:
+    the greedy tokens of each step): ((1 + steps, B, V) logits on the host,
+    the decode tokens fed, the steps' CUDA-event ms)."""
+    prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+    timed = model.device.type == "cuda"
+    events = [torch.cuda.Event(enable_timing=True) if timed else None
+              for _ in range(2 * (1 + EP_DECODE_STEPS))]
+
+    def mark(i):
+        if timed:
+            events[i].record()
+
+    mark(0)
+    logits, cache = prefill(model, {"tokens": tokens})
+    mark(1)
+    out, fed = [logits.float().cpu()], []
+    for t in range(EP_DECODE_STEPS):
+        tok = (torch.argmax(logits, dim=-1)[:, None].to(torch.int32) if dec is None
+               else dec[:, t:t + 1])
+        fed.append(tok.cpu())
+        mark(2 + 2 * t)
+        logits, cache = decode(model, cache, tok)
+        mark(3 + 2 * t)
+        out.append(logits.float().cpu())
+    if not timed:
+        return torch.stack(out), torch.cat(fed, dim=1), []
+    torch.cuda.synchronize()
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(0, len(events), 2)]
+    return torch.stack(out), torch.cat(fed, dim=1), ms
+
+
+def ep_jamba(dev: torch.device):
+    """jamba-v0.1-52b at full width in float32, cut to SERVE_LAYERS' depth
+    (53.2 GB of parameters), and its prefill batch (SERVE_RUN's batch of
+    prompt_len tokens from key 11)."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), dtype="float32",
+                              n_layers=SERVE_LAYERS["jamba-v0.1-52b"])
+    toks = make_concrete_batch(cfg, "prefill", SERVE_RUN["batch"], SERVE_RUN["prompt_len"],
+                               prng.PRNGKey(11))["tokens"]
+    return cfg, toks
+
+
+def phase_ep(dev: torch.device, card: str) -> dict[str, int]:
+    """The expert-parallel MoE on the one card: (a) under a (1, 1) mesh (one
+    world-1 group, gloo for CPU tensors and NCCL for the card's), the
+    reduced float32 MoE family and jamba, prefill and 4 decode steps, the
+    card against the CPU within REDUCED_REL, every MoE call through
+    ``moe_apply_ep`` and exactly ``expected_launches``; (b) jamba at full
+    width and SERVE_LAYERS' depth, float32, SERVE_RUN's batch, prefill and
+    EP_DECODE_STEPS greedy decode steps without a mesh and then under
+    (1, 1), within EP_REL of max; (c) the same on (1, 2) as two gloo
+    processes sharing the card (``--ep-worker``; NCCL cannot put two ranks
+    on one card), fed (b)'s decode tokens, each rank within EP_REL of (b)'s
+    (1, 1) logits and both equal. Returns the kernels' launches in (a),
+    (b)'s mesh run and (c)'s ranks."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = make_rank_mesh((1, 1), device=dev, backend="cpu:gloo,cuda:nccl")
+    try:
+        with mesh_ctx.mesh_context(mesh):
+            for arch in EP_REDUCED:
+                cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+                bundle = get_model(cfg)
+                cpu_model = bundle.init(torch.Generator().manual_seed(0))
+                dev_model = copy.deepcopy(cpu_model).to(dev)
+                batch = make_concrete_batch(cfg, "prefill", 4, 64, prng.PRNGKey(1))["tokens"]
+                with EPCallCounter() as ep_calls:
+                    kernels.reset_launch_counts()
+                    got, dec, _ = ep_steps(cfg, dev_model, batch, None)
+                    counts = kernels.launch_counts()
+                    n_calls = ep_calls.calls
+                want, _, _ = ep_steps(cfg, cpu_model, batch, dec)
+                gaps = [rel_gap(g, w) for g, w in zip(got, want)]
+                n_moe = sum(sp.moe for sp in transformer.layer_specs(cfg))
+                check(counts == expected_launches(cfg, 1, EP_DECODE_STEPS),
+                      f"[ep] {arch} reduced (1, 1): launches {counts}")
+                check(n_calls == n_moe * (1 + EP_DECODE_STEPS),
+                      f"[ep] {arch} reduced (1, 1): {n_calls} moe_apply_ep calls on the card")
+                check(max(gaps) <= REDUCED_REL[arch],
+                      f"[ep] {arch} reduced (1, 1): card vs CPU {gaps} > {REDUCED_REL[arch]}")
+                for k, n in counts.items():
+                    launches[k] += n
+                print(f"[ep] {arch} reduced float32 under a (1, 1) mesh, card vs CPU logits gap / "
+                      f"max, prefill then {EP_DECODE_STEPS} decode steps: {gaps} (contract "
+                      f"{REDUCED_REL[arch]}); {n_calls} moe_apply_ep calls on the card")
+        del cpu_model, dev_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, toks = ep_jamba(dev)
+        model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        plain, dec, plain_ms = ep_steps(cfg, model, toks, None)
+        kernels.reset_launch_counts()
+        with mesh_ctx.mesh_context(mesh), EPCallCounter() as ep_calls:
+            ep11, _, ep_ms = ep_steps(cfg, model, toks, dec.to(dev))
+        counts = kernels.launch_counts()
+        del model
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap11 = [rel_gap(a, b) for a, b in zip(ep11, plain)]
+    check(counts == expected_launches(cfg, 1, EP_DECODE_STEPS),
+          f"[ep] jamba {cfg.n_layers} layers (1, 1): launches {counts}")
+    check(ep_calls.calls == cfg.n_layers // 2 * (1 + EP_DECODE_STEPS),
+          f"[ep] jamba (1, 1): {ep_calls.calls} moe_apply_ep calls")
+    check(max(gap11) <= EP_REL, f"[ep] jamba (1, 1) vs no mesh: {gap11} > {EP_REL} of max")
+    for k, n in counts.items():
+        launches[k] += n
+    print(f"[ep] {card}: jamba-v0.1-52b full width, {cfg.n_layers} layers, {cfg.dtype}, batch "
+          f"{tuple(toks.shape)}: (1, 1) mesh vs no mesh logits gap / max, prefill then "
+          f"{EP_DECODE_STEPS} decode steps {gap11} (contract {EP_REL}); step ms (CUDA events) "
+          f"no mesh {[round(t, 3) for t in plain_ms]}, (1, 1) {[round(t, 3) for t in ep_ms]}")
+
+    base = scratch_dir("ep_gloo_")
+    try:
+        np.save(os.path.join(base, "dec.npy"), dec.numpy())
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        procs, logs = [], []
+        for r in range(2):
+            log = open(os.path.join(base, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--ep-worker", str(r), "2", base,
+                 str(dev)],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+            logs.append(log)
+        ranks = join_world("[ep] gloo world (1, 2)", procs, logs, base,
+                           time.monotonic() + EP_GLOO_TIMEOUT_S)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gap12 = [[rel_gap(torch.from_numpy(a), b) for a, b in zip(rk["logits"], ep11)] for rk in ranks]
+    check(max(map(max, gap12)) <= EP_REL, f"[ep] jamba (1, 2) vs (1, 1): {gap12} > {EP_REL}")
+    check(np.array_equal(ranks[0]["logits"], ranks[1]["logits"]),
+          "[ep] jamba (1, 2): the two ranks' logits differ")
+    for rk in ranks:
+        check(int(rk["ep_calls"]) == cfg.n_layers // 2 * (1 + EP_DECODE_STEPS),
+              f"[ep] jamba (1, 2): {int(rk['ep_calls'])} moe_apply_ep calls")
+        for k in kernels.KERNELS:
+            launches[k] += int(rk[f"launches/{k}"])
+    print(f"[ep] jamba (1, 2) as 2 gloo processes on the card: logits gap / max to the (1, 1) run "
+          f"by rank {gap12} (contract {EP_REL}), ranks equal; expert slices "
+          f"{[tuple(int(n) for n in rk['wg_shape']) for rk in ranks]}, peak GiB by rank "
+          f"{[round(float(rk['peak']) / 2**30, 2) for rk in ranks]}, step ms by rank "
+          f"{[[round(float(t), 3) for t in rk['ms']] for rk in ranks]}; [ep] "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ep_worker(rank: str, world: str, base: str, device: str) -> int:
+    """One rank of [ep]'s gloo world (``--ep-worker``), every rank on
+    ``device``: jamba at SERVE_LAYERS' depth on a (1, world) mesh, prefill
+    and the decode tokens in ``base/dec.npy``; saves its logits, launches,
+    expert slice shape and peak memory."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(base, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        full_precision_matmuls()
+        mesh = make_rank_mesh((1, world), device=dev)
+        dec = torch.from_numpy(np.load(os.path.join(base, "dec.npy"))).to(dev)
+        try:
+            with mesh_ctx.mesh_context(mesh):
+                cfg, toks = ep_jamba(dev)
+                model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+                kernels.reset_launch_counts()
+                with EPCallCounter() as ep_calls:
+                    logits, _, ms = ep_steps(cfg, model, toks, dec)
+                counts = kernels.launch_counts()
+                wg = next(blk["moe"]["wg"] for blk in model.blocks if "moe" in blk)
+        finally:
+            mesh.close()
+        np.savez(os.path.join(base, f"rank{rank}.npz"), logits=logits.numpy(), ms=np.asarray(ms),
+                 ep_calls=ep_calls.calls, wg_shape=np.asarray(wg.shape),
+                 peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+                 **{f"launches/{k}": n for k, n in counts.items()})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def ep_world_main(where: str = "cuda") -> int:
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py --ep-world``
+    (NCCL, ``cuda:{rank}``; "cpu" rehearses it over gloo on the CPU at the
+    reduced float32 configs and 64-token prompts): first ``ep_world_check``
+    on each EP_CHECK_MESHES mesh, then SERVE_RUN through ``serve`` inside
+    ``mesh_context`` on each EP_WORLD mesh, jamba-v0.1-52b and
+    moonshot-v1-16b-a3b at full depth. Checked on every rank: the stats,
+    the launches ``expected_launches`` gives, every rank's greedy tokens
+    equal. Rank 0 prints prefill ms, decode step ms, tok/s, peak
+    GiB by rank, the routes dropped at prefill and decode (summed over the
+    data shards) and the launches; every rank exits non-zero when any rank
+    found a fault."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cpu = where == "cpu"
+    dist.init_process_group("gloo" if cpu else "nccl")
+    failures = []
+    try:
+        if cpu:
+            torch.set_num_threads(1)
+            dev = torch.device("cpu")
+        else:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        card = "CPU rehearsal" if cpu else phase_environment() if rank == 0 else ""
+        if not cpu and rank == 0:
+            phase_build()
+        dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
+        run = dict(SERVE_RUN, prompt_len=64) if cpu else SERVE_RUN
+        check_cfg = get_config(EP_CHECK_ARCH)
+        check_cfg = dataclasses.replace(check_cfg.reduced() if cpu else check_cfg, dtype="float32",
+                                        **({} if cpu else {"n_layers": EP_CHECK_LAYERS}))
+        for shape in EP_CHECK_MESHES:
+            mesh = make_rank_mesh(shape, device=dev)
+            try:
+                failures += ep_world_check(check_cfg, mesh, run, card)
+            finally:
+                mesh.close()
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        for arch, shape in EP_WORLD:
+            cfg = get_config(arch)
+            if cpu:
+                cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+            mesh = make_rank_mesh(shape, device=dev)
+            try:
+                failures += ep_world_serve(cfg, mesh, run, card, cpu)
+            finally:
+                mesh.close()
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        n_bad = torch.full((1,), float(len(failures)), device=dev)
+        dist.all_reduce(n_bad)
+        failures += [] if int(n_bad.item()) == len(failures) else ["another rank failed"]
+    finally:
+        dist.destroy_process_group()
+    if failures:
+        print(f"[ep-world] rank {rank}: {failures}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def ep_world_check(cfg, mesh, run: dict, card: str) -> list:
+    """``cfg`` (float32) on ``mesh`` against the same model without one, on
+    every rank: prefill SERVE_RUN's batch (``run``'s prompt length) and
+    EP_DECODE_STEPS greedy decode steps under the mesh; then, without a
+    mesh, the same weights on the rows of this rank's data shard fed the
+    same decode tokens (a data shard routes its own tokens and counts
+    capacity over them, so this is its expectation; the whole batch where
+    one data rank). The rank's rows of the gathered logits must lie within
+    EP_REL of max of it, and every MoE call's routed ids and kept mask
+    (``moe_route``'s, over the shard's tokens) equal it but for at most
+    EP_ROUTE_SHARE of them. Rank 0 prints every rank's readings; returns
+    this rank's failures."""
+    dev = mesh.device
+    toks = make_concrete_batch(cfg, "prefill", run["batch"], run["prompt_len"],
+                               prng.PRNGKey(11))["tokens"]
+    with mesh_ctx.mesh_context(mesh):
+        rows = mesh_ctx.data_rows(cfg, toks.shape[0]) or slice(0, toks.shape[0])
+        model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        with RouteRecorder() as got_routes:
+            got, dec, ms = ep_steps(cfg, model, toks, None)
+    del model
+    plain = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    with RouteRecorder() as want_routes:
+        want, _, _ = ep_steps(cfg, plain, toks[rows], dec[rows].to(dev))
+    del plain
+    gaps = [rel_gap(g[rows], w) for g, w in zip(got, want)]
+    pairs = list(zip(got_routes.calls, want_routes.calls))
+    n_routes = sum(w[0].numel() for w in want_routes.calls)
+    differ = sum(int((gi != wi).sum() + (gk != wk).sum()) if gi.shape == wi.shape
+                 else wi.numel() for (gi, gk), (wi, wk) in pairs)
+    same_calls = len(got_routes.calls) == len(want_routes.calls) > 0
+    n_dropped = sum(int((~wk).sum()) for _, wk in want_routes.calls)
+    mine = torch.tensor([[*gaps, differ, float(same_calls), n_dropped, n_routes, *ms[:1]]],
+                        dtype=torch.float64, device=dev)
+    every = mesh.all_gather(mine, mesh.axis_names).cpu()
+    shape = tuple(mesh.shape.values())
+    failures = []
+    if not (same_calls and differ <= EP_ROUTE_SHARE * n_routes and max(gaps) <= EP_REL):
+        failures.append(f"{cfg.name} {cfg.n_layers} layers on {shape} rank {mesh.rank} vs no "
+                        f"mesh on its data shard: logits gap / max {gaps} (contract {EP_REL}), "
+                        f"{differ} routed ids or kept flags of {n_routes} differ (contract "
+                        f"{EP_ROUTE_SHARE} of them) over "
+                        f"{len(got_routes.calls)} / {len(want_routes.calls)} MoE calls")
+    if mesh.rank == 0:
+        n = len(gaps)
+        print(f"[ep-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}, batch "
+              f"{tuple(toks.shape)}, prefill then {EP_DECODE_STEPS} decode steps, against the "
+              f"model without a mesh on each rank's data shard: logits gap / max by rank "
+              f"{every[:, :n].tolist()} (contract {EP_REL}); routed ids and kept flags differing "
+              f"by rank {every[:, n].long().tolist()} of {every[:, n + 3].long().tolist()} "
+              f"routes (contract {EP_ROUTE_SHARE} of them; {len(pairs)} MoE calls a rank; dropped {every[:, n + 2].long().tolist()}); "
+              f"prefill ms under the mesh by rank {every[:, n + 4:].flatten().tolist()}")
+    return failures
+
+
+def ep_world_serve(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
+    """One serving run of ``cfg`` on ``mesh`` (every rank); returns this
+    rank's failures."""
+    dev = mesh.device
+    failures = []
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats(dev)
+    drops = MoEDropCounter(dev, run["batch"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mesh_ctx.mesh_context(mesh), drops:
+        stats = serve(cfg, **run)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    shape = tuple(mesh.shape.values())
+    what = f"{cfg.name} on {shape} rank {mesh.rank}"
+    want = expected_launches(cfg, stats["prefill_calls"], len(stats["decode_ms"]))
+    if cpu:
+        want = dict.fromkeys(want, 0)  # the plain versions on the CPU
+    if not (stats["n_requests"] == run["requests"] and stats["logits_finite"]
+            and stats["tokens"] == sum(stats["lens"]) and counts == want):
+        failures.append(f"{what}: stats {stats['n_requests']} requests, finite "
+                        f"{stats['logits_finite']}, tokens {stats['tokens']} of {stats['lens']}, "
+                        f"launches {counts}, expected {want}")
+    out = torch.full((run["requests"], run["max_new"]), -1, dtype=torch.int64, device=dev)
+    for i, toks in enumerate(stats["outputs"]):
+        out[i, :len(toks)] = torch.tensor(toks, dtype=torch.int64)
+    every = mesh.all_gather(out, mesh.axis_names).reshape(mesh.world, *out.shape)
+    same_tokens = bool((every == every[0]).all())
+    if not same_tokens:
+        failures.append(f"{what}: the ranks' greedy tokens differ")
+    routes = torch.tensor([[drops.routes[k], int(drops.dropped[k])] for k in ("prefill", "decode")],
+                          dtype=torch.int64, device=dev)
+    mesh.all_reduce(routes, mesh_ctx.dp_axes())  # each data shard routes its own tokens
+    if mesh.rank == 0:
+        peaks = stats["peak_bytes_by_rank"]
+        dropped = {k: {"routes": int(routes[i, 0]), "dropped": int(routes[i, 1]),
+                       "share": int(routes[i, 1]) / max(int(routes[i, 0]), 1)}
+                   for i, k in enumerate(("prefill", "decode"))}
+        print(f"[ep-world] {card}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}, "
+              f"{cfg.param_count() / 1e9:.2f} B params) on mesh (data, model) = {shape}, "
+              f"{mesh.world} ranks ({mesh.backend}): {run['requests']} requests, batch "
+              f"{run['batch']}, prompt {run['prompt_len']}, max_new {run['max_new']}; lens "
+              f"{stats['lens']}, {stats['prefill_calls']} prefills, {len(stats['decode_ms'])} "
+              f"decode steps; every rank's greedy tokens equal: {same_tokens}")
+        print(f"[ep-world] {cfg.name} {shape}: prefill ms median "
+              f"{statistics.median(stats['prefill_ms']):.3f} all "
+              f"{[round(t, 3) for t in stats['prefill_ms']]}; decode step ms median "
+              f"{statistics.median(stats['decode_ms']):.3f} (min {min(stats['decode_ms']):.3f}, "
+              f"max {max(stats['decode_ms']):.3f}); {stats['tok_per_s']:.2f} tok/s, serving span "
+              f"{stats['wall_s']:.2f} s (with init {wall:.2f} s); peak GiB by rank "
+              f"{None if peaks is None else [round(b / 2**30, 2) for b in peaks]}; MoE routes "
+              f"dropped {json.dumps(dropped)}; rank 0 launches {json.dumps(counts)}")
+    return failures
 
 
 # ---------------------------------------------------------------------------
@@ -3032,6 +3478,10 @@ def main() -> int:
         return shard_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--nccl-world"]:  # one rank under torchrun
         return nccl_world_main(*sys.argv[2:])
+    if sys.argv[1:2] == ["--ep-worker"]:  # one rank of [ep]'s gloo world
+        return ep_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--ep-world"]:  # one rank under torchrun
+        return ep_world_main(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -3067,6 +3517,10 @@ def main() -> int:
         by_arch = {a: c[name] for a, c in serve_launches.items() if c[name]}
         table[name]["launches_by_arch"] = by_arch
         launches[name] = sum(by_arch.values())
+    ep_launches = phase_ep(dev, card)
+    for name in ("ssm_scan", "flash_attention"):
+        table[name]["ep_launches"] = ep_launches[name]
+        launches[name] += ep_launches[name]
     phase_train_reference(dev)
     train_launches = phase_train(dev, card)
     for name in ("ssm_scan", "flash_attention"):  # the forward kernels train too

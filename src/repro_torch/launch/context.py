@@ -1,0 +1,126 @@
+"""The mesh context of the port — the port of the JAX package's
+``launch/context.py``.
+
+Model code reads it: under ``mesh_context(mesh)`` the MoE takes its
+expert-parallel path (``models.layers.moe_apply_ep``), the decoder's steps
+run this rank's data shard of the batch and all-gather the logits
+(``models.transformer.make_prefill_step`` / ``make_decode_step``), and
+``init_params`` / ``init_cache`` keep this rank's expert slices and its
+data shard of the cache. Without a mesh every hook is a no-op, as in JAX.
+
+The JAX package runs one SPMD program over global arrays; the port runs one
+process a rank of a ``launch.mesh.RankMesh``. Every rank holds every
+non-expert parameter whole and the ``model`` shard of each expert leaf's E
+axis (``launch.sharding.expert_block``). Only the MoE changes values under
+a mesh: JAX's ``moe_apply_ep`` splits its tokens over the data axes where
+they divide the batch (``B % n_dp == 0``), and each data shard then routes
+its own tokens and counts capacity over them, while ``moe_apply_local``
+counts it over the whole global batch. So the steps split the batch
+exactly where the MoE takes ``moe_apply_ep`` and the data axes divide it,
+or where the model has no MoE (its rows are then independent), and every
+rank takes the whole batch otherwise (``data_rows``). Every other sharding
+of the JAX model code (``constrain``) is layout alone and has no
+counterpart here; ``seq_parallel``, which JAX reads only in training,
+raises until training under a mesh is ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+
+from repro_torch.launch.sharding import expert_block
+
+__all__ = ["data_rows", "dp_axes", "expert_parallel", "expert_rows", "gather_rows", "get_mesh",
+           "local_batch", "mesh_context", "moe_ep_enabled", "n_data"]
+
+_MESH = None
+_DP_AXES: tuple[str, ...] = ("data",)
+_MOE_EP: bool = True
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: bool = False):
+    """Open ``mesh`` (a ``RankMesh``) for the model code within; the
+    previous context comes back on exit, after an exception too. The data
+    axes' process group is made here, on every rank in the same order.
+    ``seq_parallel=True`` raises: JAX reads it only in training, which
+    does not run under a mesh here yet."""
+    global _MESH, _DP_AXES, _MOE_EP
+    if seq_parallel:
+        raise NotImplementedError("mesh_context(seq_parallel=True): the sequence-parallel "
+                                  "layout of training under a mesh, ROADMAP.md queue 1 item 5 "
+                                  "(item 14.8)")
+    dp_axes = tuple(dp_axes)
+    missing = [a for a in dp_axes if a not in mesh.shape]
+    if missing or "model" not in mesh.shape:
+        raise ValueError(f"mesh_context: the mesh's axes are {tuple(mesh.shape)}; it needs "
+                         f"'model' and the data axes {dp_axes}")
+    mesh.group(dp_axes)
+    prev = (_MESH, _DP_AXES, _MOE_EP)
+    _MESH, _DP_AXES, _MOE_EP = mesh, dp_axes, bool(moe_ep)
+    try:
+        yield mesh
+    finally:
+        _MESH, _DP_AXES, _MOE_EP = prev
+
+
+def get_mesh():
+    return _MESH
+
+
+def dp_axes() -> tuple[str, ...]:
+    return _DP_AXES
+
+
+def moe_ep_enabled() -> bool:
+    return _MESH is not None and _MOE_EP
+
+
+def expert_parallel(n_experts: int) -> bool:
+    """Whether an MoE of ``n_experts`` experts takes ``moe_apply_ep``: under
+    an expert-parallel mesh context whose ``model`` axis divides them
+    (JAX's dispatch in ``moe_apply``)."""
+    return moe_ep_enabled() and n_experts % _MESH.shape["model"] == 0
+
+
+def n_data() -> int:
+    """Ranks over the data axes (1 without a mesh)."""
+    return 1 if _MESH is None else math.prod(_MESH.shape[a] for a in _DP_AXES)
+
+
+def data_rows(cfg, batch: int) -> slice | None:
+    """The rows ``[i B / n_dp, (i + 1) B / n_dp)`` of a global batch of
+    ``batch`` of model ``cfg`` that this rank (data index i) runs, or None
+    where it runs them all: no mesh, one data rank, ``B % n_dp != 0`` (JAX's
+    ``moe_apply_ep`` then replicates the tokens over the data axes), or an
+    MoE that takes ``moe_apply_local`` (which counts capacity over the whole
+    global batch)."""
+    n = n_data()
+    if n == 1 or batch % n != 0 or (cfg.n_experts and not expert_parallel(cfg.n_experts)):
+        return None
+    i = _MESH.index(_DP_AXES)
+    size = batch // n
+    return slice(i * size, (i + 1) * size)
+
+
+def local_batch(cfg, batch: int) -> int:
+    """The rows of a global batch of ``batch`` that this rank holds."""
+    return batch if data_rows(cfg, batch) is None else batch // n_data()
+
+
+def gather_rows(cfg, t: torch.Tensor, batch: int) -> torch.Tensor:
+    """This rank's rows of a global batch of ``batch`` -> every rank's, in
+    order, along dim 0 (one all-gather over the data axes); ``t`` itself
+    where every rank holds the whole batch."""
+    if data_rows(cfg, batch) is None:
+        return t
+    return _MESH.all_gather(t, _DP_AXES)
+
+
+def expert_rows(n_experts: int) -> slice | None:
+    """The experts of an expert leaf's E axis this rank holds under an
+    expert-parallel mesh, or None (every expert) outside one."""
+    return expert_block(n_experts, _MESH) if moe_ep_enabled() else None

@@ -1,5 +1,6 @@
-"""The cohort mesh of the port — the port of the JAX package's
-``launch/mesh.py`` (``make_cohort_mesh``, ``data_axes``).
+"""The meshes of the port — the port of the JAX package's
+``launch/mesh.py`` (``make_production_mesh``, ``make_cohort_mesh``,
+``data_axes``).
 
 The JAX package's 1-D ``cohort`` mesh is a set of devices that one
 ``shard_map`` program spans. Here it is the ranks of a ``torch.distributed``
@@ -14,13 +15,24 @@ A world of D > 1 is started from outside, one process a rank
 ``FileStore`` in a temporary directory (gloo on the CPU, NCCL on the card),
 and ``CohortMesh.close`` removes it.
 
-``make_production_mesh`` (the 16x16 production mesh) comes with the model
-zoo's training (ROADMAP.md queue 1 item 14.8); the JAX module's ``HW``
-table holds TPU figures and is not carried over.
+The production mesh (``make_production_mesh``: ``data`` x ``model``, and
+``pod`` for two pods) and its dev-scale shapes (``make_rank_mesh``) are a
+``RankMesh``: the ranks of the world laid out row-major over named axes, as
+``jax.make_mesh`` lays out its devices, rank r at coordinates
+``coords``. It makes one process group per set of axes asked for (the
+``model`` group: the ranks that share every other coordinate; the data
+group: those that share the ``model`` one), on every rank in the same
+order. ``launch.context.mesh_context`` opens it for the model code: the
+expert-parallel MoE sums its partial outputs over the ``model`` group and
+the decoder's steps gather their logits over the data group.
+
+The JAX module's ``HW`` table holds TPU figures and is not carried over.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import shutil
 import tempfile
@@ -30,7 +42,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["CohortMesh", "data_axes", "make_cohort_mesh", "rank_device"]
+__all__ = ["CohortMesh", "RankMesh", "data_axes", "make_cohort_mesh", "make_production_mesh",
+           "make_rank_mesh", "rank_device"]
 
 
 class CohortMesh:
@@ -74,15 +87,182 @@ class CohortMesh:
     def close(self) -> None:
         """Destroy the world-1 group this mesh opened (nothing for a group
         the caller started)."""
-        if self._store_dir is not None:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-            shutil.rmtree(self._store_dir, ignore_errors=True)
-            self._store_dir = None
+        _close_world_of_one(self._store_dir)
+        self._store_dir = None
 
     def __repr__(self) -> str:
         return (f"CohortMesh(cohort={self.world}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend!r})")
+
+
+class RankMesh:
+    """The world's ranks over named axes: ``shape`` maps each axis name to
+    its size (so the ``launch/sharding.py`` rules take the mesh as they
+    take a JAX one), rank r sits at ``coords``, r's row-major digits over
+    the axes, and computes on ``device``. ``group(axes)`` is the process
+    group of the ranks that differ from this one only along ``axes``."""
+
+    def __init__(self, axis_names, sizes, rank: int, device: torch.device, backend: str,
+                 store_dir: str | None = None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in sizes)))
+        self.world = math.prod(self.shape.values())
+        self.rank = int(rank)
+        self.coords = dict(zip(self.axis_names, _digits(self.rank, self.shape.values())))
+        self.device = torch.device(device)
+        self.backend = str(backend)
+        self._store_dir = store_dir  # set when this mesh opened the world-1 group itself
+        self._groups: dict = {}
+        self.group(("model",))
+        self.group(tuple(a for a in self.axis_names if a != "model"))
+
+    @property
+    def size(self) -> int:
+        return self.world
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"mesh axes {self.axis_names} have no {unknown}")
+        return tuple(a for a in self.axis_names if a in axes)  # the mesh's order
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over ``axes``."""
+        i = 0
+        for a in self._axes(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes):
+        """The process group along ``axes``: the ranks whose coordinates
+        off ``axes`` are this rank's, ordered by their index over ``axes``.
+        Made on first use; every rank makes every such group, in the same
+        order, so every rank must ask for the same axes in the same order."""
+        axes = self._axes(axes)
+        if axes not in self._groups:
+            strides = {a: math.prod(list(self.shape.values())[i + 1:])
+                       for i, a in enumerate(self.axis_names)}
+            other = [a for a in self.axis_names if a not in axes]
+            mine = None
+            for fixed in itertools.product(*(range(self.shape[a]) for a in other)):
+                base = sum(c * strides[a] for a, c in zip(other, fixed))
+                ranks = [base + sum(c * strides[a] for a, c in zip(axes, along))
+                         for along in itertools.product(*(range(self.shape[a]) for a in axes))]
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = g
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def all_reduce(self, buf: torch.Tensor, axes="model") -> torch.Tensor:
+        """Sum ``buf`` over the ranks along ``axes``, in place (one
+        collective)."""
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axes))
+        return buf
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's ``t`` along ``axes``, concatenated on dim 0 in their
+        order (one collective)."""
+        n = math.prod(self.shape[a] for a in self._axes(axes))
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=self.group(axes))
+        return torch.cat(parts)
+
+    def close(self) -> None:
+        """Destroy the groups this mesh made, and the world-1 group it
+        opened (nothing of a world the caller started)."""
+        if dist.is_initialized():
+            for g in self._groups.values():
+                if g is not None:
+                    dist.destroy_process_group(g)
+        self._groups = {}
+        _close_world_of_one(self._store_dir)
+        self._store_dir = None
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"RankMesh({axes}, rank={self.rank} at {self.coords}, device={self.device}, "
+                f"backend={self.backend!r})")
+
+
+def _open_world_of_one(backend: str) -> str:
+    """Open a world-1 process group over a ``FileStore`` in a new temporary
+    directory; returns the directory."""
+    store_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    return store_dir
+
+
+def _close_world_of_one(store_dir: str | None) -> None:
+    """Destroy the group ``_open_world_of_one`` opened and remove its
+    directory (nothing for None)."""
+    if store_dir is not None:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _digits(r: int, sizes) -> list[int]:
+    out = []
+    for n in reversed(list(sizes)):
+        out.append(r % n)
+        r //= n
+    return out[::-1]
+
+
+def make_rank_mesh(shape, axes=("data", "model"), device=None, backend: str | None = None
+                   ) -> RankMesh:
+    """A mesh of ``shape`` over the world's ranks (dev scale: (1, 1) in
+    process, (1, 2), (1, 4), (2, 2), (4, 1), ...): the product of
+    ``shape`` must be the world size. With no process group initialized, a
+    world of 1 opens its own over a ``FileStore`` in a temporary directory
+    (``backend``, else gloo for a CPU ``device`` and NCCL for a CUDA one;
+    "cpu:gloo,cuda:nccl" takes both), which ``RankMesh.close`` destroys; a
+    larger one raises. ``device`` defaults to ``rank_device()``."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=0) < 1:
+        raise ValueError(f"make_rank_mesh: shape {shape} for axes {axes}")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"make_rank_mesh: a {shape} mesh needs {n} ranks but no torch.distributed "
+                f"process group is initialized; start one process a rank (torchrun "
+                f"--nproc-per-node {n} ...) and build the mesh on every rank")
+        dev = rank_device(device)
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        return RankMesh(axes, shape, 0, dev, backend, store_dir=_open_world_of_one(backend))
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"make_rank_mesh: a {shape} mesh needs a world of {n} ranks; the "
+                         f"process group has {world}")
+    backend = str(dist.get_backend())
+    dev = rank_device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"make_rank_mesh: an NCCL group needs CUDA tensors, got device {dev}")
+    return RankMesh(axes, shape, dist.get_rank(), dev, backend)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> RankMesh:
+    """16x16 single pod, or 2x16x16 across two pods: one rank a chip, over
+    a world of 256 or 512 ranks started one process a rank.
+
+    Axes:
+      pod   — inter-pod data parallelism (DCN-ish; FL silo groups span it)
+      data  — intra-pod data parallel / ZeRO / FL silo axis
+      model — tensor/expert parallel
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"make_production_mesh: the {'x'.join(map(str, shape))} mesh needs a "
+                         f"world of {n} ranks (torchrun --nnodes ... with {n} processes in "
+                         f"all), got {world or 'no process group'}")
+    return make_rank_mesh(shape, axes, device=device)
 
 
 def rank_device(device=None) -> torch.device:
@@ -123,10 +303,7 @@ def make_cohort_mesh(n_devices: int | None = None, group=None, device=None) -> C
                 f"run_federated on every rank")
         dev = rank_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        store_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
-        dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"), 1),
-                                rank=0, world_size=1)
-        return CohortMesh(None, 0, 1, dev, backend, store_dir=store_dir)
+        return CohortMesh(None, 0, 1, dev, backend, store_dir=_open_world_of_one(backend))
     world = dist.get_world_size(group)
     if n is not None and n > world:
         raise ValueError(

@@ -25,6 +25,13 @@ per-call times of the prefill and decode steps. ``--record DIR`` (``record=``)
 writes a serve record — manifest, ``requests.jsonl`` and a Perfetto trace
 of the request spans — through ``repro_torch.serve.ServeRecorder``, as the
 JAX CLI's ``--record`` does.
+
+Under a mesh of ranks (``launch.context.mesh_context`` around ``serve`` on
+every rank, one process a rank, e.g. under ``torchrun``) the ranks serve
+in lockstep: the same requests, each rank its data shard of every step
+and its experts of every MoE layer, the greedy decisions made on the
+gathered logits, which every rank holds. Rank 0 records; every rank
+returns its own stats, with the peak device memory of every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from repro_torch import random as prng
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import context as ctx
 from repro_torch.models.api import get_model, make_concrete_batch
 from repro_torch.serve import (
     ContinuousBatcher,
@@ -97,8 +105,14 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
     step's logits were finite). ``record`` is a directory for a serve
     record of the session (``stats["record"]`` names it). An arch whose
     prefill takes more than tokens is served in waves (``serve_waves``):
-    ``prefill_calls`` then counts the waves."""
-    dev = resolve_device(device)
+    ``prefill_calls`` then counts the waves. Under a mesh context the
+    device defaults to the mesh's, only rank 0 records, and
+    ``peak_bytes_by_rank`` lists each rank's peak allocated device memory
+    (``torch.cuda.max_memory_allocated``; None on the CPU)."""
+    mesh = ctx.get_mesh()
+    dev = resolve_device(mesh.device if device is None and mesh is not None else device)
+    if mesh is not None and mesh.rank != 0:
+        record = None
     bundle = get_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
     prefill = _Timed(bundle.make_prefill_step(window=window), dev)
@@ -146,8 +160,20 @@ def serve(cfg: ModelConfig, *, requests: int = 8, batch: int = 4, prompt_len: in
         timer="cuda-events" if dev.type == "cuda" else "host",
         logits_finite=bool(prefill.finite & decode.finite),
         device=str(dev),
+        peak_bytes_by_rank=_peak_bytes_by_rank(dev, mesh),
     )
     return stats
+
+
+def _peak_bytes_by_rank(dev: torch.device, mesh) -> list[int] | None:
+    """Each rank's peak allocated device memory, in rank order (one
+    all-gather over the mesh); None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev)], dtype=torch.int64, device=dev)
+    if mesh is not None:
+        peak = mesh.all_gather(peak, mesh.axis_names)
+    return [int(v) for v in peak.tolist()]
 
 
 def serve_waves(cfg: ModelConfig, prefill, decode, params, *, requests: int, batch: int,

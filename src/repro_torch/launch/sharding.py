@@ -23,6 +23,12 @@ Cohort lanes (``repro_torch.fl.shard``): ``lane_spec`` and
 (r+1)*K/D)`` that rank r of a ``CohortMesh`` holds, as a ``slice``, for a
 leaf or a tree; they raise where D does not divide K (the JAX package
 replicates such a leaf; the sharded round refuses it earlier).
+
+Expert parallelism (``launch.context``, ``models.layers.moe_apply_ep``):
+``expert_block`` gives the experts ``[j*E/n, (j+1)*E/n)`` of an expert
+leaf's E axis that the rank at ``model`` coordinate j of a ``RankMesh``
+holds: the ``model`` entry ``param_spec`` gives that axis, the only entry
+of the production rules the port applies to weights.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
-__all__ = ["batch_spec", "cache_pspecs", "cache_spec", "lane_block", "lane_spec", "param_spec",
+__all__ = ["batch_spec", "cache_pspecs", "cache_spec", "expert_block", "lane_block", "lane_spec", "param_spec",
            "tree_lane_pspecs", "tree_pspecs"]
 
 
@@ -148,6 +154,18 @@ def lane_spec(shape: tuple[int, ...], mesh, axis: str = "cohort") -> slice:
 def tree_lane_pspecs(tree, mesh, axis: str = "cohort") -> Any:
     """``lane_spec`` over every leaf of a lane-stacked tree."""
     return _map_with_path(lambda p, l: lane_spec(tuple(l.shape), mesh, axis), tree)
+
+
+def expert_block(n_experts: int, mesh) -> slice | None:
+    """The experts of an expert leaf's E axis that this rank of ``mesh``
+    holds (``mesh.coords["model"]`` j of n: ``[j*E/n, (j+1)*E/n)``), or None
+    where ``param_spec`` leaves the axis whole (n does not divide E)."""
+    n = mesh.shape["model"]
+    if n_experts % n != 0:
+        return None
+    size = n_experts // n
+    j = mesh.coords["model"]
+    return slice(j * size, (j + 1) * size)
 
 
 # ---------------------------------------------------------------------------

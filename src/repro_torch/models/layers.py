@@ -28,8 +28,11 @@ kernel keeping its chunk start states, then ``ssm_scan_bwd``). The decode
 steps and the MoE stay plain torch, as they are plain jnp in JAX (the
 experts are batched matrix products, which XLA computes outside any Pallas
 kernel); the MoE trains through ``moe_apply_local`` under plain autograd,
-capacity counted over the whole call. The expert-parallel MoE raises
-``NotImplementedError`` naming its ROADMAP.md item (queue 1 item 14.8).
+capacity counted over the whole call. Under ``launch.context.mesh_context``
+the MoE is expert-parallel (``moe_apply_ep``: this rank's experts on this
+rank's tokens, the partial outputs summed over the mesh's ``model``
+group); it serves, and raises ``NotImplementedError`` naming its ROADMAP.md
+item (queue 1 item 14.8) under autograd.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ssm_scan
+from repro_torch.launch import context as ctx
 from repro_torch.models.ssm_vjp import selective_scan
 
 _MODES = ("train", "prefill", "decode")
@@ -393,30 +397,37 @@ def swiglu(p, x):
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """The router in float32 whatever the config's dtype; E experts' SwiGLU
     weights stacked on a leading axis; the shared experts as one SwiGLU of
-    width ``d_ff_expert * n_shared_experts`` under ``shared``."""
+    width ``d_ff_expert * n_shared_experts`` under ``shared``. Under an
+    expert-parallel mesh every leaf is drawn as without one (the same
+    draws from ``gen``) and an expert leaf keeps only this rank's experts
+    (``launch.context.expert_rows``)."""
     d, e = cfg.d_model, cfg.n_experts
     dff = cfg.d_ff_expert or cfg.d_ff
     dt = torch_dtype(cfg)
+    rows = ctx.expert_rows(e)
+
+    def experts(shape, std):
+        t = _normal(gen, shape, std, dt)
+        return t if rows is None else t[rows].clone()  # the rest is freed at once
+
     p = {
         "router": _normal(gen, (d, e), 0.02, torch.float32),
-        "wg": _normal(gen, (e, d, dff), 0.02, dt),
-        "wu": _normal(gen, (e, d, dff), 0.02, dt),
-        "wd": _normal(gen, (e, dff, d), 0.02 / math.sqrt(2 * cfg.n_layers), dt),
+        "wg": experts((e, d, dff), 0.02),
+        "wu": experts((e, d, dff), 0.02),
+        "wd": experts((e, dff, d), 0.02 / math.sqrt(2 * cfg.n_layers)),
     }
     if cfg.n_shared_experts:
         p["shared"] = init_swiglu(gen, cfg, d_ff=dff * cfg.n_shared_experts)
     return p
 
 
-def moe_apply(p, x, cfg: ModelConfig, *, expert_parallel: bool = False):
-    """Token-choice top-k MoE: ``moe_apply_local``. Returns (y, aux_loss).
-
-    The JAX package switches to its expert-parallel ``moe_apply_ep`` when
-    it lowers under a production mesh (``launch/context.mesh_context``,
-    which only its dry run opens); that path comes with the production mesh
-    and raises here."""
-    if expert_parallel:
-        raise NotImplementedError(f"expert-parallel MoE (moe_apply_ep): {_item(8)}")
+def moe_apply(p, x, cfg: ModelConfig):
+    """Token-choice top-k MoE. Dispatches as the JAX function does: to the
+    expert-parallel ``moe_apply_ep`` under a mesh context whose ``model``
+    axis divides the experts, else ``moe_apply_local``. Returns (y,
+    aux_loss)."""
+    if ctx.expert_parallel(cfg.n_experts):
+        return moe_apply_ep(p, x, cfg)
     return moe_apply_local(p, x, cfg)
 
 
@@ -474,13 +485,15 @@ def moe_experts(p, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"]), p["wd"])
 
 
-def moe_combine(expert_out, gate, idx, pos, keep, cap: int) -> torch.Tensor:
+def moe_combine(expert_out, gate, idx, pos, keep, cap: int,
+                acc_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Each token's k expert outputs gathered at (idx, min(pos, cap - 1)),
-    weighted by gate * keep in the outputs' dtype (a dropped route adds
-    zero) and summed over k: (N, D)."""
+    weighted by gate * keep (a dropped route adds zero) and summed over k
+    in ``acc_dtype`` (default: the outputs' dtype): (N, D)."""
     n, k = idx.shape
-    gathered = expert_out[idx.reshape(-1), torch.clamp_max(pos, cap - 1)]
-    w = (gate.reshape(-1) * keep.to(torch.float32))[:, None].to(expert_out.dtype)
+    acc = acc_dtype or expert_out.dtype
+    gathered = expert_out[idx.reshape(-1), torch.clamp_max(pos, cap - 1)].to(acc)
+    w = (gate.reshape(-1) * keep.to(torch.float32))[:, None].to(acc)
     return (gathered * w).reshape(n, k, -1).sum(dim=1)
 
 
@@ -493,6 +506,69 @@ def moe_apply_local(p, x, cfg: ModelConfig):
     gate, idx, aux, pos, keep, cap = moe_route(p, xf, cfg)
     expert_out = moe_experts(p, moe_dispatch(xf, idx, pos, keep, cap, cfg.n_experts))
     y = moe_combine(expert_out, gate, idx, pos, keep, cap)
+    if cfg.n_shared_experts:
+        y = y + swiglu(p["shared"], xf)
+    return y.reshape(b, s, d), aux
+
+
+def moe_ep_routes(idx, keep, first: int, e_local: int):
+    """The routes that this rank's experts ``[first, first + e_local)``
+    take: (rel (N, k), each route's local expert, ``e_local - 1`` for
+    another rank's expert as JAX's ``safe_e``; keep (N*k,), ``keep`` and
+    the route's expert is this rank's). A route's place in its expert's
+    queue does not depend on the other experts' routes, so ``moe_route``'s
+    ``pos`` is the JAX function's count among the local experts."""
+    rel = idx - first
+    mine = (rel >= 0) & (rel < e_local)
+    return torch.where(mine, rel, e_local - 1), keep & mine.reshape(-1)
+
+
+def _local_experts(w: torch.Tensor, rows: slice, n_experts: int) -> torch.Tensor:
+    """This rank's experts of an expert leaf: the leaf itself where it holds
+    only them (``init_params`` or ``lm_params_from_numpy`` under the mesh),
+    a view of them where it holds every expert."""
+    if w.shape[0] == n_experts:
+        return w[rows]
+    if w.shape[0] != rows.stop - rows.start:
+        raise ValueError(f"an expert leaf of {w.shape[0]} experts on a rank that holds "
+                         f"experts {rows.start}..{rows.stop - 1} of {n_experts}")
+    return w
+
+
+def moe_apply_ep(p, x, cfg: ModelConfig):
+    """Expert-parallel MoE over the mesh context's ``model`` group (the JAX
+    package's ``moe_apply_ep``, its shard_map body on each rank).
+
+    ``x`` (B, S, D) is this rank's tokens: its data shard of the batch
+    where the steps split it (``launch.context.data_rows``), the whole
+    batch where JAX replicates the tokens. The rank routes every one of
+    them (``moe_route``: the float32 router, aux over these tokens, the
+    capacity counted over them), keeps the routes to its own E/n_mp
+    experts (``moe_ep_routes``), dispatches them and runs its experts
+    (``moe_dispatch``, ``moe_experts``), gathers and gates the k outputs
+    of each token and sums them in float32 (``moe_combine``), all-reduces
+    the float32 (N, D) partial over ``model`` and casts it to x's dtype;
+    the shared experts are added after, on the whole x. Returns (y, aux);
+    aux is this rank's (JAX returns one data shard's). Under autograd it
+    raises: the all-reduce has no backward here."""
+    if torch.is_grad_enabled() and (x.requires_grad or p["wg"].requires_grad):
+        raise NotImplementedError(f"training under the expert-parallel MoE (moe_apply_ep): "
+                                  f"{_item(8)}")
+    mesh = ctx.get_mesh()
+    e = cfg.n_experts
+    rows = ctx.expert_rows(e)
+    if rows is None:
+        raise ValueError("moe_apply_ep runs inside an expert-parallel mesh_context whose "
+                         f"'model' axis divides the {e} experts")
+    e_local = rows.stop - rows.start
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gate, idx, aux, pos, keep, cap = moe_route(p, xf, cfg)
+    rel, keep = moe_ep_routes(idx, keep, rows.start, e_local)
+    local = {name: _local_experts(p[name], rows, e) for name in ("wg", "wu", "wd")}
+    expert_out = moe_experts(local, moe_dispatch(xf, rel, pos, keep, cap, e_local))
+    y = moe_combine(expert_out, gate, rel, pos, keep, cap, acc_dtype=torch.float32)
+    y = mesh.all_reduce(y, "model").to(x.dtype)
     if cfg.n_shared_experts:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, s, d), aux

@@ -38,6 +38,15 @@ once, and a Mamba layer's ssm_scan likewise. ``lm_loss`` is the JAX
 package's loss and ``make_train_step`` its step over the port's optimizers
 (``repro_torch.optim``) on ``param_tree(model)``, updating the model's
 parameters in place.
+
+Under ``launch.context.mesh_context`` the steps keep the JAX steps'
+contract, global batch in and global logits out, on every rank: each rank
+runs its data shard of the batch (``context.data_rows``: where the data
+axes divide B and the MoE, if any, is expert-parallel, else the whole
+batch), the MoE layers are expert-parallel where the ``model`` axis
+divides the experts, and the (B_loc, V) logits are all-gathered over the
+data axes; the cache stays the rank's shard. ``init_params`` keeps the rank's expert slices and
+``init_cache`` sizes the rank's shard.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import context as ctx
 from repro_torch.models import layers as L
 
 _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
@@ -240,7 +250,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
     """A model with random weights drawn from ``gen`` on its device: the
     JAX init's shapes, dtypes and scales (normal * 0.02, out-projections
     / sqrt(2 L), A_log, dt_bias = -4.6, a float32 router, ...), not its
-    bits."""
+    bits. Under an expert-parallel mesh the draws are the same and each
+    expert leaf keeps this rank's experts (``layers.init_moe``)."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     v, d = cfg.vocab_padded, cfg.d_model
@@ -256,6 +267,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
+    """The cache of a global batch of ``batch``: under a mesh, this rank's
+    rows of it (``context.local_batch``)."""
+    batch = ctx.local_batch(cfg, batch)
     layers = [init_block_cache(cfg, spec, batch, seq, window, device)
               for spec in layer_specs(cfg)]
     return {"layers": layers, "pos": 0}
@@ -428,11 +442,16 @@ def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = 
 def make_prefill_step(cfg: ModelConfig, window: int = 0):
     def prefill_step(params: DecoderLM, batch: dict):
         """batch {"tokens" (B, S)}, plus ``vision_embeds`` and ``positions``
-        under the vision stub -> (last-position logits (B, V), cache)."""
+        under the vision stub -> (last-position logits (B, V), cache). Under
+        a mesh: the rank's rows run, the logits are gathered."""
+        b = batch["tokens"].shape[0]
+        rows = ctx.data_rows(cfg, b) or slice(None)
+        batch = {k: v[rows] for k, v in batch.items()}
         logits, cache, _ = forward(params, cfg, batch["tokens"], positions=batch.get("positions"),
                                    vision_embeds=batch.get("vision_embeds"), window=window,
                                    mode="prefill")
-        return logits[:, -1].clone(), cache  # the clone frees the (B, S, V) logits
+        # the clone frees the (B, S, V) logits
+        return ctx.gather_rows(cfg, logits[:, -1].clone(), b), cache
 
     return prefill_step
 
@@ -441,9 +460,12 @@ def make_decode_step(cfg: ModelConfig, window: int = 0):
     def decode_step(params: DecoderLM, cache: dict, token: torch.Tensor):
         """token (B, 1) -> (logits (B, V), new_cache); writes the cache in
         place. The position is ``cache["pos"]`` (under M-RoPE all three
-        streams, the JAX decode step's (B, 1, 3) positions)."""
-        logits, new_cache, _ = forward(params, cfg, token, cache=cache, window=window,
-                                       mode="decode")
-        return logits[:, 0], new_cache
+        streams, the JAX decode step's (B, 1, 3) positions). Under a mesh:
+        the rank's rows of ``token`` run on its cache, the logits are
+        gathered."""
+        b = token.shape[0]
+        logits, new_cache, _ = forward(params, cfg, token[ctx.data_rows(cfg, b) or slice(None)],
+                                       cache=cache, window=window, mode="decode")
+        return ctx.gather_rows(cfg, logits[:, 0], b), new_cache
 
     return decode_step

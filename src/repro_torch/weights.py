@@ -26,12 +26,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
+from repro_torch.launch.sharding import expert_block
 from repro_torch.models.transformer import DecoderLM, check_supported, layer_plan
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
            "whisper_params_from_numpy", "silo_params_from_numpy", "servable_from_numpy"]
+
+EXPERT_LEAVES = ("wg", "wu", "wd")  # an MoE's leaves with the E axis first
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -64,14 +67,16 @@ def state_from_numpy(state, device=None) -> RoundState:
     return RoundState(**fields)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
+def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None):
     """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
     ``head``, ``vision_proj`` under the vision stub, the ``prologue`` blocks, and one ``stack`` entry per position
     of the period whose leaves carry a leading axis of periods), as numpy
     arrays, -> the port's ``DecoderLM`` on ``device``, one block per layer
     in ``transformer.layer_plan``'s order: the prologue, then period entry
     j at index i for layer ``len(prologue) + i * p + j`` (dtypes and bits
-    kept; nested dicts such as an MoE's ``shared`` experts as they are)."""
+    kept; nested dicts such as an MoE's ``shared`` experts as they are).
+    With a ``mesh`` (a ``launch.mesh.RankMesh``), each expert leaf keeps
+    only this rank's experts (``launch.sharding.expert_block``)."""
     dev = resolve_device(device)
     check_supported(cfg)
     n_pro, p, n_periods = layer_plan(cfg)
@@ -79,8 +84,16 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
         raise ValueError(f"{cfg.name}: expected {n_pro} prologue blocks and "
                          f"{p if n_periods else 0} stack entries, got {len(tree['prologue'])} "
                          f"and {len(tree['stack'])}")
-    blocks = [tree_map(lambda a: _tensor(a, dev), blk) for blk in tree["prologue"]]
-    blocks += [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), tree["stack"][j])
+    rows = None if mesh is None else expert_block(cfg.n_experts, mesh)
+
+    def block(blk):
+        if rows is not None and "moe" in blk:
+            moe = blk["moe"]
+            blk = dict(blk, moe=dict(moe, **{n: np.asarray(moe[n])[rows] for n in EXPERT_LEAVES}))
+        return tree_map(lambda a: _tensor(a, dev), blk)
+
+    blocks = [block(blk) for blk in tree["prologue"]]
+    blocks += [block(tree_map(lambda a, i=i: np.asarray(a)[i], tree["stack"][j]))
                for i in range(n_periods) for j in range(p)]
     lm = {"embed": _tensor(tree["embed"], dev),
           "final_norm": _tensor(tree["final_norm"], dev),

@@ -67,7 +67,10 @@ granite, falcon-mamba and whisper on the card within 1e-5 of max of the CPU
 a round, shared leaves bitwise equal across silos; one silo mean on
 jamba's reduced silos bitwise the CPU in every wire format, EF residuals
 included, with one launch of each kernel it uses; ``permutation`` with a
-key on the card is the host's draw.
+key on the card is the host's draw. The expert-parallel MoE under a (1, 1)
+mesh of ranks: the reduced MoE family and jamba on the card within 1e-5
+of max of the CPU (2^-8 behind a scan), the MoE layer included; a world-1
+NCCL group's all-reduce of each MoE layer shows in the profiler's trace.
 """
 
 import numpy as np
@@ -556,6 +559,100 @@ def test_reduced_moe_family_on_cuda_matches_cpu(cuda, arch):
         want, cpu_cache = decode(cpu_model, cpu_cache, tok)
         got, dev_cache = decode(dev_model, dev_cache, tok)
         _close_to_max(got.cpu(), want)
+
+
+_EP_ARCHS = ["deepseek-moe-16b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b", "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("arch", _EP_ARCHS)
+def test_moe_apply_ep_on_cuda_matches_cpu_under_a_1x1_mesh(cuda, arch):
+    """Under a (1, 1) mesh of ranks (one world-1 group: gloo for the CPU's
+    tensors, NCCL for the card's) the reduced float32 models take
+    ``moe_apply_ep`` on both devices: the MoE layer and the prefill and
+    two decode steps on the card within 1e-5 of max of the CPU's (2^-8
+    behind jamba's scans), one expert-parallel call a MoE layer a step."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import context as ctx
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import layers, transformer
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    rel = 2.0 ** -8 if cfg.ssm else 1e-5
+    cpu_model = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    dev_model = copy.deepcopy(cpu_model).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    p = layers.init_moe(torch.Generator().manual_seed(2), cfg)
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    calls = []
+    routes = layers.moe_ep_routes
+    layers.moe_ep_routes = lambda *a: calls.append(1) or routes(*a)
+    mesh = make_rank_mesh((1, 1), device=cuda, backend="cpu:gloo,cuda:nccl")
+    try:
+        with ctx.mesh_context(mesh):
+            want, _ = layers.moe_apply(p, x, cfg)
+            got, _ = layers.moe_apply({k: v.to(cuda) if torch.is_tensor(v) else
+                                       {kk: vv.to(cuda) for kk, vv in v.items()}
+                                       for k, v in p.items()}, x.to(cuda), cfg)
+            _close_to_max(got.cpu(), want, rel=1e-5)
+            prefill, decode = transformer.make_prefill_step(cfg), transformer.make_decode_step(cfg)
+            calls.clear()
+            (want, cpu_cache), (got, dev_cache) = (prefill(m, {"tokens": toks})
+                                                   for m in (cpu_model, dev_model))
+            _close_to_max(got.cpu(), want, rel=rel)
+            for _ in range(2):
+                tok = torch.argmax(want, dim=-1)[:, None]
+                want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+                got, dev_cache = decode(dev_model, dev_cache, tok)
+                _close_to_max(got.cpu(), want, rel=rel)
+    finally:
+        layers.moe_ep_routes = routes
+        mesh.close()
+    assert len(calls) == 2 * 3 * sum(s.moe for s in transformer.layer_specs(cfg))
+    assert not dist.is_initialized()
+
+
+def test_moe_apply_ep_all_reduces_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """A world-1 NCCL mesh: a prefill's trace holds one all-reduce a MoE
+    layer, of the float32 (B S, D) partial (``launch/collectives`` reads
+    it), and the logits equal the run without a mesh but for the float32
+    sum over k (within 1e-5 of max)."""
+    import dataclasses
+
+    from repro_torch.launch import context as ctx
+    from repro_torch.launch.collectives import collective_bytes
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), dtype="float32")
+    model = transformer.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    b, s = 2, 16
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    prefill = transformer.make_prefill_step(cfg)
+    want, _ = prefill(model, {"tokens": toks})
+    mesh = make_rank_mesh((1, 1), device=cuda)
+    try:
+        with ctx.mesh_context(mesh):
+            prefill(model, {"tokens": toks})  # the communicator's first use
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA],
+                                        record_shapes=True) as prof:
+                got, _ = prefill(model, {"tokens": toks})
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(tmp_path / "ep.json"))
+    finally:
+        mesh.close()
+    assert mesh.backend == "nccl"
+    n_moe = sum(sp.moe for sp in transformer.layer_specs(cfg))
+    stats = collective_bytes(str(tmp_path / "ep.json"))
+    assert stats["count"] == n_moe and stats["total"] == n_moe * b * s * cfg.d_model * 4, stats
+    _close_to_max(got.cpu(), want.cpu(), rel=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "stablelm-12b", "qwen2-vl-2b"])

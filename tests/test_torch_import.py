@@ -51,8 +51,9 @@ print("LOADED", sorted(n for n in ("repro_torch.checkpoint", "repro_torch.checkp
                                    "repro_torch.obs.record", "repro_torch.serve.engine")
                        if n in sys.modules))
 print("LOADED2", sorted(n for n in ("repro_torch.core.privacy", "repro_torch.fl.shard",
-                                    "repro_torch.launch.collectives", "repro_torch.launch.mesh",
-                                    "repro_torch.launch.sharding", "repro_torch.optim.optim")
+                                    "repro_torch.launch.collectives", "repro_torch.launch.context",
+                                    "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                                    "repro_torch.optim.optim")
                         if n in sys.modules))
 """
 
@@ -68,8 +69,9 @@ def test_import_with_jax_blocked_loads_no_reference_module():
             "'repro_torch.fl.faults', 'repro_torch.fl.sched', 'repro_torch.obs.record', "
             "'repro_torch.serve.engine']") in out.stdout, out.stdout
     assert ("LOADED2 ['repro_torch.core.privacy', 'repro_torch.fl.shard', "
-            "'repro_torch.launch.collectives', 'repro_torch.launch.mesh', "
-            "'repro_torch.launch.sharding', 'repro_torch.optim.optim']") in out.stdout, out.stdout
+            "'repro_torch.launch.collectives', 'repro_torch.launch.context', "
+            "'repro_torch.launch.mesh', 'repro_torch.launch.sharding', "
+            "'repro_torch.optim.optim']") in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -399,31 +401,66 @@ def test_moe_and_mla_features_run(change):
         assert set(cache["layers"][0]) == {"c_kv", "k_rope", "kv_pos"}
 
 
-def test_expert_parallel_moe_raises():
-    """The JAX package's expert-parallel MoE (``moe_apply_ep``, taken only
-    under its production mesh) comes with ROADMAP.md queue 1 item 14.8."""
+def test_expert_parallel_moe_raises(monkeypatch):
+    """The expert-parallel MoE is ported (ROADMAP.md queue 1 item 14.8):
+    under a (1, 1) mesh of ranks ``moe_apply`` takes ``moe_apply_ep`` and
+    gives JAX's ``moe_apply`` under the JAX package's (1, 1) mesh context
+    (its ``moe_apply_ep``) within 1e-5 of max, aux too; without a mesh it
+    takes ``moe_apply_local``. Only training under it still raises
+    (``_OUT_OF_TRAINING``)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_config as jax_get_config
+    from repro.launch import context as jax_ctx
+    from repro.models import layers as JL
+
+    from repro_torch.launch import context as ctx
+    from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.models import layers
 
-    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config("deepseek-moe-16b").reduced(), dtype="float32")
     p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 14.8"):
-        layers.moe_apply(p, x, cfg, expert_parallel=True)
-    y, _ = layers.moe_apply(p, x, cfg)
-    assert y.shape == x.shape
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    taken = []
+    ep = layers.moe_apply_ep
+    monkeypatch.setattr(layers, "moe_apply_ep", lambda *a: taken.append("ep") or ep(*a))
+    mesh = make_rank_mesh((1, 1), device="cpu")
+    try:
+        with ctx.mesh_context(mesh):
+            y, aux = layers.moe_apply(p, x, cfg)
+    finally:
+        mesh.close()
+    assert taken == ["ep"]
+    layers.moe_apply(p, x, cfg)
+    assert taken == ["ep"]
+    jmesh = jax.make_mesh((1, 1), ("data", "model"),
+                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    jp = {k: v.numpy() if isinstance(v, torch.Tensor) else {kk: vv.numpy() for kk, vv in v.items()}
+          for k, v in p.items()}
+    with jax_ctx.mesh_context(jmesh):
+        jy, jaux = jax.jit(lambda p, x: JL.moe_apply(p, x, jcfg))(jp, x.numpy())
+    jy = np.asarray(jy)
+    assert np.abs(y.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
+    assert abs(float(aux) - float(jaux)) <= 1e-5 * abs(float(jaux))
 
 
 def _train_expert_parallel_moe():
-    """An MoE layer's loss under autograd with ``expert_parallel=True``
-    (the JAX package's ``moe_apply_ep``, taken only under its production
-    mesh)."""
+    """An MoE layer's loss under autograd inside a (1, 1) mesh context (the
+    expert-parallel ``moe_apply_ep``, whose all-reduce has no backward in
+    the port)."""
+    from repro_torch.launch import context as ctx
+    from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.models import layers
 
     cfg = get_config("deepseek-moe-16b").reduced()
     p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
-    with torch.enable_grad():
-        layers.moe_apply(p, x, cfg, expert_parallel=True)
+    mesh = make_rank_mesh((1, 1), device="cpu")
+    try:
+        with ctx.mesh_context(mesh), torch.enable_grad():
+            layers.moe_apply(p, x, cfg)
+    finally:
+        mesh.close()
 
 
 def _train_tied_embeddings():
@@ -438,8 +475,9 @@ _OUT_OF_TRAINING = {"expert-parallel MoE": (_train_expert_parallel_moe, "item 14
 @pytest.mark.parametrize("case", sorted(_OUT_OF_TRAINING))
 def test_training_outside_the_slice_raises(case):
     """What training leaves out still raises, naming its ROADMAP.md item:
-    the expert-parallel MoE (queue 1 item 14.8) and tied embeddings (item
-    14); every zoo arch trains (``tests/test_torch_train_*.py``)."""
+    training under the expert-parallel MoE (queue 1 item 14.8) and tied
+    embeddings (item 14); every zoo arch trains
+    (``tests/test_torch_train_*.py``)."""
     fn, item = _OUT_OF_TRAINING[case]
     with pytest.raises(NotImplementedError, match=item):
         fn()
