@@ -92,15 +92,24 @@ drives the port's two paths:
   MoE family and jamba under a (1, 1) mesh on the card against the CPU,
   jamba-v0.1-52b at full width and 8 layers in float32 under (1, 1)
   against the same model without a mesh, and on a (1, 2) mesh of two gloo
-  processes sharing the card against the (1, 1) run.
+  processes sharing the card against the (1, 1) run;
+- training under that mesh (``[train_mesh]``, ``launch/zero.py``'s ZeRO
+  blocks, ``moe_apply_ep``'s backward, ``transformer.lm_objective``): the
+  reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b, 3
+  steps under a (1, 1) mesh bitwise the run without one, and on (2, 1)
+  and (1, 2) as two gloo processes sharing the card against the rule of
+  JAX's sharded step computed without a mesh.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
 ranks (``nccl_world_main``), and ``torchrun --standalone --nproc-per-node
 4 chip_smoke.py --ep-world`` serves jamba-v0.1-52b whole on a (1, 4) mesh
-and moonshot-v1-16b-a3b whole on (1, 4) and (2, 2) (``ep_world_main``);
-``--shard-worker`` and ``--ep-worker`` are one rank of the gloo worlds the
-single-card run starts itself.
+and moonshot-v1-16b-a3b whole on (1, 4) and (2, 2) (``ep_world_main``),
+and ``... --train-world`` trains granite-3-8b whole on (4, 1) and
+deepseek-moe-16b whole on (2, 2) after holding 4-layer float32 versions to
+the same weights without a mesh (``train_world_main``);
+``--shard-worker``, ``--ep-worker`` and ``--train-mesh-worker`` are one
+rank of the gloo worlds the single-card run starts itself.
 
 Every phase prints its lines; the kernel table is one JSON line; the last
 line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
@@ -113,6 +122,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -181,7 +191,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch import context as mesh_ctx  # noqa: E402
 from repro_torch.launch.collectives import collective_bytes  # noqa: E402
 from repro_torch.launch.mesh import make_rank_mesh  # noqa: E402
-from repro_torch.launch.profile import profile_async_events  # noqa: E402
+from repro_torch.launch.profile import profile_async_events, profile_train_step  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.ssm_bwd_ab import shapes as ssm_bwd_shapes  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
@@ -397,6 +407,32 @@ EP_CHECK_ARCH, EP_CHECK_LAYERS, EP_CHECK_MESHES = "moonshot-v1-16b-a3b", 4, ((1,
 # later layer's router may see a last-bit difference and flip a near tie:
 # at most this share of the routes may differ (predicted 0)
 EP_ROUTE_SHARE = 2.0 ** -10
+
+
+# [train_mesh] and --train-world: training under a (data, model) mesh of
+# ranks (launch/zero.py's ZeRO blocks over the data axes, moe_apply_ep's
+# backward, transformer.lm_objective's global loss). [train_mesh] on the one
+# card: the reduced float32 TRAIN_MESH_ARCHS, TRAIN_MESH_RUN's steps on
+# batches whose labels are -1 at the head of row r for TRAIN_MASKED[r]
+# places, under a (1, 1) mesh against no mesh (bitwise), then on (2, 1)
+# and (1, 2) as two gloo processes sharing the card against the rule of
+# JAX's sharded step computed without a mesh (``rule_train``: the (1, 1)
+# run where one data rank), within the training contract of
+# tests/_torch_train.py (REDUCED_REL, STEP_ABS, NEAR_ZERO, SCAN_SHARE),
+# every rank's loss equal. --train-world, one rank of four under torchrun
+# with NCCL: TRAIN_CHECK's float32 models at full width cut to a few
+# layers, on their meshes, against ``rule_train`` of the same weights on
+# each rank; then TRAIN_WORLD's bf16 models whole, TRAIN_WORLD_RUN
+TRAIN_MESH_ARCHS = ("granite-3-8b", "deepseek-moe-16b", "falcon-mamba-7b")
+TRAIN_MESH_RUN = dict(batch=4, seq=64, steps=3, lr=3e-4)
+TRAIN_MESH_SHAPES = ((2, 1), (1, 2))
+TRAIN_MASKED = (5, 0, 11, 2, 0, 7, 3, 1)
+STEP_ABS, NEAR_ZERO, SCAN_SHARE = 1e-6, 1e-4, 1e-4
+TRAIN_MESH_TIMEOUT_S = 240
+TRAIN_CHECK = (("granite-3-8b", 4, (4, 1)), ("deepseek-moe-16b", 4, (2, 2)))
+TRAIN_CHECK_RUN = dict(batch=8, seq=256, steps=2, lr=3e-4)
+TRAIN_WORLD = (("granite-3-8b", (4, 1)), ("deepseek-moe-16b", (2, 2)))
+TRAIN_WORLD_RUN = dict(batch=8, seq=2048, steps=4, lr=3e-4, seed=0)
 
 
 # [cross_silo]: cross-silo FL of the LMs at full width (fl/cross_silo.py):
@@ -3206,6 +3242,380 @@ def phase_train(dev: torch.device, card: str) -> dict[str, dict[str, int]]:
 
 
 # ---------------------------------------------------------------------------
+# training under a mesh of ranks ([train_mesh], --train-mesh-worker,
+# --train-world)
+# ---------------------------------------------------------------------------
+
+
+def mesh_batches(cfg, run: dict, dev: torch.device) -> list:
+    """``run``'s global train batches on ``dev`` (``make_concrete_batch``
+    from keys 20, 21, ...), the labels of row r -1 at its first
+    ``TRAIN_MASKED[r % 8]`` places: unequal counts across the data shards."""
+    out = []
+    for i in range(run["steps"]):
+        batch = make_concrete_batch(cfg, "train", run["batch"], run["seq"],
+                                    prng.PRNGKey(20 + i, device=dev))
+        labels = batch["labels"].clone()
+        for r in range(labels.shape[0]):
+            labels[r, :TRAIN_MASKED[r % len(TRAIN_MASKED)]] = -1
+        out.append(dict(batch, labels=labels))
+    return out
+
+
+def mesh_train(cfg, mesh, run: dict, batches: list) -> tuple:
+    """``run``'s steps of ``cfg`` from ``init_params`` (seed 0) under
+    ``mesh`` (None: without one) on its device: (losses, the whole
+    parameters, the whole AdamW nu, the kernel launches of the steps)."""
+    from repro_torch.launch import zero
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.api import param_tree
+
+    dev = batches[0]["tokens"].device
+    with mesh_ctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+        model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                        zero=mesh is not None)
+        opt = make_optimizer(run["lr"], run["steps"])
+        state = opt.init(param_tree(model))
+        step = get_model(cfg).make_train_step(opt)
+        kernels.reset_launch_counts()
+        losses = []
+        for batch in batches:
+            model, state, loss = step(model, state, batch)
+            losses.append(loss)
+        counts = kernels.launch_counts()
+        params = param_tree(model)
+        whole = (lambda k, t: t.detach()) if mesh is None else (
+            lambda k, t: zero.whole(params[k], mesh, t))
+        out = ([float(x) for x in torch.stack(losses).cpu()],
+               {k: whole(k, p) for k, p in params.items()},
+               {k: whole(k, v) for k, v in state[1].nu.items()}, counts)
+    return out
+
+
+def rule_train(cfg, run: dict, batches: list, n_dp: int) -> tuple:
+    """The rule of JAX's sharded step on ``n_dp`` data shards, without a
+    mesh: each step's gradient is that of sum_i (shard i's masked NLL sum
+    over the global batch's count of labels + 0.01 aux_i / n_dp), shard i
+    the model on its rows of the batch; the loss the global NLL mean plus
+    0.01 times shard 0's aux. For a model without an MoE (or n_dp 1) this is
+    the unsharded step. Returns (losses, parameters, AdamW nu)."""
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.api import param_tree
+
+    dev = batches[0]["tokens"].device
+    model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    opt = make_optimizer(run["lr"], run["steps"])
+    tree = param_tree(model)
+    state = opt.init(tree)
+    for p in tree.values():
+        p.requires_grad_(True)
+    losses = []
+    for batch in batches:
+        b = batch["tokens"].shape[0]
+        count = torch.clamp_min(torch.sum((batch["labels"] >= 0).float()), 1.0)
+        nll = aux0 = 0.0
+        for i in range(n_dp):  # each shard's gradient accumulates into p.grad
+            rows = slice(i * b // n_dp, (i + 1) * b // n_dp)
+            logits, _, aux = transformer.forward(model, cfg, batch["tokens"][rows], mode="train")
+            total, _ = transformer.nll_terms(logits, batch["labels"][rows])
+            (total / count + 0.01 * aux / n_dp).backward()
+            nll = nll + total.detach()
+            aux0 = aux.detach() if i == 0 else aux0
+            del logits, total, aux
+        losses.append(nll / count + 0.01 * aux0)
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in tree.items()}
+        for p in tree.values():
+            p.grad = None
+        # in place (one copy of the moments): bitwise update + apply_updates
+        state = opt.apply_(grads, state, {k: p.detach() for k, p in tree.items()})
+        del grads
+    return ([float(x) for x in torch.stack(losses).cpu()],
+            {k: p.detach() for k, p in tree.items()}, dict(state[1].nu))
+
+
+def train_contract(cfg, got: tuple, want: tuple, lr: float, rel: float) -> tuple[bool, dict]:
+    """tests/_torch_train.py's contract of a few steps: every loss within
+    ``rel`` of ``want``'s (relative); every parameter within ``lr``, and an
+    element beyond STEP_ABS only where its RMS gradient (``want``'s AdamW
+    nu) is below NEAR_ZERO of its leaf's largest, or, behind a Mamba scan,
+    at most SCAN_SHARE of the elements. Returns (ok, the readings)."""
+    (g_losses, g_params), (w_losses, w_params, w_nu) = got, want
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(g_losses, w_losses))
+    worst, n_over, n_total, excused = 0.0, 0, 0, True
+    for k, w in w_params.items():
+        d = (g_params[k].float() - w.float()).abs()
+        over = d > STEP_ABS
+        worst = max(worst, float(d.max()))
+        n_over += int(over.sum())
+        n_total += d.numel()
+        if not cfg.ssm and bool(over.any()):
+            rms = torch.sqrt(w_nu[k].float())
+            excused &= bool((rms[over] < NEAR_ZERO * rms.max()).all())
+    ok = (loss_gap <= rel and worst <= lr and excused
+          and n_over <= (SCAN_SHARE * n_total if cfg.ssm else n_total))
+    return ok, {"loss_gap": loss_gap, "worst_over_lr": worst / lr, "over": n_over,
+                "of": n_total}
+
+
+def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
+    """Training under a mesh of ranks on the one card: TRAIN_MESH_ARCHS
+    reduced in float32, TRAIN_MESH_RUN's steps on ``mesh_batches``: (a)
+    under a (1, 1) mesh (one world-1 group, gloo for CPU tensors and NCCL
+    for the card's) bitwise the run without a mesh, with exactly
+    ``expected_train_launches``; (b) on (2, 1) and (1, 2) as two gloo
+    processes sharing the card (``--train-mesh-worker``), each against
+    ``rule_train`` on as many data shards, within ``train_contract``, every
+    rank's loss equal and its launches ``expected_train_launches``. Returns
+    the launches of (a)'s mesh runs and (b)'s ranks."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    refs = {}
+    base = scratch_dir("train_mesh_")
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs, logs = [], []
+    for r in range(2):  # (b)'s world runs while (a) does
+        log = open(os.path.join(base, f"rank{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--train-mesh-worker", str(r), "2",
+             base, str(dev)], stdout=log, stderr=subprocess.STDOUT, env=env))
+        logs.append(log)
+    try:
+        mesh = make_rank_mesh((1, 1), device=dev,
+                              backend="cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo")
+        try:
+            for arch in TRAIN_MESH_ARCHS:
+                cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+                batches = mesh_batches(cfg, TRAIN_MESH_RUN, dev)
+                plain = mesh_train(cfg, None, TRAIN_MESH_RUN, batches)
+                ours = mesh_train(cfg, mesh, TRAIN_MESH_RUN, batches)
+                bitwise = plain[0] == ours[0] and all(torch.equal(ours[1][k], v)
+                                                      for k, v in plain[1].items())
+                want = expected_train_launches(cfg, TRAIN_MESH_RUN["steps"])
+                check(bitwise, f"[train_mesh] {arch} (1, 1) vs no mesh: losses {ours[0]} and "
+                               f"{plain[0]}, parameters not bitwise")
+                check(ours[3] == want,
+                      f"[train_mesh] {arch} (1, 1): launches {ours[3]}, want {want}")
+                for k, n in ours[3].items():
+                    launches[k] += n
+                refs[arch] = {1: plain[:3], 2: rule_train(cfg, TRAIN_MESH_RUN, batches, 2)}
+                print(f"[train_mesh] {arch} reduced float32, {TRAIN_MESH_RUN['steps']} steps of "
+                      f"batch {TRAIN_MESH_RUN['batch']} x {TRAIN_MESH_RUN['seq']}: (1, 1) mesh "
+                      f"bitwise the run without one (losses {ours[0]}); launches "
+                      f"{json.dumps(ours[3])}")
+        finally:
+            mesh.close()
+        ranks = join_world("[train_mesh] gloo world 2", procs, logs, base,
+                           time.monotonic() + TRAIN_MESH_TIMEOUT_S)
+    finally:
+        for p, log in zip(procs, logs):  # after a failed check in (a), stop (b)'s world too
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(base, ignore_errors=True)
+    readings = {}
+    for arch in TRAIN_MESH_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        for shape in TRAIN_MESH_SHAPES:
+            key = f"{arch}/{shape[0]}x{shape[1]}"
+            losses = [rk[f"{key}/losses"].tolist() for rk in ranks]
+            got = (losses[0], {k[len(key) + 3:]: torch.from_numpy(v).to(dev)
+                               for k, v in ranks[0].items() if k.startswith(f"{key}/p/")})
+            ok, readings[key] = train_contract(cfg, got, refs[arch][shape[0]],
+                                               TRAIN_MESH_RUN["lr"], REDUCED_REL[arch])
+            check(ok and losses[0] == losses[1],
+                  f"[train_mesh] {key} against the rule on {shape[0]} data shards: "
+                  f"{readings[key]}, losses by rank {losses}")
+            want = expected_train_launches(cfg, TRAIN_MESH_RUN["steps"])
+            for rk in ranks:
+                counts = {k: int(rk[f"{key}/launches/{k}"]) for k in kernels.KERNELS}
+                check(counts == want, f"[train_mesh] {key}: launches {counts}, want {want}")
+                for k, n in counts.items():
+                    launches[k] += n
+    print(f"[train_mesh] (2, 1) and (1, 2) as two gloo processes on the card, against the rule "
+          f"of JAX's sharded step without a mesh (rule_train; the contract of "
+          f"tests/_torch_train.py, 1e-5 and 2^-8 behind a scan): {json.dumps(readings)}; every "
+          f"rank's losses equal; [train_mesh] {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def train_mesh_worker(rank: str, world: str, base: str, device: str) -> int:
+    """One rank of [train_mesh]'s gloo world (``--train-mesh-worker``), every
+    rank on ``device``: TRAIN_MESH_ARCHS on each TRAIN_MESH_SHAPES mesh;
+    saves its losses and launches, and rank 0 the whole parameters."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(base, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        full_precision_matmuls()
+        out = {}
+        for shape in TRAIN_MESH_SHAPES:
+            mesh = make_rank_mesh(shape, device=dev)
+            try:
+                for arch in TRAIN_MESH_ARCHS:
+                    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+                    key = f"{arch}/{shape[0]}x{shape[1]}"
+                    losses, params, _, counts = mesh_train(cfg, mesh, TRAIN_MESH_RUN,
+                                                           mesh_batches(cfg, TRAIN_MESH_RUN, dev))
+                    out[f"{key}/losses"] = np.asarray(losses)
+                    out.update({f"{key}/launches/{k}": n for k, n in counts.items()})
+                    if rank == 0:
+                        out.update({f"{key}/p/{k}": v.cpu().numpy() for k, v in params.items()})
+            finally:
+                mesh.close()
+        np.savez(os.path.join(base, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_world_main(where: str = "cuda") -> int:
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py --train-world``
+    (NCCL, ``cuda:{rank}``; "cpu" rehearses it over gloo on the CPU at the
+    reduced configs): ``train_world_check`` on each TRAIN_CHECK model, then
+    ``train_world_run`` on each TRAIN_WORLD model; every rank exits
+    non-zero when any rank found a fault."""
+    rank = int(os.environ["RANK"])
+    cpu = where == "cpu"
+    # a rank that fails (out of memory) leaves the others in a collective:
+    # they give up after the timeout instead of holding the cards
+    dist.init_process_group("gloo" if cpu else "nccl", timeout=datetime.timedelta(minutes=5))
+    failures = []
+    try:
+        if cpu:
+            torch.set_num_threads(1)
+            dev = torch.device("cpu")
+        else:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        card = "CPU rehearsal" if cpu else phase_environment() if rank == 0 else ""
+        full_precision_matmuls()
+        if not cpu and rank == 0:
+            phase_build()
+        dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
+        for arch, layers, shape in TRAIN_CHECK:
+            cfg = get_config(arch)
+            cfg = dataclasses.replace(cfg.reduced() if cpu else cfg, dtype="float32",
+                                      **({} if cpu else {"n_layers": layers}))
+            mesh = make_rank_mesh(shape, device=dev)
+            try:
+                failures += train_world_check(cfg, mesh, card)
+            finally:
+                mesh.close()
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        run = dict(TRAIN_WORLD_RUN, seq=64) if cpu else TRAIN_WORLD_RUN
+        for arch, shape in TRAIN_WORLD:
+            cfg = get_config(arch).reduced() if cpu else get_config(arch)
+            mesh = make_rank_mesh(shape, device=dev)
+            try:
+                failures += train_world_run(cfg, mesh, run, card, cpu)
+                if not cpu and not failures:  # one more step, traced on every rank
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    traced = profile_train_step(cfg, batch=run["batch"], seq=run["seq"],
+                                                mesh=mesh)["train step"]
+                    if rank == 0:
+                        print(f"[train-world] {cfg.name} on {shape}: one step traced after a "
+                              f"warm-up (torch.profiler, rank 0): {json.dumps(traced)}")
+            finally:
+                mesh.close()
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        n_bad = torch.full((1,), float(len(failures)), device=dev)
+        dist.all_reduce(n_bad)
+        failures += [] if int(n_bad.item()) == len(failures) else ["another rank failed"]
+    finally:
+        dist.destroy_process_group()
+    if failures:
+        print(f"[train-world] rank {rank}: {failures}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def train_world_check(cfg, mesh, card: str) -> list:
+    """``cfg`` (float32) trained TRAIN_CHECK_RUN's steps on ``mesh`` against
+    ``rule_train`` of the same weights on as many data shards on this rank
+    (the unsharded step where the model has no MoE), within
+    ``train_contract``; rank 0 prints every rank's readings. Returns this
+    rank's failures."""
+    dev = mesh.device
+    batches = mesh_batches(cfg, TRAIN_CHECK_RUN, dev)
+    with mesh_ctx.mesh_context(mesh):
+        n_dp = mesh_ctx.n_data() if mesh_ctx.data_rows(cfg, TRAIN_CHECK_RUN["batch"]) else 1
+    losses, params, _, _ = mesh_train(cfg, mesh, TRAIN_CHECK_RUN, batches)
+    params = {k: v.cpu() for k, v in params.items()}  # the card's room goes to rule_train
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    want = rule_train(cfg, TRAIN_CHECK_RUN, batches, n_dp)
+    want = tuple({k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t for t in want)
+    ok, read = train_contract(cfg, (losses, params), want, TRAIN_CHECK_RUN["lr"], LM_REL)
+    del params, want
+    mine = torch.tensor([[read["loss_gap"], read["worst_over_lr"], read["over"], read["of"],
+                          float(ok)]], dtype=torch.float64, device=dev)
+    every = mesh.all_gather(mine, mesh.axis_names).cpu()
+    shape = tuple(mesh.shape.values())
+    if mesh.rank == 0:
+        print(f"[train-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}, "
+              f"{TRAIN_CHECK_RUN['steps']} steps of batch {TRAIN_CHECK_RUN['batch']} x "
+              f"{TRAIN_CHECK_RUN['seq']}, against the same weights without a mesh under the rule "
+              f"of JAX's sharded step on {n_dp} data shards: by rank [loss gap, worst parameter "
+              f"gap / lr, elements over {STEP_ABS}, of, ok] {every.tolist()} (contract {LM_REL}; "
+              f"tests/_torch_train.py)")
+    return [] if ok else [f"{cfg.name} on {shape} rank {mesh.rank} against rule_train: {read}"]
+
+
+def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
+    """``launch.train.train`` of ``cfg`` on ``mesh`` (every rank), kernel
+    counts zeroed just before and read just after: finite losses, equal on
+    every rank, the launches ``expected_train_launches`` gives; rank 0
+    prints step ms, tok/s, peak GiB by rank. Returns this rank's
+    failures."""
+    from repro_torch.launch.train import train
+
+    dev = mesh.device
+    kernels.reset_launch_counts()
+    try:
+        stats = train(cfg, mesh=mesh, log=lambda *_: None, **run)
+    except torch.cuda.OutOfMemoryError as e:
+        return [f"{cfg.name} on {tuple(mesh.shape.values())} rank {mesh.rank}: out of memory "
+                f"({str(e)[:200]})"]
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(kernels.KERNELS, 0) if cpu else expected_train_launches(cfg, run["steps"])
+    mine = torch.tensor([*stats["losses"], stats["peak_bytes"] or 0, *stats["step_ms"]],
+                        dtype=torch.float64, device=dev)
+    every = mesh.all_gather(mine[None], mesh.axis_names).cpu()
+    n = len(stats["losses"])
+    shape = tuple(mesh.shape.values())
+    failures = []
+    if not (all(math.isfinite(x) for x in stats["losses"]) and bool((every[:, :n] == every[0, :n]).all())
+            and counts == want):
+        failures.append(f"{cfg.name} on {shape} rank {mesh.rank}: losses by rank "
+                        f"{every[:, :n].tolist()}, launches {counts}, expected {want}")
+    if mesh.rank == 0:
+        timed = stats["step_ms"][1:]
+        tokens = run["batch"] * run["seq"]
+        print(f"[train-world] {card}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}, "
+              f"{stats['n_params'] / 1e9:.3f} B params) trained on mesh (data, model) = {shape}, "
+              f"{mesh.world} ranks ({mesh.backend}), ZeRO over data, experts over model: batch "
+              f"{run['batch']} x {run['seq']}, {run['steps']} steps: losses {stats['losses']}; "
+              f"step ms (CUDA events, rank 0) median {statistics.median(timed):.1f} (min "
+              f"{min(timed):.1f}, max {max(timed):.1f}; first step {stats['step_ms'][0]:.1f}); "
+              f"{1e3 * tokens / statistics.median(timed):.0f} tok/s over the global batch; peak "
+              f"GiB by rank {[round(float(b) / 2**30, 2) for b in every[:, n]]}; launches "
+              f"{json.dumps(counts)}")
+    return failures
+
+
+# ---------------------------------------------------------------------------
 # cross-silo FL of LMs
 # ---------------------------------------------------------------------------
 
@@ -3482,6 +3892,10 @@ def main() -> int:
         return ep_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--ep-world"]:  # one rank under torchrun
         return ep_world_main(*sys.argv[2:])
+    if sys.argv[1:2] == ["--train-mesh-worker"]:  # one rank of [train_mesh]'s gloo world
+        return train_mesh_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--train-world"]:  # one rank under torchrun
+        return train_world_main(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -3531,6 +3945,10 @@ def main() -> int:
         by_arch = {a: c[name] for a, c in train_launches.items() if c[name]}
         table[name]["launches_by_arch"] = by_arch
         launches[name] = sum(by_arch.values())
+    mesh_launches = phase_train_mesh(dev, card)
+    for name in ("ssm_scan", "flash_attention", "ssm_scan_bwd", "flash_attention_bwd"):
+        table[name]["train_mesh_launches"] = mesh_launches[name]
+        launches[name] += mesh_launches[name]
     silo_total, silo_by_arch, silo_embed = phase_cross_silo(dev, card)
     table["masked_aggregate"].update(silo_embed)
     for name in FL_KERNELS:

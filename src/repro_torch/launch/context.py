@@ -4,24 +4,32 @@
 Model code reads it: under ``mesh_context(mesh)`` the MoE takes its
 expert-parallel path (``models.layers.moe_apply_ep``), the decoder's steps
 run this rank's data shard of the batch and all-gather the logits
-(``models.transformer.make_prefill_step`` / ``make_decode_step``), and
-``init_params`` / ``init_cache`` keep this rank's expert slices and its
-data shard of the cache. Without a mesh every hook is a no-op, as in JAX.
+(``models.transformer.make_prefill_step`` / ``make_decode_step``), the
+train step runs the same shard and takes the global batch's loss
+(``models.transformer.lm_objective``), and ``init_params`` /
+``init_cache`` keep this rank's experts (and, for training, its ZeRO
+blocks) and its data shard of the cache. Without a mesh every hook is a no-op, as in JAX.
 
 The JAX package runs one SPMD program over global arrays; the port runs one
-process a rank of a ``launch.mesh.RankMesh``. Every rank holds every
-non-expert parameter whole and the ``model`` shard of each expert leaf's E
-axis (``launch.sharding.expert_block``). Only the MoE changes values under
-a mesh: JAX's ``moe_apply_ep`` splits its tokens over the data axes where
-they divide the batch (``B % n_dp == 0``), and each data shard then routes
-its own tokens and counts capacity over them, while ``moe_apply_local``
-counts it over the whole global batch. So the steps split the batch
-exactly where the MoE takes ``moe_apply_ep`` and the data axes divide it,
-or where the model has no MoE (its rows are then independent), and every
-rank takes the whole batch otherwise (``data_rows``). Every other sharding
-of the JAX model code (``constrain``) is layout alone and has no
-counterpart here; ``seq_parallel``, which JAX reads only in training,
-raises until training under a mesh is ported.
+process a rank of a ``launch.mesh.RankMesh``. Every rank holds the
+``model`` shard of each expert leaf's E axis
+(``launch.sharding.expert_block``) and every other leaf whole; a model
+built for training (``zero=True``) holds instead its ZeRO block of each
+leaf (``launch/zero.py``: split over ``dp_axes()``, the data axes this
+context names, where ``launch.sharding.param_spec`` gives the leaf a data
+entry, gathered at use). ``param_spec``'s ``model`` entries of the
+non-expert leaves are not applied. Only the MoE changes values under a mesh:
+JAX's ``moe_apply_ep`` splits its tokens over the data axes where they
+divide the batch (``B % n_dp == 0``), and each data shard then routes its
+own tokens and counts capacity over them, while ``moe_apply_local`` counts
+it over the whole global batch. So the steps, the train step included,
+split the batch exactly where the MoE takes ``moe_apply_ep`` and the data
+axes divide it, or where the model has no MoE (its rows are then
+independent), and every rank takes the whole batch otherwise
+(``data_rows``). Every other sharding of the JAX model code (``constrain``)
+is layout alone and has no counterpart here: ``seq_parallel``, which JAX
+reads only through ``constrain`` in training, is taken and changes
+nothing, as it changes no value in JAX; the port keeps its layout.
 """
 
 from __future__ import annotations
@@ -46,13 +54,11 @@ def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: boo
     """Open ``mesh`` (a ``RankMesh``) for the model code within; the
     previous context comes back on exit, after an exception too. The data
     axes' process group is made here, on every rank in the same order.
-    ``seq_parallel=True`` raises: JAX reads it only in training, which
-    does not run under a mesh here yet."""
+    ``seq_parallel`` is JAX's layout hint for training (its ``constrain``
+    pins the activations' sequence dim over ``model``); it changes no
+    value, and the port keeps its layout whatever it says."""
     global _MESH, _DP_AXES, _MOE_EP
-    if seq_parallel:
-        raise NotImplementedError("mesh_context(seq_parallel=True): the sequence-parallel "
-                                  "layout of training under a mesh, ROADMAP.md queue 1 item 5 "
-                                  "(item 14.8)")
+    del seq_parallel  # a layout alone: see the docstring
     dp_axes = tuple(dp_axes)
     missing = [a for a in dp_axes if a not in mesh.shape]
     if missing or "model" not in mesh.shape:

@@ -26,6 +26,15 @@ order. ``launch.context.mesh_context`` opens it for the model code: the
 expert-parallel MoE sums its partial outputs over the ``model`` group and
 the decoder's steps gather their logits over the data group.
 
+Training runs its collectives under autograd through three functions:
+``gather_blocks`` (an all-gather whose backward is a reduce-scatter: a
+ZeRO block of a leaf at use, ``launch/zero.py``), ``psum`` (an all-reduce
+whose backward is the identity: the expert-parallel MoE's partial outputs)
+and ``replicated`` (the identity whose backward is an all-reduce: the
+MoE's tokens and gates, of which each ``model`` rank uses its experts'
+share). A collective that fails raises; none falls back to a local
+result.
+
 The JAX module's ``HW`` table holds TPU figures and is not carried over.
 """
 
@@ -42,8 +51,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["CohortMesh", "RankMesh", "data_axes", "make_cohort_mesh", "make_production_mesh",
-           "make_rank_mesh", "rank_device"]
+__all__ = ["CohortMesh", "RankMesh", "data_axes", "gather_blocks", "make_cohort_mesh",
+           "make_production_mesh", "make_rank_mesh", "psum", "rank_device", "replicated"]
 
 
 class CohortMesh:
@@ -161,13 +170,29 @@ class RankMesh:
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axes))
         return buf
 
-    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """Every rank's ``t`` along ``axes``, concatenated on dim 0 in their
-        order (one collective)."""
-        n = math.prod(self.shape[a] for a in self._axes(axes))
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=self.group(axes))
-        return torch.cat(parts)
+    def axis_size(self, axes) -> int:
+        """The number of ranks along ``axes``."""
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` along ``axes``, concatenated on ``dim`` in
+        their order (one collective)."""
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((self.axis_size(axes) * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=self.group(axes))
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """``t`` summed over the ranks along ``axes``, and of the sum this
+        rank's block of ``dim``: block i of n equal ones for the rank at
+        index i over ``axes`` (one collective)."""
+        n = self.axis_size(axes)
+        x = t.movedim(dim, 0).contiguous()
+        if x.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {n} ranks")
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=self.group(axes))
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
 
     def close(self) -> None:
         """Destroy the groups this mesh made, and the world-1 group it
@@ -184,6 +209,73 @@ class RankMesh:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
         return (f"RankMesh({axes}, rank={self.rank} at {self.coords}, device={self.device}, "
                 f"backend={self.backend!r})")
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd (training under a RankMesh)
+# ---------------------------------------------------------------------------
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes, dim):
+        fctx.mesh, fctx.axes, fctx.dim = mesh, axes, dim
+        return mesh.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.mesh.reduce_scatter(g, fctx.axes, fctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes):
+        return mesh.all_reduce(t.clone(), axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes):
+        fctx.mesh, fctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.mesh.all_reduce(g.clone(), fctx.axes), None, None
+
+
+def gather_blocks(mesh: RankMesh, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The whole of a leaf split over ``axes`` on ``dim`` from this rank's
+    block ``t`` (an all-gather); its backward sums the whole leaf's gradient
+    over those ranks and keeps this rank's block (a reduce-scatter)."""
+    if not torch.is_grad_enabled():  # serving: no autograd node
+        return mesh.all_gather(t, axes, dim)
+    return _GatherBlocks.apply(t, mesh, axes, dim)
+
+
+def psum(mesh: RankMesh, t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` summed over the ranks along ``axes`` (an all-reduce), with the
+    identity for its backward: JAX's ``psum`` under ``check_vma=False``,
+    whose result every rank along ``axes`` then uses alike. Under
+    ``torch.no_grad`` (serving) it sums ``t`` in place and returns it."""
+    if not torch.is_grad_enabled():
+        return mesh.all_reduce(t, axes)
+    return _Psum.apply(t, mesh, axes)
+
+
+def replicated(mesh: RankMesh, t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` itself, whose gradient is summed over the ranks along ``axes``
+    (an all-reduce in the backward): the transpose of a ``shard_map`` input
+    that every rank along ``axes`` holds alike, which JAX sums over the
+    axes its spec leaves out. A rank that uses ``t`` for its share of a
+    sum (its experts) gets the gradient of the whole sum."""
+    if not torch.is_grad_enabled():
+        return t
+    return _Replicated.apply(t, mesh, axes)
 
 
 def _open_world_of_one(backend: str) -> str:

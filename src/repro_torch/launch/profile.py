@@ -21,7 +21,11 @@ durations; one stream, so they do not overlap), the idle share of the
 span, the number of kernels, and the kernels that took the most device
 time. ``--train`` traces one train step of the CLI's optimizer
 (``launch/train.py``) on a batch of 4 rows of 2048 tokens (whisper: 448
-tokens over 1,500 frames) after a warm-up step, with its host wall time.
+tokens over 1,500 frames) after a warm-up step, with its host wall time;
+``profile_train_step(..., mesh=)`` traces it on every rank of a (data,
+model) mesh of ranks (``chip_smoke.py --train-world``), where the
+breakdown also sums the NCCL kernels (they run on their own stream, which
+the compute stream waits for).
 ``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
 stand-in at har-mlp's full width (``chip_smoke.py``'s main path): one eager
 round, then one replay of a CUDA graph of ``--chunk`` rounds
@@ -45,12 +49,17 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import random as prng
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.context import mesh_context
 from repro_torch.models.api import get_model, make_concrete_batch
 
 
 def device_breakdown(prof, top: int = 8) -> dict:
-    """Span, busy time, idle share and the top kernels of a profiled window."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """Span, busy time, idle share and the top kernels of a profiled window
+    (device kernels and copies; not the ranges the profiler records on the
+    device for an annotation, such as NCCL's ``nccl:all_reduce``, which
+    would count a collective's kernel twice)."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         return {"device_trace": "not measured (the profiler recorded no device kernels)"}
     start = min(e.time_range.start for e in kernels)
@@ -61,11 +70,13 @@ def device_breakdown(prof, top: int = 8) -> dict:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    nccl = [us for name, (_, us) in by_name.items() if "nccl" in name.lower()]
     return {
         "span_ms": (end - start) / 1e3,
         "busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / max(end - start, 1e-9),
         "kernels": len(kernels),
+        **({"nccl_ms": sum(nccl) / 1e3} if nccl else {}),
         "top": [{"name": name[:120], "count": n, "ms": us / 1e3} for name, (n, us) in ranked],
     }
 
@@ -100,18 +111,26 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
     return out
 
 
-def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0) -> dict:
+def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0,
+                       mesh=None) -> dict:
     """``device_breakdown`` of one train step (the forward with its
     checkpointed blocks, the backward with their recompute, the optimizer)
-    after a warm-up step, with its host wall ms, on the card; its top 24
-    kernels, so that the backward kernels' grids show beside the GEMMs and
-    the optimizer's elementwise passes."""
+    after a warm-up step, with its host wall ms, on the card (on this rank
+    of ``mesh``, a ``launch.mesh.RankMesh``, when given: every rank calls
+    it); its top 24 kernels, so that the backward kernels' grids show
+    beside the GEMMs and the optimizer's elementwise passes."""
+    if mesh is not None:
+        with mesh_context(mesh):
+            return _profile_train_step(cfg, batch, seq, seed, mesh.device, zero=True)
+    return _profile_train_step(cfg, batch, seq, seed, resolve_device(None), zero=False)
+
+
+def _profile_train_step(cfg, batch, seq, seed, dev, zero) -> dict:
     from repro_torch.launch.train import make_optimizer
     from repro_torch.models.api import param_tree
 
-    dev = resolve_device(None)
     bundle = get_model(cfg)
-    model = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    model = bundle.init(torch.Generator(device=dev).manual_seed(seed), zero=zero)
     opt = make_optimizer(3e-4, 4)
     opt_state = opt.init(param_tree(model))
     step = bundle.make_train_step(opt)

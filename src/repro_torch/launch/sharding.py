@@ -27,8 +27,12 @@ replicates such a leaf; the sharded round refuses it earlier).
 Expert parallelism (``launch.context``, ``models.layers.moe_apply_ep``):
 ``expert_block`` gives the experts ``[j*E/n, (j+1)*E/n)`` of an expert
 leaf's E axis that the rank at ``model`` coordinate j of a ``RankMesh``
-holds: the ``model`` entry ``param_spec`` gives that axis, the only entry
-of the production rules the port applies to weights.
+holds: the ``model`` entry ``param_spec`` gives that axis, the only
+``model`` entry of the production rules the port applies to weights.
+
+ZeRO (``launch/zero.py``): ``data_block`` gives the dim of a leaf that
+``param_spec`` splits over the data axes and the block of it this rank
+holds; parameters, gradients and both AdamW moments are held so.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from __future__ import annotations
 import math
 from typing import Any
 
-__all__ = ["batch_spec", "cache_pspecs", "cache_spec", "expert_block", "lane_block", "lane_spec", "param_spec",
-           "tree_lane_pspecs", "tree_pspecs"]
+__all__ = ["batch_spec", "cache_pspecs", "cache_spec", "data_block", "expert_block", "lane_block",
+           "lane_spec", "param_spec", "tree_lane_pspecs", "tree_pspecs"]
 
 
 def _map_with_path(fn, tree, path=()):
@@ -166,6 +170,27 @@ def expert_block(n_experts: int, mesh) -> slice | None:
     size = n_experts // n
     j = mesh.coords["model"]
     return slice(j * size, (j + 1) * size)
+
+
+def data_block(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple[int, slice] | None:
+    """The dim of a parameter leaf of ``shape`` that ``param_spec`` splits
+    over the data axes ``dp_axes`` (ZeRO: the first non-layer dim of a
+    generic leaf, d_in of an expert leaf, the Mamba rules' data entries),
+    and the block of it that this rank of ``mesh`` holds (``[i*n/D,
+    (i+1)*n/D)`` at index i over the data axes); None where the leaf stays
+    whole (no data entry, a dim the data axes do not divide, or one data
+    rank). ``param_spec``'s ``model`` entries are not read: only an expert
+    leaf's E axis is split over ``model`` (``expert_block``)."""
+    n = _axis_size(mesh, dp_axes)
+    if n == 1:
+        return None
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    dims = [d for d, s in enumerate(param_spec(path, shape, mesh, dp_axes)) if s == dp]
+    if not dims:
+        return None
+    dim, size = dims[0], shape[dims[0]] // n
+    i = mesh.index(dp_axes)
+    return dim, slice(i * size, (i + 1) * size)
 
 
 # ---------------------------------------------------------------------------

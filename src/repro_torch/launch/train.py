@@ -1,10 +1,12 @@
-"""Single-process training driver of the port for any architecture of the
-model zoo.
+"""Training entry point of the port for any architecture of the model zoo, in
+one process or over a (data, model) mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b --reduced \\
         --steps 20 --batch 2 --seq 64 [--device cpu] [--ckpt DIR]
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b --layers 8 \\
         --batch 4 --seq 2048 --steps 4
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch granite-3-8b --mesh 4,1 --batch 8 --seq 2048 --steps 4
 
 The JAX package's CLI (``repro.launch.train``) with its flags and defaults:
 the arch's config (``--reduced`` for the smoke-test variant; ``--layers N``
@@ -20,22 +22,39 @@ finite fails the run. ``--ckpt DIR`` saves the trained parameters through
 ``checkpoint.save_pytree``. ``train`` is the body, for any config: it
 returns the losses, the parameter count, the per-step times (CUDA events on
 the card), and the peak device memory.
+
+``--mesh D,M`` trains under a ``launch.mesh.RankMesh`` of D data and M
+model ranks, one process a rank, started by ``torchrun --nproc-per-node
+D*M`` (one card and one NCCL rank each; gloo with ``--device cpu``), as the
+JAX package's full configs train under its production mesh
+(``launch/dryrun.py``): each rank holds its ZeRO blocks of the parameters
+and AdamW moments and its experts (``launch/zero.py``), draws the same
+global batch, runs its data shard of it and returns the global loss. Each
+rank prints one JSON line: its losses, step ms (CUDA events), tok/s over
+the global batch and its own peak bytes. ``--ckpt`` gathers whole leaves and
+rank 0 alone saves them: the file an unsharded run would write.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as prng
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import context as ctx
+from repro_torch.launch import zero
+from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.models.api import get_model, make_batch_specs, make_concrete_batch, param_tree
 from repro_torch.optim import adamw, chain, clip_by_global_norm, cosine_schedule
 
@@ -47,14 +66,22 @@ def make_optimizer(lr: float, steps: int):
 
 
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 2, seq: int = 64, lr: float = 3e-4,
-          seed: int = 0, ckpt: str | None = None, device=None, log=print) -> dict:
+          seed: int = 0, ckpt: str | None = None, device=None, log=print, mesh=None) -> dict:
     """``steps`` train steps of ``cfg`` from random weights (``seed``) on
-    ``device`` (default the card). Returns {"losses", "n_params",
-    "step_ms", "peak_bytes" (None off the card), "tok_per_s", "ckpt"}."""
-    dev = resolve_device(device)
+    ``device`` (default the card), or on this rank of ``mesh`` (a
+    ``launch.mesh.RankMesh``, on its device; every rank calls it). Returns
+    {"losses", "n_params" (the whole model's), "step_ms", "peak_bytes"
+    (None off the card; this rank's), "tok_per_s" (the global batch's),
+    "ckpt" (None but on rank 0)}."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    with ctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+        return _train(cfg, steps, batch, seq, lr, seed, ckpt, dev, log, mesh)
+
+
+def _train(cfg, steps, batch, seq, lr, seed, ckpt, dev, log, mesh) -> dict:
     bundle = get_model(cfg)
-    model = bundle.init(torch.Generator(device=dev).manual_seed(seed))
-    n_params = sum(p.numel() for p in model.parameters())
+    model = bundle.init(torch.Generator(device=dev).manual_seed(seed), zero=mesh is not None)
+    n_params = sum(math.prod(getattr(p, "full_shape", p.shape)) for p in model.parameters())
     log(f"{cfg.name}: {n_params / 1e6:.1f}M params, {cfg.n_layers} layers, {cfg.dtype}, on {dev}")
     opt = make_optimizer(lr, steps)
     opt_state = opt.init(param_tree(model))
@@ -86,9 +113,11 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 2, seq: int = 64, l
            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
            "tok_per_s": tokens * steps / max(wall, 1e-9), "ckpt": None}
     if ckpt:
-        out["ckpt"] = save_pytree({k: v.detach() for k, v in param_tree(model).items()}, ckpt,
-                                  cfg.name.replace("/", "_"))
-        log(f"saved {out['ckpt']}")
+        tree = {k: v.detach() if mesh is None else zero.whole(v, mesh)
+                for k, v in param_tree(model).items()}
+        if mesh is None or mesh.rank == 0:
+            out["ckpt"] = save_pytree(tree, ckpt, cfg.name.replace("/", "_"))
+            log(f"saved {out['ckpt']}")
     return out
 
 
@@ -113,14 +142,38 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: train over a (data, model) mesh of D*M ranks, one process a rank "
+                         "(torchrun --nproc-per-node D*M)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-                 seed=args.seed, ckpt=args.ckpt, device=args.device)
+    run = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, seed=args.seed,
+               ckpt=args.ckpt)
+    if not args.mesh:
+        return train(cfg, device=args.device, **run)
+    shape = tuple(int(n) for n in args.mesh.split(","))
+    cpu = resolve_device(args.device).type == "cpu"
+    dist.init_process_group("gloo" if cpu else "nccl")  # torchrun's environment
+    try:
+        dev = torch.device("cpu") if cpu else torch.device("cuda", dist.get_rank()
+                                                           % torch.cuda.device_count())
+        if not cpu:
+            torch.cuda.set_device(dev)
+        mesh = make_rank_mesh(shape, device=dev)
+        try:
+            stats = train(cfg, mesh=mesh, log=print if mesh.rank == 0 else (lambda *_: None),
+                          **run)
+        finally:
+            mesh.close()
+        print(json.dumps({"rank": mesh.rank, "coords": mesh.coords, **{
+            k: stats[k] for k in ("losses", "step_ms", "tok_per_s", "peak_bytes", "ckpt")}}))
+    finally:
+        dist.destroy_process_group()
+    return stats
 
 
 if __name__ == "__main__":

@@ -1,0 +1,149 @@
+"""ZeRO over the data axes of a ``launch.mesh.RankMesh`` — port-only. The
+JAX package gets this layout from ``jax.jit``'s ``in_shardings``: its
+``launch/dryrun.py`` shards parameters, AdamW moments and the batch by
+``launch/sharding.tree_pspecs``, and XLA gathers and reduces as it needs.
+
+A model built for training under ``launch.context.mesh_context``
+(``models.transformer.init_params(..., zero=True)``,
+``weights.lm_params_from_numpy(..., mesh=, zero=True)``) holds each
+parameter leaf as this rank's block: split on the dim
+``sharding.data_block`` names over the context's data axes
+(``context.dp_axes``, the one place they are decided), and for an expert
+leaf holding only this rank's experts (``sharding.expert_block``). The
+optimizer maps the parameter tree, so the gradients and both AdamW moments
+are the same blocks. A served model keeps every non-expert leaf whole (no
+``zero``): it has no gradients or moments to split, and its steps then
+gather nothing. A block is an ``nn.Parameter`` that carries
+
+  zero_dim    the dim split over the data axes (None: whole over them)
+  zero_axes   those data axes
+  split_axes  every mesh axis the block is split over, in the mesh's
+              order (``model`` for an expert leaf whose experts are split)
+  full_shape  the whole leaf's shape
+
+and a ``models.transformer.ParamTree`` holding one is marked
+``zero_split`` when it is built. ``gathered(tree)`` gives such a tree's
+leaves whole at use through ``mesh.gather_blocks``, whose backward
+reduce-scatters the leaf's gradient: summed over the data ranks, this
+rank's block kept. ``models.transformer.apply_block`` calls it inside the
+checkpointed block, so the whole weights are gathered again in the
+backward rather than held for it. A leaf that stays whole over the data
+axes gets its gradient summed over the data ranks after the backward
+(``reduce_grads``: one all-reduce a dtype). ``whole`` gathers a leaf over
+every axis it is split over (checkpoints).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.launch import context as ctx
+from repro_torch.launch.mesh import gather_blocks
+from repro_torch.launch.sharding import data_block
+from repro_torch.optim import SplitTree
+
+__all__ = ["EXPERT_LEAVES", "full", "gathered", "reduce_grads", "shard", "split_axes", "whole"]
+
+EXPERT_LEAVES = ("wg", "wu", "wd")  # an MoE's leaves with the E axis first
+
+
+def _full_shape(path: str, t: torch.Tensor, n_experts: int) -> tuple[int, ...]:
+    """The whole leaf's shape: an expert leaf may hold only this rank's
+    experts."""
+    if ("/moe/" in f"/{path}/" and path.rsplit("/", 1)[-1] in EXPERT_LEAVES and t.ndim == 3):
+        return (n_experts, *t.shape[1:])
+    return tuple(t.shape)
+
+
+def shard(tree, path: str, cfg):
+    """``tree`` (a leaf, or nested dicts of leaves), the leaves at ``path``
+    of a model of ``cfg``, as parameters holding this rank's blocks under
+    the open ``mesh_context`` (every leaf whole over its data axes but for
+    its ``data_block``; an expert leaf as given, whole or this rank's
+    experts), tagged as the module docstring says. A block is a copy, so
+    the whole leaf can be freed at once."""
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        raise RuntimeError("ZeRO blocks of a parameter are made outside a mesh_context")
+    return _shard(tree, path, cfg, mesh, ctx.dp_axes())
+
+
+def _shard(tree, path, cfg, mesh, dp_axes):
+    if isinstance(tree, dict):
+        return {k: _shard(v, f"{path}/{k}", cfg, mesh, dp_axes) for k, v in tree.items()}
+    full_shape = _full_shape(path, tree, cfg.n_experts)
+    block = data_block(path, full_shape, mesh, dp_axes)
+    t = tree if block is None else tree.narrow(block[0], block[1].start,
+                                               block[1].stop - block[1].start).clone()
+    p = nn.Parameter(t, requires_grad=False)
+    experts_split = full_shape[0] != tree.shape[0]
+    p.zero_dim = None if block is None else block[0]
+    p.zero_axes = tuple(dp_axes)
+    p.split_axes = tuple(a for a in mesh.shape if (a == "model" and experts_split)
+                         or (block is not None and a in dp_axes))
+    p.full_shape = full_shape
+    return p
+
+
+def split_axes(p) -> tuple[str, ...]:
+    """The mesh axes ``p``'s block is split over (() for a leaf held whole)."""
+    return getattr(p, "split_axes", ())
+
+
+def full(p: torch.Tensor) -> torch.Tensor:
+    """A leaf whole over the data axes: ``p`` itself where it is, else its
+    blocks all-gathered over them (differentiable: the gradient comes back
+    reduce-scattered to ``p``'s block)."""
+    dim = getattr(p, "zero_dim", None)
+    if dim is None:
+        return p
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        raise RuntimeError("a ZeRO block of a parameter is used outside a mesh_context")
+    return gather_blocks(mesh, p, p.zero_axes, dim)
+
+
+def gathered(tree):
+    """A ``ParamTree`` with its leaves whole over the data axes: ``tree``
+    itself unless it is marked ``zero_split`` (a served model, or no mesh),
+    else nested dicts of the leaves (``full``), indexed as the tree is."""
+    if not getattr(tree, "zero_split", False):
+        return tree
+    return _gathered(tree)
+
+
+def _gathered(node):
+    return {k: _gathered(v) if isinstance(v, nn.Module) else full(v) for k, v in node.items()}
+
+
+def reduce_grads(grads: dict, params: dict, mesh) -> SplitTree:
+    """The gradients of ``params`` (by name) after the backward, as a
+    ``SplitTree``: the leaves held whole over the data axes summed over the
+    data ranks in place (one all-reduce of their concatenation a dtype);
+    the blocks came reduce-scattered from ``full``."""
+    n_dp = ctx.n_data()
+    whole_over_data = [n for n, p in params.items() if getattr(p, "zero_dim", None) is None]
+    if n_dp > 1 and whole_over_data:
+        by_dtype: dict = {}
+        for n in whole_over_data:
+            by_dtype.setdefault(grads[n].dtype, []).append(n)
+        for names in by_dtype.values():  # dtypes in the params' order: the same on every rank
+            flat = torch.cat([grads[n].reshape(-1) for n in names])
+            mesh.all_reduce(flat, ctx.dp_axes())
+            for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+                grads[n] = part.view_as(grads[n])
+    return SplitTree(grads, {n: split_axes(p) for n, p in params.items()}, mesh)
+
+
+def whole(p: torch.Tensor, mesh, block: torch.Tensor | None = None) -> torch.Tensor:
+    """The whole leaf of which ``block`` (default ``p``; a gradient or a
+    moment of ``p``) is this rank's block in ``p``'s layout: gathered over
+    the data axes and, for an expert leaf split over ``model``, over it
+    (collectives every rank of the mesh must join)."""
+    t = (p if block is None else block).detach()
+    if getattr(p, "zero_dim", None) is not None:
+        t = mesh.all_gather(t, p.zero_axes, p.zero_dim)
+    if "model" in split_axes(p):
+        t = mesh.all_gather(t, "model", 0)
+    return t

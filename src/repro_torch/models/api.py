@@ -32,7 +32,7 @@ __all__ = ["ModelBundle", "get_model", "make_batch_specs", "make_concrete_batch"
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
-    init: Callable[[torch.Generator], Any]
+    init: Callable[..., Any]  # (gen, zero=False): zero, ZeRO blocks (training under a mesh)
     loss_fn: Callable
     make_train_step: Callable
     make_prefill_step: Callable
@@ -40,11 +40,17 @@ class ModelBundle:
     init_cache: Callable  # (batch, seq, window, device) -> cache
 
 
+def _whisper_init(gen: torch.Generator, cfg: ModelConfig, zero: bool):
+    if zero:
+        raise NotImplementedError("whisper's ZeRO blocks under a mesh: ROADMAP.md queue 1 item 5")
+    return W.init_whisper(gen, cfg)
+
+
 def get_model(cfg: ModelConfig) -> ModelBundle:
     if cfg.encoder_decoder:
         return ModelBundle(
             cfg=cfg,
-            init=lambda gen: W.init_whisper(gen, cfg),
+            init=lambda gen, zero=False: _whisper_init(gen, cfg, zero),
             loss_fn=lambda p, batch, window=0: W.whisper_loss(p, cfg, batch, window),
             make_train_step=lambda opt, window=0: W.make_train_step(cfg, opt, window),
             make_prefill_step=lambda window=0: W.make_prefill_step(cfg, window),
@@ -55,7 +61,7 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
     T.check_supported(cfg)
     return ModelBundle(
         cfg=cfg,
-        init=lambda gen: T.init_params(gen, cfg),
+        init=lambda gen, zero=False: T.init_params(gen, cfg, zero=zero),
         loss_fn=lambda p, batch, window=0: T.lm_loss(p, cfg, batch, window=window),
         make_train_step=lambda opt, window=0: T.make_train_step(cfg, opt, window),
         make_prefill_step=lambda window=0: T.make_prefill_step(cfg, window),

@@ -31,8 +31,8 @@ kernel); the MoE trains through ``moe_apply_local`` under plain autograd,
 capacity counted over the whole call. Under ``launch.context.mesh_context``
 the MoE is expert-parallel (``moe_apply_ep``: this rank's experts on this
 rank's tokens, the partial outputs summed over the mesh's ``model``
-group); it serves, and raises ``NotImplementedError`` naming its ROADMAP.md
-item (queue 1 item 14.8) under autograd.
+group); it serves and trains (its collectives' backwards are
+``launch/mesh.py``'s).
 """
 
 from __future__ import annotations
@@ -45,13 +45,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ssm_scan
 from repro_torch.launch import context as ctx
+from repro_torch.launch.mesh import psum, replicated
 from repro_torch.models.ssm_vjp import selective_scan
 
 _MODES = ("train", "prefill", "decode")
-
-
-def _item(n: int) -> str:
-    return f"ROADMAP.md queue 1 item 14.{n} (model zoo)"
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -549,11 +546,15 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     of each token and sums them in float32 (``moe_combine``), all-reduces
     the float32 (N, D) partial over ``model`` and casts it to x's dtype;
     the shared experts are added after, on the whole x. Returns (y, aux);
-    aux is this rank's (JAX returns one data shard's). Under autograd it
-    raises: the all-reduce has no backward here."""
-    if torch.is_grad_enabled() and (x.requires_grad or p["wg"].requires_grad):
-        raise NotImplementedError(f"training under the expert-parallel MoE (moe_apply_ep): "
-                                  f"{_item(8)}")
+    aux is this rank's (JAX returns one data shard's).
+
+    Under autograd it trains as JAX's shard_map does: the all-reduce's
+    backward is the identity (``mesh.psum``), and the tokens and gates this
+    rank's experts take are ``mesh.replicated`` over ``model``, so their
+    gradients are summed over the model ranks (JAX sums the cotangent of an
+    input its spec leaves unsplit over ``model``); the router's own path
+    and aux are the same on every model rank and are not summed. The expert
+    leaves must then hold only this rank's experts."""
     mesh = ctx.get_mesh()
     e = cfg.n_experts
     rows = ctx.expert_rows(e)
@@ -561,14 +562,21 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
         raise ValueError("moe_apply_ep runs inside an expert-parallel mesh_context whose "
                          f"'model' axis divides the {e} experts")
     e_local = rows.stop - rows.start
+    if (e_local != e and p["wg"].shape[0] == e and torch.is_grad_enabled()
+            and p["wg"].requires_grad):
+        raise ValueError("training under the expert-parallel MoE needs expert leaves that "
+                         "hold this rank's experts (init_params under the mesh_context, or "
+                         "lm_params_from_numpy(mesh=)), else the other experts' gradients "
+                         "are lost")
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     gate, idx, aux, pos, keep, cap = moe_route(p, xf, cfg)
     rel, keep = moe_ep_routes(idx, keep, rows.start, e_local)
     local = {name: _local_experts(p[name], rows, e) for name in ("wg", "wu", "wd")}
-    expert_out = moe_experts(local, moe_dispatch(xf, rel, pos, keep, cap, e_local))
-    y = moe_combine(expert_out, gate, rel, pos, keep, cap, acc_dtype=torch.float32)
-    y = mesh.all_reduce(y, "model").to(x.dtype)
+    xd, gd = replicated(mesh, xf, "model"), replicated(mesh, gate, "model")
+    expert_out = moe_experts(local, moe_dispatch(xd, rel, pos, keep, cap, e_local))
+    y = moe_combine(expert_out, gd, rel, pos, keep, cap, acc_dtype=torch.float32)
+    y = psum(mesh, y, "model").to(x.dtype)
     if cfg.n_shared_experts:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, s, d), aux

@@ -40,13 +40,18 @@ package's loss and ``make_train_step`` its step over the port's optimizers
 parameters in place.
 
 Under ``launch.context.mesh_context`` the steps keep the JAX steps'
-contract, global batch in and global logits out, on every rank: each rank
-runs its data shard of the batch (``context.data_rows``: where the data
-axes divide B and the MoE, if any, is expert-parallel, else the whole
-batch), the MoE layers are expert-parallel where the ``model`` axis
-divides the experts, and the (B_loc, V) logits are all-gathered over the
-data axes; the cache stays the rank's shard. ``init_params`` keeps the rank's expert slices and
-``init_cache`` sizes the rank's shard.
+contract, global batch in and global logits (or the global loss) out, on
+every rank: each rank runs its data shard of the batch
+(``context.data_rows``: where the data axes divide B and the MoE, if any,
+is expert-parallel, else the whole batch), the MoE layers are
+expert-parallel where the ``model`` axis divides the experts, and the
+(B_loc, V) logits are all-gathered over the data axes; the cache stays the
+rank's shard. ``init_params`` keeps the rank's experts and, for training
+(``zero=True``), the rank's ZeRO blocks of every leaf over the data axes
+(``launch/zero.py``), which ``apply_block`` and the embedding and head
+gather at use; ``init_cache`` sizes the rank's shard. The train step differentiates
+``lm_objective``'s rank share of the global loss and updates the rank's
+blocks (``apply_train_step``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import context as ctx
+from repro_torch.launch import zero as Z
 from repro_torch.models import layers as L
 
 _TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
@@ -121,7 +127,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """``t`` as a parameter (a ZeRO block, ``zero.shard``'s, as it is)."""
+    return t if isinstance(t, nn.Parameter) else nn.Parameter(t, requires_grad=False)
 
 
 class ParamTree(nn.Module):
@@ -130,7 +137,9 @@ class ParamTree(nn.Module):
     (``blk["mixer"]``, ``blk["moe"]["shared"]["wg"]``, ``"ffn" in blk``,
     ``.items()``). One block is the pre-norm residual layer's ``norm1``,
     ``mixer`` and, after attention (and after a Mamba mixer in jamba),
-    ``norm2`` with ``ffn`` or ``moe``."""
+    ``norm2`` with ``ffn`` or ``moe``. ``zero_split``: some leaf is a ZeRO
+    block split over the data axes (``launch/zero.py``), read once here so
+    that ``apply_block`` tests one flag a step."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -139,6 +148,7 @@ class ParamTree(nn.Module):
                 self.add_module(name, ParamTree(value))
             else:
                 self.register_parameter(name, _param(value))
+        self.zero_split = any(getattr(p, "zero_dim", None) is not None for p in self.parameters())
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -210,7 +220,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
 def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=None,
                 window: int = 0, mode: str = "prefill"):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss), the aux
-    loss None without an MoE FFN."""
+    loss None without an MoE FFN. Under a mesh the block's ZeRO blocks are
+    gathered here, inside the checkpointed function (``zero.gathered``)."""
+    p = Z.gathered(p)
     aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "mamba":
@@ -246,23 +258,34 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, wi
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> DecoderLM:
+def init_params(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> DecoderLM:
     """A model with random weights drawn from ``gen`` on its device: the
     JAX init's shapes, dtypes and scales (normal * 0.02, out-projections
     / sqrt(2 L), A_log, dt_bias = -4.6, a float32 router, ...), not its
-    bits. Under an expert-parallel mesh the draws are the same and each
-    expert leaf keeps this rank's experts (``layers.init_moe``)."""
+    bits. Under a mesh the draws are the same and each expert leaf keeps
+    this rank's experts (``layers.init_moe``); with ``zero`` (training
+    under a mesh) each leaf is also cut to this rank's ZeRO block as soon
+    as it is drawn (``launch/zero.shard``; a block's leaves at a time are
+    whole)."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     v, d = cfg.vocab_padded, cfg.d_model
+    if zero and ctx.get_mesh() is None:
+        raise ValueError("init_params(zero=True) splits the leaves over the data axes of the "
+                         "open mesh_context, and none is open")
+
+    def held(path, tree):
+        return Z.shard(tree, path, cfg) if zero else tree
+
     tree = {
-        "embed": L._normal(gen, (v, d), 0.02, dt),
-        "final_norm": torch.ones((d,), dtype=dt, device=gen.device),
-        "head": L._normal(gen, (d, v), 0.02, dt),
-        "blocks": [init_block(gen, cfg, spec) for spec in layer_specs(cfg)],
+        "embed": held("embed", L._normal(gen, (v, d), 0.02, dt)),
+        "final_norm": held("final_norm", torch.ones((d,), dtype=dt, device=gen.device)),
+        "head": held("head", L._normal(gen, (d, v), 0.02, dt)),
+        "blocks": [held(f"blocks/{i}", init_block(gen, cfg, spec))
+                   for i, spec in enumerate(layer_specs(cfg))],
     }
     if cfg.frontend == "vision_stub":
-        tree["vision_proj"] = L._normal(gen, (d, d), 0.02, dt)
+        tree["vision_proj"] = held("vision_proj", L._normal(gen, (d, d), 0.02, dt))
     return DecoderLM(cfg, tree)
 
 
@@ -285,9 +308,9 @@ def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings (B, S, D); under the vision stub, with
     ``vision_embeds`` (B, nv, D) cast to the model's dtype, projected by
     ``vision_proj`` and prepended: (B, nv + S, D)."""
-    x = params.embed[tokens.to(device=params.device, dtype=torch.int64)]
+    x = Z.full(params.embed)[tokens.to(device=params.device, dtype=torch.int64)]
     if cfg.frontend == "vision_stub" and vision_embeds is not None:
-        ve = vision_embeds.to(device=params.device, dtype=x.dtype) @ params.vision_proj
+        ve = vision_embeds.to(device=params.device, dtype=x.dtype) @ Z.full(params.vision_proj)
         x = torch.cat([ve, x], dim=1)
     return x
 
@@ -359,8 +382,8 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
         if aux is not None:
             aux_total = aux_total + aux
 
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = (x @ params.head).to(torch.float32)
+    x = L.rms_norm(x, Z.full(params.final_norm), cfg.norm_eps)
+    logits = (x @ Z.full(params.head)).to(torch.float32)
     if mode == "train":
         return logits, None, aux_total
     next_pos = cache["pos"] + 1 if (cache is not None and mode == "decode") else s
@@ -372,15 +395,73 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
 # ---------------------------------------------------------------------------
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood of ``labels`` (B, S) under the float32
-    ``logits`` (B, S, V) over the whole (padded) vocabulary, labels -1
-    ignored (the mean is over the rest, at least 1)."""
+def nll_terms(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the masked sum of the negative log-likelihoods of ``labels`` (B, S)
+    under the float32 ``logits`` (B, S, V) over the whole (padded)
+    vocabulary, the count of labels >= 0), both float32."""
     labels = labels.to(device=logits.device, dtype=torch.int64)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
     m = (labels >= 0).to(torch.float32)
-    return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.sum(nll * m), torch.sum(m)
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` (B, S) under the float32
+    ``logits`` (B, S, V) over the whole (padded) vocabulary, labels -1
+    ignored (the mean is over the rest, at least 1)."""
+    total, count = nll_terms(logits, labels)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def _train_logits(params, cfg, batch, window, remat):
+    logits, _, aux = forward(params, cfg, batch["tokens"], positions=batch.get("positions"),
+                             vision_embeds=batch.get("vision_embeds"), window=window,
+                             mode="train", remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm: the vision prefix emits logits too
+        logits = logits[:, -labels.shape[1]:]
+    return logits, labels, aux
+
+
+def lm_objective(params: DecoderLM, cfg: ModelConfig, batch: dict, *, window: int = 0,
+                 remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(what this rank differentiates, the loss the step returns) on the
+    global ``batch``. Without a mesh both are ``lm_loss``, one tensor.
+
+    Under a mesh, the JAX package's sharded step (``jax.jit`` with the
+    batch over the data axes, as ``launch/dryrun.py`` lowers it). The rank
+    runs its rows (``context.data_rows``) and divides their masked NLL sum
+    by the count of unmasked labels in the global batch, which every rank
+    holds; the sum of these shares over the data ranks is the global NLL
+    mean. An expert-parallel MoE returns one aux a data shard (each routes
+    its own tokens), and JAX's gradient is that of the mean of the shards'
+    auxes, so each rank adds ``0.01 * aux / n_dp``. The loss JAX returns
+    (``out_shardings=P()``) is the global NLL mean plus 0.01 times data
+    shard 0's aux: one all-reduce over the data axes gives it to every
+    rank, detached. Where every rank runs the whole batch (``data_rows``
+    None), its share is the whole loss over ``n_dp``, since the data ranks'
+    gradients are summed."""
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        loss = lm_loss(params, cfg, batch, window=window, remat=remat)
+        return loss, loss
+    n_dp = ctx.n_data()
+    rows = ctx.data_rows(cfg, batch["tokens"].shape[0])
+    count = torch.clamp_min(torch.sum((batch["labels"] >= 0).to(torch.float32)), 1.0)
+    local = batch if rows is None else {k: v[rows] for k, v in batch.items()}
+    logits, labels, aux = _train_logits(params, cfg, local, window, remat)
+    total, _ = nll_terms(logits, labels)
+    nll = total / count.to(total.device)
+    if rows is None:
+        objective = (nll + 0.01 * aux) / n_dp
+        loss = nll.detach() + 0.01 * aux.detach()
+    else:
+        objective = nll + 0.01 * aux / n_dp
+        first = float(mesh.index(ctx.dp_axes()) == 0)
+        terms = mesh.all_reduce(torch.stack([total.detach(), first * aux.detach()]), ctx.dp_axes())
+        loss = terms[0] / count.to(total.device) + 0.01 * terms[1]
+    return objective, loss
 
 
 def lm_loss(params: DecoderLM, cfg: ModelConfig, batch: dict, *, window: int = 0,
@@ -389,13 +470,13 @@ def lm_loss(params: DecoderLM, cfg: ModelConfig, batch: dict, *, window: int = 0
     (B, S) with -1 = ignore, and under the vision stub ``vision_embeds`` and
     ``positions``}; the vision prefix's logits are cut off before the NLL;
     plus 0.01 times the MoE layers' aux loss. A float32 scalar on the
-    model's device, differentiable in its parameters."""
-    logits, _, aux = forward(params, cfg, batch["tokens"], positions=batch.get("positions"),
-                             vision_embeds=batch.get("vision_embeds"), window=window,
-                             mode="train", remat=remat)
-    labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:  # vlm: the vision prefix emits logits too
-        logits = logits[:, -labels.shape[1]:]
+    model's device, differentiable in its parameters. Under a mesh, the
+    global batch's loss JAX's sharded step returns, on every rank and
+    detached (``lm_objective``, whose first value the step
+    differentiates)."""
+    if ctx.get_mesh() is not None:
+        return lm_objective(params, cfg, batch, window=window, remat=remat)[1]
+    logits, labels, aux = _train_logits(params, cfg, batch, window, remat)
     return token_nll(logits, labels) + 0.01 * aux
 
 
@@ -411,17 +492,34 @@ def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
     not reach gets zeros, as JAX's grad gives), ``optimizer.update`` on the
     ``param_tree`` and ``p + update`` rounded to p's dtype (the JAX
     ``apply_updates``). Returns (model, opt_state, loss as a device tensor);
-    nothing is read back to the host."""
+    nothing is read back to the host.
+
+    The optimizer runs in place where it offers to (``Optimizer.apply_``:
+    the same arithmetic bit for bit, one copy of the moments and the
+    state's tensors overwritten). Under a mesh ``loss_of()`` returns (this
+    rank's objective, the loss), ``lm_objective``'s pair; the parameters are
+    this rank's blocks and their gradients come summed over the data ranks
+    (``zero.reduce_grads``) as a ``SplitTree``."""
     tree = param_tree(model)
+    mesh = ctx.get_mesh()
     for p in tree.values():
         p.requires_grad_(True)
     with torch.enable_grad():
-        loss = loss_of()
-        grads = torch.autograd.grad(loss, list(tree.values()), allow_unused=True)
+        out = loss_of()
+        if mesh is not None and not isinstance(out, tuple):
+            raise NotImplementedError("training under a mesh takes a loss of (rank objective, "
+                                      "loss), as lm_objective gives; this model has none "
+                                      "(ROADMAP.md queue 1 item 5)")
+        objective, loss = out if isinstance(out, tuple) else (out, out)
+        grads = torch.autograd.grad(objective, list(tree.values()), allow_unused=True)
     grads = {name: torch.zeros_like(p) if g is None else g
              for (name, p), g in zip(tree.items(), grads)}
-    updates, opt_state = optimizer.update(grads, opt_state,
-                                          {name: p.detach() for name, p in tree.items()})
+    params = {name: p.detach() for name, p in tree.items()}
+    if mesh is not None:
+        grads = Z.reduce_grads(grads, tree, mesh)
+    if optimizer.apply_ is not None:
+        return model, optimizer.apply_(grads, opt_state, params), loss.detach()
+    updates, opt_state = optimizer.update(grads, opt_state, params)
     del grads
     with torch.no_grad():
         for name, p in tree.items():
@@ -431,10 +529,11 @@ def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
 
 def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = True):
     def train_step(params: DecoderLM, opt_state, batch: dict):
-        """One step on ``batch`` (``lm_loss``'s): (params updated in place,
-        opt_state, loss)."""
+        """One step on the global ``batch`` (``lm_loss``'s; under a mesh
+        ``lm_objective``'s): (params updated in place, opt_state, loss)."""
         return apply_train_step(params, opt_state, optimizer,
-                                lambda: lm_loss(params, cfg, batch, window=window, remat=remat))
+                                lambda: lm_objective(params, cfg, batch, window=window,
+                                                     remat=remat))
 
     return train_step
 

@@ -8,6 +8,7 @@
 
 from repro_torch.optim.optim import (
     Optimizer,
+    SplitTree,
     adamw,
     apply_updates,
     chain,
@@ -17,5 +18,5 @@ from repro_torch.optim.optim import (
     sgd,
 )
 
-__all__ = ["Optimizer", "sgd", "adamw", "clip_by_global_norm", "chain", "apply_updates",
+__all__ = ["Optimizer", "SplitTree", "sgd", "adamw", "clip_by_global_norm", "chain", "apply_updates",
            "global_norm", "cosine_schedule"]

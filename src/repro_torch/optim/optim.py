@@ -13,7 +13,14 @@ bias correction and eps otherwise. Steps and learning rates are float32
 tensors on the parameters' device.
 
 Optimizer states mirror the parameter tree leaf for leaf, so whatever
-shards a parameter shards its moments too (``launch.sharding``).
+shards a parameter shards its moments too (``launch.sharding``,
+``launch/zero.py``). Under a mesh of ranks the train step passes its
+gradients as a ``SplitTree``, which names the mesh axes each leaf's block
+is split over; ``global_norm`` then sums each leaf's squares once over
+those axes. ``Optimizer.apply_`` runs an optimizer in place, leaf by leaf:
+the same arithmetic as ``update`` and ``apply_updates``, bit for bit, with
+the state's tensors overwritten, so that a step holds one copy of the
+moments and one leaf's temporaries (the train step takes it under a mesh).
 """
 
 from __future__ import annotations
@@ -25,13 +32,30 @@ import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["Optimizer", "adamw", "apply_updates", "chain", "clip_by_global_norm",
+__all__ = ["Optimizer", "SplitTree", "adamw", "apply_updates", "chain", "clip_by_global_norm",
            "cosine_schedule", "global_norm", "sgd"]
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., tuple[Any, Any]]  # (grads, state, params) -> (updates, state)
+    # (grads, state, params) -> state: in place, leaf by leaf; a gradient
+    # transformation rewrites grads, the last transformation of a chain
+    # writes its moments into the state's tensors and adds the update to
+    # params (rounded to their dtype). None: not offered.
+    apply_: Callable[..., Any] | None = None
+
+
+class SplitTree(dict):
+    """A flat {name: leaf} tree of a model held over a mesh of ranks:
+    ``split[name]`` is the tuple of mesh axes that leaf's block is split
+    over (() where this rank holds it whole), ``mesh`` the
+    ``launch.mesh.RankMesh``."""
+
+    def __init__(self, leaves: dict, split: dict, mesh):
+        super().__init__(leaves)
+        self.split = split
+        self.mesh = mesh
 
 
 def apply_updates(params, updates):
@@ -39,8 +63,25 @@ def apply_updates(params, updates):
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The square root of the sum of every element's square. Of a
+    ``SplitTree``: each leaf's block summed, the sums of the leaves split
+    over the same axes all-reduced over them (one collective for each such
+    set of axes), a leaf held whole counted once."""
+    split = getattr(tree, "split", None)
+    if split is None:
+        leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    by_axes: dict = {}
+    for name in sorted(tree):
+        by_axes.setdefault(tuple(split[name]), []).append(
+            torch.sum(torch.square(tree[name].to(torch.float32))))
+    total = None
+    for axes in sorted(by_axes):  # the same collectives in the same order on every rank
+        part = torch.sum(torch.stack(by_axes[axes]))
+        if axes:
+            part = tree.mesh.all_reduce(part.reshape(1), axes).reshape(())
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def _device(tree) -> torch.device:
@@ -115,36 +156,62 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return State(torch.zeros((), dtype=torch.int32, device=_device(params)),
                      tree_map(zeros, params), tree_map(zeros, params))
 
-    def update(grads, state, params):
+    def corrections(state):
         step = state.step + 1
-        lr_t = sched(state.step)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32), state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
-                      state.nu, grads)
         bc1 = 1 - torch.pow(_f32(b1, step.device), step.to(torch.float32))
         bc2 = 1 - torch.pow(_f32(b2, step.device), step.to(torch.float32))
+        return step, sched(state.step), bc1, bc2
 
-        def u(m, v, p):
-            upd = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
-            if weight_decay:
-                upd = upd - lr_t * weight_decay * p.to(torch.float32)
-            return upd
+    def first(m, g):
+        return b1 * m + (1 - b1) * g.to(torch.float32)
 
-        return tree_map(u, mu, nu, params), State(step, mu, nu)
+    def second(v, g):
+        return b2 * v + (1 - b2) * torch.square(g.to(torch.float32))
 
-    return Optimizer(init, update)
+    def delta(m, v, p, lr_t, bc1, bc2):
+        upd = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        if weight_decay:
+            upd = upd - lr_t * weight_decay * p.to(torch.float32)
+        return upd
+
+    def update(grads, state, params):
+        step, lr_t, bc1, bc2 = corrections(state)
+        mu = tree_map(first, state.mu, grads)
+        nu = tree_map(second, state.nu, grads)
+        return (tree_map(lambda m, v, p: delta(m, v, p, lr_t, bc1, bc2), mu, nu, params),
+                State(step, mu, nu))
+
+    def apply_(grads, state, params):
+        step, lr_t, bc1, bc2 = corrections(state)
+        with torch.no_grad():
+            for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                                  tree_leaves(state.nu), tree_leaves(params)):
+                m.copy_(first(m, g))
+                v.copy_(second(v, g))
+                p.copy_((p + delta(m, v, p, lr_t, bc1, bc2)).to(p.dtype))
+        return State(step, state.mu, state.nu)
+
+    return Optimizer(init, update, apply_)
 
 
 def clip_by_global_norm(max_norm: float) -> Optimizer:
     def init(params):
         return ()
 
+    def scale_of(grads):
+        return torch.clamp_max(max_norm / torch.clamp_min(global_norm(grads), 1e-9), 1.0)
+
     def update(grads, state, params=None):
-        norm = global_norm(grads)
-        scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+        scale = scale_of(grads)
         return tree_map(lambda g: g * scale, grads), state
 
-    return Optimizer(init, update)
+    def apply_(grads, state, params=None):
+        scale = scale_of(grads)
+        for g in tree_leaves(grads):
+            g.mul_(scale)
+        return state
+
+    return Optimizer(init, update, apply_)
 
 
 def chain(*transforms: Optimizer) -> Optimizer:
@@ -160,4 +227,8 @@ def chain(*transforms: Optimizer) -> Optimizer:
             new_state.append(s)
         return grads, tuple(new_state)
 
-    return Optimizer(init, update)
+    def apply_(grads, state, params=None):
+        return tuple(t.apply_(grads, s, params) for t, s in zip(transforms, state))
+
+    offered = all(t.apply_ is not None for t in transforms)
+    return Optimizer(init, update, apply_ if offered else None)

@@ -26,15 +26,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
+from repro_torch.launch import context as ctx
+from repro_torch.launch import zero as Z
 from repro_torch.launch.sharding import expert_block
+from repro_torch.launch.zero import EXPERT_LEAVES
 from repro_torch.models.transformer import DecoderLM, check_supported, layer_plan
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
            "whisper_params_from_numpy", "silo_params_from_numpy", "servable_from_numpy"]
-
-EXPERT_LEAVES = ("wg", "wu", "wd")  # an MoE's leaves with the E axis first
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,7 +68,7 @@ def state_from_numpy(state, device=None) -> RoundState:
     return RoundState(**fields)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None):
+def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: bool = False):
     """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
     ``head``, ``vision_proj`` under the vision stub, the ``prologue`` blocks, and one ``stack`` entry per position
     of the period whose leaves carry a leading axis of periods), as numpy
@@ -76,7 +77,11 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None):
     j at index i for layer ``len(prologue) + i * p + j`` (dtypes and bits
     kept; nested dicts such as an MoE's ``shared`` experts as they are).
     With a ``mesh`` (a ``launch.mesh.RankMesh``), each expert leaf keeps
-    only this rank's experts (``launch.sharding.expert_block``)."""
+    only this rank's experts (``launch.sharding.expert_block``). With
+    ``zero`` (training), each leaf also keeps only this rank's ZeRO block
+    over the data axes of the open ``mesh_context``, which must hold
+    ``mesh`` (``launch/zero.py``), so the model is the one
+    ``init_params(zero=True)`` makes there."""
     dev = resolve_device(device)
     check_supported(cfg)
     n_pro, p, n_periods = layer_plan(cfg)
@@ -85,22 +90,26 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None):
                          f"{p if n_periods else 0} stack entries, got {len(tree['prologue'])} "
                          f"and {len(tree['stack'])}")
     rows = None if mesh is None else expert_block(cfg.n_experts, mesh)
+    if zero and (mesh is None or ctx.get_mesh() is not mesh):
+        raise ValueError("lm_params_from_numpy(zero=True) splits the leaves over the data axes "
+                         "of the open mesh_context, which must hold mesh")
 
-    def block(blk):
+    def held(path, t):
+        return Z.shard(t, path, cfg) if zero else t
+
+    def block(path, blk):
         if rows is not None and "moe" in blk:
             moe = blk["moe"]
             blk = dict(blk, moe=dict(moe, **{n: np.asarray(moe[n])[rows] for n in EXPERT_LEAVES}))
-        return tree_map(lambda a: _tensor(a, dev), blk)
+        return held(path, tree_map(lambda a: _tensor(a, dev), blk))
 
-    blocks = [block(blk) for blk in tree["prologue"]]
-    blocks += [block(tree_map(lambda a, i=i: np.asarray(a)[i], tree["stack"][j]))
-               for i in range(n_periods) for j in range(p)]
-    lm = {"embed": _tensor(tree["embed"], dev),
-          "final_norm": _tensor(tree["final_norm"], dev),
-          "head": _tensor(tree["head"], dev),
-          "blocks": blocks}
+    blocks = [tree_map(lambda a, i=i: np.asarray(a)[i], tree["stack"][j])
+              for i in range(n_periods) for j in range(p)]
+    blocks = [block(f"blocks/{i}", blk) for i, blk in enumerate(list(tree["prologue"]) + blocks)]
+    lm = {name: held(name, _tensor(tree[name], dev)) for name in ("embed", "final_norm", "head")}
+    lm["blocks"] = blocks
     if "vision_proj" in tree:  # the vision stub's projection
-        lm["vision_proj"] = _tensor(tree["vision_proj"], dev)
+        lm["vision_proj"] = held("vision_proj", _tensor(tree["vision_proj"], dev))
     return DecoderLM(cfg, lm)
 
 

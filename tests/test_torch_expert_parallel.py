@@ -44,22 +44,23 @@ runs in this process. Asserted, rank by rank:
   no expert-parallel call made;
 - under a mesh, ``init_params`` leaves each rank only its experts, and the
   slices of the model ranks, concatenated, are bitwise the unsharded
-  init; ``serve`` on (1, 2) gives every rank the tokens of the run without
-  a mesh;
+  init (a served model holds no ZeRO blocks); ``serve`` on (1, 2) gives
+  every rank the tokens of the run without a mesh;
 - in process: the context comes back after an exception,
-  ``seq_parallel=True`` raises naming item 5, the dispatch falls back to ``moe_apply_local`` where
-  ``model`` does not divide the experts, ``lm_params_from_numpy(mesh=)``
-  keeps the rank's slice, ``make_production_mesh`` names the world it
-  needs, and gradients under the expert-parallel MoE raise naming item
-  14.8.
+  ``seq_parallel=True`` opens it and changes no value, the dispatch falls
+  back to ``moe_apply_local`` where ``model`` does not divide the experts,
+  ``lm_params_from_numpy(mesh=)`` keeps the rank's slice,
+  ``make_production_mesh`` names the world it needs, and the
+  expert-parallel MoE's gradients on (1, 1) are ``moe_apply_local``'s.
+  Training under the mesh is ``tests/test_torch_train_mesh.py``'s.
 
 The spawned ranks import this module, which imports no jax at top level.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
 import os
 import pathlib
 import pickle
@@ -669,7 +670,8 @@ def test_init_params_keeps_each_ranks_experts(runs, arch, shape):
     """Under the mesh ``init_params`` draws as without one and keeps the
     rank's E/n_mp experts of each expert leaf; the model ranks' slices,
     concatenated in order, are bitwise the unsharded init, on every data
-    rank."""
+    rank (serving holds no ZeRO blocks: ``tests/test_torch_train_mesh.py``
+    holds training's)."""
     _, port, unsharded, _ = runs
     ranks = port[_key(shape)]
     n_mp = shape[1]
@@ -706,11 +708,18 @@ def mesh11():
 
 
 def test_seq_parallel_raises_and_the_context_is_restored(mesh11):
-    """``seq_parallel=True`` raises naming item 5 and leaves no context; a
-    context comes back after an exception and after a nested one."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        with ctx.mesh_context(mesh11, seq_parallel=True):
-            pass
+    """``seq_parallel=True`` (JAX's layout hint, which changes no value)
+    opens the context like any other and leaves none behind; a context
+    comes back after an exception and after a nested one."""
+    cfg = _cfg("deepseek-moe-16b")
+    p = L.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 4, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    with ctx.mesh_context(mesh11):
+        want = L.moe_apply(p, x, cfg)
+    with ctx.mesh_context(mesh11, seq_parallel=True):
+        assert ctx.get_mesh() is mesh11 and ctx.expert_parallel(cfg.n_experts)
+        got = L.moe_apply(p, x, cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert ctx.get_mesh() is None
     with pytest.raises(RuntimeError, match="inside"):
         with ctx.mesh_context(mesh11, moe_ep=True):
@@ -794,14 +803,27 @@ def test_rank_mesh_coordinates_and_index(mesh11):
 
 
 def test_gradients_under_the_expert_parallel_moe_raise(mesh11):
-    """Training under the expert-parallel MoE is ROADMAP.md queue 1 item
-    14.8: the all-reduce has no backward in the port."""
+    """The expert-parallel MoE trains: on (1, 1) ``moe_apply_ep``'s output,
+    aux and the gradients of x, the router, the experts and the shared
+    experts (through ``mesh.psum`` and ``mesh.replicated``) are
+    ``moe_apply_local``'s; on more ranks
+    ``tests/test_torch_train_mesh.py`` holds them to JAX's."""
     cfg = _cfg("deepseek-moe-16b")
     p = L.init_moe(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 2, cfg.d_model), requires_grad=True)
-    with ctx.mesh_context(mesh11), torch.enable_grad():
-        with pytest.raises(NotImplementedError, match="item 14.8"):
-            L.moe_apply(p, x, cfg)
-        with torch.no_grad():
-            y, _ = L.moe_apply(p, x, cfg)
-    assert y.shape == x.shape and math.isfinite(float(y.abs().sum()))
+    leaves = {"router": p["router"], "wg": p["wg"], "wd": p["wd"],
+              "shared/wu": p["shared"]["wu"]}
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    out = []
+    for under_mesh in (False, True):
+        xg = x.clone().requires_grad_(True)
+        for w in leaves.values():
+            w.requires_grad_(True)
+        with ctx.mesh_context(mesh11) if under_mesh else contextlib.nullcontext():
+            y, aux = L.moe_apply(p, xg, cfg)
+            g = torch.autograd.grad(torch.sum(y * dy) + aux, [xg, *leaves.values()])
+        out.append((y.detach(), aux.detach(), g))
+    (y0, a0, g0), (y1, a1, g1) = out
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    for name, a, b in zip(["x", *leaves], g0, g1):
+        assert (a - b).abs().max() <= F32_REL * a.abs().max(), name

@@ -406,8 +406,10 @@ def test_expert_parallel_moe_raises(monkeypatch):
     under a (1, 1) mesh of ranks ``moe_apply`` takes ``moe_apply_ep`` and
     gives JAX's ``moe_apply`` under the JAX package's (1, 1) mesh context
     (its ``moe_apply_ep``) within 1e-5 of max, aux too; without a mesh it
-    takes ``moe_apply_local``. Only training under it still raises
-    (``_OUT_OF_TRAINING``)."""
+    takes ``moe_apply_local``. It trains: the gradients of a loss of y and
+    aux with respect to x and the router are JAX's ``jax.grad`` of the same
+    loss under its mesh within 1e-5 of max (``tests/test_torch_train_mesh.py``
+    trains whole models on larger meshes)."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as jax_get_config
     from repro.launch import context as jax_ctx
@@ -424,12 +426,18 @@ def test_expert_parallel_moe_raises(monkeypatch):
     taken = []
     ep = layers.moe_apply_ep
     monkeypatch.setattr(layers, "moe_apply_ep", lambda *a: taken.append("ep") or ep(*a))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    xg = x.clone().requires_grad_(True)
+    p["router"].requires_grad_(True)
     mesh = make_rank_mesh((1, 1), device="cpu")
     try:
         with ctx.mesh_context(mesh):
-            y, aux = layers.moe_apply(p, x, cfg)
+            y, aux = layers.moe_apply(p, xg, cfg)
+            gx, grouter = torch.autograd.grad(torch.sum(y * dy) + aux, [xg, p["router"]])
     finally:
         mesh.close()
+    y, aux = y.detach(), aux.detach()
+    p["router"].requires_grad_(False)
     assert taken == ["ep"]
     layers.moe_apply(p, x, cfg)
     assert taken == ["ep"]
@@ -443,22 +451,35 @@ def test_expert_parallel_moe_raises(monkeypatch):
     assert np.abs(y.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
     assert abs(float(aux) - float(jaux)) <= 1e-5 * abs(float(jaux))
 
+    def jloss(p, x):
+        jy, jaux = JL.moe_apply(p, x, jcfg)
+        return (jy * dy.numpy()).sum() + jaux
 
-def _train_expert_parallel_moe():
-    """An MoE layer's loss under autograd inside a (1, 1) mesh context (the
-    expert-parallel ``moe_apply_ep``, whose all-reduce has no backward in
-    the port)."""
+    with jax_ctx.mesh_context(jmesh):
+        jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, x.numpy())
+    for got, want in ((gx, jgx), (grouter, jgp["router"])):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _train_whisper_under_a_mesh():
+    """whisper-tiny's train step inside a (1, 1) mesh context: whisper
+    under a mesh is not ported (its loss gives no rank objective)."""
+    from repro_torch import optim
     from repro_torch.launch import context as ctx
     from repro_torch.launch.mesh import make_rank_mesh
-    from repro_torch.models import layers
+    from repro_torch.models.api import make_concrete_batch, param_tree
+    from repro_torch import random as prng
 
-    cfg = get_config("deepseek-moe-16b").reduced()
-    p = layers.init_moe(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
+    cfg = get_config("whisper-tiny").reduced()
+    bundle = get_model(cfg)
     mesh = make_rank_mesh((1, 1), device="cpu")
     try:
-        with ctx.mesh_context(mesh), torch.enable_grad():
-            layers.moe_apply(p, x, cfg)
+        with ctx.mesh_context(mesh):
+            model = bundle.init(torch.Generator().manual_seed(0))
+            opt = optim.adamw(1e-3)
+            batch = make_concrete_batch(cfg, "train", 1, 8, prng.PRNGKey(0))
+            bundle.make_train_step(opt)(model, opt.init(param_tree(model)), batch)
     finally:
         mesh.close()
 
@@ -468,16 +489,18 @@ def _train_tied_embeddings():
     get_model(cfg).make_train_step(None)
 
 
-_OUT_OF_TRAINING = {"expert-parallel MoE": (_train_expert_parallel_moe, "item 14.8"),
+_OUT_OF_TRAINING = {"whisper under a mesh": (_train_whisper_under_a_mesh, "item 5"),
                     "tied embeddings": (_train_tied_embeddings, "item 14")}
 
 
 @pytest.mark.parametrize("case", sorted(_OUT_OF_TRAINING))
 def test_training_outside_the_slice_raises(case):
     """What training leaves out still raises, naming its ROADMAP.md item:
-    training under the expert-parallel MoE (queue 1 item 14.8) and tied
+    whisper-tiny under a mesh of ranks (queue 1 item 5) and tied
     embeddings (item 14); every zoo arch trains
-    (``tests/test_torch_train_*.py``)."""
+    (``tests/test_torch_train_*.py``), the decoder LMs under a mesh too
+    (``tests/test_torch_train_mesh.py``; the expert-parallel MoE's
+    gradients in ``test_expert_parallel_moe_raises``)."""
     fn, item = _OUT_OF_TRAINING[case]
     with pytest.raises(NotImplementedError, match=item):
         fn()
