@@ -93,6 +93,14 @@ drives the port's two paths:
   jamba-v0.1-52b at full width and 8 layers in float32 under (1, 1)
   against the same model without a mesh, and on a (1, 2) mesh of two gloo
   processes sharing the card against the (1, 1) run;
+- tensor parallelism for serving (``[tp]``, ``launch/tp.py``): the
+  reduced bf16 granite-3-8b, falcon-mamba-7b and jamba-v0.1-52b under a
+  (1, 1) mesh bitwise the run without one; on a (1, 2) mesh of two gloo
+  processes sharing the card, those and granite-3-8b and falcon-mamba-7b
+  at full width cut to 4 layers (flash_attention and ssm_scan at the
+  ranks' halves of the heads and of d_inner) within 2^-5 of max of the run
+  without a mesh, both ranks bitwise equal; the kernels are also held to
+  their plain versions at the shapes a rank of four gives them;
 - training under that mesh (``[train_mesh]``, ``launch/zero.py``'s ZeRO
   blocks, ``moe_apply_ep``'s backward, ``transformer.lm_objective``): the
   reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b, 3
@@ -103,13 +111,15 @@ drives the port's two paths:
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
 ranks (``nccl_world_main``), and ``torchrun --standalone --nproc-per-node
-4 chip_smoke.py --ep-world`` serves jamba-v0.1-52b whole on a (1, 4) mesh
-and moonshot-v1-16b-a3b whole on (1, 4) and (2, 2) (``ep_world_main``),
+4 chip_smoke.py --ep-world`` serves jamba-v0.1-52b whole on a (1, 4) mesh,
+moonshot-v1-16b-a3b whole on (1, 4) and (2, 2), and granite-3-8b and
+falcon-mamba-7b whole on (1, 4), tensor-parallel (``ep_world_main``),
 and ``... --train-world`` trains granite-3-8b whole on (4, 1) and
 deepseek-moe-16b whole on (2, 2) after holding 4-layer float32 versions to
 the same weights without a mesh (``train_world_main``);
-``--shard-worker``, ``--ep-worker`` and ``--train-mesh-worker`` are one
-rank of the gloo worlds the single-card run starts itself.
+``--shard-worker``, ``--ep-worker``, ``--tp-worker`` and
+``--train-mesh-worker`` are one rank of the gloo worlds the single-card run
+starts itself.
 
 Every phase prints its lines; the kernel table is one JSON line; the last
 line is ``{"ok": true, "device": ...}``. Any failed check exits non-zero
@@ -400,13 +410,45 @@ EP_DECODE_STEPS = 2
 EP_REL = 2.0 ** -8
 EP_GLOO_TIMEOUT_S = 240
 EP_WORLD = (("jamba-v0.1-52b", (1, 4)), ("moonshot-v1-16b-a3b", (1, 4)),
-            ("moonshot-v1-16b-a3b", (2, 2)))
+            ("moonshot-v1-16b-a3b", (2, 2)), ("granite-3-8b", (1, 4)), ("falcon-mamba-7b", (1, 4)))
 EP_CHECK_ARCH, EP_CHECK_LAYERS, EP_CHECK_MESHES = "moonshot-v1-16b-a3b", 4, ((1, 4), (2, 2))
 # moonshot's k = 6 outputs of a token are summed in another order under EP
 # (each rank its own, then the all-reduce) than without (in k order), so a
 # later layer's router may see a last-bit difference and flip a near tie:
 # at most this share of the routes may differ (predicted 0)
 EP_ROUTE_SHARE = 2.0 ** -10
+
+
+# [tp] and --ep-world's tensor-parallel checks (launch/tp.py: a served model
+# on a model axis over 1 holds its model_block of every leaf, and its layers
+# sum their row products' float32 partials over model). [tp] on the one
+# card, the layout alone (moe_ep=False: jamba's MoE local; in bf16 the
+# expert-parallel MoE sums otherwise, [ep]'s): TP_REDUCED's reduced bf16
+# models under a (1, 1) mesh bitwise the run
+# without one (nothing split, no row collective); then as two gloo processes
+# sharing the card on (1, 2) (``--tp-worker``), those and TP_FULL's models
+# at full width cut to a few layers (the kernels at the ranks' shapes: half
+# the heads, half of d_inner), prefill and EP_DECODE_STEPS decode steps fed
+# the no-mesh run's greedy tokens: each rank's logits within TP_BF16_REL of
+# max of the run without a mesh (bf16: the row sums round once in float32
+# where the no-mesh GEMM rounds its output), both ranks' bitwise equal, so
+# their greedy tokens too. --ep-world: TP_CHECK's models whole on (1, 4)
+# against the same weights without a mesh on each rank's card, within
+# EP_REL in float32 (bf16 rounding grows with depth: at 40 layers it
+# exceeds the few layers' 2^-5, for the no-mesh run against float32 too,
+# and is printed), then served whole in bf16 (EP_WORLD)
+TP_REDUCED = ("granite-3-8b", "falcon-mamba-7b", "jamba-v0.1-52b")
+TP_FULL = (("granite-3-8b", 4), ("falcon-mamba-7b", 4))
+TP_BF16_REL = 2.0 ** -5
+TP_GLOO_TIMEOUT_S = 300
+TP_CHECK = ("granite-3-8b", "falcon-mamba-7b")
+# flash_attention and ssm_scan at a tensor-parallel rank's shapes on four
+# model ranks (B 4, S 2048, bf16): name -> (H, Hkv, Dqk, Dv) of the rank's
+# heads; ssm_scan at falcon-mamba's and jamba's d_inner over four
+TP_ATTENTION = {"granite": (8, 2, 128, 128), "moe": (4, 4, 128, 128),
+                "stablelm": (8, 2, 160, 160), "chatglm3": (8, 1, 128, 128),
+                "qwen2vl": (3, 1, 128, 128), "mla": (4, 4, 192, 128)}
+TP_MODEL_RANKS = 4
 
 
 # [train_mesh] and --train-world: training under a (data, model) mesh of
@@ -870,7 +912,85 @@ def phase_lm_kernels(dev: torch.device) -> dict:
             qh, kh, vh, is_causal=True, enable_gqa=True)))
     del q, k, v, qh, kh, vh, q64, k64, v64
     rows["flash_attention"].update(zoo_attention_kernels(dev, randn))
+    fa_tp, ssm_tp = tp_rank_kernels(randn)
+    rows["flash_attention"].update(fa_tp)
+    rows["ssm_scan"].update(ssm_tp)
     return rows
+
+
+def tp_rank_kernels(randn) -> tuple[dict, dict]:
+    """flash_attention and ssm_scan at the shapes a tensor-parallel rank of
+    TP_MODEL_RANKS model ranks gives them (B 4, S 2048, bf16): attention
+    at each TP_ATTENTION rank's heads (the kv heads its q heads read; G =
+    3 and a lone kv head of 8 q heads among them) under the bf16 contract,
+    with SDPA's fused backends; the scan at falcon-mamba's and jamba's
+    d_inner over the ranks (2,048 channels) under its float64 contract,
+    float32 and bf16 y. Times, bounds and plain times of one launch each.
+    Returns (the flash_attention row's ``tp_*`` keys, the ssm_scan row's)."""
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    fa, report = {}, {}
+    for key, (h, hkv, dq, dv) in TP_ATTENTION.items():
+        q = randn(b, s, h, dq).to(torch.bfloat16)
+        k = randn(b, s, hkv, dq).to(torch.bfloat16)
+        v = randn(b, s, hkv, dv).to(torch.bfloat16)
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        report[key] = r = bf16_contract(got, want, q, k, v)
+        check(got.shape == (b, s, h, dv) and r["ok"],
+              f"flash_attention at a tensor-parallel rank's {key} shape (H {h}, Hkv {hkv}, Dqk "
+              f"{dq}, Dv {dv}) fails its contract: {r}")
+        n_bytes = 2 * b * s * (h * dq + hkv * dq + hkv * dv + h * dv)
+        bound, by = bound_ms(n_bytes, 2 * b * h * (dq + dv) * visible_pairs(s, s, True, 0),
+                             BF16_FLOPS)
+        lib, backend, tried = sdpa_fused_ms(q, k, v)
+        fa.update({f"tp_{key}_shape": [b, s, h, hkv, dq, dv],
+                   f"tp_{key}_max_abs_err": float((got.float() - want.float()).abs().max()),
+                   f"tp_{key}_ms": device_ms(lambda: flash_attention(q, k, v)),
+                   f"tp_{key}_plain_ms": device_ms(lambda: flash_attention_plain(q, k, v), reps=3),
+                   f"tp_{key}_bound_ms": bound, f"tp_{key}_bound_by": by,
+                   f"tp_{key}_library_ms": lib, f"tp_{key}_library_backend": backend})
+        report[f"{key} sdpa"] = tried
+        del q, k, v, got, want
+    print(f"[kernels] flash_attention at a tensor-parallel rank's heads ({TP_MODEL_RANKS} model "
+          f"ranks; [B, S, H, Hkv, Dqk, Dv] in the tp_*_shape keys) bf16 causal vs plain "
+          f"(contract, kernels/flash_attention/contract.py); SDPA's fused backends: "
+          f"{json.dumps(report)} {json.dumps(fa)}")
+
+    fm = get_config("falcon-mamba-7b")
+    di, ds = fm.d_inner // TP_MODEL_RANKS, fm.d_state
+    dt = torch.nn.functional.softplus(randn(b, s, di) * 0.5 - 4.6)
+    dt, bm, cm, x = (t.to(torch.bfloat16) for t in (dt, randn(b, s, ds), randn(b, s, ds),
+                                                      randn(b, s, di)))
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dt.device).expand(di, ds).contiguous()
+    d = torch.ones((di,), device=dt.device)
+    args = (dt, a, bm, cm, x, d)
+    plain32, ref64 = ssm_contract.references(*args)
+    contract = {}
+    for y_dtype in (torch.float32, torch.bfloat16):
+        y, h_last = ssm_scan(*args, y_dtype=y_dtype)
+        contract[str(y_dtype)[6:]] = r = {k: float(f"{v:.4g}") if isinstance(v, float) else v
+                                          for k, v in ssm_contract.check(y, h_last, plain32,
+                                                                         ref64).items()}
+        check(r["ok"], f"ssm_scan at a tensor-parallel rank's d_inner {di} fails its contract: {r}")
+        if y_dtype == torch.float32:
+            err = float((y.double() - ref64[0]).abs().max())
+    del plain32, ref64
+    updates = b * s * di * ds
+    n_bytes = (2 * b * s * di * 2 + 2 * b * s * ds * 2 + di * ds * 4 + di * 4 + b * s * di * 2
+               + b * di * ds * 4)
+    limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
+              "fp32 instructions": 4 * updates / FP32_INSTR_PER_S}
+    op = max(limits, key=limits.get)
+    ssm = {"tp_shape": [b, s, di, ds], "tp_max_abs_err": err, "tp_contract": contract,
+           "tp_ms": device_ms(lambda: ssm_scan(*args)),
+           "tp_plain_ms": device_ms(lambda: ssm_scan_plain(*args), reps=3),
+           "tp_bound_ms": 1e3 * limits[op],
+           "tp_bound_by": "bytes" if op == "bytes" else "operations",
+           "tp_bound_op": op}
+    print(f"[kernels] ssm_scan at a tensor-parallel rank's d_inner (falcon-mamba-7b and "
+          f"jamba-v0.1-52b over {TP_MODEL_RANKS} model ranks), B={b} S={s} di={di} ds={ds}, "
+          f"against the plain version in float64 (kernels/ssm_scan/contract.py): {json.dumps(ssm)}")
+    return fa, ssm
 
 
 def sdpa_fused_ms(q, k, v, causal: bool = True) -> tuple:
@@ -2760,13 +2880,178 @@ def ep_worker(rank: str, world: str, base: str, device: str) -> int:
     return 0
 
 
+def tp_cases() -> list:
+    """[tp]'s gloo (1, 2) cases: (name, cfg, prompt tokens): TP_REDUCED's
+    reduced bf16 models, then TP_FULL's at full width cut to their layers,
+    SERVE_RUN's batch (64 tokens a reduced prompt)."""
+    cases = []
+    for arch in TP_REDUCED:
+        cfg = get_config(arch).reduced()
+        cases.append((f"{arch} reduced", cfg, 64))
+    for arch, n_layers in TP_FULL:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        cases.append((f"{arch} {n_layers} layers", cfg, SERVE_RUN["prompt_len"]))
+    return [(name, cfg, make_concrete_batch(cfg, "prefill", SERVE_RUN["batch"], seq,
+                                            prng.PRNGKey(1))["tokens"])
+            for name, cfg, seq in cases]
+
+
+def held_block(model) -> list[int]:
+    """The shape a rank holds of its first layer's widest mixer leaf
+    (``wq`` or Mamba's ``in_proj``)."""
+    mixer = model.blocks[0]["mixer"]
+    return list(mixer["in_proj" if "in_proj" in mixer else "wq"].shape)
+
+
+def phase_tp(dev: torch.device, card: str) -> dict[str, int]:
+    """Tensor parallelism for serving on the one card, the layout alone
+    (``mesh_context(moe_ep=False)``: jamba's MoE runs ``moe_apply_local``
+    on every rank; the expert-parallel MoE, which in bf16 sums otherwise
+    than the local one, is [ep]'s): (a) under a (1, 1)
+    mesh (one world-1 group, gloo for CPU tensors and NCCL for the card's)
+    TP_REDUCED's reduced bf16 models, prefill and EP_DECODE_STEPS decode
+    steps, bitwise the same weights without a mesh, with exactly
+    ``expected_launches``; (b) ``tp_cases()`` without a mesh (greedy
+    tokens), then on (1, 2) as two gloo processes sharing the card
+    (``--tp-worker``), fed those tokens: each rank within TP_BF16_REL of
+    max of the no-mesh logits, both ranks bitwise equal, the launches of
+    every case's prefill and decode steps. Returns the kernels' launches in
+    (a) and in (b)'s ranks."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = make_rank_mesh((1, 1), device=dev, backend="cpu:gloo,cuda:nccl")
+    try:
+        for arch in TP_REDUCED:
+            cfg = get_config(arch).reduced()
+            toks = make_concrete_batch(cfg, "prefill", 4, 64, prng.PRNGKey(1))["tokens"]
+            plain_model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+            plain, dec, _ = ep_steps(cfg, plain_model, toks, None)
+            del plain_model
+            kernels.reset_launch_counts()
+            with mesh_ctx.mesh_context(mesh, moe_ep=False):
+                model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+                got, _, _ = ep_steps(cfg, model, toks, dec.to(dev))
+            counts = kernels.launch_counts()
+            del model
+            check(torch.equal(got, plain), f"[tp] {arch} reduced bf16 (1, 1) differs from no mesh: "
+                                           f"{[rel_gap(g, w) for g, w in zip(got, plain)]}")
+            check(counts == expected_launches(cfg, 1, EP_DECODE_STEPS),
+                  f"[tp] {arch} reduced (1, 1): launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+        print(f"[tp] {card}: {', '.join(TP_REDUCED)} reduced bf16 under a (1, 1) mesh, prefill "
+              f"then {EP_DECODE_STEPS} decode steps: bitwise the run without a mesh")
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cases = tp_cases()
+    base = scratch_dir("tp_gloo_")
+    try:
+        plain_ms = {}
+        for i, (name, cfg, toks) in enumerate(cases):
+            model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+            plain, dec, plain_ms[name] = ep_steps(cfg, model, toks, None)
+            del model
+            np.save(os.path.join(base, f"dec{i}.npy"), dec.numpy())
+            np.save(os.path.join(base, f"plain{i}.npy"), plain.numpy())
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        procs, logs = [], []
+        for r in range(2):
+            log = open(os.path.join(base, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-worker", str(r), "2", base,
+                 str(dev)],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+            logs.append(log)
+        ranks = join_world("[tp] gloo world (1, 2)", procs, logs, base,
+                           time.monotonic() + TP_GLOO_TIMEOUT_S)
+        plains = [torch.from_numpy(np.load(os.path.join(base, f"plain{i}.npy")))
+                  for i in range(len(cases))]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    report = {}
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for i, (name, cfg, _) in enumerate(cases):
+        gaps = [[rel_gap(torch.from_numpy(g), w) for g, w in zip(rk[f"logits{i}"], plains[i])]
+                for rk in ranks]
+        tokens = [np.argmax(rk[f"logits{i}"], axis=-1) for rk in ranks]
+        check(max(map(max, gaps)) <= TP_BF16_REL,
+              f"[tp] {name} (1, 2) vs no mesh: logits gap / max {gaps} > {TP_BF16_REL}")
+        check(np.array_equal(ranks[0][f"logits{i}"], ranks[1][f"logits{i}"])
+              and np.array_equal(tokens[0], tokens[1]), f"[tp] {name} (1, 2): the ranks differ")
+        for k, n in expected_launches(cfg, 1, EP_DECODE_STEPS).items():
+            want[k] += n
+        report[name] = {"gap_by_rank": gaps, "held_block_by_rank": [
+            [int(n) for n in rk[f"block{i}"]] for rk in ranks],
+            "step_ms_by_rank": [[round(float(t), 3) for t in rk[f"ms{i}"]] for rk in ranks],
+            "no_mesh_step_ms": [round(t, 3) for t in plain_ms[name]]}
+    for rk in ranks:
+        counts = {k: int(rk[f"launches/{k}"]) for k in kernels.KERNELS}
+        check(counts == want, f"[tp] (1, 2): launches {counts}, expected {want}")
+        for k, n in counts.items():
+            launches[k] += n
+    print(f"[tp] {card}: (1, 2) as 2 gloo processes on the card, prefill then "
+          f"{EP_DECODE_STEPS} decode steps fed the no-mesh greedy tokens, bf16: logits gap / max "
+          f"to the run without a mesh by rank (contract {TP_BF16_REL}), ranks bitwise equal, the "
+          f"block a rank holds of layer 0's wq / in_proj, step ms (CUDA events; gloo copies "
+          f"through the host): {json.dumps(report)}; peak GiB by rank "
+          f"{[round(float(rk['peak']) / 2**30, 2) for rk in ranks]}; launches a rank "
+          f"{json.dumps(want)}; [tp] {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tp_worker(rank: str, world: str, base: str, device: str) -> int:
+    """One rank of [tp]'s gloo world (``--tp-worker``), every rank on
+    ``device``: each of ``tp_cases()`` on a (1, world) mesh, prefill and
+    the decode tokens in ``base/dec{i}.npy``; saves its logits, step ms,
+    held block, the launches over all cases and its peak memory."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(base, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        full_precision_matmuls()
+        mesh = make_rank_mesh((1, world), device=dev)
+        out = {}
+        try:
+            kernels.reset_launch_counts()
+            with mesh_ctx.mesh_context(mesh, moe_ep=False):
+                for i, (_, cfg, toks) in enumerate(tp_cases()):
+                    dec = torch.from_numpy(np.load(os.path.join(base, f"dec{i}.npy"))).to(dev)
+                    model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+                    logits, _, ms = ep_steps(cfg, model, toks, dec)
+                    out.update({f"logits{i}": logits.numpy(), f"ms{i}": np.asarray(ms),
+                                f"block{i}": np.asarray(held_block(model))})
+                    del model
+            counts = kernels.launch_counts()
+        finally:
+            mesh.close()
+        np.savez(os.path.join(base, f"rank{rank}.npz"), **out,
+                 peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+                 **{f"launches/{k}": n for k, n in counts.items()})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def ep_world_main(where: str = "cuda") -> int:
     """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py --ep-world``
     (NCCL, ``cuda:{rank}``; "cpu" rehearses it over gloo on the CPU at the
     reduced float32 configs and 64-token prompts): first ``ep_world_check``
-    on each EP_CHECK_MESHES mesh, then SERVE_RUN through ``serve`` inside
-    ``mesh_context`` on each EP_WORLD mesh, jamba-v0.1-52b and
-    moonshot-v1-16b-a3b at full depth. Checked on every rank: the stats,
+    on each EP_CHECK_MESHES mesh and ``tp_world_check`` on (1, 4) for
+    each TP_CHECK model whole (float32 within EP_REL; bf16 printed), then
+    SERVE_RUN through ``serve`` inside ``mesh_context`` on each EP_WORLD
+    mesh, jamba-v0.1-52b and moonshot-v1-16b-a3b (expert- and
+    tensor-parallel), granite-3-8b and falcon-mamba-7b (tensor-parallel)
+    at full depth. Checked on every rank: the stats,
     the launches ``expected_launches`` gives, every rank's greedy tokens
     equal. Rank 0 prints prefill ms, decode step ms, tok/s, peak
     GiB by rank, the routes dropped at prefill and decode (summed over the
@@ -2791,10 +3076,13 @@ def ep_world_main(where: str = "cuda") -> int:
         check_cfg = get_config(EP_CHECK_ARCH)
         check_cfg = dataclasses.replace(check_cfg.reduced() if cpu else check_cfg, dtype="float32",
                                         **({} if cpu else {"n_layers": EP_CHECK_LAYERS}))
-        for shape in EP_CHECK_MESHES:
+        checks = [(ep_world_check, check_cfg, shape) for shape in EP_CHECK_MESHES]
+        checks += [(tp_world_check, get_config(arch).reduced() if cpu else get_config(arch),
+                    (1, 4)) for arch in TP_CHECK]
+        for fn, cfg, shape in checks:
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                failures += ep_world_check(check_cfg, mesh, run, card)
+                failures += fn(cfg, mesh, run, card)
             finally:
                 mesh.close()
             gc.collect()
@@ -2824,17 +3112,17 @@ def ep_world_main(where: str = "cuda") -> int:
 
 
 def ep_world_check(cfg, mesh, run: dict, card: str) -> list:
-    """``cfg`` (float32) on ``mesh`` against the same model without one, on
-    every rank: prefill SERVE_RUN's batch (``run``'s prompt length) and
+    """``cfg`` on ``mesh`` against the same model without one, on every
+    rank: prefill SERVE_RUN's batch (``run``'s prompt length) and
     EP_DECODE_STEPS greedy decode steps under the mesh; then, without a
     mesh, the same weights on the rows of this rank's data shard fed the
     same decode tokens (a data shard routes its own tokens and counts
     capacity over them, so this is its expectation; the whole batch where
     one data rank). The rank's rows of the gathered logits must lie within
-    EP_REL of max of it, and every MoE call's routed ids and kept mask
-    (``moe_route``'s, over the shard's tokens) equal it but for at most
-    EP_ROUTE_SHARE of them. Rank 0 prints every rank's readings; returns
-    this rank's failures."""
+    EP_REL of max of it, every rank's logits must be bitwise equal, and
+    every MoE call's routed ids and kept mask (``moe_route``'s, over the
+    shard's tokens) equal it but for at most EP_ROUTE_SHARE of them. Rank
+    0 prints every rank's readings; returns this rank's failures."""
     dev = mesh.device
     toks = make_concrete_batch(cfg, "prefill", run["batch"], run["prompt_len"],
                                prng.PRNGKey(11))["tokens"]
@@ -2858,11 +3146,15 @@ def ep_world_check(cfg, mesh, run: dict, card: str) -> list:
     mine = torch.tensor([[*gaps, differ, float(same_calls), n_dropped, n_routes, *ms[:1]]],
                         dtype=torch.float64, device=dev)
     every = mesh.all_gather(mine, mesh.axis_names).cpu()
+    logits = mesh.all_gather(got.to(dev)[None], mesh.axis_names).cpu()
+    ranks_equal = bool((logits == logits[0]).all())
     shape = tuple(mesh.shape.values())
     failures = []
-    if not (same_calls and differ <= EP_ROUTE_SHARE * n_routes and max(gaps) <= EP_REL):
+    if not (same_calls and differ <= EP_ROUTE_SHARE * n_routes and max(gaps) <= EP_REL
+            and ranks_equal):
         failures.append(f"{cfg.name} {cfg.n_layers} layers on {shape} rank {mesh.rank} vs no "
                         f"mesh on its data shard: logits gap / max {gaps} (contract {EP_REL}), "
+                        f"every rank's logits equal {ranks_equal}, "
                         f"{differ} routed ids or kept flags of {n_routes} differ (contract "
                         f"{EP_ROUTE_SHARE} of them) over "
                         f"{len(got_routes.calls)} / {len(want_routes.calls)} MoE calls")
@@ -2871,10 +3163,64 @@ def ep_world_check(cfg, mesh, run: dict, card: str) -> list:
         print(f"[ep-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}, batch "
               f"{tuple(toks.shape)}, prefill then {EP_DECODE_STEPS} decode steps, against the "
               f"model without a mesh on each rank's data shard: logits gap / max by rank "
-              f"{every[:, :n].tolist()} (contract {EP_REL}); routed ids and kept flags differing "
+              f"{every[:, :n].tolist()} (contract {EP_REL}), every rank's logits bitwise equal "
+              f"{ranks_equal}; routed ids and kept flags differing "
               f"by rank {every[:, n].long().tolist()} of {every[:, n + 3].long().tolist()} "
               f"routes (contract {EP_ROUTE_SHARE} of them; {len(pairs)} MoE calls a rank; dropped {every[:, n + 2].long().tolist()}); "
               f"prefill ms under the mesh by rank {every[:, n + 4:].flatten().tolist()}")
+    return failures
+
+
+def tp_world_check(cfg, mesh, run: dict, card: str) -> list:
+    """``cfg`` whole (a model without experts) on ``mesh``, tensor-parallel,
+    against the same weights without a mesh on this rank's card: prefill
+    SERVE_RUN's batch (``run``'s prompt length), then EP_DECODE_STEPS
+    decode steps fed the float32 mesh run's greedy tokens. In float32 the
+    rank's logits must lie within EP_REL of max of the no-mesh run's and
+    every rank's must be bitwise equal. In bf16, the served dtype, every
+    rank's must be bitwise equal too, and the gap to the no-mesh bf16 run
+    is printed beside that run's own gap to the float32 one: both are bf16
+    rounding, which grows with depth, and the 2^-5 of a few layers ([tp])
+    does not bound it at 40. Rank 0 prints; returns this rank's
+    failures."""
+    dev = mesh.device
+    toks = make_concrete_batch(cfg, "prefill", run["batch"], run["prompt_len"],
+                               prng.PRNGKey(11))["tokens"]
+    runs, dec = {}, None
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        with mesh_ctx.mesh_context(mesh):
+            model = get_model(c).init(torch.Generator(device=dev).manual_seed(0))
+            got, fed, _ = ep_steps(c, model, toks, dec)
+        del model
+        dec = fed.to(dev) if dec is None else dec
+        plain = get_model(c).init(torch.Generator(device=dev).manual_seed(0))
+        want, _, _ = ep_steps(c, plain, toks, dec)
+        del plain
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        every = mesh.all_gather(got.to(dev)[None], mesh.axis_names).cpu()
+        runs[dtype] = (got, want, bool((every == every[0]).all()))
+    (g32, w32, eq32), (g16, w16, eq16) = runs["float32"], runs["bfloat16"]
+    gaps = {"float32 mesh vs no mesh": [rel_gap(g, w) for g, w in zip(g32, w32)],
+            "bf16 mesh vs no mesh": [rel_gap(g, w) for g, w in zip(g16, w16)],
+            "bf16 no mesh vs float32": [rel_gap(g, w) for g, w in zip(w16, w32)],
+            "bf16 mesh vs float32": [rel_gap(g, w) for g, w in zip(g16, w32)]}
+    shape = tuple(mesh.shape.values())
+    failures = []
+    if not (max(gaps["float32 mesh vs no mesh"]) <= EP_REL and eq32 and eq16):
+        failures.append(f"{cfg.name} {cfg.n_layers} layers on {shape} rank {mesh.rank}, "
+                        f"tensor-parallel vs no mesh: logits gap / max {json.dumps(gaps)} "
+                        f"(float32 contract {EP_REL}), every rank's logits equal: float32 "
+                        f"{eq32}, bf16 {eq16}")
+    if mesh.rank == 0:
+        print(f"[ep-world] {card}: {cfg.name} {cfg.n_layers} layers on {shape}, tensor-parallel, "
+              f"batch {tuple(toks.shape)}, prefill then {EP_DECODE_STEPS} decode steps, against "
+              f"the same weights without a mesh on each card, logits gap / max by step, rank 0 "
+              f"(float32 contract {EP_REL}; bf16 printed beside bf16's own gap to float32): "
+              f"{json.dumps(gaps)}; every rank's logits bitwise equal: float32 {eq32}, bf16 "
+              f"{eq16}")
     return failures
 
 
@@ -3892,6 +4238,8 @@ def main() -> int:
         return ep_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--ep-world"]:  # one rank under torchrun
         return ep_world_main(*sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of [tp]'s gloo world
+        return tp_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--train-mesh-worker"]:  # one rank of [train_mesh]'s gloo world
         return train_mesh_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--train-world"]:  # one rank under torchrun
@@ -3935,6 +4283,10 @@ def main() -> int:
     for name in ("ssm_scan", "flash_attention"):
         table[name]["ep_launches"] = ep_launches[name]
         launches[name] += ep_launches[name]
+    tp_launches = phase_tp(dev, card)
+    for name in ("ssm_scan", "flash_attention"):
+        table[name]["tp_launches"] = tp_launches[name]
+        launches[name] += tp_launches[name]
     phase_train_reference(dev)
     train_launches = phase_train(dev, card)
     for name in ("ssm_scan", "flash_attention"):  # the forward kernels train too

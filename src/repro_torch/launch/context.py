@@ -7,22 +7,29 @@ run this rank's data shard of the batch and all-gather the logits
 (``models.transformer.make_prefill_step`` / ``make_decode_step``), the
 train step runs the same shard and takes the global batch's loss
 (``models.transformer.lm_objective``), and ``init_params`` /
-``init_cache`` keep this rank's experts (and, for training, its ZeRO
-blocks) and its data shard of the cache. Without a mesh every hook is a no-op, as in JAX.
+``init_cache`` keep this rank's blocks of the weights (for serving its
+tensor-parallel blocks, for training its ZeRO blocks) and its shard of the
+cache. Without a mesh every hook is a no-op, as in JAX.
 
 The JAX package runs one SPMD program over global arrays; the port runs one
-process a rank of a ``launch.mesh.RankMesh``. Every rank holds the
+process a rank of a ``launch.mesh.RankMesh``. A served model
+(``tensor_parallel()``: a ``model`` axis over 1 and no ``zero``) holds this
+rank's ``launch.sharding.model_block`` of each non-expert leaf and the
 ``model`` shard of each expert leaf's E axis
-(``launch.sharding.expert_block``) and every other leaf whole; a model
-built for training (``zero=True``) holds instead its ZeRO block of each
-leaf (``launch/zero.py``: split over ``dp_axes()``, the data axes this
-context names, where ``launch.sharding.param_spec`` gives the leaf a data
-entry, gathered at use). ``param_spec``'s ``model`` entries of the
-non-expert leaves are not applied. Only the MoE changes values under a mesh:
-JAX's ``moe_apply_ep`` splits its tokens over the data axes where they
-divide the batch (``B % n_dp == 0``), and each data shard then routes its
-own tokens and counts capacity over them, while ``moe_apply_local`` counts
-it over the whole global batch. So the steps, the train step included,
+(``launch.sharding.expert_block``); its layers compute their share of
+each product and sum the row products' float32 partials over ``model``
+(``launch/tp.py``), and its caches hold the rank's kv heads and d_inner
+block. A model built for training (``zero=True``) holds instead its ZeRO
+block of each leaf (``launch/zero.py``: split over ``dp_axes()``, the data
+axes this context names, where ``launch.sharding.param_spec`` gives the
+leaf a data entry, gathered at use), and every leaf whole over ``model``
+but the experts: tensor parallelism's collectives have no backward yet
+(ROADMAP.md queue 1 item 5). Beyond the rounding of the row products'
+sums, only the MoE changes values under a mesh: JAX's ``moe_apply_ep``
+splits its tokens over the data axes where they divide the batch (``B %
+n_dp == 0``), and each data shard then routes its own tokens and counts
+capacity over them, while ``moe_apply_local`` counts it over the whole
+global batch. So the steps, the train step included,
 split the batch exactly where the MoE takes ``moe_apply_ep`` and the data
 axes divide it, or where the model has no MoE (its rows are then
 independent), and every rank takes the whole batch otherwise
@@ -42,7 +49,7 @@ import torch
 from repro_torch.launch.sharding import expert_block
 
 __all__ = ["data_rows", "dp_axes", "expert_parallel", "expert_rows", "gather_rows", "get_mesh",
-           "local_batch", "mesh_context", "moe_ep_enabled", "n_data"]
+           "local_batch", "mesh_context", "moe_ep_enabled", "n_data", "n_model", "tensor_parallel"]
 
 _MESH = None
 _DP_AXES: tuple[str, ...] = ("data",)
@@ -95,6 +102,19 @@ def expert_parallel(n_experts: int) -> bool:
 def n_data() -> int:
     """Ranks over the data axes (1 without a mesh)."""
     return 1 if _MESH is None else math.prod(_MESH.shape[a] for a in _DP_AXES)
+
+
+def n_model() -> int:
+    """Ranks over the ``model`` axis (1 without a mesh)."""
+    return 1 if _MESH is None else _MESH.shape["model"]
+
+
+def tensor_parallel(zero: bool = False) -> bool:
+    """Whether a model built here (``init_params``, ``init_cache``) is
+    tensor-parallel: under a mesh whose ``model`` axis is over 1, for
+    serving (``zero`` False; a model built for training keeps its leaves
+    whole over ``model``)."""
+    return not zero and n_model() > 1
 
 
 def data_rows(cfg, batch: int) -> slice | None:

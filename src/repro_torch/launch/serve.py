@@ -13,6 +13,8 @@ paths.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 [--device cpu] \\
         [--record DIR]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --mesh 1,4
 
 The JAX package's CLI (``repro.launch.serve``) with the same flags and
 defaults: it serves the arch's reduced config with random weights and
@@ -28,10 +30,14 @@ JAX CLI's ``--record`` does.
 
 Under a mesh of ranks (``launch.context.mesh_context`` around ``serve`` on
 every rank, one process a rank, e.g. under ``torchrun``) the ranks serve
-in lockstep: the same requests, each rank its data shard of every step
-and its experts of every MoE layer, the greedy decisions made on the
-gathered logits, which every rank holds. Rank 0 records; every rank
-returns its own stats, with the peak device memory of every rank.
+in lockstep: the same requests, each rank its data shard of every step,
+its experts of every MoE layer and, on a ``model`` axis over 1, its
+tensor-parallel block of every other leaf (``launch/tp.py``), the greedy
+decisions made on the gathered logits, which every rank holds. Rank 0
+records; every rank returns its own stats, with the peak device memory of
+every rank. ``--mesh D,M`` serves so under a ``launch.mesh.RankMesh`` of D
+data and M model ranks started by ``torchrun --nproc-per-node D*M`` (one
+card and one NCCL rank each; gloo with ``--device cpu``). Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -41,12 +47,14 @@ import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as prng
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import context as ctx
+from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.models.api import get_model, make_concrete_batch
 from repro_torch.serve import (
     ContinuousBatcher,
@@ -225,12 +233,40 @@ def main(argv=None):
     ap.add_argument("--record", default=None, metavar="DIR",
                     help="write a serve record (manifest/requests/trace) here")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: serve over a (data, model) mesh of D*M ranks, one process a rank "
+                         "(torchrun --nproc-per-node D*M)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
-    stats = serve(cfg, requests=args.requests, batch=args.batch, prompt_len=args.prompt_len,
-                  max_new=args.max_new, window=args.window, temperature=args.temperature,
-                  seed=args.seed, device=args.device, record=args.record)
+    run = dict(requests=args.requests, batch=args.batch, prompt_len=args.prompt_len,
+               max_new=args.max_new, window=args.window, temperature=args.temperature,
+               seed=args.seed, record=args.record)
+    if not args.mesh:
+        return _report(cfg, serve(cfg, device=args.device, **run), args.record)
+    shape = tuple(int(n) for n in args.mesh.split(","))
+    cpu = resolve_device(args.device).type == "cpu"
+    dist.init_process_group("gloo" if cpu else "nccl")  # torchrun's environment
+    try:
+        dev = torch.device("cpu") if cpu else torch.device("cuda", dist.get_rank()
+                                                           % torch.cuda.device_count())
+        if not cpu:
+            torch.cuda.set_device(dev)
+        mesh = make_rank_mesh(shape, device=dev)
+        try:
+            with ctx.mesh_context(mesh):
+                stats = serve(cfg, device=dev, **run)
+        finally:
+            mesh.close()
+        if mesh.rank == 0:
+            _report(cfg, stats, args.record)
+    finally:
+        dist.destroy_process_group()
+    return stats
+
+
+def _report(cfg: ModelConfig, stats: dict, record: str | None) -> dict:
+    """Print a serving run's summary; returns its stats."""
     mode = "continuous" if token_only_prefill(cfg) else "waves"
     print(f"{mode}: {stats['n_requests']} requests, lens {stats['lens']}, "
           f"{stats['prefill_calls']} prefills")
@@ -240,7 +276,9 @@ def main(argv=None):
     print(f"\nserved {stats['n_requests']} requests, {stats['tokens']} tokens in "
           f"{stats['wall_s']:.1f}s ({stats['tok_per_s']:.1f} tok/s, {stats['device']}); "
           f"latency p50 {stats['latency_p50_ms']:.1f} ms, p99 {stats['latency_p99_ms']:.1f} ms")
-    if args.record:
+    if stats.get("peak_bytes_by_rank"):
+        print(f"peak GiB by rank {[round(b / 2**30, 2) for b in stats['peak_bytes_by_rank']]}")
+    if record:
         print("serve record:", stats["record"])
     return stats
 

@@ -33,6 +33,12 @@ holds: the ``model`` entry ``param_spec`` gives that axis, the only
 ZeRO (``launch/zero.py``): ``data_block`` gives the dim of a leaf that
 ``param_spec`` splits over the data axes and the block of it this rank
 holds; parameters, gradients and both AdamW moments are held so.
+
+Tensor parallelism for serving (``launch/tp.py``): ``model_block`` gives
+the dim of a served decoder leaf that this rank splits over ``model`` and
+its block of it (Megatron's column/row pairs, which hold the bytes of
+``param_spec``'s ``model`` entries on other dims); port-side, like
+``data_block``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import math
 from typing import Any
 
 __all__ = ["batch_spec", "cache_pspecs", "cache_spec", "data_block", "expert_block", "lane_block",
-           "lane_spec", "param_spec", "tree_lane_pspecs", "tree_pspecs"]
+           "lane_spec", "model_block", "param_spec", "tree_lane_pspecs", "tree_pspecs"]
 
 
 def _map_with_path(fn, tree, path=()):
@@ -191,6 +197,98 @@ def data_block(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple[int, s
     dim, size = dims[0], shape[dims[0]] // n
     i = mesh.index(dp_axes)
     return dim, slice(i * size, (i + 1) * size)
+
+
+_MAMBA_DIMS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+               "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _block(dim: int, n: int, j: int, size: int, unit: int = 1) -> tuple[int, tuple[slice, ...]]:
+    """Block j of n equal ones of ``size`` units of ``unit`` elements on
+    ``dim``."""
+    per = size // n * unit
+    return dim, (slice(j * per, (j + 1) * per),)
+
+
+def model_block(path: str, shape: tuple[int, ...], mesh,
+                cfg) -> tuple[int, tuple[slice, ...]] | None:
+    """The dim of a served decoder leaf of ``cfg`` (``path`` as the port's
+    ``DecoderLM`` names it, one block a layer: ``embed``,
+    ``blocks/3/mixer/wq``, ``blocks/1/moe/shared/wd``, ...; ``shape`` the
+    whole leaf's) that this rank of ``mesh`` splits over ``model`` (n ranks,
+    coordinate j), and its block of that dim: slices of it, concatenated in
+    order; None where the leaf stays whole (n = 1, or the rule below).
+    Port-side: JAX's tensor parallelism is a layout (``param_spec``'s
+    ``model`` entries, the collectives XLA's), and taking its blocks
+    literally would all-gather full activations before ``wo``, ``wd`` and
+    ``out_proj``, whose ``model`` entry is their output dim. The port holds
+    Megatron's pairs instead, a column-split product and then a row-split
+    one whose float32 partials one all-reduce sums (``launch/tp.py``); a
+    rank holds the bytes of JAX's blocks but for the leaves kept whole:
+
+    - GQA: ``wq`` the columns of the rank's H/n q heads, ``wk``/``wv`` those
+      of the kv heads they read (where ``Hkv < n``, the one kv head its q
+      heads share, which JAX splits n ways), ``wo`` the rows of its heads;
+      the whole attention where n does not divide H, or where the rank's
+      heads and a kv group straddle (neither divides the other).
+    - MLA: ``wq``, ``wuk``, ``wuv`` the rank's heads' columns, ``wo`` their
+      rows; ``wdkv`` and ``wkr`` whole (its compressed cache ``c_kv`` and
+      ``k_rope`` too: a sequence split needs an lse merge).
+    - Mamba: ``in_proj`` (d, 2 di) the x columns of d_inner block j then its
+      z columns (JAX's contiguous block would give a rank x or z alone);
+      ``conv_w``, ``conv_b``, ``dt_bias``, ``D``, ``A_log``, ``dt_proj``
+      block j of d_inner; ``x_proj`` and ``out_proj`` its rows.
+    - SwiGLU (a dense ``ffn``, an MoE's ``shared`` experts): ``wg``/``wu``
+      columns, ``wd`` rows of d_ff.
+    - ``embed`` (V, d) and ``vision_proj`` (d, d) d columns; ``head`` (d, V)
+      V columns.
+    - Whole: the 1-D norms of width d, the float32 ``router`` (JAX splits
+      all three over ``model``), and the expert leaves, whose E axis
+      ``expert_block`` splits.
+
+    The caches follow (``launch/tp.py``): a GQA cache holds the rank's kv
+    heads (JAX's ``cache_spec`` splits its sequence over ``model``, the
+    flash-decode layout: the same bytes, but a decode step would gather q
+    and merge an lse a layer), Mamba's ``conv`` and ``ssm`` its d_inner
+    block (``cache_spec``'s)."""
+    n = mesh.shape["model"]
+    if n == 1:
+        return None
+    j = mesh.coords["model"]
+    parts = path.split("/")
+    leaf = parts[-1]
+    if path in ("embed", "vision_proj", "head"):
+        return _block(1, n, j, shape[1]) if shape[1] % n == 0 else None
+    if "moe" in parts and leaf in ("wg", "wu", "wd") and len(shape) == 3 or leaf == "router":
+        return None
+    if "mixer" in parts and leaf in _MAMBA_DIMS:
+        di = cfg.d_inner
+        if di % n:
+            return None
+        if leaf == "in_proj":
+            per = di // n
+            return 1, (slice(j * per, (j + 1) * per), slice(di + j * per, di + (j + 1) * per))
+        return _block(_MAMBA_DIMS[leaf], n, j, di)
+    if "mixer" in parts and cfg.attn_type == "mla":
+        h = cfg.n_heads
+        if h % n or leaf not in ("wq", "wuk", "wuv", "wo"):
+            return None
+        unit = {"wq": cfg.qk_nope_dim + cfg.qk_rope_dim, "wuk": cfg.qk_nope_dim,
+                "wuv": cfg.v_head_dim, "wo": cfg.v_head_dim}[leaf]
+        return _block(0 if leaf == "wo" else 1, n, j, h, unit)
+    if "mixer" in parts and leaf in ("wq", "wk", "wv", "wo"):
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        g = h // hkv
+        if h % n or (h // n) % g and g % (h // n):
+            return None
+        if leaf in ("wq", "wo"):
+            return _block(0 if leaf == "wo" else 1, n, j, h, hd)
+        q0, q1 = j * (h // n), (j + 1) * (h // n)
+        return 1, (slice(q0 // g * hd, ((q1 - 1) // g + 1) * hd),)
+    if leaf in ("wg", "wu", "wd") and len(shape) == 2:
+        dim = 0 if leaf == "wd" else 1
+        return _block(dim, n, j, shape[dim]) if shape[dim] % n == 0 else None
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,13 @@ capacity counted over the whole call. Under ``launch.context.mesh_context``
 the MoE is expert-parallel (``moe_apply_ep``: this rank's experts on this
 rank's tokens, the partial outputs summed over the mesh's ``model``
 group); it serves and trains (its collectives' backwards are
-``launch/mesh.py``'s).
+``launch/mesh.py``'s). A served model on a mesh whose ``model`` axis is over
+1 is tensor-parallel (``launch/tp.py``): a layer whose leaves hold the
+rank's ``launch.sharding.model_block`` (read from their shapes) runs its
+heads, d_ff columns or d_inner channels, and sums its row product's
+float32 partial over ``model`` (under the expert-parallel MoE, the shared
+experts' partial joins the experts' in their one all-reduce); a layer of
+whole leaves runs as without a mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ssm_scan
 from repro_torch.launch import context as ctx
+from repro_torch.launch import tp
 from repro_torch.launch.mesh import psum, replicated
 from repro_torch.models.ssm_vjp import selective_scan
 
@@ -204,11 +211,18 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     checks that the t stream is ``arange(S)`` (``transformer.forward``).
     Decode writes the new K/V in place at slot ``pos`` (``pos % T`` with a
     window); under M-RoPE its three streams are all ``pos``, as the JAX
-    decode step builds them."""
+    decode step builds them.
+
+    Tensor-parallel (``wq`` holds a block of the heads, ``launch/tp.py``):
+    the rank's q heads and the kv heads they read, through
+    ``flash_attention`` at prefill and ``decode_attention`` at decode, the
+    cache holding those kv heads, then the row product by ``wo``'s rows,
+    summed over ``model``."""
     if mode not in _MODES:
         raise ValueError(f"gqa_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    h, hkv = p["wq"].shape[1] // dh, p["wk"].shape[1] // dh  # the rank's heads
     q = (x @ p["wq"]).reshape(b, s, h, dh)
     k = (x @ p["wk"]).reshape(b, s, hkv, dh)
     v = (x @ p["wv"]).reshape(b, s, hkv, dh)
@@ -247,11 +261,17 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
         cache["kv_pos"][slot] = pos
         out = decode_attention(q, cache["k"], cache["v"], cache["kv_pos"], pos, window=window)
         new_cache = cache
-    return out.reshape(b, s, h * dh) @ p["wo"], new_cache
+    out = out.reshape(b, s, h * dh)
+    if tp.split(p["wq"], 1, cfg.n_heads * dh):
+        return tp.row(out, p["wo"]), new_cache
+    return out @ p["wo"], new_cache
 
 
-def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim_
+def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None,
+                   n_kv: int | None = None):
+    """An empty cache of ``n_kv`` kv heads (default the config's; a
+    tensor-parallel rank's, ``tp.kv_heads``)."""
+    hkv, dh = n_kv or cfg.n_kv_heads, cfg.head_dim_
     t = min(window, seq) if window else seq
     dt = torch_dtype(cfg)
     return {
@@ -295,12 +315,15 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     to T - 1 without, as JAX's ``dynamic_update_slice`` clamps) and either
     re-expands the cache (``naive``, the default) or folds ``wuk`` into the
     query and ``wuv`` into the output (``absorbed``), as the environment
-    variable ``REPRO_MLA_DECODE`` picks, the JAX package's switch."""
+    variable ``REPRO_MLA_DECODE`` picks, the JAX package's switch.
+    Tensor-parallel (``wq`` holds a block of the heads): the rank's heads
+    of ``wq``, ``wuk``, ``wuv`` and ``wo``'s rows, summed over ``model``;
+    ``wdkv``, ``wkr`` and the compressed cache whole on every rank."""
     if mode not in _MODES:
         raise ValueError(f"mla_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
-    h = cfg.n_heads
     r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    h = p["wq"].shape[1] // (nd + rd)  # the rank's heads
 
     q = (x @ p["wq"]).reshape(b, s, h, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
@@ -354,7 +377,10 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
             q_full = torch.cat([q_nope, q_rope], dim=-1)
             out = decode_attention(q_full, k_full, v, kv_pos, pos, window=window)
         new_cache = cache
-    return out.reshape(b, s, h * vd) @ p["wo"], new_cache
+    out = out.reshape(b, s, h * vd)
+    if tp.split(p["wq"], 1, cfg.n_heads * (nd + rd)):
+        return tp.row(out, p["wo"]), new_cache
+    return out @ p["wo"], new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
@@ -382,8 +408,25 @@ def init_swiglu(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None)
     }
 
 
-def swiglu(p, x):
+def swiglu(p, x, d_ff: int | None = None):
+    """The SwiGLU FFN; tensor-parallel where ``wd`` holds a block of the
+    ``d_ff`` rows (the rank's columns of ``wg``/``wu``, then the row
+    product summed over ``model``). Without ``d_ff`` the leaves are taken
+    whole."""
+    if d_ff is not None and tp.split(p["wd"], 0, d_ff):
+        return tp.reduce(swiglu_partial(p, x)).to(x.dtype)
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def swiglu_partial(p, x):
+    """This rank's float32 share of a tensor-parallel SwiGLU (its d_ff
+    columns; ``tp.partial``)."""
+    return tp.partial(silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"])
+
+
+def shared_d_ff(cfg: ModelConfig) -> int:
+    """The width of an MoE's shared experts, taken as one SwiGLU."""
+    return (cfg.d_ff_expert or cfg.d_ff) * cfg.n_shared_experts
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +547,7 @@ def moe_apply_local(p, x, cfg: ModelConfig):
     expert_out = moe_experts(p, moe_dispatch(xf, idx, pos, keep, cap, cfg.n_experts))
     y = moe_combine(expert_out, gate, idx, pos, keep, cap)
     if cfg.n_shared_experts:
-        y = y + swiglu(p["shared"], xf)
+        y = y + swiglu(p["shared"], xf, shared_d_ff(cfg))
     return y.reshape(b, s, d), aux
 
 
@@ -545,8 +588,10 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     (``moe_dispatch``, ``moe_experts``), gathers and gates the k outputs
     of each token and sums them in float32 (``moe_combine``), all-reduces
     the float32 (N, D) partial over ``model`` and casts it to x's dtype;
-    the shared experts are added after, on the whole x. Returns (y, aux);
-    aux is this rank's (JAX returns one data shard's).
+    the shared experts are added after, on the whole x, or, where they are
+    tensor-parallel, their float32 partial joins the experts' before the
+    all-reduce (one collective a layer). Returns (y, aux); aux is this
+    rank's (JAX returns one data shard's).
 
     Under autograd it trains as JAX's shard_map does: the all-reduce's
     backward is the identity (``mesh.psum``), and the tokens and gates this
@@ -576,8 +621,11 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     xd, gd = replicated(mesh, xf, "model"), replicated(mesh, gate, "model")
     expert_out = moe_experts(local, moe_dispatch(xd, rel, pos, keep, cap, e_local))
     y = moe_combine(expert_out, gd, rel, pos, keep, cap, acc_dtype=torch.float32)
+    shared_tp = cfg.n_shared_experts and tp.split(p["shared"]["wd"], 0, shared_d_ff(cfg))
+    if shared_tp:
+        y = y + swiglu_partial(p["shared"], xf)
     y = psum(mesh, y, "model").to(x.dtype)
-    if cfg.n_shared_experts:
+    if cfg.n_shared_experts and not shared_tp:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, s, d), aux
 
@@ -631,12 +679,20 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     decode: the O(1) state update. The scan inputs (dt, B, C, x) are
     rounded to bfloat16 whatever the config's dtype, as the JAX block
     streams them (its ``_scan_dt``); the recurrence itself runs in
-    float32."""
+    float32.
+
+    Tensor-parallel (``in_proj`` holds the x and z columns of a d_inner
+    block, ``launch/tp.py``): the conv, the scan over the rank's channels
+    and its rows of ``A`` and ``D``, and the decode update on them; ``x_proj``
+    and ``out_proj`` are row products summed over ``model`` (dt, B and C
+    come whole out of the first)."""
     if mode not in _MODES:
         raise ValueError(f"mamba_block mode {mode!r}: one of {_MODES}")
     if mode != "decode" and cache is not None:
         raise NotImplementedError("mamba_block prefill from a carried state: the scan starts at h = 0")
-    di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank_
+    ds, dtr = cfg.d_state, cfg.dt_rank_
+    split = tp.split(p["in_proj"], 1, 2 * cfg.d_inner)
+    di = p["in_proj"].shape[1] // 2  # the rank's channels
 
     u = x @ p["in_proj"]
     xs, z = u[..., :di], u[..., di:]
@@ -644,7 +700,7 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = silu(xs)
 
-    xdb = xs @ p["x_proj"]
+    xdb = tp.row(xs, p["x_proj"]) if split else xs @ p["x_proj"]
     dt_raw, bmat, cmat = torch.split(xdb, [dtr, ds, ds], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"]).to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["A_log"])
@@ -661,14 +717,16 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
         y, h = selective_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
     else:
         y, h = ssm_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
-    out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    out = y.to(x.dtype) * silu(z)
+    out = tp.row(out, p["out_proj"]) if split else out @ p["out_proj"]
     return out, None if mode == "train" else {"conv": new_conv, "ssm": h}
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, device=None):
+def init_mamba_cache(cfg: ModelConfig, batch: int, device=None, d_inner: int | None = None):
+    """An empty cache of ``d_inner`` channels (default the config's; a
+    tensor-parallel rank's, ``tp.d_inner``)."""
+    di = d_inner or cfg.d_inner
     return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=torch_dtype(cfg),
-                            device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=torch.float32,
-                           device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=torch_dtype(cfg), device=device),
+        "ssm": torch.zeros((batch, di, cfg.d_state), dtype=torch.float32, device=device),
     }

@@ -46,12 +46,17 @@ every rank: each rank runs its data shard of the batch
 is expert-parallel, else the whole batch), the MoE layers are
 expert-parallel where the ``model`` axis divides the experts, and the
 (B_loc, V) logits are all-gathered over the data axes; the cache stays the
-rank's shard. ``init_params`` keeps the rank's experts and, for training
-(``zero=True``), the rank's ZeRO blocks of every leaf over the data axes
-(``launch/zero.py``), which ``apply_block`` and the embedding and head
-gather at use; ``init_cache`` sizes the rank's shard. The train step differentiates
-``lm_objective``'s rank share of the global loss and updates the rank's
-blocks (``apply_train_step``).
+rank's shard. ``init_params`` keeps the rank's experts and, for serving on
+a ``model`` axis over 1, the rank's tensor-parallel block of every other
+leaf (``launch/tp.py``: the layers compute their share and sum it over
+``model``; the embedding's d columns and the head's V columns are
+all-gathered, the head's at the last position only at prefill, and over
+``model`` before the data axes), or, for training (``zero=True``), the
+rank's ZeRO blocks of every leaf over the data axes (``launch/zero.py``),
+which ``apply_block`` and the embedding and head gather at use;
+``init_cache`` sizes the rank's shard (its rows, kv heads and d_inner).
+The train step differentiates ``lm_objective``'s rank share of the global
+loss and updates the rank's blocks (``apply_train_step``).
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import context as ctx
+from repro_torch.launch import tp
 from repro_torch.launch import zero as Z
 from repro_torch.models import layers as L
 
@@ -240,17 +246,19 @@ def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=Non
         x = x + y
     elif "ffn" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.swiglu(p["ffn"], h2)
+        x = x + L.swiglu(p["ffn"], h2, cfg.d_ff)
     return x, new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int, window: int,
                      device=None):
+    """A layer's empty cache; under a tensor-parallel mesh context, the
+    rank's kv heads or d_inner channels (MLA's compressed cache whole)."""
     if spec.kind == "mamba":
-        return L.init_mamba_cache(cfg, batch, device)
+        return L.init_mamba_cache(cfg, batch, device, tp.d_inner(cfg))
     if cfg.attn_type == "mla":
         return L.init_mla_cache(cfg, batch, seq, window, device)
-    return L.init_gqa_cache(cfg, batch, seq, window, device)
+    return L.init_gqa_cache(cfg, batch, seq, window, device, tp.kv_heads(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +271,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> D
     JAX init's shapes, dtypes and scales (normal * 0.02, out-projections
     / sqrt(2 L), A_log, dt_bias = -4.6, a float32 router, ...), not its
     bits. Under a mesh the draws are the same and each expert leaf keeps
-    this rank's experts (``layers.init_moe``); with ``zero`` (training
-    under a mesh) each leaf is also cut to this rank's ZeRO block as soon
-    as it is drawn (``launch/zero.shard``; a block's leaves at a time are
-    whole)."""
+    this rank's experts (``layers.init_moe``); on a ``model`` axis over 1
+    (``context.tensor_parallel``) each other leaf is cut to this rank's
+    tensor-parallel block as soon as it is drawn (``launch/tp.hold``), or
+    with ``zero`` (training under a mesh) to this rank's ZeRO block
+    (``launch/zero.shard``); a block's leaves at a time are whole."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     v, d = cfg.vocab_padded, cfg.d_model
@@ -275,7 +284,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> D
                          "open mesh_context, and none is open")
 
     def held(path, tree):
-        return Z.shard(tree, path, cfg) if zero else tree
+        if zero:
+            return Z.shard(tree, path, cfg)
+        return tp.hold(tree, path, cfg, ctx.get_mesh()) if ctx.tensor_parallel() else tree
 
     tree = {
         "embed": held("embed", L._normal(gen, (v, d), 0.02, dt)),
@@ -307,10 +318,16 @@ def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                   vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings (B, S, D); under the vision stub, with
     ``vision_embeds`` (B, nv, D) cast to the model's dtype, projected by
-    ``vision_proj`` and prepended: (B, nv + S, D)."""
+    ``vision_proj`` and prepended: (B, nv + S, D). A tensor-parallel
+    ``embed`` or ``vision_proj`` holds d columns, all-gathered over
+    ``model``."""
     x = Z.full(params.embed)[tokens.to(device=params.device, dtype=torch.int64)]
+    if tp.split(params.embed, 1, cfg.d_model):
+        x = tp.gather(x)
     if cfg.frontend == "vision_stub" and vision_embeds is not None:
         ve = vision_embeds.to(device=params.device, dtype=x.dtype) @ Z.full(params.vision_proj)
+        if tp.split(params.vision_proj, 1, cfg.d_model):
+            ve = tp.gather(ve)
         x = torch.cat([ve, x], dim=1)
     return x
 
@@ -350,8 +367,10 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positi
     token at ``cache["pos"]``; under M-RoPE its three streams there) |
     train (the prefill's positions, no cache, new_cache None; under
     autograd, each block checkpointed when ``remat``). prefill and decode
-    run under ``torch.no_grad``. ``aux`` is the sum of the MoE layers'
-    auxiliary (load-balance) losses, 0 without MoE layers."""
+    run under ``torch.no_grad``. A tensor-parallel head (V columns a rank)
+    gives the prefill's logits at the last position only, (B, 1, V).
+    ``aux`` is the sum of the MoE layers' auxiliary (load-balance) losses,
+    0 without MoE layers."""
     if mode == "train":
         return _forward(params, cfg, tokens, positions, vision_embeds, None, window, mode, remat)
     if mode not in ("prefill", "decode"):
@@ -383,7 +402,12 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
             aux_total = aux_total + aux
 
     x = L.rms_norm(x, Z.full(params.final_norm), cfg.norm_eps)
-    logits = (x @ Z.full(params.head)).to(torch.float32)
+    if tp.split(params.head, 1, cfg.vocab_padded):
+        if mode == "prefill":  # the prefill step reads the last position only
+            x = x[:, -1:]
+        logits = tp.gather((x @ params.head).to(torch.float32))
+    else:
+        logits = (x @ Z.full(params.head)).to(torch.float32)
     if mode == "train":
         return logits, None, aux_total
     next_pos = cache["pos"] + 1 if (cache is not None and mode == "decode") else s

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import RoundState
 from repro_torch.launch import context as ctx
+from repro_torch.launch import tp
 from repro_torch.launch import zero as Z
 from repro_torch.launch.sharding import expert_block
 from repro_torch.launch.zero import EXPERT_LEAVES
@@ -77,11 +78,15 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: b
     j at index i for layer ``len(prologue) + i * p + j`` (dtypes and bits
     kept; nested dicts such as an MoE's ``shared`` experts as they are).
     With a ``mesh`` (a ``launch.mesh.RankMesh``), each expert leaf keeps
-    only this rank's experts (``launch.sharding.expert_block``). With
-    ``zero`` (training), each leaf also keeps only this rank's ZeRO block
-    over the data axes of the open ``mesh_context``, which must hold
-    ``mesh`` (``launch/zero.py``), so the model is the one
-    ``init_params(zero=True)`` makes there."""
+    only this rank's experts (``launch.sharding.expert_block``) and, where
+    the mesh's ``model`` axis is over 1, each other leaf its
+    tensor-parallel block (``launch/tp.hold``: Mamba's ``in_proj`` the x
+    and then the z columns of the rank's d_inner block), so the model is
+    the one ``init_params`` makes under that mesh. With ``zero``
+    (training), each leaf keeps instead, beside the rank's experts, only
+    this rank's ZeRO block over the data axes of the open
+    ``mesh_context``, which must hold ``mesh`` (``launch/zero.py``), so
+    the model is the one ``init_params(zero=True)`` makes there."""
     dev = resolve_device(device)
     check_supported(cfg)
     n_pro, p, n_periods = layer_plan(cfg)
@@ -94,8 +99,12 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: b
         raise ValueError("lm_params_from_numpy(zero=True) splits the leaves over the data axes "
                          "of the open mesh_context, which must hold mesh")
 
+    split = mesh is not None and not zero and mesh.shape["model"] > 1
+
     def held(path, t):
-        return Z.shard(t, path, cfg) if zero else t
+        if zero:
+            return Z.shard(t, path, cfg)
+        return tp.hold(t, path, cfg, mesh) if split else t
 
     def block(path, blk):
         if rows is not None and "moe" in blk:

@@ -78,6 +78,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import context as ctx
 from repro_torch.launch.mesh import RankMesh, make_production_mesh, make_rank_mesh
 from repro_torch.launch.serve import serve
+from repro_torch.launch.sharding import model_block
+from repro_torch.launch.tp import cut
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.weights import EXPERT_LEAVES, lm_params_from_numpy
@@ -228,11 +230,13 @@ _RANK_SCRIPT = (
 )
 
 
-def _spawn_world(world: int, base: pathlib.Path) -> list:
+def _spawn_world(world: int, base: pathlib.Path, script: str | None = None) -> list:
+    """The ranks of a gloo world of ``world``, each ``script`` (default
+    this module's ``_rank_main``) in its own interpreter."""
     store = base / f"store{world}"
     store.mkdir()
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    script = _RANK_SCRIPT.format(src=str(ROOT / "src"), tests=str(ROOT / "tests"))
+    script = script or _RANK_SCRIPT.format(src=str(ROOT / "src"), tests=str(ROOT / "tests"))
     return [subprocess.Popen([sys.executable, "-c", script, str(r), str(world), str(store),
                               str(base)], env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -517,17 +521,38 @@ def _close(got, want, rel, what):
     assert gap <= rel * scale, (what, gap, scale)
 
 
-def _jax_cache_layers(cfg, jcache, rows: slice) -> list:
+def _model_cut(cfg, name: str, a: np.ndarray, model) -> np.ndarray:
+    """A layer's cache leaf as the rank at ``model`` = (n, j) of a
+    tensor-parallel mesh holds it: a GQA ``k``/``v`` its kv heads, Mamba's
+    ``conv`` and ``ssm`` its d_inner block (``launch.sharding.model_block``
+    of ``wk`` and ``conv_w``); the rest whole."""
+    if model is None or name not in ("k", "v", "conv", "ssm") or (name in ("k", "v")
+                                                                   and cfg.attn_type == "mla"):
+        return a
+    mesh = _StubMesh(1, *model)
+    if name in ("k", "v"):
+        hd = cfg.head_dim_
+        block = model_block("blocks/0/mixer/wk", (cfg.d_model, cfg.n_kv_heads * hd), mesh, cfg)
+        return a if block is None else a[:, :, block[1][0].start // hd:block[1][0].stop // hd]
+    block = model_block("blocks/0/mixer/conv_w", (cfg.d_conv, cfg.d_inner), mesh, cfg)
+    if block is None:
+        return a
+    return a[..., block[1][0]] if name == "conv" else a[:, block[1][0]]
+
+
+def _jax_cache_layers(cfg, jcache, rows: slice, model=None) -> list:
     """JAX's cache as per-layer dicts in execution order, each batch-led
-    leaf cut to ``rows`` (``kv_pos`` has no batch axis)."""
+    leaf cut to ``rows`` (``kv_pos`` has no batch axis) and, for the rank
+    at ``model`` = (n, j) of a tensor-parallel mesh, to its kv heads and
+    d_inner block (``_model_cut``)."""
     n_pro, p, n_periods = T.layer_plan(cfg)
 
-    def take(node, i=None):
+    def take(name, node, i=None):
         a = np.asarray(node) if i is None else np.asarray(node)[i]
-        return a if a.ndim < 2 else a[rows]
+        return a if a.ndim < 2 else _model_cut(cfg, name, a[rows], model)
 
-    layers = [{k: take(v) for k, v in c.items()} for c in jcache["prologue"]]
-    return layers + [{k: take(v, i) for k, v in jcache["stack"][j].items()}
+    layers = [{k: take(k, v) for k, v in c.items()} for c in jcache["prologue"]]
+    return layers + [{k: take(k, v, i) for k, v in jcache["stack"][j].items()}
                      for i in range(n_periods) for j in range(p)]
 
 
@@ -539,13 +564,16 @@ def _assert_routes(got: list, want: list, what: str) -> None:
         np.testing.assert_array_equal(gk, wk, err_msg=f"{what} call {c} kept mask")
 
 
-def _assert_steps(cfg, got: list, want: list, coords, rows, what: str) -> None:
+def _assert_steps(cfg, got: list, want: list, coords, rows, what: str, n_mp: int) -> None:
+    """Logits, the rank's cache (its rows, and on a ``model`` axis of
+    ``n_mp`` > 1 its kv heads and d_inner block: the model is
+    tensor-parallel) and its routes against JAX's."""
     assert len(got) == len(want)
     rel = _rel(cfg.name)
     for t, ((logits, cache, routes), (jlogits, jcache, jroutes)) in enumerate(zip(got, want)):
         step = f"{what} step {t}"
         _close(logits, jlogits, rel, f"{step} logits")
-        layers = _jax_cache_layers(cfg, jcache, rows)
+        layers = _jax_cache_layers(cfg, jcache, rows, (n_mp, coords[1]))
         assert len(cache["layers"]) == len(layers) and cache["pos"] == int(jcache["pos"])
         for i, (tc, jc) in enumerate(zip(cache["layers"], layers)):
             assert set(tc) == set(jc), (step, i)
@@ -585,7 +613,7 @@ def test_prefill_and_decode_match_jax_rank_by_rank(runs, arch, shape):
     ranks = port[_key(shape)]
     for rk in ranks:
         _assert_steps(cfg, rk[arch]["steps"], jax_out[arch][shape]["b4"], rk["coords"],
-                      slice(*rk[arch]["rows"]), f"{arch} {shape} rank {rk['coords']}")
+                      slice(*rk[arch]["rows"]), f"{arch} {shape} rank {rk['coords']}", shape[1])
         for (logits, _, _), (first, _, _) in zip(rk[arch]["steps"], ranks[0][arch]["steps"]):
             np.testing.assert_array_equal(logits, first)
     n_dp = shape[0]
@@ -603,7 +631,7 @@ def test_batch_one_replicates_tokens_on_2x2(runs, arch):
     ranks = port[_key(B1_MESH)]
     for rk in ranks:
         _assert_steps(cfg, rk[arch]["b1"], jax_out[arch][B1_MESH]["b1"], rk["coords"],
-                      slice(0, 1), f"{arch} b1 rank {rk['coords']}")
+                      slice(0, 1), f"{arch} b1 rank {rk['coords']}", B1_MESH[1])
         np.testing.assert_array_equal(rk[arch]["b1"][-1][0], ranks[0][arch]["b1"][-1][0])
 
 
@@ -616,7 +644,7 @@ def test_local_moe_under_a_mesh_runs_the_whole_batch_on_2x2(runs, case):
     above, no rank makes an expert-parallel call (JAX none either), and
     every rank's logits are bitwise equal."""
     jax_out, port, _, _ = runs
-    arch, _, n_experts = LOCAL_CASES[case]
+    arch, moe_ep, n_experts = LOCAL_CASES[case]
     cfg = _cfg(arch, n_experts)
     ranks = port[_key(LOCAL_MESH)]
     want = jax_out[case][LOCAL_MESH]["b4"]
@@ -624,7 +652,7 @@ def test_local_moe_under_a_mesh_runs_the_whole_batch_on_2x2(runs, case):
     for rk in ranks:
         assert rk[case]["rows"] == (0, B)
         _assert_steps(cfg, rk[case]["steps"], want, rk["coords"], slice(0, B),
-                      f"{case} rank {rk['coords']}")
+                      f"{case} rank {rk['coords']}", LOCAL_MESH[1] if moe_ep else 1)
         for (logits, _, _), (first, _, _) in zip(rk[case]["steps"], ranks[0][case]["steps"]):
             np.testing.assert_array_equal(logits, first)
 
@@ -671,7 +699,8 @@ def test_init_params_keeps_each_ranks_experts(runs, arch, shape):
     rank's E/n_mp experts of each expert leaf; the model ranks' slices,
     concatenated in order, are bitwise the unsharded init, on every data
     rank (serving holds no ZeRO blocks: ``tests/test_torch_train_mesh.py``
-    holds training's)."""
+    holds training's; the other leaves' tensor-parallel blocks are
+    ``tests/test_torch_tensor_parallel.py``'s)."""
     _, port, unsharded, _ = runs
     ranks = port[_key(shape)]
     n_mp = shape[1]
@@ -765,16 +794,20 @@ def test_moe_apply_falls_back_to_local_where_model_does_not_divide_experts():
 def test_lm_params_from_numpy_keeps_the_ranks_experts(j):
     """``lm_params_from_numpy(mesh=)``: rank j of a ``model`` axis of 2
     holds experts [2j, 2j + 2) of every MoE layer's wg, wu and wd, bitwise
-    the numpy tree's; every other leaf whole."""
+    the numpy tree's; every other leaf its tensor-parallel
+    ``model_block`` (whole where the rule keeps it whole)."""
     cfg = _cfg("jamba-v0.1-52b")
     model = T.init_params(torch.Generator().manual_seed(0), cfg)
-    sharded = lm_params_from_numpy(cfg, _jax_tree(cfg, model), device="cpu",
-                                   mesh=_StubMesh(1, 2, j))
+    mesh = _StubMesh(1, 2, j)
+    sharded = lm_params_from_numpy(cfg, _jax_tree(cfg, model), device="cpu", mesh=mesh)
     want = dict(model.named_parameters())
     for name, value in sharded.named_parameters():
         w = want.pop(name)
         if ".moe." in name and name.rsplit(".", 1)[1] in EXPERT_LEAVES:
             w = w[2 * j:2 * j + 2]
+        else:
+            block = model_block(name.replace(".", "/"), tuple(w.shape), mesh, cfg)
+            w = w if block is None else cut(w, block)
         assert torch.equal(value, w), name
     assert not want and sum(".moe.w" in n for n, _ in sharded.named_parameters()) == 12
 
