@@ -101,12 +101,16 @@ drives the port's two paths:
   ranks' halves of the heads and of d_inner) within 2^-5 of max of the run
   without a mesh, both ranks bitwise equal; the kernels are also held to
   their plain versions at the shapes a rank of four gives them;
-- training under that mesh (``[train_mesh]``, ``launch/zero.py``'s ZeRO
-  blocks, ``moe_apply_ep``'s backward, ``transformer.lm_objective``): the
-  reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b, 3
-  steps under a (1, 1) mesh bitwise the run without one, and on (2, 1)
-  and (1, 2) as two gloo processes sharing the card against the rule of
-  JAX's sharded step computed without a mesh.
+- training under that mesh (``[train_mesh]``, ``launch/zero.py``'s 2-D
+  blocks, ``launch/tp.py``'s collectives under autograd, ``moe_apply_ep``'s
+  backward, ``transformer.lm_objective``, ``whisper.whisper_objective``):
+  the reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b,
+  3 steps under a (1, 1) mesh bitwise the run without one, and on (2, 1)
+  and (1, 2) (tensor-parallel), jamba-v0.1-52b and deepseek-v2-lite-16b
+  on (1, 2) and whisper-tiny on (2, 1), as two gloo processes sharing the
+  card against the rule of JAX's sharded step computed without a mesh;
+  the two backward kernels are also held to their plain versions at the
+  shapes a tensor-parallel rank gives them.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -114,9 +118,11 @@ ranks (``nccl_world_main``), and ``torchrun --standalone --nproc-per-node
 4 chip_smoke.py --ep-world`` serves jamba-v0.1-52b whole on a (1, 4) mesh,
 moonshot-v1-16b-a3b whole on (1, 4) and (2, 2), and granite-3-8b and
 falcon-mamba-7b whole on (1, 4), tensor-parallel (``ep_world_main``),
-and ``... --train-world`` trains granite-3-8b whole on (4, 1) and
-deepseek-moe-16b whole on (2, 2) after holding 4-layer float32 versions to
-the same weights without a mesh (``train_world_main``);
+and ``... --train-world`` trains granite-3-8b whole on (4, 1), (2, 2)
+and (1, 4), deepseek-moe-16b whole on (2, 2) and falcon-mamba-7b whole on
+(2, 2), tensor-parallel where the model axis is over 1, after holding
+4-layer float32 versions to the same weights without a mesh
+(``train_world_main``);
 ``--shard-worker``, ``--ep-worker``, ``--tp-worker`` and
 ``--train-mesh-worker`` are one rank of the gloo worlds the single-card run
 starts itself.
@@ -452,28 +458,47 @@ TP_MODEL_RANKS = 4
 
 
 # [train_mesh] and --train-world: training under a (data, model) mesh of
-# ranks (launch/zero.py's ZeRO blocks over the data axes, moe_apply_ep's
-# backward, transformer.lm_objective's global loss). [train_mesh] on the one
-# card: the reduced float32 TRAIN_MESH_ARCHS, TRAIN_MESH_RUN's steps on
-# batches whose labels are -1 at the head of row r for TRAIN_MASKED[r]
-# places, under a (1, 1) mesh against no mesh (bitwise), then on (2, 1)
-# and (1, 2) as two gloo processes sharing the card against the rule of
-# JAX's sharded step computed without a mesh (``rule_train``: the (1, 1)
-# run where one data rank), within the training contract of
-# tests/_torch_train.py (REDUCED_REL, STEP_ABS, NEAR_ZERO, SCAN_SHARE),
-# every rank's loss equal. --train-world, one rank of four under torchrun
-# with NCCL: TRAIN_CHECK's float32 models at full width cut to a few
-# layers, on their meshes, against ``rule_train`` of the same weights on
-# each rank; then TRAIN_WORLD's bf16 models whole, TRAIN_WORLD_RUN
+# ranks (launch/zero.py's 2-D blocks: a decoder's tensor-parallel blocks on
+# a model axis over 1, launch/tp.py's collectives under autograd, and of
+# those the ZeRO blocks over the data axes; moe_apply_ep's backward;
+# transformer.lm_objective's and whisper.whisper_objective's global loss).
+# [train_mesh] on the one card: the reduced float32 TRAIN_MESH_ARCHS,
+# TRAIN_MESH_RUN's steps on batches whose labels are -1 at the head of row
+# r for TRAIN_MASKED[r] places, under a (1, 1) mesh against no mesh
+# (bitwise), then TRAIN_MESH_CASES as two gloo processes sharing the card
+# against the rule of JAX's sharded step computed without a mesh
+# (``rule_train``; the unsharded step where one data rank or no MoE),
+# within the training contract of tests/_torch_train.py (REDUCED_REL,
+# STEP_ABS, NEAR_ZERO, SCAN_SHARE), every rank's loss equal and, on (1, 2),
+# the leaves whole over model bitwise equal on both ranks. --train-world,
+# one rank of four under torchrun with NCCL: TRAIN_CHECK's float32 models
+# at full width cut to a few layers, on their meshes, against
+# ``rule_train`` of the same weights on each rank (``train_world_check``:
+# losses, every step's gradients within CHECK_GRAD_REL of max, or
+# CHECK_SCAN_REL behind a Mamba scan (tests/_torch_train.py's SCAN_REL: the
+# scan's bf16-rounded inputs), the parameters within ``step_bound`` of those
+# gradient gaps and, where the model axis is 1, within the contract too,
+# the leaves whole over model bitwise equal across the model ranks); then
+# TRAIN_WORLD's bf16 models whole, TRAIN_WORLD_RUN. CHECK_GRAD_REL is ten
+# times tests/_torch_train.py's F32_REL (full-width sums, split over the
+# model ranks) and a twentieth of bf16's rounding (2^-9), so that a
+# gradient rounded to bf16 fails
 TRAIN_MESH_ARCHS = ("granite-3-8b", "deepseek-moe-16b", "falcon-mamba-7b")
 TRAIN_MESH_RUN = dict(batch=4, seq=64, steps=3, lr=3e-4)
-TRAIN_MESH_SHAPES = ((2, 1), (1, 2))
+TRAIN_MESH_CASES = (*((arch, shape) for shape in ((2, 1), (1, 2)) for arch in TRAIN_MESH_ARCHS),
+                    ("jamba-v0.1-52b", (1, 2)), ("deepseek-v2-lite-16b", (1, 2)),
+                    ("whisper-tiny", (2, 1)))
 TRAIN_MASKED = (5, 0, 11, 2, 0, 7, 3, 1)
 STEP_ABS, NEAR_ZERO, SCAN_SHARE = 1e-6, 1e-4, 1e-4
 TRAIN_MESH_TIMEOUT_S = 240
-TRAIN_CHECK = (("granite-3-8b", 4, (4, 1)), ("deepseek-moe-16b", 4, (2, 2)))
+TRAIN_CHECK = (("granite-3-8b", 4, (4, 1)), ("deepseek-moe-16b", 4, (2, 2)),
+               ("granite-3-8b", 4, (1, 4)), ("granite-3-8b", 4, (2, 2)),
+               ("falcon-mamba-7b", 4, (2, 2)))
 TRAIN_CHECK_RUN = dict(batch=8, seq=256, steps=2, lr=3e-4)
-TRAIN_WORLD = (("granite-3-8b", (4, 1)), ("deepseek-moe-16b", (2, 2)))
+CHECK_GRAD_REL, CHECK_SCAN_REL = 1e-4, 2.0 ** -8
+ADAM_B2 = 0.95  # make_optimizer's AdamW (optim.adamw's default)
+TRAIN_WORLD = (("granite-3-8b", (4, 1)), ("deepseek-moe-16b", (2, 2)), ("granite-3-8b", (2, 2)),
+               ("granite-3-8b", (1, 4)), ("falcon-mamba-7b", (2, 2)))
 TRAIN_WORLD_RUN = dict(batch=8, seq=2048, steps=4, lr=3e-4, seed=0)
 
 
@@ -912,13 +937,13 @@ def phase_lm_kernels(dev: torch.device) -> dict:
             qh, kh, vh, is_causal=True, enable_gqa=True)))
     del q, k, v, qh, kh, vh, q64, k64, v64
     rows["flash_attention"].update(zoo_attention_kernels(dev, randn))
-    fa_tp, ssm_tp = tp_rank_kernels(randn)
+    fa_tp, ssm_tp, rows["flash_attention_bwd"], rows["ssm_scan_bwd"] = tp_rank_kernels(randn)
     rows["flash_attention"].update(fa_tp)
     rows["ssm_scan"].update(ssm_tp)
     return rows
 
 
-def tp_rank_kernels(randn) -> tuple[dict, dict]:
+def tp_rank_kernels(randn) -> tuple[dict, dict, dict, dict]:
     """flash_attention and ssm_scan at the shapes a tensor-parallel rank of
     TP_MODEL_RANKS model ranks gives them (B 4, S 2048, bf16): attention
     at each TP_ATTENTION rank's heads (the kv heads its q heads read; G =
@@ -926,7 +951,9 @@ def tp_rank_kernels(randn) -> tuple[dict, dict]:
     with SDPA's fused backends; the scan at falcon-mamba's and jamba's
     d_inner over the ranks (2,048 channels) under its float64 contract,
     float32 and bf16 y. Times, bounds and plain times of one launch each.
-    Returns (the flash_attention row's ``tp_*`` keys, the ssm_scan row's)."""
+    Then the backwards at the same ranks' shapes (``tp_rank_backward_kernels``).
+    Returns (the flash_attention row's ``tp_*`` keys, the ssm_scan row's,
+    flash_attention_bwd's, ssm_scan_bwd's)."""
     b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
     fa, report = {}, {}
     for key, (h, hkv, dq, dv) in TP_ATTENTION.items():
@@ -990,6 +1017,81 @@ def tp_rank_kernels(randn) -> tuple[dict, dict]:
     print(f"[kernels] ssm_scan at a tensor-parallel rank's d_inner (falcon-mamba-7b and "
           f"jamba-v0.1-52b over {TP_MODEL_RANKS} model ranks), B={b} S={s} di={di} ds={ds}, "
           f"against the plain version in float64 (kernels/ssm_scan/contract.py): {json.dumps(ssm)}")
+    fa_bwd, ssm_bwd = tp_rank_backward_kernels(randn)
+    return fa, ssm, fa_bwd, ssm_bwd
+
+
+def tp_rank_backward_kernels(randn) -> tuple[dict, dict]:
+    """The two backward kernels at a tensor-parallel rank's shapes (B 4, S
+    2048, bf16), as training under TP gives them: flash_attention_bwd at
+    each TP_ATTENTION rank's heads (the dK/dV pass sums the G q heads of a
+    kv head, and a rank keeps the model's G: 4, 8, 3 and 1), against the
+    backward in float64 (``attention_bwd_case``, no controls); ssm_scan_bwd
+    at falcon-mamba-7b's and jamba-v0.1-52b's d_inner over 2 and 4 model
+    ranks (4,096 and 2,048 channels), on the forward kernel's chunk states,
+    against the float64 backward (``kernels/ssm_scan/contract.py``), two
+    calls bitwise, timed beside its bound (``ssm_bwd_limits``) and the
+    float32 plain version. Returns (flash_attention_bwd's ``tp_*`` keys,
+    ssm_scan_bwd's)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward_plain, ssm_scan_bwd
+
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    brief = lambda r: {k: float(f"{v:.4g}") if isinstance(v, float) else v  # noqa: E731
+                       for k, v in r.items()}
+    fa, report = {}, {}
+    for key, (h, hkv, dq, dv) in TP_ATTENTION.items():
+        row, rep = attention_bwd_case(f"tp_{key}", (b, s, s, h, hkv, dq, dv, True), randn,
+                                      controls=False)
+        fa.update({f"tp_{key}_{k}": v for k, v in row.items()})
+        report.update(rep)
+    print(f"[kernels] flash_attention_bwd bf16 at a tensor-parallel rank's heads "
+          f"({TP_MODEL_RANKS} model ranks; [B, S, T, H, Hkv, Dqk, Dv, causal] in the "
+          f"tp_*_shape keys) against the backward in float64 (contract, "
+          f"kernels/flash_attention/contract.py), two calls bitwise; ms beside the five- and "
+          f"seven-product bounds and SDPA's fused backward: {json.dumps(report)} "
+          f"{json.dumps(fa)}")
+    fm = get_config("falcon-mamba-7b")
+    ds = fm.d_state
+    ssm, report = {}, {}
+    for n in (2, TP_MODEL_RANKS):
+        di = fm.d_inner // n
+        a = -torch.exp(randn(di, ds))
+        d = randn(di)
+        streams = [t.to(torch.bfloat16) for t in (
+            torch.nn.functional.softplus(randn(b, s, di) * 0.5 - 4.6), randn(b, s, ds),
+            randn(b, s, ds), randn(b, s, di))]
+        args = (streams[0], a, streams[1], streams[2], streams[3], d)
+        _, _, hs = ssm_scan(*args, y_dtype=torch.bfloat16, chunk_states=True)
+        gy = randn(b, s, di).to(torch.bfloat16).float()  # a bf16 y's cotangent
+        got = ssm_scan_bwd(*args, hs, gy)
+        again = ssm_scan_bwd(*args, hs, gy)
+        check(all(same(x, y) for x, y in zip(got, again)),
+              f"ssm_scan_bwd at a tensor-parallel rank's d_inner {di}: two calls differ")
+        plain32, ref64 = ssm_contract.bwd_references(*args, hs, gy)
+        report[f"di={di}"] = r = brief(ssm_contract.bwd_check(got, plain32, ref64))
+        check(r["ok"], f"ssm_scan_bwd at a tensor-parallel rank's d_inner {di} fails its "
+                       f"contract: {r}")
+        limits = ssm_bwd_limits(b, s, di, ds, hs.numel())
+        op = max(limits, key=limits.get)
+        key = f"tp_di{di}"
+        ssm.update({
+            f"{key}_shape": [b, s, di, ds],
+            f"{key}_max_abs_err": max(float((g.double() - w).abs().max())
+                                      for g, w in zip(got, ref64)),
+            f"{key}_ms": cuda_ms(lambda: ssm_scan_bwd(*args, hs, gy), reps=10),
+            f"{key}_plain_ms": cuda_ms(lambda: ssm_scan_backward_plain(*args, hs, gy), reps=1,
+                                       warmup=1),
+            f"{key}_bound_ms": 1e3 * limits[op],
+            f"{key}_bound_by": "bytes" if op == "bytes" else "operations",
+            f"{key}_bound_op": op, f"{key}_bound_fp32_ms": 1e3 * limits["fp32 instructions"]})
+        del plain32, ref64, got, again, streams, args, hs, gy
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[kernels] ssm_scan_bwd at a tensor-parallel rank's d_inner (falcon-mamba-7b and "
+          f"jamba-v0.1-52b over 2 and {TP_MODEL_RANKS} model ranks), B={b} S={s} ds={ds}, bf16 "
+          f"streams, against the backward in float64 on the forward kernel's chunk states "
+          f"(contract, kernels/ssm_scan/contract.py), two calls bitwise; ms beside the bound "
+          f"and the FP32-pipe bound: {json.dumps(report)} {json.dumps(ssm)}")
     return fa, ssm
 
 
@@ -3351,6 +3453,71 @@ def attention_bwd_bound(b, s, t, h, hkv, dq, dv, causal, products: int = 5) -> t
     return bound_ms(n_bytes, 2 * per_pair * b * h * visible_pairs(s, t, causal, 0), BF16_FLOPS)
 
 
+def attention_bwd_case(key: str, case: tuple, randn, controls: bool = True) -> tuple:
+    """flash_attention_bwd (bf16) at ``case`` = (B, S, T, H, Hkv, Dqk, Dv,
+    causal) on the forward kernel's o and lse, held to its float64
+    contract (``contract.bwd_check``), its controls rejected where
+    ``controls``, two calls bitwise; times of eager calls (CUDA events)
+    beside the five- and seven-product bounds, the float32 plain version
+    and SDPA's fused backward. Returns (the row's keys, the report)."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    bb, ss, tt, h, hkv, dq, dv, causal = case
+    brief = lambda r: {k: float(f"{v:.4g}") if isinstance(v, float) else v  # noqa: E731
+                       for k, v in r.items()}
+    q = randn(bb, ss, h, dq).to(torch.bfloat16)
+    k = randn(bb, tt, hkv, dq).to(torch.bfloat16)
+    v = randn(bb, tt, hkv, dv).to(torch.bfloat16)
+    dout = randn(bb, ss, h, dv).to(torch.bfloat16)
+    out, lse = _attention(q, k, v, causal, 0, with_lse=True)
+    args = (q, k, v, out, lse, dout, causal)
+    got = flash_attention_bwd(*args)
+    again = flash_attention_bwd(*args)
+    check(all(same(x, y) for x, y in zip(got, again)),
+          f"flash_attention_bwd at {key}: two calls differ")
+    ref = fa_contract.bwd_references(*args)
+    report = {key: brief(fa_contract.bwd_check(got, ref))}
+    check(report[key]["ok"], f"flash_attention_bwd at {key} fails its contract: {report[key]}")
+    if controls:
+        for fault, bad in fa_contract.bwd_controls(*args).items():
+            report[f"{key} control {fault}"] = r = brief(fa_contract.bwd_check(bad, ref))
+            check(not r["ok"], f"flash_attention_bwd's contract accepts {fault} at {key}: {r}")
+        del bad
+    bound, by = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal)
+    bound7, _ = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal, products=7)
+    row = {"shape": [bb, ss, tt, h, hkv, dq, dv, causal],
+           "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(got, ref.ref64)),
+           "ms": cuda_ms(lambda: flash_attention_bwd(*args), reps=10),
+           "bound_ms": bound, "bound_by": by, "bound7_ms": bound7}
+    del ref, got, again
+    row["plain_ms"] = cuda_ms(lambda: flash_attention_backward_plain(*args), reps=2, warmup=1)
+    lib, backend, tried = sdpa_backward_ms(q, k, v, dout, causal)
+    row.update({"library_ms": lib, "library_backend": backend})
+    report[f"{key} sdpa backward"] = tried
+    del q, k, v, dout, out, lse, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, report
+
+
+def ssm_bwd_limits(b: int, seq: int, di: int, dst: int, n_states: int) -> dict:
+    """The least times (s) of ssm_scan_bwd at (B, S, di, ds) with
+    ``n_states`` chunk-state elements: its bytes (bf16 streams, float32 gy
+    and chunk states read once, the gradients written once) over HBM, its
+    exps over the SFU, its FP32-pipe instructions."""
+    updates = b * seq * di * dst
+    n_bytes = (2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + b * seq * di * 4
+               + n_states * 4 + di * dst * 4 + di * 4
+               + 2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + di * dst * 4 + di * 4)
+    return {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
+            # the reverse step's 7 FP32-pipe instructions an update and the
+            # recompute's 4 that give it h_{t-1} (csrc/ssm_scan_bwd.cu's note)
+            "fp32 instructions": 11 * updates / FP32_INSTR_PER_S}
+
+
 def phase_train_kernels(dev: torch.device) -> dict:
     """The two backward kernels against their plain versions at full-width
     shapes, bf16: flash_attention_bwd at granite-3-8b's layer (B 4, S 2048,
@@ -3366,9 +3533,6 @@ def phase_train_kernels(dev: torch.device) -> dict:
     for attention at every shape, SDPA's fused backward. Returns the two
     kernels' rows."""
     from repro_torch.kernels.flash_attention import contract as fa_contract
-    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ops import _attention
     from repro_torch.kernels.ssm_scan import ssm_scan_backward_plain, ssm_scan_bwd
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd_occupancy
 
@@ -3391,42 +3555,10 @@ def phase_train_kernels(dev: torch.device) -> dict:
         "stablelm": (1, s, s, sl.n_heads, sl.n_kv_heads, sl.head_dim_, sl.head_dim_, True),
     }
     fa_row, report = {}, {}
-    for key, (bb, ss, tt, h, hkv, dq, dv, causal) in cases.items():
-        q = randn(bb, ss, h, dq).to(torch.bfloat16)
-        k = randn(bb, tt, hkv, dq).to(torch.bfloat16)
-        v = randn(bb, tt, hkv, dv).to(torch.bfloat16)
-        dout = randn(bb, ss, h, dv).to(torch.bfloat16)
-        out, lse = _attention(q, k, v, causal, 0, with_lse=True)
-        args = (q, k, v, out, lse, dout, causal)
-        got = flash_attention_bwd(*args)
-        again = flash_attention_bwd(*args)
-        check(all(same(x, y) for x, y in zip(got, again)),
-              f"flash_attention_bwd at {key}: two calls differ")
-        ref = fa_contract.bwd_references(*args)
-        report[key] = r = brief(fa_contract.bwd_check(got, ref))
-        check(r["ok"], f"flash_attention_bwd at {key} fails its contract: {r}")
-        for fault, bad in fa_contract.bwd_controls(*args).items():
-            report[f"{key} control {fault}"] = r = brief(fa_contract.bwd_check(bad, ref))
-            check(not r["ok"], f"flash_attention_bwd's contract accepts {fault} at {key}: {r}")
-        del bad
-        bound, by = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal)
-        bound7, _ = attention_bwd_bound(bb, ss, tt, h, hkv, dq, dv, causal, products=7)
-        prefix = "" if key == "granite" else f"{key}_"
-        fa_row.update({f"{prefix}shape": [bb, ss, tt, h, hkv, dq, dv, causal],
-                       f"{prefix}max_abs_err": max(float((g.double() - w).abs().max())
-                                                   for g, w in zip(got, ref.ref64)),
-                       f"{prefix}ms": cuda_ms(lambda: flash_attention_bwd(*args), reps=10),
-                       f"{prefix}bound_ms": bound, f"{prefix}bound_by": by,
-                       f"{prefix}bound7_ms": bound7})
-        del ref, got, again
-        fa_row[f"{prefix}plain_ms"] = cuda_ms(
-            lambda: flash_attention_backward_plain(*args), reps=2, warmup=1)
-        lib, backend, tried = sdpa_backward_ms(q, k, v, dout, causal)
-        fa_row.update({f"{prefix}library_ms": lib, f"{prefix}library_backend": backend})
-        report[f"{key} sdpa backward"] = tried
-        del q, k, v, dout, out, lse, args
-        gc.collect()
-        torch.cuda.empty_cache()
+    for key, case in cases.items():
+        row, rep = attention_bwd_case(key, case, randn)
+        fa_row.update({(k if key == "granite" else f"{key}_{k}"): v for k, v in row.items()})
+        report.update(rep)
     print(f"[train_kernels] flash_attention_bwd bf16 (wgmma) vs the backward in float64 on the "
           f"forward kernel's o and lse with the kernel's bf16 rounding points (contract, "
           f"kernels/flash_attention/contract.py: every element within "
@@ -3466,14 +3598,7 @@ def phase_train_kernels(dev: torch.device) -> dict:
                                                                               ref64))
                 check(not r["ok"], f"ssm_scan_bwd's contract accepts {fault}: {r}")
             del bad
-            updates = b * seq * di * dst
-            n_bytes = (2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + b * seq * di * 4
-                       + hs.numel() * 4 + di * dst * 4 + di * 4
-                       + 2 * b * seq * di * 2 + 2 * b * seq * dst * 2 + di * dst * 4 + di * 4)
-            limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
-                      # the reverse step's 7 FP32-pipe instructions an update and the
-                      # recompute's 4 that give it h_{t-1} (csrc/ssm_scan_bwd.cu's note)
-                      "fp32 instructions": 11 * updates / FP32_INSTR_PER_S}
+            limits = ssm_bwd_limits(b, seq, di, dst, hs.numel())
             op = max(limits, key=limits.get)
             ssm_row = dict(
                 shape=[b, seq, di, dst], bound_terms_ms={k: 1e3 * t for k, t in limits.items()},
@@ -3608,10 +3733,12 @@ def mesh_batches(cfg, run: dict, dev: torch.device) -> list:
     return out
 
 
-def mesh_train(cfg, mesh, run: dict, batches: list) -> tuple:
-    """``run``'s steps of ``cfg`` from ``init_params`` (seed 0) under
-    ``mesh`` (None: without one) on its device: (losses, the whole
-    parameters, the whole AdamW nu, the kernel launches of the steps)."""
+def mesh_train(cfg, mesh, run: dict, batches: list, visit=None) -> tuple:
+    """``run``'s steps of ``cfg`` from its init (seed 0) under ``mesh``
+    (None: without one) on its device: (losses, the whole parameters, the
+    whole AdamW nu, the kernel launches of the steps, this rank's blocks of
+    the parameters it holds whole over ``model``); calls ``visit`` (when
+    given) as ``visiting_grads`` says."""
     from repro_torch.launch import zero
     from repro_torch.launch.train import make_optimizer
     from repro_torch.models.api import param_tree
@@ -3621,6 +3748,8 @@ def mesh_train(cfg, mesh, run: dict, batches: list) -> tuple:
         model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                                         zero=mesh is not None)
         opt = make_optimizer(run["lr"], run["steps"])
+        if visit is not None:
+            opt = visiting_grads(opt, model, mesh, visit)
         state = opt.init(param_tree(model))
         step = get_model(cfg).make_train_step(opt)
         kernels.reset_launch_counts()
@@ -3634,17 +3763,43 @@ def mesh_train(cfg, mesh, run: dict, batches: list) -> tuple:
             lambda k, t: zero.whole(params[k], mesh, t))
         out = ([float(x) for x in torch.stack(losses).cpu()],
                {k: whole(k, p) for k, p in params.items()},
-               {k: whole(k, v) for k, v in state[1].nu.items()}, counts)
+               {k: whole(k, v) for k, v in state[1].nu.items()}, counts,
+               {k: p.detach() for k, p in params.items()
+                if mesh is not None and "model" not in zero.split_axes(p)})
     return out
 
 
-def rule_train(cfg, run: dict, batches: list, n_dp: int) -> tuple:
+def visiting_grads(opt, model, mesh, visit):
+    """``opt`` whose in-place step, after it has updated the parameters,
+    calls ``visit(step, name, grad)`` with each gradient as AdamW took it
+    (scaled by the clip), whole: gathered from this rank's blocks (every
+    rank gathers them)."""
+    from repro_torch.launch import zero
+    from repro_torch.models.api import param_tree
+    from repro_torch.optim import Optimizer
+
+    taken = [0]  # steps taken
+
+    def apply_(grads, state, params):
+        state = opt.apply_(grads, state, params)  # the clip scales ``grads`` in place
+        tree = param_tree(model)
+        for k, g in grads.items():
+            visit(taken[0], k, g if mesh is None else zero.whole(tree[k], mesh, g))
+        taken[0] += 1
+        return state
+
+    return Optimizer(opt.init, opt.update, apply_)
+
+
+def rule_train(cfg, run: dict, batches: list, n_dp: int, grads_into: list | None = None) -> tuple:
     """The rule of JAX's sharded step on ``n_dp`` data shards, without a
     mesh: each step's gradient is that of sum_i (shard i's masked NLL sum
     over the global batch's count of labels + 0.01 aux_i / n_dp), shard i
     the model on its rows of the batch; the loss the global NLL mean plus
     0.01 times shard 0's aux. For a model without an MoE (or n_dp 1) this is
-    the unsharded step. Returns (losses, parameters, AdamW nu)."""
+    the unsharded step. Returns (losses, parameters, AdamW nu); appends to
+    ``grads_into`` (when given) each step's gradients as AdamW took them
+    (scaled by the clip), on the host."""
     from repro_torch.launch.train import make_optimizer
     from repro_torch.models.api import param_tree
 
@@ -3674,6 +3829,8 @@ def rule_train(cfg, run: dict, batches: list, n_dp: int) -> tuple:
             p.grad = None
         # in place (one copy of the moments): bitwise update + apply_updates
         state = opt.apply_(grads, state, {k: p.detach() for k, p in tree.items()})
+        if grads_into is not None:
+            grads_into.append({k: g.to("cpu", copy=True) for k, g in grads.items()})
         del grads
     return ([float(x) for x in torch.stack(losses).cpu()],
             {k: p.detach() for k, p in tree.items()}, dict(state[1].nu))
@@ -3704,15 +3861,18 @@ def train_contract(cfg, got: tuple, want: tuple, lr: float, rel: float) -> tuple
 
 
 def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
-    """Training under a mesh of ranks on the one card: TRAIN_MESH_ARCHS
-    reduced in float32, TRAIN_MESH_RUN's steps on ``mesh_batches``: (a)
+    """Training under a mesh of ranks on the one card, TRAIN_MESH_RUN's
+    steps on ``mesh_batches``: (a) TRAIN_MESH_ARCHS reduced in float32
     under a (1, 1) mesh (one world-1 group, gloo for CPU tensors and NCCL
     for the card's) bitwise the run without a mesh, with exactly
-    ``expected_train_launches``; (b) on (2, 1) and (1, 2) as two gloo
-    processes sharing the card (``--train-mesh-worker``), each against
-    ``rule_train`` on as many data shards, within ``train_contract``, every
-    rank's loss equal and its launches ``expected_train_launches``. Returns
-    the launches of (a)'s mesh runs and (b)'s ranks."""
+    ``expected_train_launches``; (b) TRAIN_MESH_CASES, reduced in float32,
+    as two gloo processes sharing the card (``--train-mesh-worker``; on (1,
+    2) a decoder is tensor-parallel), each against ``rule_train`` on as
+    many data shards (the run without a mesh where it has one data shard
+    or no MoE), within ``train_contract``, every rank's loss equal, on (1,
+    2) the leaves whole over ``model`` bitwise equal on both ranks, and its
+    launches ``expected_train_launches``. Returns the launches of (a)'s
+    mesh runs and (b)'s ranks."""
     t_phase = time.perf_counter()
     launches = dict.fromkeys(kernels.KERNELS, 0)
     refs = {}
@@ -3750,6 +3910,12 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
                       f"{json.dumps(ours[3])}")
         finally:
             mesh.close()
+        for arch, shape in TRAIN_MESH_CASES:  # one data shard or no MoE: the unsharded step
+            if arch not in refs:
+                cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+                plain = mesh_train(cfg, None, TRAIN_MESH_RUN, mesh_batches(cfg, TRAIN_MESH_RUN,
+                                                                           dev))[:3]
+                refs[arch] = {1: plain, 2: plain}
         ranks = join_world("[train_mesh] gloo world 2", procs, logs, base,
                            time.monotonic() + TRAIN_MESH_TIMEOUT_S)
     finally:
@@ -3760,35 +3926,44 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
             log.close()
         shutil.rmtree(base, ignore_errors=True)
     readings = {}
-    for arch in TRAIN_MESH_ARCHS:
+    for arch, shape in TRAIN_MESH_CASES:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-        for shape in TRAIN_MESH_SHAPES:
-            key = f"{arch}/{shape[0]}x{shape[1]}"
-            losses = [rk[f"{key}/losses"].tolist() for rk in ranks]
-            got = (losses[0], {k[len(key) + 3:]: torch.from_numpy(v).to(dev)
-                               for k, v in ranks[0].items() if k.startswith(f"{key}/p/")})
-            ok, readings[key] = train_contract(cfg, got, refs[arch][shape[0]],
-                                               TRAIN_MESH_RUN["lr"], REDUCED_REL[arch])
-            check(ok and losses[0] == losses[1],
-                  f"[train_mesh] {key} against the rule on {shape[0]} data shards: "
-                  f"{readings[key]}, losses by rank {losses}")
-            want = expected_train_launches(cfg, TRAIN_MESH_RUN["steps"])
-            for rk in ranks:
-                counts = {k: int(rk[f"{key}/launches/{k}"]) for k in kernels.KERNELS}
-                check(counts == want, f"[train_mesh] {key}: launches {counts}, want {want}")
-                for k, n in counts.items():
-                    launches[k] += n
-    print(f"[train_mesh] (2, 1) and (1, 2) as two gloo processes on the card, against the rule "
-          f"of JAX's sharded step without a mesh (rule_train; the contract of "
-          f"tests/_torch_train.py, 1e-5 and 2^-8 behind a scan): {json.dumps(readings)}; every "
-          f"rank's losses equal; [train_mesh] {time.perf_counter() - t_phase:.1f} s; {card}")
+        key = f"{arch}/{shape[0]}x{shape[1]}"
+        losses = [rk[f"{key}/losses"].tolist() for rk in ranks]
+        got = (losses[0], {k[len(key) + 3:]: torch.from_numpy(v).to(dev)
+                           for k, v in ranks[0].items() if k.startswith(f"{key}/p/")})
+        ok, readings[key] = train_contract(cfg, got, refs[arch][shape[0]],
+                                           TRAIN_MESH_RUN["lr"], REDUCED_REL[arch])
+        check(ok and losses[0] == losses[1],
+              f"[train_mesh] {key} against the rule on {shape[0]} data shards: "
+              f"{readings[key]}, losses by rank {losses}")
+        if shape[1] > 1:
+            held = [{k: v for k, v in rk.items() if k.startswith(f"{key}/w/")} for rk in ranks]
+            check(held[0].keys() == held[1].keys() and all(
+                np.array_equal(v, held[1][k]) for k, v in held[0].items()),
+                f"[train_mesh] {key}: the leaves whole over model differ between the ranks")
+            readings[key]["whole_over_model_bitwise"] = len(held[0])
+        want = expected_train_launches(cfg, TRAIN_MESH_RUN["steps"])
+        for rk in ranks:
+            counts = {k: int(rk[f"{key}/launches/{k}"]) for k in kernels.KERNELS}
+            check(counts == want, f"[train_mesh] {key}: launches {counts}, want {want}")
+            for k, n in counts.items():
+                launches[k] += n
+    print(f"[train_mesh] {[f'{a} on {s}' for a, s in TRAIN_MESH_CASES]} as two gloo processes "
+          f"on the card (a decoder tensor-parallel on (1, 2)), against the rule of JAX's "
+          f"sharded step without a mesh (rule_train; the contract of tests/_torch_train.py, "
+          f"1e-5 and 2^-8 behind a scan): {json.dumps(readings)}; every rank's losses equal, "
+          f"on (1, 2) the leaves whole over model (whole_over_model_bitwise: their count) "
+          f"bitwise equal on both ranks; [train_mesh] {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}")
     return launches
 
 
 def train_mesh_worker(rank: str, world: str, base: str, device: str) -> int:
     """One rank of [train_mesh]'s gloo world (``--train-mesh-worker``), every
-    rank on ``device``: TRAIN_MESH_ARCHS on each TRAIN_MESH_SHAPES mesh;
-    saves its losses and launches, and rank 0 the whole parameters."""
+    rank on ``device``: TRAIN_MESH_CASES, each mesh once; saves its losses,
+    its launches and its blocks of the leaves it holds whole over
+    ``model``, and rank 0 the whole parameters."""
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(base, "store"), world),
@@ -3800,16 +3975,17 @@ def train_mesh_worker(rank: str, world: str, base: str, device: str) -> int:
             torch.cuda.set_device(dev)
         full_precision_matmuls()
         out = {}
-        for shape in TRAIN_MESH_SHAPES:
+        for shape in dict.fromkeys(s for _, s in TRAIN_MESH_CASES):
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                for arch in TRAIN_MESH_ARCHS:
+                for arch in (a for a, s in TRAIN_MESH_CASES if s == shape):
                     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
                     key = f"{arch}/{shape[0]}x{shape[1]}"
-                    losses, params, _, counts = mesh_train(cfg, mesh, TRAIN_MESH_RUN,
-                                                           mesh_batches(cfg, TRAIN_MESH_RUN, dev))
+                    losses, params, _, counts, held = mesh_train(
+                        cfg, mesh, TRAIN_MESH_RUN, mesh_batches(cfg, TRAIN_MESH_RUN, dev))
                     out[f"{key}/losses"] = np.asarray(losses)
                     out.update({f"{key}/launches/{k}": n for k, n in counts.items()})
+                    out.update({f"{key}/w/{k}": v.cpu().numpy() for k, v in held.items()})
                     if rank == 0:
                         out.update({f"{key}/p/{k}": v.cpu().numpy() for k, v in params.items()})
             finally:
@@ -3889,34 +4065,108 @@ def train_world_main(where: str = "cuda") -> int:
 def train_world_check(cfg, mesh, card: str) -> list:
     """``cfg`` (float32) trained TRAIN_CHECK_RUN's steps on ``mesh`` against
     ``rule_train`` of the same weights on as many data shards on this rank
-    (the unsharded step where the model has no MoE), within
-    ``train_contract``; rank 0 prints every rank's readings. Returns this
-    rank's failures."""
-    dev = mesh.device
-    batches = mesh_batches(cfg, TRAIN_CHECK_RUN, dev)
+    (the unsharded step where the model has no MoE): the losses within
+    LM_REL; the first step's gradients as AdamW took them (gathered)
+    within CHECK_GRAD_REL of each leaf's largest (CHECK_SCAN_REL behind a
+    Mamba scan); every parameter within ``step_bound`` of both steps'
+    gradient gaps so measured, and where the ``model`` axis is 1 (each row's forward is the
+    unsharded one's) within ``train_contract`` too; the leaves held whole
+    over ``model`` bitwise equal across the model ranks. Rank 0 prints
+    every rank's readings and, where ``train_contract`` fails, its leaves'.
+    Returns this rank's failures."""
+    dev, run = mesh.device, TRAIN_CHECK_RUN
+    batches = mesh_batches(cfg, run, dev)
     with mesh_ctx.mesh_context(mesh):
-        n_dp = mesh_ctx.n_data() if mesh_ctx.data_rows(cfg, TRAIN_CHECK_RUN["batch"]) else 1
-    losses, params, _, _ = mesh_train(cfg, mesh, TRAIN_CHECK_RUN, batches)
-    params = {k: v.cpu() for k, v in params.items()}  # the card's room goes to rule_train
+        n_dp = mesh_ctx.n_data() if mesh_ctx.data_rows(cfg, run["batch"]) else 1
+    want_grads = []
+    want = rule_train(cfg, run, batches, n_dp, want_grads)
+    want = tuple({k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t for t in want)
     gc.collect()
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    want = rule_train(cfg, TRAIN_CHECK_RUN, batches, n_dp)
-    want = tuple({k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t for t in want)
-    ok, read = train_contract(cfg, (losses, params), want, TRAIN_CHECK_RUN["lr"], LM_REL)
+        torch.cuda.empty_cache()  # the card's room goes to the mesh run
+    gaps = {}  # (step, leaf) -> (max |got - want|, max |want|)
+
+    def visit(t, k, g):
+        w = want_grads[t][k].to(g.device)
+        gaps[t, k] = (float((g - w).abs().max()), float(w.abs().max()))
+
+    losses, params, _, _, held = mesh_train(cfg, mesh, run, batches, visit)
+    params = {k: v.cpu() for k, v in params.items()}
+    del want_grads
+    whole_equal = True
+    if mesh.shape["model"] > 1:  # bitwise: float32 values are exact in double
+        flat = torch.cat([held[k].reshape(-1).double() for k in sorted(held)])
+        every_model = mesh.all_gather(flat[None], "model").cpu()
+        whole_equal = bool((every_model == every_model[0]).all())
+        del flat, every_model
+    del held
+    rel = {key: g / max(m, 1e-30) for key, (g, m) in gaps.items()}
+    grad_gap, both_gap = max(r for (t, _), r in rel.items() if t == 0), max(rel.values())
+    leaf_gap = {k: max(g for (_, j), (g, _) in gaps.items() if j == k) for _, k in gaps}
+    bound_ok, bound_use, leaves = step_bound(params, want[1], want[2], leaf_gap, dev)
+    contract_ok, read = train_contract(cfg, (losses, params), want, run["lr"], LM_REL)
+    grad_rel = CHECK_SCAN_REL if cfg.ssm else CHECK_GRAD_REL
+    ok = (read["loss_gap"] <= LM_REL and grad_gap <= grad_rel and bound_ok and whole_equal
+          and (contract_ok or mesh.shape["model"] > 1))
     del params, want
-    mine = torch.tensor([[read["loss_gap"], read["worst_over_lr"], read["over"], read["of"],
-                          float(ok)]], dtype=torch.float64, device=dev)
+    mine = torch.tensor([[read["loss_gap"], grad_gap, both_gap, read["worst_over_lr"],
+                          read["over"], read["of"], float(contract_ok), bound_use,
+                          float(whole_equal), float(ok)]], dtype=torch.float64, device=dev)
     every = mesh.all_gather(mine, mesh.axis_names).cpu()
     shape = tuple(mesh.shape.values())
     if mesh.rank == 0:
         print(f"[train-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}, "
-              f"{TRAIN_CHECK_RUN['steps']} steps of batch {TRAIN_CHECK_RUN['batch']} x "
-              f"{TRAIN_CHECK_RUN['seq']}, against the same weights without a mesh under the rule "
-              f"of JAX's sharded step on {n_dp} data shards: by rank [loss gap, worst parameter "
-              f"gap / lr, elements over {STEP_ABS}, of, ok] {every.tolist()} (contract {LM_REL}; "
-              f"tests/_torch_train.py)")
-    return [] if ok else [f"{cfg.name} on {shape} rank {mesh.rank} against rule_train: {read}"]
+              f"{run['steps']} steps of batch {run['batch']} x {run['seq']}, against the same "
+              f"weights without a mesh under the rule of JAX's sharded step on {n_dp} data "
+              f"shards: by rank [loss gap, gradient gap / max (worst leaf) on the first "
+              f"step, on both, worst parameter gap / lr, elements over {STEP_ABS}, of, "
+              f"train_contract, largest parameter gap over its step_bound, the leaves whole "
+              f"over model bitwise equal across the model ranks, ok] {every.tolist()} (losses "
+              f"{LM_REL}, gradients {grad_rel} on the first step, step_bound 1; "
+              f"train_contract, tests/_torch_train.py's, held where the model axis is 1)")
+        if not contract_ok:
+            print(f"[train-world] {cfg.name} on {shape}: the leaves with elements beyond "
+                  f"{STEP_ABS}, most first: {json.dumps(leaves)}")
+    return [] if ok else [f"{cfg.name} on {shape} rank {mesh.rank} against rule_train: {read}, "
+                          f"gradient gap {grad_gap}, parameter gap over step_bound {bound_use}, "
+                          f"whole-over-model leaves equal across model ranks: {whole_equal}"]
+
+
+def step_bound(got: dict, want: dict, nu: dict, gap: dict, dev) -> tuple[bool, float, dict]:
+    """The parameters after TRAIN_CHECK_RUN's two steps, ``got`` against
+    ``want``, held to the bound that the measured gradient gaps give them.
+    make_optimizer warms up over 2 steps: the first step's learning rate
+    is 0, so both runs take one update from the same weights, lr/2 times
+    m/(s + eps), m and s AdamW's bias-corrected first moment and root
+    second moment (s from ``want``'s ``nu``). Where every gradient AdamW
+    took in a leaf lies within G (``gap``, that leaf's measured largest
+    over both steps) of the reference's, m and s each move by at most G,
+    and |m| <= 1.0004 s (AdamW's b1 0.9 and b2 0.95 over two steps), so
+    the update moves by at most 2.0004 G / (s - G), and by 2.0008 at most.
+    Each element must lie within STEP_ABS (float32 rounding) plus lr/2
+    times that (2.001). Returns (ok, the largest gap over its bound, by
+    leaf with elements beyond STEP_ABS (the 8 with most): their count, the
+    leaf's size, G over the leaf's largest s, the largest s among them over
+    the leaf's largest, their largest gap / lr, their largest gap over its
+    bound)."""
+    lr2 = TRAIN_CHECK_RUN["lr"] / 2
+    worst, leaves = 0.0, {}
+    for k, w in want.items():
+        s = torch.sqrt(nu[k].to(dev) / (1 - ADAM_B2 ** 2))
+        d = (got[k].to(dev) - w.to(dev)).abs()
+        room = torch.where(s > gap[k], gap[k] / (s - gap[k]), torch.ones_like(s)).clamp_max(1.0)
+        use = d / (STEP_ABS + lr2 * 2.001 * room)
+        worst = max(worst, float(use.max()))
+        over = d > STEP_ABS
+        if bool(over.any()):
+            leaves[k] = {"over": int(over.sum()), "of": d.numel(),
+                         "gap_over_s": gap[k] / float(s.max()),
+                         "s_over_max": float(s[over].max() / s.max()),
+                         "worst_over_lr": float(d.max()) / TRAIN_CHECK_RUN["lr"],
+                         "over_bound": float(use[over].max())}
+        del s, d, room, use, over
+    leaves = dict(sorted(leaves.items(), key=lambda kv: -kv[1]["over"])[:8])
+    return worst <= 1.0, worst, leaves
 
 
 def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
@@ -3951,7 +4201,8 @@ def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
         tokens = run["batch"] * run["seq"]
         print(f"[train-world] {card}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}, "
               f"{stats['n_params'] / 1e9:.3f} B params) trained on mesh (data, model) = {shape}, "
-              f"{mesh.world} ranks ({mesh.backend}), ZeRO over data, experts over model: batch "
+              f"{mesh.world} ranks ({mesh.backend}), ZeRO over data, TP and experts over model: "
+              f"batch "
               f"{run['batch']} x {run['seq']}, {run['steps']} steps: losses {stats['losses']}; "
               f"step ms (CUDA events, rank 0) median {statistics.median(timed):.1f} (min "
               f"{min(timed):.1f}, max {max(timed):.1f}; first step {stats['step_ms'][0]:.1f}); "
@@ -4254,7 +4505,8 @@ def main() -> int:
     table = phase_kernels(dev)
     table["masked_aggregate"].update(phase_edge_kernels(dev))
     table.update(phase_lm_kernels(dev))
-    table.update(phase_train_kernels(dev))
+    for name, row in phase_train_kernels(dev).items():  # beside [kernels]' tp_* keys
+        table[name] = {**row, **table[name]}
     phase_goldens(dev)
     launches = {k: v for k, v in phase_main_path(dev).items() if k in FL_KERNELS}
     phase_loop(dev, card)

@@ -12,19 +12,19 @@ tensor-parallel blocks, for training its ZeRO blocks) and its shard of the
 cache. Without a mesh every hook is a no-op, as in JAX.
 
 The JAX package runs one SPMD program over global arrays; the port runs one
-process a rank of a ``launch.mesh.RankMesh``. A served model
-(``tensor_parallel()``: a ``model`` axis over 1 and no ``zero``) holds this
-rank's ``launch.sharding.model_block`` of each non-expert leaf and the
-``model`` shard of each expert leaf's E axis
-(``launch.sharding.expert_block``); its layers compute their share of
-each product and sum the row products' float32 partials over ``model``
-(``launch/tp.py``), and its caches hold the rank's kv heads and d_inner
-block. A model built for training (``zero=True``) holds instead its ZeRO
-block of each leaf (``launch/zero.py``: split over ``dp_axes()``, the data
-axes this context names, where ``launch.sharding.param_spec`` gives the
-leaf a data entry, gathered at use), and every leaf whole over ``model``
-but the experts: tensor parallelism's collectives have no backward yet
-(ROADMAP.md queue 1 item 5). Beyond the rounding of the row products'
+process a rank of a ``launch.mesh.RankMesh``. A model built on a ``model``
+axis over 1 (``tensor_parallel()``) holds this rank's
+``launch.sharding.model_block`` of each non-expert leaf and the ``model``
+shard of each expert leaf's E axis (``launch.sharding.expert_block``); its
+layers compute their share of each product and sum the row products'
+float32 partials over ``model`` (``launch/tp.py``), and a served model's
+caches hold the rank's kv heads and d_inner block. A model built for
+training (``zero=True``) holds, of that block, its ZeRO block
+(``launch/zero.py``: split over ``dp_axes()``, the data axes this context
+names, where ``launch.sharding.param_spec`` gives the leaf a data entry,
+gathered at use); its ``model`` ranks compute the same objective on the
+same rows, and TP's collectives carry the backward (``launch/tp.py``).
+Beyond the rounding of the row products'
 sums, only the MoE changes values under a mesh: JAX's ``moe_apply_ep``
 splits its tokens over the data axes where they divide the batch (``B %
 n_dp == 0``), and each data shard then routes its own tokens and counts
@@ -109,12 +109,11 @@ def n_model() -> int:
     return 1 if _MESH is None else _MESH.shape["model"]
 
 
-def tensor_parallel(zero: bool = False) -> bool:
+def tensor_parallel() -> bool:
     """Whether a model built here (``init_params``, ``init_cache``) is
     tensor-parallel: under a mesh whose ``model`` axis is over 1, for
-    serving (``zero`` False; a model built for training keeps its leaves
-    whole over ``model``)."""
-    return not zero and n_model() > 1
+    serving and for training alike."""
+    return n_model() > 1
 
 
 def data_rows(cfg, batch: int) -> slice | None:

@@ -26,14 +26,18 @@ order. ``launch.context.mesh_context`` opens it for the model code: the
 expert-parallel MoE sums its partial outputs over the ``model`` group and
 the decoder's steps gather their logits over the data group.
 
-Training runs its collectives under autograd through three functions:
+Training runs its collectives under autograd through four functions:
 ``gather_blocks`` (an all-gather whose backward is a reduce-scatter: a
-ZeRO block of a leaf at use, ``launch/zero.py``), ``psum`` (an all-reduce
-whose backward is the identity: the expert-parallel MoE's partial outputs)
+ZeRO block of a leaf at use, ``launch/zero.py``), ``gather_slices`` (an
+all-gather whose backward keeps this rank's slice of the gradient: a
+tensor-parallel column split made whole, whose gradient every rank holds
+alike), ``psum`` (an all-reduce whose backward is the identity: the
+expert-parallel MoE's partial outputs, a row-split product's partials)
 and ``replicated`` (the identity whose backward is an all-reduce: the
 MoE's tokens and gates, of which each ``model`` rank uses its experts'
-share). A collective that fails raises; none falls back to a local
-result.
+share, and a tensor-parallel block's input). Under ``torch.no_grad``
+(serving) each is the plain collective, or nothing for ``replicated``. A
+collective that fails raises; none falls back to a local result.
 
 The JAX module's ``HW`` table holds TPU figures and is not carried over.
 """
@@ -51,8 +55,9 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["CohortMesh", "RankMesh", "data_axes", "gather_blocks", "make_cohort_mesh",
-           "make_production_mesh", "make_rank_mesh", "psum", "rank_device", "replicated"]
+__all__ = ["CohortMesh", "RankMesh", "data_axes", "gather_blocks", "gather_slices",
+           "make_cohort_mesh", "make_production_mesh", "make_rank_mesh", "psum", "rank_device",
+           "replicated"]
 
 
 class CohortMesh:
@@ -227,6 +232,18 @@ class _GatherBlocks(torch.autograd.Function):
         return fctx.mesh.reduce_scatter(g, fctx.axes, fctx.dim), None, None, None
 
 
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes, dim):
+        fctx.mesh, fctx.axes, fctx.dim, fctx.size = mesh, axes, dim, t.shape[dim]
+        return mesh.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        i = fctx.mesh.index(fctx.axes)
+        return g.narrow(fctx.dim, i * fctx.size, fctx.size).contiguous(), None, None, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, mesh, axes):
@@ -255,6 +272,17 @@ def gather_blocks(mesh: RankMesh, t: torch.Tensor, axes, dim: int) -> torch.Tens
     if not torch.is_grad_enabled():  # serving: no autograd node
         return mesh.all_gather(t, axes, dim)
     return _GatherBlocks.apply(t, mesh, axes, dim)
+
+
+def gather_slices(mesh: RankMesh, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` along ``axes``, concatenated on ``dim`` (an
+    all-gather); its backward keeps this rank's slice of the gradient and
+    sums nothing: the gradient of a whole tensor that every rank along
+    ``axes`` then uses alike is the same on each, so a reduce-scatter
+    (``gather_blocks``' backward) would multiply it by their number."""
+    if not torch.is_grad_enabled():
+        return mesh.all_gather(t, axes, dim)
+    return _GatherSlices.apply(t, mesh, axes, dim)
 
 
 def psum(mesh: RankMesh, t: torch.Tensor, axes) -> torch.Tensor:

@@ -25,7 +25,7 @@ tokens over 1,500 frames) after a warm-up step, with its host wall time;
 ``profile_train_step(..., mesh=)`` traces it on every rank of a (data,
 model) mesh of ranks (``chip_smoke.py --train-world``), where the
 breakdown also sums the NCCL kernels (they run on their own stream, which
-the compute stream waits for).
+the compute stream waits for) and gives their share of the device span.
 ``--fl`` traces the ACSP-FL + DLD + int8 round on the UCI-HAR
 stand-in at har-mlp's full width (``chip_smoke.py``'s main path): one eager
 round, then one replay of a CUDA graph of ``--chunk`` rounds
@@ -57,7 +57,8 @@ def device_breakdown(prof, top: int = 8) -> dict:
     """Span, busy time, idle share and the top kernels of a profiled window
     (device kernels and copies; not the ranges the profiler records on the
     device for an annotation, such as NCCL's ``nccl:all_reduce``, which
-    would count a collective's kernel twice)."""
+    would count a collective's kernel twice); where NCCL kernels ran, their
+    ms and their share of the span."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
@@ -76,7 +77,8 @@ def device_breakdown(prof, top: int = 8) -> dict:
         "busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / max(end - start, 1e-9),
         "kernels": len(kernels),
-        **({"nccl_ms": sum(nccl) / 1e3} if nccl else {}),
+        **({"nccl_ms": sum(nccl) / 1e3, "nccl_share": sum(nccl) / max(end - start, 1e-9)}
+           if nccl else {}),
         "top": [{"name": name[:120], "count": n, "ms": us / 1e3} for name, (n, us) in ranked],
     }
 

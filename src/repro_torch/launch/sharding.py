@@ -30,15 +30,16 @@ leaf's E axis that the rank at ``model`` coordinate j of a ``RankMesh``
 holds: the ``model`` entry ``param_spec`` gives that axis, the only
 ``model`` entry of the production rules the port applies to weights.
 
+Tensor parallelism (``launch/tp.py``): ``model_block`` gives the dim of a
+decoder leaf that this rank splits over ``model`` and its block of it
+(Megatron's column/row pairs, which hold the bytes of ``param_spec``'s
+``model`` entries on other dims); port-side, like ``data_block``.
+
 ZeRO (``launch/zero.py``): ``data_block`` gives the dim of a leaf that
 ``param_spec`` splits over the data axes and the block of it this rank
-holds; parameters, gradients and both AdamW moments are held so.
-
-Tensor parallelism for serving (``launch/tp.py``): ``model_block`` gives
-the dim of a served decoder leaf that this rank splits over ``model`` and
-its block of it (Megatron's column/row pairs, which hold the bytes of
-``param_spec``'s ``model`` entries on other dims); port-side, like
-``data_block``.
+holds, within the rank's ``model_block`` where the leaf has one: the 2-D
+block of a model built for training, of which parameters, gradients and
+both AdamW moments are held.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import math
 from typing import Any
 
 __all__ = ["batch_spec", "cache_pspecs", "cache_spec", "data_block", "expert_block", "lane_block",
-           "lane_spec", "model_block", "param_spec", "tree_lane_pspecs", "tree_pspecs"]
+           "lane_spec", "model_block", "model_blocks", "param_spec", "tree_lane_pspecs",
+           "tree_pspecs"]
 
 
 def _map_with_path(fn, tree, path=()):
@@ -178,15 +180,22 @@ def expert_block(n_experts: int, mesh) -> slice | None:
     return slice(j * size, (j + 1) * size)
 
 
-def data_block(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple[int, slice] | None:
-    """The dim of a parameter leaf of ``shape`` that ``param_spec`` splits
-    over the data axes ``dp_axes`` (ZeRO: the first non-layer dim of a
-    generic leaf, d_in of an expert leaf, the Mamba rules' data entries),
-    and the block of it that this rank of ``mesh`` holds (``[i*n/D,
-    (i+1)*n/D)`` at index i over the data axes); None where the leaf stays
-    whole (no data entry, a dim the data axes do not divide, or one data
-    rank). ``param_spec``'s ``model`` entries are not read: only an expert
-    leaf's E axis is split over ``model`` (``expert_block``)."""
+def data_block(path: str, shape: tuple[int, ...], mesh, dp_axes,
+               model: tuple[int, tuple[slice, ...]] | None = None) -> tuple[int, slice] | None:
+    """The dim of a parameter leaf of ``shape`` (the whole leaf's) that
+    ``param_spec`` splits over the data axes ``dp_axes`` (ZeRO: the first
+    non-layer dim of a generic leaf, d_in of an expert leaf, the Mamba
+    rules' data entries), and the block of it that this rank of ``mesh``
+    holds of the rank's ``model`` block (``model_block``'s; None: the
+    whole leaf): ``[i*n/D, (i+1)*n/D)`` at index i over the data axes of
+    the n elements the model block keeps on that dim, which are the whole
+    dim where the model block lies on another (an expert leaf's E axis,
+    ``wq``'s columns). Where both name one dim (the row pairs ``wo`` and
+    ``wd``, whose ``model`` block ``param_spec`` would put on their output
+    dim) the data block is cut within the model block, so the all-gather
+    over the data axes rebuilds the model block and nothing else. None
+    where the leaf stays whole over the data axes: no data entry, a dim
+    (or model block) the data axes do not divide, or one data rank."""
     n = _axis_size(mesh, dp_axes)
     if n == 1:
         return None
@@ -194,7 +203,12 @@ def data_block(path: str, shape: tuple[int, ...], mesh, dp_axes) -> tuple[int, s
     dims = [d for d, s in enumerate(param_spec(path, shape, mesh, dp_axes)) if s == dp]
     if not dims:
         return None
-    dim, size = dims[0], shape[dims[0]] // n
+    dim = dims[0]
+    size = shape[dim] if model is None or model[0] != dim else sum(
+        s.stop - s.start for s in model[1])
+    if size % n:
+        return None
+    size //= n
     i = mesh.index(dp_axes)
     return dim, slice(i * size, (i + 1) * size)
 
@@ -210,9 +224,29 @@ def _block(dim: int, n: int, j: int, size: int, unit: int = 1) -> tuple[int, tup
     return dim, (slice(j * per, (j + 1) * per),)
 
 
-def model_block(path: str, shape: tuple[int, ...], mesh,
-                cfg) -> tuple[int, tuple[slice, ...]] | None:
-    """The dim of a served decoder leaf of ``cfg`` (``path`` as the port's
+class _AtModel:
+    """``mesh``'s shape with its ``model`` coordinate set to ``j``: what
+    ``model_block`` reads of another rank."""
+
+    def __init__(self, mesh, j: int):
+        self.shape = mesh.shape
+        self.coords = dict(mesh.coords, model=j)
+
+
+def model_blocks(path: str, shape: tuple[int, ...], mesh, cfg,
+                 train: bool = False) -> tuple | None:
+    """Every ``model`` rank's ``model_block`` of the leaf, in rank order
+    (None where the leaf stays whole over ``model``): where each lies in
+    the whole leaf, to put gathered blocks back (``zero.whole``)."""
+    if model_block(path, shape, mesh, cfg, train) is None:
+        return None
+    return tuple(model_block(path, shape, _AtModel(mesh, j), cfg, train)
+                 for j in range(mesh.shape["model"]))
+
+
+def model_block(path: str, shape: tuple[int, ...], mesh, cfg,
+                train: bool = False) -> tuple[int, tuple[slice, ...]] | None:
+    """The dim of a decoder leaf of ``cfg`` (``path`` as the port's
     ``DecoderLM`` names it, one block a layer: ``embed``,
     ``blocks/3/mixer/wq``, ``blocks/1/moe/shared/wd``, ...; ``shape`` the
     whole leaf's) that this rank of ``mesh`` splits over ``model`` (n ranks,
@@ -228,9 +262,12 @@ def model_block(path: str, shape: tuple[int, ...], mesh,
 
     - GQA: ``wq`` the columns of the rank's H/n q heads, ``wk``/``wv`` those
       of the kv heads they read (where ``Hkv < n``, the one kv head its q
-      heads share, which JAX splits n ways), ``wo`` the rows of its heads;
-      the whole attention where n does not divide H, or where the rank's
-      heads and a kv group straddle (neither divides the other).
+      heads share, which JAX splits n ways; in a model built for training,
+      ``train``, ``wk`` and ``wv`` whole instead: each rank projects every
+      kv head and keeps its own, whose gradient then sums every rank's
+      share, ``tp.kv_rows``), ``wo`` the rows of its heads; the whole
+      attention where n does not divide H, or where the rank's heads and
+      a kv group straddle (neither divides the other).
     - MLA: ``wq``, ``wuk``, ``wuv`` the rank's heads' columns, ``wo`` their
       rows; ``wdkv`` and ``wkr`` whole (its compressed cache ``c_kv`` and
       ``k_rope`` too: a sequence split needs an lse merge).
@@ -243,8 +280,10 @@ def model_block(path: str, shape: tuple[int, ...], mesh,
     - ``embed`` (V, d) and ``vision_proj`` (d, d) d columns; ``head`` (d, V)
       V columns.
     - Whole: the 1-D norms of width d, the float32 ``router`` (JAX splits
-      all three over ``model``), and the expert leaves, whose E axis
-      ``expert_block`` splits.
+      all three over ``model``), MLA's ``wdkv`` and ``wkr``, a shared kv
+      head's ``wk`` and ``wv`` in training, and the expert leaves, whose E
+      axis ``expert_block`` splits. Whisper's leaves are all whole (its H =
+      6 heads divide no ``model`` axis of 4; ``launch/zero.py``).
 
     The caches follow (``launch/tp.py``): a GQA cache holds the rank's kv
     heads (JAX's ``cache_spec`` splits its sequence over ``model``, the
@@ -283,6 +322,8 @@ def model_block(path: str, shape: tuple[int, ...], mesh,
             return None
         if leaf in ("wq", "wo"):
             return _block(0 if leaf == "wo" else 1, n, j, h, hd)
+        if train and hkv < n:  # a kv head shared by ranks: whole
+            return None
         q0, q1 = j * (h // n), (j + 1) * (h // n)
         return 1, (slice(q0 // g * hd, ((q1 - 1) // g + 1) * hd),)
     if leaf in ("wg", "wu", "wd") and len(shape) == 2:

@@ -1,13 +1,15 @@
-"""Tensor parallelism over the ``model`` axis of a ``launch.mesh.RankMesh``,
-for serving — port-only. The JAX package gets it from ``jax.jit`` under
+"""Tensor parallelism over the ``model`` axis of a ``launch.mesh.RankMesh``
+— port-only. The JAX package gets it from ``jax.jit`` under
 ``param_spec``'s ``model`` entries: a layout, whose collectives XLA picks.
 
-A decoder served under ``launch.context.mesh_context`` on a mesh whose
+A decoder built under ``launch.context.mesh_context`` on a mesh whose
 ``model`` axis has n > 1 ranks (``context.tensor_parallel()``) holds each
 leaf as ``hold`` cuts it: this rank's ``sharding.model_block``, or the
-whole leaf where that rule keeps it whole. Its layers read from a leaf's
-shape whether they hold a block (``split``) and then compute Megatron's
-pairs: a column-split product (``x @ w``, local: the rank's heads, d_ff
+whole leaf where that rule keeps it whole (a model built for training,
+``zero=True``, holds that block's ZeRO block over the data axes,
+``launch/zero.py``). Its layers read from a leaf's shape whether they
+hold a block (``split``) and then compute Megatron's pairs: a
+column-split product (``enter(x) @ w``, local: the rank's heads, d_ff
 columns or d_inner channels), then a row-split one whose float32 partial
 (``partial``) one all-reduce over ``model`` sums before a single cast
 (``row``, ``reduce``). A layer whose leaves are whole runs as without a
@@ -15,9 +17,28 @@ mesh, so a (1, 1) mesh is bitwise the run without one. The embedding,
 ``vision_proj`` and the head split their output columns and all-gather
 them (``gather``): exact.
 
-Every collective here raises ``NotImplementedError`` under autograd: they
-have no backward yet (ROADMAP.md queue 1 item 5). A model built for
-training (``zero=True``) keeps its leaves whole over ``model``.
+Under autograd (training) the ``model`` ranks of one data shard hold the
+same rows and compute the same objective, so no gradient is summed over
+``model``; three collectives carry the backward:
+
+  row, reduce   forward: all-reduce of the float32 partials
+                (``mesh.psum``); backward: the identity
+  enter         forward: the identity (``mesh.replicated``); backward: the
+                all-reduce of the rank's partial input gradient, for a
+                tensor every ``model`` rank holds alike that enters a
+                rank's block (a norm's output into ``wq``/``wk``/``wv``,
+                ``wg``/``wu`` or ``in_proj``, the residual into the head,
+                Mamba's dt, B and C out of the ``x_proj`` sum, MLA's
+                latent ``c_kv``/``k_rope``, a shared kv head's k and v)
+  gather        forward: all-gather (``mesh.gather_slices``); backward:
+                this rank's slice of the gradient, which every rank holds
+                alike (a reduce-scatter would multiply it by n)
+
+A leaf whole over ``model`` then gets the same gradient on every ``model``
+rank, bit for bit, since every all-reduce hands all ranks the same bits.
+Under ``torch.no_grad`` (serving) ``enter`` is nothing and the all-reduce
+runs in place: a served step launches one collective a row product and
+one a gather, none for ``enter``.
 """
 
 from __future__ import annotations
@@ -26,11 +47,11 @@ import torch
 from torch import nn
 
 from repro_torch.launch import context as ctx
+from repro_torch.launch.mesh import gather_slices, psum, replicated
 from repro_torch.launch.sharding import model_block
 
-__all__ = ["cut", "d_inner", "gather", "hold", "kv_heads", "partial", "reduce", "row", "split"]
-
-_TODO = "ROADMAP.md queue 1 item 5"
+__all__ = ["cut", "d_inner", "enter", "gather", "hold", "kv_heads", "kv_rows", "partial", "reduce",
+           "row", "split"]
 
 
 def cut(t: torch.Tensor, block) -> torch.Tensor:
@@ -64,11 +85,28 @@ def _mesh():
     mesh = ctx.get_mesh()
     if mesh is None:
         raise RuntimeError("a tensor-parallel block of a model runs outside a mesh_context")
-    if torch.is_grad_enabled():
-        raise NotImplementedError(f"training a tensor-parallel model: its collectives have no "
-                                  f"backward yet ({_TODO}); build it with zero=True to train "
-                                  f"under a mesh")
     return mesh
+
+
+class _Partial(torch.autograd.Function):
+    """``x2 @ w`` with a float32 output for a bf16 ``x2`` and ``w``; its
+    backward takes the gradient in their dtype (exact: it comes from the
+    cast of the summed product back to it) and computes both products
+    there, as the backward of the unsplit bf16 product does."""
+
+    @staticmethod
+    def forward(fctx, x2, w):
+        fctx.save_for_backward(x2, w)
+        if x2.is_cuda:
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(fctx, g):
+        x2, w = fctx.saved_tensors
+        g = g.to(x2.dtype)
+        return (g @ w.t() if fctx.needs_input_grad[0] else None,
+                x2.t() @ g if fctx.needs_input_grad[1] else None)
 
 
 def partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -78,19 +116,22 @@ def partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rounded to bf16 before the sum over ranks."""
     _mesh()
     x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        out = x2 @ w
-    elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
+    out = x2 @ w if x.dtype == torch.float32 else _Partial.apply(x2, w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def reduce(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (a float32 partial) summed over the ``model`` ranks, in place
-    (one all-reduce)."""
-    return _mesh().all_reduce(t, "model")
+    """``t`` (a float32 partial) summed over the ``model`` ranks (one
+    all-reduce, in place under ``torch.no_grad``); its backward is the
+    identity."""
+    return psum(_mesh(), t, "model")
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """``x``, which every ``model`` rank holds alike, as it enters this
+    rank's block: the identity, whose backward sums the ranks' partial
+    gradients of ``x`` (one all-reduce; nothing under ``torch.no_grad``)."""
+    return replicated(_mesh(), x, "model")
 
 
 def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -101,8 +142,9 @@ def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gather(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Every ``model`` rank's block of ``t``'s ``dim``, concatenated in rank
-    order (one all-gather): a column-split product made whole."""
-    return _mesh().all_gather(t, "model", dim % t.ndim)
+    order (one all-gather): a column-split product made whole; its
+    backward keeps this rank's block of the gradient."""
+    return gather_slices(_mesh(), t, "model", dim % t.ndim)
 
 
 def _held(cfg, path: str, shape: tuple[int, ...], unit: int) -> int:
@@ -113,6 +155,17 @@ def _held(cfg, path: str, shape: tuple[int, ...], unit: int) -> int:
     if block is None:
         return shape[1] // unit
     return sum(s.stop - s.start for s in block[1]) // unit
+
+
+def kv_rows(cfg) -> slice:
+    """The kv heads that this rank's q heads read, of a GQA layer whose
+    ``wq`` holds a block of the heads and whose ``wk`` and ``wv`` are held
+    whole (a kv head shared by ranks in a model built for training,
+    ``sharding.model_block``'s ``train``), as a slice of the heads."""
+    mesh = _mesh()
+    h, hkv, n = cfg.n_heads, cfg.n_kv_heads, mesh.shape["model"]
+    g, q0 = h // hkv, mesh.coords["model"] * (h // n)
+    return slice(q0 // g, (q0 + h // n - 1) // g + 1)
 
 
 def kv_heads(cfg) -> int:

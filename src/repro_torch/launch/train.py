@@ -6,7 +6,7 @@ one process or over a (data, model) mesh of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b --layers 8 \\
         --batch 4 --seq 2048 --steps 4
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
-        --arch granite-3-8b --mesh 4,1 --batch 8 --seq 2048 --steps 4
+        --arch granite-3-8b --mesh 2,2 --batch 8 --seq 2048 --steps 4
 
 The JAX package's CLI (``repro.launch.train``) with its flags and defaults:
 the arch's config (``--reduced`` for the smoke-test variant; ``--layers N``
@@ -27,12 +27,16 @@ the card), and the peak device memory.
 model ranks, one process a rank, started by ``torchrun --nproc-per-node
 D*M`` (one card and one NCCL rank each; gloo with ``--device cpu``), as the
 JAX package's full configs train under its production mesh
-(``launch/dryrun.py``): each rank holds its ZeRO blocks of the parameters
-and AdamW moments and its experts (``launch/zero.py``), draws the same
-global batch, runs its data shard of it and returns the global loss. Each
+(``launch/dryrun.py``): each rank holds its 2-D blocks of the parameters
+and AdamW moments (on M > 1 a decoder's tensor-parallel blocks,
+``launch/tp.py``, and of those the ZeRO blocks over the D data ranks) and
+its experts (``launch/zero.py``), draws the same global batch, runs its
+data shard of it and returns the global loss; whisper's leaves stay whole
+over ``model``. Each
 rank prints one JSON line: its losses, step ms (CUDA events), tok/s over
-the global batch and its own peak bytes. ``--ckpt`` gathers whole leaves and
-rank 0 alone saves them: the file an unsharded run would write.
+the global batch and its own peak bytes. ``--ckpt`` gathers whole leaves
+(``zero.whole``: the model blocks put back in place) and rank 0 alone saves
+them: the file an unsharded run would write.
 """
 
 from __future__ import annotations

@@ -5,21 +5,29 @@ JAX package gets this layout from ``jax.jit``'s ``in_shardings``: its
 
 A model built for training under ``launch.context.mesh_context``
 (``models.transformer.init_params(..., zero=True)``,
-``weights.lm_params_from_numpy(..., mesh=, zero=True)``) holds each
-parameter leaf as this rank's block: split on the dim
-``sharding.data_block`` names over the context's data axes
-(``context.dp_axes``, the one place they are decided), and for an expert
-leaf holding only this rank's experts (``sharding.expert_block``). The
-optimizer maps the parameter tree, so the gradients and both AdamW moments
-are the same blocks. A served model keeps every non-expert leaf whole (no
-``zero``): it has no gradients or moments to split, and its steps then
-gather nothing. A block is an ``nn.Parameter`` that carries
+``weights.lm_params_from_numpy(..., mesh=, zero=True)``,
+``models.whisper.init_whisper(..., zero=True)``) holds each parameter leaf
+as this rank's 2-D block: on a ``model`` axis over 1 its tensor-parallel
+``sharding.model_block`` (``launch/tp.py``; whisper's leaves stay whole
+over ``model``), and of that the block of the dim ``sharding.data_block``
+names over the context's data axes (``context.dp_axes``, the one place
+they are decided), cut within the model block where both name one dim; an
+expert leaf holds only this rank's experts (``sharding.expert_block``).
+So a rank holds 1 / (n_dp n_mp) of every leaf that ``param_spec`` splits
+over both, but for the leaves ``model_block`` keeps whole over ``model``.
+The optimizer maps the parameter tree, so the gradients and both AdamW
+moments are the same blocks. A served model keeps its leaves whole over
+the data axes (no ``zero``): it has no gradients or moments to split, and
+its steps then gather nothing. A block is an ``nn.Parameter`` that carries
 
-  zero_dim    the dim split over the data axes (None: whole over them)
-  zero_axes   those data axes
-  split_axes  every mesh axis the block is split over, in the mesh's
-              order (``model`` for an expert leaf whose experts are split)
-  full_shape  the whole leaf's shape
+  zero_dim      the dim split over the data axes (None: whole over them)
+  zero_axes     those data axes
+  split_axes    every mesh axis the block is split over, in the mesh's
+                order (``model`` for a model block or an expert leaf whose
+                experts are split)
+  full_shape    the whole leaf's shape
+  model_blocks  every ``model`` rank's ``sharding.model_block``, in rank
+                order (None: no model block)
 
 and a ``models.transformer.ParamTree`` holding one is marked
 ``zero_split`` when it is built. ``gathered(tree)`` gives such a tree's
@@ -30,7 +38,8 @@ checkpointed block, so the whole weights are gathered again in the
 backward rather than held for it. A leaf that stays whole over the data
 axes gets its gradient summed over the data ranks after the backward
 (``reduce_grads``: one all-reduce a dtype). ``whole`` gathers a leaf over
-every axis it is split over (checkpoints).
+every axis it is split over and puts the model blocks back in place
+(checkpoints).
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ from torch import nn
 
 from repro_torch.launch import context as ctx
 from repro_torch.launch.mesh import gather_blocks
-from repro_torch.launch.sharding import data_block
+from repro_torch.launch.sharding import data_block, model_blocks
+from repro_torch.launch.tp import cut
 from repro_torch.optim import SplitTree
 
 __all__ = ["EXPERT_LEAVES", "full", "gathered", "reduce_grads", "shard", "split_axes", "whole"]
@@ -59,10 +69,10 @@ def _full_shape(path: str, t: torch.Tensor, n_experts: int) -> tuple[int, ...]:
 def shard(tree, path: str, cfg):
     """``tree`` (a leaf, or nested dicts of leaves), the leaves at ``path``
     of a model of ``cfg``, as parameters holding this rank's blocks under
-    the open ``mesh_context`` (every leaf whole over its data axes but for
-    its ``data_block``; an expert leaf as given, whole or this rank's
-    experts), tagged as the module docstring says. A block is a copy, so
-    the whole leaf can be freed at once."""
+    the open ``mesh_context`` (its ``model_block`` where the ``model`` axis
+    is over 1, and of that its ``data_block``; an expert leaf as given,
+    whole or this rank's experts), tagged as the module docstring says. A
+    block is a copy, so the whole leaf can be freed at once."""
     mesh = ctx.get_mesh()
     if mesh is None:
         raise RuntimeError("ZeRO blocks of a parameter are made outside a mesh_context")
@@ -73,16 +83,21 @@ def _shard(tree, path, cfg, mesh, dp_axes):
     if isinstance(tree, dict):
         return {k: _shard(v, f"{path}/{k}", cfg, mesh, dp_axes) for k, v in tree.items()}
     full_shape = _full_shape(path, tree, cfg.n_experts)
-    block = data_block(path, full_shape, mesh, dp_axes)
-    t = tree if block is None else tree.narrow(block[0], block[1].start,
-                                               block[1].stop - block[1].start).clone()
+    tp_split = ctx.tensor_parallel() and not cfg.encoder_decoder
+    blocks = model_blocks(path, full_shape, mesh, cfg, train=True) if tp_split else None
+    mine = None if blocks is None else blocks[mesh.coords["model"]]
+    t = tree if mine is None else cut(tree, mine)
+    block = data_block(path, full_shape, mesh, dp_axes, mine)
+    if block is not None:
+        t = t.narrow(block[0], block[1].start, block[1].stop - block[1].start).clone()
     p = nn.Parameter(t, requires_grad=False)
-    experts_split = full_shape[0] != tree.shape[0]
+    model_split = mine is not None or full_shape[0] != tree.shape[0]
     p.zero_dim = None if block is None else block[0]
     p.zero_axes = tuple(dp_axes)
-    p.split_axes = tuple(a for a in mesh.shape if (a == "model" and experts_split)
+    p.split_axes = tuple(a for a in mesh.shape if (a == "model" and model_split)
                          or (block is not None and a in dp_axes))
     p.full_shape = full_shape
+    p.model_blocks = blocks
     return p
 
 
@@ -139,11 +154,22 @@ def reduce_grads(grads: dict, params: dict, mesh) -> SplitTree:
 def whole(p: torch.Tensor, mesh, block: torch.Tensor | None = None) -> torch.Tensor:
     """The whole leaf of which ``block`` (default ``p``; a gradient or a
     moment of ``p``) is this rank's block in ``p``'s layout: gathered over
-    the data axes and, for an expert leaf split over ``model``, over it
-    (collectives every rank of the mesh must join)."""
+    the data axes and, for a leaf split over ``model``, over it: an expert
+    leaf's experts concatenated, a model block put back where each rank's
+    lies in the whole leaf (several slices of a dim, for Mamba's
+    ``in_proj``) (collectives every rank of the mesh must join)."""
     t = (p if block is None else block).detach()
     if getattr(p, "zero_dim", None) is not None:
         t = mesh.all_gather(t, p.zero_axes, p.zero_dim)
-    if "model" in split_axes(p):
-        t = mesh.all_gather(t, "model", 0)
-    return t
+    if "model" not in split_axes(p):
+        return t
+    blocks = getattr(p, "model_blocks", None)
+    if blocks is None:  # an expert leaf: the experts in rank order
+        return mesh.all_gather(t, "model", 0)
+    every = mesh.all_gather(t[None], "model", 0)
+    out = t.new_empty(p.full_shape)
+    for got, (dim, slices) in zip(every, blocks):
+        sizes = [s.stop - s.start for s in slices]
+        for part, s in zip(got.split(sizes, dim=dim), slices):
+            out.narrow(dim, s.start, s.stop - s.start).copy_(part)
+    return out

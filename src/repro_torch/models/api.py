@@ -40,17 +40,11 @@ class ModelBundle:
     init_cache: Callable  # (batch, seq, window, device) -> cache
 
 
-def _whisper_init(gen: torch.Generator, cfg: ModelConfig, zero: bool):
-    if zero:
-        raise NotImplementedError("whisper's ZeRO blocks under a mesh: ROADMAP.md queue 1 item 5")
-    return W.init_whisper(gen, cfg)
-
-
 def get_model(cfg: ModelConfig) -> ModelBundle:
     if cfg.encoder_decoder:
         return ModelBundle(
             cfg=cfg,
-            init=lambda gen, zero=False: _whisper_init(gen, cfg, zero),
+            init=lambda gen, zero=False: W.init_whisper(gen, cfg, zero=zero),
             loss_fn=lambda p, batch, window=0: W.whisper_loss(p, cfg, batch, window),
             make_train_step=lambda opt, window=0: W.make_train_step(cfg, opt, window),
             make_prefill_step=lambda window=0: W.make_prefill_step(cfg, window),

@@ -32,13 +32,14 @@ capacity counted over the whole call. Under ``launch.context.mesh_context``
 the MoE is expert-parallel (``moe_apply_ep``: this rank's experts on this
 rank's tokens, the partial outputs summed over the mesh's ``model``
 group); it serves and trains (its collectives' backwards are
-``launch/mesh.py``'s). A served model on a mesh whose ``model`` axis is over
-1 is tensor-parallel (``launch/tp.py``): a layer whose leaves hold the
-rank's ``launch.sharding.model_block`` (read from their shapes) runs its
-heads, d_ff columns or d_inner channels, and sums its row product's
-float32 partial over ``model`` (under the expert-parallel MoE, the shared
-experts' partial joins the experts' in their one all-reduce); a layer of
-whole leaves runs as without a mesh.
+``launch/mesh.py``'s). A model on a mesh whose ``model`` axis is over 1 is
+tensor-parallel (``launch/tp.py``), for serving and training alike: a
+layer whose leaves hold the rank's ``launch.sharding.model_block`` (read
+from their shapes) runs its heads, d_ff columns or d_inner channels on
+its input as it enters the block (``tp.enter``), and sums its row
+product's float32 partial over ``model`` (under the expert-parallel MoE,
+the shared experts' partial joins the experts' in their one all-reduce);
+a layer of whole leaves runs as without a mesh.
 """
 
 from __future__ import annotations
@@ -217,15 +218,26 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     the rank's q heads and the kv heads they read, through
     ``flash_attention`` at prefill and ``decode_attention`` at decode, the
     cache holding those kv heads, then the row product by ``wo``'s rows,
-    summed over ``model``."""
+    summed over ``model``. Where ``wk`` and ``wv`` are whole beside a
+    block of ``wq`` (a kv head shared by ranks, in training), every kv
+    head is projected from ``x`` and the rank's own enters its block
+    (``tp.kv_rows``): its gradient then sums every rank's share."""
     if mode not in _MODES:
         raise ValueError(f"gqa_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
     dh = cfg.head_dim_
-    h, hkv = p["wq"].shape[1] // dh, p["wk"].shape[1] // dh  # the rank's heads
-    q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (x @ p["wk"]).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
+    split = tp.split(p["wq"], 1, cfg.n_heads * dh)
+    xe = tp.enter(x) if split else x
+    h = p["wq"].shape[1] // dh  # the rank's heads
+    q = (xe @ p["wq"]).reshape(b, s, h, dh)
+    if split and not tp.split(p["wk"], 1, cfg.n_kv_heads * dh):
+        rows = tp.kv_rows(cfg)
+        k = tp.enter((x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh))[:, :, rows]
+        v = tp.enter((x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh))[:, :, rows]
+    else:
+        hkv = p["wk"].shape[1] // dh
+        k = (xe @ p["wk"]).reshape(b, s, hkv, dh)
+        v = (xe @ p["wv"]).reshape(b, s, hkv, dh)
     mrope = cfg.rope_variant == "mrope"
     if mode == "decode":
         pos = int(positions)
@@ -262,7 +274,7 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
         out = decode_attention(q, cache["k"], cache["v"], cache["kv_pos"], pos, window=window)
         new_cache = cache
     out = out.reshape(b, s, h * dh)
-    if tp.split(p["wq"], 1, cfg.n_heads * dh):
+    if split:
         return tp.row(out, p["wo"]), new_cache
     return out @ p["wo"], new_cache
 
@@ -318,17 +330,21 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     variable ``REPRO_MLA_DECODE`` picks, the JAX package's switch.
     Tensor-parallel (``wq`` holds a block of the heads): the rank's heads
     of ``wq``, ``wuk``, ``wuv`` and ``wo``'s rows, summed over ``model``;
-    ``wdkv``, ``wkr`` and the compressed cache whole on every rank."""
+    ``wdkv``, ``wkr`` and the compressed cache whole on every rank, the
+    latent ``c_kv`` and ``k_rope`` computed whole and entering the rank's
+    heads (``tp.enter``)."""
     if mode not in _MODES:
         raise ValueError(f"mla_attention mode {mode!r}: one of {_MODES}")
     b, s, _ = x.shape
     r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    split = tp.split(p["wq"], 1, cfg.n_heads * (nd + rd))
+    enter = tp.enter if split else (lambda t: t)
     h = p["wq"].shape[1] // (nd + rd)  # the rank's heads
 
-    q = (x @ p["wq"]).reshape(b, s, h, nd + rd)
+    q = (enter(x) @ p["wq"]).reshape(b, s, h, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
-    c_kv = x @ p["wdkv"]                           # (B, S, r)
-    k_rope = (x @ p["wkr"]).reshape(b, s, 1, rd)
+    c_kv = enter(x @ p["wdkv"])                    # (B, S, r)
+    k_rope = enter(x @ p["wkr"]).reshape(b, s, 1, rd)
     if mode == "decode":
         pos = int(positions)
         rope_pos = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -378,7 +394,7 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
             out = decode_attention(q_full, k_full, v, kv_pos, pos, window=window)
         new_cache = cache
     out = out.reshape(b, s, h * vd)
-    if tp.split(p["wq"], 1, cfg.n_heads * (nd + rd)):
+    if split:
         return tp.row(out, p["wo"]), new_cache
     return out @ p["wo"], new_cache
 
@@ -410,11 +426,11 @@ def init_swiglu(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None)
 
 def swiglu(p, x, d_ff: int | None = None):
     """The SwiGLU FFN; tensor-parallel where ``wd`` holds a block of the
-    ``d_ff`` rows (the rank's columns of ``wg``/``wu``, then the row
-    product summed over ``model``). Without ``d_ff`` the leaves are taken
-    whole."""
+    ``d_ff`` rows (``x`` entering the rank's columns of ``wg``/``wu``, then
+    the row product summed over ``model``). Without ``d_ff`` the leaves are
+    taken whole."""
     if d_ff is not None and tp.split(p["wd"], 0, d_ff):
-        return tp.reduce(swiglu_partial(p, x)).to(x.dtype)
+        return tp.reduce(swiglu_partial(p, tp.enter(x))).to(x.dtype)
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
@@ -589,9 +605,10 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     of each token and sums them in float32 (``moe_combine``), all-reduces
     the float32 (N, D) partial over ``model`` and casts it to x's dtype;
     the shared experts are added after, on the whole x, or, where they are
-    tensor-parallel, their float32 partial joins the experts' before the
-    all-reduce (one collective a layer). Returns (y, aux); aux is this
-    rank's (JAX returns one data shard's).
+    tensor-parallel, their float32 partial (of the tokens as they enter
+    the experts) joins the experts' before the all-reduce (one collective
+    a layer). Returns (y, aux); aux is this rank's (JAX returns one data
+    shard's).
 
     Under autograd it trains as JAX's shard_map does: the all-reduce's
     backward is the identity (``mesh.psum``), and the tokens and gates this
@@ -623,7 +640,7 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     y = moe_combine(expert_out, gd, rel, pos, keep, cap, acc_dtype=torch.float32)
     shared_tp = cfg.n_shared_experts and tp.split(p["shared"]["wd"], 0, shared_d_ff(cfg))
     if shared_tp:
-        y = y + swiglu_partial(p["shared"], xf)
+        y = y + swiglu_partial(p["shared"], xd)
     y = psum(mesh, y, "model").to(x.dtype)
     if cfg.n_shared_experts and not shared_tp:
         y = y + swiglu(p["shared"], xf)
@@ -685,7 +702,8 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     block, ``launch/tp.py``): the conv, the scan over the rank's channels
     and its rows of ``A`` and ``D``, and the decode update on them; ``x_proj``
     and ``out_proj`` are row products summed over ``model`` (dt, B and C
-    come whole out of the first)."""
+    come whole out of the first and enter the rank's channels: their
+    gradients are summed over ``model`` too)."""
     if mode not in _MODES:
         raise ValueError(f"mamba_block mode {mode!r}: one of {_MODES}")
     if mode != "decode" and cache is not None:
@@ -694,13 +712,13 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     split = tp.split(p["in_proj"], 1, 2 * cfg.d_inner)
     di = p["in_proj"].shape[1] // 2  # the rank's channels
 
-    u = x @ p["in_proj"]
+    u = (tp.enter(x) if split else x) @ p["in_proj"]
     xs, z = u[..., :di], u[..., di:]
     conv_state = cache["conv"] if cache is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = silu(xs)
 
-    xdb = tp.row(xs, p["x_proj"]) if split else xs @ p["x_proj"]
+    xdb = tp.enter(tp.row(xs, p["x_proj"])) if split else xs @ p["x_proj"]
     dt_raw, bmat, cmat = torch.split(xdb, [dtr, ds, ds], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"]).to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["A_log"])

@@ -46,17 +46,19 @@ every rank: each rank runs its data shard of the batch
 is expert-parallel, else the whole batch), the MoE layers are
 expert-parallel where the ``model`` axis divides the experts, and the
 (B_loc, V) logits are all-gathered over the data axes; the cache stays the
-rank's shard. ``init_params`` keeps the rank's experts and, for serving on
-a ``model`` axis over 1, the rank's tensor-parallel block of every other
-leaf (``launch/tp.py``: the layers compute their share and sum it over
+rank's shard. ``init_params`` keeps the rank's experts and, on a ``model``
+axis over 1, the rank's tensor-parallel block of every other leaf
+(``launch/tp.py``: the layers compute their share and sum it over
 ``model``; the embedding's d columns and the head's V columns are
 all-gathered, the head's at the last position only at prefill, and over
-``model`` before the data axes), or, for training (``zero=True``), the
-rank's ZeRO blocks of every leaf over the data axes (``launch/zero.py``),
+``model`` before the data axes), and for training (``zero=True``) of that
+block the rank's ZeRO block over the data axes (``launch/zero.py``),
 which ``apply_block`` and the embedding and head gather at use;
 ``init_cache`` sizes the rank's shard (its rows, kv heads and d_inner).
 The train step differentiates ``lm_objective``'s rank share of the global
-loss and updates the rank's blocks (``apply_train_step``).
+loss and updates the rank's blocks (``apply_train_step``): the ``model``
+ranks of a data shard compute the same share, and TP's collectives carry
+the backward without summing a gradient over ``model``.
 """
 
 from __future__ import annotations
@@ -273,9 +275,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> D
     bits. Under a mesh the draws are the same and each expert leaf keeps
     this rank's experts (``layers.init_moe``); on a ``model`` axis over 1
     (``context.tensor_parallel``) each other leaf is cut to this rank's
-    tensor-parallel block as soon as it is drawn (``launch/tp.hold``), or
-    with ``zero`` (training under a mesh) to this rank's ZeRO block
-    (``launch/zero.shard``); a block's leaves at a time are whole."""
+    tensor-parallel block as soon as it is drawn (``launch/tp.hold``), and
+    with ``zero`` (training under a mesh) to this rank's 2-D block, the
+    ZeRO block of that (``launch/zero.shard``); a block's leaves at a time
+    are whole."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     v, d = cfg.vocab_padded, cfg.d_model
@@ -320,7 +323,7 @@ def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     ``vision_embeds`` (B, nv, D) cast to the model's dtype, projected by
     ``vision_proj`` and prepended: (B, nv + S, D). A tensor-parallel
     ``embed`` or ``vision_proj`` holds d columns, all-gathered over
-    ``model``."""
+    ``model`` (the backward keeps the rank's columns of the gradient)."""
     x = Z.full(params.embed)[tokens.to(device=params.device, dtype=torch.int64)]
     if tp.split(params.embed, 1, cfg.d_model):
         x = tp.gather(x)
@@ -405,7 +408,7 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
     if tp.split(params.head, 1, cfg.vocab_padded):
         if mode == "prefill":  # the prefill step reads the last position only
             x = x[:, -1:]
-        logits = tp.gather((x @ params.head).to(torch.float32))
+        logits = tp.gather((tp.enter(x) @ Z.full(params.head)).to(torch.float32))
     else:
         logits = (x @ Z.full(params.head)).to(torch.float32)
     if mode == "train":
@@ -451,30 +454,38 @@ def _train_logits(params, cfg, batch, window, remat):
 def lm_objective(params: DecoderLM, cfg: ModelConfig, batch: dict, *, window: int = 0,
                  remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """(what this rank differentiates, the loss the step returns) on the
-    global ``batch``. Without a mesh both are ``lm_loss``, one tensor.
-
-    Under a mesh, the JAX package's sharded step (``jax.jit`` with the
-    batch over the data axes, as ``launch/dryrun.py`` lowers it). The rank
-    runs its rows (``context.data_rows``) and divides their masked NLL sum
-    by the count of unmasked labels in the global batch, which every rank
-    holds; the sum of these shares over the data ranks is the global NLL
-    mean. An expert-parallel MoE returns one aux a data shard (each routes
-    its own tokens), and JAX's gradient is that of the mean of the shards'
-    auxes, so each rank adds ``0.01 * aux / n_dp``. The loss JAX returns
-    (``out_shardings=P()``) is the global NLL mean plus 0.01 times data
-    shard 0's aux: one all-reduce over the data axes gives it to every
-    rank, detached. Where every rank runs the whole batch (``data_rows``
-    None), its share is the whole loss over ``n_dp``, since the data ranks'
-    gradients are summed."""
-    mesh = ctx.get_mesh()
-    if mesh is None:
+    global ``batch``. Without a mesh both are ``lm_loss``, one tensor;
+    under one, ``shard_objective``'s pair."""
+    if ctx.get_mesh() is None:
         loss = lm_loss(params, cfg, batch, window=window, remat=remat)
         return loss, loss
+    return shard_objective(cfg, batch, lambda b: _train_logits(params, cfg, b, window, remat))
+
+
+def shard_objective(cfg: ModelConfig, batch: dict, run) -> tuple[torch.Tensor, torch.Tensor]:
+    """(this rank's objective, the loss) of the JAX package's sharded step
+    (``jax.jit`` with the batch over the data axes, as ``launch/dryrun.py``
+    lowers it) on the global ``batch``, under the open mesh context;
+    ``run(rows)`` gives (logits, labels, aux) of a batch of rows.
+
+    The rank runs its rows (``context.data_rows``) and divides their masked
+    NLL sum by the count of unmasked labels in the global batch, which
+    every rank holds; the sum of these shares over the data ranks is the
+    global NLL mean. An expert-parallel MoE returns one aux a data shard
+    (each routes its own tokens), and JAX's gradient is that of the mean of
+    the shards' auxes, so each rank adds ``0.01 * aux / n_dp``. The loss
+    JAX returns (``out_shardings=P()``) is the global NLL mean plus 0.01
+    times data shard 0's aux: one all-reduce over the data axes gives it to
+    every rank, detached. Where every rank runs the whole batch
+    (``data_rows`` None), its share is the whole loss over ``n_dp``, since
+    the data ranks' gradients are summed. The ``model`` ranks of a data
+    shard compute the same share."""
+    mesh = ctx.get_mesh()
     n_dp = ctx.n_data()
     rows = ctx.data_rows(cfg, batch["tokens"].shape[0])
     count = torch.clamp_min(torch.sum((batch["labels"] >= 0).to(torch.float32)), 1.0)
     local = batch if rows is None else {k: v[rows] for k, v in batch.items()}
-    logits, labels, aux = _train_logits(params, cfg, local, window, remat)
+    logits, labels, aux = run(local)
     total, _ = nll_terms(logits, labels)
     nll = total / count.to(total.device)
     if rows is None:
@@ -511,30 +522,26 @@ def param_tree(model: nn.Module) -> dict[str, nn.Parameter]:
 
 
 def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
-    """One optimizer step of ``model`` in place: the gradient of
-    ``loss_of()`` with respect to every parameter (a parameter the loss does
-    not reach gets zeros, as JAX's grad gives), ``optimizer.update`` on the
-    ``param_tree`` and ``p + update`` rounded to p's dtype (the JAX
+    """One optimizer step of ``model`` in place: ``loss_of()`` returns
+    (what this rank differentiates, the loss), ``lm_objective``'s or
+    ``whisper.whisper_objective``'s pair (one tensor twice without a mesh);
+    the gradient of the first with respect to every parameter (a parameter
+    it does not reach gets zeros, as JAX's grad gives), ``optimizer.update``
+    on the ``param_tree`` and ``p + update`` rounded to p's dtype (the JAX
     ``apply_updates``). Returns (model, opt_state, loss as a device tensor);
     nothing is read back to the host.
 
     The optimizer runs in place where it offers to (``Optimizer.apply_``:
     the same arithmetic bit for bit, one copy of the moments and the
-    state's tensors overwritten). Under a mesh ``loss_of()`` returns (this
-    rank's objective, the loss), ``lm_objective``'s pair; the parameters are
-    this rank's blocks and their gradients come summed over the data ranks
+    state's tensors overwritten). Under a mesh the parameters are this
+    rank's blocks and their gradients come summed over the data ranks
     (``zero.reduce_grads``) as a ``SplitTree``."""
     tree = param_tree(model)
     mesh = ctx.get_mesh()
     for p in tree.values():
         p.requires_grad_(True)
     with torch.enable_grad():
-        out = loss_of()
-        if mesh is not None and not isinstance(out, tuple):
-            raise NotImplementedError("training under a mesh takes a loss of (rank objective, "
-                                      "loss), as lm_objective gives; this model has none "
-                                      "(ROADMAP.md queue 1 item 5)")
-        objective, loss = out if isinstance(out, tuple) else (out, out)
+        objective, loss = loss_of()
         grads = torch.autograd.grad(objective, list(tree.values()), allow_unused=True)
     grads = {name: torch.zeros_like(p) if g is None else g
              for (name, p), g in zip(tree.items(), grads)}

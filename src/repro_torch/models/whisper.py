@@ -33,6 +33,20 @@ frames), the decoder's self-attention through the causal one. As in the
 JAX package, nothing is checkpointed (its ``whisper_loss`` takes ``remat``
 and does not use it). ``whisper_loss`` and ``make_train_step`` are the JAX
 package's.
+
+Under a mesh of ranks (``launch.context.mesh_context``) a model built for
+training (``init_whisper(zero=True)``, ``weights.whisper_params_from_numpy(
+mesh=, zero=True)``) holds each leaf's ZeRO block over the data axes
+(``launch/zero.py``), gathered at use: each encoder and decoder layer's
+blocks as the layer starts (``zero.gathered``), the top-level leaves
+where they are read (``zero.full``). Nothing being checkpointed, a
+gathered layer lives until the backward, which reduce-scatters its
+gradient (a layer of whisper-tiny is a few MB). Its leaves
+stay whole over ``model`` (its H = 6 heads divide no ``model`` axis of 4;
+JAX's ``param_spec`` splits its 384-wide leaves over ``model``, a layout
+alone): its ``model`` ranks compute alike and nothing is summed over
+``model``. The train step differentiates ``whisper_objective``: the rank's
+rows (``context.data_rows``) by the rule of ``transformer.shard_objective``.
 """
 
 from __future__ import annotations
@@ -42,8 +56,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention
+from repro_torch.launch import context as ctx
+from repro_torch.launch import zero as Z
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import ParamTree, _param, apply_train_step, token_nll
+from repro_torch.models.transformer import (ParamTree, _param, apply_train_step, shard_objective,
+                                            token_nll)
 
 
 class WhisperModel(nn.Module):
@@ -86,26 +103,35 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "wo": L._normal(gen, (h * dh, d), 0.02, dt)}
 
 
-def init_whisper(gen: torch.Generator, cfg: ModelConfig) -> WhisperModel:
+def init_whisper(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> WhisperModel:
     """A model with random weights drawn from ``gen`` on its device: the
     JAX init's shapes, dtypes and scales (``enc_pos`` normal * 0.01, the
-    embedding and head * 0.02, norms 1), not its bits."""
+    embedding and head * 0.02, norms 1), not its bits. With ``zero``
+    (training under a mesh) the draws are the same and each leaf is cut to
+    this rank's ZeRO block as soon as its layer is drawn
+    (``launch/zero.shard``)."""
+    if zero and ctx.get_mesh() is None:
+        raise ValueError("init_whisper(zero=True) splits the leaves over the data axes of the "
+                         "open mesh_context, and none is open")
+    held = (lambda path, t: Z.shard(t, path, cfg)) if zero else (lambda path, t: t)
     dt = L.torch_dtype(cfg)
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=dt, device=gen.device)  # noqa: E731
-    encoder = [{"norm1": ones(), "attn": _init_attn(gen, cfg), "norm2": ones(),
-                "ffn": L.init_swiglu(gen, cfg)} for _ in range(cfg.n_encoder_layers)]
-    decoder = [{"norm1": ones(), "self_attn": L.init_gqa(gen, cfg), "norm_cross": ones(),
-                "cross_attn": _init_attn(gen, cfg), "norm2": ones(),
-                "ffn": L.init_swiglu(gen, cfg)} for _ in range(cfg.n_layers)]
+    encoder = [held(f"encoder/{i}", {"norm1": ones(), "attn": _init_attn(gen, cfg),
+                                     "norm2": ones(), "ffn": L.init_swiglu(gen, cfg)})
+               for i in range(cfg.n_encoder_layers)]
+    decoder = [held(f"decoder/{i}", {"norm1": ones(), "self_attn": L.init_gqa(gen, cfg),
+                                     "norm_cross": ones(), "cross_attn": _init_attn(gen, cfg),
+                                     "norm2": ones(), "ffn": L.init_swiglu(gen, cfg)})
+               for i in range(cfg.n_layers)]
     return WhisperModel(cfg, {
-        "enc_pos": L._normal(gen, (cfg.encoder_seq, d), 0.01, dt),
+        "enc_pos": held("enc_pos", L._normal(gen, (cfg.encoder_seq, d), 0.01, dt)),
         "encoder": encoder,
-        "enc_norm": ones(),
-        "embed": L._normal(gen, (cfg.vocab_padded, d), 0.02, dt),
+        "enc_norm": held("enc_norm", ones()),
+        "embed": held("embed", L._normal(gen, (cfg.vocab_padded, d), 0.02, dt)),
         "decoder": decoder,
-        "final_norm": ones(),
-        "head": L._normal(gen, (d, cfg.vocab_padded), 0.02, dt),
+        "final_norm": held("final_norm", ones()),
+        "head": held("head", L._normal(gen, (d, cfg.vocab_padded), 0.02, dt)),
     })
 
 
@@ -141,13 +167,14 @@ def encode(params: WhisperModel, cfg: ModelConfig, frames: torch.Tensor) -> torc
     mode does and the parameters need gradients (training); the prefill
     step runs it under ``torch.no_grad``."""
     t = frames.shape[1]
-    x = frames.to(device=params.device, dtype=params.embed.dtype) + params.enc_pos[:t]
+    x = frames.to(device=params.device, dtype=params.embed.dtype) + Z.full(params.enc_pos)[:t]
     for lyr in params.encoder:
+        lyr = Z.gathered(lyr)
         h = L.rms_norm(x, lyr["norm1"], cfg.norm_eps)
         x = x + _attn(lyr["attn"], h, h, cfg)
         h = L.rms_norm(x, lyr["norm2"], cfg.norm_eps)
         x = x + L.swiglu(lyr["ffn"], h)
-    return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+    return L.rms_norm(x, Z.full(params.enc_norm), cfg.norm_eps)
 
 
 def decode_forward(params: WhisperModel, cfg: ModelConfig, tokens: torch.Tensor,
@@ -167,12 +194,13 @@ def decode_forward(params: WhisperModel, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _decode(params, cfg, tokens, enc_out, cache, window, mode):
-    x = params.embed[tokens.to(device=params.device, dtype=torch.int64)]
+    x = Z.full(params.embed)[tokens.to(device=params.device, dtype=torch.int64)]
     s = x.shape[1]
     positions = cache["pos"] if mode == "decode" else torch.arange(s, dtype=torch.int32,
                                                                     device=x.device)
     new_layers = []
     for i, lyr in enumerate(params.decoder):
+        lyr = Z.gathered(lyr)
         c = cache["layers"][i] if cache is not None else None
         h = L.rms_norm(x, lyr["norm1"], cfg.norm_eps)
         sa, nc = L.gqa_attention(lyr["self_attn"], h, positions, cfg, cache=c, window=window,
@@ -183,12 +211,30 @@ def _decode(params, cfg, tokens, enc_out, cache, window, mode):
         h = L.rms_norm(x, lyr["norm2"], cfg.norm_eps)
         x = x + L.swiglu(lyr["ffn"], h)
         new_layers.append(nc)
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = (x @ params.head).to(torch.float32)
+    x = L.rms_norm(x, Z.full(params.final_norm), cfg.norm_eps)
+    logits = (x @ Z.full(params.head)).to(torch.float32)
     if mode == "train":
         return logits, None
     next_pos = cache["pos"] + 1 if mode == "decode" else s
     return logits, {"layers": new_layers, "pos": next_pos, "enc_out": enc_out}
+
+
+def _train_logits(params, cfg, batch, window):
+    enc_out = encode(params, cfg, batch["frames"])
+    logits, _ = decode_forward(params, cfg, batch["tokens"], enc_out, window=window, mode="train")
+    return logits, batch["labels"], torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def whisper_objective(params: WhisperModel, cfg: ModelConfig, batch: dict,
+                      window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(what this rank differentiates, the loss the step returns) on the
+    global ``batch``: without a mesh ``whisper_loss`` twice; under one,
+    ``transformer.shard_objective``'s pair (the rank's rows' masked NLL sum
+    over the global count of labels; no aux)."""
+    if ctx.get_mesh() is None:
+        loss = whisper_loss(params, cfg, batch, window)
+        return loss, loss
+    return shard_objective(cfg, batch, lambda b: _train_logits(params, cfg, b, window))
 
 
 def whisper_loss(params: WhisperModel, cfg: ModelConfig, batch: dict, window: int = 0,
@@ -197,18 +243,20 @@ def whisper_loss(params: WhisperModel, cfg: ModelConfig, batch: dict, window: in
     S), "labels" (B, S) with -1 = ignore} -> the mean NLL of the labels
     under the decoder's logits over the padded vocabulary, a float32 scalar
     differentiable in the parameters. ``remat`` is taken and unused, as in
-    the JAX function."""
-    enc_out = encode(params, cfg, batch["frames"])
-    logits, _ = decode_forward(params, cfg, batch["tokens"], enc_out, window=window, mode="train")
-    return token_nll(logits, batch["labels"])
+    the JAX function. Under a mesh, the global batch's loss JAX's sharded
+    step returns, on every rank and detached (``whisper_objective``)."""
+    if ctx.get_mesh() is not None:
+        return whisper_objective(params, cfg, batch, window)[1]
+    logits, labels, _ = _train_logits(params, cfg, batch, window)
+    return token_nll(logits, labels)
 
 
 def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = True):
     def train_step(params: WhisperModel, opt_state, batch: dict):
-        """One step on ``batch`` (``whisper_loss``'s): (params updated in
-        place, opt_state, loss)."""
+        """One step on the global ``batch`` (``whisper_objective``'s): (params
+        updated in place, opt_state, loss)."""
         return apply_train_step(params, opt_state, optimizer,
-                                lambda: whisper_loss(params, cfg, batch, window))
+                                lambda: whisper_objective(params, cfg, batch, window))
 
     return train_step
 

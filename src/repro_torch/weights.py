@@ -83,8 +83,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: b
     tensor-parallel block (``launch/tp.hold``: Mamba's ``in_proj`` the x
     and then the z columns of the rank's d_inner block), so the model is
     the one ``init_params`` makes under that mesh. With ``zero``
-    (training), each leaf keeps instead, beside the rank's experts, only
-    this rank's ZeRO block over the data axes of the open
+    (training), each leaf keeps, beside the rank's experts, this rank's 2-D
+    block: of its tensor-parallel block (a kv head shared by ranks held
+    whole), the ZeRO block over the data axes of the open
     ``mesh_context``, which must hold ``mesh`` (``launch/zero.py``), so
     the model is the one ``init_params(zero=True)`` makes there."""
     dev = resolve_device(device)
@@ -122,13 +123,26 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: b
     return DecoderLM(cfg, lm)
 
 
-def whisper_params_from_numpy(cfg: ModelConfig, tree, device=None):
+def whisper_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None,
+                              zero: bool = False):
     """The JAX package's whisper parameters (``enc_pos``, the ``encoder``
     layers, ``enc_norm``, ``embed``, the ``decoder`` layers,
     ``final_norm``, ``head``), as numpy arrays, -> the port's
-    ``WhisperModel`` on ``device`` (dtypes and bits kept)."""
+    ``WhisperModel`` on ``device`` (dtypes and bits kept). With ``zero``
+    (training under a mesh), each leaf keeps only this rank's ZeRO block
+    over the data axes of the open ``mesh_context``, which must hold
+    ``mesh`` (``launch/zero.py``; whisper's leaves stay whole over
+    ``model``), so the model is the one ``init_whisper(zero=True)`` makes
+    there; without ``zero`` a ``mesh`` changes nothing."""
     dev = resolve_device(device)
-    return WhisperModel(cfg, tree_map(lambda a: _tensor(a, dev), tree))
+    if zero and (mesh is None or ctx.get_mesh() is not mesh):
+        raise ValueError("whisper_params_from_numpy(zero=True) splits the leaves over the data "
+                         "axes of the open mesh_context, which must hold mesh")
+    held = (lambda path, t: Z.shard(t, path, cfg)) if zero else (lambda path, t: t)
+    out = {name: [held(f"{name}/{i}", tree_map(lambda a: _tensor(a, dev), lyr))
+                  for i, lyr in enumerate(value)] if name in ("encoder", "decoder")
+           else held(name, _tensor(value, dev)) for name, value in tree.items()}
+    return WhisperModel(cfg, out)
 
 
 def silo_params_from_numpy(cfg: ModelConfig, tree, device=None):

@@ -462,43 +462,20 @@ def test_expert_parallel_moe_raises(monkeypatch):
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
-def _train_whisper_under_a_mesh():
-    """whisper-tiny's train step inside a (1, 1) mesh context: whisper
-    under a mesh is not ported (its loss gives no rank objective)."""
-    from repro_torch import optim
-    from repro_torch.launch import context as ctx
-    from repro_torch.launch.mesh import make_rank_mesh
-    from repro_torch.models.api import make_concrete_batch, param_tree
-    from repro_torch import random as prng
-
-    cfg = get_config("whisper-tiny").reduced()
-    bundle = get_model(cfg)
-    mesh = make_rank_mesh((1, 1), device="cpu")
-    try:
-        with ctx.mesh_context(mesh):
-            model = bundle.init(torch.Generator().manual_seed(0))
-            opt = optim.adamw(1e-3)
-            batch = make_concrete_batch(cfg, "train", 1, 8, prng.PRNGKey(0))
-            bundle.make_train_step(opt)(model, opt.init(param_tree(model)), batch)
-    finally:
-        mesh.close()
-
-
 def _train_tied_embeddings():
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), tie_embeddings=True)
     get_model(cfg).make_train_step(None)
 
 
-_OUT_OF_TRAINING = {"whisper under a mesh": (_train_whisper_under_a_mesh, "item 5"),
-                    "tied embeddings": (_train_tied_embeddings, "item 14")}
+_OUT_OF_TRAINING = {"tied embeddings": (_train_tied_embeddings, "item 14")}
 
 
 @pytest.mark.parametrize("case", sorted(_OUT_OF_TRAINING))
 def test_training_outside_the_slice_raises(case):
     """What training leaves out still raises, naming its ROADMAP.md item:
-    whisper-tiny under a mesh of ranks (queue 1 item 5) and tied
-    embeddings (item 14); every zoo arch trains
-    (``tests/test_torch_train_*.py``), the decoder LMs under a mesh too
+    tied embeddings (item 14); every zoo arch trains
+    (``tests/test_torch_train_*.py``), under a mesh of ranks too, the
+    decoder LMs tensor-parallel over ``model`` and whisper-tiny
     (``tests/test_torch_train_mesh.py``; the expert-parallel MoE's
     gradients in ``test_expert_parallel_moe_raises``)."""
     fn, item = _OUT_OF_TRAINING[case]

@@ -34,7 +34,9 @@ in this process. Asserted, rank by rank:
 - ``serve`` on (1, 4) and (1, 2) gives every rank the tokens of the run
   without a mesh;
 - in process: (1, 1) is bitwise the run without a mesh, and a
-  tensor-parallel block under autograd raises ``NotImplementedError``.
+  tensor-parallel block outside a ``mesh_context`` raises ``RuntimeError``.
+
+Training under tensor parallelism is ``tests/test_torch_train_mesh.py``'s.
 
 The spawned ranks import this module, which imports no jax at top level.
 """
@@ -501,29 +503,22 @@ def test_1x1_is_bitwise_the_run_without_a_mesh(arch):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "falcon-mamba-7b", "deepseek-v2-lite-16b"])
-def test_a_tensor_parallel_block_under_autograd_raises(arch):
+def test_a_tensor_parallel_block_outside_a_mesh_context_raises(arch):
     """Rank 0 of a (1, 2) mesh (stub: no collective is reached): the model
-    holds its blocks, and its train forward, or one block called with
-    gradients enabled, raises ``NotImplementedError`` naming ROADMAP.md
-    queue 1 item 5; a model built with ``zero=True`` holds whole leaves
-    over ``model``."""
+    holds its blocks (the head's half of the padded vocabulary, at most
+    the model's kv heads and d_inner channels), and one of its blocks
+    called outside a ``mesh_context`` raises ``RuntimeError``."""
     cfg = _cfg(arch)
     model = T.init_params(torch.Generator().manual_seed(0), cfg)
     mesh = _StubMesh(1, 2, 0)
-    tree = _jax_tree(cfg, model)
-    sharded = lm_params_from_numpy(cfg, tree, device="cpu", mesh=mesh)
-    blk = sharded.blocks[-1]
-    spec = sharded.specs[-1]
+    sharded = lm_params_from_numpy(cfg, _jax_tree(cfg, model), device="cpu", mesh=mesh)
+    blk, spec = sharded.blocks[-1], sharded.specs[-1]
     x = torch.randn((2, 4, cfg.d_model), generator=torch.Generator().manual_seed(1))
-    toks = torch.zeros((2, 4), dtype=torch.int64)
     assert sharded.head.shape[1] == cfg.vocab_padded // 2
     with ctx.mesh_context(mesh):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            T.forward(sharded, cfg, toks, mode="train")
-        with torch.enable_grad(), pytest.raises(NotImplementedError, match="item 5"):
-            T.apply_block(blk, x, torch.arange(4), cfg, spec, mode="prefill")
-        assert ctx.tensor_parallel() and not ctx.tensor_parallel(zero=True)
+        assert ctx.tensor_parallel()
         assert tp.kv_heads(cfg) <= cfg.n_kv_heads and tp.d_inner(cfg) <= cfg.d_inner
+    assert not ctx.tensor_parallel()
     with pytest.raises(RuntimeError, match="outside a mesh_context"), torch.no_grad():
         T.apply_block(blk, x, torch.arange(4), cfg, spec, mode="prefill")
 

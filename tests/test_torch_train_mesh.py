@@ -1,35 +1,49 @@
-"""Training under a (data, model) mesh of ranks — ZeRO over the data axes
-(``launch/zero.py``), the expert-parallel MoE's backward
+"""Training under a (data, model) mesh of ranks — each leaf's 2-D block
+(``launch/zero.py``: the tensor-parallel ``model_block`` and of that the
+ZeRO block over the data axes), tensor parallelism's collectives under
+autograd (``launch/tp.py``), the expert-parallel MoE's backward
 (``models.layers.moe_apply_ep``), the global-batch train step
-(``models.transformer.lm_objective``) and ``launch/train.py --mesh`` —
-against the JAX package's sharded train step, on the CPU.
+(``models.transformer.lm_objective``, ``models.whisper.whisper_objective``)
+and ``launch/train.py --mesh`` — against the JAX package's sharded train
+step, on the CPU.
 
 The reference: one ``tests/_subproc.run_forced(code, 4)`` call jits the JAX
-step (``value_and_grad`` of its ``lm_loss``, the CLI's optimizer,
-``apply_updates``) with ``in_shardings`` from ``launch.sharding.tree_pspecs``
-and ``batch_spec`` under ``launch.context.mesh_context``, on meshes built
-with Auto axes (as ``tests/test_torch_expert_parallel.py`` builds them), for
-the reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b on
-(2, 2) and (4, 1), deepseek-moe on (1, 4), and granite on (2, 2) under
-``seq_parallel=True``; 3 steps each, on batches of 4 x 32 whose labels hold
--1 in unequal counts across every data split (5, 0, 11 and 2 a row). It
-also runs each step unsharded, and, for deepseek-moe and moonshot-v1-16b-a3b
-(a dense first layer, shared experts) on (2, 2) and (4, 1), the unsharded
-model's NLL and aux gradients on each data shard's rows.
+step (``value_and_grad`` of its ``lm_loss`` or ``whisper_loss``, the CLI's
+optimizer, ``apply_updates``) with ``in_shardings`` from
+``launch.sharding.tree_pspecs`` and ``batch_spec`` under
+``launch.context.mesh_context``, on meshes built with Auto axes (as
+``tests/test_torch_expert_parallel.py`` builds them), for the reduced
+float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b on (2, 2) and
+(4, 1), deepseek-moe on (1, 4), granite on (1, 2), (1, 4) and on (2, 2)
+under ``seq_parallel=True``, jamba-v0.1-52b and deepseek-v2-lite-16b (MLA)
+on (1, 2) and (2, 2), and whisper-tiny on (2, 1) and (2, 2); 3 steps each,
+on batches of 4 x 32 (whisper: 4 x 32 tokens over 4 x 64 frames) whose
+labels hold -1 in unequal counts across every data split (5, 0, 11 and 2 a
+row). For deepseek-moe and moonshot-v1-16b-a3b (a dense first layer, shared
+experts) it also runs the step unsharded and, on (2, 2) and (4, 1), the
+unsharded model's NLL and aux gradients on each data shard's rows.
 
-The port: one gloo world of 4 processes over a ``FileStore`` (the meshes in
-turn), spawned while JAX runs; each rank takes the same weights through
-``lm_params_from_numpy(..., mesh=, zero=True)`` and trains under
-``mesh_context``.
+The port: one gloo world of 4 processes and one of 2 over ``FileStore``s
+(each world's meshes in turn), spawned while JAX runs; each rank takes the
+same weights through ``lm_params_from_numpy(..., mesh=, zero=True)`` (or
+``whisper_params_from_numpy``) and trains under ``mesh_context``. On a
+``model`` axis over 1 a decoder's non-expert leaves are tensor-parallel.
 Asserted, rank by rank:
 
 - every step's loss within 1e-5 of JAX's sharded step, every rank's equal;
   the gradients (gathered) and the parameters after 3 steps within
   ``tests/_torch_train.py``'s contract (1e-5 of max, 2^-8 behind a scan);
 - each rank's blocks of the parameters, gradients and both AdamW moments
-  are its slices of the gathered trees by ``param_spec``'s data entries and
-  ``expert_block``, and hold nothing more (their shapes); ``init_params``
-  under the mesh keeps bitwise the unsharded init's blocks;
+  are its 2-D slices of the gathered trees (``model_block``, then
+  ``param_spec``'s data entry within it, and ``expert_block``), and hold
+  1 / (n_dp n_mp) of every leaf ``param_spec`` splits over both axes,
+  nothing more, but for the leaves kept whole over ``model`` (the norms,
+  the router, MLA's ``wdkv``/``wkr``, a kv head shared by ranks, every
+  whisper leaf), which hold 1 / n_dp of it where it has a data entry;
+  ``init_params`` (``init_whisper``) under the mesh keeps bitwise the
+  unsharded init's blocks;
+- the leaves whole over ``model`` (their parameters, gradients and
+  moments) are bitwise equal across the ``model`` ranks of a data shard;
 - ``global_norm`` of the rank's blocks, under the mesh, equals every rank's
   and the unsharded norm of the gathered gradient within 1e-6;
 - the aux rule (ROADMAP.md queue 3): JAX's sharded gradient is
@@ -40,14 +54,15 @@ Asserted, rank by rank:
 - under a ``model`` axis, training an MoE whose leaves hold every expert
   raises;
 - ``launch/mesh.py``'s three collectives under autograd (``gather_blocks``,
-  ``psum``, ``replicated``), outputs and gradients exactly, on a (2, 2)
-  mesh of the world;
+  ``psum``, ``replicated``) and ``launch/tp.py``'s three (``row``,
+  ``enter``, ``gather``), outputs and gradients exactly, on a (2, 2) mesh
+  of the world;
 - ZeRO blocks are cut over the open ``mesh_context``'s data axes alone
   (a pod axis left out of them keeps whole copies), by ``init_params`` and
   ``lm_params_from_numpy`` alike, and only when asked for (``zero``);
-- ``launch/train.py --mesh 2,1`` as two gloo processes: the losses and the
-  checkpoint (one file, written by rank 0) equal the unsharded CLI's within
-  the bf16 contract.
+- ``launch/train.py --mesh 2,1`` and ``--mesh 1,2`` as two gloo processes:
+  the losses and the checkpoint (one file, written by rank 0) equal the
+  unsharded CLI's within the bf16 contract.
 
 The spawned ranks import this module, which imports no jax at top level.
 """
@@ -75,18 +90,27 @@ from repro_torch.configs import get_config
 from repro_torch.launch import context as ctx
 from repro_torch.launch import zero
 from repro_torch.launch.mesh import make_rank_mesh
-from repro_torch.launch.sharding import expert_block, param_spec
+from repro_torch.launch.sharding import data_block, expert_block, model_block, param_spec
+from repro_torch.launch.tp import cut
 from repro_torch.models import transformer as T
 from repro_torch.models.api import get_model, param_tree
-from repro_torch.weights import EXPERT_LEAVES, lm_params_from_numpy
+from repro_torch.weights import EXPERT_LEAVES, lm_params_from_numpy, whisper_params_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 ARCHS = ("granite-3-8b", "deepseek-moe-16b", "falcon-mamba-7b")
+TP_ARCHS = ("jamba-v0.1-52b", "deepseek-v2-lite-16b")
 # case -> (arch, mesh, seq_parallel)
 CASES = {**{f"{arch} {d}x{m}": (arch, (d, m), False) for arch in ARCHS for d, m in ((2, 2), (4, 1))},
          "deepseek-moe-16b 1x4": ("deepseek-moe-16b", (1, 4), False),
-         "granite-3-8b 2x2 seq_parallel": ("granite-3-8b", (2, 2), True)}
+         "granite-3-8b 2x2 seq_parallel": ("granite-3-8b", (2, 2), True),
+         **{f"granite-3-8b 1x{m}": ("granite-3-8b", (1, m), False) for m in (2, 4)},
+         **{f"{arch} {d}x2": (arch, (d, 2), False) for arch in TP_ARCHS for d in (1, 2)},
+         **{f"whisper-tiny 2x{m}": ("whisper-tiny", (2, m), False) for m in (1, 2)}}
+WORLDS = (4, 2)  # the gloo worlds, each running the cases of its size
+# leaves a model built for training keeps whole over ``model`` (a decoder's;
+# a kv head shared by ranks too, and every whisper leaf)
+WHOLE_LEAVES = ("norm1", "norm2", "final_norm", "router", "wdkv", "wkr")
 # the aux rule, in JAX alone
 RULE, RULE_MESHES = ("deepseek-moe-16b", "moonshot-v1-16b-a3b"), ((2, 2), (4, 1))
 B, S, STEPS, LR = 4, 32, 3, 3e-4
@@ -96,8 +120,8 @@ BF16_ULP = 2.0 ** -7  # a bf16 value's spacing is at most this share of it
 STEP_ABS, NEAR_ZERO, SCAN_SHARE = 1e-6, 1e-4, 1e-4
 NORM_REL = 1e-6
 RULE_GAP = 1e-2  # the unsharded gradient and the summed auxes miss JAX's by more than this
-WORLD = 4
 SPAWN_TIMEOUT_S = 600
+FRAMES = 64  # whisper's frames a row (the reduced encoder_seq)
 
 
 def _cfg(arch):
@@ -135,12 +159,13 @@ def _port_case(arch, shape, seq_parallel, inputs) -> dict:
     (after the steps), the recorded norms, and on rank 0 the gathered
     trees."""
     cfg, a = _cfg(arch), inputs[arch]
+    carry = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
     mesh = make_rank_mesh(shape, device="cpu")
     try:
         with ctx.mesh_context(mesh, seq_parallel=seq_parallel):
             init = {k: _np(p) for k, p in param_tree(
-                T.init_params(torch.Generator().manual_seed(0), cfg, zero=True)).items()}
-            model = lm_params_from_numpy(cfg, a["params"], device="cpu", mesh=mesh, zero=True)
+                get_model(cfg).init(torch.Generator().manual_seed(0), zero=True)).items()}
+            model = carry(cfg, a["params"], device="cpu", mesh=mesh, zero=True)
             seen: list = []
             opt = _recording(_optimizer(), seen)
             state = opt.init(param_tree(model))
@@ -173,38 +198,50 @@ def _port_case(arch, shape, seq_parallel, inputs) -> dict:
 
 def _collective_inputs(rank: int):
     """Rank ``rank``'s input and the weights of the loss of each collective
-    of ``_collectives``."""
+    of ``_collectives``; ``tp_row``'s matrix; the TP weights of ``tp_row``
+    and ``tp_gather`` are the same on the two model ranks of a data index,
+    as a loss downstream of them is."""
     t = torch.arange(8.0).reshape(2, 4) + 10 * rank
+    i = rank // 2
     return t, {"gather": torch.arange(16.0).reshape(2, 8) + rank,
-               "psum": torch.full((2, 4), rank + 1.0), "replicated": torch.full((2, 4), rank + 1.0)}
+               "psum": torch.full((2, 4), rank + 1.0), "replicated": torch.full((2, 4), rank + 1.0),
+               "tp_row": torch.arange(6.0).reshape(2, 3) + i,
+               "tp_enter": torch.full((2, 4), rank + 1.0),
+               "tp_gather": torch.arange(16.0).reshape(2, 8) + 3 * i}, (
+        torch.arange(12.0).reshape(4, 3) - rank)
 
 
 def _collectives() -> dict:
     """On a (2, 2) mesh: each of ``launch/mesh.py``'s three collectives under
-    autograd applied to this rank's ``_collective_inputs``, the output and
-    the gradient of the output's sum weighted by that collective's
-    weights."""
+    autograd and ``launch/tp.py``'s three (under the mesh context) applied
+    to this rank's ``_collective_inputs``, the output and the gradient of
+    the output's sum weighted by that collective's weights."""
+    from repro_torch.launch import tp
     from repro_torch.launch.mesh import gather_blocks, psum, replicated
 
     mesh = make_rank_mesh((2, 2), device="cpu")
     try:
-        fns = {"gather": lambda t: gather_blocks(mesh, t, ("data",), 1),
-               "psum": lambda t: psum(mesh, t, "model"),
-               "replicated": lambda t: replicated(mesh, t, "model")}
-        t, weights = _collective_inputs(mesh.rank)
+        t, weights, w = _collective_inputs(mesh.rank)
+        fns = {"gather": lambda x: gather_blocks(mesh, x, ("data",), 1),
+               "psum": lambda x: psum(mesh, x, "model"),
+               "replicated": lambda x: replicated(mesh, x, "model"),
+               "tp_row": lambda x: tp.row(x, w), "tp_enter": tp.enter, "tp_gather": tp.gather}
         out = {}
-        for name, fn in fns.items():
-            x = t.clone().requires_grad_(True)
-            y = fn(x)
-            (g,) = torch.autograd.grad(torch.sum(y * weights[name]), [x])
-            out[name] = (_np(y), _np(g))
+        with ctx.mesh_context(mesh):
+            for name, fn in fns.items():
+                x = t.clone().requires_grad_(True)
+                y = fn(x)
+                (g,) = torch.autograd.grad(torch.sum(y * weights[name]), [x])
+                out[name] = (_np(y), _np(g))
     finally:
         mesh.close()
     return out
 
 
 def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
-    """One spawned rank: join the gloo world, run every case, save."""
+    """One spawned rank: join the gloo world of ``world`` ranks, run every
+    case whose mesh has that many (and, in the world of 4, the
+    collectives), save."""
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
     with open(os.path.join(base, "inputs.pkl"), "rb") as f:
@@ -212,11 +249,13 @@ def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(store_dir, "store"), world),
                             rank=rank, world_size=world)
     try:
-        out = {case: _port_case(*spec, inputs) for case, spec in CASES.items()}
-        out["collectives"] = _collectives()
+        out = {case: _port_case(*spec, inputs) for case, spec in CASES.items()
+               if spec[1][0] * spec[1][1] == world}
+        if world == 4:
+            out["collectives"] = _collectives()
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(base, f"port_r{rank}.pkl"), "wb") as f:
+    with open(os.path.join(base, f"port_w{world}_r{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
@@ -349,7 +388,7 @@ def shard_terms_of(cfg):
 
 
 jobs = {{case: start(arch, shape, sp) for case, (arch, shape, sp) in CASES.items()}}
-plain = {{arch: start(arch, None) for arch in dict.fromkeys([*(c[0] for c in CASES.values()), *RULE])}}
+plain = {{arch: start(arch, None) for arch in RULE}}
 rule_jobs = {{(arch, shape): start(arch, shape) for arch in RULE for shape in RULE_MESHES
              if (arch, shape, False) not in CASES.values()}}
 out = {{"cases": {{case: finish(CASES[case][0], job) for case, job in jobs.items()}},
@@ -389,12 +428,23 @@ def _jax_tree(cfg, model) -> dict:
     return tree_of(cfg, model)
 
 
+def _jax_whisper_tree(model) -> dict:
+    """A port whisper model as the JAX package's parameter tree of numpy
+    arrays (the same names; the layers a list)."""
+    from test_torch_expert_parallel import _tree_of
+
+    tree = {k: _np(v) for k, v in model.named_parameters(recurse=False)}
+    return tree | {k: [_tree_of(lyr) for lyr in v] for k, v in model.named_children()}
+
+
 def _inputs() -> dict:
-    """Each arch's weights (``init_params`` from seed 0, float32, in the JAX
-    package's tree) and STEPS batches of B x S numpy tokens and labels, the
-    labels -1 at the head of row r for MASKED[r] places."""
+    """Each arch's weights (its init from seed 0, float32, in the JAX
+    package's tree) and STEPS batches of B x S numpy tokens and labels (and
+    for whisper B x FRAMES x d frames), the labels -1 at the head of row r
+    for MASKED[r] places."""
     out = {}
-    for n, arch in enumerate((*ARCHS, *[a for a in RULE if a not in ARCHS])):
+    archs = dict.fromkeys([*ARCHS, *RULE, *(c[0] for c in CASES.values())])
+    for n, arch in enumerate(archs):
         cfg = _cfg(arch)
         rng = np.random.default_rng(10 + n)
         batches = []
@@ -402,10 +452,15 @@ def _inputs() -> dict:
             labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
             for r, k in enumerate(MASKED):
                 labels[r, :k] = -1
-            batches.append({"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-                            "labels": labels})
-        out[arch] = {"params": _jax_tree(cfg, T.init_params(torch.Generator().manual_seed(0), cfg)),
-                     "batches": batches}
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                     "labels": labels}
+            if cfg.encoder_decoder:
+                batch = {"frames": rng.standard_normal((B, FRAMES, cfg.d_model)).astype(
+                    np.float32), **batch}
+            batches.append(batch)
+        model = get_model(cfg).init(torch.Generator().manual_seed(0))
+        out[arch] = {"params": _jax_whisper_tree(model) if cfg.encoder_decoder
+                     else _jax_tree(cfg, model), "batches": batches}
     return out
 
 
@@ -431,24 +486,36 @@ def runs(tmp_path_factory):
     ref = threading.Thread(target=jax_ref)
     ref.start()
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    store = base / "store"
-    store.mkdir()
     script = _RANK_SCRIPT.format(src=str(ROOT / "src"), tests=str(ROOT / "tests"))
+    procs = []
     try:
-        _join(_spawn(lambda r: [sys.executable, "-c", script, str(r), str(WORLD), str(store),
-                                str(base)], WORLD), deadline, "gloo world 4")
+        for world in WORLDS:  # both worlds at once
+            store = base / f"store{world}"
+            store.mkdir()
+            procs.append(_spawn(lambda r, w=world, st=store: [
+                sys.executable, "-c", script, str(r), str(w), str(st), str(base)], world))
+        for world, ps in zip(WORLDS, procs):
+            _join(ps, deadline, f"gloo world {world}")
     finally:
+        for ps in procs:
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         ref.join(max(deadline - time.monotonic(), 1))
     assert not ref.is_alive(), "the JAX reference did not finish"
     if jax_err:
         raise jax_err[0]
-    ranks = []
-    for r in range(WORLD):
-        with open(base / f"port_r{r}.pkl", "rb") as f:
-            ranks.append(pickle.load(f))
+    port = {}
+    for world in WORLDS:
+        ranks = []
+        for r in range(world):
+            with open(base / f"port_w{world}_r{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        port.update({key: [rk[key] for rk in ranks] for key in ranks[0]})
     with open(base / "jax.pkl", "rb") as f:
         jax_out = pickle.load(f)
-    return jax_out, {case: [rk[case] for rk in ranks] for case in (*CASES, "collectives")}
+    return jax_out, port
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +526,9 @@ def runs(tmp_path_factory):
 def _named(cfg, tree) -> dict:
     """A JAX parameter-shaped tree (weights, gradients, moments) by the
     port's parameter names, as float64 numpy arrays."""
+    carry = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
     return {k: v.detach().to(torch.float64).numpy()
-            for k, v in param_tree(lm_params_from_numpy(cfg, tree, device="cpu")).items()}
+            for k, v in param_tree(carry(cfg, tree, device="cpu")).items()}
 
 
 def _gap(got, want) -> float:
@@ -488,23 +556,44 @@ class _Coords:
 
 
 def _block(name: str, whole: np.ndarray, cfg, shape, coords) -> np.ndarray:
-    """The rank at ``coords``' block of a whole leaf: its experts
-    (``expert_block``) and its slice of ``param_spec``'s data entry."""
+    """The rank at ``coords``' 2-D block of a whole leaf: its experts
+    (``expert_block``) or its ``model_block`` (a decoder's, as built for
+    training), and of that its slice of ``param_spec``'s data entry
+    (``data_block``, cut within the model block where both name one dim)."""
     mesh = _Coords(shape, coords)
     path = name.replace(".", "/")
     leaf = path.rsplit("/", 1)[-1]
+    mine = None
     if "/moe/" in f"/{path}/" and leaf in EXPERT_LEAVES and whole.ndim == 3:
         rows = expert_block(cfg.n_experts, mesh)
         whole = whole if rows is None else whole[rows]
         full = (cfg.n_experts, *whole.shape[1:])
     else:
         full = whole.shape
-    if shape[0] > 1:
-        for dim, s in enumerate(param_spec(path, full, mesh, ("data",))):
-            if s == "data":
-                n = whole.shape[dim] // shape[0]
-                whole = np.take(whole, range(coords[0] * n, (coords[0] + 1) * n), axis=dim)
+        if not cfg.encoder_decoder:
+            mine = model_block(path, full, mesh, cfg, train=True)
+            whole = whole if mine is None else cut(torch.from_numpy(whole), mine).numpy()
+    blk = data_block(path, full, mesh, ("data",), mine)
+    if blk is not None:
+        whole = np.take(whole, range(blk[1].start, blk[1].stop), axis=blk[0])
     return whole
+
+
+def _whole_over_model(name: str, cfg, n_mp: int) -> bool:
+    """Whether a model built for training keeps the leaf whole over a
+    ``model`` axis of ``n_mp`` ranks (where ``param_spec`` splits it)."""
+    leaf = name.rsplit(".", 1)[-1]
+    return (cfg.encoder_decoder or leaf in WHOLE_LEAVES
+            or (leaf in ("wk", "wv") and ".mixer." in name and cfg.n_kv_heads < n_mp))
+
+
+def _held_share(name: str, full: tuple, cfg, shape) -> int:
+    """The share of the whole leaf a rank holds by ``param_spec``'s blocks
+    (1 / (n_dp n_mp) where it splits over both axes), a leaf kept whole
+    over ``model`` counting 1 there, as 1 / that."""
+    spec = param_spec(name.replace(".", "/"), full, _Coords(shape, (0, 0)), ("data",))
+    return ((shape[0] if "data" in spec else 1)
+            * (shape[1] if "model" in spec and not _whole_over_model(name, cfg, shape[1]) else 1))
 
 
 def _assert_params(cfg, got: dict, want: dict, nu: dict) -> None:
@@ -546,9 +635,12 @@ def test_train_steps_match_jax_rank_by_rank(runs, case):
 @pytest.mark.parametrize("case", CASES)
 def test_each_rank_holds_its_blocks_of_params_grads_and_moments(runs, case):
     """Each rank's parameters, gradients (every step) and both AdamW
-    moments are its blocks of the gathered trees: the rank's experts of an
-    expert leaf and its slice of ``param_spec``'s data entry, of exactly
-    that shape; the split axes it records name the same layout."""
+    moments are its 2-D blocks of the gathered trees: the rank's experts of
+    an expert leaf or its model block, and of that its slice of
+    ``param_spec``'s data entry, of exactly that shape; a rank holds
+    1 / (n_dp n_mp) of each leaf ``param_spec`` splits over both axes (the
+    leaves kept whole over ``model`` 1 / n_dp of it); the split axes it
+    records name the same layout."""
     ranks = runs[1][case]
     arch, shape, _ = CASES[case]
     cfg, whole = _cfg(arch), ranks[0]["whole"]
@@ -560,24 +652,53 @@ def test_each_rank_holds_its_blocks_of_params_grads_and_moments(runs, case):
             for name, w in trees.items():
                 want = _block(name, w, cfg, shape, rk["coords"])
                 np.testing.assert_array_equal(blocks[name], want, err_msg=f"{case} {name}")
+        for name, w in whole["params"].items():
+            share = _held_share(name, w.shape, cfg, shape)
+            assert rk["params"][name].size * share == w.size, (case, name, share)
         for name, axes in rk["split"].items():
             smaller = rk["params"][name].shape != whole["params"][name].shape
             assert bool(axes) == smaller, (case, name, axes)
+            share = _held_share(name, whole["params"][name].shape, cfg, (1, shape[1]))
+            assert ("model" in axes) == (share > 1), (case, name, axes)
             n_split += smaller
     assert n_split > 0 or shape == (1, 1)
 
 
+@pytest.mark.parametrize("case", [c for c, (_, shape, _) in CASES.items() if shape[1] > 1])
+def test_leaves_whole_over_model_are_bitwise_equal_across_model_ranks(runs, case):
+    """The leaves a rank holds whole over ``model`` (the norms, the router,
+    MLA's ``wdkv``/``wkr``, a shared kv head, every whisper leaf; no
+    gradient is summed over ``model``) have the same bits on every ``model``
+    rank of a data shard: their parameters and both moments after the
+    steps and their gradients at every step."""
+    ranks = runs[1][case]
+    n_whole = 0
+    for rk in ranks:
+        first = next(r for r in ranks if r["coords"][0] == rk["coords"][0])
+        for name, axes in rk["split"].items():
+            if "model" in axes:
+                continue
+            n_whole += 1
+            for key in ("params", "mu", "nu"):
+                np.testing.assert_array_equal(rk[key][name], first[key][name],
+                                              err_msg=f"{case} {key} {name} {rk['coords']}")
+            for t, (g, g0) in enumerate(zip(rk["grads"], first["grads"])):
+                np.testing.assert_array_equal(g[name], g0[name],
+                                              err_msg=f"{case} grad {t} {name} {rk['coords']}")
+    assert n_whole > 0
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_init_params_keeps_each_ranks_blocks(runs, case):
-    """Under the mesh ``init_params`` draws as without one and keeps, of
-    every leaf, the rank's block (its experts, its slice of the data
-    entry): bitwise the unsharded init's block, so the ranks' blocks
-    concatenate to it."""
+    """Under the mesh ``init_params`` (``init_whisper``) draws as without
+    one and keeps, of every leaf, the rank's 2-D block (its experts or its
+    model block, and its slice of the data entry): bitwise the unsharded
+    init's block."""
     ranks = runs[1][case]
     arch, shape, _ = CASES[case]
     cfg = _cfg(arch)
     whole = {k: _np(p) for k, p in param_tree(
-        T.init_params(torch.Generator().manual_seed(0), cfg)).items()}
+        get_model(cfg).init(torch.Generator().manual_seed(0))).items()}
     for rk in ranks:
         assert set(rk["init"]) == set(whole)
         for name, w in whole.items():
@@ -624,6 +745,21 @@ def test_jax_sharded_step_takes_the_mean_of_the_shards_aux(runs, arch, shape):
     assert abs(r["loss"] - want) <= NORM_REL * abs(want), (r["loss"], want)
 
 
+def _collective_case(runs):
+    """Every rank's collective outputs, the inputs of each rank, its
+    matrix, and the weights of each collective by rank."""
+    inputs = [_collective_inputs(r) for r in range(4)]
+    return (runs[1]["collectives"], [x.numpy() for x, _, _ in inputs],
+            [m.numpy() for _, _, m in inputs],
+            {name: [ws[name].numpy() for _, ws, _ in inputs] for name in inputs[0][1]})
+
+
+def _assert_collectives(got: dict, want: dict, r: int) -> None:
+    for name, (y, g) in want.items():
+        np.testing.assert_array_equal(got[name][0], y, err_msg=f"rank {r} {name} output")
+        np.testing.assert_array_equal(got[name][1], g, err_msg=f"rank {r} {name} gradient")
+
+
 def test_collectives_under_autograd(runs):
     """On a (2, 2) mesh of the gloo world (rank r at data i = r // 2, model
     j = r % 2): ``gather_blocks`` over data on dim 1 concatenates the data
@@ -632,22 +768,40 @@ def test_collectives_under_autograd(runs):
     the model ranks' inputs with the identity for its gradient;
     ``replicated`` is the identity whose gradient sums the model ranks'
     weights. Exactly (small integers in float32)."""
-    ranks = runs[1]["collectives"]
-    inputs = [_collective_inputs(r) for r in range(WORLD)]
-    t = [x.numpy() for x, _ in inputs]
-    w = {name: [ws[name].numpy() for _, ws in inputs] for name in inputs[0][1]}
+    ranks, t, _, w = _collective_case(runs)
     for r, got in enumerate(ranks):
         i, j = divmod(r, 2)
         data, model = [j, 2 + j], [2 * i, 2 * i + 1]  # the ranks of r's data and model groups
-        want = {
+        _assert_collectives(got, {
             "gather": (np.concatenate([t[k] for k in data], axis=1),
                        sum(w["gather"][k] for k in data)[:, 4 * i:4 * i + 4]),
             "psum": (sum(t[k] for k in model), w["psum"][r]),
             "replicated": (t[r], sum(w["replicated"][k] for k in model)),
-        }
-        for name, (y, g) in want.items():
-            np.testing.assert_array_equal(got[name][0], y, err_msg=f"rank {r} {name} output")
-            np.testing.assert_array_equal(got[name][1], g, err_msg=f"rank {r} {name} gradient")
+        }, r)
+
+
+def test_tensor_parallel_collectives_under_autograd(runs):
+    """``launch/tp.py``'s three collectives under the (2, 2) mesh's context
+    (rank r at data i = r // 2, model j = r % 2), the weights of the loss
+    of ``row`` and ``gather`` equal on the two model ranks of a data index,
+    as every loss downstream of them is: ``row(x, w)`` is the model ranks'
+    ``x @ w`` summed, and its gradient the rank's own ``weights @ w.T``
+    (the identity through the sum); ``enter`` is the identity, and its
+    gradient the model ranks' weights summed; ``gather`` concatenates the
+    model ranks' inputs on the last dim, and its gradient is the rank's
+    columns of the weights, not summed: a reduce-scatter there would
+    double them. Exactly (small integers in float32)."""
+    ranks, t, m, w = _collective_case(runs)
+    for r, got in enumerate(ranks):
+        i, j = divmod(r, 2)
+        model = [2 * i, 2 * i + 1]
+        gathered = w["tp_gather"][r][:, 4 * j:4 * j + 4]
+        assert not np.array_equal(gathered, 2 * gathered)
+        _assert_collectives(got, {
+            "tp_row": (sum(t[k] @ m[k] for k in model), w["tp_row"][r] @ m[r].T),
+            "tp_enter": (t[r], sum(w["tp_enter"][k] for k in model)),
+            "tp_gather": (np.concatenate([t[k] for k in model], axis=1), gathered),
+        }, r)
 
 
 def test_training_with_every_expert_on_a_model_rank_raises():
@@ -716,11 +870,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_train_cli_mesh_matches_the_unsharded_cli(tmp_path):
-    """``python -m repro_torch.launch.train --mesh 2,1`` as two gloo
-    processes (torchrun's environment) on the reduced granite-3-8b (bf16, a
-    row a rank): both ranks' losses equal, within 2^-5 of the unsharded
-    CLI's, and its ``--ckpt`` one checkpoint (the unsharded run's files),
+@pytest.mark.parametrize("mesh", ["2,1", "1,2"])
+def test_train_cli_mesh_matches_the_unsharded_cli(tmp_path, mesh):
+    """``python -m repro_torch.launch.train --mesh 2,1`` (a row a rank) and
+    ``--mesh 1,2`` (half the heads and d_ff columns a rank, the checkpoint
+    gathered from model blocks) as two gloo processes (torchrun's
+    environment) on the reduced granite-3-8b (bf16): both ranks' losses
+    equal, within 2^-5 of the unsharded CLI's, and its ``--ckpt`` one
+    checkpoint (the unsharded run's files),
     written by rank 0, every element within one bf16 rounding (2^-7 of its
     size) and two learning rates of the unsharded run's, at most 1e-4 of
     them beyond one: a row a rank rounds the bf16 products otherwise, an
@@ -735,10 +892,10 @@ def test_train_cli_mesh_matches_the_unsharded_cli(tmp_path):
     args = ["--arch", "granite-3-8b", "--reduced", "--device", "cpu", "--steps", "3"]
     port = str(_free_port())
     procs = _spawn(lambda r: [sys.executable, "-m", "repro_torch.launch.train", *args, "--mesh",
-                              "2,1", "--ckpt", str(tmp_path / "mesh")], 2,
+                              mesh, "--ckpt", str(tmp_path / "mesh")], 2,
                    env_of=lambda r: {"RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2",
                                      "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port})
-    logs = _join(procs, time.monotonic() + 300, "train --mesh 2,1")
+    logs = _join(procs, time.monotonic() + 300, f"train --mesh {mesh}")
     stats = [json.loads(log.strip().splitlines()[-1]) for log in logs]
     before = torch.get_num_threads()
     torch.set_num_threads(1)
