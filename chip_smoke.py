@@ -110,7 +110,21 @@ drives the port's two paths:
   on (1, 2) and whisper-tiny on (2, 1), as two gloo processes sharing the
   card against the rule of JAX's sharded step computed without a mesh;
   the two backward kernels are also held to their plain versions at the
-  shapes a tensor-parallel rank gives them.
+  shapes a tensor-parallel rank gives them;
+- the three configurations the port once refused: attention masked by
+  M-RoPE's t stream (``[kernels]``: both attention kernels and their
+  backwards at qwen2-vl-2b's shape on an image-first stream, 1,024 image
+  tokens at t = 0, against their plain versions, ``arange`` positions
+  bitwise the index mask, timed beside the index-masked call, the bound
+  of the pairs the positions leave and SDPA with the same boolean mask;
+  ``[lm]``: the reduced qwen2-vl on such a stream card = CPU; ``[serve]``:
+  qwen2-vl-2b served on image streams), a Mamba prefill continuing a
+  carried cache (``[kernels]``: ssm_scan from a start state h0 at
+  falcon-mamba-7b's d_inner and a rank's; ``[lm]``: the reduced
+  falcon-mamba and jamba, two prefills and 2 decode steps, card = CPU;
+  ``[serve]``: falcon-mamba-7b's 2 x 1,024 chunked prefill then 32 tokens
+  against one 2,048 prefill) and tied embeddings (``[lm]``: the reduced
+  granite-3-8b tied, prefill, decode and 2 train steps card = CPU).
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -455,6 +469,10 @@ TP_ATTENTION = {"granite": (8, 2, 128, 128), "moe": (4, 4, 128, 128),
                 "stablelm": (8, 2, 160, 160), "chatglm3": (8, 1, 128, 128),
                 "qwen2vl": (3, 1, 128, 128), "mla": (4, 4, 192, 128)}
 TP_MODEL_RANKS = 4
+# a Qwen2-VL prompt that opens with one image: a 32 x 32 raster of patch
+# tokens, all at t = 0 of M-RoPE's t stream, then the text from t = 32
+QWEN_IMAGE = dict(n_vision=1024, grid=32)
+CHUNKED_PREFILL = dict(arch="falcon-mamba-7b", chunks=2, max_new=32)
 
 
 # [train_mesh] and --train-world: training under a (data, model) mesh of
@@ -799,8 +817,19 @@ def phase_edge_kernels(dev: torch.device) -> dict:
     return row
 
 
-def visible_pairs(s_len: int, t_len: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that flash_attention's mask leaves visible."""
+def visible_pairs(s_len: int, t_len: int, causal: bool, window: int, q_pos=None,
+                  k_pos=None) -> int:
+    """(query, key) pairs that flash_attention's mask leaves visible: by
+    index, or by the position vectors ``q_pos`` (S,) and ``k_pos`` (T,)
+    (key t visible to query s iff k_pos[t] >= 0, k_pos[t] <= q_pos[s] when
+    causal and k_pos[t] > q_pos[s] - window when window > 0)."""
+    if q_pos is not None:
+        qp = q_pos.cpu().numpy().astype(np.int64)
+        kp = np.sort(k_pos.cpu().numpy().astype(np.int64))
+        kp = kp[kp >= 0]
+        hi = np.searchsorted(kp, qp, side="right") if causal else np.full(len(qp), len(kp))
+        lo = np.searchsorted(kp, qp - window, side="right") if window else 0
+        return int(np.maximum(hi - lo, 0).sum())
     total = 0
     for q in range(s_len):
         hi = min(t_len - 1, q) if causal else t_len - 1
@@ -940,7 +969,190 @@ def phase_lm_kernels(dev: torch.device) -> dict:
     fa_tp, ssm_tp, rows["flash_attention_bwd"], rows["ssm_scan_bwd"] = tp_rank_kernels(randn)
     rows["flash_attention"].update(fa_tp)
     rows["ssm_scan"].update(ssm_tp)
+    fa_pos, fa_bwd_pos = position_mask_kernels(randn)
+    rows["flash_attention"].update(fa_pos)
+    rows["flash_attention_bwd"].update(fa_bwd_pos)
+    rows["ssm_scan"].update(start_state_kernels(randn))
     return rows
+
+
+def image_positions(n_vision: int, s_len: int, grid: int) -> torch.Tensor:
+    """(S, 3) int32 M-RoPE streams of a Qwen2-VL prompt that opens with an
+    image: its ``n_vision`` tokens a ``grid``-wide raster at t = 0 (h the
+    row, w the column), then the text from t = h = w = ``grid``. The t
+    stream is what attention masks by: the image's tokens see each other
+    whole, later ones included."""
+    idx = torch.arange(n_vision)
+    text = grid + torch.arange(s_len - n_vision)
+    t = torch.cat([torch.zeros(n_vision, dtype=torch.int64), text])
+    return torch.stack([t, torch.cat([idx // grid, text]), torch.cat([idx % grid, text])],
+                       dim=-1).to(torch.int32)
+
+
+def position_mask_kernels(randn) -> tuple[dict, dict]:
+    """flash_attention and flash_attention_bwd masked by M-RoPE's t stream
+    (``q_pos = k_pos``) at qwen2-vl-2b's prefill shape (B 4, S 2048, H 12,
+    Hkv 2, D 128, bf16), QWEN_IMAGE's layout (1,024 image tokens at t = 0,
+    text from t = 32): the forward against its plain version under the bf16
+    contract, causal and with a 512 window; the backward (B 1) under its
+    float64 contract, its controls rejected; float32 at a reduced shape;
+    positions ``arange(S)`` bitwise the index mask, forward and backward.
+    Times (device ms) beside the index-masked call on the same inputs, the
+    bound from the pairs the positions leave visible, and SDPA with the
+    same boolean mask. Returns (the flash_attention row's ``pos_*`` keys,
+    flash_attention_bwd's)."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    qw = get_config("qwen2-vl-2b")
+    h, hkv, d = qw.n_heads, qw.n_kv_heads, qw.head_dim_
+    nv, grid = QWEN_IMAGE["n_vision"], QWEN_IMAGE["grid"]
+    q = randn(b, s, h, d).to(torch.bfloat16)
+    k, v = (randn(b, s, hkv, d).to(torch.bfloat16) for _ in range(2))
+    dev = q.device
+    pos = image_positions(nv, s, grid)[:, 0].to(dev)
+    mask = dict(q_pos=pos, k_pos=pos)
+    report = {}
+    for name, window in (("image w0", 0), ("image w512", 512)):
+        got = flash_attention(q, k, v, window=window, **mask)
+        want = flash_attention_plain(q, k, v, True, window, **mask)
+        report[name] = r = bf16_contract(got, want, q, k, v, True, window, **mask)
+        check(r["ok"], f"flash_attention position-masked {name} fails the bf16 contract: {r}")
+        if window == 0:
+            err = float((got.float() - want.float()).abs().max())
+        del got, want
+    ar = torch.arange(s, dtype=torch.int32, device=dev)
+    check(same(flash_attention(q, k, v), flash_attention(q, k, v, q_pos=ar, k_pos=ar)),
+          "flash_attention with positions arange(S) differs from the index mask")
+    # float32 at a reduced shape (the CUDA-core kernel), image first
+    pos32 = image_positions(256, 512, 16)[:, 0].to(dev)
+    q32, k32, v32 = (t[:1, :512].float().contiguous() for t in (q, k, v))
+    gap32 = rel_gap(flash_attention(q32, k32, v32, q_pos=pos32, k_pos=pos32),
+                    flash_attention_plain(q32, k32, v32, q_pos=pos32, k_pos=pos32))
+    check(gap32 <= LM_REL, f"flash_attention float32 position-masked: gap {gap32} > {LM_REL}")
+    pairs, index_pairs = visible_pairs(s, s, True, 0, pos, pos), visible_pairs(s, s, True, 0)
+    n_bytes = 2 * (b * s * h * d * 2) + 2 * (b * s * hkv * d * 2) + 2 * s * 4
+    bound, by = bound_ms(n_bytes, 4 * b * h * d * pairs, BF16_FLOPS)
+    index_bound, _ = bound_ms(n_bytes, 4 * b * h * d * index_pairs, BF16_FLOPS)
+    allowed = pos[None, :] <= pos[:, None]  # the same mask as SDPA's boolean attn_mask
+    lib, backend, tried = sdpa_fused_ms(q, k, v, attn_mask=allowed)
+    fa = {"pos_shape": [b, s, h, hkv, d, d], "pos_layout": f"{nv} image tokens at t=0, text from "
+          f"t={grid}", "pos_visible_pairs": pairs, "pos_index_visible_pairs": index_pairs,
+          "pos_max_abs_err": err, "pos_f32_gap": gap32,
+          "pos_ms": device_ms(lambda: flash_attention(q, k, v, **mask)),
+          "pos_index_ms": device_ms(lambda: flash_attention(q, k, v)),
+          "pos_plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, **mask), reps=3),
+          "pos_bound_ms": bound, "pos_bound_by": by, "pos_index_bound_ms": index_bound,
+          "pos_library_ms": lib, "pos_library_backend": backend}
+    report["sdpa with the boolean mask"] = tried
+    print(f"[kernels] flash_attention masked by M-RoPE's t stream at qwen2-vl-2b's shape "
+          f"(B={b} S={s} H={h} Hkv={hkv} D={d} bf16; {fa['pos_layout']}): bf16 contract "
+          f"against the plain version, arange positions bitwise the index mask, float32 (1, 512) "
+          f"gap {gap32:.3g} (contract {LM_REL}): {json.dumps(report)} {json.dumps(fa)}")
+
+    # the backward at B 1, on the forward kernel's o and lse
+    q1, k1, v1 = (t[:1].contiguous() for t in (q, k, v))
+    dout = randn(1, s, h, d).to(torch.bfloat16)
+    out, lse = _attention(q1, k1, v1, True, 0, True, pos, pos)
+    args = (q1, k1, v1, out, lse, dout, True, 0)
+    got = flash_attention_bwd(*args, **mask)
+    ref = fa_contract.bwd_references(*args, **mask)
+    brief = lambda r: {kk: float(f"{vv:.4g}") if isinstance(vv, float) else vv  # noqa: E731
+                       for kk, vv in r.items()}
+    bwd_report = {"image": brief(fa_contract.bwd_check(got, ref))}
+    check(bwd_report["image"]["ok"],
+          f"flash_attention_bwd position-masked fails its contract: {bwd_report['image']}")
+    for fault, bad in fa_contract.bwd_controls(*args, **mask).items():
+        bwd_report[f"control {fault}"] = r = brief(fa_contract.bwd_check(bad, ref))
+        check(not r["ok"], f"flash_attention_bwd's contract accepts {fault} under positions: {r}")
+    bwd_err = max(float((g.double() - w).abs().max()) for g, w in zip(got, ref.ref64))
+    del ref, bad
+    out_i, lse_i = _attention(q1, k1, v1, True, 0, True)
+    args_i = (q1, k1, v1, out_i, lse_i, dout, True, 0)
+    check(all(same(x, y) for x, y in zip(flash_attention_bwd(*args_i),
+                                          flash_attention_bwd(*args_i, q_pos=ar, k_pos=ar))),
+          "flash_attention_bwd with positions arange(S) differs from the index mask")
+    pairs1 = visible_pairs(s, s, True, 0, pos, pos)
+    n_bytes = 2 * (2 * s * h * d + 2 * s * hkv * 2 * d + 2 * s * h * d) + 4 * h * s + 2 * s * 4
+    bwd_bound, bwd_by = bound_ms(n_bytes, 2 * (3 * d + 2 * d) * h * pairs1, BF16_FLOPS)
+    lib, backend, tried = sdpa_backward_ms(q1, k1, v1, dout, False, attn_mask=allowed)
+    bwd = {"pos_shape": [1, s, s, h, hkv, d, d, True], "pos_max_abs_err": bwd_err,
+           "pos_ms": cuda_ms(lambda: flash_attention_bwd(*args, **mask), reps=10),
+           "pos_index_ms": cuda_ms(lambda: flash_attention_bwd(*args_i), reps=10),
+           "pos_plain_ms": cuda_ms(lambda: flash_attention_backward_plain(*args, **mask), reps=2,
+                                   warmup=1),
+           "pos_bound_ms": bwd_bound, "pos_bound_by": bwd_by,
+           "pos_library_ms": lib, "pos_library_backend": backend}
+    bwd_report["sdpa backward with the boolean mask"] = tried
+    print(f"[kernels] flash_attention_bwd masked by the same t stream (B=1; contract, "
+          f"kernels/flash_attention/contract.py; arange positions bitwise the index mask): "
+          f"{json.dumps(bwd_report)} {json.dumps(bwd)}")
+    del q, k, v, q1, k1, v1, dout, out, lse, out_i, lse_i, got, args, args_i
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fa, bwd
+
+
+def start_state_kernels(randn) -> dict:
+    """ssm_scan from a carried state h0 (a prefill that continues a cache):
+    falcon-mamba-7b's layer (B 4, S 2048, d_inner 8,192, ds 16, bf16
+    streams) and a tensor-parallel rank's 2,048 channels, from a random h0,
+    held to kernels/ssm_scan/contract.py against the float64 scan from h0
+    (float32 and bf16 y), the start-state-dropped control rejected; h0 =
+    zeros bitwise the scan without one; device ms beside the h = 0 call.
+    Returns the ssm_scan row's ``h0_*`` keys."""
+    b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
+    fm = get_config("falcon-mamba-7b")
+    out, report = {}, {}
+    for key, di in (("", fm.d_inner), ("tp_", fm.d_inner // TP_MODEL_RANKS)):
+        ds = fm.d_state
+        dt = torch.nn.functional.softplus(randn(b, s, di) * 0.5 - 4.6)
+        dt, bm, cm, x = (t.to(torch.bfloat16) for t in (dt, randn(b, s, ds), randn(b, s, ds),
+                                                          randn(b, s, di)))
+        a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dt.device).expand(di, ds)
+        a = a.contiguous()
+        d = torch.ones((di,), device=dt.device)
+        h0 = randn(b, di, ds)
+        args = (dt, a, bm, cm, x, d)
+        plain32, ref64 = ssm_contract.references(*args, h0=h0)
+        for y_dtype in (torch.float32, torch.bfloat16):
+            y, h_last = ssm_scan(*args, y_dtype=y_dtype, h0=h0)
+            name = f"di={di} y={str(y_dtype)[6:]}"
+            report[name] = r = {kk: float(f"{vv:.4g}") if isinstance(vv, float) else vv
+                                for kk, vv in ssm_contract.check(y, h_last, plain32,
+                                                                 ref64).items()}
+            check(r["ok"], f"ssm_scan from h0 at {name} fails its contract: {r}")
+            if y_dtype == torch.float32:
+                err = float((y.double() - ref64[0]).abs().max())
+        bad = ssm_contract.controls(*args, h0=h0)["start state dropped"]
+        report[f"di={di} control start state dropped"] = r = {
+            kk: float(f"{vv:.4g}") if isinstance(vv, float) else vv
+            for kk, vv in ssm_contract.check(*bad, plain32, ref64).items()}
+        check(not r["ok"], f"ssm_scan's contract accepts a dropped start state at di={di}: {r}")
+        zero = ssm_scan(*args, h0=torch.zeros_like(h0))
+        check(all(same(p, z) for p, z in zip(ssm_scan(*args), zero)),
+              f"ssm_scan from h0 = 0 differs from the scan without one at di={di}")
+        del plain32, ref64, bad, zero
+        updates = b * s * di * ds
+        n_bytes = (2 * b * s * di * 2 + 2 * b * s * ds * 2 + di * ds * 4 + di * 4 + b * s * di * 2
+                   + 2 * b * di * ds * 4)
+        limits = {"bytes": n_bytes / HBM_BYTES_PER_S, "sfu exp": updates / SFU_PER_S,
+                  "fp32 instructions": 4 * updates / FP32_INSTR_PER_S}
+        op = max(limits, key=limits.get)
+        out.update({f"h0_{key}shape": [b, s, di, ds], f"h0_{key}max_abs_err": err,
+                    f"h0_{key}ms": device_ms(lambda: ssm_scan(*args, h0=h0)),
+                    f"h0_{key}zero_state_ms": device_ms(lambda: ssm_scan(*args)),
+                    f"h0_{key}bound_ms": 1e3 * limits[op],
+                    f"h0_{key}bound_by": "bytes" if op == "bytes" else "operations"})
+        del dt, bm, cm, x, h0, args
+    print(f"[kernels] ssm_scan from a carried start state h0 (falcon-mamba-7b's d_inner and a "
+          f"rank's of {TP_MODEL_RANKS}; B={b} S={s} bf16 streams) against the float64 scan from "
+          f"h0 (kernels/ssm_scan/contract.py), h0 = 0 bitwise no h0: {json.dumps(report)} "
+          f"{json.dumps(out)}")
+    return out
 
 
 def tp_rank_kernels(randn) -> tuple[dict, dict, dict, dict]:
@@ -1095,8 +1307,9 @@ def tp_rank_backward_kernels(randn) -> tuple[dict, dict]:
     return fa, ssm
 
 
-def sdpa_fused_ms(q, k, v, causal: bool = True) -> tuple:
-    """``scaled_dot_product_attention`` (causal or not, q (B, S, H, Dqk), k
+def sdpa_fused_ms(q, k, v, causal: bool = True, attn_mask=None) -> tuple:
+    """``scaled_dot_product_attention`` (causal or not, or with a boolean
+    ``attn_mask`` (S, T), True where a key is visible; q (B, S, H, Dqk), k
     and v (B, T, Hkv, D) in the model layout, ``enable_gqa`` where k and v
     have fewer heads) through
     each fused backend that takes the shape: (the fastest one's device ms
@@ -1106,6 +1319,7 @@ def sdpa_fused_ms(q, k, v, causal: bool = True) -> tuple:
 
     gqa = k.shape[2] != q.shape[2]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    how = ({"is_causal": causal} if attn_mask is None else {"attn_mask": attn_mask})
     tried = {}
     for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
         backend = getattr(SDPBackend, name, None)
@@ -1115,7 +1329,7 @@ def sdpa_fused_ms(q, k, v, causal: bool = True) -> tuple:
         try:
             with sdpa_kernel([backend]):
                 fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    qh, kh, vh, is_causal=causal, **({"enable_gqa": True} if gqa else {}))
+                    qh, kh, vh, **how, **({"enable_gqa": True} if gqa else {}))
                 fn()
                 torch.cuda.synchronize()
                 tried[name] = device_ms(fn)
@@ -1356,6 +1570,7 @@ def phase_lm_reference(dev: torch.device) -> None:
               f"{arch} reduced: card vs CPU logits {gaps} > {REDUCED_REL[arch]} of max")
         print(f"[lm] {arch} reduced float32 on the card vs the CPU: logits gap / max, prefill "
               f"then 4 decode steps {gaps} (contract {REDUCED_REL[arch]})")
+    lm_refused_cases(dev)
     # the serving waves draw qwen2-vl's and whisper's batches on the card:
     # bitwise the host's
     b, s = SERVE_RUN["batch"], SERVE_RUN["prompt_len"]
@@ -1380,13 +1595,169 @@ def phase_lm_reference(dev: torch.device) -> None:
               f"card {card_s:.3f}")
 
 
-def phase_serve(dev: torch.device, arch: str) -> dict[str, int]:
+def with_image_t_stream(batch: dict, cfg) -> dict:
+    """A qwen2-vl prefill batch whose M-RoPE positions are a real prompt's
+    (``image_positions``: the image's tokens at t = 0, the text after from
+    t = the raster's width), for every lane."""
+    nv = cfg.n_vision_tokens
+    grid = math.isqrt(nv)
+    pos = image_positions(nv, batch["positions"].shape[1], grid)
+    return dict(batch, positions=pos[None].expand_as(batch["positions"]).contiguous())
+
+
+def lm_refused_cases(dev: torch.device) -> None:
+    """What the port refused before this slice, reduced in float32 on the
+    card against the same models on the CPU, launches held to
+    ``expected_launches``: qwen2-vl on a real image's t stream (prefill + 4
+    decode steps; attention masked by position); falcon-mamba and jamba, a
+    prefill, a second prefill continuing its cache (the scan from its
+    carried state; jamba's attention restarts) and 2 decode steps;
+    granite-3-8b with tied embeddings, prefill + 4 decode steps and 2
+    train steps (``train_contract`` against the CPU's)."""
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.api import param_tree
+
+    for arch in ("qwen2-vl-2b", "falcon-mamba-7b", "jamba-v0.1-52b", "granite-3-8b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  tie_embeddings=arch == "granite-3-8b")
+        bundle = get_model(cfg)
+        cpu_model = bundle.init(torch.Generator().manual_seed(0))
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        batch = make_concrete_batch(cfg, "prefill", 2, 64, prng.PRNGKey(1))
+        if cfg.frontend == "vision_stub":
+            batch = with_image_t_stream(batch, cfg)
+        kernels.reset_launch_counts()
+        if cfg.ssm:  # two prefills, the second continuing the first's cache
+            runs = []
+            for m in (cpu_model, dev_model):
+                toks = batch["tokens"].to(m.device)
+                _, c, _ = transformer.forward(m, cfg, toks[:, :40], mode="prefill")
+                logits, c, _ = transformer.forward(m, cfg, toks[:, 40:], cache=c, mode="prefill")
+                runs.append((logits[:, -1], c))
+            (want, cpu_cache), (got, dev_cache) = runs
+            prefills, steps = 2, 2
+        else:
+            prefill = bundle.make_prefill_step()
+            (want, cpu_cache), (got, dev_cache) = (prefill(m, batch)
+                                                   for m in (cpu_model, dev_model))
+            prefills, steps = 1, 4
+        decode = bundle.make_decode_step()
+        gaps = [rel_gap(got.cpu(), want)]
+        for _ in range(steps):
+            tok = torch.argmax(want, dim=-1)[:, None]
+            want, cpu_cache = decode(cpu_model, cpu_cache, tok)
+            got, dev_cache = decode(dev_model, dev_cache, tok)
+            gaps.append(rel_gap(got.cpu(), want))
+        counts = kernels.launch_counts()
+        expected = expected_launches(cfg, prefills, steps)
+        what = {"qwen2-vl-2b": "an image's t stream", "granite-3-8b": "tied embeddings"}.get(
+            arch, "a prefill continuing its cache")
+        check(counts == expected, f"{arch} reduced, {what}: launches {counts}, expected {expected}")
+        check(max(gaps) <= REDUCED_REL[arch],
+              f"{arch} reduced, {what}: card vs CPU logits {gaps} > {REDUCED_REL[arch]} of max")
+        line = (f"[lm] {arch} reduced float32, {what}, on the card vs the CPU: logits gap / max, "
+                f"{prefills} prefill(s) then {steps} decode steps {gaps} (contract "
+                f"{REDUCED_REL[arch]}); launches {json.dumps(counts)}")
+        if cfg.tie_embeddings:  # and two train steps
+            train_batches = [make_concrete_batch(cfg, "train", 2, 64, prng.PRNGKey(2 + i))
+                             for i in range(2)]
+            out = []
+            for m in (cpu_model, dev_model):
+                opt = make_optimizer(TRAIN_RUN["lr"], 2)
+                state, losses, step = opt.init(param_tree(m)), [], bundle.make_train_step(opt)
+                for tb in train_batches:
+                    m, state, loss = step(m, state, {k: v.to(m.device) for k, v in tb.items()})
+                    losses.append(float(loss))
+                out.append((losses, {k: p.detach().cpu() for k, p in param_tree(m).items()},
+                            {k: t.cpu() for k, t in state[1].nu.items()}))
+            ok, readings = train_contract(cfg, out[1][:2], out[0], TRAIN_RUN["lr"], LM_REL)
+            check(ok, f"{arch} tied, 2 train steps: card vs CPU outside the contract {readings}")
+            line += f"; 2 train steps card vs CPU {json.dumps(readings)}"
+        print(line)
+        del cpu_model, dev_model
+
+
+@contextlib.contextmanager
+def image_t_stream_batches():
+    """``launch.serve``'s batch draw with qwen2-vl's positions a real
+    prompt's (``with_image_t_stream``), inside the block."""
+    import repro_torch.launch.serve as serve_mod
+
+    draw = serve_mod.make_concrete_batch
+
+    def image_draw(cfg, *args, **kw):
+        batch = draw(cfg, *args, **kw)
+        return with_image_t_stream(batch, cfg) if "positions" in batch else batch
+
+    serve_mod.make_concrete_batch = image_draw
+    try:
+        yield
+    finally:
+        serve_mod.make_concrete_batch = draw
+
+
+def phase_chunked_prefill(dev: torch.device) -> dict[str, int]:
+    """falcon-mamba-7b at full width and depth, bf16, B = SERVE_RUN's batch:
+    a 2 x 1,024 chunked prefill (the second continuing the first's cache:
+    the scan from its carried state) then 32 greedy tokens, against one
+    2,048-token prefill and its 32 tokens: the last position's logits gap
+    over max and the share of equal tokens. Kernel counts zeroed just
+    before, read just after, held to ``expected_launches``. Returns them."""
+    cfg = get_config(CHUNKED_PREFILL["arch"])
+    b, s, chunks = SERVE_RUN["batch"], SERVE_RUN["prompt_len"], CHUNKED_PREFILL["chunks"]
+    max_new = CHUNKED_PREFILL["max_new"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(5))
+    toks = toks.to(dev)
+    decode = transformer.make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    runs, ms = [], []
+    for pieces in (1, chunks):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        cache = None
+        for part in toks.chunk(pieces, dim=1):
+            logits, cache, _ = transformer.forward(model, cfg, part, cache=cache, mode="prefill")
+            last = logits[:, -1].clone()
+            del logits
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        out, tok = [], torch.argmax(last, dim=-1)[:, None]
+        for _ in range(max_new):
+            out.append(tok)
+            step_logits, cache = decode(model, cache, tok)
+            tok = torch.argmax(step_logits, dim=-1)[:, None]
+        runs.append((last, torch.cat(out, dim=1).cpu()))
+        del cache
+    counts = kernels.launch_counts()
+    expected = expected_launches(cfg, 1 + chunks, 2 * max_new)
+    check(counts == expected, f"chunked prefill: launches {counts}, expected {expected}")
+    (whole, whole_toks), (chunked, chunked_toks) = runs
+    gap = rel_gap(chunked, whole)
+    equal = float((whole_toks == chunked_toks).float().mean())
+    check(bool(torch.isfinite(chunked).all()) and gap <= 2.0 ** -5,
+          f"chunked prefill: last logits gap {gap} over max (bf16's 2^-5)")
+    print(f"[serve] {cfg.name} full width bf16, B={b}: one {s}-token prefill {ms[0]:.3f} ms vs "
+          f"{chunks} x {s // chunks} chunked (the second continuing the first's cache) "
+          f"{ms[1]:.3f} ms; last-position logits gap / max {gap:.4g}; greedy tokens equal "
+          f"{equal:.4f} of {b} x {max_new}; launches {json.dumps(counts)}")
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve(dev: torch.device, arch: str, label: str | None = None) -> dict[str, int]:
     """One full-width serving run of ``arch`` (full depth but for
     ``SERVE_LAYERS``) through ``repro_torch.launch.serve.serve``, kernel
     counts zeroed just before and read just after and held to
     ``expected_launches``; an MoE arch's dropped routes counted at prefill
-    and decode; the model is freed before the next arch."""
-    cfg = get_config(arch)
+    and decode; the model is freed before the next arch. ``label`` names
+    the run in the lines printed (default ``arch``)."""
+    cfg, name = get_config(arch), label or arch
     if arch in SERVE_LAYERS:
         cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     gc.collect()
@@ -1401,36 +1772,36 @@ def phase_serve(dev: torch.device, arch: str) -> dict[str, int]:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_req, max_new = SERVE_RUN["requests"], SERVE_RUN["max_new"]
-    check(stats["n_requests"] == n_req and stats["logits_finite"], f"{arch}: serve stats {stats}")
+    check(stats["n_requests"] == n_req and stats["logits_finite"], f"{name}: serve stats {stats}")
     check(stats["tokens"] == sum(stats["lens"]) and all(1 <= n <= max_new for n in stats["lens"]),
-          f"{arch}: token accounting {stats['lens']} {stats['tokens']}")
+          f"{name}: token accounting {stats['lens']} {stats['tokens']}")
     check(all(0 <= t < cfg.vocab_padded for out in stats["outputs"] for t in out),
-          f"{arch}: token ids outside the vocabulary")
+          f"{name}: token ids outside the vocabulary")
     want = expected_launches(cfg, stats["prefill_calls"], len(stats["decode_ms"]))
     check(stats["prefill_calls"] > 0 and counts == want,
-          f"{arch}: launches {counts} for {stats['prefill_calls']} prefills and "
+          f"{name}: launches {counts} for {stats['prefill_calls']} prefills and "
           f"{len(stats['decode_ms'])} decode steps, expected {want}")
     if cfg.moe:
         shares = drops.shares()
         check(shares["prefill"]["routes"] > 0 and shares["decode"]["routes"] > 0,
-              f"{arch}: no MoE routes counted {shares}")
-        print(f"[serve] {arch} MoE routes dropped (capacity over each call's tokens): "
+              f"{name}: no MoE routes counted {shares}")
+        print(f"[serve] {name} MoE routes dropped (capacity over each call's tokens): "
               f"{json.dumps(shares)}")
     depth = f", depth cut to {cfg.n_layers}" if arch in SERVE_LAYERS else ""
     prompt = SERVE_RUN["prompt_len"]
     if cfg.encoder_decoder:
         prompt = (f"{min(prompt, cfg.max_decoder_seq)} decoder tokens over {cfg.encoder_seq} "
                   f"frames, {cfg.n_encoder_layers} encoder layers")
-    print(f"[serve] {arch} full width{depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[serve] {name} full width{depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): {n_req} requests, batch "
           f"{SERVE_RUN['batch']}, prompt {prompt}, max_new {max_new}; "
           f"lens {stats['lens']}, {stats['prefill_calls']} prefills, "
           f"{len(stats['decode_ms'])} decode steps")
-    print(f"[serve] {arch} prefill ms (CUDA events) median {statistics.median(stats['prefill_ms']):.3f} "
+    print(f"[serve] {name} prefill ms (CUDA events) median {statistics.median(stats['prefill_ms']):.3f} "
           f"all {[round(t, 3) for t in stats['prefill_ms']]}; decode step ms median "
           f"{statistics.median(stats['decode_ms']):.3f} over {len(stats['decode_ms'])} steps "
           f"(min {min(stats['decode_ms']):.3f}, max {max(stats['decode_ms']):.3f})")
-    print(f"[serve] {arch} {stats['tok_per_s']:.2f} tok/s, latency p50 {stats['latency_p50_ms']:.1f} "
+    print(f"[serve] {name} {stats['tok_per_s']:.2f} tok/s, latency p50 {stats['latency_p50_ms']:.1f} "
           f"ms p99 {stats['latency_p99_ms']:.1f} ms, serving span {stats['wall_s']:.2f} s "
           f"(with init {wall:.2f} s), peak memory {peak / 2**30:.2f} GiB, launches {json.dumps(counts)}")
     del stats
@@ -3408,9 +3779,10 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
     return counts
 
 
-def sdpa_backward_ms(q, k, v, dout, causal: bool) -> tuple:
+def sdpa_backward_ms(q, k, v, dout, causal: bool, attn_mask=None) -> tuple:
     """The backward of ``scaled_dot_product_attention`` (autograd, one call
-    of ``torch.autograd.grad`` on a retained graph) through each fused
+    of ``torch.autograd.grad`` on a retained graph; causal or not, or with
+    a boolean ``attn_mask``) through each fused
     backend that takes the shape: (the fastest one's ms or None, its name,
     every backend's ms or the first line of its refusal). CUDA-event ms of
     eager calls."""
@@ -3419,6 +3791,7 @@ def sdpa_backward_ms(q, k, v, dout, causal: bool) -> tuple:
     gqa = k.shape[2] != q.shape[2]
     leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
     doh = dout.transpose(1, 2).contiguous()
+    how = ({"is_causal": causal} if attn_mask is None else {"attn_mask": attn_mask})
     tried = {}
     for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
         backend = getattr(SDPBackend, name, None)
@@ -3428,7 +3801,7 @@ def sdpa_backward_ms(q, k, v, dout, causal: bool) -> tuple:
         try:
             with sdpa_kernel([backend]):
                 out = torch.nn.functional.scaled_dot_product_attention(
-                    *leaves, is_causal=causal, **({"enable_gqa": True} if gqa else {}))
+                    *leaves, **how, **({"enable_gqa": True} if gqa else {}))
                 fn = lambda: torch.autograd.grad(out, leaves, doh, retain_graph=True)  # noqa: E731
                 fn()
                 torch.cuda.synchronize()
@@ -4527,10 +4900,15 @@ def main() -> int:
     phase_serve_record(dev)
     table["flash_attention"]["moe_layer"] = phase_moe_layer(dev)
     serve_launches = {arch: phase_serve(dev, arch) for arch in SERVE_ARCHS}
+    with image_t_stream_batches():
+        image = phase_serve(dev, "qwen2-vl-2b", label="qwen2-vl-2b (an image's t stream)")
+    chunked = phase_chunked_prefill(dev)
     for name in ("ssm_scan", "flash_attention"):
         by_arch = {a: c[name] for a, c in serve_launches.items() if c[name]}
         table[name]["launches_by_arch"] = by_arch
-        launches[name] = sum(by_arch.values())
+        table[name]["image_serve_launches"] = image[name]
+        table[name]["chunked_prefill_launches"] = chunked[name]
+        launches[name] = sum(by_arch.values()) + image[name] + chunked[name]
     ep_launches = phase_ep(dev, card)
     for name in ("ssm_scan", "flash_attention"):
         table[name]["ep_launches"] = ep_launches[name]

@@ -14,7 +14,10 @@
 // where key t is visible to query s iff t < T (the real kv length; the
 // Pallas kernel's t_real), t <= s when causal, and t > s - window when
 // window > 0. Positions are the indices (query s and key t both count from
-// 0), as in the Pallas kernel. The softmax is online over 64-key tiles, as
+// 0), as in the Pallas kernel, unless the caller passes position vectors
+// q_pos (S,) and k_pos (T,): then key t is visible to query s iff t < T and
+// positions.cuh's rule holds (JAX's chunked_attention mask, which M-RoPE's t
+// stream needs). The softmax is online over 64-key tiles, as
 // the Pallas kernel does it: float32 scores, running max m and sum l,
 // float32 P and a float32 P.V accumulator; out = acc / max(l, 1e-30). A
 // masked key contributes p = 0 exactly. Where the caller passes an `lse`
@@ -40,10 +43,16 @@
 // each p from the lane that scored it by shuffle. Key tiles that the mask
 // hides from every row of the q tile (above the diagonal, or wholly before
 // the window) are skipped: for a row with a visible key that leaves m, l and
-// acc as processing them would.
+// acc as processing them would. Under positions (a second instantiation,
+// kPos; null pointers launch the index one, unchanged) every key tile is
+// judged by the range of its 64 positions, each warp reducing the two it
+// reads a lane (warp_range), against the q tile's range: skipped where no
+// pair can be visible; each score is masked by its row's and key's
+// positions, read from global memory.
 //
-// ptxas (CUDA 12.8): 116, 128 and 120 registers at (64, 64), (128, 128)
-// and (48, 32), no spills.
+// ptxas (CUDA 12.8): index mask 118, 128 and 120 registers at (64, 64),
+// (128, 128) and (48, 32), 4 bytes of spill at (128, 128); position mask
+// 123, 128 and 128, 40 and 16 bytes of spill at (128, 128) and (48, 32).
 //
 // Built by nvcc into a shared library with a C interface
 // (repro_torch/kernels/build.py); the Python wrapper in
@@ -52,6 +61,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "positions.cuh"
 
 namespace {
 
@@ -100,11 +111,12 @@ constexpr int smem_bytes() {
   return (kBlockQ * DQK + kBlockK * (DQK + kKPad) + kBlockK * DV) * 4;
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kPos>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       float* __restrict__ lse, int n_heads, int n_kv_heads, int s_len,
+                       float* __restrict__ lse, const int* __restrict__ q_pos,
+                       const int* __restrict__ k_pos, int n_heads, int n_kv_heads, int s_len,
                        int t_len, int causal, int window, float scale) {
   static_assert(DQK % 4 == 0 && DV % 32 == 0, "float4 rows of q and k; 32-lane columns of v");
   constexpr int kCols = DV / 32;  // output columns per lane
@@ -129,10 +141,18 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   stage<DQK>(q_s, DQK, q_base, q_stride, kBlockQ, s_len - q0);
 
-  // keys visible to some row of this tile: [lo, hi]
+  // keys visible to some row of this tile: [lo, hi] (under positions every
+  // key tile is judged by its range against the q tile's)
   const int q_last = min(q0 + kBlockQ, s_len) - 1;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
+  const int lo = !kPos && window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = !kPos && causal ? min(t_len - 1, q_last) : t_len - 1;
+  Range q_range{0, 0};
+  int row_pos[kRows];  // the positions of the warp's rows (any value past S)
+  if constexpr (kPos) {
+    q_range = warp_range(q_pos, q0, kBlockQ, s_len);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) row_pos[i] = q_pos[min(q0 + warp * kRows + i, s_len - 1)];
+  }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
 #pragma unroll
@@ -144,6 +164,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
+    int key_pos[2];  // positions of keys k0 + lane and k0 + lane + 32 (-1 past T)
+    if constexpr (kPos) {
+      key_pos[0] = k0 + lane < t_len ? k_pos[k0 + lane] : -1;
+      key_pos[1] = k0 + lane + 32 < t_len ? k_pos[k0 + lane + 32] : -1;
+      const Range k_range = warp_range(k_pos, k0, kBlockK, t_len);
+      if (!any_visible(q_range, k_range, causal, window)) continue;  // the same in every warp
+    }
     __syncthreads();  // the previous tile (and, first time, nothing) is no longer read
     stage<DQK>(k_s, DQK + kKPad, k_base + k0 * k_stride, k_stride, kBlockK, t_len - k0);
     stage<DV>(v_s, DV, v_base + k0 * v_stride, v_stride, kBlockK, t_len - k0);
@@ -175,7 +202,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int key = k0 + lane + 32 * c;
-        vis[c] = key < t_len && (!causal || key <= row) && (window <= 0 || key > row - window);
+        if constexpr (kPos) {
+          vis[c] = key < t_len && pos_visible(row_pos[i], key_pos[c], causal, window);
+        } else {
+          vis[c] = key < t_len && (!causal || key <= row) && (window <= 0 || key > row - window);
+        }
         s[c] = vis[c] ? p[i][c] * scale : kNeg;
       }
       const float m_new = fmaxf(m[i], warp_max(fmaxf(s[0], s[1])));
@@ -221,26 +252,38 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
-           int n_heads, int n_kv_heads, int s_len, int t_len, int causal, int window,
-           float scale, void* stream) {
+template <int DQK, int DV, bool kPos>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const int* q_pos,
+           const int* k_pos, int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+           int causal, int window, float scale, void* stream) {
   static bool configured = false;  // raise the dynamic shared memory limit once
   constexpr int smem = smem_bytes<DQK, DV>();
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_attention_kernel<DQK, DV, kPos>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, n_heads, batch);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    flash_attention_kernel<DQK, DV><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), static_cast<float*>(lse), n_heads, n_kv_heads, s_len, t_len,
-        causal, window, scale);
+    flash_attention_kernel<DQK, DV, kPos>
+        <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+            q_pos, k_pos, n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DQK, int DV>
+int launch_mask(const void* q, const void* k, const void* v, void* out, void* lse,
+                const int* q_pos, const int* k_pos, int batch, int n_heads, int n_kv_heads,
+                int s_len, int t_len, int causal, int window, float scale, void* stream) {
+  if (q_pos != nullptr)
+    return launch<DQK, DV, true>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads, n_kv_heads,
+                                 s_len, t_len, causal, window, scale, stream);
+  return launch<DQK, DV, false>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads, n_kv_heads,
+                                s_len, t_len, causal, window, scale, stream);
 }
 
 }  // namespace
@@ -250,21 +293,21 @@ extern "C" {
 // float32 q (B, S, H, DQK), k (B, T, Hkv, DQK), v (B, T, Hkv, DV) and out
 // (B, S, H, DV), contiguous with 16-byte aligned starts; (head_dim,
 // head_dim_v) = (64, 64), (128, 128) or (48, 32); H a multiple of Hkv;
-// lse null, or float32 (B, H, S) for the rows' logsumexp.
+// lse null, or float32 (B, H, S) for the rows' logsumexp; q_pos and k_pos
+// both null (the index mask), or int32 (S,) and (T,) position vectors.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
-                              int head_dim, int head_dim_v, int causal, int window, float scale,
-                              void* stream) {
-  if (head_dim == 64 && head_dim_v == 64)
-    return launch<64, 64>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                          window, scale, stream);
-  if (head_dim == 128 && head_dim_v == 128)
-    return launch<128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                            window, scale, stream);
-  if (head_dim == 48 && head_dim_v == 32)
-    return launch<48, 32>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len, causal,
-                          window, scale, stream);
+                              const int* q_pos, const int* k_pos, int batch, int n_heads,
+                              int n_kv_heads, int s_len, int t_len, int head_dim, int head_dim_v,
+                              int causal, int window, float scale, void* stream) {
+#define REPRO_FA(DQK, DV)                                                                     \
+  if (head_dim == DQK && head_dim_v == DV)                                                    \
+    return launch_mask<DQK, DV>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads, n_kv_heads,  \
+                                s_len, t_len, causal, window, scale, stream);
+  REPRO_FA(64, 64)
+  REPRO_FA(128, 128)
+  REPRO_FA(48, 32)
+#undef REPRO_FA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

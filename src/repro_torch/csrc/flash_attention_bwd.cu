@@ -16,7 +16,8 @@
 // What it computes, for q (B, S, H, DQK), k (B, T, Hkv, DQK), v (B, T, Hkv,
 // DV), o and dO (B, S, H, DV) in the model layout, lse (B, H, S) float32,
 // G = H / Hkv, and the forward's mask (key t visible to query s iff t < T,
-// t <= s when causal, t > s - window when window > 0):
+// t <= s when causal, t > s - window when window > 0; or, where the caller
+// passes q_pos and k_pos, t < T and positions.cuh's rule):
 //   D[s]    = sum_d dO[s, d] o[s, d]                      (pass 1)
 //   P[s, t] = exp(scale q[s] . k[t] - lse[s]) if visible, else 0
 //   dP      = dO V^T          dS = P * (dP - D)
@@ -55,7 +56,11 @@
 // - pass 3 keeps its 64 rows' dQ in registers, 4 rows x DQK/16 columns a
 //   thread, and reads dS and the K tile from shared memory.
 // Tiles that the mask hides from the whole tile (above the diagonal, or
-// wholly outside the window) are skipped, as in the forward.
+// wholly outside the window) are skipped, as in the forward; under positions
+// (the kPos instantiation) a tile is skipped where the ranges of its
+// positions and the CTA's own (warp_range) admit no visible pair, and each P
+// element is masked by its row's and key's positions. A skipped tile adds
+// exact zeros, so the skips never change a bit.
 // Shared memory at (128, 128): K, V, q and dO 34 KB each, P and dS 17 KB
 // each, 170 KB, one CTA an SM.
 //
@@ -66,6 +71,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "positions.cuh"
 
 namespace {
 
@@ -119,21 +126,29 @@ __device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* a, co
   }
 }
 
+// The mask by index, or (kPos) by the positions.
+template <bool kPos>
 struct Mask {
   int s_len, t_len, causal, window;
+  const int* q_pos;
+  const int* k_pos;
   __device__ __forceinline__ bool visible(int row, int key) const {
-    return row < s_len && key < t_len && (!causal || key <= row) &&
-           (window <= 0 || key > row - window);
+    if constexpr (kPos) {
+      return row < s_len && key < t_len && pos_visible(q_pos[row], k_pos[key], causal, window);
+    } else {
+      return row < s_len && key < t_len && (!causal || key <= row) &&
+             (window <= 0 || key > row - window);
+    }
   }
 };
 
 // P and dS of a (q tile, key tile) pair into shared memory (row stride
 // kLdS): the thread's 4 x 4 block, rows q0 + tr + 16i, keys k0 + tc + 16j.
-template <int DQK, int DV>
+template <int DQK, int DV, typename M>
 __device__ __forceinline__ void scores(float* p_s, float* ds_s, const float* q_s,
                                        const float* k_s, const float* do_s, const float* v_s,
                                        const float* lse_s, const float* dd_s, int q0, int k0,
-                                       const Mask& mask, float scale) {
+                                       const M& mask, float scale) {
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   float s[4][4], dp[4][4];
   tile_dots<DQK>(s, q_s, k_s, tr, tc);
@@ -182,20 +197,21 @@ row_dots_kernel(const float* __restrict__ out, const float* __restrict__ dout,
 
 // Pass 2: dK and dV of one (b, kv head, key tile), summed over the kv head's
 // G query heads and their visible query tiles, in that order.
-template <int DQK, int DV>
+template <int DQK, int DV, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ dd, float* __restrict__ dk,
-           float* __restrict__ dv, int n_heads, int n_kv_heads, int s_len, int t_len, int causal,
-           int window, float scale) {
+           float* __restrict__ dv, const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+           int n_heads, int n_kv_heads, int s_len, int t_len, int causal, int window,
+           float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw);
   constexpr int kCk = DQK / 16, kCv = DV / 16;  // columns a thread holds
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int g_count = n_heads / n_kv_heads;
   const int kg = threadIdx.x / 16, cg = threadIdx.x % 16;  // keys 4kg .. 4kg+3
-  const Mask mask{s_len, t_len, causal, window};
+  const Mask<kPos> mask{s_len, t_len, causal, window, q_pos, k_pos};
 
   const int64_t k_stride = static_cast<int64_t>(n_kv_heads) * DQK;
   const int64_t v_stride = static_cast<int64_t>(n_kv_heads) * DV;
@@ -215,13 +231,19 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCv; ++c) acc_v[i][c] = 0.0f;
   }
 
-  // query rows that see some key of the tile: q_lo .. q_hi
+  // query rows that see some key of the tile: q_lo .. q_hi (under positions
+  // every q tile is judged by its range against the key tile's)
   const int k_last = min(k0 + kTile, t_len) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(s_len - 1, k_last + window - 1) : s_len - 1;
+  const int q_lo = !kPos && causal ? k0 : 0;
+  const int q_hi = !kPos && window > 0 ? min(s_len - 1, k_last + window - 1) : s_len - 1;
+  Range k_range{0, 0};
+  if constexpr (kPos) k_range = warp_range(k_pos, k0, kTile, t_len);
   for (int g = 0; g < g_count; ++g) {
     const int h = hk * g_count + g;
     for (int q0 = (q_lo / kTile) * kTile; q0 <= q_hi; q0 += kTile) {
+      if constexpr (kPos) {  // the same in every warp
+        if (!any_visible(warp_range(q_pos, q0, kTile, s_len), k_range, causal, window)) continue;
+      }
       __syncthreads();  // the previous q tile is no longer read
       const int64_t row0 = static_cast<int64_t>(b) * s_len + q0;
       stage<DQK>(&sm.q[0][0], q + row0 * q_stride + h * DQK, q_stride, kTile, s_len - q0);
@@ -274,20 +296,20 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Pass 3: dQ of one (b, q head, q tile) over its visible key tiles, in order.
-template <int DQK, int DV>
+template <int DQK, int DV, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dd, float* __restrict__ dq,
-          int n_heads, int n_kv_heads,
-          int s_len, int t_len, int causal, int window, float scale) {
+          const int* __restrict__ q_pos, const int* __restrict__ k_pos, int n_heads,
+          int n_kv_heads, int s_len, int t_len, int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DQK, DV>& sm = *reinterpret_cast<Smem<DQK, DV>*>(smem_raw);
   constexpr int kCk = DQK / 16;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (n_heads / n_kv_heads);
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;  // rows 4rg .. 4rg+3
-  const Mask mask{s_len, t_len, causal, window};
+  const Mask<kPos> mask{s_len, t_len, causal, window, q_pos, k_pos};
 
   const int64_t k_stride = static_cast<int64_t>(n_kv_heads) * DQK;
   const int64_t v_stride = static_cast<int64_t>(n_kv_heads) * DV;
@@ -308,11 +330,17 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCk; ++c) acc[i][c] = 0.0f;
 
-  // keys visible to some row of the tile: lo .. hi
+  // keys visible to some row of the tile: lo .. hi (under positions every
+  // key tile is judged by its range against the q tile's)
   const int q_last = min(q0 + kTile, s_len) - 1;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
+  const int lo = !kPos && window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = !kPos && causal ? min(t_len - 1, q_last) : t_len - 1;
+  Range q_range{0, 0};
+  if constexpr (kPos) q_range = warp_range(q_pos, q0, kTile, s_len);
   for (int k0 = (lo / kTile) * kTile; k0 <= hi; k0 += kTile) {
+    if constexpr (kPos) {  // the same in every warp
+      if (!any_visible(q_range, warp_range(k_pos, k0, kTile, t_len), causal, window)) continue;
+    }
     __syncthreads();  // the previous key tile is no longer read
     const int64_t key0 = static_cast<int64_t>(b) * t_len + k0;
     stage<DQK>(&sm.k[0][0], k + key0 * k_stride + hk * DQK, k_stride, kTile, t_len - k0);
@@ -347,20 +375,20 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kPos>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* lse,
-           const void* dout, void* dq, void* dk, void* dv, void* dd, int batch, int n_heads,
-           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
-           void* stream) {
+           const void* dout, void* dq, void* dk, void* dv, void* dd, const int* q_pos,
+           const int* k_pos, int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+           int causal, int window, float scale, void* stream) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "16 column groups of a thread block");
   constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV>));
   static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV, kPos>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel<DQK, DV>,
+      err = cudaFuncSetAttribute(dq_kernel<DQK, DV, kPos>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -376,14 +404,16 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   row_dots_kernel<DV><<<dim3((s_len + 7) / 8, n_heads, batch), kThreads, 0, st>>>(
       static_cast<const float*>(out), dot, dd_f, n_heads, s_len);
   if (t_len > 0) {
-    dkv_kernel<DQK, DV><<<dim3((t_len + kTile - 1) / kTile, n_kv_heads, batch), kThreads,
-                             smem, st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<float*>(dk),
-                                         static_cast<float*>(dv), n_heads, n_kv_heads, s_len, t_len,
-                                         causal, window, scale);
+    dkv_kernel<DQK, DV, kPos><<<dim3((t_len + kTile - 1) / kTile, n_kv_heads, batch), kThreads,
+                                   smem, st>>>(qt, kt, vt, dot, lse_f, dd_f,
+                                               static_cast<float*>(dk), static_cast<float*>(dv),
+                                               q_pos, k_pos, n_heads, n_kv_heads, s_len, t_len,
+                                               causal, window, scale);
   }
-  dq_kernel<DQK, DV><<<dim3((s_len + kTile - 1) / kTile, n_heads, batch), kThreads, smem,
-                          st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<float*>(dq), n_heads,
-                                n_kv_heads, s_len, t_len, causal, window, scale);
+  dq_kernel<DQK, DV, kPos><<<dim3((s_len + kTile - 1) / kTile, n_heads, batch), kThreads, smem,
+                             st>>>(qt, kt, vt, dot, lse_f, dd_f, static_cast<float*>(dq), q_pos,
+                                   k_pos, n_heads, n_kv_heads, s_len, t_len, causal, window,
+                                   scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,18 +424,27 @@ extern "C" {
 // float32 q (B, S, H, head_dim), k (B, T, Hkv, head_dim), v (B, T, Hkv,
 // head_dim_v), out and dout (B, S, H, head_dim_v), dq, dk, dv like q, k, v,
 // contiguous; lse (B, H, S) float32 from the forward; dd a float32 (B, H,
-// S) scratch. (head_dim, head_dim_v): (64, 64), (128, 128) or (48, 32).
+// S) scratch; q_pos and k_pos both null (the index mask) or the forward's
+// int32 (S,) and (T,) position vectors. (head_dim, head_dim_v): (64, 64),
+// (128, 128) or (48, 32).
 // Enqueues three grids on `stream`; returns cudaGetLastError() after them
 // (0 = launched).
 int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* out,
                                   const void* lse, const void* dout, void* dq, void* dk,
-                                  void* dv, void* dd, int batch, int n_heads, int n_kv_heads,
-                                  int s_len, int t_len, int head_dim, int head_dim_v,
-                                  int causal, int window, float scale, void* stream) {
-#define REPRO_FA_BWD(DQK, DV)                                                                    \
-  if (head_dim == DQK && head_dim_v == DV)                                                     \
-    return launch<DQK, DV>(q, k, v, out, lse, dout, dq, dk, dv, dd, batch, n_heads,     \
-                                  n_kv_heads, s_len, t_len, causal, window, scale, stream);
+                                  void* dv, void* dd, const int* q_pos, const int* k_pos,
+                                  int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+                                  int head_dim, int head_dim_v, int causal, int window,
+                                  float scale, void* stream) {
+#define REPRO_FA_BWD(DQK, DV)                                                                   \
+  if (head_dim == DQK && head_dim_v == DV) {                                                  \
+    if (q_pos != nullptr)                                                                     \
+      return launch<DQK, DV, true>(q, k, v, out, lse, dout, dq, dk, dv, dd, q_pos, k_pos,     \
+                                   batch, n_heads, n_kv_heads, s_len, t_len, causal, window,  \
+                                   scale, stream);                                            \
+    return launch<DQK, DV, false>(q, k, v, out, lse, dout, dq, dk, dv, dd, q_pos, k_pos,      \
+                                  batch, n_heads, n_kv_heads, s_len, t_len, causal, window,   \
+                                  scale, stream);                                             \
+  }
   REPRO_FA_BWD(64, 64)
   REPRO_FA_BWD(128, 128)
   REPRO_FA_BWD(48, 32)

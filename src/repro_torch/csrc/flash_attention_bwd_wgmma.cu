@@ -17,7 +17,8 @@
 // (64, 64) whisper, (128, 128) the dense and MoE decoders, (192, 128) MLA or
 // (160, 160) stablelm, lse (B, H, S) float32, G = H / Hkv, and the
 // forward's mask (key t visible to query s iff s < S, t < T, t <= s when
-// causal, t > s - window when window > 0):
+// causal, t > s - window when window > 0; or, where the caller passes q_pos
+// and k_pos, iff s < S, t < T and positions.cuh's rule holds):
 //   D[s]    = sum_d dO[s, d] o[s, d]                             (pre-pass)
 //   P[s, t] = 2^(q[s] . k[t] scale log2 e - lse[s] log2 e) if visible, else 0
 //   dP      = dO V^T          dS = P (dP - D)
@@ -120,6 +121,16 @@
 // element by element only on tiles that touch the diagonal, the window's
 // edge, S or T; rows past S are masked in the dK/dV pass (a zero q row with
 // lse = 0 would give P = 1) and keys past T in the dQ pass.
+// Position masks (the kPos instantiations; null pointers launch the index
+// ones, unchanged), as in the forward: each CTA first lists the tiles of the
+// other side (q tiles in the dK/dV pass, key tiles in the dQ pass) where
+// some pair with its own rows or keys may be visible, flagging those where
+// every pair is (list_tiles, from warp_range's min and max positions; 4
+// bytes a tile of shared memory after the ring), and the ring walks the
+// list. A listed tile is computed by both warpgroups (a warpgroup that sees
+// none of it adds exact zeros); one not flagged whole is masked through a
+// bit mask of the thread's scores, gathered from the positions while S is
+// in flight.
 //
 // Tiles and registers, by (DQK, DV): the dK/dV pass holds dK (DQK / 2
 // registers a thread), dV (DV / 2), S^T and dP^T (BQ / 2 each) and their
@@ -134,6 +145,7 @@
 // ptxas (CUDA 12.8) reports no spills and no serialized wgmmas; registers
 // a thread, dK/dV pass and dQ pass: 168 and 134 at (64, 64), 232 and 164
 // at (128, 128), 227 and 198 at (192, 128), 230 and 184 at (160, 160);
+// position-masked: 171 and 132, 235 and 167, 230 and 196, 235 and 180;
 // printed by python -c "from repro_torch.kernels import build;
 // build.build(['flash_attention_bwd_wgmma'], verbose=True)".
 //
@@ -147,6 +159,7 @@
 // on torch's current stream.
 
 #include "hopper.cuh"
+#include "positions.cuh"
 
 namespace {
 
@@ -318,12 +331,13 @@ struct KvSmem {
 };
 
 // dK/dV pass: one CTA per (b, kv head, 128-key block).
-template <int DQK, int DV, int BQ>
+template <int DQK, int DV, int BQ, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map,
            const __grid_constant__ Maps v_map, const __grid_constant__ Maps o_map,
            const float* __restrict__ ls, const float* __restrict__ dd,
-           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n_heads,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+           const int* __restrict__ q_pos, const int* __restrict__ k_pos, int n_heads,
            int n_kv_heads, int s_len, int t_len, int s_pad, int causal, int window, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;  // swizzle atoms
@@ -337,7 +351,10 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
   const int q_lo = causal ? k0 : 0;
   const int q_hi = window > 0 ? min(s_len - 1, k_last + window - 1) : s_len - 1;
   const int q_first = (q_lo / BQ) * BQ;
-  const int n_tiles = q_hi >= q_first ? (q_hi - q_first) / BQ + 1 : 0;
+  int n_tiles = q_hi >= q_first ? (q_hi - q_first) / BQ + 1 : 0;
+  // kPos: the listed q tiles (a count, then an entry a tile)
+  int* tiles = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(&sm) + sizeof(sm));
+  auto q_of = [&](int i) { return kPos ? (tiles[1 + i] & ~kTileFull) * BQ : q_first + i * BQ; };
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.kv_full, 1);
@@ -349,11 +366,20 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
   }
   __syncthreads();
 
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&sm.kv_full, tile_bytes<kKeyBlock, DQK>() + tile_bytes<kKeyBlock, DV>());
+    load_tile(sm.k, k_map, &sm.kv_full, hk, k0, b);
+    load_tile(sm.v, v_map, &sm.kv_full, hk, k0, b);
+  }
+  if constexpr (kPos) {  // the K and V tiles load while every warp lists the q tiles
+    n_tiles = list_tiles(tiles + 1, tiles, q_pos, BQ, (s_len + BQ - 1) / BQ, s_len,
+                         warp_range(k_pos, k0, kKeyBlock, t_len), false, causal, window);
+  }
   // ring tile j is q tile j % n_tiles of query head hk G + j / n_tiles
   const int n_total = g_count * n_tiles;
   auto issue = [&](int j) {
     const int st = j % kStages, h = hk * g_count + j / n_tiles;
-    const int q0 = q_first + (j % n_tiles) * BQ;
+    const int q0 = q_of(j % n_tiles);
     const int64_t rows = (static_cast<int64_t>(b) * n_heads + h) * s_pad;
     mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
     mbar_expect_tx(&sm.full[st], kStageBytes);
@@ -372,12 +398,7 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
            (next <= it || mbar_ready(&sm.empty[next % kStages], ((next / kStages) & 1) ^ 1)))
       issue(next++);
   };
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.kv_full, tile_bytes<kKeyBlock, DQK>() + tile_bytes<kKeyBlock, DV>());
-    load_tile(sm.k, k_map, &sm.kv_full, hk, k0, b);
-    load_tile(sm.v, v_map, &sm.kv_full, hk, k0, b);
-    refill(0);
-  }
+  if (threadIdx.x == 0) refill(0);
 
   // ---- consumers: 64 keys per warpgroup ----
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
@@ -387,6 +408,11 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
   const int kw_last = min(kw + 63, t_len - 1);
   const float cs = scale * kLog2e;
   const Mask mask{s_len, t_len, causal, window};
+  int key_pos[2] = {-1, -1};  // kPos: the positions of keys key0 and key0 + 8 (-1 past T)
+  if constexpr (kPos) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) key_pos[r] = key0 + 8 * r < t_len ? k_pos[key0 + 8 * r] : -1;
+  }
   float acc_k[DQK / 2], acc_v[DV / 2];
 #pragma unroll
   for (int i = 0; i < DQK / 2; ++i) acc_k[i] = 0.0f;
@@ -397,14 +423,17 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
   mbar_wait(&sm.kv_full, 0);
   for (int it = 0; it < n_total; ++it) {
     if (threadIdx.x == 0) refill(it);
-    const int st = it % kStages, q0 = q_first + (it % n_tiles) * BQ;
+    const int st = it % kStages, q0 = q_of(it % n_tiles);
     const int row_last = min(q0 + BQ, s_len) - 1;
-    const bool sees = kw < t_len && (!causal || kw <= row_last) &&
-                      (window <= 0 || kw_last > q0 - window);
+    const bool sees = kPos ? kw < t_len
+                           : kw < t_len && (!causal || kw <= row_last) &&
+                                 (window <= 0 || kw_last > q0 - window);
     mbar_wait(&sm.full[st], (it / kStages) & 1);
     if (sees) {
-      const bool edge = q0 + BQ > s_len || kw + 64 > t_len || (causal && kw + 63 > q0) ||
-                        (window > 0 && kw <= q0 + BQ - 1 - window);
+      const bool edge = kPos ? q0 + BQ > s_len || kw + 64 > t_len ||
+                                   !(tiles[1 + it % n_tiles] & kTileFull)
+                             : q0 + BQ > s_len || kw + 64 > t_len || (causal && kw + 63 > q0) ||
+                                   (window > 0 && kw <= q0 + BQ - 1 - window);
       const float* ls_s = sm.ls[st];
       const float* dd_s = sm.dd[st];
       // S^T = K Q^T and dP^T = V dO^T, two commit groups
@@ -415,6 +444,24 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
       ss_steps<BQ, DV, kKeyBlock, BQ>(dp, va, k_major(sm.dout[st], 0));
       wgmma_commit();
       if (threadIdx.x == 0) refill(it);
+      uint32_t vis_bits = 0;  // kPos: bit i = score register i's visibility, on an edge tile
+      if constexpr (kPos) {
+        if (edge) {
+#pragma unroll 1
+          for (int jb = 0; jb < BQ / 8; ++jb) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int row = q0 + 8 * jb + c0 + c;
+              if (row >= s_len) continue;
+              const int qp = q_pos[row];
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (key0 + 8 * r < t_len && pos_visible(qp, key_pos[r], causal, window))
+                  vis_bits |= 1u << (4 * jb + 2 * r + c);
+            }
+          }
+        }
+      }
       wgmma_wait<1>();
       fence_regs(s);
       // P^T on the visible (key, row) pairs; columns are q rows
@@ -422,7 +469,11 @@ dkv_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_ma
       for (int i = 0; i < BQ / 2; ++i) {
         const int col = 8 * (i >> 2) + c0 + (i & 1);
         float p = ex2(fmaf(s[i], cs, -ls_s[col]));
-        if (edge && !mask.visible(q0 + col, key0 + 8 * ((i >> 1) & 1))) p = 0.0f;
+        if constexpr (kPos) {
+          if (edge && !((vis_bits >> i) & 1)) p = 0.0f;
+        } else {
+          if (edge && !mask.visible(q0 + col, key0 + 8 * ((i >> 1) & 1))) p = 0.0f;
+        }
         s[i] = p;
       }
       wgmma_wait<0>();
@@ -487,12 +538,13 @@ struct QSmem {
 };
 
 // dQ pass: one CTA per (b, q head, 128-row q tile).
-template <int DQK, int DV>
+template <int DQK, int DV, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map,
           const __grid_constant__ Maps v_map, const __grid_constant__ Maps o_map,
           const float* __restrict__ ls, const float* __restrict__ dd,
-          __nv_bfloat16* __restrict__ dq, int n_heads, int n_kv_heads, int s_len, int t_len,
+          __nv_bfloat16* __restrict__ dq, const int* __restrict__ q_pos,
+          const int* __restrict__ k_pos, int n_heads, int n_kv_heads, int s_len, int t_len,
           int s_pad, int causal, int window, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -507,7 +559,11 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
   const int first = lo / kKeyTile;
-  const int n_tiles = hi >= first * kKeyTile ? (hi - first * kKeyTile) / kKeyTile + 1 : 0;
+  int n_tiles = hi >= first * kKeyTile ? (hi - first * kKeyTile) / kKeyTile + 1 : 0;
+  // kPos: the listed key tiles (a count, then an entry a tile)
+  int* tiles = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(&sm) + sizeof(sm));
+  auto k_of = [&](int j) { return kPos ? (tiles[1 + j] & ~kTileFull) * kKeyTile
+                                       : (first + j) * kKeyTile; };
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.qo_full, 1);
@@ -520,7 +576,7 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
   __syncthreads();
 
   auto issue = [&](int j) {
-    const int st = j % kStages, k0 = (first + j) * kKeyTile;
+    const int st = j % kStages, k0 = k_of(j);
     mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
     mbar_expect_tx(&sm.full[st], kStageBytes);
     load_tile(sm.k[st], k_map, &sm.full[st], hk, k0, b);
@@ -530,6 +586,12 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
     mbar_expect_tx(&sm.qo_full, tile_bytes<kRowBlock, DQK>() + tile_bytes<kRowBlock, DV>());
     load_tile(sm.q, q_map, &sm.qo_full, h, q0, b);
     load_tile(sm.dout, o_map, &sm.qo_full, h, q0, b);
+  }
+  if constexpr (kPos) {  // the q and dO tiles load while every warp lists the key tiles
+    n_tiles = list_tiles(tiles + 1, tiles, k_pos, kKeyTile, (t_len + kKeyTile - 1) / kKeyTile,
+                         t_len, warp_range(q_pos, q0, kRowBlock, s_len), true, causal, window);
+  }
+  if (threadIdx.x == 0) {
     for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) issue(j);
   }
 
@@ -542,11 +604,13 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
   const float cs = scale * kLog2e;
   const Mask mask{s_len, t_len, causal, window};
   float ls_r[2], dd_r[2];  // rows < s_pad: the scratch holds 0 past S
+  int row_pos[2] = {0, 0};  // kPos: the positions of rows row0 and row0 + 8 (any past S)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t at = (static_cast<int64_t>(b) * n_heads + h) * s_pad + row0 + 8 * r;
     ls_r[r] = ls[at];
     dd_r[r] = dd[at];
+    if constexpr (kPos) row_pos[r] = q_pos[min(row0 + 8 * r, s_len - 1)];
   }
   float acc[DQK / 2];
 #pragma unroll
@@ -556,14 +620,17 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
   mbar_wait(&sm.qo_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     if (threadIdx.x == 0 && j + kStages - 1 < n_tiles) issue(j + kStages - 1);
-    const int st = j % kStages, k0 = (first + j) * kKeyTile;
-    const bool sees = rw < s_len && (!causal || k0 <= rw_last) &&
-                      (window <= 0 || min(k0 + kKeyTile - 1, t_len - 1) > rw - window);
+    const int st = j % kStages, k0 = k_of(j);
+    const bool sees = kPos ? rw < s_len
+                           : rw < s_len && (!causal || k0 <= rw_last) &&
+                                 (window <= 0 || min(k0 + kKeyTile - 1, t_len - 1) > rw - window);
     mbar_wait(&sm.full[st], (j / kStages) & 1);
     if (sees) {
-      const bool edge = rw + 64 > s_len || k0 + kKeyTile > t_len ||
-                        (causal && k0 + kKeyTile - 1 > rw) ||
-                        (window > 0 && k0 <= rw + 63 - window);
+      const bool edge = kPos ? rw + 64 > s_len || k0 + kKeyTile > t_len ||
+                                   !(tiles[1 + j] & kTileFull)
+                             : rw + 64 > s_len || k0 + kKeyTile > t_len ||
+                                   (causal && k0 + kKeyTile - 1 > rw) ||
+                                   (window > 0 && k0 <= rw + 63 - window);
       // S = Q K^T and dP = dO V^T, two commit groups
       float s[kKeyTile / 2], dp[kKeyTile / 2];
       wgmma_fence();
@@ -571,13 +638,34 @@ dq_kernel(const __grid_constant__ Maps q_map, const __grid_constant__ Maps k_map
       wgmma_commit();
       ss_steps<kKeyTile, DV, kRowBlock, kKeyTile>(dp, oa, k_major(sm.v[st], 0));
       wgmma_commit();
+      uint32_t vis_bits = 0;  // kPos: bit i = score register i's visibility, on an edge tile
+      if constexpr (kPos) {
+        if (edge) {
+#pragma unroll 1
+          for (int jb = 0; jb < kKeyTile / 8; ++jb) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int key = k0 + 8 * jb + c0 + c;
+              const int kp = key < t_len ? k_pos[key] : -1;
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (row0 + 8 * r < s_len && pos_visible(row_pos[r], kp, causal, window))
+                  vis_bits |= 1u << (4 * jb + 2 * r + c);
+            }
+          }
+        }
+      }
       wgmma_wait<1>();
       fence_regs(s);
 #pragma unroll
       for (int i = 0; i < kKeyTile / 2; ++i) {
         const int r = (i >> 1) & 1;
         float p = ex2(fmaf(s[i], cs, -ls_r[r]));
-        if (edge && !mask.visible(row0 + 8 * r, k0 + 8 * (i >> 2) + c0 + (i & 1))) p = 0.0f;
+        if constexpr (kPos) {
+          if (edge && !((vis_bits >> i) & 1)) p = 0.0f;
+        } else {
+          if (edge && !mask.visible(row0 + 8 * r, k0 + 8 * (i >> 2) + c0 + (i & 1))) p = 0.0f;
+        }
         s[i] = p;
       }
       wgmma_wait<0>();
@@ -641,22 +729,31 @@ bool encode_maps(EncodeTiled encode, Maps* m, const void* base, int d, int heads
   return one(&m->tail, kTail, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-template <int DQK, int DV, int BQ>
+template <int DQK, int DV, int BQ, bool kPos>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* lse,
-           const void* dout, void* dq, void* dk, void* dv, void* aux, int batch, int n_heads,
-           int n_kv_heads, int s_len, int t_len, int causal, int window, float scale,
-           void* stream) {
-  constexpr int kv_smem = static_cast<int>(sizeof(KvSmem<DQK, DV, BQ>)) + 1024;  // + alignment
-  constexpr int q_smem = static_cast<int>(sizeof(QSmem<DQK, DV>)) + 1024;
-  static_assert(kv_smem <= 232448 && q_smem <= 232448,
+           const void* dout, void* dq, void* dk, void* dv, void* aux, const int* q_pos,
+           const int* k_pos, int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+           int causal, int window, float scale, void* stream) {
+  constexpr int kMaxSmem = 232448;  // the 227 KB of shared memory an H100 block may take
+  constexpr int kv_base = static_cast<int>(sizeof(KvSmem<DQK, DV, BQ>)) + 1024;  // + alignment
+  constexpr int q_base = static_cast<int>(sizeof(QSmem<DQK, DV>)) + 1024;
+  static_assert(kv_base <= kMaxSmem && q_base <= kMaxSmem,
                 "over the 227 KB of shared memory an H100 block may take");
+  // kPos: each pass's tile list, a count then an entry a tile
+  const int64_t kv_smem64 = kv_base + (kPos ? 4 * (static_cast<int64_t>(s_len + BQ - 1) / BQ + 1) : 0);
+  const int64_t q_smem64 =
+      q_base + (kPos ? 4 * (static_cast<int64_t>(t_len + kKeyTile - 1) / kKeyTile + 1) : 0);
+  if (kv_smem64 > kMaxSmem || q_smem64 > kMaxSmem) return kErrTileList;
+  const int kv_smem = static_cast<int>(kv_smem64), q_smem = static_cast<int>(q_smem64);
   static bool configured = false;  // raise the dynamic shared memory limits once
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV, BQ>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+    cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DQK, DV, BQ, kPos>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kPos ? kMaxSmem : kv_base);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 q_smem);
+      err = cudaFuncSetAttribute(dq_kernel<DQK, DV, kPos>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kPos ? kMaxSmem : q_base);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -680,11 +777,11 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
         !encode_maps(encode, &v_map, v, DV, n_kv_heads, t_len, batch, kKeyBlock)) {
       return kErrBadMap;
     }
-    dkv_kernel<DQK, DV, BQ><<<dim3((t_len + kKeyBlock - 1) / kKeyBlock, n_kv_heads, batch),
-                              kThreads, kv_smem, st>>>(
-        q_map, k_map, v_map, o_map, ls, dd, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), n_heads, n_kv_heads, s_len, t_len, s_pad, causal,
-        window, scale);
+    dkv_kernel<DQK, DV, BQ, kPos>
+        <<<dim3((t_len + kKeyBlock - 1) / kKeyBlock, n_kv_heads, batch), kThreads, kv_smem,
+           st>>>(q_map, k_map, v_map, o_map, ls, dd, static_cast<__nv_bfloat16*>(dk),
+                 static_cast<__nv_bfloat16*>(dv), q_pos, k_pos, n_heads, n_kv_heads, s_len,
+                 t_len, s_pad, causal, window, scale);
   }
   if (!encode_maps(encode, &q_map, q, DQK, n_heads, s_len, batch, kRowBlock) ||
       !encode_maps(encode, &o_map, dout, DV, n_heads, s_len, batch, kRowBlock)) {
@@ -699,10 +796,10 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
     k_map = q_map;  // no key tile is loaded
     v_map = o_map;
   }
-  dq_kernel<DQK, DV><<<dim3((s_len + kRowBlock - 1) / kRowBlock, n_heads, batch), kThreads,
-                       q_smem, st>>>(q_map, k_map, v_map, o_map, ls, dd,
-                                     static_cast<__nv_bfloat16*>(dq), n_heads, n_kv_heads,
-                                     s_len, t_len, s_pad, causal, window, scale);
+  dq_kernel<DQK, DV, kPos><<<dim3((s_len + kRowBlock - 1) / kRowBlock, n_heads, batch),
+                             kThreads, q_smem, st>>>(
+      q_map, k_map, v_map, o_map, ls, dd, static_cast<__nv_bfloat16*>(dq), q_pos, k_pos,
+      n_heads, n_kv_heads, s_len, t_len, s_pad, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -714,19 +811,28 @@ extern "C" {
 // head_dim_v), out and dout (B, S, H, head_dim_v), dq, dk, dv like q, k, v,
 // contiguous with 16-byte aligned starts; lse (B, H, S) float32 from the
 // forward; aux a float32 scratch of 2 * B * H * S_pad, S_pad = S rounded up
-// to 128. (head_dim, head_dim_v) = (64, 64), (128, 128), (192, 128) or
-// (160, 160); H a multiple of Hkv. Enqueues three grids on `stream`;
-// returns cudaGetLastError() after them (0 = launched), or a negative code
-// when a TMA tensor map could not be built.
+// to 128; q_pos and k_pos both null (the index mask) or the forward's
+// int32 (S,) and (T,) position vectors. (head_dim, head_dim_v) = (64, 64),
+// (128, 128), (192, 128) or (160, 160); H a multiple of Hkv. Enqueues three
+// grids on `stream`; returns cudaGetLastError() after them (0 = launched),
+// or a negative code when a TMA tensor map could not be built (-1, -2) or a
+// tile list does not fit in shared memory (-3).
 int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
                                    const void* lse, const void* dout, void* dq, void* dk,
-                                   void* dv, void* aux, int batch, int n_heads, int n_kv_heads,
-                                   int s_len, int t_len, int head_dim, int head_dim_v,
-                                   int causal, int window, float scale, void* stream) {
+                                   void* dv, void* aux, const int* q_pos, const int* k_pos,
+                                   int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+                                   int head_dim, int head_dim_v, int causal, int window,
+                                   float scale, void* stream) {
 #define REPRO_FA_BWD(DQK, DV, BQ)                                                               \
-  if (head_dim == DQK && head_dim_v == DV)                                                     \
-    return launch<DQK, DV, BQ>(q, k, v, out, lse, dout, dq, dk, dv, aux, batch, n_heads,       \
-                               n_kv_heads, s_len, t_len, causal, window, scale, stream);
+  if (head_dim == DQK && head_dim_v == DV) {                                                  \
+    if (q_pos != nullptr)                                                                     \
+      return launch<DQK, DV, BQ, true>(q, k, v, out, lse, dout, dq, dk, dv, aux, q_pos,       \
+                                       k_pos, batch, n_heads, n_kv_heads, s_len, t_len,       \
+                                       causal, window, scale, stream);                        \
+    return launch<DQK, DV, BQ, false>(q, k, v, out, lse, dout, dq, dk, dv, aux, q_pos, k_pos, \
+                                      batch, n_heads, n_kv_heads, s_len, t_len, causal,       \
+                                      window, scale, stream);                                 \
+  }
   REPRO_FA_BWD(64, 64, 64)
   REPRO_FA_BWD(128, 128, 64)
   REPRO_FA_BWD(192, 128, 32)

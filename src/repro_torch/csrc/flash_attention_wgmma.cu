@@ -13,7 +13,10 @@
 // (160, 160)), with G = H / Hkv (any integer: chatglm3's 16, qwen2-vl's 6):
 //   out[b, s, h] = softmax_t(mask(q[b, s, h] . k[b, t, h / G] * scale)) @ v[b, :, h / G]
 // where key t is visible to query s iff t < T, t <= s when causal, and
-// t > s - window when window > 0 (positions are the indices). The softmax
+// t > s - window when window > 0 (positions are the indices), or, where the
+// caller passes position vectors q_pos (S,) and k_pos (T,), iff t < T and
+// positions.cuh's rule holds (JAX's chunked_attention mask; M-RoPE's t
+// stream gives all of an image's tokens one position). The softmax
 // is online over key tiles (128 keys; 64 at (160, 160)): float32 scores, running max m and sum l,
 // p = exp(s - m_new) in float32 (a masked key gives p = 0 exactly), l sums
 // the float32 p, and P is rounded to bf16 before P.V, which accumulates in
@@ -82,6 +85,18 @@
 //   wgmmas ("insufficient register resources") and it ran slower.
 // - Key tiles that the mask hides from every row of the q tile (above the
 //   diagonal, or wholly before the window) are neither loaded nor computed.
+// - Position masks (the kPos instantiation; null pointers launch the index
+//   one, unchanged). The visible key tiles of a q tile are no longer a run
+//   of indices, so the CTA lists them first: while the q tile loads, its 12
+//   warps reduce the positions of its 128 rows and of each key tile to
+//   their min and max (warp_range) and keep, in order, the tiles where some
+//   pair may be visible, flagging those where every pair is (list_tiles, in
+//   shared memory after the ring: 4 bytes a key tile). Producer and
+//   consumers then walk the list as they walked the run; a tile flagged
+//   whole is not masked. On a tile that is masked, each consumer thread
+//   first gathers the positions of its 32 keys into a bit mask of its 64
+//   scores (before its S lands), so the masking keeps the index version's
+//   form. The TMA boxes and wgmma tiles are laid out as before.
 // - (160, 160), stablelm-12b. 160 is not a multiple of the 64-column span,
 //   so every tile's third span is a full 64-column box at column 128 whose
 //   last 32 columns lie past D: TMA fills them with zeros (the tensors are
@@ -105,7 +120,9 @@
 // ptxas (CUDA 12.8) reports 168 registers for every instantiation
 // (setmaxnreg moves registers at run time but ptxas still allocates within
 // 168), no spills at D = 128, at (192, 128) and at (160, 160) with its
-// 64-key tiles, 80 bytes of spill stores at D = 64; printed by
+// 64-key tiles, 84 bytes of spill stores at D = 64; the position-masked
+// instantiations 216 bytes at D = 128 and at (192, 128), none at D = 64
+// and (160, 160); printed by
 // `python -c "from repro_torch.kernels import build; build.build(verbose=True)"`.
 //
 // TMA's tensor maps need the CUDA driver API's cuTensorMapEncodeTiled; it is taken
@@ -119,6 +136,7 @@
 // stream.
 
 #include "hopper.cuh"
+#include "positions.cuh"
 
 namespace {
 
@@ -194,12 +212,13 @@ __device__ __forceinline__ void bar_arrive(int id) {
 }
 
 
-template <int DQK, int DV, int BN>
+template <int DQK, int DV, int BN, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                             const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                              int n_heads, int n_kv_heads, int s_len, int t_len, int causal,
                              int window, float scale) {
   static_assert((DQK == 64 && DV == 64 && BN == 128) ||
@@ -221,11 +240,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int hk = h / (n_heads / n_kv_heads);
 
   // key tiles visible to some row of this q tile: first .. first + n_tiles - 1
+  // (under positions the list's n_tiles entries)
   const int q_last = min(q0 + kBlockM, s_len) - 1;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(t_len - 1, q_last) : t_len - 1;
   const int first = lo / BN;
-  const int n_tiles = hi >= first * BN ? (hi - first * BN) / BN + 1 : 0;
+  int n_tiles = hi >= first * BN ? (hi - first * BN) / BN + 1 : 0;
+  int* tiles = reinterpret_cast<int*>(smem_raw + pad + sizeof(Smem<DQK, DV, BN>));  // kPos
+  // the key tile of step j, and whether every pair of it is visible (kPos)
+  auto tile_of = [&](int j) { return kPos ? (tiles[1 + j] & ~kTileFull) : first + j; };
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
@@ -237,19 +260,28 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  auto load_q = [&] {
+    mbar_expect_tx(&sm.q_full, kQTileBytes);
+    for (int c = 0; c < spans(DQK); ++c)
+      tma_load(&sm.q[c][0][0], &q_map, &sm.q_full, c * kSpan, h, q0, b);
+  };
+  if constexpr (kPos) {  // the q tile loads while every warp lists the key tiles
+    if (threadIdx.x == kConsumers * 128) load_q();
+    const int n_all = (t_len + BN - 1) / BN;
+    n_tiles = list_tiles(tiles + 1, tiles, k_pos, BN, n_all, t_len,
+                         warp_range(q_pos, q0, kBlockM, s_len), true, causal, window);
+  }
 
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread issues every TMA load of the CTA ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(&sm.q_full, kQTileBytes);
-      for (int c = 0; c < spans(DQK); ++c)
-        tma_load(&sm.q[c][0][0], &q_map, &sm.q_full, c * kSpan, h, q0, b);
+      if constexpr (!kPos) load_q();
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&sm.kv_empty[st], ((j / kStages) & 1) ^ 1);  // passes at once on first use
-        const int k0 = (first + j) * BN;
+        const int k0 = tile_of(j) * BN;
         mbar_expect_tx(&sm.k_full[st], kKTileBytes);
         for (int c = 0; c < spans(DQK); ++c)
           tma_load(&sm.k[st][c][0][0], &k_map, &sm.k_full[st], c * kSpan, hk, k0, b);
@@ -279,10 +311,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       key_hi[r] = causal ? min(t_len - 1, row) : t_len - 1;
       key_lo[r] = window > 0 ? row - window + 1 : 0;
     }
+    int row_pos[2] = {0, 0};  // kPos: the positions of rows r0 and r0 + 8 (any past S)
+    if constexpr (kPos) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) row_pos[r] = q_pos[min(r0 + 8 * r, s_len - 1)];
+    }
+    // kPos: bit i of a masked tile's S register i is its visibility
+    uint64_t vis_bits = 0;
     // visibility of S register i (row r0 + 8 * ((i >> 1) & 1), key k0 + c0 + 8 * (i >> 2) + (i & 1))
     auto visible = [&](int k0, int i) {
-      const int key = k0 + c0 + 8 * (i >> 2) + (i & 1);
-      return key >= key_lo[(i >> 1) & 1] && key <= key_hi[(i >> 1) & 1];
+      if constexpr (kPos) {
+        return ((vis_bits >> i) & 1) != 0;
+      } else {
+        const int key = k0 + c0 + 8 * (i >> 2) + (i & 1);
+        return key >= key_lo[(i >> 1) & 1] && key <= key_hi[(i >> 1) & 1];
+      }
     };
     // wgmma descriptors of the tiles' starts; steps add 16-byte units to them
     const uint64_t q_desc = sw128_desc(&sm.q[0][wg * 64][0], 16, 1024);
@@ -300,7 +343,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % kStages;
       const uint32_t parity = (j / kStages) & 1;
-      const int k0 = (first + j) * BN;
+      const int k0 = tile_of(j) * BN;
+      bool edge = false;
+      if constexpr (kPos) {
+        edge = !(tiles[1 + j] & kTileFull) || k0 + BN > t_len;
+        if (edge) {  // the 64 scores' visibility, from the positions of the thread's 32 keys
+          vis_bits = 0;
+#pragma unroll 1
+          for (int jb = 0; jb < BN / 8; ++jb) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int key = k0 + c0 + 8 * jb + c;
+              const int kp = key < t_len ? k_pos[key] : -1;
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (pos_visible(row_pos[r], kp, causal, window))
+                  vis_bits |= 1ull << (4 * jb + 2 * r + c);
+            }
+          }
+        }
+      }
 
       // S = Q . K^T: DQK/16 wgmma steps, 32 bytes into each 128-byte span row
       float s[BN / 2];
@@ -314,8 +376,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_regs(s);
 
       // online softmax on the fragment: mask, row max, p = exp(s - m_new)
-      const bool edge = (causal && k0 + BN - 1 > q0) ||
-                        (window > 0 && k0 <= q0 + kBlockM - 1 - window) || k0 + BN > t_len;
+      if constexpr (!kPos) {
+        edge = (causal && k0 + BN - 1 > q0) ||
+               (window > 0 && k0 <= q0 + kBlockM - 1 - window) || k0 + BN > t_len;
+      }
       float mx[2] = {m[0], m[1]};
       if (edge) {
 #pragma unroll
@@ -428,17 +492,22 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d, i
 }
 
 
-template <int DQK, int DV, int BN>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
-           int n_heads, int n_kv_heads, int s_len, int t_len, int causal, int window,
-           float scale, void* stream) {
-  constexpr int smem = static_cast<int>(sizeof(Smem<DQK, DV, BN>)) + 1024;  // + alignment slack
-  static_assert(smem <= 232448, "over the 227 KB of shared memory an H100 block may take");
+template <int DQK, int DV, int BN, bool kPos>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const int* q_pos,
+           const int* k_pos, int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
+           int causal, int window, float scale, void* stream) {
+  constexpr int kMaxSmem = 232448;  // the 227 KB of shared memory an H100 block may take
+  constexpr int base = static_cast<int>(sizeof(Smem<DQK, DV, BN>)) + 1024;  // + alignment slack
+  static_assert(base <= kMaxSmem, "over the 227 KB of shared memory an H100 block may take");
+  // kPos: the key tile list (a count, then an entry a key tile)
+  const int64_t smem64 = base + (kPos ? 4 * (static_cast<int64_t>(t_len + BN - 1) / BN + 1) : 0);
+  if (smem64 > kMaxSmem) return kErrTileList;
+  const int smem = static_cast<int>(smem64);
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQK, DV, BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(flash_attention_wgmma_kernel<DQK, DV, BN, kPos>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kPos ? kMaxSmem : base);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -456,11 +525,22 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   } else {
     k_map = v_map = q_map;  // no key tile is loaded
   }
-  flash_attention_wgmma_kernel<DQK, DV, BN><<<grid, kThreads, smem,
-                                              static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), n_heads,
-      n_kv_heads, s_len, t_len, causal, window, scale);
+  flash_attention_wgmma_kernel<DQK, DV, BN, kPos><<<grid, kThreads, smem,
+                                                    static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), q_pos,
+      k_pos, n_heads, n_kv_heads, s_len, t_len, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DQK, int DV, int BN>
+int launch_mask(const void* q, const void* k, const void* v, void* out, void* lse,
+                const int* q_pos, const int* k_pos, int batch, int n_heads, int n_kv_heads,
+                int s_len, int t_len, int causal, int window, float scale, void* stream) {
+  if (q_pos != nullptr)
+    return launch<DQK, DV, BN, true>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads,
+                                     n_kv_heads, s_len, t_len, causal, window, scale, stream);
+  return launch<DQK, DV, BN, false>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads, n_kv_heads,
+                                    s_len, t_len, causal, window, scale, stream);
 }
 
 }  // namespace
@@ -470,25 +550,25 @@ extern "C" {
 // bfloat16 q (B, S, H, DQK), k (B, T, Hkv, DQK), v and out (B, T or S, Hkv
 // or H, DV), contiguous with 16-byte aligned starts; (head_dim, head_dim_v)
 // = (64, 64), (128, 128), (192, 128) or (160, 160); H a multiple of Hkv;
-// lse null, or float32 (B, H, S) for the rows' logsumexp. Returns
-// cudaGetLastError() after the launch (0 = launched), or a negative code
-// when a TMA tensor map could not be built.
+// lse null, or float32 (B, H, S) for the rows' logsumexp; q_pos and k_pos
+// both null (the index mask), or int32 (S,) and (T,) position vectors.
+// Returns cudaGetLastError() after the launch (0 = launched), or a negative
+// code when a TMA tensor map could not be built (-1, -2) or the key tile
+// list does not fit in shared memory (-3).
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
-                               int batch, int n_heads, int n_kv_heads, int s_len, int t_len,
-                               int head_dim, int head_dim_v, int causal, int window, float scale,
+                               const int* q_pos, const int* k_pos, int batch, int n_heads,
+                               int n_kv_heads, int s_len, int t_len, int head_dim,
+                               int head_dim_v, int causal, int window, float scale,
                                void* stream) {
-  if (head_dim == 64 && head_dim_v == 64)
-    return launch<64, 64, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
-                               causal, window, scale, stream);
-  if (head_dim == 128 && head_dim_v == 128)
-    return launch<128, 128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
-                                 causal, window, scale, stream);
-  if (head_dim == 192 && head_dim_v == 128)
-    return launch<192, 128, 128>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
-                                 causal, window, scale, stream);
-  if (head_dim == 160 && head_dim_v == 160)
-    return launch<160, 160, 64>(q, k, v, out, lse, batch, n_heads, n_kv_heads, s_len, t_len,
-                                causal, window, scale, stream);
+#define REPRO_FA(DQK, DV, BN)                                                                   \
+  if (head_dim == DQK && head_dim_v == DV)                                                    \
+    return launch_mask<DQK, DV, BN>(q, k, v, out, lse, q_pos, k_pos, batch, n_heads,          \
+                                    n_kv_heads, s_len, t_len, causal, window, scale, stream);
+  REPRO_FA(64, 64, 128)
+  REPRO_FA(128, 128, 128)
+  REPRO_FA(192, 128, 128)
+  REPRO_FA(160, 160, 64)
+#undef REPRO_FA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel of the JAX package:
 //   src/repro/kernels/ssm_scan/kernel.py:ssm_scan_kernel (_ssm_kernel)
 //
-// What it computes, from h = 0, for dt and x (B, S, di), B and C (B, S, ds)
+// What it computes, from h = 0 (or, where the caller passes an `h0` pointer,
+// from the carried state h0 (B, di, ds) float32: a prefill that continues a
+// cache), for dt and x (B, S, di), B and C (B, S, ds)
 // (all four of one stream type, float32 or bfloat16), A (di, ds) and
 // D (di,) float32:
 //   h[b,c,:] = exp(dt[b,t,c] * A[c,:]) * h[b,c,:] + (dt[b,t,c] * x[b,t,c]) * B[b,t,:]
@@ -15,7 +17,9 @@
 // (ceil(S / 128), B, di, ds) float32: the residuals of the JAX package's
 // models/ssm_vjp._fwd, from which ssm_scan_bwd.cu recomputes each chunk.
 // The state goes out before every fourth 32-step stage; a null pointer
-// writes nothing else and leaves the arithmetic as it was.
+// writes nothing else and leaves the arithmetic as it was. hs[0] is h0 where
+// one is given. A start state is read once, into the state registers the
+// scan starts from (h = 0 otherwise): nothing else changes.
 // The arithmetic is the Pallas kernel's order, (dt*x)*B, with
 //   exp(dt*A) = ex2.approx.ftz(dt * A')   A' = A * log2(e), kept in registers
 //   h = fma(exp(dt*A), h, (dt*x) * B)     y = fma(h, C, y) over n, then fma(D, x, y)
@@ -203,8 +207,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ssm_scan_kernel(const Tin* __restrict__ dt, const float* __restrict__ a,
                 const Tin* __restrict__ bm, const Tin* __restrict__ cm,
                 const Tin* __restrict__ x, const float* __restrict__ d, Tout* __restrict__ y,
-                float* __restrict__ h_out, float* __restrict__ hs, int s_len, int di,
-                int vec_in) {
+                float* __restrict__ h_out, float* __restrict__ hs,
+                const float* __restrict__ h0, int s_len, int di, int vec_in) {
   constexpr int L = kLanes, kS = DS / kLanes;  // kS: this thread's states, 8 or 4
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<Tin, DS>& sm = *reinterpret_cast<Smem<Tin, DS>*>(smem_raw);
@@ -219,10 +223,11 @@ ssm_scan_kernel(const Tin* __restrict__ dt, const float* __restrict__ a,
   const bool active = c < di;
 
   float ap[kS], h[kS];
+  const int64_t h_at = (static_cast<int64_t>(b) * di + c) * DS + kS * q;  // this thread's states
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
     ap[j] = active ? a[static_cast<int64_t>(c) * DS + kS * q + j] * kLog2e : 0.0f;
-    h[j] = 0.0f;
+    h[j] = h0 != nullptr && active ? h0[h_at + j] : 0.0f;
   }
   const float d_c = active ? d[c] : 0.0f;
 
@@ -298,8 +303,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <typename Tin, typename Tout, int DS>
 int launch(const void* dt, const void* a, const void* bm, const void* cm, const void* x,
-           const void* d, void* y, void* h, void* hs, int batch, int s_len, int di,
-           void* stream) {
+           const void* d, void* y, void* h, void* hs, const void* h0, int batch, int s_len,
+           int di, void* stream) {
   constexpr int smem = static_cast<int>(sizeof(Smem<Tin, DS>));
   static bool configured = false;  // raise the dynamic shared memory limit once
   if (!configured) {
@@ -321,20 +326,20 @@ int launch(const void* dt, const void* a, const void* bm, const void* cm, const 
                                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const Tin*>(dt), static_cast<const float*>(a), static_cast<const Tin*>(bm),
         static_cast<const Tin*>(cm), static_cast<const Tin*>(x), static_cast<const float*>(d),
-        static_cast<Tout*>(y), static_cast<float*>(h), static_cast<float*>(hs), s_len, di,
-        vec_in);
+        static_cast<Tout*>(y), static_cast<float*>(h), static_cast<float*>(hs),
+        static_cast<const float*>(h0), s_len, di, vec_in);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tin, typename Tout>
 int launch_ds(int ds, const void* dt, const void* a, const void* bm, const void* cm,
-              const void* x, const void* d, void* y, void* h, void* hs, int batch, int s_len,
-              int di, void* stream) {
+              const void* x, const void* d, void* y, void* h, void* hs, const void* h0,
+              int batch, int s_len, int di, void* stream) {
   if (ds == 8)
-    return launch<Tin, Tout, 8>(dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
+    return launch<Tin, Tout, 8>(dt, a, bm, cm, x, d, y, h, hs, h0, batch, s_len, di, stream);
   if (ds == 16)
-    return launch<Tin, Tout, 16>(dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
+    return launch<Tin, Tout, 16>(dt, a, bm, cm, x, d, y, h, hs, h0, batch, s_len, di, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -344,22 +349,25 @@ extern "C" {
 
 // in_dtype / out_dtype: 0 = float32, 1 = bfloat16; ds: 8 or 16.
 // All pointers are contiguous: dt, x (B, S, di); bm, cm (B, S, ds);
-// a (di, ds); d (di); y (B, S, di); h (B, di, ds) float32 (0 when S = 0);
-// hs null, or (ceil(S / 128), B, di, ds) float32 for the chunk start states.
+// a (di, ds); d (di); y (B, S, di); h (B, di, ds) float32 (h0's values, or
+// 0, when S = 0); hs null, or (ceil(S / 128), B, di, ds) float32 for the
+// chunk start states; h0 null (start from h = 0), or (B, di, ds) float32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int repro_ssm_scan(const void* dt, const void* a, const void* bm, const void* cm,
-                   const void* x, const void* d, void* y, void* h, void* hs, int batch,
-                   int s_len, int di, int ds, int in_dtype, int out_dtype, void* stream) {
+                   const void* x, const void* d, void* y, void* h, void* hs, const void* h0,
+                   int batch, int s_len, int di, int ds, int in_dtype, int out_dtype,
+                   void* stream) {
   if (in_dtype == 0 && out_dtype == 0)
-    return launch_ds<float, float>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di, stream);
+    return launch_ds<float, float>(ds, dt, a, bm, cm, x, d, y, h, hs, h0, batch, s_len, di,
+                                   stream);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch_ds<float, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di,
-                                           stream);
+    return launch_ds<float, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, h0, batch, s_len,
+                                           di, stream);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch_ds<__nv_bfloat16, float>(ds, dt, a, bm, cm, x, d, y, h, hs, batch, s_len, di,
-                                           stream);
+    return launch_ds<__nv_bfloat16, float>(ds, dt, a, bm, cm, x, d, y, h, hs, h0, batch, s_len,
+                                           di, stream);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch_ds<__nv_bfloat16, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, batch,
+    return launch_ds<__nv_bfloat16, __nv_bfloat16>(ds, dt, a, bm, cm, x, d, y, h, hs, h0, batch,
                                                    s_len, di, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

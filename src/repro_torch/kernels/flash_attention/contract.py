@@ -20,6 +20,10 @@ the contract when
   keeping P in float32 or a mask that drops one key, exceeds that bound on
   a far larger share and fails.
 
+Every function here takes the forward's ``q_pos`` and ``k_pos`` where the
+call masks by positions (M-RoPE's t stream), and holds it to the plain
+version under that mask with the same rules.
+
 The backward kernels compute the formulas of
 ``flash_attention_backward_plain`` in float32 (the bf16 kernel,
 ``csrc/flash_attention_bwd_wgmma.cu``, rounds P to bf16 before dV and dS
@@ -95,14 +99,15 @@ BWD_P_EPS = 2.0 ** -16
 BWD_DOT_EPS = 2.0 ** -21
 
 
-def p_rounding_slack(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
+def p_rounding_slack(q, k, v, causal: bool = True, window: int = 0, *, q_pos=None,
+                     k_pos=None) -> torch.Tensor:
     """float32 (B, S, H, Dv): for each P element of the plain version (bf16
     inputs; v's head dim Dv may differ from q's and k's, as in MLA) whose
     bf16 rounding a relative change of ``SLACK_EPS`` can flip, one bf16 ulp
     of p times |v|, summed over keys and divided by l as the output is."""
     tiny = torch.finfo(torch.float32).tiny
     l = slack = 0.0
-    for p, corr, vt, _ in softmax_tiles(q, k, v, causal, window):
+    for p, corr, vt, _ in softmax_tiles(q, k, v, causal, window, q_pos, k_pos):
         l = l * corr + p.sum(dim=-1)
         flip = (p * (1 + SLACK_EPS)).to(torch.bfloat16) != (p * (1 - SLACK_EPS)).to(torch.bfloat16)
         ulp = torch.exp2(torch.floor(torch.log2(p.clamp_min(tiny))) - 7)
@@ -110,9 +115,10 @@ def p_rounding_slack(q, k, v, causal: bool = True, window: int = 0) -> torch.Ten
     return _layout(slack / torch.clamp_min(l, 1e-30)[..., None], q)
 
 
-def bf16_contract(got, want, q, k, v, causal: bool = True, window: int = 0) -> dict:
+def bf16_contract(got, want, q, k, v, causal: bool = True, window: int = 0, *, q_pos=None,
+                  k_pos=None) -> dict:
     """``got`` (bf16) against ``want`` = ``flash_attention_plain(q, k, v,
-    causal, window)``: ``over_ulp``, the largest excess of |got - want|
+    causal, window, q_pos=, k_pos=)``: ``over_ulp``, the largest excess of |got - want|
     over 1 bf16 ulp of want + ``REL`` of max|want|, in units of max|want|;
     ``n_over``, the elements over that bound, of ``n``; ``excess``, the
     largest excess over that bound + ``p_rounding_slack``; ``ok``, whether
@@ -125,7 +131,8 @@ def bf16_contract(got, want, q, k, v, causal: bool = True, window: int = 0) -> d
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(tiny))) - 7)
     over = (got - want).abs() - ulp - REL * scale
     n_over, n, over_ulp = int((over > 0).sum()), over.numel(), float(over.max()) / scale
-    excess = float((over - p_rounding_slack(q, k, v, causal, window).to(over.device)).max()) / scale
+    slack = p_rounding_slack(q, k, v, causal, window, q_pos=q_pos, k_pos=k_pos)
+    excess = float((over - slack.to(over.device)).max()) / scale
     return dict(over_ulp=over_ulp, n_over=n_over, n=n, excess=excess,
                 ok=is_bf16 and excess <= 0 and n_over <= MAX_OVER_SHARE * n)
 
@@ -155,16 +162,19 @@ def _flips(x: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
 
 
 def bwd_references(q, k, v, out, lse, dout, causal: bool = True,
-                   window: int = 0) -> BwdReference:
-    """The ``BwdReference`` of ``flash_attention_bwd`` on these inputs: one
+                   window: int = 0, *, q_pos=None, k_pos=None) -> BwdReference:
+    """The ``BwdReference`` of ``flash_attention_bwd`` on these inputs (the
+    positions' mask where ``q_pos`` and ``k_pos`` are given): one
     float32 plain backward without rounding points, and one float64 pass
     giving the exact and (for bf16 inputs) the rounded backward and the
     flips' slack."""
     args = (q, k, v, out, lse, dout, causal, window)
     rounding = q.dtype == torch.bfloat16
-    plain32 = flash_attention_backward_plain(*args, dtype=torch.float32, rounding=False)
+    plain32 = flash_attention_backward_plain(*args, dtype=torch.float32, rounding=False,
+                                             q_pos=q_pos, k_pos=k_pos)
     exact, ref, slack = [], [], []
-    for qi, ki, vi, oi, doi, p, dp, dd in backward_terms(*args, acc_dtype=torch.float64):
+    for qi, ki, vi, oi, doi, p, dp, dd in backward_terms(*args, acc_dtype=torch.float64,
+                                                         q_pos=q_pos, k_pos=k_pos):
         ds = p * (dp - dd)
         exact.append(backward_grads(qi, ki, doi, p, ds))
         if not rounding:
@@ -208,18 +218,20 @@ def bwd_check(got, ref: BwdReference) -> dict:
     return out
 
 
-def _ds_rounded_before_d(q, k, v, out, lse, dout, causal, window):
+def _ds_rounded_before_d(q, k, v, out, lse, dout, causal, window, q_pos, k_pos):
     """The bf16 plain backward with dS = bf16(P dP) - P D (rounded before D
     is subtracted), then rounded again as it enters dK and dQ; in q's
     dtype."""
     per_entry = []
-    for qi, ki, _, _, doi, p, dp, dd in backward_terms(q, k, v, out, lse, dout, causal, window):
+    for qi, ki, _, _, doi, p, dp, dd in backward_terms(q, k, v, out, lse, dout, causal, window,
+                                                       q_pos=q_pos, k_pos=k_pos):
         ds = bf16_round(p * dp) - p * dd
         per_entry.append(backward_grads(qi, ki, doi, bf16_round(p), bf16_round(ds)))
     return stack_grads(per_entry, (q, k, v), q.dtype)
 
 
-def bwd_controls(q, k, v, out, lse, dout, causal: bool = True, window: int = 0) -> dict:
+def bwd_controls(q, k, v, out, lse, dout, causal: bool = True, window: int = 0, *,
+                 q_pos=None, k_pos=None) -> dict:
     """Faulty backwards, (dQ, dK, dV) in q's dtype each, that ``bwd_check``
     must reject: D left out of dS, P off by a relative 2^-10 (2^-6 in
     bfloat16), and for bf16 inputs dS rounded to bf16 before D is
@@ -227,10 +239,11 @@ def bwd_controls(q, k, v, out, lse, dout, causal: bool = True, window: int = 0) 
     shift = -10 if q.dtype == torch.float32 else -6
 
     def plain(o, l):
-        return flash_attention_backward_plain(q, k, v, o, l, dout, causal, window)
+        return flash_attention_backward_plain(q, k, v, o, l, dout, causal, window, q_pos=q_pos,
+                                              k_pos=k_pos)
     controls = {"D left out": plain(torch.zeros_like(out), lse),
                 f"P off by 2^{shift}": plain(out, lse - 2.0 ** shift)}
     if q.dtype == torch.bfloat16:
         controls["dS rounded before D"] = _ds_rounded_before_d(q, k, v, out, lse, dout, causal,
-                                                               window)
+                                                               window, q_pos, k_pos)
     return controls

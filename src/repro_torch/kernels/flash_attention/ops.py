@@ -25,7 +25,16 @@ Both take the model's layout, q (B, S, H, Dqk), k (B, T, Hkv, Dqk) and v
 but for MLA, whose q and k carry the decoupled RoPE dims:
 deepseek-v2-lite's (192, 128); G = H / Hkv any integer, chatglm3-6b's 16
 and qwen2-vl-2b's 6 among them); key t is visible to query s when
-t <= s (causal) and t > s - window (window > 0). Scores, the running max
+t <= s (causal) and t > s - window (window > 0). With position vectors
+``q_pos`` (S,) and ``k_pos`` (T,) (int32, shared by every row and head;
+M-RoPE's t stream, whose image tokens share one position) the mask is
+JAX's ``chunked_attention``'s instead: key t is visible to query s when
+k_pos[t] >= 0, k_pos[t] <= q_pos[s] (causal) and k_pos[t] > q_pos[s] -
+window (window > 0); the kernels then skip a key tile only where no pair
+of it can be visible and leave one unmasked only where every pair is. A
+query that sees no key gets 0 (JAX's -1e30 fill gives the mean of V over
+the masked keys there; self-attention over non-negative positions always
+sees its own key). Scores, the running max
 and sum, and the P.V accumulator are float32. In float32, P stays float32,
 as in the Pallas kernel. In bfloat16, P is rounded to bfloat16 before P.V
 (wgmma takes bf16 operands) while l sums the float32 P: the arithmetic of
@@ -103,9 +112,31 @@ def _layout(x, q):
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, h, x.shape[-1])
 
 
-def softmax_tiles(q, k, v, causal: bool, window: int):
+def _visible(s: int, k0: int, k1: int, causal: bool, window: int, q_pos, k_pos, device):
+    """The (S, k1 - k0) mask of keys k0 .. k1-1: by index (``q_pos`` None),
+    or by the positions' rule."""
+    if q_pos is None:
+        rows = torch.arange(s, device=device)[:, None]
+        keys = torch.arange(k0, k1, device=device)[None, :]
+        vis = torch.ones((s, k1 - k0), dtype=torch.bool, device=device)
+        if causal:
+            vis = vis & (keys <= rows)
+        if window:
+            vis = vis & (keys > rows - window)
+        return vis
+    qp = q_pos.to(device=device, dtype=torch.int64)[:, None]
+    kp = k_pos[k0:k1].to(device=device, dtype=torch.int64)[None, :]
+    vis = (kp >= 0).expand(s, k1 - k0)
+    if causal:
+        vis = vis & (kp <= qp)
+    if window:
+        vis = vis & (kp > qp - window)
+    return vis
+
+
+def softmax_tiles(q, k, v, causal: bool, window: int, q_pos=None, k_pos=None):
     """The kernels' online softmax over key tiles (``key_tile`` keys), in
-    float32: for each tile, its P
+    float32, masked by index or by ``q_pos``/``k_pos``: for each tile, its P
     (b, hkv, g, s, keys) against the running max so far, the factor that
     rescales what came before (b, hkv, g, s), its V (b, hkv, 1, keys,
     Dv), and the running max after it (b, hkv, g, s). Scores are scaled by
@@ -119,16 +150,10 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
     kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]                  # (b,hkv,1,t,d)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
     block = key_tile(q.dtype, d, v.shape[-1])
-    rows = torch.arange(s, device=q.device)[:, None]
     m = torch.full((b, hkv, g, s), _NEG, dtype=torch.float32, device=q.device)
     for k0 in range(0, t, block):
         kt, vt = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
-        keys = torch.arange(k0, k0 + kt.shape[-2], device=q.device)[None, :]
-        vis = torch.ones((s, keys.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            vis = vis & (keys <= rows)
-        if window:
-            vis = vis & (keys > rows - window)
+        vis = _visible(s, k0, k0 + kt.shape[-2], causal, window, q_pos, k_pos, q.device)
         sc = torch.where(vis, torch.matmul(qg, kt.transpose(-1, -2)) * scale, _NEG)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         yield (torch.where(vis, torch.exp(sc - m_new[..., None]), 0.0), torch.exp(m - m_new), vt,
@@ -137,14 +162,15 @@ def softmax_tiles(q, k, v, causal: bool, window: int):
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
-                          return_lse: bool = False):
+                          return_lse: bool = False, *, q_pos=None, k_pos=None):
     """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
     Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
-    ``return_lse``: also the rows' float32 logsumexp, m + log(max(l,
+    Masked by index, or with ``q_pos`` (S,) and ``k_pos`` (T,) by their
+    rule. ``return_lse``: also the rows' float32 logsumexp, m + log(max(l,
     1e-30)), (B, H, S), as the kernels write it for training."""
     bf16 = q.dtype == torch.bfloat16
     l = acc = 0.0
-    for p, corr, vt, m in softmax_tiles(q, k, v, causal, window):
+    for p, corr, vt, m in softmax_tiles(q, k, v, causal, window, q_pos, k_pos):
         l = l * corr + p.sum(dim=-1)
         pv = p.to(torch.bfloat16).to(torch.float32) if bf16 else p  # wgmma's bf16 P
         acc = acc * corr[..., None] + torch.matmul(pv, vt)
@@ -161,23 +187,18 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def backward_terms(q, k, v, out, lse, dout, causal: bool = True, window: int = 0,
-                   acc_dtype=torch.float32):
+                   acc_dtype=torch.float32, q_pos=None, k_pos=None):
     """What the backward is formed from, batch entry by batch entry (a
     (Hkv, G, S, T) score matrix at a time), in ``acc_dtype``: (qi, ki, vi,
     oi, doi, p, dp, dd) with q, o, dO as (Hkv, G, S, D), k and v as (Hkv, 1,
-    T, D), P = exp(scale q.k - lse) on the visible keys (0 elsewhere) and dP
-    = dO V^T as (Hkv, G, S, T), and D = rowsum(dO * o) as (Hkv, G, S, 1)."""
+    T, D), P = exp(scale q.k - lse) on the visible keys (0 elsewhere; by
+    index, or by ``q_pos``/``k_pos``) and dP = dO V^T as (Hkv, G, S, T), and
+    D = rowsum(dO * o) as (Hkv, G, S, 1)."""
     b, s, h, dqk = q.shape
     t, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
     scale = 1.0 / math.sqrt(dqk)
-    rows = torch.arange(s, device=q.device)[:, None]
-    keys = torch.arange(t, device=q.device)[None, :]
-    vis = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        vis = vis & (keys <= rows)
-    if window:
-        vis = vis & (keys > rows - window)
+    vis = _visible(s, 0, t, causal, window, q_pos, k_pos, q.device)
     for i in range(b):
         def heads(x, d):  # (b, s, h, d) -> (hkv, g, s, d)
             return x[i].to(acc_dtype).reshape(s, hkv, g, d).permute(1, 2, 0, 3)
@@ -216,8 +237,9 @@ def stack_grads(per_entry, like, dtype):
 
 def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
                                    window: int = 0, acc_dtype=torch.float32, dtype=None,
-                                   rounding: bool | None = None):
-    """dQ, dK, dV of attention (the forward's arguments) from its output
+                                   rounding: bool | None = None, *, q_pos=None, k_pos=None):
+    """dQ, dK, dV of attention (the forward's arguments, ``q_pos`` and
+    ``k_pos`` included) from its output
     ``out`` (B, S, H, Dv), row logsumexp ``lse`` (B, H, S) and the output's
     cotangent ``dout``, in ``acc_dtype`` (float32, or float64 for the
     contract), returned in ``dtype`` (default q's): D = rowsum(dO * o); P =
@@ -230,7 +252,7 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = True,
     rounding = q.dtype == torch.bfloat16 if rounding is None else rounding
     per_entry = []
     for qi, ki, _, _, doi, p, dp, dd in backward_terms(q, k, v, out, lse, dout, causal, window,
-                                                       acc_dtype):
+                                                       acc_dtype, q_pos, k_pos):
         ds = p * (dp - dd)
         if rounding:
             p, ds = bf16_round(p), bf16_round(ds)
@@ -245,7 +267,7 @@ def _entry(dtype):
     fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -255,6 +277,24 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     loads; TMA's global addresses)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_positions(name: str, q, k, q_pos, k_pos) -> None:
+    """Raise unless ``q_pos`` and ``k_pos`` are both None, or int32 vectors
+    (S,) and (T,) on q's device."""
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError(f"{name}: q_pos and k_pos come together or not at all")
+    if q_pos is None:
+        return
+    for arg, pos, n in (("q_pos", q_pos, q.shape[1]), ("k_pos", k_pos, k.shape[1])):
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (n,) or pos.device != q.device:
+            raise ValueError(f"{name}: {arg} must be int32 of shape ({n},) on {q.device}, got "
+                             f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
+
+
+def _ptr(t: torch.Tensor | None):
+    """A tensor's pointer for a C entry, or null."""
+    return None if t is None else t.data_ptr()
 
 
 def _check(name: str, q, k, v) -> None:
@@ -277,31 +317,43 @@ def _check(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: q, k and v must be on one device")
 
 
-def _attention(q, k, v, causal: bool, window: int, with_lse: bool):
+def _failure(err: int) -> str:
+    """What a kernel entry's nonzero return means."""
+    if err == -3:
+        return "the position-masked tile list exceeds shared memory"
+    return "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
+
+
+def _attention(q, k, v, causal: bool, window: int, with_lse: bool, q_pos=None, k_pos=None):
     """The forward: the plain version on the CPU, else the kernel of the
     dtype; with ``with_lse``, (out, lse)."""
+    _check_positions("flash_attention", q, k, q_pos, k_pos)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, return_lse=with_lse)
+        return flash_attention_plain(q, k, v, causal, window, return_lse=with_lse, q_pos=q_pos,
+                                     k_pos=k_pos)
     _check("flash_attention", q, k, v)
     b, s, h, dq = q.shape
     t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
+    if q_pos is not None:
+        q_pos, k_pos = _aligned(q_pos), _aligned(k_pos)
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     err = _entry(q.dtype)(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, h, hkv, s, t, dq, dv, int(bool(causal)),
-        int(window), 1.0 / math.sqrt(dq), torch.cuda.current_stream(q.device).cuda_stream)
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(q_pos),
+        _ptr(k_pos), b, h, hkv, s, t, dq, dv, int(bool(causal)), int(window),
+        1.0 / math.sqrt(dq), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
-        raise RuntimeError(f"flash_attention {q.dtype} kernel launch failed: {what}")
+        raise RuntimeError(f"flash_attention {q.dtype} kernel launch failed: {_failure(err)}")
     flash_attention.launches += 1
     return (out, lse) if with_lse else out
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0, *, q_pos=None, k_pos=None):
     """Attention of q (B, S, H, Dqk) over k (B, T, Hkv, Dqk) and v (B, T,
-    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype.
+    Hkv, Dv), scores scaled by 1/sqrt(Dqk); (B, S, H, Dv) in q's dtype;
+    masked by index, or by the int32 positions ``q_pos`` (S,) and ``k_pos``
+    (T,) on q's device (the module's rule).
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
     kernel of their dtype (bfloat16: wgmma; float32: CUDA cores), which
     takes the (Dqk, Dv) pairs of ``HEAD_DIMS``. Where autograd records and
@@ -309,8 +361,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     (the same kernel, writing lse too); otherwise (serving) nothing else
     is launched or kept."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _attention(q, k, v, causal, window, with_lse=False)
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_pos, k_pos)
+    return _attention(q, k, v, causal, window, False, q_pos, k_pos)
 
 
 flash_attention.launches = 0
@@ -324,21 +376,25 @@ def _bwd_entry(dtype):
     fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: int = 0):
-    """(dQ, dK, dV) of ``flash_attention(q, k, v, causal, window)`` from its
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: int = 0, *,
+                        q_pos=None, k_pos=None):
+    """(dQ, dK, dV) of ``flash_attention(q, k, v, causal, window, q_pos=,
+    k_pos=)`` from its
     output ``out``, its row logsumexp ``lse`` (B, H, S) float32 and the
     output's cotangent ``dout``, each in its input's dtype. CPU tensors run
     ``flash_attention_backward_plain``; CUDA tensors launch the kernel of
     their dtype (bfloat16: ``csrc/flash_attention_bwd_wgmma.cu``, on the
     tensor cores; float32: ``csrc/flash_attention_bwd.cu``), held to
     ``contract.bwd_check``, or raise."""
+    _check_positions("flash_attention_bwd", q, k, q_pos, k_pos)
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window)
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window,
+                                              q_pos=q_pos, k_pos=k_pos)
     _check("flash_attention_bwd", q, k, v)
     b, s, h, dq = q.shape
     t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -348,6 +404,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
         raise ValueError(f"flash_attention_bwd: out and dout must be {q.dtype} (B, S, H, Dv) "
                          f"and lse float32 (B, H, S) on {q.device}")
     args = [_aligned(x) for x in (q, k, v, out, lse, dout.to(q.dtype))]
+    if q_pos is not None:
+        q_pos, k_pos = _aligned(q_pos), _aligned(k_pos)
     grads = [torch.empty_like(x) for x in args[:3]]
     if q.dtype == torch.bfloat16:  # D and lse log2 e, rows padded to BWD_PAD_ROWS
         scratch = (2, b, h, -(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS)
@@ -355,12 +413,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
         scratch = (b, h, s)
     aux = torch.empty(scratch, dtype=torch.float32, device=q.device)
     err = _bwd_entry(q.dtype)(
-        *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), aux.data_ptr(), b, h,
-        hkv, s, t, dq, dv, int(bool(causal)), int(window), 1.0 / math.sqrt(dq),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), aux.data_ptr(),
+        _ptr(q_pos), _ptr(k_pos), b, h, hkv, s, t, dq, dv, int(bool(causal)), int(window),
+        1.0 / math.sqrt(dq), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        what = "a TMA tensor map was refused" if err < 0 else f"cudaError {err}"
-        raise RuntimeError(f"flash_attention_bwd {q.dtype} kernel launch failed: {what}")
+        raise RuntimeError(f"flash_attention_bwd {q.dtype} kernel launch failed: "
+                           f"{_failure(err)}")
     flash_attention_bwd.launches += 1
     return tuple(grads)
 
@@ -370,17 +428,19 @@ flash_attention_bwd.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward kernel with its lse
-    output, then ``flash_attention_bwd``. Saves q, k, v, the output and
-    lse."""
+    output, then ``flash_attention_bwd``. Saves q, k, v, the output, lse
+    and the position vectors (if any)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _attention(q, k, v, causal, window, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal, window, q_pos=None, k_pos=None):
+        out, lse = _attention(q, k, v, causal, window, True, q_pos, k_pos)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window), None, None)
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal, ctx.window, q_pos=q_pos,
+                                    k_pos=k_pos)
+        return (*grads, None, None, None, None)

@@ -19,7 +19,9 @@ float64 on the same inputs:
 A check that passes everything proves nothing, so ``controls`` builds two
 faults from the plain version that it must reject: h reset to 0 every
 ``CONTROL_CHUNK`` steps (a chunked scan that drops its carry) and the last
-state left out of y's sum.
+state left out of y's sum; for a scan from a start state ``h0`` (a prefill
+that continues a cache) also the scan from h = 0. The references then run
+from ``h0`` too.
 
 The backward kernel (``csrc/ssm_scan_bwd.cu``) takes its exps on the
 special-function unit too, fuses multiply-adds, and sums d_b and d_c over
@@ -52,12 +54,12 @@ BWD_REL = 1e-5
 BWD_NAMES = ("d_dt", "d_a", "d_b", "d_c", "d_x", "d_d")
 
 
-def references(dt, a, bmat, cmat, x, d):
-    """``(plain32, ref64)``: the ``(y, h)`` of ``ssm_scan_plain`` in float32
-    (y in float32) and in float64."""
-    plain32 = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float32)
+def references(dt, a, bmat, cmat, x, d, h0=None):
+    """``(plain32, ref64)``: the ``(y, h)`` of ``ssm_scan_plain`` from
+    ``h0`` (None: zeros) in float32 (y in float32) and in float64."""
+    plain32 = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float32, h0=h0)
     ref64 = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float64,
-                           acc_dtype=torch.float64)
+                           acc_dtype=torch.float64, h0=h0)
     return plain32, ref64
 
 
@@ -105,20 +107,24 @@ def check(y, h, plain32, ref64) -> dict:
     return out
 
 
-def controls(dt, a, bmat, cmat, x, d) -> dict:
-    """Two faulty scans, ``(y float32, h float32)`` each, that ``check``
-    must reject: the plain version with h reset to 0 every
-    ``CONTROL_CHUNK`` steps, and with the last state left out of y."""
+def controls(dt, a, bmat, cmat, x, d, h0=None) -> dict:
+    """Faulty scans, ``(y float32, h float32)`` each, that ``check`` must
+    reject: the plain version with h reset to 0 every ``CONTROL_CHUNK``
+    steps, and with the last state left out of y; from a start state
+    ``h0``, also the scan from h = 0 (the start state dropped)."""
     s = x.shape[1]
     parts = [ssm_scan_plain(dt[:, t:t + CONTROL_CHUNK], a, bmat[:, t:t + CONTROL_CHUNK],
                             cmat[:, t:t + CONTROL_CHUNK], x[:, t:t + CONTROL_CHUNK], d,
-                            y_dtype=torch.float32)
+                            y_dtype=torch.float32, h0=h0 if t == 0 else None)
              for t in range(0, s, CONTROL_CHUNK)]
     reset = (torch.cat([p[0] for p in parts], dim=1), parts[-1][1])
     c_drop = cmat.clone()
     c_drop[..., -1] = 0
-    drop = ssm_scan_plain(dt, a, bmat, c_drop, x, d, y_dtype=torch.float32)
-    return {f"h reset every {CONTROL_CHUNK} steps": reset, "last state left out of y": drop}
+    drop = ssm_scan_plain(dt, a, bmat, c_drop, x, d, y_dtype=torch.float32, h0=h0)
+    out = {f"h reset every {CONTROL_CHUNK} steps": reset, "last state left out of y": drop}
+    if h0 is not None:
+        out["start state dropped"] = ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=torch.float32)
+    return out
 
 
 def bwd_references(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):

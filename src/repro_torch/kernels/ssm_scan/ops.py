@@ -1,4 +1,5 @@
-"""ssm_scan — the Mamba-1 selective scan of a prefill, from h = 0.
+"""ssm_scan — the Mamba-1 selective scan of a prefill, from h = 0 or from
+a carried state ``h0`` (a prefill that continues a cache).
 
 Replaces the JAX package's Pallas kernel
 ``src/repro/kernels/ssm_scan/kernel.py`` (``ssm_scan_kernel``/``_ssm_kernel``)
@@ -53,8 +54,9 @@ CHUNK = 128  # steps between the states training keeps (ssm_vjp.CHUNK)
 
 
 def ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=None, acc_dtype=torch.float32,
-                   chunk_states: bool = False):
-    """``(y (B, S, di), h (B, di, ds))`` of the selective scan from h = 0.
+                   chunk_states: bool = False, h0=None):
+    """``(y (B, S, di), h (B, di, ds))`` of the selective scan from ``h0``
+    (B, di, ds), the state before step 0 (None: zeros).
     dt/x (B, S, di), bmat/cmat (B, S, ds) of any float type (upcast to
     ``acc_dtype``, float32 or float64, in the step), a (di, ds), d (di,).
     y has ``y_dtype`` (default x's dtype), h is ``acc_dtype``.
@@ -62,7 +64,8 @@ def ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=None, acc_dtype=torch.float3
     (ceil(S / CHUNK), B, di, ds) in ``acc_dtype``."""
     bsz, s, di = x.shape
     a_acc, d_acc = a.to(acc_dtype), d.to(acc_dtype)
-    h = torch.zeros((bsz, di, a.shape[1]), dtype=acc_dtype, device=x.device)
+    h = (torch.zeros((bsz, di, a.shape[1]), dtype=acc_dtype, device=x.device) if h0 is None
+         else h0.to(device=x.device, dtype=acc_dtype))
     ys, starts = [], []
     for t in range(s):
         if t % CHUNK == 0:
@@ -126,7 +129,7 @@ def _lib():
     lib = build.load("ssm_scan")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_ssm_scan.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.repro_ssm_scan.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.repro_ssm_scan.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -152,30 +155,37 @@ def _check(name: str, dt, a, bmat, cmat, x, d) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def ssm_scan(dt, a, bmat, cmat, x, d, y_dtype=None, chunk_states: bool = False):
-    """The selective scan of ``ssm_scan_plain``. CPU tensors run the plain
+def ssm_scan(dt, a, bmat, cmat, x, d, y_dtype=None, chunk_states: bool = False, h0=None):
+    """The selective scan of ``ssm_scan_plain``, from ``h0`` (B, di, ds)
+    float32 (None: zeros). CPU tensors run the plain
     version; CUDA tensors launch the kernel (held to ``contract.py``, not
     bitwise to the plain version), which takes dt, bmat, cmat and x of one
     stream type (float32 or bfloat16), a and d in float32, d_state 8 or 16,
     and writes y in ``y_dtype`` (float32 or bfloat16; default x's dtype).
     ``chunk_states``: also the float32 state before every ``CHUNK`` steps,
     (ceil(S / CHUNK), B, di, ds), which the kernel writes as it goes."""
+    bsz, s, di = x.shape
+    if h0 is not None and (tuple(h0.shape) != (bsz, di, a.shape[-1]) or h0.dtype != torch.float32
+                           or h0.device != x.device):
+        raise ValueError(f"ssm_scan: h0 must be float32 of shape {(bsz, di, a.shape[-1])} on "
+                         f"{x.device}, got {h0.dtype} {tuple(h0.shape)} on {h0.device}")
     if x.device.type == "cpu":
-        return ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype, chunk_states=chunk_states)
+        return ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype, chunk_states=chunk_states, h0=h0)
     _check("ssm_scan", dt, a, bmat, cmat, x, d)
     y_dtype = y_dtype or x.dtype
     if y_dtype not in _DTYPES:
         raise TypeError(f"ssm_scan writes y in float32 or bfloat16, got {y_dtype}")
-    bsz, s, di = x.shape
     ds = a.shape[-1]
     args = [t.contiguous() for t in (dt, a, bmat, cmat, x, d)]
+    h0 = None if h0 is None else h0.contiguous()
     y = torch.empty((bsz, s, di), dtype=y_dtype, device=x.device)
     h = torch.empty((bsz, di, ds), dtype=torch.float32, device=x.device)
     hs = (torch.empty((-(-s // CHUNK), bsz, di, ds), dtype=torch.float32, device=x.device)
           if chunk_states else None)
     err = _lib().repro_ssm_scan(
         *(t.data_ptr() for t in args), y.data_ptr(), h.data_ptr(),
-        hs.data_ptr() if chunk_states else None, bsz, s, di, ds, _DTYPES[x.dtype],
+        hs.data_ptr() if chunk_states else None, None if h0 is None else h0.data_ptr(), bsz, s,
+        di, ds, _DTYPES[x.dtype],
         _DTYPES[y_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {err}")

@@ -200,16 +200,19 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
-                  mode: str = "prefill"):
+                  mode: str = "prefill", by_position: bool = False):
     """mode: train | prefill (``positions`` = ``arange(S)``, or under M-RoPE
-    the (B, S, 3) position streams whose t stream is ``arange(S)``) | decode
-    (``positions`` = the int position of the one token). Returns (out,
-    new_cache); train returns no cache.
+    the (B, S, 3) position streams) | decode (``positions`` = the int
+    position of the one token). Returns (out, new_cache); train returns no
+    cache.
 
-    Prefill runs ``kernels.flash_attention`` over the sequence, whose masks
-    count positions from 0, as the JAX function's masks over ``lin_pos``
-    (``arange(S)``; under M-RoPE ``positions[0, :, 0]``) do; the caller
-    checks that the t stream is ``arange(S)`` (``transformer.forward``).
+    Prefill runs ``kernels.flash_attention`` over the sequence, masked as
+    the JAX function masks by ``lin_pos`` (``arange(S)``; under M-RoPE the t
+    stream ``positions[0, :, 0]``): by index where ``lin_pos`` is
+    ``arange(S)``, and with ``by_position`` (the caller read on the host
+    that the t stream is not, ``transformer._prefill_positions``) by
+    ``lin_pos`` itself as both position vectors, the kernels' position
+    mask; the cache keeps ``lin_pos`` as ``kv_pos`` either way.
     Decode writes the new K/V in place at slot ``pos`` (``pos % T`` with a
     window); under M-RoPE its three streams are all ``pos``, as the JAX
     decode step builds them.
@@ -251,10 +254,11 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     q = apply_rope(q, rope_pos, cfg)
     k = apply_rope(k, rope_pos, cfg)
 
+    mask = dict(q_pos=lin_pos, k_pos=lin_pos) if by_position and mode != "decode" else {}
     if mode == "train":
-        out, new_cache = flash_attention(q, k, v, causal=True, window=window), None
+        out, new_cache = flash_attention(q, k, v, causal=True, window=window, **mask), None
     elif mode == "prefill":
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=True, window=window, **mask)
         if window:
             w = min(window, s)
             new_cache = {"k": k[:, -w:], "v": v[:, -w:], "kv_pos": lin_pos[-w:]}
@@ -691,9 +695,11 @@ def _causal_conv(x, w, b, state=None):
 def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     """Selective-scan SSM (Mamba-1). Returns (out, new_cache).
 
-    prefill: ``kernels.ssm_scan`` over the sequence from h = 0; train: the
-    same through ``ssm_vjp.selective_scan`` (differentiable; no cache);
-    decode: the O(1) state update. The scan inputs (dt, B, C, x) are
+    prefill: ``kernels.ssm_scan`` over the sequence, from h = 0, or, given
+    a ``cache``, continuing it as the JAX block does: the conv from
+    ``cache["conv"]`` and the scan from ``cache["ssm"]`` (the kernel's start
+    state); train: the scan through ``ssm_vjp.selective_scan``
+    (differentiable, from h = 0; no cache); decode: the O(1) state update. The scan inputs (dt, B, C, x) are
     rounded to bfloat16 whatever the config's dtype, as the JAX block
     streams them (its ``_scan_dt``); the recurrence itself runs in
     float32.
@@ -706,8 +712,8 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     gradients are summed over ``model`` too)."""
     if mode not in _MODES:
         raise ValueError(f"mamba_block mode {mode!r}: one of {_MODES}")
-    if mode != "decode" and cache is not None:
-        raise NotImplementedError("mamba_block prefill from a carried state: the scan starts at h = 0")
+    if mode == "train" and cache is not None:
+        raise ValueError("mamba_block trains from h = 0, without a cache")
     ds, dtr = cfg.d_state, cfg.dt_rank_
     split = tp.split(p["in_proj"], 1, 2 * cfg.d_inner)
     di = p["in_proj"].shape[1] // 2  # the rank's channels
@@ -734,7 +740,8 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     elif mode == "train":
         y, h = selective_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
     else:
-        y, h = ssm_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype)
+        y, h = ssm_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype,
+                        h0=None if cache is None else cache["ssm"])
     out = y.to(x.dtype) * silu(z)
     out = tp.row(out, p["out_proj"]) if split else out @ p["out_proj"]
     return out, None if mode == "train" else {"conv": new_conv, "ssm": h}

@@ -26,8 +26,14 @@ stack is a Python loop, so a cache is one dict per layer, a Mamba layer's
 Each layer follows its ``LayerSpec``: the mixer (``attn``, which is GQA or
 MLA by ``cfg.attn_type``, or ``mamba``) and whether its FFN is the MoE; a
 Mamba block has no FFN where the config has no ``d_ff`` and is not an MoE
-layer (falcon-mamba). Tied embeddings raise ``NotImplementedError``
-naming their ROADMAP.md item.
+layer (falcon-mamba). With ``cfg.tie_embeddings`` the model has no head:
+the logits are ``x @ embed.T``, as in the JAX package.
+
+A prefill given a ``cache`` continues it as the JAX forward does: each
+Mamba layer's conv and scan start from its carried state, while each
+attention layer ignores its cache and starts a fresh one at positions
+0..S-1 (the JAX layers' behaviour, kept for parity); the new cache's
+``pos`` is this call's S.
 
 Training: ``forward(mode="train")`` runs the prefill's path without a
 cache, under autograd, each block under ``torch.utils.checkpoint``
@@ -74,9 +80,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import context as ctx
 from repro_torch.launch import tp
 from repro_torch.launch import zero as Z
+from repro_torch.launch.sharding import model_block
 from repro_torch.models import layers as L
-
-_TODO = "ROADMAP.md queue 1 item 14 (model zoo)"
 
 
 # ---------------------------------------------------------------------------
@@ -120,13 +125,10 @@ def layer_plan(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port, and for an encoder-decoder
-    config, which is ``models/whisper.py``'s (``api.get_model`` routes it
-    there)."""
+    """Raise for an encoder-decoder config, which is ``models/whisper.py``'s
+    (``api.get_model`` routes it there)."""
     if cfg.encoder_decoder:
         raise ValueError(f"{cfg.name}: an encoder-decoder config is models/whisper.py's")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(f"tied embeddings: {_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +175,9 @@ class ParamTree(nn.Module):
 
 class DecoderLM(nn.Module):
     """A decoder-only LM: ``embed`` (V_padded, D), ``blocks``,
-    ``final_norm`` (D,), ``head`` (D, V_padded), and ``vision_proj`` (D, D)
-    under the vision stub."""
+    ``final_norm`` (D,), ``head`` (D, V_padded; None under tied embeddings,
+    whose logits read ``embed``), and ``vision_proj`` (D, D) under the
+    vision stub."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
@@ -183,9 +186,12 @@ class DecoderLM(nn.Module):
         self.specs = layer_specs(cfg)
         if len(tree["blocks"]) != len(self.specs):
             raise ValueError(f"{cfg.name}: {len(tree['blocks'])} blocks for {len(self.specs)} layers")
+        if cfg.tie_embeddings == ("head" in tree):
+            raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} and "
+                             f"{'a' if 'head' in tree else 'no'} head")
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
-        self.head = _param(tree["head"])
+        self.head = None if cfg.tie_embeddings else _param(tree["head"])
         if (cfg.frontend == "vision_stub") != ("vision_proj" in tree):
             raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} and "
                              f"{'a' if 'vision_proj' in tree else 'no'} vision_proj")
@@ -226,9 +232,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
 
 
 def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=None,
-                window: int = 0, mode: str = "prefill"):
+                window: int = 0, mode: str = "prefill", by_position: bool = False):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss), the aux
-    loss None without an MoE FFN. Under a mesh the block's ZeRO blocks are
+    loss None without an MoE FFN. ``by_position``: GQA masks by the t
+    stream (``gqa_attention``). Under a mesh the block's ZeRO blocks are
     gathered here, inside the checkpointed function (``zero.gathered``)."""
     p = Z.gathered(p)
     aux = None
@@ -240,7 +247,7 @@ def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=Non
                                            window=window, mode=mode)
     else:
         mixed, new_cache = L.gqa_attention(p["mixer"], h, positions, cfg, cache=cache,
-                                           window=window, mode=mode)
+                                           window=window, mode=mode, by_position=by_position)
     x = x + mixed
     if "moe" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -294,10 +301,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, zero: bool = False) -> D
     tree = {
         "embed": held("embed", L._normal(gen, (v, d), 0.02, dt)),
         "final_norm": held("final_norm", torch.ones((d,), dtype=dt, device=gen.device)),
-        "head": held("head", L._normal(gen, (d, v), 0.02, dt)),
-        "blocks": [held(f"blocks/{i}", init_block(gen, cfg, spec))
-                   for i, spec in enumerate(layer_specs(cfg))],
     }
+    if not cfg.tie_embeddings:  # tied: the logits read embed, as in the JAX init
+        tree["head"] = held("head", L._normal(gen, (d, v), 0.02, dt))
+    tree["blocks"] = [held(f"blocks/{i}", init_block(gen, cfg, spec))
+                      for i, spec in enumerate(layer_specs(cfg))]
     if cfg.frontend == "vision_stub":
         tree["vision_proj"] = held("vision_proj", L._normal(gen, (d, d), 0.02, dt))
     return DecoderLM(cfg, tree)
@@ -318,13 +326,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=N
 
 
 def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
-                  vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
+                  vision_embeds: torch.Tensor | None, embed: torch.Tensor) -> torch.Tensor:
     """Token embeddings (B, S, D); under the vision stub, with
     ``vision_embeds`` (B, nv, D) cast to the model's dtype, projected by
     ``vision_proj`` and prepended: (B, nv + S, D). A tensor-parallel
     ``embed`` or ``vision_proj`` holds d columns, all-gathered over
-    ``model`` (the backward keeps the rank's columns of the gradient)."""
-    x = Z.full(params.embed)[tokens.to(device=params.device, dtype=torch.int64)]
+    ``model`` (the backward keeps the rank's columns of the gradient).
+    ``embed`` is ``params.embed`` whole over the data axes."""
+    x = embed[tokens.to(device=params.device, dtype=torch.int64)]
     if tp.split(params.embed, 1, cfg.d_model):
         x = tp.gather(x)
     if cfg.frontend == "vision_stub" and vision_embeds is not None:
@@ -335,29 +344,31 @@ def _embed_inputs(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _prefill_positions(cfg: ModelConfig, positions, s: int, device) -> torch.Tensor:
-    """The prefill's positions on ``device``: ``arange(S)``, or under M-RoPE
-    the batch's (B, S, 3) streams. flash_attention masks by index, as the
-    JAX kernel does, so the t stream (the JAX function's ``lin_pos =
-    positions[0, :, 0]``, which its masks use) must be ``arange(S)``; it is
-    checked on the host copy, and any other stream raises instead of giving
-    another mask than JAX's."""
+def _prefill_positions(cfg: ModelConfig, positions, s: int, device) -> tuple[torch.Tensor, bool]:
+    """(the prefill's positions on ``device``, whether attention masks by
+    them): ``arange(S)``, or under M-RoPE the batch's (B, S, 3) streams. The
+    JAX layers mask by the t stream ``lin_pos = positions[0, :, 0]``; read on
+    the host copy, a t stream that is ``arange(S)`` keeps flash_attention's
+    index mask (the same mask, today's launches), any other (a real image's
+    tokens share one t) makes it mask by the stream (``by_position``). A
+    negative t raises ``ValueError``: its query would see no key, where
+    JAX's -1e30 fill averages V over the masked keys."""
     if cfg.rope_variant != "mrope":
         if positions is not None:
             raise ValueError(f"{cfg.name}: a {cfg.rope_variant} RoPE prefill takes no positions "
                              f"(it runs at arange(S))")
-        return torch.arange(s, dtype=torch.int32, device=device)
+        return torch.arange(s, dtype=torch.int32, device=device), False
     if positions is None or tuple(positions.shape[1:]) != (s, 3):
         raise ValueError(f"{cfg.name}: M-RoPE takes positions (B, {s}, 3), got "
                          f"{None if positions is None else tuple(positions.shape)}")
     if positions.device.type != "cpu":
         raise ValueError("M-RoPE positions must come in the batch as a host tensor: their t "
-                         "stream is checked there, without a read of the device")
-    if not torch.equal(positions[0, :, 0].to(torch.int64), torch.arange(s)):
-        raise NotImplementedError(
-            f"{cfg.name}: flash_attention masks by index, so the prefill takes only the t stream "
-            f"positions[0, :, 0] == arange({s}), as make_concrete_batch builds it")
-    return positions.to(device=device, dtype=torch.int32)
+                         "stream is read there, without a read of the device")
+    t = positions[0, :, 0].to(torch.int64)
+    if bool((t < 0).any()):
+        raise ValueError(f"{cfg.name}: a negative t position (the mask's positions[0, :, 0]) "
+                         f"leaves its query no visible key")
+    return positions.to(device=device, dtype=torch.int32), not torch.equal(t, torch.arange(s))
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positions=None,
@@ -365,8 +376,10 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positi
             mode: str = "prefill", remat: bool = True):
     """tokens (B, S) -> (logits (B, S', V_padded) float32, new_cache, aux),
     S' = S plus the vision tokens prepended under the vision stub.
-    mode: prefill (S' tokens at positions 0..S'-1, no cache; under M-RoPE
-    ``positions`` (B, S', 3) from the batch, a host tensor) | decode (one
+    mode: prefill (S' tokens at positions 0..S'-1; under M-RoPE
+    ``positions`` (B, S', 3) from the batch, a host tensor, attention
+    masked by its t stream; given a ``cache``, the Mamba layers continue
+    it and the attention layers start afresh, as in JAX) | decode (one
     token at ``cache["pos"]``; under M-RoPE its three streams there) |
     train (the prefill's positions, no cache, new_cache None; under
     autograd, each block checkpointed when ``remat``). prefill and decode
@@ -383,12 +396,14 @@ def forward(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor, *, positi
 
 
 def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode, remat):
-    x = _embed_inputs(params, cfg, tokens, vision_embeds)
+    embed = Z.full(params.embed)  # whole over the data axes once: the lookup and a tied head
+    x = _embed_inputs(params, cfg, tokens, vision_embeds, embed)
     s = x.shape[1]
+    by_position = False
     if mode == "decode":
         positions = cache["pos"]
     else:
-        positions = _prefill_positions(cfg, positions, s, x.device)
+        positions, by_position = _prefill_positions(cfg, positions, s, x.device)
 
     new_layers = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -396,25 +411,44 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
         c = cache["layers"][i] if cache is not None else None
         if remat:  # jax.checkpoint around the block: recomputed in the backward
             x, nc, aux = checkpoint(apply_block, blk, x, positions, cfg, spec, window=window,
-                                    mode=mode, use_reentrant=False, preserve_rng_state=False)
+                                    mode=mode, by_position=by_position, use_reentrant=False,
+                                    preserve_rng_state=False)
         else:
             x, nc, aux = apply_block(blk, x, positions, cfg, spec, cache=c, window=window,
-                                     mode=mode)
+                                     mode=mode, by_position=by_position)
         new_layers.append(nc)
         if aux is not None:
             aux_total = aux_total + aux
 
     x = L.rms_norm(x, Z.full(params.final_norm), cfg.norm_eps)
-    if tp.split(params.head, 1, cfg.vocab_padded):
-        if mode == "prefill":  # the prefill step reads the last position only
-            x = x[:, -1:]
-        logits = tp.gather((tp.enter(x) @ Z.full(params.head)).to(torch.float32))
-    else:
-        logits = (x @ Z.full(params.head)).to(torch.float32)
+    logits = _logits(params, cfg, x, embed, mode)
     if mode == "train":
         return logits, None, aux_total
     next_pos = cache["pos"] + 1 if (cache is not None and mode == "decode") else s
     return logits, {"layers": new_layers, "pos": next_pos}, aux_total
+
+
+def _logits(params: DecoderLM, cfg: ModelConfig, x: torch.Tensor, embed: torch.Tensor,
+            mode: str) -> torch.Tensor:
+    """float32 logits of the final hidden states ``x``: ``x @ head``, or
+    under tied embeddings ``x @ embed.T`` (``embed`` whole over the data
+    axes). A tensor-parallel head holds V columns, all-gathered over
+    ``model``; a tensor-parallel tied head holds d columns of ``embed``, so
+    its product is a row product: the rank's d columns of ``x`` times its
+    block's transpose, the float32 partials summed over ``model``
+    (``tp.row``), then cast to ``x``'s dtype as the unsplit product is.
+    Either gives the prefill's last position only."""
+    head = embed.t() if cfg.tie_embeddings else Z.full(params.head)
+    split = (tp.split(params.embed, 1, cfg.d_model) if cfg.tie_embeddings
+             else tp.split(params.head, 1, cfg.vocab_padded))
+    if not split:
+        return (x @ head).to(torch.float32)
+    if mode == "prefill":  # the prefill step reads the last position only
+        x = x[:, -1:]
+    if not cfg.tie_embeddings:
+        return tp.gather((tp.enter(x) @ head).to(torch.float32))
+    _, (cols,) = model_block("embed", (cfg.vocab_padded, cfg.d_model), ctx.get_mesh(), cfg)
+    return tp.row(tp.enter(x)[..., cols], head).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -71,7 +71,8 @@ def state_from_numpy(state, device=None) -> RoundState:
 
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: bool = False):
     """The JAX package's decoder-LM parameters (``embed``, ``final_norm``,
-    ``head``, ``vision_proj`` under the vision stub, the ``prologue`` blocks, and one ``stack`` entry per position
+    ``head`` but under tied embeddings, ``vision_proj`` under the vision
+    stub, the ``prologue`` blocks, and one ``stack`` entry per position
     of the period whose leaves carry a leading axis of periods), as numpy
     arrays, -> the port's ``DecoderLM`` on ``device``, one block per layer
     in ``transformer.layer_plan``'s order: the prologue, then period entry
@@ -116,7 +117,8 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None, mesh=None, zero: b
     blocks = [tree_map(lambda a, i=i: np.asarray(a)[i], tree["stack"][j])
               for i in range(n_periods) for j in range(p)]
     blocks = [block(f"blocks/{i}", blk) for i, blk in enumerate(list(tree["prologue"]) + blocks)]
-    lm = {name: held(name, _tensor(tree[name], dev)) for name in ("embed", "final_norm", "head")}
+    names = ("embed", "final_norm") if cfg.tie_embeddings else ("embed", "final_norm", "head")
+    lm = {name: held(name, _tensor(tree[name], dev)) for name in names}
     lm["blocks"] = blocks
     if "vision_proj" in tree:  # the vision stub's projection
         lm["vision_proj"] = held("vision_proj", _tensor(tree["vision_proj"], dev))

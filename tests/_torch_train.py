@@ -81,10 +81,11 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def cfgs(arch: str, dtype: str = "float32"):
-    """(the JAX config, the port's config): the reduced arch in ``dtype``."""
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype)
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+def cfgs(arch: str, dtype: str = "float32", **change):
+    """(the JAX config, the port's config): the reduced arch in ``dtype``,
+    with ``change`` (e.g. ``tie_embeddings=True``)."""
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype, **change)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype, **change)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     return jcfg, cfg
 
@@ -105,14 +106,27 @@ def _np(x) -> np.ndarray:
     return x.detach().to(torch.float64).numpy()
 
 
-def check_loss_and_grads(arch: str, dtype: str = "float32") -> dict:
+def image_t_stream(batch: dict, n_vision: int, grid: int = 4) -> dict:
+    """``batch`` with the t stream of its M-RoPE ``positions`` a real
+    Qwen2-VL prompt's: the ``n_vision`` image tokens all at t = 0, the text
+    after them from t = ``grid``."""
+    pos = np.array(batch["positions"])
+    pos[:, :n_vision, 0] = 0
+    pos[:, n_vision:, 0] = grid + np.arange(pos.shape[1] - n_vision)
+    return dict(batch, positions=jax.numpy.asarray(pos))
+
+
+def check_loss_and_grads(arch: str, dtype: str = "float32", edit=None, **change) -> dict:
     """The port's ``loss_fn`` and every gradient leaf against
-    ``jax.value_and_grad`` of the JAX loss; returns the worst gap of a leaf
+    ``jax.value_and_grad`` of the JAX loss (the config with ``change``, the
+    batch through ``edit`` where given); returns the worst gap of a leaf
     over its max, by leaf."""
-    jcfg, cfg = cfgs(arch, dtype)
+    jcfg, cfg = cfgs(arch, dtype, **change)
     bundle = jax_get_model(jcfg)
     params = bundle.init(jax.random.PRNGKey(0))
     batch = jax_make_concrete_batch(jcfg, "train", BATCH, SEQ, jax.random.PRNGKey(1))
+    if edit is not None:
+        batch = edit(batch)
     loss, grads = jax.jit(jax.value_and_grad(bundle.loss_fn))(params, batch)
     model = model_from(cfg, params)
     tree = param_tree(model)
@@ -135,10 +149,11 @@ def check_loss_and_grads(arch: str, dtype: str = "float32") -> dict:
     return gaps
 
 
-def check_train_steps(arch: str) -> dict:
+def check_train_steps(arch: str, **change) -> dict:
     """Three steps of the CLI's optimizer in both packages from the same
-    weights on the same batches; returns the measured gaps."""
-    jcfg, cfg = cfgs(arch)
+    weights on the same batches (the config with ``change``); returns the
+    measured gaps."""
+    jcfg, cfg = cfgs(arch, **change)
     jb = jax_get_model(jcfg)
     params = jb.init(jax.random.PRNGKey(0))
     jopt = jax_optim.chain(jax_optim.clip_by_global_norm(1.0), jax_optim.adamw(

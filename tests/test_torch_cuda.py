@@ -71,6 +71,14 @@ key on the card is the host's draw. The expert-parallel MoE under a (1, 1)
 mesh of ranks: the reduced MoE family and jamba on the card within 1e-5
 of max of the CPU (2^-8 behind a scan), the MoE layer included; a world-1
 NCCL group's all-reduce of each MoE layer shows in the profiler's trace.
+Position masks (M-RoPE's t stream: an image's tokens sharing one position,
+ties and jumps, T != S with empty slots at -1): flash_attention and its
+backward in both dtypes, causal, windowed and non-causal, against the
+plain versions under the same contracts, one launch each, the controls
+rejected, and positions ``arange(S)`` bitwise the index mask. ssm_scan from
+a carried start state h0 to its contract against the float64 scan from h0,
+the dropped-start-state control rejected, h0 = zeros bitwise no h0, S = 0
+keeping h0.
 """
 
 import numpy as np
@@ -83,6 +91,7 @@ from repro_torch.data import make_federated_classification
 from repro_torch.fl import FLConfig, run_federated
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.contract import bf16_contract
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels import build
 from repro_torch.core.aggregation import staleness_weighted_merge
 from repro_torch.kernels.masked_aggregate import (
@@ -419,6 +428,160 @@ def test_flash_attention_bf16_reaches_only_the_wgmma_kernel(cuda):
     assert flash_attention(q, q[:, :, :1], q[:, :, :1]).dtype == torch.bfloat16
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q.half(), q[:, :, :1].half(), q[:, :, :1].half())
+
+
+def _positions(kind: str, n: int, seed: int) -> np.ndarray:
+    """int32 (n,) position vectors: ``image`` (a Qwen2-VL image first: a
+    quarter of the tokens at t = 0, then text from t = 8), ``ties`` (a
+    non-decreasing walk with steps 0, 1 or 2), ``arange``."""
+    if kind == "arange":
+        return np.arange(n, dtype=np.int32)
+    if kind == "image":
+        nv = n // 4
+        return np.concatenate([np.zeros(nv), 8 + np.arange(n - nv)]).astype(np.int32)
+    return np.cumsum(np.random.default_rng(seed).integers(0, 3, n)).astype(np.int32)
+
+
+_POS_CASES = [
+    # (b, s, h, hkv, dq, dv, window, positions): causal self-attention
+    (2, 300, 8, 2, 128, 128, 0, "image"),
+    (1, 2000, 12, 2, 128, 128, 0, "image"),
+    (1, 333, 8, 2, 128, 128, 40, "ties"),
+    (2, 130, 4, 4, 64, 64, 0, "ties"),
+    (1, 200, 4, 4, 192, 128, 0, "image"),
+    (1, 200, 6, 1, 160, 160, 32, "ties"),
+]
+
+
+@pytest.mark.parametrize("case,dtype", [(c, dt) for c in _POS_CASES
+                                         for dt in (torch.float32, torch.bfloat16)
+                                         if (c[4], c[5]) in HEAD_DIMS[dt]], ids=str)
+def test_flash_attention_positions_vs_plain(cuda, case, dtype):
+    """The position mask (q_pos = k_pos, M-RoPE's t stream: an image's
+    tokens share one position, or a walk with ties and jumps), forward and
+    backward, against the plain versions: float32 within 1e-5 of max, bf16
+    to the bf16 contract, the backward to its contract with its controls
+    rejected; one launch each; and q_pos = k_pos = arange(S) gives the
+    index path's bits."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    b, s, h, hkv, dq, dv, window, kind = case
+    pos = torch.from_numpy(_positions(kind, s, s)).to(cuda)
+    q, k, v, dout = _attention_inputs(cuda, (b, s, s, h, hkv, dq, dv), dtype)
+    mask = dict(q_pos=pos, k_pos=pos)
+    kernels.reset_launch_counts()
+    out, lse = _attention(q, k, v, True, window, True, pos, pos)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want, lse_plain = flash_attention_plain(q, k, v, True, window, return_lse=True, **mask)
+    if dtype == torch.float32:
+        _close_to_max(out, want)
+    else:
+        result = bf16_contract(out, want, q, k, v, True, window, **mask)
+        assert result["ok"], result
+    assert float((lse - lse_plain).abs().max()) <= 1e-5 * max(1.0, float(lse_plain.abs().max()))
+    got = flash_attention_bwd(q, k, v, out, lse, dout, True, window, **mask)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    ref = fa_contract.bwd_references(q, k, v, out, lse, dout, True, window, **mask)
+    result = fa_contract.bwd_check(got, ref)
+    assert result["ok"], result
+    for name, bad in fa_contract.bwd_controls(q, k, v, out, lse, dout, True, window,
+                                              **mask).items():
+        assert not fa_contract.bwd_check(bad, ref)["ok"], name
+    # the index mask's bits where the positions are the indices
+    ar = torch.arange(s, dtype=torch.int32, device=cuda)
+    out_i, lse_i = _attention(q, k, v, True, window, True)
+    out_a, lse_a = _attention(q, k, v, True, window, True, ar, ar)
+    assert torch.equal(out_i, out_a) and torch.equal(lse_i, lse_a)
+    grads_i = flash_attention_bwd(q, k, v, out_i, lse_i, dout, True, window)
+    grads_a = flash_attention_bwd(q, k, v, out_i, lse_i, dout, True, window, q_pos=ar, k_pos=ar)
+    assert all(torch.equal(x, y) for x, y in zip(grads_i, grads_a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", [(2, 100, 700, 6, 6, 64, 64), (1, 64, 300, 4, 2, 128, 128)],
+                         ids=str)
+def test_flash_attention_positions_t_ne_s_vs_plain(cuda, case, dtype):
+    """q_pos (S,) over k_pos (T,) with T != S, causal and non-causal: keys
+    with a negative position (an empty cache slot's -1) are never seen; each
+    query's position is some key's, so every row sees a key."""
+    from repro_torch.kernels.flash_attention import contract as fa_contract
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _attention
+
+    rng = np.random.default_rng(case[2])
+    k_np = _positions("ties", case[2], case[2])
+    k_np[rng.random(case[2]) < 0.1] = -1
+    q_np = np.sort(rng.choice(k_np[k_np >= 0], case[1]))
+    q_pos, k_pos = (torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (q_np, k_np))
+    q, k, v, dout = _attention_inputs(cuda, case, dtype)
+    for causal in (True, False):
+        mask = dict(q_pos=q_pos, k_pos=k_pos)
+        out, lse = _attention(q, k, v, causal, 0, True, q_pos, k_pos)
+        want = flash_attention_plain(q, k, v, causal, **mask)
+        if dtype == torch.float32:
+            _close_to_max(out, want)
+        else:
+            result = bf16_contract(out, want, q, k, v, causal, **mask)
+            assert result["ok"], result
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal, **mask)
+        result = fa_contract.bwd_check(got, fa_contract.bwd_references(q, k, v, out, lse, dout,
+                                                                       causal, **mask))
+        assert result["ok"], (causal, result)
+
+
+def test_flash_attention_positions_refuse_bad_vectors(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="together"):
+        flash_attention(q, q, q, q_pos=pos)
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention(q, q, q, q_pos=pos.long(), k_pos=pos.long())
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, q, q, q_pos=pos[:5], k_pos=pos)
+
+
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 64, 128, 16), (1, 37, 200, 8), (2, 300, 64, 16),
+                                   (2, 1, 96, 16)], ids=str)
+def test_ssm_scan_from_a_start_state_vs_plain(cuda, shape, stream):
+    """The scan from a carried state h0 to ``contract.py`` (against the
+    float64 scan from h0), the start-state-dropped control rejected, the
+    chunk start states beginning with h0; h0 = zeros gives the bits of the
+    scan without one; one launch a call."""
+    b, s, di, ds = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + di)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, di), generator=gen, device=cuda) - 2)
+    a = -torch.exp(torch.randn((di, ds), generator=gen, device=cuda))
+    bm, cm = (torch.randn((b, s, ds), generator=gen, device=cuda) for _ in range(2))
+    x = torch.randn((b, s, di), generator=gen, device=cuda)
+    d = torch.randn((di,), generator=gen, device=cuda)
+    h0 = torch.randn((b, di, ds), generator=gen, device=cuda)
+    ins = [t.to(stream) for t in (dt, bm, cm, x)]
+    args = (ins[0], a, ins[1], ins[2], ins[3], d)
+    plain32, ref64 = ssm_contract.references(*args, h0=h0)
+    for y_dtype in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
+        y, h = ssm_scan(*args, y_dtype=y_dtype, h0=h0)
+        assert kernels.launch_counts()["ssm_scan"] == 1
+        result = ssm_contract.check(y, h, plain32, ref64)
+        assert result["ok"], result
+    _, _, hs = ssm_scan(*args, chunk_states=True, h0=h0)
+    assert torch.equal(hs[0], h0)
+    bad = ssm_contract.controls(*args, h0=h0)["start state dropped"]
+    assert not ssm_contract.check(*bad, plain32, ref64)["ok"]
+    y0, h_0 = ssm_scan(*args)
+    yz, hz = ssm_scan(*args, h0=torch.zeros_like(h0))
+    assert torch.equal(y0, yz) and torch.equal(h_0, hz)
+
+
+def test_ssm_scan_empty_sequence_keeps_its_start_state(cuda):
+    a = -torch.ones((64, 16), device=cuda)
+    x = torch.zeros((2, 0, 64), device=cuda)
+    h0 = torch.randn((2, 64, 16), device=cuda)
+    _, h = ssm_scan(x, a, x[..., :16], x[..., :16], x, torch.ones(64, device=cuda), h0=h0)
+    assert torch.equal(h, h0)
 
 
 def test_flash_attention_rejects_other_head_dims(cuda):

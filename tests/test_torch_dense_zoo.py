@@ -11,7 +11,10 @@ against the JAX package's, on the same weights and inputs.
   steps, logits and caches within 1e-5 of max in float32 and 2^-5 in bf16
   (the contracts of ``tests/test_torch_lm.py``); qwen2-vl with its
   ``vision_proj`` and (B, S, 3) positions whose h and w streams are not
-  the t stream.
+  the t stream, with the t stream ``arange(S)`` and with a real image's
+  (its tokens all at t = 0, the text after from t = grid), which the
+  attention kernels mask by position as JAX does. granite-3-8b with tied
+  embeddings (no head: the logits are ``x @ embed.T``) the same way.
 - qwen2-vl's ``make_concrete_batch`` is bitwise JAX's from one seed, in
   both threefry streams, reduced and at full width (the bf16 vision
   embeddings round the same float32 normals).
@@ -24,8 +27,8 @@ against the JAX package's, on the same weights and inputs.
   D = 128 with G = 6 and G = 16: within 1e-5 of max of the Pallas kernel
   in interpret mode in float32, and ``chunked_attention``'s bf16 result
   (with the same key tiles as chunks) under the bf16 contract.
-- A prefill whose M-RoPE t stream is not ``arange(S)`` raises: the kernel
-  masks by index.
+- A prefill whose M-RoPE t stream holds a negative position raises
+  ``ValueError`` (its query would see no key).
 """
 
 import dataclasses
@@ -111,17 +114,20 @@ def _randn(shape, seed) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-def _mrope_positions(b, s, seed, nv=0, grid=4):
+def _mrope_positions(b, s, seed, nv=0, grid=4, image_t=False):
     """(B, S, 3) int32 M-RoPE streams: t = arange(S); the first ``nv``
     tokens an image on a ``grid``-wide raster (h = row, w = column), the
     text after it h = w = t plus a per-lane offset, so no two streams are
-    equal."""
+    equal. ``image_t``: the t stream of a real Qwen2-VL prompt instead, the
+    image's tokens all at t = 0 and the text after from t = ``grid``."""
     rng = np.random.default_rng(seed)
     t = np.broadcast_to(np.arange(s), (b, s))
     h = t + rng.integers(1, 50, (b, 1))
     w = t + rng.integers(51, 99, (b, 1))
     idx = np.arange(nv)
     h[:, :nv], w[:, :nv] = idx // grid, idx % grid + 3
+    if image_t:
+        t = np.broadcast_to(np.concatenate([np.zeros(nv, int), grid + np.arange(s - nv)]), (b, s))
     return np.stack([t, h, w], axis=-1).astype(np.int32)
 
 
@@ -219,9 +225,10 @@ def lm(request):
     return cfg, params, model, jax.jit(bundle.make_prefill_step()), jax.jit(bundle.make_decode_step())
 
 
-def _lm_batch(cfg, b=2, s=24):
+def _lm_batch(cfg, b=2, s=24, image_t=False):
     """A prefill batch as numpy: tokens, and under the vision stub bf16
-    vision embeddings and M-RoPE positions with distinct h and w streams."""
+    vision embeddings and M-RoPE positions with distinct h and w streams
+    (``image_t``: a real image's t stream)."""
     rng = np.random.default_rng(11)
     if cfg.frontend != "vision_stub":
         return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
@@ -229,7 +236,7 @@ def _lm_batch(cfg, b=2, s=24):
     ve = np.asarray(jnp.asarray(_randn((b, nv, cfg.d_model), 12)).astype(jnp.bfloat16))
     return {"vision_embeds": ve,
             "tokens": rng.integers(0, cfg.vocab_size, (b, s - nv)).astype(np.int32),
-            "positions": _mrope_positions(b, s, seed=13, nv=nv)}
+            "positions": _mrope_positions(b, s, seed=13, nv=nv, image_t=image_t)}
 
 
 def test_lm_params_from_numpy_carries_vision_proj(lm):
@@ -247,10 +254,16 @@ def test_lm_params_from_numpy_carries_vision_proj(lm):
 
 def test_prefill_and_decode_logits_and_caches(lm):
     cfg, params, model, jprefill, jdecode = lm
+    for image_t in (False, True) if cfg.frontend == "vision_stub" else (False,):
+        _prefill_and_decode(cfg, params, model, jprefill, jdecode, _lm_batch(cfg, image_t=image_t))
+
+
+def _prefill_and_decode(cfg, params, model, jprefill, jdecode, batch):
+    """The port's prefill and 4 decode steps against the jitted JAX steps:
+    logits and caches within the dtype's contract."""
     rel = F32_REL if cfg.dtype == "float32" else BF16_REL
     bundle = get_model(cfg)
     prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
-    batch = _lm_batch(cfg)
     jlogits, jcache = jprefill(params, {k: jnp.asarray(v) for k, v in batch.items()})
     logits, cache = prefill(model, {k: _t(v) for k, v in batch.items()})
     _close(logits, jlogits, rel, "prefill logits")
@@ -265,22 +278,43 @@ def test_prefill_and_decode_logits_and_caches(lm):
         tok = np.asarray(jlogits).argmax(-1)[:, None].astype(np.int32)
 
 
-def test_mrope_t_stream_other_than_arange_raises():
+def test_negative_t_position_raises():
+    """Any non-negative t stream runs (shifted, or an image's ties); a
+    negative t position in lane 0's stream (the one the mask reads) raises
+    ``ValueError`` before any launch: its query would see no key, where
+    JAX's -1e30 fill averages V over the masked keys."""
     _, cfg = _cfgs("qwen2-vl-2b")
     model = T.init_params(torch.Generator().manual_seed(0), cfg)
     batch = {k: _t(v) for k, v in _lm_batch(cfg).items()}
     prefill = T.make_prefill_step(cfg)
-    prefill(model, batch)  # t = arange(S): runs
+    prefill(model, batch)  # t = arange(S)
     shifted = dict(batch, positions=batch["positions"].clone())
     shifted["positions"][:, :, 0] += 3
-    with pytest.raises(NotImplementedError, match="arange"):
-        prefill(model, shifted)
+    prefill(model, shifted)
+    prefill(model, {k: _t(v) for k, v in _lm_batch(cfg, image_t=True).items()})
+    negative = dict(batch, positions=batch["positions"].clone())
+    negative["positions"][0, 5, 0] = -1
+    with pytest.raises(ValueError, match="negative t position"):
+        prefill(model, negative)
     lane1 = dict(batch, positions=batch["positions"].clone())
-    lane1["positions"][0, 5, 0] = 4  # lane 0's t stream is what the mask reads
-    with pytest.raises(NotImplementedError, match="arange"):
-        prefill(model, lane1)
+    lane1["positions"][1, 5, 0] = -1  # lane 1's t stream is not the mask's
+    prefill(model, lane1)
     with pytest.raises(ValueError, match="positions"):
         prefill(model, {k: v for k, v in batch.items() if k != "positions"})
+
+
+def test_tied_granite_prefill_and_decode_match_jax():
+    """granite-3-8b with tied embeddings: JAX's tree has no ``head`` and
+    neither has the port's model; prefill and 4 decode steps within 1e-5 of
+    max of JAX's (``x @ embed.T``)."""
+    jcfg, cfg = _cfgs("granite-3-8b", tie_embeddings=True)
+    bundle = jax_get_model(jcfg)
+    params = bundle.init(jax.random.PRNGKey(0))
+    assert "head" not in params
+    model = lm_params_from_numpy(cfg, jax.device_get(params), device="cpu")
+    assert model.head is None and "head" not in dict(model.named_parameters())
+    _prefill_and_decode(cfg, params, model, jax.jit(bundle.make_prefill_step()),
+                        jax.jit(bundle.make_decode_step()), _lm_batch(cfg))
 
 
 # ---------------------------------------------------------------------------

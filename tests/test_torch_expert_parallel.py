@@ -417,9 +417,12 @@ def _jax_tree(cfg, model) -> dict:
     (``transformer.layer_plan``; ``lm_params_from_numpy`` reads it back)."""
     n_pro, p, n_periods = T.layer_plan(cfg)
     blocks = [_tree_of(blk) for blk in model.blocks]
-    return {"embed": _np(model.embed), "final_norm": _np(model.final_norm),
-            "head": _np(model.head), "prologue": blocks[:n_pro],
+    tree = {"embed": _np(model.embed), "final_norm": _np(model.final_norm),
+            "prologue": blocks[:n_pro],
             "stack": [_stack(blocks[n_pro + j::p]) for j in range(p)] if n_periods else []}
+    if model.head is not None:  # none under tied embeddings
+        tree["head"] = _np(model.head)
+    return tree
 
 
 def _inputs() -> dict:

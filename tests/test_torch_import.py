@@ -1,9 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
 entry points (training's ``launch.train.train`` among them) refuse to run
-quietly on the CPU, every model feature outside
-the ported slices raises NotImplementedError naming its ROADMAP.md item,
-and the ported items' options (every FL option, ``cohort_devices``
-included) run on the CPU when asked."""
+quietly on the CPU, no ``NotImplementedError`` names a ROADMAP.md item of
+the model zoo (tied embeddings serve and train), and the ported items'
+options (every FL option, ``cohort_devices`` included) run on the CPU when
+asked."""
 
 import dataclasses
 import json
@@ -333,11 +333,47 @@ def test_every_jax_arch_is_registered_and_an_unknown_one_raises():
         get_config("gpt-5")
 
 
-@pytest.mark.parametrize("change", [dict(tie_embeddings=True)], ids=str)
-def test_model_features_outside_the_slice_raise(change):
-    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_model(cfg)
+def test_no_refusal_names_a_model_zoo_item():
+    """The model zoo's refusals are gone: no ``NotImplementedError`` in the
+    port names ROADMAP.md's item 14 or item 6."""
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        text = path.read_text()
+        assert not re.search(r"NotImplementedError\([^)]*item (14|6)\b", text), path
+        assert "_TODO" not in text, path
+
+
+def test_tied_embeddings_build_serve_and_train():
+    """A tied config (``tie_embeddings=True``) has no ``head`` leaf; its
+    logits are ``x @ embed.T``: a prefill, a decode step and two train
+    steps run on the CPU, the embedding moving; a tree with a head is
+    refused for it, and a tree without one for an untied config."""
+    from repro_torch import optim
+    from repro_torch import random as prng
+    from repro_torch.models.api import make_concrete_batch, param_tree
+
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), tie_embeddings=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    assert model.head is None and "head" not in param_tree(model)
+    batch = make_concrete_batch(cfg, "prefill", 2, 8, prng.PRNGKey(1))
+    logits, cache = bundle.make_prefill_step()(model, batch)
+    logits, cache = bundle.make_decode_step()(model, cache, logits.argmax(-1)[:, None])
+    assert logits.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    opt = optim.adamw(1e-3)
+    step = bundle.make_train_step(opt)
+    state = opt.init(param_tree(model))
+    embed0 = model.embed.detach().clone()
+    train_batch = make_concrete_batch(cfg, "train", 2, 8, prng.PRNGKey(2))
+    for _ in range(2):
+        model, state, loss = step(model, state, train_batch)
+        assert bool(torch.isfinite(loss))
+    assert not torch.equal(model.embed.detach(), embed0)
+    tree = {"embed": model.embed.detach(), "final_norm": model.final_norm.detach(),
+            "blocks": [{k: v for k, v in b.named_parameters()} for b in model.blocks]}
+    with pytest.raises(ValueError, match="head"):
+        transformer.DecoderLM(cfg, dict(tree, head=tree["embed"].t()))
+    with pytest.raises(ValueError, match="head"):
+        transformer.DecoderLM(dataclasses.replace(cfg, tie_embeddings=False), tree)
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-tiny"])
@@ -460,27 +496,6 @@ def test_expert_parallel_moe_raises(monkeypatch):
     for got, want in ((gx, jgx), (grouter, jgp["router"])):
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
-
-
-def _train_tied_embeddings():
-    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), tie_embeddings=True)
-    get_model(cfg).make_train_step(None)
-
-
-_OUT_OF_TRAINING = {"tied embeddings": (_train_tied_embeddings, "item 14")}
-
-
-@pytest.mark.parametrize("case", sorted(_OUT_OF_TRAINING))
-def test_training_outside_the_slice_raises(case):
-    """What training leaves out still raises, naming its ROADMAP.md item:
-    tied embeddings (item 14); every zoo arch trains
-    (``tests/test_torch_train_*.py``), under a mesh of ranks too, the
-    decoder LMs tensor-parallel over ``model`` and whisper-tiny
-    (``tests/test_torch_train_mesh.py``; the expert-parallel MoE's
-    gradients in ``test_expert_parallel_moe_raises``)."""
-    fn, item = _OUT_OF_TRAINING[case]
-    with pytest.raises(NotImplementedError, match=item):
-        fn()
 
 
 def test_serve_record_writes_a_record(tmp_path):

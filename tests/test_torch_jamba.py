@@ -22,6 +22,11 @@ entry per position of the period, each with a leading axis of 1 period).
 - The continuous-batching decode loop (``DecodeProgram`` under
   ``ContinuousBatcher``) gives the JAX loop's tokens on the reduced
   float32 config.
+- A prefill that continues a carried cache (jamba and falcon-mamba, float32)
+  against JAX's ``forward(..., cache=, mode="prefill")``: the Mamba layers'
+  conv and scan from the carried state, jamba's attention restarting its
+  cache as JAX's does; logits and caches within 2^-8 of max; falcon-mamba's
+  two chunks give the whole prefill's last logits and caches.
 """
 
 import dataclasses
@@ -251,3 +256,36 @@ def test_decode_program_matches_jax():
     by_rid = lambda rs: {r.rid: (list(r.output), r.steps) for r in rs}  # noqa: E731
     assert by_rid(tres) == by_rid(jres)
     assert (tprog.tokens_out, tprog.prefill_calls) == (jprog.tokens_out, jprog.prefill_calls)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "falcon-mamba-7b"])
+def test_prefill_from_a_carried_cache_matches_jax(arch):
+    """A prefill that continues a cache (``forward(..., cache=,
+    mode="prefill")``, float32): each Mamba layer's conv and scan start from
+    the carried state (the scan kernel's start state ``h0``), each attention
+    layer restarts its cache, as JAX's layers do; the second chunk's logits
+    and every layer's cache within 2^-8 of max of JAX's. For falcon-mamba
+    (no attention) the two chunks give the whole prefill's last logits and
+    final caches."""
+    from repro.models import transformer as JT
+
+    jcfg, cfg = _cfgs("float32", arch)
+    params = jax_get_model(jcfg).init(jax.random.PRNGKey(0))
+    model = lm_params_from_numpy(cfg, jax.device_get(params), device="cpu")
+    jfwd = jax.jit(lambda p, t, c: JT.forward(p, jcfg, t, cache=c, mode="prefill")[:2])
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    first, second = toks[:, :10], toks[:, 10:]
+    _, jcache = jfwd(params, jnp.asarray(first), None)
+    jlogits, jcache = jfwd(params, jnp.asarray(second), jcache)
+    _, cache, _ = T.forward(model, cfg, torch.from_numpy(first), mode="prefill")
+    logits, cache, _ = T.forward(model, cfg, torch.from_numpy(second), cache=cache,
+                                 mode="prefill")
+    _close(logits, jlogits, SCAN_REL, "second prefill logits")
+    _close_caches(cfg, cache, jcache, SCAN_REL, "second prefill")
+    assert cache["pos"] == second.shape[1]
+    if arch == "falcon-mamba-7b":
+        whole, wcache, _ = T.forward(model, cfg, torch.from_numpy(toks), mode="prefill")
+        _close(logits[:, -1], whole[:, -1], SCAN_REL, "chunked vs whole logits")
+        for got, want in zip(cache["layers"], wcache["layers"]):
+            for name in ("conv", "ssm"):
+                _close(got[name], want[name], SCAN_REL, f"chunked vs whole {name}")

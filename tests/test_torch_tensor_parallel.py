@@ -33,6 +33,10 @@ in this process. Asserted, rank by rank:
   is counted exactly;
 - ``serve`` on (1, 4) and (1, 2) gives every rank the tokens of the run
   without a mesh;
+- granite-3-8b with tied embeddings on (1, 2) (the head a row product over
+  the rank's d columns of ``embed``): prefill and two decode steps within
+  1e-5 of max of the port's own unsharded tied model, every rank bitwise
+  equal (no JAX compile beside it);
 - in process: (1, 1) is bitwise the run without a mesh, and a
   tensor-parallel block outside a ``mesh_context`` raises ``RuntimeError``.
 
@@ -87,6 +91,7 @@ F32_REL = 1e-5
 SPAWN_TIMEOUT_S = 600
 SERVE = dict(requests=3, batch=2, prompt_len=12, max_new=4, seed=0)
 SERVE_ON = {(1, 4): "granite-3-8b", (1, 2): "falcon-mamba-7b"}
+TIED_ON = (1, 2)  # the mesh the tied granite serves on, against itself without one
 # leaves model_block keeps whole where JAX's param_spec splits them over model
 WHOLE_LEAVES = ("norm1", "norm2", "final_norm", "router", "wdkv", "wkr")
 
@@ -136,10 +141,22 @@ def _steps(cfg, model, toks, dec) -> list:
     return out
 
 
+def _tied_cfg():
+    return dataclasses.replace(_cfg("granite-3-8b"), tie_embeddings=True)
+
+
+def _tied_steps(inputs: dict, mesh=None) -> list:
+    """The tied granite's steps on its carried weights (under ``mesh``, the
+    rank's blocks)."""
+    cfg, arrays = _tied_cfg(), inputs["tied"]
+    model = lm_params_from_numpy(cfg, arrays["params"], device="cpu", mesh=mesh)
+    return _steps(cfg, model, arrays["toks"], arrays["dec"])
+
+
 def _port_mesh_run(shape, inputs: dict) -> dict:
     """Every arch under one mesh on this rank: the steps on the carried
     weights, the rank's held bytes by JAX path, and ``init_params``'s
-    leaves."""
+    leaves (on (1, 2), also the tied granite's steps)."""
     mesh = make_rank_mesh(shape, device="cpu")
     out = {"coords": (mesh.coords["data"], mesh.coords["model"])}
     try:
@@ -158,6 +175,8 @@ def _port_mesh_run(shape, inputs: dict) -> dict:
             if tuple(shape) in SERVE_ON:
                 out["serve"] = serve(_cfg(SERVE_ON[tuple(shape)]), device="cpu",
                                      **SERVE)["outputs"]
+            if tuple(shape) == TIED_ON:
+                out["tied"] = _tied_steps(inputs, mesh)
     finally:
         mesh.close()
     return out
@@ -260,6 +279,12 @@ def _inputs() -> dict:
             "toks": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
             "dec": rng.integers(0, cfg.vocab_size, (B, DECODE_STEPS)).astype(np.int32),
         }
+    cfg, rng = _tied_cfg(), np.random.default_rng(300)
+    out["tied"] = {
+        "params": _jax_tree(cfg, T.init_params(torch.Generator().manual_seed(0), cfg)),
+        "toks": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+        "dec": rng.integers(0, cfg.vocab_size, (B, DECODE_STEPS)).astype(np.int32),
+    }
     return out
 
 
@@ -267,7 +292,8 @@ def _inputs() -> dict:
 def runs(tmp_path_factory):
     """(JAX's outputs by arch and mesh, the port's by mesh as a list of
     ranks, the inputs, the unsharded init's leaves by arch, the serving
-    runs' tokens without a mesh by arch)."""
+    runs' tokens without a mesh by arch, the tied granite's steps without a
+    mesh)."""
     pytest.importorskip("jax")
     from _subproc import run_forced
 
@@ -296,6 +322,7 @@ def runs(tmp_path_factory):
                      for arch in ARCHS}
         served = {arch: serve(_cfg(arch), device="cpu", **SERVE)["outputs"]
                   for arch in SERVE_ON.values()}
+        tied = _tied_steps(inputs)
     finally:
         torch.set_num_threads(before)
         for w, procs in worlds.items():
@@ -314,7 +341,7 @@ def runs(tmp_path_factory):
             port[_key(shape)] = [rk[_key(shape)] for rk in ranks]
     with open(base / "jax.pkl", "rb") as f:
         jax_out = pickle.load(f)
-    return jax_out, port, inputs, unsharded, served
+    return jax_out, port, inputs, unsharded, served, tied
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +355,7 @@ def test_logits_match_jax_rank_by_rank(runs, arch, shape):
     """Prefill and two decode steps at batch 4: each rank's gathered logits
     within 1e-5 of max of JAX's sharded run (2^-8 behind a Mamba scan), and
     every rank's bitwise equal."""
-    jax_out, port, _, _, _ = runs
+    jax_out, port, _, _, _, _ = runs
     ranks = port[_key(shape)]
     want = jax_out[arch][shape]
     for rk in ranks:
@@ -345,7 +372,7 @@ def test_caches_hold_the_ranks_heads_and_channels(runs, arch, shape):
     """Each rank's cache after every step within the same tolerance of its
     rows, its kv heads and its d_inner block of JAX's cache (MLA's
     compressed cache whole), and smaller than JAX's by that split."""
-    jax_out, port, _, _, _ = runs
+    jax_out, port, _, _, _, _ = runs
     cfg = _cfg(arch)
     for rk in port[_key(shape)]:
         model = (shape[1], rk["coords"][1])
@@ -400,7 +427,7 @@ def test_init_blocks_put_back_are_the_unsharded_init(runs, arch, shape):
     leaf's ``model_block``: the model ranks' blocks, put back in place, are
     bitwise the unsharded init, every element covered; the rank holds a
     block of every leaf the layout table splits."""
-    _, port, _, unsharded, _ = runs
+    _, port, _, unsharded, _, _ = runs
     ranks = port[_key(shape)]
     assert all(rk[arch]["init"].keys() == unsharded[arch].keys() for rk in ranks)
     for path, whole in unsharded[arch].items():
@@ -445,7 +472,7 @@ def test_held_bytes_are_jaxs_param_spec_blocks(runs, arch, shape):
     JAX's ``param_spec`` block over ``model``, but for the leaves
     ``model_block`` keeps whole, whose excess is counted exactly; every
     rank holds the same."""
-    _, port, inputs, _, _ = runs
+    _, port, inputs, _, _, _ = runs
     cfg = _cfg(arch)
     jtree = _flat(inputs[arch]["params"])
     for rk in port[_key(shape)]:
@@ -465,7 +492,7 @@ def test_serve_gives_every_rank_the_unsharded_tokens(runs, shape):
     """``serve`` inside the mesh context (continuous batching with a
     backfill, reduced float32): every rank produces the tokens of the run
     without a mesh."""
-    _, port, _, _, served = runs
+    _, port, _, _, served, _ = runs
     outs = [rk["serve"] for rk in port[_key(shape)]]
     want = served[SERVE_ON[shape]]
     assert all(o == want for o in outs) and len(want) == SERVE["requests"]
@@ -474,6 +501,19 @@ def test_serve_gives_every_rank_the_unsharded_tokens(runs, shape):
 # ---------------------------------------------------------------------------
 # in process
 # ---------------------------------------------------------------------------
+
+
+def test_tied_granite_on_1x2_matches_the_unsharded_model(runs):
+    """Tied embeddings on a model axis of 2: every rank's gathered logits of
+    the prefill and two decode steps within 1e-5 of max of the port's tied
+    model without a mesh, and bitwise equal across the ranks."""
+    _, port, _, _, _, tied = runs
+    ranks = port[_key(TIED_ON)]
+    for rk in ranks:
+        assert len(rk["tied"]) == len(tied) == 1 + DECODE_STEPS
+        for t, ((logits, _), (want, _)) in enumerate(zip(rk["tied"], tied)):
+            _close(logits, want, F32_REL, f"tied step {t} rank {rk['coords']}")
+            np.testing.assert_array_equal(logits, ranks[0]["tied"][t][0])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -5,14 +5,22 @@ attention gradients in its encoder and cross-attention): the port's loss and
 every gradient leaf against ``jax.value_and_grad`` of the JAX loss, and
 three steps of the CLI's optimizer against the JAX train step, on the same
 weights and batches (reduced configs in float32; tolerances and what they
-allow for in ``tests/_torch_train.py``).
+allow for in ``tests/_torch_train.py``). Also qwen2-vl on a real image's t
+stream (the image's tokens share t = 0: the attention kernels mask by
+position, forward and backward), and granite-3-8b with tied embeddings
+(the embedding's gradient sums the lookup's and the head's).
 """
 
 import pytest
 
 jax = pytest.importorskip("jax")  # the JAX reference these tests compare with
 
-from _torch_train import check_loss_and_grads, check_train_steps, one_torch_thread  # noqa: E402,F401
+from _torch_train import (  # noqa: E402,F401
+    check_loss_and_grads,
+    check_train_steps,
+    image_t_stream,
+    one_torch_thread,
+)
 
 ARCHS = ['granite-3-8b', 'chatglm3-6b', 'stablelm-12b', 'qwen2-vl-2b', 'whisper-tiny']
 
@@ -33,3 +41,20 @@ def test_granite_bf16_loss_and_grads_match_jax():
     backward rounded P and dS to bf16 at the wgmma kernel's points; the
     next leaves moved by up to 1.6e-3)."""
     check_loss_and_grads("granite-3-8b", "bfloat16")
+
+
+def test_qwen2_vl_image_t_stream_loss_and_grads_match_jax():
+    """``lm_loss`` on a real image's t stream: every gradient leaf within
+    1e-5 of its max of JAX's."""
+    from repro_torch.configs import get_config
+
+    nv = get_config("qwen2-vl-2b").reduced().n_vision_tokens
+    check_loss_and_grads("qwen2-vl-2b", edit=lambda b: image_t_stream(b, nv))
+
+
+def test_tied_granite_loss_and_grads_match_jax():
+    check_loss_and_grads("granite-3-8b", tie_embeddings=True)
+
+
+def test_tied_granite_three_train_steps_match_jax():
+    check_train_steps("granite-3-8b", tie_embeddings=True)

@@ -8,7 +8,12 @@ JAX package's, on the same numpy inputs.
   1e-5 of their max. The lse it takes comes from ``flash_attention_plain``
   (``return_lse``), itself checked against the rows' logsumexp in float64;
   ``FlashAttentionFn`` (autograd) gives the plain backward's gradients and
-  the forward's output exactly.
+  the forward's output exactly. With position vectors (M-RoPE's t stream:
+  an image's tokens sharing one position, ties and jumps, T != S with the
+  empty slots' -1, causal, windowed and non-causal) the plain forward and
+  backward against ``chunked_attention`` over those positions and its
+  ``jax.vjp``, within 1e-5 of max in float32; positions ``arange`` give the
+  index mask's bits, forward and backward, in float32 and bf16.
 - ssm_scan: the port's ``models.ssm_vjp.selective_scan`` (the scan with its
   chunk start states, then ``ssm_scan_bwd``; plain versions here) against
   ``jax.vjp`` of the JAX package's ``models.ssm_vjp.selective_scan`` at S =
@@ -99,6 +104,81 @@ def test_attention_backward_plain_matches_jax_vjp(case):
     # the wrapper on CPU tensors is the plain backward
     assert all(torch.equal(a, b) for a, b in zip(
         got, flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal, window)))
+
+
+def _position_case(kind: str, s: int, t: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(q_pos (S,), k_pos (T,)) int32: ``image`` (a quarter of the tokens an
+    image at t = 0, then text from t = 6; q_pos = k_pos), ``ties`` (a walk
+    with steps 0, 1 or 2; q_pos = k_pos), ``cache`` (T keys walking with
+    ties, a tenth of them empty slots at -1, and S sorted queries at keys'
+    positions, so every query sees a key)."""
+    rng = np.random.default_rng(seed)
+    if kind == "image":
+        nv = s // 4
+        pos = np.concatenate([np.zeros(nv), 6 + np.arange(s - nv)]).astype(np.int32)
+        return pos, pos
+    walk = np.cumsum(rng.integers(0, 3, t)).astype(np.int32)
+    if kind == "ties":
+        return walk, walk
+    walk[rng.random(t) < 0.1] = -1
+    return np.sort(rng.choice(walk[walk >= 0], s)).astype(np.int32), walk
+
+
+_POS_CASES = [
+    # (b, s, t, h, hkv, dq, dv, causal, window, positions)
+    (2, 80, 80, 4, 2, 64, 64, True, 0, "image"),
+    (1, 150, 150, 4, 1, 64, 64, True, 12, "ties"),
+    (1, 40, 130, 4, 2, 64, 64, True, 0, "cache"),
+    (1, 40, 130, 2, 2, 48, 32, False, 0, "cache"),
+]
+
+
+@pytest.mark.parametrize("case", _POS_CASES, ids=str)
+def test_attention_positions_plain_matches_jax_vjp(case):
+    """The position mask: ``flash_attention_plain`` and its backward against
+    ``chunked_attention`` over the same q and kv positions, and its
+    ``jax.vjp``, in float32 within 1e-5 of max."""
+    causal, window, kind = case[7:]
+    q, k, v, dout = _attention_case(case[:7])
+    s, t, dq = q.shape[1], k.shape[1], q.shape[-1]
+    q_pos, k_pos = _position_case(kind, s, t, seed=s + t)
+
+    def ref(q, k, v):
+        return chunked_attention(q, k, v, jnp.asarray(q_pos), jnp.asarray(k_pos), causal=causal,
+                                 window=window, chunk=64, scale=1.0 / np.sqrt(dq))
+
+    want_out, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    mask = dict(q_pos=torch.from_numpy(q_pos), k_pos=torch.from_numpy(k_pos))
+    out, lse = flash_attention_plain(tq, tk, tv, causal, window, return_lse=True, **mask)
+    _close(out, want_out, "out")
+    got = flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal, window, **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, name)
+    # autograd through FlashAttentionFn keeps the positions for the backward
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    fn_out = flash_attention(*leaves, causal=causal, window=window, **mask)
+    assert torch.equal(fn_out.detach(), out)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(fn_out, leaves, tdo), got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_arange_positions_are_the_index_mask_bitwise(dtype):
+    """q_pos = k_pos = arange(S) masks as the index rule does: the plain
+    forward, its lse and the plain backward bit for bit, causal with and
+    without a window."""
+    q, k, v, dout = (torch.from_numpy(a).to(dtype)
+                     for a in _attention_case((1, 150, 150, 4, 2, 64, 64)))
+    ar = torch.arange(150, dtype=torch.int32)
+    for window in (0, 40):
+        out, lse = flash_attention_plain(q, k, v, True, window, return_lse=True)
+        out_a, lse_a = flash_attention_plain(q, k, v, True, window, return_lse=True, q_pos=ar,
+                                             k_pos=ar)
+        assert torch.equal(out, out_a) and torch.equal(lse, lse_a)
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, True, window)
+        grads_a = flash_attention_bwd(q, k, v, out, lse, dout, True, window, q_pos=ar, k_pos=ar)
+        assert all(torch.equal(x, y) for x, y in zip(grads, grads_a))
 
 
 @pytest.mark.parametrize("case", _ATTN_CASES[:4], ids=str)

@@ -128,6 +128,12 @@ def _cfg(arch):
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
 
 
+def _tied_cfg():
+    """granite-3-8b with tied embeddings: trained on (1, 2) against itself
+    without a mesh (no JAX compile beside it)."""
+    return dataclasses.replace(_cfg("granite-3-8b"), tie_embeddings=True)
+
+
 def _np(t):
     return t.detach().numpy().copy() if isinstance(t, torch.Tensor) else t
 
@@ -153,12 +159,13 @@ def _recording(opt, into: list):
     return optim.Optimizer(opt.init, opt.update, apply_)
 
 
-def _port_case(arch, shape, seq_parallel, inputs) -> dict:
-    """3 steps of ``arch`` under ``shape`` on this rank: its losses, its
-    blocks of the gradients (each step), the parameters and both moments
-    (after the steps), the recorded norms, and on rank 0 the gathered
-    trees."""
-    cfg, a = _cfg(arch), inputs[arch]
+def _port_case(arch, shape, seq_parallel, inputs, cfg=None, key=None) -> dict:
+    """3 steps of ``arch`` (config ``cfg``, default the reduced float32 one;
+    its inputs ``inputs[key]``, default ``arch``'s) under ``shape`` on this
+    rank: its losses, its blocks of the gradients (each step), the
+    parameters and both moments (after the steps), the recorded norms, and
+    on rank 0 the gathered trees."""
+    cfg, a = cfg or _cfg(arch), inputs[key or arch]
     carry = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
     mesh = make_rank_mesh(shape, device="cpu")
     try:
@@ -253,6 +260,9 @@ def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
                if spec[1][0] * spec[1][1] == world}
         if world == 4:
             out["collectives"] = _collectives()
+        if world == 2:
+            out["tied 1x2"] = _port_case("granite-3-8b", (1, 2), False, inputs, _tied_cfg(),
+                                         "tied")
     finally:
         dist.destroy_process_group()
     with open(os.path.join(base, f"port_w{world}_r{rank}.pkl"), "wb") as f:
@@ -444,8 +454,7 @@ def _inputs() -> dict:
     for MASKED[r] places."""
     out = {}
     archs = dict.fromkeys([*ARCHS, *RULE, *(c[0] for c in CASES.values())])
-    for n, arch in enumerate(archs):
-        cfg = _cfg(arch)
+    for n, (arch, cfg) in enumerate([*((a, _cfg(a)) for a in archs), ("tied", _tied_cfg())]):
         rng = np.random.default_rng(10 + n)
         batches = []
         for _ in range(STEPS):
@@ -464,15 +473,41 @@ def _inputs() -> dict:
     return out
 
 
+def _tied_unsharded(inputs) -> dict:
+    """The tied granite's 3 steps without a mesh, one torch thread: losses,
+    each step's gradients, the parameters and AdamW's nu after them."""
+    cfg, a = _tied_cfg(), inputs["tied"]
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = lm_params_from_numpy(cfg, a["params"], device="cpu")
+        seen: list = []
+        opt = _recording(_optimizer(), seen)
+        state = opt.init(param_tree(model))
+        step = get_model(cfg).make_train_step(opt)
+        losses = []
+        for batch in a["batches"]:
+            model, state, loss = step(model, state, {k: torch.from_numpy(v)
+                                                     for k, v in batch.items()})
+            losses.append(float(loss))
+    finally:
+        torch.set_num_threads(before)
+    return {"losses": losses, "grads": [{k: _np(g) for k, g in grads.items()} for grads, _ in seen],
+            "params": {k: _np(p) for k, p in param_tree(model).items()},
+            "nu": {k: _np(t) for k, t in state[1].nu.items()}}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(JAX's outputs, the port's by case as a list of ranks)."""
+    """(JAX's outputs, the port's by case as a list of ranks, the tied
+    granite's run without a mesh)."""
     pytest.importorskip("jax")
     from _subproc import run_forced
 
     base = tmp_path_factory.mktemp("train_mesh")
+    inputs = _inputs()
     with open(base / "inputs.pkl", "wb") as f:
-        pickle.dump(_inputs(), f)
+        pickle.dump(inputs, f)
     code = _JAX_CODE.format(cases=CASES, rule=RULE, rule_meshes=RULE_MESHES, steps=STEPS, lr=LR,
                             base=str(base))
     jax_err: list = []
@@ -494,6 +529,7 @@ def runs(tmp_path_factory):
             store.mkdir()
             procs.append(_spawn(lambda r, w=world, st=store: [
                 sys.executable, "-c", script, str(r), str(w), str(st), str(base)], world))
+        tied = _tied_unsharded(inputs)
         for world, ps in zip(WORLDS, procs):
             _join(ps, deadline, f"gloo world {world}")
     finally:
@@ -515,7 +551,7 @@ def runs(tmp_path_factory):
         port.update({key: [rk[key] for rk in ranks] for key in ranks[0]})
     with open(base / "jax.pkl", "rb") as f:
         jax_out = pickle.load(f)
-    return jax_out, port
+    return jax_out, port, tied
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +668,27 @@ def test_train_steps_match_jax_rank_by_rank(runs, case):
     _assert_params(cfg, whole["params"], _named(cfg, want["params"]), _named(cfg, want["nu"]))
 
 
+def test_tied_granite_on_1x2_matches_the_unsharded_model(runs):
+    """Tied embeddings trained on a model axis of 2 (the head a row product
+    over the rank's d columns of ``embed``, the embedding's gradient the
+    lookup's and the head's): 3 steps against the port's tied model without
+    a mesh, each loss within 1e-5 and every rank's equal, the gathered
+    gradients within 1e-5 of each leaf's max at every step, the parameters
+    within ``tests/_torch_train.py``'s contract."""
+    ranks, want = runs[1]["tied 1x2"], runs[2]
+    cfg = _tied_cfg()
+    assert "head" not in ranks[0]["params"] and "head" not in want["params"]
+    for rk in ranks:
+        assert rk["losses"] == ranks[0]["losses"], rk["coords"]
+    for got, wl in zip(ranks[0]["losses"], want["losses"]):
+        assert abs(got - wl) <= F32_REL * abs(wl), (ranks[0]["losses"], want["losses"])
+    whole = ranks[0]["whole"]
+    for t, (g, wg) in enumerate(zip(whole["grads"], want["grads"])):
+        for name, w in wg.items():
+            assert _gap(g[name], w) <= F32_REL, (t, name, _gap(g[name], w))
+    _assert_params(cfg, whole["params"], want["params"], want["nu"])
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_each_rank_holds_its_blocks_of_params_grads_and_moments(runs, case):
     """Each rank's parameters, gradients (every step) and both AdamW
@@ -733,7 +790,7 @@ def test_jax_sharded_step_takes_the_mean_of_the_shards_aux(runs, arch, shape):
     than 1e-2 of its max); its loss is the global NLL mean plus 0.01 times
     data shard 0's aux (within 1e-6). The port implements this rule
     (``lm_objective``; ``test_train_steps_match_jax_rank_by_rank``)."""
-    jax_out, _ = runs
+    jax_out, _, _ = runs
     cfg, r = _cfg(arch), jax_out["rule"][(arch, shape)]
     got = _named(cfg, r["grads"])
     mean, summed, plain = (_named(cfg, r[k]) for k in ("mean", "sum", "plain"))
