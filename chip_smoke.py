@@ -124,7 +124,19 @@ drives the port's two paths:
   falcon-mamba and jamba, two prefills and 2 decode steps, card = CPU;
   ``[serve]``: falcon-mamba-7b's 2 x 1,024 chunked prefill then 32 tokens
   against one 2,048 prefill) and tied embeddings (``[lm]``: the reduced
-  granite-3-8b tied, prefill, decode and 2 train steps card = CPU).
+  granite-3-8b tied, prefill, decode and 2 train steps card = CPU);
+- the dry run (``[dryrun]``, ``launch/dryrun.py``, last): traced in a
+  process of its own that sees no card, during the build, and read
+  before any phase is timed: granite-3-8b's four production shapes on the 16 x 16 mesh
+  and on (4, 1), (2, 2) and (1, 4), rank 0, one line each (GiB a rank,
+  fits in 80 GB or not, collective MB by kind); then on the card what it
+  predicts fits one: granite-3-8b prefill_32k and long_500k (4 decode
+  steps on the 8,192-key ring) and falcon-mamba-7b prefill_32k at batch
+  1, granite-3-8b train_4k at 8 layers and batch 1, each with its
+  predicted peak within 10% of ``torch.cuda.max_memory_allocated`` and
+  its predicted launches equal to the counters (prefill_32k at batch 32
+  does not fit and is not run); and flash_attention at S = 32,768 held to
+  its bf16 contract on one kv head's query heads.
 
 On a machine with several cards, ``torchrun --standalone --nproc-per-node
 D chip_smoke.py --nccl-world`` runs only the sharded path over D NCCL
@@ -135,8 +147,10 @@ falcon-mamba-7b whole on (1, 4), tensor-parallel (``ep_world_main``),
 and ``... --train-world`` trains granite-3-8b whole on (4, 1), (2, 2)
 and (1, 4), deepseek-moe-16b whole on (2, 2) and falcon-mamba-7b whole on
 (2, 2), tensor-parallel where the model axis is over 1, after holding
-4-layer float32 versions to the same weights without a mesh
-(``train_world_main``);
+4-layer float32 versions to the same weights without a mesh, then runs
+the cross-silo round over a (4, 1) mesh against the single-process round
+(``train_world_main``, ``cross_silo_world``); both print the dry run's
+prediction for each case beside its measured peak a rank;
 ``--shard-worker``, ``--ep-worker``, ``--tp-worker`` and
 ``--train-mesh-worker`` are one rank of the gloo worlds the single-card run
 starts itself.
@@ -220,7 +234,8 @@ from repro_torch.kernels.ssm_scan import contract as ssm_contract  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.launch import context as mesh_ctx  # noqa: E402
 from repro_torch.launch.collectives import collective_bytes  # noqa: E402
-from repro_torch.launch.mesh import make_rank_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import HW, make_rank_mesh  # noqa: E402
 from repro_torch.launch.profile import profile_async_events, profile_train_step  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.ssm_bwd_ab import shapes as ssm_bwd_shapes  # noqa: E402
@@ -244,11 +259,11 @@ from repro_torch.serve.engine import LANES  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.weights import servable_from_numpy  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 rate, fp32
-# (non-tensor-core) rate, and the dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+# H100 SXM published peaks (launch.mesh.HW, the NVIDIA data sheet at 700 W):
+# HBM3 rate, fp32 (non-tensor-core) rate, and the dense bf16 tensor-core rate
+HBM_BYTES_PER_S = HW["hbm_bw"]
+FP32_FLOPS = HW["peak_flops_fp32"]
+BF16_FLOPS = HW["peak_flops_bf16"]
 # its 132 SMs reach the fp32 rate with 128 FMA lanes each at this clock
 # (1.98 GHz); the special-function unit (MUFU: ex2) gives 16 results a clock
 # an SM, the FP32 pipe 128 instructions
@@ -527,6 +542,28 @@ CROSS_SILO = (("granite-3-8b", 4, ("fp32", "int8+ef")), ("falcon-mamba-7b", 4, (
 CROSS_SILO_RUN = dict(silos=4, batch=1, seq=2048, rounds=3, shared=2, lr=3e-4, seed=0)
 CROSS_SILO_WEIGHTS = (1.0, 2.0, 1.0, 1.0)
 WIRE_CHECK_COLS = 1 << 24  # columns of a wire row held against the plain pair at a time (512 | it)
+
+
+# [dryrun]: the dry run (launch/dryrun.py) of granite-3-8b's four shapes on
+# the 16 x 16 production mesh (None) and the three four-card meshes, rank 0,
+# traced in a process of its own during the build; then the
+# runs it predicts on one card, each against its prediction: (label, arch,
+# shape, batch, layers (0: whole), steps)
+DRYRUN_ARCH = "granite-3-8b"
+DRYRUN_MESHES = (None, (4, 1), (2, 2), (1, 4))
+DRYRUN_REAL = (("granite-3-8b prefill_32k", "granite-3-8b", "prefill_32k", 1, 0, 1),
+               ("granite-3-8b long_500k", "granite-3-8b", "long_500k", 1, 0, 4),
+               ("falcon-mamba-7b prefill_32k", "falcon-mamba-7b", "prefill_32k", 1, 0, 1),
+               ("granite-3-8b train_4k", "granite-3-8b", "train_4k", 1, 8, 1))
+DRYRUN_WHOLE_CARD = ("granite-3-8b prefill_32k B32", "granite-3-8b", "prefill_32k", 32, 0, 1)
+DRYRUN_PEAK_REL = 0.10  # the predicted peak against torch.cuda.max_memory_allocated
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_PROCS = 6  # the traces share out over this many processes, during the build
+DRYRUN_TRAIN_COST = 5  # a train step's trace takes about this many of another shape's
+# flash_attention at S = 32,768 against its plain version: granite's layer
+# (B 1, H 32, Hkv 8, D 128), the plain version on kv head 0's 4 query heads
+LONG_ATTENTION = (1, 32_768, 32, 8, 128)
+LONG_ATTENTION_HEADS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -3542,10 +3579,16 @@ def ep_world_main(where: str = "cuda") -> int:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         card = "CPU rehearsal" if cpu else phase_environment() if rank == 0 else ""
-        if not cpu and rank == 0:
-            phase_build()
-        dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
         run = dict(SERVE_RUN, prompt_len=64) if cpu else SERVE_RUN
+        preds = {}
+        if rank == 0:  # every serving case's dry run, traced during the build, before any timing
+            pending = start_dryruns(ep_world_cases(run, cpu), "ep_world")
+            try:
+                if not cpu:
+                    phase_build()
+            finally:
+                preds = collect_dryruns(*pending)
+        dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
         check_cfg = get_config(EP_CHECK_ARCH)
         check_cfg = dataclasses.replace(check_cfg.reduced() if cpu else check_cfg, dtype="float32",
                                         **({} if cpu else {"n_layers": EP_CHECK_LAYERS}))
@@ -3567,7 +3610,10 @@ def ep_world_main(where: str = "cuda") -> int:
                 cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                failures += ep_world_serve(cfg, mesh, run, card, cpu)
+                failures += ep_world_serve(cfg, mesh, run, card, cpu,
+                                           [preds[k] for k in (f"{arch} {shape} prefill",
+                                                               f"{arch} {shape} decode")
+                                            if k in preds])
             finally:
                 mesh.close()
             gc.collect()
@@ -3697,7 +3743,7 @@ def tp_world_check(cfg, mesh, run: dict, card: str) -> list:
     return failures
 
 
-def ep_world_serve(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
+def ep_world_serve(cfg, mesh, run: dict, card: str, cpu: bool, preds=()) -> list:
     """One serving run of ``cfg`` on ``mesh`` (every rank); returns this
     rank's failures."""
     dev = mesh.device
@@ -3750,6 +3796,9 @@ def ep_world_serve(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
               f"{stats['wall_s']:.2f} s (with init {wall:.2f} s); peak GiB by rank "
               f"{None if peaks is None else [round(b / 2**30, 2) for b in peaks]}; MoE routes "
               f"dropped {json.dumps(dropped)}; rank 0 launches {json.dumps(counts)}")
+        for pred in preds:  # the dry run's prefill and decode steps beside the measured peaks
+            print(world_prediction_line("ep-world", pred, None if peaks is None else
+                                        [round(b / 2**30, 2) for b in peaks]))
     return failures
 
 
@@ -4390,8 +4439,15 @@ def train_world_main(where: str = "cuda") -> int:
             torch.cuda.set_device(dev)
         card = "CPU rehearsal" if cpu else phase_environment() if rank == 0 else ""
         full_precision_matmuls()
-        if not cpu and rank == 0:
-            phase_build()
+        run = dict(TRAIN_WORLD_RUN, seq=64) if cpu else TRAIN_WORLD_RUN
+        preds = {}
+        if rank == 0:  # every case's dry run, traced during the build, before any timing
+            pending = start_dryruns(train_world_cases(run, cpu), "train_world")
+            try:
+                if not cpu:
+                    phase_build()
+            finally:
+                preds = collect_dryruns(*pending)
         dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
         for arch, layers, shape in TRAIN_CHECK:
             cfg = get_config(arch)
@@ -4405,12 +4461,11 @@ def train_world_main(where: str = "cuda") -> int:
             gc.collect()
             if not cpu:
                 torch.cuda.empty_cache()
-        run = dict(TRAIN_WORLD_RUN, seq=64) if cpu else TRAIN_WORLD_RUN
         for arch, shape in TRAIN_WORLD:
             cfg = get_config(arch).reduced() if cpu else get_config(arch)
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                failures += train_world_run(cfg, mesh, run, card, cpu)
+                failures += train_world_run(cfg, mesh, run, card, cpu, preds.get(f"{arch} {shape}"))
                 if not cpu and not failures:  # one more step, traced on every rank
                     gc.collect()
                     torch.cuda.empty_cache()
@@ -4424,6 +4479,12 @@ def train_world_main(where: str = "cuda") -> int:
             gc.collect()
             if not cpu:
                 torch.cuda.empty_cache()
+        if dist.get_world_size() == 4:  # the cross-silo round over (4, 1)
+            mesh = make_rank_mesh((4, 1), device=dev)
+            try:
+                failures += cross_silo_world(dev, mesh, card, cpu, preds.get("cross_silo"))
+            finally:
+                mesh.close()
         n_bad = torch.full((1,), float(len(failures)), device=dev)
         dist.all_reduce(n_bad)
         failures += [] if int(n_bad.item()) == len(failures) else ["another rank failed"]
@@ -4542,7 +4603,7 @@ def step_bound(got: dict, want: dict, nu: dict, gap: dict, dev) -> tuple[bool, f
     return worst <= 1.0, worst, leaves
 
 
-def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
+def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool, pred=None) -> list:
     """``launch.train.train`` of ``cfg`` on ``mesh`` (every rank), kernel
     counts zeroed just before and read just after: finite losses, equal on
     every rank, the launches ``expected_train_launches`` gives; rank 0
@@ -4582,6 +4643,9 @@ def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
               f"{1e3 * tokens / statistics.median(timed):.0f} tok/s over the global batch; peak "
               f"GiB by rank {[round(float(b) / 2**30, 2) for b in every[:, n]]}; launches "
               f"{json.dumps(counts)}")
+        if pred is not None:  # the dry run of one step beside the run's peaks (init included)
+            print(world_prediction_line("train-world", pred,
+                                        [round(float(b) / 2**30, 2) for b in every[:, n]]))
     return failures
 
 
@@ -4593,14 +4657,16 @@ def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool) -> list:
 def expected_cross_silo_launches(cfg, silo, rounds: int, wire: str, shared: int) -> dict[str, int]:
     """What ``rounds`` rounds of the cross-silo step launch: every silo's
     train step (``expected_train_launches``), and a round's silo mean: fp32
-    one masked_aggregate launch for up to 64 shared leaves; bf16 none (plain
+    one masked_aggregate launch for up to 64 shared leaves of one dtype
+    (``cross_silo.launch_groups``); bf16 none (plain
     PyTorch); int8/int4 and EF one quantize, one dequantize and one
     masked_aggregate launch a wire call (``cross_silo.wire_chunks``: up to 64
     JAX leaves and 2^30 silo-row elements)."""
     counts = expected_train_launches(cfg, silo.n_silos * rounds)
     groups = cross_silo.shared_groups(cfg, silo.params, shared)
     if wire == "fp32":
-        counts["masked_aggregate"] += rounds * -(-sum(map(len, groups)) // cross_silo.MAX_LEAVES)
+        counts["masked_aggregate"] += rounds * len(cross_silo.launch_groups(
+            [silo.params[n] for g in groups for n in g]))
     elif wire != "bf16":
         sizes = [sum(silo.params[n][0].numel() for n in g) for g in groups]
         calls = len(cross_silo.wire_chunks(groups, sizes, silo.n_silos))
@@ -4853,6 +4919,350 @@ def phase_cross_silo(dev: torch.device, card: str) -> tuple[dict, dict, dict]:
     return total, by_arch, embed
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry run's predictions and the runs they predict
+# ---------------------------------------------------------------------------
+
+DRYRUN_SCRIPT = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import run_one
+for case in json.loads(sys.argv[1]):
+    cfg = get_config(case["arch"])
+    if case.get("reduced"):
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    if case.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=case["layers"])
+    r = run_one(case["arch"], case["shape"], mesh=case["mesh"], cfg=cfg, batch=case.get("batch"),
+                seq=case.get("seq"), zero=False if case.get("serve") else None,
+                fl_shared=case.get("fl_shared"), verbose=False)
+    print("DRYRUN " + json.dumps(dict(r, key=case["key"])), flush=True)
+"""
+
+
+def start_dryruns(cases: list, name: str) -> tuple:
+    """The dry runs of ``cases`` (dicts: key, arch, shape, mesh (None: the
+    production mesh, []: one card), batch, seq, layers, reduced, serve,
+    fl_shared) in DRYRUN_PROCS processes of their own, a train step
+    counted as DRYRUN_TRAIN_COST of the others in sharing them out; each
+    sees no card (the dry run needs none: fake tensors over a fake process
+    group) and writes to ``build/dryrun_<name>_<i>.log``. Returns (the
+    processes and their logs, the start time)."""
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    shares = [[] for _ in range(min(DRYRUN_PROCS, len(cases)))]
+    loads = [0] * len(shares)
+    for case in sorted(cases, key=lambda c: c["shape"] != "train_4k"):  # heaviest first
+        i = loads.index(min(loads))
+        shares[i].append(case)
+        loads[i] += DRYRUN_TRAIN_COST if case["shape"] == "train_4k" else 1
+    procs = []
+    for i, share in enumerate(shares):
+        log = root / "build" / f"dryrun_{name}_{i}.log"
+        with open(log, "w") as out:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(share)], env=env, cwd=str(root),
+                stdout=out, stderr=subprocess.STDOUT), log))
+    return procs, time.perf_counter()
+
+
+def collect_dryruns(procs: list, started: float, timeout: float = DRYRUN_TIMEOUT_S) -> dict:
+    """The results of ``start_dryruns``' processes by key, once they have
+    ended (killed at ``timeout`` from the start); raises if one failed."""
+    out = {}
+    for proc, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, started + timeout - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        text = log.read_text()
+        check(rc == 0, f"[dryrun] the dry-run process {log.name} ended with {rc}: "
+              f"{text[-3000:]}")
+        for line in text.splitlines():
+            if line.startswith("DRYRUN "):
+                r = json.loads(line[len("DRYRUN "):])
+                out[r["key"]] = r
+    print(f"[dryrun] {len(out)} traces in {len(procs)} processes: "
+          f"{time.perf_counter() - started:.1f} s")
+    return out
+
+
+def dryrun_cases() -> list:
+    """[dryrun]'s traces: DRYRUN_ARCH's four shapes on each DRYRUN_MESHES
+    mesh, and the one-card predictions of DRYRUN_REAL and the whole-card
+    batch of DRYRUN_WHOLE_CARD."""
+    cases = [{"key": f"{shape} {mesh}", "arch": DRYRUN_ARCH, "shape": shape,
+              "mesh": None if mesh is None else list(mesh)}
+             for mesh in DRYRUN_MESHES for shape in ("train_4k", "prefill_32k", "decode_32k",
+                                                     "long_500k")]
+    cases += [{"key": label, "arch": arch, "shape": shape, "mesh": [], "batch": batch,
+               "layers": layers}
+              for label, arch, shape, batch, layers, _ in (*DRYRUN_REAL, DRYRUN_WHOLE_CARD)]
+    return cases
+
+
+def dryrun_real_run(dev: torch.device, arch: str, shape_name: str, batch: int, layers: int,
+                    steps: int) -> tuple[int, dict]:
+    """``steps`` steps of ``arch`` (cut to ``layers``) at ``shape_name``'s
+    sequence and ``batch`` on the card, as the dry run traced one: random
+    weights from seed 0, a train step's AdamW(3e-4), a decode step's cache
+    from ``init_cache`` (long_500k: the 8,192-key ring). Returns (the peak
+    bytes the run's tensors held above what the card held before it, the
+    kernel launches, counts zeroed just before the steps)."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = dataclasses.replace(dryrun.get_shape(shape_name), global_batch=batch)
+    window = dryrun.window_for(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    key = prng.PRNGKey(0, device=dev)
+    if shape.kind == "decode":
+        cache = bundle.init_cache(batch, shape.seq_len, window, dev)
+        token = prng.randint(key, (batch, 1), 0, cfg.vocab_size)
+        step = bundle.make_decode_step(window=window)
+        run = lambda: step(model, cache, token)[0]  # noqa: E731
+    else:
+        data = {k: v.to(dev) for k, v in make_concrete_batch(cfg, shape.kind, batch, shape.seq_len,
+                                                             key).items()}
+        if shape.kind == "train":
+            opt = adamw(3e-4)
+            state = opt.init(transformer.param_tree(model))
+            step = bundle.make_train_step(opt, window=window)
+            run = lambda: step(model, state, data)[2]  # noqa: E731
+        else:
+            step = bundle.make_prefill_step(window=window)
+            run = lambda: step(model, data)[0]  # noqa: E731
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    for _ in range(steps):
+        out = run()
+    torch.cuda.synchronize(dev)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(out).all()), f"[dryrun] {arch} {shape_name}: non-finite output")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak, counts
+
+
+def long_attention_check(dev: torch.device, card: str) -> dict:
+    """flash_attention at S = 32,768 (LONG_ATTENTION, granite's layer) held
+    to ``bf16_contract`` against its plain version on kv head 0's query
+    heads, and timed beside the plain version's time on that slice."""
+    b, s, h, hkv, d = LONG_ATTENTION
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    n = LONG_ATTENTION_HEADS
+    qs, ks, vs = q[:, :, :n].contiguous(), k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
+    t0 = time.perf_counter()
+    want = flash_attention_plain(qs, ks, vs, causal=True)
+    torch.cuda.synchronize(dev)
+    plain_s = time.perf_counter() - t0
+    report = bf16_contract(got[:, :, :n], want, qs, ks, vs, causal=True)
+    check(report["ok"], f"[dryrun] flash_attention at S = {s} fails its bf16 contract: {report}")
+    ms = device_ms(lambda: flash_attention(q, k, v, causal=True), reps=5)
+    print(f"[dryrun] flash_attention B={b} S={s} H={h} Hkv={hkv} D={d} causal, bf16: heads "
+          f"0..{n - 1}"
+          f" against the plain version (kernels/flash_attention/contract.py bf16_contract): "
+          f"{json.dumps(report)}; kernel {ms:.3f} ms (CUDA events), the plain version on {n} "
+          f"heads {plain_s:.2f} s; {card}")
+    del q, k, v, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"long_ms": ms, "long_s": s, "long_contract": report["ok"]}
+
+
+def phase_dryrun(dev: torch.device, card: str, results: dict) -> tuple[dict, dict]:
+    """[dryrun]: the traces of ``dryrun_cases`` (``results``, by key), one
+    line each (GiB a rank, fits in 80 GB or not, collective MB by kind);
+    then each DRYRUN_REAL run on the card where its prediction fits
+    (DRYRUN_WHOLE_CARD's does not: not attempted), its predicted peak
+    within DRYRUN_PEAK_REL of the measured one and its predicted launches,
+    times its steps, equal to the kernels' counters; then
+    ``long_attention_check``. Returns (the launches by kernel, the
+    flash_attention row's keys)."""
+    t0 = time.perf_counter()
+    for mesh in DRYRUN_MESHES:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            print(dryrun.summary_line(results[f"{shape} {mesh}"]))
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    for label, arch, shape, batch, layers, steps in (DRYRUN_WHOLE_CARD, *DRYRUN_REAL):
+        pred = results[label]
+        want_gib = pred["memory"]["peak_bytes"] / 2**30
+        if not pred["fits"]:
+            print(f"[dryrun] {label} on one card: the dry run predicts {want_gib:.2f} GiB, more "
+                  f"than the card's 80 GB: the real run is not attempted")
+            continue
+        peak, counts = dryrun_real_run(dev, arch, shape, batch, layers, steps)
+        want_launches = {k: pred["launches"].get(k, 0) * steps for k in kernels.KERNELS}
+        gap = peak / pred["memory"]["peak_bytes"] - 1
+        print(f"[dryrun] {label} (batch {batch}{f', {layers} layers' if layers else ''}, {steps} "
+              f"step{'s' if steps > 1 else ''}) on the card: predicted peak {want_gib:.3f} GiB "
+              f"(launch/dryrun.py), torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
+              f"above the card's prior use ({100 * gap:+.2f}%); predicted launches "
+              f"{json.dumps({k: v for k, v in want_launches.items() if v})}, counted "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}; {card}")
+        check(abs(gap) <= DRYRUN_PEAK_REL, f"[dryrun] {label}: measured peak {peak} against the "
+              f"predicted {pred['memory']['peak_bytes']} ({100 * gap:+.2f}%)")
+        check(counts == want_launches, f"[dryrun] {label}: launches {counts}, predicted "
+              f"{want_launches}")
+        for k, n in counts.items():
+            launches[k] += n
+    row = long_attention_check(dev, card)
+    print(f"[dryrun] {time.perf_counter() - t0:.1f} s")
+    return launches, row
+
+
+def train_world_cases(run: dict, cpu: bool) -> list:
+    """The dry runs of --train-world: one train step of each TRAIN_WORLD
+    case at ``run``'s batch and sequence, and one round of the cross-silo
+    world case (``cross_silo_world``) on (4, 1)."""
+    cases = [{"key": f"{arch} {shape}", "arch": arch, "shape": "train_4k", "mesh": list(shape),
+              "batch": run["batch"], "seq": run["seq"], "reduced": cpu}
+             for arch, shape in TRAIN_WORLD]
+    silo = dict(CROSS_SILO_RUN, seq=64) if cpu else CROSS_SILO_RUN
+    cases.append({"key": "cross_silo", "arch": "granite-3-8b", "shape": "train_4k",
+                  "mesh": [4, 1], "batch": 4 * silo["batch"], "seq": silo["seq"],
+                  "reduced": cpu, "fl_shared": silo["shared"],
+                  "layers": 0 if cpu else dict((a, n) for a, n, _ in CROSS_SILO)["granite-3-8b"]})
+    return cases
+
+
+def ep_world_cases(run: dict, cpu: bool) -> list:
+    """The dry runs of --ep-world: each EP_WORLD case's prefill of ``run``'s
+    batch and prompt and its decode step over the prompt and the new
+    tokens, in the port's serving layout (tensor-parallel blocks, no
+    ZeRO)."""
+    return [{"key": f"{arch} {shape} {kind}", "arch": arch, "shape": f"{kind}_32k",
+             "mesh": list(shape), "batch": run["batch"], "serve": True, "reduced": cpu,
+             "seq": run["prompt_len"] + (run["max_new"] if kind == "decode" else 0)}
+            for arch, shape in EP_WORLD for kind in ("prefill", "decode")]
+
+
+def world_prediction_line(tag: str, pred: dict, measured_gib) -> str:
+    """One line: the dry run's prediction for a four-card case beside its
+    measured peak a rank."""
+    mem = pred["memory"]
+    return (f"[{tag}] dry run (launch/dryrun.py, rank 0 of {pred['n_chips']}, {pred['layout']}) "
+            f"of {pred['arch']} {pred['shape']} x {pred['global_batch']} x {pred['seq_len']} on "
+            f"{pred['mesh']}: predicted peak {mem['peak_bytes'] / 2**30:.2f} GiB a rank (arguments "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB), collectives "
+            f"{pred['collective_bytes_per_device'] / 1e6:.1f} MB "
+            f"{json.dumps({k: round(v / 1e6, 1) for k, v in pred['collectives'].items()})}; "
+            f"measured peak GiB by rank {measured_gib}")
+
+
+def cross_silo_world(dev: torch.device, mesh, card: str, cpu: bool, pred: dict | None) -> list:
+    """The cross-silo round over a (4, 1) mesh (``make_mesh_fl_round_step``:
+    silo i on data rank i, Eq. 1 through masked_aggregate's partial and
+    combine modes and one all-reduce): granite-3-8b at [cross_silo]'s depth
+    (the reduced float32 config on the CPU), CROSS_SILO_RUN's rounds,
+    shared periods, weights and batches (silo i's rows of each), round 1
+    traced with torch.profiler; then on rank 0 the single-process round
+    (``make_fl_round_step``, the fp32 wire) on the same inputs. Held: every
+    parameter of each rank bitwise silo i's of the single-process round
+    (SHA-256 of each leaf's bytes), the losses equal, and the traced
+    collective bytes equal to the dry run's ``collective_bytes`` of one
+    round (``pred``). Returns this rank's failures."""
+    import hashlib
+
+    run = dict(CROSS_SILO_RUN, seq=64) if cpu else CROSS_SILO_RUN
+    cfg = get_config("granite-3-8b")
+    cfg = dataclasses.replace(cfg.reduced(), dtype="float32") if cpu else \
+        dataclasses.replace(cfg, n_layers=dict((a, n) for a, n, _ in CROSS_SILO)["granite-3-8b"])
+    n_silos, shared, rounds = mesh.shape["data"], run["shared"], run["rounds"]
+    bundle, opt = get_model(cfg), adamw(run["lr"])
+    weights = torch.tensor(CROSS_SILO_WEIGHTS, device=dev)
+    key, batches = prng.PRNGKey(run["seed"], device=dev), []
+    for _ in range(rounds):
+        key, sub = prng.split(key)
+        batches.append({k: v.to(dev) for k, v in make_concrete_batch(
+            cfg, "train", n_silos * run["batch"], run["seq"], sub).items()})
+
+    def digests(model) -> dict:
+        return {n: hashlib.sha256(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                                  .tobytes()).hexdigest()
+                for n, p in transformer.param_tree(model).items()}
+
+    i = mesh.index("data")
+    with cross_silo.silo_context(mesh):
+        model = bundle.init(torch.Generator(device=dev).manual_seed(run["seed"]))
+    state = opt.init(transformer.param_tree(model))
+    step = cross_silo.make_mesh_fl_round_step(cfg, bundle, opt, shared, mesh)
+    losses, traced = [], None
+    rows = slice(i * run["batch"], (i + 1) * run["batch"])
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as tmp:
+        for r, batch in enumerate(batches):
+            mine = {k: v[rows] for k, v in batch.items()}
+            if r == 0:
+                with torch.profiler.profile(record_shapes=True) as prof:
+                    model, state, loss = step(model, state, mine, weights)
+                    if not cpu:
+                        torch.cuda.synchronize(dev)
+                prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+                traced = collective_bytes(os.path.join(tmp, "trace.json"))
+            else:
+                model, state, loss = step(model, state, mine, weights)
+            losses.append(float(loss))
+    mine = digests(model)
+    del model, state
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
+    every = [None] * mesh.world
+    dist.all_gather_object(every, (i, mine, losses, traced))
+    failures = []
+    if mesh.rank == 0:
+        base = bundle.init(torch.Generator(device=dev).manual_seed(run["seed"]))
+        silo = cross_silo.silo_params_from_model(base, n_silos)
+        del base
+        states = cross_silo.init_silo_opt(opt, silo)
+        single = cross_silo.make_fl_round_step(cfg, bundle, opt, shared, agg="fp32")
+        want_losses = []
+        for batch in batches:
+            stacked = {k: v.reshape(n_silos, run["batch"], *v.shape[1:]) for k, v in batch.items()}
+            silo, states, loss = single(silo, states, stacked, weights)
+            want_losses.append(float(loss))
+        want = [digests(m) for m in silo.models]
+        del silo, states
+        bad = [(si, n) for si, got, _, _ in every for n in got if got[n] != want[si][n]]
+        if bad or any(lo != want_losses for _, _, lo, _ in every):
+            failures.append(f"[cross_silo world] leaves that differ from the single-process "
+                            f"round (silo, name): {bad[:8]} ({len(bad)}); losses "
+                            f"{[lo for _, _, lo, _ in every]} against {want_losses}")
+        total = [t.get("total", 0) for _, _, _, t in every]
+        if pred is not None and any(t != pred["collective_bytes_per_device"] for t in total):
+            failures.append(f"[cross_silo world] traced collective bytes by rank {total}, the dry "
+                            f"run's {pred['collective_bytes_per_device']}")
+        print(f"[cross_silo world] {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) on (data, "
+              f"model) = {tuple(mesh.shape.values())}, {n_silos} silos (one a data rank) x "
+              f"{run['batch']} x {run['seq']} tokens, {rounds} rounds, shared_periods {shared}, "
+              f"weights {list(CROSS_SILO_WEIGHTS)}: losses {want_losses}; every rank's "
+              f"parameters {'bitwise' if not bad else 'NOT bitwise'} the single-process round's "
+              f"silo (SHA-256 of {len(want[0])} leaves each); round 1's collectives traced "
+              f"(torch.profiler, {mesh.backend}) by rank {total} B "
+              f"{json.dumps(every[0][3])}, the dry run's "
+              f"{None if pred is None else pred['collective_bytes_per_device']} B "
+              f"{None if pred is None else json.dumps(pred['collectives'])}; {card}")
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    return failures
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--shard-worker"]:  # one rank of [shard]'s gloo worlds
         return shard_worker(*sys.argv[2:])
@@ -4874,7 +5284,11 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     card = phase_environment()
-    phase_build()
+    pending = start_dryruns(dryrun_cases(), "card")  # traced during the build, not the timings
+    try:
+        phase_build()
+    finally:  # the trace processes end before anything else runs
+        predictions = collect_dryruns(*pending)
     table = phase_kernels(dev)
     table["masked_aggregate"].update(phase_edge_kernels(dev))
     table.update(phase_lm_kernels(dev))
@@ -4939,6 +5353,11 @@ def main() -> int:
     for name in ("ssm_scan", "flash_attention", "ssm_scan_bwd", "flash_attention_bwd"):
         table[name]["cross_silo_launches_by_arch"] = silo_by_arch.get(name, {})
         launches[name] += silo_total[name]
+    dry_launches, long_row = phase_dryrun(dev, card, predictions)
+    table["flash_attention"].update(long_row)
+    for name in ("ssm_scan", "flash_attention", "ssm_scan_bwd", "flash_attention_bwd"):
+        table[name]["dryrun_launches"] = dry_launches[name]
+        launches[name] += dry_launches[name]
     print(json.dumps({"kernels": [{"name": name, "launches": launches[name], **row}
                                   for name, row in table.items()]}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -28,6 +28,11 @@ _ARCH_MODULES = {
 }
 
 
+def list_archs() -> list[str]:
+    """The model zoo's architectures (every one but the FL MLP)."""
+    return [k for k in _ARCH_MODULES if k != "har-mlp"]
+
+
 def get_config(arch: str) -> ModelConfig:
     import importlib
 
@@ -36,4 +41,4 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).config
 
 
-__all__ = ["ModelConfig", "InputShape", "SHAPES", "get_shape", "get_config"]
+__all__ = ["ModelConfig", "InputShape", "SHAPES", "get_shape", "get_config", "list_archs"]

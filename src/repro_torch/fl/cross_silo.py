@@ -72,12 +72,14 @@ from repro_torch.kernels.masked_aggregate import masked_aggregate_leaves
 from repro_torch.kernels.masked_aggregate import ops as _agg_ops
 from repro_torch.kernels.quantize import dequantize_leaves, quantize_leaves
 from repro_torch.kernels.quantize import ops as _quant_ops
+from repro_torch.models.api import make_batch_specs
 from repro_torch.models.transformer import DecoderLM, layer_plan, param_tree
 from repro_torch.models.whisper import WhisperModel
 
 __all__ = ["SiloParams", "silo_params_from_model", "init_silo_opt", "shared_groups",
            "wire_chunks", "partial_aggregate_silo_params", "partial_aggregate_silo_params_ef",
            "init_ef_residual", "make_fl_round_step", "make_quantized_fl_round_step",
+           "launch_groups", "silo_context", "mesh_silo_mean", "make_mesh_fl_round_step",
            "build_fl_dryrun"]
 
 # Leaves a wire call or a silo-mean launch takes (the kernels' parameter tables).
@@ -224,14 +226,25 @@ def _split(row: torch.Tensor, group: list[str], like: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def launch_groups(tensors: list) -> list[list[int]]:
+    """The indices of ``tensors`` a masked_aggregate launch takes together:
+    one dtype a launch (the kernel's table), in first-seen dtype order, up
+    to ``MAX_LEAVES`` each."""
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    return [g[a:a + MAX_LEAVES] for g in by_dtype.values() for a in range(0, len(g), MAX_LEAVES)]
+
+
 def _fp32_means(rows: list, weights: torch.Tensor) -> list:
     """Eq. 1 of every (S, n) row: masked_aggregate's float32 sums in
     ascending silo order, zeros where the weights sum to 0, in the rows'
-    dtype; up to 64 rows a launch."""
+    dtype; up to 64 rows of one dtype a launch."""
     w = weights.to(torch.float32).reshape(1, -1)
-    out = []
-    for at in range(0, len(rows), MAX_LEAVES):
-        out += masked_aggregate_leaves(rows[at:at + MAX_LEAVES], w)
+    out = [None] * len(rows)
+    for group in launch_groups(rows):
+        for i, mean in zip(group, masked_aggregate_leaves([rows[i] for i in group], w)):
+            out[i] = mean
     return out
 
 
@@ -424,9 +437,107 @@ def make_quantized_fl_round_step(cfg: ModelConfig, bundle, optimizer, shared_per
     return fl_round
 
 
+# ---------------------------------------------------------------------------
+# the round over a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+def silo_context(mesh):
+    """The mesh context a silo is built and trained in on ``mesh``: no data
+    axes (the data ranks are the silos: each trains its own model on its
+    own rows, none splits a batch or sums a gradient over the others) and
+    no expert parallelism (JAX's ``build_fl_dryrun`` shards each silo by the
+    model-only rules, under ``moe_ep=False``), so on a ``model`` axis over 1
+    the silo's model holds its tensor-parallel blocks (``launch/tp.py``)."""
+    from repro_torch.launch import context as ctx
+
+    return ctx.mesh_context(mesh, dp_axes=(), moe_ep=False)
+
+
+@torch.no_grad()
+def mesh_silo_mean(model, weights: torch.Tensor, shared_periods: int, mesh,
+                   dp_axes=("data",)) -> None:
+    """Eq. 1 over the silos of ``mesh`` in place: this rank holds silo i =
+    its index over ``dp_axes`` (of S), and every shared leaf of its
+    ``model`` (``shared_groups``; the rank's tensor-parallel block of it)
+    becomes the weighted mean of the S silos' copies, ``weights`` (S,) =
+    select * |d_i| alike on every rank. masked_aggregate's partial mode
+    writes the rank's one lane ``w_i x_i`` and ``w_i`` into slot i of an
+    (S, width) float32 buffer (-0.0 elsewhere), one all-reduce over
+    ``dp_axes`` fills every slot, and the combine mode sums the slots from 0
+    in ascending silo order and divides, in the leaf's dtype: the float32
+    sums of the single-process round's flat kernel, term for term, so the
+    result is bitwise ``partial_aggregate_silo_params``' fp32 wire. Up to
+    ``MAX_LEAVES`` leaves of one dtype a launch and an all-reduce
+    (``launch_groups``)."""
+    i, n_silos = mesh.index(dp_axes), mesh.axis_size(dp_axes)
+    params = param_tree(model)
+    names = [n for g in shared_groups(model.cfg, params, shared_periods) for n in g]
+    w = weights.to(device=params[names[0]].device, dtype=torch.float32).reshape(-1)
+    if w.numel() != n_silos:
+        raise ValueError(f"mesh_silo_mean: {w.numel()} weights for {n_silos} silos")
+    w_i = w[i:i + 1].reshape(1, 1)
+    leaves = [params[n] for n in names]
+    for group in launch_groups(leaves):
+        chunk = [leaves[j] for j in group]
+        buf = _agg_ops.masked_aggregate_partial([p.reshape(1, -1) for p in chunk], w_i, slot=i,
+                                                n_slots=n_silos)
+        mesh.all_reduce(buf, dp_axes)
+        means = _agg_ops.masked_aggregate_combine(buf, [(p.numel(),) for p in chunk],
+                                                  dtype=chunk[0].dtype)
+        for p, mean in zip(chunk, means):
+            p.copy_(mean.view(p.shape))
+
+
+def make_mesh_fl_round_step(cfg: ModelConfig, bundle, optimizer, shared_periods: int, mesh,
+                            dp_axes=("data",), window: int = 0):
+    """The round of ``make_fl_round_step`` over ``mesh``, the silo axis
+    over ``dp_axes`` (JAX's ``build_fl_dryrun`` layout): ``fl_round(model,
+    opt_state, batch, weights)`` on every rank, ``model`` this rank's silo
+    (built under ``silo_context(mesh)``), ``opt_state`` its own optimizer
+    state, ``batch`` its ``local_batch`` rows, ``weights`` (S,) every
+    silo's. The local step runs under ``silo_context``, then
+    ``mesh_silo_mean``; returns (model, opt_state, the mean of the S silos'
+    losses, gathered in silo order: the single-process round's mean bit for
+    bit). The fp32 wire only: the int, bf16 and EF wires stay
+    single-process."""
+    base_step = bundle.make_train_step(optimizer, window=window)
+
+    def fl_round(model, opt_state, batch: dict, weights: torch.Tensor):
+        with silo_context(mesh):
+            model, opt_state, loss = base_step(model, opt_state, batch)
+        mesh_silo_mean(model, weights, shared_periods, mesh, dp_axes)
+        losses = mesh.all_gather(loss.detach().to(torch.float32).reshape(1), dp_axes)
+        return model, opt_state, torch.mean(losses)
+
+    return fl_round
+
+
 def build_fl_dryrun(cfg, bundle, shape, mesh, dp, shared_periods: int, meta: dict):
-    """The JAX package's ``build_fl_dryrun`` lowers the round over a
-    production mesh for its HLO analysis; the port has no dry run yet."""
-    raise NotImplementedError(
-        "build_fl_dryrun waits for the port's dry run: ROADMAP.md queue 1 item 4 "
-        "(launch/dryrun.py, launch/hlo_analysis.py)")
+    """The mesh round of ``make_mesh_fl_round_step`` as ``launch.dryrun``
+    traces it (JAX's ``build_fl_dryrun``): the silo axis over the data axes
+    ``dp`` of ``mesh``, one silo a data index, each with its own AdamW
+    state and ``global_batch // n_silos`` rows, its model in the
+    model-only layout (``silo_context``). Call it under the dry run's
+    ``FakeTensorMode``. Returns (fn, held, meta): ``fn()`` runs the round
+    on this rank and returns the loss; ``held`` the arguments' tensors."""
+    from repro_torch.optim import adamw
+
+    if mesh is None:
+        raise ValueError("build_fl_dryrun: the round spreads its silos over a mesh's data axes")
+    n_silos = math.prod(mesh.shape[a] for a in dp)
+    local_batch = max(shape.global_batch // n_silos, 1)
+    opt = adamw(3e-4)
+    with silo_context(mesh):
+        model = bundle.init(torch.Generator())
+    opt_state = opt.init(param_tree(model))
+    batch = {k: torch.zeros(s, dtype=d, device=model.device)
+             for k, (s, d) in make_batch_specs(cfg, "train", local_batch, shape.seq_len).items()}
+    weights = torch.ones((n_silos,), dtype=torch.float32, device=model.device)
+    step = make_mesh_fl_round_step(cfg, bundle, opt, shared_periods, mesh, dp,
+                                   window=meta.get("window", 0))
+    meta = {**meta, "mode": "fl_round", "n_silos": n_silos, "shared_periods": shared_periods,
+            "local_batch": local_batch}
+    held = {"params": list(model.parameters()), "opt": opt_state, "silo_batch": batch,
+            "weights": weights}
+    return (lambda: step(model, opt_state, batch, weights)[2]), held, meta

@@ -78,11 +78,14 @@ backward, and checks both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.cost import is_fake, record_launch
 
 __all__ = ["FlashAttentionFn", "backward_grads", "backward_terms", "bf16_round",
            "flash_attention", "flash_attention_backward_plain", "flash_attention_bwd",
@@ -276,7 +279,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, with a 16-byte aligned start (the f32 kernel's vector
     loads; TMA's global addresses)."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if is_fake(t) or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_positions(name: str, q, k, q_pos, k_pos) -> None:
@@ -292,14 +295,27 @@ def _check_positions(name: str, q, k, q_pos, k_pos) -> None:
                              f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
 
 
+@functools.lru_cache(maxsize=256)
+def index_pairs(s_len: int, t_len: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the index mask leaves visible: key t to query s
+    when t <= s (causal) and t > s - window (window > 0). A dry run counts
+    a position-masked launch by this rule too (its positions hold no
+    values there)."""
+    rows = np.arange(s_len, dtype=np.int64)
+    hi = np.minimum(t_len - 1, rows) if causal else np.full(s_len, t_len - 1, dtype=np.int64)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(s_len, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def _ptr(t: torch.Tensor | None):
     """A tensor's pointer for a C entry, or null."""
     return None if t is None else t.data_ptr()
 
 
 def _check(name: str, q, k, v) -> None:
-    """Raise for what the CUDA kernels do not take."""
-    if q.device.type != "cuda":
+    """Raise for what the CUDA kernels do not take (a dry run's fake
+    tensors stand for the card's, whatever their device)."""
+    if q.device.type != "cuda" and not is_fake(q):
         raise ValueError(f"{name}: tensors on {q.device} have no kernel here")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one dtype, "
@@ -328,7 +344,7 @@ def _attention(q, k, v, causal: bool, window: int, with_lse: bool, q_pos=None, k
     """The forward: the plain version on the CPU, else the kernel of the
     dtype; with ``with_lse``, (out, lse)."""
     _check_positions("flash_attention", q, k, q_pos, k_pos)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return flash_attention_plain(q, k, v, causal, window, return_lse=with_lse, q_pos=q_pos,
                                      k_pos=k_pos)
     _check("flash_attention", q, k, v)
@@ -339,6 +355,11 @@ def _attention(q, k, v, causal: bool, window: int, with_lse: bool, q_pos=None, k
         q_pos, k_pos = _aligned(q_pos), _aligned(k_pos)
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    if is_fake(q):  # a dry run: the launch's outputs and its costs, nothing run
+        record_launch("flash_attention",
+                      2.0 * b * h * (dq + dv) * index_pairs(s, t, causal, window),
+                      q, k, v, out, lse)
+        return (out, lse) if with_lse else out
     err = _entry(q.dtype)(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(q_pos),
         _ptr(k_pos), b, h, hkv, s, t, dq, dv, int(bool(causal)), int(window),
@@ -392,7 +413,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
     tensor cores; float32: ``csrc/flash_attention_bwd.cu``), held to
     ``contract.bwd_check``, or raise."""
     _check_positions("flash_attention_bwd", q, k, q_pos, k_pos)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal, window,
                                               q_pos=q_pos, k_pos=k_pos)
     _check("flash_attention_bwd", q, k, v)
@@ -412,6 +433,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: in
     else:  # D
         scratch = (b, h, s)
     aux = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    if is_fake(q):  # a dry run: the launch's outputs and scratch, its costs
+        record_launch("flash_attention_bwd",
+                      2.0 * b * h * (3 * dq + 2 * dv) * index_pairs(s, t, causal, window),
+                      *args, *grads)
+        return tuple(grads)
     err = _bwd_entry(q.dtype)(
         *(x.data_ptr() for x in args), *(x.data_ptr() for x in grads), aux.data_ptr(),
         _ptr(q_pos), _ptr(k_pos), b, h, hkv, s, t, dq, dv, int(bool(causal)), int(window),

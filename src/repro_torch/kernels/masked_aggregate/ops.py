@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.cost import is_fake, record_launch
 
 __all__ = ["masked_aggregate", "masked_aggregate_combine", "masked_aggregate_combine_plain",
            "masked_aggregate_leaves", "masked_aggregate_leaves_plain", "masked_aggregate_partial",
@@ -179,6 +180,13 @@ def _set_edges(table: "_Table", edge_ids: torch.Tensor, n_edges: int) -> list:
     return keep
 
 
+def _record(name: str, xs, others) -> None:
+    """A dry run's launch over the stacked leaves ``xs`` (C, ...): its
+    weighted sums' products, 2 C n a leaf, and its bytes (``xs`` and
+    ``others`` read or written once)."""
+    record_launch(name, float(sum(2 * x.numel() for x in xs)), *xs, *others)
+
+
 def _lib():
     lib = build.load("masked_aggregate")
     if not getattr(lib, "_repro_typed", False):
@@ -241,12 +249,13 @@ def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None
     if not xs:
         return []
     dev = xs[0].device
+    fake = is_fake(xs[0])  # a dry run: the launch's outputs and its costs, nothing run
     if not _edged(edge_ids, n_edges):
         edge_ids, n_edges = None, 0
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not fake:
         return masked_aggregate_leaves_plain(xs, weights, rows, fallbacks, snapshots, bases,
                                              edge_ids, n_edges)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"masked_aggregate: tensors on {dev} have no kernel here")
     _check(xs, weights, rows, fallbacks, snapshots, bases, edge_ids)
     wc = weights.contiguous()
@@ -266,9 +275,14 @@ def masked_aggregate_leaves(xs, weights: torch.Tensor, rows=None, fallbacks=None
         out = buf[off:off + size]
         keep += [x, sn, other]
         outs.append(out.view(xs[i].shape[1:]))
-        table.leaf[i] = _Leaf(x.data_ptr(), ptr(sn), ptr(other), out.data_ptr(), size, block,
-                              rows[i], _MODE_FALLBACK if b is None else _MODE_BASE)
+        if not fake:
+            table.leaf[i] = _Leaf(x.data_ptr(), ptr(sn), ptr(other), out.data_ptr(), size, block,
+                                  rows[i], _MODE_FALLBACK if b is None else _MODE_BASE)
         block += -(-size // _BLOCK_COLS)
+    if fake:
+        if block:
+            _record("masked_aggregate", xs, [wc, *fallbacks, *snapshots, *bases, *outs])
+        return outs
     table.w, table.n_leaves, table.c_rows = wc.data_ptr(), len(xs), wc.shape[1]
     if edge_ids is not None:
         keep += _set_edges(table, edge_ids, n_edges)
@@ -289,9 +303,9 @@ def masked_aggregate(x: torch.Tensor, weights: torch.Tensor,
     the weights (C,) sum to 0: the one-leaf case of
     ``masked_aggregate_leaves``. CPU tensors run ``masked_aggregate_plain``;
     CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         return masked_aggregate_plain(x, weights, fallback)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not is_fake(x):
         raise ValueError(f"masked_aggregate: tensors on {x.device} have no kernel here")
     c = x.shape[0]
     if weights.shape != (c,) or weights.dtype != torch.float32 or weights.device != x.device:
@@ -401,12 +415,13 @@ def masked_aggregate_partial(xs, weights: torch.Tensor, rows=None, snapshots=Non
     if not xs:
         raise ValueError("masked_aggregate_partial needs at least one leaf")
     dev = xs[0].device
+    fake = is_fake(xs[0])  # a dry run: the launch's outputs and its costs, nothing run
     if not _edged(edge_ids, n_edges):
         edge_ids, n_edges = None, 0
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not fake:
         return masked_aggregate_partial_plain(xs, weights, rows, snapshots, edge_ids, n_edges,
                                               slot, n_slots)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"masked_aggregate: tensors on {dev} have no kernel here")
     n = len(xs)
     _check(xs, weights, rows, [None] * n, snapshots, [None] * n, edge_ids)
@@ -420,10 +435,15 @@ def masked_aggregate_partial(xs, weights: torch.Tensor, rows=None, snapshots=Non
                                                     _row_owners(sizes, rows))):
         x, sn = (None if t is None else t.contiguous() for t in (x, sn))
         keep += [x, sn]
-        tot = row[totals_at + rows[i]].data_ptr() if own else None
-        table.leaf[i] = _Leaf(x.data_ptr(), None if sn is None else sn.data_ptr(), tot,
-                              row[off:].data_ptr(), size, block, rows[i], _MODE_PARTIAL)
+        if not fake:
+            tot = row[totals_at + rows[i]].data_ptr() if own else None
+            table.leaf[i] = _Leaf(x.data_ptr(), None if sn is None else sn.data_ptr(), tot,
+                                  row[off:].data_ptr(), size, block, rows[i], _MODE_PARTIAL)
         block += -(-size // _BLOCK_COLS)
+    if fake:
+        if block:
+            _record("masked_aggregate_partial", xs, [wc, *snapshots, row])
+        return buf
     table.w, table.n_leaves, table.c_rows = wc.data_ptr(), n, wc.shape[1]
     if edge_ids is not None:
         keep += _set_edges(table, edge_ids, n_edges)
@@ -459,9 +479,10 @@ def masked_aggregate_combine(buf: torch.Tensor, shapes, rows=None, fallbacks=Non
         raise ValueError(f"the partial buffer must be a float32 (D, width) matrix with "
                          f"width > {totals_at + max(rows, default=0)}, got {buf.dtype} "
                          f"{tuple(buf.shape)}")
-    if dev.type == "cpu":
+    fake = is_fake(buf)  # a dry run: the launch's outputs and its costs, nothing run
+    if dev.type == "cpu" and not fake:
         return masked_aggregate_combine_plain(buf, shapes, rows, fallbacks, bases, dtype)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"masked_aggregate: tensors on {dev} have no kernel here")
     if dtype not in _DTYPES:
         raise TypeError(f"masked_aggregate_combine writes float32 or bfloat16, got {dtype}")
@@ -486,10 +507,17 @@ def masked_aggregate_combine(buf: torch.Tensor, shapes, rows=None, fallbacks=Non
         keep.append(other)
         out = out_buf[o:o + size]
         outs.append(out.view(shape))
-        table.leaf[i] = _Leaf(src[0, off:].data_ptr(), src[0, totals_at + rows[i]].data_ptr(),
-                              None if other is None else other.data_ptr(), out.data_ptr(), size,
-                              block, rows[i], _MODE_FALLBACK if b is None else _MODE_BASE)
+        if not fake:
+            table.leaf[i] = _Leaf(src[0, off:].data_ptr(), src[0, totals_at + rows[i]].data_ptr(),
+                                  None if other is None else other.data_ptr(), out.data_ptr(),
+                                  size, block, rows[i],
+                                  _MODE_FALLBACK if b is None else _MODE_BASE)
         block += -(-size // _BLOCK_COLS)
+    if fake:
+        if block:
+            record_launch("masked_aggregate_combine", float(src.shape[0] * sum(sizes)),
+                          src, *fallbacks, *bases, *outs)
+        return outs
     table.n_leaves, table.c_rows, table.slot_stride = len(shapes), src.shape[0], src.shape[1]
     if block == 0:
         return outs

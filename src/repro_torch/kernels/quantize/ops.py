@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.cost import is_fake, record_launch
 
 __all__ = ["quant_blocks", "quantize", "quantize_leaves", "dequantize", "dequantize_leaves",
            "quantize_plain", "quantize_leaves_plain", "dequantize_plain",
@@ -154,7 +155,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+    if t.device.type != "cuda" and not is_fake(t):
         raise ValueError(f"{what}: tensors on {t.device} have no kernel here")
 
 
@@ -178,7 +179,8 @@ def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
     if not xs:
         return []
     dev = xs[0].device
-    if dev.type == "cpu":
+    fake = is_fake(xs[0])  # a dry run: the launch's outputs and its costs, nothing run
+    if dev.type == "cpu" and not fake:
         return quantize_leaves_plain(xs, noises, bits=bits, block_p=block_p)
     _require_cuda(xs[0], "quantize")
     qmax, inv_qmax = _qmax(bits)
@@ -197,12 +199,15 @@ def quantize_leaves(xs, noises=None, bits: int = 8, block_p: int = 512) -> list:
         scales = torch.empty((*lead, nb), dtype=torch.float32, device=dev)
         outs.append((q, scales))
         blocks = (xc.numel() // n if n else 0) * nb
-        if blocks:
+        if blocks and not fake:
             table.leaf[table.n_leaves] = _Leaf(xc.data_ptr(), None if uc is None else uc.data_ptr(),
                                                q.data_ptr(), scales.data_ptr(), n, block, bp, nb)
             table.n_leaves += 1
-            block += blocks
+        block += blocks
     if block == 0:  # only empty leaves: nothing to launch
+        return outs
+    if fake:
+        record_launch("quantize", 0.0, *xs, *noises, *(t for o in outs for t in o))
         return outs
     table.qmax, table.inv_qmax = qmax, inv_qmax
     err = _lib().repro_quantize_leaves(ctypes.byref(table), block, _stream(xs[0]))
@@ -230,7 +235,8 @@ def dequantize_leaves(codes, block_p: int = 512) -> list:
     if not codes:
         return []
     dev = codes[0][0].device
-    if dev.type == "cpu":
+    fake = is_fake(codes[0][0])  # a dry run: the launch's outputs and its costs, nothing run
+    if dev.type == "cpu" and not fake:
         return dequantize_leaves_plain(codes, block_p=block_p)
     _require_cuda(codes[0][0], "dequantize")
     table, keep, outs, block = _DqTable(), [], [], 0  # keep: contiguous copies live until the launch
@@ -250,12 +256,15 @@ def dequantize_leaves(codes, block_p: int = 512) -> list:
         rows = qc.numel() // n if n else 0
         bpc = _DQ_BLOCKS if bp <= _DQ_STRIDE else 1
         per_row = -(-nb // bpc)
-        if rows:
+        if rows and not fake:
             table.leaf[table.n_leaves] = _DqLeaf(qc.data_ptr(), sc.data_ptr(), out.data_ptr(), n,
                                                  block, bp, nb, bpc, per_row)
             table.n_leaves += 1
-            block += rows * per_row
+        block += rows * per_row
     if block == 0:  # only empty leaves: nothing to launch
+        return outs
+    if fake:
+        record_launch("dequantize", 0.0, *(t for c in codes for t in c), *outs)
         return outs
     err = _lib().repro_dequantize_leaves(ctypes.byref(table), block, _stream(codes[0][0]))
     _check_launch(err, "dequantize")

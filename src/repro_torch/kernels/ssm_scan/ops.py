@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.cost import is_fake, record_launch
 
 __all__ = ["CHUNK", "ssm_scan", "ssm_scan_backward_plain", "ssm_scan_bwd",
            "ssm_scan_bwd_occupancy", "ssm_scan_plain"]
@@ -51,6 +52,7 @@ __all__ = ["CHUNK", "ssm_scan", "ssm_scan_backward_plain", "ssm_scan_bwd",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _STATE_SIZES = (8, 16)
 CHUNK = 128  # steps between the states training keeps (ssm_vjp.CHUNK)
+BWD_BLOCK_CHANNELS = 64  # channels a block of the backward's main grid holds (its kChannels)
 
 
 def ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype=None, acc_dtype=torch.float32,
@@ -136,8 +138,9 @@ def _lib():
 
 
 def _check(name: str, dt, a, bmat, cmat, x, d) -> None:
-    """Raise for what the CUDA kernels do not take."""
-    if x.device.type != "cuda":
+    """Raise for what the CUDA kernels do not take (a dry run's fake
+    tensors stand for the card's, whatever their device)."""
+    if x.device.type != "cuda" and not is_fake(x):
         raise ValueError(f"{name}: tensors on {x.device} have no kernel here")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name} streams float32 or bfloat16, got x {x.dtype}")
@@ -169,7 +172,7 @@ def ssm_scan(dt, a, bmat, cmat, x, d, y_dtype=None, chunk_states: bool = False, 
                            or h0.device != x.device):
         raise ValueError(f"ssm_scan: h0 must be float32 of shape {(bsz, di, a.shape[-1])} on "
                          f"{x.device}, got {h0.dtype} {tuple(h0.shape)} on {h0.device}")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         return ssm_scan_plain(dt, a, bmat, cmat, x, d, y_dtype, chunk_states=chunk_states, h0=h0)
     _check("ssm_scan", dt, a, bmat, cmat, x, d)
     y_dtype = y_dtype or x.dtype
@@ -182,6 +185,9 @@ def ssm_scan(dt, a, bmat, cmat, x, d, y_dtype=None, chunk_states: bool = False, 
     h = torch.empty((bsz, di, ds), dtype=torch.float32, device=x.device)
     hs = (torch.empty((-(-s // CHUNK), bsz, di, ds), dtype=torch.float32, device=x.device)
           if chunk_states else None)
+    if is_fake(x):  # a dry run: the launch's outputs and its costs, nothing run
+        record_launch("ssm_scan", 0.0, *args, h0, y, h, hs)
+        return (y, h, hs) if chunk_states else (y, h)
     err = _lib().repro_ssm_scan(
         *(t.data_ptr() for t in args), y.data_ptr(), h.data_ptr(),
         hs.data_ptr() if chunk_states else None, None if h0 is None else h0.data_ptr(), bsz, s,
@@ -230,7 +236,7 @@ def ssm_scan_bwd(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):
     ``ssm_scan_backward_plain`` in float32; CUDA tensors launch the kernel
     (``csrc/ssm_scan_bwd.cu``; float32 or bfloat16 streams, d_state 8 or
     16), held to ``contract.bwd_check``."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         grads = ssm_scan_backward_plain(dt, a, bmat, cmat, x, d, h_starts, gy, gh)
         return tuple(g.to(t.dtype) for g, t in zip(grads, (dt, a, bmat, cmat, x, d)))
     _check("ssm_scan_bwd", dt, a, bmat, cmat, x, d)
@@ -246,11 +252,16 @@ def ssm_scan_bwd(dt, a, bmat, cmat, x, d, h_starts, gy, gh=None):
     gy = gy.to(torch.float32).contiguous()
     gh = None if gh is None else gh.to(torch.float32).contiguous()
     grads = [torch.empty_like(t) for t in args[:6]]  # d_dt, d_a, d_b, d_c, d_x, d_d
-    lib = _bwd_lib()
-    n_blocks = -(-di // lib.repro_ssm_scan_bwd_block_channels())
+    fake = is_fake(x)
+    lib = None if fake else _bwd_lib()
+    channels = BWD_BLOCK_CHANNELS if fake else lib.repro_ssm_scan_bwd_block_channels()
+    n_blocks = -(-di // channels)
     scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
                for shape in ((n_blocks, bsz, s, ds), (n_blocks, bsz, s, ds), (bsz, di, ds),
                              (bsz, di))]
+    if fake:  # a dry run: the launch's outputs and scratch, its costs
+        record_launch("ssm_scan_bwd", 0.0, *args, gy, gh, *grads)
+        return tuple(grads)
     d_dt, d_a, d_b, d_c, d_x, d_d = grads
     err = lib.repro_ssm_scan_bwd(
         *(t.data_ptr() for t in args), gy.data_ptr(), None if gh is None else gh.data_ptr(),

@@ -17,8 +17,10 @@ A trace with any ``record_param_comms`` event is read from those alone
 annotations. The sizes are the operand bytes each rank hands the
 collective, what the JAX package's per-device sums count. Collectives
 replayed inside a CUDA graph leave no host event, so trace an eager round.
-Reading the optimized HLO itself waits for the model zoo's training
-(ROADMAP.md queue 1 item 14.7).
+The port has no HLO to read: the dry run (``launch/dryrun.py``) counts the
+same operand bytes as ``launch.mesh``'s collectives report them
+(``launch/cost_analysis.py``), and a traced run's sum here equals its
+``collective_bytes`` (``chip_smoke.py``'s cross-silo world case).
 """
 
 from __future__ import annotations

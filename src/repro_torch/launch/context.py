@@ -36,7 +36,12 @@ independent), and every rank takes the whole batch otherwise
 (``data_rows``). Every other sharding of the JAX model code (``constrain``)
 is layout alone and has no counterpart here: ``seq_parallel``, which JAX
 reads only through ``constrain`` in training, is taken and changes
-nothing, as it changes no value in JAX; the port keeps its layout.
+nothing, as it changes no value in JAX; the port keeps its TP layout
+until its sequence-parallel layout lands (ROADMAP.md queue 1 item 5),
+whose effect, memory and collective bytes a rank, the dry run
+(``launch/dryrun.py --seq-parallel``, which records the flag) will show.
+A context with no data axes (``dp_axes=()``: the cross-silo round's
+silos, ``fl.cross_silo.silo_context``) runs every rank on its own rows.
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: boo
     axes' process group is made here, on every rank in the same order.
     ``seq_parallel`` is JAX's layout hint for training (its ``constrain``
     pins the activations' sequence dim over ``model``); it changes no
-    value, and the port keeps its layout whatever it says."""
+    value, and the port keeps its TP layout whatever it says (ROADMAP.md
+    queue 1 item 5; the dry run records it)."""
     global _MESH, _DP_AXES, _MOE_EP
     del seq_parallel  # a layout alone: see the docstring
     dp_axes = tuple(dp_axes)
@@ -71,7 +77,8 @@ def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: boo
     if missing or "model" not in mesh.shape:
         raise ValueError(f"mesh_context: the mesh's axes are {tuple(mesh.shape)}; it needs "
                          f"'model' and the data axes {dp_axes}")
-    mesh.group(dp_axes)
+    if dp_axes:  # none: every data rank alone (the cross-silo round's silos)
+        mesh.group(dp_axes)
     prev = (_MESH, _DP_AXES, _MOE_EP)
     _MESH, _DP_AXES, _MOE_EP = mesh, dp_axes, bool(moe_ep)
     try:

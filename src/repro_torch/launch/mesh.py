@@ -39,11 +39,25 @@ share, and a tensor-parallel block's input). Under ``torch.no_grad``
 (serving) each is the plain collective, or nothing for ``replicated``. A
 collective that fails raises; none falls back to a local result.
 
-The JAX module's ``HW`` table holds TPU figures and is not carried over.
+Every collective of a mesh (``CohortMesh.all_reduce``, ``RankMesh``'s
+``all_reduce``, ``all_gather`` and ``reduce_scatter``, which the four
+functions above call, forward and backward) reports its operand bytes on
+this rank, keyed by the JAX package's kinds, and whether its group lies
+within one host of ``HW["gpus_per_host"]`` ranks (NVLink) or spans hosts
+(the network), to the open cost counters (``repro_torch.cost``).
+
+``fake_world(size, rank)`` opens a world of ``size`` ranks as rank
+``rank`` over torch's fake process group, whose collectives move nothing:
+a dry run (``launch/dryrun.py``) builds the production mesh in it and
+traces one rank's step on fake tensors. It never serves a real run.
+
+``HW`` holds the H100 SXM's data-sheet figures, for the dry run's roofline
+terms (the JAX module's table holds a TPU's and is not carried over).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -54,10 +68,37 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.cost import record_collective, tensor_bytes
 
-__all__ = ["CohortMesh", "RankMesh", "data_axes", "gather_blocks", "gather_slices",
-           "make_cohort_mesh", "make_production_mesh", "make_rank_mesh", "psum", "rank_device",
-           "replicated"]
+__all__ = ["HW", "CohortMesh", "RankMesh", "data_axes", "fake_world", "gather_blocks",
+           "gather_slices", "make_cohort_mesh", "make_production_mesh", "make_rank_mesh", "psum",
+           "rank_device", "replicated", "within_host"]
+
+# NVIDIA H100 SXM5 80 GB data sheet (700 W): dense bf16 tensor-core rate,
+# HBM3 rate, and NVLink 4's 900 GB/s a GPU (both directions; 450 GB/s each
+# way), the rate a collective's operand bytes move at between the cards of
+# one host. Across hosts they move over the network: the DGX H100 data
+# sheet's eight single-port ConnectX-7 400 Gb/s adapters, one a GPU, so
+# 50 GB/s a GPU each way, in hosts of 8 GPUs. Data-sheet figures, not
+# measurements.
+HW = {
+    "device": "NVIDIA H100 80GB HBM3",
+    "peak_flops_bf16": 989e12,   # FLOP/s
+    "peak_flops_fp32": 67e12,    # FLOP/s, CUDA cores
+    "hbm_bw": 3.35e12,           # B/s
+    "link_bw": 450e9,            # B/s each way, NVLink 4 (18 links), within a host
+    "network_bw": 50e9,          # B/s each way, one ConnectX-7 (400 Gb/s) a GPU, across hosts
+    "gpus_per_host": 8,
+    "hbm_bytes": 80e9,           # B
+    "source": "NVIDIA H100 Tensor Core GPU data sheet, SXM5 column; NVIDIA DGX H100 data sheet",
+}
+
+
+def within_host(ranks) -> bool:
+    """Whether the world ranks ``ranks`` lie in one host of
+    ``HW["gpus_per_host"]`` consecutive ranks (their collectives cross
+    NVLink only)."""
+    return len({r // HW["gpus_per_host"] for r in ranks}) <= 1
 
 
 class CohortMesh:
@@ -95,6 +136,7 @@ class CohortMesh:
 
     def all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """Sum ``buf`` over the ranks, in place (one collective)."""
+        record_collective("all-reduce", tensor_bytes(buf), within_host(range(self.world)))
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         return buf
 
@@ -127,6 +169,7 @@ class RankMesh:
         self.backend = str(backend)
         self._store_dir = store_dir  # set when this mesh opened the world-1 group itself
         self._groups: dict = {}
+        self._within_host: dict = {}  # by axes: this rank's group within one host
         self.group(("model",))
         self.group(tuple(a for a in self.axis_names if a != "model"))
 
@@ -166,13 +209,16 @@ class RankMesh:
                 g = dist.new_group(ranks)
                 if self.rank in ranks:
                     mine = g
+                    self._within_host[axes] = within_host(ranks)
             self._groups[axes] = mine
         return self._groups[axes]
 
     def all_reduce(self, buf: torch.Tensor, axes="model") -> torch.Tensor:
         """Sum ``buf`` over the ranks along ``axes``, in place (one
         collective)."""
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axes))
+        group = self.group(axes)
+        record_collective("all-reduce", tensor_bytes(buf), self._within_host[self._axes(axes)])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         return buf
 
     def axis_size(self, axes) -> int:
@@ -184,7 +230,9 @@ class RankMesh:
         their order (one collective)."""
         x = t.movedim(dim, 0).contiguous()
         out = x.new_empty((self.axis_size(axes) * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x, group=self.group(axes))
+        group = self.group(axes)
+        record_collective("all-gather", tensor_bytes(x), self._within_host[self._axes(axes)])
+        dist.all_gather_into_tensor(out, x, group=group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
@@ -196,7 +244,9 @@ class RankMesh:
         if x.shape[0] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {n} ranks")
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=self.group(axes))
+        group = self.group(axes)
+        record_collective("reduce-scatter", tensor_bytes(x), self._within_host[self._axes(axes)])
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
     def close(self) -> None:
@@ -206,7 +256,7 @@ class RankMesh:
             for g in self._groups.values():
                 if g is not None:
                     dist.destroy_process_group(g)
-        self._groups = {}
+        self._groups, self._within_host = {}, {}
         _close_world_of_one(self._store_dir)
         self._store_dir = None
 
@@ -304,6 +354,27 @@ def replicated(mesh: RankMesh, t: torch.Tensor, axes) -> torch.Tensor:
     if not torch.is_grad_enabled():
         return t
     return _Replicated.apply(t, mesh, axes)
+
+
+@contextlib.contextmanager
+def fake_world(size: int, rank: int = 0):
+    """A world of ``size`` ranks, this process rank ``rank``, over torch's
+    fake process group (``torch.testing._internal.distributed.fake_pg``):
+    every collective returns at once and moves nothing, so one process
+    traces one rank's step of a mesh of any size (a dry run). Raises if a
+    process group is already open (a real world must not meet a fake one);
+    destroys the fake group on exit."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers "fake")
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already open in this process; a "
+                           "dry run traces in a process of its own")
+    dist.init_process_group("fake", store=dist.HashStore(), rank=int(rank),
+                            world_size=int(size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _open_world_of_one(backend: str) -> str:

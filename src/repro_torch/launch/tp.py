@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from repro_torch.launch import context as ctx
+from repro_torch.cost import is_fake, record_row_recompute
 from repro_torch.launch.mesh import gather_slices, psum, replicated
 from repro_torch.launch.sharding import model_block
 
@@ -97,7 +98,9 @@ class _Partial(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x2, w):
         fctx.save_for_backward(x2, w)
-        if x2.is_cuda:
+        if torch._C._current_graph_task_id() != -1:  # a checkpoint's recompute, in the backward
+            record_row_recompute(2.0 * x2.shape[0] * x2.shape[1] * w.shape[1])
+        if x2.is_cuda or is_fake(x2):  # a dry run traces the card's path
             return torch.mm(x2, w, out_dtype=torch.float32)
         return x2.float() @ w.float()
 

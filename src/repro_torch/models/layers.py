@@ -689,6 +689,8 @@ def _causal_conv(x, w, b, state=None):
     for i in range(dc):
         y = y + xp[:, i:i + s] * w[i]
     new_state = xp[:, -(dc - 1):] if dc > 1 else None
+    if new_state is not None and s > 1:  # a prefill: a view would keep all of xp alive
+        new_state = new_state.clone()
     return y + b, new_state
 
 

@@ -80,6 +80,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import context as ctx
 from repro_torch.launch import tp
 from repro_torch.launch import zero as Z
+from repro_torch.cost import is_fake
 from repro_torch.launch.sharding import model_block
 from repro_torch.models import layers as L
 
@@ -361,6 +362,8 @@ def _prefill_positions(cfg: ModelConfig, positions, s: int, device) -> tuple[tor
     if positions is None or tuple(positions.shape[1:]) != (s, 3):
         raise ValueError(f"{cfg.name}: M-RoPE takes positions (B, {s}, 3), got "
                          f"{None if positions is None else tuple(positions.shape)}")
+    if is_fake(positions):  # a dry run's batch holds no values: arange's, the index mask
+        return positions.to(device=device, dtype=torch.int32), False
     if positions.device.type != "cpu":
         raise ValueError("M-RoPE positions must come in the batch as a host tensor: their t "
                          "stream is read there, without a read of the device")

@@ -102,14 +102,27 @@ def test_cross_silo_and_its_example_import_no_jax():
 
 
 def test_cross_silo_dryrun_and_bits_raise():
-    """``build_fl_dryrun`` waits for the port's dry run (ROADMAP.md queue 1
-    item 4); the quantized round takes bits 4 and 8 only, with the JAX
-    package's ValueError."""
+    """``build_fl_dryrun`` (through ``launch.dryrun.run_one(fl_shared=)``)
+    traces the mesh round on (2, 1): two silos, their Eq. 1 mean one
+    partial and one combine launch and one all-reduce of the (2, width)
+    float32 buffer over the data axis, and the losses' all-gather; the
+    quantized round
+    takes bits 4 and 8 only, with the JAX package's ValueError."""
     from repro_torch.fl import cross_silo
+    from repro_torch.kernels.masked_aggregate import partial_layout
+    from repro_torch.launch.dryrun import run_one
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cross_silo.build_fl_dryrun(None, None, None, None, ("data",), 1, {})
     cfg = get_config("granite-3-8b").reduced()
+    r = run_one("granite-3-8b", "train_4k", fl_shared=1, mesh=(2, 1), cfg=cfg, batch=4, seq=32,
+                verbose=False)
+    assert (r["mode"], r["n_silos"], r["local_batch"], r["fl_shared"]) == ("fl_round", 2, 2, 1)
+    launches = r["launches"]
+    assert launches["masked_aggregate_partial"] == launches["masked_aggregate_combine"] == 1
+    shared = [p.numel() for n, p in cross_silo.param_tree(get_model(cfg).init(
+        torch.Generator().manual_seed(0))).items() if n == "embed" or n.startswith("blocks.0.")]
+    width = partial_layout(shared, 1)[2]
+    assert r["collectives"] == {"all-reduce": 4.0 * 2 * width, "all-gather": 4.0}
+    assert r["memory"]["peak_bytes"] > r["memory"]["argument_bytes"] > 0
     with pytest.raises(ValueError, match=r"supports bits in \(4, 8\), got 2"):
         cross_silo.make_quantized_fl_round_step(cfg, get_model(cfg), None, 1, bits=2)
 

@@ -62,7 +62,13 @@ Asserted, rank by rank:
   ``lm_params_from_numpy`` alike, and only when asked for (``zero``);
 - ``launch/train.py --mesh 2,1`` and ``--mesh 1,2`` as two gloo processes:
   the losses and the checkpoint (one file, written by rank 0) equal the
-  unsharded CLI's within the bf16 contract.
+  unsharded CLI's within the bf16 contract;
+- the cross-silo round over the mesh (``fl.cross_silo
+  .make_mesh_fl_round_step``: a silo a data index, Eq. 1 through
+  masked_aggregate's partial and combine modes and one all-reduce), two
+  rounds of the reduced granite on (2, 1) in the world of 2, bitwise the
+  single-process ``make_fl_round_step`` on the same inputs (run in rank 0
+  after the mesh round).
 
 The spawned ranks import this module, which imports no jax at top level.
 """
@@ -122,6 +128,7 @@ NORM_REL = 1e-6
 RULE_GAP = 1e-2  # the unsharded gradient and the summed auxes miss JAX's by more than this
 SPAWN_TIMEOUT_S = 600
 FRAMES = 64  # whisper's frames a row (the reduced encoder_seq)
+SILO_WEIGHTS, SILO_ROUNDS, SILO_SHARED = (3.0, 1.0), 2, 1  # the cross-silo case on (2, 1)
 
 
 def _cfg(arch):
@@ -245,6 +252,48 @@ def _collectives() -> dict:
     return out
 
 
+def _cross_silo_case(inputs) -> dict:
+    """``SILO_ROUNDS`` rounds of the cross-silo round of the reduced float32
+    granite over a (2, 1) mesh (``make_mesh_fl_round_step``; silo i = data
+    index i on rows [2i, 2i + 2) of each batch, weights ``SILO_WEIGHTS``,
+    the first ``SILO_SHARED`` period shared, AdamW): this rank's losses and
+    parameters; on rank 0 also the single-process round's on the same
+    inputs (``make_fl_round_step`` over both silos, one torch thread)."""
+    from repro_torch.fl import cross_silo as xs
+
+    cfg, a = _cfg("granite-3-8b"), inputs["granite-3-8b"]
+    bundle, opt = get_model(cfg), optim.adamw(LR)
+    weights = torch.tensor(SILO_WEIGHTS)
+    batches = a["batches"][:SILO_ROUNDS]
+    mesh = make_rank_mesh((2, 1), device="cpu")
+    try:
+        with xs.silo_context(mesh):
+            model = lm_params_from_numpy(cfg, a["params"], device="cpu", mesh=mesh)
+        state = opt.init(param_tree(model))
+        step = xs.make_mesh_fl_round_step(cfg, bundle, opt, SILO_SHARED, mesh)
+        i, losses = mesh.index("data"), []
+        for batch in batches:
+            rows = {k: torch.from_numpy(v[2 * i:2 * i + 2]) for k, v in batch.items()}
+            model, state, loss = step(model, state, rows, weights)
+            losses.append(float(loss))
+        out = {"silo": i, "losses": losses,
+               "params": {k: _np(p) for k, p in param_tree(model).items()}}
+    finally:
+        mesh.close()
+    if mesh.rank == 0:
+        silo = xs.silo_params_from_model(lm_params_from_numpy(cfg, a["params"], device="cpu"), 2)
+        states = xs.init_silo_opt(opt, silo)
+        step = xs.make_fl_round_step(cfg, bundle, opt, SILO_SHARED, agg="fp32")
+        single = []
+        for batch in batches:
+            stacked = {k: torch.from_numpy(v).reshape(2, 2, *v.shape[1:]) for k, v in batch.items()}
+            silo, states, loss = step(silo, states, stacked, weights)
+            single.append(float(loss))
+        out["single"] = {"losses": single, "params": [
+            {k: _np(p) for k, p in param_tree(m).items()} for m in silo.models]}
+    return out
+
+
 def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
     """One spawned rank: join the gloo world of ``world`` ranks, run every
     case whose mesh has that many (and, in the world of 4, the
@@ -263,6 +312,7 @@ def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
         if world == 2:
             out["tied 1x2"] = _port_case("granite-3-8b", (1, 2), False, inputs, _tied_cfg(),
                                          "tied")
+            out["cross_silo 2x1"] = _cross_silo_case(inputs)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(base, f"port_w{world}_r{rank}.pkl"), "wb") as f:
@@ -687,6 +737,25 @@ def test_tied_granite_on_1x2_matches_the_unsharded_model(runs):
         for name, w in wg.items():
             assert _gap(g[name], w) <= F32_REL, (t, name, _gap(g[name], w))
     _assert_params(cfg, whole["params"], want["params"], want["nu"])
+
+
+def test_cross_silo_round_on_the_mesh_is_bitwise_the_single_process_round(runs):
+    """The mesh round (a silo a data rank, Eq. 1 through the partial and
+    combine modes over one all-reduce) on (2, 1): after two rounds each
+    rank's parameters are bitwise silo i's of the single-process round on
+    the same inputs, the shared ones equal on both ranks, the personal ones
+    apart, and the mean loss the single-process round's."""
+    ranks = runs[1]["cross_silo 2x1"]
+    single = ranks[0]["single"]
+    for rk in ranks:
+        want = single["params"][rk["silo"]]
+        assert set(rk["params"]) == set(want)
+        for name, got in rk["params"].items():
+            assert np.array_equal(got, want[name]), (rk["silo"], name)
+        assert rk["losses"] == single["losses"], (rk["losses"], single["losses"])
+    a, b = (rk["params"] for rk in ranks)
+    assert np.array_equal(a["embed"], b["embed"])
+    assert not np.array_equal(a["head"], b["head"])
 
 
 @pytest.mark.parametrize("case", CASES)
