@@ -106,7 +106,8 @@ drives the port's two paths:
   backward, ``transformer.lm_objective``, ``whisper.whisper_objective``):
   the reduced float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b,
   3 steps under a (1, 1) mesh bitwise the run without one, and on (2, 1)
-  and (1, 2) (tensor-parallel), jamba-v0.1-52b and deepseek-v2-lite-16b
+  and (1, 2) (tensor-parallel; granite there once more under
+  ``seq_parallel``), jamba-v0.1-52b and deepseek-v2-lite-16b
   on (1, 2) and whisper-tiny on (2, 1), as two gloo processes sharing the
   card against the rule of JAX's sharded step computed without a mesh;
   the two backward kernels are also held to their plain versions at the
@@ -145,7 +146,9 @@ ranks (``nccl_world_main``), and ``torchrun --standalone --nproc-per-node
 moonshot-v1-16b-a3b whole on (1, 4) and (2, 2), and granite-3-8b and
 falcon-mamba-7b whole on (1, 4), tensor-parallel (``ep_world_main``),
 and ``... --train-world`` trains granite-3-8b whole on (4, 1), (2, 2)
-and (1, 4), deepseek-moe-16b whole on (2, 2) and falcon-mamba-7b whole on
+and (1, 4) (on (2, 2) and (1, 4) also under ``seq_parallel``, the
+sequence-parallel layout, each beside the same mesh without it),
+deepseek-moe-16b whole on (2, 2) and falcon-mamba-7b whole on
 (2, 2), tensor-parallel where the model axis is over 1, after holding
 4-layer float32 versions to the same weights without a mesh, then runs
 the cross-silo round over a (4, 1) mesh against the single-process round
@@ -515,23 +518,28 @@ CHUNKED_PREFILL = dict(arch="falcon-mamba-7b", chunks=2, max_new=32)
 # TRAIN_WORLD's bf16 models whole, TRAIN_WORLD_RUN. CHECK_GRAD_REL is ten
 # times tests/_torch_train.py's F32_REL (full-width sums, split over the
 # model ranks) and a twentieth of bf16's rounding (2^-9), so that a
-# gradient rounded to bf16 fails
+# gradient rounded to bf16 fails. A case's last entry: the mesh context's
+# seq_parallel (the sequence-parallel layout, launch/tp.py), whose
+# TRAIN_WORLD cases run beside the same mesh's case without it
 TRAIN_MESH_ARCHS = ("granite-3-8b", "deepseek-moe-16b", "falcon-mamba-7b")
 TRAIN_MESH_RUN = dict(batch=4, seq=64, steps=3, lr=3e-4)
-TRAIN_MESH_CASES = (*((arch, shape) for shape in ((2, 1), (1, 2)) for arch in TRAIN_MESH_ARCHS),
-                    ("jamba-v0.1-52b", (1, 2)), ("deepseek-v2-lite-16b", (1, 2)),
-                    ("whisper-tiny", (2, 1)))
+TRAIN_MESH_CASES = (*((arch, shape, False) for shape in ((2, 1), (1, 2))
+                      for arch in TRAIN_MESH_ARCHS),
+                    ("jamba-v0.1-52b", (1, 2), False), ("deepseek-v2-lite-16b", (1, 2), False),
+                    ("whisper-tiny", (2, 1), False), ("granite-3-8b", (1, 2), True))
 TRAIN_MASKED = (5, 0, 11, 2, 0, 7, 3, 1)
 STEP_ABS, NEAR_ZERO, SCAN_SHARE = 1e-6, 1e-4, 1e-4
 TRAIN_MESH_TIMEOUT_S = 240
-TRAIN_CHECK = (("granite-3-8b", 4, (4, 1)), ("deepseek-moe-16b", 4, (2, 2)),
-               ("granite-3-8b", 4, (1, 4)), ("granite-3-8b", 4, (2, 2)),
-               ("falcon-mamba-7b", 4, (2, 2)))
+TRAIN_CHECK = (("granite-3-8b", 4, (4, 1), False), ("deepseek-moe-16b", 4, (2, 2), False),
+               ("granite-3-8b", 4, (1, 4), False), ("granite-3-8b", 4, (2, 2), False),
+               ("falcon-mamba-7b", 4, (2, 2), False), ("granite-3-8b", 4, (1, 4), True))
 TRAIN_CHECK_RUN = dict(batch=8, seq=256, steps=2, lr=3e-4)
 CHECK_GRAD_REL, CHECK_SCAN_REL = 1e-4, 2.0 ** -8
 ADAM_B2 = 0.95  # make_optimizer's AdamW (optim.adamw's default)
-TRAIN_WORLD = (("granite-3-8b", (4, 1)), ("deepseek-moe-16b", (2, 2)), ("granite-3-8b", (2, 2)),
-               ("granite-3-8b", (1, 4)), ("falcon-mamba-7b", (2, 2)))
+TRAIN_WORLD = (("granite-3-8b", (4, 1), False), ("deepseek-moe-16b", (2, 2), False),
+               ("granite-3-8b", (2, 2), False), ("granite-3-8b", (2, 2), True),
+               ("granite-3-8b", (1, 4), False), ("granite-3-8b", (1, 4), True),
+               ("falcon-mamba-7b", (2, 2), False))
 TRAIN_WORLD_RUN = dict(batch=8, seq=2048, steps=4, lr=3e-4, seed=0)
 
 
@@ -4155,18 +4163,20 @@ def mesh_batches(cfg, run: dict, dev: torch.device) -> list:
     return out
 
 
-def mesh_train(cfg, mesh, run: dict, batches: list, visit=None) -> tuple:
+def mesh_train(cfg, mesh, run: dict, batches: list, visit=None, seq_parallel: bool = False
+               ) -> tuple:
     """``run``'s steps of ``cfg`` from its init (seed 0) under ``mesh``
-    (None: without one) on its device: (losses, the whole parameters, the
-    whole AdamW nu, the kernel launches of the steps, this rank's blocks of
-    the parameters it holds whole over ``model``); calls ``visit`` (when
-    given) as ``visiting_grads`` says."""
+    (None: without one; ``seq_parallel`` its context's) on its device:
+    (losses, the whole parameters, the whole AdamW nu, the kernel launches
+    of the steps, this rank's blocks of the parameters it holds whole over
+    ``model``); calls ``visit`` (when given) as ``visiting_grads`` says."""
     from repro_torch.launch import zero
     from repro_torch.launch.train import make_optimizer
     from repro_torch.models.api import param_tree
 
     dev = batches[0]["tokens"].device
-    with mesh_ctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+    with (mesh_ctx.mesh_context(mesh, seq_parallel=seq_parallel) if mesh is not None
+          else contextlib.nullcontext()):
         model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                                         zero=mesh is not None)
         opt = make_optimizer(run["lr"], run["steps"])
@@ -4289,7 +4299,8 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
     for the card's) bitwise the run without a mesh, with exactly
     ``expected_train_launches``; (b) TRAIN_MESH_CASES, reduced in float32,
     as two gloo processes sharing the card (``--train-mesh-worker``; on (1,
-    2) a decoder is tensor-parallel), each against ``rule_train`` on as
+    2) a decoder is tensor-parallel, and granite once more under
+    ``seq_parallel``), each against ``rule_train`` on as
     many data shards (the run without a mesh where it has one data shard
     or no MoE), within ``train_contract``, every rank's loss equal, on (1,
     2) the leaves whole over ``model`` bitwise equal on both ranks, and its
@@ -4332,7 +4343,7 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
                       f"{json.dumps(ours[3])}")
         finally:
             mesh.close()
-        for arch, shape in TRAIN_MESH_CASES:  # one data shard or no MoE: the unsharded step
+        for arch, shape, _ in TRAIN_MESH_CASES:  # one data shard or no MoE: the unsharded step
             if arch not in refs:
                 cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
                 plain = mesh_train(cfg, None, TRAIN_MESH_RUN, mesh_batches(cfg, TRAIN_MESH_RUN,
@@ -4348,9 +4359,9 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
             log.close()
         shutil.rmtree(base, ignore_errors=True)
     readings = {}
-    for arch, shape in TRAIN_MESH_CASES:
+    for arch, shape, sp in TRAIN_MESH_CASES:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-        key = f"{arch}/{shape[0]}x{shape[1]}"
+        key = train_mesh_key(arch, shape, sp)
         losses = [rk[f"{key}/losses"].tolist() for rk in ranks]
         got = (losses[0], {k[len(key) + 3:]: torch.from_numpy(v).to(dev)
                            for k, v in ranks[0].items() if k.startswith(f"{key}/p/")})
@@ -4371,14 +4382,20 @@ def phase_train_mesh(dev: torch.device, card: str) -> dict[str, int]:
             check(counts == want, f"[train_mesh] {key}: launches {counts}, want {want}")
             for k, n in counts.items():
                 launches[k] += n
-    print(f"[train_mesh] {[f'{a} on {s}' for a, s in TRAIN_MESH_CASES]} as two gloo processes "
-          f"on the card (a decoder tensor-parallel on (1, 2)), against the rule of JAX's "
+    print(f"[train_mesh] {[train_mesh_key(*c) for c in TRAIN_MESH_CASES]} as two gloo "
+          f"processes on the card (a decoder tensor-parallel on (1, 2); /sp: under "
+          f"seq_parallel, the stream between blocks split over model), against the rule of JAX's "
           f"sharded step without a mesh (rule_train; the contract of tests/_torch_train.py, "
           f"1e-5 and 2^-8 behind a scan): {json.dumps(readings)}; every rank's losses equal, "
           f"on (1, 2) the leaves whole over model (whole_over_model_bitwise: their count) "
           f"bitwise equal on both ranks; [train_mesh] {time.perf_counter() - t_phase:.1f} s; "
           f"{card}")
     return launches
+
+
+def train_mesh_key(arch: str, shape, seq_parallel: bool) -> str:
+    """A TRAIN_MESH_CASES case's key in the workers' outputs."""
+    return f"{arch}/{shape[0]}x{shape[1]}" + ("/sp" if seq_parallel else "")
 
 
 def train_mesh_worker(rank: str, world: str, base: str, device: str) -> int:
@@ -4397,14 +4414,15 @@ def train_mesh_worker(rank: str, world: str, base: str, device: str) -> int:
             torch.cuda.set_device(dev)
         full_precision_matmuls()
         out = {}
-        for shape in dict.fromkeys(s for _, s in TRAIN_MESH_CASES):
+        for shape in dict.fromkeys(s for _, s, _ in TRAIN_MESH_CASES):
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                for arch in (a for a, s in TRAIN_MESH_CASES if s == shape):
+                for arch, sp in ((a, sp) for a, s, sp in TRAIN_MESH_CASES if s == shape):
                     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-                    key = f"{arch}/{shape[0]}x{shape[1]}"
+                    key = train_mesh_key(arch, shape, sp)
                     losses, params, _, counts, held = mesh_train(
-                        cfg, mesh, TRAIN_MESH_RUN, mesh_batches(cfg, TRAIN_MESH_RUN, dev))
+                        cfg, mesh, TRAIN_MESH_RUN, mesh_batches(cfg, TRAIN_MESH_RUN, dev),
+                        seq_parallel=sp)
                     out[f"{key}/losses"] = np.asarray(losses)
                     out.update({f"{key}/launches/{k}": n for k, n in counts.items()})
                     out.update({f"{key}/w/{k}": v.cpu().numpy() for k, v in held.items()})
@@ -4422,8 +4440,9 @@ def train_world_main(where: str = "cuda") -> int:
     """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py --train-world``
     (NCCL, ``cuda:{rank}``; "cpu" rehearses it over gloo on the CPU at the
     reduced configs): ``train_world_check`` on each TRAIN_CHECK model, then
-    ``train_world_run`` on each TRAIN_WORLD model; every rank exits
-    non-zero when any rank found a fault."""
+    ``train_world_run`` on each TRAIN_WORLD model, a sequence-parallel case
+    printed beside the same mesh's case without it (``sp_pair_line``);
+    every rank exits non-zero when any rank found a fault."""
     rank = int(os.environ["RANK"])
     cpu = where == "cpu"
     # a rank that fails (out of memory) leaves the others in a collective:
@@ -4449,31 +4468,39 @@ def train_world_main(where: str = "cuda") -> int:
             finally:
                 preds = collect_dryruns(*pending)
         dist.all_reduce(torch.zeros(1, device=dev))  # the others wait for the build
-        for arch, layers, shape in TRAIN_CHECK:
+        for arch, layers, shape, sp in TRAIN_CHECK:
             cfg = get_config(arch)
             cfg = dataclasses.replace(cfg.reduced() if cpu else cfg, dtype="float32",
                                       **({} if cpu else {"n_layers": layers}))
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                failures += train_world_check(cfg, mesh, card)
+                failures += train_world_check(cfg, mesh, card, sp)
             finally:
                 mesh.close()
             gc.collect()
             if not cpu:
                 torch.cuda.empty_cache()
-        for arch, shape in TRAIN_WORLD:
+        seen = {}  # (arch, shape, sp) -> rank 0's readings
+        for arch, shape, sp in TRAIN_WORLD:
             cfg = get_config(arch).reduced() if cpu else get_config(arch)
             mesh = make_rank_mesh(shape, device=dev)
             try:
-                failures += train_world_run(cfg, mesh, run, card, cpu, preds.get(f"{arch} {shape}"))
+                key = world_key(arch, shape, sp)
+                bad, seen[arch, shape, sp] = train_world_run(cfg, mesh, run, card, cpu,
+                                                             preds.get(key), sp)
+                failures += bad
                 if not cpu and not failures:  # one more step, traced on every rank
                     gc.collect()
                     torch.cuda.empty_cache()
                     traced = profile_train_step(cfg, batch=run["batch"], seq=run["seq"],
-                                                mesh=mesh)["train step"]
+                                                mesh=mesh, seq_parallel=sp)["train step"]
+                    seen[arch, shape, sp]["traced"] = traced
                     if rank == 0:
-                        print(f"[train-world] {cfg.name} on {shape}: one step traced after a "
-                              f"warm-up (torch.profiler, rank 0): {json.dumps(traced)}")
+                        print(f"[train-world] {key}: one step traced after a warm-up "
+                              f"(torch.profiler, rank 0): {json.dumps(traced)}")
+                if rank == 0 and sp and seen[arch, shape, sp] and seen.get((arch, shape, False)):
+                    print(sp_pair_line(key, seen[arch, shape, False], seen[arch, shape, sp],
+                                       card))
             finally:
                 mesh.close()
             gc.collect()
@@ -4496,8 +4523,9 @@ def train_world_main(where: str = "cuda") -> int:
     return 0
 
 
-def train_world_check(cfg, mesh, card: str) -> list:
-    """``cfg`` (float32) trained TRAIN_CHECK_RUN's steps on ``mesh`` against
+def train_world_check(cfg, mesh, card: str, seq_parallel: bool = False) -> list:
+    """``cfg`` (float32) trained TRAIN_CHECK_RUN's steps on ``mesh`` (under
+    ``seq_parallel``, the sequence-parallel layout) against
     ``rule_train`` of the same weights on as many data shards on this rank
     (the unsharded step where the model has no MoE): the losses within
     LM_REL; the first step's gradients as AdamW took them (gathered)
@@ -4524,7 +4552,7 @@ def train_world_check(cfg, mesh, card: str) -> list:
         w = want_grads[t][k].to(g.device)
         gaps[t, k] = (float((g - w).abs().max()), float(w.abs().max()))
 
-    losses, params, _, _, held = mesh_train(cfg, mesh, run, batches, visit)
+    losses, params, _, _, held = mesh_train(cfg, mesh, run, batches, visit, seq_parallel)
     params = {k: v.cpu() for k, v in params.items()}
     del want_grads
     whole_equal = True
@@ -4549,7 +4577,8 @@ def train_world_check(cfg, mesh, card: str) -> list:
     every = mesh.all_gather(mine, mesh.axis_names).cpu()
     shape = tuple(mesh.shape.values())
     if mesh.rank == 0:
-        print(f"[train-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}, "
+        print(f"[train-world] {card}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on {shape}"
+              f"{' under seq_parallel' if seq_parallel else ''}, "
               f"{run['steps']} steps of batch {run['batch']} x {run['seq']}, against the same "
               f"weights without a mesh under the rule of JAX's sharded step on {n_dp} data "
               f"shards: by rank [loss gap, gradient gap / max (worst leaf) on the first "
@@ -4561,7 +4590,8 @@ def train_world_check(cfg, mesh, card: str) -> list:
         if not contract_ok:
             print(f"[train-world] {cfg.name} on {shape}: the leaves with elements beyond "
                   f"{STEP_ABS}, most first: {json.dumps(leaves)}")
-    return [] if ok else [f"{cfg.name} on {shape} rank {mesh.rank} against rule_train: {read}, "
+    return [] if ok else [f"{cfg.name} on {shape}{' seq_parallel' if seq_parallel else ''} "
+                          f"rank {mesh.rank} against rule_train: {read}, "
                           f"gradient gap {grad_gap}, parameter gap over step_bound {bound_use}, "
                           f"whole-over-model leaves equal across model ranks: {whole_equal}"]
 
@@ -4603,21 +4633,23 @@ def step_bound(got: dict, want: dict, nu: dict, gap: dict, dev) -> tuple[bool, f
     return worst <= 1.0, worst, leaves
 
 
-def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool, pred=None) -> list:
-    """``launch.train.train`` of ``cfg`` on ``mesh`` (every rank), kernel
-    counts zeroed just before and read just after: finite losses, equal on
-    every rank, the launches ``expected_train_launches`` gives; rank 0
-    prints step ms, tok/s, peak GiB by rank. Returns this rank's
-    failures."""
+def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool, pred=None,
+                    seq_parallel: bool = False) -> tuple[list, dict]:
+    """``launch.train.train`` of ``cfg`` on ``mesh`` (every rank; under
+    ``seq_parallel``, the sequence-parallel layout), kernel counts zeroed
+    just before and read just after: finite losses, equal on every rank,
+    the launches ``expected_train_launches`` gives; rank 0 prints step ms,
+    tok/s, peak GiB by rank. Returns (this rank's failures, its readings:
+    median step ms, tok/s, peak GiB by rank, the predicted peak GiB)."""
     from repro_torch.launch.train import train
 
     dev = mesh.device
     kernels.reset_launch_counts()
     try:
-        stats = train(cfg, mesh=mesh, log=lambda *_: None, **run)
+        stats = train(cfg, mesh=mesh, log=lambda *_: None, seq_parallel=seq_parallel, **run)
     except torch.cuda.OutOfMemoryError as e:
         return [f"{cfg.name} on {tuple(mesh.shape.values())} rank {mesh.rank}: out of memory "
-                f"({str(e)[:200]})"]
+                f"({str(e)[:200]})"], {}
     counts = kernels.launch_counts()
     want = dict.fromkeys(kernels.KERNELS, 0) if cpu else expected_train_launches(cfg, run["steps"])
     mine = torch.tensor([*stats["losses"], stats["peak_bytes"] or 0, *stats["step_ms"]],
@@ -4630,23 +4662,48 @@ def train_world_run(cfg, mesh, run: dict, card: str, cpu: bool, pred=None) -> li
             and counts == want):
         failures.append(f"{cfg.name} on {shape} rank {mesh.rank}: losses by rank "
                         f"{every[:, :n].tolist()}, launches {counts}, expected {want}")
+    timed = stats["step_ms"][1:]
+    tokens = run["batch"] * run["seq"]
+    peaks = [round(float(b) / 2**30, 2) for b in every[:, n]]
+    readings = {"step_ms": statistics.median(timed), "step_ms_range": [min(timed), max(timed)],
+                "tok_s": 1e3 * tokens / statistics.median(timed), "peak_gib": peaks,
+                "predicted_gib": None if pred is None else pred["memory"]["peak_bytes"] / 2**30}
     if mesh.rank == 0:
-        timed = stats["step_ms"][1:]
-        tokens = run["batch"] * run["seq"]
         print(f"[train-world] {card}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}, "
               f"{stats['n_params'] / 1e9:.3f} B params) trained on mesh (data, model) = {shape}, "
-              f"{mesh.world} ranks ({mesh.backend}), ZeRO over data, TP and experts over model: "
+              f"{mesh.world} ranks ({mesh.backend}), ZeRO over data, TP and experts over model"
+              f"{', the stream sequence-parallel over model' if seq_parallel else ''}: "
               f"batch "
               f"{run['batch']} x {run['seq']}, {run['steps']} steps: losses {stats['losses']}; "
               f"step ms (CUDA events, rank 0) median {statistics.median(timed):.1f} (min "
               f"{min(timed):.1f}, max {max(timed):.1f}; first step {stats['step_ms'][0]:.1f}); "
               f"{1e3 * tokens / statistics.median(timed):.0f} tok/s over the global batch; peak "
-              f"GiB by rank {[round(float(b) / 2**30, 2) for b in every[:, n]]}; launches "
-              f"{json.dumps(counts)}")
+              f"GiB by rank {peaks}; launches {json.dumps(counts)}")
         if pred is not None:  # the dry run of one step beside the run's peaks (init included)
-            print(world_prediction_line("train-world", pred,
-                                        [round(float(b) / 2**30, 2) for b in every[:, n]]))
-    return failures
+            print(world_prediction_line("train-world", pred, peaks))
+    return failures, readings
+
+
+def world_key(arch: str, shape, seq_parallel: bool) -> str:
+    """A TRAIN_WORLD case's name, and its dry run's key."""
+    return f"{arch} {shape}" + (" seq_parallel" if seq_parallel else "")
+
+
+def sp_pair_line(key: str, plain: dict, sp: dict, card: str) -> str:
+    """A sequence-parallel case's readings beside the same mesh's case
+    without it, from the same call: step ms, tok/s, peak GiB a rank (the
+    largest rank's), the dry run's predicted peak, and the traced step's
+    NCCL share and copy kernels' ms (rank 0)."""
+    def row(r):
+        traced = r.get("traced", {})
+        return {"step_ms": round(r["step_ms"], 1), "tok_s": round(r["tok_s"]),
+                "peak_gib": max(r["peak_gib"]),
+                "predicted_gib": None if r["predicted_gib"] is None else round(
+                    r["predicted_gib"], 2),
+                "nccl_share": traced.get("nccl_share"), "copy_ms": traced.get("copy_ms")}
+
+    return (f"[train-world] {key} beside the same mesh without it (this call): "
+            f"{json.dumps({'seq_parallel': row(sp), 'without': row(plain)})}; {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4935,7 +4992,8 @@ for case in json.loads(sys.argv[1]):
         cfg = dataclasses.replace(cfg, n_layers=case["layers"])
     r = run_one(case["arch"], case["shape"], mesh=case["mesh"], cfg=cfg, batch=case.get("batch"),
                 seq=case.get("seq"), zero=False if case.get("serve") else None,
-                fl_shared=case.get("fl_shared"), verbose=False)
+                fl_shared=case.get("fl_shared"), seq_parallel=case.get("seq_parallel", False),
+                verbose=False)
     print("DRYRUN " + json.dumps(dict(r, key=case["key"])), flush=True)
 """
 
@@ -4943,7 +5001,7 @@ for case in json.loads(sys.argv[1]):
 def start_dryruns(cases: list, name: str) -> tuple:
     """The dry runs of ``cases`` (dicts: key, arch, shape, mesh (None: the
     production mesh, []: one card), batch, seq, layers, reduced, serve,
-    fl_shared) in DRYRUN_PROCS processes of their own, a train step
+    fl_shared, seq_parallel) in DRYRUN_PROCS processes of their own, a train step
     counted as DRYRUN_TRAIN_COST of the others in sharing them out; each
     sees no card (the dry run needs none: fake tensors over a fake process
     group) and writes to ``build/dryrun_<name>_<i>.log``. Returns (the
@@ -5130,9 +5188,10 @@ def train_world_cases(run: dict, cpu: bool) -> list:
     """The dry runs of --train-world: one train step of each TRAIN_WORLD
     case at ``run``'s batch and sequence, and one round of the cross-silo
     world case (``cross_silo_world``) on (4, 1)."""
-    cases = [{"key": f"{arch} {shape}", "arch": arch, "shape": "train_4k", "mesh": list(shape),
-              "batch": run["batch"], "seq": run["seq"], "reduced": cpu}
-             for arch, shape in TRAIN_WORLD]
+    cases = [{"key": world_key(arch, shape, sp), "arch": arch, "shape": "train_4k",
+              "mesh": list(shape), "batch": run["batch"], "seq": run["seq"], "reduced": cpu,
+              "seq_parallel": sp}
+             for arch, shape, sp in TRAIN_WORLD]
     silo = dict(CROSS_SILO_RUN, seq=64) if cpu else CROSS_SILO_RUN
     cases.append({"key": "cross_silo", "arch": "granite-3-8b", "shape": "train_4k",
                   "mesh": [4, 1], "batch": 4 * silo["batch"], "seq": silo["seq"],

@@ -13,8 +13,8 @@ once, each output written once.
 
 from __future__ import annotations
 
-__all__ = ["SINKS", "is_fake", "record_collective", "record_launch", "record_row_recompute",
-           "tensor_bytes"]
+__all__ = ["SINKS", "is_fake", "record_collective", "record_launch", "record_recompute_collective",
+           "record_row_recompute", "tensor_bytes"]
 
 SINKS: list = []  # the counters open now, innermost last
 
@@ -44,12 +44,21 @@ def record_launch(name: str, flops: float, *tensors) -> None:
         sink.kernel_bytes[name] += n_bytes
 
 
-def record_collective(kind: str, n_bytes: float, within_host: bool = True) -> None:
+_RING = {"all-reduce": lambda n: 2.0 * (n - 1) / n, "reduce-scatter": lambda n: (n - 1) / n,
+         "all-gather": lambda n: float(n - 1)}
+
+
+def record_collective(kind: str, n_bytes: float, within_host: bool = True,
+                      n_ranks: int = 1) -> None:
     """One collective of ``kind`` (the JAX package's name) over operands of
-    ``n_bytes`` on this rank, over a group within one host (NVLink) or
-    across hosts (the network), for every open counter."""
+    ``n_bytes`` on this rank, over a group of ``n_ranks`` within one host
+    (NVLink) or across hosts (the network), for every open counter; its
+    wire bytes are what a ring sends from this rank: 2 (n-1)/n of the
+    operand for an all-reduce, (n-1)/n for a reduce-scatter, (n-1) times
+    the rank's block for an all-gather."""
     for sink in SINKS:
         sink.collectives[kind] += float(n_bytes)
+        sink.wire_bytes[kind] += _RING[kind](n_ranks) * float(n_bytes)
         sink.collective_count[kind] += 1
         sink.link_bytes["nvlink" if within_host else "network"] += float(n_bytes)
 
@@ -59,3 +68,10 @@ def record_row_recompute(flops: float) -> None:
     recompute (its flops are dispatched and counted as well)."""
     for sink in SINKS:
         sink.row_recompute_flops += float(flops)
+
+
+def record_recompute_collective(kind: str, n_bytes: float) -> None:
+    """A collective of a block's forward run again in a checkpoint's
+    recompute (``record_collective`` reports its bytes as well)."""
+    for sink in SINKS:
+        sink.recompute_collectives[kind] += float(n_bytes)

@@ -442,16 +442,18 @@ def make_quantized_fl_round_step(cfg: ModelConfig, bundle, optimizer, shared_per
 # ---------------------------------------------------------------------------
 
 
-def silo_context(mesh):
+def silo_context(mesh, seq_parallel: bool = False):
     """The mesh context a silo is built and trained in on ``mesh``: no data
     axes (the data ranks are the silos: each trains its own model on its
     own rows, none splits a batch or sums a gradient over the others) and
     no expert parallelism (JAX's ``build_fl_dryrun`` shards each silo by the
     model-only rules, under ``moe_ep=False``), so on a ``model`` axis over 1
-    the silo's model holds its tensor-parallel blocks (``launch/tp.py``)."""
+    the silo's model holds its tensor-parallel blocks (``launch/tp.py``).
+    ``seq_parallel``: a silo's train step takes the sequence-parallel
+    layout by the rule of any train step (``context.seq_split``)."""
     from repro_torch.launch import context as ctx
 
-    return ctx.mesh_context(mesh, dp_axes=(), moe_ep=False)
+    return ctx.mesh_context(mesh, dp_axes=(), moe_ep=False, seq_parallel=seq_parallel)
 
 
 @torch.no_grad()
@@ -490,7 +492,7 @@ def mesh_silo_mean(model, weights: torch.Tensor, shared_periods: int, mesh,
 
 
 def make_mesh_fl_round_step(cfg: ModelConfig, bundle, optimizer, shared_periods: int, mesh,
-                            dp_axes=("data",), window: int = 0):
+                            dp_axes=("data",), window: int = 0, seq_parallel: bool = False):
     """The round of ``make_fl_round_step`` over ``mesh``, the silo axis
     over ``dp_axes`` (JAX's ``build_fl_dryrun`` layout): ``fl_round(model,
     opt_state, batch, weights)`` on every rank, ``model`` this rank's silo
@@ -500,11 +502,11 @@ def make_mesh_fl_round_step(cfg: ModelConfig, bundle, optimizer, shared_periods:
     ``mesh_silo_mean``; returns (model, opt_state, the mean of the S silos'
     losses, gathered in silo order: the single-process round's mean bit for
     bit). The fp32 wire only: the int, bf16 and EF wires stay
-    single-process."""
+    single-process. ``seq_parallel``: ``silo_context``'s."""
     base_step = bundle.make_train_step(optimizer, window=window)
 
     def fl_round(model, opt_state, batch: dict, weights: torch.Tensor):
-        with silo_context(mesh):
+        with silo_context(mesh, seq_parallel):
             model, opt_state, loss = base_step(model, opt_state, batch)
         mesh_silo_mean(model, weights, shared_periods, mesh, dp_axes)
         losses = mesh.all_gather(loss.detach().to(torch.float32).reshape(1), dp_axes)
@@ -518,7 +520,8 @@ def build_fl_dryrun(cfg, bundle, shape, mesh, dp, shared_periods: int, meta: dic
     traces it (JAX's ``build_fl_dryrun``): the silo axis over the data axes
     ``dp`` of ``mesh``, one silo a data index, each with its own AdamW
     state and ``global_batch // n_silos`` rows, its model in the
-    model-only layout (``silo_context``). Call it under the dry run's
+    model-only layout (``silo_context``; sequence-parallel where the dry
+    run's mesh context asks for it). Call it under the dry run's
     ``FakeTensorMode``. Returns (fn, held, meta): ``fn()`` runs the round
     on this rank and returns the loss; ``held`` the arguments' tensors."""
     from repro_torch.optim import adamw
@@ -534,8 +537,11 @@ def build_fl_dryrun(cfg, bundle, shape, mesh, dp, shared_periods: int, meta: dic
     batch = {k: torch.zeros(s, dtype=d, device=model.device)
              for k, (s, d) in make_batch_specs(cfg, "train", local_batch, shape.seq_len).items()}
     weights = torch.ones((n_silos,), dtype=torch.float32, device=model.device)
+    from repro_torch.launch import context as ctx
+
     step = make_mesh_fl_round_step(cfg, bundle, opt, shared_periods, mesh, dp,
-                                   window=meta.get("window", 0))
+                                   window=meta.get("window", 0),
+                                   seq_parallel=ctx.seq_parallel_enabled())
     meta = {**meta, "mode": "fl_round", "n_silos": n_silos, "shared_periods": shared_periods,
             "local_batch": local_batch}
     held = {"params": list(model.parameters()), "opt": opt_state, "silo_batch": batch,

@@ -33,13 +33,16 @@ global batch. So the steps, the train step included,
 split the batch exactly where the MoE takes ``moe_apply_ep`` and the data
 axes divide it, or where the model has no MoE (its rows are then
 independent), and every rank takes the whole batch otherwise
-(``data_rows``). Every other sharding of the JAX model code (``constrain``)
-is layout alone and has no counterpart here: ``seq_parallel``, which JAX
-reads only through ``constrain`` in training, is taken and changes
-nothing, as it changes no value in JAX; the port keeps its TP layout
-until its sequence-parallel layout lands (ROADMAP.md queue 1 item 5),
-whose effect, memory and collective bytes a rank, the dry run
-(``launch/dryrun.py --seq-parallel``, which records the flag) will show.
+(``data_rows``). Every other sharding of the JAX model code
+(``constrain``) is layout alone, and but for one has no counterpart here.
+That one is ``seq_parallel``, which JAX reads only in training
+(``transformer.apply_block``: each block's input pinned to ``("dp",
+"model", None)``): ``seq_split`` says where the port applies it, its
+sequence-parallel layout (``models.transformer``, ``launch/tp.py``): the
+residual stream between blocks split over ``model`` along the sequence,
+TP's all-reduces turned into reduce-scatters and all-gathers. It changes
+where values are computed, not what they are (beyond the rounding of the
+row products' sums), as in JAX.
 A context with no data axes (``dp_axes=()``: the cross-silo round's
 silos, ``fl.cross_silo.silo_context``) runs every rank on its own rows.
 """
@@ -54,11 +57,13 @@ import torch
 from repro_torch.launch.sharding import expert_block
 
 __all__ = ["data_rows", "dp_axes", "expert_parallel", "expert_rows", "gather_rows", "get_mesh",
-           "local_batch", "mesh_context", "moe_ep_enabled", "n_data", "n_model", "tensor_parallel"]
+           "local_batch", "mesh_context", "moe_ep_enabled", "n_data", "n_model",
+           "seq_parallel_enabled", "seq_split", "tensor_parallel"]
 
 _MESH = None
 _DP_AXES: tuple[str, ...] = ("data",)
 _MOE_EP: bool = True
+_SEQ_PARALLEL: bool = False
 
 
 @contextlib.contextmanager
@@ -66,12 +71,11 @@ def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: boo
     """Open ``mesh`` (a ``RankMesh``) for the model code within; the
     previous context comes back on exit, after an exception too. The data
     axes' process group is made here, on every rank in the same order.
-    ``seq_parallel`` is JAX's layout hint for training (its ``constrain``
-    pins the activations' sequence dim over ``model``); it changes no
-    value, and the port keeps its TP layout whatever it says (ROADMAP.md
-    queue 1 item 5; the dry run records it)."""
-    global _MESH, _DP_AXES, _MOE_EP
-    del seq_parallel  # a layout alone: see the docstring
+    ``seq_parallel`` asks for JAX's sequence-parallel layout in training
+    (JAX's ``constrain`` pins each block's input's sequence dim over
+    ``model``): a train step splits its residual stream over ``model``
+    where ``seq_split`` says so, and nothing else changes."""
+    global _MESH, _DP_AXES, _MOE_EP, _SEQ_PARALLEL
     dp_axes = tuple(dp_axes)
     missing = [a for a in dp_axes if a not in mesh.shape]
     if missing or "model" not in mesh.shape:
@@ -79,12 +83,12 @@ def mesh_context(mesh, dp_axes=("data",), moe_ep: bool = True, seq_parallel: boo
                          f"'model' and the data axes {dp_axes}")
     if dp_axes:  # none: every data rank alone (the cross-silo round's silos)
         mesh.group(dp_axes)
-    prev = (_MESH, _DP_AXES, _MOE_EP)
-    _MESH, _DP_AXES, _MOE_EP = mesh, dp_axes, bool(moe_ep)
+    prev = (_MESH, _DP_AXES, _MOE_EP, _SEQ_PARALLEL)
+    _MESH, _DP_AXES, _MOE_EP, _SEQ_PARALLEL = mesh, dp_axes, bool(moe_ep), bool(seq_parallel)
     try:
         yield mesh
     finally:
-        _MESH, _DP_AXES, _MOE_EP = prev
+        _MESH, _DP_AXES, _MOE_EP, _SEQ_PARALLEL = prev
 
 
 def get_mesh():
@@ -97,6 +101,23 @@ def dp_axes() -> tuple[str, ...]:
 
 def moe_ep_enabled() -> bool:
     return _MESH is not None and _MOE_EP
+
+
+def seq_parallel_enabled() -> bool:
+    """Whether the open mesh context asks for the sequence-parallel layout
+    (JAX's function of the same name)."""
+    return _MESH is not None and _SEQ_PARALLEL
+
+
+def seq_split(s: int) -> bool:
+    """Whether a train step's residual stream of ``s`` positions is split
+    over ``model`` between blocks: under ``seq_parallel``, on a ``model``
+    axis of n > 1 ranks that divides ``s`` (``s >= n``). This is JAX's own
+    rule (``constrain`` leaves a dim whole where the axis does not divide
+    it), not a fallback; a (d, 1) mesh, prefill, decode and whisper never
+    split (the callers ask only for a decoder's train step)."""
+    n = n_model()
+    return seq_parallel_enabled() and n > 1 and s % n == 0 and s >= n
 
 
 def expert_parallel(n_experts: int) -> bool:

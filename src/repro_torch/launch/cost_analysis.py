@@ -34,13 +34,20 @@ Terms, per rank (one process of the mesh):
                      (``all-reduce``, ``all-gather``, ``reduce-scatter``),
                      as ``launch.mesh`` reports them, and ``link_bytes``
                      the same bytes by the link they cross: ``nvlink``
-                     for a group within one host, ``network`` across hosts
+                     for a group within one host, ``network`` across hosts;
+                     ``wire_bytes`` by kind what a ring algorithm sends
+                     from the rank for them (``repro_torch.cost``)
   launches         — kernel launches by kernel, as the wrappers report them
   row_recompute_flops — the share of ``flops`` that ``launch/tp.py``'s
                      row products spend again in ``torch.utils.checkpoint``'s
                      recompute: a custom autograd Function runs its whole
                      forward there, where XLA's remat drops a product whose
                      output the backward does not read
+  recompute_collectives — the share of ``collectives``, by kind, that the
+                     same recompute runs again: a block's forward
+                     collectives (ZeRO's gathers, TP's sums, a
+                     sequence-parallel stream's gathers and reduce-scatters)
+                     up to the last one whose output the backward reads
 
 ``analyze(fn, *args)`` runs ``fn(*args)`` under a counter and returns those
 terms with the JAX package's keys.
@@ -119,8 +126,10 @@ class CostCounter(TorchDispatchMode):
         self.kernel_bytes: dict = defaultdict(float)
         self.collectives: dict = defaultdict(float)
         self.collective_count: dict = defaultdict(int)
+        self.wire_bytes: dict = defaultdict(float)
         self.link_bytes: dict = defaultdict(float)
         self.row_recompute_flops = 0.0
+        self.recompute_collectives: dict = defaultdict(float)
         self.live = 0
         self.peak = 0
         self._refs: dict = {}
@@ -175,19 +184,21 @@ class CostCounter(TorchDispatchMode):
 
     def result(self) -> dict:
         """The terms with the JAX package's keys, plus ``peak_bytes``,
-        ``launches``, ``kernel_flops``, ``collective_count``, ``link_bytes``
-        and ``row_recompute_flops``."""
+        ``launches``, ``kernel_flops``, ``collective_count``, ``wire_bytes``, ``link_bytes``,
+        ``row_recompute_flops`` and ``recompute_collectives``."""
         return {
             "flops": self.flops + sum(self.kernel_flops.values()),
             "bytes": self.bytes + sum(self.kernel_bytes.values()),
             "collective_bytes": float(sum(self.collectives.values())),
             "collectives": {k: float(v) for k, v in self.collectives.items()},
             "collective_count": dict(self.collective_count),
+            "wire_bytes": {k: float(v) for k, v in self.wire_bytes.items()},
             "link_bytes": {k: float(v) for k, v in self.link_bytes.items()},
             "peak_bytes": int(self.peak),
             "launches": dict(self.launches),
             "kernel_flops": {k: float(v) for k, v in self.kernel_flops.items()},
             "row_recompute_flops": self.row_recompute_flops,
+            "recompute_collectives": {k: float(v) for k, v in self.recompute_collectives.items()},
         }
 
 

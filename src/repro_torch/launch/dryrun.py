@@ -54,8 +54,15 @@ key tiles where JAX's ``chunked_attention`` computes every tile), ``fits``
 ``layout``. The layout is the port's: ZeRO over the data axes x tensor
 parallelism over ``model`` (``init_params(zero=True)``, JAX's
 ``tree_pspecs``) for every shape, the caches at the rank's rows, kv heads
-and d_inner. ``--seq-parallel`` is recorded; the port keeps its TP layout
-until its sequence-parallel layout lands (ROADMAP.md queue 1 item 5).
+and d_inner. ``--seq-parallel`` opens the mesh context with
+``seq_parallel``: a train step of a decoder whose sequence the ``model``
+axis divides then runs JAX's sequence-parallel layout (the residual stream
+between blocks split over ``model``, ``launch/tp.py``), which the result's
+``layout`` names; a prefill, a decode and whisper are traced as without it,
+as JAX applies it in training only. ``recompute_collectives`` (by kind)
+are the bytes of ``collectives`` that ``torch.utils.checkpoint``'s
+recompute runs again, the stream's gathers among them, and ``wire_bytes``
+(by kind) what a ring sends from the rank.
 
 Usage (no card needed):
 
@@ -63,6 +70,8 @@ Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 2,2     # four cards
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ... --shape train_4k --fl-shared 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --shape train_4k --mesh 16,16 --mesh 2,2 \\
+      --mesh 1,4 [--seq-parallel]; ... --table --seq-parallel   # with and without SP
 
 Results go to ``build/dryrun`` (not committed) unless ``--out`` says
 otherwise, one JSON a combination.
@@ -90,6 +99,7 @@ from repro_torch.launch.cost_analysis import analyze, storage_bytes
 from repro_torch.launch.mesh import HW, data_axes, fake_world, make_rank_mesh
 from repro_torch.launch.sharding import batch_spec, cache_pspecs, tree_pspecs
 from repro_torch.models.api import get_model, make_batch_specs, param_tree
+from repro_torch.models.transformer import stream_len
 from repro_torch.optim import adamw
 
 __all__ = ["SLIDING_WINDOW", "build_lowerable", "main", "mesh_axes", "run_one"]
@@ -265,6 +275,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, fl_shared: int 
         stack.enter_context(FakeTensorMode())
         fn, held, meta = build_lowerable(arch, shape_name, rank_mesh, multi_pod, fl_shared,
                                          cfg=cfg, batch=batch, seq=seq, zero=zero)
+        data = held.get("batch", held.get("silo_batch", {}))
+        split = ("labels" in data and not (cfg or get_config(arch)).encoder_decoder
+                 and ctxmod.seq_split(stream_len(cfg or get_config(arch), data)))
         t_build = time.time() - t0
         terms, _ = analyze(fn, held=held)
         t_step = time.time() - t0 - t_build
@@ -303,6 +316,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, fl_shared: int 
         "kernel_flops": terms["kernel_flops"],
         "attention_flops": attn,
         "row_recompute_flops": terms["row_recompute_flops"],
+        "recompute_collectives": terms["recompute_collectives"],
+        "wire_bytes": terms["wire_bytes"],
         "t_compute": terms["flops"] / HW["peak_flops_bf16"],
         "t_memory": terms["bytes"] / HW["hbm_bw"],
         "link_bytes": link,
@@ -313,8 +328,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, fl_shared: int 
         "figures": f"data sheet ({HW['source']}), not measurements",
         "layout": ("ZeRO over the data axes x TP over model" if (zero is not False and shape_m)
                    else "TP over model" if shape_m else "one card")
-                  + ("; seq_parallel recorded, not applied (ROADMAP.md queue 1 item 5)"
-                     if seq_parallel else ""),
+                  + ("" if not seq_parallel else "; sequence-parallel: the residual stream split "
+                     "over model" if split else "; seq_parallel asked, not applied (JAX applies "
+                     "it to a decoder's train step on a model axis over 1 that divides the "
+                     "sequence)"),
     }
     terms_t = {k: result[k] for k in ("t_compute", "t_memory", "t_collective")}
     result["bottleneck"] = max(terms_t, key=terms_t.get)
@@ -374,6 +391,45 @@ def tables(out_dir: str, fl_shared: int | None = None) -> str:
     return "\n\n".join(out)
 
 
+def sp_tables(out_dir: str) -> str:
+    """Two markdown tables of the train_4k results under ``out_dir`` with
+    and without ``--seq-parallel`` (``--table --seq-parallel``): peak GiB a
+    rank, and collective MB a rank with its all-reduce MB, arch by mesh
+    (16 x 16, 2 x 2, 1 x 4), each cell "without / with" ("—" where no
+    result; ✗ past the card's 80 GB)."""
+    meshes = [PRODUCTION[False], (2, 2), (1, 4)]
+    found = {}
+    for a in list_archs():
+        for m in meshes:
+            for sp in (False, True):
+                path = os.path.join(out_dir, _tag(a, "train_4k", m, None, sp) + ".json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        found[a, m, sp] = json.load(f)
+
+    def cell(a, m, value) -> str:
+        return " / ".join(value(found[a, m, sp]) if (a, m, sp) in found else "—"
+                          for sp in (False, True))
+
+    def gib(r) -> str:
+        return f"{r['memory']['peak_bytes'] / 2**30:.1f}" + ("" if r["fits"] else " ✗")
+
+    def coll(r) -> str:
+        return (f"{r['collective_bytes_per_device'] / 1e6:,.0f} "
+                f"({r['collectives'].get('all-reduce', 0.0) / 1e6:,.0f})")
+
+    names = ["16 x 16", "2 x 2", "1 x 4"]
+    head = "| arch | " + " | ".join(names) + " |\n|" + " --- |" * (len(names) + 1)
+    out = []
+    for title, value in (("train_4k peak GiB a rank, without / with seq_parallel", gib),
+                         ("train_4k collective MB a rank (of which all-reduce), without / with "
+                          "seq_parallel", coll)):
+        rows = [f"| {a} | " + " | ".join(cell(a, m, value) for m in meshes) + " |"
+                for a in list_archs()]
+        out.append(f"{title}:\n\n{head}\n" + "\n".join(rows))
+    return "\n\n".join(out)
+
+
 def _tag(arch, shape, mesh_shape, fl_shared, seq_parallel) -> str:
     m = ("2pod" if mesh_shape == PRODUCTION[True] else "1pod" if mesh_shape == PRODUCTION[False]
          else "mesh" + "x".join(map(str, mesh_shape)) if mesh_shape else "1card")
@@ -391,16 +447,17 @@ def main(argv=None):
     ap.add_argument("--fl-shared", type=int, default=None,
                     help="cross-silo FL round step sharing the first N stack periods")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="recorded; the port keeps its TP layout (ROADMAP.md queue 1 item 5)")
+                    help="the sequence-parallel layout in a train step (JAX's seq_parallel)")
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--mesh", action="append", default=None,
                     help="a mesh shape such as 2,2 (data,model), instead of the production "
                          "mesh; repeatable; 1 alone = one card, no mesh")
     ap.add_argument("--table", action="store_true",
-                    help="print the markdown tables of the results under --out, and stop")
+                    help="print the markdown tables of the results under --out, and stop "
+                         "(with --seq-parallel: train_4k with and without it)")
     args = ap.parse_args(argv)
     if args.table:
-        print(tables(args.out, args.fl_shared))
+        print(sp_tables(args.out) if args.seq_parallel else tables(args.out, args.fl_shared))
         return
 
     os.makedirs(args.out, exist_ok=True)

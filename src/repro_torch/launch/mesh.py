@@ -26,25 +26,36 @@ order. ``launch.context.mesh_context`` opens it for the model code: the
 expert-parallel MoE sums its partial outputs over the ``model`` group and
 the decoder's steps gather their logits over the data group.
 
-Training runs its collectives under autograd through four functions:
+Training runs its collectives under autograd through six functions:
 ``gather_blocks`` (an all-gather whose backward is a reduce-scatter: a
-ZeRO block of a leaf at use, ``launch/zero.py``), ``gather_slices`` (an
-all-gather whose backward keeps this rank's slice of the gradient: a
-tensor-parallel column split made whole, whose gradient every rank holds
+ZeRO block of a leaf at use, ``launch/zero.py``; a sequence-parallel
+stream entering a block of which every use is a rank's share),
+``gather_slices`` (an all-gather whose backward keeps this rank's slice of
+the gradient: a tensor-parallel column split made whole, or a
+sequence-parallel stream made whole, whose gradient every rank holds
 alike), ``psum`` (an all-reduce whose backward is the identity: the
-expert-parallel MoE's partial outputs, a row-split product's partials)
-and ``replicated`` (the identity whose backward is an all-reduce: the
-MoE's tokens and gates, of which each ``model`` rank uses its experts'
-share, and a tensor-parallel block's input). Under ``torch.no_grad``
-(serving) each is the plain collective, or nothing for ``replicated``. A
-collective that fails raises; none falls back to a local result.
+expert-parallel MoE's partial outputs, a row-split product's partials),
+``replicated`` (the identity whose backward is an all-reduce: the MoE's
+tokens and gates, of which each ``model`` rank uses its experts' share,
+and a tensor-parallel block's input), ``scatter_sum`` (a reduce-scatter
+whose backward is an all-gather: a row product's partials summed into a
+sequence-parallel stream) and ``split`` (this rank's block, no
+collective, whose backward is an all-gather: a whole stream entering a
+sequence-parallel one). Under ``torch.no_grad`` (serving) each is the
+plain collective, or nothing for ``replicated``. A collective that fails
+raises; none falls back to a local result. ``RankMesh``'s ``all_gather``
+and ``reduce_scatter`` copy a tensor once to lay the ranks' blocks of a
+dim one after another (not at all along the leading dim or a (1, S, D)
+stream's sequence).
 
 Every collective of a mesh (``CohortMesh.all_reduce``, ``RankMesh``'s
-``all_reduce``, ``all_gather`` and ``reduce_scatter``, which the four
+``all_reduce``, ``all_gather`` and ``reduce_scatter``, which the
 functions above call, forward and backward) reports its operand bytes on
 this rank, keyed by the JAX package's kinds, and whether its group lies
 within one host of ``HW["gpus_per_host"]`` ranks (NVLink) or spans hosts
-(the network), to the open cost counters (``repro_torch.cost``).
+(the network), to the open cost counters (``repro_torch.cost``); a
+forward that ``torch.utils.checkpoint`` runs again in the backward reports
+its collective once more as a recompute.
 
 ``fake_world(size, rank)`` opens a world of ``size`` ranks as rank
 ``rank`` over torch's fake process group, whose collectives move nothing:
@@ -68,11 +79,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.cost import record_collective, tensor_bytes
+from repro_torch.cost import record_collective, record_recompute_collective, tensor_bytes
 
 __all__ = ["HW", "CohortMesh", "RankMesh", "data_axes", "fake_world", "gather_blocks",
            "gather_slices", "make_cohort_mesh", "make_production_mesh", "make_rank_mesh", "psum",
-           "rank_device", "replicated", "within_host"]
+           "rank_device", "replicated", "scatter_sum", "split", "within_host"]
 
 # NVIDIA H100 SXM5 80 GB data sheet (700 W): dense bf16 tensor-core rate,
 # HBM3 rate, and NVLink 4's 900 GB/s a GPU (both directions; 450 GB/s each
@@ -136,7 +147,8 @@ class CohortMesh:
 
     def all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """Sum ``buf`` over the ranks, in place (one collective)."""
-        record_collective("all-reduce", tensor_bytes(buf), within_host(range(self.world)))
+        record_collective("all-reduce", tensor_bytes(buf), within_host(range(self.world)),
+                          self.world)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         return buf
 
@@ -217,7 +229,8 @@ class RankMesh:
         """Sum ``buf`` over the ranks along ``axes``, in place (one
         collective)."""
         group = self.group(axes)
-        record_collective("all-reduce", tensor_bytes(buf), self._within_host[self._axes(axes)])
+        record_collective("all-reduce", tensor_bytes(buf), self._within_host[self._axes(axes)],
+                          self.axis_size(axes))
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         return buf
 
@@ -227,27 +240,41 @@ class RankMesh:
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` along ``axes``, concatenated on ``dim`` in
-        their order (one collective)."""
-        x = t.movedim(dim, 0).contiguous()
-        out = x.new_empty((self.axis_size(axes) * x.shape[0], *x.shape[1:]))
+        their order (one collective). The ranks' blocks arrive one after
+        another, so the result is copied once to put them on ``dim`` (not
+        at all where the dims before ``dim`` hold one element: a leading
+        dim, or a (1, S, D) stream's sequence)."""
+        dim %= t.ndim
+        n = self.axis_size(axes)
+        x = t.contiguous()
+        out = x.new_empty((n * x.numel(),))
         group = self.group(axes)
-        record_collective("all-gather", tensor_bytes(x), self._within_host[self._axes(axes)])
-        dist.all_gather_into_tensor(out, x, group=group)
-        return out if dim == 0 else out.movedim(0, dim).contiguous()
+        record_collective("all-gather", tensor_bytes(x), self._within_host[self._axes(axes)], n)
+        dist.all_gather_into_tensor(out, x.view(-1), group=group)
+        shape = (*t.shape[:dim], n * t.shape[dim], *t.shape[dim + 1:])
+        blocks = out.view(n, *t.shape)
+        if math.prod(t.shape[:dim]) == 1:
+            return blocks.view(shape)
+        return blocks.movedim(0, dim).reshape(shape)
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
         """``t`` summed over the ranks along ``axes``, and of the sum this
         rank's block of ``dim``: block i of n equal ones for the rank at
-        index i over ``axes`` (one collective)."""
+        index i over ``axes`` (one collective). The blocks are laid one
+        after another first: one copy of ``t`` (none where the dims before
+        ``dim`` hold one element)."""
+        dim %= t.ndim
         n = self.axis_size(axes)
-        x = t.movedim(dim, 0).contiguous()
-        if x.shape[0] % n:
+        if t.shape[dim] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {n} ranks")
-        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        size = t.shape[dim] // n
+        x = t.reshape(*t.shape[:dim], n, size, *t.shape[dim + 1:]).movedim(dim, 0).contiguous()
+        out = x.new_empty((*t.shape[:dim], size, *t.shape[dim + 1:]))
         group = self.group(axes)
-        record_collective("reduce-scatter", tensor_bytes(x), self._within_host[self._axes(axes)])
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
-        return out if dim == 0 else out.movedim(0, dim).contiguous()
+        record_collective("reduce-scatter", tensor_bytes(x), self._within_host[self._axes(axes)],
+                          n)
+        dist.reduce_scatter_tensor(out.view(-1), x.view(-1), op=dist.ReduceOp.SUM, group=group)
+        return out
 
     def close(self) -> None:
         """Destroy the groups this mesh made, and the world-1 group it
@@ -271,10 +298,20 @@ class RankMesh:
 # ---------------------------------------------------------------------------
 
 
+def _noted(kind: str, t: torch.Tensor) -> None:
+    """Report the collective an autograd Function's forward is about to
+    run over ``t`` to the open cost counters as a recompute where that
+    forward runs inside the backward: ``torch.utils.checkpoint``'s
+    recompute of a block."""
+    if torch._C._current_graph_task_id() != -1:
+        record_recompute_collective(kind, tensor_bytes(t))
+
+
 class _GatherBlocks(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, mesh, axes, dim):
         fctx.mesh, fctx.axes, fctx.dim = mesh, axes, dim
+        _noted("all-gather", t)
         return mesh.all_gather(t, axes, dim)
 
     @staticmethod
@@ -286,6 +323,7 @@ class _GatherSlices(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, mesh, axes, dim):
         fctx.mesh, fctx.axes, fctx.dim, fctx.size = mesh, axes, dim, t.shape[dim]
+        _noted("all-gather", t)
         return mesh.all_gather(t, axes, dim)
 
     @staticmethod
@@ -294,9 +332,40 @@ class _GatherSlices(torch.autograd.Function):
         return g.narrow(fctx.dim, i * fctx.size, fctx.size).contiguous(), None, None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes, dim, dtype):
+        fctx.mesh, fctx.axes, fctx.dim, fctx.dtype = mesh, axes, dim, t.dtype
+        _noted("reduce-scatter", t)
+        return mesh.reduce_scatter(t, axes, dim).to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):  # gathered in the output's dtype, then cast to the input's
+        return fctx.mesh.all_gather(g, fctx.axes, fctx.dim).to(fctx.dtype), None, None, None, None
+
+
+def _block_of(mesh, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of ``t`` (block i of n equal ones at
+    index i over ``axes``), a copy."""
+    size = t.shape[dim] // mesh.axis_size(axes)
+    return t.narrow(dim, mesh.index(axes) * size, size).clone(memory_format=torch.contiguous_format)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mesh, axes, dim):
+        fctx.mesh, fctx.axes, fctx.dim = mesh, axes, dim
+        return _block_of(mesh, t, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.mesh.all_gather(g, fctx.axes, fctx.dim), None, None, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, mesh, axes):
+        _noted("all-reduce", t)
         return mesh.all_reduce(t.clone(), axes)
 
     @staticmethod
@@ -333,6 +402,32 @@ def gather_slices(mesh: RankMesh, t: torch.Tensor, axes, dim: int) -> torch.Tens
     if not torch.is_grad_enabled():
         return mesh.all_gather(t, axes, dim)
     return _GatherSlices.apply(t, mesh, axes, dim)
+
+
+def scatter_sum(mesh: RankMesh, t: torch.Tensor, axes, dim: int,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t`` summed over the ranks along ``axes``, of which this rank keeps
+    its block of ``dim`` (a reduce-scatter), cast to ``dtype`` (default
+    ``t``'s); its backward all-gathers the blocks' gradients, in ``dtype``,
+    which every rank then holds alike, and casts them to ``t``'s dtype: a
+    row product's float32 partials summed into a bf16 sequence-parallel
+    stream (``launch/tp.py``), whose gradients cross the wire in bf16 (the
+    gradient of a cast to bf16 is bf16's values: exact)."""
+    dtype = dtype or t.dtype
+    if not torch.is_grad_enabled():
+        return mesh.reduce_scatter(t, axes, dim).to(dtype)
+    return _ScatterSum.apply(t, mesh, axes, dim, dtype)
+
+
+def split(mesh: RankMesh, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of ``t``, which every rank along
+    ``axes`` holds alike (a copy, no collective); its backward all-gathers
+    the blocks' gradients, so that what made ``t`` gets the whole gradient
+    on every rank alike: a whole stream entering a sequence-parallel one
+    (``launch/tp.py``)."""
+    if not torch.is_grad_enabled():
+        return _block_of(mesh, t, axes, dim)
+    return _Split.apply(t, mesh, axes, dim)
 
 
 def psum(mesh: RankMesh, t: torch.Tensor, axes) -> torch.Tensor:

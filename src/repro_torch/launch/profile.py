@@ -58,7 +58,8 @@ def device_breakdown(prof, top: int = 8) -> dict:
     (device kernels and copies; not the ranges the profiler records on the
     device for an annotation, such as NCCL's ``nccl:all_reduce``, which
     would count a collective's kernel twice); where NCCL kernels ran, their
-    ms and their share of the span."""
+    ms and their share of the span; the copy kernels' ms (every kernel
+    named a copy: layout copies around collectives among them)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
@@ -72,11 +73,14 @@ def device_breakdown(prof, top: int = 8) -> dict:
         by_name[e.name][1] += e.time_range.elapsed_us()
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     nccl = [us for name, (_, us) in by_name.items() if "nccl" in name.lower()]
+    copies = [us for name, (_, us) in by_name.items()
+              if "copy" in name.lower() and "nccl" not in name.lower()]
     return {
         "span_ms": (end - start) / 1e3,
         "busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / max(end - start, 1e-9),
         "kernels": len(kernels),
+        "copy_ms": sum(copies) / 1e3,
         **({"nccl_ms": sum(nccl) / 1e3, "nccl_share": sum(nccl) / max(end - start, 1e-9)}
            if nccl else {}),
         "top": [{"name": name[:120], "count": n, "ms": us / 1e3} for name, (n, us) in ranked],
@@ -114,15 +118,16 @@ def profile_serving(cfg, *, batch: int = 4, prompt_len: int = 2048, steps: int =
 
 
 def profile_train_step(cfg, *, batch: int = 4, seq: int = 2048, seed: int = 0,
-                       mesh=None) -> dict:
+                       mesh=None, seq_parallel: bool = False) -> dict:
     """``device_breakdown`` of one train step (the forward with its
     checkpointed blocks, the backward with their recompute, the optimizer)
     after a warm-up step, with its host wall ms, on the card (on this rank
     of ``mesh``, a ``launch.mesh.RankMesh``, when given: every rank calls
     it); its top 24 kernels, so that the backward kernels' grids show
-    beside the GEMMs and the optimizer's elementwise passes."""
+    beside the GEMMs and the optimizer's elementwise passes.
+    ``seq_parallel``: the mesh context's."""
     if mesh is not None:
-        with mesh_context(mesh):
+        with mesh_context(mesh, seq_parallel=seq_parallel):
             return _profile_train_step(cfg, batch, seq, seed, mesh.device, zero=True)
     return _profile_train_step(cfg, batch, seq, seed, resolve_device(None), zero=False)
 

@@ -33,12 +33,54 @@ same rows and compute the same objective, so no gradient is summed over
   gather        forward: all-gather (``mesh.gather_slices``); backward:
                 this rank's slice of the gradient, which every rank holds
                 alike (a reduce-scatter would multiply it by n)
+  sp_gather,    the sequence-parallel pair of ``enter`` and ``row``, at
+  sp_row        the stream's way in and out of a block (below)
 
 A leaf whole over ``model`` then gets the same gradient on every ``model``
 rank, bit for bit, since every all-reduce hands all ranks the same bits.
 Under ``torch.no_grad`` (serving) ``enter`` is nothing and the all-reduce
 runs in place: a served step launches one collective a row product and
 one a gather, none for ``enter``.
+
+Sequence parallelism (JAX's ``seq_parallel``; ``context.seq_split``): in a
+train step the residual stream between blocks is split over ``model``
+along the sequence, (B_loc, S/n, D) a rank, so the norms and residual adds
+run on the rank's tokens (``models.transformer.apply_block``). A layer
+then takes the stream in and out through the stream-level pair, along S:
+
+  sp_gather  forward: all-gather of the ranks' tokens; backward: with
+             ``shares``, a reduce-scatter (``mesh.gather_blocks``), else
+             this rank's tokens of the gradient (``mesh.gather_slices``)
+  sp_row     forward: the float32 partials reduce-scattered, then cast
+             once to the stream's dtype (``mesh.scatter_sum``); backward:
+             all-gather of the gradient in the stream's dtype
+             (``sp_scatter`` alone: the MoE's and a SwiGLU's partials)
+  sp_split   forward: this rank's tokens of an output every rank computed
+             alike (a layer of whole leaves); backward: all-gather
+
+``enter`` and ``row`` stay as they are for tensors inside a block (Mamba's
+``x_proj`` sum, a shared kv head's k and v, MLA's latent).
+
+After the gather the stream feeds two kinds of work, and the backward
+tells them apart: a rank's share of a sum (its q heads, d_ff columns,
+experts, d_inner block), whose input gradients must be summed over
+``model``, and work every rank does alike (the MoE's float32 router on
+every token, a shared kv head's ``x @ wk``, MLA's ``x @ wdkv``, whole
+shared experts, a layer of whole leaves), whose gradient is the same on
+every rank and must be counted once. A gather whose backward reduce-scatters
+would count the second kind n times. So the gather fuses with the sums
+(``shares``: one reduce-scatter in the backward, no ``enter``) only where
+every path of the gradient is a share: a GQA layer whose kv heads are
+split with its q heads, a tensor-parallel SwiGLU, a tensor-parallel Mamba
+block. Everywhere else it keeps ``gather_slices`` semantics, and the layer
+keeps ``enter`` / ``replicated``, which sum the shares and hand every rank
+the same whole gradient, of which the gather's backward keeps the rank's
+tokens: an all-reduce in the backward where the fused layers have a
+reduce-scatter. The embedding's ``gather`` is safe for the same reason:
+the stream's ``sp_split`` all-gathers its gradient first, so every rank
+holds the same whole gradient, as its backward assumes. The norms, which
+each rank now runs on its own tokens, get their gradients summed over
+``model`` after the backward (``launch/zero.reduce_grads``).
 """
 
 from __future__ import annotations
@@ -48,11 +90,12 @@ from torch import nn
 
 from repro_torch.launch import context as ctx
 from repro_torch.cost import is_fake, record_row_recompute
-from repro_torch.launch.mesh import gather_slices, psum, replicated
+from repro_torch.launch.mesh import (gather_blocks, gather_slices, psum, replicated, scatter_sum,
+                                     split as split_block)
 from repro_torch.launch.sharding import model_block
 
 __all__ = ["cut", "d_inner", "enter", "gather", "hold", "kv_heads", "kv_rows", "partial", "reduce",
-           "row", "split"]
+           "row", "sp_gather", "sp_row", "sp_scatter", "sp_split", "split"]
 
 
 def cut(t: torch.Tensor, block) -> torch.Tensor:
@@ -148,6 +191,40 @@ def gather(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     order (one all-gather): a column-split product made whole; its
     backward keeps this rank's block of the gradient."""
     return gather_slices(_mesh(), t, "model", dim % t.ndim)
+
+
+def sp_gather(x: torch.Tensor, shares: bool) -> torch.Tensor:
+    """A sequence-parallel stream as it enters a block: the rank's tokens
+    ``x`` (B, S/n, D) -> every rank's (B, S, D), one all-gather along S.
+    Its backward, with ``shares`` (every use of the result is the rank's
+    share of a sum, so the layer skips ``enter``), reduce-scatters the
+    gradient: the ranks' shares summed, this rank's tokens kept; without,
+    keeps this rank's tokens of a gradient every rank holds alike (the
+    layer sums its shares through ``enter`` / ``replicated``)."""
+    return (gather_blocks if shares else gather_slices)(_mesh(), x, "model", 1)
+
+
+def sp_scatter(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 partial (B, S, ...) summed over the ``model`` ranks, this
+    rank's tokens (B, S/n, ...) kept (one reduce-scatter along S) and cast
+    once to ``dtype``, the stream's; its backward all-gathers the gradient
+    in ``dtype`` (``mesh.scatter_sum``)."""
+    return scatter_sum(_mesh(), t, "model", 1, dtype)
+
+
+def sp_row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a row-split pair into a sequence-parallel stream: the
+    float32 partials reduce-scattered along S, then cast once to ``x``'s
+    dtype, as ``row`` casts once (``sp_scatter``)."""
+    return sp_scatter(partial(x, w), x.dtype)
+
+
+def sp_split(t: torch.Tensor) -> torch.Tensor:
+    """This rank's tokens (B, S/n, ...) of ``t`` (B, S, ...), which every
+    ``model`` rank holds alike (the embedded stream, a layer of whole
+    leaves' output); its backward all-gathers the gradient, so every rank
+    hands what made ``t`` the same whole gradient."""
+    return split_block(_mesh(), t, "model", 1)
 
 
 def _held(cfg, path: str, shape: tuple[int, ...], unit: int) -> int:

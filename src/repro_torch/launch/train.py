@@ -36,7 +36,10 @@ over ``model``. Each
 rank prints one JSON line: its losses, step ms (CUDA events), tok/s over
 the global batch and its own peak bytes. ``--ckpt`` gathers whole leaves
 (``zero.whole``: the model blocks put back in place) and rank 0 alone saves
-them: the file an unsharded run would write.
+them: the file an unsharded run would write. ``--seq-parallel`` opens the
+mesh with JAX's ``seq_parallel``: on M > 1 dividing the sequence, a
+decoder's residual stream between blocks is split over ``model``
+(``models.transformer``; ``launch/tp.py``).
 """
 
 from __future__ import annotations
@@ -70,15 +73,18 @@ def make_optimizer(lr: float, steps: int):
 
 
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 2, seq: int = 64, lr: float = 3e-4,
-          seed: int = 0, ckpt: str | None = None, device=None, log=print, mesh=None) -> dict:
+          seed: int = 0, ckpt: str | None = None, device=None, log=print, mesh=None,
+          seq_parallel: bool = False) -> dict:
     """``steps`` train steps of ``cfg`` from random weights (``seed``) on
     ``device`` (default the card), or on this rank of ``mesh`` (a
     ``launch.mesh.RankMesh``, on its device; every rank calls it). Returns
     {"losses", "n_params" (the whole model's), "step_ms", "peak_bytes"
     (None off the card; this rank's), "tok_per_s" (the global batch's),
-    "ckpt" (None but on rank 0)}."""
+    "ckpt" (None but on rank 0)}. ``seq_parallel``: the mesh context's
+    (``launch.context.mesh_context``)."""
     dev = resolve_device(device) if mesh is None else mesh.device
-    with ctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+    with (ctx.mesh_context(mesh, seq_parallel=seq_parallel) if mesh is not None
+          else contextlib.nullcontext()):
         return _train(cfg, steps, batch, seq, lr, seed, ckpt, dev, log, mesh)
 
 
@@ -149,6 +155,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mesh", default=None,
                     help="D,M: train over a (data, model) mesh of D*M ranks, one process a rank "
                          "(torchrun --nproc-per-node D*M)")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="with --mesh: the sequence-parallel layout (JAX's seq_parallel)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -170,7 +178,7 @@ def main(argv=None) -> dict:
         mesh = make_rank_mesh(shape, device=dev)
         try:
             stats = train(cfg, mesh=mesh, log=print if mesh.rank == 0 else (lambda *_: None),
-                          **run)
+                          seq_parallel=args.seq_parallel, **run)
         finally:
             mesh.close()
         print(json.dumps({"rank": mesh.rank, "coords": mesh.coords, **{

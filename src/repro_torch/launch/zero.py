@@ -37,7 +37,9 @@ rank's block kept. ``models.transformer.apply_block`` calls it inside the
 checkpointed block, so the whole weights are gathered again in the
 backward rather than held for it. A leaf that stays whole over the data
 axes gets its gradient summed over the data ranks after the backward
-(``reduce_grads``: one all-reduce a dtype). ``whole`` gathers a leaf over
+(``reduce_grads``: one all-reduce a dtype), and a norm of a
+sequence-parallel step, which each ``model`` rank ran on its own tokens,
+over the data ranks and ``model`` (one more a dtype). ``whole`` gathers a leaf over
 every axis it is split over and puts the model blocks back in place
 (checkpoints).
 """
@@ -132,22 +134,30 @@ def _gathered(node):
     return {k: _gathered(v) if isinstance(v, nn.Module) else full(v) for k, v in node.items()}
 
 
-def reduce_grads(grads: dict, params: dict, mesh) -> SplitTree:
+def reduce_grads(grads: dict, params: dict, mesh, over_model=()) -> SplitTree:
     """The gradients of ``params`` (by name) after the backward, as a
     ``SplitTree``: the leaves held whole over the data axes summed over the
-    data ranks in place (one all-reduce of their concatenation a dtype);
-    the blocks came reduce-scattered from ``full``."""
-    n_dp = ctx.n_data()
-    whole_over_data = [n for n, p in params.items() if getattr(p, "zero_dim", None) is None]
-    if n_dp > 1 and whole_over_data:
-        by_dtype: dict = {}
-        for n in whole_over_data:
-            by_dtype.setdefault(grads[n].dtype, []).append(n)
-        for names in by_dtype.values():  # dtypes in the params' order: the same on every rank
-            flat = torch.cat([grads[n].reshape(-1) for n in names])
-            mesh.all_reduce(flat, ctx.dp_axes())
-            for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
-                grads[n] = part.view_as(grads[n])
+    data ranks in place, and those named in ``over_model`` (leaves whole
+    over ``model`` that each ``model`` rank used on its own tokens: the
+    norms of a sequence-parallel step) over the data axes and ``model``
+    (one all-reduce of their concatenation a dtype and a set of axes); the
+    blocks came reduce-scattered from ``full``. An all-reduce hands every
+    rank the same bits, so a leaf whole over ``model`` stays bitwise equal
+    across the ``model`` ranks."""
+    dp = ctx.dp_axes() if ctx.n_data() > 1 else ()
+    over_model = set(over_model)
+    groups: dict = {}
+    for n, p in params.items():  # in the params' order: the same on every rank
+        if getattr(p, "zero_dim", None) is not None:
+            continue
+        axes = dp + (("model",) if n in over_model else ())
+        if axes:
+            groups.setdefault((grads[n].dtype, axes), []).append(n)
+    for (_, axes), names in groups.items():
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        mesh.all_reduce(flat, axes)
+        for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+            grads[n] = part.view_as(grads[n])
     return SplitTree(grads, {n: split_axes(p) for n, p in params.items()}, mesh)
 
 

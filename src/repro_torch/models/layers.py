@@ -39,7 +39,13 @@ from their shapes) runs its heads, d_ff columns or d_inner channels on
 its input as it enters the block (``tp.enter``), and sums its row
 product's float32 partial over ``model`` (under the expert-parallel MoE,
 the shared experts' partial joins the experts' in their one all-reduce);
-a layer of whole leaves runs as without a mesh.
+a layer of whole leaves runs as without a mesh. In a sequence-parallel
+train step (``seq=True``: ``launch.context.seq_split``) a layer takes the
+rank's tokens of the residual stream, (B, S/n, D), gathers them along S
+as they enter (``tp.sp_gather``) and returns its output on the rank's
+tokens: a row product's float32 partials reduce-scattered
+(``tp.sp_row``), a whole layer's output split (``tp.sp_split``);
+``launch/tp.py`` says which gather each layer takes.
 """
 
 from __future__ import annotations
@@ -200,7 +206,7 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
-                  mode: str = "prefill", by_position: bool = False):
+                  mode: str = "prefill", by_position: bool = False, seq: bool = False):
     """mode: train | prefill (``positions`` = ``arange(S)``, or under M-RoPE
     the (B, S, 3) position streams) | decode (``positions`` = the int
     position of the one token). Returns (out, new_cache); train returns no
@@ -224,16 +230,25 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     summed over ``model``. Where ``wk`` and ``wv`` are whole beside a
     block of ``wq`` (a kv head shared by ranks, in training), every kv
     head is projected from ``x`` and the rank's own enters its block
-    (``tp.kv_rows``): its gradient then sums every rank's share."""
+    (``tp.kv_rows``): its gradient then sums every rank's share.
+
+    ``seq`` (train only): ``x`` is the rank's tokens of a sequence-parallel
+    stream, gathered as it enters (its backward a reduce-scatter where the
+    kv heads are split with the q heads, every path a share), and the
+    output is the rank's tokens (``tp.sp_row``; a whole layer's split)."""
     if mode not in _MODES:
         raise ValueError(f"gqa_attention mode {mode!r}: one of {_MODES}")
-    b, s, _ = x.shape
     dh = cfg.head_dim_
     split = tp.split(p["wq"], 1, cfg.n_heads * dh)
-    xe = tp.enter(x) if split else x
+    shared_kv = split and not tp.split(p["wk"], 1, cfg.n_kv_heads * dh)
+    fused = seq and split and not shared_kv  # the gather's backward sums the shares
+    if seq:
+        x = tp.sp_gather(x, shares=fused)
+    b, s, _ = x.shape
+    xe = tp.enter(x) if split and not fused else x
     h = p["wq"].shape[1] // dh  # the rank's heads
     q = (xe @ p["wq"]).reshape(b, s, h, dh)
-    if split and not tp.split(p["wk"], 1, cfg.n_kv_heads * dh):
+    if shared_kv:
         rows = tp.kv_rows(cfg)
         k = tp.enter((x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh))[:, :, rows]
         v = tp.enter((x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh))[:, :, rows]
@@ -277,10 +292,17 @@ def gqa_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
         cache["kv_pos"][slot] = pos
         out = decode_attention(q, cache["k"], cache["v"], cache["kv_pos"], pos, window=window)
         new_cache = cache
-    out = out.reshape(b, s, h * dh)
+    return _out_proj(out.reshape(b, s, h * dh), p["wo"], split, seq), new_cache
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, split: bool, seq: bool) -> torch.Tensor:
+    """A mixer's output product: a row product summed over ``model`` where
+    ``wo`` holds a block of rows (reduce-scattered into the rank's tokens
+    under ``seq``), else whole (and split into the rank's tokens under
+    ``seq``)."""
     if split:
-        return tp.row(out, p["wo"]), new_cache
-    return out @ p["wo"], new_cache
+        return (tp.sp_row if seq else tp.row)(out, wo)
+    return tp.sp_split(out @ wo) if seq else out @ wo
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None,
@@ -317,7 +339,7 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int = 0,
-                  mode: str = "prefill"):
+                  mode: str = "prefill", seq: bool = False):
     """Multi-head Latent Attention with decoupled RoPE (arXiv:2405.04434).
     mode: train | prefill (``positions`` = ``arange(S)``) | decode (the int
     position of the one token). Returns (out, new_cache); train returns no
@@ -336,9 +358,15 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
     of ``wq``, ``wuk``, ``wuv`` and ``wo``'s rows, summed over ``model``;
     ``wdkv``, ``wkr`` and the compressed cache whole on every rank, the
     latent ``c_kv`` and ``k_rope`` computed whole and entering the rank's
-    heads (``tp.enter``)."""
+    heads (``tp.enter``). ``seq`` (train only): ``x`` is the rank's tokens
+    of a sequence-parallel stream, gathered as it enters with the backward
+    that keeps its tokens (the whole ``wdkv``/``wkr`` products are alike on
+    every rank, so ``enter`` sums the heads' shares), and the output is the
+    rank's tokens."""
     if mode not in _MODES:
         raise ValueError(f"mla_attention mode {mode!r}: one of {_MODES}")
+    if seq:
+        x = tp.sp_gather(x, shares=False)
     b, s, _ = x.shape
     r, rd, nd, vd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
     split = tp.split(p["wq"], 1, cfg.n_heads * (nd + rd))
@@ -397,10 +425,7 @@ def mla_attention(p, x, positions, cfg: ModelConfig, *, cache=None, window: int 
             q_full = torch.cat([q_nope, q_rope], dim=-1)
             out = decode_attention(q_full, k_full, v, kv_pos, pos, window=window)
         new_cache = cache
-    out = out.reshape(b, s, h * vd)
-    if split:
-        return tp.row(out, p["wo"]), new_cache
-    return out @ p["wo"], new_cache
+    return _out_proj(out.reshape(b, s, h * vd), p["wo"], split, seq), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0, device=None):
@@ -428,13 +453,20 @@ def init_swiglu(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None)
     }
 
 
-def swiglu(p, x, d_ff: int | None = None):
+def swiglu(p, x, d_ff: int | None = None, seq: bool = False):
     """The SwiGLU FFN; tensor-parallel where ``wd`` holds a block of the
     ``d_ff`` rows (``x`` entering the rank's columns of ``wg``/``wu``, then
     the row product summed over ``model``). Without ``d_ff`` the leaves are
-    taken whole."""
+    taken whole. ``seq``: ``x`` is the rank's tokens of a
+    sequence-parallel stream, gathered as it enters (tensor-parallel: the
+    backward reduce-scatters, every path a share), the output the rank's
+    tokens."""
     if d_ff is not None and tp.split(p["wd"], 0, d_ff):
+        if seq:
+            return tp.sp_scatter(swiglu_partial(p, tp.sp_gather(x, shares=True)), x.dtype)
         return tp.reduce(swiglu_partial(p, tp.enter(x))).to(x.dtype)
+    if seq:
+        return tp.sp_split(swiglu(p, tp.sp_gather(x, shares=False)))
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
@@ -481,13 +513,19 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def moe_apply(p, x, cfg: ModelConfig):
+def moe_apply(p, x, cfg: ModelConfig, seq: bool = False):
     """Token-choice top-k MoE. Dispatches as the JAX function does: to the
     expert-parallel ``moe_apply_ep`` under a mesh context whose ``model``
     axis divides the experts, else ``moe_apply_local``. Returns (y,
-    aux_loss)."""
+    aux_loss). ``seq``: ``x`` is the rank's tokens of a sequence-parallel
+    stream and so is y; ``moe_apply_local`` (whole experts, its capacity
+    over every token of the call) runs alike on every rank on the gathered
+    tokens."""
     if ctx.expert_parallel(cfg.n_experts):
-        return moe_apply_ep(p, x, cfg)
+        return moe_apply_ep(p, x, cfg, seq)
+    if seq:
+        y, aux = moe_apply_local(p, tp.sp_gather(x, shares=False), cfg)
+        return tp.sp_split(y), aux
     return moe_apply_local(p, x, cfg)
 
 
@@ -595,7 +633,7 @@ def _local_experts(w: torch.Tensor, rows: slice, n_experts: int) -> torch.Tensor
     return w
 
 
-def moe_apply_ep(p, x, cfg: ModelConfig):
+def moe_apply_ep(p, x, cfg: ModelConfig, seq: bool = False):
     """Expert-parallel MoE over the mesh context's ``model`` group (the JAX
     package's ``moe_apply_ep``, its shard_map body on each rank).
 
@@ -620,7 +658,13 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     gradients are summed over the model ranks (JAX sums the cotangent of an
     input its spec leaves unsplit over ``model``); the router's own path
     and aux are the same on every model rank and are not summed. The expert
-    leaves must then hold only this rank's experts."""
+    leaves must then hold only this rank's experts.
+
+    ``seq`` (a sequence-parallel train step): ``x`` is the rank's tokens
+    (B, S/n, D), gathered as they enter with the backward that keeps its
+    tokens (the router's path is alike on every rank; ``replicated`` sums
+    the experts' shares), and the float32 partial is reduce-scattered
+    along S in place of the all-reduce: y is the rank's tokens."""
     mesh = ctx.get_mesh()
     e = cfg.n_experts
     rows = ctx.expert_rows(e)
@@ -634,6 +678,8 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
                          "hold this rank's experts (init_params under the mesh_context, or "
                          "lm_params_from_numpy(mesh=)), else the other experts' gradients "
                          "are lost")
+    if seq:
+        x = tp.sp_gather(x, shares=False)
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     gate, idx, aux, pos, keep, cap = moe_route(p, xf, cfg)
@@ -645,6 +691,11 @@ def moe_apply_ep(p, x, cfg: ModelConfig):
     shared_tp = cfg.n_shared_experts and tp.split(p["shared"]["wd"], 0, shared_d_ff(cfg))
     if shared_tp:
         y = y + swiglu_partial(p["shared"], xd)
+    if seq:
+        y = tp.sp_scatter(y.reshape(b, s, d), x.dtype)
+        if cfg.n_shared_experts and not shared_tp:
+            y = y + tp.sp_split(swiglu(p["shared"], x))
+        return y, aux
     y = psum(mesh, y, "model").to(x.dtype)
     if cfg.n_shared_experts and not shared_tp:
         y = y + swiglu(p["shared"], xf)
@@ -694,7 +745,7 @@ def _causal_conv(x, w, b, state=None):
     return y + b, new_state
 
 
-def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
+def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill", seq: bool = False):
     """Selective-scan SSM (Mamba-1). Returns (out, new_cache).
 
     prefill: ``kernels.ssm_scan`` over the sequence, from h = 0, or, given
@@ -711,7 +762,11 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     and its rows of ``A`` and ``D``, and the decode update on them; ``x_proj``
     and ``out_proj`` are row products summed over ``model`` (dt, B and C
     come whole out of the first and enter the rank's channels: their
-    gradients are summed over ``model`` too)."""
+    gradients are summed over ``model`` too). ``seq`` (train only): ``x``
+    is the rank's tokens of a sequence-parallel stream, gathered along S as
+    it enters (tensor-parallel: the backward reduce-scatters, ``in_proj``'s
+    columns a share) so the conv and the scan see the whole sequence; the
+    output is the rank's tokens."""
     if mode not in _MODES:
         raise ValueError(f"mamba_block mode {mode!r}: one of {_MODES}")
     if mode == "train" and cache is not None:
@@ -720,7 +775,9 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     split = tp.split(p["in_proj"], 1, 2 * cfg.d_inner)
     di = p["in_proj"].shape[1] // 2  # the rank's channels
 
-    u = (tp.enter(x) if split else x) @ p["in_proj"]
+    if seq:
+        x = tp.sp_gather(x, shares=split)
+    u = (tp.enter(x) if split and not seq else x) @ p["in_proj"]
     xs, z = u[..., :di], u[..., di:]
     conv_state = cache["conv"] if cache is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
@@ -744,8 +801,7 @@ def mamba_block(p, x, cfg: ModelConfig, *, cache=None, mode: str = "prefill"):
     else:
         y, h = ssm_scan(dt, a, bmat, cmat, xs_scan, p["D"], y_dtype=x.dtype,
                         h0=None if cache is None else cache["ssm"])
-    out = y.to(x.dtype) * silu(z)
-    out = tp.row(out, p["out_proj"]) if split else out @ p["out_proj"]
+    out = _out_proj(y.to(x.dtype) * silu(z), p["out_proj"], split, seq)
     return out, None if mode == "train" else {"conv": new_conv, "ssm": h}
 
 

@@ -65,6 +65,19 @@ The train step differentiates ``lm_objective``'s rank share of the global
 loss and updates the rank's blocks (``apply_train_step``): the ``model``
 ranks of a data shard compute the same share, and TP's collectives carry
 the backward without summing a gradient over ``model``.
+
+Under ``mesh_context(seq_parallel=True)`` a train step whose stream of S
+positions the ``model`` axis divides (``context.seq_split``, JAX's rule)
+takes JAX's sequence-parallel layout: the embedded stream is split into
+each ``model`` rank's S/n tokens (``tp.sp_split``), every block's norms
+and residual adds run on them and its checkpointed input is (B_loc, S/n,
+D), each mixer and FFN gathers them along S and reduce-scatters its row
+product back (``launch/tp.py``), and the final norm too runs on the
+rank's tokens before one gather gives the head and the loss whole rows:
+the norm's work is split like the blocks' and every norm's gradient is
+then a share, which the step sums over ``model`` with the others
+(``seq_norms``, ``zero.reduce_grads``). Prefill, decode and whisper never
+split, as JAX's blocks apply the layout in train mode only.
 """
 
 from __future__ import annotations
@@ -233,30 +246,35 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
 
 
 def apply_block(p, x, positions, cfg: ModelConfig, spec: LayerSpec, *, cache=None,
-                window: int = 0, mode: str = "prefill", by_position: bool = False):
+                window: int = 0, mode: str = "prefill", by_position: bool = False,
+                seq: bool = False):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss), the aux
     loss None without an MoE FFN. ``by_position``: GQA masks by the t
     stream (``gqa_attention``). Under a mesh the block's ZeRO blocks are
-    gathered here, inside the checkpointed function (``zero.gathered``)."""
+    gathered here, inside the checkpointed function (``zero.gathered``).
+    ``seq``: ``x`` is this rank's tokens of a sequence-parallel stream
+    (module docstring); the norms and residual adds run on them, and the
+    mixer and the FFN or MoE take them in and give theirs back."""
     p = Z.gathered(p)
     aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "mamba":
-        mixed, new_cache = L.mamba_block(p["mixer"], h, cfg, cache=cache, mode=mode)
+        mixed, new_cache = L.mamba_block(p["mixer"], h, cfg, cache=cache, mode=mode, seq=seq)
     elif cfg.attn_type == "mla":
         mixed, new_cache = L.mla_attention(p["mixer"], h, positions, cfg, cache=cache,
-                                           window=window, mode=mode)
+                                           window=window, mode=mode, seq=seq)
     else:
         mixed, new_cache = L.gqa_attention(p["mixer"], h, positions, cfg, cache=cache,
-                                           window=window, mode=mode, by_position=by_position)
+                                           window=window, mode=mode, by_position=by_position,
+                                           seq=seq)
     x = x + mixed
     if "moe" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        y, aux = L.moe_apply(p["moe"], h2, cfg)
+        y, aux = L.moe_apply(p["moe"], h2, cfg, seq=seq)
         x = x + y
     elif "ffn" in p:
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.swiglu(p["ffn"], h2, cfg.d_ff)
+        x = x + L.swiglu(p["ffn"], h2, cfg.d_ff, seq=seq)
     return x, new_cache, aux
 
 
@@ -407,6 +425,9 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
         positions = cache["pos"]
     else:
         positions, by_position = _prefill_positions(cfg, positions, s, x.device)
+    seq = mode == "train" and ctx.seq_split(s)
+    if seq:  # each model rank's S/n tokens of the stream between blocks
+        x = tp.sp_split(x)
 
     new_layers = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -414,16 +435,18 @@ def _forward(params, cfg, tokens, positions, vision_embeds, cache, window, mode,
         c = cache["layers"][i] if cache is not None else None
         if remat:  # jax.checkpoint around the block: recomputed in the backward
             x, nc, aux = checkpoint(apply_block, blk, x, positions, cfg, spec, window=window,
-                                    mode=mode, by_position=by_position, use_reentrant=False,
-                                    preserve_rng_state=False)
+                                    mode=mode, by_position=by_position, seq=seq,
+                                    use_reentrant=False, preserve_rng_state=False)
         else:
             x, nc, aux = apply_block(blk, x, positions, cfg, spec, cache=c, window=window,
-                                     mode=mode, by_position=by_position)
+                                     mode=mode, by_position=by_position, seq=seq)
         new_layers.append(nc)
         if aux is not None:
             aux_total = aux_total + aux
 
     x = L.rms_norm(x, Z.full(params.final_norm), cfg.norm_eps)
+    if seq:  # whole rows for the head and the loss; every rank's use of them alike
+        x = tp.sp_gather(x, shares=False)
     logits = _logits(params, cfg, x, embed, mode)
     if mode == "train":
         return logits, None, aux_total
@@ -558,7 +581,27 @@ def param_tree(model: nn.Module) -> dict[str, nn.Parameter]:
     return dict(model.named_parameters())
 
 
-def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
+def stream_len(cfg: ModelConfig, batch: dict) -> int:
+    """The positions of the residual stream a step of ``batch`` runs: its
+    tokens, and the vision prefix under the vision stub."""
+    s = batch["tokens"].shape[1]
+    if cfg.frontend == "vision_stub" and batch.get("vision_embeds") is not None:
+        s += batch["vision_embeds"].shape[1]
+    return s
+
+
+def seq_norms(model: nn.Module, cfg: ModelConfig, batch: dict) -> tuple[str, ...]:
+    """The parameters whose gradients a train step of ``model`` on the
+    global ``batch`` sums over ``model`` (``zero.reduce_grads``): every
+    norm where the step splits its stream (``context.seq_split``), since
+    each ``model`` rank runs them on its own tokens; none elsewhere."""
+    if not ctx.seq_split(stream_len(cfg, batch)):
+        return ()
+    return tuple(n for n, _ in model.named_parameters()
+                 if n.rsplit(".", 1)[-1] in ("norm1", "norm2", "final_norm"))
+
+
+def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of, over_model=()):
     """One optimizer step of ``model`` in place: ``loss_of()`` returns
     (what this rank differentiates, the loss), ``lm_objective``'s or
     ``whisper.whisper_objective``'s pair (one tensor twice without a mesh);
@@ -571,8 +614,9 @@ def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
     The optimizer runs in place where it offers to (``Optimizer.apply_``:
     the same arithmetic bit for bit, one copy of the moments and the
     state's tensors overwritten). Under a mesh the parameters are this
-    rank's blocks and their gradients come summed over the data ranks
-    (``zero.reduce_grads``) as a ``SplitTree``."""
+    rank's blocks and their gradients come summed over the data ranks, and
+    those named in ``over_model`` over ``model`` too
+    (``zero.reduce_grads``), as a ``SplitTree``."""
     tree = param_tree(model)
     mesh = ctx.get_mesh()
     for p in tree.values():
@@ -584,7 +628,7 @@ def apply_train_step(model: nn.Module, opt_state, optimizer, loss_of):
              for (name, p), g in zip(tree.items(), grads)}
     params = {name: p.detach() for name, p in tree.items()}
     if mesh is not None:
-        grads = Z.reduce_grads(grads, tree, mesh)
+        grads = Z.reduce_grads(grads, tree, mesh, over_model)
     if optimizer.apply_ is not None:
         return model, optimizer.apply_(grads, opt_state, params), loss.detach()
     updates, opt_state = optimizer.update(grads, opt_state, params)
@@ -601,7 +645,8 @@ def make_train_step(cfg: ModelConfig, optimizer, window: int = 0, remat: bool = 
         ``lm_objective``'s): (params updated in place, opt_state, loss)."""
         return apply_train_step(params, opt_state, optimizer,
                                 lambda: lm_objective(params, cfg, batch, window=window,
-                                                     remat=remat))
+                                                     remat=remat),
+                                seq_norms(params, cfg, batch))
 
     return train_step
 

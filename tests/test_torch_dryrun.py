@@ -6,7 +6,8 @@ The reference: one ``tests/_subproc.run_forced(code, 4)`` call runs
 ``memory_analysis`` and ``hlo_analysis.analyze``) on a (2, 2) mesh of host
 devices for the reduced granite-3-8b (GQA), falcon-mamba-7b (Mamba) and
 deepseek-moe-16b (MoE) at train, prefill and decode shapes cut to a global
-batch of 8 x 256 tokens: it patches ``get_config``, ``get_shape`` and
+batch of 8 x 256 tokens, and granite's train step again under
+``seq_parallel=True``: it patches ``get_config``, ``get_shape`` and
 ``make_production_mesh`` inside that subprocess only. The port traces the
 same on fake tensors over a fake world of 4, rank 0.
 
@@ -33,7 +34,14 @@ Asserted:
 - the 256-rank production mesh traces all four shapes of the reduced
   granite on rank 0 (and a 512-rank two-pod mesh one), with the JAX
   package's result keys;
-- ``--fl-shared`` and ``--seq-parallel`` give a result through the CLI.
+- ``--fl-shared`` gives a result through the CLI;
+- under ``seq_parallel`` granite's train step holds JAX's arguments and
+  product flops as above, its peak falls below the port's own trace
+  without it, with the same products and launches, and its stream's
+  all-reduces give way to reduce-scatters and all-gathers, which the
+  checkpoint's recompute runs again; a prefill, a decode, whisper, a
+  (d, 1) mesh and a sequence the ``model`` axis does not divide trace the
+  same step with or without the flag.
 """
 
 from __future__ import annotations
@@ -74,11 +82,11 @@ mesh = jax.make_mesh({mesh}, ("data", "model"), devices=jax.devices()[:4],
                      axis_types=(AxisType.Auto,) * 2)
 D.make_production_mesh = lambda multi_pod=False: mesh
 out = {{}}
-for arch in {archs!r}:
-    for shape in {shapes!r}:
-        r = D.run_one(arch, shape, verbose=False)
-        out[arch + " " + shape] = {{"argument_bytes": r["memory"]["argument_bytes"],
-                                   "flops": r["flops_per_device"]}}
+for arch, shape, sp in [(a, s, False) for a in {archs!r} for s in {shapes!r}] + [
+        ("granite-3-8b", "train_4k", True)]:
+    r = D.run_one(arch, shape, verbose=False, seq_parallel=sp)
+    out[arch + " " + shape + (" seq_parallel" if sp else "")] = {{
+        "argument_bytes": r["memory"]["argument_bytes"], "flops": r["flops_per_device"]}}
 with open({out!r}, "w") as f:
     json.dump(out, f)
 print("OK")
@@ -98,11 +106,20 @@ def jax_results(tmp_path_factory):
     return json.loads(out.read_text())
 
 
+SP_CASE = "granite-3-8b train_4k seq_parallel"
+CASES = [*(f"{a} {s}" for a in ARCHS for s in SHAPES), SP_CASE]
+
+
+def _port(arch, shape, seq_parallel=False, mesh=MESH, seq=S):
+    return run_one(arch, shape, mesh=mesh, cfg=get_config(arch).reduced(), batch=B, seq=seq,
+                   verbose=False, seq_parallel=seq_parallel)
+
+
 @pytest.fixture(scope="module")
 def port_results():
-    return {f"{a} {s}": run_one(a, s, mesh=MESH, cfg=get_config(a).reduced(), batch=B, seq=S,
-                                verbose=False)
-            for a in ARCHS for s in SHAPES}
+    out = {f"{a} {s}": _port(a, s) for a in ARCHS for s in SHAPES}
+    out[SP_CASE] = _port("granite-3-8b", "train_4k", seq_parallel=True)
+    return out
 
 
 def _jax_attention_flops(cfg, shape: str) -> float:
@@ -163,18 +180,18 @@ def _held_less_jax(cfg, shape: str) -> int:
     return int(out + batch * (1 - 1 / n_dp))
 
 
-@pytest.mark.parametrize("case", [f"{a} {s}" for a in ARCHS for s in SHAPES])
+@pytest.mark.parametrize("case", CASES)
 def test_argument_bytes_equal_jax(jax_results, port_results, case):
-    arch, shape = case.split()
+    arch, shape = case.split()[:2]
     mem, want = port_results[case]["memory"], jax_results[case]["argument_bytes"]
     assert mem["argument_bytes"] - _held_less_jax(get_config(arch).reduced(), shape) == want
     assert mem["jax_layout_argument_bytes"] == want
     assert mem["argument_bytes"] + mem["temp_bytes"] == mem["peak_bytes"]
 
 
-@pytest.mark.parametrize("case", [f"{a} {s}" for a in ARCHS for s in SHAPES])
+@pytest.mark.parametrize("case", CASES)
 def test_product_flops_outside_attention_agree(jax_results, port_results, case):
-    arch, shape = case.split()
+    arch, shape = case.split()[:2]
     cfg, r = get_config(arch).reduced(), port_results[case]
     port = r["flops_per_device"] - r["attention_flops"] - _layout_flops(cfg, shape)
     want = jax_results[case]["flops"] - _jax_attention_flops(cfg, shape)
@@ -205,11 +222,58 @@ def test_production_mesh_traces_every_shape(shape):
 
 
 def test_two_pod_mesh_and_seq_parallel_are_recorded():
+    """On the two-pod mesh the flag is recorded: not applied to a prefill
+    (JAX applies it in training only), applied to a train step."""
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(), n_layers=1)
     r = run_one("granite-3-8b", "prefill_32k", multi_pod=True, seq_parallel=True, cfg=cfg,
                 batch=64, seq=128, verbose=False)
     assert r["n_chips"] == 512 and r["mesh"] == {"pod": 2, "data": 16, "model": 16}
     assert r["seq_parallel"] and "not applied" in r["layout"]
+    r = run_one("granite-3-8b", "train_4k", multi_pod=True, seq_parallel=True, cfg=cfg,
+                batch=64, seq=128, verbose=False)
+    assert r["seq_parallel"] and "sequence-parallel" in r["layout"]
+    assert "not applied" not in r["layout"] and r["collectives"]["reduce-scatter"] > 0
+
+
+def test_seq_parallel_lowers_the_peak_and_swaps_the_all_reduces(port_results):
+    """granite's train step on (2, 2) under ``seq_parallel`` against the
+    port's trace without it: a lower peak (each block's checkpointed input
+    is a rank's S/n tokens), the same products and launches, fewer
+    all-reduce bytes and more reduce-scatter and all-gather bytes, and the
+    recompute runs the stream's gathers and reduce-scatters again."""
+    tp, sp = port_results["granite-3-8b train_4k"], port_results[SP_CASE]
+    assert "sequence-parallel" in sp["layout"] and "sequence" not in tp["layout"]
+    assert sp["memory"]["peak_bytes"] < tp["memory"]["peak_bytes"]
+    assert sp["memory"]["argument_bytes"] == tp["memory"]["argument_bytes"]
+    assert sp["flops_per_device"] == tp["flops_per_device"] and sp["launches"] == tp["launches"]
+    assert sp["collectives"]["all-reduce"] < tp["collectives"]["all-reduce"] / 4
+    for kind in ("reduce-scatter", "all-gather"):
+        assert sp["collectives"][kind] > tp["collectives"][kind], kind
+        assert sp["recompute_collectives"][kind] > tp["recompute_collectives"].get(kind, 0), kind
+    assert tp["recompute_collectives"]["all-reduce"] > 0
+    assert "all-reduce" not in sp["recompute_collectives"]
+
+
+_UNCHANGED = {  # case -> (arch, shape, mesh, seq)
+    "granite prefill": ("granite-3-8b", "prefill_32k", MESH, S),
+    "granite decode": ("granite-3-8b", "decode_32k", MESH, S),
+    "whisper train": ("whisper-tiny", "train_4k", MESH, S),
+    "granite train on (4, 1)": ("granite-3-8b", "train_4k", (4, 1), S),
+    "granite train, S = 255": ("granite-3-8b", "train_4k", MESH, 255),
+}
+_TIMES = ("lower_s", "compile_s", "seq_parallel", "layout")
+
+
+@pytest.mark.parametrize("case", _UNCHANGED)
+def test_seq_parallel_leaves_other_steps_unchanged(case):
+    """Where JAX does not apply the layout (a prefill, a decode, whisper, a
+    (d, 1) mesh, a sequence the ``model`` axis does not divide), the flag
+    traces the same step: every figure of the result equal."""
+    arch, shape, mesh, seq = _UNCHANGED[case]
+    off, on = (_port(arch, shape, sp, mesh, seq) for sp in (False, True))
+    assert on["seq_parallel"] and "not applied" in on["layout"]
+    assert {k: v for k, v in on.items() if k not in _TIMES} == {
+        k: v for k, v in off.items() if k not in _TIMES}
 
 
 def test_cli_fl_shared_writes_its_result(tmp_path, capsys, monkeypatch):

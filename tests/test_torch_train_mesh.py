@@ -16,7 +16,8 @@ optimizer, ``apply_updates``) with ``in_shardings`` from
 float32 granite-3-8b, deepseek-moe-16b and falcon-mamba-7b on (2, 2) and
 (4, 1), deepseek-moe on (1, 4), granite on (1, 2), (1, 4) and on (2, 2)
 under ``seq_parallel=True``, jamba-v0.1-52b and deepseek-v2-lite-16b (MLA)
-on (1, 2) and (2, 2), and whisper-tiny on (2, 1) and (2, 2); 3 steps each,
+on (1, 2) and (2, 2), jamba on (1, 2) and deepseek-v2-lite on (2, 2) under
+``seq_parallel=True`` too, and whisper-tiny on (2, 1) and (2, 2); 3 steps each,
 on batches of 4 x 32 (whisper: 4 x 32 tokens over 4 x 64 frames) whose
 labels hold -1 in unequal counts across every data split (5, 0, 11 and 2 a
 row). For deepseek-moe and moonshot-v1-16b-a3b (a dense first layer, shared
@@ -30,7 +31,9 @@ same weights through ``lm_params_from_numpy(..., mesh=, zero=True)`` (or
 ``model`` axis over 1 a decoder's non-expert leaves are tensor-parallel.
 Asserted, rank by rank:
 
-- every step's loss within 1e-5 of JAX's sharded step, every rank's equal;
+- every step's loss within 1e-5 of JAX's sharded step, every rank's equal
+  (the sequence-parallel cases against JAX's step under
+  ``seq_parallel=True``, which computes the values without it);
   the gradients (gathered) and the parameters after 3 steps within
   ``tests/_torch_train.py``'s contract (1e-5 of max, 2^-8 behind a scan);
 - each rank's blocks of the parameters, gradients and both AdamW moments
@@ -44,6 +47,10 @@ Asserted, rank by rank:
   unsharded init's blocks;
 - the leaves whole over ``model`` (their parameters, gradients and
   moments) are bitwise equal across the ``model`` ranks of a data shard;
+- under ``seq_parallel`` every block's input on a rank is (B_loc, S/n, D),
+  its rows and its 1/n of the sequence; without it, (B_loc, S, D); where
+  JAX does not apply it (a prefill, whisper, a sequence the ``model`` axis
+  does not divide, on (1, 2)) the flag changes no bit;
 - ``global_norm`` of the rank's blocks, under the mesh, equals every rank's
   and the unsharded norm of the gathered gradient within 1e-6;
 - the aux rule (ROADMAP.md queue 3): JAX's sharded gradient is
@@ -53,10 +60,11 @@ Asserted, rank by rank:
   times data shard 0's aux;
 - under a ``model`` axis, training an MoE whose leaves hold every expert
   raises;
-- ``launch/mesh.py``'s three collectives under autograd (``gather_blocks``,
-  ``psum``, ``replicated``) and ``launch/tp.py``'s three (``row``,
-  ``enter``, ``gather``), outputs and gradients exactly, on a (2, 2) mesh
-  of the world;
+- ``launch/mesh.py``'s five collectives under autograd (``gather_blocks``,
+  ``psum``, ``replicated``, ``scatter_sum``, ``split``) and
+  ``launch/tp.py``'s (``row``, ``enter``, ``gather`` and the
+  sequence-parallel ``sp_gather`` both ways, ``sp_row``, ``sp_split``),
+  outputs and gradients exactly, on a (2, 2) mesh of the world;
 - ZeRO blocks are cut over the open ``mesh_context``'s data axes alone
   (a pod axis left out of them keeps whole copies), by ``init_params`` and
   ``lm_params_from_numpy`` alike, and only when asked for (``zero``);
@@ -110,6 +118,8 @@ TP_ARCHS = ("jamba-v0.1-52b", "deepseek-v2-lite-16b")
 CASES = {**{f"{arch} {d}x{m}": (arch, (d, m), False) for arch in ARCHS for d, m in ((2, 2), (4, 1))},
          "deepseek-moe-16b 1x4": ("deepseek-moe-16b", (1, 4), False),
          "granite-3-8b 2x2 seq_parallel": ("granite-3-8b", (2, 2), True),
+         "jamba-v0.1-52b 1x2 seq_parallel": ("jamba-v0.1-52b", (1, 2), True),
+         "deepseek-v2-lite-16b 2x2 seq_parallel": ("deepseek-v2-lite-16b", (2, 2), True),
          **{f"granite-3-8b 1x{m}": ("granite-3-8b", (1, m), False) for m in (2, 4)},
          **{f"{arch} {d}x2": (arch, (d, 2), False) for arch in TP_ARCHS for d in (1, 2)},
          **{f"whisper-tiny 2x{m}": ("whisper-tiny", (2, m), False) for m in (1, 2)}}
@@ -175,6 +185,13 @@ def _port_case(arch, shape, seq_parallel, inputs, cfg=None, key=None) -> dict:
     cfg, a = cfg or _cfg(arch), inputs[key or arch]
     carry = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
     mesh = make_rank_mesh(shape, device="cpu")
+    apply_block, block_inputs = T.apply_block, []
+
+    def recording_block(p, x, *args, **kwargs):  # every block input, the recompute's too
+        block_inputs.append(tuple(x.shape))
+        return apply_block(p, x, *args, **kwargs)
+
+    T.apply_block = recording_block
     try:
         with ctx.mesh_context(mesh, seq_parallel=seq_parallel):
             init = {k: _np(p) for k, p in param_tree(
@@ -195,7 +212,10 @@ def _port_case(arch, shape, seq_parallel, inputs, cfg=None, key=None) -> dict:
             def gathered(blocks):
                 return {k: _np(zero.whole(params[k], mesh, blocks[k])) for k in params}
 
+            rows = ctx.local_batch(cfg, B)
             out = {"coords": (mesh.coords["data"], mesh.coords["model"]), "losses": losses,
+                   "block_inputs": sorted(set(block_inputs)),
+                   "local_stream": (rows, S // shape[1] if seq_parallel else S, cfg.d_model),
                    "norms": [n for _, n in seen],
                    "grads": [{k: _np(g) for k, g in grads.items()} for grads, _ in seen],
                    "params": {k: _np(p) for k, p in params.items()},
@@ -206,32 +226,46 @@ def _port_case(arch, shape, seq_parallel, inputs, cfg=None, key=None) -> dict:
             if mesh.rank == 0:
                 out["whole"] = whole
     finally:
+        T.apply_block = apply_block
         mesh.close()
     return out
 
 
 def _collective_inputs(rank: int):
     """Rank ``rank``'s input and the weights of the loss of each collective
-    of ``_collectives``; ``tp_row``'s matrix; the TP weights of ``tp_row``
-    and ``tp_gather`` are the same on the two model ranks of a data index,
-    as a loss downstream of them is."""
+    of ``_collectives``; ``tp_row``'s matrix (``sp_row`` takes its first
+    two columns twice); the TP weights of ``tp_row`` and ``tp_gather`` are
+    the same on the two model ranks of a data index, as a loss downstream
+    of them is. The sequence-parallel ones work on dim 1, two columns of
+    the input a model rank."""
     t = torch.arange(8.0).reshape(2, 4) + 10 * rank
     i = rank // 2
     return t, {"gather": torch.arange(16.0).reshape(2, 8) + rank,
                "psum": torch.full((2, 4), rank + 1.0), "replicated": torch.full((2, 4), rank + 1.0),
+               "scatter_sum": torch.arange(4.0).reshape(2, 2) + rank,
+               "split": torch.arange(4.0).reshape(2, 2) * (rank + 1),
                "tp_row": torch.arange(6.0).reshape(2, 3) + i,
                "tp_enter": torch.full((2, 4), rank + 1.0),
-               "tp_gather": torch.arange(16.0).reshape(2, 8) + 3 * i}, (
+               "tp_gather": torch.arange(16.0).reshape(2, 8) + 3 * i,
+               "sp_gather_shares": torch.arange(16.0).reshape(2, 8) - rank,
+               "sp_gather": torch.arange(16.0).reshape(2, 8) + 2 * i,
+               "sp_row": torch.arange(4.0).reshape(2, 2) + rank,
+               "sp_split": torch.arange(4.0).reshape(2, 2) - rank}, (
         torch.arange(12.0).reshape(4, 3) - rank)
 
 
+def _sp_matrix(m: torch.Tensor) -> torch.Tensor:
+    """``sp_row``'s (4, 4) matrix of a (4, 3) ``tp_row`` one."""
+    return torch.cat([m[:, :2], m[:, :2]], dim=1)
+
+
 def _collectives() -> dict:
-    """On a (2, 2) mesh: each of ``launch/mesh.py``'s three collectives under
-    autograd and ``launch/tp.py``'s three (under the mesh context) applied
-    to this rank's ``_collective_inputs``, the output and the gradient of
-    the output's sum weighted by that collective's weights."""
+    """On a (2, 2) mesh: each of ``launch/mesh.py``'s five collectives under
+    autograd and ``launch/tp.py``'s (under the mesh context) applied to
+    this rank's ``_collective_inputs``, the output and the gradient of the
+    output's sum weighted by that collective's weights."""
     from repro_torch.launch import tp
-    from repro_torch.launch.mesh import gather_blocks, psum, replicated
+    from repro_torch.launch.mesh import gather_blocks, psum, replicated, scatter_sum, split
 
     mesh = make_rank_mesh((2, 2), device="cpu")
     try:
@@ -239,7 +273,12 @@ def _collectives() -> dict:
         fns = {"gather": lambda x: gather_blocks(mesh, x, ("data",), 1),
                "psum": lambda x: psum(mesh, x, "model"),
                "replicated": lambda x: replicated(mesh, x, "model"),
-               "tp_row": lambda x: tp.row(x, w), "tp_enter": tp.enter, "tp_gather": tp.gather}
+               "scatter_sum": lambda x: scatter_sum(mesh, x, "model", 1),
+               "split": lambda x: split(mesh, x, "model", 1),
+               "tp_row": lambda x: tp.row(x, w), "tp_enter": tp.enter, "tp_gather": tp.gather,
+               "sp_gather_shares": lambda x: tp.sp_gather(x, shares=True),
+               "sp_gather": lambda x: tp.sp_gather(x, shares=False),
+               "sp_row": lambda x: tp.sp_row(x, _sp_matrix(w)), "sp_split": tp.sp_split}
         out = {}
         with ctx.mesh_context(mesh):
             for name, fn in fns.items():
@@ -247,6 +286,38 @@ def _collectives() -> dict:
                 y = fn(x)
                 (g,) = torch.autograd.grad(torch.sum(y * weights[name]), [x])
                 out[name] = (_np(y), _np(g))
+    finally:
+        mesh.close()
+    return out
+
+
+def _unchanged_case(inputs) -> dict:
+    """On (1, 2), with ``seq_parallel`` off and on: one train step of the
+    reduced granite on S - 1 tokens (the ``model`` axis does not divide
+    them) and of whisper, and granite's prefill logits on S tokens; this
+    rank's loss, updated parameters and logits of each."""
+    out = {}
+    mesh = make_rank_mesh((1, 2), device="cpu")
+    try:
+        for sp in (False, True):
+            runs = {}
+            with ctx.mesh_context(mesh, seq_parallel=sp):
+                for arch, cut in (("granite-3-8b", S - 1), ("whisper-tiny", S)):
+                    cfg, a = _cfg(arch), inputs[arch]
+                    carry = whisper_params_from_numpy if cfg.encoder_decoder else lm_params_from_numpy
+                    model = carry(cfg, a["params"], device="cpu", mesh=mesh, zero=True)
+                    opt = _optimizer()
+                    state = opt.init(param_tree(model))
+                    batch = {k: torch.from_numpy(v[:, :cut] if k != "frames" else v)
+                             for k, v in a["batches"][0].items()}
+                    model, state, loss = get_model(cfg).make_train_step(opt)(model, state, batch)
+                    runs[arch] = (float(loss), {k: _np(p) for k, p in param_tree(model).items()})
+                cfg = _cfg("granite-3-8b")
+                model = lm_params_from_numpy(cfg, inputs["granite-3-8b"]["params"], device="cpu",
+                                             mesh=mesh)
+                tokens = torch.from_numpy(inputs["granite-3-8b"]["batches"][0]["tokens"])
+                runs["prefill"] = _np(T.forward(model, cfg, tokens, mode="prefill")[0])
+            out[sp] = runs
     finally:
         mesh.close()
     return out
@@ -313,6 +384,7 @@ def _rank_main(rank: str, world: str, store_dir: str, base: str) -> None:
             out["tied 1x2"] = _port_case("granite-3-8b", (1, 2), False, inputs, _tied_cfg(),
                                          "tied")
             out["cross_silo 2x1"] = _cross_silo_case(inputs)
+            out["unchanged 1x2"] = _unchanged_case(inputs)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(base, f"port_w{world}_r{rank}.pkl"), "wb") as f:
@@ -790,13 +862,41 @@ def test_each_rank_holds_its_blocks_of_params_grads_and_moments(runs, case):
     assert n_split > 0 or shape == (1, 1)
 
 
+@pytest.mark.parametrize("case", [c for c, (arch, shape, _) in CASES.items()
+                                  if shape[1] > 1 and arch != "whisper-tiny"])
+def test_sequence_parallel_splits_each_blocks_input(runs, case):
+    """Every decoder block's input on every rank (forward and recompute) is
+    (B_loc, S/n, D) under ``seq_parallel``, the rank's rows and its 1/n of
+    the sequence on a ``model`` axis of n, and (B_loc, S, D) without it."""
+    _, shape, seq_parallel = CASES[case]
+    for rk in runs[1][case]:
+        rows, s, d = rk["local_stream"]
+        assert s == (S // shape[1] if seq_parallel else S) and rows in (B, B // shape[0])
+        assert rk["block_inputs"] == [(rows, s, d)], (case, rk["coords"], rk["block_inputs"])
+
+
+def test_seq_parallel_changes_no_bit_where_jax_does_not_apply_it(runs):
+    """On (1, 2) the flag leaves bitwise unchanged what JAX runs without
+    the layout: granite's train step on a sequence the ``model`` axis does
+    not divide, whisper's train step and granite's prefill (each rank's
+    loss, parameters after the step and logits)."""
+    for rk in runs[1]["unchanged 1x2"]:
+        off, on = rk[False], rk[True]
+        assert np.array_equal(off["prefill"], on["prefill"])
+        for arch in ("granite-3-8b", "whisper-tiny"):
+            assert off[arch][0] == on[arch][0], arch
+            for name, p in off[arch][1].items():
+                assert np.array_equal(p, on[arch][1][name]), (arch, name)
+
+
 @pytest.mark.parametrize("case", [c for c, (_, shape, _) in CASES.items() if shape[1] > 1])
 def test_leaves_whole_over_model_are_bitwise_equal_across_model_ranks(runs, case):
     """The leaves a rank holds whole over ``model`` (the norms, the router,
     MLA's ``wdkv``/``wkr``, a shared kv head, every whisper leaf; no
-    gradient is summed over ``model``) have the same bits on every ``model``
-    rank of a data shard: their parameters and both moments after the
-    steps and their gradients at every step."""
+    gradient is summed over ``model`` but the norms' of a sequence-parallel
+    step, by one all-reduce) have the same bits on every ``model`` rank of
+    a data shard: their parameters and both moments after the steps and
+    their gradients at every step."""
     ranks = runs[1][case]
     n_whole = 0
     for rk in ranks:
@@ -893,7 +993,11 @@ def test_collectives_under_autograd(runs):
     i's block kept; ``psum`` over ``model`` sums
     the model ranks' inputs with the identity for its gradient;
     ``replicated`` is the identity whose gradient sums the model ranks'
-    weights. Exactly (small integers in float32)."""
+    weights; ``scatter_sum`` over ``model`` on dim 1 sums the model ranks'
+    inputs and keeps rank j's block of columns, its gradient the model
+    ranks' weights concatenated; ``split`` keeps rank j's block of its own
+    input, its gradient the same concatenation. Exactly (small integers in
+    float32)."""
     ranks, t, _, w = _collective_case(runs)
     for r, got in enumerate(ranks):
         i, j = divmod(r, 2)
@@ -903,6 +1007,10 @@ def test_collectives_under_autograd(runs):
                        sum(w["gather"][k] for k in data)[:, 4 * i:4 * i + 4]),
             "psum": (sum(t[k] for k in model), w["psum"][r]),
             "replicated": (t[r], sum(w["replicated"][k] for k in model)),
+            "scatter_sum": (sum(t[k] for k in model)[:, 2 * j:2 * j + 2],
+                            np.concatenate([w["scatter_sum"][k] for k in model], axis=1)),
+            "split": (t[r][:, 2 * j:2 * j + 2],
+                      np.concatenate([w["split"][k] for k in model], axis=1)),
         }, r)
 
 
@@ -916,17 +1024,33 @@ def test_tensor_parallel_collectives_under_autograd(runs):
     gradient the model ranks' weights summed; ``gather`` concatenates the
     model ranks' inputs on the last dim, and its gradient is the rank's
     columns of the weights, not summed: a reduce-scatter there would
-    double them. Exactly (small integers in float32)."""
+    double them. The sequence-parallel pair, on dim 1: ``sp_gather``
+    concatenates the model ranks' inputs, its gradient with ``shares`` the
+    model ranks' weights summed and rank j's block kept, without them rank
+    j's block of its own weights; ``sp_row`` is rank j's block of columns
+    of the model ranks' ``x @ w`` summed, its gradient the model ranks'
+    weights concatenated times the rank's ``w.T``; ``sp_split`` keeps rank
+    j's block, its gradient the model ranks' weights concatenated. Exactly
+    (small integers in float32)."""
     ranks, t, m, w = _collective_case(runs)
     for r, got in enumerate(ranks):
         i, j = divmod(r, 2)
         model = [2 * i, 2 * i + 1]
         gathered = w["tp_gather"][r][:, 4 * j:4 * j + 4]
         assert not np.array_equal(gathered, 2 * gathered)
+        sp = [_sp_matrix(torch.from_numpy(m[k])).numpy() for k in range(4)]
         _assert_collectives(got, {
             "tp_row": (sum(t[k] @ m[k] for k in model), w["tp_row"][r] @ m[r].T),
             "tp_enter": (t[r], sum(w["tp_enter"][k] for k in model)),
             "tp_gather": (np.concatenate([t[k] for k in model], axis=1), gathered),
+            "sp_gather_shares": (np.concatenate([t[k] for k in model], axis=1),
+                                 sum(w["sp_gather_shares"][k] for k in model)[:, 4 * j:4 * j + 4]),
+            "sp_gather": (np.concatenate([t[k] for k in model], axis=1),
+                          w["sp_gather"][r][:, 4 * j:4 * j + 4]),
+            "sp_row": (sum(t[k] @ sp[k] for k in model)[:, 2 * j:2 * j + 2],
+                       np.concatenate([w["sp_row"][k] for k in model], axis=1) @ sp[r].T),
+            "sp_split": (t[r][:, 2 * j:2 * j + 2],
+                         np.concatenate([w["sp_split"][k] for k in model], axis=1)),
         }, r)
 
 
